@@ -1,0 +1,37 @@
+"""CUDA attention backend: prefill on kernel K3, decode on kernel K4.
+
+Counterpart of `tensorrt_llm_tpu/attention_backend/pallas_backend.py:51-108`.
+The KV append stays a plain `index_copy_` scatter (XLA does that scatter in
+the JAX package too).  The JAX backend's other branches -- INT8 pools,
+cyclic VSWA rings and tree-verify pair masks -- raise here: they belong to
+later slices and are not rerouted to another path.
+"""
+
+from __future__ import annotations
+
+from tensorrt_llm_tpu_torch.attention_backend.interface import (
+    AttentionBackend, AttentionMetadata)
+from tensorrt_llm_tpu_torch.ops.attention_plain import write_kv_cache
+from tensorrt_llm_tpu_torch.ops.flash_prefill import flash_prefill_attention
+from tensorrt_llm_tpu_torch.ops.paged_attention import paged_decode_attention
+
+
+class CudaAttention(AttentionBackend):
+    def __call__(self, q, k, v, k_cache, v_cache, meta: AttentionMetadata,
+                 sinks=None):
+        if isinstance(k_cache, tuple):
+            raise NotImplementedError("INT8 KV pools are not in this slice")
+        if meta.cyclic:
+            raise NotImplementedError("cyclic VSWA rings are not in this slice")
+        if meta.pair_mask is not None:
+            raise NotImplementedError("tree-verify attention is not in this "
+                                      "slice")
+        write_kv_cache(k_cache, v_cache, k, v, meta.slot_mapping)
+        if meta.mode == "prefill":
+            return flash_prefill_attention(
+                q, k_cache, v_cache, meta.block_tables[0],
+                kv_len=meta.q_offset + q.shape[0], q_offset=meta.q_offset,
+                scale=self.scale, sinks=sinks)
+        return paged_decode_attention(q, k_cache, v_cache, meta.block_tables,
+                                      meta.kv_lens, scale=self.scale,
+                                      sinks=sinks)

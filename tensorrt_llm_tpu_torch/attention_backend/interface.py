@@ -1,0 +1,63 @@
+"""Attention backend interface.
+
+Counterpart of `tensorrt_llm_tpu/attention_backend/interface.py`.  Two modes
+per step, as in the JAX package:
+
+* "prefill": one sequence's chunk of T tokens against its paged KV;
+  `block_tables` is ``[1, MB]`` and the chunk starts at `q_offset`, so the
+  sequence's KV length after the step is ``q_offset + T``.
+* "decode": B sequences, one token each; `block_tables` ``[B, MB]`` and
+  `kv_lens` ``[B]`` (including the new token).
+
+Tensors live on the step's device.  `q_offset` is a host int: the prefill
+kernel takes it as a launch argument, so no device value is read back.
+The backend follows the device: CUDA kernels on a CUDA device, the plain
+PyTorch versions on the CPU.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+
+@dataclasses.dataclass
+class AttentionMetadata:
+    positions: torch.Tensor = None       # [T] position of each input token
+    slot_mapping: torch.Tensor = None    # [T] flat KV slot; OOB -> page 0
+    block_tables: torch.Tensor = None    # [B, MB] int32
+    kv_lens: torch.Tensor = None         # [B] int32
+    q_offset: int = 0                    # prefill: position of the first token
+    mode: str = "decode"
+    # features of the JAX interface that this slice does not run
+    pair_mask: Optional[torch.Tensor] = None
+    cyclic: bool = False
+
+    def __post_init__(self):
+        assert self.mode in ("prefill", "decode")
+
+
+class AttentionBackend:
+    """Base: write the new K/V into the paged cache, then attend."""
+
+    def __init__(self, num_heads: int, num_kv_heads: int, head_dim: int,
+                 scale: float):
+        self.num_heads = num_heads
+        self.num_kv_heads = num_kv_heads
+        self.head_dim = head_dim
+        self.scale = scale
+
+    def __call__(self, q, k, v, k_cache, v_cache, meta: AttentionMetadata,
+                 sinks=None) -> torch.Tensor:
+        raise NotImplementedError
+
+
+def get_attention_backend(device) -> type:
+    from tensorrt_llm_tpu_torch.attention_backend.cuda_backend import (
+        CudaAttention)
+    from tensorrt_llm_tpu_torch.attention_backend.plain_backend import (
+        PlainAttention)
+    return CudaAttention if torch.device(device).type == "cuda" \
+        else PlainAttention

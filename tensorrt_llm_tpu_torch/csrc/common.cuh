@@ -1,0 +1,69 @@
+// Shared device helpers for the port's Hopper kernels: bf16 conversion,
+// int4 nibble extraction, the fused epilogue activations and the
+// m16n8k16 bf16 tensor-core MMA (mma.sync, f32 accumulate).
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace tllm {
+
+typedef __nv_bfloat16 bf16;
+
+// activation codes shared with ops/w4a16_gemm.py
+enum Act { ACT_NONE = 0, ACT_SILU = 1, ACT_GELU = 2, ACT_RELU = 3, ACT_RELU2 = 4 };
+
+template <int ACT>
+__device__ __forceinline__ float activate(float v) {
+  if (ACT == ACT_SILU) return v / (1.0f + expf(-v));
+  if (ACT == ACT_GELU) {
+    // tanh approximation, as jax.nn.gelu(approximate=True)
+    const float c = 0.7978845608028654f;  // sqrt(2/pi)
+    return 0.5f * v * (1.0f + tanhf(c * (v + 0.044715f * v * v * v)));
+  }
+  if (ACT == ACT_RELU) return v > 0.f ? v : 0.f;
+  if (ACT == ACT_RELU2) { float r = v > 0.f ? v : 0.f; return r * r; }
+  return v;
+}
+
+// signed low / high nibble of byte u (0..255)
+__device__ __forceinline__ int nib_lo(uint32_t u) { return ((int)(u << 28)) >> 28; }
+__device__ __forceinline__ int nib_hi(uint32_t u) { return ((int)(u << 24)) >> 28; }
+
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);  // .x = lo (low 16 bits)
+  return *reinterpret_cast<uint32_t*>(&p);
+}
+
+__device__ __forceinline__ void bf16x8_to_float(const uint4& v, float* f) {
+  const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&v);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    float2 t = __bfloat1622float2(p[i]);
+    f[2 * i] = t.x;
+    f[2 * i + 1] = t.y;
+  }
+}
+
+// D = A(16x16, row) * B(16x8, col) + D, bf16 inputs, f32 accumulators.
+// Fragment layout (g = lane / 4, t = lane % 4):
+//   a[0]: row g,   k 2t..2t+1    a[1]: row g+8, k 2t..2t+1
+//   a[2]: row g,   k 2t+8..+9    a[3]: row g+8, k 2t+8..+9
+//   b[0]: k 2t..2t+1, n g        b[1]: k 2t+8..+9, n g
+//   d[0..1]: row g, n 2t..2t+1   d[2..3]: row g+8, n 2t..2t+1
+__device__ __forceinline__ void mma_bf16_16816(float* d, const uint32_t* a,
+                                               uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t ld_u32(const bf16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+}  // namespace tllm

@@ -1,0 +1,57 @@
+"""Multi-head attention (GQA) over a paged KV cache.
+
+Counterpart of `tensorrt_llm_tpu/layers/attention.py` for the Llama family:
+fused QKV projection, RoPE, KV append and backend attention, output
+projection.  Attention sinks (a per-head logit in the softmax denominator)
+pass through when the parameters carry them.  Sliding windows, logit caps,
+q/k norms, NoPE layers and context parallelism belong to later slices.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+from torch import nn
+
+from tensorrt_llm_tpu_torch.attention_backend.interface import (
+    AttentionMetadata, get_attention_backend)
+from tensorrt_llm_tpu_torch.layers.linear import Linear
+from tensorrt_llm_tpu_torch.ops.rope import apply_rope
+from tensorrt_llm_tpu_torch.quantization import QuantConfig
+
+
+class Attention(nn.Module):
+    def __init__(self, hidden_size: int, num_heads: int, num_kv_heads: int,
+                 head_dim: int, quant: Optional[QuantConfig] = None,
+                 device="cuda"):
+        super().__init__()
+        self.num_heads = num_heads
+        self.num_kv_heads = num_kv_heads
+        self.head_dim = head_dim
+        qkv_out = (num_heads + 2 * num_kv_heads) * head_dim
+        self.qkv = Linear(hidden_size, qkv_out, quant, "qkv_proj")
+        self.o = Linear(num_heads * head_dim, hidden_size, quant, "o_proj")
+        self.register_buffer("sinks", None)
+        self.backend = get_attention_backend(device)(
+            num_heads, num_kv_heads, head_dim, head_dim ** -0.5)
+
+    def from_float(self, q_w, k_w, v_w, o_w) -> None:
+        self.qkv.from_float(torch.cat([q_w, k_w, v_w], dim=1))
+        self.o.from_float(o_w)
+
+    def forward(self, x: torch.Tensor,
+                rope_tables: Tuple[torch.Tensor, torch.Tensor],
+                kv_cache: Tuple[torch.Tensor, torch.Tensor],
+                meta: AttentionMetadata) -> torch.Tensor:
+        T = x.shape[0]
+        D, qh, kvh = self.head_dim, self.num_heads, self.num_kv_heads
+        qkv = self.qkv(x)
+        q = qkv[:, :qh * D].reshape(T, qh, D)
+        k = qkv[:, qh * D:(qh + kvh) * D].reshape(T, kvh, D)
+        v = qkv[:, (qh + kvh) * D:].reshape(T, kvh, D).contiguous()
+        q, k = apply_rope(q, k, meta.positions, *rope_tables)
+        k_cache, v_cache = kv_cache
+        out = self.backend(q.contiguous(), k.contiguous(), v, k_cache,
+                           v_cache, meta, sinks=self.sinks)
+        return self.o(out.reshape(T, qh * D))

@@ -1,0 +1,97 @@
+"""Linear layer, unquantized or W4A16.
+
+Counterpart of `tensorrt_llm_tpu/layers/linear.py` (`UnquantizedLinearMethod`
+and `W4A16LinearMethod`).  Weights keep the JAX package's ``[in, out]``
+orientation.  A W4A16 layer holds:
+
+* ``qweight`` int8 ``[N//BN, K//2, BN]``, the tiled packing (a K-paired
+  ``[K//2, N]`` weight is repacked at load time),
+* ``scales`` bf16 ``[K//G, N]`` (rounded once at load; the JAX package rounds
+  the same f32 scales to bf16 on every call),
+* optional ``zeros`` bf16 and ``bias`` f32.
+
+An unquantized layer (lm_head) holds ``weight`` bf16 ``[in, out]`` and runs a
+plain matrix product: on CUDA that is `torch.matmul`, as the JAX package
+leaves its bf16 lm_head to `jnp.dot` outside any kernel.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import torch
+from torch import nn
+
+from tensorrt_llm_tpu_torch.ops.w4a16_gemm import ACTIVATIONS, w4a16_matmul
+from tensorrt_llm_tpu_torch.quantization import (
+    QuantAlgo, QuantConfig, choose_block_n, pack_group_for, pack_w4,
+    pack_w4_tiled, quantize_w4, to_tiled)
+
+
+class Linear(nn.Module):
+    def __init__(self, in_features: int, out_features: int,
+                 quant: Optional[QuantConfig] = None, name: str = ""):
+        super().__init__()
+        self.in_features = in_features
+        self.out_features = out_features
+        active = (quant is not None and quant.quant_algo != QuantAlgo.NO_QUANT
+                  and not quant.excludes(name))
+        if active and not quant.is_weight_only_w4:
+            raise NotImplementedError(
+                f"{quant.quant_algo} linears are not in this slice")
+        self.quantized = active
+        self.group_size = quant.group_size if active else 0
+        self.has_zeros = bool(active and (
+            quant.has_zero_point or quant.quant_algo in (
+                QuantAlgo.W4A16_AWQ, QuantAlgo.W4A16_GPTQ)))
+        for b in ("weight", "qweight", "scales", "zeros", "bias"):
+            self.register_buffer(b, None)
+
+    # ---- parameters -----------------------------------------------------
+    def from_float(self, w: torch.Tensor,
+                   bias: Optional[torch.Tensor] = None) -> None:
+        """Quantize (W4A16) or cast (bf16) full float weights [in, out]."""
+        assert tuple(w.shape) == (self.in_features, self.out_features), \
+            (tuple(w.shape), (self.in_features, self.out_features))
+        if self.quantized:
+            q, s, z = quantize_w4(w, self.group_size,
+                                  symmetric=not self.has_zeros)
+            K, N = q.shape
+            bn = choose_block_n(N)
+            packed = (pack_w4_tiled(q, bn) if bn and K % 2 == 0
+                      else pack_w4(q, pack_group_for(K, s.shape[0])))
+            self.load({"qweight": packed, "scales": s, "zeros": z,
+                       "bias": bias})
+        else:
+            self.load({"weight": w, "bias": bias})
+
+    def load(self, p: Dict[str, Optional[torch.Tensor]]) -> None:
+        """Install parameters in the JAX package's naming (``qweight``,
+        ``scales``, ``zeros``, ``bias`` or ``weight``, ``bias``)."""
+        if self.quantized:
+            s = p["scales"]
+            self.qweight = to_tiled(p["qweight"].to(torch.int8), s).contiguous()
+            self.scales = s.to(torch.bfloat16).contiguous()
+            z = p.get("zeros")
+            self.zeros = None if z is None else z.to(torch.bfloat16).contiguous()
+        else:
+            self.weight = p["weight"].to(torch.bfloat16).contiguous()
+        b = p.get("bias")
+        self.bias = None if b is None else b.to(torch.float32).contiguous()
+
+    # ---- forward ----------------------------------------------------------
+    def forward(self, x: torch.Tensor,
+                activation: Optional[str] = None) -> torch.Tensor:
+        if self.quantized:
+            return w4a16_matmul(x, self.qweight, self.scales, self.zeros,
+                                self.bias, activation, out_dtype=x.dtype)
+        if x.device.type == "cuda":
+            out = torch.matmul(x, self.weight.to(x.dtype))
+            if self.bias is None and activation is None:
+                return out
+            out = out.to(torch.float32)
+        else:
+            out = x.to(torch.float32) @ self.weight.to(torch.float32)
+        if self.bias is not None:
+            out = out + self.bias
+        return ACTIVATIONS[activation](out).to(x.dtype)

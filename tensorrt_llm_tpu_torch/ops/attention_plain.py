@@ -1,0 +1,128 @@
+"""Paged KV cache ops and plain PyTorch attention.
+
+Counterpart of the main-path part of `tensorrt_llm_tpu/ops/attention_xla.py`.
+`paged_prefill_plain` and `paged_decode_plain` are the plain versions of the
+two attention kernels (`ops/flash_prefill.py`, `ops/paged_attention.py`): the
+CPU path runs them, and the chip check holds the kernels against them.
+
+Pools are head-major pages ``[NB, Hkv, BS, D]``; a token's flat slot is
+``block_id * BS + offset``.  Block 0 is reserved: slots past the pool write
+there, and table padding points there.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+NEG_INF = float(torch.finfo(torch.float32).min)
+
+
+def pool_dims(cache: torch.Tensor) -> Tuple[int, int, int, int]:
+    """(NB, Hkv, BS, D) of a head-major pool."""
+    nb, h, bs, d = cache.shape
+    return nb, h, bs, d
+
+
+def write_kv_cache(k_cache: torch.Tensor, v_cache: torch.Tensor,
+                   k_new: torch.Tensor, v_new: torch.Tensor,
+                   slot_mapping: torch.Tensor) -> None:
+    """Scatter new K/V [T, Hkv, D] into the pools at `slot_mapping` [T],
+    IN PLACE (the JAX version returns new pools; updating in place saves a
+    pool copy per step).  Out-of-range slots land in reserved page 0."""
+    nb, h, bs, d = pool_dims(k_cache)
+    slots = slot_mapping.to(torch.int64)
+    oob = slots >= nb * bs
+    pages = torch.where(oob, 0, slots // bs)
+    offs = torch.where(oob, 0, slots % bs)
+    heads = torch.arange(h, device=slots.device)[None, :]
+    rows = ((pages[:, None] * h + heads) * bs + offs[:, None]).reshape(-1)
+    k_cache.view(-1, d).index_copy_(
+        0, rows, k_new.to(k_cache.dtype).reshape(-1, d))
+    v_cache.view(-1, d).index_copy_(
+        0, rows, v_new.to(v_cache.dtype).reshape(-1, d))
+
+
+def _masked_softmax(scores, mask, sinks=None):
+    scores = torch.where(mask, scores, NEG_INF)
+    if sinks is None:
+        return torch.softmax(scores, dim=-1)
+    m = torch.maximum(scores.amax(dim=-1, keepdim=True), sinks)
+    p = torch.exp(scores - m)
+    return p / (p.sum(dim=-1, keepdim=True) + torch.exp(sinks - m))
+
+
+def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
+        q_offset=0, kv_len=None, sliding_window: Optional[int] = None,
+        logit_cap: Optional[float] = None,
+        sinks: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Causal dense attention for one sequence: q [T, Hq, D] at positions
+    q_offset.., k/v [S, Hkv, D] at positions 0..S-1."""
+    T, Hq, D = q.shape
+    S, Hkv, _ = k.shape
+    G = Hq // Hkv
+    qf = (q.to(torch.float32) * scale).reshape(T, Hkv, G, D)
+    scores = torch.einsum("thgd,shd->hgts", qf, k.to(torch.float32))
+    if logit_cap:
+        scores = logit_cap * torch.tanh(scores / logit_cap)
+    kv_pos = torch.arange(S, device=q.device)[None, :]
+    q_pos = q_offset + torch.arange(T, device=q.device)[:, None]
+    mask = kv_pos <= q_pos
+    if kv_len is not None:
+        mask = mask & (kv_pos < kv_len)
+    if sliding_window is not None:
+        mask = mask & (kv_pos > q_pos - sliding_window)
+    sink_r = (sinks.reshape(Hkv, G, 1, 1).to(torch.float32)
+              if sinks is not None else None)
+    probs = _masked_softmax(scores, mask[None, None], sink_r)
+    out = torch.einsum("hgts,shd->thgd", probs, v.to(torch.float32))
+    return out.reshape(T, Hq, D).to(q.dtype)
+
+
+def paged_prefill_plain(q: torch.Tensor, k_cache: torch.Tensor,
+                        v_cache: torch.Tensor, block_table: torch.Tensor,
+                        kv_len, q_offset, scale: float,
+                        sliding_window: Optional[int] = None,
+                        logit_cap: Optional[float] = None,
+                        sinks: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Chunked-prefill attention for one sequence against its paged KV
+    (the chunk is already written).  block_table [MB]."""
+    nb, h, bs, d = pool_dims(k_cache)
+    k = k_cache[block_table.long()].permute(0, 2, 1, 3).reshape(-1, h, d)
+    v = v_cache[block_table.long()].permute(0, 2, 1, 3).reshape(-1, h, d)
+    return mha(q, k, v, scale, q_offset=q_offset, kv_len=kv_len,
+               sliding_window=sliding_window, logit_cap=logit_cap,
+               sinks=sinks)
+
+
+def paged_decode_plain(q: torch.Tensor, k_cache: torch.Tensor,
+                       v_cache: torch.Tensor, block_tables: torch.Tensor,
+                       kv_lens: torch.Tensor, scale: float,
+                       sliding_window: Optional[int] = None,
+                       logit_cap: Optional[float] = None,
+                       sinks: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One query token per sequence over paged KV.  q [B, Hq, D],
+    block_tables [B, MB], kv_lens [B] (including the new token)."""
+    nb, hkv, bs, d = pool_dims(k_cache)
+    B, Hq, _ = q.shape
+    G = Hq // hkv
+    S = block_tables.shape[1] * bs
+    k = k_cache[block_tables.long()].permute(0, 1, 3, 2, 4) \
+        .reshape(B, S, hkv, d)
+    v = v_cache[block_tables.long()].permute(0, 1, 3, 2, 4) \
+        .reshape(B, S, hkv, d)
+    qf = (q.to(torch.float32) * scale).reshape(B, hkv, G, d)
+    scores = torch.einsum("bhgd,bshd->bhgs", qf, k.to(torch.float32))
+    if logit_cap:
+        scores = logit_cap * torch.tanh(scores / logit_cap)
+    lens = kv_lens.to(q.device).reshape(B, 1, 1, 1)
+    kv_pos = torch.arange(S, device=q.device)[None, None, None, :]
+    mask = kv_pos < lens
+    if sliding_window is not None:
+        mask = mask & (kv_pos >= lens - sliding_window)
+    sink_r = (sinks.reshape(1, hkv, G, 1).to(torch.float32)
+              if sinks is not None else None)
+    probs = _masked_softmax(scores, mask, sink_r)
+    out = torch.einsum("bhgs,bshd->bhgd", probs, v.to(torch.float32))
+    return out.reshape(B, Hq, d).to(q.dtype)

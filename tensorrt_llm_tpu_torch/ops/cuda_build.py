@@ -1,0 +1,171 @@
+"""Build and bind the port's CUDA kernels (`tensorrt_llm_tpu_torch/csrc`).
+
+The kernels are compiled with `nvcc` for `sm_90a` into one shared library
+with a plain C interface and loaded with ctypes, at first use.  The library
+lands in ``build/torch_kernels/`` at the repository root under a name hashed
+from the sources and flags, so a changed source rebuilds and an unchanged one
+loads the existing file.  The build holds an `fcntl` lock and writes under a
+temporary name that is `os.replace`d into place: concurrent processes never
+see a half-written library.  A missing `nvcc` or a failed build raises; there
+is no CPU fallback at this level.
+
+Every wrapper that launches one of these kernels adds one to its entry in
+`launch_counts`; the chip check reads the counts to prove the main path ran
+through the kernels.
+"""
+
+from __future__ import annotations
+
+import collections
+import ctypes
+import fcntl
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+from typing import Optional
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-Xcompiler", "-fPIC", "-lineinfo"]
+
+# kernel name -> launches through its wrapper since the last reset
+launch_counts: "collections.Counter[str]" = collections.Counter()
+
+_lib: Optional[ctypes.CDLL] = None
+last_build_seconds: Optional[float] = None
+last_build_log: str = ""
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+_SIGNATURES = {
+    # x, qweight, scales, zeros, bias, out, M, N, K, group, block_n, act, stream
+    "tllm_w4a16_gemm": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # ... + workspace, split_k
+    "tllm_w4a16_gemv": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                        _I, _P],
+    # q, k, v, block_table, sinks, out, T, Hq, Hkv, D, BS, MB, kv_len,
+    # q_offset, scale, window, logit_cap, stream
+    "tllm_flash_prefill": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                           _I, _F, _I, _F, _P],
+    # q, k, v, tables, kv_lens, sinks, workspace, out, B, Hq, Hkv, D, BS, MB,
+    # scale, window, logit_cap, n_splits, split_len, stream
+    "tllm_paged_decode": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                          _I, _F, _I, _F, _I, _I, _P],
+}
+
+
+def reset_launch_counts() -> None:
+    launch_counts.clear()
+
+
+def find_nvcc() -> str:
+    cands = [os.environ.get("NVCC"), shutil.which("nvcc")]
+    for home in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if home:
+            cands.append(os.path.join(home, "bin", "nvcc"))
+    for c in cands:
+        if c and os.path.isfile(c) and os.access(c, os.X_OK):
+            return c
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built "
+                       "(set NVCC or CUDA_HOME)")
+
+
+def _sources():
+    srcs = sorted(CSRC.glob("*.cu"))
+    if not srcs:
+        raise RuntimeError(f"no CUDA sources under {CSRC}")
+    return srcs
+
+
+def _digest(flags) -> str:
+    h = hashlib.sha256()
+    for p in sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh")):
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    h.update(" ".join(flags).encode())
+    return h.hexdigest()[:16]
+
+
+def _compile(out: Path, flags) -> str:
+    """Compile every source in parallel (one nvcc each), then link."""
+    nvcc = find_nvcc()
+    tmp = Path(tempfile.mkdtemp(prefix="obj_", dir=BUILD_DIR))
+    try:
+        procs = []
+        for src in _sources():
+            obj = tmp / (src.stem + ".o")
+            cmd = [nvcc, *flags, "-c", str(src), "-o", str(obj)]
+            procs.append((cmd, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        log, objs, failed = [], [], []
+        for cmd, obj, p in procs:
+            text, _ = p.communicate()
+            log.append(f"$ {' '.join(cmd)}\n{text}")
+            if p.returncode != 0:
+                failed.append(cmd[-3])
+            objs.append(str(obj))
+        if failed:
+            raise RuntimeError("nvcc failed for " + ", ".join(failed) + "\n"
+                               + "\n".join(log))
+        part = tmp / out.name
+        cmd = [nvcc, *flags, "-shared", *objs, "-o", str(part)]
+        r = subprocess.run(cmd, capture_output=True, text=True)
+        log.append(f"$ {' '.join(cmd)}\n{r.stdout}{r.stderr}")
+        if r.returncode != 0:
+            raise RuntimeError("nvcc link failed\n" + "\n".join(log))
+        os.replace(part, out)
+        return "\n".join(log)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def load_library() -> ctypes.CDLL:
+    """The kernel library, built on first use (see module docstring)."""
+    global _lib, last_build_seconds, last_build_log
+    if _lib is not None:
+        return _lib
+    flags = list(NVCC_FLAGS)
+    if os.environ.get("TLLM_NVCC_VERBOSE") == "1":
+        flags += ["-Xptxas", "-v"]
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out = BUILD_DIR / f"libtllm_torch_{_digest(flags)}.so"
+    t0 = time.perf_counter()
+    with open(BUILD_DIR / ".lock", "w") as lk:
+        fcntl.flock(lk, fcntl.LOCK_EX)
+        try:
+            if not out.exists():
+                last_build_log = _compile(out, flags)
+        finally:
+            fcntl.flock(lk, fcntl.LOCK_UN)
+    last_build_seconds = time.perf_counter() - t0
+    lib = ctypes.CDLL(str(out))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    _lib = lib
+    return lib
+
+
+def check(err: int, name: str) -> None:
+    """Raise if a C entry point reported a CUDA error."""
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA error {err} at launch")
+
+
+def ptr(t) -> Optional[int]:
+    """Device pointer of a tensor (None for an absent optional operand)."""
+    return None if t is None else t.data_ptr()
+
+
+def stream_of(t) -> int:
+    import torch
+    return torch.cuda.current_stream(t.device).cuda_stream

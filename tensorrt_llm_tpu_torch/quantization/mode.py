@@ -1,0 +1,45 @@
+"""Quantization algorithm taxonomy.
+
+Counterpart of `tensorrt_llm_tpu/quantization/mode.py`: the `QuantAlgo` enum
+and `QuantConfig`.  This slice runs the W4A16 family and unquantized layers
+(other algorithms raise); `exclude_modules` keeps `lm_head` and the
+embedding in bf16 as the JAX package does.
+"""
+
+from __future__ import annotations
+
+import enum
+from dataclasses import dataclass, field
+
+
+class QuantAlgo(str, enum.Enum):
+    """Weight/activation quantization algorithms."""
+
+    W4A16 = "W4A16"                  # per-group int4 weights, symmetric
+    W4A16_AWQ = "W4A16_AWQ"          # per-group int4, AWQ scales (+zeros)
+    W4A16_GPTQ = "W4A16_GPTQ"        # per-group int4, GPTQ (zeros)
+    W8A16 = "W8A16"
+    W4A8_AWQ = "W4A8_AWQ"
+    W8A8_SQ_PER_CHANNEL = "W8A8_SQ_PER_CHANNEL"
+    FP8 = "FP8"
+    FP8_PER_CHANNEL_PER_TOKEN = "FP8_PER_CHANNEL_PER_TOKEN"
+    NO_QUANT = "NO_QUANT"
+
+
+WEIGHT_ONLY_W4 = (QuantAlgo.W4A16, QuantAlgo.W4A16_AWQ, QuantAlgo.W4A16_GPTQ)
+
+
+@dataclass
+class QuantConfig:
+    quant_algo: QuantAlgo = QuantAlgo.NO_QUANT
+    group_size: int = 128
+    has_zero_point: bool = False
+    # Module name substrings excluded from quantization.
+    exclude_modules: tuple = field(default_factory=lambda: ("lm_head", "embed"))
+
+    @property
+    def is_weight_only_w4(self) -> bool:
+        return self.quant_algo in WEIGHT_ONLY_W4
+
+    def excludes(self, name: str) -> bool:
+        return any(pat in name for pat in self.exclude_modules)

@@ -1,0 +1,253 @@
+"""Paged KV cache manager with prefix reuse.
+
+Counterpart of the base `KVCacheManager` of
+`tensorrt_llm_tpu/runtime/kv_cache_manager.py` with its pure-Python
+bookkeeping (`_PyBookkeeping`): a block pool whose block 0 is reserved, a
+reuse index of full blocks keyed by token-chain hashes, and LRU eviction of
+unreferenced cached blocks (every block has the default retention priority;
+per-request priorities come later).
+
+Device pools, per layer, are K and V tensors of the logical head-major
+layout ``[num_blocks, num_kv_heads, block_size, head_dim]``.  The TPU's
+lane-packed view for head dims below 128 is a TPU layout and is not kept.
+
+Not in this slice: the native (C++) bookkeeping, partial tail-block reuse,
+beam forks, the host-memory tier and connector, KV events, VSWA rings and
+the DP/helix/star managers.
+"""
+
+from __future__ import annotations
+
+import collections
+from dataclasses import dataclass
+from typing import Dict, List, Optional, Tuple
+
+import torch
+
+from tensorrt_llm_tpu_torch.utils import cdiv, resolve_device
+
+
+@dataclass
+class KVCacheConfig:
+    block_size: int = 16
+    num_blocks: Optional[int] = None    # None => derive from free memory
+    free_mem_fraction: float = 0.85
+    enable_block_reuse: bool = True
+
+
+class SequenceInfo:
+    __slots__ = ("block_ids", "num_tokens", "block_hashes", "salt")
+
+    def __init__(self):
+        self.block_ids: List[int] = []
+        self.num_tokens = 0
+        self.block_hashes: List[int] = []
+        self.salt = None
+
+
+class _PyBookkeeping:
+    """Host bookkeeping: free list, ref counts, chain-hash reuse index."""
+
+    def __init__(self, num_blocks: int, block_size: int, enable_reuse: bool):
+        self.block_size = block_size
+        self.enable_reuse = enable_reuse
+        # block 0 is the reserved "null" block
+        self.free_blocks = collections.deque(range(1, num_blocks))
+        self.ref_count = [0] * num_blocks
+        self.cached_blocks: Dict[int, int] = {}   # chain hash -> block
+        self.block_hash: List[Optional[int]] = [None] * num_blocks
+        # unreferenced cached blocks, least recently released first
+        self.evictable: "collections.OrderedDict[int, None]" = \
+            collections.OrderedDict()
+        self.sequences: Dict[int, SequenceInfo] = {}
+        self.num_reused_blocks = 0
+        self.num_allocated_blocks = 0
+        self.num_evicted_blocks = 0
+
+    @staticmethod
+    def _chain_hash(parent: int, tokens: tuple, salt) -> int:
+        return hash((parent, tokens, salt))
+
+    def _take_block(self) -> int:
+        if self.free_blocks:
+            bid = self.free_blocks.popleft()
+        elif self.evictable:
+            bid, _ = self.evictable.popitem(last=False)
+            h = self.block_hash[bid]
+            if h is not None:
+                self.cached_blocks.pop(h, None)
+                self.block_hash[bid] = None
+            self.num_evicted_blocks += 1
+        else:
+            raise RuntimeError("KV cache out of blocks")
+        self.ref_count[bid] = 1
+        self.num_allocated_blocks += 1
+        return bid
+
+    def _ref_block(self, bid: int):
+        if self.ref_count[bid] == 0:
+            self.evictable.pop(bid, None)
+        self.ref_count[bid] += 1
+
+    def _unref_block(self, bid: int):
+        self.ref_count[bid] -= 1
+        assert self.ref_count[bid] >= 0
+        if self.ref_count[bid] == 0:
+            if self.block_hash[bid] is not None and self.enable_reuse:
+                self.evictable[bid] = None
+            else:
+                self.free_blocks.append(bid)
+
+    def num_free_blocks(self) -> int:
+        return len(self.free_blocks) + len(self.evictable)
+
+    def add_sequence(self, seq_id: int, token_ids: List[int],
+                     cache_salt=None) -> int:
+        info = SequenceInfo()
+        info.salt = cache_salt
+        self.sequences[seq_id] = info
+        matched, parent = 0, 0
+        if self.enable_reuse:
+            n_full = (len(token_ids) - 1) // self.block_size  # keep last token
+            for b in range(n_full):
+                chunk = tuple(token_ids[b * self.block_size:
+                                        (b + 1) * self.block_size])
+                h = self._chain_hash(parent, chunk, cache_salt)
+                bid = self.cached_blocks.get(h)
+                if bid is None:
+                    break
+                self._ref_block(bid)
+                info.block_ids.append(bid)
+                info.block_hashes.append(h)
+                matched += self.block_size
+                parent = h
+        info.num_tokens = matched
+        if matched:
+            self.num_reused_blocks += len(info.block_ids)
+        return matched
+
+    def grow_sequence(self, seq_id: int, new_total_tokens: int):
+        info = self.sequences[seq_id]
+        need = cdiv(new_total_tokens, self.block_size)
+        while len(info.block_ids) < need:
+            info.block_ids.append(self._take_block())
+        info.num_tokens = new_total_tokens
+
+    def num_seq_blocks(self, seq_id: int) -> int:
+        info = self.sequences.get(seq_id)
+        return -1 if info is None else len(info.block_ids)
+
+    def seal_full_blocks(self, seq_id: int, token_ids: List[int]):
+        if not self.enable_reuse:
+            return
+        info = self.sequences[seq_id]
+        n_full = len(token_ids) // self.block_size
+        parent = info.block_hashes[-1] if info.block_hashes else 0
+        for b in range(len(info.block_hashes), n_full):
+            bid = info.block_ids[b]
+            chunk = tuple(token_ids[b * self.block_size:
+                                    (b + 1) * self.block_size])
+            h = self._chain_hash(parent, chunk, info.salt)
+            if h not in self.cached_blocks:   # first writer wins
+                self.cached_blocks[h] = bid
+                self.block_hash[bid] = h
+            info.block_hashes.append(h)
+            parent = h
+
+    def free_sequence(self, seq_id: int):
+        info = self.sequences.pop(seq_id, None)
+        if info is None:
+            return
+        for bid in info.block_ids:
+            self._unref_block(bid)
+
+    def block_table(self, seq_id: int, max_blocks: int) -> List[int]:
+        ids = self.sequences[seq_id].block_ids[:max_blocks]
+        return ids + [0] * (max_blocks - len(ids))
+
+    def slot_mapping(self, seq_id: int, start_token: int,
+                     num_tokens: int) -> List[int]:
+        ids = self.sequences[seq_id].block_ids
+        bs = self.block_size
+        return [ids[p // bs] * bs + p % bs
+                for p in range(start_token, start_token + num_tokens)]
+
+    def stats(self) -> dict:
+        return {
+            "free_blocks": len(self.free_blocks),
+            "evictable_blocks": len(self.evictable),
+            "reused_blocks": self.num_reused_blocks,
+            "allocated_blocks": self.num_allocated_blocks,
+            "evicted_blocks": self.num_evicted_blocks,
+            "active_sequences": len(self.sequences),
+        }
+
+
+class KVCacheManager:
+    def __init__(self, cfg: KVCacheConfig, num_layers: int, num_kv_heads: int,
+                 head_dim: int, num_blocks: int, device="cuda"):
+        self.cfg = cfg
+        self.block_size = cfg.block_size
+        self.num_layers = num_layers
+        self.num_blocks = num_blocks
+        self.num_kv_heads = num_kv_heads
+        self.head_dim = head_dim
+        self.device = resolve_device(device)
+        self._bk = _PyBookkeeping(num_blocks, cfg.block_size,
+                                  cfg.enable_block_reuse)
+
+    def allocate_pools(self) -> List[Tuple[torch.Tensor, torch.Tensor]]:
+        """Zeroed K and V pools per layer, head-major pages."""
+        shape = (self.num_blocks, self.num_kv_heads, self.block_size,
+                 self.head_dim)
+        return [(torch.zeros(shape, dtype=torch.bfloat16, device=self.device),
+                 torch.zeros(shape, dtype=torch.bfloat16, device=self.device))
+                for _ in range(self.num_layers)]
+
+    @staticmethod
+    def blocks_from_memory(bytes_budget: int, num_layers: int,
+                           num_kv_heads: int, head_dim: int, block_size: int,
+                           dtype_bytes: int = 2) -> int:
+        per_block = 2 * num_layers * block_size * num_kv_heads * head_dim \
+            * dtype_bytes
+        return max(int(bytes_budget // per_block), 16)
+
+    @property
+    def num_free_blocks(self) -> int:
+        return self._bk.num_free_blocks()
+
+    def blocks_needed(self, num_tokens: int) -> int:
+        return cdiv(num_tokens, self.block_size)
+
+    def num_seq_blocks(self, seq_id: int) -> int:
+        n = self._bk.num_seq_blocks(seq_id)
+        return 0 if n < 0 else n
+
+    def add_sequence(self, seq_id: int, token_ids: List[int],
+                     cache_salt=None) -> int:
+        """Register a sequence; returns the tokens whose KV is already
+        cached (whole blocks, always fewer than the prompt so that at least
+        one token is recomputed to produce logits)."""
+        return self._bk.add_sequence(seq_id, token_ids, cache_salt)
+
+    def grow_sequence(self, seq_id: int, new_total_tokens: int):
+        self._bk.grow_sequence(seq_id, new_total_tokens)
+
+    def seal_full_blocks(self, seq_id: int, token_ids: List[int]):
+        """Publish completed prompt blocks into the reuse index."""
+        self._bk.seal_full_blocks(seq_id, token_ids)
+
+    def free_sequence(self, seq_id: int):
+        self._bk.free_sequence(seq_id)
+
+    def block_table(self, seq_id: int, max_blocks: int) -> List[int]:
+        return self._bk.block_table(seq_id, max_blocks)
+
+    def slot_mapping(self, seq_id: int, start_token: int,
+                     num_tokens: int) -> List[int]:
+        return self._bk.slot_mapping(seq_id, start_token, num_tokens)
+
+    def stats(self) -> dict:
+        s = self._bk.stats()
+        s["num_blocks"] = self.num_blocks
+        return s

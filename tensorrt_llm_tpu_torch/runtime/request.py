@@ -1,0 +1,148 @@
+"""Request state machine.
+
+Counterpart of `tensorrt_llm_tpu/runtime/request.py`: queued -> context
+(possibly chunked) -> generation -> complete, with paged-KV progress and a
+queue of streamed output pieces.  Disaggregated-serving and multimodal
+fields belong to later slices.
+"""
+
+from __future__ import annotations
+
+import enum
+import queue
+import time
+from dataclasses import dataclass
+from typing import List, Optional
+
+from tensorrt_llm_tpu_torch.llmapi.sampling_params import SamplingParams
+
+
+class RequestState(enum.Enum):
+    QUEUED = "queued"
+    CONTEXT_INIT = "context_init"
+    GENERATION_IN_PROGRESS = "generation"
+    GENERATION_COMPLETE = "complete"
+
+
+class FinishReason(enum.Enum):
+    NOT_FINISHED = "not_finished"
+    EOS = "stop"
+    LENGTH = "length"
+    CANCELLED = "cancelled"
+    ERROR = "error"
+
+
+@dataclass
+class RequestOutputPiece:
+    request_id: int
+    new_token_ids: List[int]
+    finished: bool
+    finish_reason: Optional[FinishReason] = None
+    error: Optional[str] = None
+
+
+class LlmRequest:
+    _id_counter = 0
+
+    def __init__(self, prompt_token_ids: List[int],
+                 sampling_params: SamplingParams,
+                 request_id: Optional[int] = None,
+                 cache_salt: Optional[str] = None):
+        if request_id is None:
+            LlmRequest._id_counter += 1
+            request_id = LlmRequest._id_counter
+        self.request_id = request_id
+        self.prompt_token_ids = list(prompt_token_ids)
+        self.sampling_params = sampling_params
+        self.cache_salt = cache_salt
+
+        self.state = RequestState.QUEUED
+        self.output_token_ids: List[int] = []
+        self.finish_reason = FinishReason.NOT_FINISHED
+        self.num_cached_tokens = 0      # prefix-reuse hit length
+        self.context_position = 0       # prompt tokens already in the cache
+        self.logprobs: List[dict] = []
+
+        self.out_queue: "queue.Queue[RequestOutputPiece]" = queue.Queue()
+        self._streamed = 0
+
+        self.arrival_time = time.time()
+        self.first_sched_time: Optional[float] = None
+        self.first_token_time: Optional[float] = None
+        self.end_time: Optional[float] = None
+
+    @property
+    def prompt_len(self) -> int:
+        return len(self.prompt_token_ids)
+
+    @property
+    def num_tokens(self) -> int:
+        return self.prompt_len + len(self.output_token_ids)
+
+    @property
+    def num_output_tokens(self) -> int:
+        return len(self.output_token_ids)
+
+    @property
+    def all_token_ids(self) -> List[int]:
+        return self.prompt_token_ids + self.output_token_ids
+
+    @property
+    def remaining_context(self) -> int:
+        return self.prompt_len - self.context_position
+
+    @property
+    def is_context_init(self) -> bool:
+        return self.state == RequestState.CONTEXT_INIT
+
+    @property
+    def is_generating(self) -> bool:
+        return self.state == RequestState.GENERATION_IN_PROGRESS
+
+    @property
+    def is_finished(self) -> bool:
+        return self.state == RequestState.GENERATION_COMPLETE
+
+    @property
+    def max_total_len(self) -> int:
+        return self.prompt_len + self.sampling_params.max_tokens
+
+    def start_context(self):
+        assert self.state == RequestState.QUEUED
+        self.state = RequestState.CONTEXT_INIT
+        self.first_sched_time = self.first_sched_time or time.time()
+
+    def finish_context(self):
+        assert self.state == RequestState.CONTEXT_INIT
+        self.state = RequestState.GENERATION_IN_PROGRESS
+
+    def append_token(self, token_id: int):
+        self.output_token_ids.append(token_id)
+        if self.first_token_time is None:
+            self.first_token_time = time.time()
+
+    def finish(self, reason: FinishReason):
+        self.state = RequestState.GENERATION_COMPLETE
+        self.finish_reason = reason
+        self.end_time = time.time()
+
+    def check_stop(self, eos_token_id: Optional[int]) -> Optional[FinishReason]:
+        sp = self.sampling_params
+        last = self.output_token_ids[-1] if self.output_token_ids else None
+        end_id = sp.end_id if sp.end_id is not None else eos_token_id
+        if last is not None and not sp.ignore_eos and end_id is not None \
+                and last == end_id:
+            return FinishReason.EOS
+        if sp.stop_token_ids and last in sp.stop_token_ids:
+            return FinishReason.EOS
+        if self.num_output_tokens >= sp.max_tokens:
+            return FinishReason.LENGTH
+        return None
+
+    def emit(self, finished: bool, error: Optional[str] = None):
+        new = self.output_token_ids[self._streamed:]
+        self._streamed = len(self.output_token_ids)
+        self.out_queue.put(RequestOutputPiece(
+            request_id=self.request_id, new_token_ids=new, finished=finished,
+            finish_reason=self.finish_reason if finished else None,
+            error=error))

@@ -1,0 +1,47 @@
+"""Small shared helpers: shape math, logging and device selection.
+
+Counterpart of `tensorrt_llm_tpu/utils/common.py` (`cdiv`, `round_up`,
+logger).  `resolve_device` is new: every entry point of the port takes a
+``device`` argument that defaults to CUDA and refuses to fall back to the CPU
+on its own.
+"""
+
+from __future__ import annotations
+
+import logging
+import os
+
+import torch
+
+logger = logging.getLogger("tensorrt_llm_tpu_torch")
+if not logger.handlers:
+    _h = logging.StreamHandler()
+    _h.setFormatter(
+        logging.Formatter("[TLLM-TORCH] %(asctime)s %(levelname)s %(message)s"))
+    logger.addHandler(_h)
+logger.setLevel(os.environ.get("TLLM_LOG_LEVEL", "WARNING").upper())
+
+
+def cdiv(a: int, b: int) -> int:
+    """Ceiling division."""
+    return -(-a // b)
+
+
+def round_up(x: int, m: int) -> int:
+    return cdiv(x, m) * m
+
+
+def resolve_device(device="cuda") -> torch.device:
+    """The device an entry point runs on.  CUDA unless the caller asks for
+    the CPU; asking for CUDA on a machine without a GPU raises."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "CUDA device requested but torch.cuda.is_available() is "
+                "False; pass device='cpu' to run the plain PyTorch path")
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+    elif dev.type != "cpu":
+        raise ValueError(f"unsupported device {dev}")
+    return dev
