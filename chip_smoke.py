@@ -6,20 +6,28 @@
 Phases (any failure exits nonzero; nothing is caught and ignored):
 
 1. the card's name and power limit (nvidia-smi);
-2. build the four CUDA kernels from `tensorrt_llm_tpu_torch/csrc`;
-3. hold each kernel against its plain PyTorch version on the card, in bf16,
-   at TinyLlama-1.1B and Llama-3-8B shapes, and time kernel, plain version
-   and one library call; one JSON line per kernel and shape;
-4. serve 8 greedy requests with `LLM.generate` on the full-width, 22-layer
-   TinyLlama-1.1B W4A16 model (random weights from a seed), with launch
-   counters reset just before and read just after;
+2. build the five CUDA kernels from `tensorrt_llm_tpu_torch/csrc`;
+3. hold each kernel against its plain PyTorch version on the card at
+   TinyLlama-1.1B, Llama-3-8B, GPT-OSS-20B and Mixtral-8x7B shapes, and
+   time kernel, plain version and one library call; one JSON line per
+   kernel and shape;
+4. serve 8 greedy requests with `LLM.generate` on the full-width TinyLlama
+   W4A16 model (random weights from a seed), with launch counters reset
+   just before and read just after;
 5. the same weights at full width and 2 layers on the card and on the CPU
    (plain versions): logits and greedy tokens must agree;
 6. a short `LLM.generate` run at Llama-3-8B width (2 layers), so that the
-   attention kernels run at head dim 128 inside the model.
+   attention kernels run at head dim 128 inside the model;
+7. serve 8 greedy requests with `LLM.generate` on GPT-OSS-20B at full
+   width and depth, W4A16 group 64 (MoE experts on K5, sinks, window 128,
+   YaRN), counters reset just before and read just after;
+8. GPT-OSS-20B width at 2 layers (sliding then full) on the card and on
+   the CPU: logits and greedy tokens must agree.
 
-Arguments pick phases (default: check serve cross llama3); `profile`, run
-only when named, traces a short serve window with torch.profiler.
+Arguments pick phases (default: check serve cross llama3 gptoss
+gptoss_cross); `check_moe` runs only K5's checks; `profile` and
+`profile_gptoss`, run only when named, trace a short serve window with
+torch.profiler.
 `--json PATH` also writes every check and phase summary to PATH.
 
 The last three lines of stdout are the card's name and power limit, the
@@ -50,8 +58,17 @@ DEVICE = "cuda"
 GEMM_SHAPES = {"tinyllama": [(2048, 2560), (2048, 2048), (2048, 11264),
                              (5632, 2048)],
                "llama-3-8b": [(4096, 6144), (4096, 4096), (4096, 28672),
-                              (14336, 4096)]}
+                              (14336, 4096)],
+               # QKV and o; o's N=2880 has no 128-multiple tile, so it is
+               # K-paired and repacked to 64-wide tiles, as the model loads it
+               "gpt-oss-20b": [(2880, 5120), (4096, 2880)]}
+GEMM_GROUP = {"gpt-oss-20b": 64}          # others: 128
 GEMM_M = (1, 4, 8, 16, 256, 512)
+# (K, N, E, G) of the expert gate_up and down products
+MOE_SHAPES = {"gpt-oss-20b": [(2880, 5760, 32, 64), (2880, 2880, 32, 64)],
+              "mixtral-8x7b": [(4096, 28672, 8, 128), (14336, 4096, 8, 128)]}
+MOE_M = (16, 32, 1024)                    # T x top-k rows
+MOE_M_ZEROS = (32, 1024)                  # zero-point experts (off the path)
 PREFILL_CASES = [
     # model, Hq, Hkv, D, T, q_offset, window, cap, sinks
     ("tinyllama", 32, 4, 64, 256, 256, None, None, False),
@@ -62,6 +79,11 @@ PREFILL_CASES = [
     ("llama-3-8b", 32, 8, 128, 256, 256, None, None, False),
     ("llama-3-8b", 32, 8, 128, 512, 0, None, None, False),
     ("llama-3-8b", 32, 8, 128, 128, 300, 96, 25.0, True),
+    # GPT-OSS-20B as it serves: sinks on every layer, window 128 on the
+    # sliding ones, chunks of 256 that start inside and past the window
+    ("gpt-oss-20b", 64, 8, 64, 256, 0, 128, None, True),
+    ("gpt-oss-20b", 64, 8, 64, 256, 128, 128, None, True),
+    ("gpt-oss-20b", 64, 8, 64, 256, 256, None, None, True),
 ]
 DECODE_CASES = [
     # model, Hq, Hkv, D, kv_lens, window, cap, sinks
@@ -73,6 +95,8 @@ DECODE_CASES = [
     ("tinyllama", 32, 4, 64, [81, 150, 400, 664], 128, None, False),
     ("llama-3-8b", 32, 8, 128, [320, 400, 1000, 4000], None, None, False),
     ("llama-3-8b", 32, 8, 128, [33, 320], 96, 25.0, True),
+    ("gpt-oss-20b", 64, 8, 64, [81, 150, 400, 664], 128, None, True),
+    ("gpt-oss-20b", 64, 8, 64, [81, 150, 400, 664], None, None, True),
 ]
 
 
@@ -125,12 +149,16 @@ def check_gemm(gen, dev):
     import torch
     from tensorrt_llm_tpu_torch.ops import w4a16_gemm as W
     from tensorrt_llm_tpu_torch.quantization import (
-        choose_block_n, dequantize_w4_any, pack_w4_tiled, quantize_w4)
+        choose_block_n, dequantize_w4_any, pack_group_for, pack_w4,
+        pack_w4_tiled, quantize_w4, to_tiled)
     for model, kns in GEMM_SHAPES.items():
+        G = GEMM_GROUP.get(model, 128)
         for K, N in kns:
             w = torch.randn((K, N), generator=gen, device=dev) * 0.02
-            q, s, _ = quantize_w4(w, 128)
-            packed = pack_w4_tiled(q, choose_block_n(N))
+            q, s, _ = quantize_w4(w, G)
+            bn = choose_block_n(N)
+            packed = (pack_w4_tiled(q, bn) if bn else to_tiled(
+                pack_w4(q, pack_group_for(K, s.shape[0])), s))
             s = s.to(torch.bfloat16)
             wq_bytes = packed.numel() + s.numel() * 2
             n_copy = copies_for(wq_bytes)
@@ -168,10 +196,94 @@ def check_gemm(gen, dev):
                                  for lw in lib_w], 30)
                         if not extras else None)
                 nbytes = M * K * 2 + wq_bytes + M * N * 2
-                record(name, {"model": model, "M": M, "K": K, "N": N,
+                record(name, {"model": model, "M": M, "K": K, "N": N, "G": G,
                               "act": act, "zeros_bias": extras}, err, tol,
                        k_ms, p_ms, l_ms, bound_ms(nbytes, 2 * M * N * K))
             del ws, lib_w, wdq
+            torch.cuda.empty_cache()
+
+
+def _routing(rng, M, E, kind):
+    """Group sizes of M rows over E experts: uniform, or skewed (half the
+    experts get no row, the rest a Zipf share)."""
+    import numpy as np
+    if kind == "uniform":
+        ids = rng.integers(0, E, M)
+    else:
+        live = rng.permutation(E)[:max(1, E // 2)]
+        p = 1.0 / np.arange(1, len(live) + 1)
+        ids = rng.choice(live, M, p=p / p.sum())
+    return np.bincount(ids, minlength=E).astype(np.int32)
+
+
+def _grouped_mm_ms(x, w_bf16, gs, iters):
+    """Library yardstick: torch._grouped_mm on pre-dequantized bf16 experts
+    (never on the port's path); None where this build does not run it."""
+    import torch
+    offs = torch.cumsum(gs, 0, dtype=torch.int32)
+    try:
+        torch._grouped_mm(x, w_bf16, offs=offs)
+        torch.cuda.synchronize()
+    except Exception as e:      # a yardstick only: report and go on
+        log(f"  torch._grouped_mm unavailable: {type(e).__name__}: {e}")
+        return None
+    return cuda_ms([lambda: torch._grouped_mm(x, w_bf16, offs=offs)], iters)
+
+
+def check_moe(gen, dev):
+    import numpy as np
+    import torch
+    from tensorrt_llm_tpu_torch.ops import moe_w4a16 as MW
+    rng = np.random.default_rng(0)
+    for model, shapes in MOE_SHAPES.items():
+        for K, N, E, G in shapes:
+            w = torch.randn((E, K, N), generator=gen, device=dev) * 0.02
+            packed, scales, _, bn = MW.quantize_experts_w4(w, G)
+            # zero-point experts: the kernel's other instantiation
+            zpacked, zscales, zeros, _ = MW.quantize_experts_w4(
+                w, G, symmetric=False)
+            del w
+            wdq = MW.dequantize_experts_w4(packed, scales).to(torch.bfloat16)
+            cases = [(M, kind, False) for M in MOE_M
+                     for kind in ("uniform", "skewed")]
+            cases += [(M, "skewed", True) for M in MOE_M_ZEROS]
+            for M, kind, zp in cases:
+                pk, sc, z = ((zpacked, zscales, zeros) if zp
+                             else (packed, scales, None))
+                per_expert = K * N // 2 + (K // G) * N * 4 * (2 if zp else 1)
+                sizes = _routing(rng, M, E, kind)
+                live = int((sizes > 0).sum())
+                gs = torch.from_numpy(sizes).to(dev)
+                x = torch.randn((M, K), generator=gen, device=dev
+                                ).to(torch.bfloat16)
+                units = MW.gmm_work_units(gs, M)
+                out = MW.moe_gmm(x, pk, sc, units, z)
+                ref = MW.w4a16_grouped_matmul_plain(x, pk, sc, gs, z)
+                torch.cuda.synchronize()
+                assert torch.equal(units, MW.make_group_metadata(
+                    gs, -(-M // MW.GMM_TM), MW.GMM_TM, E)), \
+                    f"K5 work units differ from make_group_metadata " \
+                    f"({model} K={K} N={N} M={M} {kind})"
+                err = (out - ref).abs().max().item()
+                # the plain version rounds each dequantized weight and the
+                # output to bf16 (2^-9 relative each), the kernel scales the
+                # f32 partial and keeps f32: 2% of max|ref|
+                tol = 2e-2 * ref.abs().max().item()
+                ws = [(pk.clone(), sc.clone()) for _ in range(
+                    copies_for(live * per_expert) - 1)] + [(pk, sc)]
+                k_ms = cuda_ms([lambda p=p, c=c: MW.moe_gmm(x, p, c, units, z)
+                                for p, c in ws], 20)
+                del ws
+                p_ms = cuda_ms([lambda: MW.w4a16_grouped_matmul_plain(
+                    x, pk, sc, gs, z)], 3)
+                l_ms = None if zp else _grouped_mm_ms(x, wdq, gs, 20)
+                nbytes = M * K * 2 + live * per_expert + M * N * 4 + E * 4
+                record("moe_gmm", {"model": model, "M": M, "K": K, "N": N,
+                                   "E": E, "G": G, "BN": bn, "routing": kind,
+                                   "experts_hit": live, "zeros": zp},
+                       err, tol, k_ms, p_ms, l_ms,
+                       bound_ms(nbytes, 2 * M * N * K))
+            del packed, scales, zpacked, zscales, zeros, wdq
             torch.cuda.empty_cache()
 
 
@@ -189,13 +301,27 @@ def _paged(gen, dev, seqs, Hkv, D, BS=16):
     return k, v, tables.contiguous()
 
 
-def _sdpa_ms(q, k, v, mask, iters):
+def _sdpa_ms(q, k, v, mask, iters, sinks=None):
     """Time of one library call (scaled_dot_product_attention) on dense K/V
-    gathered and GQA-expanded beforehand: q [B,Hq,T,D], k/v [B,Hkv,S,D]."""
+    gathered and GQA-expanded beforehand: q [B,Hq,T,D], k/v [B,Hkv,S,D],
+    mask boolean, broadcast to [B,Hq,T,S].  Sinks enter as one more key and
+    value of zeros whose logit the additive mask sets to sinks[h]: the
+    softmax over [scores, sink] that the kernels compute."""
+    import torch
     import torch.nn.functional as F
     G = q.shape[1] // k.shape[1]
-    k = k.repeat_interleave(G, dim=1).contiguous()
-    v = v.repeat_interleave(G, dim=1).contiguous()
+    k = k.repeat_interleave(G, dim=1)
+    v = v.repeat_interleave(G, dim=1)
+    if sinks is not None:
+        B, Hq, T, D = q.shape
+        z = k.new_zeros((B, Hq, 1, D))
+        k, v = torch.cat([k, z], 2), torch.cat([v, z], 2)
+        bias = torch.zeros(mask.shape, dtype=q.dtype, device=q.device)
+        bias = bias.masked_fill(~mask, float("-inf")).expand(
+            B, Hq, T, k.shape[2] - 1)
+        sink = sinks.to(q.dtype).view(1, Hq, 1, 1).expand(B, Hq, T, 1)
+        mask = torch.cat([bias, sink], -1).contiguous()
+    k, v = k.contiguous(), v.contiguous()
     return cuda_ms([lambda: F.scaled_dot_product_attention(
         q, k, v, attn_mask=mask)], iters)
 
@@ -227,7 +353,7 @@ def check_prefill(gen, dev):
         p_ms = cuda_ms([lambda: flash_prefill_plain(
             q, k, v, table, kv_len, off, scale, **kw)], 5)
         l_ms = None
-        if not sk and not cap:
+        if not cap:
             # dense K/V gathered once outside the timing
             kd = k[table.long()].permute(1, 0, 2, 3).reshape(
                 Hkv, -1, D)[None, :, :kv_len]
@@ -239,7 +365,7 @@ def check_prefill(gen, dev):
             if win:
                 mask &= kp > qp - win
             qd = q.permute(1, 0, 2)[None]
-            l_ms = _sdpa_ms(qd, kd, vd, mask, 20)
+            l_ms = _sdpa_ms(qd, kd, vd, mask, 20, sinks)
         qpos = off + np.arange(T)[:, None]
         kpos = np.arange(kv_len)[None, :]
         valid = (kpos <= qpos)
@@ -283,7 +409,7 @@ def check_decode(gen, dev):
         p_ms = cuda_ms([lambda: paged_decode_plain(
             q, k, v, tables, kv_lens, scale, **kw)], 5)
         l_ms = None
-        if not sk and not cap:
+        if not cap:
             S = tables.shape[1] * k.shape[2]
             kd = k[tables.long()].permute(0, 2, 1, 3, 4).reshape(B, Hkv, S, D)
             vd = v[tables.long()].permute(0, 2, 1, 3, 4).reshape(B, Hkv, S, D)
@@ -292,7 +418,8 @@ def check_decode(gen, dev):
             mask = pos < L
             if win:
                 mask &= pos >= L - win
-            l_ms = _sdpa_ms(q[:, :, None], kd, vd, mask[:, None, None, :], 30)
+            l_ms = _sdpa_ms(q[:, :, None], kd, vd, mask[:, None, None, :], 30,
+                            sinks)
         used = [min(L, win) if win else L for L in lens]
         nbytes = 2 * B * Hq * D * 2 + sum(used) * 2 * Hkv * D * 2
         # f32 math on both sides; the bf16 output rounding (2^-8 relative)
@@ -305,7 +432,7 @@ def check_decode(gen, dev):
                bound_ms(nbytes, 4 * sum(used) * Hq * D))
 
 
-# ------------------------------------------------------------ phases 4-6 ---
+# ------------------------------------------------------------ phases 4-8 ---
 TINYLLAMA = dict(vocab_size=32000, hidden_size=2048, intermediate_size=5632,
                  num_layers=22, num_heads=32, num_kv_heads=4, head_dim=64,
                  max_position=4096)
@@ -321,20 +448,33 @@ def w4a16_cfg(shape, **over):
         quant_algo=QuantAlgo.W4A16, group_size=128))
 
 
-def serve_tinyllama(card):
+GPT_OSS_LAYERS = 24     # full depth
+
+
+def gpt_oss_cfg(num_layers):
+    from tensorrt_llm_tpu_torch.models import gpt_oss_20b_config
+    return gpt_oss_20b_config(num_layers, max_position=4096)
+
+
+def serve_model(card, phase, label, cfg, required):
+    """8 greedy requests (prompts 17..600 tokens, two sharing a 300-token
+    prefix), 64 new tokens each, through `LLM.generate`; the launch counters
+    are reset just before and read just after.  A second run with a fresh
+    cache salt must give the same tokens."""
     import numpy as np
     import torch
     import tensorrt_llm_tpu_torch as T
     from tensorrt_llm_tpu_torch.ops import cuda_build
     t0 = time.perf_counter()
-    llm = T.LLM(model=w4a16_cfg(TINYLLAMA), skip_tokenizer_init=True,
+    llm = T.LLM(model=cfg, skip_tokenizer_init=True,
                 device=DEVICE, max_batch_size=4, max_num_tokens=256,
                 max_seq_len=1024, kv_block_size=16, kv_num_blocks=640,
                 seed=0, return_perf_metrics=True)
-    log(f"[phase 4] TinyLlama-1.1B W4A16, 22 layers, built in "
-        f"{time.perf_counter() - t0:.1f} s")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    log(f"[{phase}] {label}, built in {build_s:.1f} s")
     rng = np.random.default_rng(0)
-    V = TINYLLAMA["vocab_size"]
+    V = cfg.vocab_size
 
     def ids(n):
         return [int(t) for t in rng.integers(10, V - 10, n)]
@@ -349,14 +489,14 @@ def serve_tinyllama(card):
         llm.generate([[1, 2, 3, 4]], T.SamplingParams(max_tokens=2,
                                                       temperature=0.0))
         torch.cuda.synchronize()
-        n_stats = len(llm.get_stats())
+        it0 = llm.executor.iteration
         cuda_build.reset_launch_counts()
         t0 = time.perf_counter()
         outs = llm.generate(prompts, sp, cache_salt="run1")
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = dict(cuda_build.launch_counts)
-        stats = llm.get_stats()[n_stats:]
+        stats = [s for s in llm.get_stats() if s["iteration"] > it0]
         kv = llm.get_kv_cache_stats()
         toks = [o.outputs[0].token_ids for o in outs]
         assert all(len(t) == 64 for t in toks), [len(t) for t in toks]
@@ -368,44 +508,64 @@ def serve_tinyllama(card):
         again = [o.outputs[0].token_ids
                  for o in llm.generate(prompts, sp, cache_salt="run2")]
         assert again == toks, "second run gave other tokens"
+        windows = [layer.attn.backend.sliding_window
+                   for layer in llm.model.layers]
+        peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
     finally:
         llm.shutdown()
-    for k in ("w4a16_gemm", "w4a16_gemv", "flash_prefill", "paged_decode"):
+    for k in required:
         assert counts.get(k, 0) > 0, f"{k} never launched on the main path"
     chunks = sum(s["num_prefill_chunks"] for s in stats)
     dsteps = sum(s["decode_steps"] for s in stats)
+    L = cfg.num_layers
+    # every layer of every forward went through the attention kernels
+    assert counts["flash_prefill"] == L * chunks, (counts, chunks)
+    assert counts["paged_decode"] == L * dsteps, (counts, dsteps)
+    n_moe = sum(cfg.is_moe_layer(i) for i in range(L))
+    if n_moe:
+        # gate_up and down on K5 in every MoE layer of every forward, on
+        # work units computed once per layer
+        assert counts["moe_gmm"] == 2 * n_moe * (chunks + dsteps), counts
+        assert counts["moe_gmm_units"] == n_moe * (chunks + dsteps), counts
     ttft = [o.metrics["ttft_s"] for o in outs]
     n_out = sum(len(t) for t in toks)
+    gemms = counts.get("w4a16_gemm", 0) + counts.get("w4a16_gemv", 0)
     summary = {
-        "phase": "serve", "model": "tinyllama-1.1b W4A16 (22 layers)",
-        "card": card, "requests": len(prompts), "output_tokens": n_out,
-        "wall_s": wall, "tokens_per_s": n_out / wall,
+        "phase": phase, "model": label, "card": card,
+        "build_s": build_s, "requests": len(prompts),
+        "output_tokens": n_out, "wall_s": wall, "tokens_per_s": n_out / wall,
         "ttft_s_mean": float(np.mean(ttft)), "ttft_s_max": float(max(ttft)),
         "prefill_chunks": chunks, "decode_steps": dsteps,
         "launches": counts,
-        "gemm_launches_per_forward": (counts["w4a16_gemm"]
-                                      + counts["w4a16_gemv"])
-        / (chunks + dsteps),
+        "gemm_launches_per_forward": gemms / (chunks + dsteps),
+        "moe_gmm_per_forward": counts.get("moe_gmm", 0) / (chunks + dsteps),
         "flash_prefill_per_chunk": counts["flash_prefill"] / chunks,
         "paged_decode_per_step": counts["paged_decode"] / dsteps,
-        "kv": kv}
-    PHASES["serve"] = summary
+        "sliding_windows": sorted(set(map(str, windows))),
+        "peak_mem_gib": peak_gb, "kv": kv}
+    PHASES[phase] = summary
     log(json.dumps(summary))
+    del llm
+    torch.cuda.empty_cache()
     return counts
 
 
-def cross_check_cpu():
+def cross_check_cpu(phase, label, cfg, seed, n_prompt, chunk, n_decode):
+    """The same weights on the card and on the CPU (plain versions), carried
+    across with state()/load_state: a chunked prefill of `n_prompt` tokens
+    then `n_decode` decode steps, teacher-forced on the CPU's tokens."""
     import numpy as np
     import torch
     from tensorrt_llm_tpu_torch.attention_backend import AttentionMetadata
     from tensorrt_llm_tpu_torch.models import get_model_class
-    cfg = w4a16_cfg(TINYLLAMA, num_layers=2, max_position=2048)
-    gpu = get_model_class(cfg.architecture)(cfg, DEVICE).init_random(1)
+    gpu = get_model_class(cfg.architecture)(cfg, DEVICE).init_random(seed)
     cpu = get_model_class(cfg.architecture)(cfg, "cpu").load_state(
         {k: v.cpu() for k, v in gpu.state().items()})
-    rng = np.random.default_rng(1)
-    prompt = [int(t) for t in rng.integers(10, cfg.vocab_size - 10, 100)]
-    BS, blocks = 16, list(range(1, 9))
+    rng = np.random.default_rng(seed)
+    prompt = [int(t) for t in rng.integers(10, cfg.vocab_size - 10,
+                                            n_prompt)]
+    BS = 16
+    blocks = list(range(1, -(-(n_prompt + n_decode) // BS) + 1))
 
     def pools(dev):
         shape = (len(blocks) + 1, cfg.num_kv_heads, BS, cfg.head_dim)
@@ -435,28 +595,41 @@ def cross_check_cpu():
     TOL = 0.08
     steps, worst, agree, compared = [], 0.0, 0, 0
     seq = list(prompt)
-    plan = [("prefill", 0, 64), ("prefill", 64, 100)]
-    for mode, lo, hi in plan:
-        lg = run("cuda", seq[lo:hi], list(range(lo, hi)), hi, mode, lo)
-        lc = run("cpu", seq[lo:hi], list(range(lo, hi)), hi, mode, lo)
-        steps.append((lg, lc))
-    for _ in range(6):
-        lg, lc = steps[-1]
-        seq.append(int(np.argmax(lc)))          # teacher-force the CPU token
+    plan = [(lo, min(lo + chunk, n_prompt)) for lo in range(0, n_prompt, chunk)]
+    for lo, hi in plan:
+        steps.append(tuple(run(k, seq[lo:hi], list(range(lo, hi)), hi,
+                               "prefill", lo) for k in ("cuda", "cpu")))
+    for _ in range(n_decode):
+        seq.append(int(np.argmax(steps[-1][1])))   # teacher-force the CPU
         n = len(seq)
-        steps.append((run("cuda", [seq[-1]], [n - 1], n, "decode", 0),
-                      run("cpu", [seq[-1]], [n - 1], n, "decode", 0)))
-    for lg, lc in steps[1:]:
+        steps.append(tuple(run(k, [seq[-1]], [n - 1], n, "decode", 0)
+                           for k in ("cuda", "cpu")))
+    for lg, lc in steps[len(plan) - 1:]:
         assert np.isfinite(lg).all() and np.isfinite(lc).all()
         worst = max(worst, float(np.abs(lg - lc).max()))
         top2 = np.sort(lc)[-2:]
         if top2[1] - top2[0] > TOL:
             compared += 1
             agree += int(np.argmax(lg) == np.argmax(lc))
-    res = {"phase": "cpu_cross_check", "model": "tinyllama width, 2 layers",
-           "steps": len(steps) - 1, "max_abs_logit_diff": worst, "tol": TOL,
+    res = {"phase": phase, "model": label, "prefill_chunks": len(plan),
+           "decode_steps": n_decode, "max_abs_logit_diff": worst, "tol": TOL,
            "greedy_compared": compared, "greedy_agree": agree}
-    PHASES["cpu_cross_check"] = res
+    moe = next((layer.mlp for layer in gpu.layers if layer.is_moe), None)
+    if moe is not None:
+        # routing, sort, both K5 launches and the finalize read nothing
+        # back to the host: a synchronizing call raises in this mode
+        h = torch.randn((37, cfg.hidden_size), device=DEVICE).to(
+            torch.bfloat16)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            with torch.no_grad():
+                moe(h)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        res["moe_forward_host_syncs"] = 0
+    PHASES[phase] = res
     log(json.dumps(res))
     assert worst <= TOL, res
     assert agree == compared, res
@@ -497,21 +670,21 @@ def llama3_width():
     torch.cuda.empty_cache()
 
 
-def profile_serve(card):
-    """Opt-in phase (`python3 chip_smoke.py profile`): trace a short
-    TinyLlama serve window (4 requests of 200 tokens, 32 new tokens each)
-    with torch.profiler and report the device-busy share of the wall time
-    and the kernels holding the device, by total device time."""
+def profile_serve(card, phase, cfg):
+    """Opt-in phases (`profile`: TinyLlama, `profile_gptoss`: GPT-OSS-20B):
+    trace a short serve window (4 requests of 200 tokens, 32 new tokens
+    each) with torch.profiler and report the device-busy share of the wall
+    time and the kernels holding the device, by total device time."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
     import tensorrt_llm_tpu_torch as T
-    llm = T.LLM(model=w4a16_cfg(TINYLLAMA), skip_tokenizer_init=True,
+    llm = T.LLM(model=cfg, skip_tokenizer_init=True,
                 device=DEVICE, max_batch_size=4, max_num_tokens=256,
                 max_seq_len=1024, kv_num_blocks=640, seed=0)
     rng = np.random.default_rng(3)
-    prompts = [[int(t) for t in rng.integers(10, TINYLLAMA["vocab_size"]
-                                             - 10, 200)] for _ in range(4)]
+    prompts = [[int(t) for t in rng.integers(10, cfg.vocab_size - 10, 200)]
+               for _ in range(4)]
     try:
         llm.generate([[1, 2, 3]], T.SamplingParams(max_tokens=2,
                                                    temperature=0.0))
@@ -534,34 +707,44 @@ def profile_serve(card):
     rows = sorted(((e.key, dev_us(e), e.count) for e in prof.key_averages()
                    if dev_us(e) > 0), key=lambda r: -r[1])
     busy = sum(r[1] for r in rows) / 1e6
-    PHASES["profile"] = {
-        "phase": "profile", "card": card, "wall_s": wall,
+    PHASES[phase] = {
+        "phase": phase, "card": card, "wall_s": wall,
         "device_busy_s": busy, "device_busy_share": busy / wall,
         "decode_steps": sum(s["decode_steps"] for s in stats[-50:]),
         "top_kernels_ms": [[k[:90], us / 1e3, n] for k, us, n in rows[:12]]}
-    log(json.dumps(PHASES["profile"]))
+    log(json.dumps(PHASES[phase]))
+    del llm
+    torch.cuda.empty_cache()
 
 
 # ----------------------------------------------------------------- summary --
+MAIN_PATH = "serve_gpt_oss"   # this slice's main path: every kernel runs there
 KERNELS = {
+    # each kernel's row: a phase-3 check at the shape the main path gives it
     "w4a16_gemm": ("cuda", "tensorrt_llm_tpu_torch/csrc/w4a16_gemm.cu",
                    "tensorrt_llm_tpu/ops/w4a16_gemm.py:205",
-                   {"model": "tinyllama", "M": 256, "K": 2048, "N": 11264}),
+                   {"model": "gpt-oss-20b", "M": 256, "K": 2880, "N": 5120}),
     "w4a16_gemv": ("cuda", "tensorrt_llm_tpu_torch/csrc/w4a16_gemv.cu",
                    "tensorrt_llm_tpu/ops/w4a16_gemm.py:560",
-                   {"model": "tinyllama", "M": 4, "K": 2048, "N": 11264}),
+                   {"model": "gpt-oss-20b", "M": 4, "K": 2880, "N": 5120}),
     "flash_prefill": ("cuda", "tensorrt_llm_tpu_torch/csrc/flash_prefill.cu",
                       "tensorrt_llm_tpu/ops/flash_prefill.py:282",
-                      {"model": "tinyllama", "T": 256, "q_offset": 256,
-                       "sinks": False}),
+                      {"model": "gpt-oss-20b", "T": 256, "q_offset": 128,
+                       "window": 128}),
     "paged_decode": ("cuda", "tensorrt_llm_tpu_torch/csrc/paged_decode.cu",
                      "tensorrt_llm_tpu/ops/paged_attention.py:516",
-                     {"model": "tinyllama", "kv_lens": [81, 150, 400, 664],
-                      "sinks": False, "logit_cap": None, "window": None}),
+                     {"model": "gpt-oss-20b", "window": 128}),
+    # GPT-OSS-20B gate_up at decode: 4 requests x top-4 rows
+    "moe_gmm": ("cuda", "tensorrt_llm_tpu_torch/csrc/moe_gmm.cu",
+                "tensorrt_llm_tpu/ops/moe_w4a16.py:78",
+                {"model": "gpt-oss-20b", "M": 16, "N": 5760,
+                 "routing": "uniform", "zeros": False}),
 }
 
 
-def kernels_line(counts):
+def kernels_line(by_path):
+    """`launches` is each kernel's count in the main path's own run;
+    `launches_by_path` gives every serve path's count apart."""
     out = []
     for name, (route, src, replaces, head) in KERNELS.items():
         rows = [r for r in RESULTS if r["kernel"] == name]
@@ -569,7 +752,10 @@ def kernels_line(counts):
                if all(r["shape"].get(k) == v for k, v in head.items())]
         h = hit[0]
         out.append({"name": name, "route": route, "source": src,
-                    "replaces": replaces, "launches": counts.get(name, 0),
+                    "replaces": replaces,
+                    "launches": by_path[MAIN_PATH].get(name, 0),
+                    "launches_by_path": {p: c.get(name, 0)
+                                         for p, c in by_path.items()},
                     "max_abs_err": max(r["max_err"] for r in rows),
                     "ms": h["kernel_ms"], "plain_ms": h["plain_ms"],
                     "bound_ms": h["bound_ms"], "bound_by": h["bound_by"],
@@ -599,7 +785,8 @@ def main() -> int:
     log(f"[phase 2] kernels built/loaded in "
         f"{cuda_build.last_build_seconds:.1f} s")
     for line in cuda_build.last_build_log.splitlines():
-        if "registers" in line or "spill" in line or "error" in line:
+        if any(w in line for w in ("registers", "spill", "error",
+                                   "entry function")):
             log("  " + line.strip())
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -612,31 +799,53 @@ def main() -> int:
         i = args.index("--json")
         out_json = args[i + 1]
         del args[i:i + 2]
-    phases = args or ["check", "serve", "cross", "llama3"]
-    counts = {}
+    phases = args or ["check", "serve", "cross", "llama3", "gptoss",
+                      "gptoss_cross"]
+    by_path = {}      # each serve path's own launch counts
     t0 = time.perf_counter()
+    if "check" in phases or "check_moe" in phases:
+        check_moe(gen, dev)
     if "check" in phases:
         check_gemm(gen, dev)
         check_prefill(gen, dev)
         check_decode(gen, dev)
+    if RESULTS:
         log(f"[phase 3] {len(RESULTS)} kernel checks passed in "
             f"{time.perf_counter() - t0:.1f} s")
+    base = ("w4a16_gemm", "w4a16_gemv", "flash_prefill", "paged_decode")
     if "serve" in phases:
-        counts = serve_tinyllama(card)
+        by_path["serve"] = serve_model(
+            card, "serve", "tinyllama-1.1b W4A16 (22 layers)",
+            w4a16_cfg(TINYLLAMA), base)
     if "cross" in phases:
-        cross_check_cpu()
+        cross_check_cpu("cpu_cross_check", "tinyllama width, 2 layers",
+                        w4a16_cfg(TINYLLAMA, num_layers=2, max_position=2048),
+                        seed=1, n_prompt=100, chunk=64, n_decode=6)
     if "llama3" in phases:
         llama3_width()
+    if "gptoss" in phases:
+        n = GPT_OSS_LAYERS
+        by_path["serve_gpt_oss"] = serve_model(
+            card, "serve_gpt_oss", f"gpt-oss-20b W4A16 g64 ({n} layers)",
+            gpt_oss_cfg(n), base + ("moe_gmm", "moe_gmm_units"))
+    if "gptoss_cross" in phases:
+        cross_check_cpu("gpt_oss_cross_check",
+                        "gpt-oss-20b width, 2 layers (sliding, full)",
+                        gpt_oss_cfg(2), seed=4, n_prompt=200, chunk=128,
+                        n_decode=4)
     if "profile" in phases:
-        profile_serve(card)
+        profile_serve(card, "profile", w4a16_cfg(TINYLLAMA))
+    if "profile_gptoss" in phases:
+        profile_serve(card, "profile_gptoss", gpt_oss_cfg(GPT_OSS_LAYERS))
+    log(f"[done] phases {phases} in {time.perf_counter() - t0:.1f} s")
     if out_json:
         os.makedirs(os.path.dirname(os.path.abspath(out_json)), exist_ok=True)
         with open(out_json, "w") as f:
             json.dump({"card": card, "phases": PHASES, "checks": RESULTS}, f,
                       indent=1)
     log(card)
-    if "check" in phases and "serve" in phases:
-        log(json.dumps(kernels_line(counts)))
+    if "check" in phases and "serve" in phases and "gptoss" in phases:
+        log(json.dumps(kernels_line(by_path)))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -31,7 +31,9 @@ class CudaAttention(AttentionBackend):
             return flash_prefill_attention(
                 q, k_cache, v_cache, meta.block_tables[0],
                 kv_len=meta.q_offset + q.shape[0], q_offset=meta.q_offset,
-                scale=self.scale, sinks=sinks)
+                scale=self.scale, sliding_window=self.sliding_window,
+                sinks=sinks)
         return paged_decode_attention(q, k_cache, v_cache, meta.block_tables,
                                       meta.kv_lens, scale=self.scale,
+                                      sliding_window=self.sliding_window,
                                       sinks=sinks)

@@ -40,14 +40,17 @@ class AttentionMetadata:
 
 
 class AttentionBackend:
-    """Base: write the new K/V into the paged cache, then attend."""
+    """Base: write the new K/V into the paged cache, then attend.  A
+    sliding-window layer's backend masks keys more than `sliding_window`
+    positions behind each query."""
 
     def __init__(self, num_heads: int, num_kv_heads: int, head_dim: int,
-                 scale: float):
+                 scale: float, sliding_window: Optional[int] = None):
         self.num_heads = num_heads
         self.num_kv_heads = num_kv_heads
         self.head_dim = head_dim
         self.scale = scale
+        self.sliding_window = sliding_window
 
     def __call__(self, q, k, v, k_cache, v_cache, meta: AttentionMetadata,
                  sinks=None) -> torch.Tensor:

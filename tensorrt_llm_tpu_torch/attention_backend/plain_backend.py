@@ -21,6 +21,9 @@ class PlainAttention(AttentionBackend):
             return paged_prefill_plain(
                 q, k_cache, v_cache, meta.block_tables[0],
                 kv_len=meta.q_offset + q.shape[0], q_offset=meta.q_offset,
-                scale=self.scale, sinks=sinks)
+                scale=self.scale, sliding_window=self.sliding_window,
+                sinks=sinks)
         return paged_decode_plain(q, k_cache, v_cache, meta.block_tables,
-                                  meta.kv_lens, scale=self.scale, sinks=sinks)
+                                  meta.kv_lens, scale=self.scale,
+                                  sliding_window=self.sliding_window,
+                                  sinks=sinks)

@@ -1,10 +1,13 @@
 """Multi-head attention (GQA) over a paged KV cache.
 
-Counterpart of `tensorrt_llm_tpu/layers/attention.py` for the Llama family:
-fused QKV projection, RoPE, KV append and backend attention, output
-projection.  Attention sinks (a per-head logit in the softmax denominator)
-pass through when the parameters carry them.  Sliding windows, logit caps,
-q/k norms, NoPE layers and context parallelism belong to later slices.
+Counterpart of `tensorrt_llm_tpu/layers/attention.py` for the Llama, Mixtral
+and GPT-OSS families: fused QKV projection (optionally biased), RoPE, KV
+append and backend attention, output projection (optionally biased).
+Attention sinks (a per-head logit in the softmax denominator) and a
+per-layer sliding window pass through to the backend.  The window is masked
+inside the kernels over the layer's full-length pool; the JAX engine's
+cyclic ring pools for sliding layers are a later slice.  Logit caps, q/k
+norms, NoPE layers and context parallelism belong to later slices too.
 """
 
 from __future__ import annotations
@@ -24,21 +27,34 @@ from tensorrt_llm_tpu_torch.quantization import QuantConfig
 class Attention(nn.Module):
     def __init__(self, hidden_size: int, num_heads: int, num_kv_heads: int,
                  head_dim: int, quant: Optional[QuantConfig] = None,
-                 device="cuda"):
+                 device="cuda", has_bias: bool = False,
+                 has_o_bias: bool = False, has_sinks: bool = False,
+                 sliding_window: Optional[int] = None):
         super().__init__()
         self.num_heads = num_heads
         self.num_kv_heads = num_kv_heads
         self.head_dim = head_dim
+        self.has_bias = has_bias
+        self.has_o_bias = has_o_bias
+        self.has_sinks = has_sinks
+        self.sliding_window = sliding_window
         qkv_out = (num_heads + 2 * num_kv_heads) * head_dim
         self.qkv = Linear(hidden_size, qkv_out, quant, "qkv_proj")
         self.o = Linear(num_heads * head_dim, hidden_size, quant, "o_proj")
         self.register_buffer("sinks", None)
         self.backend = get_attention_backend(device)(
-            num_heads, num_kv_heads, head_dim, head_dim ** -0.5)
+            num_heads, num_kv_heads, head_dim, head_dim ** -0.5,
+            sliding_window=sliding_window)
 
-    def from_float(self, q_w, k_w, v_w, o_w) -> None:
-        self.qkv.from_float(torch.cat([q_w, k_w, v_w], dim=1))
-        self.o.from_float(o_w)
+    def from_float(self, q_w, k_w, v_w, o_w, q_b=None, k_b=None, v_b=None,
+                   o_b=None, sinks=None) -> None:
+        """Full float weights [in, out]; biases and sinks as the JAX
+        package's `Attention.from_float` takes them (tp = 1)."""
+        bias = (torch.cat([q_b, k_b, v_b]) if self.has_bias else None)
+        self.qkv.from_float(torch.cat([q_w, k_w, v_w], dim=1), bias)
+        self.o.from_float(o_w, o_b if self.has_o_bias else None)
+        if self.has_sinks:
+            self.sinks = sinks.to(torch.float32).contiguous()
 
     def forward(self, x: torch.Tensor,
                 rope_tables: Tuple[torch.Tensor, torch.Tensor],

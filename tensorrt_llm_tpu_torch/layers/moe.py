@@ -1,0 +1,171 @@
+"""Mixture-of-Experts layer with W4A16 experts.
+
+Counterpart of `tensorrt_llm_tpu/layers/moe.py` on one device: tokens are
+routed, the (token, expert) pairs sorted by expert, and the expert FFNs run
+as two grouped W4A16 products (`ops/moe_w4a16.py`, kernel K5 on CUDA) with
+a scatter-add finalize.  Routing variants: softmax -> top-k -> renormalize
+(Mixtral), and top-k on raw logits -> softmax over the k with a router bias
+(GPT-OSS, with per-expert gate_up/down biases and the clamped swiglu).
+
+The rounding points are the JAX package's: the gate_up product is rounded
+to bf16, the expert bias is added in f32 and rounded to bf16, the
+activation runs in f32 and rounds to bf16, and the down product, its bias,
+the routing weights and the finalize stay f32 until the bf16 output.
+
+Group sizes stay on the device (a scatter-add of ones, not `bincount`,
+which reads the largest id back), and K5's prologue derives the work units
+from them on the device, once for both products, so a forward reads
+nothing back to the host.  The finalize
+puts each pair's row back in (token, choice) order and sums each token's
+k rows in increasing expert order -- the order of the JAX package's
+scatter over the expert-sorted pairs -- with no atomics, so it is
+deterministic on the card.
+
+Not in this slice: the capacity factor, redundant expert slots and load
+counters, shared experts, the DeepSeek and Llama4 routings (the layer has
+no option for them; `ModelConfig.from_hf_config` raises on a config that
+sets them), and unquantized (bf16) experts (raise here).  Expert and
+tensor parallelism have no option either: the layer runs on one device.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch import nn
+
+from tensorrt_llm_tpu_torch.ops.moe_w4a16 import (
+    gmm_work_units, quantize_experts_w4, w4a16_grouped_matmul)
+from tensorrt_llm_tpu_torch.ops.w4a16_gemm import ACTIVATIONS
+from tensorrt_llm_tpu_torch.quantization import QuantConfig
+
+_LEAVES = ("router", "router_bias", "w_gate_up", "w_gate_up_s", "w_gate_up_z",
+           "b_gate_up", "w_down", "w_down_s", "w_down_z", "b_down")
+
+
+class MoE(nn.Module):
+    def __init__(self, hidden_size: int, intermediate_size: int,
+                 num_experts: int, top_k: int, activation: str = "silu",
+                 renormalize: bool = True, has_router_bias: bool = False,
+                 topk_then_softmax: bool = False,
+                 has_expert_bias: bool = False,
+                 quant: Optional[QuantConfig] = None):
+        super().__init__()
+        if quant is None or not quant.is_weight_only_w4:
+            raise NotImplementedError(
+                "MoE: only W4A16 experts are in this slice")
+        H, I = hidden_size, intermediate_size
+        if H % 2 or I % 2:
+            raise NotImplementedError(f"MoE: odd widths H={H}, I={I}")
+        self.hidden_size = H
+        self.intermediate_size = I
+        self.num_experts = num_experts
+        self.top_k = top_k
+        self.activation = activation
+        self.renormalize = renormalize
+        self.has_router_bias = has_router_bias
+        self.topk_then_softmax = topk_then_softmax
+        self.has_expert_bias = has_expert_bias
+        self.symmetric = not quant.has_zero_point
+        gs = quant.group_size
+        # per-group scales where the group divides the width, else one
+        # scale per channel (the JAX package's _g_up / _g_down)
+        self.g_up = gs if 0 < gs < H and H % gs == 0 else -1
+        self.g_down = gs if 0 < gs < I and I % gs == 0 else -1
+        for leaf in _LEAVES:
+            self.register_buffer(leaf, None)
+
+    # ---- parameters -----------------------------------------------------
+    def from_float(self, router_w, gate_w, up_w, down_w, router_bias=None,
+                   gate_b=None, up_b=None, down_b=None) -> None:
+        """router_w [H, E]; gate/up [E, H, I]; down [E, I, H] (full float).
+        gate and up are fused as [gate | up] along the output columns, the
+        JAX package's interleave at tp = 1."""
+        self.router = router_w.to(torch.float32).contiguous()
+        fused = torch.cat([gate_w, up_w], dim=2).to(torch.float32)
+        pk, sc, zr, _ = quantize_experts_w4(fused, self.g_up, self.symmetric)
+        del fused
+        self.w_gate_up, self.w_gate_up_s, self.w_gate_up_z = pk, sc, zr
+        pk, sc, zr, _ = quantize_experts_w4(down_w.to(torch.float32),
+                                            self.g_down, self.symmetric)
+        self.w_down, self.w_down_s, self.w_down_z = pk, sc, zr
+        E, H, I = self.num_experts, self.hidden_size, self.intermediate_size
+        dev = self.router.device
+        if self.has_router_bias:
+            self.router_bias = (torch.zeros(E, device=dev)
+                                if router_bias is None
+                                else router_bias.to(torch.float32))
+        if self.has_expert_bias:
+            if gate_b is None:
+                gate_b = torch.zeros((E, I), device=dev)
+                up_b = torch.zeros((E, I), device=dev)
+            if down_b is None:
+                down_b = torch.zeros((E, H), device=dev)
+            self.b_gate_up = torch.cat([gate_b, up_b], dim=1).to(
+                torch.float32).contiguous()
+            self.b_down = down_b.to(torch.float32).contiguous()
+
+    # ---- routing --------------------------------------------------------
+    def route(self, x: torch.Tensor):
+        """(topk_ids [T, k] int64, topk_weights [T, k] f32)."""
+        logits = x.to(torch.float32) @ self.router                 # [T, E]
+        if self.has_router_bias:
+            logits = logits + self.router_bias[None, :]
+        if self.topk_then_softmax:
+            vals, ids = torch.topk(logits, self.top_k, dim=-1)
+            return ids, torch.softmax(vals, dim=-1)
+        scores = torch.softmax(logits, dim=-1)
+        w, ids = torch.topk(scores, self.top_k, dim=-1)
+        if self.renormalize:
+            w = w / w.sum(dim=-1, keepdim=True)
+        return ids, w
+
+    # ---- forward --------------------------------------------------------
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        T, H = x.shape
+        k, E, I = self.top_k, self.num_experts, self.intermediate_size
+        ids, weights = self.route(x)
+        flat_ids = ids.reshape(-1)
+        # (token, choice) pairs sorted by expert, stable as jnp.argsort
+        order = torch.argsort(flat_ids, stable=True)
+        sorted_e = flat_ids[order]
+        sorted_tok = order // k
+        sorted_w = weights.reshape(-1)[order]
+        group_sizes = torch.zeros(E, dtype=torch.int32, device=x.device)
+        group_sizes.scatter_add_(0, flat_ids, torch.ones_like(
+            flat_ids, dtype=torch.int32))
+        units = gmm_work_units(group_sizes, T * k)   # shared by both products
+
+        xs = x[sorted_tok].to(torch.bfloat16)
+        h = w4a16_grouped_matmul(xs, self.w_gate_up, self.w_gate_up_s,
+                                 group_sizes, units, self.w_gate_up_z
+                                 ).to(torch.bfloat16)
+        if self.has_expert_bias:
+            h = (h.to(torch.float32) + self.b_gate_up[sorted_e]).to(
+                torch.bfloat16)
+        gate = h[:, :I].to(torch.float32)
+        up = h[:, I:].to(torch.float32)
+        if self.activation == "swiglu_oai":
+            # GPT-OSS clamped swiglu: (up + 1) * gate * sigmoid(1.702 gate)
+            g = torch.clamp(gate, max=7.0)
+            u = torch.clamp(up, -7.0, 7.0)
+            h = ((u + 1.0) * g * torch.sigmoid(1.702 * g)).to(torch.bfloat16)
+        else:
+            h = (ACTIVATIONS[self.activation](gate) * up).to(torch.bfloat16)
+        out_sorted = w4a16_grouped_matmul(h, self.w_down, self.w_down_s,
+                                          group_sizes, units, self.w_down_z)
+        if self.has_expert_bias:
+            # added once per (token, expert) pair, before the routing weight
+            out_sorted = out_sorted + self.b_down[sorted_e]
+        contrib = out_sorted * sorted_w[:, None]
+        # finalize: rows back to (token, choice) order, then each token's k
+        # rows summed in increasing expert order
+        pairs = torch.empty_like(contrib).index_copy_(0, order, contrib)
+        pairs = pairs.view(T, k, H)
+        by_expert = torch.argsort(ids, dim=1, stable=True)
+        out = pairs[torch.arange(T, device=x.device)[:, None], by_expert]
+        acc = out[:, 0]
+        for j in range(1, k):
+            acc = acc + out[:, j]
+        return acc.to(x.dtype)

@@ -1,13 +1,16 @@
-"""Decoder-only causal LM for the Llama family.
+"""Decoder-only causal LM for the Llama, Mixtral and GPT-OSS families.
 
 Counterpart of `tensorrt_llm_tpu/models/modeling_utils.py`: `ModelConfig`
-(the fields the Llama family uses), `DecoderLayer`, and
-`DecoderModelForCausalLM.forward` (embedding, pre-norm decoder layers over a
-paged KV cache, final norm, bf16 lm_head).  Weights come from
-`init_random` (numpy-seeded, identical on every device) or from
+(the fields those families use, with `from_hf_config`), `DecoderLayer` (a
+gated MLP or a W4A16 MoE; sliding-window layers by `layer_types` or by the
+window), and `DecoderModelForCausalLM.forward` (embedding, pre-norm decoder
+layers over a paged KV cache, final norm, bf16 lm_head).  Weights come from
+`init_random` (drawn on the model's device from a seeded `torch.Generator`,
+one layer at a time, quantized as they are drawn) or from
 `params_from_jax`, which converts the JAX package's parameter pytree so the
-tests can run the same weights on both sides.  Loading HF checkpoints
-belongs to a later slice.
+tests can run the same weights on both sides.  Two models hold the same
+weights through `state()` / `load_state`.  Loading HF checkpoints belongs
+to a later slice.
 """
 
 from __future__ import annotations
@@ -25,10 +28,21 @@ from tensorrt_llm_tpu_torch.layers.attention import Attention
 from tensorrt_llm_tpu_torch.layers.embedding import Embedding
 from tensorrt_llm_tpu_torch.layers.linear import Linear
 from tensorrt_llm_tpu_torch.layers.mlp import GatedMLP
+from tensorrt_llm_tpu_torch.layers.moe import MoE
 from tensorrt_llm_tpu_torch.ops.norms import add_rms_norm
 from tensorrt_llm_tpu_torch.ops.rope import RopeConfig, make_rope_tables
 from tensorrt_llm_tpu_torch.quantization import QuantConfig
 from tensorrt_llm_tpu_torch.utils import resolve_device
+
+_HF_ARCHITECTURES = ("LlamaForCausalLM", "MistralForCausalLM",
+                     "MixtralForCausalLM", "GptOssForCausalLM")
+# HF keys of MoE features this slice leaves out (shared experts, DeepSeek
+# grouped routing, sparse or dense-only layers), with their neutral value
+_CUT_HF_KEYS = {"n_shared_experts": 0, "shared_expert_intermediate_size": 0,
+                "n_group": 1, "topk_group": 1,
+                "scoring_func": "softmax", "routed_scaling_factor": 1.0,
+                "first_k_dense_replace": 0, "decoder_sparse_step": 1,
+                "mlp_only_layers": []}
 
 
 @dataclass
@@ -43,31 +57,140 @@ class ModelConfig:
     head_dim: Optional[int] = None
     rms_eps: float = 1e-5
     rope_theta: float = 10000.0
+    rope_scaling: Optional[dict] = None
     max_position: int = 4096
+    tie_word_embeddings: bool = False
+    attention_bias: bool = False
+    o_bias: bool = False                  # o_proj bias (GPT-OSS)
+    has_sinks: bool = False               # attention-sink logits (GPT-OSS)
+    layer_types: Optional[tuple] = None   # "sliding_attention" / "full_attention"
     activation: str = "silu"
+    sliding_window: Optional[int] = None
+    # MoE (0 experts => dense MLP everywhere)
+    num_experts: int = 0
+    num_experts_per_tok: int = 2
+    moe_intermediate_size: Optional[int] = None
+    norm_topk_prob: bool = True
+    # GPT-OSS MoE: biased router, topk-then-softmax, per-expert biases
+    moe_router_bias: bool = False
+    moe_topk_then_softmax: bool = False
+    moe_expert_bias: bool = False
     quant: Optional[QuantConfig] = None
 
     def __post_init__(self):
         if self.head_dim is None:
             self.head_dim = self.hidden_size // self.num_heads
+        if self.moe_intermediate_size is None:
+            self.moe_intermediate_size = self.intermediate_size
+
+    def is_moe_layer(self, idx: int) -> bool:
+        return self.num_experts > 0
+
+    def is_sliding_layer(self, idx: int) -> bool:
+        """An explicit `layer_types` list wins (GPT-OSS); otherwise every
+        layer slides when a window is set (Mistral)."""
+        if self.layer_types is not None:
+            return self.layer_types[idx] == "sliding_attention"
+        return self.sliding_window is not None
 
     @property
     def rope(self) -> RopeConfig:
-        return RopeConfig(head_dim=self.head_dim, theta=self.rope_theta,
-                          max_position=self.max_position)
+        s = self.rope_scaling or {}
+        stype = s.get("rope_type") or s.get("type")
+        if stype == "default":
+            stype = None
+        return RopeConfig(
+            head_dim=self.head_dim, theta=self.rope_theta,
+            max_position=self.max_position, scaling_type=stype,
+            scaling_factor=s.get("factor", 1.0),
+            low_freq_factor=s.get("low_freq_factor", 1.0),
+            high_freq_factor=s.get("high_freq_factor", 4.0),
+            original_max_position=s.get("original_max_position_embeddings",
+                                        self.max_position),
+            truncate=bool(s.get("truncate", True)),
+            beta_fast=s.get("beta_fast") or 32.0,
+            beta_slow=s.get("beta_slow") or 1.0,
+            mscale=s.get("mscale"), mscale_all_dim=s.get("mscale_all_dim"),
+            attention_factor=s.get("attention_factor"))
+
+    @classmethod
+    def from_hf_config(cls, hf, quant: Optional[QuantConfig] = None
+                       ) -> "ModelConfig":
+        """Build from a transformers config (or plain dict) of the Llama,
+        Mistral, Mixtral or GPT-OSS families, with the JAX package's field
+        mapping; other architectures raise."""
+        get = ((lambda k, d=None: hf.get(k, d)) if isinstance(hf, dict)
+               else (lambda k, d=None: getattr(hf, k, d)))
+        archs = get("architectures")
+        arch = archs[0] if archs else "LlamaForCausalLM"
+        if arch not in _HF_ARCHITECTURES:
+            raise NotImplementedError(
+                f"from_hf_config: {arch} is not in this slice "
+                f"(known: {', '.join(_HF_ARCHITECTURES)})")
+        for key, neutral in _CUT_HF_KEYS.items():
+            if get(key) and get(key) != neutral:
+                raise NotImplementedError(
+                    f"from_hf_config: {key}={get(key)!r} is not in this slice")
+        gpt_oss = arch == "GptOssForCausalLM"
+        return cls(
+            architecture=arch,
+            vocab_size=get("vocab_size", 32000),
+            hidden_size=get("hidden_size", 4096),
+            intermediate_size=get("intermediate_size", 11008),
+            num_layers=get("num_hidden_layers", 32),
+            num_heads=get("num_attention_heads", 32),
+            num_kv_heads=(get("num_key_value_heads")
+                          or get("num_attention_heads", 32)),
+            head_dim=get("head_dim"),
+            rms_eps=get("rms_norm_eps") or 1e-5,
+            rope_theta=get("rope_theta", 10000.0),
+            rope_scaling=get("rope_scaling"),
+            max_position=get("max_position_embeddings", 4096),
+            tie_word_embeddings=get("tie_word_embeddings", False),
+            attention_bias=bool(get("attention_bias", False)),
+            o_bias=gpt_oss and bool(get("attention_bias", False)),
+            has_sinks=gpt_oss,
+            layer_types=(tuple(get("layer_types")) if get("layer_types")
+                         else None),
+            sliding_window=get("sliding_window"),
+            activation="swiglu_oai" if gpt_oss else "silu",
+            num_experts=(get("num_local_experts") or get("num_experts")
+                         or 0),
+            num_experts_per_tok=get("num_experts_per_tok", 2),
+            moe_intermediate_size=get("moe_intermediate_size"),
+            norm_topk_prob=bool(get("norm_topk_prob", True)),
+            moe_router_bias=gpt_oss,
+            moe_topk_then_softmax=gpt_oss,
+            moe_expert_bias=gpt_oss,
+            quant=quant)
 
 
 class DecoderLayer(nn.Module):
     """Pre-norm block: x + attn(norm(x)); x + mlp(norm(x)), with the residual
-    add fused into the next norm as in the JAX package."""
+    add fused into the next norm as in the JAX package.  The MLP is a W4A16
+    MoE on MoE layers, a gated MLP elsewhere."""
 
-    def __init__(self, cfg: ModelConfig, device="cuda"):
+    def __init__(self, cfg: ModelConfig, layer_idx: int, device="cuda"):
         super().__init__()
         self.cfg = cfg
-        self.attn = Attention(cfg.hidden_size, cfg.num_heads, cfg.num_kv_heads,
-                              cfg.head_dim, cfg.quant, device)
-        self.mlp = GatedMLP(cfg.hidden_size, cfg.intermediate_size,
-                            cfg.activation, quant=cfg.quant)
+        self.sliding = cfg.is_sliding_layer(layer_idx)
+        self.is_moe = cfg.is_moe_layer(layer_idx)
+        self.attn = Attention(
+            cfg.hidden_size, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
+            cfg.quant, device, has_bias=cfg.attention_bias,
+            has_o_bias=cfg.o_bias, has_sinks=cfg.has_sinks,
+            sliding_window=cfg.sliding_window if self.sliding else None)
+        if self.is_moe:
+            self.mlp = MoE(
+                cfg.hidden_size, cfg.moe_intermediate_size, cfg.num_experts,
+                cfg.num_experts_per_tok, cfg.activation,
+                renormalize=cfg.norm_topk_prob,
+                has_router_bias=cfg.moe_router_bias,
+                topk_then_softmax=cfg.moe_topk_then_softmax,
+                has_expert_bias=cfg.moe_expert_bias, quant=cfg.quant)
+        else:
+            self.mlp = GatedMLP(cfg.hidden_size, cfg.intermediate_size,
+                                cfg.activation, quant=cfg.quant)
         self.input_norm = _RMSNormWeight(cfg.hidden_size)
         self.post_attn_norm = _RMSNormWeight(cfg.hidden_size)
 
@@ -99,7 +222,10 @@ def register_auto_model(*architectures):
 
 
 def get_model_class(architecture: str) -> type:
-    import tensorrt_llm_tpu_torch.models.llama  # noqa: F401  (registers)
+    # the architecture modules register themselves on import
+    import tensorrt_llm_tpu_torch.models.gpt_oss  # noqa: F401
+    import tensorrt_llm_tpu_torch.models.llama  # noqa: F401
+    import tensorrt_llm_tpu_torch.models.mixtral  # noqa: F401
     if architecture not in _MODEL_REGISTRY:
         raise KeyError(f"architecture {architecture!r} not in this slice; "
                        f"known: {sorted(_MODEL_REGISTRY)}")
@@ -109,11 +235,13 @@ def get_model_class(architecture: str) -> type:
 class DecoderModelForCausalLM(nn.Module):
     def __init__(self, cfg: ModelConfig, device="cuda"):
         super().__init__()
+        if cfg.tie_word_embeddings:
+            raise NotImplementedError("tied embeddings are not in this slice")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.embedding = Embedding(cfg.vocab_size, cfg.hidden_size)
         self.layers = nn.ModuleList(
-            [DecoderLayer(cfg, self.device) for _ in range(cfg.num_layers)])
+            [DecoderLayer(cfg, i, self.device) for i in range(cfg.num_layers)])
         self.final_norm = _RMSNormWeight(cfg.hidden_size)
         # the LM head stays bf16 (QuantConfig.exclude_modules)
         self.lm_head = Linear(cfg.hidden_size, cfg.vocab_size, cfg.quant,
@@ -126,28 +254,42 @@ class DecoderModelForCausalLM(nn.Module):
     # ---- parameters -----------------------------------------------------
     @torch.no_grad()
     def init_random(self, seed: int = 0) -> "DecoderModelForCausalLM":
-        """Random weights at the real shapes, drawn with numpy from `seed`
-        (so every device gets the same floats), quantized on the model's
-        device.  Scales follow the JAX package's `init`."""
+        """Random weights at the real shapes, drawn on the model's device
+        from a `torch.Generator` seeded with `seed`, one layer at a time and
+        quantized as they are drawn (GPT-OSS-20B draws ~19 G floats).  Two
+        devices give different floats for one seed: carry weights across
+        with `state()` / `load_state`.  Scales follow the JAX package's
+        `init`; biases are small random values, sinks N(0, 0.5^2)."""
         cfg, dev = self.cfg, self.device
-        rng = np.random.default_rng(seed)
-        H, I, D = cfg.hidden_size, cfg.intermediate_size, cfg.head_dim
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
+        H, D = cfg.hidden_size, cfg.head_dim
+        Hq, Hkv = cfg.num_heads * D, cfg.num_kv_heads * D
 
         def normal(shape, std):
-            a = rng.standard_normal(shape, dtype=np.float32)
-            return torch.from_numpy(a).to(dev).mul_(std)
+            return torch.randn(shape, generator=gen, device=dev).mul_(std)
 
-        self.embedding.load(normal((cfg.vocab_size, H), 0.02)
-                            .to(torch.bfloat16))
+        self.embedding.load(normal((cfg.vocab_size, H), 0.02))
         std = 0.5 / H ** 0.5
         for layer in self.layers:
+            b = 0.02
             layer.attn.from_float(
-                normal((H, cfg.num_heads * D), std),
-                normal((H, cfg.num_kv_heads * D), std),
-                normal((H, cfg.num_kv_heads * D), std),
-                normal((cfg.num_heads * D, H), std))
-            layer.mlp.from_float(normal((H, I), std), normal((H, I), std),
-                                 normal((I, H), 0.5 / I ** 0.5))
+                normal((H, Hq), std), normal((H, Hkv), std),
+                normal((H, Hkv), std), normal((Hq, H), std),
+                q_b=normal((Hq,), b), k_b=normal((Hkv,), b),
+                v_b=normal((Hkv,), b), o_b=normal((H,), b),
+                sinks=normal((cfg.num_heads,), 0.5))
+            if layer.is_moe:
+                E, I = cfg.num_experts, cfg.moe_intermediate_size
+                layer.mlp.from_float(
+                    normal((H, E), std), normal((E, H, I), std),
+                    normal((E, H, I), std), normal((E, I, H), 0.5 / I ** 0.5),
+                    router_bias=normal((E,), b), gate_b=normal((E, I), b),
+                    up_b=normal((E, I), b), down_b=normal((E, H), b))
+            else:
+                I = cfg.intermediate_size
+                layer.mlp.from_float(normal((H, I), std), normal((H, I), std),
+                                     normal((I, H), 0.5 / I ** 0.5))
         self.lm_head.from_float(normal((H, cfg.vocab_size), std))
         return self
 

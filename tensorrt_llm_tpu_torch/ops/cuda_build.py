@@ -58,6 +58,10 @@ _SIGNATURES = {
     # scale, window, logit_cap, n_splits, split_len, stream
     "tllm_paged_decode": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                           _I, _F, _I, _F, _I, _I, _P],
+    # group_sizes, meta, M, E, stream
+    "tllm_moe_gmm_units": [_P, _P, _I, _I, _P],
+    # x, qweight, scales, zeros, meta, out, M, N, K, group, E, block_n, stream
+    "tllm_moe_gmm": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
 }
 
 

@@ -5,7 +5,9 @@ background thread that, each iteration, ingests new requests, schedules
 (capacity + token budget, chunked prefill), allocates paged-KV blocks with
 prefix reuse, runs the prefill chunks and one batched decode dispatch (up to
 `max_decode_steps` tokens per sequence), samples, applies stop criteria and
-streams results.
+streams results.  A finished request's last piece goes out at the end of
+its iteration, after its KV blocks are freed and the iteration's stats are
+kept, so a caller woken by it reads settled KV and iteration stats.
 
 Not in this slice: the overlap pipeline, disaggregated serving and its
 receive path, speculative and beam decoding, guided decoding, stop strings,
@@ -149,10 +151,12 @@ class PyExecutor:
             except queue.Empty:
                 break
         for req in self.active + self.waiting:
-            if not req.is_finished:
-                req.finish(reason)
-                req.emit(finished=True,
-                         error=msg if reason == FinishReason.ERROR else None)
+            if req.is_finished:     # finished this step, not yet delivered
+                req.emit(finished=True)
+                continue
+            req.finish(reason)
+            req.emit(finished=True,
+                     error=msg if reason == FinishReason.ERROR else None)
         for req in self.active:
             self.kv.free_sequence(req.request_id)
         self.active, self.waiting = [], []
@@ -217,12 +221,16 @@ class PyExecutor:
             stats.num_decode_tokens += len(decode_reqs) * k
             stats.decode_steps = k
 
-        self._cleanup_finished()
+        done = self._cleanup_finished()
         stats.kv_stats = self.kv.stats()
         stats.step_time_ms = (time.perf_counter() - t0) * 1e3
         self.stats_history.append(stats)
         if len(self.stats_history) > STATS_KEPT:
             self.stats_history = self.stats_history[-STATS_KEPT:]
+        # deliver finished requests last: a caller woken by its result sees
+        # the sequence's KV freed and this iteration's stats kept
+        for req in done:
+            req.emit(finished=True)
         return True
 
     # ---------------------------------------------------------------- decode --
@@ -287,14 +295,14 @@ class PyExecutor:
         if reason is None and req.num_tokens >= self.max_seq_len:
             reason = FinishReason.LENGTH
         if reason is not None:
-            req.finish(reason)
-            req.emit(finished=True)
+            req.finish(reason)      # delivered at the end of the step
 
-    def _cleanup_finished(self):
-        for req in list(self.active):
-            if req.is_finished:
-                self.kv.free_sequence(req.request_id)
-                self.active.remove(req)
+    def _cleanup_finished(self) -> List[LlmRequest]:
+        done = [req for req in self.active if req.is_finished]
+        for req in done:
+            self.kv.free_sequence(req.request_id)
+            self.active.remove(req)
+        return done
 
     def get_stats(self) -> List[dict]:
         import dataclasses

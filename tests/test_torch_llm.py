@@ -10,6 +10,11 @@ accepts it only at a near-tie: the port's logits for that position (teacher
 forced on the JAX tokens) must rank both candidates within `TIE` of the top
 logit -- a one-ulp bf16 difference upstream may legitimately flip such a
 choice, and nothing after it is comparable.
+
+The JAX side gets the whole batch before its first step and keeps its KV
+bookkeeping in Python (`torch_parity.jax_generate`), so its schedule does not
+depend on thread timing and it builds no native library while other test
+processes may be building it.
 """
 
 import os
@@ -28,10 +33,10 @@ from tensorrt_llm_tpu.models.modeling_utils import ModelConfig as JCfg
 from tensorrt_llm_tpu.quantization import QuantAlgo as JQA
 from tensorrt_llm_tpu.quantization import QuantConfig as JQC
 import tensorrt_llm_tpu_torch as T
-from tensorrt_llm_tpu_torch.attention_backend import AttentionMetadata
-from tensorrt_llm_tpu_torch.models import (
-    ModelConfig, get_model_class, params_from_jax)
+from tensorrt_llm_tpu_torch.models import ModelConfig, params_from_jax
 from tensorrt_llm_tpu_torch.quantization import QuantAlgo, QuantConfig
+
+from torch_parity import jax_generate, port_logits
 
 ROOT = Path(__file__).resolve().parents[1]
 TIE = 0.02   # ~2 bf16 ulps of the largest logits
@@ -56,34 +61,15 @@ def _prompts():
             [int(t) for t in rng.randint(1, 255, 5)]]
 
 
-def _port_logits(params, tokens):
-    """Port logits after `tokens` (one prefill on a fresh pool)."""
-    m = get_model_class("LlamaForCausalLM")(_tcfg(), "cpu").load_state(params)
-    n, bs = len(tokens), 8
-    blocks = list(range(1, -(-n // bs) + 1))
-    caches = [(torch.zeros(len(blocks) + 1, 2, bs, 64, dtype=torch.bfloat16),
-               torch.zeros(len(blocks) + 1, 2, bs, 64, dtype=torch.bfloat16))
-              for _ in range(2)]
-    meta = AttentionMetadata(
-        positions=torch.arange(n), mode="prefill", q_offset=0,
-        slot_mapping=torch.tensor([blocks[p // bs] * bs + p % bs
-                                   for p in range(n)]),
-        block_tables=torch.tensor([blocks], dtype=torch.int32),
-        kv_lens=torch.tensor([n], dtype=torch.int32))
-    with torch.no_grad():
-        return m(torch.tensor(tokens), caches, meta,
-                 torch.tensor([n - 1]))[0].numpy()
-
-
-def test_generate_matches_jax_greedy():
+def test_generate_matches_jax_greedy(monkeypatch):
+    monkeypatch.setenv("TLLM_KV_BOOKKEEPING", "python")
     prompts = _prompts()
     jl = J.LLM(model=JCfg(**SHAPE, quant=JQC(quant_algo=JQA.W4A16,
                                               group_size=128)), **LLM_KW)
     try:
         params = params_from_jax(jax.tree.map(np.asarray, jl.engine.params))
-        jout = [o.outputs[0].token_ids for o in jl.generate(
-            prompts, J.SamplingParams(max_tokens=12, temperature=0.0,
-                                      ignore_eos=True))]
+        jout = jax_generate(jl, prompts, J.SamplingParams(
+            max_tokens=12, temperature=0.0, ignore_eos=True))
     finally:
         jl.shutdown()
     tl = T.LLM(model=_tcfg(), device="cpu", params=params, **LLM_KW)
@@ -105,7 +91,7 @@ def test_generate_matches_jax_greedy():
             exact += 1
             continue
         i = next(i for i, (x, y) in enumerate(zip(a, b)) if x != y)
-        logits = _port_logits(params, p + a[:i])
+        logits = port_logits(_tcfg(), params, p + a[:i])
         top = logits.max()
         assert logits[a[i]] >= top - TIE and logits[b[i]] >= top - TIE, (
             f"token {i} differs without a near-tie: jax {a[i]} "
@@ -118,6 +104,8 @@ def test_generate_is_deterministic_and_respects_limits():
     try:
         sp = T.SamplingParams(max_tokens=6, temperature=0.0, ignore_eos=True)
         a = [o.outputs[0].token_ids for o in tl.generate(_prompts(), sp)]
+        # results are delivered after the KV blocks are freed
+        assert tl.get_kv_cache_stats()["active_sequences"] == 0
         b = [o.outputs[0].token_ids for o in tl.generate(_prompts(), sp)]
         assert a == b and all(len(t) == 6 for t in a)
         s = tl.generate([[5, 6, 7]], T.SamplingParams(
@@ -127,6 +115,24 @@ def test_generate_is_deterministic_and_respects_limits():
             tl.generate([list(range(1, 170))], sp)      # > max_seq_len
         with pytest.raises(NotImplementedError):
             tl.generate([[1, 2]], T.SamplingParams(repetition_penalty=1.2))
+    finally:
+        tl.shutdown()
+
+
+def test_results_arrive_after_bookkeeping():
+    """A finished result is delivered only after its KV sequence is freed
+    and its iteration's stats are kept, so a caller reads settled state."""
+    cfg = ModelConfig(vocab_size=64, hidden_size=64, intermediate_size=128,
+                      num_layers=1, num_heads=2, num_kv_heads=1, head_dim=32,
+                      max_position=64)
+    tl = T.LLM(model=cfg, device="cpu", skip_tokenizer_init=True,
+               max_seq_len=32, kv_num_blocks=16, kv_block_size=8)
+    sp = T.SamplingParams(max_tokens=1, temperature=0.0, ignore_eos=True)
+    try:
+        for _ in range(30):
+            tl.generate([[1, 2, 3]], sp)
+            assert tl.get_kv_cache_stats()["active_sequences"] == 0
+            assert tl.get_stats()[-1]["iteration"] == tl.executor.iteration
     finally:
         tl.shutdown()
 
