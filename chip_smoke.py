@@ -6,11 +6,12 @@
 Phases (any failure exits nonzero; nothing is caught and ignored):
 
 1. the card's name and power limit (nvidia-smi);
-2. build the five CUDA kernels from `tensorrt_llm_tpu_torch/csrc`;
+2. build the eight CUDA kernels from `tensorrt_llm_tpu_torch/csrc`;
 3. hold each kernel against its plain PyTorch version on the card at
    TinyLlama-1.1B, Llama-3-8B, GPT-OSS-20B and Mixtral-8x7B shapes, and
    time kernel, plain version and one library call; one JSON line per
-   kernel and shape;
+   kernel and shape (the INT8-KV attention kernels on freshly quantized
+   int8 pools, the W4A8 GEMM at Llama-3-8B's projections);
 4. serve 8 greedy requests with `LLM.generate` on the full-width TinyLlama
    W4A16 model (random weights from a seed), with launch counters reset
    just before and read just after;
@@ -22,12 +23,19 @@ Phases (any failure exits nonzero; nothing is caught and ignored):
    width and depth, W4A16 group 64 (MoE experts on K5, sinks, window 128,
    YaRN), counters reset just before and read just after;
 8. GPT-OSS-20B width at 2 layers (sliding then full) on the card and on
-   the CPU: logits and greedy tokens must agree.
+   the CPU: logits and greedy tokens must agree;
+9. serve the same 8 requests on Llama-3-8B at full width and depth,
+   W4A8_AWQ group 128 with an INT8 KV cache (K6/K7 attention, K8 for all
+   four projections), counters reset just before and read just after;
+10. Llama-3-8B W4A8 + INT8 KV at 2 layers on the card and on the CPU:
+   logits and greedy tokens must agree.
 
 Arguments pick phases (default: check serve cross llama3 gptoss
-gptoss_cross); `check_moe` runs only K5's checks; `profile` and
-`profile_gptoss`, run only when named, trace a short serve window with
-torch.profiler.
+gptoss_cross llama3_w4a8 llama3_w4a8_cross); `check_moe` runs only K5's
+checks and `check_int8` only K6-K8's; `profile`, `profile_gptoss` and
+`profile_llama3_int8`, run only when named, trace a short serve window
+with torch.profiler; `cross_breakdown`, run only when named, repeats phase
+10 with W4A16 weights and with bf16 KV pools to split its logit gap.
 `--json PATH` also writes every check and phase summary to PATH.
 
 The last three lines of stdout are the card's name and power limit, the
@@ -48,6 +56,7 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 PEAK_BYTES = 3.35e12       # H100 SXM HBM3, bytes/s
 PEAK_BF16 = 989e12         # H100 SXM dense bf16 tensor-core FLOP/s
+PEAK_INT8 = 1979e12        # H100 SXM dense int8 tensor-core OP/s
 ROT_BYTES = 128 << 20      # rotate operands past the 50 MB L2 when timing
 
 RESULTS = []               # one dict per kernel check
@@ -85,6 +94,9 @@ PREFILL_CASES = [
     ("gpt-oss-20b", 64, 8, 64, 256, 128, 128, None, True),
     ("gpt-oss-20b", 64, 8, 64, 256, 256, None, None, True),
 ]
+# the INT8-KV kernels K6/K7 at the D=128 cases above and one D=64 case
+PREFILL_INT8_CASES = [c for c in PREFILL_CASES if c[0] == "llama-3-8b"] + [
+    ("tinyllama", 32, 4, 64, 256, 256, None, None, False)]
 DECODE_CASES = [
     # model, Hq, Hkv, D, kv_lens, window, cap, sinks
     ("tinyllama", 32, 4, 64, [81, 150, 400, 664], None, None, False),
@@ -98,14 +110,17 @@ DECODE_CASES = [
     ("gpt-oss-20b", 64, 8, 64, [81, 150, 400, 664], 128, None, True),
     ("gpt-oss-20b", 64, 8, 64, [81, 150, 400, 664], None, None, True),
 ]
+DECODE_INT8_CASES = [c for c in DECODE_CASES if c[0] == "llama-3-8b"] + [
+    ("tinyllama", 32, 4, 64, [81, 150, 400, 664], None, None, False)]
+W4A8_MODEL = "llama-3-8b"       # K8's (K, N) come from GEMM_SHAPES
 
 
 def log(*a):
     print(*a, flush=True)
 
 
-def bound_ms(nbytes, ops):
-    tb, to = nbytes / PEAK_BYTES, ops / PEAK_BF16
+def bound_ms(nbytes, ops, peak_ops=PEAK_BF16):
+    tb, to = nbytes / PEAK_BYTES, ops / peak_ops
     return max(tb, to) * 1e3, ("bytes" if tb >= to else "operations")
 
 
@@ -203,6 +218,82 @@ def check_gemm(gen, dev):
             torch.cuda.empty_cache()
 
 
+def _int_mm_ms(xq, w_int8, iters):
+    """Library yardstick: torch._int_mm (cuBLASLt s8 x s8 -> s32) on the
+    int8 (q - z) weight, without the group scales; None where this build
+    refuses the shape (it takes M > 16 only)."""
+    import torch
+    for w in (w_int8.t().contiguous().t(), w_int8):
+        try:
+            torch._int_mm(xq, w)
+            torch.cuda.synchronize()
+        except RuntimeError:    # a yardstick only: try the other layout
+            continue
+        return cuda_ms([lambda w=w: torch._int_mm(xq, w)], iters)
+    log(f"  torch._int_mm refused M={xq.shape[0]}")
+    return None
+
+
+def check_w4a8(gen, dev):
+    """K8 at Llama-3-8B's four projections x GEMM_M with zero points (as
+    served), plus a per-channel case and a bias + silu case."""
+    import torch
+    from tensorrt_llm_tpu_torch.ops import w4a16_gemm as W
+    from tensorrt_llm_tpu_torch.quantization import (
+        choose_block_n, dequantize_w4_any, pack_w4_tiled, quantize_w4,
+        unpack_w4_tiled)
+    kns = GEMM_SHAPES[W4A8_MODEL]
+    plan = [(K, N, 128, [(M, None) for M in GEMM_M]) for K, N in kns]
+    plan += [(*kns[0], -1, [(256, None)]),       # per-channel
+             (*kns[0], 128, [(16, "silu")])]     # bias + silu
+    for K, N, G, cases in plan:
+        w = torch.randn((K, N), generator=gen, device=dev) * 0.02
+        q, sc, z = quantize_w4(w, G, symmetric=False)
+        packed = pack_w4_tiled(q, choose_block_n(N))
+        del w, q
+        wq_bytes = packed.numel() + 2 * sc.numel() * 4
+        ws = [(packed.clone(), sc.clone(), z.clone())
+              for _ in range(copies_for(wq_bytes))]
+        wdq = dequantize_w4_any(packed, sc, z).to(torch.bfloat16)
+        lib_w = [wdq.clone() for _ in range(copies_for(wdq.numel() * 2))]
+        w_int8 = (unpack_w4_tiled(packed).to(torch.int16) - z.to(
+            torch.int16).repeat_interleave(K // sc.shape[0], 0)).to(
+                torch.int8)
+        for M, act in cases:
+            x = torch.randn((M, K), generator=gen, device=dev).to(
+                torch.bfloat16)
+            b = (torch.randn((N,), generator=gen, device=dev)
+                 if act else None)
+            xq, s_act = W.quantize_act_int8(x)
+            out = W.w4a8_gemm(xq, s_act, packed, sc, z, b, act)
+            ref = W.w4a8_matmul_plain(xq, s_act, packed, sc, z, b, act)
+            torch.cuda.synchronize()
+            err = (out.float() - ref.float()).abs().max().item()
+            # the plain version rounds each dequantized weight to bf16
+            # (2^-9 relative), the kernel keeps exact integer products per
+            # group and scales the f32 partial; both round the output to
+            # bf16: 2% of the largest output
+            tol = 2e-2 * ref.float().abs().max().item()
+            k_ms = cuda_ms([lambda p=p, s_=s_, z_=z_: W.w4a8_gemm(
+                xq, s_act, p, s_, z_, b, act) for p, s_, z_ in ws], 30)
+            p_ms = cuda_ms([lambda: W.w4a8_matmul_plain(
+                xq, s_act, packed, sc, z, b, act)], 5)
+            xb = xq.to(torch.bfloat16)
+            l_ms = (cuda_ms([lambda lw=lw: torch.matmul(xb, lw)
+                             for lw in lib_w], 30) if act is None else None)
+            int_ms = _int_mm_ms(xq, w_int8, 30) if act is None else None
+            nbytes = (M * K + M * 4 + wq_bytes + M * N * 2
+                      + (N * 4 if act else 0))
+            record("w4a8_gemm", {"model": W4A8_MODEL, "M": M, "K": K,
+                                 "N": N, "G": G if G > 0 else K, "act": act,
+                                 "zeros": True, "bias": act is not None,
+                                 "int_mm_ms": int_ms}, err, tol,
+                   k_ms, p_ms, l_ms,
+                   bound_ms(nbytes, 2 * M * N * K, PEAK_INT8))
+        del packed, sc, z, ws, wdq, lib_w, w_int8
+        torch.cuda.empty_cache()
+
+
 def _routing(rng, M, E, kind):
     """Group sizes of M rows over E experts: uniform, or skewed (half the
     experts get no row, the rest a Zipf share)."""
@@ -244,6 +335,8 @@ def check_moe(gen, dev):
                 w, G, symmetric=False)
             del w
             wdq = MW.dequantize_experts_w4(packed, scales).to(torch.bfloat16)
+            zwdq = MW.dequantize_experts_w4(zpacked, zscales, zeros).to(
+                torch.bfloat16)
             cases = [(M, kind, False) for M in MOE_M
                      for kind in ("uniform", "skewed")]
             cases += [(M, "skewed", True) for M in MOE_M_ZEROS]
@@ -276,14 +369,14 @@ def check_moe(gen, dev):
                 del ws
                 p_ms = cuda_ms([lambda: MW.w4a16_grouped_matmul_plain(
                     x, pk, sc, gs, z)], 3)
-                l_ms = None if zp else _grouped_mm_ms(x, wdq, gs, 20)
+                l_ms = _grouped_mm_ms(x, zwdq if zp else wdq, gs, 20)
                 nbytes = M * K * 2 + live * per_expert + M * N * 4 + E * 4
                 record("moe_gmm", {"model": model, "M": M, "K": K, "N": N,
                                    "E": E, "G": G, "BN": bn, "routing": kind,
                                    "experts_hit": live, "zeros": zp},
                        err, tol, k_ms, p_ms, l_ms,
                        bound_ms(nbytes, 2 * M * N * K))
-            del packed, scales, zpacked, zscales, zeros, wdq
+            del packed, scales, zpacked, zscales, zeros, wdq, zwdq
             torch.cuda.empty_cache()
 
 
@@ -299,6 +392,25 @@ def _paged(gen, dev, seqs, Hkv, D, BS=16):
     perm = torch.randperm(nb - 1, generator=gen, device=dev) + 1
     tables = perm[:len(seqs) * mb].reshape(len(seqs), mb).to(torch.int32)
     return k, v, tables.contiguous()
+
+
+def _int8_pool(p):
+    """A bf16 pool [NB, Hkv, BS, D] quantized per (token, head) row, as the
+    serve path's KV append quantizes it: (int8 data, f32 scales [NB, Hkv,
+    BS])."""
+    from tensorrt_llm_tpu_torch.ops.attention_plain import quantize_kv_token
+    nb, h, bs, d = p.shape
+    q, sc = quantize_kv_token(p.reshape(nb * h, bs, d))
+    return q.reshape(p.shape), sc.reshape(nb, h, bs)
+
+
+def _clone(c):
+    return tuple(t.clone() for t in c) if isinstance(c, tuple) else c.clone()
+
+
+def _nbytes(c):
+    return sum(t.numel() * t.element_size()
+               for t in (c if isinstance(c, tuple) else (c,)))
 
 
 def _sdpa_ms(q, k, v, mask, iters, sinks=None):
@@ -326,14 +438,18 @@ def _sdpa_ms(q, k, v, mask, iters, sinks=None):
         q, k, v, attn_mask=mask)], iters)
 
 
-def check_prefill(gen, dev):
+def check_prefill(gen, dev, cases=PREFILL_CASES, int8=False):
+    """K3 (bf16 pools) or, with `int8`, K7 on freshly quantized pools."""
     import numpy as np
     import torch
+    from tensorrt_llm_tpu_torch.ops.attention_plain import gather_dequant
     from tensorrt_llm_tpu_torch.ops.flash_prefill import (
         flash_prefill_attention, flash_prefill_plain)
-    for model, Hq, Hkv, D, T, off, win, cap, sk in PREFILL_CASES:
+    for model, Hq, Hkv, D, T, off, win, cap, sk in cases:
         kv_len = off + T
         k, v, tables = _paged(gen, dev, [kv_len], Hkv, D)
+        if int8:
+            k, v = _int8_pool(k), _int8_pool(v)
         table = tables[0].contiguous()
         q = torch.randn((T, Hq, D), generator=gen, device=dev
                         ).to(torch.bfloat16)
@@ -345,8 +461,8 @@ def check_prefill(gen, dev):
         ref = flash_prefill_plain(q, k, v, table, kv_len, off, scale, **kw)
         torch.cuda.synchronize()
         err = (out.float() - ref.float()).abs().max().item()
-        n_copy = copies_for(2 * k.numel() * 2)
-        pools = [(k.clone(), v.clone()) for _ in range(n_copy)]
+        n_copy = copies_for(2 * _nbytes(k))
+        pools = [(_clone(k), _clone(v)) for _ in range(n_copy)]
         k_ms = cuda_ms([lambda kk=kk, vv=vv: flash_prefill_attention(
             q, kk, vv, table, kv_len, off, scale, **kw)
             for kk, vv in pools], 20)
@@ -355,9 +471,9 @@ def check_prefill(gen, dev):
         l_ms = None
         if not cap:
             # dense K/V gathered once outside the timing
-            kd = k[table.long()].permute(1, 0, 2, 3).reshape(
+            kd = gather_dequant(k, table).permute(1, 0, 2, 3).reshape(
                 Hkv, -1, D)[None, :, :kv_len]
-            vd = v[table.long()].permute(1, 0, 2, 3).reshape(
+            vd = gather_dequant(v, table).permute(1, 0, 2, 3).reshape(
                 Hkv, -1, D)[None, :, :kv_len]
             qp = off + torch.arange(T, device=dev)[:, None]
             kp = torch.arange(kv_len, device=dev)[None, :]
@@ -373,24 +489,34 @@ def check_prefill(gen, dev):
             valid &= kpos > qpos - win
         pairs = int(valid.sum())
         lo = max(0, off - win + 1) if win else 0
-        nbytes = 2 * T * Hq * D * 2 + 2 * (kv_len - lo) * Hkv * D * 2
-        # the kernel rounds P to bf16 (2^-9 relative) and both sides round
-        # the output to bf16 (2^-8 relative): 2% of the largest output
+        # q and out in bf16; each K and V row D values (bf16, or int8 plus
+        # its f32 scale)
+        row = D + 4 if int8 else 2 * D
+        nbytes = 2 * T * Hq * D * 2 + 2 * (kv_len - lo) * Hkv * row
+        # the kernel rounds P to bf16 (2^-9 relative), the plain version the
+        # dequantized K/V of an int8 pool, and both sides round the output
+        # to bf16 (2^-8 relative): 2% of the largest output
         tol = 2e-2 * max(1.0, ref.float().abs().max().item())
-        record("flash_prefill", {"model": model, "Hq": Hq, "Hkv": Hkv, "D": D,
-                                 "T": T, "q_offset": off, "window": win,
-                                 "logit_cap": cap, "sinks": sk},
+        record("flash_prefill_int8" if int8 else "flash_prefill",
+               {"model": model, "Hq": Hq, "Hkv": Hkv, "D": D, "T": T,
+                "q_offset": off, "window": win, "logit_cap": cap,
+                "sinks": sk},
                err, tol, k_ms, p_ms, l_ms,
                bound_ms(nbytes, 4 * pairs * Hq * D))
 
 
-def check_decode(gen, dev):
+def check_decode(gen, dev, cases=DECODE_CASES, int8=False):
+    """K4 (bf16 pools) or, with `int8`, K6 on freshly quantized pools."""
     import torch
+    from tensorrt_llm_tpu_torch.ops.attention_plain import (
+        gather_dequant, pool_dims)
     from tensorrt_llm_tpu_torch.ops.paged_attention import (
         paged_decode_attention, paged_decode_plain)
-    for model, Hq, Hkv, D, lens, win, cap, sk in DECODE_CASES:
+    for model, Hq, Hkv, D, lens, win, cap, sk in cases:
         B = len(lens)
         k, v, tables = _paged(gen, dev, lens, Hkv, D)
+        if int8:
+            k, v = _int8_pool(k), _int8_pool(v)
         kv_lens = torch.tensor(lens, dtype=torch.int32, device=dev)
         q = torch.randn((B, Hq, D), generator=gen, device=dev
                         ).to(torch.bfloat16)
@@ -402,17 +528,19 @@ def check_decode(gen, dev):
         ref = paged_decode_plain(q, k, v, tables, kv_lens, scale, **kw)
         torch.cuda.synchronize()
         err = (out.float() - ref.float()).abs().max().item()
-        pools = [(k.clone(), v.clone())
-                 for _ in range(copies_for(2 * k.numel() * 2))]
+        pools = [(_clone(k), _clone(v))
+                 for _ in range(copies_for(2 * _nbytes(k)))]
         k_ms = cuda_ms([lambda kk=kk, vv=vv: paged_decode_attention(
             q, kk, vv, tables, kv_lens, scale, **kw) for kk, vv in pools], 30)
         p_ms = cuda_ms([lambda: paged_decode_plain(
             q, k, v, tables, kv_lens, scale, **kw)], 5)
         l_ms = None
         if not cap:
-            S = tables.shape[1] * k.shape[2]
-            kd = k[tables.long()].permute(0, 2, 1, 3, 4).reshape(B, Hkv, S, D)
-            vd = v[tables.long()].permute(0, 2, 1, 3, 4).reshape(B, Hkv, S, D)
+            S = tables.shape[1] * pool_dims(k)[2]
+            kd = gather_dequant(k, tables).permute(0, 2, 1, 3, 4).reshape(
+                B, Hkv, S, D)
+            vd = gather_dequant(v, tables).permute(0, 2, 1, 3, 4).reshape(
+                B, Hkv, S, D)
             pos = torch.arange(S, device=dev)[None, :]
             L = kv_lens.long()[:, None]
             mask = pos < L
@@ -421,13 +549,16 @@ def check_decode(gen, dev):
             l_ms = _sdpa_ms(q[:, :, None], kd, vd, mask[:, None, None, :], 30,
                             sinks)
         used = [min(L, win) if win else L for L in lens]
-        nbytes = 2 * B * Hq * D * 2 + sum(used) * 2 * Hkv * D * 2
+        row = D + 4 if int8 else 2 * D
+        nbytes = 2 * B * Hq * D * 2 + sum(used) * 2 * Hkv * row
         # f32 math on both sides; the bf16 output rounding (2^-8 relative)
-        # remains: 1% of the largest output
+        # and, for an int8 pool, the plain version's bf16 rounding of the
+        # dequantized K/V (2^-9 relative) remain: 1% of the largest output
         tol = 1e-2 * max(1.0, ref.float().abs().max().item())
-        record("paged_decode", {"model": model, "Hq": Hq, "Hkv": Hkv, "D": D,
-                                "kv_lens": lens, "window": win,
-                                "logit_cap": cap, "sinks": sk},
+        record("paged_decode_int8" if int8 else "paged_decode",
+               {"model": model, "Hq": Hq, "Hkv": Hkv, "D": D,
+                "kv_lens": lens, "window": win, "logit_cap": cap,
+                "sinks": sk},
                err, tol, k_ms, p_ms, l_ms,
                bound_ms(nbytes, 4 * sum(used) * Hq * D))
 
@@ -448,6 +579,14 @@ def w4a16_cfg(shape, **over):
         quant_algo=QuantAlgo.W4A16, group_size=128))
 
 
+def w4a8_cfg(shape, **over):
+    """W4A8_AWQ group 128 (zero points always, as the JAX package forces)."""
+    from tensorrt_llm_tpu_torch.models import ModelConfig
+    from tensorrt_llm_tpu_torch.quantization import QuantAlgo, QuantConfig
+    return ModelConfig(**{**shape, **over}, quant=QuantConfig(
+        quant_algo=QuantAlgo.W4A8_AWQ, group_size=128))
+
+
 GPT_OSS_LAYERS = 24     # full depth
 
 
@@ -456,20 +595,27 @@ def gpt_oss_cfg(num_layers):
     return gpt_oss_20b_config(num_layers, max_position=4096)
 
 
-def serve_model(card, phase, label, cfg, required):
+def serve_model(card, phase, label, cfg, required, absent=(),
+                kv_cache_quant="NONE"):
     """8 greedy requests (prompts 17..600 tokens, two sharing a 300-token
     prefix), 64 new tokens each, through `LLM.generate`; the launch counters
     are reset just before and read just after.  A second run with a fresh
-    cache salt must give the same tokens."""
+    cache salt must give the same tokens.  Every layer of every forward
+    must run the path's attention kernels (K6/K7 over an INT8 cache, else
+    K3/K4) and, for W4A8, K8 for all four projections; the kernels in
+    `absent` must not launch at all."""
     import numpy as np
     import torch
     import tensorrt_llm_tpu_torch as T
     from tensorrt_llm_tpu_torch.ops import cuda_build
+    from tensorrt_llm_tpu_torch.quantization import QuantAlgo
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     llm = T.LLM(model=cfg, skip_tokenizer_init=True,
                 device=DEVICE, max_batch_size=4, max_num_tokens=256,
                 max_seq_len=1024, kv_block_size=16, kv_num_blocks=640,
-                seed=0, return_perf_metrics=True)
+                kv_cache_quant=kv_cache_quant, seed=0,
+                return_perf_metrics=True)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     log(f"[{phase}] {label}, built in {build_s:.1f} s")
@@ -511,16 +657,26 @@ def serve_model(card, phase, label, cfg, required):
         windows = [layer.attn.backend.sliding_window
                    for layer in llm.model.layers]
         peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+        kv_bytes_per_token = sum(_nbytes(c) for kv in llm.engine.kv_caches
+                                 for c in kv) / (
+            llm.kv_manager.num_blocks * llm.kv_manager.block_size)
     finally:
         llm.shutdown()
     for k in required:
         assert counts.get(k, 0) > 0, f"{k} never launched on the main path"
+    for k in absent:
+        assert counts.get(k, 0) == 0, f"{k} launched on this path: {counts}"
     chunks = sum(s["num_prefill_chunks"] for s in stats)
     dsteps = sum(s["decode_steps"] for s in stats)
     L = cfg.num_layers
     # every layer of every forward went through the attention kernels
-    assert counts["flash_prefill"] == L * chunks, (counts, chunks)
-    assert counts["paged_decode"] == L * dsteps, (counts, dsteps)
+    sfx = "_int8" if kv_cache_quant == "INT8" else ""
+    prefill_k, decode_k = "flash_prefill" + sfx, "paged_decode" + sfx
+    assert counts[prefill_k] == L * chunks, (counts, chunks)
+    assert counts[decode_k] == L * dsteps, (counts, dsteps)
+    if cfg.quant.quant_algo == QuantAlgo.W4A8_AWQ:
+        # QKV, o, gate_up and down on K8 in every layer of every forward
+        assert counts["w4a8_gemm"] == 4 * L * (chunks + dsteps), counts
     n_moe = sum(cfg.is_moe_layer(i) for i in range(L))
     if n_moe:
         # gate_up and down on K5 in every MoE layer of every forward, on
@@ -529,7 +685,8 @@ def serve_model(card, phase, label, cfg, required):
         assert counts["moe_gmm_units"] == n_moe * (chunks + dsteps), counts
     ttft = [o.metrics["ttft_s"] for o in outs]
     n_out = sum(len(t) for t in toks)
-    gemms = counts.get("w4a16_gemm", 0) + counts.get("w4a16_gemv", 0)
+    gemms = sum(counts.get(k, 0)
+                for k in ("w4a16_gemm", "w4a16_gemv", "w4a8_gemm"))
     summary = {
         "phase": phase, "model": label, "card": card,
         "build_s": build_s, "requests": len(prompts),
@@ -539,10 +696,11 @@ def serve_model(card, phase, label, cfg, required):
         "launches": counts,
         "gemm_launches_per_forward": gemms / (chunks + dsteps),
         "moe_gmm_per_forward": counts.get("moe_gmm", 0) / (chunks + dsteps),
-        "flash_prefill_per_chunk": counts["flash_prefill"] / chunks,
-        "paged_decode_per_step": counts["paged_decode"] / dsteps,
+        "flash_prefill_per_chunk": counts[prefill_k] / chunks,
+        "paged_decode_per_step": counts[decode_k] / dsteps,
         "sliding_windows": sorted(set(map(str, windows))),
-        "peak_mem_gib": peak_gb, "kv": kv}
+        "peak_mem_gib": peak_gb, "kv_cache_quant": kv_cache_quant,
+        "kv_bytes_per_token": kv_bytes_per_token, "kv": kv}
     PHASES[phase] = summary
     log(json.dumps(summary))
     del llm
@@ -550,14 +708,17 @@ def serve_model(card, phase, label, cfg, required):
     return counts
 
 
-def cross_check_cpu(phase, label, cfg, seed, n_prompt, chunk, n_decode):
+def cross_check_cpu(phase, label, cfg, seed, n_prompt, chunk, n_decode,
+                    kv_cache_quant="NONE"):
     """The same weights on the card and on the CPU (plain versions), carried
     across with state()/load_state: a chunked prefill of `n_prompt` tokens
-    then `n_decode` decode steps, teacher-forced on the CPU's tokens."""
+    then `n_decode` decode steps, teacher-forced on the CPU's tokens, over
+    bf16 or INT8 KV pools."""
     import numpy as np
     import torch
     from tensorrt_llm_tpu_torch.attention_backend import AttentionMetadata
     from tensorrt_llm_tpu_torch.models import get_model_class
+    from tensorrt_llm_tpu_torch.runtime.kv_cache_manager import make_pools
     gpu = get_model_class(cfg.architecture)(cfg, DEVICE).init_random(seed)
     cpu = get_model_class(cfg.architecture)(cfg, "cpu").load_state(
         {k: v.cpu() for k, v in gpu.state().items()})
@@ -568,10 +729,8 @@ def cross_check_cpu(phase, label, cfg, seed, n_prompt, chunk, n_decode):
     blocks = list(range(1, -(-(n_prompt + n_decode) // BS) + 1))
 
     def pools(dev):
-        shape = (len(blocks) + 1, cfg.num_kv_heads, BS, cfg.head_dim)
-        return [(torch.zeros(shape, dtype=torch.bfloat16, device=dev),
-                 torch.zeros(shape, dtype=torch.bfloat16, device=dev))
-                for _ in range(cfg.num_layers)]
+        return make_pools(cfg.num_layers, len(blocks) + 1, cfg.num_kv_heads,
+                          BS, cfg.head_dim, kv_cache_quant, dev)
 
     caches = {"cuda": pools(DEVICE), "cpu": pools("cpu")}
     models = {"cuda": gpu, "cpu": cpu}
@@ -593,7 +752,7 @@ def cross_check_cpu(phase, label, cfg, seed, n_prompt, chunk, n_decode):
         return out[0].float().cpu().numpy()
 
     TOL = 0.08
-    steps, worst, agree, compared = [], 0.0, 0, 0
+    steps, agree, compared = [], 0, 0
     seq = list(prompt)
     plan = [(lo, min(lo + chunk, n_prompt)) for lo in range(0, n_prompt, chunk)]
     for lo, hi in plan:
@@ -604,15 +763,20 @@ def cross_check_cpu(phase, label, cfg, seed, n_prompt, chunk, n_decode):
         n = len(seq)
         steps.append(tuple(run(k, [seq[-1]], [n - 1], n, "decode", 0)
                            for k in ("cuda", "cpu")))
+    diffs = []
     for lg, lc in steps[len(plan) - 1:]:
         assert np.isfinite(lg).all() and np.isfinite(lc).all()
-        worst = max(worst, float(np.abs(lg - lc).max()))
+        diffs.append(float(np.abs(lg - lc).max()))
         top2 = np.sort(lc)[-2:]
         if top2[1] - top2[0] > TOL:
             compared += 1
             agree += int(np.argmax(lg) == np.argmax(lc))
-    res = {"phase": phase, "model": label, "prefill_chunks": len(plan),
+    worst = max(diffs)
+    res = {"phase": phase, "model": label, "kv_cache_quant": kv_cache_quant,
+           "prefill_chunks": len(plan),
            "decode_steps": n_decode, "max_abs_logit_diff": worst, "tol": TOL,
+           "step_max_abs_logit_diff": diffs,
+           "max_abs_logit": max(float(np.abs(lc).max()) for _, lc in steps),
            "greedy_compared": compared, "greedy_agree": agree}
     moe = next((layer.mlp for layer in gpu.layers if layer.is_moe), None)
     if moe is not None:
@@ -670,18 +834,23 @@ def llama3_width():
     torch.cuda.empty_cache()
 
 
-def profile_serve(card, phase, cfg):
-    """Opt-in phases (`profile`: TinyLlama, `profile_gptoss`: GPT-OSS-20B):
-    trace a short serve window (4 requests of 200 tokens, 32 new tokens
-    each) with torch.profiler and report the device-busy share of the wall
-    time and the kernels holding the device, by total device time."""
+def profile_serve(card, phase, cfg, kv_cache_quant="NONE"):
+    """Opt-in phases (`profile`: TinyLlama, `profile_gptoss`: GPT-OSS-20B,
+    `profile_llama3_int8`: Llama-3-8B W4A8 + INT8 KV): trace a short serve
+    window (4 requests of 200 tokens, 32 new tokens each) with
+    torch.profiler and report the device-busy share of the wall time and
+    the kernels holding the device, by total device time.  For W4A8 also
+    the device kernels one per-token activation quantization launches."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
     import tensorrt_llm_tpu_torch as T
+    from tensorrt_llm_tpu_torch.ops.w4a16_gemm import quantize_act_int8
+    from tensorrt_llm_tpu_torch.quantization import QuantAlgo
     llm = T.LLM(model=cfg, skip_tokenizer_init=True,
                 device=DEVICE, max_batch_size=4, max_num_tokens=256,
-                max_seq_len=1024, kv_num_blocks=640, seed=0)
+                max_seq_len=1024, kv_num_blocks=640,
+                kv_cache_quant=kv_cache_quant, seed=0)
     rng = np.random.default_rng(3)
     prompts = [[int(t) for t in rng.integers(10, cfg.vocab_size - 10, 200)]
                for _ in range(4)]
@@ -712,48 +881,78 @@ def profile_serve(card, phase, cfg):
         "device_busy_s": busy, "device_busy_share": busy / wall,
         "decode_steps": sum(s["decode_steps"] for s in stats[-50:]),
         "top_kernels_ms": [[k[:90], us / 1e3, n] for k, us, n in rows[:12]]}
+    if cfg.quant.quant_algo == QuantAlgo.W4A8_AWQ:
+        x = torch.randn((4, cfg.hidden_size), device=DEVICE).to(
+            torch.bfloat16)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as p1:
+            quantize_act_int8(x)
+            torch.cuda.synchronize()
+        n = sum(e.count for e in p1.key_averages() if dev_us(e) > 0)
+        PHASES[phase]["act_quant_kernels_per_linear"] = n
+        PHASES[phase]["act_quant_kernels_per_forward"] = \
+            4 * cfg.num_layers * n
     log(json.dumps(PHASES[phase]))
     del llm
     torch.cuda.empty_cache()
 
 
 # ----------------------------------------------------------------- summary --
-MAIN_PATH = "serve_gpt_oss"   # this slice's main path: every kernel runs there
+GPT_OSS_PATH = "serve_gpt_oss"          # slice 2's path: K1-K5 run there
+LLAMA3_W4A8_PATH = "serve_llama3_w4a8"  # slice 3's path: K6-K8 run there
 KERNELS = {
-    # each kernel's row: a phase-3 check at the shape the main path gives it
+    # each kernel's row: the serve path that runs it, and a phase-3 check
+    # at the shape that path gives it
     "w4a16_gemm": ("cuda", "tensorrt_llm_tpu_torch/csrc/w4a16_gemm.cu",
-                   "tensorrt_llm_tpu/ops/w4a16_gemm.py:205",
+                   "tensorrt_llm_tpu/ops/w4a16_gemm.py:205", GPT_OSS_PATH,
                    {"model": "gpt-oss-20b", "M": 256, "K": 2880, "N": 5120}),
     "w4a16_gemv": ("cuda", "tensorrt_llm_tpu_torch/csrc/w4a16_gemv.cu",
-                   "tensorrt_llm_tpu/ops/w4a16_gemm.py:560",
+                   "tensorrt_llm_tpu/ops/w4a16_gemm.py:560", GPT_OSS_PATH,
                    {"model": "gpt-oss-20b", "M": 4, "K": 2880, "N": 5120}),
     "flash_prefill": ("cuda", "tensorrt_llm_tpu_torch/csrc/flash_prefill.cu",
                       "tensorrt_llm_tpu/ops/flash_prefill.py:282",
+                      GPT_OSS_PATH,
                       {"model": "gpt-oss-20b", "T": 256, "q_offset": 128,
                        "window": 128}),
     "paged_decode": ("cuda", "tensorrt_llm_tpu_torch/csrc/paged_decode.cu",
                      "tensorrt_llm_tpu/ops/paged_attention.py:516",
-                     {"model": "gpt-oss-20b", "window": 128}),
+                     GPT_OSS_PATH, {"model": "gpt-oss-20b", "window": 128}),
     # GPT-OSS-20B gate_up at decode: 4 requests x top-4 rows
     "moe_gmm": ("cuda", "tensorrt_llm_tpu_torch/csrc/moe_gmm.cu",
-                "tensorrt_llm_tpu/ops/moe_w4a16.py:78",
+                "tensorrt_llm_tpu/ops/moe_w4a16.py:78", GPT_OSS_PATH,
                 {"model": "gpt-oss-20b", "M": 16, "N": 5760,
                  "routing": "uniform", "zeros": False}),
+    "paged_decode_int8": ("cuda",
+                          "tensorrt_llm_tpu_torch/csrc/paged_decode.cu",
+                          "tensorrt_llm_tpu/ops/paged_attention.py:174",
+                          LLAMA3_W4A8_PATH,
+                          {"model": "llama-3-8b",
+                           "kv_lens": [320, 400, 1000, 4000]}),
+    "flash_prefill_int8": ("cuda",
+                           "tensorrt_llm_tpu_torch/csrc/flash_prefill.cu",
+                           "tensorrt_llm_tpu/ops/flash_prefill.py:157",
+                           LLAMA3_W4A8_PATH,
+                           {"model": "llama-3-8b", "T": 256,
+                            "q_offset": 256}),
+    # Llama-3-8B gate_up at decode: 4 requests
+    "w4a8_gemm": ("cuda", "tensorrt_llm_tpu_torch/csrc/w4a8_gemm.cu",
+                  "tensorrt_llm_tpu/ops/w4a16_gemm.py:953", LLAMA3_W4A8_PATH,
+                  {"model": "llama-3-8b", "M": 4, "K": 4096, "N": 28672}),
 }
 
 
 def kernels_line(by_path):
-    """`launches` is each kernel's count in the main path's own run;
+    """`launches` is each kernel's count in its own serve path's run;
     `launches_by_path` gives every serve path's count apart."""
     out = []
-    for name, (route, src, replaces, head) in KERNELS.items():
+    for name, (route, src, replaces, path, head) in KERNELS.items():
         rows = [r for r in RESULTS if r["kernel"] == name]
         hit = [r for r in rows
                if all(r["shape"].get(k) == v for k, v in head.items())]
         h = hit[0]
         out.append({"name": name, "route": route, "source": src,
-                    "replaces": replaces,
-                    "launches": by_path[MAIN_PATH].get(name, 0),
+                    "replaces": replaces, "path": path,
+                    "launches": by_path[path].get(name, 0),
                     "launches_by_path": {p: c.get(name, 0)
                                          for p, c in by_path.items()},
                     "max_abs_err": max(r["max_err"] for r in rows),
@@ -800,7 +999,7 @@ def main() -> int:
         out_json = args[i + 1]
         del args[i:i + 2]
     phases = args or ["check", "serve", "cross", "llama3", "gptoss",
-                      "gptoss_cross"]
+                      "gptoss_cross", "llama3_w4a8", "llama3_w4a8_cross"]
     by_path = {}      # each serve path's own launch counts
     t0 = time.perf_counter()
     if "check" in phases or "check_moe" in phases:
@@ -809,6 +1008,10 @@ def main() -> int:
         check_gemm(gen, dev)
         check_prefill(gen, dev)
         check_decode(gen, dev)
+    if "check" in phases or "check_int8" in phases:
+        check_prefill(gen, dev, PREFILL_INT8_CASES, int8=True)
+        check_decode(gen, dev, DECODE_INT8_CASES, int8=True)
+        check_w4a8(gen, dev)
     if RESULTS:
         log(f"[phase 3] {len(RESULTS)} kernel checks passed in "
             f"{time.perf_counter() - t0:.1f} s")
@@ -833,10 +1036,38 @@ def main() -> int:
                         "gpt-oss-20b width, 2 layers (sliding, full)",
                         gpt_oss_cfg(2), seed=4, n_prompt=200, chunk=128,
                         n_decode=4)
+    if "llama3_w4a8" in phases:
+        by_path[LLAMA3_W4A8_PATH] = serve_model(
+            card, LLAMA3_W4A8_PATH,
+            "llama-3-8b W4A8_AWQ g128, INT8 KV (32 layers)",
+            w4a8_cfg(LLAMA3_8B), ("flash_prefill_int8", "paged_decode_int8",
+                                  "w4a8_gemm"),
+            absent=("flash_prefill", "paged_decode", "w4a16_gemm",
+                    "w4a16_gemv"), kv_cache_quant="INT8")
+    if "llama3_w4a8_cross" in phases:
+        cross_check_cpu("llama3_w4a8_cross_check",
+                        "llama-3-8b width W4A8 + INT8 KV, 2 layers",
+                        w4a8_cfg(LLAMA3_8B, num_layers=2), seed=5,
+                        n_prompt=200, chunk=128, n_decode=4,
+                        kv_cache_quant="INT8")
+    if "cross_breakdown" in phases:
+        # opt-in: the card-vs-CPU gap of the W4A8 + INT8 KV check split by
+        # weights (W4A8 or W4A16) and KV pools (INT8 or bf16), two seeds
+        for name, make in (("w4a8", w4a8_cfg), ("w4a16", w4a16_cfg)):
+            for kv in ("INT8", "NONE"):
+                for seed in (5, 6):
+                    cross_check_cpu(f"cross_{name}_{kv}_seed{seed}",
+                                    f"llama-3-8b width {name}, {kv} KV",
+                                    make(LLAMA3_8B, num_layers=2), seed=seed,
+                                    n_prompt=200, chunk=128, n_decode=4,
+                                    kv_cache_quant=kv)
     if "profile" in phases:
         profile_serve(card, "profile", w4a16_cfg(TINYLLAMA))
     if "profile_gptoss" in phases:
         profile_serve(card, "profile_gptoss", gpt_oss_cfg(GPT_OSS_LAYERS))
+    if "profile_llama3_int8" in phases:
+        profile_serve(card, "profile_llama3_int8", w4a8_cfg(LLAMA3_8B),
+                      kv_cache_quant="INT8")
     log(f"[done] phases {phases} in {time.perf_counter() - t0:.1f} s")
     if out_json:
         os.makedirs(os.path.dirname(os.path.abspath(out_json)), exist_ok=True)
@@ -844,7 +1075,8 @@ def main() -> int:
             json.dump({"card": card, "phases": PHASES, "checks": RESULTS}, f,
                       indent=1)
     log(card)
-    if "check" in phases and "serve" in phases and "gptoss" in phases:
+    if "check" in phases and {
+            p for *_, p, _ in KERNELS.values()} <= set(by_path):
         log(json.dumps(kernels_line(by_path)))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

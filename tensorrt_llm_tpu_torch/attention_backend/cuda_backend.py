@@ -1,10 +1,12 @@
-"""CUDA attention backend: prefill on kernel K3, decode on kernel K4.
+"""CUDA attention backend: prefill on kernel K3, decode on kernel K4; over
+INT8 pools prefill on K7 and decode on K6.
 
 Counterpart of `tensorrt_llm_tpu/attention_backend/pallas_backend.py:51-108`.
-The KV append stays a plain `index_copy_` scatter (XLA does that scatter in
-the JAX package too).  The JAX backend's other branches -- INT8 pools,
-cyclic VSWA rings and tree-verify pair masks -- raise here: they belong to
-later slices and are not rerouted to another path.
+The KV append stays plain torch (`write_kv_cache`: an `index_copy_`
+scatter, after `quantize_kv_token` for INT8 pools), as XLA does it in the
+JAX package.  The JAX backend's other branches -- FP8 pools, cyclic VSWA
+rings and tree-verify pair masks -- raise here: they belong to later slices
+and are not rerouted to another path.
 """
 
 from __future__ import annotations
@@ -19,8 +21,6 @@ from tensorrt_llm_tpu_torch.ops.paged_attention import paged_decode_attention
 class CudaAttention(AttentionBackend):
     def __call__(self, q, k, v, k_cache, v_cache, meta: AttentionMetadata,
                  sinks=None):
-        if isinstance(k_cache, tuple):
-            raise NotImplementedError("INT8 KV pools are not in this slice")
         if meta.cyclic:
             raise NotImplementedError("cyclic VSWA rings are not in this slice")
         if meta.pair_mask is not None:

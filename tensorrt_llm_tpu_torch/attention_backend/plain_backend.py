@@ -1,5 +1,6 @@
-"""Plain PyTorch attention backend: gather-based paged attention.
-Counterpart of `tensorrt_llm_tpu/attention_backend/xla_backend.py`."""
+"""Plain PyTorch attention backend: gather-based paged attention over bf16
+or INT8 pools (dequantized after the gather).  Counterpart of
+`tensorrt_llm_tpu/attention_backend/xla_backend.py`."""
 
 from __future__ import annotations
 

@@ -1,6 +1,7 @@
-// Shared device helpers for the port's Hopper kernels: bf16 conversion,
-// int4 nibble extraction, the fused epilogue activations and the
-// m16n8k16 bf16 tensor-core MMA (mma.sync, f32 accumulate).
+// Shared device helpers for the port's Hopper kernels: bf16 and int8
+// conversion, int4 nibble extraction, the fused epilogue activations, the
+// m16n8k16 bf16 tensor-core MMA (mma.sync, f32 accumulate) and the
+// m16n8k32 s8 one (s32 accumulate).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -64,6 +65,28 @@ __device__ __forceinline__ void mma_bf16_16816(float* d, const uint32_t* a,
 
 __device__ __forceinline__ uint32_t ld_u32(const bf16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
+}
+
+__device__ __forceinline__ void int8x8_to_float(const uint2& v, float* f) {
+  const int8_t* p = reinterpret_cast<const int8_t*>(&v);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) f[i] = (float)p[i];
+}
+
+// D = A(16x32, row) * B(32x8, col) + D, s8 inputs, s32 accumulators.
+// Fragment layout (g = lane / 4, t = lane % 4), four int8 per register:
+//   a[0]: row g,   k 4t..4t+3     a[1]: row g+8, k 4t..4t+3
+//   a[2]: row g,   k 4t+16..+19   a[3]: row g+8, k 4t+16..+19
+//   b[0]: k 4t..4t+3, n g         b[1]: k 4t+16..+19, n g
+//   d[0..1]: row g, n 2t..2t+1    d[2..3]: row g+8, n 2t..2t+1
+__device__ __forceinline__ void mma_s8_16832(int* d, const uint32_t* a,
+                                             uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 }  // namespace tllm

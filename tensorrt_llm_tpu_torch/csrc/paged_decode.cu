@@ -1,27 +1,37 @@
-// K4 paged_decode: one new query token per sequence attends its paged KV.
+// K4 paged_decode and K6 paged_decode_int8: one new query token per
+// sequence attends its paged KV.
 //
 // Replaces the TPU kernels tensorrt_llm_tpu/ops/paged_attention.py
-// `_paged_decode_kernel` (D % 128 == 0) and `_paged_decode_kernel_packed`
-// (D < 128 over the TPU lane-packed page view).  Here both are one kernel,
-// templated on the head dim (64, 128) and on the GQA group size, over the
-// logical head-major pools [NB, Hkv, BS, D].
+// `_paged_decode_kernel` (D % 128 == 0), `_paged_decode_kernel_packed`
+// (D < 128 over the TPU lane-packed page view) and, as K6,
+// `_paged_decode_kernel_int8` (int8 pages with f32 per-(token, head)
+// scales).  Here they are one kernel, templated on the head dim (64, 128),
+// the GQA group size and the page type (bf16, int8), over the logical
+// head-major pools [NB, Hkv, BS, D].
 //
 // What bounds it on the H100: KV bytes.  Each (sequence, KV head) reads
-// 2 * kv_len * D bf16 values and does ~4 * G * D operations per token, a
-// few operations per byte: the least time is the KV bytes over 3.35 TB/s.
+// kv_len K and V rows (2 * D bytes each in bf16; D bytes plus a 4-byte
+// scale in int8) and does ~4 * G * D operations per token, a few
+// operations per byte: the least time is the KV bytes over 3.35 TB/s, so
+// an int8 pool halves it.
 //
 // Design: split-KV ("flash decoding").  A 128-thread block owns one
 // (sequence, KV head, KV split); splits are added until the blocks fill
 // the 132 SMs, so a batch of 4 sequences x 4 KV heads still spreads over
-// the card.  Within a block, D/8 threads cover one token's K or V row with
-// 16-byte loads (a 128- or 256-byte contiguous segment per token), so a
-// warp reads 2..4 tokens per step; every page read serves all G query
-// heads of the KV head.  Each thread keeps an online softmax (running max,
-// sum and output slice, f32) per query head; the token groups are merged
-// in shared memory and each block writes its unnormalised partial.  A
-// second pass merges the splits, adds the sinks to the denominator once and
-// normalises.  Tokens past kv_len, and before the sliding window, are never
-// read; logit_cap is applied to the scores as in the TPU kernel.
+// the card.  Within a block, D/8 threads cover one token's K or V row, 8
+// elements each (16-byte loads in bf16, 8-byte in int8), so a warp reads
+// 2..4 tokens per step; every page read serves all G query heads of the KV
+// head.  Each thread keeps an online softmax (running max, sum and output
+// slice, f32) per query head; the token groups are merged in shared memory
+// and each block writes its unnormalised partial.  A second pass merges
+// the splits, adds the sinks to the denominator once and normalises.
+// Tokens past kv_len, and before the sliding window, are never read;
+// logit_cap is applied to the scores as in the TPU kernel.  int8 pages are
+// never dequantized as a tile: as in the TPU kernel, each token's K scale
+// multiplies its logit and its V scale its probability.  The scales are
+// read through the block table inside the kernel (the TPU version
+// pre-gathers them in XLA only because Mosaic rejects the in-kernel
+// sublane-to-lane reshape).
 #include <math.h>
 
 #include "common.cuh"
@@ -31,13 +41,24 @@ namespace {
 
 constexpr int PD_THREADS = 128;
 
-template <int D, int G>
+// 8 consecutive K or V elements of one token row as floats
+__device__ __forceinline__ void load8(const bf16* p, float* f) {
+  bf16x8_to_float(*reinterpret_cast<const uint4*>(p), f);
+}
+__device__ __forceinline__ void load8(const int8_t* p, float* f) {
+  int8x8_to_float(*reinterpret_cast<const uint2*>(p), f);
+}
+
+// KV = bf16 (K4) or int8_t (K6, with f32 scale pools ks/vs [NB, Hkv, BS])
+template <int D, int G, typename KV>
 __global__ void __launch_bounds__(PD_THREADS) paged_decode_kernel(
-    const bf16* __restrict__ q, const bf16* __restrict__ kc,
-    const bf16* __restrict__ vc, const int* __restrict__ tables,
+    const bf16* __restrict__ q, const KV* __restrict__ kc,
+    const KV* __restrict__ vc, const float* __restrict__ ks,
+    const float* __restrict__ vs, const int* __restrict__ tables,
     const int* __restrict__ kv_lens, float* __restrict__ ws, int Hkv,
     int BS, int MB, float scale, int window, float cap, int n_splits,
     int split_len) {
+  constexpr bool SCALED = sizeof(KV) == 1;   // int8 pages
   constexpr int LPT = D / 8;                 // threads per token row
   constexpr int TPW = 32 / LPT;              // tokens per warp step
   constexpr int NSUB = (PD_THREADS / 32) * TPW;  // token streams per block
@@ -83,12 +104,16 @@ __global__ void __launch_bounds__(PD_THREADS) paged_decode_kernel(
     const int pos = pos0 + sub;
     const bool valid = pos < end;
     float kf[8], vf[8];
+    float k_scale = 1.f, v_scale = 1.f;
     if (valid) {
       const int page = table[pos / BS];
-      const size_t base =
-          ((size_t)(page * Hkv + h) * BS + pos % BS) * D + dl * 8;
-      bf16x8_to_float(*reinterpret_cast<const uint4*>(kc + base), kf);
-      bf16x8_to_float(*reinterpret_cast<const uint4*>(vc + base), vf);
+      const size_t row = (size_t)(page * Hkv + h) * BS + pos % BS;
+      load8(kc + row * D + dl * 8, kf);
+      load8(vc + row * D + dl * 8, vf);
+      if (SCALED) {
+        k_scale = ks[row];
+        v_scale = vs[row];
+      }
     } else {
 #pragma unroll
       for (int i = 0; i < 8; ++i) kf[i] = vf[i] = 0.f;
@@ -102,13 +127,15 @@ __global__ void __launch_bounds__(PD_THREADS) paged_decode_kernel(
       for (int off = LPT / 2; off > 0; off >>= 1)
         sc += __shfl_xor_sync(0xffffffffu, sc, off);
       if (!valid) continue;
+      if (SCALED) sc *= k_scale;
       if (cap > 0.f) sc = cap * tanhf(sc / cap);
       const float m_new = fmaxf(m[gg], sc);
       const float alpha = expf(m[gg] - m_new);
       const float p = expf(sc - m_new);
       l[gg] = l[gg] * alpha + p;
+      const float pv = SCALED ? p * v_scale : p;
 #pragma unroll
-      for (int i = 0; i < 8; ++i) acc[gg][i] = fmaf(p, vf[i], acc[gg][i] * alpha);
+      for (int i = 0; i < 8; ++i) acc[gg][i] = fmaf(pv, vf[i], acc[gg][i] * alpha);
       m[gg] = m_new;
     }
   }
@@ -174,32 +201,48 @@ __global__ void paged_decode_combine_kernel(const float* __restrict__ ws,
   out[(size_t)bh * D + d] = __float2bfloat16(L > 0.f ? A / L : 0.f);
 }
 
-template <int D, int G>
-void launch_dg(const bf16* q, const bf16* k, const bf16* v, const int* t,
-               const int* lens, const float* sinks, float* ws, bf16* out,
-               int B, int Hkv, int BS, int MB, float scale, int window,
-               float cap, int n_splits, int split_len, cudaStream_t st) {
+template <int D, int G, typename KV>
+void launch_dg(const bf16* q, const KV* k, const KV* v, const float* ks,
+               const float* vs, const int* t, const int* lens,
+               const float* sinks, float* ws, bf16* out, int B, int Hkv,
+               int BS, int MB, float scale, int window, float cap,
+               int n_splits, int split_len, cudaStream_t st) {
   dim3 grid(n_splits, Hkv, B);
-  paged_decode_kernel<D, G><<<grid, PD_THREADS, 0, st>>>(
-      q, k, v, t, lens, ws, Hkv, BS, MB, scale, window, cap, n_splits,
-      split_len);
+  paged_decode_kernel<D, G, KV><<<grid, PD_THREADS, 0, st>>>(
+      q, k, v, ks, vs, t, lens, ws, Hkv, BS, MB, scale, window, cap,
+      n_splits, split_len);
   paged_decode_combine_kernel<D><<<B * Hkv * G, D, 0, st>>>(ws, sinks, out,
                                                             Hkv * G, n_splits);
 }
 
-template <int D>
-int launch_d(int G, const bf16* q, const bf16* k, const bf16* v, const int* t,
-             const int* lens, const float* sinks, float* ws, bf16* out, int B,
-             int Hkv, int BS, int MB, float scale, int window, float cap,
-             int n_splits, int split_len, cudaStream_t st) {
-  switch (G) {
-    case 1: launch_dg<D, 1>(q, k, v, t, lens, sinks, ws, out, B, Hkv, BS, MB, scale, window, cap, n_splits, split_len, st); break;
-    case 2: launch_dg<D, 2>(q, k, v, t, lens, sinks, ws, out, B, Hkv, BS, MB, scale, window, cap, n_splits, split_len, st); break;
-    case 4: launch_dg<D, 4>(q, k, v, t, lens, sinks, ws, out, B, Hkv, BS, MB, scale, window, cap, n_splits, split_len, st); break;
-    case 8: launch_dg<D, 8>(q, k, v, t, lens, sinks, ws, out, B, Hkv, BS, MB, scale, window, cap, n_splits, split_len, st); break;
-    default: return (int)cudaErrorInvalidValue;
+template <typename KV>
+int launch(const void* q, const void* k, const void* v, const void* ks,
+           const void* vs, const void* tables, const void* kv_lens,
+           const void* sinks, void* workspace, void* out, int B, int Hq,
+           int Hkv, int D, int BS, int MB, float scale, int window, float cap,
+           int n_splits, int split_len, void* stream) {
+  const bf16* qp = static_cast<const bf16*>(q);
+  const KV* kp = static_cast<const KV*>(k);
+  const KV* vp = static_cast<const KV*>(v);
+  const float* ksp = static_cast<const float*>(ks);
+  const float* vsp = static_cast<const float*>(vs);
+  const int* tp = static_cast<const int*>(tables);
+  const int* lp = static_cast<const int*>(kv_lens);
+  const float* sk = static_cast<const float*>(sinks);
+  float* wsp = static_cast<float*>(workspace);
+  bf16* op = static_cast<bf16*>(out);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define TLLM_PD(DD, GG)                                                     \
+  if (D == DD && Hq == Hkv * GG) {                                          \
+    launch_dg<DD, GG, KV>(qp, kp, vp, ksp, vsp, tp, lp, sk, wsp, op, B,     \
+                          Hkv, BS, MB, scale, window, cap, n_splits,       \
+                          split_len, st);                                  \
+    return (int)cudaGetLastError();                                         \
   }
-  return (int)cudaGetLastError();
+  TLLM_PD(64, 1) TLLM_PD(64, 2) TLLM_PD(64, 4) TLLM_PD(64, 8)
+  TLLM_PD(128, 1) TLLM_PD(128, 2) TLLM_PD(128, 4) TLLM_PD(128, 8)
+#undef TLLM_PD
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -215,20 +258,22 @@ extern "C" int tllm_paged_decode(const void* q, const void* k_cache,
                                  int Hkv, int D, int BS, int MB, float scale,
                                  int window, float cap, int n_splits,
                                  int split_len, void* stream) {
-  using namespace tllm;
-  const int G = Hq / Hkv;
-  const bf16* qp = static_cast<const bf16*>(q);
-  const bf16* kp = static_cast<const bf16*>(k_cache);
-  const bf16* vp = static_cast<const bf16*>(v_cache);
-  const int* tp = static_cast<const int*>(tables);
-  const int* lp = static_cast<const int*>(kv_lens);
-  const float* sk = static_cast<const float*>(sinks);
-  float* wsp = static_cast<float*>(workspace);
-  bf16* op = static_cast<bf16*>(out);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (D == 64)
-    return launch_d<64>(G, qp, kp, vp, tp, lp, sk, wsp, op, B, Hkv, BS, MB, scale, window, cap, n_splits, split_len, st);
-  if (D == 128)
-    return launch_d<128>(G, qp, kp, vp, tp, lp, sk, wsp, op, B, Hkv, BS, MB, scale, window, cap, n_splits, split_len, st);
-  return (int)cudaErrorInvalidValue;
+  return tllm::launch<tllm::bf16>(q, k_cache, v_cache, nullptr, nullptr,
+                                  tables, kv_lens, sinks, workspace, out, B,
+                                  Hq, Hkv, D, BS, MB, scale, window, cap,
+                                  n_splits, split_len, stream);
+}
+
+// The same over int8 pools [NB, Hkv, BS, D] with f32 scale pools
+// [NB, Hkv, BS] indexed by the same block ids.
+extern "C" int tllm_paged_decode_int8(
+    const void* q, const void* k_data, const void* k_scale,
+    const void* v_data, const void* v_scale, const void* tables,
+    const void* kv_lens, const void* sinks, void* workspace, void* out, int B,
+    int Hq, int Hkv, int D, int BS, int MB, float scale, int window,
+    float cap, int n_splits, int split_len, void* stream) {
+  return tllm::launch<int8_t>(q, k_data, v_data, k_scale, v_scale, tables,
+                              kv_lens, sinks, workspace, out, B, Hq, Hkv, D,
+                              BS, MB, scale, window, cap, n_splits, split_len,
+                              stream);
 }

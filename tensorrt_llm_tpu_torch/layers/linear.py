@@ -1,18 +1,22 @@
-"""Linear layer, unquantized or W4A16.
+"""Linear layer: unquantized, W4A16 or W4A8_AWQ.
 
-Counterpart of `tensorrt_llm_tpu/layers/linear.py` (`UnquantizedLinearMethod`
-and `W4A16LinearMethod`).  Weights keep the JAX package's ``[in, out]``
-orientation.  A W4A16 layer holds:
+Counterpart of `tensorrt_llm_tpu/layers/linear.py` (`UnquantizedLinearMethod`,
+`W4A16LinearMethod` and `W4A8LinearMethod`).  Weights keep the JAX package's
+``[in, out]`` orientation.  A quantized layer holds:
 
 * ``qweight`` int8 ``[N//BN, K//2, BN]``, the tiled packing (a K-paired
   ``[K//2, N]`` weight is repacked at load time),
-* ``scales`` bf16 ``[K//G, N]`` (rounded once at load; the JAX package rounds
-  the same f32 scales to bf16 on every call),
-* optional ``zeros`` bf16 and ``bias`` f32.
+* ``scales`` ``[K//G, N]``: bf16 for W4A16 (rounded once at load; the JAX
+  package rounds the same f32 scales to bf16 on every call), f32 for W4A8
+  (the JAX package never rounds them),
+* optional ``zeros`` (same dtype as the scales; W4A8 always has them, as
+  the JAX package forces) and ``bias`` f32.
 
-An unquantized layer (lm_head) holds ``weight`` bf16 ``[in, out]`` and runs a
-plain matrix product: on CUDA that is `torch.matmul`, as the JAX package
-leaves its bf16 lm_head to `jnp.dot` outside any kernel.
+W4A16 layers run `w4a16_matmul` (K1/K2 on CUDA), W4A8 layers `w4a8_matmul`
+(per-token int8 activations, K8 on CUDA).  An unquantized layer (lm_head)
+holds ``weight`` bf16 ``[in, out]`` and runs a plain matrix product: on CUDA
+that is `torch.matmul`, as the JAX package leaves its bf16 lm_head to
+`jnp.dot` outside any kernel.
 """
 
 from __future__ import annotations
@@ -22,7 +26,8 @@ from typing import Dict, Optional
 import torch
 from torch import nn
 
-from tensorrt_llm_tpu_torch.ops.w4a16_gemm import ACTIVATIONS, w4a16_matmul
+from tensorrt_llm_tpu_torch.ops.w4a16_gemm import (
+    ACTIVATIONS, w4a8_matmul, w4a16_matmul)
 from tensorrt_llm_tpu_torch.quantization import (
     QuantAlgo, QuantConfig, choose_block_n, pack_group_for, pack_w4,
     pack_w4_tiled, quantize_w4, to_tiled)
@@ -36,21 +41,24 @@ class Linear(nn.Module):
         self.out_features = out_features
         active = (quant is not None and quant.quant_algo != QuantAlgo.NO_QUANT
                   and not quant.excludes(name))
-        if active and not quant.is_weight_only_w4:
+        if active and not quant.is_w4:
             raise NotImplementedError(
                 f"{quant.quant_algo} linears are not in this slice")
         self.quantized = active
+        self.w4a8 = active and quant.quant_algo == QuantAlgo.W4A8_AWQ
         self.group_size = quant.group_size if active else 0
         self.has_zeros = bool(active and (
             quant.has_zero_point or quant.quant_algo in (
-                QuantAlgo.W4A16_AWQ, QuantAlgo.W4A16_GPTQ)))
+                QuantAlgo.W4A16_AWQ, QuantAlgo.W4A16_GPTQ,
+                QuantAlgo.W4A8_AWQ)))
         for b in ("weight", "qweight", "scales", "zeros", "bias"):
             self.register_buffer(b, None)
 
     # ---- parameters -----------------------------------------------------
     def from_float(self, w: torch.Tensor,
                    bias: Optional[torch.Tensor] = None) -> None:
-        """Quantize (W4A16) or cast (bf16) full float weights [in, out]."""
+        """Quantize (W4A16, W4A8) or cast (bf16) full float weights
+        [in, out]."""
         assert tuple(w.shape) == (self.in_features, self.out_features), \
             (tuple(w.shape), (self.in_features, self.out_features))
         if self.quantized:
@@ -70,10 +78,11 @@ class Linear(nn.Module):
         ``scales``, ``zeros``, ``bias`` or ``weight``, ``bias``)."""
         if self.quantized:
             s = p["scales"]
+            sdt = torch.float32 if self.w4a8 else torch.bfloat16
             self.qweight = to_tiled(p["qweight"].to(torch.int8), s).contiguous()
-            self.scales = s.to(torch.bfloat16).contiguous()
+            self.scales = s.to(sdt).contiguous()
             z = p.get("zeros")
-            self.zeros = None if z is None else z.to(torch.bfloat16).contiguous()
+            self.zeros = None if z is None else z.to(sdt).contiguous()
         else:
             self.weight = p["weight"].to(torch.bfloat16).contiguous()
         b = p.get("bias")
@@ -83,8 +92,9 @@ class Linear(nn.Module):
     def forward(self, x: torch.Tensor,
                 activation: Optional[str] = None) -> torch.Tensor:
         if self.quantized:
-            return w4a16_matmul(x, self.qweight, self.scales, self.zeros,
-                                self.bias, activation, out_dtype=x.dtype)
+            fn = w4a8_matmul if self.w4a8 else w4a16_matmul
+            return fn(x, self.qweight, self.scales, self.zeros, self.bias,
+                      activation, out_dtype=x.dtype)
         if x.device.type == "cuda":
             out = torch.matmul(x, self.weight.to(x.dtype))
             if self.bias is None and activation is None:

@@ -24,6 +24,7 @@ from tensorrt_llm_tpu_torch.llmapi.llm_args import LlmArgs
 from tensorrt_llm_tpu_torch.llmapi.sampling_params import SamplingParams
 from tensorrt_llm_tpu_torch.models.modeling_utils import (
     ModelConfig, get_model_class)
+from tensorrt_llm_tpu_torch.quantization.mode import KvCacheQuantAlgo
 from tensorrt_llm_tpu_torch.runtime.executor import PyExecutor
 from tensorrt_llm_tpu_torch.runtime.kv_cache_manager import KVCacheManager
 from tensorrt_llm_tpu_torch.runtime.model_engine import ModelEngine
@@ -102,9 +103,10 @@ class LLM:
             budget = int(free * kvcfg.free_mem_fraction)
         else:
             budget = 4 << 30
+        int8 = kvcfg.kv_quant == KvCacheQuantAlgo.INT8
         n = KVCacheManager.blocks_from_memory(
             budget, cfg.num_layers, cfg.num_kv_heads, cfg.head_dim,
-            kvcfg.block_size)
+            kvcfg.block_size, dtype_bytes=1 if int8 else 2, scale_pools=int8)
         need = a.max_batch_size * cdiv(a.max_seq_len, kvcfg.block_size)
         return min(max(n, 64), max(need * 2, 64) * 8)
 

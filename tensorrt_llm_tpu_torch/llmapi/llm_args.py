@@ -8,6 +8,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Any, Dict, Optional
 
+from tensorrt_llm_tpu_torch.quantization.mode import KvCacheQuantAlgo
 from tensorrt_llm_tpu_torch.runtime.kv_cache_manager import KVCacheConfig
 from tensorrt_llm_tpu_torch.runtime.scheduler import SchedulerConfig
 
@@ -27,6 +28,7 @@ class LlmArgs:
     kv_num_blocks: Optional[int] = None  # None => from free device memory
     free_mem_fraction: float = 0.85
     enable_block_reuse: bool = True
+    kv_cache_quant: str = "NONE"       # "INT8": int8 pages + f32 scales
 
     max_decode_steps: int = 8          # decode steps per executor iteration
 
@@ -38,7 +40,8 @@ class LlmArgs:
         return KVCacheConfig(block_size=self.kv_block_size,
                              num_blocks=self.kv_num_blocks,
                              free_mem_fraction=self.free_mem_fraction,
-                             enable_block_reuse=self.enable_block_reuse)
+                             enable_block_reuse=self.enable_block_reuse,
+                             kv_quant=KvCacheQuantAlgo(self.kv_cache_quant))
 
     def make_scheduler_config(self) -> SchedulerConfig:
         return SchedulerConfig(max_batch_size=self.max_batch_size,

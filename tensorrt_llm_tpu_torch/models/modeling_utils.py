@@ -4,7 +4,8 @@ Counterpart of `tensorrt_llm_tpu/models/modeling_utils.py`: `ModelConfig`
 (the fields those families use, with `from_hf_config`), `DecoderLayer` (a
 gated MLP or a W4A16 MoE; sliding-window layers by `layer_types` or by the
 window), and `DecoderModelForCausalLM.forward` (embedding, pre-norm decoder
-layers over a paged KV cache, final norm, bf16 lm_head).  Weights come from
+layers over a paged KV cache of bf16 or INT8 pools, final norm, bf16
+lm_head); linears are W4A16, W4A8_AWQ or unquantized.  Weights come from
 `init_random` (drawn on the model's device from a seeded `torch.Generator`,
 one layer at a time, quantized as they are drawn) or from
 `params_from_jax`, which converts the JAX package's parameter pytree so the
@@ -343,8 +344,9 @@ _NORMS = ("input_norm", "post_attn_norm", "final_norm")
 def params_from_jax(tree: Any) -> Dict[str, torch.Tensor]:
     """The JAX package's parameter pytree (leaves as numpy arrays; bf16
     leaves may arrive as ml_dtypes bfloat16) as a port state for
-    `DecoderModelForCausalLM.load_state`.  K-paired W4A16 weights are
-    repacked to tiles by the layers at load; scales round to bf16 there."""
+    `DecoderModelForCausalLM.load_state`.  K-paired int4 weights are
+    repacked to tiles by the layers at load; W4A16 scales round to bf16
+    there, W4A8 scales and zeros stay f32."""
     out: Dict[str, torch.Tensor] = {}
 
     def tensor(a) -> torch.Tensor:

@@ -7,30 +7,46 @@ CPU path runs them, and the chip check holds the kernels against them.
 
 Pools are head-major pages ``[NB, Hkv, BS, D]``; a token's flat slot is
 ``block_id * BS + offset``.  Block 0 is reserved: slots past the pool write
-there, and table padding points there.
+there, and table padding points there.  An INT8 pool is a pair ``(data int8
+[NB, Hkv, BS, D], scale f32 [NB, Hkv, BS])``: each (token, head) row is
+quantized on write (`quantize_kv_token`) and dequantized to the query's dtype
+after the gather (`gather_dequant`), as in the JAX package.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import torch
 
 NEG_INF = float(torch.finfo(torch.float32).min)
 
 
-def pool_dims(cache: torch.Tensor) -> Tuple[int, int, int, int]:
-    """(NB, Hkv, BS, D) of a head-major pool."""
-    nb, h, bs, d = cache.shape
+Pool = Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]
+
+
+def pool_dims(cache: Pool) -> Tuple[int, int, int, int]:
+    """(NB, Hkv, BS, D) of a head-major pool (bf16, or an INT8 pair)."""
+    nb, h, bs, d = (cache[0] if isinstance(cache, tuple) else cache).shape
     return nb, h, bs, d
 
 
-def write_kv_cache(k_cache: torch.Tensor, v_cache: torch.Tensor,
-                   k_new: torch.Tensor, v_new: torch.Tensor,
-                   slot_mapping: torch.Tensor) -> None:
+def quantize_kv_token(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-(token, head) symmetric int8 quantization of [T, H, D]: returns
+    (int8 [T, H, D], f32 scale [T, H]).  The scale is clamped as
+    ``max(absmax / 127, 1e-8)``, bit-exact with the JAX package."""
+    xf = x.to(torch.float32)
+    scale = torch.clamp(xf.abs().amax(dim=-1) / 127.0, min=1e-8)
+    q = torch.clamp(torch.round(xf / scale[..., None]), -127, 127)
+    return q.to(torch.int8), scale
+
+
+def write_kv_cache(k_cache: Pool, v_cache: Pool, k_new: torch.Tensor,
+                   v_new: torch.Tensor, slot_mapping: torch.Tensor) -> None:
     """Scatter new K/V [T, Hkv, D] into the pools at `slot_mapping` [T],
     IN PLACE (the JAX version returns new pools; updating in place saves a
-    pool copy per step).  Out-of-range slots land in reserved page 0."""
+    pool copy per step).  Out-of-range slots land in reserved page 0.  An
+    INT8 pool takes the quantized rows and their scales at the same rows."""
     nb, h, bs, d = pool_dims(k_cache)
     slots = slot_mapping.to(torch.int64)
     oob = slots >= nb * bs
@@ -38,10 +54,27 @@ def write_kv_cache(k_cache: torch.Tensor, v_cache: torch.Tensor,
     offs = torch.where(oob, 0, slots % bs)
     heads = torch.arange(h, device=slots.device)[None, :]
     rows = ((pages[:, None] * h + heads) * bs + offs[:, None]).reshape(-1)
-    k_cache.view(-1, d).index_copy_(
-        0, rows, k_new.to(k_cache.dtype).reshape(-1, d))
-    v_cache.view(-1, d).index_copy_(
-        0, rows, v_new.to(v_cache.dtype).reshape(-1, d))
+    for cache, new in ((k_cache, k_new), (v_cache, v_new)):
+        if isinstance(cache, tuple):
+            data, scale = cache
+            q, s = quantize_kv_token(new)
+            data.view(-1, d).index_copy_(0, rows, q.reshape(-1, d))
+            scale.view(-1).index_copy_(0, rows, s.reshape(-1))
+        else:
+            cache.view(-1, d).index_copy_(
+                0, rows, new.to(cache.dtype).reshape(-1, d))
+
+
+def gather_dequant(cache: Pool, idx: torch.Tensor,
+                   out_dtype=torch.bfloat16) -> torch.Tensor:
+    """``cache[idx]`` pages; an INT8 pool is dequantized after the gather,
+    in f32 and then rounded to `out_dtype`, as the JAX package does."""
+    idx = idx.long()
+    if isinstance(cache, tuple):
+        data, scale = cache
+        g = data[idx].to(torch.float32) * scale[idx][..., None]
+        return g.to(out_dtype)
+    return cache[idx]
 
 
 def _masked_softmax(scores, mask, sinks=None):
@@ -80,8 +113,8 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
     return out.reshape(T, Hq, D).to(q.dtype)
 
 
-def paged_prefill_plain(q: torch.Tensor, k_cache: torch.Tensor,
-                        v_cache: torch.Tensor, block_table: torch.Tensor,
+def paged_prefill_plain(q: torch.Tensor, k_cache: Pool, v_cache: Pool,
+                        block_table: torch.Tensor,
                         kv_len, q_offset, scale: float,
                         sliding_window: Optional[int] = None,
                         logit_cap: Optional[float] = None,
@@ -89,15 +122,17 @@ def paged_prefill_plain(q: torch.Tensor, k_cache: torch.Tensor,
     """Chunked-prefill attention for one sequence against its paged KV
     (the chunk is already written).  block_table [MB]."""
     nb, h, bs, d = pool_dims(k_cache)
-    k = k_cache[block_table.long()].permute(0, 2, 1, 3).reshape(-1, h, d)
-    v = v_cache[block_table.long()].permute(0, 2, 1, 3).reshape(-1, h, d)
+    k = gather_dequant(k_cache, block_table, q.dtype).permute(0, 2, 1, 3) \
+        .reshape(-1, h, d)
+    v = gather_dequant(v_cache, block_table, q.dtype).permute(0, 2, 1, 3) \
+        .reshape(-1, h, d)
     return mha(q, k, v, scale, q_offset=q_offset, kv_len=kv_len,
                sliding_window=sliding_window, logit_cap=logit_cap,
                sinks=sinks)
 
 
-def paged_decode_plain(q: torch.Tensor, k_cache: torch.Tensor,
-                       v_cache: torch.Tensor, block_tables: torch.Tensor,
+def paged_decode_plain(q: torch.Tensor, k_cache: Pool, v_cache: Pool,
+                       block_tables: torch.Tensor,
                        kv_lens: torch.Tensor, scale: float,
                        sliding_window: Optional[int] = None,
                        logit_cap: Optional[float] = None,
@@ -108,10 +143,10 @@ def paged_decode_plain(q: torch.Tensor, k_cache: torch.Tensor,
     B, Hq, _ = q.shape
     G = Hq // hkv
     S = block_tables.shape[1] * bs
-    k = k_cache[block_tables.long()].permute(0, 1, 3, 2, 4) \
-        .reshape(B, S, hkv, d)
-    v = v_cache[block_tables.long()].permute(0, 1, 3, 2, 4) \
-        .reshape(B, S, hkv, d)
+    k = gather_dequant(k_cache, block_tables, q.dtype) \
+        .permute(0, 1, 3, 2, 4).reshape(B, S, hkv, d)
+    v = gather_dequant(v_cache, block_tables, q.dtype) \
+        .permute(0, 1, 3, 2, 4).reshape(B, S, hkv, d)
     qf = (q.to(torch.float32) * scale).reshape(B, hkv, G, d)
     scores = torch.einsum("bhgd,bshd->bhgs", qf, k.to(torch.float32))
     if logit_cap:

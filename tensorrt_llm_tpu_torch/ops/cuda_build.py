@@ -58,6 +58,19 @@ _SIGNATURES = {
     # scale, window, logit_cap, n_splits, split_len, stream
     "tllm_paged_decode": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                           _I, _F, _I, _F, _I, _I, _P],
+    # q, k_data, k_scale, v_data, v_scale, block_table, sinks, out, T, Hq,
+    # Hkv, D, BS, MB, kv_len, q_offset, scale, window, logit_cap, stream
+    "tllm_flash_prefill_int8": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                _I, _I, _I, _I, _I, _F, _I, _F, _P],
+    # q, k_data, k_scale, v_data, v_scale, tables, kv_lens, sinks,
+    # workspace, out, B, Hq, Hkv, D, BS, MB, scale, window, logit_cap,
+    # n_splits, split_len, stream
+    "tllm_paged_decode_int8": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                               _I, _I, _I, _I, _I, _F, _I, _F, _I, _I, _P],
+    # xq, s_act, qweight, scales, zeros, bias, out, M, N, K, group,
+    # block_n, act, stream
+    "tllm_w4a8_gemm": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                       _P],
     # group_sizes, meta, M, E, stream
     "tllm_moe_gmm_units": [_P, _P, _I, _I, _P],
     # x, qweight, scales, zeros, meta, out, M, N, K, group, E, block_n, stream

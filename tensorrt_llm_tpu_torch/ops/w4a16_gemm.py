@@ -17,6 +17,14 @@ Scales and zeros are rounded to bf16 on every path, as in the JAX package
 Both packings are accepted: the 3-D tiled one the kernels read, and the 2-D
 K-paired one, which the CUDA path repacks to tiles on the fly (layers repack
 once at load time instead).
+
+W4A8 (the JAX package's `w4a8_matmul`, same module): activations are
+quantized per token to int8 (`quantize_act_int8`, plain torch ops on every
+device, as the JAX package leaves it to XLA), then
+``act(s_act * (xq @ deq(q, s, z)) + b)``.  `w4a8_matmul_plain` is the JAX
+XLA fallback's math; `w4a8_gemm` wraps kernel K8 (`csrc/w4a8_gemm.cu`,
+exact int8 x int4 products per scale group on the s8 tensor cores).  W4A8
+scales and zeros stay f32 on every path: the JAX package never rounds them.
 """
 
 from __future__ import annotations
@@ -184,4 +192,103 @@ def w4a16_matmul(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor,
     x2 = x2.to(torch.bfloat16).contiguous()
     fn = w4a16_gemv if x2.shape[0] <= GEMV_MAX_M else w4a16_gemm
     out = fn(x2, packed3, s.contiguous(), z, b, activation)
+    return out.to(out_dtype).reshape(*lead, out.shape[-1])
+
+
+# --------------------------------------------------------------- W4A8 ------
+def quantize_act_int8(x: torch.Tensor):
+    """Dynamic per-token symmetric int8 quantization of [M, K]: returns
+    (xq int8 [M, K], s_act f32 [M, 1]) with s_act = max(amax, 1e-12) / 127,
+    bit-exact with the JAX package."""
+    xf = x.to(torch.float32)
+    s_act = torch.clamp(xf.abs().amax(dim=-1, keepdim=True), min=1e-12) / 127.0
+    xq = torch.clamp(torch.round(xf / s_act), -127, 127).to(torch.int8)
+    return xq, s_act
+
+
+def w4a8_matmul_plain(xq: torch.Tensor, s_act: torch.Tensor,
+                      packed: torch.Tensor, scales: torch.Tensor,
+                      zeros: Optional[torch.Tensor] = None,
+                      bias: Optional[torch.Tensor] = None,
+                      activation: Optional[str] = None,
+                      out_dtype=torch.bfloat16) -> torch.Tensor:
+    """Plain version (the JAX XLA fallback's math): dequantize with f32
+    scales and zeros, round the weight to bf16, multiply by bf16(xq) with
+    f32 accumulation, then scale each row by s_act."""
+    z = None if zeros is None else zeros.to(torch.float32)
+    w = dequantize_w4_any(packed, scales.to(torch.float32), z).to(
+        torch.bfloat16)
+    out = (xq.to(torch.float32) @ w.to(torch.float32)) * s_act.to(
+        torch.float32)
+    if bias is not None:
+        out = out + bias.to(torch.float32)[None, :]
+    return ACTIVATIONS[activation](out).to(out_dtype)
+
+
+def w4a8_gemm(xq: torch.Tensor, s_act: torch.Tensor, packed3: torch.Tensor,
+              scales: torch.Tensor, zeros: Optional[torch.Tensor] = None,
+              bias: Optional[torch.Tensor] = None,
+              activation: Optional[str] = None) -> torch.Tensor:
+    """Launch K8 on CUDA operands: xq [M, K] int8, s_act [M, 1] f32,
+    packed3 [N/BN, K/2, BN] int8, scales (zeros) [K/G, N] f32, bias [N]
+    f32.  Returns [M, N] bf16."""
+    M, K = xq.shape
+    n_n, half, bn = packed3.shape
+    N = n_n * bn
+    if xq.device.type != "cuda":
+        raise ValueError("CUDA kernel called with a non-CUDA tensor")
+    for name, t, dt in (("xq", xq, torch.int8), ("s_act", s_act, torch.float32),
+                        ("packed", packed3, torch.int8),
+                        ("scales", scales, torch.float32),
+                        ("zeros", zeros, torch.float32),
+                        ("bias", bias, torch.float32)):
+        if t is not None and (t.device != xq.device or t.dtype != dt
+                              or not t.is_contiguous()):
+            raise ValueError(f"{name} must be contiguous {dt} on {xq.device}")
+    if half * 2 != K or s_act.shape != (M, 1) or scales.shape[1] != N \
+            or K % scales.shape[0] \
+            or (zeros is not None and zeros.shape != scales.shape) \
+            or (bias is not None and bias.shape != (N,)):
+        raise ValueError("W4A8 operand shapes do not match")
+    G = K // scales.shape[0]
+    if bn % 64 or K % 64 or G % 64:
+        raise NotImplementedError(
+            f"w4a8_gemm kernel needs BN % 64 == 0, K % 64 == 0 and "
+            f"G % 64 == 0 (BN={bn}, K={K}, G={G})")
+    out = torch.empty((M, N), dtype=torch.bfloat16, device=xq.device)
+    if M == 0:
+        return out
+    lib = cuda_build.load_library()
+    err = lib.tllm_w4a8_gemm(
+        cuda_build.ptr(xq), cuda_build.ptr(s_act), cuda_build.ptr(packed3),
+        cuda_build.ptr(scales), cuda_build.ptr(zeros), cuda_build.ptr(bias),
+        cuda_build.ptr(out), M, N, K, G, bn, _ACT_CODE[activation],
+        cuda_build.stream_of(xq))
+    cuda_build.check(err, "w4a8_gemm")
+    cuda_build.launch_counts["w4a8_gemm"] += 1
+    return out
+
+
+def w4a8_matmul(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor,
+                zeros: Optional[torch.Tensor] = None,
+                bias: Optional[torch.Tensor] = None,
+                activation: Optional[str] = None,
+                out_dtype=None) -> torch.Tensor:
+    """``act(s_act * (int8(x) @ deq(packed, scales, zeros)) + bias)``: x
+    ``[..., K]`` is quantized per token, then CPU tensors take the plain
+    version and CUDA tensors launch K8 (or raise)."""
+    out_dtype = out_dtype or x.dtype
+    lead = x.shape[:-1]
+    xq, s_act = quantize_act_int8(x.reshape(-1, x.shape[-1]))
+    if x.device.type == "cpu":
+        out = w4a8_matmul_plain(xq, s_act, packed, scales, zeros, bias,
+                                activation, out_dtype)
+        return out.reshape(*lead, out.shape[-1])
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    b = None if bias is None else bias.to(torch.float32)
+    out = w4a8_gemm(xq, s_act, to_tiled(packed, scales),
+                    scales.to(torch.float32),
+                    None if zeros is None else zeros.to(torch.float32),
+                    b, activation)
     return out.to(out_dtype).reshape(*lead, out.shape[-1])

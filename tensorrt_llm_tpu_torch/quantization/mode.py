@@ -1,9 +1,11 @@
 """Quantization algorithm taxonomy.
 
-Counterpart of `tensorrt_llm_tpu/quantization/mode.py`: the `QuantAlgo` enum
-and `QuantConfig`.  This slice runs the W4A16 family and unquantized layers
-(other algorithms raise); `exclude_modules` keeps `lm_head` and the
-embedding in bf16 as the JAX package does.
+Counterpart of `tensorrt_llm_tpu/quantization/mode.py`: the `QuantAlgo` and
+`KvCacheQuantAlgo` enums and `QuantConfig`.  The port runs the W4A16 family,
+W4A8_AWQ (int4 weights, dynamic per-token int8 activations) and unquantized
+layers (other algorithms raise); KV pools are bf16 or INT8 (FP8 raises).
+`exclude_modules` keeps `lm_head` and the embedding in bf16 as the JAX
+package does.
 """
 
 from __future__ import annotations
@@ -19,11 +21,17 @@ class QuantAlgo(str, enum.Enum):
     W4A16_AWQ = "W4A16_AWQ"          # per-group int4, AWQ scales (+zeros)
     W4A16_GPTQ = "W4A16_GPTQ"        # per-group int4, GPTQ (zeros)
     W8A16 = "W8A16"
-    W4A8_AWQ = "W4A8_AWQ"
+    W4A8_AWQ = "W4A8_AWQ"            # per-group int4 (+zeros), int8 acts
     W8A8_SQ_PER_CHANNEL = "W8A8_SQ_PER_CHANNEL"
     FP8 = "FP8"
     FP8_PER_CHANNEL_PER_TOKEN = "FP8_PER_CHANNEL_PER_TOKEN"
     NO_QUANT = "NO_QUANT"
+
+
+class KvCacheQuantAlgo(str, enum.Enum):
+    NONE = "NONE"
+    INT8 = "INT8"      # int8 pages + f32 scale per (token, head)
+    FP8 = "FP8"        # not in the port yet
 
 
 WEIGHT_ONLY_W4 = (QuantAlgo.W4A16, QuantAlgo.W4A16_AWQ, QuantAlgo.W4A16_GPTQ)
@@ -32,6 +40,8 @@ WEIGHT_ONLY_W4 = (QuantAlgo.W4A16, QuantAlgo.W4A16_AWQ, QuantAlgo.W4A16_GPTQ)
 @dataclass
 class QuantConfig:
     quant_algo: QuantAlgo = QuantAlgo.NO_QUANT
+    # the JAX package's field; the KV pools follow LLM(kv_cache_quant=...)
+    kv_cache_quant_algo: KvCacheQuantAlgo = KvCacheQuantAlgo.NONE
     group_size: int = 128
     has_zero_point: bool = False
     # Module name substrings excluded from quantization.
@@ -40,6 +50,11 @@ class QuantConfig:
     @property
     def is_weight_only_w4(self) -> bool:
         return self.quant_algo in WEIGHT_ONLY_W4
+
+    @property
+    def is_w4(self) -> bool:
+        """int4 weights in the tiled packing: W4A16 family or W4A8_AWQ."""
+        return self.is_weight_only_w4 or self.quant_algo == QuantAlgo.W4A8_AWQ
 
     def excludes(self, name: str) -> bool:
         return any(pat in name for pat in self.exclude_modules)

@@ -8,8 +8,11 @@ unreferenced cached blocks (every block has the default retention priority;
 per-request priorities come later).
 
 Device pools, per layer, are K and V tensors of the logical head-major
-layout ``[num_blocks, num_kv_heads, block_size, head_dim]``.  The TPU's
-lane-packed view for head dims below 128 is a TPU layout and is not kept.
+layout ``[num_blocks, num_kv_heads, block_size, head_dim]``: bf16, or for an
+INT8 cache (``kv_quant``) a pair of int8 data and f32 per-(token, head)
+scales ``[num_blocks, num_kv_heads, block_size]`` indexed by the same block
+ids, so a reused block carries its scales.  The TPU's lane-packed view for
+head dims below 128 is a TPU layout and is not kept.
 
 Not in this slice: the native (C++) bookkeeping, partial tail-block reuse,
 beam forks, the host-memory tier and connector, KV events, VSWA rings and
@@ -24,6 +27,7 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 
+from tensorrt_llm_tpu_torch.quantization.mode import KvCacheQuantAlgo
 from tensorrt_llm_tpu_torch.utils import cdiv, resolve_device
 
 
@@ -33,6 +37,30 @@ class KVCacheConfig:
     num_blocks: Optional[int] = None    # None => derive from free memory
     free_mem_fraction: float = 0.85
     enable_block_reuse: bool = True
+    kv_quant: KvCacheQuantAlgo = KvCacheQuantAlgo.NONE
+
+    def __post_init__(self):
+        self.kv_quant = KvCacheQuantAlgo(self.kv_quant)
+        if self.kv_quant == KvCacheQuantAlgo.FP8:
+            raise NotImplementedError("FP8 KV pools are not in the port yet")
+
+
+def make_pools(num_layers: int, num_blocks: int, num_kv_heads: int,
+               block_size: int, head_dim: int,
+               kv_quant: KvCacheQuantAlgo = KvCacheQuantAlgo.NONE,
+               device="cuda") -> list:
+    """Zeroed (K, V) pools per layer: bf16 ``[NB, Hkv, BS, D]``, or for INT8
+    ``((k int8 [NB, Hkv, BS, D], k_scale f32 [NB, Hkv, BS]), (v, v_scale))``
+    as the JAX package allocates them (logical layout, never lane-packed)."""
+    shape = (num_blocks, num_kv_heads, block_size, head_dim)
+
+    def pool():
+        if KvCacheQuantAlgo(kv_quant) == KvCacheQuantAlgo.INT8:
+            return (torch.zeros(shape, dtype=torch.int8, device=device),
+                    torch.zeros(shape[:3], dtype=torch.float32, device=device))
+        return torch.zeros(shape, dtype=torch.bfloat16, device=device)
+
+    return [(pool(), pool()) for _ in range(num_layers)]
 
 
 class SequenceInfo:
@@ -196,20 +224,23 @@ class KVCacheManager:
         self._bk = _PyBookkeeping(num_blocks, cfg.block_size,
                                   cfg.enable_block_reuse)
 
-    def allocate_pools(self) -> List[Tuple[torch.Tensor, torch.Tensor]]:
-        """Zeroed K and V pools per layer, head-major pages."""
-        shape = (self.num_blocks, self.num_kv_heads, self.block_size,
-                 self.head_dim)
-        return [(torch.zeros(shape, dtype=torch.bfloat16, device=self.device),
-                 torch.zeros(shape, dtype=torch.bfloat16, device=self.device))
-                for _ in range(self.num_layers)]
+    def allocate_pools(self) -> List[Tuple]:
+        """Zeroed K and V pools per layer (`make_pools`)."""
+        return make_pools(self.num_layers, self.num_blocks,
+                          self.num_kv_heads, self.block_size, self.head_dim,
+                          self.cfg.kv_quant, self.device)
 
     @staticmethod
     def blocks_from_memory(bytes_budget: int, num_layers: int,
                            num_kv_heads: int, head_dim: int, block_size: int,
-                           dtype_bytes: int = 2) -> int:
+                           dtype_bytes: int = 2,
+                           scale_pools: bool = False) -> int:
+        """scale_pools: an INT8 cache adds an f32 scale per (token, head)
+        to each of its K and V pools."""
         per_block = 2 * num_layers * block_size * num_kv_heads * head_dim \
             * dtype_bytes
+        if scale_pools:
+            per_block += 2 * num_layers * block_size * num_kv_heads * 4
         return max(int(bytes_budget // per_block), 16)
 
     @property

@@ -8,6 +8,7 @@ import torch
 
 from tensorrt_llm_tpu_torch.attention_backend import AttentionMetadata
 from tensorrt_llm_tpu_torch.models import get_model_class
+from tensorrt_llm_tpu_torch.runtime.kv_cache_manager import make_pools
 
 
 def jax_generate(jl, prompts, sampling_params):
@@ -38,16 +39,15 @@ def jax_generate(jl, prompts, sampling_params):
         ex.request_queue = real
 
 
-def port_logits(cfg, params, tokens, block_size=8):
+def port_logits(cfg, params, tokens, block_size=8, kv_quant="NONE"):
     """The port's last-row logits after `tokens`, one prefill of a fresh
-    CPU model with `params` on fresh pools."""
+    CPU model with `params` on fresh pools (bf16, or INT8 for
+    ``kv_quant="INT8"``)."""
     m = get_model_class(cfg.architecture)(cfg, "cpu").load_state(params)
     n = len(tokens)
     blocks = list(range(1, -(-n // block_size) + 1))
-    shape = (len(blocks) + 1, cfg.num_kv_heads, block_size, cfg.head_dim)
-    caches = [(torch.zeros(shape, dtype=torch.bfloat16),
-               torch.zeros(shape, dtype=torch.bfloat16))
-              for _ in range(cfg.num_layers)]
+    caches = make_pools(cfg.num_layers, len(blocks) + 1, cfg.num_kv_heads,
+                        block_size, cfg.head_dim, kv_quant, "cpu")
     meta = AttentionMetadata(
         positions=torch.arange(n), mode="prefill", q_offset=0,
         slot_mapping=torch.tensor([blocks[p // block_size] * block_size
