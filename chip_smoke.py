@@ -6,12 +6,14 @@
 Phases (any failure exits nonzero; nothing is caught and ignored):
 
 1. the card's name and power limit (nvidia-smi);
-2. build the eight CUDA kernels from `tensorrt_llm_tpu_torch/csrc`;
+2. build the eleven CUDA kernels from `tensorrt_llm_tpu_torch/csrc`;
 3. hold each kernel against its plain PyTorch version on the card at
-   TinyLlama-1.1B, Llama-3-8B, GPT-OSS-20B and Mixtral-8x7B shapes, and
-   time kernel, plain version and one library call; one JSON line per
-   kernel and shape (the INT8-KV attention kernels on freshly quantized
-   int8 pools, the W4A8 GEMM at Llama-3-8B's projections);
+   TinyLlama-1.1B, Llama-3-8B, GPT-OSS-20B, Mixtral-8x7B, Moonlight-16B-A3B
+   and DeepSeek-V3/V3.2 shapes, and time kernel, plain version and one
+   library call; one JSON line per kernel and shape (the INT8-KV attention
+   kernels on freshly quantized int8 pools, the W4A8 GEMM at Llama-3-8B's
+   projections, the MLA kernels at 16 and 128 heads, the DSA scores at
+   V3.2's indexer);
 4. serve 8 greedy requests with `LLM.generate` on the full-width TinyLlama
    W4A16 model (random weights from a seed), with launch counters reset
    just before and read just after;
@@ -28,14 +30,31 @@ Phases (any failure exits nonzero; nothing is caught and ignored):
    W4A8_AWQ group 128 with an INT8 KV cache (K6/K7 attention, K8 for all
    four projections), counters reset just before and read just after;
 10. Llama-3-8B W4A8 + INT8 KV at 2 layers on the card and on the CPU:
-   logits and greedy tokens must agree.
+   logits and greedy tokens must agree;
+11. serve the same 8 requests on Moonlight-16B-A3B at full width and depth
+   (27 layers, dense MLA on K9/K10, 26 MoE layers on K5 with shared
+   experts and noaux_tc routing), counters reset just before and read just
+   after;
+12. serve them, plus one 3,000-token prompt (past `index_topk` 2048), on
+   DeepSeek-V3.2 widths at 4 layers (DSA: K11 scores every decode step,
+   the sparse attention is plain torch; layer 3 is a 256-expert MoE);
+13. a short `LLM.generate` at DeepSeek-V3 width (2 dense layers) so that
+   K9/K10 run at 128 heads inside the model;
+14. Moonlight and V3.2 widths at 2 layers (V3.2 with `index_topk` 128, below
+   the prompt) on the card and on the CPU: logits and greedy tokens must
+   agree.
 
 Arguments pick phases (default: check serve cross llama3 gptoss
-gptoss_cross llama3_w4a8 llama3_w4a8_cross); `check_moe` runs only K5's
-checks and `check_int8` only K6-K8's; `profile`, `profile_gptoss` and
-`profile_llama3_int8`, run only when named, trace a short serve window
-with torch.profiler; `cross_breakdown`, run only when named, repeats phase
-10 with W4A16 weights and with bf16 KV pools to split its logit gap.
+gptoss_cross llama3_w4a8 llama3_w4a8_cross deepseek deepseek_v32
+deepseek_v3_width deepseek_cross); `check_moe` runs only K5's checks,
+`check_int8` only K6-K8's and `check_mla` only K9-K11's; `profile`,
+`profile_gptoss`, `profile_llama3_int8` and `profile_deepseek`, run only
+when named, trace a short serve window with torch.profiler;
+`cross_breakdown`, run only when named, repeats phase 10 with W4A16
+weights and with bf16 KV pools to split its logit gap;
+`dsa_cross_breakdown`, run only when named, repeats the V3.2 part of
+phase 14 at a covering top-k and at 128 and counts where the card's and
+the CPU's top-k selections differ.
 `--json PATH` also writes every check and phase summary to PATH.
 
 The last three lines of stdout are the card's name and power limit, the
@@ -75,9 +94,17 @@ GEMM_GROUP = {"gpt-oss-20b": 64}          # others: 128
 GEMM_M = (1, 4, 8, 16, 256, 512)
 # (K, N, E, G) of the expert gate_up and down products
 MOE_SHAPES = {"gpt-oss-20b": [(2880, 5760, 32, 64), (2880, 2880, 32, 64)],
-              "mixtral-8x7b": [(4096, 28672, 8, 128), (14336, 4096, 8, 128)]}
+              "mixtral-8x7b": [(4096, 28672, 8, 128), (14336, 4096, 8, 128)],
+              "moonlight-16b-a3b": [(2048, 2816, 64, 128),
+                                    (1408, 2048, 64, 128)],
+              "deepseek-v3.2": [(7168, 4096, 256, 128),
+                                (2048, 7168, 256, 128)]}
 MOE_M = (16, 32, 1024)                    # T x top-k rows
+# DeepSeek rows: 4 decode tokens and a 256-token chunk, x top-6 / top-8
+MOE_M_BY_MODEL = {"moonlight-16b-a3b": (24, 1536),
+                  "deepseek-v3.2": (32, 2048)}
 MOE_M_ZEROS = (32, 1024)                  # zero-point experts (off the path)
+MOE_ZEROS_MODELS = ("gpt-oss-20b", "mixtral-8x7b")
 PREFILL_CASES = [
     # model, Hq, Hkv, D, T, q_offset, window, cap, sinks
     ("tinyllama", 32, 4, 64, 256, 256, None, None, False),
@@ -321,6 +348,36 @@ def _grouped_mm_ms(x, w_bf16, gs, iters):
     return cuda_ms([lambda: torch._grouped_mm(x, w_bf16, offs=offs)], iters)
 
 
+def _experts(gen, dev, E, K, N, G, zero_points):
+    """Random experts drawn and quantized 16 at a time (DeepSeek's 256
+    experts of 7168 x 4096 would take 30 GB as one f32 draw): symmetric
+    (packed, scales, bf16 dequantized) and, with `zero_points`, the same
+    weights with zero points."""
+    import torch
+    from tensorrt_llm_tpu_torch.ops import moe_w4a16 as MW
+    sym, zp = [], []
+    for e0 in range(0, E, 16):
+        w = torch.randn((min(16, E - e0), K, N), generator=gen,
+                        device=dev) * 0.02
+        sym.append(MW.quantize_experts_w4(w, G))
+        if zero_points:
+            zp.append(MW.quantize_experts_w4(w, G, symmetric=False))
+        del w
+
+    def stack(parts):
+        if not parts:
+            return None
+        pk, sc = (torch.cat([p[i] for p in parts]) for i in (0, 1))
+        z = None if parts[0][2] is None else torch.cat([p[2] for p in parts])
+        wdq = torch.cat([MW.dequantize_experts_w4(
+            pk[e0:e0 + 16], sc[e0:e0 + 16],
+            None if z is None else z[e0:e0 + 16]).to(torch.bfloat16)
+            for e0 in range(0, E, 16)])
+        return pk, sc, z, wdq
+
+    return stack(sym), stack(zp), sym[0][3]
+
+
 def check_moe(gen, dev):
     import numpy as np
     import torch
@@ -328,18 +385,16 @@ def check_moe(gen, dev):
     rng = np.random.default_rng(0)
     for model, shapes in MOE_SHAPES.items():
         for K, N, E, G in shapes:
-            w = torch.randn((E, K, N), generator=gen, device=dev) * 0.02
-            packed, scales, _, bn = MW.quantize_experts_w4(w, G)
+            with_zeros = model in MOE_ZEROS_MODELS
+            (packed, scales, _, wdq), zexp, bn = _experts(
+                gen, dev, E, K, N, G, with_zeros)
             # zero-point experts: the kernel's other instantiation
-            zpacked, zscales, zeros, _ = MW.quantize_experts_w4(
-                w, G, symmetric=False)
-            del w
-            wdq = MW.dequantize_experts_w4(packed, scales).to(torch.bfloat16)
-            zwdq = MW.dequantize_experts_w4(zpacked, zscales, zeros).to(
-                torch.bfloat16)
-            cases = [(M, kind, False) for M in MOE_M
+            zpacked, zscales, zeros, zwdq = zexp or (None,) * 4
+            cases = [(M, kind, False)
+                     for M in MOE_M_BY_MODEL.get(model, MOE_M)
                      for kind in ("uniform", "skewed")]
-            cases += [(M, "skewed", True) for M in MOE_M_ZEROS]
+            if with_zeros:
+                cases += [(M, "skewed", True) for M in MOE_M_ZEROS]
             for M, kind, zp in cases:
                 pk, sc, z = ((zpacked, zscales, zeros) if zp
                              else (packed, scales, None))
@@ -404,13 +459,18 @@ def _int8_pool(p):
     return q.reshape(p.shape), sc.reshape(nb, h, bs)
 
 
+def _nbytes(c):
+    """Bytes of a pool or of every tensor in nested pools (K/V pairs, INT8
+    pairs, latent pools and DSA's (latent, indexer) pairs)."""
+    if isinstance(c, (list, tuple)):
+        return sum(_nbytes(t) for t in c)
+    return c.numel() * c.element_size()
+
+
 def _clone(c):
     return tuple(t.clone() for t in c) if isinstance(c, tuple) else c.clone()
 
 
-def _nbytes(c):
-    return sum(t.numel() * t.element_size()
-               for t in (c if isinstance(c, tuple) else (c,)))
 
 
 def _sdpa_ms(q, k, v, mask, iters, sinks=None):
@@ -563,6 +623,176 @@ def check_decode(gen, dev, cases=DECODE_CASES, int8=False):
                bound_ms(nbytes, 4 * sum(used) * Hq * D))
 
 
+# MLA latent width (kv_lora_rank 512 + rope 64) of Moonlight and DeepSeek
+MLA_L, MLA_R = 512, 64
+MLA_DECODE_CASES = [
+    # model, H, kv_lens
+    ("moonlight-16b-a3b", 16, [33, 320, 1000, 4000]),
+    ("deepseek-v3", 128, [33, 320, 1000, 4000]),
+]
+MLA_PREFILL_CASES = [
+    # model, H, T, q_offset
+    ("moonlight-16b-a3b", 16, 256, 0),
+    ("moonlight-16b-a3b", 16, 256, 256),
+    ("moonlight-16b-a3b", 16, 100, 37),
+    ("deepseek-v3", 128, 256, 0),
+    ("deepseek-v3", 128, 256, 256),
+    ("deepseek-v3", 128, 100, 37),
+]
+DSA_CASES = [
+    # kv_lens (B = 4), table blocks of 16 (MB * 16 is not a multiple of
+    # K11's 64-token tile)
+    ([1, 1000, 4097, 8192], 517),
+    ([0, 100, 3000, 2049], 190),
+]
+DSA_HI, DSA_DI = 64, 128
+
+
+def _latent_pool(gen, dev, seqs, dk, BS=16):
+    """A random bf16 latent (or indexer) pool [NB, 1, BS, dk] and shuffled
+    block tables covering `seqs` tokens each."""
+    import torch
+    mb = max(1, max(-(-L // BS) for L in seqs))
+    nb = len(seqs) * mb + 1
+    pool = torch.randn((nb, 1, BS, dk), generator=gen, device=dev).to(
+        torch.bfloat16)
+    perm = torch.randperm(nb - 1, generator=gen, device=dev) + 1
+    tables = perm[:len(seqs) * mb].reshape(len(seqs), mb).to(torch.int32)
+    return pool, tables.contiguous()
+
+
+def _sdpa_latent_ms(q, lat, mask, scale, iters):
+    """Library yardstick of K9/K10: scaled_dot_product_attention on the
+    gathered dense latents, one key head broadcast to the H query heads,
+    q [B, H, T, L+R], keys lat [B, S, L+R], values their first L channels;
+    None where this build refuses the shapes."""
+    import torch
+    import torch.nn.functional as F
+    B, H = q.shape[:2]
+    k = lat[:, None].expand(B, H, *lat.shape[1:])
+    v = lat[:, None, :, :MLA_L].expand(B, H, lat.shape[1], MLA_L)
+    try:
+        F.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=scale)
+        torch.cuda.synchronize()
+    except RuntimeError as e:   # a yardstick only: report and go on
+        log(f"  SDPA refused the latent shapes: {e}")
+        return None
+    return cuda_ms([lambda: F.scaled_dot_product_attention(
+        q, k, v, attn_mask=mask, scale=scale)], iters)
+
+
+def check_mla(gen, dev):
+    """K9 mla_decode, K10 mla_prefill and K11 dsa_score against their plain
+    versions at Moonlight's 16 and DeepSeek-V3's 128 heads (latent 512 +
+    64) and V3.2's indexer (64 heads of 128)."""
+    import torch
+    from tensorrt_llm_tpu_torch.ops import dsa as DSA
+    from tensorrt_llm_tpu_torch.ops import mla as MLA
+    DK = MLA_L + MLA_R
+    scale = (128 + MLA_R) ** -0.5
+    for model, H, lens in MLA_DECODE_CASES:
+        B = len(lens)
+        pool, tables = _latent_pool(gen, dev, lens, DK)
+        kv_lens = torch.tensor(lens, dtype=torch.int32, device=dev)
+        q = torch.randn((B, H, DK), generator=gen, device=dev).to(
+            torch.bfloat16)
+        out = MLA.mla_decode_attention(q, pool, tables, kv_lens, scale, MLA_L)
+        ref = MLA.mla_decode_plain(q, pool, tables, kv_lens, scale, MLA_L)
+        torch.cuda.synchronize()
+        err = (out.float() - ref.float()).abs().max().item()
+        pools = [pool.clone() for _ in range(copies_for(_nbytes(pool)))]
+        k_ms = cuda_ms([lambda p=p: MLA.mla_decode_attention(
+            q, p, tables, kv_lens, scale, MLA_L) for p in pools], 30)
+        del pools
+        p_ms = cuda_ms([lambda: MLA.mla_decode_plain(
+            q, pool, tables, kv_lens, scale, MLA_L)], 5)
+        S = tables.shape[1] * pool.shape[2]
+        lat = pool[tables.long()][:, :, 0].reshape(B, S, DK)
+        mask = (torch.arange(S, device=dev)[None, :]
+                < kv_lens.long()[:, None])[:, None, None, :]
+        l_ms = _sdpa_latent_ms(q[:, :, None], lat, mask, scale, 30)
+        n_split, _ = MLA.mla_decode_splits(B, H, S)
+        # each latent row read once (the design reads it once per 16-head
+        # block: `latent_reads`), q in and the latent output out, bf16
+        nbytes = sum(lens) * DK * 2 + B * H * (DK + MLA_L) * 2
+        ops = 2 * H * (DK + MLA_L) * sum(lens)
+        # the kernel rounds P to bf16 (2^-9 relative), both sides round
+        # the output to bf16 (2^-8): 2% of the largest output
+        tol = 2e-2 * max(1.0, ref.float().abs().max().item())
+        record("mla_decode", {"model": model, "H": H, "L": MLA_L,
+                              "R": MLA_R, "kv_lens": lens,
+                              "splits": n_split,
+                              "latent_reads": -(-H // MLA.MLA_ROWS)},
+               err, tol, k_ms, p_ms, l_ms, bound_ms(nbytes, ops))
+        del pool, lat, mask
+    for model, H, T, off in MLA_PREFILL_CASES:
+        kv_len = off + T
+        pool, tables = _latent_pool(gen, dev, [kv_len], DK)
+        table = tables[0].contiguous()
+        q = torch.randn((T, H, DK), generator=gen, device=dev).to(
+            torch.bfloat16)
+        out = MLA.mla_prefill_attention(q, pool, table, kv_len, off, scale,
+                                        MLA_L)
+        ref = MLA.mla_prefill_plain(q, pool, table, kv_len, off, scale,
+                                    MLA_L)
+        torch.cuda.synchronize()
+        err = (out.float() - ref.float()).abs().max().item()
+        pools = [pool.clone() for _ in range(copies_for(_nbytes(pool)))]
+        k_ms = cuda_ms([lambda p=p: MLA.mla_prefill_attention(
+            q, p, table, kv_len, off, scale, MLA_L) for p in pools], 20)
+        del pools
+        p_ms = cuda_ms([lambda: MLA.mla_prefill_plain(
+            q, pool, table, kv_len, off, scale, MLA_L)], 5)
+        lat = pool[table.long()][:, 0].reshape(-1, DK)[None, :kv_len]
+        qp = off + torch.arange(T, device=dev)[:, None]
+        mask = torch.arange(kv_len, device=dev)[None, :] <= qp
+        l_ms = _sdpa_latent_ms(q.permute(1, 0, 2)[None], lat, mask, scale,
+                               20)
+        pairs = sum(min(off + t + 1, kv_len) for t in range(T))
+        nbytes = kv_len * DK * 2 + T * H * (DK + MLA_L) * 2
+        tol = 2e-2 * max(1.0, ref.float().abs().max().item())
+        record("mla_prefill", {"model": model, "H": H, "L": MLA_L,
+                               "R": MLA_R, "T": T, "q_offset": off},
+               err, tol, k_ms, p_ms, l_ms,
+               bound_ms(nbytes, 2 * H * (DK + MLA_L) * pairs))
+        del pool, lat
+    for lens, MB in DSA_CASES:
+        B = len(lens)
+        pool, tables = _latent_pool(gen, dev, [MB * 16] * B, DSA_DI)
+        kv_lens = torch.tensor(lens, dtype=torch.int32, device=dev)
+        q = torch.randn((B, DSA_HI, DSA_DI), generator=gen, device=dev).to(
+            torch.bfloat16)
+        w = torch.rand((B, DSA_HI), generator=gen, device=dev) * (
+            DSA_DI ** -0.5 * DSA_HI ** -0.5)
+        out = DSA.dsa_scores(q, w, pool, tables, kv_lens)
+        ref = DSA.dsa_scores_plain(q, w, pool, tables, kv_lens)
+        torch.cuda.synchronize()
+        valid = torch.arange(MB * 16, device=dev)[None, :] \
+            < kv_lens.long()[:, None]
+        assert torch.equal(out[~valid], ref[~valid]), \
+            "dsa_score: slots past kv_len are not NEG_INF"
+        err = (out[valid] - ref[valid]).abs().max().item() \
+            if bool(valid.any()) else 0.0
+        pools = [pool.clone() for _ in range(copies_for(_nbytes(pool)))]
+        k_ms = cuda_ms([lambda p=p: DSA.dsa_scores(
+            q, w, p, tables, kv_lens) for p in pools], 30)
+        del pools
+        p_ms = cuda_ms([lambda: DSA.dsa_scores_plain(
+            q, w, pool, tables, kv_lens)], 5)
+        # products of bf16 values are exact in f32; only the order of the
+        # f32 sums over 128 channels and 64 heads differs: 1e-3 of max|ref|
+        tol = 1e-3 * max(1.0, ref[valid].abs().max().item()
+                         if bool(valid.any()) else 1.0)
+        nbytes = (sum(lens) * DSA_DI * 2 + B * DSA_HI * (DSA_DI * 2 + 4)
+                  + B * MB * 16 * 4)
+        record("dsa_score", {"model": "deepseek-v3.2", "Hi": DSA_HI,
+                             "Di": DSA_DI, "kv_lens": lens, "MB": MB,
+                             "BS": 16},
+               err, tol, k_ms, p_ms, None,
+               bound_ms(nbytes, 2 * DSA_HI * DSA_DI * sum(lens)))
+        del pool
+
+
 # ------------------------------------------------------------ phases 4-8 ---
 TINYLLAMA = dict(vocab_size=32000, hidden_size=2048, intermediate_size=5632,
                  num_layers=22, num_heads=32, num_kv_heads=4, head_dim=64,
@@ -588,6 +818,10 @@ def w4a8_cfg(shape, **over):
 
 
 GPT_OSS_LAYERS = 24     # full depth
+MOONLIGHT_LAYERS = 27   # full depth
+V32_LAYERS = 4          # 61 layers of 256 int4 experts do not fit one card
+V32_LONG_PROMPT = 3000  # past index_topk (2048): DSA's top-k drops tokens
+V32_DIAG_TOPK = 128     # below the cross-check's 200-token prompt
 
 
 def gpt_oss_cfg(num_layers):
@@ -595,15 +829,46 @@ def gpt_oss_cfg(num_layers):
     return gpt_oss_20b_config(num_layers, max_position=4096)
 
 
+def attention_kernels(cfg, kv_cache_quant="NONE"):
+    """(prefill, decode) kernels every layer of a forward launches once on
+    this path: K3/K4 (K7/K6 over an INT8 cache) for GQA, K10/K9 for dense
+    MLA; under DSA, K11 scores each decode step and the attention itself
+    is plain torch (as it is XLA in the JAX package)."""
+    if cfg.is_mla:
+        return (None, "dsa_score") if cfg.dsa else ("mla_prefill",
+                                                    "mla_decode")
+    sfx = "_int8" if kv_cache_quant == "INT8" else ""
+    return "flash_prefill" + sfx, "paged_decode" + sfx
+
+
+def moonlight_cfg(num_layers):
+    from tensorrt_llm_tpu_torch.models import moonlight_16b_a3b_config
+    return moonlight_16b_a3b_config(num_layers)
+
+
+def deepseek_cfg(num_layers, dsa=True, index_topk=None):
+    """DeepSeek-V3.2 widths (with the indexer), or V3 (`dsa=False`), at
+    `num_layers`; max_position cut to 8192 (rope table only)."""
+    from tensorrt_llm_tpu_torch.models import (
+        deepseek_v3_config, deepseek_v32_config)
+    make = deepseek_v32_config if dsa else deepseek_v3_config
+    cfg = make(num_layers, max_position=8192)
+    if index_topk:
+        cfg.sparse_attention = dict(cfg.sparse_attention,
+                                    index_topk=index_topk)
+    return cfg
+
+
 def serve_model(card, phase, label, cfg, required, absent=(),
-                kv_cache_quant="NONE"):
+                kv_cache_quant="NONE", long_prompt=0, max_seq_len=1024):
     """8 greedy requests (prompts 17..600 tokens, two sharing a 300-token
-    prefix), 64 new tokens each, through `LLM.generate`; the launch counters
-    are reset just before and read just after.  A second run with a fresh
-    cache salt must give the same tokens.  Every layer of every forward
-    must run the path's attention kernels (K6/K7 over an INT8 cache, else
-    K3/K4) and, for W4A8, K8 for all four projections; the kernels in
-    `absent` must not launch at all."""
+    prefix, plus one of `long_prompt` tokens when set), 64 new tokens each,
+    through `LLM.generate`; the launch counters are reset just before and
+    read just after.  A second run with a fresh cache salt must give the
+    same tokens.  Every layer of every forward must run the path's
+    attention kernels (`attention_kernels`) and, for W4A8, K8 for all four
+    projections; every MoE layer K5 twice; the kernels in `absent` must not
+    launch at all."""
     import numpy as np
     import torch
     import tensorrt_llm_tpu_torch as T
@@ -613,7 +878,7 @@ def serve_model(card, phase, label, cfg, required, absent=(),
     t0 = time.perf_counter()
     llm = T.LLM(model=cfg, skip_tokenizer_init=True,
                 device=DEVICE, max_batch_size=4, max_num_tokens=256,
-                max_seq_len=1024, kv_block_size=16, kv_num_blocks=640,
+                max_seq_len=max_seq_len, kv_block_size=16, kv_num_blocks=640,
                 kv_cache_quant=kv_cache_quant, seed=0,
                 return_perf_metrics=True)
     torch.cuda.synchronize()
@@ -628,6 +893,8 @@ def serve_model(card, phase, label, cfg, required, absent=(),
     shared = ids(300)
     prompts = [shared + ids(20), shared + ids(45)]
     prompts += [ids(n) for n in (17, 64, 200, 333, 480, 600)]
+    if long_prompt:
+        prompts.append(ids(long_prompt))
     sp = T.SamplingParams(max_tokens=64, temperature=0.0, ignore_eos=True,
                           logprobs=1)
     try:
@@ -654,11 +921,11 @@ def serve_model(card, phase, label, cfg, required, absent=(),
         again = [o.outputs[0].token_ids
                  for o in llm.generate(prompts, sp, cache_salt="run2")]
         assert again == toks, "second run gave other tokens"
-        windows = [layer.attn.backend.sliding_window
+        windows = [getattr(getattr(layer.attn, "backend", None),
+                           "sliding_window", None)
                    for layer in llm.model.layers]
         peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
-        kv_bytes_per_token = sum(_nbytes(c) for kv in llm.engine.kv_caches
-                                 for c in kv) / (
+        kv_bytes_per_token = _nbytes(llm.engine.kv_caches) / (
             llm.kv_manager.num_blocks * llm.kv_manager.block_size)
     finally:
         llm.shutdown()
@@ -670,9 +937,9 @@ def serve_model(card, phase, label, cfg, required, absent=(),
     dsteps = sum(s["decode_steps"] for s in stats)
     L = cfg.num_layers
     # every layer of every forward went through the attention kernels
-    sfx = "_int8" if kv_cache_quant == "INT8" else ""
-    prefill_k, decode_k = "flash_prefill" + sfx, "paged_decode" + sfx
-    assert counts[prefill_k] == L * chunks, (counts, chunks)
+    prefill_k, decode_k = attention_kernels(cfg, kv_cache_quant)
+    if prefill_k:
+        assert counts[prefill_k] == L * chunks, (counts, chunks)
     assert counts[decode_k] == L * dsteps, (counts, dsteps)
     if cfg.quant.quant_algo == QuantAlgo.W4A8_AWQ:
         # QKV, o, gate_up and down on K8 in every layer of every forward
@@ -696,8 +963,11 @@ def serve_model(card, phase, label, cfg, required, absent=(),
         "launches": counts,
         "gemm_launches_per_forward": gemms / (chunks + dsteps),
         "moe_gmm_per_forward": counts.get("moe_gmm", 0) / (chunks + dsteps),
-        "flash_prefill_per_chunk": counts[prefill_k] / chunks,
-        "paged_decode_per_step": counts[decode_k] / dsteps,
+        "attention_kernels": [prefill_k, decode_k],
+        "prefill_attention_per_chunk": (counts[prefill_k] / chunks
+                                        if prefill_k else None),
+        "decode_attention_per_step": counts[decode_k] / dsteps,
+        "prompt_tokens": sum(len(p) for p in prompts),
         "sliding_windows": sorted(set(map(str, windows))),
         "peak_mem_gib": peak_gb, "kv_cache_quant": kv_cache_quant,
         "kv_bytes_per_token": kv_bytes_per_token, "kv": kv}
@@ -709,7 +979,7 @@ def serve_model(card, phase, label, cfg, required, absent=(),
 
 
 def cross_check_cpu(phase, label, cfg, seed, n_prompt, chunk, n_decode,
-                    kv_cache_quant="NONE"):
+                    kv_cache_quant="NONE", tol=0.08):
     """The same weights on the card and on the CPU (plain versions), carried
     across with state()/load_state: a chunked prefill of `n_prompt` tokens
     then `n_decode` decode steps, teacher-forced on the CPU's tokens, over
@@ -718,7 +988,7 @@ def cross_check_cpu(phase, label, cfg, seed, n_prompt, chunk, n_decode,
     import torch
     from tensorrt_llm_tpu_torch.attention_backend import AttentionMetadata
     from tensorrt_llm_tpu_torch.models import get_model_class
-    from tensorrt_llm_tpu_torch.runtime.kv_cache_manager import make_pools
+    from tensorrt_llm_tpu_torch.runtime.kv_cache_manager import model_pools
     gpu = get_model_class(cfg.architecture)(cfg, DEVICE).init_random(seed)
     cpu = get_model_class(cfg.architecture)(cfg, "cpu").load_state(
         {k: v.cpu() for k, v in gpu.state().items()})
@@ -729,8 +999,7 @@ def cross_check_cpu(phase, label, cfg, seed, n_prompt, chunk, n_decode,
     blocks = list(range(1, -(-(n_prompt + n_decode) // BS) + 1))
 
     def pools(dev):
-        return make_pools(cfg.num_layers, len(blocks) + 1, cfg.num_kv_heads,
-                          BS, cfg.head_dim, kv_cache_quant, dev)
+        return model_pools(cfg, len(blocks) + 1, BS, kv_cache_quant, dev)
 
     caches = {"cuda": pools(DEVICE), "cpu": pools("cpu")}
     models = {"cuda": gpu, "cpu": cpu}
@@ -751,7 +1020,7 @@ def cross_check_cpu(phase, label, cfg, seed, n_prompt, chunk, n_decode,
                               meta, torch.tensor([len(ids) - 1], device=dev))
         return out[0].float().cpu().numpy()
 
-    TOL = 0.08
+    TOL = tol
     steps, agree, compared = [], 0, 0
     seq = list(prompt)
     plan = [(lo, min(lo + chunk, n_prompt)) for lo in range(0, n_prompt, chunk)]
@@ -801,17 +1070,63 @@ def cross_check_cpu(phase, label, cfg, seed, n_prompt, chunk, n_decode,
     torch.cuda.empty_cache()
 
 
-def llama3_width():
+def dsa_cross_breakdown():
+    """Opt-in: the V3.2 card-vs-CPU check at a covering top-k and at
+    `V32_DIAG_TOPK` (below the prompt), counting for every layer call where
+    the card's top-k differs from the CPU's: prefill-mask entries, and
+    decode selections (symmetric set difference).  Top-k is discontinuous
+    in the scores, so one-ulp differences upstream can swap a token at the
+    threshold; the logit gap is reported, not held to a tolerance."""
+    import torch
+    from tensorrt_llm_tpu_torch.layers import mla as LM
+    seen = {"cuda": [], "cpu": []}
+    orig = LM.dsa_prefill_mask, LM.dsa_decode_select
+
+    def recording(fn):
+        def f(*a, **k):
+            out = fn(*a, **k)
+            seen[out.device.type].append(out.cpu())
+            return out
+        return f
+
+    LM.dsa_prefill_mask, LM.dsa_decode_select = map(recording, orig)
+    try:
+        for topk in (2048, V32_DIAG_TOPK):
+            seen["cuda"].clear()
+            seen["cpu"].clear()
+            phase = f"dsa_cross_topk{topk}"
+            cross_check_cpu(phase, f"deepseek-v3.2 width, 2 layers, "
+                            f"index_topk {topk}",
+                            deepseek_cfg(2, index_topk=topk), seed=7,
+                            n_prompt=200, chunk=128, n_decode=4,
+                            tol=float("inf"))
+            diffs = []
+            for a, b in zip(seen["cuda"], seen["cpu"]):
+                if a.dtype == torch.bool:
+                    diffs.append(int((a != b).sum()))
+                else:
+                    diffs.append(sum(len(set(x.tolist()) ^ set(y.tolist()))
+                                     for x, y in zip(a, b)))
+            PHASES[phase]["selection_diffs_per_layer_call"] = diffs
+            log(json.dumps({"phase": phase, "selection_diffs": diffs}))
+    finally:
+        LM.dsa_prefill_mask, LM.dsa_decode_select = orig
+
+
+def width_run(phase, label, cfg, required):
+    """A short `LLM.generate` (prompts of 300 and 41 tokens, 16 new tokens
+    each) at a model's full width and cut depth, so that the attention
+    kernels run at its head count inside the model."""
     import numpy as np
     import torch
     import tensorrt_llm_tpu_torch as T
     from tensorrt_llm_tpu_torch.ops import cuda_build
-    llm = T.LLM(model=w4a16_cfg(LLAMA3_8B, num_layers=2),
-                skip_tokenizer_init=True, device=DEVICE, max_batch_size=4,
-                max_num_tokens=256, max_seq_len=1024, seed=2)
+    llm = T.LLM(model=cfg, skip_tokenizer_init=True, device=DEVICE,
+                max_batch_size=4, max_num_tokens=256, max_seq_len=1024,
+                kv_num_blocks=640, seed=2)
     rng = np.random.default_rng(2)
-    prompts = [[int(t) for t in rng.integers(10, LLAMA3_8B["vocab_size"] - 10,
-                                             n)] for n in (300, 41)]
+    prompts = [[int(t) for t in rng.integers(10, cfg.vocab_size - 10, n)]
+               for n in (300, 41)]
     try:
         cuda_build.reset_launch_counts()
         outs = llm.generate(prompts, T.SamplingParams(
@@ -824,12 +1139,11 @@ def llama3_width():
     lps = [lp for o in outs for d in o.outputs[0].logprobs
            for lp in d.values()]
     assert np.isfinite(lps).all()
-    for k in ("flash_prefill", "paged_decode"):
-        assert counts.get(k, 0) > 0, f"{k} did not run at D=128"
-    PHASES["llama3"] = {"phase": "llama-3-8b width, 2 layers",
-                        "launches": counts,
-                        "tokens": [o.outputs[0].token_ids[:8] for o in outs]}
-    log(json.dumps(PHASES["llama3"]))
+    for k in required:
+        assert counts.get(k, 0) > 0, f"{k} did not run in {label}"
+    PHASES[phase] = {"phase": label, "launches": counts,
+                     "tokens": [o.outputs[0].token_ids[:8] for o in outs]}
+    log(json.dumps(PHASES[phase]))
     del llm
     torch.cuda.empty_cache()
 
@@ -900,6 +1214,8 @@ def profile_serve(card, phase, cfg, kv_cache_quant="NONE"):
 # ----------------------------------------------------------------- summary --
 GPT_OSS_PATH = "serve_gpt_oss"          # slice 2's path: K1-K5 run there
 LLAMA3_W4A8_PATH = "serve_llama3_w4a8"  # slice 3's path: K6-K8 run there
+MOONLIGHT_PATH = "serve_moonlight"      # slice 4's dense MLA path: K9/K10
+V32_PATH = "serve_deepseek_v32"         # slice 4's DSA path: K11
 KERNELS = {
     # each kernel's row: the serve path that runs it, and a phase-3 check
     # at the shape that path gives it
@@ -938,6 +1254,16 @@ KERNELS = {
     "w4a8_gemm": ("cuda", "tensorrt_llm_tpu_torch/csrc/w4a8_gemm.cu",
                   "tensorrt_llm_tpu/ops/w4a16_gemm.py:953", LLAMA3_W4A8_PATH,
                   {"model": "llama-3-8b", "M": 4, "K": 4096, "N": 28672}),
+    "mla_decode": ("cuda", "tensorrt_llm_tpu_torch/csrc/mla_decode.cu",
+                   "tensorrt_llm_tpu/ops/mla_pallas.py:37", MOONLIGHT_PATH,
+                   {"model": "moonlight-16b-a3b"}),
+    "mla_prefill": ("cuda", "tensorrt_llm_tpu_torch/csrc/mla_prefill.cu",
+                    "tensorrt_llm_tpu/ops/mla_pallas.py:189", MOONLIGHT_PATH,
+                    {"model": "moonlight-16b-a3b", "T": 256,
+                     "q_offset": 256}),
+    # the serve path's scale: 4 sequences up to ~3,000 tokens
+    "dsa_score": ("cuda", "tensorrt_llm_tpu_torch/csrc/dsa_score.cu",
+                  "tensorrt_llm_tpu/ops/dsa.py:138", V32_PATH, {"MB": 190}),
 }
 
 
@@ -999,8 +1325,31 @@ def main() -> int:
         out_json = args[i + 1]
         del args[i:i + 2]
     phases = args or ["check", "serve", "cross", "llama3", "gptoss",
-                      "gptoss_cross", "llama3_w4a8", "llama3_w4a8_cross"]
+                      "gptoss_cross", "llama3_w4a8", "llama3_w4a8_cross",
+                      "deepseek", "deepseek_v32", "deepseek_v3_width",
+                      "deepseek_cross"]
     by_path = {}      # each serve path's own launch counts
+    try:
+        run_phases(phases, card, gen, dev, by_path)
+    finally:
+        if out_json:   # also after a failed phase: what ran is kept
+            os.makedirs(os.path.dirname(os.path.abspath(out_json)),
+                        exist_ok=True)
+            with open(out_json, "w") as f:
+                json.dump({"card": card, "phases": PHASES,
+                           "checks": RESULTS}, f, indent=1)
+    log(card)
+    if "check" in phases and {
+            p for *_, p, _ in KERNELS.values()} <= set(by_path):
+        log(json.dumps(kernels_line(by_path)))
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def run_phases(phases, card, gen, dev, by_path):
+    """Run the named phases in order; any failure propagates."""
     t0 = time.perf_counter()
     if "check" in phases or "check_moe" in phases:
         check_moe(gen, dev)
@@ -1012,6 +1361,8 @@ def main() -> int:
         check_prefill(gen, dev, PREFILL_INT8_CASES, int8=True)
         check_decode(gen, dev, DECODE_INT8_CASES, int8=True)
         check_w4a8(gen, dev)
+    if "check" in phases or "check_mla" in phases:
+        check_mla(gen, dev)
     if RESULTS:
         log(f"[phase 3] {len(RESULTS)} kernel checks passed in "
             f"{time.perf_counter() - t0:.1f} s")
@@ -1025,7 +1376,9 @@ def main() -> int:
                         w4a16_cfg(TINYLLAMA, num_layers=2, max_position=2048),
                         seed=1, n_prompt=100, chunk=64, n_decode=6)
     if "llama3" in phases:
-        llama3_width()
+        width_run("llama3", "llama-3-8b width, 2 layers",
+                  w4a16_cfg(LLAMA3_8B, num_layers=2),
+                  ("flash_prefill", "paged_decode"))
     if "gptoss" in phases:
         n = GPT_OSS_LAYERS
         by_path["serve_gpt_oss"] = serve_model(
@@ -1050,6 +1403,36 @@ def main() -> int:
                         w4a8_cfg(LLAMA3_8B, num_layers=2), seed=5,
                         n_prompt=200, chunk=128, n_decode=4,
                         kv_cache_quant="INT8")
+    attn_gqa = ("flash_prefill", "paged_decode")
+    if "deepseek" in phases:
+        n = MOONLIGHT_LAYERS
+        by_path[MOONLIGHT_PATH] = serve_model(
+            card, MOONLIGHT_PATH, f"moonlight-16b-a3b W4A16 ({n} layers)",
+            moonlight_cfg(n), ("w4a16_gemm", "w4a16_gemv", "moe_gmm",
+                               "moe_gmm_units", "mla_prefill", "mla_decode"),
+            absent=attn_gqa + ("dsa_score",))
+    if "deepseek_v32" in phases:
+        n = V32_LAYERS
+        by_path[V32_PATH] = serve_model(
+            card, V32_PATH, f"deepseek-v3.2 widths W4A16 ({n} layers)",
+            deepseek_cfg(n), ("w4a16_gemm", "w4a16_gemv", "moe_gmm",
+                              "moe_gmm_units", "dsa_score"),
+            absent=attn_gqa + ("mla_prefill", "mla_decode"),
+            long_prompt=V32_LONG_PROMPT, max_seq_len=4096)
+    if "deepseek_v3_width" in phases:
+        width_run("deepseek_v3_width", "deepseek-v3 width, 2 layers (dense)",
+                  deepseek_cfg(2, dsa=False), ("mla_prefill", "mla_decode"))
+    if "deepseek_cross" in phases:
+        cross_check_cpu("moonlight_cross_check",
+                        "moonlight-16b-a3b width, 2 layers (dense, MoE)",
+                        moonlight_cfg(2), seed=6, n_prompt=200, chunk=128,
+                        n_decode=4)
+        cross_check_cpu("deepseek_v32_cross_check",
+                        "deepseek-v3.2 width, 2 layers (index_topk 2048 "
+                        "covers the context)", deepseek_cfg(2), seed=7,
+                        n_prompt=200, chunk=128, n_decode=4)
+    if "dsa_cross_breakdown" in phases:
+        dsa_cross_breakdown()
     if "cross_breakdown" in phases:
         # opt-in: the card-vs-CPU gap of the W4A8 + INT8 KV check split by
         # weights (W4A8 or W4A16) and KV pools (INT8 or bf16), two seeds
@@ -1068,20 +1451,9 @@ def main() -> int:
     if "profile_llama3_int8" in phases:
         profile_serve(card, "profile_llama3_int8", w4a8_cfg(LLAMA3_8B),
                       kv_cache_quant="INT8")
+    if "profile_deepseek" in phases:
+        profile_serve(card, "profile_deepseek", moonlight_cfg(MOONLIGHT_LAYERS))
     log(f"[done] phases {phases} in {time.perf_counter() - t0:.1f} s")
-    if out_json:
-        os.makedirs(os.path.dirname(os.path.abspath(out_json)), exist_ok=True)
-        with open(out_json, "w") as f:
-            json.dump({"card": card, "phases": PHASES, "checks": RESULTS}, f,
-                      indent=1)
-    log(card)
-    if "check" in phases and {
-            p for *_, p, _ in KERNELS.values()} <= set(by_path):
-        log(json.dumps(kernels_line(by_path)))
-    log(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
-    return 0
 
 
 if __name__ == "__main__":

@@ -1,7 +1,7 @@
 // Shared device helpers for the port's Hopper kernels: bf16 and int8
 // conversion, int4 nibble extraction, the fused epilogue activations, the
-// m16n8k16 bf16 tensor-core MMA (mma.sync, f32 accumulate) and the
-// m16n8k32 s8 one (s32 accumulate).
+// m16n8k16 bf16 tensor-core MMA (mma.sync, f32 accumulate), the m16n8k32
+// s8 one (s32 accumulate), 16-byte cp.async copies and ldmatrix.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -87,6 +87,37 @@ __device__ __forceinline__ void mma_s8_16832(int* d, const uint32_t* a,
       "{%0, %1, %2, %3};\n"
       : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// 16-byte global -> shared copy, asynchronous (cp.async.cg, L2 only).
+// With `pred` false nothing is read and the 16 bytes are zero-filled.
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
+                                           bool pred) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(gmem), "r"(pred ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+// wait until at most N committed groups are still in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Four 8x8 b16 matrices from shared memory, transposed: lanes 8i..8i+7
+// give the row addresses of matrix i; register i of lane l holds elements
+// (2 * (l % 4), l / 4) and (2 * (l % 4) + 1, l / 4) of matrix i -- the mma
+// B fragment of a row-major [k][n] tile.
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r,
+                                                  const bf16* p) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(p);
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(s));
 }
 
 }  // namespace tllm

@@ -4,13 +4,21 @@ Counterpart of `tensorrt_llm_tpu/layers/moe.py` on one device: tokens are
 routed, the (token, expert) pairs sorted by expert, and the expert FFNs run
 as two grouped W4A16 products (`ops/moe_w4a16.py`, kernel K5 on CUDA) with
 a scatter-add finalize.  Routing variants: softmax -> top-k -> renormalize
-(Mixtral), and top-k on raw logits -> softmax over the k with a router bias
-(GPT-OSS, with per-expert gate_up/down biases and the clamped swiglu).
+(Mixtral); top-k on raw logits -> softmax over the k with a router bias
+(GPT-OSS, with per-expert gate_up/down biases and the clamped swiglu); and
+DeepSeek V3's noaux_tc (sigmoid scores, a score-correction bias used for
+the selection only, group-limited top-k over the best groups by their top-2
+sums with the other groups zero-filled as HF does, weights from the raw
+scores renormalized and times `routed_scaling`), taken whenever the layer
+has a score bias or more than one group.  DeepSeek's shared experts are a
+W4A16 `GatedMLP` of width ``n_shared_experts * intermediate_size`` whose
+output is added to the routed sum in f32.
 
 The rounding points are the JAX package's: the gate_up product is rounded
 to bf16, the expert bias is added in f32 and rounded to bf16, the
 activation runs in f32 and rounds to bf16, and the down product, its bias,
-the routing weights and the finalize stay f32 until the bf16 output.
+the routing weights, the finalize and the shared experts' sum stay f32
+until the bf16 output.
 
 Group sizes stay on the device (a scatter-add of ones, not `bincount`,
 which reads the largest id back), and K5's prologue derives the work units
@@ -22,26 +30,29 @@ scatter over the expert-sorted pairs -- with no atomics, so it is
 deterministic on the card.
 
 Not in this slice: the capacity factor, redundant expert slots and load
-counters, shared experts, the DeepSeek and Llama4 routings (the layer has
-no option for them; `ModelConfig.from_hf_config` raises on a config that
-sets them), and unquantized (bf16) experts (raise here).  Expert and
-tensor parallelism have no option either: the layer runs on one device.
+counters, the Llama4 routing (the layer has no option for it;
+`ModelConfig.from_hf_config` raises on a config that sets it), and
+unquantized (bf16) experts (raise here).  Expert and tensor parallelism
+have no option either: the layer runs on one device.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Iterable, Optional, Tuple
 
 import torch
 from torch import nn
 
+from tensorrt_llm_tpu_torch.layers.mlp import GatedMLP
 from tensorrt_llm_tpu_torch.ops.moe_w4a16 import (
     gmm_work_units, quantize_experts_w4, w4a16_grouped_matmul)
 from tensorrt_llm_tpu_torch.ops.w4a16_gemm import ACTIVATIONS
 from tensorrt_llm_tpu_torch.quantization import QuantConfig
 
 _LEAVES = ("router", "router_bias", "w_gate_up", "w_gate_up_s", "w_gate_up_z",
-           "b_gate_up", "w_down", "w_down_s", "w_down_z", "b_down")
+           "b_gate_up", "w_down", "w_down_s", "w_down_z", "b_down",
+           "score_bias")
+_EXPERT_CHUNK = 16   # experts quantized at a time (bounds f32 temporaries)
 
 
 class MoE(nn.Module):
@@ -50,7 +61,10 @@ class MoE(nn.Module):
                  renormalize: bool = True, has_router_bias: bool = False,
                  topk_then_softmax: bool = False,
                  has_expert_bias: bool = False,
-                 quant: Optional[QuantConfig] = None):
+                 quant: Optional[QuantConfig] = None,
+                 score_func: str = "softmax", has_score_bias: bool = False,
+                 n_group: int = 1, topk_group: int = 1,
+                 routed_scaling: float = 1.0, n_shared_experts: int = 0):
         super().__init__()
         if quant is None or not quant.is_weight_only_w4:
             raise NotImplementedError(
@@ -67,6 +81,18 @@ class MoE(nn.Module):
         self.has_router_bias = has_router_bias
         self.topk_then_softmax = topk_then_softmax
         self.has_expert_bias = has_expert_bias
+        if score_func not in ("softmax", "sigmoid"):
+            raise ValueError(f"MoE: unknown score_func {score_func!r}")
+        if num_experts % n_group or not 0 < topk_group <= n_group:
+            raise ValueError(f"MoE: {num_experts} experts in {n_group} "
+                             f"groups, top {topk_group} groups")
+        self.score_func = score_func
+        self.has_score_bias = has_score_bias
+        self.n_group = n_group
+        self.topk_group = topk_group
+        self.routed_scaling = routed_scaling
+        self.shared = (GatedMLP(H, n_shared_experts * I, activation,
+                                quant=quant) if n_shared_experts else None)
         self.symmetric = not quant.has_zero_point
         gs = quant.group_size
         # per-group scales where the group divides the width, else one
@@ -77,21 +103,53 @@ class MoE(nn.Module):
             self.register_buffer(leaf, None)
 
     # ---- parameters -----------------------------------------------------
-    def from_float(self, router_w, gate_w, up_w, down_w, router_bias=None,
-                   gate_b=None, up_b=None, down_b=None) -> None:
-        """router_w [H, E]; gate/up [E, H, I]; down [E, I, H] (full float).
+    def load_experts(self, chunks: Iterable[Tuple[torch.Tensor,
+                                                  torch.Tensor,
+                                                  torch.Tensor]]) -> None:
+        """Quantize the expert weights from consecutive chunks along the
+        expert axis, each (gate [e, H, I], up [e, H, I], down [e, I, H])
+        full float, so that a caller can draw 256 experts a few at a time.
         gate and up are fused as [gate | up] along the output columns, the
         JAX package's interleave at tp = 1."""
+        parts = []
+        for gate_w, up_w, down_w in chunks:
+            for lo in range(0, gate_w.shape[0], _EXPERT_CHUNK):
+                hi = lo + _EXPERT_CHUNK
+                fused = torch.cat([gate_w[lo:hi], up_w[lo:hi]], dim=2).to(
+                    torch.float32)
+                gu = quantize_experts_w4(fused, self.g_up, self.symmetric)
+                del fused
+                dn = quantize_experts_w4(down_w[lo:hi].to(torch.float32),
+                                         self.g_down, self.symmetric)
+                parts.append(gu[:3] + dn[:3])
+
+        def cat(i):
+            if parts[0][i] is None:
+                return None
+            return parts[0][i] if len(parts) == 1 else torch.cat(
+                [p[i] for p in parts])
+
+        (self.w_gate_up, self.w_gate_up_s, self.w_gate_up_z, self.w_down,
+         self.w_down_s, self.w_down_z) = (cat(i) for i in range(6))
+        if self.w_gate_up.shape[0] != self.num_experts:
+            raise ValueError(f"MoE: {self.w_gate_up.shape[0]} experts loaded "
+                             f"for {self.num_experts}")
+
+    def from_float(self, router_w, gate_w, up_w, down_w, router_bias=None,
+                   gate_b=None, up_b=None, down_b=None, score_bias=None
+                   ) -> None:
+        """router_w [H, E]; gate/up [E, H, I]; down [E, I, H] (full float;
+        None when `load_experts` already installed the experts);
+        score_bias [E] (None: zeros).  Shared experts load through
+        `self.shared.from_float`."""
         self.router = router_w.to(torch.float32).contiguous()
-        fused = torch.cat([gate_w, up_w], dim=2).to(torch.float32)
-        pk, sc, zr, _ = quantize_experts_w4(fused, self.g_up, self.symmetric)
-        del fused
-        self.w_gate_up, self.w_gate_up_s, self.w_gate_up_z = pk, sc, zr
-        pk, sc, zr, _ = quantize_experts_w4(down_w.to(torch.float32),
-                                            self.g_down, self.symmetric)
-        self.w_down, self.w_down_s, self.w_down_z = pk, sc, zr
+        if gate_w is not None:
+            self.load_experts([(gate_w, up_w, down_w)])
         E, H, I = self.num_experts, self.hidden_size, self.intermediate_size
         dev = self.router.device
+        if self.has_score_bias:
+            self.score_bias = (torch.zeros(E, device=dev) if score_bias is None
+                               else score_bias.to(torch.float32).contiguous())
         if self.has_router_bias:
             self.router_bias = (torch.zeros(E, device=dev)
                                 if router_bias is None
@@ -115,11 +173,40 @@ class MoE(nn.Module):
         if self.topk_then_softmax:
             vals, ids = torch.topk(logits, self.top_k, dim=-1)
             return ids, torch.softmax(vals, dim=-1)
-        scores = torch.softmax(logits, dim=-1)
+        scores = (torch.softmax(logits, dim=-1) if self.score_func == "softmax"
+                  else torch.sigmoid(logits))
+        if self.has_score_bias or self.n_group > 1:
+            return self._route_noaux_tc(scores)
         w, ids = torch.topk(scores, self.top_k, dim=-1)
         if self.renormalize:
             w = w / w.sum(dim=-1, keepdim=True)
-        return ids, w
+        return ids, w * self.routed_scaling
+
+    def _route_noaux_tc(self, scores: torch.Tensor):
+        """DeepSeek V3 routing (HF DeepseekV3TopkRouter): the selection uses
+        the bias-corrected scores within the best groups, the weights the
+        raw scores."""
+        T, E = scores.shape
+        g = self.n_group
+        choice = scores
+        if self.has_score_bias:
+            choice = scores + self.score_bias[None, :]
+        if g > 1:
+            grouped = choice.view(T, g, E // g)
+            top2 = torch.topk(grouped, min(2, E // g), dim=-1).values
+            gidx = torch.topk(top2.sum(dim=-1), self.topk_group,
+                              dim=-1).indices                        # [T, tg]
+            gmask = torch.zeros((T, g), dtype=torch.bool,
+                                device=scores.device).scatter_(1, gidx, True)
+            # HF zero-fills the other groups (not -inf); so does the JAX
+            # package
+            choice = torch.where(gmask.repeat_interleave(E // g, dim=1),
+                                 choice, 0.0)
+        ids = torch.topk(choice, self.top_k, dim=-1).indices
+        w = torch.gather(scores, 1, ids)
+        if self.renormalize:
+            w = w / (w.sum(dim=-1, keepdim=True) + 1e-20)
+        return ids, w * self.routed_scaling
 
     # ---- forward --------------------------------------------------------
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -168,4 +255,6 @@ class MoE(nn.Module):
         acc = out[:, 0]
         for j in range(1, k):
             acc = acc + out[:, j]
+        if self.shared is not None:
+            acc = acc + self.shared(x).to(torch.float32)
         return acc.to(x.dtype)

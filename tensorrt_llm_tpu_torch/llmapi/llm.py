@@ -5,10 +5,13 @@ KV cache, the engine and the executor thread, and serves `generate` /
 `generate_async` on token-id prompts.  The model runs on CUDA unless the
 caller passes ``device="cpu"``; without a GPU the default raises.
 
-In this slice the model is a `ModelConfig` with random (numpy-seeded)
-weights, or with a ready state passed as ``params`` (see
-`params_from_jax`).  Tokenizers, checkpoints, streaming iteration and the
-server belong to later slices.
+In this slice the model is a `ModelConfig` (or one of the presets of
+`models/`: `gpt_oss_20b_config`, `moonlight_16b_a3b_config`,
+`deepseek_v3_config`, `deepseek_v32_config`) with random (seeded) weights,
+or with a ready state passed as ``params`` (see `params_from_jax`).  An MLA
+model gets one latent pool per layer, plus the indexer pool under DSA.
+Tokenizers, checkpoints, streaming iteration and the server belong to
+later slices.
 """
 
 from __future__ import annotations
@@ -26,7 +29,8 @@ from tensorrt_llm_tpu_torch.models.modeling_utils import (
     ModelConfig, get_model_class)
 from tensorrt_llm_tpu_torch.quantization.mode import KvCacheQuantAlgo
 from tensorrt_llm_tpu_torch.runtime.executor import PyExecutor
-from tensorrt_llm_tpu_torch.runtime.kv_cache_manager import KVCacheManager
+from tensorrt_llm_tpu_torch.runtime.kv_cache_manager import (
+    KVCacheManager, pool_layout)
 from tensorrt_llm_tpu_torch.runtime.model_engine import ModelEngine
 from tensorrt_llm_tpu_torch.runtime.request import LlmRequest
 from tensorrt_llm_tpu_torch.utils import cdiv, resolve_device
@@ -79,11 +83,13 @@ class LLM:
             self.model.load_state(a.params)
         else:
             self.model.init_random(a.seed)
-        kvcfg = a.make_kv_cache_config()
+        geo = pool_layout(cfg)
+        kvcfg = a.make_kv_cache_config(geo["layout"], geo["dsa_index_dim"])
         num_blocks = kvcfg.num_blocks or self._derive_num_blocks(cfg, kvcfg)
         self.kv_manager = KVCacheManager(kvcfg, cfg.num_layers,
-                                         cfg.num_kv_heads, cfg.head_dim,
-                                         num_blocks, self.device)
+                                         geo["num_kv_heads"],
+                                         geo["head_dim"], num_blocks,
+                                         self.device)
         self.engine = ModelEngine(self.model, self.kv_manager, self.device)
         self.executor = PyExecutor(
             self.engine, a.make_scheduler_config(), eos_token_id=None,
@@ -105,8 +111,11 @@ class LLM:
             budget = 4 << 30
         int8 = kvcfg.kv_quant == KvCacheQuantAlgo.INT8
         n = KVCacheManager.blocks_from_memory(
-            budget, cfg.num_layers, cfg.num_kv_heads, cfg.head_dim,
-            kvcfg.block_size, dtype_bytes=1 if int8 else 2, scale_pools=int8)
+            budget, cfg.num_layers, cfg.kv_pool_heads, cfg.kv_pool_dim,
+            kvcfg.block_size, dtype_bytes=1 if int8 else 2,
+            num_pools=1 if kvcfg.layout == "latent" else 2,
+            extra_dims=kvcfg.dsa_index_dim,
+            scale_pools=int8)
         need = a.max_batch_size * cdiv(a.max_seq_len, kvcfg.block_size)
         return min(max(n, 64), max(need * 2, 64) * 8)
 

@@ -36,12 +36,15 @@ class LlmArgs:
     skip_tokenizer_init: bool = False
     return_perf_metrics: bool = False
 
-    def make_kv_cache_config(self) -> KVCacheConfig:
+    def make_kv_cache_config(self, layout: str = "kv",
+                             dsa_index_dim: int = 0) -> KVCacheConfig:
+        """The user's KV settings, with the pool layout the model needs."""
         return KVCacheConfig(block_size=self.kv_block_size,
                              num_blocks=self.kv_num_blocks,
                              free_mem_fraction=self.free_mem_fraction,
                              enable_block_reuse=self.enable_block_reuse,
-                             kv_quant=KvCacheQuantAlgo(self.kv_cache_quant))
+                             kv_quant=KvCacheQuantAlgo(self.kv_cache_quant),
+                             layout=layout, dsa_index_dim=dsa_index_dim)
 
     def make_scheduler_config(self) -> SchedulerConfig:
         return SchedulerConfig(max_batch_size=self.max_batch_size,

@@ -1,11 +1,15 @@
-"""Decoder-only causal LM for the Llama, Mixtral and GPT-OSS families.
+"""Decoder-only causal LM for the Llama, Mixtral, GPT-OSS and DeepSeek V3
+families.
 
 Counterpart of `tensorrt_llm_tpu/models/modeling_utils.py`: `ModelConfig`
-(the fields those families use, with `from_hf_config`), `DecoderLayer` (a
-gated MLP or a W4A16 MoE; sliding-window layers by `layer_types` or by the
+(the fields those families use, with `from_hf_config`), `DecoderLayer` (GQA
+attention or, when `kv_lora_rank` is set, Multi-head Latent Attention with
+an optional DSA indexer; a gated MLP or a W4A16 MoE, dense on
+`mlp_only_layers`; sliding-window layers by `layer_types` or by the
 window), and `DecoderModelForCausalLM.forward` (embedding, pre-norm decoder
-layers over a paged KV cache of bf16 or INT8 pools, final norm, bf16
-lm_head); linears are W4A16, W4A8_AWQ or unquantized.  Weights come from
+layers over a paged KV cache -- bf16 or INT8 K/V pools, or one latent pool
+per layer under MLA -- final norm, bf16 lm_head); linears are W4A16,
+W4A8_AWQ or unquantized.  Weights come from
 `init_random` (drawn on the model's device from a seeded `torch.Generator`,
 one layer at a time, quantized as they are drawn) or from
 `params_from_jax`, which converts the JAX package's parameter pytree so the
@@ -16,6 +20,7 @@ to a later slice.
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -28,6 +33,7 @@ from tensorrt_llm_tpu_torch.attention_backend.interface import (
 from tensorrt_llm_tpu_torch.layers.attention import Attention
 from tensorrt_llm_tpu_torch.layers.embedding import Embedding
 from tensorrt_llm_tpu_torch.layers.linear import Linear
+from tensorrt_llm_tpu_torch.layers.mla import MLA
 from tensorrt_llm_tpu_torch.layers.mlp import GatedMLP
 from tensorrt_llm_tpu_torch.layers.moe import MoE
 from tensorrt_llm_tpu_torch.ops.norms import add_rms_norm
@@ -36,14 +42,12 @@ from tensorrt_llm_tpu_torch.quantization import QuantConfig
 from tensorrt_llm_tpu_torch.utils import resolve_device
 
 _HF_ARCHITECTURES = ("LlamaForCausalLM", "MistralForCausalLM",
-                     "MixtralForCausalLM", "GptOssForCausalLM")
-# HF keys of MoE features this slice leaves out (shared experts, DeepSeek
-# grouped routing, sparse or dense-only layers), with their neutral value
-_CUT_HF_KEYS = {"n_shared_experts": 0, "shared_expert_intermediate_size": 0,
-                "n_group": 1, "topk_group": 1,
-                "scoring_func": "softmax", "routed_scaling_factor": 1.0,
-                "first_k_dense_replace": 0, "decoder_sparse_step": 1,
-                "mlp_only_layers": []}
+                     "MixtralForCausalLM", "GptOssForCausalLM",
+                     "DeepseekV3ForCausalLM")
+# HF keys of MoE features the port leaves out (Qwen-MoE's shared-expert
+# width, sparse layer strides), with their neutral value
+_CUT_HF_KEYS = {"shared_expert_intermediate_size": 0,
+                "decoder_sparse_step": 1, "moe_layer_freq": 1}
 
 
 @dataclass
@@ -76,6 +80,25 @@ class ModelConfig:
     moe_router_bias: bool = False
     moe_topk_then_softmax: bool = False
     moe_expert_bias: bool = False
+    # DeepSeek MoE: sigmoid scores, noaux_tc routing with a score-correction
+    # bias and group-limited top-k, shared experts, leading dense layers
+    moe_score_func: str = "softmax"
+    moe_has_score_bias: bool = False
+    n_group: int = 1
+    topk_group: int = 1
+    routed_scaling_factor: float = 1.0
+    n_shared_experts: int = 0
+    mlp_only_layers: tuple = ()
+    # MLA (DeepSeek V2/V3): kv_lora_rank set => latent attention
+    q_lora_rank: Optional[int] = None
+    kv_lora_rank: Optional[int] = None
+    qk_nope_head_dim: int = 128
+    qk_rope_head_dim: int = 64
+    v_head_dim: int = 128
+    rope_interleave: bool = True
+    # DSA lightning indexer (DeepSeek V3.2) on the MLA layers:
+    # {"algo": "dsa", "index_n_heads", "index_head_dim", "index_topk"}
+    sparse_attention: Optional[dict] = None
     quant: Optional[QuantConfig] = None
 
     def __post_init__(self):
@@ -85,7 +108,7 @@ class ModelConfig:
             self.moe_intermediate_size = self.intermediate_size
 
     def is_moe_layer(self, idx: int) -> bool:
-        return self.num_experts > 0
+        return self.num_experts > 0 and idx not in self.mlp_only_layers
 
     def is_sliding_layer(self, idx: int) -> bool:
         """An explicit `layer_types` list wins (GPT-OSS); otherwise every
@@ -94,6 +117,44 @@ class ModelConfig:
             return self.layer_types[idx] == "sliding_attention"
         return self.sliding_window is not None
 
+    # ---- MLA ---------------------------------------------------------------
+    @property
+    def is_mla(self) -> bool:
+        return self.kv_lora_rank is not None
+
+    @property
+    def dsa(self) -> Optional[dict]:
+        """The DSA indexer settings, when the MLA layers carry one."""
+        sa = self.sparse_attention
+        return sa if self.is_mla and sa and sa.get("algo") == "dsa" else None
+
+    @property
+    def kv_pool_heads(self) -> int:
+        """KV heads of the paged pools: one latent "head" under MLA."""
+        return 1 if self.is_mla else self.num_kv_heads
+
+    @property
+    def kv_pool_dim(self) -> int:
+        """Pool row width: ``kv_lora_rank + qk_rope_head_dim`` under MLA
+        (576 on DeepSeek; the JAX package rounds it up to 640 for the TPU's
+        128-lane tile, a layout the port does not keep), else head_dim."""
+        if self.is_mla:
+            return self.kv_lora_rank + self.qk_rope_head_dim
+        return self.head_dim
+
+    @property
+    def mla_scale(self) -> float:
+        """MLA softmax scale: qk_head_dim^-0.5 times YaRN's mscale^2 over
+        `mscale_all_dim` (HF DeepseekV3Attention)."""
+        scale = (self.qk_nope_head_dim + self.qk_rope_head_dim) ** -0.5
+        s = self.rope_scaling or {}
+        if s.get("mscale_all_dim"):
+            f = s.get("factor", 1.0)
+            m = 0.1 * s["mscale_all_dim"] * math.log(f) + 1.0 if f > 1 \
+                else 1.0
+            scale *= m * m
+        return scale
+
     @property
     def rope(self) -> RopeConfig:
         s = self.rope_scaling or {}
@@ -101,7 +162,9 @@ class ModelConfig:
         if stype == "default":
             stype = None
         return RopeConfig(
-            head_dim=self.head_dim, theta=self.rope_theta,
+            head_dim=self.qk_rope_head_dim if self.is_mla else self.head_dim,
+            theta=self.rope_theta,
+            interleaved=self.rope_interleave and self.is_mla,
             max_position=self.max_position, scaling_type=stype,
             scaling_factor=s.get("factor", 1.0),
             low_freq_factor=s.get("low_freq_factor", 1.0),
@@ -118,8 +181,12 @@ class ModelConfig:
     def from_hf_config(cls, hf, quant: Optional[QuantConfig] = None
                        ) -> "ModelConfig":
         """Build from a transformers config (or plain dict) of the Llama,
-        Mistral, Mixtral or GPT-OSS families, with the JAX package's field
-        mapping; other architectures raise."""
+        Mistral, Mixtral, GPT-OSS or DeepSeek V3 families (Moonlight; V3.2
+        with its indexer), with the JAX package's field mapping; other
+        architectures, and the features in `_CUT_HF_KEYS`, raise.  A DeepSeek
+        config (one with `kv_lora_rank`) routes by sigmoid noaux_tc, as the
+        JAX package does, and says so if it sets `scoring_func` or
+        `topk_method`."""
         get = ((lambda k, d=None: hf.get(k, d)) if isinstance(hf, dict)
                else (lambda k, d=None: getattr(hf, k, d)))
         archs = get("architectures")
@@ -128,11 +195,18 @@ class ModelConfig:
             raise NotImplementedError(
                 f"from_hf_config: {arch} is not in this slice "
                 f"(known: {', '.join(_HF_ARCHITECTURES)})")
-        for key, neutral in _CUT_HF_KEYS.items():
+        deepseek = get("kv_lora_rank") is not None
+        cut = dict(_CUT_HF_KEYS,
+                   scoring_func="sigmoid" if deepseek else "softmax",
+                   topk_method="noaux_tc" if deepseek else None)
+        for key, neutral in cut.items():
             if get(key) and get(key) != neutral:
                 raise NotImplementedError(
                     f"from_hf_config: {key}={get(key)!r} is not in this slice")
         gpt_oss = arch == "GptOssForCausalLM"
+        mlp_only = tuple(get("mlp_only_layers") or ())
+        if get("first_k_dense_replace"):
+            mlp_only = tuple(range(get("first_k_dense_replace")))
         return cls(
             architecture=arch,
             vocab_size=get("vocab_size", 32000),
@@ -156,31 +230,58 @@ class ModelConfig:
             sliding_window=get("sliding_window"),
             activation="swiglu_oai" if gpt_oss else "silu",
             num_experts=(get("num_local_experts") or get("num_experts")
-                         or 0),
+                         or get("n_routed_experts") or 0),
             num_experts_per_tok=get("num_experts_per_tok", 2),
             moe_intermediate_size=get("moe_intermediate_size"),
             norm_topk_prob=bool(get("norm_topk_prob", True)),
             moe_router_bias=gpt_oss,
             moe_topk_then_softmax=gpt_oss,
             moe_expert_bias=gpt_oss,
+            moe_score_func="sigmoid" if deepseek else "softmax",
+            moe_has_score_bias=deepseek,
+            n_group=get("n_group") or 1,
+            topk_group=get("topk_group") or 1,
+            routed_scaling_factor=get("routed_scaling_factor") or 1.0,
+            n_shared_experts=get("n_shared_experts") or 0,
+            mlp_only_layers=mlp_only,
+            q_lora_rank=get("q_lora_rank"),
+            kv_lora_rank=get("kv_lora_rank"),
+            qk_nope_head_dim=get("qk_nope_head_dim") or 128,
+            qk_rope_head_dim=get("qk_rope_head_dim") or 64,
+            v_head_dim=get("v_head_dim") or 128,
+            rope_interleave=bool(get("rope_interleave", True)),
+            sparse_attention=({"algo": "dsa",
+                               "index_n_heads": get("index_n_heads", 64),
+                               "index_head_dim": get("index_head_dim", 128),
+                               "index_topk": get("index_topk")}
+                              if get("index_topk") and deepseek else None),
             quant=quant)
 
 
 class DecoderLayer(nn.Module):
     """Pre-norm block: x + attn(norm(x)); x + mlp(norm(x)), with the residual
-    add fused into the next norm as in the JAX package.  The MLP is a W4A16
-    MoE on MoE layers, a gated MLP elsewhere."""
+    add fused into the next norm as in the JAX package.  The attention is
+    MLA when the config sets `kv_lora_rank`, GQA otherwise; the MLP is a
+    W4A16 MoE on MoE layers, a gated MLP elsewhere."""
 
     def __init__(self, cfg: ModelConfig, layer_idx: int, device="cuda"):
         super().__init__()
         self.cfg = cfg
         self.sliding = cfg.is_sliding_layer(layer_idx)
         self.is_moe = cfg.is_moe_layer(layer_idx)
-        self.attn = Attention(
-            cfg.hidden_size, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
-            cfg.quant, device, has_bias=cfg.attention_bias,
-            has_o_bias=cfg.o_bias, has_sinks=cfg.has_sinks,
-            sliding_window=cfg.sliding_window if self.sliding else None)
+        if cfg.is_mla:
+            self.attn = MLA(
+                cfg.hidden_size, cfg.num_heads, cfg.q_lora_rank,
+                cfg.kv_lora_rank, cfg.qk_nope_head_dim, cfg.qk_rope_head_dim,
+                cfg.v_head_dim, cfg.mla_scale, cfg.rms_eps,
+                interleaved=cfg.rope.interleaved, quant=cfg.quant,
+                sparse=cfg.dsa)
+        else:
+            self.attn = Attention(
+                cfg.hidden_size, cfg.num_heads, cfg.num_kv_heads,
+                cfg.head_dim, cfg.quant, device, has_bias=cfg.attention_bias,
+                has_o_bias=cfg.o_bias, has_sinks=cfg.has_sinks,
+                sliding_window=cfg.sliding_window if self.sliding else None)
         if self.is_moe:
             self.mlp = MoE(
                 cfg.hidden_size, cfg.moe_intermediate_size, cfg.num_experts,
@@ -188,7 +289,12 @@ class DecoderLayer(nn.Module):
                 renormalize=cfg.norm_topk_prob,
                 has_router_bias=cfg.moe_router_bias,
                 topk_then_softmax=cfg.moe_topk_then_softmax,
-                has_expert_bias=cfg.moe_expert_bias, quant=cfg.quant)
+                has_expert_bias=cfg.moe_expert_bias, quant=cfg.quant,
+                score_func=cfg.moe_score_func,
+                has_score_bias=cfg.moe_has_score_bias, n_group=cfg.n_group,
+                topk_group=cfg.topk_group,
+                routed_scaling=cfg.routed_scaling_factor,
+                n_shared_experts=cfg.n_shared_experts)
         else:
             self.mlp = GatedMLP(cfg.hidden_size, cfg.intermediate_size,
                                 cfg.activation, quant=cfg.quant)
@@ -224,6 +330,7 @@ def register_auto_model(*architectures):
 
 def get_model_class(architecture: str) -> type:
     # the architecture modules register themselves on import
+    import tensorrt_llm_tpu_torch.models.deepseek  # noqa: F401
     import tensorrt_llm_tpu_torch.models.gpt_oss  # noqa: F401
     import tensorrt_llm_tpu_torch.models.llama  # noqa: F401
     import tensorrt_llm_tpu_torch.models.mixtral  # noqa: F401
@@ -257,10 +364,12 @@ class DecoderModelForCausalLM(nn.Module):
     def init_random(self, seed: int = 0) -> "DecoderModelForCausalLM":
         """Random weights at the real shapes, drawn on the model's device
         from a `torch.Generator` seeded with `seed`, one layer at a time and
-        quantized as they are drawn (GPT-OSS-20B draws ~19 G floats).  Two
+        quantized as they are drawn (GPT-OSS-20B draws ~19 G floats; a
+        DeepSeek-V3 MoE layer's 256 experts are drawn 16 at a time).  Two
         devices give different floats for one seed: carry weights across
         with `state()` / `load_state`.  Scales follow the JAX package's
-        `init`; biases are small random values, sinks N(0, 0.5^2)."""
+        `init`; biases, norms and DeepSeek's score-correction bias are small
+        random values, sinks N(0, 0.5^2)."""
         cfg, dev = self.cfg, self.device
         gen = torch.Generator(device=dev)
         gen.manual_seed(seed)
@@ -272,27 +381,68 @@ class DecoderModelForCausalLM(nn.Module):
 
         self.embedding.load(normal((cfg.vocab_size, H), 0.02))
         std = 0.5 / H ** 0.5
+        b = 0.02
         for layer in self.layers:
-            b = 0.02
-            layer.attn.from_float(
-                normal((H, Hq), std), normal((H, Hkv), std),
-                normal((H, Hkv), std), normal((Hq, H), std),
-                q_b=normal((Hq,), b), k_b=normal((Hkv,), b),
-                v_b=normal((Hkv,), b), o_b=normal((H,), b),
-                sinks=normal((cfg.num_heads,), 0.5))
+            if cfg.is_mla:
+                self._init_mla(layer.attn, normal)
+            else:
+                layer.attn.from_float(
+                    normal((H, Hq), std), normal((H, Hkv), std),
+                    normal((H, Hkv), std), normal((Hq, H), std),
+                    q_b=normal((Hq,), b), k_b=normal((Hkv,), b),
+                    v_b=normal((Hkv,), b), o_b=normal((H,), b),
+                    sinks=normal((cfg.num_heads,), 0.5))
             if layer.is_moe:
                 E, I = cfg.num_experts, cfg.moe_intermediate_size
+                chunk = 16
+                layer.mlp.load_experts(
+                    (normal((min(chunk, E - e), H, I), std),
+                     normal((min(chunk, E - e), H, I), std),
+                     normal((min(chunk, E - e), I, H), 0.5 / I ** 0.5))
+                    for e in range(0, E, chunk))
                 layer.mlp.from_float(
-                    normal((H, E), std), normal((E, H, I), std),
-                    normal((E, H, I), std), normal((E, I, H), 0.5 / I ** 0.5),
+                    normal((H, E), std), None, None, None,
                     router_bias=normal((E,), b), gate_b=normal((E, I), b),
-                    up_b=normal((E, I), b), down_b=normal((E, H), b))
+                    up_b=normal((E, I), b), down_b=normal((E, H), b),
+                    score_bias=normal((E,), 0.05))
+                if layer.mlp.shared is not None:
+                    Is = cfg.n_shared_experts * I
+                    layer.mlp.shared.from_float(
+                        normal((H, Is), std), normal((H, Is), std),
+                        normal((Is, H), 0.5 / Is ** 0.5))
             else:
                 I = cfg.intermediate_size
                 layer.mlp.from_float(normal((H, I), std), normal((H, I), std),
                                      normal((I, H), 0.5 / I ** 0.5))
         self.lm_head.from_float(normal((H, cfg.vocab_size), std))
         return self
+
+    def _init_mla(self, attn: MLA, normal) -> None:
+        """Random MLA (and indexer) weights at the JAX package's `MLA.init`
+        scales."""
+        cfg = self.cfg
+        H, Hn = cfg.hidden_size, cfg.num_heads
+        L, R = cfg.kv_lora_rank, cfg.qk_rope_head_dim
+        N, V, Q = cfg.qk_nope_head_dim, cfg.v_head_dim, cfg.q_lora_rank
+        std = 0.5 / H ** 0.5
+        if Q is not None:
+            kw = dict(q_a_w=normal((H, Q), std),
+                      q_b_w=normal((Q, Hn * (N + R)), 0.5 / Q ** 0.5),
+                      q_norm=1.0 + normal((Q,), 0.02))
+        else:
+            kw = dict(q_w=normal((H, Hn * (N + R)), std))
+        ix = attn.indexer
+        if ix is not None:
+            kw["indexer"] = dict(
+                wq_b=normal((Q, ix.n_heads * ix.head_dim), 0.5 / Q ** 0.5),
+                wk=normal((H, ix.head_dim), std),
+                k_norm_w=1.0 + normal((ix.head_dim,), 0.02),
+                k_norm_b=normal((ix.head_dim,), 0.02),
+                weights_proj=normal((H, ix.n_heads), std))
+        attn.from_float(normal((H, L + R), std),
+                        normal((L, Hn * (N + V)), 0.5 / L ** 0.5),
+                        normal((Hn * V, H), std), 1.0 + normal((L,), 0.02),
+                        **kw)
 
     @torch.no_grad()
     def load_state(self, state: Dict[str, torch.Tensor]

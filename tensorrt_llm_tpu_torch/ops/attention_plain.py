@@ -41,6 +41,19 @@ def quantize_kv_token(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return q.to(torch.int8), scale
 
 
+def pool_rows(slot_mapping: torch.Tensor, nb: int, h: int, bs: int
+              ) -> torch.Tensor:
+    """Flat row index, in a pool ``[NB, H, BS, D]`` viewed as ``[-1, D]``,
+    of every (token, head) of `slot_mapping` [T], token-major.  Slots past
+    the pool land in reserved page 0."""
+    slots = slot_mapping.to(torch.int64)
+    oob = slots >= nb * bs
+    pages = torch.where(oob, 0, slots // bs)
+    offs = torch.where(oob, 0, slots % bs)
+    heads = torch.arange(h, device=slots.device)[None, :]
+    return ((pages[:, None] * h + heads) * bs + offs[:, None]).reshape(-1)
+
+
 def write_kv_cache(k_cache: Pool, v_cache: Pool, k_new: torch.Tensor,
                    v_new: torch.Tensor, slot_mapping: torch.Tensor) -> None:
     """Scatter new K/V [T, Hkv, D] into the pools at `slot_mapping` [T],
@@ -48,12 +61,7 @@ def write_kv_cache(k_cache: Pool, v_cache: Pool, k_new: torch.Tensor,
     pool copy per step).  Out-of-range slots land in reserved page 0.  An
     INT8 pool takes the quantized rows and their scales at the same rows."""
     nb, h, bs, d = pool_dims(k_cache)
-    slots = slot_mapping.to(torch.int64)
-    oob = slots >= nb * bs
-    pages = torch.where(oob, 0, slots // bs)
-    offs = torch.where(oob, 0, slots % bs)
-    heads = torch.arange(h, device=slots.device)[None, :]
-    rows = ((pages[:, None] * h + heads) * bs + offs[:, None]).reshape(-1)
+    rows = pool_rows(slot_mapping, nb, h, bs)
     for cache, new in ((k_cache, k_new), (v_cache, v_new)):
         if isinstance(cache, tuple):
             data, scale = cache

@@ -75,6 +75,16 @@ _SIGNATURES = {
     "tllm_moe_gmm_units": [_P, _P, _I, _I, _P],
     # x, qweight, scales, zeros, meta, out, M, N, K, group, E, block_n, stream
     "tllm_moe_gmm": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # q, pool, tables, kv_lens, workspace, out, B, H, L, DK, BS, MB, scale,
+    # n_splits, split_len, stream
+    "tllm_mla_decode": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
+                        _I, _I, _P],
+    # q, pool, table, out, T, H, L, DK, BS, MB, kv_len, q_offset, scale,
+    # stream
+    "tllm_mla_prefill": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F,
+                         _P],
+    # q, w, pool, tables, kv_lens, out, B, Hi, Di, BS, MB, stream
+    "tllm_dsa_score": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
 
 

@@ -1,0 +1,205 @@
+"""Multi-head Latent Attention (MLA) over a paged latent cache.
+
+Counterpart of `tensorrt_llm_tpu/ops/mla.py` and `ops/mla_pallas.py`.  The
+cache holds, per token, one latent row of ``L + R`` channels (the
+RMS-normed compressed KV ``c_kv`` of ``L = kv_lora_rank`` channels, then the
+roped shared key ``k_pe`` of ``R = qk_rope_head_dim``) in a pool
+``[NB, 1, BS, L + R]``: one "head" shared by every query head.  Attention
+runs in the absorbed form, MQA with keys of ``L + R`` channels and values
+the first ``L`` channels of the same rows:
+
+    q_eff  = [q_nope @ W_uk, rope(q_pe)]          # [T, H, L+R]
+    out    = softmax(scale * q_eff . cache) . cache[:, :L]     # [T, H, L]
+
+The caller applies W_uv to the latent output.  The pool row is exactly
+``L + R`` = 576 channels wide: the JAX package pads it to 640 for the TPU's
+128-lane tile, a layout the port does not keep.
+
+* `mla_prefill_plain` / `mla_decode_plain` are the plain versions (the JAX
+  package's `mla_prefill_xla` / `mla_decode_xla`); the prefill takes the
+  optional `extra_mask`, with which DSA's sparse prefill restricts each
+  query to its indexer top-k (that masked prefill is plain torch on the card
+  as well, as it is XLA in the JAX package).
+* `mla_decode_attention` (kernel K9, `csrc/mla_decode.cu`) and
+  `mla_prefill_attention` (kernel K10, `csrc/mla_prefill.cu`) take the plain
+  versions for CPU tensors and launch their kernels for CUDA tensors (or
+  raise); they are the counterparts of `mla_decode_pallas` and
+  `mla_prefill_pallas`.  Both kernels scale the f32 scores after the dot,
+  as the plain versions scale q in f32 (the Pallas decode kernel rounds
+  ``q * scale`` to bf16 first; the port does not copy that rounding).
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from tensorrt_llm_tpu_torch.ops import cuda_build
+from tensorrt_llm_tpu_torch.ops.attention_plain import NEG_INF, pool_rows
+
+__all__ = ["write_latent_cache", "mla_prefill_plain", "mla_decode_plain",
+           "mla_decode_attention", "mla_prefill_attention",
+           "mla_decode_splits"]
+
+_SMS = 132
+MLA_ROWS = 16      # query rows of one K9/K10 block (one m16 MMA tile)
+MLA_TILE = 64      # latent tokens staged per step
+_KERNEL_DIMS = ((512, 576),)   # (L, L + R) the kernels are built for
+
+
+def write_latent_cache(cache: torch.Tensor, latents: torch.Tensor,
+                       slot_mapping: torch.Tensor) -> None:
+    """Scatter latent rows [T, L+R] (``c_kv`` then roped ``k_pe``) into the
+    pool [NB, 1, BS, L+R] at `slot_mapping` [T], IN PLACE (the JAX version
+    returns a new pool).  Slots past the pool land in reserved page 0."""
+    nb, h, bs, d = cache.shape
+    rows = pool_rows(slot_mapping, nb, h, bs)
+    cache.view(-1, d).index_copy_(0, rows, latents.to(cache.dtype))
+
+
+def _softmax_latent(scores, mask, lat, q_dtype, eq):
+    probs = torch.softmax(torch.where(mask, scores, NEG_INF), dim=-1)
+    return torch.einsum(eq, probs, lat).to(q_dtype)
+
+
+def mla_prefill_plain(q_eff: torch.Tensor, cache: torch.Tensor,
+                      block_table: torch.Tensor, kv_len, q_offset,
+                      scale: float, kv_lora_rank: int,
+                      extra_mask: Optional[torch.Tensor] = None
+                      ) -> torch.Tensor:
+    """Chunked-prefill MLA for one sequence: q_eff [T, H, L+R] at positions
+    q_offset.. against its latents through block_table [MB] (the chunk is
+    already written).  `extra_mask` [T, MB*BS] bool further restricts the
+    keys: DSA's sparse prefill, which runs this plain version on the card
+    too, as the JAX package runs `mla_prefill_xla` for it.  Returns
+    [T, H, L]."""
+    T = q_eff.shape[0]
+    dk = cache.shape[-1]
+    kvf = cache[block_table.long()][:, 0].reshape(-1, dk).to(torch.float32)
+    S = kvf.shape[0]
+    qf = q_eff.to(torch.float32) * scale
+    scores = torch.einsum("thd,sd->hts", qf, kvf)
+    kv_pos = torch.arange(S, device=q_eff.device)[None, :]
+    q_pos = q_offset + torch.arange(T, device=q_eff.device)[:, None]
+    mask = (kv_pos <= q_pos) & (kv_pos < kv_len)
+    if extra_mask is not None:
+        mask = mask & extra_mask
+    return _softmax_latent(scores, mask[None], kvf[:, :kv_lora_rank],
+                           q_eff.dtype, "hts,sl->thl")
+
+
+def mla_decode_plain(q_eff: torch.Tensor, cache: torch.Tensor,
+                     block_tables: torch.Tensor, kv_lens: torch.Tensor,
+                     scale: float, kv_lora_rank: int) -> torch.Tensor:
+    """Batched decode MLA: q_eff [B, H, L+R], one new token per sequence,
+    against the latents of block_tables [B, MB] up to kv_lens [B] (which
+    include the new token).  Returns [B, H, L]."""
+    B = q_eff.shape[0]
+    dk = cache.shape[-1]
+    kvf = cache[block_tables.long()][:, :, 0].reshape(B, -1, dk).to(
+        torch.float32)
+    S = kvf.shape[1]
+    qf = q_eff.to(torch.float32) * scale
+    scores = torch.einsum("bhd,bsd->bhs", qf, kvf)
+    mask = torch.arange(S, device=q_eff.device)[None, None, :] \
+        < kv_lens.to(q_eff.device).long()[:, None, None]
+    return _softmax_latent(scores, mask, kvf[..., :kv_lora_rank],
+                           q_eff.dtype, "bhs,bsl->bhl")
+
+
+def mla_decode_splits(B: int, H: int, table_tokens: int):
+    """(n_splits, split_len) of K9: latent splits per (sequence, 16-head
+    block), enough blocks to cover the 132 SMs once (a block holds ~170 KB
+    of shared memory, so one fits an SM), sized from the table width since
+    kv_lens stay on the device; splits are whole 64-token tiles."""
+    blocks = B * -(-H // MLA_ROWS)
+    n = max(1, min(-(-_SMS // max(blocks, 1)),
+                   -(-table_tokens // MLA_TILE)))
+    split_len = -(-table_tokens // n)
+    split_len = -(-split_len // MLA_TILE) * MLA_TILE
+    return -(-table_tokens // split_len), split_len
+
+
+def _check(name, t, dt, dev):
+    if t.device != dev or t.dtype != dt or not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous {dt} on {dev}")
+
+
+def _kernel_operands(q_eff, cache, kv_lora_rank):
+    if q_eff.device.type != "cuda":
+        raise ValueError(f"unsupported device {q_eff.device}")
+    dev = q_eff.device
+    _check("q_eff", q_eff, torch.bfloat16, dev)
+    _check("cache", cache, torch.bfloat16, dev)
+    if cache.dim() != 4 or cache.shape[1] != 1:
+        raise ValueError("cache must be a latent pool [NB, 1, BS, L+R]")
+    dk = q_eff.shape[-1]
+    if (kv_lora_rank, dk) not in _KERNEL_DIMS or cache.shape[-1] != dk:
+        raise NotImplementedError(
+            f"MLA kernels are built for (L, L+R) in {_KERNEL_DIMS}: got "
+            f"L={kv_lora_rank}, q {dk}, pool {cache.shape[-1]}")
+    return cache.shape[0], cache.shape[2], dk
+
+
+def mla_decode_attention(q_eff: torch.Tensor, cache: torch.Tensor,
+                         block_tables: torch.Tensor, kv_lens: torch.Tensor,
+                         scale: float, kv_lora_rank: int) -> torch.Tensor:
+    """Decode MLA (see `mla_decode_plain`): the plain version for CPU
+    tensors, kernel K9 for CUDA tensors."""
+    if q_eff.device.type == "cpu":
+        return mla_decode_plain(q_eff, cache, block_tables, kv_lens, scale,
+                                kv_lora_rank)
+    NB, BS, DK = _kernel_operands(q_eff, cache, kv_lora_rank)
+    B, H, _ = q_eff.shape
+    _check("block_tables", block_tables, torch.int32, q_eff.device)
+    _check("kv_lens", kv_lens, torch.int32, q_eff.device)
+    MB = block_tables.shape[1]
+    if block_tables.shape[0] != B or kv_lens.shape != (B,):
+        raise ValueError("table or kv_lens shape mismatch")
+    L = kv_lora_rank
+    out = torch.empty((B, H, L), dtype=q_eff.dtype, device=q_eff.device)
+    if B == 0:
+        return out
+    n_splits, split_len = mla_decode_splits(B, H, MB * BS)
+    ws = torch.empty((B * H * n_splits * (L + 2),), dtype=torch.float32,
+                     device=q_eff.device)
+    lib = cuda_build.load_library()
+    err = lib.tllm_mla_decode(
+        cuda_build.ptr(q_eff), cuda_build.ptr(cache),
+        cuda_build.ptr(block_tables), cuda_build.ptr(kv_lens),
+        cuda_build.ptr(ws), cuda_build.ptr(out), B, H, L, DK, BS, MB,
+        float(scale), n_splits, split_len, cuda_build.stream_of(q_eff))
+    cuda_build.check(err, "mla_decode")
+    cuda_build.launch_counts["mla_decode"] += 1
+    return out
+
+
+def mla_prefill_attention(q_eff: torch.Tensor, cache: torch.Tensor,
+                          block_table: torch.Tensor, kv_len: int,
+                          q_offset: int, scale: float,
+                          kv_lora_rank: int) -> torch.Tensor:
+    """Chunked-prefill MLA for one sequence (see `mla_prefill_plain`,
+    without `extra_mask`): the plain version for CPU tensors, kernel K10
+    for CUDA tensors.  `kv_len` and `q_offset` are host ints."""
+    if q_eff.device.type == "cpu":
+        return mla_prefill_plain(q_eff, cache, block_table, kv_len, q_offset,
+                                 scale, kv_lora_rank)
+    NB, BS, DK = _kernel_operands(q_eff, cache, kv_lora_rank)
+    T, H, _ = q_eff.shape
+    _check("block_table", block_table, torch.int32, q_eff.device)
+    if block_table.dim() != 1:
+        raise ValueError("block_table must be [MB]")
+    L = kv_lora_rank
+    out = torch.empty((T, H, L), dtype=q_eff.dtype, device=q_eff.device)
+    if T == 0:
+        return out
+    lib = cuda_build.load_library()
+    err = lib.tllm_mla_prefill(
+        cuda_build.ptr(q_eff), cuda_build.ptr(cache),
+        cuda_build.ptr(block_table), cuda_build.ptr(out), T, H, L, DK, BS,
+        block_table.shape[0], int(kv_len), int(q_offset), float(scale),
+        cuda_build.stream_of(q_eff))
+    cuda_build.check(err, "mla_prefill")
+    cuda_build.launch_counts["mla_prefill"] += 1
+    return out

@@ -2,9 +2,12 @@
 
 Counterpart of `tensorrt_llm_tpu/ops/rope.py`: base frequencies with
 llama3 and YaRN scaling.  YaRN (NTK-by-parts ramp, with HF's `truncate`
-flag) folds its attention factor into the cos and sin tables, as the JAX
-package and HF do.  mrope, partial rotary and the interleaved layout belong
-to later slices.
+flag, DeepSeek's `mscale` / `mscale_all_dim` ratio) folds its attention
+factor into the cos and sin tables, as the JAX package and HF do.  The
+interleaved input layout (adjacent pairs, DeepSeek's MLA q_pe / k_pe) is
+de-interleaved before the rotation and stays de-interleaved, as HF's
+`apply_rotary_pos_emb_interleave` leaves it.  mrope and partial rotary
+belong to later slices.
 """
 
 from __future__ import annotations
@@ -34,6 +37,8 @@ class RopeConfig:
     mscale_all_dim: Optional[float] = None
     attention_factor: Optional[float] = None
     truncate: bool = True
+    # DeepSeek checkpoints store rope pairs interleaved (x0, y0, x1, y1, ...)
+    interleaved: bool = False
 
 
 def _base_inv_freq(cfg: RopeConfig) -> torch.Tensor:
@@ -114,14 +119,20 @@ def make_rope_tables(cfg: RopeConfig) -> Tuple[torch.Tensor, torch.Tensor]:
 
 
 def apply_rope(q: torch.Tensor, k: torch.Tensor, positions: torch.Tensor,
-               cos_table: torch.Tensor, sin_table: torch.Tensor
+               cos_table: torch.Tensor, sin_table: torch.Tensor,
+               interleaved: bool = False
                ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Rotate q [T, H, D] and k [T, Hkv, D] at `positions` [T], in f32."""
+    """Rotate q [T, H, D] and k [T, Hkv, D] at `positions` [T], in f32.
+    `interleaved`: the pairs are adjacent (x0, y0, x1, y1, ...); they are
+    de-interleaved first and the output keeps the de-interleaved order."""
     half = cos_table.shape[-1]
     cos = cos_table[positions][:, None, :]
     sin = sin_table[positions][:, None, :]
 
     def rotate(x):
+        if interleaved:
+            s = x.shape
+            x = x.reshape(*s[:-1], half, 2).transpose(-1, -2).reshape(s)
         x1 = x[..., :half].to(torch.float32)
         x2 = x[..., half:2 * half].to(torch.float32)
         out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)

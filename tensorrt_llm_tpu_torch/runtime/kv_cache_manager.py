@@ -11,8 +11,12 @@ Device pools, per layer, are K and V tensors of the logical head-major
 layout ``[num_blocks, num_kv_heads, block_size, head_dim]``: bf16, or for an
 INT8 cache (``kv_quant``) a pair of int8 data and f32 per-(token, head)
 scales ``[num_blocks, num_kv_heads, block_size]`` indexed by the same block
-ids, so a reused block carries its scales.  The TPU's lane-packed view for
-head dims below 128 is a TPU layout and is not kept.
+ids, so a reused block carries its scales.  Under MLA (``layout="latent"``)
+a layer has ONE bf16 pool ``[num_blocks, 1, block_size, L + R]`` of latent
+rows, and under DSA (``dsa_index_dim``) the pair (latent pool, indexer-key
+pool ``[num_blocks, 1, block_size, index_head_dim]``), as in the JAX
+package.  The TPU's lane-packed view for head dims below 128, and its
+latent width rounded up to 640, are TPU layouts and are not kept.
 
 Not in this slice: the native (C++) bookkeeping, partial tail-block reuse,
 beam forks, the host-memory tier and connector, KV events, VSWA rings and
@@ -23,7 +27,7 @@ from __future__ import annotations
 
 import collections
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional
 
 import torch
 
@@ -38,21 +42,42 @@ class KVCacheConfig:
     free_mem_fraction: float = 0.85
     enable_block_reuse: bool = True
     kv_quant: KvCacheQuantAlgo = KvCacheQuantAlgo.NONE
+    # set from the model, not by the user: "kv" (K and V pools per layer)
+    # or "latent" (one MLA pool per layer), plus the DSA indexer's width
+    layout: str = "kv"
+    dsa_index_dim: int = 0
 
     def __post_init__(self):
         self.kv_quant = KvCacheQuantAlgo(self.kv_quant)
         if self.kv_quant == KvCacheQuantAlgo.FP8:
             raise NotImplementedError("FP8 KV pools are not in the port yet")
+        if self.layout not in ("kv", "latent"):
+            raise ValueError(f"unknown KV layout {self.layout!r}")
+        if self.layout == "latent" and self.kv_quant != KvCacheQuantAlgo.NONE:
+            raise NotImplementedError("quantized latent (MLA) pools are not "
+                                      "in the port yet")
 
 
 def make_pools(num_layers: int, num_blocks: int, num_kv_heads: int,
                block_size: int, head_dim: int,
                kv_quant: KvCacheQuantAlgo = KvCacheQuantAlgo.NONE,
-               device="cuda") -> list:
-    """Zeroed (K, V) pools per layer: bf16 ``[NB, Hkv, BS, D]``, or for INT8
+               device="cuda", layout: str = "kv",
+               dsa_index_dim: int = 0) -> list:
+    """Zeroed pools per layer: (K, V) bf16 ``[NB, Hkv, BS, D]``, or for INT8
     ``((k int8 [NB, Hkv, BS, D], k_scale f32 [NB, Hkv, BS]), (v, v_scale))``
-    as the JAX package allocates them (logical layout, never lane-packed)."""
+    as the JAX package allocates them (logical layout, never lane-packed);
+    for the latent layout one bf16 pool ``[NB, 1, BS, D]``, paired with the
+    indexer pool ``[NB, 1, BS, dsa_index_dim]`` under DSA."""
     shape = (num_blocks, num_kv_heads, block_size, head_dim)
+    if layout == "latent":
+        def latent():
+            lat = torch.zeros(shape, dtype=torch.bfloat16, device=device)
+            if not dsa_index_dim:
+                return lat
+            return (lat, torch.zeros((num_blocks, 1, block_size,
+                                      dsa_index_dim), dtype=torch.bfloat16,
+                                     device=device))
+        return [latent() for _ in range(num_layers)]
 
     def pool():
         if KvCacheQuantAlgo(kv_quant) == KvCacheQuantAlgo.INT8:
@@ -61,6 +86,23 @@ def make_pools(num_layers: int, num_blocks: int, num_kv_heads: int,
         return torch.zeros(shape, dtype=torch.bfloat16, device=device)
 
     return [(pool(), pool()) for _ in range(num_layers)]
+
+
+def pool_layout(cfg) -> dict:
+    """The pool geometry a model config needs (`ModelConfig`'s fields):
+    ``num_kv_heads``, ``head_dim``, ``layout`` and ``dsa_index_dim``."""
+    dsa = cfg.dsa
+    return dict(num_kv_heads=cfg.kv_pool_heads, head_dim=cfg.kv_pool_dim,
+                layout="latent" if cfg.is_mla else "kv",
+                dsa_index_dim=int(dsa["index_head_dim"]) if dsa else 0)
+
+
+def model_pools(cfg, num_blocks: int, block_size: int,
+                kv_quant: KvCacheQuantAlgo = KvCacheQuantAlgo.NONE,
+                device="cuda") -> list:
+    """`make_pools` for a model config's layers (GQA or MLA)."""
+    return make_pools(cfg.num_layers, num_blocks, block_size=block_size,
+                      kv_quant=kv_quant, device=device, **pool_layout(cfg))
 
 
 class SequenceInfo:
@@ -224,23 +266,28 @@ class KVCacheManager:
         self._bk = _PyBookkeeping(num_blocks, cfg.block_size,
                                   cfg.enable_block_reuse)
 
-    def allocate_pools(self) -> List[Tuple]:
-        """Zeroed K and V pools per layer (`make_pools`)."""
+    def allocate_pools(self) -> List:
+        """Zeroed pools per layer (`make_pools`)."""
         return make_pools(self.num_layers, self.num_blocks,
                           self.num_kv_heads, self.block_size, self.head_dim,
-                          self.cfg.kv_quant, self.device)
+                          self.cfg.kv_quant, self.device, self.cfg.layout,
+                          self.cfg.dsa_index_dim)
 
     @staticmethod
     def blocks_from_memory(bytes_budget: int, num_layers: int,
                            num_kv_heads: int, head_dim: int, block_size: int,
-                           dtype_bytes: int = 2,
+                           dtype_bytes: int = 2, num_pools: int = 2,
+                           extra_dims: int = 0,
                            scale_pools: bool = False) -> int:
-        """scale_pools: an INT8 cache adds an f32 scale per (token, head)
-        to each of its K and V pools."""
-        per_block = 2 * num_layers * block_size * num_kv_heads * head_dim \
-            * dtype_bytes
+        """num_pools: 2 for K and V, 1 for the MLA latent layout.
+        extra_dims: per-token channels of a layer's side pool (the DSA
+        indexer's keys).  scale_pools: an INT8 cache adds an f32 scale per
+        (token, head) to each pool."""
+        per_block = num_pools * num_layers * block_size * num_kv_heads \
+            * head_dim * dtype_bytes
+        per_block += num_layers * block_size * extra_dims * dtype_bytes
         if scale_pools:
-            per_block += 2 * num_layers * block_size * num_kv_heads * 4
+            per_block += num_pools * num_layers * block_size * num_kv_heads * 4
         return max(int(bytes_budget // per_block), 16)
 
     @property

@@ -167,9 +167,16 @@ def test_moe_rejects_cut_features():
     from tensorrt_llm_tpu_torch.models import ModelConfig
     mixtral = dict(architectures=["MixtralForCausalLM"], num_local_experts=4)
     ModelConfig.from_hf_config(dict(mixtral, n_group=1, mlp_only_layers=[]))
-    for cut in (dict(n_shared_experts=1), dict(scoring_func="sigmoid"),
-                dict(n_group=2, topk_group=2), dict(decoder_sparse_step=2),
-                dict(mlp_only_layers=[0])):
+    # shared experts, grouped routing and dense-only layers are in the port
+    # since the DeepSeek slice; a non-DeepSeek config keeps softmax routing
+    cfg = ModelConfig.from_hf_config(dict(
+        mixtral, n_shared_experts=1, n_group=2, topk_group=2,
+        mlp_only_layers=[0]))
+    assert (cfg.n_shared_experts, cfg.n_group, cfg.mlp_only_layers,
+            cfg.moe_score_func) == (1, 2, (0,), "softmax")
+    for cut in (dict(scoring_func="sigmoid"), dict(topk_method="noaux_tc"),
+                dict(decoder_sparse_step=2),
+                dict(shared_expert_intermediate_size=512)):
         with pytest.raises(NotImplementedError):
             ModelConfig.from_hf_config(dict(mixtral, **cut))
     with pytest.raises(NotImplementedError):

@@ -8,7 +8,7 @@ import torch
 
 from tensorrt_llm_tpu_torch.attention_backend import AttentionMetadata
 from tensorrt_llm_tpu_torch.models import get_model_class
-from tensorrt_llm_tpu_torch.runtime.kv_cache_manager import make_pools
+from tensorrt_llm_tpu_torch.runtime.kv_cache_manager import model_pools
 
 
 def jax_generate(jl, prompts, sampling_params):
@@ -46,8 +46,7 @@ def port_logits(cfg, params, tokens, block_size=8, kv_quant="NONE"):
     m = get_model_class(cfg.architecture)(cfg, "cpu").load_state(params)
     n = len(tokens)
     blocks = list(range(1, -(-n // block_size) + 1))
-    caches = make_pools(cfg.num_layers, len(blocks) + 1, cfg.num_kv_heads,
-                        block_size, cfg.head_dim, kv_quant, "cpu")
+    caches = model_pools(cfg, len(blocks) + 1, block_size, kv_quant, "cpu")
     meta = AttentionMetadata(
         positions=torch.arange(n), mode="prefill", q_offset=0,
         slot_mapping=torch.tensor([blocks[p // block_size] * block_size
