@@ -6,54 +6,65 @@
 Phases (any failure exits nonzero; nothing is caught and ignored):
 
 1. the card's name and power limit (nvidia-smi);
-2. build the eleven CUDA kernels from `tensorrt_llm_tpu_torch/csrc`;
+2. build the fourteen CUDA kernels from `tensorrt_llm_tpu_torch/csrc`;
 3. hold each kernel against its plain PyTorch version on the card at
    TinyLlama-1.1B, Llama-3-8B, GPT-OSS-20B, Mixtral-8x7B, Moonlight-16B-A3B
    and DeepSeek-V3/V3.2 shapes, and time kernel, plain version and one
    library call; one JSON line per kernel and shape (the INT8-KV attention
    kernels on freshly quantized int8 pools, the W4A8 GEMM at Llama-3-8B's
    projections, the MLA kernels at 16 and 128 heads, the DSA scores at
-   V3.2's indexer);
+   V3.2's indexer, the K-paired GEMM at GPT-OSS o_proj and Moonlight/V3.2
+   kv_a, the ramp GEMM at TinyLlama/Llama-3-8B projections, the fused
+   gated MLP at TinyLlama/Llama-3-8B MLPs with the unfused sequence as its
+   yardstick and its grid barriers timed);
 4. serve 8 greedy requests with `LLM.generate` on the full-width TinyLlama
-   W4A16 model (random weights from a seed), with launch counters reset
-   just before and read just after;
-5. the same weights at full width and 2 layers on the card and on the CPU
+   W4A16 model (random weights from a seed); every serve phase builds its
+   `LLM` with the default warmup (the W4A16 autotuner prints each shape's
+   candidates, device times and winner), resets the launch counters just
+   before the run and reads them just after, and no W4A16 weight may be
+   repacked;
+5. the same model with a tactic file that sets the ramp variant for every
+   tiled shape: K13 three times per layer per forward, greedy tokens equal
+   to phase 4's (or differing first at a near-tie);
+6. the fused gated MLP op on all 22 TinyLlama MLPs at 4 and 200 rows,
+   against each layer's unfused forward;
+7. the same weights at full width and 2 layers on the card and on the CPU
    (plain versions): logits and greedy tokens must agree;
-6. a short `LLM.generate` run at Llama-3-8B width (2 layers), so that the
+8. a short `LLM.generate` run at Llama-3-8B width (2 layers), so that the
    attention kernels run at head dim 128 inside the model;
-7. serve 8 greedy requests with `LLM.generate` on GPT-OSS-20B at full
-   width and depth, W4A16 group 64 (MoE experts on K5, sinks, window 128,
-   YaRN), counters reset just before and read just after;
-8. GPT-OSS-20B width at 2 layers (sliding then full) on the card and on
+9. serve the 8 requests on GPT-OSS-20B at full width and depth, W4A16
+   group 64 (MoE experts on K5, o_proj K-paired on K12 once per layer per
+   forward, sinks, window 128, YaRN);
+10. GPT-OSS-20B width at 2 layers (sliding then full) on the card and on
    the CPU: logits and greedy tokens must agree;
-9. serve the same 8 requests on Llama-3-8B at full width and depth,
-   W4A8_AWQ group 128 with an INT8 KV cache (K6/K7 attention, K8 for all
-   four projections), counters reset just before and read just after;
-10. Llama-3-8B W4A8 + INT8 KV at 2 layers on the card and on the CPU:
+11. serve them on Llama-3-8B at full width and depth, W4A8_AWQ group 128
+   with an INT8 KV cache (K6/K7 attention, K8 for all four projections);
+12. Llama-3-8B W4A8 + INT8 KV at 2 layers on the card and on the CPU:
    logits and greedy tokens must agree;
-11. serve the same 8 requests on Moonlight-16B-A3B at full width and depth
-   (27 layers, dense MLA on K9/K10, 26 MoE layers on K5 with shared
-   experts and noaux_tc routing), counters reset just before and read just
-   after;
-12. serve them, plus one 3,000-token prompt (past `index_topk` 2048), on
+13. serve them on Moonlight-16B-A3B at full width and depth (27 layers,
+   dense MLA on K9/K10, kv_a on K12, 26 MoE layers on K5 with shared
+   experts and noaux_tc routing);
+14. serve them, plus one 3,000-token prompt (past `index_topk` 2048), on
    DeepSeek-V3.2 widths at 4 layers (DSA: K11 scores every decode step,
-   the sparse attention is plain torch; layer 3 is a 256-expert MoE);
-13. a short `LLM.generate` at DeepSeek-V3 width (2 dense layers) so that
+   the sparse attention is plain torch; kv_a on K12; layer 3 is a
+   256-expert MoE);
+15. a short `LLM.generate` at DeepSeek-V3 width (2 dense layers) so that
    K9/K10 run at 128 heads inside the model;
-14. Moonlight and V3.2 widths at 2 layers (V3.2 with `index_topk` 128, below
+16. Moonlight and V3.2 widths at 2 layers (V3.2 with `index_topk` 128, below
    the prompt) on the card and on the CPU: logits and greedy tokens must
    agree.
 
-Arguments pick phases (default: check serve cross llama3 gptoss
-gptoss_cross llama3_w4a8 llama3_w4a8_cross deepseek deepseek_v32
-deepseek_v3_width deepseek_cross); `check_moe` runs only K5's checks,
-`check_int8` only K6-K8's and `check_mla` only K9-K11's; `profile`,
+Arguments pick phases (default: check serve serve_ramp fused_mlp cross
+llama3 gptoss gptoss_cross llama3_w4a8 llama3_w4a8_cross deepseek
+deepseek_v32 deepseek_v3_width deepseek_cross); `check_moe` runs only K5's
+checks, `check_int8` only K6-K8's, `check_mla` only K9-K11's and
+`check_w4a16` only K12-K14's; `profile`,
 `profile_gptoss`, `profile_llama3_int8` and `profile_deepseek`, run only
 when named, trace a short serve window with torch.profiler;
-`cross_breakdown`, run only when named, repeats phase 10 with W4A16
+`cross_breakdown`, run only when named, repeats phase 12 with W4A16
 weights and with bf16 KV pools to split its logit gap;
 `dsa_cross_breakdown`, run only when named, repeats the V3.2 part of
-phase 14 at a covering top-k and at 128 and counts where the card's and
+phase 16 at a covering top-k and at 128 and counts where the card's and
 the CPU's top-k selections differ.
 `--json PATH` also writes every check and phase summary to PATH.
 
@@ -87,9 +98,9 @@ GEMM_SHAPES = {"tinyllama": [(2048, 2560), (2048, 2048), (2048, 11264),
                              (5632, 2048)],
                "llama-3-8b": [(4096, 6144), (4096, 4096), (4096, 28672),
                               (14336, 4096)],
-               # QKV and o; o's N=2880 has no 128-multiple tile, so it is
-               # K-paired and repacked to 64-wide tiles, as the model loads it
-               "gpt-oss-20b": [(2880, 5120), (4096, 2880)]}
+               # QKV (o's N = 2880 has no 128-multiple tile: K-paired, on
+               # K12, checked in check_w4a16)
+               "gpt-oss-20b": [(2880, 5120)]}
 GEMM_GROUP = {"gpt-oss-20b": 64}          # others: 128
 GEMM_M = (1, 4, 8, 16, 256, 512)
 # (K, N, E, G) of the expert gate_up and down products
@@ -140,6 +151,26 @@ DECODE_CASES = [
 DECODE_INT8_CASES = [c for c in DECODE_CASES if c[0] == "llama-3-8b"] + [
     ("tinyllama", 32, 4, 64, [81, 150, 400, 664], None, None, False)]
 W4A8_MODEL = "llama-3-8b"       # K8's (K, N) come from GEMM_SHAPES
+# K12: (model, weight, K, N, G) of the K-paired weights on the serve paths
+# (N % 128 != 0), and one per-channel case (G = -1)
+KPAIRED_SHAPES = [("gpt-oss-20b", "o_proj", 4096, 2880, 64),
+                  ("moonlight-16b-a3b", "kv_a", 2048, 576, 128),
+                  ("deepseek-v3.2", "kv_a", 7168, 576, 128),
+                  ("moonlight-16b-a3b", "kv_a", 2048, 576, -1)]
+KPAIRED_M = (1, 4, 16, 256)
+KPAIRED_EXTRA_M = (4, 256)      # zero points, bias and silu
+# K13: the projections with K % 1024 == 0 (model, K, N), decode and a
+# 256-token chunk; schedules from ramp_schedule (K 2048: two steps of one
+# slab, K 4096: one slab then three) and with ramp_bk0 2048 (K 2048: one
+# step of two slabs, K 4096: two steps of two)
+RAMP_SHAPES = [("tinyllama", 2048, 2560), ("tinyllama", 2048, 2048),
+               ("tinyllama", 2048, 11264), ("llama-3-8b", 4096, 6144),
+               ("llama-3-8b", 4096, 4096), ("llama-3-8b", 4096, 28672)]
+RAMP_M = (4, 16, 256)
+# K14: (model, K, I) gated MLPs
+FUSED_SHAPES = [("tinyllama", 2048, 5632), ("llama-3-8b", 4096, 14336)]
+FUSED_M = (1, 4, 16, 64, 200)
+FUSED_ZEROS_M = (4, 64)         # zero points and biases
 
 
 def log(*a):
@@ -191,16 +222,13 @@ def check_gemm(gen, dev):
     import torch
     from tensorrt_llm_tpu_torch.ops import w4a16_gemm as W
     from tensorrt_llm_tpu_torch.quantization import (
-        choose_block_n, dequantize_w4_any, pack_group_for, pack_w4,
-        pack_w4_tiled, quantize_w4, to_tiled)
+        choose_block_n, dequantize_w4_any, pack_w4_tiled, quantize_w4)
     for model, kns in GEMM_SHAPES.items():
         G = GEMM_GROUP.get(model, 128)
         for K, N in kns:
             w = torch.randn((K, N), generator=gen, device=dev) * 0.02
             q, s, _ = quantize_w4(w, G)
-            bn = choose_block_n(N)
-            packed = (pack_w4_tiled(q, bn) if bn else to_tiled(
-                pack_w4(q, pack_group_for(K, s.shape[0])), s))
+            packed = pack_w4_tiled(q, choose_block_n(N))
             s = s.to(torch.bfloat16)
             wq_bytes = packed.numel() + s.numel() * 2
             n_copy = copies_for(wq_bytes)
@@ -242,6 +270,189 @@ def check_gemm(gen, dev):
                               "act": act, "zeros_bias": extras}, err, tol,
                        k_ms, p_ms, l_ms, bound_ms(nbytes, 2 * M * N * K))
             del ws, lib_w, wdq
+            torch.cuda.empty_cache()
+
+
+def _w4_weight(gen, dev, K, N, G, kpaired, symmetric=True):
+    """A random [K, N] weight quantized W4A16 (bf16 scales and zeros),
+    K-paired or tiled as the model would store it."""
+    import torch
+    from tensorrt_llm_tpu_torch.quantization import (
+        choose_block_n, pack_group_for, pack_w4, pack_w4_tiled, quantize_w4)
+    w = torch.randn((K, N), generator=gen, device=dev) * 0.02
+    q, s, z = quantize_w4(w, G, symmetric=symmetric)
+    packed = (pack_w4(q, pack_group_for(K, s.shape[0])) if kpaired
+              else pack_w4_tiled(q, choose_block_n(N)))
+    return (packed, s.to(torch.bfloat16),
+            None if z is None else z.to(torch.bfloat16))
+
+
+def _check_w4_case(name, shape, fn, x, packed, s, z, b, act, lib_w):
+    """One W4A16 kernel against `w4a16_matmul_plain`, timed with its
+    operands rotated past L2; the library yardstick (torch.matmul on the
+    dequantized bf16 weight) only without extras."""
+    import torch
+    from tensorrt_llm_tpu_torch.ops import w4a16_gemm as W
+    out = fn(x, packed, s, z, b, act)
+    ref = W.w4a16_matmul_plain(x, packed, s, z, b, act)
+    torch.cuda.synchronize()
+    err = (out.float() - ref.float()).abs().max().item()
+    # the plain version rounds each dequantized weight to bf16 (2^-9
+    # relative), the kernel scales the f32 partial; both round the output
+    # to bf16: 2% of the largest output (check_gemm's tolerance)
+    tol = 2e-2 * ref.float().abs().max().item()
+    wq_bytes = packed.numel() + s.numel() * 2 * (1 if z is None else 2)
+    ws = [(packed.clone(), s.clone(), None if z is None else z.clone())
+          for _ in range(copies_for(wq_bytes))]
+    k_ms = cuda_ms([lambda p=p, sc=sc, zz=zz: fn(x, p, sc, zz, b, act)
+                    for p, sc, zz in ws], 30)
+    del ws
+    p_ms = cuda_ms([lambda: W.w4a16_matmul_plain(x, packed, s, z, b, act)],
+                   5)
+    l_ms = (cuda_ms([lambda lw=lw: torch.matmul(x, lw) for lw in lib_w], 30)
+            if act is None and z is None else None)
+    M, K = x.shape
+    N = s.shape[1]
+    nbytes = (M * K * 2 + wq_bytes + M * N * 2
+              + (0 if b is None else N * 4))
+    record(name, shape, err, tol, k_ms, p_ms, l_ms,
+           bound_ms(nbytes, 2 * M * N * K))
+
+
+def check_w4a16(gen, dev):
+    """K12 (K-paired), K13 (ramp) and K14 (fused gated MLP) against their
+    plain versions at the serve paths' shapes."""
+    import functools
+    import torch
+    import torch.nn.functional as Fn
+    from tensorrt_llm_tpu_torch.ops import w4a16_fused as FM
+    from tensorrt_llm_tpu_torch.ops import w4a16_gemm as W
+    from tensorrt_llm_tpu_torch.quantization import dequantize_w4_any
+
+    def lib_weights(packed, s):
+        wdq = dequantize_w4_any(packed, s).to(torch.bfloat16)
+        return [wdq] + [wdq.clone()
+                        for _ in range(copies_for(wdq.numel() * 2) - 1)]
+
+    def rand_x(M, K):
+        return torch.randn((M, K), generator=gen, device=dev).to(
+            torch.bfloat16)
+
+    for model, what, K, N, G in KPAIRED_SHAPES:
+        packed, s, _ = _w4_weight(gen, dev, K, N, G, kpaired=True)
+        lib_w = lib_weights(packed, s)
+        Gp = W.pack_group_for(K, s.shape[0])
+        for M in KPAIRED_M:
+            bk = W.kpaired_block_k(M, K, N, Gp)
+            _check_w4_case(
+                "w4a16_kpaired", {"model": model, "weight": what, "M": M,
+                                  "K": K, "N": N, "G": G if G > 0 else K,
+                                  "block_k": bk, "zeros_bias": False},
+                W.w4a16_kpaired, rand_x(M, K), packed, s, None, None, None,
+                lib_w)
+        del lib_w
+        zpacked, zs, zz = _w4_weight(gen, dev, K, N, G, kpaired=True,
+                                     symmetric=False)
+        b = torch.randn((N,), generator=gen, device=dev)
+        for M in KPAIRED_EXTRA_M:
+            _check_w4_case(
+                "w4a16_kpaired", {"model": model, "weight": what, "M": M,
+                                  "K": K, "N": N, "G": G if G > 0 else K,
+                                  "block_k": W.kpaired_block_k(M, K, N, Gp),
+                                  "zeros_bias": True, "act": "silu"},
+                W.w4a16_kpaired, rand_x(M, K), zpacked, zs, zz, b, "silu",
+                None)
+        torch.cuda.empty_cache()
+
+    for i, (model, K, N) in enumerate(RAMP_SHAPES):
+        packed, s, _ = _w4_weight(gen, dev, K, N, 128, kpaired=False)
+        lib_w = lib_weights(packed, s)
+        plans = [W.ramp_schedule(K)]
+        if i in (2, 5):         # gate_up: also ramp_bk0 = 2048
+            plans.append(W.ramp_schedule(K, 2048))
+        for sched in plans:
+            fn = functools.partial(W.w4a16_ramp, schedule=sched)
+            for M in RAMP_M:
+                _check_w4_case(
+                    "w4a16_ramp", {"model": model, "M": M, "K": K, "N": N,
+                                   "G": 128, "schedule": list(sched),
+                                   "zeros_bias": False},
+                    fn, rand_x(M, K), packed, s, None, None, None, lib_w)
+        del lib_w
+        if i in (0, 3):         # zero points, bias and silu
+            zpacked, zs, zz = _w4_weight(gen, dev, K, N, 128, kpaired=False,
+                                         symmetric=False)
+            b = torch.randn((N,), generator=gen, device=dev)
+            _check_w4_case(
+                "w4a16_ramp", {"model": model, "M": 16, "K": K, "N": N,
+                               "G": 128, "schedule": list(W.ramp_schedule(K)),
+                               "zeros_bias": True, "act": "silu"},
+                functools.partial(W.w4a16_ramp), rand_x(16, K), zpacked, zs,
+                zz, b, "silu", None)
+        torch.cuda.empty_cache()
+
+    for model, K, I in FUSED_SHAPES:
+        for zp in (False, True):
+            gp, gs, gz = _w4_weight(gen, dev, K, 2 * I, 128, False, not zp)
+            dp, ds, dz = _w4_weight(gen, dev, I, K, 128, False, not zp)
+            gb = (torch.randn((2 * I,), generator=gen, device=dev) * 0.1
+                  if zp else None)
+            db = (torch.randn((K,), generator=gen, device=dev) * 0.1
+                  if zp else None)
+            ops = (gp, gs, dp, ds, gz, dz, gb, db)
+            wq_bytes = (gp.numel() + dp.numel()
+                        + (gs.numel() + ds.numel()) * 2 * (2 if zp else 1))
+            copies = [tuple(None if t is None else t.clone() for t in ops)
+                      for _ in range(copies_for(wq_bytes) - 1)] + [ops]
+
+            def unfused(x, o):
+                gu = W.w4a16_matmul(x, o[0], o[1], o[4], o[6])
+                h = (Fn.silu(gu[:, :I].float()) * gu[:, I:].float()).to(
+                    torch.bfloat16)
+                return W.w4a16_matmul(h, o[2], o[3], o[5], o[7])
+
+            for M in (FUSED_ZEROS_M if zp else FUSED_M):
+                x = rand_x(M, K)
+                out = FM.w4a16_fused_mlp(x, *ops[:4], *ops[4:], "silu")
+                ref = FM.w4a16_fused_mlp_plain(x, *ops[:4], *ops[4:],
+                                               "silu")
+                torch.cuda.synchronize()
+                err = (out.float() - ref.float()).abs().max().item()
+                # both round h and the output to bf16 at the same places;
+                # the kernel scales f32 partials per group where the plain
+                # version multiplies by the exact f32 weight, so one-ulp
+                # differences of h remain: 2% of the largest output
+                tol = 2e-2 * ref.float().abs().max().item()
+                k_ms = cuda_ms([lambda o=o: FM.w4a16_fused_mlp(
+                    x, *o[:4], *o[4:], "silu") for o in copies], 20)
+                p_ms = cuda_ms([lambda: FM.w4a16_fused_mlp_plain(
+                    x, *ops[:4], *ops[4:], "silu")], 3)
+                unf_ms = cuda_ms([lambda o=o: unfused(x, o)
+                                  for o in copies], 20)
+                shape = {"model": model, "M": M, "K": K, "I": I, "G": 128,
+                         "zeros": zp, "bias": zp,
+                         "n_k2": FM.fused_mlp_n_k2(M, K, I, 128),
+                         "unfused_ms": unf_ms}
+                if M == 4 and not zp:
+                    _, grid, st = FM.fused_mlp_launch(
+                        x, *ops[:4], *ops[4:], "silu", barrier_stats=True)
+                    torch.cuda.synchronize()
+                    st = st.double().cpu()
+                    shape.update({
+                        "grid": grid,
+                        # release after the last arrival: the barrier's own
+                        # cost; first to last arrival: the phase imbalance
+                        "barrier_us": [float(st[:, 2 * j + 1].max()
+                                             - st[:, 2 * j].max()) / 1e3
+                                       for j in (0, 1)],
+                        "arrival_spread_us": [
+                            float(st[:, 2 * j].max() - st[:, 2 * j].min())
+                            / 1e3 for j in (0, 1)]})
+                nbytes = (2 * M * K * 2 + wq_bytes
+                          + (0 if gb is None else (2 * I + K) * 4))
+                record("w4a16_fused_mlp", shape, err, tol, k_ms, p_ms, None,
+                       bound_ms(nbytes, 2 * M * K * 2 * I + 2 * M * I * K))
+            del copies, ops, gp, gs, gz, dp, ds, dz
             torch.cuda.empty_cache()
 
 
@@ -859,101 +1070,191 @@ def deepseek_cfg(num_layers, dsa=True, index_topk=None):
     return cfg
 
 
+def w4a16_shapes(model):
+    """{(K, N, tiled)} of a model's W4A16 linears (the autotuner's keys)
+    and the number of its K-paired ones."""
+    from tensorrt_llm_tpu_torch.layers.linear import Linear
+    keys, n_kpaired = set(), 0
+    for m in model.modules():
+        if isinstance(m, Linear) and m.quantized and not m.w4a8:
+            q = m.qweight
+            tiled = q.dim() == 3
+            keys.add((q.shape[-2] * 2 if tiled else q.shape[0] * 2,
+                      q.shape[0] * q.shape[2] if tiled else q.shape[1],
+                      int(tiled)))
+            n_kpaired += not tiled
+    return keys, n_kpaired
+
+
+def report_tactics(phase, model, tuned_before):
+    """Print every W4A16 shape's tactic: the candidates' device times and
+    the winner where this warmup tuned it, else the cached tactic.  Fails
+    if a shape has no tactic or a candidate of it was skipped."""
+    from tensorrt_llm_tpu_torch.autotuner import AutoTuner
+    tuner = AutoTuner.get()
+    keys, _ = w4a16_shapes(model)
+    rows = []
+    for K, N, tiled in sorted(keys):
+        k = ("w4a16", K, N, tiled)
+        best = tuner.cache.get(k)
+        assert best is not None, f"{phase}: no tactic for {k}"
+        times = tuner.timings.get(k) if k not in tuned_before else None
+        rows.append({"K": K, "N": N, "tiled": tiled, "tactic": best,
+                     "candidates_us": times})
+        log(f"  [{phase}] tactic (K={K}, N={N}, tiled={tiled}): {best}"
+            + (" <- " + ", ".join(f"{t} {us:.2f} us" for t, us in times)
+               if times else " (cached)"))
+    skipped = [sk for sk in tuner.skipped
+               if sk[0] == "w4a16" and tuple(sk[1:4]) in keys]
+    assert not skipped, f"{phase}: tactic candidates skipped: {skipped}"
+    return rows
+
+
+class _ToTiledCounter:
+    """Counts the repacks `to_tiled` does (calls on a 2-D K-paired weight;
+    on a tiled one it returns its input) in the modules that import it,
+    while in a `with` block."""
+
+    def __enter__(self):
+        from tensorrt_llm_tpu_torch.layers import linear
+        from tensorrt_llm_tpu_torch.ops import w4a16_gemm
+        self.mods = (linear, w4a16_gemm)
+        self.orig = linear.to_tiled
+        self.calls = 0
+
+        def counted(packed, scales):
+            self.calls += packed.dim() == 2
+            return self.orig(packed, scales)
+
+        for m in self.mods:
+            m.to_tiled = counted
+        return self
+
+    def __exit__(self, *exc):
+        for m in self.mods:
+            m.to_tiled = self.orig
+
+
+SERVE_TOKENS = {}          # phase -> (tokens, chosen-token logprobs)
+
+
 def serve_model(card, phase, label, cfg, required, absent=(),
-                kv_cache_quant="NONE", long_prompt=0, max_seq_len=1024):
+                kv_cache_quant="NONE", long_prompt=0, max_seq_len=1024,
+                ramp_per_layer=0, kpaired_per_layer=0):
     """8 greedy requests (prompts 17..600 tokens, two sharing a 300-token
     prefix, plus one of `long_prompt` tokens when set), 64 new tokens each,
-    through `LLM.generate`; the launch counters are reset just before and
-    read just after.  A second run with a fresh cache salt must give the
-    same tokens.  Every layer of every forward must run the path's
-    attention kernels (`attention_kernels`) and, for W4A8, K8 for all four
-    projections; every MoE layer K5 twice; the kernels in `absent` must not
-    launch at all."""
+    through `LLM.generate`; the LLM warms up first (the W4A16 autotuner,
+    `enable_warmup` default), and the launch counters are reset after that,
+    just before the run, and read just after.  A second run with a fresh
+    cache salt must give the same tokens.  Every layer of every forward
+    must run the path's attention kernels (`attention_kernels`); every
+    K-paired W4A16 linear K12 once (`kpaired_per_layer` of them a layer);
+    for W4A8, K8 for all four projections; every MoE layer K5 twice;
+    `ramp_per_layer` K13 launches per layer; the
+    kernels in `absent` must not launch at all, and no W4A16 weight may be
+    repacked (`to_tiled`) from construction to the end."""
     import numpy as np
     import torch
     import tensorrt_llm_tpu_torch as T
+    from tensorrt_llm_tpu_torch.autotuner import AutoTuner
     from tensorrt_llm_tpu_torch.ops import cuda_build
     from tensorrt_llm_tpu_torch.quantization import QuantAlgo
     torch.cuda.reset_peak_memory_stats()
+    tuned_before = set(AutoTuner.get().timings)
+    repacks = _ToTiledCounter()
     t0 = time.perf_counter()
-    llm = T.LLM(model=cfg, skip_tokenizer_init=True,
-                device=DEVICE, max_batch_size=4, max_num_tokens=256,
-                max_seq_len=max_seq_len, kv_block_size=16, kv_num_blocks=640,
-                kv_cache_quant=kv_cache_quant, seed=0,
-                return_perf_metrics=True)
-    torch.cuda.synchronize()
-    build_s = time.perf_counter() - t0
-    log(f"[{phase}] {label}, built in {build_s:.1f} s")
-    rng = np.random.default_rng(0)
-    V = cfg.vocab_size
-
-    def ids(n):
-        return [int(t) for t in rng.integers(10, V - 10, n)]
-
-    shared = ids(300)
-    prompts = [shared + ids(20), shared + ids(45)]
-    prompts += [ids(n) for n in (17, 64, 200, 333, 480, 600)]
-    if long_prompt:
-        prompts.append(ids(long_prompt))
-    sp = T.SamplingParams(max_tokens=64, temperature=0.0, ignore_eos=True,
-                          logprobs=1)
-    try:
-        # warm-up request: library loaded, allocator and cuBLAS initialised
-        llm.generate([[1, 2, 3, 4]], T.SamplingParams(max_tokens=2,
-                                                      temperature=0.0))
+    with repacks:
+        llm = T.LLM(model=cfg, skip_tokenizer_init=True,
+                    device=DEVICE, max_batch_size=4, max_num_tokens=256,
+                    max_seq_len=max_seq_len, kv_block_size=16,
+                    kv_num_blocks=640, kv_cache_quant=kv_cache_quant, seed=0,
+                    return_perf_metrics=True)
         torch.cuda.synchronize()
-        it0 = llm.executor.iteration
-        cuda_build.reset_launch_counts()
-        t0 = time.perf_counter()
-        outs = llm.generate(prompts, sp, cache_salt="run1")
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        counts = dict(cuda_build.launch_counts)
-        stats = [s for s in llm.get_stats() if s["iteration"] > it0]
-        kv = llm.get_kv_cache_stats()
-        toks = [o.outputs[0].token_ids for o in outs]
-        assert all(len(t) == 64 for t in toks), [len(t) for t in toks]
-        lps = [lp for o in outs for d in o.outputs[0].logprobs
-               for lp in d.values()]
-        assert np.isfinite(lps).all(), "non-finite logprobs"
-        assert kv["reused_blocks"] > 0, kv
-        # a fresh salt: no reuse of run 1's blocks, so the same schedule
-        again = [o.outputs[0].token_ids
-                 for o in llm.generate(prompts, sp, cache_salt="run2")]
-        assert again == toks, "second run gave other tokens"
-        windows = [getattr(getattr(layer.attn, "backend", None),
-                           "sliding_window", None)
-                   for layer in llm.model.layers]
-        peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
-        kv_bytes_per_token = _nbytes(llm.engine.kv_caches) / (
-            llm.kv_manager.num_blocks * llm.kv_manager.block_size)
-    finally:
-        llm.shutdown()
+        build_s = time.perf_counter() - t0
+        log(f"[{phase}] {label}, built and warmed up in {build_s:.1f} s")
+        tactics = report_tactics(phase, llm.model, tuned_before)
+        _, n_kpaired = w4a16_shapes(llm.model)
+        rng = np.random.default_rng(0)
+        V = cfg.vocab_size
+
+        def ids(n):
+            return [int(t) for t in rng.integers(10, V - 10, n)]
+
+        shared = ids(300)
+        prompts = [shared + ids(20), shared + ids(45)]
+        prompts += [ids(n) for n in (17, 64, 200, 333, 480, 600)]
+        if long_prompt:
+            prompts.append(ids(long_prompt))
+        sp = T.SamplingParams(max_tokens=64, temperature=0.0,
+                              ignore_eos=True, logprobs=1)
+        try:
+            it0 = llm.executor.iteration
+            cuda_build.reset_launch_counts()
+            t0 = time.perf_counter()
+            outs = llm.generate(prompts, sp, cache_salt="run1")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = dict(cuda_build.launch_counts)
+            stats = [s for s in llm.get_stats() if s["iteration"] > it0]
+            kv = llm.get_kv_cache_stats()
+            toks = [o.outputs[0].token_ids for o in outs]
+            assert all(len(t) == 64 for t in toks), [len(t) for t in toks]
+            lps = [[lp for d in o.outputs[0].logprobs for lp in d.values()]
+                   for o in outs]
+            assert np.isfinite([v for r in lps for v in r]).all(), \
+                "non-finite logprobs"
+            assert kv["reused_blocks"] > 0, kv
+            # a fresh salt: no reuse of run 1's blocks, so the same schedule
+            again = [o.outputs[0].token_ids
+                     for o in llm.generate(prompts, sp, cache_salt="run2")]
+            assert again == toks, "second run gave other tokens"
+            windows = [getattr(getattr(layer.attn, "backend", None),
+                               "sliding_window", None)
+                       for layer in llm.model.layers]
+            peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+            kv_bytes_per_token = _nbytes(llm.engine.kv_caches) / (
+                llm.kv_manager.num_blocks * llm.kv_manager.block_size)
+        finally:
+            llm.shutdown()
+    SERVE_TOKENS[phase] = (toks, lps)
+    if cfg.quant.quant_algo != QuantAlgo.W4A8_AWQ:
+        assert repacks.calls == 0, \
+            f"{phase}: {repacks.calls} W4A16 weights repacked"
     for k in required:
         assert counts.get(k, 0) > 0, f"{k} never launched on the main path"
     for k in absent:
         assert counts.get(k, 0) == 0, f"{k} launched on this path: {counts}"
     chunks = sum(s["num_prefill_chunks"] for s in stats)
     dsteps = sum(s["decode_steps"] for s in stats)
+    fwd = chunks + dsteps
     L = cfg.num_layers
     # every layer of every forward went through the attention kernels
     prefill_k, decode_k = attention_kernels(cfg, kv_cache_quant)
     if prefill_k:
         assert counts[prefill_k] == L * chunks, (counts, chunks)
     assert counts[decode_k] == L * dsteps, (counts, dsteps)
+    # every K-paired W4A16 weight on K12, once per forward, nothing else
+    assert counts.get("w4a16_kpaired", 0) == n_kpaired * fwd, \
+        (counts, n_kpaired, fwd)
+    if kpaired_per_layer:
+        assert n_kpaired == kpaired_per_layer * L, (n_kpaired, L)
+    if ramp_per_layer:
+        assert counts.get("w4a16_ramp", 0) == ramp_per_layer * L * fwd, \
+            (counts, fwd)
     if cfg.quant.quant_algo == QuantAlgo.W4A8_AWQ:
         # QKV, o, gate_up and down on K8 in every layer of every forward
-        assert counts["w4a8_gemm"] == 4 * L * (chunks + dsteps), counts
+        assert counts["w4a8_gemm"] == 4 * L * fwd, counts
     n_moe = sum(cfg.is_moe_layer(i) for i in range(L))
     if n_moe:
         # gate_up and down on K5 in every MoE layer of every forward, on
         # work units computed once per layer
-        assert counts["moe_gmm"] == 2 * n_moe * (chunks + dsteps), counts
-        assert counts["moe_gmm_units"] == n_moe * (chunks + dsteps), counts
+        assert counts["moe_gmm"] == 2 * n_moe * fwd, counts
+        assert counts["moe_gmm_units"] == n_moe * fwd, counts
     ttft = [o.metrics["ttft_s"] for o in outs]
     n_out = sum(len(t) for t in toks)
     gemms = sum(counts.get(k, 0)
-                for k in ("w4a16_gemm", "w4a16_gemv", "w4a8_gemm"))
+                for k in ("w4a16_gemm", "w4a16_gemv", "w4a16_kpaired",
+                          "w4a16_ramp", "w4a8_gemm"))
     summary = {
         "phase": phase, "model": label, "card": card,
         "build_s": build_s, "requests": len(prompts),
@@ -961,8 +1262,11 @@ def serve_model(card, phase, label, cfg, required, absent=(),
         "ttft_s_mean": float(np.mean(ttft)), "ttft_s_max": float(max(ttft)),
         "prefill_chunks": chunks, "decode_steps": dsteps,
         "launches": counts,
-        "gemm_launches_per_forward": gemms / (chunks + dsteps),
-        "moe_gmm_per_forward": counts.get("moe_gmm", 0) / (chunks + dsteps),
+        "gemm_launches_per_forward": gemms / fwd,
+        "kpaired_linears": n_kpaired,
+        "kpaired_per_forward": counts.get("w4a16_kpaired", 0) / fwd,
+        "ramp_per_forward": counts.get("w4a16_ramp", 0) / fwd,
+        "moe_gmm_per_forward": counts.get("moe_gmm", 0) / fwd,
         "attention_kernels": [prefill_k, decode_k],
         "prefill_attention_per_chunk": (counts[prefill_k] / chunks
                                         if prefill_k else None),
@@ -970,10 +1274,113 @@ def serve_model(card, phase, label, cfg, required, absent=(),
         "prompt_tokens": sum(len(p) for p in prompts),
         "sliding_windows": sorted(set(map(str, windows))),
         "peak_mem_gib": peak_gb, "kv_cache_quant": kv_cache_quant,
-        "kv_bytes_per_token": kv_bytes_per_token, "kv": kv}
+        "kv_bytes_per_token": kv_bytes_per_token, "kv": kv,
+        "w4a16_repacks": repacks.calls, "tactics": tactics}
     PHASES[phase] = summary
     log(json.dumps(summary))
     del llm
+    torch.cuda.empty_cache()
+    return counts
+
+
+RAMP_TIE = 0.05            # logprob gap accepted at a greedy near-tie
+
+
+def serve_ramp(card, ref_phase="serve"):
+    """TinyLlama W4A16 served with a tactic file, loaded through
+    `AutoTuner.load`, that sets ``{"variant": "ramp"}`` for every tiled
+    shape: qkv, o and gate_up (K 2048) run K13 in every layer of every
+    forward; down (K 5632, not a multiple of 1024) runs K1, as the JAX
+    package's tiled kernel.  Greedy tokens must equal the `ref_phase`
+    run's, or differ first where both runs' chosen tokens sit at a near-tie
+    (both logprobs below log(1/2) + RAMP_TIE and within RAMP_TIE)."""
+    from tensorrt_llm_tpu_torch.autotuner import AutoTuner
+    from tensorrt_llm_tpu_torch.ops import cuda_build
+    tuner = AutoTuner.get()
+    saved = dict(tuner.cache)
+    cfg = w4a16_cfg(TINYLLAMA)
+    H, I = cfg.hidden_size, cfg.intermediate_size
+    qkv = (cfg.num_heads + 2 * cfg.num_kv_heads) * cfg.head_dim
+    shapes = [(H, qkv), (cfg.num_heads * cfg.head_dim, H), (H, 2 * I), (I, H)]
+    path = cuda_build.kernel_dir() / "ramp_tactics.json"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    with open(path, "w") as f:
+        json.dump([{"key": ["w4a16", K, N, 1], "tactic": {"variant": "ramp"}}
+                   for K, N in shapes], f)
+    try:
+        tuner.load(str(path))
+        counts = serve_model(card, RAMP_PATH,
+                             "tinyllama-1.1b W4A16 (22 layers), ramp tactic",
+                             cfg, ("w4a16_ramp", "w4a16_gemm"),
+                             absent=("w4a16_gemv",), ramp_per_layer=3)
+    finally:
+        tuner.cache = saved
+    if ref_phase in SERVE_TOKENS:
+        import math
+        (ta, la), (tb, lb) = SERVE_TOKENS[ref_phase], SERVE_TOKENS[RAMP_PATH]
+        exact, ties = 0, []
+        for a, b, pa, pb in zip(ta, tb, la, lb):
+            if a == b:
+                exact += 1
+                continue
+            i = next(i for i, (u, v) in enumerate(zip(a, b)) if u != v)
+            ok = (max(pa[i], pb[i]) <= math.log(0.5) + RAMP_TIE
+                  and abs(pa[i] - pb[i]) <= RAMP_TIE)
+            ties.append({"position": i, "tokens": [a[i], b[i]],
+                         "logprobs": [pa[i], pb[i]], "near_tie": ok})
+        PHASES[RAMP_PATH].update({"tokens_equal_to": ref_phase,
+                                  "exact_requests": exact,
+                                  "first_differences": ties})
+        log(json.dumps({"phase": RAMP_PATH, "exact_requests": exact,
+                        "of": len(ta), "first_differences": ties}))
+        assert all(d["near_tie"] for d in ties), ties
+    return counts
+
+
+def fused_mlp_run(card):
+    """K14 through its op, as the JAX package's one caller (a kernel sweep)
+    drives it: `w4a16_fused_mlp` on every layer's gated MLP of the
+    full-width TinyLlama W4A16 model (22 layers, seeded weights) at a
+    decode batch (4 rows) and a 200-token chunk, held against the layer's
+    own unfused `GatedMLP` forward; counters reset just before, read just
+    after."""
+    import torch
+    from tensorrt_llm_tpu_torch.models import get_model_class
+    from tensorrt_llm_tpu_torch.ops import cuda_build
+    from tensorrt_llm_tpu_torch.ops.w4a16_fused import w4a16_fused_mlp
+    cfg = w4a16_cfg(TINYLLAMA)
+    model = get_model_class(cfg.architecture)(cfg, DEVICE).init_random(0)
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(8)
+    xs = [torch.randn((M, cfg.hidden_size), generator=gen, device=DEVICE
+                      ).to(torch.bfloat16) for M in (4, 200)]
+    worst = 0.0
+    cuda_build.reset_launch_counts()
+    with torch.no_grad():
+        for layer in model.layers:
+            mlp = layer.mlp
+            gu, dn = mlp.gate_up, mlp.down
+            for x in xs:
+                out = w4a16_fused_mlp(x, gu.qweight, gu.scales, dn.qweight,
+                                      dn.scales, gu.zeros, dn.zeros, gu.bias,
+                                      dn.bias, mlp.activation)
+                ref = mlp(x)
+                # the unfused forward rounds gate_up to bf16 before the
+                # activation (2^-8 relative on h): 2% of the largest output
+                err = (out.float() - ref.float()).abs().max().item()
+                tol = 2e-2 * ref.float().abs().max().item()
+                assert err <= tol, (err, tol)
+                worst = max(worst, err / tol)
+    torch.cuda.synchronize()
+    counts = dict(cuda_build.launch_counts)
+    L = cfg.num_layers
+    assert counts.get("w4a16_fused_mlp", 0) == 2 * L, counts
+    PHASES[FUSED_PATH] = {"phase": FUSED_PATH, "card": card,
+                          "model": "tinyllama-1.1b W4A16 (22 layers)",
+                          "launches": counts, "rows": [4, 200],
+                          "worst_err_over_tol": worst}
+    log(json.dumps(PHASES[FUSED_PATH]))
+    del model
     torch.cuda.empty_cache()
     return counts
 
@@ -1212,19 +1619,24 @@ def profile_serve(card, phase, cfg, kv_cache_quant="NONE"):
 
 
 # ----------------------------------------------------------------- summary --
-GPT_OSS_PATH = "serve_gpt_oss"          # slice 2's path: K1-K5 run there
+SERVE_PATH = "serve"                    # TinyLlama W4A16: K1-K4, K13
+GPT_OSS_PATH = "serve_gpt_oss"          # GPT-OSS-20B: K1, K3-K5, K12
 LLAMA3_W4A8_PATH = "serve_llama3_w4a8"  # slice 3's path: K6-K8 run there
 MOONLIGHT_PATH = "serve_moonlight"      # slice 4's dense MLA path: K9/K10
 V32_PATH = "serve_deepseek_v32"         # slice 4's DSA path: K11
+RAMP_PATH = "serve_ramp"                # K13 under a ramp tactic file
+FUSED_PATH = "fused_mlp"                # K14 through its op
 KERNELS = {
     # each kernel's row: the serve path that runs it, and a phase-3 check
     # at the shape that path gives it
     "w4a16_gemm": ("cuda", "tensorrt_llm_tpu_torch/csrc/w4a16_gemm.cu",
                    "tensorrt_llm_tpu/ops/w4a16_gemm.py:205", GPT_OSS_PATH,
                    {"model": "gpt-oss-20b", "M": 256, "K": 2880, "N": 5120}),
+    # TinyLlama down at decode: the tuner picks K2 there by a wide margin
+    # (its tactic decides which tiled shapes of a path run K2)
     "w4a16_gemv": ("cuda", "tensorrt_llm_tpu_torch/csrc/w4a16_gemv.cu",
-                   "tensorrt_llm_tpu/ops/w4a16_gemm.py:560", GPT_OSS_PATH,
-                   {"model": "gpt-oss-20b", "M": 4, "K": 2880, "N": 5120}),
+                   "tensorrt_llm_tpu/ops/w4a16_gemm.py:560", SERVE_PATH,
+                   {"model": "tinyllama", "M": 4, "K": 5632, "N": 2048}),
     "flash_prefill": ("cuda", "tensorrt_llm_tpu_torch/csrc/flash_prefill.cu",
                       "tensorrt_llm_tpu/ops/flash_prefill.py:282",
                       GPT_OSS_PATH,
@@ -1264,6 +1676,21 @@ KERNELS = {
     # the serve path's scale: 4 sequences up to ~3,000 tokens
     "dsa_score": ("cuda", "tensorrt_llm_tpu_torch/csrc/dsa_score.cu",
                   "tensorrt_llm_tpu/ops/dsa.py:138", V32_PATH, {"MB": 190}),
+    # GPT-OSS-20B o_proj at decode (K12 also runs kv_a on the Moonlight and
+    # V3.2 paths: `launches_by_path`)
+    "w4a16_kpaired": ("cuda", "tensorrt_llm_tpu_torch/csrc/w4a16_kpaired.cu",
+                      "tensorrt_llm_tpu/ops/w4a16_gemm.py:54", GPT_OSS_PATH,
+                      {"model": "gpt-oss-20b", "M": 4, "zeros_bias": False}),
+    # TinyLlama gate_up at decode, the default two-step schedule
+    "w4a16_ramp": ("cuda", "tensorrt_llm_tpu_torch/csrc/w4a16_ramp.cu",
+                   "tensorrt_llm_tpu/ops/w4a16_gemm.py:371", RAMP_PATH,
+                   {"model": "tinyllama", "M": 4, "N": 11264,
+                    "schedule": [1, 1]}),
+    # TinyLlama's MLP at decode
+    "w4a16_fused_mlp": ("cuda",
+                        "tensorrt_llm_tpu_torch/csrc/w4a16_fused_mlp.cu",
+                        "tensorrt_llm_tpu/ops/w4a16_fused.py:90", FUSED_PATH,
+                        {"model": "tinyllama", "M": 4, "zeros": False}),
 }
 
 
@@ -1324,7 +1751,8 @@ def main() -> int:
         i = args.index("--json")
         out_json = args[i + 1]
         del args[i:i + 2]
-    phases = args or ["check", "serve", "cross", "llama3", "gptoss",
+    phases = args or ["check", "serve", "serve_ramp", "fused_mlp", "cross",
+                      "llama3", "gptoss",
                       "gptoss_cross", "llama3_w4a8", "llama3_w4a8_cross",
                       "deepseek", "deepseek_v32", "deepseek_v3_width",
                       "deepseek_cross"]
@@ -1363,14 +1791,20 @@ def run_phases(phases, card, gen, dev, by_path):
         check_w4a8(gen, dev)
     if "check" in phases or "check_mla" in phases:
         check_mla(gen, dev)
+    if "check" in phases or "check_w4a16" in phases:
+        check_w4a16(gen, dev)
     if RESULTS:
         log(f"[phase 3] {len(RESULTS)} kernel checks passed in "
             f"{time.perf_counter() - t0:.1f} s")
     base = ("w4a16_gemm", "w4a16_gemv", "flash_prefill", "paged_decode")
     if "serve" in phases:
-        by_path["serve"] = serve_model(
-            card, "serve", "tinyllama-1.1b W4A16 (22 layers)",
+        by_path[SERVE_PATH] = serve_model(
+            card, SERVE_PATH, "tinyllama-1.1b W4A16 (22 layers)",
             w4a16_cfg(TINYLLAMA), base)
+    if "serve_ramp" in phases:
+        by_path[RAMP_PATH] = serve_ramp(card)
+    if "fused_mlp" in phases:
+        by_path[FUSED_PATH] = fused_mlp_run(card)
     if "cross" in phases:
         cross_check_cpu("cpu_cross_check", "tinyllama width, 2 layers",
                         w4a16_cfg(TINYLLAMA, num_layers=2, max_position=2048),
@@ -1383,7 +1817,9 @@ def run_phases(phases, card, gen, dev, by_path):
         n = GPT_OSS_LAYERS
         by_path["serve_gpt_oss"] = serve_model(
             card, "serve_gpt_oss", f"gpt-oss-20b W4A16 g64 ({n} layers)",
-            gpt_oss_cfg(n), base + ("moe_gmm", "moe_gmm_units"))
+            gpt_oss_cfg(n), ("w4a16_gemm", "flash_prefill", "paged_decode",
+                             "moe_gmm", "moe_gmm_units", "w4a16_kpaired"),
+            kpaired_per_layer=1)
     if "gptoss_cross" in phases:
         cross_check_cpu("gpt_oss_cross_check",
                         "gpt-oss-20b width, 2 layers (sliding, full)",
@@ -1409,14 +1845,15 @@ def run_phases(phases, card, gen, dev, by_path):
         by_path[MOONLIGHT_PATH] = serve_model(
             card, MOONLIGHT_PATH, f"moonlight-16b-a3b W4A16 ({n} layers)",
             moonlight_cfg(n), ("w4a16_gemm", "w4a16_gemv", "moe_gmm",
-                               "moe_gmm_units", "mla_prefill", "mla_decode"),
-            absent=attn_gqa + ("dsa_score",))
+                               "moe_gmm_units", "mla_prefill", "mla_decode",
+                               "w4a16_kpaired"),
+            absent=attn_gqa + ("dsa_score",), kpaired_per_layer=1)
     if "deepseek_v32" in phases:
         n = V32_LAYERS
         by_path[V32_PATH] = serve_model(
             card, V32_PATH, f"deepseek-v3.2 widths W4A16 ({n} layers)",
             deepseek_cfg(n), ("w4a16_gemm", "w4a16_gemv", "moe_gmm",
-                              "moe_gmm_units", "dsa_score"),
+                              "moe_gmm_units", "dsa_score", "w4a16_kpaired"),
             absent=attn_gqa + ("mla_prefill", "mla_decode"),
             long_prompt=V32_LONG_PROMPT, max_seq_len=4096)
     if "deepseek_v3_width" in phases:

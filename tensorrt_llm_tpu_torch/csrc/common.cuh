@@ -28,6 +28,17 @@ __device__ __forceinline__ float activate(float v) {
   return v;
 }
 
+// the same activations chosen at run time (epilogues of K12-K14)
+__device__ __forceinline__ float activate_rt(int act, float v) {
+  switch (act) {
+    case ACT_SILU: return activate<ACT_SILU>(v);
+    case ACT_GELU: return activate<ACT_GELU>(v);
+    case ACT_RELU: return activate<ACT_RELU>(v);
+    case ACT_RELU2: return activate<ACT_RELU2>(v);
+    default: return v;
+  }
+}
+
 // signed low / high nibble of byte u (0..255)
 __device__ __forceinline__ int nib_lo(uint32_t u) { return ((int)(u << 28)) >> 28; }
 __device__ __forceinline__ int nib_hi(uint32_t u) { return ((int)(u << 24)) >> 28; }

@@ -4,15 +4,19 @@ Counterpart of `tensorrt_llm_tpu/layers/linear.py` (`UnquantizedLinearMethod`,
 `W4A16LinearMethod` and `W4A8LinearMethod`).  Weights keep the JAX package's
 ``[in, out]`` orientation.  A quantized layer holds:
 
-* ``qweight`` int8 ``[N//BN, K//2, BN]``, the tiled packing (a K-paired
-  ``[K//2, N]`` weight is repacked at load time),
+* ``qweight`` int8: W4A16 keeps the packing it arrives in, the tiled
+  ``[N//BN, K//2, BN]`` or the K-paired ``[K//2, N]`` (which
+  `W4A16LinearMethod._pack` picks where no 128-multiple column tile
+  divides N); W4A8 repacks a K-paired weight to tiles at load, since K8
+  reads tiles (the JAX package sends a 2-D W4A8 weight to XLA),
 * ``scales`` ``[K//G, N]``: bf16 for W4A16 (rounded once at load; the JAX
   package rounds the same f32 scales to bf16 on every call), f32 for W4A8
   (the JAX package never rounds them),
 * optional ``zeros`` (same dtype as the scales; W4A8 always has them, as
   the JAX package forces) and ``bias`` f32.
 
-W4A16 layers run `w4a16_matmul` (K1/K2 on CUDA), W4A8 layers `w4a8_matmul`
+W4A16 layers run `w4a16_matmul` (K1/K2/K13 on a tiled weight, K12 on a
+K-paired one, by the tuned tactic), W4A8 layers `w4a8_matmul`
 (per-token int8 activations, K8 on CUDA).  An unquantized layer (lm_head)
 holds ``weight`` bf16 ``[in, out]`` and runs a plain matrix product: on CUDA
 that is `torch.matmul`, as the JAX package leaves its bf16 lm_head to
@@ -79,7 +83,8 @@ class Linear(nn.Module):
         if self.quantized:
             s = p["scales"]
             sdt = torch.float32 if self.w4a8 else torch.bfloat16
-            self.qweight = to_tiled(p["qweight"].to(torch.int8), s).contiguous()
+            q = p["qweight"].to(torch.int8)
+            self.qweight = (to_tiled(q, s) if self.w4a8 else q).contiguous()
             self.scales = s.to(sdt).contiguous()
             z = p.get("zeros")
             self.zeros = None if z is None else z.to(sdt).contiguous()

@@ -10,6 +10,9 @@ In this slice the model is a `ModelConfig` (or one of the presets of
 `deepseek_v3_config`, `deepseek_v32_config`) with random (seeded) weights,
 or with a ready state passed as ``params`` (see `params_from_jax`).  An MLA
 model gets one latent pool per layer, plus the indexer pool under DSA.
+Before the executor starts, the engine warms up (`ModelEngine.warmup`:
+the W4A16 autotuner, then one prefill chunk and one decode step), by
+default on a CUDA device only (`enable_warmup`).
 Tokenizers, checkpoints, streaming iteration and the server belong to
 later slices.
 """
@@ -91,6 +94,13 @@ class LLM:
                                          geo["head_dim"], num_blocks,
                                          self.device)
         self.engine = ModelEngine(self.model, self.kv_manager, self.device)
+        warm = a.enable_warmup
+        if warm is None:
+            warm = self.device.type == "cuda"
+        if warm:
+            # tune the W4A16 tactics and warm the steps before serving
+            self.engine.warmup(min(a.max_num_tokens, a.max_seq_len - 1),
+                               a.max_batch_size)
         self.executor = PyExecutor(
             self.engine, a.make_scheduler_config(), eos_token_id=None,
             max_seq_len=a.max_seq_len, max_decode_steps=a.max_decode_steps)

@@ -1,7 +1,9 @@
 """LLM construction arguments: the subset of
 `tensorrt_llm_tpu/llmapi/llm_args.py` that this slice runs, plus `device`
 (CUDA unless the caller asks for the CPU) and `params` (a ready model state,
-e.g. from `params_from_jax`, instead of random weights)."""
+e.g. from `params_from_jax`, instead of random weights).  `enable_warmup`
+None means on for a CUDA device and off for the CPU, as the JAX package
+warms up on the TPU only."""
 
 from __future__ import annotations
 
@@ -31,6 +33,7 @@ class LlmArgs:
     kv_cache_quant: str = "NONE"       # "INT8": int8 pages + f32 scales
 
     max_decode_steps: int = 8          # decode steps per executor iteration
+    enable_warmup: Optional[bool] = None  # autotune + warm steps at build
 
     seed: int = 0
     skip_tokenizer_init: bool = False

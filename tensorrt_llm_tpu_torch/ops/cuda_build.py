@@ -2,11 +2,12 @@
 
 The kernels are compiled with `nvcc` for `sm_90a` into one shared library
 with a plain C interface and loaded with ctypes, at first use.  The library
-lands in ``build/torch_kernels/`` at the repository root under a name hashed
-from the sources and flags, so a changed source rebuilds and an unchanged one
-loads the existing file.  The build holds an `fcntl` lock and writes under a
-temporary name that is `os.replace`d into place: concurrent processes never
-see a half-written library.  A missing `nvcc` or a failed build raises; there
+lands in ``build/torch_kernels/<hash>/`` at the repository root, the hash
+taken over the sources and flags (`kernel_dir`), so a changed source
+rebuilds and an unchanged one loads the existing file; the engine keeps its
+tuned tactics in the same directory (`ModelEngine.tactic_file`).  The build holds
+an `fcntl` lock and writes under a temporary name that is `os.replace`d
+into place: concurrent processes never see a half-written library.  A missing `nvcc` or a failed build raises; there
 is no CPU fallback at this level.
 
 Every wrapper that launches one of these kernels adds one to its entry in
@@ -85,6 +86,20 @@ _SIGNATURES = {
                          _P],
     # q, w, pool, tables, kv_lens, out, B, Hi, Di, BS, MB, stream
     "tllm_dsa_score": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # x, qweight, scales, zeros, bias, workspace, out, M, N, K, group,
+    # pack_group, act, split, stream
+    "tllm_w4a16_kpaired": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                           _I, _I, _P],
+    # x, qweight, scales, zeros, bias, out, M, N, K, group, block_n, act,
+    # schedule (host int array), n_steps, n_sms, stream
+    "tllm_w4a16_ramp": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                        ctypes.POINTER(_I), _I, _I, _P],
+    # x, gu_qweight, gu_scales, gu_zeros, gu_bias, down_qweight,
+    # down_scales, down_zeros, down_bias, h workspace, f32 workspace,
+    # barrier word, barrier stats, out, M, K, I, gu_group, down_group,
+    # gu_block_n, down_block_n, n_k2, act, n_sms, grid (int out), stream
+    "tllm_w4a16_fused_mlp": [_P] * 14 + [_I] * 10 + [ctypes.POINTER(_I),
+                                                     _P],
 }
 
 
@@ -118,6 +133,18 @@ def _digest(flags) -> str:
         h.update(p.read_bytes())
     h.update(" ".join(flags).encode())
     return h.hexdigest()[:16]
+
+
+def _flags():
+    flags = list(NVCC_FLAGS)
+    if os.environ.get("TLLM_NVCC_VERBOSE") == "1":
+        flags += ["-Xptxas", "-v"]
+    return flags
+
+
+def kernel_dir() -> Path:
+    """The build directory of the current sources and flags."""
+    return BUILD_DIR / _digest(_flags())
 
 
 def _compile(out: Path, flags) -> str:
@@ -159,11 +186,9 @@ def load_library() -> ctypes.CDLL:
     global _lib, last_build_seconds, last_build_log
     if _lib is not None:
         return _lib
-    flags = list(NVCC_FLAGS)
-    if os.environ.get("TLLM_NVCC_VERBOSE") == "1":
-        flags += ["-Xptxas", "-v"]
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    out = BUILD_DIR / f"libtllm_torch_{_digest(flags)}.so"
+    flags = _flags()
+    out = kernel_dir() / "libtllm_torch.so"
+    out.parent.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
     with open(BUILD_DIR / ".lock", "w") as lk:
         fcntl.flock(lk, fcntl.LOCK_EX)
@@ -191,6 +216,12 @@ def check(err: int, name: str) -> None:
 def ptr(t) -> Optional[int]:
     """Device pointer of a tensor (None for an absent optional operand)."""
     return None if t is None else t.data_ptr()
+
+
+def num_sms(device) -> int:
+    """Streaming multiprocessors of a CUDA device."""
+    import torch
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def stream_of(t) -> int:

@@ -3,20 +3,48 @@
 Counterpart of `tensorrt_llm_tpu/ops/w4a16_gemm.py`:
 
 * `w4a16_matmul_plain` is the plain PyTorch version (the JAX package's
-  `w4a16_matmul_xla`): dequantize, bf16 product with f32 accumulation.
-* `w4a16_gemm` wraps kernel K1 (`csrc/w4a16_gemm.cu`, general M) and
-  `w4a16_gemv` wraps kernel K2 (`csrc/w4a16_gemv.cu`, M <= 16).
-* `w4a16_matmul` dispatches: the plain version for CPU tensors, a kernel for
-  CUDA tensors.  K2 takes M <= `GEMV_MAX_M` = 16 rows: at decode batch sizes
-  the product is bound by the int4 weight bytes, and K1's 64-row
-  tensor-core tile would run at most a quarter full; above 16 rows the FMA
-  work of the CUDA-core GEMV outgrows the weight stream and K1 wins.
+  `w4a16_matmul_xla`): dequantize, bf16 product with f32 accumulation.  It
+  is the plain version of every W4A16 kernel below; the CPU path runs it.
+* Four kernels, one per TPU kernel of the JAX module:
+
+  ======  ===========================  ==============================
+  kernel  wrapper (CUDA source)        TPU kernel it replaces
+  ======  ===========================  ==============================
+  K1      `w4a16_gemm` (w4a16_gemm)    `_w4a16_kernel_tiled`
+  K2      `w4a16_gemv` (w4a16_gemv)    `_w4a16_kernel_stream`
+  K12     `w4a16_kpaired` (...kpaired) `_w4a16_kernel` (2-D K-paired)
+  K13     `w4a16_ramp` (w4a16_ramp)    `_w4a16_kernel_ramp`
+  ======  ===========================  ==============================
+
+* `w4a16_matmul` dispatches as the JAX function does (`w4a16_plan`): a
+  2-D K-paired weight runs K12; a tiled weight runs K2 under the
+  ``"stream"`` tactic and K13 under ``"ramp"`` when the JAX single-M-block
+  rule holds (for K2 also M <= `GEMV_MAX_M`, for the ramp K % 1024 == 0),
+  else K1, the JAX package's tiled kernel.  With no tactic given and none
+  tuned, the port's own default: K2 at M <= `GEMV_MAX_M` = 16 rows, where
+  the product is bound by the weight bytes and K1's 64-row tensor-core
+  tile would run a quarter full, K1 above.
+
+Tactic arguments keep the JAX signature; on the card they mean:
+
+* ``block_k``: for K12, the K rows each block reduces (split-K of
+  K / block_k slices, a multiple of the pack group); for K1, nothing more
+  than "the tiled kernel" (K1 walks the whole K of its tile).
+* ``block_m``: the M block of the single-M-block rule of ``"stream"`` and
+  ``"ramp"`` (default ``min(256, round_up(M, 16))``); ``block_m=16`` sends
+  only decode-sized calls to K2/K13 and larger ones to K1.  With a K12
+  ``block_k`` it is the largest M the slice applies to (larger calls take
+  `kpaired_block_k`); without it, every M.
+* ``variant``: ``"stream"`` (K2) or ``"ramp"`` (K13); ``ramp_bk0`` and
+  ``ramp_bk_big`` set K13's schedule (`ramp_schedule`).  For ``"stream"``
+  ``ramp_bk0`` was the TPU's DMA slab and has no meaning for K2.
+* ``block_n``, ``lookahead`` and ``mixed`` (the TPU's DMA depth and native
+  s4 MXU feed) have no Hopper meaning: accepted, without effect, so that a
+  JAX tactic file loads unchanged.
 
 Scales and zeros are rounded to bf16 on every path, as in the JAX package
 (its `w4a16_matmul_xla` and the Pallas kernels store half-precision scales).
-Both packings are accepted: the 3-D tiled one the kernels read, and the 2-D
-K-paired one, which the CUDA path repacks to tiles on the fly (layers repack
-once at load time instead).
+Both packings reach the kernels as they are stored: no per-call repack.
 
 W4A8 (the JAX package's `w4a8_matmul`, same module): activations are
 quantized per token to int8 (`quantize_act_int8`, plain torch ops on every
@@ -29,19 +57,26 @@ scales and zeros stay f32 on every path: the JAX package never rounds them.
 
 from __future__ import annotations
 
-from typing import Optional
+import ctypes
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from tensorrt_llm_tpu_torch.ops import cuda_build
 from tensorrt_llm_tpu_torch.quantization.quantize import (
-    dequantize_w4_any, to_tiled)
+    dequantize_w4_any, pack_group_for, to_tiled)
+from tensorrt_llm_tpu_torch.utils import cdiv, round_up
 
 GEMV_MAX_M = 16
+STREAM_MAX_BM = 256  # the JAX single-M-block rule's largest M block
 _SMS = 132          # H100 SXM streaming multiprocessors
 _GEMV_COLS = 64     # output columns per K2 block
 _GEMV_MAX_KS = 2048  # K2 stages its x slice in shared memory as f32
+_KP_TILE = 64       # K12 output tile: 64 rows x 64 columns
+RAMP_SLAB = 1024    # K rows per ramp slab (512 packed rows)
+RAMP_MAX_STEP = 4   # slabs a K13 ring stage holds
+RAMP_MAX_STEPS = 64  # steps a K13 schedule may have
 
 ACTIVATIONS = {
     None: lambda v: v,
@@ -70,13 +105,118 @@ def w4a16_matmul_plain(x: torch.Tensor, packed: torch.Tensor,
     return ACTIVATIONS[activation](out).to(out_dtype)
 
 
-def _check_operands(x, packed3, scales, zeros, bias):
-    M, K = x.shape
-    n_n, half, bn = packed3.shape
-    N = n_n * bn
+# ------------------------------------------------------------ tactics ---
+def _pick_block_k(K: int, G: int, max_block_k: int = 4096) -> int:
+    """Largest multiple of G that divides K, capped at max_block_k (the
+    JAX package's rule, kept so tactic candidates match)."""
+    if G >= K:
+        for bk in (512, 256, 128, 64, 32, 16, 8):
+            if K % bk == 0 and bk <= max(K, 8):
+                return min(bk, K)
+        return K
+    best = G
+    for mult in range(max_block_k // G, 0, -1):
+        if K % (mult * G) == 0:
+            best = mult * G
+            break
+    return best
+
+
+def ramp_schedule(K: int, bk0: int = RAMP_SLAB,
+                  bk_big: int = 4 * RAMP_SLAB) -> tuple:
+    """Slabs per K13 step: the first step `bk0` rows (one slab by
+    default: the only cold copy), then steps of `bk_big` rows."""
+    n_slabs = K // RAMP_SLAB
+    sched = [min(max(1, bk0 // RAMP_SLAB), n_slabs)]
+    rest = n_slabs - sched[0]
+    big = max(1, bk_big // RAMP_SLAB)
+    while rest > 0:
+        take = min(big, rest)
+        sched.append(take)
+        rest -= take
+    return tuple(sched)
+
+
+def _ramp_able(K: int, Gp: int) -> bool:
+    return K % RAMP_SLAB == 0 and RAMP_SLAB % Gp == 0
+
+
+def w4a16_tactic_candidates(K: int, N: int, tiled: bool,
+                            group: int = 128) -> list:
+    """Candidate tactics for a W4A16 weight shape, timed by the engine's
+    warmup (`ModelEngine.autotune_kernels`) at its decode batch (at most
+    `GEMV_MAX_M` rows).  Every candidate carries ``block_m`` 16, so a
+    tactic decides only calls of up to 16 rows, the M range it was timed
+    in; prefill-sized calls keep the untuned default.
+
+    Tiled weights: K2 (``"stream"``), the tiled kernel K1 (the JAX
+    package's ``block_k`` tactic) and, where K % 1024 == 0, the ramp K13.
+    K-paired weights: K12's split-K slice, the JAX package's two
+    ``block_k`` values, the whole K, and smaller slices down to 128 rows
+    (more blocks for the narrow N of a kv_a projection)."""
+    n_groups = max(1, K // group)
+    Gp = pack_group_for(K, n_groups)
+    G = max(group, 128)
+    bk_max = _pick_block_k(K, G)
+    if tiled:
+        cands = [{"variant": "stream", "block_m": GEMV_MAX_M},
+                 {"block_k": bk_max, "block_m": GEMV_MAX_M}]
+        if _ramp_able(K, Gp):
+            cands.append({"variant": "ramp", "block_m": GEMV_MAX_M})
+        return cands
+    jax_bks = {bk for bk in {bk_max, max(bk_max // 2, G)} if K % bk == 0}
+    bks = jax_bks | {K} | {bk_max >> i for i in range(1, 5)}
+    return [{"block_k": bk, "block_m": GEMV_MAX_M}
+            for bk in sorted(bks, reverse=True)
+            if K % bk == 0 and bk % Gp == 0 and bk >= min(128, K)]
+
+
+def kpaired_block_k(M: int, K: int, N: int, Gp: int) -> int:
+    """K12's default K slice: the fewest slices (each whole pack groups,
+    at least 128 rows) that give the grid two blocks per SM."""
+    tiles = cdiv(M, _KP_TILE) * cdiv(N, _KP_TILE)
+    n_chunks = K // Gp
+    split = 1
+    for d in range(1, n_chunks + 1):
+        if n_chunks % d or (K // d < 128 and d > 1):
+            continue
+        split = d
+        if tiles * d >= 2 * _SMS:
+            break
+    return K // split
+
+
+def w4a16_plan(M: int, K: int, N: int, n_groups: int, tiled: bool,
+               block_k: Optional[int] = None,
+               block_m: Optional[int] = None,
+               variant: Optional[str] = None,
+               ramp_bk0: Optional[int] = None,
+               ramp_bk_big: Optional[int] = None) -> Tuple[str, dict]:
+    """The kernel a CUDA call runs and its parameters, as (launch-count
+    name, params): the JAX package's dispatch (`w4a16_matmul`) mapped onto
+    the port's kernels.  Pure shape logic; the tests check it on the CPU."""
+    Gp = pack_group_for(K, n_groups)
+    if not tiled:
+        if block_k is None or (block_m is not None and M > block_m):
+            block_k = kpaired_block_k(M, K, N, Gp)
+        return "w4a16_kpaired", {"block_k": block_k}
+    bm = block_m or min(STREAM_MAX_BM, max(16, round_up(M, 16)))
+    single = round_up(M, bm) == bm and bm * K * 2 <= (8 << 20)
+    if variant == "stream" and single and M <= GEMV_MAX_M:
+        return "w4a16_gemv", {}
+    if variant == "ramp" and single and _ramp_able(K, Gp):
+        return "w4a16_ramp", {"schedule": ramp_schedule(
+            K, ramp_bk0 or RAMP_SLAB, ramp_bk_big or 4 * RAMP_SLAB)}
+    if variant is None and block_k is None and block_m is None:
+        return ("w4a16_gemv" if M <= GEMV_MAX_M else "w4a16_gemm"), {}
+    return "w4a16_gemm", {}
+
+
+# ------------------------------------------------------------ kernels ---
+def _check_common(x, packed, scales, zeros, bias, N, K):
     if x.device.type != "cuda":
         raise ValueError("CUDA kernel called with a non-CUDA tensor")
-    for name, t in (("packed", packed3), ("scales", scales), ("zeros", zeros),
+    for name, t in (("packed", packed), ("scales", scales), ("zeros", zeros),
                     ("bias", bias)):
         if t is not None and t.device != x.device:
             raise ValueError(f"{name} is on {t.device}, x on {x.device}")
@@ -84,8 +224,8 @@ def _check_operands(x, packed3, scales, zeros, bias):
             raise ValueError(f"{name} must be contiguous")
     if x.dtype != torch.bfloat16 or not x.is_contiguous():
         raise ValueError("x must be contiguous bf16")
-    if packed3.dtype != torch.int8 or half * 2 != K:
-        raise ValueError(f"packed {tuple(packed3.shape)} does not match K={K}")
+    if packed.dtype != torch.int8:
+        raise ValueError("packed must be int8")
     if scales.dtype != torch.bfloat16 or scales.shape[1] != N \
             or K % scales.shape[0]:
         raise ValueError(f"scales must be bf16 [K/G, {N}]")
@@ -95,7 +235,16 @@ def _check_operands(x, packed3, scales, zeros, bias):
     if bias is not None and (bias.dtype != torch.float32
                              or bias.shape != (N,)):
         raise ValueError(f"bias must be f32 [{N}]")
-    G = K // scales.shape[0]
+    return K // scales.shape[0]
+
+
+def _check_operands(x, packed3, scales, zeros, bias):
+    M, K = x.shape
+    n_n, half, bn = packed3.shape
+    N = n_n * bn
+    if half * 2 != K:
+        raise ValueError(f"packed {tuple(packed3.shape)} does not match K={K}")
+    G = _check_common(x, packed3, scales, zeros, bias, N, K)
     if bn % 64 or K % 32 or G % 32:
         raise NotImplementedError(
             f"W4A16 kernels need BN % 64 == 0, K % 32 == 0 and G % 32 == 0 "
@@ -141,7 +290,8 @@ def w4a16_gemv(x: torch.Tensor, packed3: torch.Tensor, scales: torch.Tensor,
                zeros: Optional[torch.Tensor] = None,
                bias: Optional[torch.Tensor] = None,
                activation: Optional[str] = None) -> torch.Tensor:
-    """Launch K2 (M <= 16) on CUDA operands; same contract as `w4a16_gemm`."""
+    """Launch K2 on CUDA operands; same contract as `w4a16_gemm`, for M
+    up to `GEMV_MAX_M` rows."""
     M, N, K, G, bn = _check_operands(x, packed3, scales, zeros, bias)
     if M > GEMV_MAX_M:
         raise ValueError(f"w4a16_gemv takes M <= {GEMV_MAX_M}, got {M}")
@@ -161,16 +311,111 @@ def w4a16_gemv(x: torch.Tensor, packed3: torch.Tensor, scales: torch.Tensor,
     return out
 
 
+def w4a16_kpaired(x: torch.Tensor, packed2: torch.Tensor,
+                  scales: torch.Tensor, zeros: Optional[torch.Tensor] = None,
+                  bias: Optional[torch.Tensor] = None,
+                  activation: Optional[str] = None,
+                  block_k: Optional[int] = None) -> torch.Tensor:
+    """Launch K12 on CUDA operands: x [M, K] bf16, packed2 [K/2, N] int8
+    (K-paired, `pack_w4` with the pack group of `pack_group_for`), scales
+    (zeros) [K/G, N] bf16, bias [N] f32.  `block_k` is the K slice of one
+    block (default `kpaired_block_k`); K / block_k slices are summed by a
+    second pass.  Returns [M, N] bf16."""
+    M, K = x.shape
+    half, N = packed2.shape
+    if half * 2 != K:
+        raise ValueError(f"packed {tuple(packed2.shape)} does not match K={K}")
+    G = _check_common(x, packed2, scales, zeros, bias, N, K)
+    Gp = pack_group_for(K, scales.shape[0])
+    if N % 16 or Gp % 32 or K % Gp:
+        raise NotImplementedError(
+            f"w4a16_kpaired needs N % 16 == 0 and a pack group that is a "
+            f"multiple of 32 dividing K (N={N}, K={K}, pack group={Gp})")
+    bk = block_k or kpaired_block_k(M, K, N, Gp)
+    if bk % Gp or K % bk:
+        raise ValueError(f"block_k={bk} must be a multiple of the pack "
+                         f"group {Gp} that divides K={K}")
+    out = torch.empty((M, N), dtype=torch.bfloat16, device=x.device)
+    if M == 0:
+        return out
+    split = K // bk
+    ws = (torch.empty((split, M, N), dtype=torch.float32, device=x.device)
+          if split > 1 else None)
+    lib = cuda_build.load_library()
+    err = lib.tllm_w4a16_kpaired(
+        cuda_build.ptr(x), cuda_build.ptr(packed2), cuda_build.ptr(scales),
+        cuda_build.ptr(zeros), cuda_build.ptr(bias), cuda_build.ptr(ws),
+        cuda_build.ptr(out), M, N, K, G, Gp, _ACT_CODE[activation], split,
+        cuda_build.stream_of(x))
+    cuda_build.check(err, "w4a16_kpaired")
+    cuda_build.launch_counts["w4a16_kpaired"] += 1
+    return out
+
+
+def w4a16_ramp(x: torch.Tensor, packed3: torch.Tensor, scales: torch.Tensor,
+               zeros: Optional[torch.Tensor] = None,
+               bias: Optional[torch.Tensor] = None,
+               activation: Optional[str] = None,
+               schedule: Optional[tuple] = None) -> torch.Tensor:
+    """Launch K13 on CUDA operands (same contract as `w4a16_gemm`): one M
+    block of at most 256 rows, K % 1024 == 0, and `schedule` the slabs of
+    each step (default `ramp_schedule(K)`), at most 4 a step."""
+    M, N, K, G, bn = _check_operands(x, packed3, scales, zeros, bias)
+    Gp = pack_group_for(K, scales.shape[0])
+    if not _ramp_able(K, Gp):
+        raise NotImplementedError(
+            f"w4a16_ramp needs K % {RAMP_SLAB} == 0 and a pack group "
+            f"dividing {RAMP_SLAB} (K={K}, pack group={Gp})")
+    if M > STREAM_MAX_BM:
+        raise ValueError(f"w4a16_ramp takes one M block of <= "
+                         f"{STREAM_MAX_BM} rows, got {M}")
+    sched = tuple(int(v) for v in (schedule or ramp_schedule(K)))
+    if sum(sched) != K // RAMP_SLAB or min(sched) < 1 \
+            or max(sched) > RAMP_MAX_STEP or len(sched) > RAMP_MAX_STEPS:
+        raise ValueError(f"ramp schedule {sched} must cover K/{RAMP_SLAB} "
+                         f"slabs in <= {RAMP_MAX_STEPS} steps of 1.."
+                         f"{RAMP_MAX_STEP} slabs")
+    out = torch.empty((M, N), dtype=torch.bfloat16, device=x.device)
+    if M == 0:
+        return out
+    steps = (ctypes.c_int * len(sched))(*sched)
+    lib = cuda_build.load_library()
+    err = lib.tllm_w4a16_ramp(
+        cuda_build.ptr(x), cuda_build.ptr(packed3), cuda_build.ptr(scales),
+        cuda_build.ptr(zeros), cuda_build.ptr(bias), cuda_build.ptr(out),
+        M, N, K, G, bn, _ACT_CODE[activation], steps, len(sched),
+        cuda_build.num_sms(x.device), cuda_build.stream_of(x))
+    cuda_build.check(err, "w4a16_ramp")
+    cuda_build.launch_counts["w4a16_ramp"] += 1
+    return out
+
+
+_KERNELS = {"w4a16_gemm": w4a16_gemm, "w4a16_gemv": w4a16_gemv,
+            "w4a16_kpaired": w4a16_kpaired, "w4a16_ramp": w4a16_ramp}
+
+
 def w4a16_matmul(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor,
                  zeros: Optional[torch.Tensor] = None,
                  bias: Optional[torch.Tensor] = None,
                  activation: Optional[str] = None,
-                 out_dtype=None) -> torch.Tensor:
+                 out_dtype=None,
+                 block_m: Optional[int] = None,
+                 block_k: Optional[int] = None,
+                 block_n: Optional[int] = None,
+                 variant: Optional[str] = None,
+                 ramp_bk0: Optional[int] = None,
+                 ramp_bk_big: Optional[int] = None,
+                 lookahead: int = 4,
+                 mixed: bool = False) -> torch.Tensor:
     """Fused dequant-GEMM ``act(x @ deq(packed, scales, zeros) + bias)``.
 
     x ``[..., K]``; packed ``[N//BN, K//2, BN]`` (tiled) or ``[K//2, N]``
     (K-paired); scales/zeros ``[K//G, N]``; bias ``[N]``.  CPU tensors take
-    the plain version; CUDA tensors launch K1 or K2 (or raise)."""
+    the plain version (tactics change nothing there); CUDA tensors launch
+    the kernel `w4a16_plan` picks (or raise).  Without `block_k` and
+    `variant`, the tactic tuned for ``(K, N, tiled)`` is used (see the
+    module docstring for what each tactic key means on the card)."""
+    del block_n, lookahead, mixed      # no Hopper meaning (module docstring)
     out_dtype = out_dtype or x.dtype
     lead = x.shape[:-1]
     K = x.shape[-1]
@@ -181,7 +426,19 @@ def w4a16_matmul(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor,
         return out.reshape(*lead, out.shape[-1])
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
-    packed3 = to_tiled(packed, scales)
+    tiled = packed.dim() == 3
+    N = packed.shape[0] * packed.shape[2] if tiled else packed.shape[1]
+    if block_k is None and variant is None:
+        from tensorrt_llm_tpu_torch.autotuner import AutoTuner
+        tactic = AutoTuner.get().lookup("w4a16", (K, N, int(tiled))) or {}
+        block_k = tactic.get("block_k")
+        variant = tactic.get("variant")
+        block_m = tactic.get("block_m", block_m)
+        ramp_bk0 = tactic.get("ramp_bk0", ramp_bk0)
+        ramp_bk_big = tactic.get("ramp_bk_big", ramp_bk_big)
+    name, params = w4a16_plan(x2.shape[0], K, N, scales.shape[0], tiled,
+                              block_k, block_m, variant, ramp_bk0,
+                              ramp_bk_big)
     s = scales if scales.dtype == torch.bfloat16 else scales.to(torch.bfloat16)
     z = zeros
     if z is not None and z.dtype != torch.bfloat16:
@@ -190,8 +447,8 @@ def w4a16_matmul(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor,
     if b is not None and b.dtype != torch.float32:
         b = b.to(torch.float32)
     x2 = x2.to(torch.bfloat16).contiguous()
-    fn = w4a16_gemv if x2.shape[0] <= GEMV_MAX_M else w4a16_gemm
-    out = fn(x2, packed3, s.contiguous(), z, b, activation)
+    out = _KERNELS[name](x2, packed, s.contiguous(), z, b, activation,
+                         **params)
     return out.to(out_dtype).reshape(*lead, out.shape[-1])
 
 

@@ -8,14 +8,24 @@ as a Python loop of single steps with sampling on the device between them
 (the next step's input ids are the previous step's sampled tokens, still on
 the device); its tokens equal the JAX package's fused `scan` mode.
 
-Not in this slice: the chain/scan/unroll variants, warmup, CUDA graphs,
+`warmup` (run by `LLM` before its executor starts, by default on a CUDA
+device) tunes the W4A16 tactics (`autotune_kernels`), then runs one prefill
+chunk and one decode step of a scratch sequence so that the kernel library,
+library handles and the allocator are warm.  The JAX package's warmup also
+compiles every bucket; eager PyTorch has nothing to compile.
+
+Not in this slice: the chain/scan/unroll variants, CUDA graphs,
 pipeline/context/data parallelism and the KV page copy/extract machinery.
 """
 
 from __future__ import annotations
 
+import hashlib
+import itertools
+import sys
 import threading
 from dataclasses import dataclass
+from pathlib import Path
 from typing import List, Tuple
 
 import numpy as np
@@ -25,8 +35,12 @@ from tensorrt_llm_tpu_torch.attention_backend.interface import (
     AttentionMetadata)
 from tensorrt_llm_tpu_torch.llmapi.sampling_params import SamplingParams
 from tensorrt_llm_tpu_torch.runtime.kv_cache_manager import KVCacheManager
+from tensorrt_llm_tpu_torch.runtime.request import LlmRequest
 from tensorrt_llm_tpu_torch.runtime.sampler import sample_tokens
-from tensorrt_llm_tpu_torch.utils import resolve_device
+from tensorrt_llm_tpu_torch.utils import logger, resolve_device
+
+# weight bytes a tuning ring holds: past the 50 MB L2 of an H100
+_ROTATE_BYTES = 128 << 20
 
 
 @dataclass
@@ -137,3 +151,106 @@ class ModelEngine:
                 meta.positions = meta.positions + 1
                 meta.kv_lens = meta.kv_lens + 1
         return torch.stack(toks), torch.stack(logps)
+
+    # ------------------------------------------------------------ warmup ---
+    @staticmethod
+    def tactic_file() -> Path:
+        """Where tuned tactics are kept: in the hashed kernel build
+        directory, so kernels built from other sources never share tactics,
+        under a name hashed over the Python that decides what a tactic
+        means and how it is timed (the W4A16 dispatch, the tuner and this
+        module), so a changed rule re-tunes instead of loading old
+        winners."""
+        from tensorrt_llm_tpu_torch import autotuner
+        from tensorrt_llm_tpu_torch.ops import cuda_build, w4a16_gemm
+        h = hashlib.sha256()
+        for mod in (w4a16_gemm, autotuner, sys.modules[__name__]):
+            h.update(Path(mod.__file__).read_bytes())
+        return cuda_build.kernel_dir() / f"autotune-{h.hexdigest()[:16]}.json"
+
+    def autotune_kernels(self, m_bucket: int = 16) -> None:
+        """Time the W4A16 tactic candidates of every distinct weight shape
+        of the model's W4A16 linears and cache the fastest (JAX
+        `ModelEngine.autotune_kernels`).  Keys are ``(K, N, tiled)``; shapes
+        already cached are skipped.  W4A8 linears are not tuned: their K8
+        has no tactics.
+
+        Each candidate is timed as a decode step runs it: an input of
+        `m_bucket` rows (at most `GEMV_MAX_M`, the ``block_m`` that limits
+        every candidate to decode-sized calls) of random values and, on the
+        card, a ring of weight copies larger than the L2 (`_ROTATE_BYTES`),
+        so that every call reads its weight from HBM as a forward does.  On
+        a CUDA device the cache is saved to and loaded from
+        `tactic_file()`."""
+        from tensorrt_llm_tpu_torch.autotuner import AutoTuner, autotune
+        from tensorrt_llm_tpu_torch.layers.linear import Linear
+        from tensorrt_llm_tpu_torch.ops.w4a16_gemm import (
+            GEMV_MAX_M, w4a16_matmul, w4a16_tactic_candidates)
+        tuner = AutoTuner.get()
+        path = None
+        if self.device.type == "cuda":
+            path = self.tactic_file()
+            if path.exists() and not tuner.cache:
+                tuner.load(str(path))
+                logger.info("autotune cache loaded (%d tactics)",
+                            len(tuner.cache))
+        m = max(1, min(m_bucket, GEMV_MAX_M))
+        gen = torch.Generator(device=self.device).manual_seed(0)
+        n_before = len(tuner.cache)
+        seen = set()
+        for mod in self.model.modules():
+            if not isinstance(mod, Linear) or not mod.quantized or mod.w4a8:
+                continue
+            q, s, z = mod.qweight, mod.scales, mod.zeros
+            tiled = q.dim() == 3
+            K = q.shape[-2] * 2 if tiled else q.shape[0] * 2
+            N = q.shape[0] * q.shape[2] if tiled else q.shape[1]
+            key = (K, N, int(tiled))
+            if key in seen or tuner.lookup("w4a16", key):
+                continue
+            seen.add(key)
+            x = torch.randn((m, K), generator=gen, device=self.device).to(
+                torch.bfloat16)
+            ring = [(q, s, z)]
+            if self.device.type == "cuda":
+                nbytes = sum(t.numel() * t.element_size()
+                             for t in (q, s, z) if t is not None)
+                ring += [tuple(None if t is None else t.clone()
+                               for t in (q, s, z))
+                         for _ in range(-(-_ROTATE_BYTES // nbytes) - 1)]
+            turn = itertools.cycle(ring)
+
+            def run(tactic, _x=x, _turn=turn):
+                wq, ws, wz = next(_turn)
+                return w4a16_matmul(_x, wq, ws, wz, **tactic)
+
+            with autotune():
+                tuner.maybe_tune("w4a16", key, w4a16_tactic_candidates(
+                    K, N, tiled, group=K // s.shape[0]), run, self.device)
+            del ring, turn, run
+        if path is not None and len(tuner.cache) > n_before:
+            path.parent.mkdir(parents=True, exist_ok=True)
+            tuner.save(str(path))
+
+    @torch.no_grad()
+    def warmup(self, prefill_tokens: int = 256,
+               decode_batch: int = 16) -> None:
+        """`autotune_kernels` at the decode batch (the scheduler's
+        `max_batch_size`), then one prefill chunk of `prefill_tokens` tokens
+        and one decode step of a scratch sequence, freed again."""
+        self.autotune_kernels(decode_batch)
+        kv = self.kv_manager
+        req = LlmRequest([1] * max(1, prefill_tokens),
+                         SamplingParams(max_tokens=1))
+        kv.add_sequence(req.request_id, req.prompt_token_ids)
+        try:
+            kv.grow_sequence(req.request_id, req.prompt_len)
+            self.run_prefill(self.prepare_prefill_inputs(req, req.prompt_len))
+            req.context_position = req.prompt_len
+            req.output_token_ids.append(1)
+            kv.grow_sequence(req.request_id, req.num_tokens)
+            self.run_decode(self.prepare_decode_inputs([req]))
+        finally:
+            kv.free_sequence(req.request_id)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)

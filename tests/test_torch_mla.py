@@ -15,8 +15,9 @@ drawn with numpy from a seed and fed to both sides.
   q_b), W4A16 group 64, from the same float weights, through a chunked
   prefill and a decode step: 0.03 absolute on outputs of magnitude ~1
   (bf16 activations through five linears; f32 sums in another order move
-  a bf16 value by an ulp here and there).  The module test uses L = 48 so
-  that `kv_a`'s L + R = 64 columns fit the kernels' 64-wide weight tiles.
+  a bf16 value by an ulp here and there).  The module test uses L = 48
+  (L + R = 64 columns of `kv_a`); any width a multiple of 16 would do on
+  the card too, where a K-paired `kv_a` runs kernel K12.
 """
 
 import jax.numpy as jnp
