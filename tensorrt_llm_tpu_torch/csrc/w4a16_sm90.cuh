@@ -1,0 +1,880 @@
+// Hopper mainloop of the W4A16 GEMMs K12 (`w4a16_kpaired.cu`, 2-D K-paired
+// packing) and K13 (`w4a16_ramp.cu`, tiled packing):
+// act(x @ ((q - z) * s) + b), bf16 x, int4 q, bf16 scales and zeros, f32
+// accumulation, bf16 out.
+//
+// What bounds the products on the H100: the K*N/2 weight bytes at decode
+// (M <= 16: 2*M ops per weight byte, far below the ~295 op/byte ridge), the
+// tensor-core operations at a 256-row prefill chunk.
+//
+// Design (sm_90a: TMA, mbarriers, wgmma):
+//
+// * Swapped operands.  The kernel computes out^T = W^T x^T with
+//   wgmma.mma_async m64nNk16 in its RS form: the dequantized weight tile,
+//   64 output columns x 16 K, is the register A operand; the token tile is
+//   the shared-memory B operand (x [M, K] row-major is K-major).  The
+//   tokens are wgmma's N: a call of M rows runs a token tile NTOK of 8, 16,
+//   32, 64 or 128 (the smallest >= M, and M blocks of 128 above;
+//   `sm90_tiles` in ops/w4a16_gemm.py), so decode pays 8 token columns,
+//   not 64 rows.  A 256-token tile (128 accumulator registers a thread,
+//   five ring stages) ran M 256 slower on the H100 than two M blocks of
+//   128, so 128 is the largest.
+// * Column permutation instead of a transposed epilogue.  A row 16w + g +
+//   8h of warp w holds output column 16w + 2g + h.  Then one ldmatrix.x4
+//   .trans of the packed bytes gives each lane, in one 32-bit register per
+//   k16 step, exactly the 8 nibbles of its A fragment (columns 2g and
+//   2g + 1), and the accumulator fragment holds output pairs (c, c + 1) of
+//   two tokens: the epilogue stores bf16x2 words, eight lanes of a warp
+//   covering one 32-byte sector of a row.  The stores are sector-complete
+//   without staging through shared memory, so there is none.
+// * A ring of STAGES stages of 64 K rows each (32 packed rows x 64 columns
+//   of weights per consumer warpgroup, and two 32-column boxes of x), filled
+//   by TMA (cp.async.bulk.tensor with complete_tx mbarriers) from one
+//   producer thread while the consumer warpgroups run the stages before
+//   it: the copies of the next STAGES - 1 stages are in flight while one
+//   runs on the tensor cores.  TMA's out-of-bounds fill gives the zero
+//   token rows past M and the zero columns past N.  Both packings are 2-D
+//   byte arrays to TMA: the tiled [N/BN, K/2, BN] as (N/BN)*(K/2) rows of
+//   BN bytes, the K-paired [K/2, N] as K/2 rows of N bytes.  All boxes are
+//   64 bytes wide with the 64-byte swizzle, which keeps the ldmatrix reads
+//   and wgmma's B reads free of bank conflicts.
+// * K-paired steps.  Packed row c*Gp/2 + p holds K rows c*Gp + p (low
+//   nibble) and c*Gp + Gp/2 + p (high).  A stage is 32 packed rows of one
+//   pack group (Gp % 64 == 0): its x boxes are the matching 32 columns of
+//   both halves, x[:, c*Gp + p0 ..] and x[:, c*Gp + Gp/2 + p0 ..], and the
+//   low nibbles of 16 packed rows are one k16 step against the first box,
+//   the high nibbles the next against the second.  At Gp 32 a stage is two
+//   whole pack groups, 64 contiguous K rows as in the tiled packing: the
+//   boxes are x[:, 64s ..] and x[:, 64s + 32 ..], and the low and high
+//   nibbles of 16 packed rows are the two k16 steps of one box.  No repack.
+// * Group scales.  A stage carries the scale (and zero) row of its group,
+//   or at G 32, where the group changes after the stage's first 32 K rows,
+//   the two rows of its two groups, each dequantizing its two k16 steps.
+// * Dequantization in registers, exact.  The bytes are XORed with 0x88
+//   (two's-complement nibble q becomes q + 8), a lop3 (or, for the tiled
+//   pairing, a prmt and a lop3) places two nibbles under the bf16 pattern
+//   0x4300 (128.0), giving 136 + q exactly; one bf16x2 FMA subtracts
+//   136 + z (exact: small integers) and one multiplies by the bf16 scale,
+//   rounding once.  So the kernel's weight is bit for bit the plain
+//   version's bf16((q - z) * s) (`w4a16_matmul_plain`); only the f32
+//   summation order differs.  Scaling a per-group f32 partial instead would
+//   double the accumulator registers.
+// * Work units fill the card.  A unit is (M block, column tile, K slice);
+//   the K slices come from the caller (K12: `block_k`, K13: the ramp
+//   schedule).  A persistent grid walks the units (u = block, + grid, ...),
+//   the ring running on across unit boundaries.  With one slice a unit
+//   writes bf16 out with bias and activation; with several, each writes its
+//   f32 partial to ws[slice], and a second pass (`combine_kernel`) sums the
+//   slices in K order and applies bias and activation.  No atomics: the sum
+//   is bitwise repeatable.
+// * x is the shared operand.  At 128 tokens a block owns 128 columns
+//   (two consumer warpgroups sharing each x stage): at M 256, K 2048 (x 1
+//   MB), TinyLlama gate_up's 88 column tiles read 88 MB of x from L2
+//   instead of the 176 MB of 64-column tiles, ~9 us at ~10 TB/s against
+//   the 11.9 us operation bound.  At most 64 tokens one warpgroup of 64
+//   columns per block, two or three blocks per SM: x is then at most 0.5
+//   KB per K step, and the small wgmmas run in up to four independent accumulator
+//   chains (`Cfg::NACC`).
+// * Tensor maps are encoded on the host (cuTensorMapEncodeTiled, resolved
+//   through cudaGetDriverEntryPoint: no -lcuda) and cached by (pointer,
+//   shape, box), so a weight's map is encoded once and an activation's
+//   whenever the caching allocator hands out a new buffer.
+// * The combine pass is a programmatic dependent launch
+//   (griddepcontrol): it is scheduled while the mainloop runs and waits for
+//   its completion on the device, so the second launch costs no gap.
+#pragma once
+
+#include <cuda.h>
+#include <mutex>
+#include <unordered_map>
+
+#include "common.cuh"
+
+namespace tllm {
+namespace sm90 {
+
+constexpr int STAGE_K = 64;      // K rows per ring stage
+constexpr int STAGE_PR = 32;     // packed rows per ring stage
+constexpr int WG_COLS = 64;      // output columns per consumer warpgroup
+constexpr int W_BOX = STAGE_PR * WG_COLS;   // 2 KB of weights per warpgroup
+constexpr int MAX_SLICES = 128;
+
+template <int NTOK>
+struct Cfg {
+  static constexpr int NWG = NTOK >= 128 ? 2 : 1;   // consumer warpgroups
+  static constexpr int COLS = NWG * WG_COLS;
+  static constexpr int THREADS = NWG * 128 + 32;     // + one producer warp
+  // blocks an SM holds: three up to 32 tokens, two at 64, one from 128
+  static constexpr int MIN_BLOCKS = NTOK <= 32 ? 3 : (NWG == 1 ? 2 : 1);
+  // independent accumulator sets, k16 step i into set i % NACC: the
+  // wgmmas of one set form a dependent chain, so at small token tiles,
+  // where each wgmma is short, four chains keep the tensor pipe busy (at
+  // 128 tokens a second set of 64 registers made ptxas spill)
+  static constexpr int NACC = NTOK <= 32 ? 4 : (NTOK == 64 ? 2 : 1);
+  static constexpr int X_BOX = NTOK * 64;            // 32 bf16 x NTOK rows
+  static constexpr int SZ_BOX = COLS * 2;            // one bf16 scale row
+  // weights, x, then room for two scale rows and two zero rows (G 32);
+  // a multiple of 1 KB, so that every stage keeps its boxes on their
+  // swizzle patterns (the second rows fit in the rounding at every tile)
+  static constexpr int STAGE_BYTES =
+      (NWG * W_BOX + 2 * X_BOX + 4 * SZ_BOX + 1023) / 1024 * 1024;
+  // up to 32 tokens three blocks share an SM with ~70 KB of ring each
+  // (17 stages of 2 KB of weights at 8 tokens), at 64 two with ~100 KB
+  // (9 stages), so that ~200 KB of ring an SM is in flight at decode; 10
+  // stages at 128 tokens, one block an SM
+  static constexpr int STAGES_FIT =
+      (MIN_BLOCKS == 3 ? 70 * 1024 : MIN_BLOCKS == 2 ? 100 * 1024 : 215 * 1024) /
+      STAGE_BYTES;
+  static constexpr int STAGES = STAGES_FIT < 24 ? STAGES_FIT : 24;
+  // the ring, its barriers, and slack to align the base to 1 KB
+  static constexpr int SMEM = STAGES * STAGE_BYTES + 2 * STAGES * 8 + 1024;
+};
+
+// K slices of the units, in stages of STAGE_K rows, in K order
+struct Slices {
+  int n;
+  int start[MAX_SLICES + 1];
+};
+
+struct Params {
+  const bf16* scales;
+  const bf16* zeros;
+  const float* bias;
+  float* ws;          // [n slices, M, N] f32 partials (n > 1)
+  bf16* out;          // [M, N]
+  int M, N, K, G;
+  int Gp;             // K-paired: pack group (K rows)
+  int bn;             // tiled: column tile of the packing
+  int act;
+  int n_mb, n_ct;     // M blocks, column tiles
+  Slices sl;
+};
+
+// ------------------------------------------------------------ barriers ---
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(count));
+}
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar))
+               : "memory");
+}
+// wait until the barrier's phase differs from `parity`
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred P1;\n"
+      "LAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
+      "@P1 bra DONE;\n"
+      "bra LAB_WAIT;\n"
+      "DONE:\n"
+      "}\n" ::"r"(smem_u32(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// 2-D TMA load of one box into shared memory, completing on `bar`
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
+                                            int c0, int c1, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1)
+      : "memory");
+}
+
+// -------------------------------------------------------------- wgmma ---
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// wait until at most N committed wgmma groups are in flight
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Operand fences (CUTLASS's warpgroup_fence_operand): an empty asm that
+// reads and writes a register, so that the compiler keeps a wgmma operand
+// alive, in place, up to this point and orders its other uses around it.
+// The A registers of the stage in flight stay live until the wait that
+// retires its wgmmas (else the next stage's dequantization could reuse
+// them, and ptxas then serializes every wgmma), and the accumulators are
+// read only after the last wait.
+__device__ __forceinline__ void keep(uint32_t& r) {
+  asm volatile("" : "+r"(r)::"memory");
+}
+__device__ __forceinline__ void keep(float& r) {
+  asm volatile("" : "+f"(r)::"memory");
+}
+template <int N>
+__device__ __forceinline__ void keep_all(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) keep(r[i]);
+}
+__device__ __forceinline__ void keep_all(uint32_t (&r)[4][4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) keep(r[i][j]);
+}
+
+// Shared-memory descriptor of a K-major bf16 B tile in the 64-byte swizzle
+// (rows of 64 bytes, 8-row groups 512 bytes apart): start address >> 4,
+// LBO 1 (unused for swizzled K-major), SBO 512 >> 4, layout 2 (64B).
+__device__ __forceinline__ uint64_t desc_b64(uint32_t saddr) {
+  return (uint64_t)((saddr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
+         ((uint64_t)(512 >> 4) << 32) | ((uint64_t)2 << 62);
+}
+
+// D[64 x NTOK] += A[64 x 16] (registers, bf16) * B[16 x NTOK] (desc), f32
+template <int NTOK>
+struct Wgmma;
+
+template <> struct Wgmma<8> {
+  static __device__ __forceinline__ void mma(float* d, const uint32_t* a,
+                                             uint64_t desc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+        "{"
+        "%0, %1, %2, %3"
+        "}, {%4, %5, %6, %7}, %8, p, 1, 1, 0;\n"
+        "}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+  }
+};
+
+template <> struct Wgmma<16> {
+  static __device__ __forceinline__ void mma(float* d, const uint32_t* a,
+                                             uint64_t desc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7"
+        "}, {%8, %9, %10, %11}, %12, p, 1, 1, 0;\n"
+        "}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+  }
+};
+
+template <> struct Wgmma<32> {
+  static __device__ __forceinline__ void mma(float* d, const uint32_t* a,
+                                             uint64_t desc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15"
+        "}, {%16, %17, %18, %19}, %20, p, 1, 1, 0;\n"
+        "}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+  }
+};
+
+template <> struct Wgmma<64> {
+  static __device__ __forceinline__ void mma(float* d, const uint32_t* a,
+                                             uint64_t desc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31"
+        "}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n"
+        "}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+  }
+};
+
+template <> struct Wgmma<128> {
+  static __device__ __forceinline__ void mma(float* d, const uint32_t* a,
+                                             uint64_t desc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, "
+        "%40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, "
+        "%56, %57, %58, %59, %60, %61, %62, %63"
+        "}, {%64, %65, %66, %67}, %68, p, 1, 1, 0;\n"
+        "}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+          "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+          "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+  }
+};
+
+
+// ----------------------------------------------------------- dequant ---
+// (v & 0x000F000F) | 0x43004300: nibbles at bits 0 and 16 under 128.0
+__device__ __forceinline__ uint32_t magic2(uint32_t v) {
+  uint32_t d;
+  asm("lop3.b32 %0, %1, %2, %3, 0xEA;\n"
+      : "=r"(d)
+      : "r"(v), "r"(0x000F000Fu), "r"(0x43004300u));
+  return d;
+}
+__device__ __forceinline__ uint32_t prmt(uint32_t a, uint32_t b, uint32_t s) {
+  uint32_t d;
+  asm("prmt.b32 %0, %1, %2, %3;\n" : "=r"(d) : "r"(a), "r"(b), "r"(s));
+  return d;
+}
+__device__ __forceinline__ uint32_t bf2_fma(uint32_t a, uint32_t b,
+                                            uint32_t c) {
+  uint32_t d;
+  asm("fma.rn.bf16x2 %0, %1, %2, %3;\n" : "=r"(d) : "r"(a), "r"(b), "r"(c));
+  return d;
+}
+// (136 + q) - (136 + z) exactly, then times s, rounded once to bf16
+__device__ __forceinline__ uint32_t deq2(uint32_t h, uint32_t nz,
+                                         uint32_t s) {
+  return bf2_fma(bf2_fma(h, 0x3F803F80u, nz), s, 0x80008000u);
+}
+
+// ------------------------------------------------------------- kernel ---
+// Stage s of the ring: [NWG weight boxes of 2 KB][x box 0][x box 1][the
+// scale rows][the zero rows] of the stage's group (two at G 32, else one
+// of two slots), each swizzled box aligned to its 512-byte pattern; the
+// full and empty barriers follow the ring.
+// LAYOUT: TILED, KPAIRED_SPLIT (pack groups of 64 rows or more) or
+// KPAIRED_32 (pack groups of 32 rows)
+enum { TILED = 0, KPAIRED_SPLIT = 1, KPAIRED_32 = 2 };
+
+template <int NTOK, int LAYOUT>
+__global__ void __launch_bounds__(Cfg<NTOK>::THREADS, Cfg<NTOK>::MIN_BLOCKS)
+    w4a16_sm90_kernel(const __grid_constant__ CUtensorMap wmap,
+                      const __grid_constant__ CUtensorMap xmap,
+                      const __grid_constant__ CUtensorMap smap,
+                      const __grid_constant__ CUtensorMap zmap,
+                      const __grid_constant__ Params p) {
+  using C = Cfg<NTOK>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* ring = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~(uintptr_t)1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + C::STAGES * C::STAGE_BYTES);
+  uint64_t* empty = full + C::STAGES;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < C::STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], C::NWG * 4);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  // the combine pass may be scheduled now; it waits for this grid's
+  // completion (griddepcontrol.wait) before it reads the partials
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+
+  const int n_tiles = p.n_mb * p.n_ct;
+  const int n_units = n_tiles * p.sl.n;
+  // K-paired at Gp >= 64: a stage's low and high nibbles meet x segments
+  // Gp/2 apart; else (tiled, K-paired at Gp 32) its 64 K rows are
+  // contiguous.  Both are template arguments: as run-time selects in the
+  // issue of every wgmma they cost GPT-OSS o_proj 10-16%.
+  constexpr bool KPAIRED = LAYOUT != TILED;
+  constexpr bool split = LAYOUT == KPAIRED_SPLIT;
+  const int spg = split ? p.Gp / 2 / STAGE_PR : 1;   // stages per pack group
+  const bool has_zeros = p.zeros != nullptr;
+  const bool per_channel = p.G >= p.K;
+  const int nsz = p.G == 32 ? 2 : 1;    // scale rows a stage
+  auto group_of = [&](int st) {
+    return per_channel ? 0 : (split ? st / spg * p.Gp : st * STAGE_K) / p.G;
+  };
+
+  if (warp == C::NWG * 4) {
+    // ------------------------------------------------------ producer ---
+    if (lane != 0) return;
+    int slot = 0;
+    uint32_t phase = 0;
+    for (int u = blockIdx.x; u < n_units; u += gridDim.x) {
+      const int s = u / n_tiles, tile = u % n_tiles;
+      const int m0 = (tile / p.n_ct) * NTOK;
+      const int col0 = (tile % p.n_ct) * C::COLS;
+      for (int st = p.sl.start[s]; st < p.sl.start[s + 1]; ++st) {
+        mbar_wait(&empty[slot], phase ^ 1);
+        mbar_expect_tx(&full[slot], C::NWG * W_BOX + 2 * C::X_BOX +
+                                        (has_zeros ? 2 : 1) * nsz * C::SZ_BOX);
+        uint8_t* stage = ring + slot * C::STAGE_BYTES;
+        int kx0, kx1;
+        if (split) {
+          const int c = st / spg, p0 = (st % spg) * STAGE_PR;
+          kx0 = c * p.Gp + p0;
+          kx1 = kx0 + p.Gp / 2;
+        } else {
+          kx0 = st * STAGE_K;
+          kx1 = kx0 + STAGE_K / 2;
+        }
+#pragma unroll
+        for (int wg = 0; wg < C::NWG; ++wg) {
+          const int cw = col0 + wg * WG_COLS;
+          int wx, wy;
+          if (KPAIRED) {
+            wx = cw;
+            wy = st * STAGE_PR;
+          } else {
+            wx = cw % p.bn;
+            wy = (cw / p.bn) * (p.K / 2) + st * STAGE_PR;
+          }
+          tma_load_2d(stage + wg * W_BOX, &wmap, wx, wy, &full[slot]);
+        }
+        uint8_t* xs = stage + C::NWG * W_BOX;
+        tma_load_2d(xs, &xmap, kx0, m0, &full[slot]);
+        tma_load_2d(xs + C::X_BOX, &xmap, kx1, m0, &full[slot]);
+        const int grp = group_of(st);
+        tma_load_2d(xs + 2 * C::X_BOX, &smap, col0, grp, &full[slot]);
+        if (has_zeros)
+          tma_load_2d(xs + 2 * C::X_BOX + 2 * C::SZ_BOX, &zmap, col0, grp,
+                      &full[slot]);
+        if (++slot == C::STAGES) {
+          slot = 0;
+          phase ^= 1;
+        }
+      }
+    }
+    return;
+  }
+
+  // ------------------------------------------------------ consumers ---
+  const int wg = warp >> 2, wl = warp & 3;
+  const int g = lane >> 2, t = lane & 3;
+  // ldmatrix row of this lane: matrix i = lane / 8 covers 8 packed rows;
+  // tiled rows 8i + (0,4,1,5,2,6,3,7)[j] (a lane then holds rows t and
+  // t + 4: K 2t..2t+1 and 2t+8..2t+9 of a k16 step), K-paired rows 8i + j
+  const int mi = lane >> 3, mj = lane & 7;
+  const int lrow = 8 * mi + (KPAIRED ? mj : ((mj >> 1) + 4 * (mj & 1)));
+  const uint32_t lds_off =
+      wg * W_BOX + lrow * 64 + 16 * (wl ^ ((lrow >> 1) & 3));
+  float acc[C::NACC][NTOK / 2];
+  uint32_t a0[4][4], a1[4][4];
+  int slot = 0;              // the next stage to load, and its parity
+  uint32_t phase = 0;
+  for (int u = blockIdx.x; u < n_units; u += gridDim.x) {
+    const int s = u / n_tiles, tile = u % n_tiles;
+    const int m0 = (tile / p.n_ct) * NTOK;
+    const int c = (tile % p.n_ct) * C::COLS + wg * WG_COLS + wl * 16 + 2 * g;
+    const bool col_ok = c < p.N;
+#pragma unroll
+    for (int k = 0; k < C::NACC; ++k)
+#pragma unroll
+      for (int i = 0; i < NTOK / 2; ++i) acc[k][i] = 0.f;
+    // The stage loop, in the order that lets a warpgroup dequantize stage
+    // i + 1 while the tensor cores run stage i: start stage i's wgmmas
+    // (`mma`), `load` stage i + 1 into the other register set, `retire`
+    // stage i (wait, release its slot), start stage i + 1.  No wgmma starts
+    // while one is in flight that began before its A registers were
+    // written, which ptxas would otherwise answer by serializing every
+    // wgmma.
+    auto load = [&](uint32_t (&a)[4][4]) -> int {
+      const int my = slot;
+      mbar_wait(&full[slot], phase);
+      uint8_t* stage = ring + slot * C::STAGE_BYTES;
+      uint32_t r[4];
+      ldmatrix_x4_trans(r, reinterpret_cast<const bf16*>(stage + lds_off));
+      // this lane's columns' scale and zero of scale row `row` of the
+      // stage: pairs (s_c, s_c), (s_c+1, s_c+1) and -(136 + z) likewise
+      const uint8_t* sz = stage + C::NWG * W_BOX + 2 * C::X_BOX +
+                          2 * (wg * WG_COLS + wl * 16 + 2 * g);
+      uint32_t sA, sB, zA, zB;
+      auto scale_row = [&](int row) {
+        const uint32_t s2 =
+            *reinterpret_cast<const uint32_t*>(sz + row * C::SZ_BOX);
+        zA = zB = 0xC308C308u;   // -136, no zeros
+        if (has_zeros) {
+          const __nv_bfloat162 zz = *reinterpret_cast<const __nv_bfloat162*>(
+              sz + (2 + row) * C::SZ_BOX);
+          const float z0 = -(136.f + __low2float(zz));
+          const float z1 = -(136.f + __high2float(zz));
+          zA = pack_bf16x2(z0, z0);
+          zB = pack_bf16x2(z1, z1);
+        }
+        sA = prmt(s2, 0, 0x1010);
+        sB = prmt(s2, 0, 0x3232);
+      };
+      scale_row(0);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) r[i] ^= 0x88888888u;
+      if (KPAIRED) {
+        // k16 steps: low nibbles of rows 0-15, high nibbles of rows 0-15,
+        // then the same for rows 16-31 (at G 32 the second group's)
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {
+          if (q == 1 && nsz == 2) scale_row(1);
+#pragma unroll
+          for (int hi = 0; hi < 2; ++hi) {
+            const int sh = 4 * hi;
+            uint32_t* f = a[2 * q + hi];
+            f[0] = deq2(magic2(r[2 * q] >> sh), zA, sA);
+            f[1] = deq2(magic2(r[2 * q] >> (sh + 8)), zB, sB);
+            f[2] = deq2(magic2(r[2 * q + 1] >> sh), zA, sA);
+            f[3] = deq2(magic2(r[2 * q + 1] >> (sh + 8)), zB, sB);
+          }
+        }
+      } else {
+        // k16 step i from register i: byte j holds K 2t, 2t+1 (j = 0, 1)
+        // or 2t+8, 2t+9 (j = 2, 3) of column 2g (j even) or 2g + 1; steps
+        // 2 and 3 are the second group's at G 32
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          if (i == 2 && nsz == 2) scale_row(1);
+          const uint32_t hs = r[i] >> 4;
+          a[i][0] = deq2(magic2(prmt(r[i], hs, 0x0400)), zA, sA);
+          a[i][1] = deq2(magic2(prmt(r[i], hs, 0x0501)), zB, sB);
+          a[i][2] = deq2(magic2(prmt(r[i], hs, 0x0602)), zA, sA);
+          a[i][3] = deq2(magic2(prmt(r[i], hs, 0x0703)), zB, sB);
+        }
+      }
+      if (++slot == C::STAGES) {
+        slot = 0;
+        phase ^= 1;
+      }
+      return my;
+    };
+    auto mma = [&](uint32_t (&a)[4][4], int sl) {
+      // k16 step i reads x box (split ? i % 2 : i / 2) at column offset
+      // 16 * (split ? i / 2 : i % 2)
+      const uint32_t xb = smem_u32(ring + sl * C::STAGE_BYTES + C::NWG * W_BOX);
+#pragma unroll
+      for (int k = 0; k < C::NACC; ++k) keep_all(acc[k]);
+      keep_all(a);
+      wgmma_fence();
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int box = split ? (i & 1) : (i >> 1);
+        const int half = split ? (i >> 1) : (i & 1);
+        Wgmma<NTOK>::mma(acc[i % C::NACC], a[i],
+                         desc_b64(xb + box * C::X_BOX + 32 * half));
+      }
+      wgmma_commit();
+    };
+    auto retire = [&](uint32_t (&a)[4][4], int sl) {
+      wgmma_wait<0>();
+      keep_all(a);
+#pragma unroll
+      for (int k = 0; k < C::NACC; ++k) keep_all(acc[k]);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[sl]);
+    };
+    const int st_end = p.sl.start[s + 1];
+    int cur = load(a0);
+    for (int st = p.sl.start[s]; st < st_end; st += 2) {
+      mma(a0, cur);
+      const int nx = st + 1 < st_end ? load(a1) : -1;
+      retire(a0, cur);
+      if (nx < 0) break;
+      mma(a1, nx);
+      cur = st + 2 < st_end ? load(a0) : -1;
+      retire(a1, nx);
+    }
+#pragma unroll
+    for (int k = 1; k < C::NACC; ++k)
+#pragma unroll
+      for (int i = 0; i < NTOK / 2; ++i) acc[0][i] += acc[k][i];
+    // epilogue: lane holds columns (c, c + 1) of tokens 8j + 2t (+1)
+    if (!col_ok) continue;
+    const bool direct = p.sl.n == 1;
+    float b0 = 0.f, b1 = 0.f;
+    if (direct && p.bias != nullptr) {
+      b0 = p.bias[c];
+      b1 = p.bias[c + 1];
+    }
+#pragma unroll
+    for (int j = 0; j < NTOK / 8; ++j) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int m = m0 + 8 * j + 2 * t + h;
+        if (m >= p.M) continue;
+        const float v0 = acc[0][4 * j + h], v1 = acc[0][4 * j + 2 + h];
+        if (direct) {
+          *reinterpret_cast<__nv_bfloat162*>(p.out + (size_t)m * p.N + c) =
+              __floats2bfloat162_rn(activate_rt(p.act, v0 + b0),
+                                    activate_rt(p.act, v1 + b1));
+        } else {
+          *reinterpret_cast<float2*>(p.ws + ((size_t)s * p.M + m) * p.N + c) =
+              make_float2(v0, v1);
+        }
+      }
+    }
+  }
+}
+
+// Second pass: out = act(sum over the K slices of ws, in K order, + bias)
+static __global__ void combine_kernel(const float* __restrict__ ws,
+                               const float* __restrict__ bias,
+                               bf16* __restrict__ out, int M, int N, int n,
+                               int act) {
+  // launched as a programmatic dependent of the mainloop: wait until it
+  // has completed and its partials are visible
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+  const size_t i = ((size_t)blockIdx.x * blockDim.x + threadIdx.x) * 2;
+  const size_t MN = (size_t)M * N;
+  if (i >= MN) return;
+  float2 v = make_float2(0.f, 0.f);
+  for (int s = 0; s < n; ++s) {
+    const float2 w = *reinterpret_cast<const float2*>(ws + s * MN + i);
+    v.x += w.x;
+    v.y += w.y;
+  }
+  if (bias != nullptr) {
+    v.x += bias[i % N];
+    v.y += bias[i % N + 1];
+  }
+  *reinterpret_cast<__nv_bfloat162*>(out + i) =
+      __floats2bfloat162_rn(activate_rt(act, v.x), activate_rt(act, v.y));
+}
+
+// --------------------------------------------------------------- host ---
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
+                                  cuuint32_t, void*, const cuuint64_t*,
+                                  const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave,
+                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+inline EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = [] {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &f, 12000,
+                                         cudaEnableDefault, &q) != cudaSuccess ||
+        q != cudaDriverEntryPointSuccess)
+      f = nullptr;
+#else
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f, cudaEnableDefault,
+                                &q) != cudaSuccess ||
+        q != cudaDriverEntryPointSuccess)
+      f = nullptr;
+#endif
+    return reinterpret_cast<EncodeTiledFn>(f);
+  }();
+  return fn;
+}
+
+struct MapKey {
+  const void* ptr;
+  uint64_t inner, outer, stride;
+  uint32_t box_inner, box_outer, dtype;
+  bool operator==(const MapKey& o) const {
+    return ptr == o.ptr && inner == o.inner && outer == o.outer &&
+           stride == o.stride && box_inner == o.box_inner &&
+           box_outer == o.box_outer && dtype == o.dtype;
+  }
+};
+struct MapKeyHash {
+  size_t operator()(const MapKey& k) const {
+    size_t h = std::hash<const void*>()(k.ptr);
+    for (uint64_t v : {k.inner, k.outer, k.stride, (uint64_t)k.box_inner,
+                       (uint64_t)k.box_outer, (uint64_t)k.dtype})
+      h = h * 1000003u ^ std::hash<uint64_t>()(v);
+    return h;
+  }
+};
+
+// A 2-D tensor map (64-byte swizzle by default, zero fill out of bounds),
+// encoded once
+// per (pointer, shape, box) and cached.  Returns 0 or an error code.
+inline int tensor_map_2d(CUtensorMap* map, const void* ptr,
+                         CUtensorMapDataType dtype, uint64_t inner,
+                         uint64_t outer, uint64_t stride_bytes,
+                         uint32_t box_inner, uint32_t box_outer,
+                         CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_64B) {
+  static std::mutex mu;
+  static std::unordered_map<MapKey, CUtensorMap, MapKeyHash> cache;
+  const MapKey key{ptr, inner, outer, stride_bytes, box_inner, box_outer,
+                   (uint32_t)dtype * 16 + (uint32_t)swizzle};
+  std::lock_guard<std::mutex> lock(mu);
+  auto it = cache.find(key);
+  if (it != cache.end()) {
+    *map = it->second;
+    return 0;
+  }
+  EncodeTiledFn enc = encode_tiled();
+  if (enc == nullptr) return (int)cudaErrorNotSupported;
+  const cuuint64_t dims[2] = {inner, outer};
+  const cuuint64_t strides[1] = {stride_bytes};
+  const cuuint32_t box[2] = {box_inner, box_outer};
+  const cuuint32_t estr[2] = {1, 1};
+  const CUresult r = enc(map, dtype, 2, const_cast<void*>(ptr), dims, strides,
+                         box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                         swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  if (r != CUDA_SUCCESS) return 1000 + (int)r;
+  if (cache.size() >= 4096) cache.clear();
+  cache.emplace(key, *map);
+  return 0;
+}
+
+template <int NTOK, int LAYOUT>
+int launch_ntok(const CUtensorMap& wmap, const CUtensorMap& xmap,
+                const CUtensorMap& smap, const CUtensorMap& zmap,
+                const Params& p, int grid, cudaStream_t st) {
+  using C = Cfg<NTOK>;
+  static bool attr_set = false;   // set once per instantiation
+  if (!attr_set) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        w4a16_sm90_kernel<NTOK, LAYOUT>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+    if (e != cudaSuccess) return (int)e;
+    attr_set = true;
+  }
+  w4a16_sm90_kernel<NTOK, LAYOUT><<<grid, C::THREADS, C::SMEM, st>>>(
+      wmap, xmap, smap, zmap, p);
+  return (int)cudaGetLastError();
+}
+
+template <int LAYOUT>
+int launch_layout(const CUtensorMap& wmap, const CUtensorMap& xmap,
+                  const CUtensorMap& smap, const CUtensorMap& zmap,
+                  const Params& p, int ntok, int grid, cudaStream_t st) {
+  switch (ntok) {
+    case 8: return launch_ntok<8, LAYOUT>(wmap, xmap, smap, zmap, p, grid, st);
+    case 16: return launch_ntok<16, LAYOUT>(wmap, xmap, smap, zmap, p, grid, st);
+    case 32: return launch_ntok<32, LAYOUT>(wmap, xmap, smap, zmap, p, grid, st);
+    case 64: return launch_ntok<64, LAYOUT>(wmap, xmap, smap, zmap, p, grid, st);
+    case 128: return launch_ntok<128, LAYOUT>(wmap, xmap, smap, zmap, p, grid, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The whole call: tensor maps, the mainloop over `grid` persistent blocks,
+// and the combine pass when K is cut into more than one slice.  The wrapper
+// guarantees: ntok in {8, ..., 128}; M blocks of ntok tokens, n_mb * ntok >= M;
+// n_ct * cols >= N; slices cover K / 64 stages (K-paired: whole pack
+// groups, Gp % 64 == 0 or Gp == 32); G % 64 == 0, G == 32 or G == K;
+// N % 16 == 0; a workspace
+// of n_slices * M * N floats when n_slices > 1; contiguous operands.
+template <bool KPAIRED>
+int launch(const void* x, const void* qweight, const void* scales,
+           const void* zeros, const void* bias, void* workspace, void* out,
+           int M, int N, int K, int G, int Gp, int bn, int act, int ntok,
+           int n_mb, int n_ct, const int* slice_start, int n_slices, int grid,
+           void* stream) {
+  if (n_slices < 1 || n_slices > MAX_SLICES) return (int)cudaErrorInvalidValue;
+  Params p;
+  p.scales = static_cast<const bf16*>(scales);
+  p.zeros = static_cast<const bf16*>(zeros);
+  p.bias = static_cast<const float*>(bias);
+  p.ws = static_cast<float*>(workspace);
+  p.out = static_cast<bf16*>(out);
+  p.M = M;
+  p.N = N;
+  p.K = K;
+  p.G = G;
+  p.Gp = Gp;
+  p.bn = bn;
+  p.act = act;
+  p.n_mb = n_mb;
+  p.n_ct = n_ct;
+  p.sl.n = n_slices;
+  for (int i = 0; i <= n_slices; ++i) p.sl.start[i] = slice_start[i];
+  CUtensorMap wmap, xmap;
+  int e = KPAIRED
+      ? tensor_map_2d(&wmap, qweight, CU_TENSOR_MAP_DATA_TYPE_UINT8, N,
+                      K / 2, N, WG_COLS, STAGE_PR)
+      : tensor_map_2d(&wmap, qweight, CU_TENSOR_MAP_DATA_TYPE_UINT8, bn,
+                      (uint64_t)(N / bn) * (K / 2), bn, WG_COLS, STAGE_PR);
+  if (e) return e;
+  e = tensor_map_2d(&xmap, x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, K, M,
+                    (uint64_t)K * 2, 32, ntok);
+  if (e) return e;
+  // scale and zero rows [K/G, N] bf16: the block's columns of one row a
+  // box, of two rows at G 32
+  CUtensorMap smap, zmap;
+  const int cols = ntok >= 128 ? 2 * WG_COLS : WG_COLS;
+  const int rows = G == 32 ? 2 : 1;
+  e = tensor_map_2d(&smap, scales, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, N,
+                    K / G, (uint64_t)N * 2, cols, rows,
+                    CU_TENSOR_MAP_SWIZZLE_NONE);
+  if (e) return e;
+  zmap = smap;
+  if (zeros != nullptr) {
+    e = tensor_map_2d(&zmap, zeros, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, N,
+                      K / G, (uint64_t)N * 2, cols, rows,
+                      CU_TENSOR_MAP_SWIZZLE_NONE);
+    if (e) return e;
+  }
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if constexpr (KPAIRED) {
+    e = Gp == 32 ? launch_layout<KPAIRED_32>(wmap, xmap, smap, zmap, p, ntok,
+                                             grid, st)
+                 : launch_layout<KPAIRED_SPLIT>(wmap, xmap, smap, zmap, p,
+                                                ntok, grid, st);
+  } else {
+    e = launch_layout<TILED>(wmap, xmap, smap, zmap, p, ntok, grid, st);
+  }
+  if (e || n_slices == 1) return e;
+  // the combine pass as a programmatic dependent launch: its launch
+  // overlaps the mainloop's tail instead of following it
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(((size_t)M * N / 2 + 255) / 256));
+  cfg.blockDim = dim3(256);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const float* ws = p.ws;
+  const float* bs = p.bias;
+  bf16* o = p.out;
+  return (int)cudaLaunchKernelEx(&cfg, combine_kernel, ws, bs, o, M, N,
+                                 n_slices, act);
+}
+
+}  // namespace sm90
+}  // namespace tllm

@@ -15,10 +15,19 @@
 // Design: K1's tile loop with integer products.  One 128-thread block owns
 // a 64x64 output tile (four warps, 32x32 each) and walks K one scale group
 // at a time in 64-deep steps.  The xq tile is staged in shared memory as
-// int8; the int4 nibbles of the tiled packing ([N/BN, K/2, BN], one packed
-// byte = two consecutive K rows of one column) are sign-extended to int8 in
-// shared memory, stored column-major so that four consecutive K of one
-// column form one 32-bit B fragment.  Products run on the s8 tensor cores
+// int8; the int4 nibbles are sign-extended to int8 in shared memory, stored
+// column-major so that four consecutive K of one column form one 32-bit B
+// fragment.  Both packings are read as stored:
+// * tiled [N/BN, K/2, BN]: a packed byte holds two consecutive K rows of
+//   one column, and the step's 64 K rows are x[:, k0 .. k0 + 64];
+// * K-paired [K/2, N] (`pack_group`, a multiple of 64 dividing K): packed
+//   row k0/2 + r holds K row c*Gp + p0 + r (low nibble) and c*Gp + Gp/2 +
+//   p0 + r (high) for the step's pack group c and offset p0, so the step's
+//   shared K index r < 32 is the low nibble against x[:, c*Gp + p0 + r] and
+//   32 + r the high one against x[:, c*Gp + Gp/2 + p0 + r].  The integer
+//   sums of a scale group do not depend on the order of its K rows, so the
+//   result is the same as from the tiled packing.  Columns past N (K-paired:
+//   any N % 16 == 0) read as zeros and are not stored.  Products run on the s8 tensor cores
 // (mma.sync m16n8k32, s32 accumulate) into a per-group integer partial,
 // exact within the group; the f32 group scale multiplies the partial on
 // the accumulator, zero points enter as the rank-1 term rowsum(xq_g) * s *
@@ -37,12 +46,16 @@ constexpr int BNT = 64;
 constexpr int BK = 64;
 constexpr int LDS = BK + 16;  // padded row stride (bytes) of the smem tiles
 
-template <int ACT, bool HAS_Z, bool HAS_B>
+// KP: the K-paired packing (pack group Gp), else the tiled one.  A
+// template argument: as run-time branches the tiled path's steps ran
+// 13-35% slower.
+template <int ACT, bool HAS_Z, bool HAS_B, bool KP>
 __global__ void __launch_bounds__(128) w4a8_gemm_kernel(
     const int8_t* __restrict__ xq, const float* __restrict__ s_act,
     const int8_t* __restrict__ qw, const float* __restrict__ scales,
     const float* __restrict__ zeros, const float* __restrict__ bias,
-    bf16* __restrict__ out, int M, int N, int K, int G, int block_n) {
+    bf16* __restrict__ out, int M, int N, int K, int G, int block_n,
+    int Gp) {
   __shared__ __align__(16) int8_t xs[BM][LDS];
   __shared__ __align__(16) int8_t ws[BNT][LDS];  // [n][k]
   __shared__ int xsum[BM];
@@ -53,8 +66,11 @@ __global__ void __launch_bounds__(128) w4a8_gemm_kernel(
   const int g = lane >> 2, t = lane & 3;
   const int m0 = blockIdx.y * BM;
   const int n0 = blockIdx.x * BNT;
-  const int8_t* qtile = qw + (size_t)(n0 / block_n) * (K / 2) * block_n +
-                        (n0 % block_n);
+  // the block's columns of the packing, and its row stride
+  const int8_t* qtile =
+      KP ? qw + n0
+         : qw + (size_t)(n0 / block_n) * (K / 2) * block_n + (n0 % block_n);
+  const int wstride = KP ? N : block_n;
 
   float acc[2][4][4];
 #pragma unroll
@@ -76,6 +92,12 @@ __global__ void __launch_bounds__(128) w4a8_gemm_kernel(
     if (HAS_Z && tid < BM) xsum[tid] = 0;
 
     for (int k0 = gi * G; k0 < (gi + 1) * G; k0 += BK) {
+      // x columns of the step's shared K 0..31 and 32..63
+      int xk0 = k0, xk1 = k0 + 32;
+      if (KP) {
+        xk0 = k0 / Gp * Gp + (k0 % Gp) / 2;
+        xk1 = xk0 + Gp / 2;
+      }
       // xq tile: 64 rows x 64 int8, 16 bytes per thread per pass
 #pragma unroll
       for (int p = 0; p < 2; ++p) {
@@ -83,22 +105,31 @@ __global__ void __launch_bounds__(128) w4a8_gemm_kernel(
         const int r = i >> 2, c = (i & 3) * 16;
         uint4 v = make_uint4(0, 0, 0, 0);
         if (m0 + r < M)
-          v = *reinterpret_cast<const uint4*>(xq + (size_t)(m0 + r) * K + k0 + c);
+          v = *reinterpret_cast<const uint4*>(
+              xq + (size_t)(m0 + r) * K +
+              (KP ? (c < 32 ? xk0 + c : xk1 + c - 32) : k0 + c));
         *reinterpret_cast<uint4*>(&xs[r][c]) = v;
       }
       // weight tile: 32 packed rows x 64 columns, 16 bytes per thread
       {
         const int pr = tid >> 2, c16 = (tid & 3) * 16;
-        const uint4 v = *reinterpret_cast<const uint4*>(
-            qtile + (size_t)(k0 / 2 + pr) * block_n + c16);
+        uint4 v = make_uint4(0, 0, 0, 0);
+        if (!KP || n0 + c16 < N)
+          v = *reinterpret_cast<const uint4*>(
+              qtile + (size_t)(k0 / 2 + pr) * wstride + c16);
         const uint32_t w4[4] = {v.x, v.y, v.z, v.w};
 #pragma unroll
         for (int j = 0; j < 16; ++j) {
           const uint32_t u = (w4[j >> 2] >> (8 * (j & 3))) & 0xFFu;
           const uint32_t lo = (uint32_t)nib_lo(u) & 0xFFu;
           const uint32_t hi = (uint32_t)nib_hi(u) & 0xFFu;
-          *reinterpret_cast<uint16_t*>(&ws[c16 + j][2 * pr]) =
-              (uint16_t)(lo | (hi << 8));
+          if (KP) {
+            ws[c16 + j][pr] = (int8_t)lo;
+            ws[c16 + j][32 + pr] = (int8_t)hi;
+          } else {
+            *reinterpret_cast<uint16_t*>(&ws[c16 + j][2 * pr]) =
+                (uint16_t)(lo | (hi << 8));
+          }
         }
       }
       __syncthreads();
@@ -136,6 +167,7 @@ __global__ void __launch_bounds__(128) w4a8_gemm_kernel(
 #pragma unroll
     for (int ni = 0; ni < 4; ++ni) {
       const int col = n0 + wn * 32 + ni * 8 + 2 * t;
+      if (KP && col >= N) continue;  // N % 16 == 0: col + 1 < N as well
       const float s0 = scales[(size_t)gi * N + col];
       const float s1 = scales[(size_t)gi * N + col + 1];
       float zs0 = 0.f, zs1 = 0.f;
@@ -169,6 +201,7 @@ __global__ void __launch_bounds__(128) w4a8_gemm_kernel(
 #pragma unroll
     for (int ni = 0; ni < 4; ++ni) {
       const int col = n0 + wn * 32 + ni * 8 + 2 * t;
+      if (KP && col >= N) continue;
       const float b0 = HAS_B ? bias[col] : 0.f;
       const float b1 = HAS_B ? bias[col + 1] : 0.f;
 #pragma unroll
@@ -186,31 +219,43 @@ __global__ void __launch_bounds__(128) w4a8_gemm_kernel(
   }
 }
 
+template <int ACT, bool KP>
+void launch_kp(const int8_t* x, const float* sa, const int8_t* qw,
+               const float* s, const float* z, const float* b, bf16* out,
+               int M, int N, int K, int G, int bn, int gp, cudaStream_t st) {
+  dim3 grid((N + BNT - 1) / BNT, (M + BM - 1) / BM);
+  if (z && b)
+    w4a8_gemm_kernel<ACT, true, true, KP><<<grid, 128, 0, st>>>(x, sa, qw, s, z, b, out, M, N, K, G, bn, gp);
+  else if (z)
+    w4a8_gemm_kernel<ACT, true, false, KP><<<grid, 128, 0, st>>>(x, sa, qw, s, z, b, out, M, N, K, G, bn, gp);
+  else if (b)
+    w4a8_gemm_kernel<ACT, false, true, KP><<<grid, 128, 0, st>>>(x, sa, qw, s, z, b, out, M, N, K, G, bn, gp);
+  else
+    w4a8_gemm_kernel<ACT, false, false, KP><<<grid, 128, 0, st>>>(x, sa, qw, s, z, b, out, M, N, K, G, bn, gp);
+}
+
 template <int ACT>
 void launch_act(const int8_t* x, const float* sa, const int8_t* qw,
                 const float* s, const float* z, const float* b, bf16* out,
-                int M, int N, int K, int G, int bn, cudaStream_t st) {
-  dim3 grid(N / BNT, (M + BM - 1) / BM);
-  if (z && b)
-    w4a8_gemm_kernel<ACT, true, true><<<grid, 128, 0, st>>>(x, sa, qw, s, z, b, out, M, N, K, G, bn);
-  else if (z)
-    w4a8_gemm_kernel<ACT, true, false><<<grid, 128, 0, st>>>(x, sa, qw, s, z, b, out, M, N, K, G, bn);
-  else if (b)
-    w4a8_gemm_kernel<ACT, false, true><<<grid, 128, 0, st>>>(x, sa, qw, s, z, b, out, M, N, K, G, bn);
+                int M, int N, int K, int G, int bn, int gp, cudaStream_t st) {
+  if (gp)
+    launch_kp<ACT, true>(x, sa, qw, s, z, b, out, M, N, K, G, bn, gp, st);
   else
-    w4a8_gemm_kernel<ACT, false, false><<<grid, 128, 0, st>>>(x, sa, qw, s, z, b, out, M, N, K, G, bn);
+    launch_kp<ACT, false>(x, sa, qw, s, z, b, out, M, N, K, G, bn, gp, st);
 }
 
 }  // namespace
 }  // namespace tllm
 
-// Shapes are checked by the Python wrapper: N % 64 == 0, block_n % 64 == 0,
-// K % 64 == 0, G % 64 == 0, contiguous operands.
+// Shapes are checked by the Python wrapper: K % 64 == 0, G % 64 == 0,
+// contiguous operands, and either the tiled packing (pack_group 0,
+// block_n % 64 == 0 dividing N) or the K-paired one (N % 16 == 0,
+// pack_group % 64 == 0 dividing G).
 extern "C" int tllm_w4a8_gemm(const void* xq, const void* s_act,
                               const void* qweight, const void* scales,
                               const void* zeros, const void* bias, void* out,
                               int M, int N, int K, int group, int block_n,
-                              int act, void* stream) {
+                              int pack_group, int act, void* stream) {
   using namespace tllm;
   const int8_t* xp = static_cast<const int8_t*>(xq);
   const float* ap = static_cast<const float*>(s_act);
@@ -221,11 +266,11 @@ extern "C" int tllm_w4a8_gemm(const void* xq, const void* s_act,
   bf16* op = static_cast<bf16*>(out);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (act) {
-    case ACT_SILU: launch_act<ACT_SILU>(xp, ap, qp, sp, zp, bp, op, M, N, K, group, block_n, st); break;
-    case ACT_GELU: launch_act<ACT_GELU>(xp, ap, qp, sp, zp, bp, op, M, N, K, group, block_n, st); break;
-    case ACT_RELU: launch_act<ACT_RELU>(xp, ap, qp, sp, zp, bp, op, M, N, K, group, block_n, st); break;
-    case ACT_RELU2: launch_act<ACT_RELU2>(xp, ap, qp, sp, zp, bp, op, M, N, K, group, block_n, st); break;
-    default: launch_act<ACT_NONE>(xp, ap, qp, sp, zp, bp, op, M, N, K, group, block_n, st); break;
+    case ACT_SILU: launch_act<ACT_SILU>(xp, ap, qp, sp, zp, bp, op, M, N, K, group, block_n, pack_group, st); break;
+    case ACT_GELU: launch_act<ACT_GELU>(xp, ap, qp, sp, zp, bp, op, M, N, K, group, block_n, pack_group, st); break;
+    case ACT_RELU: launch_act<ACT_RELU>(xp, ap, qp, sp, zp, bp, op, M, N, K, group, block_n, pack_group, st); break;
+    case ACT_RELU2: launch_act<ACT_RELU2>(xp, ap, qp, sp, zp, bp, op, M, N, K, group, block_n, pack_group, st); break;
+    default: launch_act<ACT_NONE>(xp, ap, qp, sp, zp, bp, op, M, N, K, group, block_n, pack_group, st); break;
   }
   return (int)cudaGetLastError();
 }

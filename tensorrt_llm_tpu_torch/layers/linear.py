@@ -7,8 +7,8 @@ Counterpart of `tensorrt_llm_tpu/layers/linear.py` (`UnquantizedLinearMethod`,
 * ``qweight`` int8: W4A16 keeps the packing it arrives in, the tiled
   ``[N//BN, K//2, BN]`` or the K-paired ``[K//2, N]`` (which
   `W4A16LinearMethod._pack` picks where no 128-multiple column tile
-  divides N); W4A8 repacks a K-paired weight to tiles at load, since K8
-  reads tiles (the JAX package sends a 2-D W4A8 weight to XLA),
+  divides N), and so does W4A8 (K8 reads both packings; the JAX package
+  sends a 2-D W4A8 weight to XLA),
 * ``scales`` ``[K//G, N]``: bf16 for W4A16 (rounded once at load; the JAX
   package rounds the same f32 scales to bf16 on every call), f32 for W4A8
   (the JAX package never rounds them),
@@ -34,7 +34,7 @@ from tensorrt_llm_tpu_torch.ops.w4a16_gemm import (
     ACTIVATIONS, w4a8_matmul, w4a16_matmul)
 from tensorrt_llm_tpu_torch.quantization import (
     QuantAlgo, QuantConfig, choose_block_n, pack_group_for, pack_w4,
-    pack_w4_tiled, quantize_w4, to_tiled)
+    pack_w4_tiled, quantize_w4)
 
 
 class Linear(nn.Module):
@@ -83,8 +83,7 @@ class Linear(nn.Module):
         if self.quantized:
             s = p["scales"]
             sdt = torch.float32 if self.w4a8 else torch.bfloat16
-            q = p["qweight"].to(torch.int8)
-            self.qweight = (to_tiled(q, s) if self.w4a8 else q).contiguous()
+            self.qweight = p["qweight"].to(torch.int8).contiguous()
             self.scales = s.to(sdt).contiguous()
             z = p.get("zeros")
             self.zeros = None if z is None else z.to(sdt).contiguous()

@@ -495,9 +495,8 @@ def params_from_jax(tree: Any) -> Dict[str, torch.Tensor]:
     """The JAX package's parameter pytree (leaves as numpy arrays; bf16
     leaves may arrive as ml_dtypes bfloat16) as a port state for
     `DecoderModelForCausalLM.load_state`.  W4A16 int4 weights keep their
-    packing byte for byte (tiled or K-paired), W4A8 K-paired ones are
-    repacked to tiles by the layers at load; W4A16 scales round to bf16
-    there, W4A8 scales and zeros stay f32."""
+    packing byte for byte (tiled or K-paired), W4A8 ones too; W4A16
+    scales round to bf16 at load, W4A8 scales and zeros stay f32."""
     out: Dict[str, torch.Tensor] = {}
 
     def tensor(a) -> torch.Tensor:

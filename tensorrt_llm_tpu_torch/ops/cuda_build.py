@@ -69,9 +69,9 @@ _SIGNATURES = {
     "tllm_paged_decode_int8": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
                                _I, _I, _I, _I, _I, _F, _I, _F, _I, _I, _P],
     # xq, s_act, qweight, scales, zeros, bias, out, M, N, K, group,
-    # block_n, act, stream
+    # block_n, pack_group, act, stream
     "tllm_w4a8_gemm": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                       _P],
+                       _I, _P],
     # group_sizes, meta, M, E, stream
     "tllm_moe_gmm_units": [_P, _P, _I, _I, _P],
     # x, qweight, scales, zeros, meta, out, M, N, K, group, E, block_n, stream
@@ -87,13 +87,15 @@ _SIGNATURES = {
     # q, w, pool, tables, kv_lens, out, B, Hi, Di, BS, MB, stream
     "tllm_dsa_score": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # x, qweight, scales, zeros, bias, workspace, out, M, N, K, group,
-    # pack_group, act, split, stream
-    "tllm_w4a16_kpaired": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                           _I, _I, _P],
-    # x, qweight, scales, zeros, bias, out, M, N, K, group, block_n, act,
-    # schedule (host int array), n_steps, n_sms, stream
-    "tllm_w4a16_ramp": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                        ctypes.POINTER(_I), _I, _I, _P],
+    # pack_group, act, ntok, n_mb, n_ct, slice starts (host int array),
+    # n_slices, grid, stream
+    "tllm_w4a16_kpaired": [_P, _P, _P, _P, _P, _P, _P] + [_I] * 9
+    + [ctypes.POINTER(_I), _I, _I, _P],
+    # x, qweight, scales, zeros, bias, workspace, out, M, N, K, group,
+    # block_n, act, ntok, n_mb, n_ct, slice starts (host int array),
+    # n_slices, grid, stream
+    "tllm_w4a16_ramp": [_P, _P, _P, _P, _P, _P, _P] + [_I] * 9
+    + [ctypes.POINTER(_I), _I, _I, _P],
     # x, gu_qweight, gu_scales, gu_zeros, gu_bias, down_qweight,
     # down_scales, down_zeros, down_bias, h workspace, f32 workspace,
     # barrier word, barrier stats, out, M, K, I, gu_group, down_group,
@@ -219,9 +221,17 @@ def ptr(t) -> Optional[int]:
 
 
 def num_sms(device) -> int:
-    """Streaming multiprocessors of a CUDA device."""
+    """Streaming multiprocessors of a CUDA device (cached per device)."""
     import torch
-    return torch.cuda.get_device_properties(device).multi_processor_count
+    idx = torch.device(device).index
+    idx = torch.cuda.current_device() if idx is None else idx
+    if idx not in _SMS_BY_DEVICE:
+        _SMS_BY_DEVICE[idx] = torch.cuda.get_device_properties(
+            idx).multi_processor_count
+    return _SMS_BY_DEVICE[idx]
+
+
+_SMS_BY_DEVICE = {}
 
 
 def stream_of(t) -> int:

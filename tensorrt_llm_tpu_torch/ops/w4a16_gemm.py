@@ -27,20 +27,26 @@ Counterpart of `tensorrt_llm_tpu/ops/w4a16_gemm.py`:
 
 Tactic arguments keep the JAX signature; on the card they mean:
 
-* ``block_k``: for K12, the K rows each block reduces (split-K of
-  K / block_k slices, a multiple of the pack group); for K1, nothing more
-  than "the tiled kernel" (K1 walks the whole K of its tile).
+* ``block_k``: for K12, the K rows of one work unit (K / block_k slices,
+  each whole pack groups, summed by the combine pass); for K1, nothing
+  more than "the tiled kernel" (K1 walks the whole K of its tile).
 * ``block_m``: the M block of the single-M-block rule of ``"stream"`` and
   ``"ramp"`` (default ``min(256, round_up(M, 16))``); ``block_m=16`` sends
   only decode-sized calls to K2/K13 and larger ones to K1.  With a K12
   ``block_k`` it is the largest M the slice applies to (larger calls take
   `kpaired_block_k`); without it, every M.
 * ``variant``: ``"stream"`` (K2) or ``"ramp"`` (K13); ``ramp_bk0`` and
-  ``ramp_bk_big`` set K13's schedule (`ramp_schedule`).  For ``"stream"``
+  ``ramp_bk_big`` set K13's schedule (`ramp_schedule`), whose steps are
+  its work units' K ranges (`ramp_bounds`).  For ``"stream"``
   ``ramp_bk0`` was the TPU's DMA slab and has no meaning for K2.
 * ``block_n``, ``lookahead`` and ``mixed`` (the TPU's DMA depth and native
   s4 MXU feed) have no Hopper meaning: accepted, without effect, so that a
   JAX tactic file loads unchanged.
+
+K12 and K13 share one Hopper mainloop (`csrc/w4a16_sm90.cuh`: TMA ring,
+wgmma on the register-dequantized weight); `sm90_tiles`, `sm90_check` and
+`sm90_plan` are its pure shape logic (token tile, column tile, work units,
+grid), which the CPU tests check.
 
 Scales and zeros are rounded to bf16 on every path, as in the JAX package
 (its `w4a16_matmul_xla` and the Pallas kernels store half-precision scales).
@@ -51,13 +57,16 @@ quantized per token to int8 (`quantize_act_int8`, plain torch ops on every
 device, as the JAX package leaves it to XLA), then
 ``act(s_act * (xq @ deq(q, s, z)) + b)``.  `w4a8_matmul_plain` is the JAX
 XLA fallback's math; `w4a8_gemm` wraps kernel K8 (`csrc/w4a8_gemm.cu`,
-exact int8 x int4 products per scale group on the s8 tensor cores).  W4A8
-scales and zeros stay f32 on every path: the JAX package never rounds them.
+exact int8 x int4 products per scale group on the s8 tensor cores), which
+reads both packings as stored: the tiled one and the 2-D K-paired one that
+the JAX package sends to XLA (`w4a8_plan`).  W4A8 scales and zeros stay
+f32 on every path: the JAX package never rounds them.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -65,7 +74,7 @@ import torch.nn.functional as F
 
 from tensorrt_llm_tpu_torch.ops import cuda_build
 from tensorrt_llm_tpu_torch.quantization.quantize import (
-    dequantize_w4_any, pack_group_for, to_tiled)
+    dequantize_w4_any, pack_group_for)
 from tensorrt_llm_tpu_torch.utils import cdiv, round_up
 
 GEMV_MAX_M = 16
@@ -73,10 +82,20 @@ STREAM_MAX_BM = 256  # the JAX single-M-block rule's largest M block
 _SMS = 132          # H100 SXM streaming multiprocessors
 _GEMV_COLS = 64     # output columns per K2 block
 _GEMV_MAX_KS = 2048  # K2 stages its x slice in shared memory as f32
-_KP_TILE = 64       # K12 output tile: 64 rows x 64 columns
 RAMP_SLAB = 1024    # K rows per ramp slab (512 packed rows)
-RAMP_MAX_STEP = 4   # slabs a K13 ring stage holds
+RAMP_MAX_STEP = 4   # slabs a K13 schedule step may have
 RAMP_MAX_STEPS = 64  # steps a K13 schedule may have
+# the Hopper mainloop of K12 and K13 (`csrc/w4a16_sm90.cuh`)
+SM90_STAGE_K = 64            # K rows per ring stage
+SM90_NTOK = (8, 16, 32, 64, 128)   # token tiles (wgmma N)
+SM90_M_BLOCK = 128           # tokens per M block (the largest tile)
+SM90_MAX_SLICES = 128        # K slices a call may have
+# `kpaired_block_k`'s cost model: a ring stage takes about 0.37 us of one
+# block of 64 columns (at most 64 tokens) and 0.45 us of one of 128
+# columns, 128 tokens (H100, `chip_smoke.py` phase-3 shapes); the f32
+# partials move at about twice HBM's 3.35 TB/s, as most stay in the L2
+_SM90_STAGE_S = {1: 0.37e-6, 2: 0.45e-6}
+_PARTIAL_BPS = 2 * 3.35e12
 
 ACTIVATIONS = {
     None: lambda v: v,
@@ -122,6 +141,7 @@ def _pick_block_k(K: int, G: int, max_block_k: int = 4096) -> int:
     return best
 
 
+@functools.lru_cache(maxsize=4096)
 def ramp_schedule(K: int, bk0: int = RAMP_SLAB,
                   bk_big: int = 4 * RAMP_SLAB) -> tuple:
     """Slabs per K13 step: the first step `bk0` rows (one slab by
@@ -171,21 +191,109 @@ def w4a16_tactic_candidates(K: int, N: int, tiled: bool,
             if K % bk == 0 and bk % Gp == 0 and bk >= min(128, K)]
 
 
+def sm90_tiles(M: int) -> Tuple[int, int]:
+    """(token tile, consumer warpgroups) of the Hopper mainloop for M rows:
+    the smallest wgmma N that holds min(M, 128) tokens (larger calls run
+    M blocks of 128); 128 columns (two warpgroups sharing each x stage) at
+    128 tokens, 64 below."""
+    ntok = next(t for t in SM90_NTOK if t >= min(M, SM90_M_BLOCK))
+    return ntok, (2 if ntok >= 128 else 1)
+
+
+def sm90_check(K: int, N: int, G: int, kpaired: bool, Gp: int = 0,
+               bn: int = 0) -> None:
+    """Raise NotImplementedError on a shape the mainloop does not take:
+    it needs N % 16 == 0, K % 64 == 0, G 32, a multiple of 64 or one group,
+    and a K-paired pack group of 32 or a multiple of 64 dividing K, or a
+    tiled BN % 64 dividing N."""
+    if N % 16 or K % SM90_STAGE_K or N <= 0:
+        raise NotImplementedError(
+            f"W4A16 sm90 kernels need N % 16 == 0 and K % 64 == 0 "
+            f"(N={N}, K={K})")
+    if G < K and G % SM90_STAGE_K and G != 32:
+        raise NotImplementedError(
+            f"W4A16 sm90 kernels need G 32, G % 64 == 0 or one group "
+            f"(G={G})")
+    if kpaired and ((Gp % SM90_STAGE_K and Gp != 32) or K % Gp):
+        raise NotImplementedError(
+            f"w4a16_kpaired needs a pack group of 32 or a multiple of 64 "
+            f"dividing K (K={K}, pack group={Gp})")
+    if not kpaired and (bn % 64 or N % bn):
+        raise NotImplementedError(
+            f"w4a16_ramp needs BN % 64 == 0 dividing N (BN={bn}, N={N})")
+
+
+@functools.lru_cache(maxsize=4096)
+def sm90_plan(M: int, K: int, N: int, bounds: tuple,
+              n_sms: int = _SMS) -> dict:
+    """The launch of the Hopper mainloop: token tile, column tile, M blocks,
+    work units and persistent grid.  `bounds` are the K rows where the
+    slices start and end (0, ..., K), each a multiple of 64.  A unit is
+    (M block, column tile, slice); the grid is one block per unit up to
+    the blocks the SMs hold (three of 64 columns up to 32 tokens, two at
+    64, one of 128 columns at 128).  Pure shape logic; the tests check it
+    on the CPU."""
+    if bounds[0] != 0 or bounds[-1] != K or any(
+            b <= a or b % SM90_STAGE_K for a, b in zip(bounds, bounds[1:])):
+        raise ValueError(f"slices {bounds} must cut K={K} at multiples of "
+                         f"{SM90_STAGE_K}")
+    n_sl = len(bounds) - 1
+    if n_sl > SM90_MAX_SLICES:
+        raise ValueError(f"{n_sl} K slices: at most {SM90_MAX_SLICES}")
+    ntok, nwg = sm90_tiles(M)
+    cols = 64 * nwg
+    n_mb = cdiv(M, ntok)
+    n_ct = cdiv(N, cols)
+    units = n_mb * n_ct * n_sl
+    per_sm = 1 if nwg == 2 else (3 if ntok <= 32 else 2)
+    return {"ntok": ntok, "nwg": nwg, "cols": cols, "n_mb": n_mb,
+            "n_ct": n_ct, "slices": n_sl, "units": units,
+            "grid": min(units, per_sm * n_sms),
+            "stage_start": tuple(b // SM90_STAGE_K for b in bounds)}
+
+
+@functools.lru_cache(maxsize=4096)
+def _c_ints(values: tuple):
+    """A ctypes int array of `values`, built once (the C side only reads
+    it)."""
+    return (ctypes.c_int * len(values))(*values)
+
+
+@functools.lru_cache(maxsize=4096)
+def kpaired_slice_choices(K: int, Gp: int) -> tuple:
+    """The K slices K12 can take, largest first: K cut into equal slices of
+    whole pack groups and stages, at least 128 rows (or the whole K), at
+    most `SM90_MAX_SLICES` of them."""
+    chunk = max(Gp, SM90_STAGE_K)
+    return tuple(K // d for d in range(1, K // chunk + 1)
+                 if K % d == 0 and (K // d) % chunk == 0
+                 and (K // d >= 128 or d == 1) and d <= SM90_MAX_SLICES)
+
+
+@functools.lru_cache(maxsize=4096)
 def kpaired_block_k(M: int, K: int, N: int, Gp: int) -> int:
-    """K12's default K slice: the fewest slices (each whole pack groups,
-    at least 128 rows) that give the grid two blocks per SM."""
-    tiles = cdiv(M, _KP_TILE) * cdiv(N, _KP_TILE)
-    n_chunks = K // Gp
-    split = 1
-    for d in range(1, n_chunks + 1):
-        if n_chunks % d or (K // d < 128 and d > 1):
-            continue
-        split = d
-        if tiles * d >= 2 * _SMS:
-            break
-    return K // split
+    """K12's default K slice (`kpaired_slice_choices`): the one with the
+    least modeled time.  The units run in rounds over the blocks the SMs
+    hold (`sm90_plan`), each taking its stages one after the other
+    (`_SM90_STAGE_S`), and more than one slice adds the f32 partials the
+    combine pass writes and reads.  `chip_smoke.py` times every choice at
+    the served shapes and fails if this one is not within
+    ``KPAIRED_BK_SLACK`` of the fastest."""
+    nwg = sm90_tiles(M)[1]
+    best, best_t = K, None
+    for bk in kpaired_slice_choices(K, Gp):
+        d = K // bk
+        plan = sm90_plan(M, K, N, tuple(range(0, K + 1, bk)))
+        rounds = cdiv(plan["units"], plan["grid"])
+        t = rounds * (bk // SM90_STAGE_K) * _SM90_STAGE_S[nwg]
+        if d > 1:
+            t += 2 * d * M * N * 4 / _PARTIAL_BPS
+        if best_t is None or t < best_t * (1 - 1e-9):
+            best, best_t = bk, t
+    return best
 
 
+@functools.lru_cache(maxsize=4096)
 def w4a16_plan(M: int, K: int, N: int, n_groups: int, tiled: bool,
                block_k: Optional[int] = None,
                block_m: Optional[int] = None,
@@ -311,6 +419,12 @@ def w4a16_gemv(x: torch.Tensor, packed3: torch.Tensor, scales: torch.Tensor,
     return out
 
 
+def _check_sm90_ptrs(*ts):
+    for t in ts:
+        if t is not None and t.data_ptr() % 16:
+            raise ValueError("TMA operands must start 16-byte aligned")
+
+
 def w4a16_kpaired(x: torch.Tensor, packed2: torch.Tensor,
                   scales: torch.Tensor, zeros: Optional[torch.Tensor] = None,
                   bias: Optional[torch.Tensor] = None,
@@ -319,37 +433,56 @@ def w4a16_kpaired(x: torch.Tensor, packed2: torch.Tensor,
     """Launch K12 on CUDA operands: x [M, K] bf16, packed2 [K/2, N] int8
     (K-paired, `pack_w4` with the pack group of `pack_group_for`), scales
     (zeros) [K/G, N] bf16, bias [N] f32.  `block_k` is the K slice of one
-    block (default `kpaired_block_k`); K / block_k slices are summed by a
-    second pass.  Returns [M, N] bf16."""
+    work unit (default `kpaired_block_k`); K / block_k slices are summed by
+    the combine pass.  Returns [M, N] bf16."""
     M, K = x.shape
     half, N = packed2.shape
     if half * 2 != K:
         raise ValueError(f"packed {tuple(packed2.shape)} does not match K={K}")
     G = _check_common(x, packed2, scales, zeros, bias, N, K)
     Gp = pack_group_for(K, scales.shape[0])
-    if N % 16 or Gp % 32 or K % Gp:
-        raise NotImplementedError(
-            f"w4a16_kpaired needs N % 16 == 0 and a pack group that is a "
-            f"multiple of 32 dividing K (N={N}, K={K}, pack group={Gp})")
+    sm90_check(K, N, G, True, Gp=Gp)
     bk = block_k or kpaired_block_k(M, K, N, Gp)
     if bk % Gp or K % bk:
         raise ValueError(f"block_k={bk} must be a multiple of the pack "
                          f"group {Gp} that divides K={K}")
+    _check_sm90_ptrs(x, packed2)
     out = torch.empty((M, N), dtype=torch.bfloat16, device=x.device)
     if M == 0:
         return out
-    split = K // bk
-    ws = (torch.empty((split, M, N), dtype=torch.float32, device=x.device)
-          if split > 1 else None)
+    plan = sm90_plan(M, K, N, tuple(range(0, K + 1, bk)),
+                     cuda_build.num_sms(x.device))
+    n_sl = plan["slices"]
+    ws = (torch.empty((n_sl, M, N), dtype=torch.float32, device=x.device)
+          if n_sl > 1 else None)
+    starts = _c_ints(plan["stage_start"])
     lib = cuda_build.load_library()
     err = lib.tllm_w4a16_kpaired(
         cuda_build.ptr(x), cuda_build.ptr(packed2), cuda_build.ptr(scales),
         cuda_build.ptr(zeros), cuda_build.ptr(bias), cuda_build.ptr(ws),
-        cuda_build.ptr(out), M, N, K, G, Gp, _ACT_CODE[activation], split,
+        cuda_build.ptr(out), M, N, K, G, Gp, _ACT_CODE[activation],
+        plan["ntok"], plan["n_mb"], plan["n_ct"], starts, n_sl, plan["grid"],
         cuda_build.stream_of(x))
     cuda_build.check(err, "w4a16_kpaired")
     cuda_build.launch_counts["w4a16_kpaired"] += 1
     return out
+
+
+@functools.lru_cache(maxsize=4096)
+def ramp_bounds(K: int, schedule: Optional[tuple] = None) -> tuple:
+    """K13's work-unit K ranges: the ramp steps (`ramp_schedule(K)` by
+    default) as K-row bounds, after the validation of the TPU kernel's
+    schedule (1..4 slabs a step, at most 64 steps, covering K)."""
+    sched = tuple(int(v) for v in (schedule or ramp_schedule(K)))
+    if not sched or sum(sched) != K // RAMP_SLAB or min(sched) < 1 \
+            or max(sched) > RAMP_MAX_STEP or len(sched) > RAMP_MAX_STEPS:
+        raise ValueError(f"ramp schedule {sched} must cover K/{RAMP_SLAB} "
+                         f"slabs in <= {RAMP_MAX_STEPS} steps of 1.."
+                         f"{RAMP_MAX_STEP} slabs")
+    bounds = [0]
+    for v in sched:
+        bounds.append(bounds[-1] + v * RAMP_SLAB)
+    return tuple(bounds)
 
 
 def w4a16_ramp(x: torch.Tensor, packed3: torch.Tensor, scales: torch.Tensor,
@@ -359,32 +492,35 @@ def w4a16_ramp(x: torch.Tensor, packed3: torch.Tensor, scales: torch.Tensor,
                schedule: Optional[tuple] = None) -> torch.Tensor:
     """Launch K13 on CUDA operands (same contract as `w4a16_gemm`): one M
     block of at most 256 rows, K % 1024 == 0, and `schedule` the slabs of
-    each step (default `ramp_schedule(K)`), at most 4 a step."""
+    each step (default `ramp_schedule(K)`), at most 4 a step; each step is
+    one work unit's K range (`ramp_bounds`)."""
     M, N, K, G, bn = _check_operands(x, packed3, scales, zeros, bias)
     Gp = pack_group_for(K, scales.shape[0])
     if not _ramp_able(K, Gp):
         raise NotImplementedError(
             f"w4a16_ramp needs K % {RAMP_SLAB} == 0 and a pack group "
             f"dividing {RAMP_SLAB} (K={K}, pack group={Gp})")
+    sm90_check(K, N, G, False, bn=bn)
     if M > STREAM_MAX_BM:
         raise ValueError(f"w4a16_ramp takes one M block of <= "
                          f"{STREAM_MAX_BM} rows, got {M}")
-    sched = tuple(int(v) for v in (schedule or ramp_schedule(K)))
-    if sum(sched) != K // RAMP_SLAB or min(sched) < 1 \
-            or max(sched) > RAMP_MAX_STEP or len(sched) > RAMP_MAX_STEPS:
-        raise ValueError(f"ramp schedule {sched} must cover K/{RAMP_SLAB} "
-                         f"slabs in <= {RAMP_MAX_STEPS} steps of 1.."
-                         f"{RAMP_MAX_STEP} slabs")
+    bounds = ramp_bounds(K, None if schedule is None else tuple(schedule))
+    _check_sm90_ptrs(x, packed3)
     out = torch.empty((M, N), dtype=torch.bfloat16, device=x.device)
     if M == 0:
         return out
-    steps = (ctypes.c_int * len(sched))(*sched)
+    plan = sm90_plan(M, K, N, bounds, cuda_build.num_sms(x.device))
+    n_sl = plan["slices"]
+    ws = (torch.empty((n_sl, M, N), dtype=torch.float32, device=x.device)
+          if n_sl > 1 else None)
+    starts = _c_ints(plan["stage_start"])
     lib = cuda_build.load_library()
     err = lib.tllm_w4a16_ramp(
         cuda_build.ptr(x), cuda_build.ptr(packed3), cuda_build.ptr(scales),
-        cuda_build.ptr(zeros), cuda_build.ptr(bias), cuda_build.ptr(out),
-        M, N, K, G, bn, _ACT_CODE[activation], steps, len(sched),
-        cuda_build.num_sms(x.device), cuda_build.stream_of(x))
+        cuda_build.ptr(zeros), cuda_build.ptr(bias), cuda_build.ptr(ws),
+        cuda_build.ptr(out), M, N, K, G, bn, _ACT_CODE[activation],
+        plan["ntok"], plan["n_mb"], plan["n_ct"], starts, n_sl, plan["grid"],
+        cuda_build.stream_of(x))
     cuda_build.check(err, "w4a16_ramp")
     cuda_build.launch_counts["w4a16_ramp"] += 1
     return out
@@ -482,20 +618,50 @@ def w4a8_matmul_plain(xq: torch.Tensor, s_act: torch.Tensor,
     return ACTIVATIONS[activation](out).to(out_dtype)
 
 
-def w4a8_gemm(xq: torch.Tensor, s_act: torch.Tensor, packed3: torch.Tensor,
+@functools.lru_cache(maxsize=4096)
+def w4a8_plan(K: int, N: int, n_groups: int, block_n: int = 0) -> dict:
+    """K8's launch for a weight shape, as the packing it reads: the tiled
+    ``[N/BN, K/2, BN]`` (`block_n` BN, ``pack_group`` 0) or the 2-D
+    K-paired ``[K/2, N]`` (`block_n` 0, ``pack_group`` from
+    `pack_group_for`), in 64-column tiles (``col_tiles``; a K-paired N
+    needs only N % 16 == 0, the columns past it read as zeros).  Raises
+    NotImplementedError on a shape K8 does not take.  Pure shape logic;
+    the tests check it on the CPU."""
+    G = K // n_groups
+    Gp = 0 if block_n else pack_group_for(K, n_groups)
+    if K % 64 or G % 64:
+        raise NotImplementedError(
+            f"w4a8_gemm kernel needs K % 64 == 0 and G % 64 == 0 "
+            f"(K={K}, G={G})")
+    if block_n and (block_n % 64 or N % block_n):
+        raise NotImplementedError(
+            f"w4a8_gemm kernel needs BN % 64 == 0 dividing N (BN={block_n}, "
+            f"N={N})")
+    if not block_n and (N % 16 or Gp % 64 or K % Gp):
+        raise NotImplementedError(
+            f"w4a8_gemm kernel needs N % 16 == 0 and a pack group that is "
+            f"a multiple of 64 for a K-paired weight (N={N}, pack "
+            f"group={Gp})")
+    return {"pack_group": Gp, "col_tiles": cdiv(N, 64)}
+
+
+def w4a8_gemm(xq: torch.Tensor, s_act: torch.Tensor, packed: torch.Tensor,
               scales: torch.Tensor, zeros: Optional[torch.Tensor] = None,
               bias: Optional[torch.Tensor] = None,
               activation: Optional[str] = None) -> torch.Tensor:
     """Launch K8 on CUDA operands: xq [M, K] int8, s_act [M, 1] f32,
-    packed3 [N/BN, K/2, BN] int8, scales (zeros) [K/G, N] f32, bias [N]
-    f32.  Returns [M, N] bf16."""
+    packed [N/BN, K/2, BN] (tiled) or [K/2, N] (K-paired) int8, scales
+    (zeros) [K/G, N] f32, bias [N] f32.  Returns [M, N] bf16."""
     M, K = xq.shape
-    n_n, half, bn = packed3.shape
-    N = n_n * bn
+    if packed.dim() == 3:
+        n_n, half, bn = packed.shape
+        N = n_n * bn
+    else:
+        (half, N), bn = packed.shape, 0
     if xq.device.type != "cuda":
         raise ValueError("CUDA kernel called with a non-CUDA tensor")
     for name, t, dt in (("xq", xq, torch.int8), ("s_act", s_act, torch.float32),
-                        ("packed", packed3, torch.int8),
+                        ("packed", packed, torch.int8),
                         ("scales", scales, torch.float32),
                         ("zeros", zeros, torch.float32),
                         ("bias", bias, torch.float32)):
@@ -508,19 +674,16 @@ def w4a8_gemm(xq: torch.Tensor, s_act: torch.Tensor, packed3: torch.Tensor,
             or (bias is not None and bias.shape != (N,)):
         raise ValueError("W4A8 operand shapes do not match")
     G = K // scales.shape[0]
-    if bn % 64 or K % 64 or G % 64:
-        raise NotImplementedError(
-            f"w4a8_gemm kernel needs BN % 64 == 0, K % 64 == 0 and "
-            f"G % 64 == 0 (BN={bn}, K={K}, G={G})")
+    plan = w4a8_plan(K, N, scales.shape[0], bn)
     out = torch.empty((M, N), dtype=torch.bfloat16, device=xq.device)
     if M == 0:
         return out
     lib = cuda_build.load_library()
     err = lib.tllm_w4a8_gemm(
-        cuda_build.ptr(xq), cuda_build.ptr(s_act), cuda_build.ptr(packed3),
+        cuda_build.ptr(xq), cuda_build.ptr(s_act), cuda_build.ptr(packed),
         cuda_build.ptr(scales), cuda_build.ptr(zeros), cuda_build.ptr(bias),
-        cuda_build.ptr(out), M, N, K, G, bn, _ACT_CODE[activation],
-        cuda_build.stream_of(xq))
+        cuda_build.ptr(out), M, N, K, G, bn, plan["pack_group"],
+        _ACT_CODE[activation], cuda_build.stream_of(xq))
     cuda_build.check(err, "w4a8_gemm")
     cuda_build.launch_counts["w4a8_gemm"] += 1
     return out
@@ -533,7 +696,8 @@ def w4a8_matmul(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor,
                 out_dtype=None) -> torch.Tensor:
     """``act(s_act * (int8(x) @ deq(packed, scales, zeros)) + bias)``: x
     ``[..., K]`` is quantized per token, then CPU tensors take the plain
-    version and CUDA tensors launch K8 (or raise)."""
+    version and CUDA tensors launch K8 on the packing as stored (or
+    raise)."""
     out_dtype = out_dtype or x.dtype
     lead = x.shape[:-1]
     xq, s_act = quantize_act_int8(x.reshape(-1, x.shape[-1]))
@@ -544,8 +708,7 @@ def w4a8_matmul(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor,
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
     b = None if bias is None else bias.to(torch.float32)
-    out = w4a8_gemm(xq, s_act, to_tiled(packed, scales),
-                    scales.to(torch.float32),
+    out = w4a8_gemm(xq, s_act, packed, scales.to(torch.float32),
                     None if zeros is None else zeros.to(torch.float32),
                     b, activation)
     return out.to(out_dtype).reshape(*lead, out.shape[-1])

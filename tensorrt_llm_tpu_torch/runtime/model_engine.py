@@ -237,9 +237,13 @@ class ModelEngine:
                decode_batch: int = 16) -> None:
         """`autotune_kernels` at the decode batch (the scheduler's
         `max_batch_size`), then one prefill chunk of `prefill_tokens` tokens
-        and one decode step of a scratch sequence, freed again."""
+        and one decode step of a scratch sequence, freed again.  The chunk
+        takes at most half the free pool (the JAX decode warmup's cap), so
+        that the decode step finds its block in any pool."""
         self.autotune_kernels(decode_batch)
         kv = self.kv_manager
+        prefill_tokens = min(prefill_tokens,
+                             kv.num_free_blocks * kv.block_size // 2)
         req = LlmRequest([1] * max(1, prefill_tokens),
                          SamplingParams(max_tokens=1))
         kv.add_sequence(req.request_id, req.prompt_token_ids)

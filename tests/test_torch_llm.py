@@ -137,6 +137,30 @@ def test_results_arrive_after_bookkeeping():
         tl.shutdown()
 
 
+def test_warmup_fits_a_pool_smaller_than_its_prompt():
+    """The warmup's scratch prompt (min(max_num_tokens, max_seq_len - 1) =
+    255 tokens) is capped at what the pool holds (16 blocks of 8), so the
+    `LLM` builds, serves and gives the tokens it gives without warmup."""
+    cfg = ModelConfig(**dict(SHAPE, num_layers=1),
+                      quant=QuantConfig(quant_algo=QuantAlgo.W4A16,
+                                        group_size=128))
+    kw = dict(skip_tokenizer_init=True, max_seq_len=256, kv_num_blocks=16,
+              kv_block_size=8, seed=2)
+    sp = T.SamplingParams(max_tokens=6, temperature=0.0, ignore_eos=True)
+    prompts = [[5, 6, 7, 8], list(range(1, 30))]
+    out = {}
+    for warm in (True, False):
+        tl = T.LLM(model=cfg, device="cpu", enable_warmup=warm, **kw)
+        try:
+            out[warm] = [o.outputs[0].token_ids
+                         for o in tl.generate(prompts, sp)]
+            assert tl.get_kv_cache_stats()["active_sequences"] == 0
+        finally:
+            tl.shutdown()
+    assert out[True] == out[False]
+    assert all(len(t) == 6 for t in out[True])
+
+
 def test_default_device_raises_without_gpu():
     if torch.cuda.is_available():
         pytest.skip("this machine has a GPU: the default device is valid")

@@ -276,12 +276,128 @@ def test_tactic_file_is_named_by_the_dispatch_sources(monkeypatch, tmp_path):
 
 
 def test_kpaired_default_slices_fill_the_card():
-    # GPT-OSS o_proj at decode: 45 column tiles x 8 slices of 512 rows
+    # GPT-OSS o_proj at decode: 45 column tiles of 64 x 8 slices of 512 rows
     assert W.kpaired_block_k(4, 4096, 2880, 64) == 512
-    # Moonlight kv_a: 9 column tiles, slices down to 128 rows
+    # Moonlight kv_a: 9 column tiles x 16 slices of 128 rows
     assert W.kpaired_block_k(4, 2048, 576, 128) == 128
-    # a 256-row prefill chunk has 4 M tiles: fewer slices
+    # a 256-row prefill chunk: 2 M blocks x 23 tiles of 128 columns x 2
+    # slices, one round of units on 132 SMs
     assert W.kpaired_block_k(256, 4096, 2880, 64) == 2048
+
+
+# (M, K, N, pack group) of the K-paired weights on the serve paths, the
+# per-channel case, M beyond one M block and the edge token counts
+SM90_KPAIRED = [(M, K, N, Gp) for K, N, Gp in
+                ((4096, 2880, 64), (2048, 576, 128), (7168, 576, 128),
+                 (2048, 576, 256), (2048, 576, 32))
+                for M in (1, 4, 5, 17, 255, 256, 300)]
+
+
+@pytest.mark.parametrize("M,K,N,Gp", SM90_KPAIRED)
+def test_sm90_kpaired_units_cover_k_in_whole_pack_groups(M, K, N, Gp):
+    bk = W.kpaired_block_k(M, K, N, Gp)
+    assert bk % Gp == 0 and K % bk == 0 and (bk >= 128 or bk == K)
+    plan = W.sm90_plan(M, K, N, tuple(range(0, K + 1, bk)))
+    st = plan["stage_start"]
+    # the slices partition K: consecutive, from 0 to K, each once
+    assert st[0] == 0 and st[-1] * W.SM90_STAGE_K == K
+    assert all(b > a for a, b in zip(st, st[1:]))
+    # every slice starts and ends on a pack group
+    assert all(s * W.SM90_STAGE_K % Gp == 0 for s in st)
+    # tokens, columns and M blocks cover the call
+    assert plan["ntok"] >= min(M, W.SM90_M_BLOCK)
+    assert plan["ntok"] in W.SM90_NTOK
+    assert plan["n_mb"] * W.SM90_M_BLOCK >= M
+    assert plan["n_ct"] * plan["cols"] >= N > (plan["n_ct"] - 1) * plan["cols"]
+    assert plan["units"] == plan["n_mb"] * plan["n_ct"] * plan["slices"]
+
+
+@pytest.mark.parametrize("K,Gp", [(4096, 64), (2048, 128), (7168, 128),
+                                  (2048, 256), (2048, 32)])
+def test_kpaired_slice_choices_are_whole_pack_groups(K, Gp):
+    """The slices `chip_smoke.py` times against `kpaired_block_k`'s pick:
+    equal cuts of K into whole pack groups and stages, largest first, and
+    the pick is one of them at every M."""
+    ch = W.kpaired_slice_choices(K, Gp)
+    assert ch[0] == K and list(ch) == sorted(ch, reverse=True)
+    for bk in ch:
+        assert K % bk == 0 and bk % max(Gp, W.SM90_STAGE_K) == 0
+        assert bk >= 128 and K // bk <= W.SM90_MAX_SLICES
+    for M in (1, 4, 16, 256, 600):
+        assert W.kpaired_block_k(M, K, 576, Gp) in ch
+
+
+@pytest.mark.parametrize("M,K,N,want_ntok,want_cols", [
+    (1, 2048, 2560, 8, 64), (5, 2048, 2560, 8, 64), (16, 2048, 2560, 16, 64),
+    (17, 2048, 2560, 32, 64), (64, 2048, 2560, 64, 64),
+    (65, 2048, 2560, 128, 128), (255, 2048, 2560, 128, 128),
+    (256, 2048, 2560, 128, 128), (1000, 4096, 2880, 128, 128)])
+def test_sm90_token_and_column_tiles(M, K, N, want_ntok, want_cols):
+    plan = W.sm90_plan(M, K, N, (0, K))
+    assert (plan["ntok"], plan["cols"]) == (want_ntok, want_cols)
+
+
+@pytest.mark.parametrize("M,K,N,bounds,want_grid", [
+    # GPT-OSS o_proj at decode, default slices: 360 units, 3 blocks per SM
+    (4, 4096, 2880, tuple(range(0, 4097, 512)), 360),
+    # TinyLlama gate_up at 256 tokens, two ramp steps: 2 M blocks x 88
+    # tiles of 128 columns x 2 steps, one block per SM
+    (256, 2048, 11264, (0, 1024, 2048), 132),
+    # TinyLlama qkv at decode, two ramp steps: 80 units, one block each
+    (4, 2048, 2560, (0, 1024, 2048), 80),
+])
+def test_sm90_grid_fills_the_card_where_the_shape_allows(M, K, N, bounds,
+                                                         want_grid):
+    plan = W.sm90_plan(M, K, N, bounds)
+    per_sm = 1 if plan["nwg"] == 2 else (3 if plan["ntok"] <= 32 else 2)
+    assert plan["grid"] == want_grid == min(plan["units"], per_sm * 132)
+
+
+def test_ramp_steps_are_the_work_units():
+    assert W.ramp_bounds(2048) == (0, 1024, 2048)
+    assert W.ramp_bounds(4096) == (0, 1024, 4096)
+    assert W.ramp_bounds(4096, W.ramp_schedule(4096, 2048)) == (
+        0, 2048, 4096)
+    for bad in ((1, 2), (5,), (0, 2)):
+        with pytest.raises(ValueError):
+            W.ramp_bounds(2048, bad)
+
+
+@pytest.mark.parametrize("K,N,G,kpaired,Gp,bn", [
+    (2048, 584, 128, True, 128, 0),      # N % 16
+    (2080, 576, 32, True, 32, 0),        # K % 64
+    (3072, 576, 96, True, 96, 0),        # pack group neither 32 nor 64k
+    (2048, 2048, 16, False, 0, 256),     # G neither 32 nor 64k
+    (2048, 2048, 128, False, 0, 96),     # BN % 64
+])
+def test_sm90_refuses_what_the_kernels_do_not_take(K, N, G, kpaired, Gp, bn):
+    with pytest.raises(NotImplementedError):
+        W.sm90_check(K, N, G, kpaired, Gp=Gp, bn=bn)
+
+
+@pytest.mark.parametrize("K,N,G,kpaired,Gp,bn", [
+    (2048, 576, 32, True, 32, 0),        # K-paired, pack group 32
+    (2048, 2048, 32, False, 0, 256),     # tiled, G 32
+    (2048, 576, 2048, True, 256, 0),     # per channel
+    (4096, 2880, 64, True, 64, 0),       # GPT-OSS o_proj
+])
+def test_sm90_takes_group_32_and_the_served_groups(K, N, G, kpaired, Gp, bn):
+    """G 32 (two scale rows a 64-row stage) stays a shape of both
+    kernels, as the tiled kernel K1 and the JAX package take it."""
+    W.sm90_check(K, N, G, kpaired, Gp=Gp, bn=bn)
+
+
+def test_sm90_plan_refuses_bad_slices():
+    for bounds in ((0, 1000, 2048), (0, 2048, 1024), (64, 2048),
+                   tuple(range(0, 129 * 64 + 1, 64))):
+        K = bounds[-1] if bounds[-1] > bounds[0] else 2048
+        with pytest.raises(ValueError):
+            W.sm90_plan(4, K, 576, bounds)
+    for fn in (W.w4a16_kpaired, W.w4a16_ramp):
+        with pytest.raises(ValueError):       # CPU tensors: no kernel
+            x = torch.zeros((4, 2048), dtype=torch.bfloat16)
+            fn(x, torch.zeros((1024, 576), dtype=torch.int8),
+               torch.zeros((16, 576), dtype=torch.bfloat16))
 
 
 # ----------------------------------------------------------- autotuner ---

@@ -29,8 +29,9 @@ from tensorrt_llm_tpu.quantization import QuantAlgo as JQA
 from tensorrt_llm_tpu.quantization import QuantConfig as JQC
 from tensorrt_llm_tpu.quantization import quantize as jq
 from tensorrt_llm_tpu_torch.layers.linear import Linear
+from tensorrt_llm_tpu_torch.models import params_from_jax
 from tensorrt_llm_tpu_torch.ops.w4a16_gemm import (
-    quantize_act_int8, w4a8_matmul)
+    quantize_act_int8, w4a8_matmul, w4a8_plan)
 from tensorrt_llm_tpu_torch.quantization import QuantAlgo, QuantConfig
 
 
@@ -140,6 +141,51 @@ def test_linear_keeps_f32_scales_and_matches_jax_method():
     w16 = Linear(K, N, QuantConfig(quant_algo=QuantAlgo.W4A16), "mlp")
     w16.from_float(_t(w))
     assert w16.scales.dtype == torch.bfloat16
+
+
+def test_linear_without_tile_width_keeps_kpaired_weight_like_jax():
+    """A W4A8 Linear whose N has no 64-multiple tile (N 80) loads its
+    K-paired weight as it is, and computes what the JAX `Linear` computes,
+    with the JAX parameters carried over by `params_from_jax`."""
+    K, N = 256, 80
+    rng = np.random.default_rng(11)
+    w = rng.standard_normal((K, N), dtype=np.float32) * 0.05
+    b = rng.standard_normal((N,), dtype=np.float32)
+    x = _bf16_values(rng.standard_normal((5, K), dtype=np.float32))
+    quant = JQC(quant_algo=JQA.W4A8_AWQ, group_size=128)
+    method = make_linear_method(quant, "o_proj")
+    jp = method.make_params(jnp.asarray(w), jnp.asarray(b), jnp.bfloat16)
+    assert jp["qweight"].ndim == 2            # K-paired in the JAX package
+    ref = np.asarray(method.apply(jp, jnp.asarray(x)), np.float32)
+
+    lin = Linear(K, N, QuantConfig(quant_algo=QuantAlgo.W4A8_AWQ,
+                                   group_size=128), "o_proj")
+    lin.load(params_from_jax(jp))
+    assert tuple(lin.qweight.shape) == (K // 2, N)
+    np.testing.assert_array_equal(lin.qweight.numpy(),
+                                  np.asarray(jp["qweight"]))
+    out = lin(_t(x)).numpy()
+    assert np.abs(out - ref).max() <= 1e-5 * max(np.abs(ref).max(), 1.0)
+
+
+@pytest.mark.parametrize("K,N,n_groups,block_n,want", [
+    # K-paired, no 64-multiple tile: K8 reads the pack groups as stored
+    (256, 80, 2, 0, {"pack_group": 128, "col_tiles": 2}),
+    (4096, 576, 32, 0, {"pack_group": 128, "col_tiles": 9}),
+    (4096, 2880, 1, 0, {"pack_group": 256, "col_tiles": 45}),  # per channel
+    (4096, 6144, 32, 1024, {"pack_group": 0, "col_tiles": 96}),  # tiled
+    (256, 72, 2, 0, None),        # N % 16: not taken
+    (256, 128, 8, 0, None),       # G 32: not taken
+    (256, 192, 2, 96, None),      # tile not a multiple of 64
+])
+def test_w4a8_route_is_decided_by_shape(K, N, n_groups, block_n, want):
+    """The K8 launch a W4A8 weight gets, by its shape and packing alone,
+    and the shapes K8 refuses (the wrapper raises before any launch)."""
+    if want is None:
+        with pytest.raises(NotImplementedError):
+            w4a8_plan(K, N, n_groups, block_n)
+    else:
+        assert w4a8_plan(K, N, n_groups, block_n) == want
 
 
 def test_other_linear_algorithms_still_raise():
