@@ -21,7 +21,12 @@ Phases (any failure exits nonzero; nothing is caught and ignored):
    and held to the same bits, with the wrapper's host time per call, and
    `kpaired_block_k`'s K slice within 10% of the fastest one timed; the
    fused gated MLP at TinyLlama/Llama-3-8B MLPs with the unfused sequence
-   as its yardstick and its grid barriers timed);
+   as its yardstick and its grid barriers timed; the tiled GEMM K1 at the
+   TinyLlama, Llama-3-8B and GPT-OSS projections from 1 to 512 tokens, in
+   each of its configurations at two M 256 shapes, and its plan's
+   (configuration, K slices) pick within 10% of the fastest choice timed;
+   the INT8-KV prefill K7 also at 17 and 256 tokens after a 1024-token
+   prefix);
 4. serve 8 greedy requests with `LLM.generate` on the full-width TinyLlama
    W4A16 model (random weights from a seed); every serve phase builds its
    `LLM` with the default warmup (the W4A16 autotuner prints each shape's
@@ -29,7 +34,8 @@ Phases (any failure exits nonzero; nothing is caught and ignored):
    before the run and reads them just after;
 5. the same model with a tactic file that sets the ramp variant for every
    tiled shape: K13 three times per layer per forward, greedy tokens equal
-   to phase 4's (or differing first at a near-tie);
+   to phase 4's (or differing first at a near-tie); again with the stream
+   variant: K2 at every decode step (`serve_stream`);
 6. the fused gated MLP op on all 22 TinyLlama MLPs at 4 and 200 rows,
    against each layer's unfused forward;
 7. the same weights at full width and 2 layers on the card and on the CPU
@@ -60,11 +66,11 @@ Phases (any failure exits nonzero; nothing is caught and ignored):
    the prompt) on the card and on the CPU: logits and greedy tokens must
    agree.
 
-Arguments pick phases (default: check serve serve_ramp fused_mlp cross
-llama3 gptoss gptoss_cross llama3_w4a8 llama3_w4a8_cross deepseek
-deepseek_v32 deepseek_v3_width deepseek_cross); `check_moe` runs only K5's
-checks, `check_int8` only K6-K8's, `check_mla` only K9-K11's and
-`check_w4a16` only K12-K14's; `profile`,
+Arguments pick phases (default: check serve serve_ramp serve_stream
+fused_mlp cross llama3 gptoss gptoss_cross llama3_w4a8 llama3_w4a8_cross
+deepseek deepseek_v32 deepseek_v3_width deepseek_cross); `check_moe` runs
+only K5's checks, `check_int8` only K6-K8's, `check_mla` only K9-K11's,
+`check_w4a16` only K12-K14's and `check_k1` only K1's; `profile`,
 `profile_gptoss`, `profile_llama3_int8` and `profile_deepseek`, run only
 when named, trace a short serve window with torch.profiler;
 `cross_breakdown`, run only when named, repeats phase 12 with W4A16
@@ -111,7 +117,19 @@ GEMM_SHAPES = {"tinyllama": [(2048, 2560), (2048, 2048), (2048, 11264),
                # K12, checked in check_w4a16)
                "gpt-oss-20b": [(2880, 5120)]}
 GEMM_GROUP = {"gpt-oss-20b": 64}          # others: 128
-GEMM_M = (1, 4, 8, 16, 256, 512)
+GEMM_M = (1, 4, 8, 16, 17, 128, 200, 255, 256, 512)
+# K1's configurations (`K1_VARIANTS`) timed with and without each prefill
+# mechanism at served M 256 shapes, and its (configuration, K slices)
+# pick held against every choice at the token counts below
+K1_VARIANT_SHAPES = [("gpt-oss-20b", 2880, 5120, 64),
+                     ("tinyllama", 2048, 11264, 128)]
+K1_CHOICE_M = (17, 128, 256, 512)
+K1_SLICE_SLACK = 0.10
+# K1's reach beyond the served shapes: a K % 64 == 32 tail (half a stage)
+# and groups that end in the middle of a stage (G 32, G 96), with and
+# without zero points, bias and an activation: (K, N, G, M values)
+K1_EDGE_SHAPES = [(96, 256, 32, (5, 130)), (288, 128, 96, (3, 129)),
+                  (2080, 384, 32, (17, 256))]
 # (K, N, E, G) of the expert gate_up and down products
 MOE_SHAPES = {"gpt-oss-20b": [(2880, 5760, 32, 64), (2880, 2880, 32, 64)],
               "mixtral-8x7b": [(4096, 28672, 8, 128), (14336, 4096, 8, 128)],
@@ -141,9 +159,12 @@ PREFILL_CASES = [
     ("gpt-oss-20b", 64, 8, 64, 256, 128, 128, None, True),
     ("gpt-oss-20b", 64, 8, 64, 256, 256, None, None, True),
 ]
-# the INT8-KV kernels K6/K7 at the D=128 cases above and one D=64 case
+# the INT8-KV kernels K6/K7 at the D=128 cases above and one D=64 case;
+# K7 also at a short and a long chunk after a 1024-token prefix
 PREFILL_INT8_CASES = [c for c in PREFILL_CASES if c[0] == "llama-3-8b"] + [
-    ("tinyllama", 32, 4, 64, 256, 256, None, None, False)]
+    ("tinyllama", 32, 4, 64, 256, 256, None, None, False),
+    ("llama-3-8b", 32, 8, 128, 17, 1024, None, None, False),
+    ("llama-3-8b", 32, 8, 128, 256, 1024, None, None, False)]
 DECODE_CASES = [
     # model, Hq, Hkv, D, kv_lens, window, cap, sinks
     ("tinyllama", 32, 4, 64, [81, 150, 400, 664], None, None, False),
@@ -274,6 +295,16 @@ def check_gemm(gen, dev):
                     b = torch.randn((N,), generator=gen, device=dev)
                 out = fn(x, packed, s, z, b, act)
                 ref = W.w4a16_matmul_plain(x, packed, s, z, b, act)
+                shape = {"model": model, "M": M, "K": K, "N": N, "G": G,
+                         "act": act, "zeros_bias": extras}
+                if name == "w4a16_gemm":
+                    # K1's plan, and a second call held to the same bits
+                    # (the split-K sum has a fixed order)
+                    plan = W.k1_plan(M, K, N)
+                    shape.update(config=W.K1_VARIANTS[plan["variant"]],
+                                 slices=plan["slices"])
+                    assert torch.equal(out, fn(x, packed, s, z, b, act)), \
+                        f"w4a16_gemm {shape}: second call differs"
                 torch.cuda.synchronize()
                 err = (out.float() - ref.float()).abs().max().item()
                 # the plain version rounds each dequantized weight to bf16
@@ -288,11 +319,137 @@ def check_gemm(gen, dev):
                                  for lw in lib_w], 30)
                         if not extras else None)
                 nbytes = M * K * 2 + wq_bytes + M * N * 2
-                record(name, {"model": model, "M": M, "K": K, "N": N, "G": G,
-                              "act": act, "zeros_bias": extras}, err, tol,
-                       k_ms, p_ms, l_ms, bound_ms(nbytes, 2 * M * N * K))
+                record(name, shape, err, tol, k_ms, p_ms, l_ms,
+                       bound_ms(nbytes, 2 * M * N * K))
             del ws, lib_w, wdq
             torch.cuda.empty_cache()
+    check_k1_variants(gen, dev)
+    check_k1_edges(gen, dev)
+    check_k1_choice(gen, dev)
+
+
+def check_k1_edges(gen, dev):
+    """K1 at the shapes its first version took that the mainloop needed
+    new handling for (K1_EDGE_SHAPES), against the plain version."""
+    import torch
+    from tensorrt_llm_tpu_torch.ops import w4a16_gemm as W
+    for K, N, G, ms in K1_EDGE_SHAPES:
+        for sym in (True, False):
+            packed, s, z = _w4_weight(gen, dev, K, N, G, kpaired=False,
+                                      symmetric=sym)
+            b = None if sym else torch.randn((N,), generator=gen, device=dev)
+            act = None if sym else "silu"
+            for M in ms:
+                x = torch.randn((M, K), generator=gen, device=dev).to(
+                    torch.bfloat16)
+                out = W.w4a16_gemm(x, packed, s, z, b, act)
+                ref = W.w4a16_matmul_plain(x, packed, s, z, b, act)
+                torch.cuda.synchronize()
+                err = (out.float() - ref.float()).abs().max().item()
+                tol = 2e-2 * ref.float().abs().max().item()
+                k_ms = cuda_ms([lambda: W.w4a16_gemm(x, packed, s, z, b, act)],
+                               10)
+                p_ms = cuda_ms([lambda: W.w4a16_matmul_plain(
+                    x, packed, s, z, b, act)], 3)
+                plan = W.k1_plan(M, K, N)
+                nbytes = (M * K * 2 + packed.numel()
+                          + s.numel() * 2 * (1 if sym else 2) + M * N * 2)
+                record("w4a16_gemm", {"model": "edge", "M": M, "K": K, "N": N,
+                                      "G": G, "zeros_bias": not sym,
+                                      "act": act, "slices": plan["slices"],
+                                      "config": W.K1_VARIANTS[plan["variant"]]},
+                       err, tol, k_ms, p_ms, None,
+                       bound_ms(nbytes, 2 * M * N * K))
+
+
+def _k1_weight_copies(gen, dev, K, N, G):
+    """A random tiled W4A16 weight and enough copies of it to rotate past
+    the L2 when timing."""
+    import torch
+    packed, s, _ = _w4_weight(gen, dev, K, N, G, kpaired=False)
+    return packed, s, [(packed.clone(), s.clone()) for _ in range(
+        copies_for(packed.numel() + s.numel() * 2))]
+
+
+def check_k1_variants(gen, dev):
+    """K1 in each of its configurations (`K1_VARIANTS`: the K13 mainloop,
+    then one prefill mechanism added at a time) at served M 256 shapes,
+    each with the K slices its plan takes, against the plain version."""
+    import torch
+    from tensorrt_llm_tpu_torch.ops import w4a16_gemm as W
+    from tensorrt_llm_tpu_torch.quantization import dequantize_w4_any
+    for model, K, N, G in K1_VARIANT_SHAPES:
+        packed, s, ws = _k1_weight_copies(gen, dev, K, N, G)
+        wdq = dequantize_w4_any(packed, s).to(torch.bfloat16)
+        lib_w = [wdq.clone() for _ in range(copies_for(wdq.numel() * 2))]
+        M = 256
+        x = torch.randn((M, K), generator=gen, device=dev).to(torch.bfloat16)
+        ref = W.w4a16_matmul_plain(x, packed, s)
+        p_ms = cuda_ms([lambda: W.w4a16_matmul_plain(x, packed, s)], 5)
+        l_ms = cuda_ms([lambda lw=lw: torch.matmul(x, lw) for lw in lib_w], 30)
+        for v, name in enumerate(W.K1_VARIANTS):
+            plan = W.k1_plan(M, K, N, variant=v)
+            out = W.w4a16_gemm(x, packed, s, variant=v)
+            torch.cuda.synchronize()
+            err = (out.float() - ref.float()).abs().max().item()
+            tol = 2e-2 * ref.float().abs().max().item()
+            k_ms = cuda_ms([lambda p=p, sc=sc: W.w4a16_gemm(
+                x, p, sc, variant=v) for p, sc in ws], 30)
+            nbytes = M * K * 2 + packed.numel() + s.numel() * 2 + M * N * 2
+            record("w4a16_gemm", {"model": model, "M": M, "K": K, "N": N,
+                                  "G": G, "config": name,
+                                  "slices": plan["slices"],
+                                  "variant_row": True},
+                   err, tol, k_ms, p_ms, l_ms,
+                   bound_ms(nbytes, 2 * M * N * K))
+        del ws, lib_w, wdq
+        torch.cuda.empty_cache()
+
+
+def check_k1_choice(gen, dev):
+    """`k1_choice`'s (configuration, K slices) against every choice K1
+    can take (`K1_PATH_VARIANTS` x `k1_slice_choices`), each timed at every
+    GEMM_SHAPES row and K1_CHOICE_M: the pick must be within
+    K1_SLICE_SLACK of the fastest.  The pick comes from a model whose
+    costs were fitted on the H100; this check shows when a change to the
+    mainloop makes them stale."""
+    import torch
+    from tensorrt_llm_tpu_torch.ops import w4a16_gemm as W
+    rows = []
+    for model, kns in GEMM_SHAPES.items():
+        G = GEMM_GROUP.get(model, 128)
+        for K, N in kns:
+            packed, s, ws = _k1_weight_copies(gen, dev, K, N, G)
+            for M in K1_CHOICE_M:
+                x = torch.randn((M, K), generator=gen, device=dev).to(
+                    torch.bfloat16)
+                variants = (W.K1_PATH_VARIANTS if M > 64
+                            else W.K1_PATH_VARIANTS[:1])
+                times = {(v, d): cuda_ms([
+                    lambda p=p, sc=sc, v=v, d=d: W.w4a16_gemm(
+                        x, p, sc, slices=d, variant=v) for p, sc in ws], 10)
+                    for v in variants for d in W.k1_slice_choices(K)}
+                pick = W.k1_choice(M, K, N)
+                best = min(times, key=times.get)
+                rows.append({"model": model, "M": M, "K": K, "N": N,
+                             "pick": [W.K1_VARIANTS[pick[0]], pick[1]],
+                             "fastest": [W.K1_VARIANTS[best[0]], best[1]],
+                             "pick_ms": times[pick], "fastest_ms": times[best],
+                             "pick_over_fastest": times[pick] / times[best],
+                             "ms": {f"{W.K1_VARIANTS[v]}/{d}": t
+                                    for (v, d), t in times.items()}})
+                log(json.dumps({k: v for k, v in rows[-1].items()
+                                if k != "ms"}))
+            del ws
+            torch.cuda.empty_cache()
+    worst = max(r["pick_over_fastest"] for r in rows)
+    PHASES["k1_choice"] = {"phase": "k1_choice", "rows": rows,
+                           "worst_pick_over_fastest": worst,
+                           "slack": K1_SLICE_SLACK}
+    bad = [(r["model"], r["K"], r["N"], r["M"], r["pick"], r["fastest"],
+            r["pick_over_fastest"]) for r in rows
+           if r["pick_over_fastest"] > 1 + K1_SLICE_SLACK]
+    assert not bad, f"k1_choice picks slower than the slack: {bad}"
 
 
 def _w4_weight(gen, dev, K, N, G, kpaired, symmetric=True):
@@ -1401,14 +1558,13 @@ def serve_model(card, phase, label, cfg, required, absent=(),
 RAMP_TIE = 0.05            # logprob gap accepted at a greedy near-tie
 
 
-def serve_ramp(card, ref_phase="serve"):
+def serve_tactic(card, path, label, variant, required, absent,
+                 ref_phase="serve", **kw):
     """TinyLlama W4A16 served with a tactic file, loaded through
-    `AutoTuner.load`, that sets ``{"variant": "ramp"}`` for every tiled
-    shape: qkv, o and gate_up (K 2048) run K13 in every layer of every
-    forward; down (K 5632, not a multiple of 1024) runs K1, as the JAX
-    package's tiled kernel.  Greedy tokens must equal the `ref_phase`
-    run's, or differ first where both runs' chosen tokens sit at a near-tie
-    (both logprobs below log(1/2) + RAMP_TIE and within RAMP_TIE)."""
+    `AutoTuner.load`, that sets ``{"variant": variant}`` for every tiled
+    shape.  Greedy tokens must equal the `ref_phase` run's, or differ first
+    where both runs' chosen tokens sit at a near-tie (both logprobs below
+    log(1/2) + RAMP_TIE and within RAMP_TIE)."""
     from tensorrt_llm_tpu_torch.autotuner import AutoTuner
     from tensorrt_llm_tpu_torch.ops import cuda_build
     tuner = AutoTuner.get()
@@ -1417,22 +1573,20 @@ def serve_ramp(card, ref_phase="serve"):
     H, I = cfg.hidden_size, cfg.intermediate_size
     qkv = (cfg.num_heads + 2 * cfg.num_kv_heads) * cfg.head_dim
     shapes = [(H, qkv), (cfg.num_heads * cfg.head_dim, H), (H, 2 * I), (I, H)]
-    path = cuda_build.kernel_dir() / "ramp_tactics.json"
-    path.parent.mkdir(parents=True, exist_ok=True)
-    with open(path, "w") as f:
-        json.dump([{"key": ["w4a16", K, N, 1], "tactic": {"variant": "ramp"}}
+    tfile = cuda_build.kernel_dir() / f"{variant}_tactics.json"
+    tfile.parent.mkdir(parents=True, exist_ok=True)
+    with open(tfile, "w") as f:
+        json.dump([{"key": ["w4a16", K, N, 1], "tactic": {"variant": variant}}
                    for K, N in shapes], f)
     try:
-        tuner.load(str(path))
-        counts = serve_model(card, RAMP_PATH,
-                             "tinyllama-1.1b W4A16 (22 layers), ramp tactic",
-                             cfg, ("w4a16_ramp", "w4a16_gemm"),
-                             absent=("w4a16_gemv",), ramp_per_layer=3)
+        tuner.load(str(tfile))
+        counts = serve_model(card, path, label, cfg, required, absent=absent,
+                             **kw)
     finally:
         tuner.cache = saved
     if ref_phase in SERVE_TOKENS:
         import math
-        (ta, la), (tb, lb) = SERVE_TOKENS[ref_phase], SERVE_TOKENS[RAMP_PATH]
+        (ta, la), (tb, lb) = SERVE_TOKENS[ref_phase], SERVE_TOKENS[path]
         exact, ties = 0, []
         for a, b, pa, pb in zip(ta, tb, la, lb):
             if a == b:
@@ -1443,13 +1597,34 @@ def serve_ramp(card, ref_phase="serve"):
                   and abs(pa[i] - pb[i]) <= RAMP_TIE)
             ties.append({"position": i, "tokens": [a[i], b[i]],
                          "logprobs": [pa[i], pb[i]], "near_tie": ok})
-        PHASES[RAMP_PATH].update({"tokens_equal_to": ref_phase,
-                                  "exact_requests": exact,
-                                  "first_differences": ties})
-        log(json.dumps({"phase": RAMP_PATH, "exact_requests": exact,
+        PHASES[path].update({"tokens_equal_to": ref_phase,
+                             "exact_requests": exact,
+                             "first_differences": ties})
+        log(json.dumps({"phase": path, "exact_requests": exact,
                         "of": len(ta), "first_differences": ties}))
         assert all(d["near_tie"] for d in ties), ties
     return counts
+
+
+def serve_ramp(card):
+    """The ramp for every tiled shape: qkv, o and gate_up (K 2048) run K13
+    in every layer of every forward; down (K 5632, not a multiple of 1024)
+    runs K1, as the JAX package's tiled kernel."""
+    return serve_tactic(card, RAMP_PATH,
+                        "tinyllama-1.1b W4A16 (22 layers), ramp tactic",
+                        "ramp", ("w4a16_ramp", "w4a16_gemm"),
+                        ("w4a16_gemv",), ramp_per_layer=3)
+
+
+def serve_stream(card):
+    """The stream tactic for every tiled shape: K2 for every decode step's
+    projections (at most 16 rows), K1 for the prefill chunks; the tuner of
+    the `serve` phase picks per shape, and since K1 runs on the Hopper
+    mainloop it may pick K1 at decode too."""
+    return serve_tactic(card, STREAM_PATH,
+                        "tinyllama-1.1b W4A16 (22 layers), stream tactic",
+                        "stream", ("w4a16_gemv", "w4a16_gemm"),
+                        ("w4a16_ramp",))
 
 
 def fused_mlp_run(card):
@@ -1896,6 +2071,7 @@ LLAMA3_W4A8_PATH = "serve_llama3_w4a8"  # slice 3's path: K6-K8 run there
 MOONLIGHT_PATH = "serve_moonlight"      # slice 4's dense MLA path: K9/K10
 V32_PATH = "serve_deepseek_v32"         # slice 4's DSA path: K11
 RAMP_PATH = "serve_ramp"                # K13 under a ramp tactic file
+STREAM_PATH = "serve_stream"            # K2 under a stream tactic file
 FUSED_PATH = "fused_mlp"                # K14 through its op
 KERNELS = {
     # each kernel's row: the serve path that runs it, and a phase-3 check
@@ -1903,10 +2079,10 @@ KERNELS = {
     "w4a16_gemm": ("cuda", "tensorrt_llm_tpu_torch/csrc/w4a16_gemm.cu",
                    "tensorrt_llm_tpu/ops/w4a16_gemm.py:205", GPT_OSS_PATH,
                    {"model": "gpt-oss-20b", "M": 256, "K": 2880, "N": 5120}),
-    # TinyLlama down at decode: the tuner picks K2 there by a wide margin
-    # (its tactic decides which tiled shapes of a path run K2)
+    # TinyLlama down at decode, served under the stream tactic (the tuner
+    # of the other paths picks per shape, K1 included)
     "w4a16_gemv": ("cuda", "tensorrt_llm_tpu_torch/csrc/w4a16_gemv.cu",
-                   "tensorrt_llm_tpu/ops/w4a16_gemm.py:560", SERVE_PATH,
+                   "tensorrt_llm_tpu/ops/w4a16_gemm.py:560", STREAM_PATH,
                    {"model": "tinyllama", "M": 4, "K": 5632, "N": 2048}),
     "flash_prefill": ("cuda", "tensorrt_llm_tpu_torch/csrc/flash_prefill.cu",
                       "tensorrt_llm_tpu/ops/flash_prefill.py:282",
@@ -1928,7 +2104,7 @@ KERNELS = {
                           {"model": "llama-3-8b",
                            "kv_lens": [320, 400, 1000, 4000]}),
     "flash_prefill_int8": ("cuda",
-                           "tensorrt_llm_tpu_torch/csrc/flash_prefill.cu",
+                           "tensorrt_llm_tpu_torch/csrc/flash_prefill_sm90.cu",
                            "tensorrt_llm_tpu/ops/flash_prefill.py:157",
                            LLAMA3_W4A8_PATH,
                            {"model": "llama-3-8b", "T": 256,
@@ -2022,7 +2198,8 @@ def main() -> int:
         i = args.index("--json")
         out_json = args[i + 1]
         del args[i:i + 2]
-    phases = args or ["check", "serve", "serve_ramp", "fused_mlp", "cross",
+    phases = args or ["check", "serve", "serve_ramp", "serve_stream",
+                      "fused_mlp", "cross",
                       "llama3", "gptoss",
                       "gptoss_cross", "llama3_w4a8", "llama3_w4a8_cross",
                       "deepseek", "deepseek_v32", "deepseek_v3_width",
@@ -2052,8 +2229,9 @@ def run_phases(phases, card, gen, dev, by_path):
     t0 = time.perf_counter()
     if "check" in phases or "check_moe" in phases:
         check_moe(gen, dev)
-    if "check" in phases:
+    if "check" in phases or "check_k1" in phases:
         check_gemm(gen, dev)
+    if "check" in phases:
         check_prefill(gen, dev)
         check_decode(gen, dev)
     if "check" in phases or "check_int8" in phases:
@@ -2067,13 +2245,17 @@ def run_phases(phases, card, gen, dev, by_path):
     if RESULTS:
         log(f"[phase 3] {len(RESULTS)} kernel checks passed in "
             f"{time.perf_counter() - t0:.1f} s")
-    base = ("w4a16_gemm", "w4a16_gemv", "flash_prefill", "paged_decode")
+    # K2 (w4a16_gemv) runs where the tuner picks it; `serve_stream` runs it
+    # at every decode step
+    base = ("w4a16_gemm", "flash_prefill", "paged_decode")
     if "serve" in phases:
         by_path[SERVE_PATH] = serve_model(
             card, SERVE_PATH, "tinyllama-1.1b W4A16 (22 layers)",
             w4a16_cfg(TINYLLAMA), base)
     if "serve_ramp" in phases:
         by_path[RAMP_PATH] = serve_ramp(card)
+    if "serve_stream" in phases:
+        by_path[STREAM_PATH] = serve_stream(card)
     if "fused_mlp" in phases:
         by_path[FUSED_PATH] = fused_mlp_run(card)
     if "cross" in phases:
@@ -2115,7 +2297,7 @@ def run_phases(phases, card, gen, dev, by_path):
         n = MOONLIGHT_LAYERS
         by_path[MOONLIGHT_PATH] = serve_model(
             card, MOONLIGHT_PATH, f"moonlight-16b-a3b W4A16 ({n} layers)",
-            moonlight_cfg(n), ("w4a16_gemm", "w4a16_gemv", "moe_gmm",
+            moonlight_cfg(n), ("w4a16_gemm", "moe_gmm",
                                "moe_gmm_units", "mla_prefill", "mla_decode",
                                "w4a16_kpaired"),
             absent=attn_gqa + ("dsa_score",), kpaired_per_layer=1)
@@ -2123,7 +2305,7 @@ def run_phases(phases, card, gen, dev, by_path):
         n = V32_LAYERS
         by_path[V32_PATH] = serve_model(
             card, V32_PATH, f"deepseek-v3.2 widths W4A16 ({n} layers)",
-            deepseek_cfg(n), ("w4a16_gemm", "w4a16_gemv", "moe_gmm",
+            deepseek_cfg(n), ("w4a16_gemm", "moe_gmm",
                               "moe_gmm_units", "dsa_score", "w4a16_kpaired"),
             absent=attn_gqa + ("mla_prefill", "mla_decode"),
             long_prompt=V32_LONG_PROMPT, max_seq_len=4096)

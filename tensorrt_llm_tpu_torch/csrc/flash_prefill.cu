@@ -1,38 +1,31 @@
-// K3 flash_prefill and K7 flash_prefill_int8: one sequence's chunk of T
-// query tokens, at positions q_offset.., attends its paged KV (prefix +
-// chunk, already written).
+// K3 flash_prefill: one sequence's chunk of T query tokens, at positions
+// q_offset.., attends its paged bf16 KV (prefix + chunk, already written).
 //
 // Replaces the TPU kernels tensorrt_llm_tpu/ops/flash_prefill.py
-// `_flash_prefill_kernel` (D % 128 == 0), `_flash_prefill_kernel_packed`
-// (D < 128 over the TPU lane-packed page view) and, as K7,
-// `_flash_prefill_kernel_int8` (int8 pages with f32 per-(token, head)
-// scales).  Here they are one kernel, templated on the head dim (64, 128)
-// and the page type (bf16, int8), over the logical head-major pools
-// [NB, Hkv, BS, D].
+// `_flash_prefill_kernel` (D % 128 == 0) and `_flash_prefill_kernel_packed`
+// (D < 128 over the TPU lane-packed page view).  Here they are one kernel,
+// templated on the head dim (64, 128), over the logical head-major pools
+// [NB, Hkv, BS, D].  (K7, the INT8-page kernel, runs on its own warp-
+// specialised wgmma design in `flash_prefill_sm90.cu`; K3 is to move onto
+// it next.)
 //
 // What bounds it on the H100: tensor-core operations.  A chunk of T tokens
 // against S cached tokens does ~4*T*S*Hq*D operations (halved by the causal
 // edge) and reads the KV pages of S tokens once per KV head, which is far
 // above the ~295 op/byte ridge once T reaches a few hundred rows; short
-// chunks and sliding windows fall below it and are bound by the KV bytes,
-// which an int8 pool halves.
+// chunks and sliding windows fall below it and are bound by the KV bytes.
 //
 // Design: one 128-thread block per (64 query rows, KV head).  The rows
 // stack the head's G = Hq/Hkv query heads with the chunk's tokens (row =
 // token * G + head), as the TPU kernel stacks them into one MXU row block,
 // so every K/V page read serves all G heads.  The block walks the block
 // table 64 KV tokens at a time: the K tile is staged row-major and the V
-// tile transposed in shared memory (int8 pages are converted to bf16 on
-// the way, exact for |q| <= 127), S = Q K^T and O += P V run on the
+// tile transposed in shared memory, S = Q K^T and O += P V run on the
 // tensor cores (mma.sync m16n8k16 bf16), and each warp keeps an online
-// softmax (running max and sum in f32) for its 16 rows.  For int8 pages
-// the tile's K scales multiply the logits and its V scales the
-// probabilities as they are packed for P V (the row sums stay unscaled),
-// as in the TPU kernel; the scales are read through the block table inside
-// the kernel, with no XLA-style pre-gather.  KV tiles past the causal edge
-// of the block's last row, or wholly before the sliding window of its
-// first row, are skipped.  logit_cap (tanh) and sinks (a per-head logit
-// that joins the softmax denominator once) are applied as in the TPU
+// softmax (running max and sum in f32) for its 16 rows.  KV tiles past the
+// causal edge of the block's last row, or wholly before the sliding window
+// of its first row, are skipped.  logit_cap (tanh) and sinks (a per-head
+// logit that joins the softmax denominator once) are applied as in the TPU
 // kernel.  No TMA, no wgmma, no warp specialisation yet.
 #include <math.h>
 
@@ -44,33 +37,15 @@ namespace {
 constexpr int FP_ROWS = 64;  // query rows per block (16 per warp)
 constexpr int FP_KV = 64;    // KV tokens per tile
 
-// 8 consecutive K or V elements of one token row as 8 bf16 (int8 -> bf16
-// is exact)
-__device__ __forceinline__ uint4 load8_bf16(const bf16* p) {
-  return *reinterpret_cast<const uint4*>(p);
-}
-__device__ __forceinline__ uint4 load8_bf16(const int8_t* p) {
-  const uint2 raw = *reinterpret_cast<const uint2*>(p);
-  const int8_t* e = reinterpret_cast<const int8_t*>(&raw);
-  return make_uint4(pack_bf16x2((float)e[0], (float)e[1]),
-                    pack_bf16x2((float)e[2], (float)e[3]),
-                    pack_bf16x2((float)e[4], (float)e[5]),
-                    pack_bf16x2((float)e[6], (float)e[7]));
-}
-
-// KV = bf16 (K3) or int8_t (K7, with f32 scale pools k_sc/v_sc [NB,Hkv,BS])
-template <int D, typename KV>
+template <int D>
 __global__ void __launch_bounds__(128) flash_prefill_kernel(
-    const bf16* __restrict__ q, const KV* __restrict__ kc,
-    const KV* __restrict__ vc, const float* __restrict__ k_sc,
-    const float* __restrict__ v_sc, const int* __restrict__ block_table,
+    const bf16* __restrict__ q, const bf16* __restrict__ kc,
+    const bf16* __restrict__ vc, const int* __restrict__ block_table,
     const float* __restrict__ sinks, bf16* __restrict__ out, int T, int Hq,
     int Hkv, int BS, int MB, int kv_len, int q_offset, float scale,
     int window, float cap) {
-  constexpr bool SCALED = sizeof(KV) == 1;   // int8 pages
   __shared__ __align__(16) bf16 ks[FP_KV][D + 8];
   __shared__ __align__(16) bf16 vt[D][FP_KV + 8];
-  __shared__ float ksc[FP_KV], vsc[FP_KV];   // the tile's scales (int8)
 
   const int G = Hq / Hkv;
   const int h = blockIdx.y;
@@ -125,25 +100,13 @@ __global__ void __launch_bounds__(128) flash_prefill_kernel(
       if (pos < kv_len && pos / BS < MB) {
         const int page = block_table[pos / BS];
         const size_t base = ((size_t)(page * Hkv + h) * BS + pos % BS) * D + c;
-        kv = load8_bf16(kc + base);
-        vv = load8_bf16(vc + base);
+        kv = *reinterpret_cast<const uint4*>(kc + base);
+        vv = *reinterpret_cast<const uint4*>(vc + base);
       }
       *reinterpret_cast<uint4*>(&ks[tok][c]) = kv;
       const bf16* ve = reinterpret_cast<const bf16*>(&vv);
 #pragma unroll
       for (int j = 0; j < 8; ++j) vt[c + j][tok] = ve[j];
-    }
-    if (SCALED && tid < FP_KV) {
-      const int pos = s0 + tid;
-      float a = 0.f, b = 0.f;
-      if (pos < kv_len && pos / BS < MB) {
-        const size_t row =
-            (size_t)(block_table[pos / BS] * Hkv + h) * BS + pos % BS;
-        a = k_sc[row];
-        b = v_sc[row];
-      }
-      ksc[tid] = a;
-      vsc[tid] = b;
     }
     __syncthreads();
 
@@ -172,7 +135,6 @@ __global__ void __launch_bounds__(128) flash_prefill_kernel(
         for (int e = 0; e < 2; ++e) {
           const int kvp = s0 + ni * 8 + 2 * t + e;
           float v = s[ni][2 * hh + e] * scale;
-          if (SCALED) v *= ksc[ni * 8 + 2 * t + e];
           if (cap > 0.f) v = cap * tanhf(v / cap);
           const bool ok = rows[hh] < R && kvp <= qpos[hh] && kvp < kv_len &&
                           (window <= 0 || kvp > qpos[hh] - window);
@@ -208,17 +170,6 @@ __global__ void __launch_bounds__(128) flash_prefill_kernel(
     }
 
     // O += P V, P re-packed from the S accumulators as bf16 A fragments
-    // (for int8 pages each probability times its token's V scale)
-    if (SCALED) {
-#pragma unroll
-      for (int ni = 0; ni < FP_KV / 8; ++ni) {
-        const float v0 = vsc[ni * 8 + 2 * t], v1 = vsc[ni * 8 + 2 * t + 1];
-        s[ni][0] *= v0;
-        s[ni][1] *= v1;
-        s[ni][2] *= v0;
-        s[ni][3] *= v1;
-      }
-    }
 #pragma unroll
     for (int kk = 0; kk < FP_KV / 16; ++kk) {
       uint32_t pa[4];
@@ -253,27 +204,23 @@ __global__ void __launch_bounds__(128) flash_prefill_kernel(
   }
 }
 
-template <typename KV>
-int launch(const void* q, const void* k, const void* v, const void* k_sc,
-           const void* v_sc, const void* block_table, const void* sinks,
-           void* out, int T, int Hq, int Hkv, int D, int BS, int MB,
-           int kv_len, int q_offset, float scale, int window, float cap,
-           void* stream) {
+int launch(const void* q, const void* k, const void* v,
+           const void* block_table, const void* sinks, void* out, int T,
+           int Hq, int Hkv, int D, int BS, int MB, int kv_len, int q_offset,
+           float scale, int window, float cap, void* stream) {
   const int G = Hq / Hkv;
   dim3 grid((T * G + FP_ROWS - 1) / FP_ROWS, Hkv);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bf16* qp = static_cast<const bf16*>(q);
-  const KV* kp = static_cast<const KV*>(k);
-  const KV* vp = static_cast<const KV*>(v);
-  const float* ksp = static_cast<const float*>(k_sc);
-  const float* vsp = static_cast<const float*>(v_sc);
+  const bf16* kp = static_cast<const bf16*>(k);
+  const bf16* vp = static_cast<const bf16*>(v);
   const int* bt = static_cast<const int*>(block_table);
   const float* sk = static_cast<const float*>(sinks);
   bf16* op = static_cast<bf16*>(out);
   if (D == 64)
-    flash_prefill_kernel<64, KV><<<grid, 128, 0, st>>>(qp, kp, vp, ksp, vsp, bt, sk, op, T, Hq, Hkv, BS, MB, kv_len, q_offset, scale, window, cap);
+    flash_prefill_kernel<64><<<grid, 128, 0, st>>>(qp, kp, vp, bt, sk, op, T, Hq, Hkv, BS, MB, kv_len, q_offset, scale, window, cap);
   else if (D == 128)
-    flash_prefill_kernel<128, KV><<<grid, 128, 0, st>>>(qp, kp, vp, ksp, vsp, bt, sk, op, T, Hq, Hkv, BS, MB, kv_len, q_offset, scale, window, cap);
+    flash_prefill_kernel<128><<<grid, 128, 0, st>>>(qp, kp, vp, bt, sk, op, T, Hq, Hkv, BS, MB, kv_len, q_offset, scale, window, cap);
   else
     return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
@@ -290,21 +237,7 @@ extern "C" int tllm_flash_prefill(const void* q, const void* k_cache,
                                   int Hkv, int D, int BS, int MB, int kv_len,
                                   int q_offset, float scale, int window,
                                   float cap, void* stream) {
-  return tllm::launch<tllm::bf16>(q, k_cache, v_cache, nullptr, nullptr,
-                                  block_table, sinks, out, T, Hq, Hkv, D, BS,
-                                  MB, kv_len, q_offset, scale, window, cap,
-                                  stream);
-}
-
-// The same over int8 pools [NB, Hkv, BS, D] with f32 scale pools
-// [NB, Hkv, BS] indexed by the same block ids.
-extern "C" int tllm_flash_prefill_int8(
-    const void* q, const void* k_data, const void* k_scale,
-    const void* v_data, const void* v_scale, const void* block_table,
-    const void* sinks, void* out, int T, int Hq, int Hkv, int D, int BS,
-    int MB, int kv_len, int q_offset, float scale, int window, float cap,
-    void* stream) {
-  return tllm::launch<int8_t>(q, k_data, v_data, k_scale, v_scale,
-                              block_table, sinks, out, T, Hq, Hkv, D, BS, MB,
-                              kv_len, q_offset, scale, window, cap, stream);
+  return tllm::launch(q, k_cache, v_cache, block_table, sinks, out, T, Hq,
+                      Hkv, D, BS, MB, kv_len, q_offset, scale, window, cap,
+                      stream);
 }

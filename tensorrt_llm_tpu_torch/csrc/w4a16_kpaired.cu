@@ -36,8 +36,7 @@ extern "C" int tllm_w4a16_kpaired(const void* x, const void* qweight,
                                   int pack_group, int act, int ntok, int n_mb,
                                   int n_ct, const int* slice_start,
                                   int n_slices, int grid, void* stream) {
-  return tllm::sm90::launch<true>(x, qweight, scales, zeros, bias, workspace,
-                                  out, M, N, K, group, pack_group, 0, act,
-                                  ntok, n_mb, n_ct, slice_start, n_slices,
-                                  grid, stream);
+  return tllm::sm90::launch<1>(x, qweight, scales, zeros, bias, workspace, out,
+                               M, N, K, group, pack_group, 0, act, ntok, n_mb,
+                               n_ct, slice_start, n_slices, grid, 0, stream);
 }

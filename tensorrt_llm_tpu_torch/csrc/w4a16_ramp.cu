@@ -34,8 +34,7 @@ extern "C" int tllm_w4a16_ramp(const void* x, const void* qweight,
                                int act, int ntok, int n_mb, int n_ct,
                                const int* slice_start, int n_slices, int grid,
                                void* stream) {
-  return tllm::sm90::launch<false>(x, qweight, scales, zeros, bias, workspace,
-                                   out, M, N, K, group, 0, block_n, act, ntok,
-                                   n_mb, n_ct, slice_start, n_slices, grid,
-                                   stream);
+  return tllm::sm90::launch<0>(x, qweight, scales, zeros, bias, workspace, out,
+                               M, N, K, group, 0, block_n, act, ntok, n_mb,
+                               n_ct, slice_start, n_slices, grid, 0, stream);
 }

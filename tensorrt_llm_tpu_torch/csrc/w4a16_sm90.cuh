@@ -1,5 +1,6 @@
 // Hopper mainloop of the W4A16 GEMMs K12 (`w4a16_kpaired.cu`, 2-D K-paired
-// packing) and K13 (`w4a16_ramp.cu`, tiled packing):
+// packing), K13 (`w4a16_ramp.cu`, tiled packing) and K1 (`w4a16_gemm.cu`,
+// tiled packing, with its own configuration bits PRE_*, below):
 // act(x @ ((q - z) * s) + b), bf16 x, int4 q, bf16 scales and zeros, f32
 // accumulation, bf16 out.
 //
@@ -84,11 +85,11 @@
 //   its completion on the device, so the second launch costs no gap.
 #pragma once
 
-#include <cuda.h>
 #include <mutex>
+#include <type_traits>
 #include <unordered_map>
 
-#include "common.cuh"
+#include "sm90.cuh"
 
 namespace tllm {
 namespace sm90 {
@@ -99,18 +100,42 @@ constexpr int WG_COLS = 64;      // output columns per consumer warpgroup
 constexpr int W_BOX = STAGE_PR * WG_COLS;   // 2 KB of weights per warpgroup
 constexpr int MAX_SLICES = 128;
 
-template <int NTOK>
+// K1's configuration bits (template argument PRE; K12 and K13 run PRE 0).
+// PRE_K1, at every token tile: any G % 32 == 0 (two scale rows a stage
+// whenever G % 64 != 0, the second picked per stage), the producer's
+// offsets and scale group advanced per unit and stage instead of divided
+// out each stage, shared (not generic) loads of the scale rows, and the
+// activation chosen once per epilogue, not per stored value.  At 128
+// tokens, the prefill mechanisms, each timed with and without it by
+// `chip_smoke.py` (`w4a16_gemm.py::K1_VARIANTS`): X128 stages x as one box
+// of 64 K (128-byte rows, 128-byte swizzle) instead of two boxes of 32;
+// REGS makes the producer a whole warpgroup that gives registers to the
+// consumers (setmaxnreg), which then run two accumulator chains; WG3 runs
+// three consumer warpgroups (192 columns a block), which `k1_plan` picks
+// where its units fill the card in fewer rounds.
+enum { PRE_K1 = 1, PRE_X128 = 2, PRE_REGS = 4, PRE_WG3 = 8 };
+
+template <int NTOK, int PRE = 0>
 struct Cfg {
-  static constexpr int NWG = NTOK >= 128 ? 2 : 1;   // consumer warpgroups
+  static constexpr bool X128 = (PRE & PRE_X128) != 0;
+  static constexpr bool REGS = (PRE & PRE_REGS) != 0;
+  // consumer warpgroups: one up to 64 tokens, two at 128 (three with WG3)
+  static constexpr int NWG = NTOK >= 128 ? ((PRE & PRE_WG3) ? 3 : 2) : 1;
   static constexpr int COLS = NWG * WG_COLS;
-  static constexpr int THREADS = NWG * 128 + 32;     // + one producer warp
+  // + one producer warp (a whole warpgroup with REGS)
+  static constexpr int THREADS = NWG * 128 + (REGS ? 128 : 32);
   // blocks an SM holds: three up to 32 tokens, two at 64, one from 128
   static constexpr int MIN_BLOCKS = NTOK <= 32 ? 3 : (NWG == 1 ? 2 : 1);
   // independent accumulator sets, k16 step i into set i % NACC: the
   // wgmmas of one set form a dependent chain, so at small token tiles,
   // where each wgmma is short, four chains keep the tensor pipe busy (at
-  // 128 tokens a second set of 64 registers made ptxas spill)
-  static constexpr int NACC = NTOK <= 32 ? 4 : (NTOK == 64 ? 2 : 1);
+  // 128 tokens a second set of 64 registers made ptxas spill, unless the
+  // producer hands registers over: REGS)
+  static constexpr int NACC =
+      NTOK <= 32 ? 4 : (NTOK == 64 ? 2 : (NTOK == 128 && REGS && NWG == 2 ? 2 : 1));
+  // registers a consumer thread takes from the producer warpgroup (REGS):
+  // 65,536 less the producer's 128 x 40, over the consumers
+  static constexpr int CONSUMER_REGS = NWG == 2 ? 232 : 152;
   static constexpr int X_BOX = NTOK * 64;            // 32 bf16 x NTOK rows
   static constexpr int SZ_BOX = COLS * 2;            // one bf16 scale row
   // weights, x, then room for two scale rows and two zero rows (G 32);
@@ -150,213 +175,12 @@ struct Params {
   Slices sl;
 };
 
-// ------------------------------------------------------------ barriers ---
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)),
-               "r"(count));
-}
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-          smem_u32(bar)),
-      "r"(bytes)
-      : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar))
-               : "memory");
-}
-// wait until the barrier's phase differs from `parity`
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  asm volatile(
-      "{\n"
-      ".reg .pred P1;\n"
-      "LAB_WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
-      "@P1 bra DONE;\n"
-      "bra LAB_WAIT;\n"
-      "DONE:\n"
-      "}\n" ::"r"(smem_u32(bar)),
-      "r"(parity)
-      : "memory");
-}
-
-// 2-D TMA load of one box into shared memory, completing on `bar`
-__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
-                                            int c0, int c1, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::"
-      "bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
-      "r"(c1)
-      : "memory");
-}
-
-// -------------------------------------------------------------- wgmma ---
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-// wait until at most N committed wgmma groups are in flight
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// Operand fences (CUTLASS's warpgroup_fence_operand): an empty asm that
-// reads and writes a register, so that the compiler keeps a wgmma operand
-// alive, in place, up to this point and orders its other uses around it.
-// The A registers of the stage in flight stay live until the wait that
-// retires its wgmmas (else the next stage's dequantization could reuse
-// them, and ptxas then serializes every wgmma), and the accumulators are
-// read only after the last wait.
-__device__ __forceinline__ void keep(uint32_t& r) {
-  asm volatile("" : "+r"(r)::"memory");
-}
-__device__ __forceinline__ void keep(float& r) {
-  asm volatile("" : "+f"(r)::"memory");
-}
-template <int N>
-__device__ __forceinline__ void keep_all(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) keep(r[i]);
-}
-__device__ __forceinline__ void keep_all(uint32_t (&r)[4][4]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) keep(r[i][j]);
-}
-
-// Shared-memory descriptor of a K-major bf16 B tile in the 64-byte swizzle
-// (rows of 64 bytes, 8-row groups 512 bytes apart): start address >> 4,
-// LBO 1 (unused for swizzled K-major), SBO 512 >> 4, layout 2 (64B).
-__device__ __forceinline__ uint64_t desc_b64(uint32_t saddr) {
+// Shared-memory descriptor of a K-major bf16 B tile in the 128-byte
+// swizzle (rows of 128 bytes, 8-row groups 1024 bytes apart), layout 1.
+__device__ __forceinline__ uint64_t desc_b128(uint32_t saddr) {
   return (uint64_t)((saddr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
-         ((uint64_t)(512 >> 4) << 32) | ((uint64_t)2 << 62);
+         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
 }
-
-// D[64 x NTOK] += A[64 x 16] (registers, bf16) * B[16 x NTOK] (desc), f32
-template <int NTOK>
-struct Wgmma;
-
-template <> struct Wgmma<8> {
-  static __device__ __forceinline__ void mma(float* d, const uint32_t* a,
-                                             uint64_t desc) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
-        "{"
-        "%0, %1, %2, %3"
-        "}, {%4, %5, %6, %7}, %8, p, 1, 1, 0;\n"
-        "}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
-  }
-};
-
-template <> struct Wgmma<16> {
-  static __device__ __forceinline__ void mma(float* d, const uint32_t* a,
-                                             uint64_t desc) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
-        "{"
-        "%0, %1, %2, %3, %4, %5, %6, %7"
-        "}, {%8, %9, %10, %11}, %12, p, 1, 1, 0;\n"
-        "}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
-  }
-};
-
-template <> struct Wgmma<32> {
-  static __device__ __forceinline__ void mma(float* d, const uint32_t* a,
-                                             uint64_t desc) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-        "{"
-        "%0, %1, %2, %3, %4, %5, %6, %7, "
-        "%8, %9, %10, %11, %12, %13, %14, %15"
-        "}, {%16, %17, %18, %19}, %20, p, 1, 1, 0;\n"
-        "}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
-  }
-};
-
-template <> struct Wgmma<64> {
-  static __device__ __forceinline__ void mma(float* d, const uint32_t* a,
-                                             uint64_t desc) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-        "{"
-        "%0, %1, %2, %3, %4, %5, %6, %7, "
-        "%8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, "
-        "%24, %25, %26, %27, %28, %29, %30, %31"
-        "}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n"
-        "}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
-  }
-};
-
-template <> struct Wgmma<128> {
-  static __device__ __forceinline__ void mma(float* d, const uint32_t* a,
-                                             uint64_t desc) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-        "{"
-        "%0, %1, %2, %3, %4, %5, %6, %7, "
-        "%8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, "
-        "%24, %25, %26, %27, %28, %29, %30, %31, "
-        "%32, %33, %34, %35, %36, %37, %38, %39, "
-        "%40, %41, %42, %43, %44, %45, %46, %47, "
-        "%48, %49, %50, %51, %52, %53, %54, %55, "
-        "%56, %57, %58, %59, %60, %61, %62, %63"
-        "}, {%64, %65, %66, %67}, %68, p, 1, 1, 0;\n"
-        "}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-          "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-          "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
-  }
-};
-
 
 // ----------------------------------------------------------- dequant ---
 // (v & 0x000F000F) | 0x43004300: nibbles at bits 0 and 16 under 128.0
@@ -385,25 +209,35 @@ __device__ __forceinline__ uint32_t deq2(uint32_t h, uint32_t nz,
 }
 
 // ------------------------------------------------------------- kernel ---
-// Stage s of the ring: [NWG weight boxes of 2 KB][x box 0][x box 1][the
-// scale rows][the zero rows] of the stage's group (two at G 32, else one
-// of two slots), each swizzled box aligned to its 512-byte pattern; the
-// full and empty barriers follow the ring.
+// Stage s of the ring: [NWG weight boxes of 2 KB][x: two boxes of 32 K, or
+// one of 64 K with X128][the scale rows][the zero rows] of the stage's
+// group (two rows when the group changes inside the stage, else one of two
+// slots), each swizzled box aligned to its pattern; the full and empty
+// barriers follow the ring.
 // LAYOUT: TILED, KPAIRED_SPLIT (pack groups of 64 rows or more) or
 // KPAIRED_32 (pack groups of 32 rows)
 enum { TILED = 0, KPAIRED_SPLIT = 1, KPAIRED_32 = 2 };
 
-template <int NTOK, int LAYOUT>
-__global__ void __launch_bounds__(Cfg<NTOK>::THREADS, Cfg<NTOK>::MIN_BLOCKS)
+template <int NTOK, int LAYOUT, int PRE = 0>
+__global__ void __launch_bounds__(Cfg<NTOK, PRE>::THREADS,
+                                  Cfg<NTOK, PRE>::MIN_BLOCKS)
     w4a16_sm90_kernel(const __grid_constant__ CUtensorMap wmap,
                       const __grid_constant__ CUtensorMap xmap,
                       const __grid_constant__ CUtensorMap smap,
                       const __grid_constant__ CUtensorMap zmap,
                       const __grid_constant__ Params p) {
-  using C = Cfg<NTOK>;
+  using C = Cfg<NTOK, PRE>;
+  constexpr bool K1 = (PRE & PRE_K1) != 0;
+  static_assert(!(PRE & ~PRE_K1) || (LAYOUT == TILED && NTOK == 128),
+                "prefill mechanisms are K1's, at 128 tokens");
   extern __shared__ uint8_t smem_raw[];
-  uint8_t* ring = reinterpret_cast<uint8_t*>(
-      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~(uintptr_t)1023);
+  // K1 offsets the shared array itself, so that the compiler keeps its
+  // address space (shared loads of the scale rows, not generic ones)
+  uint8_t* ring =
+      K1 ? smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023)
+         : reinterpret_cast<uint8_t*>(
+               (reinterpret_cast<uintptr_t>(smem_raw) + 1023) &
+               ~(uintptr_t)1023);
   uint64_t* full = reinterpret_cast<uint64_t*>(ring + C::STAGES * C::STAGE_BYTES);
   uint64_t* empty = full + C::STAGES;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -430,20 +264,42 @@ __global__ void __launch_bounds__(Cfg<NTOK>::THREADS, Cfg<NTOK>::MIN_BLOCKS)
   const int spg = split ? p.Gp / 2 / STAGE_PR : 1;   // stages per pack group
   const bool has_zeros = p.zeros != nullptr;
   const bool per_channel = p.G >= p.K;
-  const int nsz = p.G == 32 ? 2 : 1;    // scale rows a stage
+  // scale rows a stage: two when its halves may lie in two groups (G 32;
+  // for K1 any G that is not a multiple of 64)
+  const int nsz = (K1 ? (!per_channel && p.G % STAGE_K) : p.G == 32) ? 2 : 1;
   auto group_of = [&](int st) {
     return per_channel ? 0 : (split ? st / spg * p.Gp : st * STAGE_K) / p.G;
   };
 
-  if (warp == C::NWG * 4) {
+  if (warp >= C::NWG * 4) {
     // ------------------------------------------------------ producer ---
-    if (lane != 0) return;
+    if constexpr (C::REGS) {
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    }
+    if (warp != C::NWG * 4 || lane != 0) return;
     int slot = 0;
     uint32_t phase = 0;
     for (int u = blockIdx.x; u < n_units; u += gridDim.x) {
       const int s = u / n_tiles, tile = u % n_tiles;
       const int m0 = (tile / p.n_ct) * NTOK;
       const int col0 = (tile % p.n_ct) * C::COLS;
+      // K1: the unit's weight boxes and scale group, advanced stage by
+      // stage without the divisions (each a long dependent chain on the
+      // one issuing thread)
+      int wxk[C::NWG], wyk[C::NWG], grp_k = 0, rem_k = 0;
+      if constexpr (K1) {
+#pragma unroll
+        for (int wg = 0; wg < C::NWG; ++wg) {
+          const int cw = col0 + wg * WG_COLS;
+          wxk[wg] = cw % p.bn;
+          wyk[wg] = (cw / p.bn) * (p.K / 2);
+        }
+        if (!per_channel) {
+          const int k0 = p.sl.start[s] * STAGE_K;
+          grp_k = k0 / p.G;
+          rem_k = k0 - grp_k * p.G;
+        }
+      }
       for (int st = p.sl.start[s]; st < p.sl.start[s + 1]; ++st) {
         mbar_wait(&empty[slot], phase ^ 1);
         mbar_expect_tx(&full[slot], C::NWG * W_BOX + 2 * C::X_BOX +
@@ -465,6 +321,9 @@ __global__ void __launch_bounds__(Cfg<NTOK>::THREADS, Cfg<NTOK>::MIN_BLOCKS)
           if (KPAIRED) {
             wx = cw;
             wy = st * STAGE_PR;
+          } else if (K1) {
+            wx = wxk[wg];
+            wy = wyk[wg] + st * STAGE_PR;
           } else {
             wx = cw % p.bn;
             wy = (cw / p.bn) * (p.K / 2) + st * STAGE_PR;
@@ -472,13 +331,20 @@ __global__ void __launch_bounds__(Cfg<NTOK>::THREADS, Cfg<NTOK>::MIN_BLOCKS)
           tma_load_2d(stage + wg * W_BOX, &wmap, wx, wy, &full[slot]);
         }
         uint8_t* xs = stage + C::NWG * W_BOX;
-        tma_load_2d(xs, &xmap, kx0, m0, &full[slot]);
-        tma_load_2d(xs + C::X_BOX, &xmap, kx1, m0, &full[slot]);
-        const int grp = group_of(st);
+        if constexpr (C::X128) {
+          tma_load_2d(xs, &xmap, kx0, m0, &full[slot]);
+        } else {
+          tma_load_2d(xs, &xmap, kx0, m0, &full[slot]);
+          tma_load_2d(xs + C::X_BOX, &xmap, kx1, m0, &full[slot]);
+        }
+        const int grp = K1 ? grp_k : group_of(st);
         tma_load_2d(xs + 2 * C::X_BOX, &smap, col0, grp, &full[slot]);
         if (has_zeros)
           tma_load_2d(xs + 2 * C::X_BOX + 2 * C::SZ_BOX, &zmap, col0, grp,
                       &full[slot]);
+        if (K1 && !per_channel) {
+          for (rem_k += STAGE_K; rem_k >= p.G; rem_k -= p.G) ++grp_k;
+        }
         if (++slot == C::STAGES) {
           slot = 0;
           phase ^= 1;
@@ -489,6 +355,10 @@ __global__ void __launch_bounds__(Cfg<NTOK>::THREADS, Cfg<NTOK>::MIN_BLOCKS)
   }
 
   // ------------------------------------------------------ consumers ---
+  if constexpr (C::REGS) {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(C::CONSUMER_REGS)
+                 : "memory");
+  }
   const int wg = warp >> 2, wl = warp & 3;
   const int g = lane >> 2, t = lane & 3;
   // ldmatrix row of this lane: matrix i = lane / 8 covers 8 packed rows;
@@ -502,6 +372,7 @@ __global__ void __launch_bounds__(Cfg<NTOK>::THREADS, Cfg<NTOK>::MIN_BLOCKS)
   uint32_t a0[4][4], a1[4][4];
   int slot = 0;              // the next stage to load, and its parity
   uint32_t phase = 0;
+  int krem = 0;
   for (int u = blockIdx.x; u < n_units; u += gridDim.x) {
     const int s = u / n_tiles, tile = u % n_tiles;
     const int m0 = (tile / p.n_ct) * NTOK;
@@ -518,7 +389,7 @@ __global__ void __launch_bounds__(Cfg<NTOK>::THREADS, Cfg<NTOK>::MIN_BLOCKS)
     // while one is in flight that began before its A registers were
     // written, which ptxas would otherwise answer by serializing every
     // wgmma.
-    auto load = [&](uint32_t (&a)[4][4]) -> int {
+    auto load = [&](uint32_t (&a)[4][4], int st) -> int {
       const int my = slot;
       mbar_wait(&full[slot], phase);
       uint8_t* stage = ring + slot * C::STAGE_BYTES;
@@ -545,6 +416,15 @@ __global__ void __launch_bounds__(Cfg<NTOK>::THREADS, Cfg<NTOK>::MIN_BLOCKS)
         sB = prmt(s2, 0, 0x3232);
       };
       scale_row(0);
+      // the row of the stage's second half: the next at G 32; for K1 the
+      // next only where a group ends at its middle (`krem`: the stage's K
+      // offset into its group, kept stage by stage)
+      int row2 = 1;
+      if (K1 && nsz == 2) {
+        row2 = krem + 32 >= p.G ? 1 : 0;
+        for (krem += STAGE_K; krem >= p.G; krem -= p.G) {
+        }
+      }
 #pragma unroll
       for (int i = 0; i < 4; ++i) r[i] ^= 0x88888888u;
       if (KPAIRED) {
@@ -566,10 +446,10 @@ __global__ void __launch_bounds__(Cfg<NTOK>::THREADS, Cfg<NTOK>::MIN_BLOCKS)
       } else {
         // k16 step i from register i: byte j holds K 2t, 2t+1 (j = 0, 1)
         // or 2t+8, 2t+9 (j = 2, 3) of column 2g (j even) or 2g + 1; steps
-        // 2 and 3 are the second group's at G 32
+        // 2 and 3 are the second half's, of another group at G 32
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
-          if (i == 2 && nsz == 2) scale_row(1);
+          if (i == 2 && nsz == 2) scale_row(row2);
           const uint32_t hs = r[i] >> 4;
           a[i][0] = deq2(magic2(prmt(r[i], hs, 0x0400)), zA, sA);
           a[i][1] = deq2(magic2(prmt(r[i], hs, 0x0501)), zB, sB);
@@ -585,7 +465,7 @@ __global__ void __launch_bounds__(Cfg<NTOK>::THREADS, Cfg<NTOK>::MIN_BLOCKS)
     };
     auto mma = [&](uint32_t (&a)[4][4], int sl) {
       // k16 step i reads x box (split ? i % 2 : i / 2) at column offset
-      // 16 * (split ? i / 2 : i % 2)
+      // 16 * (split ? i / 2 : i % 2); with X128 the one box at 16 * i
       const uint32_t xb = smem_u32(ring + sl * C::STAGE_BYTES + C::NWG * W_BOX);
 #pragma unroll
       for (int k = 0; k < C::NACC; ++k) keep_all(acc[k]);
@@ -593,10 +473,15 @@ __global__ void __launch_bounds__(Cfg<NTOK>::THREADS, Cfg<NTOK>::MIN_BLOCKS)
       wgmma_fence();
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
-        const int box = split ? (i & 1) : (i >> 1);
-        const int half = split ? (i >> 1) : (i & 1);
-        Wgmma<NTOK>::mma(acc[i % C::NACC], a[i],
-                         desc_b64(xb + box * C::X_BOX + 32 * half));
+        uint64_t desc;
+        if constexpr (C::X128) {
+          desc = desc_b128(xb + 32 * i);
+        } else {
+          const int box = split ? (i & 1) : (i >> 1);
+          const int half = split ? (i >> 1) : (i & 1);
+          desc = desc_b64(xb + box * C::X_BOX + 32 * half);
+        }
+        Wgmma<NTOK>::mma(acc[i % C::NACC], a[i], desc);
       }
       wgmma_commit();
     };
@@ -609,14 +494,16 @@ __global__ void __launch_bounds__(Cfg<NTOK>::THREADS, Cfg<NTOK>::MIN_BLOCKS)
       if (lane == 0) mbar_arrive(&empty[sl]);
     };
     const int st_end = p.sl.start[s + 1];
-    int cur = load(a0);
-    for (int st = p.sl.start[s]; st < st_end; st += 2) {
+    int st = p.sl.start[s];
+    if (K1 && nsz == 2) krem = st * STAGE_K % p.G;
+    int cur = load(a0, st);
+    for (; st < st_end; st += 2) {
       mma(a0, cur);
-      const int nx = st + 1 < st_end ? load(a1) : -1;
+      const int nx = st + 1 < st_end ? load(a1, st + 1) : -1;
       retire(a0, cur);
       if (nx < 0) break;
       mma(a1, nx);
-      cur = st + 2 < st_end ? load(a0) : -1;
+      cur = st + 2 < st_end ? load(a0, st + 2) : -1;
       retire(a1, nx);
     }
 #pragma unroll
@@ -626,6 +513,43 @@ __global__ void __launch_bounds__(Cfg<NTOK>::THREADS, Cfg<NTOK>::MIN_BLOCKS)
     // epilogue: lane holds columns (c, c + 1) of tokens 8j + 2t (+1)
     if (!col_ok) continue;
     const bool direct = p.sl.n == 1;
+    if constexpr (K1) {
+      // the activation chosen once, outside the loop over the values (a
+      // run-time switch in every store made the epilogue a large part of
+      // a unit's time at 128 tokens on the H100)
+      auto store = [&](auto act_c) {
+        constexpr int ACT = decltype(act_c)::value;
+        float b0 = 0.f, b1 = 0.f;
+        if (direct && p.bias != nullptr) {
+          b0 = p.bias[c];
+          b1 = p.bias[c + 1];
+        }
+#pragma unroll
+        for (int j = 0; j < NTOK / 8; ++j)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int m = m0 + 8 * j + 2 * t + h;
+            if (m >= p.M) continue;
+            const float v0 = acc[0][4 * j + h], v1 = acc[0][4 * j + 2 + h];
+            if (direct) {
+              *reinterpret_cast<__nv_bfloat162*>(p.out + (size_t)m * p.N + c) =
+                  __floats2bfloat162_rn(activate<ACT>(v0 + b0),
+                                        activate<ACT>(v1 + b1));
+            } else {
+              *reinterpret_cast<float2*>(p.ws + ((size_t)s * p.M + m) * p.N +
+                                         c) = make_float2(v0, v1);
+            }
+          }
+      };
+      switch (direct ? p.act : ACT_NONE) {
+        case ACT_SILU: store(std::integral_constant<int, ACT_SILU>()); break;
+        case ACT_GELU: store(std::integral_constant<int, ACT_GELU>()); break;
+        case ACT_RELU: store(std::integral_constant<int, ACT_RELU>()); break;
+        case ACT_RELU2: store(std::integral_constant<int, ACT_RELU2>()); break;
+        default: store(std::integral_constant<int, ACT_NONE>()); break;
+      }
+      continue;
+    }
     float b0 = 0.f, b1 = 0.f;
     if (direct && p.bias != nullptr) {
       b0 = p.bias[c];
@@ -758,52 +682,68 @@ inline int tensor_map_2d(CUtensorMap* map, const void* ptr,
   return 0;
 }
 
-template <int NTOK, int LAYOUT>
+template <int NTOK, int LAYOUT, int PRE>
 int launch_ntok(const CUtensorMap& wmap, const CUtensorMap& xmap,
                 const CUtensorMap& smap, const CUtensorMap& zmap,
                 const Params& p, int grid, cudaStream_t st) {
-  using C = Cfg<NTOK>;
+  using C = Cfg<NTOK, PRE>;
+  auto kernel = w4a16_sm90_kernel<NTOK, LAYOUT, PRE>;
   static bool attr_set = false;   // set once per instantiation
   if (!attr_set) {
     const cudaError_t e = cudaFuncSetAttribute(
-        w4a16_sm90_kernel<NTOK, LAYOUT>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
     if (e != cudaSuccess) return (int)e;
     attr_set = true;
   }
-  w4a16_sm90_kernel<NTOK, LAYOUT><<<grid, C::THREADS, C::SMEM, st>>>(
-      wmap, xmap, smap, zmap, p);
+  kernel<<<grid, C::THREADS, C::SMEM, st>>>(wmap, xmap, smap, zmap, p);
   return (int)cudaGetLastError();
 }
 
-template <int LAYOUT>
+// K1's configuration at 128 tokens (`K1_VARIANTS` in ops/w4a16_gemm.py):
+// 0 the K13 mainloop (with PRE_K1's repairs), 1 X128, 2 X128 + REGS, 3 the
+// same with three consumer warpgroups (WG3)
+constexpr int K1_PRE[4] = {PRE_K1, PRE_K1 | PRE_X128,
+                           PRE_K1 | PRE_X128 | PRE_REGS,
+                           PRE_K1 | PRE_X128 | PRE_REGS | PRE_WG3};
+constexpr int K1_NVAR = 4;
+
+template <int LAYOUT, int PRE128>
 int launch_layout(const CUtensorMap& wmap, const CUtensorMap& xmap,
                   const CUtensorMap& smap, const CUtensorMap& zmap,
                   const Params& p, int ntok, int grid, cudaStream_t st) {
+  // below 128 tokens K1 runs the K13 configuration (with PRE_K1's repairs)
+  constexpr int PRE = PRE128 & PRE_K1;
   switch (ntok) {
-    case 8: return launch_ntok<8, LAYOUT>(wmap, xmap, smap, zmap, p, grid, st);
-    case 16: return launch_ntok<16, LAYOUT>(wmap, xmap, smap, zmap, p, grid, st);
-    case 32: return launch_ntok<32, LAYOUT>(wmap, xmap, smap, zmap, p, grid, st);
-    case 64: return launch_ntok<64, LAYOUT>(wmap, xmap, smap, zmap, p, grid, st);
-    case 128: return launch_ntok<128, LAYOUT>(wmap, xmap, smap, zmap, p, grid, st);
+    case 8: return launch_ntok<8, LAYOUT, PRE>(wmap, xmap, smap, zmap, p, grid, st);
+    case 16: return launch_ntok<16, LAYOUT, PRE>(wmap, xmap, smap, zmap, p, grid, st);
+    case 32: return launch_ntok<32, LAYOUT, PRE>(wmap, xmap, smap, zmap, p, grid, st);
+    case 64: return launch_ntok<64, LAYOUT, PRE>(wmap, xmap, smap, zmap, p, grid, st);
+    case 128: return launch_ntok<128, LAYOUT, PRE128>(wmap, xmap, smap, zmap, p, grid, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
-// The whole call: tensor maps, the mainloop over `grid` persistent blocks,
-// and the combine pass when K is cut into more than one slice.  The wrapper
-// guarantees: ntok in {8, ..., 128}; M blocks of ntok tokens, n_mb * ntok >= M;
-// n_ct * cols >= N; slices cover K / 64 stages (K-paired: whole pack
-// groups, Gp % 64 == 0 or Gp == 32); G % 64 == 0, G == 32 or G == K;
-// N % 16 == 0; a workspace
-// of n_slices * M * N floats when n_slices > 1; contiguous operands.
-template <bool KPAIRED>
-int launch(const void* x, const void* qweight, const void* scales,
-           const void* zeros, const void* bias, void* workspace, void* out,
-           int M, int N, int K, int G, int Gp, int bn, int act, int ntok,
-           int n_mb, int n_ct, const int* slice_start, int n_slices, int grid,
-           void* stream) {
+// The whole call: tensor maps, the mainloop over `grid` persistent blocks
+// and the combine pass when K is cut into more than one slice.  The
+// wrapper guarantees: ntok in {8, ..., 128}; M blocks of ntok tokens, n_mb * ntok >= M; n_ct * cols >= N; slices cover
+// ceil(K / 64) stages (K-paired: whole pack groups, Gp % 64 == 0 or Gp ==
+// 32); G % 64 == 0, G == 32 or G == K (K1: any G % 32 == 0 and K % 32 ==
+// 0, the x columns past K read as zeros); N % 16 == 0; a workspace of
+// n_slices * M * N floats when n_slices > 1; contiguous operands.
+// KIND: 0 tiled (K13), 1 K-paired (K12), 2 tiled K1 with its
+// configuration `k1_variant` at 128 tokens.
+template <int KIND>
+int launch(const void* x, const void* qweight,
+                  const void* scales, const void* zeros, const void* bias,
+                  void* workspace, void* out, int M, int N, int K, int G,
+                  int Gp, int bn, int act, int ntok, int n_mb, int n_ct,
+                  const int* slice_start, int n_slices, int grid,
+                  int k1_variant, void* stream) {
   if (n_slices < 1 || n_slices > MAX_SLICES) return (int)cudaErrorInvalidValue;
+  if (KIND == 2 && (k1_variant < 0 || k1_variant >= K1_NVAR))
+    return (int)cudaErrorInvalidValue;
+  const bool kpaired = KIND == 1;
+  const int pre = KIND == 2 && ntok == 128 ? K1_PRE[k1_variant] : 0;
   Params p;
   p.scales = static_cast<const bf16*>(scales);
   p.zeros = static_cast<const bf16*>(zeros);
@@ -822,20 +762,27 @@ int launch(const void* x, const void* qweight, const void* scales,
   p.sl.n = n_slices;
   for (int i = 0; i <= n_slices; ++i) p.sl.start[i] = slice_start[i];
   CUtensorMap wmap, xmap;
-  int e = KPAIRED
+  int e = kpaired
       ? tensor_map_2d(&wmap, qweight, CU_TENSOR_MAP_DATA_TYPE_UINT8, N,
                       K / 2, N, WG_COLS, STAGE_PR)
       : tensor_map_2d(&wmap, qweight, CU_TENSOR_MAP_DATA_TYPE_UINT8, bn,
                       (uint64_t)(N / bn) * (K / 2), bn, WG_COLS, STAGE_PR);
   if (e) return e;
-  e = tensor_map_2d(&xmap, x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, K, M,
-                    (uint64_t)K * 2, 32, ntok);
+  // x [M, K] bf16: boxes of 32 K x ntok tokens (64-byte swizzle), or with
+  // X128 of 64 K (128-byte swizzle)
+  if (pre & PRE_X128) {
+    e = tensor_map_2d(&xmap, x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, K, M,
+                      (uint64_t)K * 2, 64, ntok, CU_TENSOR_MAP_SWIZZLE_128B);
+  } else {
+    e = tensor_map_2d(&xmap, x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, K, M,
+                      (uint64_t)K * 2, 32, ntok);
+  }
   if (e) return e;
   // scale and zero rows [K/G, N] bf16: the block's columns of one row a
-  // box, of two rows at G 32
+  // box, of two rows where a stage's halves may lie in two groups
   CUtensorMap smap, zmap;
-  const int cols = ntok >= 128 ? 2 * WG_COLS : WG_COLS;
-  const int rows = G == 32 ? 2 : 1;
+  const int cols = ntok >= 128 ? ((pre & PRE_WG3) ? 3 : 2) * WG_COLS : WG_COLS;
+  const int rows = (KIND == 2 ? (G < K && G % STAGE_K) : G == 32) ? 2 : 1;
   e = tensor_map_2d(&smap, scales, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, N,
                     K / G, (uint64_t)N * 2, cols, rows,
                     CU_TENSOR_MAP_SWIZZLE_NONE);
@@ -848,13 +795,20 @@ int launch(const void* x, const void* qweight, const void* scales,
     if (e) return e;
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if constexpr (KPAIRED) {
-    e = Gp == 32 ? launch_layout<KPAIRED_32>(wmap, xmap, smap, zmap, p, ntok,
-                                             grid, st)
-                 : launch_layout<KPAIRED_SPLIT>(wmap, xmap, smap, zmap, p,
-                                                ntok, grid, st);
+  if constexpr (KIND == 1) {
+    e = Gp == 32 ? launch_layout<KPAIRED_32, 0>(wmap, xmap, smap, zmap, p, ntok,
+                                                grid, st)
+                 : launch_layout<KPAIRED_SPLIT, 0>(wmap, xmap, smap, zmap, p,
+                                                   ntok, grid, st);
+  } else if constexpr (KIND == 0) {
+    e = launch_layout<TILED, 0>(wmap, xmap, smap, zmap, p, ntok, grid, st);
   } else {
-    e = launch_layout<TILED>(wmap, xmap, smap, zmap, p, ntok, grid, st);
+    switch (k1_variant) {
+      case 0: e = launch_layout<TILED, K1_PRE[0]>(wmap, xmap, smap, zmap, p, ntok, grid, st); break;
+      case 1: e = launch_layout<TILED, K1_PRE[1]>(wmap, xmap, smap, zmap, p, ntok, grid, st); break;
+      case 2: e = launch_layout<TILED, K1_PRE[2]>(wmap, xmap, smap, zmap, p, ntok, grid, st); break;
+      default: e = launch_layout<TILED, K1_PRE[3]>(wmap, xmap, smap, zmap, p, ntok, grid, st); break;
+    }
   }
   if (e || n_slices == 1) return e;
   // the combine pass as a programmatic dependent launch: its launch

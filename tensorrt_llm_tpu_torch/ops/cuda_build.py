@@ -46,8 +46,11 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
-    # x, qweight, scales, zeros, bias, out, M, N, K, group, block_n, act, stream
-    "tllm_w4a16_gemm": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # x, qweight, scales, zeros, bias, workspace, out, M, N, K, group,
+    # block_n, act, ntok, n_mb, n_ct, slice starts (host int array),
+    # n_slices, grid, variant, stream
+    "tllm_w4a16_gemm": [_P, _P, _P, _P, _P, _P, _P] + [_I] * 9
+    + [ctypes.POINTER(_I), _I, _I, _I, _P],
     # ... + workspace, split_k
     "tllm_w4a16_gemv": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                         _I, _P],

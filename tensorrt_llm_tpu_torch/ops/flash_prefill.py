@@ -3,8 +3,9 @@
 Counterpart of `tensorrt_llm_tpu/ops/flash_prefill.py`.  `flash_prefill_plain`
 is the plain version (the JAX package's `paged_prefill_xla`);
 `flash_prefill_attention` takes it for CPU tensors and for CUDA tensors
-launches kernel K3 over bf16 pools or K7 over INT8 pools
-(`csrc/flash_prefill.cu`, one template: head dims 64 and 128).
+launches kernel K3 over bf16 pools (`csrc/flash_prefill.cu`) or K7 over
+INT8 pools (`csrc/flash_prefill_sm90.cu`: a producer warp's bulk copies of
+the int8 pages, wgmma products), both at head dims 64 and 128.
 """
 
 from __future__ import annotations
@@ -19,6 +20,30 @@ from tensorrt_llm_tpu_torch.ops.attention_plain import (
 from tensorrt_llm_tpu_torch.ops.paged_attention import pool_operands
 
 __all__ = ["flash_prefill_attention", "flash_prefill_plain"]
+
+
+PREFILL_ROWS = 64      # stacked query rows of a K7 block (token x G + head)
+PREFILL_TILE = 64      # KV tokens a K7 tile takes
+
+
+def prefill_tile_ranges(T: int, G: int, kv_len: int, q_offset: int,
+                        window: Optional[int] = None) -> list:
+    """[(first tile, end tile)] of each K7 block's 64 stacked rows (the
+    bounds `csrc/flash_prefill_sm90.cu` computes): up to the causal edge of
+    the block's last row, from the sliding window of its first; tiles of
+    `PREFILL_TILE` KV tokens.  The tiles outside a block's range hold no
+    (row, KV position) pair that the masks keep; within it, the masks cut
+    the rest.  Pure shape logic; the tests check it on the CPU."""
+    R = T * G
+    out = []
+    for row0 in range(0, R, PREFILL_ROWS):
+        last = min(row0 + PREFILL_ROWS, R) - 1
+        kv_end = min(kv_len, q_offset + last // G + 1)
+        kv_begin = (max(0, q_offset + row0 // G - window + 1)
+                    if window and window > 0 else 0)
+        out.append((kv_begin // PREFILL_TILE,
+                    -(-kv_end // PREFILL_TILE) if kv_end > 0 else 0))
+    return out
 
 
 def _as_int(v) -> int:
@@ -55,6 +80,8 @@ def flash_prefill_attention(q: torch.Tensor, k_cache, v_cache,
             raise ValueError(f"{name} must be contiguous {dt} on {q.device}")
     if block_table.dim() != 1:
         raise ValueError("block_table must be [MB]")
+    if int8 and any(t.data_ptr() % 16 for t in (*k_cache, *v_cache)):
+        raise ValueError("INT8 pools must start 16-byte aligned (bulk copies)")
     if sinks is not None:
         sinks = sinks.to(device=q.device, dtype=torch.float32).contiguous()
         if sinks.shape != (Hq,):

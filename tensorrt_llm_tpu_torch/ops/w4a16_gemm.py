@@ -21,15 +21,16 @@ Counterpart of `tensorrt_llm_tpu/ops/w4a16_gemm.py`:
   ``"stream"`` tactic and K13 under ``"ramp"`` when the JAX single-M-block
   rule holds (for K2 also M <= `GEMV_MAX_M`, for the ramp K % 1024 == 0),
   else K1, the JAX package's tiled kernel.  With no tactic given and none
-  tuned, the port's own default: K2 at M <= `GEMV_MAX_M` = 16 rows, where
-  the product is bound by the weight bytes and K1's 64-row tensor-core
-  tile would run a quarter full, K1 above.
+  tuned, the port's own default: K2 at M <= `GEMV_MAX_M` = 16 rows (a
+  split-K GEMV bound by the weight bytes), K1 above.  The warmup's tuner
+  times K1 against K2 and K13 at the decode batch.
 
 Tactic arguments keep the JAX signature; on the card they mean:
 
 * ``block_k``: for K12, the K rows of one work unit (K / block_k slices,
   each whole pack groups, summed by the combine pass); for K1, nothing
-  more than "the tiled kernel" (K1 walks the whole K of its tile).
+  more than "the tiled kernel" (K1's K slices are its plan's,
+  `k1_plan`).
 * ``block_m``: the M block of the single-M-block rule of ``"stream"`` and
   ``"ramp"`` (default ``min(256, round_up(M, 16))``); ``block_m=16`` sends
   only decode-sized calls to K2/K13 and larger ones to K1.  With a K12
@@ -43,10 +44,11 @@ Tactic arguments keep the JAX signature; on the card they mean:
   s4 MXU feed) have no Hopper meaning: accepted, without effect, so that a
   JAX tactic file loads unchanged.
 
-K12 and K13 share one Hopper mainloop (`csrc/w4a16_sm90.cuh`: TMA ring,
-wgmma on the register-dequantized weight); `sm90_tiles`, `sm90_check` and
-`sm90_plan` are its pure shape logic (token tile, column tile, work units,
-grid), which the CPU tests check.
+K1, K12 and K13 share one Hopper mainloop (`csrc/w4a16_sm90.cuh`: TMA
+ring, wgmma on the register-dequantized weight); `sm90_tiles`,
+`sm90_check` and `sm90_plan` (K12, K13) and `k1_plan` / `k1_choice` (K1)
+are its pure shape logic (token tile, column tile, work units, grid),
+which the CPU tests check.
 
 Scales and zeros are rounded to bf16 on every path, as in the JAX package
 (its `w4a16_matmul_xla` and the Pallas kernels store half-precision scales).
@@ -96,6 +98,23 @@ SM90_MAX_SLICES = 128        # K slices a call may have
 # partials move at about twice HBM's 3.35 TB/s, as most stay in the L2
 _SM90_STAGE_S = {1: 0.37e-6, 2: 0.45e-6}
 _PARTIAL_BPS = 2 * 3.35e12
+# K1 (`k1_plan`): its configurations at 128 tokens, by the index the C
+# entry takes (`K1_PRE` in csrc/w4a16_sm90.cuh): the K13 mainloop; x as
+# one 64-K box (128-byte swizzle); plus a producer warpgroup that hands
+# registers to two accumulator chains; the same with three consumer
+# warpgroups (192 columns a block).  `chip_smoke.py` times each at served
+# M 256 shapes.
+K1_VARIANTS = ("mainloop", "x128", "x128_regs", "x128_regs_wg3")
+K1_PATH_VARIANTS = (2, 3)    # the two `k1_plan` chooses between
+K1_MAX_SLICES = 32
+# K1's cost model (`k1_choice`), fitted to its times on the H100 over every
+# slice count at the served shapes (phase 3), by consumer warpgroups (one:
+# up to 64 tokens; two or three: 128): seconds per stage of a unit, per
+# round of units over the block slots, per byte of f32 partials written
+# and read, and per combine pass
+_K1_COST = {1: (0.41e-6, 0.0, 0.76e-12, 2.3e-6),
+            2: (0.434e-6, 1.823e-6, 0.195e-12, 3.27e-6),
+            3: (0.562e-6, 3.824e-6, 0.142e-12, 2.301e-6)}
 
 ACTIVATIONS = {
     None: lambda v: v,
@@ -252,6 +271,94 @@ def sm90_plan(M: int, K: int, N: int, bounds: tuple,
             "stage_start": tuple(b // SM90_STAGE_K for b in bounds)}
 
 
+def k1_tiles(M: int, variant: int) -> Tuple[int, int]:
+    """(token tile, consumer warpgroups) of K1 for M rows: the mainloop's
+    tiles (`sm90_tiles`), with three warpgroups at 128 tokens in the WG3
+    configuration."""
+    ntok, nwg = sm90_tiles(M)
+    if ntok == SM90_M_BLOCK and "wg3" in K1_VARIANTS[variant]:
+        nwg = 3
+    return ntok, nwg
+
+
+def k1_slice_choices(K: int) -> tuple:
+    """The K slice counts K1 can take: 1 to `K1_MAX_SLICES`, at most one per
+    64-row stage (ceil(K / 64) stages; a K % 64 == 32 tail is half a
+    stage)."""
+    return tuple(range(1, min(cdiv(K, SM90_STAGE_K), K1_MAX_SLICES) + 1))
+
+
+def _k1_units(M: int, K: int, N: int, n_sl: int, n_sms: int,
+              variant: int) -> dict:
+    ntok, nwg = k1_tiles(M, variant)
+    n_st = cdiv(K, SM90_STAGE_K)
+    n_mb, n_ct = cdiv(M, ntok), cdiv(N, 64 * nwg)
+    per_sm = 1 if nwg >= 2 else (3 if ntok <= 32 else 2)
+    units = n_mb * n_ct * n_sl
+    return {"ntok": ntok, "nwg": nwg, "cols": 64 * nwg, "n_mb": n_mb,
+            "n_ct": n_ct, "stages": n_st, "slices": n_sl, "units": units,
+            "slots": per_sm * n_sms, "grid": min(units, per_sm * n_sms),
+            "stage_start": tuple(i * n_st // n_sl for i in range(n_sl + 1))}
+
+
+def k1_model_s(M: int, K: int, N: int, slices: int, variant: int,
+               n_sms: int = _SMS) -> float:
+    """K1's modeled time (`_K1_COST`): rounds of units over the SMs' block
+    slots, each the stages of the longest slice, plus the f32 partials and
+    the combine pass that more than one slice adds."""
+    u = _k1_units(M, K, N, slices, n_sms, variant)
+    stage_s, round_s, byte_s, comb_s = _K1_COST[u["nwg"]]
+    rounds = cdiv(u["units"], u["slots"])
+    t = rounds * (cdiv(u["stages"], slices) * stage_s + round_s)
+    if slices > 1:
+        t += 2 * slices * M * N * 4 * byte_s + comb_s
+    return t
+
+
+@functools.lru_cache(maxsize=4096)
+def k1_choice(M: int, K: int, N: int, n_sms: int = _SMS,
+              variant: Optional[int] = None) -> Tuple[int, int]:
+    """(configuration, K slice count) of K1 with the least modeled time
+    (`k1_model_s`) over `K1_PATH_VARIANTS` (or `variant`) and
+    `k1_slice_choices`: a unit takes the whole K where (M blocks x column
+    tiles) fill the slots in whole rounds, and K is cut where they would
+    leave SMs idle.  `chip_smoke.py` times every choice at the served
+    shapes and fails if this one is more than ``K1_SLICE_SLACK`` slower
+    than the fastest."""
+    variants = K1_PATH_VARIANTS if variant is None else (variant,)
+    if sm90_tiles(M)[0] < SM90_M_BLOCK:
+        variants = variants[:1]      # one configuration below 128 tokens
+    best, best_t = None, None
+    for v in variants:
+        for d in k1_slice_choices(K):
+            t = k1_model_s(M, K, N, d, v, n_sms)
+            if best_t is None or t < best_t * (1 - 1e-9):
+                best, best_t = (v, d), t
+    return best
+
+
+@functools.lru_cache(maxsize=4096)
+def k1_plan(M: int, K: int, N: int, n_sms: int = _SMS,
+            variant: Optional[int] = None,
+            slices: Optional[int] = None) -> dict:
+    """K1's launch (`csrc/w4a16_gemm.cu`): M blocks of up to 128 tokens
+    (the smallest wgmma N that holds M below), 128 or 192 columns a block
+    at 128 tokens (64 below), and K slices of ceil(K / 64) stages, uneven
+    by at most one stage, in K order; a unit is (M block, column tile,
+    slice), and the persistent grid is one block per unit up to the slots.
+    The configuration and slice count are `k1_choice`'s unless given.
+    Pure shape logic; the tests check it on the CPU."""
+    if variant is not None and not 0 <= variant < len(K1_VARIANTS):
+        raise ValueError(f"K1 variant {variant} not in "
+                         f"0..{len(K1_VARIANTS) - 1}")
+    v, d = k1_choice(M, K, N, n_sms, variant)
+    d = slices or d
+    if not 1 <= d <= min(cdiv(K, SM90_STAGE_K), K1_MAX_SLICES):
+        raise ValueError(f"K1 takes 1..{K1_MAX_SLICES} slices of whole "
+                         f"64-row stages (K={K}, slices={d})")
+    return dict(_k1_units(M, K, N, d, n_sms, v), variant=v)
+
+
 @functools.lru_cache(maxsize=4096)
 def _c_ints(values: tuple):
     """A ctypes int array of `values`, built once (the C side only reads
@@ -346,6 +453,17 @@ def _check_common(x, packed, scales, zeros, bias, N, K):
     return K // scales.shape[0]
 
 
+def tiled_check(K: int, G: int, bn: int) -> None:
+    """Raise NotImplementedError on a tiled weight shape the kernels K1, K2
+    and K13 do not take: they need BN % 64 == 0, K % 32 == 0 and G % 32 ==
+    0 (K1 runs a K % 64 == 32 tail as half a stage, and two scale rows a
+    stage where G % 64 != 0)."""
+    if bn % 64 or K % 32 or G % 32:
+        raise NotImplementedError(
+            f"W4A16 kernels need BN % 64 == 0, K % 32 == 0 and G % 32 == 0 "
+            f"(BN={bn}, K={K}, G={G})")
+
+
 def _check_operands(x, packed3, scales, zeros, bias):
     M, K = x.shape
     n_n, half, bn = packed3.shape
@@ -353,28 +471,37 @@ def _check_operands(x, packed3, scales, zeros, bias):
     if half * 2 != K:
         raise ValueError(f"packed {tuple(packed3.shape)} does not match K={K}")
     G = _check_common(x, packed3, scales, zeros, bias, N, K)
-    if bn % 64 or K % 32 or G % 32:
-        raise NotImplementedError(
-            f"W4A16 kernels need BN % 64 == 0, K % 32 == 0 and G % 32 == 0 "
-            f"(BN={bn}, K={K}, G={G})")
+    tiled_check(K, G, bn)
     return M, N, K, G, bn
 
 
 def w4a16_gemm(x: torch.Tensor, packed3: torch.Tensor, scales: torch.Tensor,
                zeros: Optional[torch.Tensor] = None,
                bias: Optional[torch.Tensor] = None,
-               activation: Optional[str] = None) -> torch.Tensor:
+               activation: Optional[str] = None,
+               slices: Optional[int] = None,
+               variant: Optional[int] = None) -> torch.Tensor:
     """Launch K1 on CUDA operands: x [M, K] bf16, packed3 [N/BN, K/2, BN]
-    int8, scales (zeros) [K/G, N] bf16, bias [N] f32.  Returns [M, N] bf16."""
+    int8, scales (zeros) [K/G, N] bf16, bias [N] f32; any M, K % 32 == 0,
+    G % 32 == 0.  `slices` and `variant` override `k1_plan`'s K slices and
+    configuration (`K1_VARIANTS`).  Returns [M, N] bf16."""
     M, N, K, G, bn = _check_operands(x, packed3, scales, zeros, bias)
+    _check_sm90_ptrs(x, packed3)
     out = torch.empty((M, N), dtype=torch.bfloat16, device=x.device)
     if M == 0:
         return out
+    plan = k1_plan(M, K, N, cuda_build.num_sms(x.device), variant, slices)
+    n_sl = plan["slices"]
+    ws = (torch.empty((n_sl, M, N), dtype=torch.float32, device=x.device)
+          if n_sl > 1 else None)
     lib = cuda_build.load_library()
     err = lib.tllm_w4a16_gemm(
         cuda_build.ptr(x), cuda_build.ptr(packed3), cuda_build.ptr(scales),
-        cuda_build.ptr(zeros), cuda_build.ptr(bias), cuda_build.ptr(out),
-        M, N, K, G, bn, _ACT_CODE[activation], cuda_build.stream_of(x))
+        cuda_build.ptr(zeros), cuda_build.ptr(bias), cuda_build.ptr(ws),
+        cuda_build.ptr(out), M, N, K, G, bn, _ACT_CODE[activation],
+        plan["ntok"], plan["n_mb"], plan["n_ct"],
+        _c_ints(plan["stage_start"]), n_sl, plan["grid"], plan["variant"],
+        cuda_build.stream_of(x))
     cuda_build.check(err, "w4a16_gemm")
     cuda_build.launch_counts["w4a16_gemm"] += 1
     return out
