@@ -26,7 +26,10 @@ Phases (any failure exits nonzero; nothing is caught and ignored):
    each of its configurations at two M 256 shapes, and its plan's
    (configuration, K slices) pick within 10% of the fastest choice timed;
    the INT8-KV prefill K7 also at 17 and 256 tokens after a 1024-token
-   prefix);
+   prefix, the bf16 one K3 at 17; the MLA prefill K10 also at 17 and 256
+   tokens after a 1024-token prefix, where its plan splits the latent
+   range over blocks: each row names the plan's blocks and splits, and
+   the plan's split is held within 10% of the fastest split timed);
 4. serve 8 greedy requests with `LLM.generate` on the full-width TinyLlama
    W4A16 model (random weights from a seed); every serve phase builds its
    `LLM` with the default warmup (the W4A16 autotuner prints each shape's
@@ -158,10 +161,13 @@ PREFILL_CASES = [
     ("gpt-oss-20b", 64, 8, 64, 256, 0, 128, None, True),
     ("gpt-oss-20b", 64, 8, 64, 256, 128, 128, None, True),
     ("gpt-oss-20b", 64, 8, 64, 256, 256, None, None, True),
+    # a short chunk after a long prefix (one block per KV head walks it)
+    ("llama-3-8b", 32, 8, 128, 17, 1024, None, None, False),
 ]
 # the INT8-KV kernels K6/K7 at the D=128 cases above and one D=64 case;
 # K7 also at a short and a long chunk after a 1024-token prefix
-PREFILL_INT8_CASES = [c for c in PREFILL_CASES if c[0] == "llama-3-8b"] + [
+PREFILL_INT8_CASES = [
+    c for c in PREFILL_CASES if c[0] == "llama-3-8b" and c[5] != 1024] + [
     ("tinyllama", 32, 4, 64, 256, 256, None, None, False),
     ("llama-3-8b", 32, 8, 128, 17, 1024, None, None, False),
     ("llama-3-8b", 32, 8, 128, 256, 1024, None, None, False)]
@@ -1152,7 +1158,15 @@ MLA_PREFILL_CASES = [
     ("deepseek-v3", 128, 256, 0),
     ("deepseek-v3", 128, 256, 256),
     ("deepseek-v3", 128, 100, 37),
+    # short chunks and long prefixes: where K10's plan splits the latents
+    ("moonlight-16b-a3b", 16, 17, 1024),
+    ("moonlight-16b-a3b", 16, 256, 1024),
+    ("deepseek-v3", 128, 17, 1024),
+    ("deepseek-v3", 128, 256, 1024),
 ]
+# `mla_prefill_splits` must pick a split count whose K10 time is within
+# this share of the fastest count timed, at every MLA_PREFILL_CASES row
+MLA_SPLIT_SLACK = 0.10
 DSA_CASES = [
     # kv_lens (B = 4), table blocks of 16 (MB * 16 is not a multiple of
     # K11's 64-token tile)
@@ -1193,6 +1207,47 @@ def _sdpa_latent_ms(q, lat, mask, scale, iters):
         return None
     return cuda_ms([lambda: F.scaled_dot_product_attention(
         q, k, v, attn_mask=mask, scale=scale)], iters)
+
+
+def check_mla_splits(gen, dev):
+    """`mla_prefill_splits`' pick against every latent split K10 can take
+    (`mla_prefill_split_choices`), each timed at every MLA_PREFILL_CASES
+    row: the pick must be within MLA_SPLIT_SLACK of the fastest."""
+    import torch
+    from tensorrt_llm_tpu_torch.ops import mla as MLA
+    DK = MLA_L + MLA_R
+    scale = (128 + MLA_R) ** -0.5
+    rows = []
+    for model, H, T, off in MLA_PREFILL_CASES:
+        kv_len = off + T
+        choices = MLA.mla_prefill_split_choices(T, H, kv_len, off)
+        if len(choices) < 2:
+            continue
+        pool, tables = _latent_pool(gen, dev, [kv_len], DK)
+        table = tables[0].contiguous()
+        q = torch.randn((T, H, DK), generator=gen, device=dev).to(
+            torch.bfloat16)
+        pools = [pool.clone() for _ in range(copies_for(_nbytes(pool)))]
+        times = {sl: cuda_ms([lambda p=p, sl=sl: MLA.mla_prefill_attention(
+            q, p, table, kv_len, off, scale, MLA_L, split_len=sl)
+            for p in pools], 20) for sl in choices}
+        _, n, pick = MLA.mla_prefill_splits(T, H, kv_len, off)
+        best = min(times, key=times.get)
+        rows.append({"model": model, "H": H, "T": T, "q_offset": off,
+                     "pick": pick, "splits": n, "fastest": best,
+                     "pick_over_fastest": times[pick] / times[best],
+                     "ms": {str(sl): t for sl, t in times.items()}})
+        log(json.dumps(rows[-1]))
+        del pools, pool
+    worst = max(r["pick_over_fastest"] for r in rows)
+    PHASES["mla_prefill_splits"] = {"phase": "mla_prefill_splits",
+                                    "rows": rows,
+                                    "worst_pick_over_fastest": worst,
+                                    "slack": MLA_SPLIT_SLACK}
+    bad = [(r["model"], r["T"], r["q_offset"], r["pick"], r["fastest"],
+            r["pick_over_fastest"]) for r in rows
+           if r["pick_over_fastest"] > 1 + MLA_SPLIT_SLACK]
+    assert not bad, f"mla_prefill_splits picks slower than the slack: {bad}"
 
 
 def check_mla(gen, dev):
@@ -1264,9 +1319,15 @@ def check_mla(gen, dev):
                                20)
         pairs = sum(min(off + t + 1, kv_len) for t in range(T))
         nbytes = kv_len * DK * 2 + T * H * (DK + MLA_L) * 2
+        # the kernel rounds P to bf16 (2^-9 relative), both sides round
+        # the output to bf16 (2^-8): 2% of the largest output
         tol = 2e-2 * max(1.0, ref.float().abs().max().item())
+        blocks, n_split, split_len = MLA.mla_prefill_splits(T, H, kv_len,
+                                                            off)
         record("mla_prefill", {"model": model, "H": H, "L": MLA_L,
-                               "R": MLA_R, "T": T, "q_offset": off},
+                               "R": MLA_R, "T": T, "q_offset": off,
+                               "blocks": blocks, "splits": n_split,
+                               "split_len": split_len},
                err, tol, k_ms, p_ms, l_ms,
                bound_ms(nbytes, 2 * H * (DK + MLA_L) * pairs))
         del pool, lat
@@ -2084,7 +2145,8 @@ KERNELS = {
     "w4a16_gemv": ("cuda", "tensorrt_llm_tpu_torch/csrc/w4a16_gemv.cu",
                    "tensorrt_llm_tpu/ops/w4a16_gemm.py:560", STREAM_PATH,
                    {"model": "tinyllama", "M": 4, "K": 5632, "N": 2048}),
-    "flash_prefill": ("cuda", "tensorrt_llm_tpu_torch/csrc/flash_prefill.cu",
+    "flash_prefill": ("cuda",
+                      "tensorrt_llm_tpu_torch/csrc/flash_prefill_sm90.cu",
                       "tensorrt_llm_tpu/ops/flash_prefill.py:282",
                       GPT_OSS_PATH,
                       {"model": "gpt-oss-20b", "T": 256, "q_offset": 128,
@@ -2116,7 +2178,8 @@ KERNELS = {
     "mla_decode": ("cuda", "tensorrt_llm_tpu_torch/csrc/mla_decode.cu",
                    "tensorrt_llm_tpu/ops/mla_pallas.py:37", MOONLIGHT_PATH,
                    {"model": "moonlight-16b-a3b"}),
-    "mla_prefill": ("cuda", "tensorrt_llm_tpu_torch/csrc/mla_prefill.cu",
+    "mla_prefill": ("cuda",
+                    "tensorrt_llm_tpu_torch/csrc/mla_prefill_sm90.cu",
                     "tensorrt_llm_tpu/ops/mla_pallas.py:189", MOONLIGHT_PATH,
                     {"model": "moonlight-16b-a3b", "T": 256,
                      "q_offset": 256}),
@@ -2240,6 +2303,7 @@ def run_phases(phases, card, gen, dev, by_path):
         check_w4a8(gen, dev)
     if "check" in phases or "check_mla" in phases:
         check_mla(gen, dev)
+        check_mla_splits(gen, dev)
     if "check" in phases or "check_w4a16" in phases:
         check_w4a16(gen, dev)
     if RESULTS:

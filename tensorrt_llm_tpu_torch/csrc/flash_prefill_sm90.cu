@@ -1,23 +1,27 @@
-// K7 flash_prefill_int8: one sequence's chunk of T query tokens, at
-// positions q_offset.., attends its paged INT8 KV (prefix + chunk, already
-// written): int8 pools [NB, Hkv, BS, D] with f32 per-(token, head) scale
-// pools [NB, Hkv, BS], through the sequence's block table.
+// K3 flash_prefill and K7 flash_prefill_int8: one sequence's chunk of T
+// query tokens, at positions q_offset.., attends its paged KV (prefix +
+// chunk, already written) through the sequence's block table: bf16 pools
+// [NB, Hkv, BS, D] (K3), or int8 pools of that shape with f32
+// per-(token, head) scale pools [NB, Hkv, BS] (K7).
 //
-// Replaces the TPU kernel tensorrt_llm_tpu/ops/flash_prefill.py
-// `_flash_prefill_kernel_int8`: the K scale multiplies the logits, the V
-// scale the probabilities before they are rounded to bf16 for P V (the row
-// sums stay unscaled); causal mask, sliding window, logit cap (tanh) and
-// sinks (a per-head logit that joins the softmax denominator once), at
-// D 64 and 128, with GQA.
+// Replaces the TPU kernels tensorrt_llm_tpu/ops/flash_prefill.py
+// `_flash_prefill_kernel` (D % 128 == 0) and `_flash_prefill_kernel_packed`
+// (D < 128 over the TPU's lane-packed page view), here one kernel over the
+// logical head-major pools, and `_flash_prefill_kernel_int8`: for int8
+// pages the K scale multiplies the logits, the V scale the probabilities
+// before they are rounded to bf16 for P V (the row sums stay unscaled);
+// causal mask, sliding window, logit cap (tanh) and sinks (a per-head
+// logit that joins the softmax denominator once), at D 64 and 128, with
+// GQA.
 //
 // What bounds it on the H100: tensor-core operations once the chunk reaches
 // a few hundred tokens (~4*T*S*Hq*D against S*Hkv*(2D + 8) bytes of KV),
 // the KV bytes for short chunks and windows.  At Llama-3-8B's widths (32/8
 // heads, D 128), T 256 at q_offset 256: 1.6 GFLOP, a 1.6 us bound.
 //
-// Design (sm_90a: bulk copies, mbarriers, wgmma, warp specialisation).
-// The page type is a template parameter (`int8_t` here; the bf16 pages of
-// K3 are to follow on the same kernel).
+// Design (sm_90a: TMA and bulk copies, mbarriers, wgmma, warp
+// specialisation).  The page type is a template parameter: bf16 (K3) or
+// int8_t (K7).
 //
 // * Rows are stacked as in the TPU kernel: row = token * G + head of the
 //   G = Hq/Hkv query heads of one KV head, so every page read serves all G
@@ -29,17 +33,26 @@
 //   at the end: a single warpgroup an SM left every dependent instruction
 //   of the conversion and the softmax at its full latency (one warp a
 //   scheduler) on the H100.
-// * Producer warp: each lane reads the block-table entry of one page run
-//   of the tile and copies it by cp.async.bulk -- BS x D contiguous int8
-//   bytes of the block's KV head in the head-major pool (2 KB at BS 16,
-//   D 128), and its BS f32 scales -- into a ring of FP_STAGES 64-token
+// * Producer warp, int8 pages: each lane reads the block-table entry of
+//   one page run of the tile and copies it by cp.async.bulk -- BS x D
+//   contiguous int8 bytes of the block's KV head in the head-major pool
+//   (2 KB at BS 16, D 128), and its BS f32 scales -- into a ring of 64-token
 //   stages with complete_tx mbarriers.  The copies of the next stages are
 //   in flight while the consumers compute.  Scales past kv_len read as
 //   zero (the stage holds the rest of the last page), so that stale bytes
 //   add nothing.
-// * Consumer warpgroup, per 64-token tile: converts the int8 K and V tiles
-//   to bf16 in shared memory (exact for |q| <= 127), in the 64-byte swizzle
-//   that wgmma reads without bank conflicts, and frees the stage; runs
+// * Producer warp, bf16 pages: TMA tensor maps over the pools viewed as
+//   [NB * Hkv * BS, D] load each run of gcd(BS, 64) tokens of one KV head's
+//   page as boxes of 64 channels in the 128-byte swizzle that wgmma reads
+//   (pages of a multiple of 8 tokens: a box must fill whole 8-row swizzle
+//   atoms).  No conversion, so no per-warpgroup tiles: the ring takes that
+//   room (six stages at D 128, eight at D 64, against four for int8).
+//   Tokens of the last tile in no page of the sequence are zeroed by the
+//   producer (a stale bf16 NaN times P = 0 would poison the sum).
+// * Consumer warpgroup, per 64-token tile: for int8 pages, converts the
+//   K and V tiles to bf16 in shared memory (exact for |q| <= 127), in the
+//   64-byte swizzle that wgmma reads without bank conflicts, and frees the
+//   stage (bf16 pages are read in the stage itself, freed after P V); runs
 //   S = Q K^T on wgmma (Q as the register A operand, loaded once; the K
 //   tile K-major as B); applies the softmax scale, the K scale, the cap and
 //   the masks and keeps an online softmax in f32 (base-2 exponentials);
@@ -58,8 +71,7 @@ namespace {
 using namespace sm90;
 
 constexpr int FP_ROWS = 64;    // stacked query rows per block
-constexpr int FP_TK = 64;      // KV tokens per tile
-constexpr int FP_STAGES = 4;   // ring stages of int8 tiles
+constexpr int FP_TK = PAGED_TILE;   // KV tokens per tile
 constexpr int FP_WG = 2;       // consumer warpgroups, on alternate tiles
 // + a producer warpgroup, one warp of which works: a whole warpgroup can
 // hand its registers to the consumers (setmaxnreg 40 / 232), which hold
@@ -68,16 +80,20 @@ constexpr int FP_THREADS = FP_WG * 128 + 128;
 
 template <int D, typename KV>
 struct FpCfg {
+  static constexpr bool I8 = sizeof(KV) == 1;
+  static constexpr int STAGES = I8 ? 4 : (D == 64 ? 8 : 6);   // ring stages
   static constexpr int BOX = FP_TK * 64;            // 32 bf16 of 64 tokens
   static constexpr int TILE16 = D / 32 * BOX;       // a bf16 tile
   static constexpr int KV_BYTES = FP_TK * D * (int)sizeof(KV);
-  static constexpr int STAGE = 2 * KV_BYTES + 2 * FP_TK * 4;
-  // a warpgroup's bf16 K and V tiles and their scales
-  static constexpr int WG_BYTES = 2 * TILE16 + 2 * FP_TK * 4;
+  // K and V, and for int8 their scales
+  static constexpr int STAGE = 2 * KV_BYTES + (I8 ? 2 * FP_TK * 4 : 0);
+  // int8: a warpgroup's bf16 K and V tiles and their scales
+  static constexpr int WG_BYTES = I8 ? 2 * TILE16 + 2 * FP_TK * 4 : 0;
   // those of each warpgroup, the ring, its barriers, and slack to align
   // the base to 1 KB
   static constexpr int SMEM =
-      FP_WG * WG_BYTES + FP_STAGES * STAGE + 2 * FP_STAGES * 8 + 1024;
+      FP_WG * WG_BYTES + STAGES * STAGE + 2 * STAGES * 8 + 1024;
+  static_assert(SMEM <= 232448, "flash prefill's shared memory");
 };
 
 // Two int8 values of w (bytes k and k + 1) as bf16x2, exactly: each byte,
@@ -104,16 +120,19 @@ __device__ __forceinline__ void int8x16_to_bf16(uint4 v, uint4& lo,
                   int8x2_to_bf16x2(u3, 0), int8x2_to_bf16x2(u3, 2));
 }
 
+// kmap / vmap: the bf16 pools' tensor maps (boxes of BR rows); unused for
+// int8 pages, which take kc / vc and their scales
 template <int D, typename KV>
 __global__ void __launch_bounds__(FP_THREADS, 1) flash_prefill_sm90_kernel(
-    const bf16* __restrict__ q, const KV* __restrict__ kc,
-    const KV* __restrict__ vc, const float* __restrict__ k_sc,
-    const float* __restrict__ v_sc, const int* __restrict__ block_table,
-    const float* __restrict__ sinks, bf16* __restrict__ out, int T, int Hq,
-    int Hkv, int BS, int MB, int kv_len, int q_offset, float scale,
-    int window, float cap) {
-  static_assert(sizeof(KV) == 1, "bf16 pages are K3's, on flash_prefill.cu");
+    const __grid_constant__ CUtensorMap kmap,
+    const __grid_constant__ CUtensorMap vmap, const bf16* __restrict__ q,
+    const KV* __restrict__ kc, const KV* __restrict__ vc,
+    const float* __restrict__ k_sc, const float* __restrict__ v_sc,
+    const int* __restrict__ block_table, const float* __restrict__ sinks,
+    bf16* __restrict__ out, int T, int Hq, int Hkv, int BS, int BR, int MB,
+    int kv_len, int q_offset, float scale, int window, float cap) {
   using C = FpCfg<D, KV>;
+  constexpr int FP_STAGES = C::STAGES;
   extern __shared__ uint8_t smem_raw[];
   // offsets of the shared array itself, so that the compiler keeps its
   // address space (shared, not generic, loads and stores)
@@ -149,6 +168,17 @@ __global__ void __launch_bounds__(FP_THREADS, 1) flash_prefill_sm90_kernel(
     // ------------------------------------------------------ producer ---
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
     if (warp != FP_WG * 4) return;
+    if constexpr (!C::I8) {
+      const int tok_end = min(((kv_len - 1) / BS + 1) * BS, MB * BS);
+      for (int tile = t_begin; tile < t_end; ++tile) {
+        const int i = tile - t_begin, slot = i % FP_STAGES;
+        tma_paged_tile(ring + slot * C::STAGE, &kmap, &vmap, 2, D / 64,
+                       block_table, Hkv, h, BS, BR, tile * FP_TK, tok_end,
+                       &full[slot], &empty[slot],
+                       ((i / FP_STAGES) & 1) ^ 1, lane);
+      }
+      return;
+    }
     // A tile is runs of tokens that lie in one page each, up to the page
     // of the last token below kv_len (whole pages: their bytes exist).
     // Lane r copies run r: K and V and, when BS % 4 == 0, their scales;
@@ -271,39 +301,44 @@ __global__ void __launch_bounds__(FP_THREADS, 1) flash_prefill_sm90_kernel(
     const int s0 = (t_begin + i) * FP_TK;
     const int slot = i % FP_STAGES;
     mbar_wait(&full[slot], (i / FP_STAGES) & 1);
-    // the previous tile's wgmmas have read the bf16 tiles in every warp
-    named_sync(1 + wg, 128);
     const uint8_t* stage = ring + slot * C::STAGE;
-    // int8 [token][D] -> bf16 boxes of 32 values, 64-byte rows, the 16-byte
-    // chunk c of row r at chunk c ^ ((r >> 1) & 3)
+    if constexpr (C::I8) {
+      // the previous tile's wgmmas have read the bf16 tiles in every warp
+      named_sync(1 + wg, 128);
+      // int8 [token][D] -> bf16 boxes of 32 values, 64-byte rows, the 16-byte
+      // chunk c of row r at chunk c ^ ((r >> 1) & 3)
 #pragma unroll
-    for (int kv = 0; kv < 2; ++kv) {
-      const uint8_t* src = stage + kv * C::KV_BYTES;
-      uint8_t* dst = kv ? vb : kb;
+      for (int kv = 0; kv < 2; ++kv) {
+        const uint8_t* src = stage + kv * C::KV_BYTES;
+        uint8_t* dst = kv ? vb : kb;
 #pragma unroll
-      for (int i = tid; i < FP_TK * D / 16; i += 128) {
-        const int tok = i / (D / 16), c = i % (D / 16);
-        uint4 lo, hi;
-        int8x16_to_bf16(*reinterpret_cast<const uint4*>(src + tok * D + 16 * c),
-                        lo, hi);
-        uint8_t* row = dst + (c >> 1) * C::BOX + tok * 64;
-        const int sw = (tok >> 1) & 3, c0 = 2 * (c & 1);
-        *reinterpret_cast<uint4*>(row + 16 * (c0 ^ sw)) = lo;
-        *reinterpret_cast<uint4*>(row + 16 * ((c0 + 1) ^ sw)) = hi;
+        for (int i = tid; i < FP_TK * D / 16; i += 128) {
+          const int tok = i / (D / 16), c = i % (D / 16);
+          uint4 lo, hi;
+          int8x16_to_bf16(
+              *reinterpret_cast<const uint4*>(src + tok * D + 16 * c), lo, hi);
+          uint8_t* row = dst + (c >> 1) * C::BOX + tok * 64;
+          const int sw = (tok >> 1) & 3, c0 = 2 * (c & 1);
+          *reinterpret_cast<uint4*>(row + 16 * (c0 ^ sw)) = lo;
+          *reinterpret_cast<uint4*>(row + 16 * ((c0 + 1) ^ sw)) = hi;
+        }
       }
+      {
+        // the tile's scales; zero past kv_len, where the stage holds the
+        // rest of the last page (or nothing)
+        const float* sc =
+            reinterpret_cast<const float*>(stage + 2 * C::KV_BYTES);
+        const float v = s0 + (tid & (FP_TK - 1)) < kv_len ? sc[tid] : 0.f;
+        if (tid < FP_TK) ksc[tid] = v;
+        else vsc[tid - FP_TK] = v;
+      }
+      fence_proxy_async();
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[slot]);
+      named_sync(1 + wg, 128);
     }
-    {
-      // the tile's scales; zero past kv_len, where the stage holds the
-      // rest of the last page (or nothing)
-      const float* sc = reinterpret_cast<const float*>(stage + 2 * C::KV_BYTES);
-      const float v = s0 + (tid & (FP_TK - 1)) < kv_len ? sc[tid] : 0.f;
-      if (tid < FP_TK) ksc[tid] = v;
-      else vsc[tid - FP_TK] = v;
-    }
-    fence_proxy_async();
-    __syncwarp();
-    if (lane == 0) mbar_arrive(&empty[slot]);
-    named_sync(1 + wg, 128);
+    // bf16 pages: the stage's K and V, as TMA left them
+    const uint32_t ks_s = smem_u32(stage), vs_s = ks_s + C::KV_BYTES;
 
     // S = Q K^T: 64 rows x 64 tokens, D / 16 k16 steps
     float s[FP_TK / 2];
@@ -312,9 +347,14 @@ __global__ void __launch_bounds__(FP_THREADS, 1) flash_prefill_sm90_kernel(
     keep_all(s);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
-      Wgmma<FP_TK>::mma(s, qa[kk],
-                        desc_b64(kb_s + (kk >> 1) * C::BOX + 32 * (kk & 1)));
+    for (int kk = 0; kk < D / 16; ++kk) {
+      if constexpr (C::I8)
+        Wgmma<FP_TK>::mma(
+            s, qa[kk], desc_b64(kb_s + (kk >> 1) * C::BOX + 32 * (kk & 1)));
+      else
+        Wgmma<FP_TK>::mma(s, qa[kk], desc_b128(ks_s + (kk >> 2) * PAGED_BOX +
+                                              32 * (kk & 3)));
+    }
     wgmma_commit();
     wgmma_wait<0>();
     keep_all(s);
@@ -330,7 +370,8 @@ __global__ void __launch_bounds__(FP_THREADS, 1) flash_prefill_sm90_kernel(
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           const int kt = 8 * j + 2 * t + e, kvp = s0 + kt;
-          float v = s[4 * j + 2 * hh + e] * scale * ksc[kt];
+          float v = s[4 * j + 2 * hh + e] * scale;
+          if constexpr (C::I8) v *= ksc[kt];
           if (cap > 0.f) v = cap * tanhf(v / cap);
           const bool ok = rows[hh] < R && kvp <= qpos[hh] && kvp < kv_len &&
                           (window <= 0 || kvp > qpos[hh] - window);
@@ -368,8 +409,13 @@ __global__ void __launch_bounds__(FP_THREADS, 1) flash_prefill_sm90_kernel(
     // steps (tokens 16kk..16kk+15): the S accumulators of chunks 2kk, 2kk+1
 #pragma unroll
     for (int kk = 0; kk < FP_TK / 16; ++kk) {
-      const float v0 = vsc[16 * kk + 2 * t], v1 = vsc[16 * kk + 2 * t + 1];
-      const float v2 = vsc[16 * kk + 8 + 2 * t], v3 = vsc[16 * kk + 9 + 2 * t];
+      float v0 = 1.f, v1 = 1.f, v2 = 1.f, v3 = 1.f;
+      if constexpr (C::I8) {
+        v0 = vsc[16 * kk + 2 * t];
+        v1 = vsc[16 * kk + 2 * t + 1];
+        v2 = vsc[16 * kk + 8 + 2 * t];
+        v3 = vsc[16 * kk + 9 + 2 * t];
+      }
       const float* a = s + 8 * kk;
       pa[kk][0] = pack_bf16x2(a[0] * v0, a[1] * v1);
       pa[kk][1] = pack_bf16x2(a[2] * v0, a[3] * v1);
@@ -380,9 +426,14 @@ __global__ void __launch_bounds__(FP_THREADS, 1) flash_prefill_sm90_kernel(
     keep_all(o);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < FP_TK / 16; ++kk)
-      Wgmma<D>::template mma<1>(o, pa[kk],
-                                desc_mn64(vb_s + kk * 16 * 64, C::BOX));
+    for (int kk = 0; kk < FP_TK / 16; ++kk) {
+      if constexpr (C::I8)
+        Wgmma<D>::template mma<1>(o, pa[kk],
+                                  desc_mn64(vb_s + kk * 16 * 64, C::BOX));
+      else
+        Wgmma<D>::template mma<1>(
+            o, pa[kk], desc_mn128(vs_s + kk * 16 * 128, PAGED_BOX));
+    }
     wgmma_commit();
     wgmma_wait<0>();
     keep_all(o);
@@ -390,15 +441,23 @@ __global__ void __launch_bounds__(FP_THREADS, 1) flash_prefill_sm90_kernel(
     for (int kk = 0; kk < FP_TK / 16; ++kk)
 #pragma unroll
       for (int j = 0; j < 4; ++j) keep(pa[kk][j]);
+    if constexpr (!C::I8) {
+      // both products have read the stage
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[slot]);
+    }
   }
 
   // Merge: warpgroup 1 leaves its running max, sum and O in its own tiles'
-  // space (row-indexed max and sum; O by thread), warpgroup 0 rescales both
+  // space (row-indexed max and sum; O by thread), or for bf16 pages in the
+  // ring once both warpgroups are done with it, warpgroup 0 rescales both
   // to the common max, adds, and writes the output.
-  float* om = reinterpret_cast<float*>(base + C::WG_BYTES);  // O by thread
+  float* om = reinterpret_cast<float*>(C::I8 ? base + C::WG_BYTES : ring);
   float* ml = om + 128 * (D / 2);                             // max, sum
-  static_assert(128 * (D / 2) * 4 + 2 * FP_ROWS * 4 <= C::WG_BYTES,
-                "the merge fits warpgroup 1's space");
+  static_assert(128 * (D / 2) * 4 + 2 * FP_ROWS * 4 <=
+                    (C::I8 ? C::WG_BYTES : FP_STAGES * C::STAGE),
+                "the merge fits its space");
+  if constexpr (!C::I8) named_sync(3, FP_WG * 128);
   if (wg == 1) {
 #pragma unroll
     for (int j = 0; j < D / 2; ++j) om[j * 128 + tid] = o[j];
@@ -453,14 +512,27 @@ __global__ void __launch_bounds__(FP_THREADS, 1) flash_prefill_sm90_kernel(
   }
 }
 
-template <int D>
+template <int D, typename KV>
 int launch_d(const void* q, const void* k, const void* k_sc, const void* v,
              const void* v_sc, const void* block_table, const void* sinks,
-             void* out, int T, int Hq, int Hkv, int BS, int MB, int kv_len,
-             int q_offset, float scale, int window, float cap,
+             void* out, int T, int Hq, int Hkv, int NB, int BS, int MB,
+             int kv_len, int q_offset, float scale, int window, float cap,
              cudaStream_t st) {
-  using C = FpCfg<D, int8_t>;
-  auto kernel = flash_prefill_sm90_kernel<D, int8_t>;
+  using C = FpCfg<D, KV>;
+  auto kernel = flash_prefill_sm90_kernel<D, KV>;
+  CUtensorMap kmap = {}, vmap = {};
+  int BR = 0;
+  if constexpr (!C::I8) {
+    // [NB * Hkv * BS, D] rows, boxes of BR rows x 64 channels
+    BR = paged_box_rows(BS);
+    const uint64_t rows = (uint64_t)NB * Hkv * BS;
+    int e = tensor_map_2d(&kmap, k, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, D, rows,
+                          (uint64_t)D * 2, 64, BR, CU_TENSOR_MAP_SWIZZLE_128B);
+    if (e) return e;
+    e = tensor_map_2d(&vmap, v, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, D, rows,
+                      (uint64_t)D * 2, 64, BR, CU_TENSOR_MAP_SWIZZLE_128B);
+    if (e) return e;
+  }
   static bool attr_set = false;
   if (!attr_set) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -471,11 +543,11 @@ int launch_d(const void* q, const void* k, const void* k_sc, const void* v,
   const int G = Hq / Hkv;
   dim3 grid((T * G + FP_ROWS - 1) / FP_ROWS, Hkv);
   kernel<<<grid, FP_THREADS, C::SMEM, st>>>(
-      static_cast<const bf16*>(q), static_cast<const int8_t*>(k),
-      static_cast<const int8_t*>(v), static_cast<const float*>(k_sc),
+      kmap, vmap, static_cast<const bf16*>(q), static_cast<const KV*>(k),
+      static_cast<const KV*>(v), static_cast<const float*>(k_sc),
       static_cast<const float*>(v_sc), static_cast<const int*>(block_table),
       static_cast<const float*>(sinks), static_cast<bf16*>(out), T, Hq, Hkv,
-      BS, MB, kv_len, q_offset, scale, window, cap);
+      BS, BR, MB, kv_len, q_offset, scale, window, cap);
   return (int)cudaGetLastError();
 }
 
@@ -494,12 +566,36 @@ extern "C" int tllm_flash_prefill_int8(
     void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (D == 64)
-    return tllm::launch_d<64>(q, k_data, k_scale, v_data, v_scale,
-                              block_table, sinks, out, T, Hq, Hkv, BS, MB,
-                              kv_len, q_offset, scale, window, cap, st);
+    return tllm::launch_d<64, int8_t>(q, k_data, k_scale, v_data, v_scale,
+                                      block_table, sinks, out, T, Hq, Hkv, 0,
+                                      BS, MB, kv_len, q_offset, scale, window,
+                                      cap, st);
   if (D == 128)
-    return tllm::launch_d<128>(q, k_data, k_scale, v_data, v_scale,
-                               block_table, sinks, out, T, Hq, Hkv, BS, MB,
-                               kv_len, q_offset, scale, window, cap, st);
+    return tllm::launch_d<128, int8_t>(q, k_data, k_scale, v_data, v_scale,
+                                       block_table, sinks, out, T, Hq, Hkv, 0,
+                                       BS, MB, kv_len, q_offset, scale,
+                                       window, cap, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// q/out [T, Hq, D] bf16, bf16 pools [NB, Hkv, BS, D] (16-byte aligned),
+// block_table [MB] int32, sinks [Hq] f32 or null; D 64 or 128, Hq % Hkv
+// == 0, BS % 8 == 0.  window <= 0 and cap <= 0 mean "off".
+extern "C" int tllm_flash_prefill(const void* q, const void* k_cache,
+                                  const void* v_cache, const void* block_table,
+                                  const void* sinks, void* out, int T, int Hq,
+                                  int Hkv, int D, int NB, int BS, int MB,
+                                  int kv_len, int q_offset, float scale,
+                                  int window, float cap, void* stream) {
+  if (BS % 8) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (D == 64)
+    return tllm::launch_d<64, tllm::bf16>(
+        q, k_cache, nullptr, v_cache, nullptr, block_table, sinks, out, T, Hq,
+        Hkv, NB, BS, MB, kv_len, q_offset, scale, window, cap, st);
+  if (D == 128)
+    return tllm::launch_d<128, tllm::bf16>(
+        q, k_cache, nullptr, v_cache, nullptr, block_table, sinks, out, T, Hq,
+        Hkv, NB, BS, MB, kv_len, q_offset, scale, window, cap, st);
   return (int)cudaErrorInvalidValue;
 }

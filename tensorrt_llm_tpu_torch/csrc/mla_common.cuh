@@ -1,8 +1,8 @@
-// The block routine shared by K9 mla_decode and K10 mla_prefill: 16 query
-// rows of absorbed MLA (keys L + R channels, values the first L channels of
-// the same latent rows) against a range of one sequence's paged latents,
-// with an online softmax.  See mla_decode.cu / mla_prefill.cu for what each
-// kernel replaces and what bounds it.
+// The block routine of K9 mla_decode: 16 query rows of absorbed MLA (keys
+// L + R channels, values the first L channels of the same latent rows)
+// against a range of one sequence's paged latents, with an online softmax.
+// See mla_decode.cu for what the kernel replaces and what bounds it (K10,
+// the prefill, runs its own Hopper design: mla_prefill_sm90.cu).
 //
 // Layout of one 128-thread block (4 warps):
 //   * the 16 query rows [16, L+R] bf16 are staged in shared memory once;

@@ -1,10 +1,15 @@
 // Hopper (sm_90a) building blocks shared by the port's TMA / wgmma kernels
-// (`w4a16_sm90.cuh`: K1, K12, K13; `flash_prefill_sm90.cu`: K7): mbarriers,
-// TMA and bulk copies, proxy fences, named barriers, wgmma with its
-// shared-memory descriptors, and operand fences.
+// (`w4a16_sm90.cuh`: K1, K12, K13; `flash_prefill_sm90.cu`: K3, K7;
+// `mla_prefill_sm90.cu`: K10): mbarriers, TMA and bulk copies, proxy
+// fences, named barriers, wgmma (A from registers or shared memory) with
+// its shared-memory descriptors, operand fences, and the host's tensor
+// maps.
 #pragma once
 
 #include <cuda.h>
+
+#include <mutex>
+#include <unordered_map>
 
 #include "common.cuh"
 
@@ -123,6 +128,29 @@ __device__ __forceinline__ void fence_proxy_async() {
 __device__ __forceinline__ void named_sync(int id, int n) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
 }
+// arrive at barrier `id` without waiting: with `named_sync(id, n)` in the
+// other threads, a signal from one group of threads to another (the
+// writes before it are visible to the waiters)
+__device__ __forceinline__ void named_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+// Shared-memory descriptor of a K-major bf16 tile in the 128-byte swizzle
+// (rows of 128 bytes, 8-row groups 1024 bytes apart), layout 1; the A or
+// B operand.
+__device__ __forceinline__ uint64_t desc_b128(uint32_t saddr) {
+  return (uint64_t)((saddr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
+// Descriptor of an MN-major bf16 B tile in the 128-byte swizzle: rows of
+// 128 bytes along N (64 values), one row per K index, 8-row groups 1024
+// bytes apart (SBO), the next 64 N values `lbo` bytes further (LBO); read
+// with imm-trans-b = 1.
+__device__ __forceinline__ uint64_t desc_mn128(uint32_t saddr, uint32_t lbo) {
+  return (uint64_t)((saddr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
 
 // Descriptor of an MN-major bf16 B tile in the 64-byte swizzle: rows of 64
 // bytes along N (32 values), one row per K index, 8-row groups 512 bytes
@@ -131,6 +159,57 @@ __device__ __forceinline__ void named_sync(int id, int n) {
 __device__ __forceinline__ uint64_t desc_mn64(uint32_t saddr, uint32_t lbo) {
   return (uint64_t)((saddr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
          ((uint64_t)(512 >> 4) << 32) | ((uint64_t)2 << 62);
+}
+
+// ---------------------------------------------------- paged TMA tiles ---
+// A tile of 64 tokens of a paged bf16 pool lands as boxes of [64 tokens,
+// 64 channels] (128-byte rows in the 128-byte swizzle), box b at
+// b * PAGED_BOX: the K-major B operand of Q K^T (`desc_b128`) and the
+// MN-major B operand of P V (`desc_mn128`).
+constexpr int PAGED_TILE = 64;
+constexpr int PAGED_BOX = PAGED_TILE * 128;
+
+// Issued by all 32 lanes of one producer warp: waits for the stage's
+// `empty` phase, then fills it by TMA and arms `full` (initialised with 32
+// arrivals) with the bytes.  The pool is viewed as [pages * heads * BS,
+// width] rows, each map boxing BR = gcd(BS, 64) rows x 64 channels; the
+// tile at token s0 is runs of BR tokens, each inside one page, run r of
+// page table[tok / BS], KV head `head`.  Box b comes from maps[b / nbox]
+// at channels 64 (b % nbox), for b < nmap * nbox.  Runs from tok_end on
+// (past the sequence's last page) are not loaded but zeroed: a stale bf16
+// NaN times P = 0 would poison the sum.
+__device__ __forceinline__ void tma_paged_tile(
+    uint8_t* stage, const CUtensorMap* map0, const CUtensorMap* map1,
+    int nmap, int nbox, const int* table, int heads, int head, int BS,
+    int BR, int s0, int tok_end, uint64_t* full, uint64_t* empty,
+    uint32_t empty_parity, int lane) {
+  const int n_runs = PAGED_TILE / BR;
+  int row = -1;
+  if (lane < n_runs) {
+    const int tok = s0 + lane * BR;
+    if (tok < tok_end) row = (table[tok / BS] * heads + head) * BS + tok % BS;
+  }
+  const int n_loaded = __popc(__ballot_sync(0xffffffffu, row >= 0));
+  const int nb = nmap * nbox;
+  mbar_wait(empty, empty_parity);
+  if (lane == 0) mbar_expect_tx(full, n_loaded * BR * 128 * nb);
+  __syncwarp();
+#pragma unroll
+  for (int r = 0; r < PAGED_TILE / 8; ++r) {
+    const int rr = __shfl_sync(0xffffffffu, row, r);
+    if (r < n_runs && rr >= 0 && lane < nb)
+      tma_load_2d(stage + lane * PAGED_BOX + r * BR * 128,
+                  lane < nbox ? map0 : map1, (lane % nbox) * 64, rr, full);
+  }
+  if (n_loaded < n_runs) {
+    const int z0 = n_loaded * BR;   // first zeroed token of the tile
+    const int per_box = (PAGED_TILE - z0) * 8;   // 16-byte chunks
+    for (int i = lane; i < nb * per_box; i += 32)
+      *reinterpret_cast<uint4*>(stage + (i / per_box) * PAGED_BOX + z0 * 128 +
+                                (i % per_box) * 16) = make_uint4(0, 0, 0, 0);
+    fence_proxy_async();
+  }
+  if (lane != 0) mbar_arrive(full);
 }
 
 // D[64 x NTOK] += A[64 x 16] (registers, bf16) * B[16 x NTOK] (desc), f32
@@ -258,6 +337,256 @@ template <> struct Wgmma<128> {
           "n"(TB));
   }
 };
+
+template <> struct Wgmma<256> {
+  template <int TB = 0>
+  static __device__ __forceinline__ void mma(float* d, const uint32_t* a,
+                                             uint64_t desc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, "
+        "%40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, "
+        "%56, %57, %58, %59, %60, %61, %62, %63, "
+        "%64, %65, %66, %67, %68, %69, %70, %71, "
+        "%72, %73, %74, %75, %76, %77, %78, %79, "
+        "%80, %81, %82, %83, %84, %85, %86, %87, "
+        "%88, %89, %90, %91, %92, %93, %94, %95, "
+        "%96, %97, %98, %99, %100, %101, %102, %103, "
+        "%104, %105, %106, %107, %108, %109, %110, %111, "
+        "%112, %113, %114, %115, %116, %117, %118, %119, "
+        "%120, %121, %122, %123, %124, %125, %126, %127"
+        "}, {%128, %129, %130, %131}, %132, p, 1, 1, %134;\n"
+        "}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+          "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+          "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+          "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+          "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+          "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+          "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+          "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+          "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+          "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+          "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+          "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+          "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+          "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+          "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+          "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
+          "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+          "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
+          "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1),
+          "n"(TB));
+  }
+};
+
+// D[64 x N] (+)= A[64 x 16] (shared memory, K-major, descriptor `da`) *
+// B[16 x N] (descriptor `db`), f32; `scale_d` 0 overwrites D
+template <int N>
+struct WgmmaSS;
+
+template <> struct WgmmaSS<64> {
+  template <int TB = 0>
+  static __device__ __forceinline__ void mma(float* d, uint64_t da,
+                                             uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31"
+        "}, %32, %33, p, 1, 1, 0, %35;\n"
+        "}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "l"(da), "l"(db), "r"(scale_d), "n"(TB));
+  }
+};
+
+template <> struct WgmmaSS<256> {
+  template <int TB = 0>
+  static __device__ __forceinline__ void mma(float* d, uint64_t da,
+                                             uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, "
+        "%40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, "
+        "%56, %57, %58, %59, %60, %61, %62, %63, "
+        "%64, %65, %66, %67, %68, %69, %70, %71, "
+        "%72, %73, %74, %75, %76, %77, %78, %79, "
+        "%80, %81, %82, %83, %84, %85, %86, %87, "
+        "%88, %89, %90, %91, %92, %93, %94, %95, "
+        "%96, %97, %98, %99, %100, %101, %102, %103, "
+        "%104, %105, %106, %107, %108, %109, %110, %111, "
+        "%112, %113, %114, %115, %116, %117, %118, %119, "
+        "%120, %121, %122, %123, %124, %125, %126, %127"
+        "}, %128, %129, p, 1, 1, 0, %131;\n"
+        "}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+          "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+          "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+          "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+          "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+          "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+          "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+          "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+          "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+          "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+          "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+          "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+          "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+          "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+          "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+          "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
+          "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+          "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
+          "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+        : "l"(da), "l"(db), "r"(scale_d), "n"(TB));
+  }
+};
+
+// --------------------------------------------------------------- host ---
+// rows of a paged TMA box: the largest divisor of the 64-token tile that
+// divides the page size, so a box never crosses a page
+inline int paged_box_rows(int page_size) {
+  int a = page_size, b = PAGED_TILE;
+  while (b) {
+    const int c = a % b;
+    a = b;
+    b = c;
+  }
+  return a;
+}
+
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
+                                  cuuint32_t, void*, const cuuint64_t*,
+                                  const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave,
+                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+inline EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = [] {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &f, 12000,
+                                         cudaEnableDefault, &q) != cudaSuccess ||
+        q != cudaDriverEntryPointSuccess)
+      f = nullptr;
+#else
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f, cudaEnableDefault,
+                                &q) != cudaSuccess ||
+        q != cudaDriverEntryPointSuccess)
+      f = nullptr;
+#endif
+    return reinterpret_cast<EncodeTiledFn>(f);
+  }();
+  return fn;
+}
+
+struct MapKey {
+  const void* ptr;
+  uint64_t inner, outer, stride;
+  uint32_t box_inner, box_outer, dtype;
+  bool operator==(const MapKey& o) const {
+    return ptr == o.ptr && inner == o.inner && outer == o.outer &&
+           stride == o.stride && box_inner == o.box_inner &&
+           box_outer == o.box_outer && dtype == o.dtype;
+  }
+};
+struct MapKeyHash {
+  size_t operator()(const MapKey& k) const {
+    size_t h = std::hash<const void*>()(k.ptr);
+    for (uint64_t v : {k.inner, k.outer, k.stride, (uint64_t)k.box_inner,
+                       (uint64_t)k.box_outer, (uint64_t)k.dtype})
+      h = h * 1000003u ^ std::hash<uint64_t>()(v);
+    return h;
+  }
+};
+
+// A 2-D tensor map (64-byte swizzle by default, zero fill out of bounds),
+// encoded once
+// per (pointer, shape, box) and cached.  Returns 0 or an error code.
+inline int tensor_map_2d(CUtensorMap* map, const void* ptr,
+                         CUtensorMapDataType dtype, uint64_t inner,
+                         uint64_t outer, uint64_t stride_bytes,
+                         uint32_t box_inner, uint32_t box_outer,
+                         CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_64B) {
+  static std::mutex mu;
+  static std::unordered_map<MapKey, CUtensorMap, MapKeyHash> cache;
+  const MapKey key{ptr, inner, outer, stride_bytes, box_inner, box_outer,
+                   (uint32_t)dtype * 16 + (uint32_t)swizzle};
+  std::lock_guard<std::mutex> lock(mu);
+  auto it = cache.find(key);
+  if (it != cache.end()) {
+    *map = it->second;
+    return 0;
+  }
+  EncodeTiledFn enc = encode_tiled();
+  if (enc == nullptr) return (int)cudaErrorNotSupported;
+  const cuuint64_t dims[2] = {inner, outer};
+  const cuuint64_t strides[1] = {stride_bytes};
+  const cuuint32_t box[2] = {box_inner, box_outer};
+  const cuuint32_t estr[2] = {1, 1};
+  const CUresult r = enc(map, dtype, 2, const_cast<void*>(ptr), dims, strides,
+                         box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                         swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  if (r != CUDA_SUCCESS) return 1000 + (int)r;
+  if (cache.size() >= 4096) cache.clear();
+  cache.emplace(key, *map);
+  return 0;
+}
 
 }  // namespace sm90
 }  // namespace tllm

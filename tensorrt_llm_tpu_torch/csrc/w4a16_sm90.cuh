@@ -85,9 +85,7 @@
 //   its completion on the device, so the second launch costs no gap.
 #pragma once
 
-#include <mutex>
 #include <type_traits>
-#include <unordered_map>
 
 #include "sm90.cuh"
 
@@ -174,13 +172,6 @@ struct Params {
   int n_mb, n_ct;     // M blocks, column tiles
   Slices sl;
 };
-
-// Shared-memory descriptor of a K-major bf16 B tile in the 128-byte
-// swizzle (rows of 128 bytes, 8-row groups 1024 bytes apart), layout 1.
-__device__ __forceinline__ uint64_t desc_b128(uint32_t saddr) {
-  return (uint64_t)((saddr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
-         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
-}
 
 // ----------------------------------------------------------- dequant ---
 // (v & 0x000F000F) | 0x43004300: nibbles at bits 0 and 16 under 128.0
@@ -601,87 +592,6 @@ static __global__ void combine_kernel(const float* __restrict__ ws,
 }
 
 // --------------------------------------------------------------- host ---
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
-                                  cuuint32_t, void*, const cuuint64_t*,
-                                  const cuuint64_t*, const cuuint32_t*,
-                                  const cuuint32_t*, CUtensorMapInterleave,
-                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                  CUtensorMapFloatOOBfill);
-
-inline EncodeTiledFn encode_tiled() {
-  static EncodeTiledFn fn = [] {
-    void* f = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &f, 12000,
-                                         cudaEnableDefault, &q) != cudaSuccess ||
-        q != cudaDriverEntryPointSuccess)
-      f = nullptr;
-#else
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f, cudaEnableDefault,
-                                &q) != cudaSuccess ||
-        q != cudaDriverEntryPointSuccess)
-      f = nullptr;
-#endif
-    return reinterpret_cast<EncodeTiledFn>(f);
-  }();
-  return fn;
-}
-
-struct MapKey {
-  const void* ptr;
-  uint64_t inner, outer, stride;
-  uint32_t box_inner, box_outer, dtype;
-  bool operator==(const MapKey& o) const {
-    return ptr == o.ptr && inner == o.inner && outer == o.outer &&
-           stride == o.stride && box_inner == o.box_inner &&
-           box_outer == o.box_outer && dtype == o.dtype;
-  }
-};
-struct MapKeyHash {
-  size_t operator()(const MapKey& k) const {
-    size_t h = std::hash<const void*>()(k.ptr);
-    for (uint64_t v : {k.inner, k.outer, k.stride, (uint64_t)k.box_inner,
-                       (uint64_t)k.box_outer, (uint64_t)k.dtype})
-      h = h * 1000003u ^ std::hash<uint64_t>()(v);
-    return h;
-  }
-};
-
-// A 2-D tensor map (64-byte swizzle by default, zero fill out of bounds),
-// encoded once
-// per (pointer, shape, box) and cached.  Returns 0 or an error code.
-inline int tensor_map_2d(CUtensorMap* map, const void* ptr,
-                         CUtensorMapDataType dtype, uint64_t inner,
-                         uint64_t outer, uint64_t stride_bytes,
-                         uint32_t box_inner, uint32_t box_outer,
-                         CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_64B) {
-  static std::mutex mu;
-  static std::unordered_map<MapKey, CUtensorMap, MapKeyHash> cache;
-  const MapKey key{ptr, inner, outer, stride_bytes, box_inner, box_outer,
-                   (uint32_t)dtype * 16 + (uint32_t)swizzle};
-  std::lock_guard<std::mutex> lock(mu);
-  auto it = cache.find(key);
-  if (it != cache.end()) {
-    *map = it->second;
-    return 0;
-  }
-  EncodeTiledFn enc = encode_tiled();
-  if (enc == nullptr) return (int)cudaErrorNotSupported;
-  const cuuint64_t dims[2] = {inner, outer};
-  const cuuint64_t strides[1] = {stride_bytes};
-  const cuuint32_t box[2] = {box_inner, box_outer};
-  const cuuint32_t estr[2] = {1, 1};
-  const CUresult r = enc(map, dtype, 2, const_cast<void*>(ptr), dims, strides,
-                         box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                         swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  if (r != CUDA_SUCCESS) return 1000 + (int)r;
-  if (cache.size() >= 4096) cache.clear();
-  cache.emplace(key, *map);
-  return 0;
-}
-
 template <int NTOK, int LAYOUT, int PRE>
 int launch_ntok(const CUtensorMap& wmap, const CUtensorMap& xmap,
                 const CUtensorMap& smap, const CUtensorMap& zmap,

@@ -54,10 +54,9 @@ _SIGNATURES = {
     # ... + workspace, split_k
     "tllm_w4a16_gemv": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                         _I, _P],
-    # q, k, v, block_table, sinks, out, T, Hq, Hkv, D, BS, MB, kv_len,
+    # q, k, v, block_table, sinks, out, T, Hq, Hkv, D, NB, BS, MB, kv_len,
     # q_offset, scale, window, logit_cap, stream
-    "tllm_flash_prefill": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                           _I, _F, _I, _F, _P],
+    "tllm_flash_prefill": [_P] * 6 + [_I] * 9 + [_F, _I, _F, _P],
     # q, k, v, tables, kv_lens, sinks, workspace, out, B, Hq, Hkv, D, BS, MB,
     # scale, window, logit_cap, n_splits, split_len, stream
     "tllm_paged_decode": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
@@ -83,10 +82,9 @@ _SIGNATURES = {
     # n_splits, split_len, stream
     "tllm_mla_decode": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
                         _I, _I, _P],
-    # q, pool, table, out, T, H, L, DK, BS, MB, kv_len, q_offset, scale,
-    # stream
-    "tllm_mla_prefill": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F,
-                         _P],
+    # q, pool, table, workspace, out, T, H, L, DK, NB, BS, MB, kv_len,
+    # q_offset, scale, n_splits, split_len, stream
+    "tllm_mla_prefill": [_P, _P, _P, _P, _P] + [_I] * 9 + [_F, _I, _I, _P],
     # q, w, pool, tables, kv_lens, out, B, Hi, Di, BS, MB, stream
     "tllm_dsa_score": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # x, qweight, scales, zeros, bias, workspace, out, M, N, K, group,

@@ -3,9 +3,11 @@
 Counterpart of `tensorrt_llm_tpu/ops/flash_prefill.py`.  `flash_prefill_plain`
 is the plain version (the JAX package's `paged_prefill_xla`);
 `flash_prefill_attention` takes it for CPU tensors and for CUDA tensors
-launches kernel K3 over bf16 pools (`csrc/flash_prefill.cu`) or K7 over
-INT8 pools (`csrc/flash_prefill_sm90.cu`: a producer warp's bulk copies of
-the int8 pages, wgmma products), both at head dims 64 and 128.
+launches one Hopper kernel, `csrc/flash_prefill_sm90.cu` (a producer warp
+loading the pages, two consumer warpgroups on wgmma, at head dims 64 and
+128): K3 over bf16 pools (TMA boxes of the pages in the swizzle wgmma
+reads; pages of a multiple of 8 tokens) or K7 over INT8 pools (bulk copies
+of the int8 pages, converted to bf16 in shared memory).
 """
 
 from __future__ import annotations
@@ -22,13 +24,14 @@ from tensorrt_llm_tpu_torch.ops.paged_attention import pool_operands
 __all__ = ["flash_prefill_attention", "flash_prefill_plain"]
 
 
-PREFILL_ROWS = 64      # stacked query rows of a K7 block (token x G + head)
-PREFILL_TILE = 64      # KV tokens a K7 tile takes
+PREFILL_ROWS = 64      # stacked query rows of a K3/K7 block (token x G + head)
+PREFILL_TILE = 64      # KV tokens a K3/K7 tile takes
+BF16_PAGE_MULTIPLE = 8   # K3's TMA boxes fill whole 8-row swizzle atoms
 
 
 def prefill_tile_ranges(T: int, G: int, kv_len: int, q_offset: int,
                         window: Optional[int] = None) -> list:
-    """[(first tile, end tile)] of each K7 block's 64 stacked rows (the
+    """[(first tile, end tile)] of each K3/K7 block's 64 stacked rows (the
     bounds `csrc/flash_prefill_sm90.cu` computes): up to the causal edge of
     the block's last row, from the sliding window of its first; tiles of
     `PREFILL_TILE` KV tokens.  The tiles outside a block's range hold no
@@ -65,23 +68,32 @@ def flash_prefill_attention(q: torch.Tensor, k_cache, v_cache,
         return flash_prefill_plain(q, k_cache, v_cache, block_table, kv_len,
                                    q_offset, scale, sliding_window, logit_cap,
                                    sinks)
-    if q.device.type != "cuda":
-        raise ValueError(f"unsupported device {q.device}")
-    int8, (NB, Hkv, BS, Dk), pools = pool_operands(k_cache, v_cache,
-                                                   q.device)
+    # what the kernels are not built for is refused before the device:
+    # never a fallback
+    int8 = isinstance(k_cache, tuple)
+    NB, Hkv, BS, Dk = (k_cache[0] if int8 else k_cache).shape
     T, Hq, D = q.shape
     if D not in (64, 128) or Dk != D or Hq % Hkv:
         raise NotImplementedError(
             f"flash_prefill kernel: D in (64, 128) and Hq % Hkv == 0 "
             f"(D={D}, Hq={Hq}, Hkv={Hkv})")
+    if not int8 and BS % BF16_PAGE_MULTIPLE:
+        raise NotImplementedError(
+            f"flash_prefill kernel (bf16 pages): pages of a multiple of "
+            f"{BF16_PAGE_MULTIPLE} tokens, got {BS}")
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    pools = pool_operands(k_cache, v_cache, q.device)[2]
     for name, t, dt in (("q", q, torch.bfloat16),
                         ("block_table", block_table, torch.int32)):
         if t.device != q.device or t.dtype != dt or not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous {dt} on {q.device}")
     if block_table.dim() != 1:
         raise ValueError("block_table must be [MB]")
-    if int8 and any(t.data_ptr() % 16 for t in (*k_cache, *v_cache)):
-        raise ValueError("INT8 pools must start 16-byte aligned (bulk copies)")
+    if any(t.data_ptr() % 16 for t in (
+            (*k_cache, *v_cache) if int8 else (k_cache, v_cache))):
+        raise ValueError("KV pools must start 16-byte aligned (TMA and bulk "
+                         "copies)")
     if sinks is not None:
         sinks = sinks.to(device=q.device, dtype=torch.float32).contiguous()
         if sinks.shape != (Hq,):
@@ -91,9 +103,11 @@ def flash_prefill_attention(q: torch.Tensor, k_cache, v_cache,
         return out
     lib = cuda_build.load_library()
     name = "flash_prefill_int8" if int8 else "flash_prefill"
+    # the bf16 tensor maps need the pools' extent
+    dims = (T, Hq, Hkv, D, BS) if int8 else (T, Hq, Hkv, D, NB, BS)
     err = getattr(lib, "tllm_" + name)(
         cuda_build.ptr(q), *pools, cuda_build.ptr(block_table),
-        cuda_build.ptr(sinks), cuda_build.ptr(out), T, Hq, Hkv, D, BS,
+        cuda_build.ptr(sinks), cuda_build.ptr(out), *dims,
         block_table.shape[0], _as_int(kv_len), _as_int(q_offset),
         float(scale), int(sliding_window or 0), float(logit_cap or 0.0),
         cuda_build.stream_of(q))

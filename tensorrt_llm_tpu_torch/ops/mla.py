@@ -21,9 +21,11 @@ The caller applies W_uv to the latent output.  The pool row is exactly
   query to its indexer top-k (that masked prefill is plain torch on the card
   as well, as it is XLA in the JAX package).
 * `mla_decode_attention` (kernel K9, `csrc/mla_decode.cu`) and
-  `mla_prefill_attention` (kernel K10, `csrc/mla_prefill.cu`) take the plain
-  versions for CPU tensors and launch their kernels for CUDA tensors (or
-  raise); they are the counterparts of `mla_decode_pallas` and
+  `mla_prefill_attention` (kernel K10, `csrc/mla_prefill_sm90.cu`: TMA,
+  wgmma, two consumer warpgroups on alternate latent tiles, the latent
+  range split over blocks by `mla_prefill_plan`) take the plain versions
+  for CPU tensors and launch their kernels for CUDA tensors (or raise);
+  they are the counterparts of `mla_decode_pallas` and
   `mla_prefill_pallas`.  Both kernels scale the f32 scores after the dot,
   as the plain versions scale q in f32 (the Pallas decode kernel rounds
   ``q * scale`` to bf16 first; the port does not copy that rounding).
@@ -40,11 +42,13 @@ from tensorrt_llm_tpu_torch.ops.attention_plain import NEG_INF, pool_rows
 
 __all__ = ["write_latent_cache", "mla_prefill_plain", "mla_decode_plain",
            "mla_decode_attention", "mla_prefill_attention",
-           "mla_decode_splits"]
+           "mla_decode_splits", "mla_prefill_splits", "mla_prefill_plan",
+           "mla_prefill_split_choices"]
 
 _SMS = 132
-MLA_ROWS = 16      # query rows of one K9/K10 block (one m16 MMA tile)
-MLA_TILE = 64      # latent tokens staged per step
+MLA_ROWS = 16      # query rows of one K9 block (one m16 MMA tile)
+MLA_TILE = 64      # latent tokens staged per step (K9 and K10)
+MLA_PREFILL_ROWS = 64   # stacked (token, head) rows of a K10 block
 _KERNEL_DIMS = ((512, 576),)   # (L, L + R) the kernels are built for
 
 
@@ -121,24 +125,78 @@ def mla_decode_splits(B: int, H: int, table_tokens: int):
     return -(-table_tokens // split_len), split_len
 
 
+def mla_prefill_splits(T: int, H: int, kv_len: int, q_offset: int):
+    """(row blocks, n_splits, split_len) of K10: blocks of
+    `MLA_PREFILL_ROWS` stacked rows (row = token * H + head); each block's
+    latent range, up to the causal edge of its last row, is cut into
+    splits of split_len tokens (whole 64-token tiles): the most splits
+    with which blocks x splits stay within one wave of the 132 SMs (K10
+    holds one block an SM), at least one.  A second wave, or a second pass
+    merging more partials, cost more than the idle SMs save: the chip
+    check times every choice at the served shapes (`chip_smoke.py`,
+    `check_mla_splits`).  The longest range is the last block's, so this
+    is O(1) host work per call."""
+    R = T * H
+    blocks = -(-R // MLA_PREFILL_ROWS)
+    if blocks == 0:
+        return 0, 1, MLA_TILE
+    kv_end = min(kv_len, q_offset + (R - 1) // H + 1)
+    tiles = max(1, -(-kv_end // MLA_TILE))
+    want = min(max(1, _SMS // blocks), tiles)
+    per = -(-tiles // want)        # tiles a split
+    return blocks, -(-tiles // per), per * MLA_TILE
+
+
+def mla_prefill_split_choices(T: int, H: int, kv_len: int, q_offset: int):
+    """Every split length (tokens) K10 can take at this shape, one per
+    distinct split count: what the chip check times against the plan."""
+    kv_end = min(kv_len, q_offset + T)
+    tiles = max(1, -(-kv_end // MLA_TILE))
+    return sorted({-(-tiles // n) * MLA_TILE for n in range(1, tiles + 1)})
+
+
+def mla_prefill_plan(T: int, H: int, kv_len: int, q_offset: int):
+    """(row blocks, n_splits, split_len, tile ranges) of K10, the bounds
+    `csrc/mla_prefill_sm90.cu` computes: block b's latent tiles are
+    [0, t1_b), up to the causal edge of its last row (bounded by kv_len);
+    split s of it takes tiles [s * split_len / 64, (s + 1) * split_len / 64)
+    of that range, and does nothing past its end.  Pure shape logic; the
+    tests check it on the CPU."""
+    blocks, n_splits, split_len = mla_prefill_splits(T, H, kv_len, q_offset)
+    R = T * H
+    ranges = []
+    for b in range(blocks):
+        last = min((b + 1) * MLA_PREFILL_ROWS, R) - 1
+        kv_end = min(kv_len, q_offset + last // H + 1)
+        ranges.append((0, -(-kv_end // MLA_TILE) if kv_end > 0 else 0))
+    return blocks, n_splits, split_len, ranges
+
+
 def _check(name, t, dt, dev):
     if t.device != dev or t.dtype != dt or not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous {dt} on {dev}")
 
 
-def _kernel_operands(q_eff, cache, kv_lora_rank):
-    if q_eff.device.type != "cuda":
-        raise ValueError(f"unsupported device {q_eff.device}")
-    dev = q_eff.device
-    _check("q_eff", q_eff, torch.bfloat16, dev)
-    _check("cache", cache, torch.bfloat16, dev)
-    if cache.dim() != 4 or cache.shape[1] != 1:
-        raise ValueError("cache must be a latent pool [NB, 1, BS, L+R]")
+def _kernel_operands(q_eff, cache, kv_lora_rank, page_multiple=1):
+    """Refuse what the kernels are not built for (widths, page sizes),
+    then anything but contiguous bf16 CUDA operands: never a fallback."""
     dk = q_eff.shape[-1]
     if (kv_lora_rank, dk) not in _KERNEL_DIMS or cache.shape[-1] != dk:
         raise NotImplementedError(
             f"MLA kernels are built for (L, L+R) in {_KERNEL_DIMS}: got "
             f"L={kv_lora_rank}, q {dk}, pool {cache.shape[-1]}")
+    if cache.dim() != 4 or cache.shape[1] != 1:
+        raise ValueError("cache must be a latent pool [NB, 1, BS, L+R]")
+    if cache.shape[2] % page_multiple:
+        raise NotImplementedError(
+            f"the MLA prefill kernel takes pages of a multiple of "
+            f"{page_multiple} tokens (TMA boxes in the 128-byte swizzle): "
+            f"got {cache.shape[2]}")
+    if q_eff.device.type != "cuda":
+        raise ValueError(f"unsupported device {q_eff.device}")
+    dev = q_eff.device
+    _check("q_eff", q_eff, torch.bfloat16, dev)
+    _check("cache", cache, torch.bfloat16, dev)
     return cache.shape[0], cache.shape[2], dk
 
 
@@ -177,29 +235,51 @@ def mla_decode_attention(q_eff: torch.Tensor, cache: torch.Tensor,
 
 def mla_prefill_attention(q_eff: torch.Tensor, cache: torch.Tensor,
                           block_table: torch.Tensor, kv_len: int,
-                          q_offset: int, scale: float,
-                          kv_lora_rank: int) -> torch.Tensor:
+                          q_offset: int, scale: float, kv_lora_rank: int,
+                          split_len: Optional[int] = None) -> torch.Tensor:
     """Chunked-prefill MLA for one sequence (see `mla_prefill_plain`,
     without `extra_mask`): the plain version for CPU tensors, kernel K10
-    for CUDA tensors.  `kv_len` and `q_offset` are host ints."""
+    for CUDA tensors (pages of a multiple of 8 tokens).  `kv_len` and
+    `q_offset` are host ints, so the plan costs no device sync;
+    `split_len` (a multiple of 64 tokens) pins the plan's latent split."""
     if q_eff.device.type == "cpu":
         return mla_prefill_plain(q_eff, cache, block_table, kv_len, q_offset,
                                  scale, kv_lora_rank)
-    NB, BS, DK = _kernel_operands(q_eff, cache, kv_lora_rank)
+    NB, BS, DK = _kernel_operands(q_eff, cache, kv_lora_rank,
+                                  page_multiple=8)
     T, H, _ = q_eff.shape
     _check("block_table", block_table, torch.int32, q_eff.device)
     if block_table.dim() != 1:
         raise ValueError("block_table must be [MB]")
+    if q_eff.data_ptr() % 16 or cache.data_ptr() % 16:
+        raise ValueError("q_eff and the pool must start 16-byte aligned (TMA)")
     L = kv_lora_rank
     out = torch.empty((T, H, L), dtype=q_eff.dtype, device=q_eff.device)
     if T == 0:
         return out
+    MB = block_table.shape[0]
+    # tokens past the table's MB pages do not exist (the plain version's
+    # gather ends there too)
+    kv_len = min(int(kv_len), MB * BS)
+    if kv_len < 1:
+        raise ValueError("kv_len must count at least one cached token")
+    if split_len is None:
+        _, n_splits, split_len = mla_prefill_splits(T, H, kv_len,
+                                                    int(q_offset))
+    else:
+        if split_len <= 0 or split_len % MLA_TILE:
+            raise ValueError("split_len must be a positive multiple of "
+                             f"{MLA_TILE}")
+        tiles = -(-min(kv_len, int(q_offset) + T) // MLA_TILE)
+        n_splits = max(1, -(-tiles * MLA_TILE // split_len))
+    ws = (torch.empty((n_splits * T * H * (L + 2),), dtype=torch.float32,
+                      device=q_eff.device) if n_splits > 1 else None)
     lib = cuda_build.load_library()
     err = lib.tllm_mla_prefill(
         cuda_build.ptr(q_eff), cuda_build.ptr(cache),
-        cuda_build.ptr(block_table), cuda_build.ptr(out), T, H, L, DK, BS,
-        block_table.shape[0], int(kv_len), int(q_offset), float(scale),
-        cuda_build.stream_of(q_eff))
+        cuda_build.ptr(block_table), cuda_build.ptr(ws), cuda_build.ptr(out),
+        T, H, L, DK, NB, BS, MB, kv_len, int(q_offset), float(scale),
+        n_splits, split_len, cuda_build.stream_of(q_eff))
     cuda_build.check(err, "mla_prefill")
     cuda_build.launch_counts["mla_prefill"] += 1
     return out

@@ -149,6 +149,31 @@ def test_mla_prefill_plain_matches_jax(T, off):
     np.testing.assert_array_equal(via.float().numpy(), out)
 
 
+def test_mla_prefill_plain_matches_jax_at_kernel_widths():
+    """The plain version K10 is held to on the card, at the kernel's own
+    widths (L 512, R 64, 16 heads, pages of 16, a 17-token chunk after 37
+    cached tokens), against the XLA reference and the Pallas kernel in
+    interpret mode, with the tolerances above."""
+    rng = np.random.default_rng(17)
+    Lk, Rk, Hk, BSk, T, off = 512, 64, 16, 16, 17, 37
+    kv_len = off + T
+    mb = -(-kv_len // BSk)
+    pool = _bf16(rng.standard_normal((mb + 2, 1, BSk, Lk + Rk)))
+    table = (rng.permutation(mb + 1)[:mb] + 1).astype(np.int32)
+    q = _bf16(rng.standard_normal((T, Hk, Lk + Rk)))
+    scale = (128 + Rk) ** -0.5
+    out = mla_prefill_plain(_t(q), _t(pool), torch.from_numpy(table), kv_len,
+                            off, scale, Lk).float().numpy()
+    args = (jnp.asarray(q, jnp.bfloat16), jnp.asarray(pool, jnp.bfloat16),
+            jnp.asarray(table), jnp.int32(kv_len), jnp.int32(off), scale, Lk)
+    ref = np.asarray(mla_prefill_xla(*args), np.float32)
+    top = max(1.0, np.abs(ref).max())
+    np.testing.assert_allclose(out, ref, rtol=0, atol=2 ** -8 * top)
+    pal = np.asarray(mla_prefill_pallas(*args, tile_size=2 * BSk,
+                                        interpret=True), np.float32)
+    np.testing.assert_allclose(out, pal, rtol=2e-2, atol=2e-2)
+
+
 def test_mla_prefill_extra_mask_matches_jax():
     rng = np.random.default_rng(9)
     T, off = 10, 6

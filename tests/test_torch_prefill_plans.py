@@ -1,16 +1,23 @@
-"""Shape logic of the prefill kernels K1 (tiled W4A16 GEMM) and K7 (INT8-KV
-flash prefill) in the port, checked without a card: K1's plan over the
-Hopper mainloop (`k1_plan`, `k1_choice`) and K7's per-block KV tile ranges
-(`prefill_tile_ranges`), which the CUDA sources compute the same way."""
+"""Shape logic of the prefill kernels K1 (tiled W4A16 GEMM), K3/K7 (flash
+prefill over bf16 / INT8 KV) and K10 (MLA prefill) in the port, checked
+without a card: K1's plan over the Hopper mainloop (`k1_plan`,
+`k1_choice`), K3/K7's per-block KV tile ranges (`prefill_tile_ranges`) and
+K10's row blocks and latent splits (`mla_prefill_plan`), which the CUDA
+sources compute the same way; and the prefill wrappers' refusal of what
+their kernels cannot launch."""
 
 import itertools
 
 import numpy as np
 import pytest
+import torch
 
 from tensorrt_llm_tpu_torch.ops import w4a16_gemm as W
 from tensorrt_llm_tpu_torch.ops.flash_prefill import (
-    PREFILL_ROWS, PREFILL_TILE, prefill_tile_ranges)
+    PREFILL_ROWS, PREFILL_TILE, flash_prefill_attention, prefill_tile_ranges)
+from tensorrt_llm_tpu_torch.ops.mla import (
+    MLA_PREFILL_ROWS, MLA_TILE, mla_prefill_attention, mla_prefill_plan,
+    mla_prefill_split_choices)
 
 PLAN_M = (17, 128, 200, 255, 256, 300, 512)
 
@@ -157,3 +164,95 @@ def test_k7_tile_ranges_cover_exactly_the_valid_pairs(T, G, q_offset,
         # the two consumer warpgroups take alternate tiles of the range
         halves = [range(t0 + w, t1, 2) for w in (0, 1)]
         assert sorted(itertools.chain(*halves)) == list(range(t0, t1))
+
+
+@pytest.mark.parametrize("q_offset", [0, 37, 256, 1024])
+@pytest.mark.parametrize("T", [1, 17, 100, 256])
+@pytest.mark.parametrize("H", [16, 128])
+def test_k10_plan_covers_exactly_the_valid_pairs(H, T, q_offset):
+    """Each row block's latent range holds every (row, latent position)
+    pair the masks keep (kv_pos <= q_pos, kv_pos < kv_len), and each of its
+    tiles holds at least one; the splits, whole 64-token tiles, cut every
+    range into disjoint runs, so each kept pair falls in one split of one
+    block; blocks x splits stay within one wave of the 132 SMs (K10 holds
+    one block an SM) unless the blocks alone exceed it, with the most
+    splits that fit."""
+    kv_len = q_offset + T
+    R = T * H
+    blocks, n_splits, split_len, ranges = mla_prefill_plan(T, H, kv_len,
+                                                           q_offset)
+    assert blocks == len(ranges) == -(-R // MLA_PREFILL_ROWS)
+    assert split_len > 0 and split_len % MLA_TILE == 0
+    per = split_len // MLA_TILE
+    # row r keeps the latent positions [0, lim[r])
+    lim = np.minimum(kv_len, q_offset + np.arange(R) // H + 1)
+    for b, (t0, t1) in enumerate(ranges):
+        reach = lim[b * MLA_PREFILL_ROWS:(b + 1) * MLA_PREFILL_ROWS].max()
+        tiles_kept = np.arange(-(-kv_len // MLA_TILE)) * MLA_TILE < reach
+        inside = np.zeros_like(tiles_kept)
+        inside[t0:t1] = True
+        assert (tiles_kept == inside).all(), (b, t0, t1, reach)
+        covered = [j for s in range(n_splits)
+                   for j in range(max(t0, s * per), min(t1, (s + 1) * per))]
+        assert covered == list(range(t0, t1)), (b, n_splits, per)
+    longest = max(t1 for _, t1 in ranges)
+    assert n_splits == -(-longest // per)
+    assert blocks * n_splits <= max(132, blocks)
+    if per > 1:
+        # one tile shorter would spill into a second wave
+        assert blocks * -(-longest // (per - 1)) > 132
+
+
+@pytest.mark.parametrize("H,T,q_offset", [
+    (16, 256, 256), (16, 17, 1024), (128, 17, 1024), (128, 256, 0)])
+def test_k10_split_choices_take_every_split_count(H, T, q_offset):
+    """The split lengths the chip check times against the plan: whole
+    tiles, one per distinct split count from 1 to one tile a split, the
+    plan's own among them."""
+    kv_len = q_offset + T
+    choices = mla_prefill_split_choices(T, H, kv_len, q_offset)
+    tiles = -(-kv_len // MLA_TILE)
+    assert all(c % MLA_TILE == 0 for c in choices)
+    counts = [-(-tiles * MLA_TILE // c) for c in choices]
+    assert sorted(set(counts)) == sorted(
+        {-(-tiles // -(-tiles // n)) for n in range(1, tiles + 1)})
+    assert min(choices) == MLA_TILE and max(choices) == tiles * MLA_TILE
+    assert mla_prefill_plan(T, H, kv_len, q_offset)[2] in choices
+
+
+REFUSED = [
+    # wrapper, page size, INT8 pool, what it raises
+    ("mla_prefill", 16, False, ValueError),        # the device
+    ("mla_prefill", 12, False, NotImplementedError),   # not a TMA box
+    ("flash_prefill", 16, False, ValueError),
+    ("flash_prefill", 12, False, NotImplementedError),
+    ("flash_prefill", 4, False, NotImplementedError),
+    ("flash_prefill", 12, True, ValueError),      # K7 takes any page size
+]
+
+
+@pytest.mark.parametrize("kernel,BS,int8,exc", REFUSED)
+def test_prefill_wrappers_refuse_instead_of_falling_back(kernel, BS, int8,
+                                                         exc):
+    """Only a CPU tensor takes the plain version: a tensor on any other
+    device goes to the kernel path, which raises on what its kernel cannot
+    launch (page sizes off the TMA boxes, or the device itself)."""
+    table = torch.zeros((4,), dtype=torch.int32, device="meta")
+    with pytest.raises(exc):
+        if kernel == "mla_prefill":
+            q = torch.zeros((17, 16, 576), dtype=torch.bfloat16,
+                            device="meta")
+            pool = torch.zeros((5, 1, BS, 576), dtype=torch.bfloat16,
+                               device="meta")
+            mla_prefill_attention(q, pool, table, 54, 37, 0.1, 512)
+        else:
+            q = torch.zeros((17, 32, 128), dtype=torch.bfloat16,
+                            device="meta")
+            shape = (5, 8, BS, 128)
+            if int8:
+                pool = (torch.zeros(shape, dtype=torch.int8, device="meta"),
+                        torch.zeros(shape[:3], device="meta"))
+            else:
+                pool = torch.zeros(shape, dtype=torch.bfloat16,
+                                   device="meta")
+            flash_prefill_attention(q, pool, pool, table, 54, 37, 0.1)
