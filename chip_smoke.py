@@ -6,13 +6,19 @@
 Phases (any failure exits nonzero; nothing is caught and ignored):
 
 1. the card's name and power limit (nvidia-smi);
-2. build the fourteen CUDA kernels from `tensorrt_llm_tpu_torch/csrc`;
+2. build the fourteen CUDA kernels from `tensorrt_llm_tpu_torch/csrc` and
+   print every wgmma ptxas serialized, by source (K5's and K8's checks
+   fail on any in their sources);
 3. hold each kernel against its plain PyTorch version on the card at
    TinyLlama-1.1B, Llama-3-8B, GPT-OSS-20B, Mixtral-8x7B, Moonlight-16B-A3B
    and DeepSeek-V3/V3.2 shapes, and time kernel, plain version and one
    library call; one JSON line per kernel and shape (the INT8-KV attention
    kernels on freshly quantized int8 pools, the W4A8 GEMM at Llama-3-8B's
-   projections and on K-paired weights of N 80 and 2880, the MLA kernels
+   projections and on K-paired weights of N 80 and 2880, with
+   `w4a8_plan`'s K slices within 10% of the fastest count timed; the
+   grouped expert GEMM K5 on its device-built unit list, which must equal
+   the plain builder's, with `gmm_ntok`'s token tile within 10% of the
+   fastest tile timed under uniform and skewed routing; the MLA kernels
    at 16 and 128 heads, the DSA scores at
    V3.2's indexer, the K-paired GEMM at GPT-OSS o_proj and Moonlight/V3.2
    kv_a, the ramp GEMM at TinyLlama/Llama-3-8B projections, both also at
@@ -72,7 +78,8 @@ Phases (any failure exits nonzero; nothing is caught and ignored):
 Arguments pick phases (default: check serve serve_ramp serve_stream
 fused_mlp cross llama3 gptoss gptoss_cross llama3_w4a8 llama3_w4a8_cross
 deepseek deepseek_v32 deepseek_v3_width deepseek_cross); `check_moe` runs
-only K5's checks, `check_int8` only K6-K8's, `check_mla` only K9-K11's,
+only K5's checks, `check_w4a8` only K8's, `check_int8` only K6-K8's,
+`check_mla` only K9-K11's,
 `check_w4a16` only K12-K14's and `check_k1` only K1's; `profile`,
 `profile_gptoss`, `profile_llama3_int8` and `profile_deepseek`, run only
 when named, trace a short serve window with torch.profiler;
@@ -146,6 +153,9 @@ MOE_M_BY_MODEL = {"moonlight-16b-a3b": (24, 1536),
                   "deepseek-v3.2": (32, 2048)}
 MOE_M_ZEROS = (32, 1024)                  # zero-point experts (off the path)
 MOE_ZEROS_MODELS = ("gpt-oss-20b", "mixtral-8x7b")
+# `gmm_ntok` (a model of K5's time) must pick a token tile within this
+# share of the fastest tile's time at every symmetric check_moe row
+GMM_NTOK_SLACK = 0.10
 PREFILL_CASES = [
     # model, Hq, Hkv, D, T, q_offset, window, cap, sinks
     ("tinyllama", 32, 4, 64, 256, 256, None, None, False),
@@ -188,6 +198,11 @@ DECODE_INT8_CASES = [c for c in DECODE_CASES if c[0] == "llama-3-8b"] + [
     ("tinyllama", 32, 4, 64, [81, 150, 400, 664], None, None, False)]
 W4A8_MODEL = "llama-3-8b"       # K8's (K, N) come from GEMM_SHAPES
 W4A8_KPAIRED_M = (1, 4, 17, 256)  # K8 on a K-paired weight
+# `w4a8_plan`'s K slice count (a model of K8's time) must be within this
+# share of the fastest count's time at the served projections at these
+# token counts and at every W4A8_KPAIRED_M row
+W4A8_SLICE_M = (4, 17, 256)
+W4A8_SLICE_SLACK = 0.10
 # K12: (model, weight, K, N, G) of the K-paired weights on the serve paths
 # (N % 128 != 0), and one per-channel case (G = -1)
 KPAIRED_SHAPES = [("gpt-oss-20b", "o_proj", 4096, 2880, 64),
@@ -772,8 +787,11 @@ def _int_mm_ms(xq, w_int8, iters):
 
 def check_w4a8(gen, dev):
     """K8 at Llama-3-8B's four projections x GEMM_M with zero points (as
-    served), plus a per-channel case and a bias + silu case."""
+    served), plus a per-channel case and a bias + silu case, and on
+    K-paired weights as stored; then `w4a8_plan`'s K slices against every
+    slice count (`check_w4a8_slices`)."""
     import torch
+    _no_serialized_wgmma("w4a8_gemm.cu")
     from tensorrt_llm_tpu_torch.ops import w4a16_gemm as W
     from tensorrt_llm_tpu_torch.quantization import (
         choose_block_n, dequantize_w4_any, pack_group_for, pack_w4,
@@ -788,6 +806,7 @@ def check_w4a8(gen, dev):
     # (GPT-OSS o_proj's) per channel
     plan += [(kns[1][0], 80, 128, [(M, None) for M in W4A8_KPAIRED_M], True),
              (kns[1][0], 2880, -1, [(4, None), (16, "silu")], True)]
+    slice_rows = []
     for K, N, G, cases, kpaired in plan:
         w = torch.randn((K, N), generator=gen, device=dev) * 0.02
         q, sc, z = quantize_w4(w, G, symmetric=False)
@@ -813,6 +832,12 @@ def check_w4a8(gen, dev):
             xq, s_act = W.quantize_act_int8(x)
             out = W.w4a8_gemm(xq, s_act, packed, sc, z, b, act)
             ref = W.w4a8_matmul_plain(xq, s_act, packed, sc, z, b, act)
+            # one slice count summed in K order: a second call gives the
+            # same bits
+            assert torch.equal(out, W.w4a8_gemm(xq, s_act, packed, sc, z, b,
+                                                act)), "K8: second call differs"
+            plan = W.w4a8_plan(K, N, sc.shape[0],
+                               0 if kpaired else packed.shape[2], M)
             torch.cuda.synchronize()
             err = (out.float() - ref.float()).abs().max().item()
             # the plain version rounds each dequantized weight to bf16
@@ -834,11 +859,55 @@ def check_w4a8(gen, dev):
                                  "N": N, "G": G if G > 0 else K, "act": act,
                                  "zeros": True, "bias": act is not None,
                                  "kpaired": kpaired, "edge": kpaired,
+                                 "ntok": plan["ntok"],
+                                 "slices": plan["slices"],
                                  "int_mm_ms": int_ms}, err, tol,
                    k_ms, p_ms, l_ms,
                    bound_ms(nbytes, 2 * M * N * K, PEAK_INT8))
+            if (G == 128 and act is None
+                    and M in (W4A8_KPAIRED_M if kpaired else W4A8_SLICE_M)):
+                slice_rows.append(_w4a8_slices_row(
+                    xq, s_act, ws, sc, z, ref, tol,
+                    {"model": W4A8_MODEL, "M": M, "K": K, "N": N,
+                     "kpaired": kpaired}))
         del packed, sc, z, ws, wdq, lib_w, w_int8
         torch.cuda.empty_cache()
+    worst = max(r["pick_over_fastest"] for r in slice_rows)
+    PHASES["w4a8_slices"] = {"phase": "w4a8_slices", "rows": slice_rows,
+                             "worst_pick_over_fastest": worst,
+                             "slack": W4A8_SLICE_SLACK}
+    bad = [(r["K"], r["N"], r["M"], r["pick"], r["fastest"],
+            r["pick_over_fastest"]) for r in slice_rows
+           if r["pick_over_fastest"] > 1 + W4A8_SLICE_SLACK]
+    assert not bad, f"w4a8_plan picks K slices slower than the slack: {bad}"
+
+
+def _w4a8_slices_row(xq, s_act, ws, sc, z, ref, tol, head):
+    """K8 at every K slice count it takes (`k1_slice_choices`), each held
+    against the plain version and timed with the weights rotated past the
+    L2: `w4a8_plan`'s count must be within W4A8_SLICE_SLACK of the
+    fastest."""
+    import torch
+    from tensorrt_llm_tpu_torch.ops import w4a16_gemm as W
+    M, K, N = head["M"], head["K"], head["N"]
+    packed = ws[0][0]
+    bn = 0 if head["kpaired"] else packed.shape[2]
+    times = {}
+    for d in W.k1_slice_choices(K):
+        out = W.w4a8_gemm(xq, s_act, packed, sc, z, slices=d)
+        torch.cuda.synchronize()
+        err = (out.float() - ref.float()).abs().max().item()
+        assert err <= tol, f"K8 at {d} slices {head}: {err} > {tol}"
+        times[d] = cuda_ms([lambda p=p, s_=s_, z_=z_, d=d: W.w4a8_gemm(
+            xq, s_act, p, s_, z_, slices=d) for p, s_, z_ in ws], 10)
+    pick = W.w4a8_plan(K, N, sc.shape[0], bn, M)["slices"]
+    best = min(times, key=times.get)
+    row = dict(head, pick=pick, fastest=best, pick_ms=times[pick],
+               fastest_ms=times[best],
+               pick_over_fastest=times[pick] / times[best],
+               ms={str(k): v for k, v in times.items()})
+    log(json.dumps({k: v for k, v in row.items() if k != "ms"}))
+    return row
 
 
 def _routing(rng, M, E, kind):
@@ -898,11 +967,26 @@ def _experts(gen, dev, E, K, N, G, zero_points):
     return stack(sym), stack(zp), sym[0][3]
 
 
+def _no_serialized_wgmma(source):
+    """Fail a kernel's checks if ptxas serialized its wgmmas (the build
+    keeps each source's log; `cuda_build.serialized_wgmma`)."""
+    from tensorrt_llm_tpu_torch.ops import cuda_build
+    bad = [w for w in cuda_build.serialized_wgmma() if w[0] == source]
+    assert not bad, f"ptxas serialized wgmmas in {source}: {bad}"
+
+
 def check_moe(gen, dev):
+    """K5 against `w4a16_grouped_matmul_plain` at MOE_SHAPES x the models'
+    token counts under uniform and skewed routing (and zero-point experts
+    off the path), each on the device-built unit list, which must equal
+    the plain builder's (`gmm_units_plain`); every token tile K5 takes is
+    timed at the symmetric rows (`check_gmm_ntok`)."""
     import numpy as np
     import torch
     from tensorrt_llm_tpu_torch.ops import moe_w4a16 as MW
+    _no_serialized_wgmma("moe_gmm.cu")
     rng = np.random.default_rng(0)
+    ntok_rows = []
     for model, shapes in MOE_SHAPES.items():
         for K, N, E, G in shapes:
             with_zeros = model in MOE_ZEROS_MODELS
@@ -924,18 +1008,19 @@ def check_moe(gen, dev):
                 gs = torch.from_numpy(sizes).to(dev)
                 x = torch.randn((M, K), generator=gen, device=dev
                                 ).to(torch.bfloat16)
+                ntok = MW.gmm_ntok(M, E)
                 units = MW.gmm_work_units(gs, M)
                 out = MW.moe_gmm(x, pk, sc, units, z)
                 ref = MW.w4a16_grouped_matmul_plain(x, pk, sc, gs, z)
                 torch.cuda.synchronize()
-                assert torch.equal(units, MW.make_group_metadata(
-                    gs, -(-M // MW.GMM_TM), MW.GMM_TM, E)), \
-                    f"K5 work units differ from make_group_metadata " \
+                assert torch.equal(units, MW.gmm_units_plain(gs, M, ntok)), \
+                    f"K5 unit list differs from gmm_units_plain " \
                     f"({model} K={K} N={N} M={M} {kind})"
                 err = (out - ref).abs().max().item()
-                # the plain version rounds each dequantized weight and the
-                # output to bf16 (2^-9 relative each), the kernel scales the
-                # f32 partial and keeps f32: 2% of max|ref|
+                # the kernel's weight is bit for bit the plain version's
+                # bf16 weight; the plain version rounds the output to bf16
+                # (2^-9 relative) and sums in another order, the kernel
+                # keeps f32: 2% of max|ref|
                 tol = 2e-2 * ref.abs().max().item()
                 ws = [(pk.clone(), sc.clone()) for _ in range(
                     copies_for(live * per_expert) - 1)] + [(pk, sc)]
@@ -948,11 +1033,57 @@ def check_moe(gen, dev):
                 nbytes = M * K * 2 + live * per_expert + M * N * 4 + E * 4
                 record("moe_gmm", {"model": model, "M": M, "K": K, "N": N,
                                    "E": E, "G": G, "BN": bn, "routing": kind,
-                                   "experts_hit": live, "zeros": zp},
+                                   "experts_hit": live, "zeros": zp,
+                                   "ntok": ntok,
+                                   "units": int(units[0, 0].item())},
                        err, tol, k_ms, p_ms, l_ms,
                        bound_ms(nbytes, 2 * M * N * K))
+                if not zp:
+                    ntok_rows.append(check_gmm_ntok(
+                        x, pk, sc, gs, ref, tol, live * per_expert,
+                        {"model": model, "M": M, "K": K, "N": N, "E": E,
+                         "routing": kind}))
             del packed, scales, zpacked, zscales, zeros, wdq, zwdq
             torch.cuda.empty_cache()
+    worst = max(r["pick_over_fastest"] for r in ntok_rows)
+    PHASES["gmm_ntok"] = {"phase": "gmm_ntok", "rows": ntok_rows,
+                          "worst_pick_over_fastest": worst,
+                          "slack": GMM_NTOK_SLACK}
+    bad = [(r["model"], r["K"], r["N"], r["M"], r["routing"], r["pick"],
+            r["fastest"], r["pick_over_fastest"]) for r in ntok_rows
+           if r["pick_over_fastest"] > 1 + GMM_NTOK_SLACK]
+    assert not bad, f"gmm_ntok picks slower than the slack: {bad}"
+
+
+def check_gmm_ntok(x, pk, sc, gs, ref, tol, wbytes, head):
+    """K5 at every token tile it takes (`GMM_NTOK`), each on its own unit
+    list and held against the plain version, timed with the weights
+    rotated past the L2: `gmm_ntok`'s pick must be within GMM_NTOK_SLACK of
+    the fastest."""
+    import torch
+    from tensorrt_llm_tpu_torch.ops import moe_w4a16 as MW
+    M, E = x.shape[0], pk.shape[0]
+    ws = [(pk.clone(), sc.clone()) for _ in range(copies_for(wbytes) - 1)]
+    ws.append((pk, sc))
+    times, errs = {}, {}
+    for nt in MW.GMM_NTOK:
+        units = MW.gmm_work_units(gs, M, nt)
+        out = MW.moe_gmm(x, pk, sc, units, None, ntok=nt)
+        torch.cuda.synchronize()
+        errs[nt] = (out - ref).abs().max().item()
+        assert errs[nt] <= tol, f"K5 at ntok {nt} {head}: {errs[nt]} > {tol}"
+        times[nt] = cuda_ms([lambda p=p, c=c, u=units, nt=nt: MW.moe_gmm(
+            x, p, c, u, None, ntok=nt) for p, c in ws], 10)
+    del ws
+    pick = MW.gmm_ntok(M, E)
+    best = min(times, key=times.get)
+    row = dict(head, pick=pick, fastest=best, pick_ms=times[pick],
+               fastest_ms=times[best],
+               pick_over_fastest=times[pick] / times[best],
+               ms={str(k): v for k, v in times.items()},
+               max_err={str(k): v for k, v in errs.items()})
+    log(json.dumps({k: v for k, v in row.items() if k != "max_err"}))
+    return row
 
 
 def _paged(gen, dev, seqs, Hkv, D, BS=16):
@@ -1575,8 +1706,12 @@ def serve_model(card, phase, label, cfg, required, absent=(),
         assert counts.get("w4a16_ramp", 0) == ramp_per_layer * L * fwd, \
             (counts, fwd)
     if cfg.quant.quant_algo == QuantAlgo.W4A8_AWQ:
-        # QKV, o, gate_up and down on K8 in every layer of every forward
+        # QKV, o, gate_up and down on K8 in every layer of every forward;
+        # its combine pass wherever the plan slices K (at least the decode
+        # steps' down projections, 64 column tiles at Llama-3-8B)
         assert counts["w4a8_gemm"] == 4 * L * fwd, counts
+        assert 0 < counts.get("w4a8_combine", 0) <= counts["w4a8_gemm"], \
+            counts
     n_moe = sum(cfg.is_moe_layer(i) for i in range(L))
     if n_moe:
         # gate_up and down on K5 in every MoE layer of every forward, on
@@ -1600,6 +1735,7 @@ def serve_model(card, phase, label, cfg, required, absent=(),
         "kpaired_per_forward": counts.get("w4a16_kpaired", 0) / fwd,
         "ramp_per_forward": counts.get("w4a16_ramp", 0) / fwd,
         "moe_gmm_per_forward": counts.get("moe_gmm", 0) / fwd,
+        "w4a8_combine_per_forward": counts.get("w4a8_combine", 0) / fwd,
         "attention_kernels": [prefill_k, decode_k],
         "prefill_attention_per_chunk": (counts[prefill_k] / chunks
                                         if prefill_k else None),
@@ -2250,6 +2386,11 @@ def main() -> int:
         if any(w in line for w in ("registers", "spill", "error",
                                    "entry function")):
             log("  " + line.strip())
+    # every wgmma ptxas serialized, by source (K5's and K8's checks fail
+    # on their own sources' warnings)
+    serialized = cuda_build.serialized_wgmma()
+    PHASES["serialized_wgmma"] = serialized
+    log(f"[phase 2] ptxas serialized wgmma: {json.dumps(serialized)}")
 
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device(DEVICE, 0)
@@ -2300,6 +2441,7 @@ def run_phases(phases, card, gen, dev, by_path):
     if "check" in phases or "check_int8" in phases:
         check_prefill(gen, dev, PREFILL_INT8_CASES, int8=True)
         check_decode(gen, dev, DECODE_INT8_CASES, int8=True)
+    if {"check", "check_int8", "check_w4a8"} & set(phases):
         check_w4a8(gen, dev)
     if "check" in phases or "check_mla" in phases:
         check_mla(gen, dev)

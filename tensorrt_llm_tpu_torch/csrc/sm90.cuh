@@ -1,9 +1,9 @@
 // Hopper (sm_90a) building blocks shared by the port's TMA / wgmma kernels
-// (`w4a16_sm90.cuh`: K1, K12, K13; `flash_prefill_sm90.cu`: K3, K7;
-// `mla_prefill_sm90.cu`: K10): mbarriers, TMA and bulk copies, proxy
-// fences, named barriers, wgmma (A from registers or shared memory) with
-// its shared-memory descriptors, operand fences, and the host's tensor
-// maps.
+// (`w4a16_sm90.cuh`: K1, K5, K8, K12, K13; `flash_prefill_sm90.cu`: K3,
+// K7; `mla_prefill_sm90.cu`: K10): mbarriers, TMA and bulk copies, proxy
+// fences, named barriers, wgmma (bf16 with A from registers or shared
+// memory, s8 with A from registers) with its shared-memory descriptors,
+// operand fences, and the host's tensor maps.
 #pragma once
 
 #include <cuda.h>
@@ -87,16 +87,20 @@ __device__ __forceinline__ void keep(uint32_t& r) {
 __device__ __forceinline__ void keep(float& r) {
   asm volatile("" : "+f"(r)::"memory");
 }
-template <int N>
-__device__ __forceinline__ void keep_all(float (&r)[N]) {
+__device__ __forceinline__ void keep(int& r) {
+  asm volatile("" : "+r"(r)::"memory");
+}
+template <int N, typename T>
+__device__ __forceinline__ void keep_all(T (&r)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) keep(r[i]);
 }
-__device__ __forceinline__ void keep_all(uint32_t (&r)[4][4]) {
+template <int N, int M, typename T>
+__device__ __forceinline__ void keep_all(T (&r)[N][M]) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < N; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) keep(r[i][j]);
+    for (int j = 0; j < M; ++j) keep(r[i][j]);
 }
 
 // Shared-memory descriptor of a K-major bf16 B tile in the 64-byte swizzle
@@ -105,6 +109,14 @@ __device__ __forceinline__ void keep_all(uint32_t (&r)[4][4]) {
 __device__ __forceinline__ uint64_t desc_b64(uint32_t saddr) {
   return (uint64_t)((saddr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
          ((uint64_t)(512 >> 4) << 32) | ((uint64_t)2 << 62);
+}
+
+// Shared-memory descriptor of a K-major 8-bit B tile in the 32-byte
+// swizzle (rows of 32 bytes: one k32 step, 8-row groups 256 bytes apart),
+// layout 3
+__device__ __forceinline__ uint64_t desc_b32(uint32_t saddr) {
+  return (uint64_t)((saddr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
+         ((uint64_t)(256 >> 4) << 32) | ((uint64_t)3 << 62);
 }
 
 // 1-D bulk copy of `bytes` (a multiple of 16, both addresses 16-byte
@@ -491,6 +503,129 @@ template <> struct WgmmaSS<256> {
           "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
           "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
         : "l"(da), "l"(db), "r"(scale_d), "n"(TB));
+  }
+};
+
+// D[64 x NTOK] (+)= A[64 x 32] (registers, s8) * B[32 x NTOK] (shared,
+// K-major, descriptor), s32; `scale_d` 0 overwrites D (the first product
+// of a scale group)
+template <int NTOK>
+struct WgmmaS8;
+
+template <> struct WgmmaS8<8> {
+  static __device__ __forceinline__ void mma(int* d, const uint32_t* a,
+                                             uint64_t desc, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n8k32.s32.s8.s8 "
+        "{"
+        "%0, %1, %2, %3"
+        "}, {%4, %5, %6, %7}, %8, p;\n"
+        "}\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc),
+          "r"(scale_d));
+  }
+};
+
+template <> struct WgmmaS8<16> {
+  static __device__ __forceinline__ void mma(int* d, const uint32_t* a,
+                                             uint64_t desc, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k32.s32.s8.s8 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7"
+        "}, {%8, %9, %10, %11}, %12, p;\n"
+        "}\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]),
+          "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc),
+          "r"(scale_d));
+  }
+};
+
+template <> struct WgmmaS8<32> {
+  static __device__ __forceinline__ void mma(int* d, const uint32_t* a,
+                                             uint64_t desc, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k32.s32.s8.s8 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15"
+        "}, {%16, %17, %18, %19}, %20, p;\n"
+        "}\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]),
+          "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+          "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+          "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc),
+          "r"(scale_d));
+  }
+};
+
+template <> struct WgmmaS8<64> {
+  static __device__ __forceinline__ void mma(int* d, const uint32_t* a,
+                                             uint64_t desc, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31"
+        "}, {%32, %33, %34, %35}, %36, p;\n"
+        "}\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]),
+          "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+          "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+          "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+          "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+          "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+          "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]),
+          "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc),
+          "r"(scale_d));
+  }
+};
+
+template <> struct WgmmaS8<128> {
+  static __device__ __forceinline__ void mma(int* d, const uint32_t* a,
+                                             uint64_t desc, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, "
+        "%40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, "
+        "%56, %57, %58, %59, %60, %61, %62, %63"
+        "}, {%64, %65, %66, %67}, %68, p;\n"
+        "}\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]),
+          "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+          "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+          "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+          "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+          "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+          "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]),
+          "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+          "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
+          "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+          "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]),
+          "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+          "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]),
+          "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+          "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+          "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc),
+          "r"(scale_d));
   }
 };
 

@@ -2,7 +2,11 @@
 // packing), K13 (`w4a16_ramp.cu`, tiled packing) and K1 (`w4a16_gemm.cu`,
 // tiled packing, with its own configuration bits PRE_*, below):
 // act(x @ ((q - z) * s) + b), bf16 x, int4 q, bf16 scales and zeros, f32
-// accumulation, bf16 out.
+// accumulation, bf16 out.  K5 (`moe_gmm.cu`) is its GROUPED layout: the
+// tiled packing of a stack of experts, f32 scales, work units from a
+// device-built list, f32 out (see `GROUPED` below).  K8 (`w4a8_gemm.cu`)
+// is its s8 instantiation, a kernel of its own on the same ring, tiles,
+// work units and combine pass.
 //
 // What bounds the products on the H100: the K*N/2 weight bytes at decode
 // (M <= 16: 2*M ops per weight byte, far below the ~295 op/byte ridge), the
@@ -113,7 +117,8 @@ constexpr int MAX_SLICES = 128;
 // where its units fill the card in fewer rounds.
 enum { PRE_K1 = 1, PRE_X128 = 2, PRE_REGS = 4, PRE_WG3 = 8 };
 
-template <int NTOK, int PRE = 0>
+// SB: bytes of a scale (2: bf16; 4: K5's f32)
+template <int NTOK, int PRE = 0, int SB = 2>
 struct Cfg {
   static constexpr bool X128 = (PRE & PRE_X128) != 0;
   static constexpr bool REGS = (PRE & PRE_REGS) != 0;
@@ -135,7 +140,7 @@ struct Cfg {
   // 65,536 less the producer's 128 x 40, over the consumers
   static constexpr int CONSUMER_REGS = NWG == 2 ? 232 : 152;
   static constexpr int X_BOX = NTOK * 64;            // 32 bf16 x NTOK rows
-  static constexpr int SZ_BOX = COLS * 2;            // one bf16 scale row
+  static constexpr int SZ_BOX = COLS * SB;           // one scale row
   // weights, x, then room for two scale rows and two zero rows (G 32);
   // a multiple of 1 KB, so that every stage keeps its boxes on their
   // swizzle patterns (the second rows fit in the rounding at every tile)
@@ -160,11 +165,15 @@ struct Slices {
 };
 
 struct Params {
-  const bf16* scales;
-  const bf16* zeros;
+  const void* scales;
+  const void* zeros;
   const float* bias;
   float* ws;          // [n slices, M, N] f32 partials (n > 1)
   bf16* out;          // [M, N]
+  // GROUPED: the unit list (`tllm_moe_gmm_units`: a header row (count,
+  // ntok, bound), then (expert, first row, rows) per unit) and f32 out
+  const int* units;
+  float* outf;
   int M, N, K, G;
   int Gp;             // K-paired: pack group (K rows)
   int bn;             // tiled: column tile of the packing
@@ -198,6 +207,16 @@ __device__ __forceinline__ uint32_t deq2(uint32_t h, uint32_t nz,
                                          uint32_t s) {
   return bf2_fma(bf2_fma(h, 0x3F803F80u, nz), s, 0x80008000u);
 }
+// the same with an f32 scale (K5): the two bf16 integers 136 + q widened
+// to f32, (136 + q) - (136 + z) exact, times s in f32, then one rounding
+// to bf16 -- bit for bit bf16(f32((q - z) * s)), the plain version's
+// weight
+__device__ __forceinline__ uint32_t deqf(uint32_t h, float zf, float s) {
+  const float lo = __uint_as_float(h << 16);
+  const float hi = __uint_as_float(h & 0xFFFF0000u);
+  return pack_bf16x2(__fmul_rn(__fsub_rn(lo, zf), s),
+                     __fmul_rn(__fsub_rn(hi, zf), s));
+}
 
 // ------------------------------------------------------------- kernel ---
 // Stage s of the ring: [NWG weight boxes of 2 KB][x: two boxes of 32 K, or
@@ -205,9 +224,17 @@ __device__ __forceinline__ uint32_t deq2(uint32_t h, uint32_t nz,
 // group (two rows when the group changes inside the stage, else one of two
 // slots), each swizzled box aligned to its pattern; the full and empty
 // barriers follow the ring.
-// LAYOUT: TILED, KPAIRED_SPLIT (pack groups of 64 rows or more) or
-// KPAIRED_32 (pack groups of 32 rows)
-enum { TILED = 0, KPAIRED_SPLIT = 1, KPAIRED_32 = 2 };
+// LAYOUT: TILED, KPAIRED_SPLIT (pack groups of 64 rows or more),
+// KPAIRED_32 (pack groups of 32 rows) or GROUPED (K5: the tiled packing of
+// E experts, [E, N/BN, K/2, BN] as E*(N/BN)*(K/2) rows of BN bytes, an
+// expert a row offset; f32 scales [E*(K/G), N]; a work unit is an entry
+// of the device-built list, (expert, first row, rows <= NTOK), times a
+// column tile, over the whole K; tokens past the unit's rows belong to
+// the next expert or lie past M and are not stored)
+enum { TILED = 0, KPAIRED_SPLIT = 1, KPAIRED_32 = 2, GROUPED = 3 };
+__host__ __device__ constexpr int scale_bytes(int layout) {
+  return layout == GROUPED ? 4 : 2;
+}
 
 template <int NTOK, int LAYOUT, int PRE = 0>
 __global__ void __launch_bounds__(Cfg<NTOK, PRE>::THREADS,
@@ -217,8 +244,11 @@ __global__ void __launch_bounds__(Cfg<NTOK, PRE>::THREADS,
                       const __grid_constant__ CUtensorMap smap,
                       const __grid_constant__ CUtensorMap zmap,
                       const __grid_constant__ Params p) {
-  using C = Cfg<NTOK, PRE>;
+  using C = Cfg<NTOK, PRE, scale_bytes(LAYOUT)>;
   constexpr bool K1 = (PRE & PRE_K1) != 0;
+  // K5 runs with PRE_K1 (its reach: any G % 32 == 0, K % 32 == 0)
+  constexpr bool GR = LAYOUT == GROUPED;
+  static_assert(!GR || PRE == PRE_K1, "K5 runs the K1 bits");
   static_assert(!(PRE & ~PRE_K1) || (LAYOUT == TILED && NTOK == 128),
                 "prefill mechanisms are K1's, at 128 tokens");
   extern __shared__ uint8_t smem_raw[];
@@ -245,12 +275,14 @@ __global__ void __launch_bounds__(Cfg<NTOK, PRE>::THREADS,
   asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
 
   const int n_tiles = p.n_mb * p.n_ct;
-  const int n_units = n_tiles * p.sl.n;
+  // GROUPED: (list entry, column tile) items, the entry count read on the
+  // device (the host knows only its bound)
+  const int n_units = GR ? p.units[0] * p.n_ct : n_tiles * p.sl.n;
   // K-paired at Gp >= 64: a stage's low and high nibbles meet x segments
   // Gp/2 apart; else (tiled, K-paired at Gp 32) its 64 K rows are
   // contiguous.  Both are template arguments: as run-time selects in the
   // issue of every wgmma they cost GPT-OSS o_proj 10-16%.
-  constexpr bool KPAIRED = LAYOUT != TILED;
+  constexpr bool KPAIRED = LAYOUT == KPAIRED_SPLIT || LAYOUT == KPAIRED_32;
   constexpr bool split = LAYOUT == KPAIRED_SPLIT;
   const int spg = split ? p.Gp / 2 / STAGE_PR : 1;   // stages per pack group
   const bool has_zeros = p.zeros != nullptr;
@@ -271,9 +303,21 @@ __global__ void __launch_bounds__(Cfg<NTOK, PRE>::THREADS,
     int slot = 0;
     uint32_t phase = 0;
     for (int u = blockIdx.x; u < n_units; u += gridDim.x) {
-      const int s = u / n_tiles, tile = u % n_tiles;
-      const int m0 = (tile / p.n_ct) * NTOK;
-      const int col0 = (tile % p.n_ct) * C::COLS;
+      int s, m0, col0, expert = 0;
+      if constexpr (GR) {
+        const int* ent = p.units + 3 * (1 + u / p.n_ct);
+        s = 0;
+        expert = ent[0];
+        m0 = ent[1];
+        col0 = (u % p.n_ct) * C::COLS;
+      } else {
+        s = u / n_tiles;
+        const int tile = u % n_tiles;
+        m0 = (tile / p.n_ct) * NTOK;
+        col0 = (tile % p.n_ct) * C::COLS;
+      }
+      // the expert's first scale row (GROUPED)
+      const int grp_base = GR ? expert * (per_channel ? 1 : p.K / p.G) : 0;
       // K1: the unit's weight boxes and scale group, advanced stage by
       // stage without the divisions (each a long dependent chain on the
       // one issuing thread)
@@ -283,7 +327,7 @@ __global__ void __launch_bounds__(Cfg<NTOK, PRE>::THREADS,
         for (int wg = 0; wg < C::NWG; ++wg) {
           const int cw = col0 + wg * WG_COLS;
           wxk[wg] = cw % p.bn;
-          wyk[wg] = (cw / p.bn) * (p.K / 2);
+          wyk[wg] = (expert * (p.N / p.bn) + cw / p.bn) * (p.K / 2);
         }
         if (!per_channel) {
           const int k0 = p.sl.start[s] * STAGE_K;
@@ -328,7 +372,7 @@ __global__ void __launch_bounds__(Cfg<NTOK, PRE>::THREADS,
           tma_load_2d(xs, &xmap, kx0, m0, &full[slot]);
           tma_load_2d(xs + C::X_BOX, &xmap, kx1, m0, &full[slot]);
         }
-        const int grp = K1 ? grp_k : group_of(st);
+        const int grp = grp_base + (K1 ? grp_k : group_of(st));
         tma_load_2d(xs + 2 * C::X_BOX, &smap, col0, grp, &full[slot]);
         if (has_zeros)
           tma_load_2d(xs + 2 * C::X_BOX + 2 * C::SZ_BOX, &zmap, col0, grp,
@@ -365,9 +409,20 @@ __global__ void __launch_bounds__(Cfg<NTOK, PRE>::THREADS,
   uint32_t phase = 0;
   int krem = 0;
   for (int u = blockIdx.x; u < n_units; u += gridDim.x) {
-    const int s = u / n_tiles, tile = u % n_tiles;
-    const int m0 = (tile / p.n_ct) * NTOK;
-    const int c = (tile % p.n_ct) * C::COLS + wg * WG_COLS + wl * 16 + 2 * g;
+    int s, m0, ct, rows = 0;
+    if constexpr (GR) {
+      const int* ent = p.units + 3 * (1 + u / p.n_ct);
+      s = 0;
+      m0 = ent[1];
+      rows = ent[2];
+      ct = u % p.n_ct;
+    } else {
+      s = u / n_tiles;
+      const int tile = u % n_tiles;
+      m0 = (tile / p.n_ct) * NTOK;
+      ct = tile % p.n_ct;
+    }
+    const int c = ct * C::COLS + wg * WG_COLS + wl * 16 + 2 * g;
     const bool col_ok = c < p.N;
 #pragma unroll
     for (int k = 0; k < C::NACC; ++k)
@@ -389,7 +444,45 @@ __global__ void __launch_bounds__(Cfg<NTOK, PRE>::THREADS,
       // this lane's columns' scale and zero of scale row `row` of the
       // stage: pairs (s_c, s_c), (s_c+1, s_c+1) and -(136 + z) likewise
       const uint8_t* sz = stage + C::NWG * W_BOX + 2 * C::X_BOX +
-                          2 * (wg * WG_COLS + wl * 16 + 2 * g);
+                          scale_bytes(LAYOUT) * (wg * WG_COLS + wl * 16 + 2 * g);
+      if constexpr (GR) {
+        // f32 scales: s_c, s_c+1 and 136 + z likewise (`deqf`)
+        float s0, s1, z0 = 136.f, z1 = 136.f;
+        auto scale_row_f = [&](int row) {
+          const float2 sv =
+              *reinterpret_cast<const float2*>(sz + row * C::SZ_BOX);
+          s0 = sv.x;
+          s1 = sv.y;
+          if (has_zeros) {
+            const float2 zv =
+                *reinterpret_cast<const float2*>(sz + (2 + row) * C::SZ_BOX);
+            z0 = 136.f + zv.x;
+            z1 = 136.f + zv.y;
+          }
+        };
+        scale_row_f(0);
+        int row2 = 1;
+        if (nsz == 2) {
+          row2 = krem + 32 >= p.G ? 1 : 0;
+          for (krem += STAGE_K; krem >= p.G; krem -= p.G) {
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          if (i == 2 && nsz == 2) scale_row_f(row2);
+          const uint32_t ri = r[i] ^ 0x88888888u;
+          const uint32_t hs = ri >> 4;
+          a[i][0] = deqf(magic2(prmt(ri, hs, 0x0400)), z0, s0);
+          a[i][1] = deqf(magic2(prmt(ri, hs, 0x0501)), z1, s1);
+          a[i][2] = deqf(magic2(prmt(ri, hs, 0x0602)), z0, s0);
+          a[i][3] = deqf(magic2(prmt(ri, hs, 0x0703)), z1, s1);
+        }
+        if (++slot == C::STAGES) {
+          slot = 0;
+          phase ^= 1;
+        }
+        return my;
+      }
       uint32_t sA, sB, zA, zB;
       auto scale_row = [&](int row) {
         const uint32_t s2 =
@@ -503,6 +596,20 @@ __global__ void __launch_bounds__(Cfg<NTOK, PRE>::THREADS,
       for (int i = 0; i < NTOK / 2; ++i) acc[0][i] += acc[k][i];
     // epilogue: lane holds columns (c, c + 1) of tokens 8j + 2t (+1)
     if (!col_ok) continue;
+    if constexpr (GR) {
+      // f32 out, the unit's rows only: each row of an expert is stored by
+      // exactly one unit, so no two blocks write the same value
+#pragma unroll
+      for (int j = 0; j < NTOK / 8; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int tk = 8 * j + 2 * t + h;
+          if (tk < rows)
+            *reinterpret_cast<float2*>(p.outf + (size_t)(m0 + tk) * p.N + c) =
+                make_float2(acc[0][4 * j + h], acc[0][4 * j + 2 + h]);
+        }
+      continue;
+    }
     const bool direct = p.sl.n == 1;
     if constexpr (K1) {
       // the activation chosen once, outside the loop over the values (a
@@ -566,8 +673,10 @@ __global__ void __launch_bounds__(Cfg<NTOK, PRE>::THREADS,
   }
 }
 
-// Second pass: out = act(sum over the K slices of ws, in K order, + bias)
+// Second pass: out = act(sum over the K slices of ws, in K order, times
+// row_scale[m] (K8's per-token activation scale, else none), + bias)
 static __global__ void combine_kernel(const float* __restrict__ ws,
+                               const float* __restrict__ row_scale,
                                const float* __restrict__ bias,
                                bf16* __restrict__ out, int M, int N, int n,
                                int act) {
@@ -583,6 +692,11 @@ static __global__ void combine_kernel(const float* __restrict__ ws,
     v.x += w.x;
     v.y += w.y;
   }
+  if (row_scale != nullptr) {   // N is even: i and i + 1 share a row
+    const float r = row_scale[i / N];
+    v.x *= r;
+    v.y *= r;
+  }
   if (bias != nullptr) {
     v.x += bias[i % N];
     v.y += bias[i % N + 1];
@@ -592,11 +706,30 @@ static __global__ void combine_kernel(const float* __restrict__ ws,
 }
 
 // --------------------------------------------------------------- host ---
+// The combine pass as a programmatic dependent launch: its launch overlaps
+// the mainloop's tail instead of following it
+inline int launch_combine(const float* ws, const float* row_scale,
+                          const float* bias, bf16* out, int M, int N,
+                          int n_slices, int act, cudaStream_t st) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(((size_t)M * N / 2 + 255) / 256));
+  cfg.blockDim = dim3(256);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return (int)cudaLaunchKernelEx(&cfg, combine_kernel, ws, row_scale, bias,
+                                 out, M, N, n_slices, act);
+}
+
 template <int NTOK, int LAYOUT, int PRE>
 int launch_ntok(const CUtensorMap& wmap, const CUtensorMap& xmap,
                 const CUtensorMap& smap, const CUtensorMap& zmap,
                 const Params& p, int grid, cudaStream_t st) {
-  using C = Cfg<NTOK, PRE>;
+  using C = Cfg<NTOK, PRE, scale_bytes(LAYOUT)>;
   auto kernel = w4a16_sm90_kernel<NTOK, LAYOUT, PRE>;
   static bool attr_set = false;   // set once per instantiation
   if (!attr_set) {
@@ -655,8 +788,10 @@ int launch(const void* x, const void* qweight,
   const bool kpaired = KIND == 1;
   const int pre = KIND == 2 && ntok == 128 ? K1_PRE[k1_variant] : 0;
   Params p;
-  p.scales = static_cast<const bf16*>(scales);
-  p.zeros = static_cast<const bf16*>(zeros);
+  p.scales = scales;
+  p.zeros = zeros;
+  p.units = nullptr;
+  p.outf = nullptr;
   p.bias = static_cast<const float*>(bias);
   p.ws = static_cast<float*>(workspace);
   p.out = static_cast<bf16*>(out);
@@ -721,23 +856,7 @@ int launch(const void* x, const void* qweight,
     }
   }
   if (e || n_slices == 1) return e;
-  // the combine pass as a programmatic dependent launch: its launch
-  // overlaps the mainloop's tail instead of following it
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((unsigned)(((size_t)M * N / 2 + 255) / 256));
-  cfg.blockDim = dim3(256);
-  cfg.dynamicSmemBytes = 0;
-  cfg.stream = st;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
-  attr[0].val.programmaticStreamSerializationAllowed = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  const float* ws = p.ws;
-  const float* bs = p.bias;
-  bf16* o = p.out;
-  return (int)cudaLaunchKernelEx(&cfg, combine_kernel, ws, bs, o, M, N,
-                                 n_slices, act);
+  return launch_combine(p.ws, nullptr, p.bias, p.out, M, N, n_slices, act, st);
 }
 
 }  // namespace sm90

@@ -8,7 +8,9 @@ rebuilds and an unchanged one loads the existing file; the engine keeps its
 tuned tactics in the same directory (`ModelEngine.tactic_file`).  The build holds
 an `fcntl` lock and writes under a temporary name that is `os.replace`d
 into place: concurrent processes never see a half-written library.  A missing `nvcc` or a failed build raises; there
-is no CPU fallback at this level.
+is no CPU fallback at this level.  Each source's compiler output is kept
+beside the library (`<source>.log`), so that a run that loads an existing
+build still reads what ptxas said (`build_logs`, `serialized_wgmma`).
 
 Every wrapper that launches one of these kernels adds one to its entry in
 `launch_counts`; the chip check reads the counts to prove the main path ran
@@ -70,14 +72,16 @@ _SIGNATURES = {
     # n_splits, split_len, stream
     "tllm_paged_decode_int8": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
                                _I, _I, _I, _I, _I, _F, _I, _F, _I, _I, _P],
-    # xq, s_act, qweight, scales, zeros, bias, out, M, N, K, group,
-    # block_n, pack_group, act, stream
-    "tllm_w4a8_gemm": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                       _I, _P],
-    # group_sizes, meta, M, E, stream
-    "tllm_moe_gmm_units": [_P, _P, _I, _I, _P],
-    # x, qweight, scales, zeros, meta, out, M, N, K, group, E, block_n, stream
-    "tllm_moe_gmm": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # xq, s_act, qweight, scales, zeros, bias, workspace, out, M, N, K,
+    # group, block_n, pack_group, act, ntok, n_mb, n_ct, slice starts (host
+    # int array), n_slices, grid, stream
+    "tllm_w4a8_gemm": [_P] * 8 + [_I] * 10 + [ctypes.POINTER(_I), _I, _I,
+                                              _P],
+    # group_sizes, units, M, E, ntok, bound, stream
+    "tllm_moe_gmm_units": [_P, _P, _I, _I, _I, _I, _P],
+    # x, qweight, scales, zeros, units, out, M, N, K, group, E, block_n,
+    # ntok, n_ct, grid, stream
+    "tllm_moe_gmm": [_P] * 6 + [_I] * 9 + [_P],
     # q, pool, tables, kv_lens, workspace, out, B, H, L, DK, BS, MB, scale,
     # n_splits, split_len, stream
     "tllm_mla_decode": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
@@ -151,7 +155,8 @@ def kernel_dir() -> Path:
 
 
 def _compile(out: Path, flags) -> str:
-    """Compile every source in parallel (one nvcc each), then link."""
+    """Compile every source in parallel (one nvcc each), then link; each
+    source's output lands beside `out` as ``<stem>.log``."""
     nvcc = find_nvcc()
     tmp = Path(tempfile.mkdtemp(prefix="obj_", dir=BUILD_DIR))
     try:
@@ -166,6 +171,7 @@ def _compile(out: Path, flags) -> str:
         for cmd, obj, p in procs:
             text, _ = p.communicate()
             log.append(f"$ {' '.join(cmd)}\n{text}")
+            (out.parent / (obj.stem + ".log")).write_text(text)
             if p.returncode != 0:
                 failed.append(cmd[-3])
             objs.append(str(obj))
@@ -208,6 +214,23 @@ def load_library() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
     _lib = lib
     return lib
+
+
+def build_logs() -> dict:
+    """Each source's compiler output from the build of the current
+    sources and flags, by source file name (empty before a build)."""
+    return {p.stem + ".cu": p.read_text()
+            for p in sorted(kernel_dir().glob("*.log"))}
+
+
+def serialized_wgmma(logs: Optional[dict] = None) -> list:
+    """(source, line) of every ptxas warning that it serialized wgmma
+    instructions (C7513/C7514/C7518...: a register operand or accumulator
+    touched while a wgmma is in flight, which costs a kernel 20-35%)."""
+    logs = build_logs() if logs is None else logs
+    return [(src, line.strip()) for src, text in sorted(logs.items())
+            for line in text.splitlines()
+            if "wgmma" in line and "serializ" in line]
 
 
 def check(err: int, name: str) -> None:

@@ -59,10 +59,13 @@ quantized per token to int8 (`quantize_act_int8`, plain torch ops on every
 device, as the JAX package leaves it to XLA), then
 ``act(s_act * (xq @ deq(q, s, z)) + b)``.  `w4a8_matmul_plain` is the JAX
 XLA fallback's math; `w4a8_gemm` wraps kernel K8 (`csrc/w4a8_gemm.cu`,
-exact int8 x int4 products per scale group on the s8 tensor cores), which
-reads both packings as stored: the tiled one and the 2-D K-paired one that
-the JAX package sends to XLA (`w4a8_plan`).  W4A8 scales and zeros stay
-f32 on every path: the JAX package never rounds them.
+the s8 instantiation of the Hopper mainloop: exact int8 x int4 products
+per scale group on wgmma, tokens as N, K slices summed by the combine
+pass), which reads both packings as stored: the tiled one and the 2-D
+K-paired one that the JAX package sends to XLA (`w4a8_plan`, which also
+plans the launch: token tile, column tile, K slices from a cost model).
+W4A8 scales and zeros stay f32 on every path: the JAX package never rounds
+them.
 """
 
 from __future__ import annotations
@@ -115,6 +118,11 @@ K1_MAX_SLICES = 32
 _K1_COST = {1: (0.41e-6, 0.0, 0.76e-12, 2.3e-6),
             2: (0.434e-6, 1.823e-6, 0.195e-12, 3.27e-6),
             3: (0.562e-6, 3.824e-6, 0.142e-12, 2.301e-6)}
+# K8 (`w4a8_plan`) runs the mainloop's tiles of K1's "x128_regs"
+# configuration (a producer warpgroup and two consumer warpgroups at 128
+# tokens, one below), and its K slices come from K1's cost model at that
+# configuration: `chip_smoke.py` holds the pick within 10% of the fastest
+K8_K1_VARIANT = K1_VARIANTS.index("x128_regs")
 
 ACTIVATIONS = {
     None: lambda v: v,
@@ -746,14 +754,23 @@ def w4a8_matmul_plain(xq: torch.Tensor, s_act: torch.Tensor,
 
 
 @functools.lru_cache(maxsize=4096)
-def w4a8_plan(K: int, N: int, n_groups: int, block_n: int = 0) -> dict:
+def w4a8_plan(K: int, N: int, n_groups: int, block_n: int = 0,
+              M: Optional[int] = None, n_sms: int = _SMS,
+              slices: Optional[int] = None) -> dict:
     """K8's launch for a weight shape, as the packing it reads: the tiled
     ``[N/BN, K/2, BN]`` (`block_n` BN, ``pack_group`` 0) or the 2-D
     K-paired ``[K/2, N]`` (`block_n` 0, ``pack_group`` from
     `pack_group_for`), in 64-column tiles (``col_tiles``; a K-paired N
     needs only N % 16 == 0, the columns past it read as zeros).  Raises
-    NotImplementedError on a shape K8 does not take.  Pure shape logic;
-    the tests check it on the CPU."""
+    NotImplementedError on a shape K8 does not take.  Given the token
+    count `M`, also the launch on the Hopper mainloop: the token tile and
+    column tile (`sm90_tiles`: 8..128 tokens, 64 columns a block, 128 at
+    128 tokens), M blocks, and K slices of whole 64-row stages, uneven by
+    at most one stage, in K order (`k1_choice`'s count at `K8_K1_VARIANT`
+    unless given, one of `k1_slice_choices`); a unit is (M block, column
+    tile, slice) and the persistent grid is one block per unit up to the
+    slots.  Pure shape logic; the tests check it
+    on the CPU."""
     G = K // n_groups
     Gp = 0 if block_n else pack_group_for(K, n_groups)
     if K % 64 or G % 64:
@@ -769,22 +786,36 @@ def w4a8_plan(K: int, N: int, n_groups: int, block_n: int = 0) -> dict:
             f"w4a8_gemm kernel needs N % 16 == 0 and a pack group that is "
             f"a multiple of 64 for a K-paired weight (N={N}, pack "
             f"group={Gp})")
-    return {"pack_group": Gp, "col_tiles": cdiv(N, 64)}
+    route = {"pack_group": Gp, "col_tiles": cdiv(N, 64)}
+    if M is None:
+        return route
+    M = max(M, 1)
+    d = (k1_choice(M, K, N, n_sms, K8_K1_VARIANT)[1] if slices is None
+         else slices)
+    if d not in k1_slice_choices(K):
+        raise ValueError(f"K8 takes 1..{K1_MAX_SLICES} slices of whole "
+                         f"64-row stages (K={K}, slices={d})")
+    return dict(route, **_k1_units(M, K, N, d, n_sms, K8_K1_VARIANT))
 
 
 def w4a8_gemm(xq: torch.Tensor, s_act: torch.Tensor, packed: torch.Tensor,
               scales: torch.Tensor, zeros: Optional[torch.Tensor] = None,
               bias: Optional[torch.Tensor] = None,
-              activation: Optional[str] = None) -> torch.Tensor:
+              activation: Optional[str] = None,
+              slices: Optional[int] = None) -> torch.Tensor:
     """Launch K8 on CUDA operands: xq [M, K] int8, s_act [M, 1] f32,
     packed [N/BN, K/2, BN] (tiled) or [K/2, N] (K-paired) int8, scales
-    (zeros) [K/G, N] f32, bias [N] f32.  Returns [M, N] bf16."""
+    (zeros) [K/G, N] f32, bias [N] f32.  `slices` overrides `w4a8_plan`'s
+    K slice count.  Returns [M, N] bf16."""
     M, K = xq.shape
     if packed.dim() == 3:
         n_n, half, bn = packed.shape
         N = n_n * bn
     else:
         (half, N), bn = packed.shape, 0
+    if half * 2 != K or scales.dim() != 2 or K % scales.shape[0]:
+        raise ValueError("W4A8 operand shapes do not match")
+    w4a8_plan(K, N, scales.shape[0], bn)        # K8's reach, on any device
     if xq.device.type != "cuda":
         raise ValueError("CUDA kernel called with a non-CUDA tensor")
     for name, t, dt in (("xq", xq, torch.int8), ("s_act", s_act, torch.float32),
@@ -801,18 +832,27 @@ def w4a8_gemm(xq: torch.Tensor, s_act: torch.Tensor, packed: torch.Tensor,
             or (bias is not None and bias.shape != (N,)):
         raise ValueError("W4A8 operand shapes do not match")
     G = K // scales.shape[0]
-    plan = w4a8_plan(K, N, scales.shape[0], bn)
+    _check_sm90_ptrs(xq, packed, scales, zeros)
     out = torch.empty((M, N), dtype=torch.bfloat16, device=xq.device)
     if M == 0:
         return out
+    plan = w4a8_plan(K, N, scales.shape[0], bn, M,
+                     cuda_build.num_sms(xq.device), slices)
+    n_sl = plan["slices"]
+    ws = (torch.empty((n_sl, M, N), dtype=torch.float32, device=xq.device)
+          if n_sl > 1 else None)
     lib = cuda_build.load_library()
     err = lib.tllm_w4a8_gemm(
         cuda_build.ptr(xq), cuda_build.ptr(s_act), cuda_build.ptr(packed),
         cuda_build.ptr(scales), cuda_build.ptr(zeros), cuda_build.ptr(bias),
-        cuda_build.ptr(out), M, N, K, G, bn, plan["pack_group"],
-        _ACT_CODE[activation], cuda_build.stream_of(xq))
+        cuda_build.ptr(ws), cuda_build.ptr(out), M, N, K, G, bn,
+        plan["pack_group"], _ACT_CODE[activation], plan["ntok"],
+        plan["n_mb"], plan["n_ct"], _c_ints(plan["stage_start"]), n_sl,
+        plan["grid"], cuda_build.stream_of(xq))
     cuda_build.check(err, "w4a8_gemm")
     cuda_build.launch_counts["w4a8_gemm"] += 1
+    if n_sl > 1:
+        cuda_build.launch_counts["w4a8_combine"] += 1
     return out
 
 
@@ -832,8 +872,8 @@ def w4a8_matmul(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor,
         out = w4a8_matmul_plain(xq, s_act, packed, scales, zeros, bias,
                                 activation, out_dtype)
         return out.reshape(*lead, out.shape[-1])
-    if x.device.type != "cuda":
-        raise ValueError(f"unsupported device {x.device}")
+    # any other device goes to K8's wrapper, which refuses a shape K8 does
+    # not take (NotImplementedError) before a device that is not CUDA
     b = None if bias is None else bias.to(torch.float32)
     out = w4a8_gemm(xq, s_act, packed, scales.to(torch.float32),
                     None if zeros is None else zeros.to(torch.float32),
