@@ -8,7 +8,8 @@ Phases (any failure exits nonzero; nothing is caught and ignored):
 1. the card's name and power limit (nvidia-smi);
 2. build the fourteen CUDA kernels from `tensorrt_llm_tpu_torch/csrc` and
    print every wgmma ptxas serialized, by source (K5's and K8's checks
-   fail on any in their sources);
+   fail on any in their sources), and the `-Xptxas -v` lines (registers,
+   spills) of K2's and K4/K6's sources;
 3. hold each kernel against its plain PyTorch version on the card at
    TinyLlama-1.1B, Llama-3-8B, GPT-OSS-20B, Mixtral-8x7B, Moonlight-16B-A3B
    and DeepSeek-V3/V3.2 shapes, and time kernel, plain version and one
@@ -32,7 +33,12 @@ Phases (any failure exits nonzero; nothing is caught and ignored):
    each of its configurations at two M 256 shapes, and its plan's
    (configuration, K slices) pick within 10% of the fastest choice timed;
    the INT8-KV prefill K7 also at 17 and 256 tokens after a 1024-token
-   prefix, the bf16 one K3 at 17; the MLA prefill K10 also at 17 and 256
+   prefix, the bf16 one K3 at 17; the W4A16 GEMV K2 at every projection
+   from 1 to 16 tokens with K1's time beside it, called twice and held to
+   the same bits, and `gemv_plan`'s (column tile, K slices) within 10% of
+   the fastest choice timed at 4 and 16 tokens; the paged decode K4/K6 at
+   every decode row called twice and held to the same bits, with every
+   split length timed and `decode_plan`'s within 10% of the fastest; the MLA prefill K10 also at 17 and 256
    tokens after a 1024-token prefix, where its plan splits the latent
    range over blocks: each row names the plan's blocks and splits, and
    the plan's split is held within 10% of the fastest split timed);
@@ -135,6 +141,11 @@ K1_VARIANT_SHAPES = [("gpt-oss-20b", 2880, 5120, 64),
                      ("tinyllama", 2048, 11264, 128)]
 K1_CHOICE_M = (17, 128, 256, 512)
 K1_SLICE_SLACK = 0.10
+# `gemv_plan` (a model of K2's time) must pick a (column tile, K slices)
+# within this share of the fastest choice's time at every served tiled
+# shape at these token counts
+GEMV_PLAN_M = (4, 16)
+GEMV_PLAN_SLACK = 0.10
 # K1's reach beyond the served shapes: a K % 64 == 32 tail (half a stage)
 # and groups that end in the middle of a stage (G 32, G 96), with and
 # without zero points, bias and an activation: (K, N, G, M values)
@@ -196,6 +207,9 @@ DECODE_CASES = [
 ]
 DECODE_INT8_CASES = [c for c in DECODE_CASES if c[0] == "llama-3-8b"] + [
     ("tinyllama", 32, 4, 64, [81, 150, 400, 664], None, None, False)]
+# `decode_plan`'s split length must be within this share of the fastest
+# split length's time at every decode row (bf16 and int8 pools)
+DECODE_PLAN_SLACK = 0.10
 W4A8_MODEL = "llama-3-8b"       # K8's (K, N) come from GEMM_SHAPES
 W4A8_KPAIRED_M = (1, 4, 17, 256)  # K8 on a K-paired weight
 # `w4a8_plan`'s K slice count (a model of K8's time) must be within this
@@ -270,11 +284,11 @@ def copies_for(nbytes):
     return max(1, min(64, math.ceil(ROT_BYTES / max(nbytes, 1))))
 
 
-def record(kernel, shape, err, tol, k_ms, p_ms, lib_ms, b):
+def record(kernel, shape, err, tol, k_ms, p_ms, lib_ms, b, **extra):
     ok = err <= tol
     row = {"kernel": kernel, "shape": shape, "max_err": err, "tol": tol,
            "kernel_ms": k_ms, "plain_ms": p_ms, "library_ms": lib_ms,
-           "bound_ms": b[0], "bound_by": b[1], "ok": ok}
+           "bound_ms": b[0], "bound_by": b[1], "ok": ok, **extra}
     RESULTS.append(row)
     log(json.dumps(row))
     if not ok:
@@ -319,13 +333,16 @@ def check_gemm(gen, dev):
                 shape = {"model": model, "M": M, "K": K, "N": N, "G": G,
                          "act": act, "zeros_bias": extras}
                 if name == "w4a16_gemm":
-                    # K1's plan, and a second call held to the same bits
-                    # (the split-K sum has a fixed order)
                     plan = W.k1_plan(M, K, N)
                     shape.update(config=W.K1_VARIANTS[plan["variant"]],
                                  slices=plan["slices"])
-                    assert torch.equal(out, fn(x, packed, s, z, b, act)), \
-                        f"w4a16_gemm {shape}: second call differs"
+                else:
+                    plan = W.gemv_plan(M, K, N, G, packed.shape[2])
+                    shape.update(cols=plan["cols"], slices=plan["slices"])
+                # a second call held to the same bits (both sum their K
+                # slices in a fixed order)
+                assert torch.equal(out, fn(x, packed, s, z, b, act)), \
+                    f"{name} {shape}: second call differs"
                 torch.cuda.synchronize()
                 err = (out.float() - ref.float()).abs().max().item()
                 # the plain version rounds each dequantized weight to bf16
@@ -339,14 +356,45 @@ def check_gemm(gen, dev):
                 l_ms = (cuda_ms([lambda lw=lw: torch.matmul(x, lw)
                                  for lw in lib_w], 30)
                         if not extras else None)
+                # K1 beside K2 at decode: the tuner times both there
+                extra = ({"k1_ms": cuda_ms([lambda p=p, sc=sc: W.w4a16_gemm(
+                    x, p, sc, z, b, act) for p, sc in ws], 30)}
+                    if name == "w4a16_gemv" else {})
                 nbytes = M * K * 2 + wq_bytes + M * N * 2
                 record(name, shape, err, tol, k_ms, p_ms, l_ms,
-                       bound_ms(nbytes, 2 * M * N * K))
+                       bound_ms(nbytes, 2 * M * N * K), **extra)
+                if name == "w4a16_gemv" and M in GEMV_PLAN_M and not extras:
+                    check_gemv_plan(x, ws, G, model)
             del ws, lib_w, wdq
             torch.cuda.empty_cache()
     check_k1_variants(gen, dev)
     check_k1_edges(gen, dev)
     check_k1_choice(gen, dev)
+
+
+def check_gemv_plan(x, ws, G, model):
+    """Time every (column tile, K slices) K2 takes at this shape and M and
+    fail if `gemv_plan`'s pick is more than GEMV_PLAN_SLACK slower than the
+    fastest."""
+    from tensorrt_llm_tpu_torch.ops import w4a16_gemm as W
+    M, K = x.shape
+    packed = ws[0][0]
+    bn = packed.shape[2]
+    N = packed.shape[0] * bn
+    plan = W.gemv_plan(M, K, N, G, bn)
+    times = {c: cuda_ms([lambda p=p, sc=sc, c=c: W.w4a16_gemv(
+        x, p, sc, ctw=c[0], slices=c[1]) for p, sc in ws], 20)
+        for c in W.gemv_choices(M, K, G, bn)}
+    best = min(times, key=times.get)
+    pick = (plan["ctw"], plan["slices"])
+    ratio = times[pick] / times[best]
+    row = {"model": model, "M": M, "K": K, "N": N, "pick": pick,
+           "pick_ms": times[pick], "best": best, "best_ms": times[best],
+           "ratio": ratio, "choices": len(times)}
+    PHASES.setdefault("gemv_plan", []).append(row)
+    log(json.dumps({"gemv_plan": row}))
+    assert ratio <= 1 + GEMV_PLAN_SLACK, \
+        f"gemv_plan picks {pick} at {row}: {ratio:.3f}x the fastest {best}"
 
 
 def check_k1_edges(gen, dev):
@@ -1222,7 +1270,8 @@ def check_decode(gen, dev, cases=DECODE_CASES, int8=False):
     from tensorrt_llm_tpu_torch.ops.attention_plain import (
         gather_dequant, pool_dims)
     from tensorrt_llm_tpu_torch.ops.paged_attention import (
-        paged_decode_attention, paged_decode_plain)
+        decode_plan, decode_split_choices, paged_decode_attention,
+        paged_decode_plain)
     for model, Hq, Hkv, D, lens, win, cap, sk in cases:
         B = len(lens)
         k, v, tables = _paged(gen, dev, lens, Hkv, D)
@@ -1237,12 +1286,25 @@ def check_decode(gen, dev, cases=DECODE_CASES, int8=False):
         kw = dict(sliding_window=win, logit_cap=cap, sinks=sinks)
         out = paged_decode_attention(q, k, v, tables, kv_lens, scale, **kw)
         ref = paged_decode_plain(q, k, v, tables, kv_lens, scale, **kw)
+        # a second call held to the same bits (the splits merge in order)
+        assert torch.equal(out, paged_decode_attention(
+            q, k, v, tables, kv_lens, scale, **kw)), \
+            f"paged decode {model} {lens}: second call differs"
         torch.cuda.synchronize()
         err = (out.float() - ref.float()).abs().max().item()
         pools = [(_clone(k), _clone(v))
                  for _ in range(copies_for(2 * _nbytes(k)))]
         k_ms = cuda_ms([lambda kk=kk, vv=vv: paged_decode_attention(
             q, kk, vv, tables, kv_lens, scale, **kw) for kk, vv in pools], 30)
+        # `decode_plan`'s split against every split length the kernel takes
+        table_tokens = tables.shape[1] * pool_dims(k)[2]
+        plan = decode_plan(B, Hkv, table_tokens, win)
+        splits = {L: cuda_ms([lambda kk=kk, vv=vv, L=L: paged_decode_attention(
+            q, kk, vv, tables, kv_lens, scale, split_len=L, **kw)
+            for kk, vv in pools], 30)
+            for L in decode_split_choices(table_tokens)}
+        best = min(splits, key=splits.get)
+        split_ratio = splits[plan["split_len"]] / splits[best]
         p_ms = cuda_ms([lambda: paged_decode_plain(
             q, k, v, tables, kv_lens, scale, **kw)], 5)
         l_ms = None
@@ -1269,9 +1331,14 @@ def check_decode(gen, dev, cases=DECODE_CASES, int8=False):
         record("paged_decode_int8" if int8 else "paged_decode",
                {"model": model, "Hq": Hq, "Hkv": Hkv, "D": D,
                 "kv_lens": lens, "window": win, "logit_cap": cap,
-                "sinks": sk},
+                "sinks": sk, "split_len": plan["split_len"]},
                err, tol, k_ms, p_ms, l_ms,
-               bound_ms(nbytes, 4 * sum(used) * Hq * D))
+               bound_ms(nbytes, 4 * sum(used) * Hq * D),
+               split_ms={str(L): t for L, t in splits.items()},
+               split_ratio=split_ratio)
+        assert split_ratio <= 1 + DECODE_PLAN_SLACK, \
+            (f"decode_plan's split {plan['split_len']} at {model} {lens}: "
+             f"{split_ratio:.3f}x the fastest ({best})")
 
 
 # MLA latent width (kv_lora_rank 512 + rope 64) of Moonlight and DeepSeek
@@ -2386,6 +2453,13 @@ def main() -> int:
         if any(w in line for w in ("registers", "spill", "error",
                                    "entry function")):
             log("  " + line.strip())
+    # K2's and K4/K6's -Xptxas -v lines, from the build's kept logs (also
+    # when this run loaded an existing build)
+    logs = cuda_build.build_logs()
+    for src in ("w4a16_gemv.cu", "paged_decode.cu"):
+        for line in logs.get(src, "").splitlines():
+            if any(w in line for w in ("registers", "spill", "entry")):
+                log(f"  [ptxas {src}] {line.strip()}")
     # every wgmma ptxas serialized, by source (K5's and K8's checks fail
     # on their own sources' warnings)
     serialized = cuda_build.serialized_wgmma()

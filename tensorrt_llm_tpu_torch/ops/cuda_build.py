@@ -53,25 +53,25 @@ _SIGNATURES = {
     # n_slices, grid, variant, stream
     "tllm_w4a16_gemm": [_P, _P, _P, _P, _P, _P, _P] + [_I] * 9
     + [ctypes.POINTER(_I), _I, _I, _I, _P],
-    # ... + workspace, split_k
-    "tllm_w4a16_gemv": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                        _I, _P],
+    # x, qweight, scales, zeros, bias, out, M, N, K, group, block_n, act,
+    # ctw (16-column tiles a warp), slices (a cluster), stream
+    "tllm_w4a16_gemv": [_P] * 6 + [_I] * 8 + [_P],
     # q, k, v, block_table, sinks, out, T, Hq, Hkv, D, NB, BS, MB, kv_len,
     # q_offset, scale, window, logit_cap, stream
     "tllm_flash_prefill": [_P] * 6 + [_I] * 9 + [_F, _I, _F, _P],
-    # q, k, v, tables, kv_lens, sinks, workspace, out, B, Hq, Hkv, D, BS, MB,
-    # scale, window, logit_cap, n_splits, split_len, stream
-    "tllm_paged_decode": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                          _I, _F, _I, _F, _I, _I, _P],
+    # q, k, v, tables, kv_lens, sinks, workspace, counters, out, B, Hq, Hkv,
+    # D, NB, BS, MB, scale, window, logit_cap, n_splits, split_len, grid_x,
+    # stream
+    "tllm_paged_decode": [_P] * 9 + [_I] * 7 + [_F, _I, _F, _I, _I, _I, _P],
     # q, k_data, k_scale, v_data, v_scale, block_table, sinks, out, T, Hq,
     # Hkv, D, BS, MB, kv_len, q_offset, scale, window, logit_cap, stream
     "tllm_flash_prefill_int8": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                 _I, _I, _I, _I, _I, _F, _I, _F, _P],
     # q, k_data, k_scale, v_data, v_scale, tables, kv_lens, sinks,
-    # workspace, out, B, Hq, Hkv, D, BS, MB, scale, window, logit_cap,
-    # n_splits, split_len, stream
-    "tllm_paged_decode_int8": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
-                               _I, _I, _I, _I, _I, _F, _I, _F, _I, _I, _P],
+    # workspace, counters, out, B, Hq, Hkv, D, NB, BS, MB, scale, window,
+    # logit_cap, n_splits, split_len, grid_x, stream
+    "tllm_paged_decode_int8": [_P] * 11 + [_I] * 7 + [_F, _I, _F, _I, _I,
+                                                      _I, _P],
     # xq, s_act, qweight, scales, zeros, bias, workspace, out, M, N, K,
     # group, block_n, pack_group, act, ntok, n_mb, n_ct, slice starts (host
     # int array), n_slices, grid, stream
@@ -242,6 +242,25 @@ def check(err: int, name: str) -> None:
 def ptr(t) -> Optional[int]:
     """Device pointer of a tensor (None for an absent optional operand)."""
     return None if t is None else t.data_ptr()
+
+
+def counters(device, n: int):
+    """At least `n` zeroed int32 counters on `device`, kept for the process:
+    the paged-decode kernel (K4/K6), which merges its split-KV partials
+    inside the launch, counts finished blocks in them, and the last block
+    of each (sequence, KV head) resets its counter, so they are zero again
+    after every launch.  Launches on one stream run one after another and
+    may share them."""
+    import torch
+    dev = torch.device(device)
+    buf = _COUNTERS.get(dev)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros((max(n, 4096),), dtype=torch.int32, device=dev)
+        _COUNTERS[dev] = buf
+    return buf
+
+
+_COUNTERS = {}
 
 
 def num_sms(device) -> int:

@@ -22,7 +22,8 @@ Counterpart of `tensorrt_llm_tpu/ops/w4a16_gemm.py`:
   rule holds (for K2 also M <= `GEMV_MAX_M`, for the ramp K % 1024 == 0),
   else K1, the JAX package's tiled kernel.  With no tactic given and none
   tuned, the port's own default: K2 at M <= `GEMV_MAX_M` = 16 rows (a
-  split-K GEMV bound by the weight bytes), K1 above.  The warmup's tuner
+  GEMV that streams the weight by TMA onto mma.sync, K slices merged
+  inside its one launch; `gemv_plan`), K1 above.  The warmup's tuner
   times K1 against K2 and K13 at the decode batch.
 
 Tactic arguments keep the JAX signature; on the card they mean:
@@ -85,8 +86,17 @@ from tensorrt_llm_tpu_torch.utils import cdiv, round_up
 GEMV_MAX_M = 16
 STREAM_MAX_BM = 256  # the JAX single-M-block rule's largest M block
 _SMS = 132          # H100 SXM streaming multiprocessors
-_GEMV_COLS = 64     # output columns per K2 block
-_GEMV_MAX_KS = 2048  # K2 stages its x slice in shared memory as f32
+# K2 (`gemv_plan`): a block owns 64 * ctw columns (ctw 1, 2 or 4) and one
+# K slice of whole scale groups, with x's slice staged in shared memory; the
+# slices of a column tile are one thread block cluster of 1 to 16 blocks
+GEMV_CTW = (1, 2, 4)
+GEMV_SLICES = (1, 2, 4, 8, 16)
+_GEMV_X_BYTES = 48 << 10     # x [8 or 16 rows, slice] bf16 in shared memory
+# `gemv_plan`'s rule, fitted to K2's times on the H100 over every choice at
+# the served shapes (phase 3): the widest column tile, and the most slices
+# whose (column tiles x slices) blocks stay within the cap of that cluster
+# size (larger clusters pack the SMs less freely)
+_GEMV_BLOCK_CAP = {16: 320, 8: 1024, 4: 2048, 2: 1 << 30, 1: 1 << 30}
 RAMP_SLAB = 1024    # K rows per ramp slab (512 packed rows)
 RAMP_MAX_STEP = 4   # slabs a K13 schedule step may have
 RAMP_MAX_STEPS = 64  # steps a K13 schedule may have
@@ -515,39 +525,76 @@ def w4a16_gemm(x: torch.Tensor, packed3: torch.Tensor, scales: torch.Tensor,
     return out
 
 
-def gemv_split(K: int, N: int, G: int) -> int:
-    """K2's split-K factor: enough (N/64 columns x splits) blocks to cover
-    the SMs twice, with every K slice a whole number of scale groups (and of
-    128 rows) and at most `_GEMV_MAX_KS` long."""
-    unit = max(G, 128) if K % max(G, 128) == 0 else G
-    n_units = K // unit
-    want = max(-(-2 * _SMS // (N // _GEMV_COLS)), -(-K // _GEMV_MAX_KS))
-    divisors = [d for d in range(1, n_units + 1) if n_units % d == 0]
-    for d in divisors:
-        if d >= want and K // d <= _GEMV_MAX_KS:
-            return d
-    return divisors[-1]
+def gemv_choices(M: int, K: int, G: int, bn: int) -> tuple:
+    """The (ctw, K slices) K2 can take for M rows: 64 * ctw columns a block
+    dividing BN, and `GEMV_SLICES` slices (a cluster) of whole scale groups
+    (uneven by at most one group), at most one a group, each slice's x (8
+    or 16 rows) within `_GEMV_X_BYTES` of shared memory."""
+    ng = K // G
+    mt = 8 if M <= 8 else 16
+    return tuple((ctw, d) for ctw in GEMV_CTW if bn % (64 * ctw) == 0
+                 for d in GEMV_SLICES
+                 if d <= ng and mt * (cdiv(ng, d) * G + 8) * 2 <= _GEMV_X_BYTES)
+
+
+@functools.lru_cache(maxsize=4096)
+def gemv_plan(M: int, K: int, N: int, G: int, bn: int, n_sms: int = _SMS,
+              ctw: Optional[int] = None,
+              slices: Optional[int] = None) -> dict:
+    """K2's launch (`csrc/w4a16_gemv.cu`): unless given, the widest column
+    tile of `gemv_choices` and the most slices whose N / (64 ctw) x slices
+    blocks stay within `_GEMV_BLOCK_CAP` (scaled to the card's SMs), or the
+    fewest slices the shape takes; grid (N / (64 ctw), slices), the slices
+    one cluster.  `chip_smoke.py` times every choice at the served shapes
+    and fails if this one is more than ``GEMV_PLAN_SLACK`` slower than the
+    fastest.  Pure shape logic; the tests check it on the CPU."""
+    tiled_check(K, G, bn)
+    if not 1 <= M <= GEMV_MAX_M:
+        raise ValueError(f"w4a16_gemv takes 1..{GEMV_MAX_M} rows, got {M}")
+    choices = gemv_choices(M, K, G, bn)
+    pool = [c for c in choices if (ctw is None or c[0] == ctw)
+            and (slices is None or c[1] == slices)]
+    if not pool:
+        raise ValueError(f"K2 does not take ctw={ctw}, slices={slices} for "
+                         f"M={M}, K={K}, G={G}, BN={bn}")
+    c_best = max(c[0] for c in pool)
+    pool = [c for c in pool if c[0] == c_best]
+    tiles = N // (64 * c_best)
+    fit = [c for c in pool
+           if tiles * c[1] <= _GEMV_BLOCK_CAP[c[1]] * n_sms / _SMS]
+    ctw, slices = max(fit, key=lambda c: c[1]) if fit else min(
+        pool, key=lambda c: c[1])
+    return {"ctw": ctw, "cols": 64 * ctw, "slices": slices,
+            "grid": (N // (64 * ctw), slices)}
 
 
 def w4a16_gemv(x: torch.Tensor, packed3: torch.Tensor, scales: torch.Tensor,
                zeros: Optional[torch.Tensor] = None,
                bias: Optional[torch.Tensor] = None,
-               activation: Optional[str] = None) -> torch.Tensor:
+               activation: Optional[str] = None,
+               ctw: Optional[int] = None,
+               slices: Optional[int] = None) -> torch.Tensor:
     """Launch K2 on CUDA operands; same contract as `w4a16_gemm`, for M
-    up to `GEMV_MAX_M` rows."""
+    up to `GEMV_MAX_M` rows.  `ctw` and `slices` override `gemv_plan`'s
+    column tile and K slice count.  One launch: the K slices of a column
+    tile are a thread block cluster that sums their partials in K order."""
+    K, rows = x.shape[-1], scales.shape[0]
+    if rows and K % rows == 0:
+        tiled_check(K, K // rows, packed3.shape[-1])   # K2's reach, any device
     M, N, K, G, bn = _check_operands(x, packed3, scales, zeros, bias)
     if M > GEMV_MAX_M:
         raise ValueError(f"w4a16_gemv takes M <= {GEMV_MAX_M}, got {M}")
+    _check_sm90_ptrs(x, packed3)
     out = torch.empty((M, N), dtype=torch.bfloat16, device=x.device)
     if M == 0:
         return out
-    split = gemv_split(K, N, G)
-    ws = torch.empty((split, M, N), dtype=torch.float32, device=x.device)
+    plan = gemv_plan(M, K, N, G, bn, cuda_build.num_sms(x.device), ctw,
+                     slices)
     lib = cuda_build.load_library()
     err = lib.tllm_w4a16_gemv(
         cuda_build.ptr(x), cuda_build.ptr(packed3), cuda_build.ptr(scales),
-        cuda_build.ptr(zeros), cuda_build.ptr(bias), cuda_build.ptr(ws),
-        cuda_build.ptr(out), M, N, K, G, bn, _ACT_CODE[activation], split,
+        cuda_build.ptr(zeros), cuda_build.ptr(bias), cuda_build.ptr(out), M,
+        N, K, G, bn, _ACT_CODE[activation], plan["ctw"], plan["slices"],
         cuda_build.stream_of(x))
     cuda_build.check(err, "w4a16_gemv")
     cuda_build.launch_counts["w4a16_gemv"] += 1

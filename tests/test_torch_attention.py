@@ -28,8 +28,7 @@ from tensorrt_llm_tpu.ops.paged_attention import (
     paged_decode_attention as jax_decode)
 from tensorrt_llm_tpu_torch.ops.attention_plain import write_kv_cache
 from tensorrt_llm_tpu_torch.ops.flash_prefill import flash_prefill_attention
-from tensorrt_llm_tpu_torch.ops.paged_attention import (
-    decode_splits, paged_decode_attention)
+from tensorrt_llm_tpu_torch.ops.paged_attention import paged_decode_attention
 
 
 def _bf16(a):
@@ -165,12 +164,3 @@ def test_write_kv_cache_matches_jax_and_reserves_page_zero():
     np.testing.assert_array_equal(_f32(tk)[1:], _f32(jk)[1:])
     np.testing.assert_array_equal(_f32(tv)[1:], _f32(jv)[1:])
     np.testing.assert_array_equal(_f32(tk)[0, :, 0], _f32(k_new)[5])
-
-
-@pytest.mark.parametrize("B,Hkv,tokens,want", [
-    (4, 4, 1024, (16, 64)),     # TinyLlama batch of 4: splits fill the SMs
-    (1, 8, 64, (1, 64)),        # short table: one split
-    (64, 8, 4096, (1, 4096)),   # enough (sequence, head) blocks already
-])
-def test_decode_splits(B, Hkv, tokens, want):
-    assert decode_splits(B, Hkv, tokens) == want

@@ -22,7 +22,7 @@ from tensorrt_llm_tpu.ops.w4a16_gemm import (
     w4a16_matmul as jax_w4a16, w4a16_matmul_xla as jax_w4a16_xla)
 from tensorrt_llm_tpu.quantization import quantize as jq
 from tensorrt_llm_tpu_torch.ops.w4a16_gemm import (
-    gemv_split, w4a16_matmul, w4a16_matmul_plain)
+    w4a16_matmul, w4a16_matmul_plain)
 
 
 def _t(a):
@@ -94,15 +94,3 @@ def test_k_paired_packing_accepted():
     a = w4a16_matmul_plain(_t(x), _t(p2), _t(s))
     b = w4a16_matmul_plain(_t(x), _t(p3), _t(s))
     np.testing.assert_array_equal(a.numpy(), b.numpy())
-
-
-@pytest.mark.parametrize("K,N,G,want", [
-    (2048, 2560, 128, 8),      # TinyLlama qkv: 40 column blocks -> split 8
-    (2048, 11264, 128, 2),     # TinyLlama gate_up: 176 blocks -> split 2
-    (5632, 2048, 128, 11),     # TinyLlama down: splits divide the 44 groups
-    (14336, 4096, 128, 7),     # Llama-3-8B down: slices <= 2048 rows
-])
-def test_gemv_split_choice(K, N, G, want):
-    split = gemv_split(K, N, G)
-    assert split == want
-    assert K % split == 0 and (K // split) % G == 0 and K // split <= 2048
