@@ -20,8 +20,12 @@ Phases (any failure exits nonzero; nothing is caught and ignored):
    grouped expert GEMM K5 on its device-built unit list, which must equal
    the plain builder's, with `gmm_ntok`'s token tile within 10% of the
    fastest tile timed under uniform and skewed routing; the MLA kernels
-   at 16 and 128 heads, the DSA scores at
-   V3.2's indexer, the K-paired GEMM at GPT-OSS o_proj and Moonlight/V3.2
+   at 16 and 128 heads, the decode K9 called twice and held to the same
+   bits, with `mla_decode_plan`'s split within 10% of the fastest split
+   timed; the DSA scores K11 at V3.2's indexer (tables of 517 and the
+   served 190 pages, B 4 and B 1), called twice and held to the same bits,
+   with `dsa_score_plan`'s tiles a block within 10% of the fastest count
+   timed; the K-paired GEMM at GPT-OSS o_proj and Moonlight/V3.2
    kv_a, the ramp GEMM at TinyLlama/Llama-3-8B projections, both also at
    the token counts on the edges of their token tiles (1, 5, 17, 255; K12
    also 300 and 600, past one M block) and at group 32, each called twice
@@ -85,18 +89,21 @@ Arguments pick phases (default: check serve serve_ramp serve_stream
 fused_mlp cross llama3 gptoss gptoss_cross llama3_w4a8 llama3_w4a8_cross
 deepseek deepseek_v32 deepseek_v3_width deepseek_cross); `check_moe` runs
 only K5's checks, `check_w4a8` only K8's, `check_int8` only K6-K8's,
-`check_mla` only K9-K11's,
+`check_mla` only K9-K11's (with their plans' checks),
 `check_w4a16` only K12-K14's and `check_k1` only K1's; `profile`,
-`profile_gptoss`, `profile_llama3_int8` and `profile_deepseek`, run only
-when named, trace a short serve window with torch.profiler;
+`profile_gptoss`, `profile_llama3_int8`, `profile_deepseek` and
+`profile_deepseek_v32`, run only when named, trace a short serve window
+with torch.profiler (the DeepSeek ones fail if K9 runs a combine pass);
 `cross_breakdown`, run only when named, repeats phase 12 with W4A16
 weights and with bf16 KV pools to split its logit gap;
-`dsa_cross_breakdown`, run only when named, repeats the V3.2 part of
-phase 16 at a covering top-k and at 128 and counts where the card's and
-the CPU's top-k selections differ; `route_witness`, run only when named,
-repeats the GPT-OSS and Moonlight cross-checks without forcing any routing,
-with K12 and with K12's calls replaced by its plain version, and lists
-where each run's routing flips.
+`mla_decode_breakdown`, run only when named, times K9 at 1 to 1,000
+tokens on a 4,000-token table and in one split with the pool HBM-cold and
+L2-resident; `dsa_cross_breakdown`, run only when named, repeats the V3.2
+part of phase 16 at a covering top-k and at 128 and counts where the
+card's and the CPU's top-k selections differ; `route_witness`, run only
+when named, repeats the GPT-OSS and Moonlight cross-checks without forcing
+any routing, with K12 and with K12's calls replaced by its plain version,
+and lists where each run's routing flips.
 `--json PATH` also writes every check and phase summary to PATH.
 
 The last three lines of stdout are the card's name and power limit, the
@@ -1366,11 +1373,19 @@ MLA_PREFILL_CASES = [
 # this share of the fastest count timed, at every MLA_PREFILL_CASES row
 MLA_SPLIT_SLACK = 0.10
 DSA_CASES = [
-    # kv_lens (B = 4), table blocks of 16 (MB * 16 is not a multiple of
-    # K11's 64-token tile)
+    # kv_lens, table blocks of 16 (MB * 16 is not a multiple of K11's
+    # 64-token tile); MB 190 is the V3.2 serve's table (a 3,000-token
+    # prompt and its decode), there also a served-like batch and B 1
     ([1, 1000, 4097, 8192], 517),
     ([0, 100, 3000, 2049], 190),
+    ([3001, 664, 320, 81], 190),
+    ([3001], 190),
 ]
+# `mla_decode_plan` and `dsa_score_plan` must pick a split count (K9) or a
+# tile count a block (K11) whose time is within this share of the fastest
+# one timed, at every MLA_DECODE_CASES / DSA_CASES row
+MLA_DECODE_PLAN_SLACK = 0.10
+DSA_PLAN_SLACK = 0.10
 DSA_HI, DSA_DI = 64, 128
 
 
@@ -1407,6 +1422,15 @@ def _sdpa_latent_ms(q, lat, mask, scale, iters):
         q, k, v, attn_mask=mask, scale=scale)], iters)
 
 
+def _plan_rows(phase, rows, slack, what):
+    """Record a plan check's rows and fail if a pick is past the slack."""
+    worst = max(r["pick_over_fastest"] for r in rows)
+    PHASES[phase] = {"phase": phase, "rows": rows,
+                     "worst_pick_over_fastest": worst, "slack": slack}
+    bad = [r for r in rows if r["pick_over_fastest"] > 1 + slack]
+    assert not bad, f"{what} picks slower than the slack: {bad}"
+
+
 def check_mla_splits(gen, dev):
     """`mla_prefill_splits`' pick against every latent split K10 can take
     (`mla_prefill_split_choices`), each timed at every MLA_PREFILL_CASES
@@ -1437,15 +1461,110 @@ def check_mla_splits(gen, dev):
                      "ms": {str(sl): t for sl, t in times.items()}})
         log(json.dumps(rows[-1]))
         del pools, pool
-    worst = max(r["pick_over_fastest"] for r in rows)
-    PHASES["mla_prefill_splits"] = {"phase": "mla_prefill_splits",
-                                    "rows": rows,
-                                    "worst_pick_over_fastest": worst,
-                                    "slack": MLA_SPLIT_SLACK}
-    bad = [(r["model"], r["T"], r["q_offset"], r["pick"], r["fastest"],
-            r["pick_over_fastest"]) for r in rows
-           if r["pick_over_fastest"] > 1 + MLA_SPLIT_SLACK]
-    assert not bad, f"mla_prefill_splits picks slower than the slack: {bad}"
+    _plan_rows("mla_prefill_splits", rows, MLA_SPLIT_SLACK,
+               "mla_prefill_splits")
+
+
+def check_mla_decode_plan(gen, dev):
+    """`mla_decode_plan`'s split against every split K9 can take
+    (`mla_decode_split_choices`), each timed at every MLA_DECODE_CASES row:
+    the pick must be within MLA_DECODE_PLAN_SLACK of the fastest."""
+    import torch
+    from tensorrt_llm_tpu_torch.ops import mla as MLA
+    DK = MLA_L + MLA_R
+    scale = (128 + MLA_R) ** -0.5
+    rows = []
+    for model, H, lens in MLA_DECODE_CASES:
+        B = len(lens)
+        pool, tables = _latent_pool(gen, dev, lens, DK)
+        kv_lens = torch.tensor(lens, dtype=torch.int32, device=dev)
+        q = torch.randn((B, H, DK), generator=gen, device=dev).to(
+            torch.bfloat16)
+        S = tables.shape[1] * pool.shape[2]
+        pools = [pool.clone() for _ in range(copies_for(_nbytes(pool)))]
+        times = {sl: cuda_ms([lambda p=p, sl=sl: MLA.mla_decode_attention(
+            q, p, tables, kv_lens, scale, MLA_L, split_len=sl)
+            for p in pools], 30)
+            for sl in MLA.mla_decode_split_choices(S)}
+        _, n, pick = MLA.mla_decode_plan(B, H, S)
+        best = min(times, key=times.get)
+        rows.append({"model": model, "H": H, "kv_lens": lens, "pick": pick,
+                     "splits": n, "fastest": best,
+                     "pick_over_fastest": times[pick] / times[best],
+                     "ms": {str(sl): t for sl, t in times.items()}})
+        log(json.dumps(rows[-1]))
+        del pools, pool
+    _plan_rows("mla_decode_plan", rows, MLA_DECODE_PLAN_SLACK,
+               "mla_decode_plan")
+
+
+def mla_decode_breakdown(gen, dev):
+    """Opt-in: where K9's time goes, at a 4,000-token table (B 4) and 16
+    and 128 heads.  Every row at 1, 64, 65, 300 and 1,000 tokens under the
+    plan (one tile; two tiles in one split; two live splits; four), and
+    one split over 4,000-token rows with the pool HBM-cold (copies past
+    the L2) and L2-resident (one copy): a tile's cost with and without the
+    latent bytes' latency."""
+    import torch
+    from tensorrt_llm_tpu_torch.ops import mla as MLA
+    DK = MLA_L + MLA_R
+    scale = (128 + MLA_R) ** -0.5
+    rows = []
+    for H in (16, 128):
+        pool, tables = _latent_pool(gen, dev, [4000] * 4, DK)
+        q = torch.randn((4, H, DK), generator=gen, device=dev).to(
+            torch.bfloat16)
+        pools = [pool.clone() for _ in range(copies_for(_nbytes(pool)))]
+        row = {"H": H, "table_tokens": tables.shape[1] * pool.shape[2]}
+        for n in (1, 64, 65, 300, 1000):
+            kv = torch.full((4,), n, dtype=torch.int32, device=dev)
+            row[f"lens_{n}_us"] = 1e3 * cuda_ms(
+                [lambda p=p, kv=kv: MLA.mla_decode_attention(
+                    q, p, tables, kv, scale, MLA_L) for p in pools], 30)
+        kv = torch.full((4,), 4000, dtype=torch.int32, device=dev)
+        # one split: a split length past the table
+        one = (row["table_tokens"] // MLA.MLA_TILE + 1) * MLA.MLA_TILE
+        row["one_split_cold_us"] = 1e3 * cuda_ms(
+            [lambda p=p: MLA.mla_decode_attention(
+                q, p, tables, kv, scale, MLA_L, split_len=one)
+             for p in pools], 10)
+        row["one_split_l2_us"] = 1e3 * cuda_ms(
+            [lambda: MLA.mla_decode_attention(
+                q, pool, tables, kv, scale, MLA_L, split_len=one)], 10)
+        rows.append(row)
+        log(json.dumps(row))
+        del pools, pool
+    PHASES["mla_decode_breakdown"] = {"phase": "mla_decode_breakdown",
+                                      "rows": rows}
+
+
+def check_dsa_plan(gen, dev):
+    """`dsa_score_plan`'s tiles a block against every tile count K11 can
+    take (`dsa_score_tile_choices`), each timed at every DSA_CASES row: the
+    pick must be within DSA_PLAN_SLACK of the fastest."""
+    import torch
+    from tensorrt_llm_tpu_torch.ops import dsa as DSA
+    rows = []
+    for lens, MB in DSA_CASES:
+        B = len(lens)
+        pool, tables = _latent_pool(gen, dev, [MB * 16] * B, DSA_DI)
+        kv_lens = torch.tensor(lens, dtype=torch.int32, device=dev)
+        q = torch.randn((B, DSA_HI, DSA_DI), generator=gen, device=dev).to(
+            torch.bfloat16)
+        w = torch.rand((B, DSA_HI), generator=gen, device=dev)
+        pools = [pool.clone() for _ in range(copies_for(_nbytes(pool)))]
+        times = {n: cuda_ms([lambda p=p, n=n: DSA.dsa_scores(
+            q, w, p, tables, kv_lens, tiles_per_block=n) for p in pools], 30)
+            for n in DSA.dsa_score_tile_choices(MB * 16)}
+        pick, blocks = DSA.dsa_score_plan(B, MB * 16)
+        best = min(times, key=times.get)
+        rows.append({"kv_lens": lens, "MB": MB, "pick": pick,
+                     "blocks_per_seq": blocks, "fastest": best,
+                     "pick_over_fastest": times[pick] / times[best],
+                     "ms": {str(n): t for n, t in times.items()}})
+        log(json.dumps(rows[-1]))
+        del pools, pool
+    _plan_rows("dsa_score_plan", rows, DSA_PLAN_SLACK, "dsa_score_plan")
 
 
 def check_mla(gen, dev):
@@ -1455,6 +1574,8 @@ def check_mla(gen, dev):
     import torch
     from tensorrt_llm_tpu_torch.ops import dsa as DSA
     from tensorrt_llm_tpu_torch.ops import mla as MLA
+    _no_serialized_wgmma("mla_prefill_sm90.cu")
+    _no_serialized_wgmma("dsa_score.cu")
     DK = MLA_L + MLA_R
     scale = (128 + MLA_R) ** -0.5
     for model, H, lens in MLA_DECODE_CASES:
@@ -1464,9 +1585,15 @@ def check_mla(gen, dev):
         q = torch.randn((B, H, DK), generator=gen, device=dev).to(
             torch.bfloat16)
         out = MLA.mla_decode_attention(q, pool, tables, kv_lens, scale, MLA_L)
+        again = MLA.mla_decode_attention(q, pool, tables, kv_lens, scale,
+                                         MLA_L)
         ref = MLA.mla_decode_plain(q, pool, tables, kv_lens, scale, MLA_L)
         torch.cuda.synchronize()
+        assert torch.equal(out, again), \
+            "mla_decode: a second call gave other bits"
         err = (out.float() - ref.float()).abs().max().item()
+        hu = host_us(lambda: MLA.mla_decode_attention(
+            q, pool, tables, kv_lens, scale, MLA_L))
         pools = [pool.clone() for _ in range(copies_for(_nbytes(pool)))]
         k_ms = cuda_ms([lambda p=p: MLA.mla_decode_attention(
             q, p, tables, kv_lens, scale, MLA_L) for p in pools], 30)
@@ -1478,8 +1605,8 @@ def check_mla(gen, dev):
         mask = (torch.arange(S, device=dev)[None, :]
                 < kv_lens.long()[:, None])[:, None, None, :]
         l_ms = _sdpa_latent_ms(q[:, :, None], lat, mask, scale, 30)
-        n_split, _ = MLA.mla_decode_splits(B, H, S)
-        # each latent row read once (the design reads it once per 16-head
+        hb, n_split, split_len = MLA.mla_decode_plan(B, H, S)
+        # each latent row read once (the design reads it once per 64-head
         # block: `latent_reads`), q in and the latent output out, bf16
         nbytes = sum(lens) * DK * 2 + B * H * (DK + MLA_L) * 2
         ops = 2 * H * (DK + MLA_L) * sum(lens)
@@ -1488,9 +1615,9 @@ def check_mla(gen, dev):
         tol = 2e-2 * max(1.0, ref.float().abs().max().item())
         record("mla_decode", {"model": model, "H": H, "L": MLA_L,
                               "R": MLA_R, "kv_lens": lens,
-                              "splits": n_split,
-                              "latent_reads": -(-H // MLA.MLA_ROWS)},
-               err, tol, k_ms, p_ms, l_ms, bound_ms(nbytes, ops))
+                              "head_blocks": hb, "splits": n_split,
+                              "split_len": split_len, "latent_reads": hb},
+               err, tol, k_ms, p_ms, l_ms, bound_ms(nbytes, ops), host_us=hu)
         del pool, lat, mask
     for model, H, T, off in MLA_PREFILL_CASES:
         kv_len = off + T
@@ -1538,8 +1665,12 @@ def check_mla(gen, dev):
         w = torch.rand((B, DSA_HI), generator=gen, device=dev) * (
             DSA_DI ** -0.5 * DSA_HI ** -0.5)
         out = DSA.dsa_scores(q, w, pool, tables, kv_lens)
+        again = DSA.dsa_scores(q, w, pool, tables, kv_lens)
         ref = DSA.dsa_scores_plain(q, w, pool, tables, kv_lens)
         torch.cuda.synchronize()
+        assert torch.equal(out, again), \
+            "dsa_score: a second call gave other bits"
+        hu = host_us(lambda: DSA.dsa_scores(q, w, pool, tables, kv_lens))
         valid = torch.arange(MB * 16, device=dev)[None, :] \
             < kv_lens.long()[:, None]
         assert torch.equal(out[~valid], ref[~valid]), \
@@ -1558,11 +1689,13 @@ def check_mla(gen, dev):
                          if bool(valid.any()) else 1.0)
         nbytes = (sum(lens) * DSA_DI * 2 + B * DSA_HI * (DSA_DI * 2 + 4)
                   + B * MB * 16 * 4)
+        per, blocks = DSA.dsa_score_plan(B, MB * 16)
         record("dsa_score", {"model": "deepseek-v3.2", "Hi": DSA_HI,
                              "Di": DSA_DI, "kv_lens": lens, "MB": MB,
-                             "BS": 16},
+                             "BS": 16, "tiles_per_block": per,
+                             "blocks_per_seq": blocks},
                err, tol, k_ms, p_ms, None,
-               bound_ms(nbytes, 2 * DSA_HI * DSA_DI * sum(lens)))
+               bound_ms(nbytes, 2 * DSA_HI * DSA_DI * sum(lens)), host_us=hu)
         del pool
 
 
@@ -2259,14 +2392,17 @@ def width_run(phase, label, cfg, required):
     torch.cuda.empty_cache()
 
 
-def profile_serve(card, phase, cfg, kv_cache_quant="NONE"):
+def profile_serve(card, phase, cfg, kv_cache_quant="NONE", long_prompt=0,
+                  max_seq_len=1024):
     """Opt-in phases (`profile`: TinyLlama, `profile_gptoss`: GPT-OSS-20B,
-    `profile_llama3_int8`: Llama-3-8B W4A8 + INT8 KV): trace a short serve
-    window (4 requests of 200 tokens, 32 new tokens each) with
-    torch.profiler and report the device-busy share of the wall time and
-    the kernels holding the device, by total device time (the top 12, and
-    every kernel of the port).  For W4A8 also
-    the device kernels one per-token activation quantization launches."""
+    `profile_llama3_int8`: Llama-3-8B W4A8 + INT8 KV, `profile_deepseek`:
+    Moonlight-16B-A3B, `profile_deepseek_v32`: V3.2 widths with one more
+    prompt of `long_prompt` tokens): trace a short serve window (4 requests
+    of 200 tokens, 32 new tokens each) with torch.profiler and report the
+    device-busy share of the wall time and the kernels holding the device,
+    by total device time (the top 12, and every kernel of the port).  For
+    W4A8 also the device kernels one per-token activation quantization
+    launches.  K9 must run as one kernel a call: no decode combine pass."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -2275,11 +2411,11 @@ def profile_serve(card, phase, cfg, kv_cache_quant="NONE"):
     from tensorrt_llm_tpu_torch.quantization import QuantAlgo
     llm = T.LLM(model=cfg, skip_tokenizer_init=True,
                 device=DEVICE, max_batch_size=4, max_num_tokens=256,
-                max_seq_len=1024, kv_num_blocks=640,
+                max_seq_len=max_seq_len, kv_num_blocks=640,
                 kv_cache_quant=kv_cache_quant, seed=0)
     rng = np.random.default_rng(3)
-    prompts = [[int(t) for t in rng.integers(10, cfg.vocab_size - 10, 200)]
-               for _ in range(4)]
+    prompts = [[int(t) for t in rng.integers(10, cfg.vocab_size - 10, n)]
+               for n in [200] * 4 + ([long_prompt] if long_prompt else [])]
     try:
         llm.generate([[1, 2, 3]], T.SamplingParams(max_tokens=2,
                                                    temperature=0.0))
@@ -2312,6 +2448,8 @@ def profile_serve(card, phase, cfg, kv_cache_quant="NONE"):
         # early start, so it overlaps its mainloop's time)
         "port_kernels_ms": [[k[:90], us / 1e3, n] for k, us, n in rows
                             if "tllm::" in k]}
+    combine = [k for k, _, _ in rows if "mla_decode_combine" in k]
+    assert not combine, f"K9 ran a combine pass: {combine}"
     if cfg.quant.quant_algo == QuantAlgo.W4A8_AWQ:
         x = torch.randn((4, cfg.hidden_size), device=DEVICE).to(
             torch.bfloat16)
@@ -2378,7 +2516,8 @@ KERNELS = {
     "w4a8_gemm": ("cuda", "tensorrt_llm_tpu_torch/csrc/w4a8_gemm.cu",
                   "tensorrt_llm_tpu/ops/w4a16_gemm.py:953", LLAMA3_W4A8_PATH,
                   {"model": "llama-3-8b", "M": 4, "K": 4096, "N": 28672}),
-    "mla_decode": ("cuda", "tensorrt_llm_tpu_torch/csrc/mla_decode.cu",
+    "mla_decode": ("cuda",
+                   "tensorrt_llm_tpu_torch/csrc/mla_prefill_sm90.cu",
                    "tensorrt_llm_tpu/ops/mla_pallas.py:37", MOONLIGHT_PATH,
                    {"model": "moonlight-16b-a3b"}),
     "mla_prefill": ("cuda",
@@ -2520,6 +2659,8 @@ def run_phases(phases, card, gen, dev, by_path):
     if "check" in phases or "check_mla" in phases:
         check_mla(gen, dev)
         check_mla_splits(gen, dev)
+        check_mla_decode_plan(gen, dev)
+        check_dsa_plan(gen, dev)
     if "check" in phases or "check_w4a16" in phases:
         check_w4a16(gen, dev)
     if RESULTS:
@@ -2601,6 +2742,8 @@ def run_phases(phases, card, gen, dev, by_path):
                         "deepseek-v3.2 width, 2 layers (index_topk 2048 "
                         "covers the context)", deepseek_cfg(2), seed=7,
                         n_prompt=200, chunk=128, n_decode=4)
+    if "mla_decode_breakdown" in phases:
+        mla_decode_breakdown(gen, dev)
     if "route_witness" in phases:
         route_witness()
     if "dsa_cross_breakdown" in phases:
@@ -2625,6 +2768,9 @@ def run_phases(phases, card, gen, dev, by_path):
                       kv_cache_quant="INT8")
     if "profile_deepseek" in phases:
         profile_serve(card, "profile_deepseek", moonlight_cfg(MOONLIGHT_LAYERS))
+    if "profile_deepseek_v32" in phases:
+        profile_serve(card, "profile_deepseek_v32", deepseek_cfg(V32_LAYERS),
+                      long_prompt=V32_LONG_PROMPT, max_seq_len=4096)
     log(f"[done] phases {phases} in {time.perf_counter() - t0:.1f} s")
 
 

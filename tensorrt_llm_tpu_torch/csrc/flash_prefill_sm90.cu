@@ -47,8 +47,9 @@
 //   (pages of a multiple of 8 tokens: a box must fill whole 8-row swizzle
 //   atoms).  No conversion, so no per-warpgroup tiles: the ring takes that
 //   room (six stages at D 128, eight at D 64, against four for int8).
-//   Tokens of the last tile in no page of the sequence are zeroed by the
-//   producer (a stale bf16 NaN times P = 0 would poison the sum).
+//   Tokens of the last tile in no page of the sequence read as zeros (a
+//   stale bf16 NaN times P = 0 would poison the sum): their boxes are read
+//   out of the maps' bounds, which TMA fills with zeros.
 // * Consumer warpgroup, per 64-token tile: for int8 pages, converts the
 //   K and V tiles to bf16 in shared memory (exact for |q| <= 127), in the
 //   64-byte swizzle that wgmma reads without bank conflicts, and frees the

@@ -1,9 +1,11 @@
 // Hopper (sm_90a) building blocks shared by the port's TMA / wgmma kernels
-// (`w4a16_sm90.cuh`: K1, K5, K8, K12, K13; `flash_prefill_sm90.cu`: K3,
-// K7; `mla_prefill_sm90.cu`: K10): mbarriers, TMA and bulk copies, proxy
-// fences, named barriers, wgmma (bf16 with A from registers or shared
-// memory, s8 with A from registers) with its shared-memory descriptors,
-// operand fences, and the host's tensor maps.
+// (`w4a16_sm90.cuh`: K1, K5, K8, K12, K13; `w4a16_gemv.cu`: K2;
+// `flash_prefill_sm90.cu`: K3, K7; `paged_decode.cu`: K4, K6;
+// `mla_prefill_sm90.cu`: K9, K10; `dsa_score.cu`: K11): mbarriers, TMA
+// and bulk copies, proxy fences, named and cluster barriers, distributed
+// shared memory loads, wgmma (bf16 with A from registers or shared memory,
+// s8 with A from registers) with its shared-memory descriptors, operand
+// fences, and the host's tensor maps.
 #pragma once
 
 #include <cuda.h>
@@ -59,6 +61,61 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
       "r"(c1)
       : "memory");
+}
+
+// 3-D TMA load of one box into shared memory, completing on `bar`
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
+                                            int c0, int c1, int c2,
+                                            uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// ---------------------------------------------- thread block clusters ---
+// all threads of the thread block cluster: arrive (release), then wait
+// (acquire)
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+// the shared-memory address `addr` of this block, in cluster block `rank`
+__device__ __forceinline__ uint32_t dsmem_addr(uint32_t addr, int rank) {
+  uint32_t remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(remote)
+               : "r"(addr), "r"(rank));
+  return remote;
+}
+// a float of cluster block `rank`'s shared memory at this block's address
+__device__ __forceinline__ float ld_dsmem_f32(uint32_t addr, int rank) {
+  float v;
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n"
+               : "=f"(v)
+               : "r"(dsmem_addr(addr, rank))
+               : "memory");
+  return v;
+}
+// two floats (8-byte aligned) of cluster block `rank`'s shared memory
+__device__ __forceinline__ float2 ld_dsmem_f32x2(uint32_t addr, int rank) {
+  float2 v;
+  asm volatile("ld.shared::cluster.v2.f32 {%0, %1}, [%2];\n"
+               : "=f"(v.x), "=f"(v.y)
+               : "r"(dsmem_addr(addr, rank))
+               : "memory");
+  return v;
+}
+// four floats (16-byte aligned) of cluster block `rank`'s shared memory
+__device__ __forceinline__ float4 ld_dsmem_f32x4(uint32_t addr, int rank) {
+  float4 v;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(dsmem_addr(addr, rank))
+               : "memory");
+  return v;
 }
 
 // -------------------------------------------------------------- wgmma ---
@@ -188,38 +245,31 @@ constexpr int PAGED_BOX = PAGED_TILE * 128;
 // tile at token s0 is runs of BR tokens, each inside one page, run r of
 // page table[tok / BS], KV head `head`.  Box b comes from maps[b / nbox]
 // at channels 64 (b % nbox), for b < nmap * nbox.  Runs from tok_end on
-// (past the sequence's last page) are not loaded but zeroed: a stale bf16
-// NaN times P = 0 would poison the sum.
+// (past the sequence's last page) must read as zeros, as a stale bf16 NaN
+// times P = 0 would poison the sum: their boxes are read from rows before
+// the tensor's start, which TMA fills with zeros (and counts in the
+// transaction bytes), so no thread writes them.
 __device__ __forceinline__ void tma_paged_tile(
     uint8_t* stage, const CUtensorMap* map0, const CUtensorMap* map1,
     int nmap, int nbox, const int* table, int heads, int head, int BS,
     int BR, int s0, int tok_end, uint64_t* full, uint64_t* empty,
     uint32_t empty_parity, int lane) {
   const int n_runs = PAGED_TILE / BR;
-  int row = -1;
+  int row = -PAGED_TILE;   // a whole box out of bounds: zeros
   if (lane < n_runs) {
     const int tok = s0 + lane * BR;
     if (tok < tok_end) row = (table[tok / BS] * heads + head) * BS + tok % BS;
   }
-  const int n_loaded = __popc(__ballot_sync(0xffffffffu, row >= 0));
   const int nb = nmap * nbox;
   mbar_wait(empty, empty_parity);
-  if (lane == 0) mbar_expect_tx(full, n_loaded * BR * 128 * nb);
+  if (lane == 0) mbar_expect_tx(full, PAGED_TILE * 128 * nb);
   __syncwarp();
 #pragma unroll
   for (int r = 0; r < PAGED_TILE / 8; ++r) {
     const int rr = __shfl_sync(0xffffffffu, row, r);
-    if (r < n_runs && rr >= 0 && lane < nb)
+    if (r < n_runs && lane < nb)
       tma_load_2d(stage + lane * PAGED_BOX + r * BR * 128,
                   lane < nbox ? map0 : map1, (lane % nbox) * 64, rr, full);
-  }
-  if (n_loaded < n_runs) {
-    const int z0 = n_loaded * BR;   // first zeroed token of the tile
-    const int per_box = (PAGED_TILE - z0) * 8;   // 16-byte chunks
-    for (int i = lane; i < nb * per_box; i += 32)
-      *reinterpret_cast<uint4*>(stage + (i / per_box) * PAGED_BOX + z0 * 128 +
-                                (i % per_box) * 16) = make_uint4(0, 0, 0, 0);
-    fence_proxy_async();
   }
   if (lane != 0) mbar_arrive(full);
 }
@@ -671,36 +721,40 @@ inline EncodeTiledFn encode_tiled() {
 
 struct MapKey {
   const void* ptr;
-  uint64_t inner, outer, stride;
-  uint32_t box_inner, box_outer, dtype;
+  uint64_t dims[3], strides[2];
+  uint32_t box[3], rank, dtype;
   bool operator==(const MapKey& o) const {
-    return ptr == o.ptr && inner == o.inner && outer == o.outer &&
-           stride == o.stride && box_inner == o.box_inner &&
-           box_outer == o.box_outer && dtype == o.dtype;
+    if (ptr != o.ptr || rank != o.rank || dtype != o.dtype) return false;
+    for (int i = 0; i < 3; ++i)
+      if (dims[i] != o.dims[i] || box[i] != o.box[i]) return false;
+    return strides[0] == o.strides[0] && strides[1] == o.strides[1];
   }
 };
 struct MapKeyHash {
   size_t operator()(const MapKey& k) const {
     size_t h = std::hash<const void*>()(k.ptr);
-    for (uint64_t v : {k.inner, k.outer, k.stride, (uint64_t)k.box_inner,
-                       (uint64_t)k.box_outer, (uint64_t)k.dtype})
+    for (uint64_t v : {k.dims[0], k.dims[1], k.dims[2], k.strides[0],
+                       k.strides[1], (uint64_t)k.box[0], (uint64_t)k.box[1],
+                       (uint64_t)k.box[2], (uint64_t)k.rank,
+                       (uint64_t)k.dtype})
       h = h * 1000003u ^ std::hash<uint64_t>()(v);
     return h;
   }
 };
 
-// A 2-D tensor map (64-byte swizzle by default, zero fill out of bounds),
-// encoded once
-// per (pointer, shape, box) and cached.  Returns 0 or an error code.
-inline int tensor_map_2d(CUtensorMap* map, const void* ptr,
-                         CUtensorMapDataType dtype, uint64_t inner,
-                         uint64_t outer, uint64_t stride_bytes,
-                         uint32_t box_inner, uint32_t box_outer,
-                         CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_64B) {
+// A tensor map of `rank` (2 or 3) dimensions, innermost first (zero fill
+// out of bounds: a box may reach past a dimension's end), encoded once per
+// (pointer, shape, box) and cached.  Returns 0 or an error code.
+inline int tensor_map(CUtensorMap* map, const void* ptr,
+                      CUtensorMapDataType dtype, int rank,
+                      const uint64_t* dims, const uint64_t* stride_bytes,
+                      const uint32_t* box, CUtensorMapSwizzle swizzle) {
   static std::mutex mu;
   static std::unordered_map<MapKey, CUtensorMap, MapKeyHash> cache;
-  const MapKey key{ptr, inner, outer, stride_bytes, box_inner, box_outer,
-                   (uint32_t)dtype * 16 + (uint32_t)swizzle};
+  MapKey key{ptr, {dims[0], dims[1], rank > 2 ? dims[2] : 1},
+             {stride_bytes[0], rank > 2 ? stride_bytes[1] : 0},
+             {box[0], box[1], rank > 2 ? box[2] : 1}, (uint32_t)rank,
+             (uint32_t)dtype * 16 + (uint32_t)swizzle};
   std::lock_guard<std::mutex> lock(mu);
   auto it = cache.find(key);
   if (it != cache.end()) {
@@ -709,18 +763,29 @@ inline int tensor_map_2d(CUtensorMap* map, const void* ptr,
   }
   EncodeTiledFn enc = encode_tiled();
   if (enc == nullptr) return (int)cudaErrorNotSupported;
-  const cuuint64_t dims[2] = {inner, outer};
-  const cuuint64_t strides[1] = {stride_bytes};
-  const cuuint32_t box[2] = {box_inner, box_outer};
-  const cuuint32_t estr[2] = {1, 1};
-  const CUresult r = enc(map, dtype, 2, const_cast<void*>(ptr), dims, strides,
-                         box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
+  const cuuint64_t gdims[3] = {key.dims[0], key.dims[1], key.dims[2]};
+  const cuuint64_t gstrides[2] = {key.strides[0], key.strides[1]};
+  const cuuint32_t gbox[3] = {key.box[0], key.box[1], key.box[2]};
+  const cuuint32_t estr[3] = {1, 1, 1};
+  const CUresult r = enc(map, dtype, rank, const_cast<void*>(ptr), gdims,
+                         gstrides, gbox, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
                          swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                          CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   if (r != CUDA_SUCCESS) return 1000 + (int)r;
   if (cache.size() >= 4096) cache.clear();
   cache.emplace(key, *map);
   return 0;
+}
+
+// A 2-D tensor map [outer, inner] (64-byte swizzle by default)
+inline int tensor_map_2d(CUtensorMap* map, const void* ptr,
+                         CUtensorMapDataType dtype, uint64_t inner,
+                         uint64_t outer, uint64_t stride_bytes,
+                         uint32_t box_inner, uint32_t box_outer,
+                         CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_64B) {
+  const uint64_t dims[2] = {inner, outer};
+  const uint32_t box[2] = {box_inner, box_outer};
+  return tensor_map(map, ptr, dtype, 2, dims, &stride_bytes, box, swizzle);
 }
 
 }  // namespace sm90

@@ -112,24 +112,6 @@ __device__ __forceinline__ uint32_t nib2_136(uint32_t v) {
   return d;
 }
 
-// all threads of the thread block cluster: arrive (release), then wait
-// (acquire)
-__device__ __forceinline__ void cluster_sync() {
-  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
-  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
-}
-// a float of cluster block `rank`'s shared memory at this block's address
-__device__ __forceinline__ float ld_dsmem_f32(uint32_t addr, int rank) {
-  uint32_t remote;
-  float v;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
-               : "=r"(remote)
-               : "r"(addr), "r"(rank));
-  asm volatile("ld.shared::cluster.f32 %0, [%1];\n" : "=f"(v) : "r"(remote)
-               : "memory");
-  return v;
-}
-
 // CTW: 16-column tiles a consumer warp owns (block: CT = 64 * CTW columns);
 // NTT: 8-token tiles (M <= 8: 1, else 2)
 template <int CTW, int NTT>

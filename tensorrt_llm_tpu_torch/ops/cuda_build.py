@@ -82,15 +82,15 @@ _SIGNATURES = {
     # x, qweight, scales, zeros, units, out, M, N, K, group, E, block_n,
     # ntok, n_ct, grid, stream
     "tllm_moe_gmm": [_P] * 6 + [_I] * 9 + [_P],
-    # q, pool, tables, kv_lens, workspace, out, B, H, L, DK, BS, MB, scale,
+    # q, pool, tables, kv_lens, out, B, H, L, DK, NB, BS, MB, scale,
     # n_splits, split_len, stream
-    "tllm_mla_decode": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
-                        _I, _I, _P],
+    "tllm_mla_decode": [_P] * 5 + [_I] * 7 + [_F, _I, _I, _P],
     # q, pool, table, workspace, out, T, H, L, DK, NB, BS, MB, kv_len,
     # q_offset, scale, n_splits, split_len, stream
     "tllm_mla_prefill": [_P, _P, _P, _P, _P] + [_I] * 9 + [_F, _I, _I, _P],
-    # q, w, pool, tables, kv_lens, out, B, Hi, Di, BS, MB, stream
-    "tllm_dsa_score": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # q, w, pool, tables, kv_lens, out, B, Hi, Di, NB, BS, MB,
+    # tiles_per_block, stream
+    "tllm_dsa_score": [_P] * 6 + [_I] * 7 + [_P],
     # x, qweight, scales, zeros, bias, workspace, out, M, N, K, group,
     # pack_group, act, ntok, n_mb, n_ct, slice starts (host int array),
     # n_slices, grid, stream

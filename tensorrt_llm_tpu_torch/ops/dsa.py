@@ -13,8 +13,9 @@ keeps its own top-k causal keys (a mask on the dense prefill).
   as one bf16 product, as in the JAX package.
 * `dsa_scores_plain` is the plain version of kernel K11 (the JAX package's
   XLA scoring); `dsa_scores` takes it for CPU tensors and launches K11
-  (`csrc/dsa_score.cu`, the counterpart of `dsa_scores_pallas`) for CUDA
-  tensors, or raises.
+  (`csrc/dsa_score.cu`, the counterpart of `dsa_scores_pallas`: TMA-fed
+  wgmma over 64-token key tiles, tiles a block from `dsa_score_plan`) for
+  CUDA tensors, or raises.
 * `dsa_decode_select`, `mla_sparse_decode_plain` and `dsa_prefill_mask`
   are plain torch on the main path, on the card as well: the JAX package
   runs them in XLA, outside any Pallas kernel.  They are not the plain twins
@@ -32,10 +33,15 @@ from tensorrt_llm_tpu_torch.ops import cuda_build
 from tensorrt_llm_tpu_torch.ops.attention_plain import NEG_INF, pool_rows
 
 __all__ = ["rotate_activation", "write_indexer_cache", "dsa_scores_plain",
-           "dsa_scores", "dsa_decode_select", "mla_sparse_decode_plain",
+           "dsa_scores", "dsa_score_plan", "dsa_score_tile_choices",
+           "dsa_decode_select", "mla_sparse_decode_plain",
            "dsa_prefill_mask"]
 
 _KERNEL_DIMS = ((64, 128),)   # (Hi, Di) K11 is built for
+_SMS = 132
+DSA_TILE = 64          # key tokens a K11 tile
+DSA_BLOCKS_PER_SM = 2  # K11 blocks resident on an SM (~82 KB of shared memory)
+DSA_MAX_TILES = 16     # tiles a K11 block at most (the chip check's choices)
 
 
 @functools.lru_cache(maxsize=8)
@@ -86,16 +92,35 @@ def dsa_scores_plain(q_idx: torch.Tensor, weights: torch.Tensor,
     return torch.where(valid, scores, NEG_INF)
 
 
+def dsa_score_plan(B: int, table_tokens: int):
+    """(tiles a block, blocks a sequence) of K11: each block scores
+    `tiles` consecutive 64-token tiles of one sequence's table, as few as
+    keep B x blocks within the card's resident blocks (two an SM), so that
+    the blocks fill the card at the table width.  Sized from the table
+    width only, since kv_lens stay on the device; the kernel skips the
+    tiles past each sequence's kv_len."""
+    n_tiles = max(1, -(-table_tokens // DSA_TILE))
+    slots = DSA_BLOCKS_PER_SM * _SMS
+    per = min(DSA_MAX_TILES, n_tiles, max(1, -(-n_tiles * max(B, 1) // slots)))
+    return per, -(-n_tiles // per)
+
+
+def dsa_score_tile_choices(table_tokens: int):
+    """Every tile count a K11 block can take at this table width, up to
+    `DSA_MAX_TILES`: what the chip check times against the plan."""
+    n_tiles = max(1, -(-table_tokens // DSA_TILE))
+    return list(range(1, min(n_tiles, DSA_MAX_TILES) + 1))
+
+
 def dsa_scores(q_idx: torch.Tensor, weights: torch.Tensor,
                idx_cache: torch.Tensor, block_tables: torch.Tensor,
-               kv_lens: torch.Tensor) -> torch.Tensor:
-    """`dsa_scores_plain` for CPU tensors; kernel K11 for CUDA tensors."""
+               kv_lens: torch.Tensor, tiles_per_block=None) -> torch.Tensor:
+    """`dsa_scores_plain` for CPU tensors; kernel K11 for CUDA tensors
+    (pages of a multiple of 8 tokens).  `tiles_per_block` pins the plan's
+    tiles a block."""
     if q_idx.device.type == "cpu":
         return dsa_scores_plain(q_idx, weights, idx_cache, block_tables,
                                 kv_lens)
-    if q_idx.device.type != "cuda":
-        raise ValueError(f"unsupported device {q_idx.device}")
-    dev = q_idx.device
     B, Hi, Di = q_idx.shape
     if (Hi, Di) not in _KERNEL_DIMS or idx_cache.dim() != 4 \
             or idx_cache.shape[1] != 1 or idx_cache.shape[-1] != Di:
@@ -103,6 +128,14 @@ def dsa_scores(q_idx: torch.Tensor, weights: torch.Tensor,
             f"dsa_score kernel is built for (Hi, Di) in {_KERNEL_DIMS} over "
             f"a pool [NB, 1, BS, Di]: q {tuple(q_idx.shape)}, pool "
             f"{tuple(idx_cache.shape)}")
+    NB, _, BS, _ = idx_cache.shape
+    if BS % 8:
+        raise NotImplementedError(
+            "the dsa_score kernel takes pages of a multiple of 8 tokens "
+            f"(TMA boxes in the 128-byte swizzle): got {BS}")
+    if q_idx.device.type != "cuda":
+        raise ValueError(f"unsupported device {q_idx.device}")
+    dev = q_idx.device
     for name, t, dt in (("q_idx", q_idx, torch.bfloat16),
                         ("weights", weights, torch.float32),
                         ("idx_cache", idx_cache, torch.bfloat16),
@@ -110,19 +143,25 @@ def dsa_scores(q_idx: torch.Tensor, weights: torch.Tensor,
                         ("kv_lens", kv_lens, torch.int32)):
         if t.device != dev or t.dtype != dt or not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous {dt} on {dev}")
+    if q_idx.data_ptr() % 16 or idx_cache.data_ptr() % 16:
+        raise ValueError("q_idx and the pool must start 16-byte aligned "
+                         "(TMA)")
     MB = block_tables.shape[1]
-    BS = idx_cache.shape[2]
     if weights.shape != (B, Hi) or block_tables.shape[0] != B \
             or kv_lens.shape != (B,):
         raise ValueError("weights, table or kv_lens shape mismatch")
     out = torch.empty((B, MB * BS), dtype=torch.float32, device=dev)
     if B == 0 or MB == 0:
         return out
+    if tiles_per_block is None:
+        tiles_per_block, _ = dsa_score_plan(B, MB * BS)
+    elif tiles_per_block < 1:
+        raise ValueError("tiles_per_block must be positive")
     err = cuda_build.load_library().tllm_dsa_score(
         cuda_build.ptr(q_idx), cuda_build.ptr(weights),
         cuda_build.ptr(idx_cache), cuda_build.ptr(block_tables),
-        cuda_build.ptr(kv_lens), cuda_build.ptr(out), B, Hi, Di, BS, MB,
-        cuda_build.stream_of(q_idx))
+        cuda_build.ptr(kv_lens), cuda_build.ptr(out), B, Hi, Di, NB, BS, MB,
+        int(tiles_per_block), cuda_build.stream_of(q_idx))
     cuda_build.check(err, "dsa_score")
     cuda_build.launch_counts["dsa_score"] += 1
     return out

@@ -20,15 +20,18 @@ The caller applies W_uv to the latent output.  The pool row is exactly
   optional `extra_mask`, with which DSA's sparse prefill restricts each
   query to its indexer top-k (that masked prefill is plain torch on the card
   as well, as it is XLA in the JAX package).
-* `mla_decode_attention` (kernel K9, `csrc/mla_decode.cu`) and
-  `mla_prefill_attention` (kernel K10, `csrc/mla_prefill_sm90.cu`: TMA,
-  wgmma, two consumer warpgroups on alternate latent tiles, the latent
-  range split over blocks by `mla_prefill_plan`) take the plain versions
-  for CPU tensors and launch their kernels for CUDA tensors (or raise);
-  they are the counterparts of `mla_decode_pallas` and
-  `mla_prefill_pallas`.  Both kernels scale the f32 scores after the dot,
-  as the plain versions scale q in f32 (the Pallas decode kernel rounds
-  ``q * scale`` to bf16 first; the port does not copy that rounding).
+* `mla_decode_attention` (kernel K9) and `mla_prefill_attention` (kernel
+  K10) run one Hopper kernel, `csrc/mla_prefill_sm90.cu` (TMA, wgmma, 64
+  query rows a block, two consumer warpgroups on alternate latent tiles):
+  K10 splits its latent range over blocks by `mla_prefill_plan` and merges
+  the splits in a second pass; K9 splits each sequence's latents by
+  `mla_decode_plan` into one thread block cluster that merges them inside
+  the launch.  Both take the plain versions for CPU tensors and launch
+  their kernels for CUDA tensors (or raise); they are the counterparts of
+  `mla_decode_pallas` and `mla_prefill_pallas`.  Both kernels scale the
+  f32 scores after the dot, as the plain versions scale q in f32 (the
+  Pallas decode kernel rounds ``q * scale`` to bf16 first; the port does
+  not copy that rounding).
 """
 
 from __future__ import annotations
@@ -42,13 +45,17 @@ from tensorrt_llm_tpu_torch.ops.attention_plain import NEG_INF, pool_rows
 
 __all__ = ["write_latent_cache", "mla_prefill_plain", "mla_decode_plain",
            "mla_decode_attention", "mla_prefill_attention",
-           "mla_decode_splits", "mla_prefill_splits", "mla_prefill_plan",
+           "mla_decode_plan", "mla_decode_split_choices",
+           "mla_prefill_splits", "mla_prefill_plan",
            "mla_prefill_split_choices"]
 
 _SMS = 132
-MLA_ROWS = 16      # query rows of one K9 block (one m16 MMA tile)
+MLA_ROWS = 64      # query rows of a K9 or K10 block (wgmma's M)
 MLA_TILE = 64      # latent tokens staged per step (K9 and K10)
-MLA_PREFILL_ROWS = 64   # stacked (token, head) rows of a K10 block
+MLA_DECODE_MAX_SPLITS = 16   # K9's splits of one sequence: one cluster
+# K9 blocks the H100 runs at once in clusters of 16: 7 clusters
+# (cudaOccupancyMaxActiveClusters at K9's 227 KB of shared memory a block)
+MLA_DECODE_BLOCKS = 112
 _KERNEL_DIMS = ((512, 576),)   # (L, L + R) the kernels are built for
 
 
@@ -112,22 +119,38 @@ def mla_decode_plain(q_eff: torch.Tensor, cache: torch.Tensor,
                            q_eff.dtype, "bhs,bsl->bhl")
 
 
-def mla_decode_splits(B: int, H: int, table_tokens: int):
-    """(n_splits, split_len) of K9: latent splits per (sequence, 16-head
-    block), enough blocks to cover the 132 SMs once (a block holds ~170 KB
-    of shared memory, so one fits an SM), sized from the table width since
-    kv_lens stay on the device; splits are whole 64-token tiles."""
-    blocks = B * -(-H // MLA_ROWS)
-    n = max(1, min(-(-_SMS // max(blocks, 1)),
-                   -(-table_tokens // MLA_TILE)))
-    split_len = -(-table_tokens // n)
-    split_len = -(-split_len // MLA_TILE) * MLA_TILE
-    return -(-table_tokens // split_len), split_len
+def mla_decode_plan(B: int, H: int, table_tokens: int):
+    """(head blocks, n_splits, split_len) of K9.  A block owns `MLA_ROWS`
+    heads of one sequence and one split of its latents: split s takes
+    tokens [s * split_len, (s + 1) * split_len) of the table, whole 64-token
+    tiles, and the splits of a (sequence, head block) are one thread block
+    cluster of at most `MLA_DECODE_MAX_SPLITS` blocks, merged inside the
+    launch.  The most splits that keep B x head blocks x splits within one
+    wave (K9 holds one block an SM, and the card runs at most
+    `MLA_DECODE_BLOCKS` of them at once in clusters of 16), at least one,
+    and no more than the table has tiles.  Sized from the table width
+    only, since kv_lens stay on the device: O(1) host work and no sync;
+    the kernel skips the splits past each sequence's kv_len."""
+    head_blocks = -(-H // MLA_ROWS)
+    tiles = max(1, -(-table_tokens // MLA_TILE))
+    want = max(1, min(MLA_DECODE_MAX_SPLITS,
+                      MLA_DECODE_BLOCKS // max(1, B * head_blocks), tiles))
+    per = -(-tiles // want)        # tiles a split
+    return head_blocks, -(-tiles // per), per * MLA_TILE
+
+
+def mla_decode_split_choices(table_tokens: int):
+    """Every split length (tokens) K9 can take at this table width, one per
+    distinct split count up to the cluster limit: what the chip check times
+    against the plan."""
+    tiles = max(1, -(-table_tokens // MLA_TILE))
+    return sorted({-(-tiles // n) * MLA_TILE
+                   for n in range(1, min(tiles, MLA_DECODE_MAX_SPLITS) + 1)})
 
 
 def mla_prefill_splits(T: int, H: int, kv_len: int, q_offset: int):
     """(row blocks, n_splits, split_len) of K10: blocks of
-    `MLA_PREFILL_ROWS` stacked rows (row = token * H + head); each block's
+    `MLA_ROWS` stacked rows (row = token * H + head); each block's
     latent range, up to the causal edge of its last row, is cut into
     splits of split_len tokens (whole 64-token tiles): the most splits
     with which blocks x splits stay within one wave of the 132 SMs (K10
@@ -137,7 +160,7 @@ def mla_prefill_splits(T: int, H: int, kv_len: int, q_offset: int):
     `check_mla_splits`).  The longest range is the last block's, so this
     is O(1) host work per call."""
     R = T * H
-    blocks = -(-R // MLA_PREFILL_ROWS)
+    blocks = -(-R // MLA_ROWS)
     if blocks == 0:
         return 0, 1, MLA_TILE
     kv_end = min(kv_len, q_offset + (R - 1) // H + 1)
@@ -166,7 +189,7 @@ def mla_prefill_plan(T: int, H: int, kv_len: int, q_offset: int):
     R = T * H
     ranges = []
     for b in range(blocks):
-        last = min((b + 1) * MLA_PREFILL_ROWS, R) - 1
+        last = min((b + 1) * MLA_ROWS, R) - 1
         kv_end = min(kv_len, q_offset + last // H + 1)
         ranges.append((0, -(-kv_end // MLA_TILE) if kv_end > 0 else 0))
     return blocks, n_splits, split_len, ranges
@@ -177,9 +200,10 @@ def _check(name, t, dt, dev):
         raise ValueError(f"{name} must be contiguous {dt} on {dev}")
 
 
-def _kernel_operands(q_eff, cache, kv_lora_rank, page_multiple=1):
+def _kernel_operands(q_eff, cache, kv_lora_rank):
     """Refuse what the kernels are not built for (widths, page sizes),
-    then anything but contiguous bf16 CUDA operands: never a fallback."""
+    then anything but contiguous, 16-byte aligned bf16 CUDA operands:
+    never a fallback."""
     dk = q_eff.shape[-1]
     if (kv_lora_rank, dk) not in _KERNEL_DIMS or cache.shape[-1] != dk:
         raise NotImplementedError(
@@ -187,24 +211,29 @@ def _kernel_operands(q_eff, cache, kv_lora_rank, page_multiple=1):
             f"L={kv_lora_rank}, q {dk}, pool {cache.shape[-1]}")
     if cache.dim() != 4 or cache.shape[1] != 1:
         raise ValueError("cache must be a latent pool [NB, 1, BS, L+R]")
-    if cache.shape[2] % page_multiple:
+    if cache.shape[2] % 8:
         raise NotImplementedError(
-            f"the MLA prefill kernel takes pages of a multiple of "
-            f"{page_multiple} tokens (TMA boxes in the 128-byte swizzle): "
-            f"got {cache.shape[2]}")
+            "the MLA kernels (K9, K10) take pages of a multiple of 8 tokens "
+            f"(TMA boxes in the 128-byte swizzle): got {cache.shape[2]}")
     if q_eff.device.type != "cuda":
         raise ValueError(f"unsupported device {q_eff.device}")
     dev = q_eff.device
     _check("q_eff", q_eff, torch.bfloat16, dev)
     _check("cache", cache, torch.bfloat16, dev)
+    if q_eff.data_ptr() % 16 or cache.data_ptr() % 16:
+        raise ValueError("q_eff and the pool must start 16-byte aligned (TMA)")
     return cache.shape[0], cache.shape[2], dk
 
 
 def mla_decode_attention(q_eff: torch.Tensor, cache: torch.Tensor,
                          block_tables: torch.Tensor, kv_lens: torch.Tensor,
-                         scale: float, kv_lora_rank: int) -> torch.Tensor:
+                         scale: float, kv_lora_rank: int,
+                         split_len: Optional[int] = None) -> torch.Tensor:
     """Decode MLA (see `mla_decode_plain`): the plain version for CPU
-    tensors, kernel K9 for CUDA tensors."""
+    tensors, kernel K9 for CUDA tensors (pages of a multiple of 8 tokens).
+    `kv_lens` stay on the device; `split_len` (a multiple of 64 tokens,
+    at most `MLA_DECODE_MAX_SPLITS` splits of the table) pins the plan's
+    latent split."""
     if q_eff.device.type == "cpu":
         return mla_decode_plain(q_eff, cache, block_tables, kv_lens, scale,
                                 kv_lora_rank)
@@ -217,17 +246,28 @@ def mla_decode_attention(q_eff: torch.Tensor, cache: torch.Tensor,
         raise ValueError("table or kv_lens shape mismatch")
     L = kv_lora_rank
     out = torch.empty((B, H, L), dtype=q_eff.dtype, device=q_eff.device)
-    if B == 0:
+    if B == 0 or H == 0:
         return out
-    n_splits, split_len = mla_decode_splits(B, H, MB * BS)
-    ws = torch.empty((B * H * n_splits * (L + 2),), dtype=torch.float32,
-                     device=q_eff.device)
+    if MB == 0:   # no cached token: the plain version's empty sum
+        return out.zero_()
+    S = MB * BS
+    if split_len is None:
+        _, n_splits, split_len = mla_decode_plan(B, H, S)
+    else:
+        if split_len <= 0 or split_len % MLA_TILE:
+            raise ValueError("split_len must be a positive multiple of "
+                             f"{MLA_TILE}")
+        n_splits = -(-S // split_len)
+        if n_splits > MLA_DECODE_MAX_SPLITS:
+            raise ValueError(f"split_len {split_len} cuts the table into "
+                             f"{n_splits} splits, past the cluster's "
+                             f"{MLA_DECODE_MAX_SPLITS}")
     lib = cuda_build.load_library()
     err = lib.tllm_mla_decode(
         cuda_build.ptr(q_eff), cuda_build.ptr(cache),
         cuda_build.ptr(block_tables), cuda_build.ptr(kv_lens),
-        cuda_build.ptr(ws), cuda_build.ptr(out), B, H, L, DK, BS, MB,
-        float(scale), n_splits, split_len, cuda_build.stream_of(q_eff))
+        cuda_build.ptr(out), B, H, L, DK, NB, BS, MB, float(scale), n_splits,
+        split_len, cuda_build.stream_of(q_eff))
     cuda_build.check(err, "mla_decode")
     cuda_build.launch_counts["mla_decode"] += 1
     return out
@@ -245,14 +285,11 @@ def mla_prefill_attention(q_eff: torch.Tensor, cache: torch.Tensor,
     if q_eff.device.type == "cpu":
         return mla_prefill_plain(q_eff, cache, block_table, kv_len, q_offset,
                                  scale, kv_lora_rank)
-    NB, BS, DK = _kernel_operands(q_eff, cache, kv_lora_rank,
-                                  page_multiple=8)
+    NB, BS, DK = _kernel_operands(q_eff, cache, kv_lora_rank)
     T, H, _ = q_eff.shape
     _check("block_table", block_table, torch.int32, q_eff.device)
     if block_table.dim() != 1:
         raise ValueError("block_table must be [MB]")
-    if q_eff.data_ptr() % 16 or cache.data_ptr() % 16:
-        raise ValueError("q_eff and the pool must start 16-byte aligned (TMA)")
     L = kv_lora_rank
     out = torch.empty((T, H, L), dtype=q_eff.dtype, device=q_eff.device)
     if T == 0:

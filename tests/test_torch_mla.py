@@ -174,6 +174,34 @@ def test_mla_prefill_plain_matches_jax_at_kernel_widths():
     np.testing.assert_allclose(out, pal, rtol=2e-2, atol=2e-2)
 
 
+def test_mla_decode_plain_matches_jax_at_kernel_widths():
+    """The plain version K9 is held to on the card, at the kernel's own
+    widths (L 512, R 64, 16 heads, pages of 16, short contexts of 1 to 40
+    tokens), against the XLA reference and the Pallas kernel in interpret
+    mode, with the tolerances above."""
+    rng = np.random.default_rng(19)
+    Lk, Rk, Hk, BSk = 512, 64, 16, 16
+    lens = [1, 17, 40]
+    mb = -(-max(lens) // BSk)
+    nb = len(lens) * mb + 1
+    pool = _bf16(rng.standard_normal((nb, 1, BSk, Lk + Rk)))
+    tables = (rng.permutation(nb - 1)[:len(lens) * mb].reshape(len(lens), mb)
+              + 1).astype(np.int32)
+    q = _bf16(rng.standard_normal((len(lens), Hk, Lk + Rk)))
+    kv = np.asarray(lens, np.int32)
+    scale = (128 + Rk) ** -0.5
+    out = mla_decode_plain(_t(q), _t(pool), torch.from_numpy(tables),
+                           torch.from_numpy(kv), scale, Lk).float().numpy()
+    args = (jnp.asarray(q, jnp.bfloat16), jnp.asarray(pool, jnp.bfloat16),
+            jnp.asarray(tables), jnp.asarray(kv), scale, Lk)
+    ref = np.asarray(mla_decode_xla(*args), np.float32)
+    top = max(1.0, np.abs(ref).max())
+    np.testing.assert_allclose(out, ref, rtol=0, atol=2 ** -8 * top)
+    pal = np.asarray(mla_decode_pallas(*args, tile_size=2 * BSk,
+                                       interpret=True), np.float32)
+    np.testing.assert_allclose(out, pal, rtol=2e-2, atol=2e-2)
+
+
 def test_mla_prefill_extra_mask_matches_jax():
     rng = np.random.default_rng(9)
     T, off = 10, 6

@@ -16,7 +16,7 @@ from tensorrt_llm_tpu_torch.ops import w4a16_gemm as W
 from tensorrt_llm_tpu_torch.ops.flash_prefill import (
     PREFILL_ROWS, PREFILL_TILE, flash_prefill_attention, prefill_tile_ranges)
 from tensorrt_llm_tpu_torch.ops.mla import (
-    MLA_PREFILL_ROWS, MLA_TILE, mla_prefill_attention, mla_prefill_plan,
+    MLA_ROWS, MLA_TILE, mla_prefill_attention, mla_prefill_plan,
     mla_prefill_split_choices)
 
 PLAN_M = (17, 128, 200, 255, 256, 300, 512)
@@ -181,13 +181,13 @@ def test_k10_plan_covers_exactly_the_valid_pairs(H, T, q_offset):
     R = T * H
     blocks, n_splits, split_len, ranges = mla_prefill_plan(T, H, kv_len,
                                                            q_offset)
-    assert blocks == len(ranges) == -(-R // MLA_PREFILL_ROWS)
+    assert blocks == len(ranges) == -(-R // MLA_ROWS)
     assert split_len > 0 and split_len % MLA_TILE == 0
     per = split_len // MLA_TILE
     # row r keeps the latent positions [0, lim[r])
     lim = np.minimum(kv_len, q_offset + np.arange(R) // H + 1)
     for b, (t0, t1) in enumerate(ranges):
-        reach = lim[b * MLA_PREFILL_ROWS:(b + 1) * MLA_PREFILL_ROWS].max()
+        reach = lim[b * MLA_ROWS:(b + 1) * MLA_ROWS].max()
         tiles_kept = np.arange(-(-kv_len // MLA_TILE)) * MLA_TILE < reach
         inside = np.zeros_like(tiles_kept)
         inside[t0:t1] = True
