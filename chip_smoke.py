@@ -31,8 +31,11 @@ Phases (any failure exits nonzero; nothing is caught and ignored):
    also 300 and 600, past one M block) and at group 32, each called twice
    and held to the same bits, with the wrapper's host time per call, and
    `kpaired_block_k`'s K slice within 10% of the fastest one timed; the
-   fused gated MLP at TinyLlama/Llama-3-8B MLPs with the unfused sequence
-   as its yardstick and its grid barriers timed; the tiled GEMM K1 at the
+   fused gated MLP K14 at TinyLlama/Llama-3-8B MLPs, called twice and
+   held to the same bits, with the port's unfused sequence and a cuBLAS
+   sequence (two torch.matmul on the dequantized weights) as yardsticks,
+   its plan and per-block timestamps (grid barrier, phases), and
+   `fused_mlp_plan`'s launch within 10% of the fastest candidate timed; the tiled GEMM K1 at the
    TinyLlama, Llama-3-8B and GPT-OSS projections from 1 to 512 tokens, in
    each of its configurations at two M 256 shapes, and its plan's
    (configuration, K slices) pick within 10% of the fastest choice timed;
@@ -56,7 +59,8 @@ Phases (any failure exits nonzero; nothing is caught and ignored):
    to phase 4's (or differing first at a near-tie); again with the stream
    variant: K2 at every decode step (`serve_stream`);
 6. the fused gated MLP op on all 22 TinyLlama MLPs at 4 and 200 rows,
-   against each layer's unfused forward;
+   against each layer's unfused forward, then the same calls under
+   torch.profiler: one device operation a call;
 7. the same weights at full width and 2 layers on the card and on the CPU
    (plain versions): logits and greedy tokens must agree (the MoE
    cross-checks of phases 10 and 16 force the CPU's routing only at
@@ -717,6 +721,7 @@ def check_w4a16(gen, dev):
                                "edge": True},
                 W.w4a16_ramp, rand_x(M, K), packed, s, z, b, act, None)
 
+    _no_serialized_wgmma("w4a16_fused_mlp.cu")
     for model, K, I in FUSED_SHAPES:
         for zp in (False, True):
             gp, gs, gz = _w4_weight(gen, dev, K, 2 * I, 128, False, not zp)
@@ -730,6 +735,12 @@ def check_w4a16(gen, dev):
                         + (gs.numel() + ds.numel()) * 2 * (2 if zp else 1))
             copies = [tuple(None if t is None else t.clone() for t in ops)
                       for _ in range(copies_for(wq_bytes) - 1)] + [ops]
+            # the library yardstick, a sequence: torch.matmul on the
+            # dequantized bf16 weights, silu(g) * u, torch.matmul
+            lib_w = None if zp else [
+                (dequantize_w4_any(o[0], o[1]).to(torch.bfloat16),
+                 dequantize_w4_any(o[2], o[3]).to(torch.bfloat16))
+                for o in copies[:copies_for(6 * K * I)]]
 
             def unfused(x, o):
                 gu = W.w4a16_matmul(x, o[0], o[1], o[4], o[6])
@@ -737,12 +748,21 @@ def check_w4a16(gen, dev):
                     torch.bfloat16)
                 return W.w4a16_matmul(h, o[2], o[3], o[5], o[7])
 
+            def library(x, w):
+                gu = torch.matmul(x, w[0])
+                h = (Fn.silu(gu[:, :I].float()) * gu[:, I:].float()).to(
+                    torch.bfloat16)
+                return torch.matmul(h, w[1])
+
             for M in (FUSED_ZEROS_M if zp else FUSED_M):
                 x = rand_x(M, K)
                 out = FM.w4a16_fused_mlp(x, *ops[:4], *ops[4:], "silu")
+                again = FM.w4a16_fused_mlp(x, *ops[:4], *ops[4:], "silu")
                 ref = FM.w4a16_fused_mlp_plain(x, *ops[:4], *ops[4:],
                                                "silu")
                 torch.cuda.synchronize()
+                assert torch.equal(out, again), \
+                    f"K14 {model} M {M}: second call differs"
                 err = (out.float() - ref.float()).abs().max().item()
                 # both round h and the output to bf16 at the same places;
                 # the kernel scales f32 partials per group where the plain
@@ -755,32 +775,92 @@ def check_w4a16(gen, dev):
                     x, *ops[:4], *ops[4:], "silu")], 3)
                 unf_ms = cuda_ms([lambda o=o: unfused(x, o)
                                   for o in copies], 20)
+                l_ms = (cuda_ms([lambda w=w: library(x, w) for w in lib_w],
+                                20) if lib_w else None)
+                _, plan, st = FM.fused_mlp_launch(
+                    x, *ops[:4], *ops[4:], "silu", barrier_stats=True)
+                torch.cuda.synchronize()
                 shape = {"model": model, "M": M, "K": K, "I": I, "G": 128,
-                         "zeros": zp, "bias": zp,
-                         "n_k2": FM.fused_mlp_n_k2(M, K, I, 128),
-                         "unfused_ms": unf_ms}
-                if M == 4 and not zp:
-                    _, grid, st = FM.fused_mlp_launch(
-                        x, *ops[:4], *ops[4:], "silu", barrier_stats=True)
-                    torch.cuda.synchronize()
-                    st = st.double().cpu()
-                    shape.update({
-                        "grid": grid,
-                        # release after the last arrival: the barrier's own
-                        # cost; first to last arrival: the phase imbalance
-                        "barrier_us": [float(st[:, 2 * j + 1].max()
-                                             - st[:, 2 * j].max()) / 1e3
-                                       for j in (0, 1)],
-                        "arrival_spread_us": [
-                            float(st[:, 2 * j].max() - st[:, 2 * j].min())
-                            / 1e3 for j in (0, 1)]})
+                         "zeros": zp, "bias": zp, "repeat_bitwise": True,
+                         "unfused_ms": unf_ms,
+                         "library": None if zp else
+                         "sequence: matmul, silu(g) * u, matmul (bf16)",
+                         "plan": {k: plan[k] for k in (
+                             "ntt", "ctw", "cluster", "sa", "sb", "grid",
+                             "rounds_a", "rounds_b", "smem")},
+                         **fused_barrier_stats(st)}
                 nbytes = (2 * M * K * 2 + wq_bytes
                           + (0 if gb is None else (2 * I + K) * 4))
-                record("w4a16_fused_mlp", shape, err, tol, k_ms, p_ms, None,
+                record("w4a16_fused_mlp", shape, err, tol, k_ms, p_ms, l_ms,
                        bound_ms(nbytes, 2 * M * K * 2 * I + 2 * M * I * K))
-            del copies, ops, gp, gs, gz, dp, ds, dz
+            del copies, ops, gp, gs, gz, dp, ds, dz, lib_w
             torch.cuda.empty_cache()
     check_kpaired_slices(gen, dev)
+    check_fused_mlp_plan(gen, dev)
+
+
+def fused_barrier_stats(st):
+    """K14's per-block timestamps (`fused_mlp_launch(...,
+    barrier_stats=True)`) as microseconds from the first block's start:
+    the barrier's own cost (the last release seen after the last arrival),
+    the spread of the arrivals (the phase imbalance), and the latest
+    block's time to each event."""
+    st = st.double().cpu()
+    t0 = st[:, 0].min()
+
+    def last(i):
+        v = st[:, i][st[:, i] > 0]
+        return float(v.max() - t0) / 1e3 if v.numel() else None
+    arr = st[:, 3][st[:, 3] > 0]
+    out = {"barrier_us": float(st[:, 4].max() - arr.max()) / 1e3,
+           "arrival_spread_us": float(arr.max() - arr.min()) / 1e3}
+    for i, name in enumerate(("start", "x_in", "a_stages_done", "arrive",
+                              "release_seen", "h_in", "b_stages_done",
+                              "end")):
+        out[f"last_{name}_us"] = last(i)
+    return out
+
+
+def check_fused_mlp_plan(gen, dev):
+    """`fused_mlp_plan`'s pick against every launch K14 can take
+    (`fused_mlp_plan_choices`: column tile, cluster, each phase's slices),
+    each timed at every FUSED_SHAPES x FUSED_M row with the weights
+    rotated past L2: the pick must be within GEMV_PLAN_SLACK of the
+    fastest."""
+    import torch
+    from tensorrt_llm_tpu_torch.ops import cuda_build
+    from tensorrt_llm_tpu_torch.ops import w4a16_fused as FM
+    rows = []
+    for model, K, I in FUSED_SHAPES:
+        gp, gs, _ = _w4_weight(gen, dev, K, 2 * I, 128, False)
+        dp, ds, _ = _w4_weight(gen, dev, I, K, 128, False)
+        ops = (gp, gs, dp, ds)
+        wq_bytes = gp.numel() + dp.numel() + (gs.numel() + ds.numel()) * 2
+        copies = [ops] + [tuple(t.clone() for t in ops)
+                          for _ in range(copies_for(wq_bytes) - 1)]
+        for M in FUSED_M:
+            x = torch.randn((M, K), generator=gen, device=dev).to(
+                torch.bfloat16)
+            choices = FM.fused_mlp_plan_choices(
+                M, K, I, 128, 128, cuda_build.num_sms(dev),
+                FM._coresident(dev), gp.shape[2], False)
+            times = {c["key"]: cuda_ms([
+                lambda o=o, c=c: FM.fused_mlp_launch(x, *o, activation="silu",
+                                                     plan=c)
+                for o in copies], 20) for c in choices}
+            pick = FM.fused_mlp_launch(x, *ops, activation="silu")[1]["key"]
+            best = min(times, key=times.get)
+            rows.append({"model": model, "M": M, "K": K, "I": I,
+                         "pick": pick, "fastest": best,
+                         "pick_ms": times[pick], "fastest_ms": times[best],
+                         "pick_over_fastest": times[pick] / times[best],
+                         "ms": {str(k): v for k, v in times.items()},
+                         "grid": {str(c["key"]): c["grid"]
+                                  for c in choices}})
+            log(json.dumps(rows[-1]))
+        del copies, ops, gp, dp
+        torch.cuda.empty_cache()
+    _plan_rows("fused_mlp_plan", rows, GEMV_PLAN_SLACK, "fused_mlp_plan")
 
 
 def check_kpaired_slices(gen, dev):
@@ -2030,8 +2110,10 @@ def fused_mlp_run(card):
     full-width TinyLlama W4A16 model (22 layers, seeded weights) at a
     decode batch (4 rows) and a 200-token chunk, held against the layer's
     own unfused `GatedMLP` forward; counters reset just before, read just
-    after."""
+    after.  The same calls again under torch.profiler must show one device
+    operation each."""
     import torch
+    from torch.profiler import ProfilerActivity, profile
     from tensorrt_llm_tpu_torch.models import get_model_class
     from tensorrt_llm_tpu_torch.ops import cuda_build
     from tensorrt_llm_tpu_torch.ops.w4a16_fused import w4a16_fused_mlp
@@ -2062,9 +2144,24 @@ def fused_mlp_run(card):
     counts = dict(cuda_build.launch_counts)
     L = cfg.num_layers
     assert counts.get("w4a16_fused_mlp", 0) == 2 * L, counts
+    # one device operation a call (no memset, no combine pass): the same
+    # calls again under torch.profiler
+    with torch.no_grad(), profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for layer in model.layers:
+            gu, dn = layer.mlp.gate_up, layer.mlp.down
+            for x in xs:
+                w4a16_fused_mlp(x, gu.qweight, gu.scales, dn.qweight,
+                                dn.scales, gu.zeros, dn.zeros, gu.bias,
+                                dn.bias, layer.mlp.activation)
+        torch.cuda.synchronize()
+    dev_ops = {e.key[:90]: e.count for e in prof.key_averages()
+               if _dev_us(e) > 0}
+    assert sum(dev_ops.values()) == 2 * L, \
+        f"K14 calls ran {dev_ops}, not one device operation each"
     PHASES[FUSED_PATH] = {"phase": FUSED_PATH, "card": card,
                           "model": "tinyllama-1.1b W4A16 (22 layers)",
                           "launches": counts, "rows": [4, 200],
+                          "device_ops_of_calls": dev_ops,
                           "worst_err_over_tol": worst}
     log(json.dumps(PHASES[FUSED_PATH]))
     del model
@@ -2392,6 +2489,12 @@ def width_run(phase, label, cfg, required):
     torch.cuda.empty_cache()
 
 
+def _dev_us(e):
+    """A profiler event's own device time (us)."""
+    return getattr(e, "self_device_time_total",
+                   getattr(e, "self_cuda_time_total", 0))
+
+
 def profile_serve(card, phase, cfg, kv_cache_quant="NONE", long_prompt=0,
                   max_seq_len=1024):
     """Opt-in phases (`profile`: TinyLlama, `profile_gptoss`: GPT-OSS-20B,
@@ -2431,12 +2534,8 @@ def profile_serve(card, phase, cfg, kv_cache_quant="NONE", long_prompt=0,
     finally:
         llm.shutdown()
 
-    def dev_us(e):
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0))
-
-    rows = sorted(((e.key, dev_us(e), e.count) for e in prof.key_averages()
-                   if dev_us(e) > 0), key=lambda r: -r[1])
+    rows = sorted(((e.key, _dev_us(e), e.count) for e in prof.key_averages()
+                   if _dev_us(e) > 0), key=lambda r: -r[1])
     busy = sum(r[1] for r in rows) / 1e6
     PHASES[phase] = {
         "phase": phase, "card": card, "wall_s": wall,
@@ -2457,7 +2556,7 @@ def profile_serve(card, phase, cfg, kv_cache_quant="NONE", long_prompt=0,
         with profile(activities=[ProfilerActivity.CUDA]) as p1:
             quantize_act_int8(x)
             torch.cuda.synchronize()
-        n = sum(e.count for e in p1.key_averages() if dev_us(e) > 0)
+        n = sum(e.count for e in p1.key_averages() if _dev_us(e) > 0)
         PHASES[phase]["act_quant_kernels_per_linear"] = n
         PHASES[phase]["act_quant_kernels_per_forward"] = \
             4 * cfg.num_layers * n

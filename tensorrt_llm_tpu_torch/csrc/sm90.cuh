@@ -1,9 +1,11 @@
 // Hopper (sm_90a) building blocks shared by the port's TMA / wgmma kernels
 // (`w4a16_sm90.cuh`: K1, K5, K8, K12, K13; `w4a16_gemv.cu`: K2;
 // `flash_prefill_sm90.cu`: K3, K7; `paged_decode.cu`: K4, K6;
-// `mla_prefill_sm90.cu`: K9, K10; `dsa_score.cu`: K11): mbarriers, TMA
+// `mla_prefill_sm90.cu`: K9, K10; `dsa_score.cu`: K11;
+// `w4a16_fused_mlp.cu`: K14): mbarriers (also across a cluster), TMA
 // and bulk copies, proxy fences, named and cluster barriers, distributed
-// shared memory loads, wgmma (bf16 with A from registers or shared memory,
+// shared memory loads, grid-wide acquire/release signals, wgmma (bf16 with
+// A from registers or shared memory,
 // s8 with A from registers) with its shared-memory descriptors, operand
 // fences, and the host's tensor maps.
 #pragma once
@@ -116,6 +118,67 @@ __device__ __forceinline__ float4 ld_dsmem_f32x4(uint32_t addr, int rank) {
                : "r"(dsmem_addr(addr, rank))
                : "memory");
   return v;
+}
+// arrive (release at cluster scope) on the barrier at this block's address
+// `bar` in cluster block `rank`: the signal of a hand-over between blocks
+// that does not stop the other threads, as barrier.cluster would
+__device__ __forceinline__ void mbar_arrive_cluster(uint64_t* bar, int rank) {
+  asm volatile(
+      "mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n" ::"r"(
+          dsmem_addr(smem_u32(bar), rank))
+      : "memory");
+}
+// wait (acquire at cluster scope) until the barrier's phase differs from
+// `parity`: what the arriving blocks wrote before arriving is visible
+__device__ __forceinline__ void mbar_wait_cluster(uint64_t* bar,
+                                                  uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred P1;\n"
+      "LAB_WAIT:\n"
+      "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 P1, [%0], "
+      "%1;\n"
+      "@P1 bra DONE;\n"
+      "bra LAB_WAIT;\n"
+      "DONE:\n"
+      "}\n" ::"r"(smem_u32(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// ------------------------------------------------- grid-wide signals ---
+__device__ __forceinline__ unsigned ld_acquire_gpu(const unsigned* p) {
+  unsigned v;
+  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];\n"
+               : "=r"(v)
+               : "l"(p)
+               : "memory");
+  return v;
+}
+__device__ __forceinline__ void st_relaxed_gpu(unsigned* p, unsigned v) {
+  asm volatile("st.relaxed.gpu.global.u32 [%0], %1;\n" ::"l"(p), "r"(v)
+               : "memory");
+}
+__device__ __forceinline__ unsigned atom_add_acq_rel_gpu(unsigned* p,
+                                                         unsigned v) {
+  unsigned old;
+  asm volatile("atom.acq_rel.gpu.global.add.u32 %0, [%1], %2;\n"
+               : "=r"(old)
+               : "l"(p), "r"(v)
+               : "memory");
+  return old;
+}
+// this thread's earlier generic-proxy writes to global memory are ordered
+// before later async-proxy (TMA, bulk copy) accesses that synchronize with
+// them
+__device__ __forceinline__ void fence_proxy_async_global() {
+  asm volatile("fence.proxy.async.global;\n" ::: "memory");
+}
+// the global nanosecond timer
+__device__ __forceinline__ unsigned long long global_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
 }
 
 // -------------------------------------------------------------- wgmma ---

@@ -51,7 +51,7 @@
 // * Host cost: the shared-memory attribute is set once per instantiation;
 //   the weight's tensor map is encoded once and cached.
 
-// prmt: the mainloop's byte permute
+// prmt and nib2_136: the mainloop's byte permute and K2's 136 + q
 #include "w4a16_sm90.cuh"
 
 namespace tllm {
@@ -100,17 +100,6 @@ struct GvParams {
   bf16* out;
   int M, N, K, G, BN, act, S, ng, ksm;
 };
-
-// The low nibbles of bytes 0 and 2 of v as bf16x2 136 + q, exactly: one
-// lop3 keeps bits 0-2 and 16-18, inverts bits 3 and 19 (two's complement q
-// becomes q + 8) and sets the bf16 pattern of 128.0 in each half
-__device__ __forceinline__ uint32_t nib2_136(uint32_t v) {
-  uint32_t d;
-  asm("lop3.b32 %0, %1, %2, %3, 0x6A;\n"
-      : "=r"(d)
-      : "r"(v), "r"(0x000F000Fu), "r"(0x43084308u));
-  return d;
-}
 
 // CTW: 16-column tiles a consumer warp owns (block: CT = 64 * CTW columns);
 // NTT: 8-token tiles (M <= 8: 1, else 2)

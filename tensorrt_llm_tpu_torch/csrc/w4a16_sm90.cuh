@@ -196,6 +196,17 @@ __device__ __forceinline__ uint32_t prmt(uint32_t a, uint32_t b, uint32_t s) {
   asm("prmt.b32 %0, %1, %2, %3;\n" : "=r"(d) : "r"(a), "r"(b), "r"(s));
   return d;
 }
+// The low nibbles of bytes 0 and 2 of v as bf16x2 136 + q, exactly: one
+// lop3 keeps bits 0-2 and 16-18, inverts bits 3 and 19 (two's complement q
+// becomes q + 8) and sets the bf16 pattern of 128.0 in each half (K2's and
+// K14's A operand)
+__device__ __forceinline__ uint32_t nib2_136(uint32_t v) {
+  uint32_t d;
+  asm("lop3.b32 %0, %1, %2, %3, 0x6A;\n"
+      : "=r"(d)
+      : "r"(v), "r"(0x000F000Fu), "r"(0x43084308u));
+  return d;
+}
 __device__ __forceinline__ uint32_t bf2_fma(uint32_t a, uint32_t b,
                                             uint32_t c) {
   uint32_t d;

@@ -102,11 +102,15 @@ _SIGNATURES = {
     "tllm_w4a16_ramp": [_P, _P, _P, _P, _P, _P, _P] + [_I] * 9
     + [ctypes.POINTER(_I), _I, _I, _P],
     # x, gu_qweight, gu_scales, gu_zeros, gu_bias, down_qweight,
-    # down_scales, down_zeros, down_bias, h workspace, f32 workspace,
-    # barrier word, barrier stats, out, M, K, I, gu_group, down_group,
-    # gu_block_n, down_block_n, n_k2, act, n_sms, grid (int out), stream
-    "tllm_w4a16_fused_mlp": [_P] * 14 + [_I] * 10 + [ctypes.POINTER(_I),
-                                                     _P],
+    # down_scales, down_zeros, down_bias, h workspace, barrier buffer,
+    # barrier stats, out, M, K, I, gu_group, down_group, gu_row_stride,
+    # down_row_stride, gu_block_n, down_block_n, act, ctw, ntt, cluster,
+    # sa, sb, grid, stream
+    "tllm_w4a16_fused_mlp": [_P] * 13 + [_I] * 16 + [_P],
+    # ctw, ntt, cluster, smem, clusters (int out)
+    "tllm_w4a16_fused_mlp_clusters": [_I] * 4 + [ctypes.POINTER(_I)],
+    # ctw, ntt, K, I, gu_group, down_group, sa, sb, zeros
+    "tllm_w4a16_fused_mlp_smem": [_I] * 9,
 }
 
 
@@ -261,6 +265,29 @@ def counters(device, n: int):
 
 
 _COUNTERS = {}
+
+
+def grid_barrier(device):
+    """The grid barrier's words of the fused MLP kernel (K14) on `device`:
+    128 int32, a generation at 0 and the arrival counters of even and odd
+    generations at 32 and 64 (each on its own 128-byte line), zeroed once
+    and kept for the process.  The kernel zeroes the next launch's counter
+    and advances the generation itself, so no call writes them from the
+    host; the buffer is never reallocated, so a CUDA graph that captures a
+    launch keeps a live pointer.  Launches on one device must not run
+    concurrently (they share the counters)."""
+    import torch
+    dev = torch.device(device)
+    if dev.index is None:
+        dev = torch.device(dev.type, torch.cuda.current_device())
+    buf = _BARRIERS.get(dev)
+    if buf is None:
+        buf = torch.zeros((128,), dtype=torch.int32, device=dev)
+        _BARRIERS[dev] = buf
+    return buf
+
+
+_BARRIERS = {}
 
 
 def num_sms(device) -> int:

@@ -116,12 +116,136 @@ def test_supported_accepts_the_served_mlps():
     assert F.fused_mlp_supported(4096, 14336, 1024, 1024, 128, "gelu")
 
 
-@pytest.mark.parametrize("M,Kx,Ix,want", [
-    (4, 2048, 5632, 11),     # TinyLlama decode: 32 down tiles x 11 slices
-    (200, 2048, 5632, 4),    # 4 M tiles x 32 tiles x 4 slices
-    (4, 4096, 14336, 7),     # Llama-3-8B decode: 64 tiles x 7 slices
-])
-def test_down_phase_slices(M, Kx, Ix, want):
-    n_k2 = F.fused_mlp_n_k2(M, Kx, Ix, 128)
-    assert n_k2 == want
-    assert Ix % n_k2 == 0 and (Ix // n_k2) % 128 == 0
+# K14's plan (`fused_mlp_plan`): the served MLPs and this module's width
+PLAN_WIDTHS = [(2048, 5632), (4096, 14336), (K, I)]
+PLAN_M = (1, 4, 16, 64, 200, 256)
+
+
+def _bound(ctw, ntt, cluster, smem):
+    """A co-resident bound given to the plan: 7 groups of 36 block slots
+    (18 SMs x 2), as `cudaOccupancyMaxActiveClusters` would answer."""
+    return 7 * (36 // cluster) if smem <= 113 * 1024 else 7 * (18 // cluster)
+
+
+@pytest.mark.parametrize("Kx,Ix", PLAN_WIDTHS)
+@pytest.mark.parametrize("M", PLAN_M)
+def test_plan_slices_cover_whole_groups(M, Kx, Ix):
+    """Every candidate's phase-A slices cover K and phase B's cover I
+    exactly, in whole scale groups; the cluster is at most 16 blocks and
+    the grid within the co-resident bound the plan is given."""
+    choices = F.fused_mlp_plan_choices(M, Kx, Ix, G, G, coresident=_bound)
+    assert choices
+    pick = F.fused_mlp_plan(M, Kx, Ix, G, G, coresident=_bound)
+    assert pick["key"] in {c["key"] for c in choices}
+    for p in choices:
+        for bounds, width in ((p["a_bounds"], Kx), (p["b_bounds"], Ix)):
+            assert bounds[0] == 0 and bounds[-1] == width
+            assert all(b % G == 0 for b in bounds)
+            assert all(b1 > b0 for b0, b1 in zip(bounds, bounds[1:]))
+        assert len(p["a_bounds"]) == p["sa"] + 1
+        assert len(p["b_bounds"]) == p["sb"] + 1
+        assert 1 <= p["cluster"] <= 16
+        assert p["cluster"] % p["sa"] == 0 and p["cluster"] % p["sb"] == 0
+        assert 1 <= p["clusters"] <= _bound(p["ctw"], p["ntt"], p["cluster"],
+                                            p["smem"])
+        assert p["grid"] == p["clusters"] * p["cluster"]
+        assert p["smem"] <= F.FUSED_MAX_SMEM
+        assert p["ntt"] in F.fused_mlp_ntts(M)
+        assert p["mt"] == 8 * p["ntt"]
+        assert p["n_mb"] * p["mt"] >= M > (p["n_mb"] - 1) * p["mt"]
+        lanes_a = p["clusters"] * (p["cluster"] // p["sa"])
+        lanes_b = p["clusters"] * (p["cluster"] // p["sb"])
+        assert p["rounds_a"] * lanes_a >= p["items_a"]
+        assert p["rounds_b"] * lanes_b >= p["items_b"]
+
+
+@pytest.mark.parametrize("Kx,Ix", PLAN_WIDTHS[:2])
+def test_plan_splits_phase_a_over_k_at_decode(Kx, Ix):
+    """At a 4-token decode both served MLPs launch more phase-A work items
+    (column pairs x K slices) than there are 64-column pairs."""
+    p = F.fused_mlp_plan(4, Kx, Ix, G, G, coresident=_bound)
+    assert p["sa"] > 1 and p["items_a"] * p["sa"] > Ix // 64
+
+
+def test_plan_per_channel_and_n_k2():
+    """A per-channel scale still splits K (one scale row read for every
+    128 rows); `n_k2` fixes phase B's slices."""
+    p = F.fused_mlp_plan(4, 2048, 5632, 2048, 5632, coresident=_bound)
+    assert p["GA"] == 128 and p["GB"] == 128
+    q = F.fused_mlp_plan(4, 2048, 5632, G, G, coresident=_bound, n_k2=2)
+    assert q["sb"] == 2
+    with pytest.raises(ValueError):
+        F.fused_mlp_plan(4, 2048, 5632, G, G, coresident=_bound, n_k2=3)
+
+
+def _units_case(M, zeros, biases, seed):
+    ws, _ = _weights(seed, zeros, biases)
+    return _t(_x(M, seed + 5)), [_t(a) for a in ws]
+
+
+@pytest.mark.parametrize("zeros,biases", [(False, False), (True, True)])
+@pytest.mark.parametrize("M", [1, 5, 40])
+def test_units_walk_matches_plain(M, zeros, biases):
+    """The plain walk of every candidate's decomposition (slices summed in
+    slice order, each group's partial times its scale) against the plain
+    version: within the module's 1e-2 of max|ref|."""
+    x, ws = _units_case(M, zeros, biases, 11 + M)
+    ref = F.w4a16_fused_mlp_plain(x, *ws, activation="silu",
+                                  out_dtype=torch.float32)
+    choices = F.fused_mlp_plan_choices(M, K, I, G, G, coresident=_bound,
+                                       zeros=zeros)
+    assert len(choices) > 1
+    for p in choices:
+        out = F.fused_mlp_units_plain(x, *ws, activation="silu", plan=p,
+                                      out_dtype=torch.float32)
+        assert out.shape == (M, K)
+        assert (out - ref).abs().max() <= 1e-2 * ref.abs().max()
+
+
+def test_units_walk_per_channel_scales():
+    """Per-channel scales (one row) read once for every 128-row unit."""
+    rng = np.random.default_rng(21)
+    wgu = jnp.asarray(rng.standard_normal((K, 2 * I), dtype=np.float32) * .05)
+    wd = jnp.asarray(rng.standard_normal((I, K), dtype=np.float32) * .05)
+    qg, sg, _ = jq.quantize_w4(wgu, K, True)
+    qd, sd, _ = jq.quantize_w4(wd, I, True)
+    ws = [_t(jq.pack_w4_tiled(qg, BN)), _t(sg), _t(jq.pack_w4_tiled(qd, BND)),
+          _t(sd)]
+    x = _t(_x(3, 4))
+    ref = F.w4a16_fused_mlp_plain(x, *ws, out_dtype=torch.float32)
+    p = F.fused_mlp_plan(3, K, I, K, I, coresident=_bound)
+    out = F.fused_mlp_units_plain(x, *ws, plan=p, out_dtype=torch.float32)
+    assert (out - ref).abs().max() <= 1e-2 * ref.abs().max()
+
+
+META_REFUSED = [
+    # (K, I, BN, group, what the wrapper raises on a non-CPU tensor)
+    (K, I, BN, G, ValueError),                    # the device
+    (K, I, 32, G, NotImplementedError),           # tile not a 64-multiple
+    (K, I, BN, 16, NotImplementedError),          # group not a 32-multiple
+]
+
+
+@pytest.mark.parametrize("Kx,Ix,bn,group,exc", META_REFUSED)
+def test_wrapper_refuses_instead_of_falling_back(Kx, Ix, bn, group, exc):
+    """Only a CPU tensor takes the plain version: a tensor on any other
+    device goes to the kernel path, which raises NotImplementedError on
+    shapes K14 does not take before it checks the device."""
+    def meta(shape, dtype):
+        return torch.zeros(shape, dtype=dtype, device="meta")
+    x = meta((4, Kx), torch.bfloat16)
+    gu = meta((2 * Ix // bn, Kx // 2, bn), torch.int8)
+    gs = meta((Kx // group, 2 * Ix), torch.bfloat16)
+    dn = meta((Kx // bn, Ix // 2, bn), torch.int8)
+    ds = meta((Ix // group, Kx), torch.bfloat16)
+    with pytest.raises(exc):
+        F.w4a16_fused_mlp(x, gu, gs, dn, ds)
+
+
+def test_smem_mirror_counts_the_zero_rows():
+    """`fused_mlp_smem` (the kernel's layout) grows with zero points and
+    with the slices' width."""
+    base = F.fused_mlp_smem(1, 1, 2048, 5632, G, G, 8, 8, False)
+    assert F.fused_mlp_smem(1, 1, 2048, 5632, G, G, 8, 8, True) > base
+    assert F.fused_mlp_smem(1, 1, 2048, 5632, G, G, 4, 4, False) > base
+    assert base % 16 == 0
