@@ -87,11 +87,24 @@ Phases (any failure exits nonzero; nothing is caught and ignored):
    K9/K10 run at 128 heads inside the model;
 16. Moonlight and V3.2 widths at 2 layers (V3.2 with `index_topk` 128, below
    the prompt) on the card and on the CPU: logits and greedy tokens must
-   agree.
+   agree;
+17. `checkpoint`: `LLM(model=<HF checkpoint dir>)` on checkpoints the script
+   writes with its own safetensors writer (it needs no `safetensors`
+   package): TinyLlama-1.1B at full width and depth in two bf16
+   shards, W4A16 group 128 at load; the same weights AWQ-packed with zeros,
+   taken as stored; Moonlight-16B-A3B widths at 2 layers, W4A16 at load.
+   Each is served with the serve mix and a byte-level tokenizer object
+   (build seconds, peak device memory and peak host RSS printed with the
+   card), every output's text must be the tokenizer's decode of its
+   tokens, a streamed text prompt must rebuild the whole one's tokens and
+   text, and every loaded buffer must equal the CPU's load of the same
+   directory byte for byte; the TinyLlama ones are also cut to 2 layers
+   and cross-checked against the CPU as in phase 7.
 
 Arguments pick phases (default: check serve serve_ramp serve_stream
 fused_mlp cross llama3 gptoss gptoss_cross llama3_w4a8 llama3_w4a8_cross
-deepseek deepseek_v32 deepseek_v3_width deepseek_cross); `check_moe` runs
+deepseek deepseek_v32 deepseek_v3_width deepseek_cross checkpoint);
+`check_moe` runs
 only K5's checks, `check_w4a8` only K8's, `check_int8` only K6-K8's,
 `check_mla` only K9-K11's (with their plans' checks),
 `check_w4a16` only K12-K14's and `check_k1` only K1's; `profile`,
@@ -1890,7 +1903,8 @@ SERVE_TOKENS = {}          # phase -> (tokens, chosen-token logprobs)
 
 def serve_model(card, phase, label, cfg, required, absent=(),
                 kv_cache_quant="NONE", long_prompt=0, max_seq_len=1024,
-                ramp_per_layer=0, kpaired_per_layer=0):
+                ramp_per_layer=0, kpaired_per_layer=0, llm_kw=None,
+                check=None):
     """8 greedy requests (prompts 17..600 tokens, two sharing a 300-token
     prefix, plus one of `long_prompt` tokens when set), 64 new tokens each,
     through `LLM.generate`; the LLM warms up first (the W4A16 autotuner,
@@ -1901,7 +1915,10 @@ def serve_model(card, phase, label, cfg, required, absent=(),
     K-paired W4A16 linear K12 once (`kpaired_per_layer` of them a layer);
     for W4A8, K8 for all four projections; every MoE layer K5 twice;
     `ramp_per_layer` K13 launches per layer; the
-    kernels in `absent` must not launch at all."""
+    kernels in `absent` must not launch at all.  `cfg` may be a checkpoint
+    directory, `llm_kw` more `LLM` arguments (a tokenizer, `quant_algo`);
+    `check(llm, prompts, outs)` runs before the `LLM` shuts down.  The
+    summary keeps the build's peak device memory and peak host RSS."""
     import numpy as np
     import torch
     import tensorrt_llm_tpu_torch as T
@@ -1910,15 +1927,23 @@ def serve_model(card, phase, label, cfg, required, absent=(),
     from tensorrt_llm_tpu_torch.quantization import QuantAlgo
     torch.cuda.reset_peak_memory_stats()
     tuned_before = set(AutoTuner.get().timings)
-    t0 = time.perf_counter()
-    llm = T.LLM(model=cfg, skip_tokenizer_init=True,
-                device=DEVICE, max_batch_size=4, max_num_tokens=256,
-                max_seq_len=max_seq_len, kv_block_size=16,
-                kv_num_blocks=640, kv_cache_quant=kv_cache_quant, seed=0,
-                return_perf_metrics=True)
-    torch.cuda.synchronize()
-    build_s = time.perf_counter() - t0
-    log(f"[{phase}] {label}, built and warmed up in {build_s:.1f} s")
+    kw = dict(skip_tokenizer_init=True, device=DEVICE, max_batch_size=4,
+              max_num_tokens=256, max_seq_len=max_seq_len, kv_block_size=16,
+              kv_num_blocks=640, kv_cache_quant=kv_cache_quant, seed=0,
+              return_perf_metrics=True)
+    kw.update(llm_kw or {})
+    with PeakRss() as rss:
+        rss_before = rss.peak / 2 ** 30
+        t0 = time.perf_counter()
+        llm = T.LLM(model=cfg, **kw)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+    build_peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    build_rss_gib = rss.gib
+    cfg = llm.model_config
+    log(f"[{phase}] {label}, built and warmed up in {build_s:.1f} s "
+        f"(peak device memory {build_peak_gib:.2f} GiB, peak host RSS "
+        f"{build_rss_gib:.2f} GiB from {rss_before:.2f} GiB before; {card})")
     tactics = report_tactics(phase, llm.model, tuned_before)
     _, n_kpaired = w4a16_shapes(llm.model)
     rng = np.random.default_rng(0)
@@ -1955,6 +1980,8 @@ def serve_model(card, phase, label, cfg, required, absent=(),
         again = [o.outputs[0].token_ids
                  for o in llm.generate(prompts, sp, cache_salt="run2")]
         assert again == toks, "second run gave other tokens"
+        if check is not None:
+            check(llm, prompts, outs)
         windows = [getattr(getattr(layer.attn, "backend", None),
                            "sliding_window", None)
                    for layer in llm.model.layers]
@@ -2005,7 +2032,9 @@ def serve_model(card, phase, label, cfg, required, absent=(),
                           "w4a16_ramp", "w4a8_gemm"))
     summary = {
         "phase": phase, "model": label, "card": card,
-        "build_s": build_s, "requests": len(prompts),
+        "build_s": build_s, "build_peak_device_gib": build_peak_gib,
+        "build_peak_host_rss_gib": build_rss_gib,
+        "host_rss_before_build_gib": rss_before, "requests": len(prompts),
         "output_tokens": n_out, "wall_s": wall, "tokens_per_s": n_out / wall,
         "ttft_s_mean": float(np.mean(ttft)), "ttft_s_max": float(max(ttft)),
         "prefill_chunks": chunks, "decode_steps": dsteps,
@@ -2265,21 +2294,31 @@ class _RouteTies:
 
 
 def cross_check_cpu(phase, label, cfg, seed, n_prompt, chunk, n_decode,
-                    kv_cache_quant="NONE", tol=0.08, witness=False):
+                    kv_cache_quant="NONE", tol=0.08, witness=False,
+                    path=None):
     """The same weights on the card and on the CPU (plain versions), carried
-    across with state()/load_state: a chunked prefill of `n_prompt` tokens
-    then `n_decode` decode steps, teacher-forced on the CPU's tokens (and,
-    at bounded near-ties, on its MoE routing: `_RouteTies`), over bf16 or
-    INT8 KV pools.  ``witness=True`` forces no routing and asserts nothing:
-    it only lists the flips and the logit differences."""
+    across with state()/load_state -- or, with `path`, each model loading
+    that checkpoint directory itself (`load_hf_weights`) -- : a chunked
+    prefill of `n_prompt` tokens then `n_decode` decode steps,
+    teacher-forced on the CPU's tokens (and, at bounded near-ties, on its
+    MoE routing: `_RouteTies`), over bf16 or INT8 KV pools.
+    ``witness=True`` forces no routing and asserts nothing: it only lists
+    the flips and the logit differences."""
     import numpy as np
     import torch
     from tensorrt_llm_tpu_torch.attention_backend import AttentionMetadata
+    from tensorrt_llm_tpu_torch.llmapi.hf_checkpoint import SafetensorsReader
     from tensorrt_llm_tpu_torch.models import get_model_class
     from tensorrt_llm_tpu_torch.runtime.kv_cache_manager import model_pools
-    gpu = get_model_class(cfg.architecture)(cfg, DEVICE).init_random(seed)
-    cpu = get_model_class(cfg.architecture)(cfg, "cpu").load_state(
-        {k: v.cpu() for k, v in gpu.state().items()})
+    cls = get_model_class(cfg.architecture)
+    if path is None:
+        gpu = cls(cfg, DEVICE).init_random(seed)
+        cpu = cls(cfg, "cpu").load_state(
+            {k: v.cpu() for k, v in gpu.state().items()})
+    else:
+        with SafetensorsReader(path) as reader:
+            gpu = cls(cfg, DEVICE).load_hf_weights(reader)
+            cpu = cls(cfg, "cpu").load_hf_weights(reader)
     rng = np.random.default_rng(seed)
     prompt = [int(t) for t in rng.integers(10, cfg.vocab_size - 10,
                                             n_prompt)]
@@ -2565,6 +2604,428 @@ def profile_serve(card, phase, cfg, kv_cache_quant="NONE", long_prompt=0,
     torch.cuda.empty_cache()
 
 
+# ------------------------------------------------------ phase 17: checkpoints --
+# TinyLlama-1.1B's published config.json
+# (huggingface.co/TinyLlama/TinyLlama-1.1B-Chat-v1.0), model-structure keys
+TINYLLAMA_HF = dict(
+    architectures=["LlamaForCausalLM"], model_type="llama", vocab_size=32000,
+    hidden_size=2048, intermediate_size=5632, num_hidden_layers=22,
+    num_attention_heads=32, num_key_value_heads=4,
+    max_position_embeddings=2048, rms_norm_eps=1e-5, rope_theta=10000.0,
+    rope_scaling=None, hidden_act="silu", tie_word_embeddings=False,
+    attention_bias=False, bos_token_id=1, eos_token_id=2,
+    torch_dtype="bfloat16")
+CKPT_AWQ_GROUP = 128
+CKPT_TINYLLAMA_PATH = "ckpt_tinyllama"          # bf16 shards, W4A16 at load
+CKPT_TINYLLAMA_AWQ_PATH = "ckpt_tinyllama_awq"  # the same weights, AWQ
+CKPT_MOONLIGHT_PATH = "ckpt_moonlight"          # 2 layers, W4A16 at load
+CKPT_TEXT = "Checkpoints load on the card: ünïcødé, 漢字 and 🎉."
+# autoawq's pack order: nibble i of a word holds column AWQ_ORDER[i] of 8
+AWQ_ORDER = (0, 2, 4, 6, 1, 3, 5, 7)
+
+
+def write_safetensors(path, tensors):
+    """A minimal safetensors writer (so that the script needs no
+    `safetensors` package): an 8-byte little-endian header length, the
+    JSON header, then each tensor's bytes in order.  `tensors` maps a name
+    to a tensor, or to (dtype, shape, make) where make() gives the tensor
+    when its bytes are written, so a file may exceed the memory that holds
+    its tensors."""
+    import struct
+    import torch
+    names = {torch.bfloat16: "BF16", torch.float16: "F16",
+             torch.float32: "F32", torch.int32: "I32", torch.int64: "I64",
+             torch.int8: "I8", torch.uint8: "U8", torch.bool: "BOOL"}
+    specs = []
+    for name, v in tensors.items():
+        if isinstance(v, tuple):
+            dt, shape, make = v
+        else:
+            dt, shape, make = v.dtype, tuple(v.shape), (lambda v=v: v)
+        specs.append((name, dt, [int(d) for d in shape], make))
+    header, off = {}, 0
+    for name, dt, shape, _ in specs:
+        n = math.prod(shape) * dt.itemsize
+        header[name] = {"dtype": names[dt], "shape": shape,
+                        "data_offsets": [off, off + n]}
+        off += n
+    raw = json.dumps(header, separators=(",", ":")).encode()
+    raw += b" " * (-len(raw) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(raw)))
+        f.write(raw)
+        for name, dt, shape, make in specs:
+            t = make().detach().to("cpu").contiguous()
+            assert t.dtype == dt and list(t.shape) == shape, \
+                (name, t.dtype, tuple(t.shape))
+            f.write(t.reshape(-1).view(torch.uint8).numpy().data)
+
+
+class ByteTokenizer:
+    """A byte-level tokenizer object for random-weight checkpoints: ids 0-2
+    are <unk>, <s> and </s>, ids 3-258 the bytes 0-255 (a multi-byte
+    character spans several ids), and every other id below `vocab_size`
+    decodes to the word " t<id>"."""
+
+    SPECIAL = ("<unk>", "<s>", "</s>")
+    bos_token_id = 1
+    eos_token_id = 2
+
+    def __init__(self, vocab_size):
+        self.vocab_size = vocab_size
+
+    def encode(self, text):
+        return [self.bos_token_id] + [b + 3 for b in text.encode("utf-8")]
+
+    def decode(self, ids, skip_special_tokens=True):
+        out = bytearray()
+        for i in ids:
+            i = int(i)
+            if not 0 <= i < self.vocab_size:
+                raise ValueError(f"token id {i} outside the vocabulary")
+            if i < 3:
+                if not skip_special_tokens:
+                    out += self.SPECIAL[i].encode()
+            elif i < 259:
+                out.append(i - 3)
+            else:
+                out += f" t{i}".encode()
+        return out.decode("utf-8", errors="replace")
+
+
+def ckpt_specs(hf):
+    """[(name, shape, kind)] of an HF Llama or DeepSeek V3 checkpoint of
+    config `hf`, as transformers saves one (linears [out, in]); kind is
+    "embed", "linear", "norm" or "score_bias"."""
+    H, V, L = hf["hidden_size"], hf["vocab_size"], hf["num_hidden_layers"]
+    nh = hf["num_attention_heads"]
+    nkv = hf.get("num_key_value_heads") or nh
+    E = hf.get("n_routed_experts") or 0
+    out = [("model.embed_tokens.weight", (V, H), "embed")]
+
+    def mlp(pre, inter):
+        return [(pre + "gate_proj.weight", (inter, H), "linear"),
+                (pre + "up_proj.weight", (inter, H), "linear"),
+                (pre + "down_proj.weight", (H, inter), "linear")]
+
+    for i in range(L):
+        p = f"model.layers.{i}."
+        a = p + "self_attn."
+        out += [(p + "input_layernorm.weight", (H,), "norm"),
+                (p + "post_attention_layernorm.weight", (H,), "norm")]
+        if hf.get("kv_lora_rank"):
+            Lr, R = hf["kv_lora_rank"], hf["qk_rope_head_dim"]
+            N, Vd, Q = (hf["qk_nope_head_dim"], hf["v_head_dim"],
+                        hf.get("q_lora_rank"))
+            if Q is None:
+                out.append((a + "q_proj.weight", (nh * (N + R), H), "linear"))
+            else:
+                out += [(a + "q_a_proj.weight", (Q, H), "linear"),
+                        (a + "q_a_layernorm.weight", (Q,), "norm"),
+                        (a + "q_b_proj.weight", (nh * (N + R), Q), "linear")]
+            out += [(a + "kv_a_proj_with_mqa.weight", (Lr + R, H), "linear"),
+                    (a + "kv_a_layernorm.weight", (Lr,), "norm"),
+                    (a + "kv_b_proj.weight", (nh * (N + Vd), Lr), "linear"),
+                    (a + "o_proj.weight", (H, nh * Vd), "linear")]
+        else:
+            D = hf.get("head_dim") or H // nh
+            out += [(a + "q_proj.weight", (nh * D, H), "linear"),
+                    (a + "k_proj.weight", (nkv * D, H), "linear"),
+                    (a + "v_proj.weight", (nkv * D, H), "linear"),
+                    (a + "o_proj.weight", (H, nh * D), "linear")]
+        if E == 0 or i < (hf.get("first_k_dense_replace") or 0):
+            out += mlp(p + "mlp.", hf["intermediate_size"])
+            continue
+        Im = hf["moe_intermediate_size"]
+        out += [(p + "mlp.gate.weight", (E, H), "linear"),
+                (p + "mlp.gate.e_score_correction_bias", (E,), "score_bias")]
+        for j in range(E):
+            out += mlp(p + f"mlp.experts.{j}.", Im)
+        if hf.get("n_shared_experts"):
+            out += mlp(p + "mlp.shared_experts.",
+                       Im * hf["n_shared_experts"])
+    out += [("model.norm.weight", (H,), "norm"),
+            ("lm_head.weight", (V, H), "linear")]
+    return out
+
+
+def _awq_words(u):
+    """[R, C] values in [0, 15] -> int32 [R, C/8], nibble i holding column
+    AWQ_ORDER[i] of each 8-column block (the top nibble as a signed value,
+    so that no product leaves int32)."""
+    import torch
+    u = u.to(torch.int32)
+    out = torch.zeros((u.shape[0], u.shape[1] // 8), dtype=torch.int32,
+                      device=u.device)
+    for i, m in enumerate(AWQ_ORDER):
+        v = u[:, m::8]
+        if i == 7:
+            v = v - 16 * (v >= 8).to(torch.int32)
+        out |= v * (1 << (4 * i))
+    return out
+
+
+def write_checkpoint(path, hf, seed, awq_group=0, shards=2):
+    """An HF checkpoint directory: config.json and `shards` safetensors
+    files of bf16 weights drawn on the card from a `torch.Generator` seeded
+    per tensor (std 0.5/sqrt(in) for linears, 0.02 for the embedding,
+    1 + N(0, 0.02^2) for norms), in HF's names and layouts.  With
+    `awq_group`, every decoder linear is instead quantized (asymmetric,
+    that group; the port's `quantize_w4`) and stored AWQ-packed
+    (qweight/qzeros int32, scales fp16) under an AWQ quantization_config:
+    the same weights, pre-quantized.  Returns the bytes written."""
+    import torch
+    from tensorrt_llm_tpu_torch.quantization import quantize_w4
+    os.makedirs(path, exist_ok=True)
+
+    def draw(i, shape, kind):
+        g = torch.Generator(device=DEVICE)
+        g.manual_seed(seed * 1_000_003 + i)
+        t = torch.randn(shape, generator=g, device=DEVICE)
+        t.mul_({"embed": 0.02, "norm": 0.02, "score_bias": 0.05}.get(
+            kind, 0.5 / shape[-1] ** 0.5))
+        if kind == "norm":
+            t.add_(1.0)
+        return t.to(torch.bfloat16)
+
+    def awq(base, shape, make):
+        N, K = shape
+        memo = {}
+
+        def part(key):
+            if not memo:
+                q, s, z = quantize_w4(make().float().t(), awq_group,
+                                      symmetric=False)
+                memo.update(qweight=_awq_words(q.to(torch.int32) + 8),
+                            qzeros=_awq_words(z.to(torch.int32) + 8),
+                            scales=s.half())
+            return memo.pop(key)
+
+        G = awq_group
+        return [(base + ".qweight", torch.int32, (K, N // 8),
+                 lambda: part("qweight")),
+                (base + ".qzeros", torch.int32, (K // G, N // 8),
+                 lambda: part("qzeros")),
+                (base + ".scales", torch.float16, (K // G, N),
+                 lambda: part("scales"))]
+
+    entries = []
+    for i, (name, shape, kind) in enumerate(ckpt_specs(hf)):
+        make = (lambda i=i, shape=shape, kind=kind: draw(i, shape, kind))
+        if (awq_group and kind == "linear" and name.startswith("model.")
+                and name.endswith("_proj.weight")):
+            entries += awq(name[:-len(".weight")], shape, make)
+        else:
+            entries.append((name, torch.bfloat16, shape, make))
+    sizes = [math.prod(sh) * dt.itemsize for _, dt, sh, _ in entries]
+    total, acc, cut = sum(sizes), 0, [0]
+    for k, n in enumerate(sizes):
+        acc += n
+        if len(cut) < shards and acc >= total * len(cut) / shards:
+            cut.append(k + 1)
+    cut.append(len(entries))
+    for s in range(shards):
+        write_safetensors(
+            os.path.join(path, f"model-{s + 1:05d}-of-{shards:05d}"
+                               ".safetensors"),
+            {name: (dt, sh, mk) for name, dt, sh, mk in
+             entries[cut[s]:cut[s + 1]]})
+    cfg = dict(hf)
+    if awq_group:
+        cfg["quantization_config"] = {
+            "quant_method": "awq", "bits": 4, "group_size": awq_group,
+            "version": "gemm", "zero_point": True}
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump(cfg, f)
+    return total
+
+
+def cut_checkpoint(src, dst, num_layers):
+    """`src` with config.json cut to `num_layers` and its shards linked
+    (the loader does not read the layers past them)."""
+    os.makedirs(dst, exist_ok=True)
+    for f in os.listdir(src):
+        if f.endswith(".safetensors"):
+            os.symlink(os.path.join(src, f), os.path.join(dst, f))
+    with open(os.path.join(src, "config.json")) as f:
+        cfg = json.load(f)
+    cfg["num_hidden_layers"] = num_layers
+    with open(os.path.join(dst, "config.json"), "w") as f:
+        json.dump(cfg, f)
+    return dst
+
+
+class PeakRss:
+    """Peak resident set size of this process while the block runs,
+    sampled every 5 ms from /proc/self/statm by a thread (a process may
+    not be let reset the kernel's own peak mark)."""
+
+    def __enter__(self):
+        import threading
+        self.page = os.sysconf("SC_PAGE_SIZE")
+        self.peak = self._rss()
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._poll, daemon=True)
+        self._thread.start()
+        return self
+
+    def _rss(self):
+        with open("/proc/self/statm") as f:
+            return int(f.read().split()[1]) * self.page
+
+    def _poll(self):
+        while not self._stop.wait(0.005):
+            self.peak = max(self.peak, self._rss())
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+        self.peak = max(self.peak, self._rss())
+
+    @property
+    def gib(self):
+        return self.peak / 2 ** 30
+
+
+def _ckpt_checks(phase, path, quant_kw, tok):
+    """The checkpoint phase's holds on a served `LLM`: every output's text
+    is `tok.decode` of its tokens; one text prompt streamed rebuilds, piece
+    by piece, the tokens and text of the same prompt served whole; every
+    loaded buffer (RoPE tables aside: computed, not loaded) equals, byte for
+    byte, the buffer the port's `load_hf_weights` / `from_float` makes on
+    the CPU from the same directory."""
+    import torch
+    import tensorrt_llm_tpu_torch as T
+    from tensorrt_llm_tpu_torch.llmapi.hf_checkpoint import SafetensorsReader
+    from tensorrt_llm_tpu_torch.llmapi.llm import resolve_model_config
+    from tensorrt_llm_tpu_torch.models import get_model_class
+
+    def check(llm, prompts, outs):
+        assert llm.executor.eos_token_id == tok.eos_token_id
+        for o in outs:
+            assert o.outputs[0].text == tok.decode(o.outputs[0].token_ids)
+        sp = T.SamplingParams(max_tokens=24, temperature=0.0,
+                              ignore_eos=True)
+        whole = llm.generate(CKPT_TEXT, sp, cache_salt="whole")[0]
+        pieces = list(llm.generate_async(CKPT_TEXT, sp, streaming=True,
+                                         cache_salt="streamed"))
+        assert whole.prompt == CKPT_TEXT
+        assert whole.prompt_token_ids == tok.encode(CKPT_TEXT)
+        assert pieces[-1].finished and not any(p.finished
+                                               for p in pieces[:-1])
+        prev = []
+        for pc in pieces:
+            ids = pc.outputs[0].token_ids
+            assert ids[:len(prev)] == prev, "streamed tokens not a prefix"
+            prev = ids
+        last = pieces[-1].outputs[0]
+        assert last.token_ids == whole.outputs[0].token_ids
+        assert last.text == whole.outputs[0].text == tok.decode(
+            last.token_ids)
+        cfg, _ = resolve_model_config(T.LlmArgs(model=path, **quant_kw))
+        cfg.max_position = llm.model_config.max_position
+        with SafetensorsReader(path) as reader:
+            ref = get_model_class(cfg.architecture)(cfg, "cpu") \
+                .load_hf_weights(reader).state()
+        got = llm.model.state()
+        assert sorted(got) == sorted(ref)
+
+        def raw(t):
+            return t.contiguous().reshape(-1).view(torch.uint8)
+
+        loaded = [k for k in ref if not k.startswith("rope_")]
+        diff = [k for k in loaded if not torch.equal(raw(got[k].cpu()),
+                                                     raw(ref[k]))]
+        PHASES[phase + "_checks"] = {
+            "texts_equal_decode": len(outs), "streamed_pieces": len(pieces),
+            "buffers_compared": len(loaded),
+            "buffers_differing_from_cpu": diff,
+            "bytes_compared": sum(ref[k].numel() * ref[k].element_size()
+                                  for k in loaded)}
+        log(json.dumps({"phase": phase, **PHASES[phase + "_checks"]}))
+        assert not diff, f"card and CPU loads differ: {diff[:8]}"
+
+    return check
+
+
+def checkpoint_phase(card, by_path):
+    """`LLM(model=<HF checkpoint dir>)` on the card, from checkpoints this
+    script writes (into a temporary directory, removed at the end):
+    TinyLlama-1.1B at full width and depth in two bf16 shards, loaded with
+    W4A16 group 128 at load; the same weights AWQ-packed with zeros, loaded
+    as pre-quantized; Moonlight-16B-A3B widths at 2 layers (layer 0 dense,
+    layer 1 64 experts top-6 and 2 shared), W4A16 at load.  Each is served
+    with the serve mix and a `ByteTokenizer` object (`serve_model`, with
+    its launch counts, build seconds, peak device memory and peak host
+    RSS), and held by `_ckpt_checks`.  The TinyLlama directories are also
+    cross-checked against a CPU run of the same directory cut to 2 layers
+    (`cross_check_cpu`).  Moonlight's is not: its load is held byte for
+    byte to the CPU's, so a cross-check of it would compare the kernels
+    with their plain versions at Moonlight widths, which `deepseek_cross`
+    does; on these weights it forced 7 near-tie routings against
+    `ROUTE_MAX_FORCED` 6 (gaps below twice a router score noise of
+    0.0015-0.003)."""
+    import shutil
+    import tempfile
+    import torch
+    from tensorrt_llm_tpu_torch.llmapi.llm import resolve_model_config
+    from tensorrt_llm_tpu_torch.models import MOONLIGHT_16B_A3B
+    import tensorrt_llm_tpu_torch as T
+    root = tempfile.mkdtemp(prefix="tllm_ckpt_")
+    t_all = time.perf_counter()
+    try:
+        moon_hf = dict(MOONLIGHT_16B_A3B["hf_config"], num_hidden_layers=2)
+        w4 = dict(quant_algo="W4A16", quant_group_size=128)
+        gqa = ("w4a16_gemm", "flash_prefill", "paged_decode")
+        runs = [
+            (CKPT_TINYLLAMA_PATH, "tinyllama", TINYLLAMA_HF, 0, w4,
+             "tinyllama-1.1b checkpoint (22 layers, bf16), W4A16 at load",
+             dict(required=gqa), True),
+            (CKPT_TINYLLAMA_AWQ_PATH, "tinyllama_awq", TINYLLAMA_HF,
+             CKPT_AWQ_GROUP, {},
+             "tinyllama-1.1b checkpoint (22 layers), AWQ g128 with zeros",
+             dict(required=gqa), True),
+            (CKPT_MOONLIGHT_PATH, "moonlight", moon_hf, 0, w4,
+             "moonlight-16b-a3b widths checkpoint (2 layers), W4A16 at "
+             "load",
+             dict(required=("w4a16_gemm", "moe_gmm", "moe_gmm_units",
+                            "mla_prefill", "mla_decode", "w4a16_kpaired"),
+                  absent=("flash_prefill", "paged_decode", "dsa_score"),
+                  kpaired_per_layer=1), False)]
+        for phase, sub, hf, awq, quant_kw, label, kw, cross in runs:
+            path = os.path.join(root, sub)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            nbytes = write_checkpoint(path, hf, seed=11 if awq or
+                                      sub == "tinyllama" else 12,
+                                      awq_group=awq)
+            write_s = time.perf_counter() - t0
+            log(f"[{phase}] wrote {nbytes / 2 ** 30:.2f} GiB in "
+                f"{write_s:.1f} s")
+            tok = ByteTokenizer(hf["vocab_size"])
+            by_path[phase] = serve_model(
+                card, phase, label, path,
+                llm_kw=dict(quant_kw, tokenizer=tok,
+                            skip_tokenizer_init=False),
+                check=_ckpt_checks(phase, path, quant_kw, tok), **kw)
+            PHASES[phase].update(checkpoint_gib=nbytes / 2 ** 30,
+                                 write_s=write_s)
+            if cross:
+                cut = cut_checkpoint(path, path + "_2layers", 2)
+                cfg, _ = resolve_model_config(T.LlmArgs(model=cut,
+                                                        **quant_kw))
+                cross_check_cpu(phase + "_cross_check",
+                                f"{label}, cut to 2 layers", cfg, seed=8,
+                                n_prompt=100, chunk=64, n_decode=6, path=cut)
+            for d in (path, path + "_2layers"):
+                shutil.rmtree(d, ignore_errors=True)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    PHASES["checkpoint_seconds"] = time.perf_counter() - t_all
+    log(f"[checkpoint] phase took {PHASES['checkpoint_seconds']:.1f} s "
+        f"({card})")
+
+
 # ----------------------------------------------------------------- summary --
 SERVE_PATH = "serve"                    # TinyLlama W4A16: K1-K4, K13
 GPT_OSS_PATH = "serve_gpt_oss"          # GPT-OSS-20B: K1, K3-K5, K12
@@ -2719,7 +3180,7 @@ def main() -> int:
                       "llama3", "gptoss",
                       "gptoss_cross", "llama3_w4a8", "llama3_w4a8_cross",
                       "deepseek", "deepseek_v32", "deepseek_v3_width",
-                      "deepseek_cross"]
+                      "deepseek_cross", "checkpoint"]
     by_path = {}      # each serve path's own launch counts
     try:
         run_phases(phases, card, gen, dev, by_path)
@@ -2841,6 +3302,8 @@ def run_phases(phases, card, gen, dev, by_path):
                         "deepseek-v3.2 width, 2 layers (index_topk 2048 "
                         "covers the context)", deepseek_cfg(2), seed=7,
                         n_prompt=200, chunk=128, n_decode=4)
+    if "checkpoint" in phases:
+        checkpoint_phase(card, by_path)
     if "mla_decode_breakdown" in phases:
         mla_decode_breakdown(gen, dev)
     if "route_witness" in phases:

@@ -22,6 +22,7 @@ from tensorrt_llm_tpu_torch.attention_backend.interface import (
 from tensorrt_llm_tpu_torch.layers.linear import Linear
 from tensorrt_llm_tpu_torch.ops.rope import apply_rope
 from tensorrt_llm_tpu_torch.quantization import QuantConfig
+from tensorrt_llm_tpu_torch.quantization.hf_ingest import wcat
 
 
 class Attention(nn.Module):
@@ -48,10 +49,11 @@ class Attention(nn.Module):
 
     def from_float(self, q_w, k_w, v_w, o_w, q_b=None, k_b=None, v_b=None,
                    o_b=None, sinks=None) -> None:
-        """Full float weights [in, out]; biases and sinks as the JAX
-        package's `Attention.from_float` takes them (tp = 1)."""
+        """Full float weights [in, out] (or AWQ/GPTQ `QTensor`s); biases
+        and sinks as the JAX package's `Attention.from_float` takes them
+        (tp = 1)."""
         bias = (torch.cat([q_b, k_b, v_b]) if self.has_bias else None)
-        self.qkv.from_float(torch.cat([q_w, k_w, v_w], dim=1), bias)
+        self.qkv.from_float(wcat([q_w, k_w, v_w]), bias)
         self.o.from_float(o_w, o_b if self.has_o_bias else None)
         if self.has_sinks:
             self.sinks = sinks.to(torch.float32).contiguous()

@@ -35,6 +35,7 @@ from tensorrt_llm_tpu_torch.ops.w4a16_gemm import (
 from tensorrt_llm_tpu_torch.quantization import (
     QuantAlgo, QuantConfig, choose_block_n, pack_group_for, pack_w4,
     pack_w4_tiled, quantize_w4)
+from tensorrt_llm_tpu_torch.quantization.hf_ingest import QTensor
 
 
 class Linear(nn.Module):
@@ -59,23 +60,40 @@ class Linear(nn.Module):
             self.register_buffer(b, None)
 
     # ---- parameters -----------------------------------------------------
-    def from_float(self, w: torch.Tensor,
-                   bias: Optional[torch.Tensor] = None) -> None:
+    def from_float(self, w, bias: Optional[torch.Tensor] = None) -> None:
         """Quantize (W4A16, W4A8) or cast (bf16) full float weights
-        [in, out]."""
+        [in, out].  `w` may instead be a `QTensor` from an AWQ/GPTQ
+        checkpoint: a quantized layer packs its ints as they are, at its
+        group size (never re-quantized); an unquantized one takes its exact
+        dequantization."""
         assert tuple(w.shape) == (self.in_features, self.out_features), \
             (tuple(w.shape), (self.in_features, self.out_features))
+        if isinstance(w, QTensor):
+            if not self.quantized:
+                w = w.dequant()
+            else:
+                self.group_size = w.group_size
+                self.load({"qweight": self._pack(w.q, w.scales.shape[0]),
+                           "scales": w.scales, "zeros": w.zeros,
+                           "bias": bias})
+                return
         if self.quantized:
             q, s, z = quantize_w4(w, self.group_size,
                                   symmetric=not self.has_zeros)
-            K, N = q.shape
-            bn = choose_block_n(N)
-            packed = (pack_w4_tiled(q, bn) if bn and K % 2 == 0
-                      else pack_w4(q, pack_group_for(K, s.shape[0])))
-            self.load({"qweight": packed, "scales": s, "zeros": z,
-                       "bias": bias})
+            self.load({"qweight": self._pack(q, s.shape[0]), "scales": s,
+                       "zeros": z, "bias": bias})
         else:
             self.load({"weight": w, "bias": bias})
+
+    @staticmethod
+    def _pack(q: torch.Tensor, n_scale_groups: int) -> torch.Tensor:
+        """The JAX package's `W4A16LinearMethod._pack`: tiled where a
+        128-multiple column tile divides N, else K-paired."""
+        K, N = q.shape
+        bn = choose_block_n(N)
+        if bn and K % 2 == 0:
+            return pack_w4_tiled(q, bn)
+        return pack_w4(q, pack_group_for(K, n_scale_groups))
 
     def load(self, p: Dict[str, Optional[torch.Tensor]]) -> None:
         """Install parameters in the JAX package's naming (``qweight``,

@@ -46,6 +46,7 @@ from tensorrt_llm_tpu_torch.ops.mla import (
 from tensorrt_llm_tpu_torch.ops.norms import layer_norm, rms_norm
 from tensorrt_llm_tpu_torch.ops.rope import apply_rope
 from tensorrt_llm_tpu_torch.quantization import QuantConfig
+from tensorrt_llm_tpu_torch.quantization.hf_ingest import QTensor
 
 _INDEXER_NORM_EPS = 1e-6
 
@@ -113,8 +114,12 @@ class MLA(nn.Module):
         """Full float weights [in, out], as the JAX package's
         `MLA.from_float`: kv_b_w [L, H*(N+V)] is split into the absorbed
         W_uk [H, N, L] and W_uv [H, L, V]; `indexer` holds `wq_b`, `wk`,
-        `k_norm_w`, `k_norm_b` (None: zeros) and `weights_proj`."""
+        `k_norm_w`, `k_norm_b` (None: zeros) and `weights_proj`.  The
+        linears also take AWQ/GPTQ `QTensor`s; kv_b_w then enters the bf16
+        factors as its exact dequantization."""
         L, N, V = self.kv_lora_rank, self.qk_nope_head_dim, self.v_head_dim
+        if isinstance(kv_b_w, QTensor):
+            kv_b_w = kv_b_w.dequant()
         kv_b = kv_b_w.reshape(L, self.num_heads, N + V)
         self.w_uk = kv_b[:, :, :N].permute(1, 2, 0).to(
             torch.bfloat16).contiguous()

@@ -12,6 +12,7 @@ from torch import nn
 from tensorrt_llm_tpu_torch.layers.linear import Linear
 from tensorrt_llm_tpu_torch.ops.w4a16_gemm import ACTIVATIONS
 from tensorrt_llm_tpu_torch.quantization import QuantConfig
+from tensorrt_llm_tpu_torch.quantization.hf_ingest import wcat
 
 
 class GatedMLP(nn.Module):
@@ -25,9 +26,10 @@ class GatedMLP(nn.Module):
         self.down = Linear(intermediate_size, hidden_size, quant, "mlp")
 
     def from_float(self, gate_w, up_w, down_w) -> None:
-        """Full float weights in [in, out] layout; gate and up are fused
-        column-wise ([gate | up]) as in the JAX package at tp = 1."""
-        self.gate_up.from_float(torch.cat([gate_w, up_w], dim=1))
+        """Full float weights in [in, out] layout (or AWQ/GPTQ
+        `QTensor`s); gate and up are fused column-wise ([gate | up]) as in
+        the JAX package at tp = 1."""
+        self.gate_up.from_float(wcat([gate_w, up_w]))
         self.down.from_float(down_w)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

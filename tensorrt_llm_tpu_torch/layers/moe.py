@@ -29,11 +29,17 @@ k rows in increasing expert order -- the order of the JAX package's
 scatter over the expert-sorted pairs -- with no atomics, so it is
 deterministic on the card.
 
+Unquantized (bf16) experts -- the JAX package's choice for any quant
+config outside the W4A16 family, W4A8_AWQ included -- run its
+`jax.lax.ragged_dot` as a plain grouped product (`_ragged_dot`: one matrix
+product per expert with rows, bf16 out), as the JAX package runs them in
+XLA and not in a Pallas kernel; they read the group sizes back to the
+host.
+
 Not in this slice: the capacity factor, redundant expert slots and load
-counters, the Llama4 routing (the layer has no option for it;
-`ModelConfig.from_hf_config` raises on a config that sets it), and
-unquantized (bf16) experts (raise here).  Expert and tensor parallelism
-have no option either: the layer runs on one device.
+counters, and the Llama4 routing (the layer has no option for it;
+`ModelConfig.from_hf_config` raises on a config that sets it).  Expert and
+tensor parallelism have no option either: the layer runs on one device.
 """
 
 from __future__ import annotations
@@ -66,11 +72,10 @@ class MoE(nn.Module):
                  n_group: int = 1, topk_group: int = 1,
                  routed_scaling: float = 1.0, n_shared_experts: int = 0):
         super().__init__()
-        if quant is None or not quant.is_weight_only_w4:
-            raise NotImplementedError(
-                "MoE: only W4A16 experts are in this slice")
         H, I = hidden_size, intermediate_size
-        if H % 2 or I % 2:
+        # int4 experts under the W4A16 family, bf16 experts otherwise
+        self.quant_experts = quant is not None and quant.is_weight_only_w4
+        if self.quant_experts and (H % 2 or I % 2):
             raise NotImplementedError(f"MoE: odd widths H={H}, I={I}")
         self.hidden_size = H
         self.intermediate_size = I
@@ -93,8 +98,8 @@ class MoE(nn.Module):
         self.routed_scaling = routed_scaling
         self.shared = (GatedMLP(H, n_shared_experts * I, activation,
                                 quant=quant) if n_shared_experts else None)
-        self.symmetric = not quant.has_zero_point
-        gs = quant.group_size
+        self.symmetric = not (quant is not None and quant.has_zero_point)
+        gs = quant.group_size if quant is not None else 0
         # per-group scales where the group divides the width, else one
         # scale per channel (the JAX package's _g_up / _g_down)
         self.g_up = gs if 0 < gs < H and H % gs == 0 else -1
@@ -106,17 +111,22 @@ class MoE(nn.Module):
     def load_experts(self, chunks: Iterable[Tuple[torch.Tensor,
                                                   torch.Tensor,
                                                   torch.Tensor]]) -> None:
-        """Quantize the expert weights from consecutive chunks along the
-        expert axis, each (gate [e, H, I], up [e, H, I], down [e, I, H])
-        full float, so that a caller can draw 256 experts a few at a time.
-        gate and up are fused as [gate | up] along the output columns, the
-        JAX package's interleave at tp = 1."""
+        """Quantize (or cast to bf16) the expert weights from consecutive
+        chunks along the expert axis, each (gate [e, H, I], up [e, H, I],
+        down [e, I, H]) full float, so that a caller can draw or read 256
+        experts a few at a time.  gate and up are fused as [gate | up] along
+        the output columns, the JAX package's interleave at tp = 1."""
         parts = []
         for gate_w, up_w, down_w in chunks:
             for lo in range(0, gate_w.shape[0], _EXPERT_CHUNK):
                 hi = lo + _EXPERT_CHUNK
                 fused = torch.cat([gate_w[lo:hi], up_w[lo:hi]], dim=2).to(
                     torch.float32)
+                if not self.quant_experts:
+                    parts.append((fused.to(torch.bfloat16), None, None,
+                                  down_w[lo:hi].to(torch.bfloat16), None,
+                                  None))
+                    continue
                 gu = quantize_experts_w4(fused, self.g_up, self.symmetric)
                 del fused
                 dn = quantize_experts_w4(down_w[lo:hi].to(torch.float32),
@@ -222,12 +232,15 @@ class MoE(nn.Module):
         group_sizes = torch.zeros(E, dtype=torch.int32, device=x.device)
         group_sizes.scatter_add_(0, flat_ids, torch.ones_like(
             flat_ids, dtype=torch.int32))
-        units = gmm_work_units(group_sizes, T * k)   # shared by both products
-
         xs = x[sorted_tok].to(torch.bfloat16)
-        h = w4a16_grouped_matmul(xs, self.w_gate_up, self.w_gate_up_s,
-                                 group_sizes, units, self.w_gate_up_z
-                                 ).to(torch.bfloat16)
+        if self.quant_experts:
+            units = gmm_work_units(group_sizes, T * k)   # for both products
+            h = w4a16_grouped_matmul(xs, self.w_gate_up, self.w_gate_up_s,
+                                     group_sizes, units, self.w_gate_up_z
+                                     ).to(torch.bfloat16)
+        else:
+            ends = torch.cumsum(group_sizes, 0).tolist()
+            h = _ragged_dot(xs, self.w_gate_up, ends)
         if self.has_expert_bias:
             h = (h.to(torch.float32) + self.b_gate_up[sorted_e]).to(
                 torch.bfloat16)
@@ -240,8 +253,12 @@ class MoE(nn.Module):
             h = ((u + 1.0) * g * torch.sigmoid(1.702 * g)).to(torch.bfloat16)
         else:
             h = (ACTIVATIONS[self.activation](gate) * up).to(torch.bfloat16)
-        out_sorted = w4a16_grouped_matmul(h, self.w_down, self.w_down_s,
-                                          group_sizes, units, self.w_down_z)
+        if self.quant_experts:
+            out_sorted = w4a16_grouped_matmul(h, self.w_down, self.w_down_s,
+                                              group_sizes, units,
+                                              self.w_down_z)
+        else:
+            out_sorted = _ragged_dot(h, self.w_down, ends).to(torch.float32)
         if self.has_expert_bias:
             # added once per (token, expert) pair, before the routing weight
             out_sorted = out_sorted + self.b_down[sorted_e]
@@ -258,3 +275,21 @@ class MoE(nn.Module):
         if self.shared is not None:
             acc = acc + self.shared(x).to(torch.float32)
         return acc.to(x.dtype)
+
+
+def _ragged_dot(x: torch.Tensor, w: torch.Tensor, ends) -> torch.Tensor:
+    """`jax.lax.ragged_dot` of bf16 rows grouped by expert (group e ends at
+    row ``ends[e]``) with bf16 weights [E, K, N]: each group's product
+    accumulated in f32 and rounded once to bf16."""
+    out = torch.zeros((x.shape[0], w.shape[2]), dtype=torch.bfloat16,
+                      device=x.device)
+    start = 0
+    for e, end in enumerate(ends):
+        if end > start:
+            if x.device.type == "cuda":
+                out[start:end] = torch.matmul(x[start:end], w[e])
+            else:
+                out[start:end] = (x[start:end].to(torch.float32)
+                                  @ w[e].to(torch.float32)).to(torch.bfloat16)
+        start = end
+    return out

@@ -2,35 +2,62 @@
 
 Counterpart of `tensorrt_llm_tpu/llmapi/llm.py`: builds the model, the paged
 KV cache, the engine and the executor thread, and serves `generate` /
-`generate_async` on token-id prompts.  The model runs on CUDA unless the
-caller passes ``device="cpu"``; without a GPU the default raises.
+`generate_async` on text or token-id prompts, with text returned whole or
+streamed.  The model runs on CUDA unless the caller passes ``device="cpu"``;
+without a GPU the default raises.
 
-In this slice the model is a `ModelConfig` (or one of the presets of
-`models/`: `gpt_oss_20b_config`, `moonlight_16b_a3b_config`,
-`deepseek_v3_config`, `deepseek_v32_config`) with random (seeded) weights,
-or with a ready state passed as ``params`` (see `params_from_jax`).  An MLA
-model gets one latent pool per layer, plus the indexer pool under DSA.
-Before the executor starts, the engine warms up (`ModelEngine.warmup`:
-the W4A16 autotuner, then one prefill chunk and one decode step), by
-default on a CUDA device only (`enable_warmup`).
-Tokenizers, checkpoints, streaming iteration and the server belong to
-later slices.
+`model` is an HF checkpoint directory (`config.json`, read with `json`, and
+`*.safetensors`, read by the port's own `SafetensorsReader`; no
+`transformers` or `safetensors` needed), loaded by `load_hf_weights`:
+quantized at load under `quant_algo`, or, when that is unset and the
+checkpoint is AWQ/GPTQ, taken as stored under its own
+`quantization_config`.  `load_format="dummy"`, or a directory without
+weights (with a warning), draws random weights at the checkpoint's shapes.
+`model` may instead be a `ModelConfig` (or one of the presets of `models/`)
+with random (seeded) weights, or with a ready state passed as ``params``
+(see `params_from_jax`).  `update_weights` swaps in the weights of another
+checkpoint of the same shapes.  An MLA model gets one latent pool per
+layer, plus the indexer pool under DSA.
+
+The tokenizer is an object with ``encode``/``decode``/``eos_token_id``
+given as `tokenizer`, or a path (the model directory by default) loaded
+with `transformers.AutoTokenizer`, imported only then;
+``skip_tokenizer_init=True`` serves token ids only.  Its eos id stops
+generation.  `GenerationFuture.result` detokenizes the output whole;
+iterating the future (``generate_async(..., streaming=True)``) yields one
+`RequestOutput` per executor piece, with cumulative token ids and text from
+`IncrementalDetokenizer`.  Stop strings are refused at submit (the
+executor's stop scan is a later slice), so there is no stop-string
+truncation of the text or of streamed tokens.
+
+Before the executor starts, the engine warms up (`ModelEngine.warmup`: the
+W4A16 autotuner, then one prefill chunk and one decode step), by default on
+a CUDA device only (`enable_warmup`).  The server, LoRA and the other
+sampling controls belong to later slices.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import numbers
+import os
+import warnings
 import weakref
 from dataclasses import dataclass, field
-from typing import Any, List, Optional, Sequence, Union
+from typing import Any, Iterator, List, Optional, Sequence, Union
 
 import torch
 
+from tensorrt_llm_tpu_torch.llmapi.detokenizer import IncrementalDetokenizer
+from tensorrt_llm_tpu_torch.llmapi.hf_checkpoint import (
+    SafetensorsReader, has_weights, read_hf_config)
 from tensorrt_llm_tpu_torch.llmapi.llm_args import LlmArgs
 from tensorrt_llm_tpu_torch.llmapi.sampling_params import SamplingParams
 from tensorrt_llm_tpu_torch.models.modeling_utils import (
     ModelConfig, get_model_class)
-from tensorrt_llm_tpu_torch.quantization.mode import KvCacheQuantAlgo
+from tensorrt_llm_tpu_torch.quantization.hf_ingest import quant_config_from_hf
+from tensorrt_llm_tpu_torch.quantization.mode import (
+    KvCacheQuantAlgo, QuantAlgo, QuantConfig)
 from tensorrt_llm_tpu_torch.runtime.executor import PyExecutor
 from tensorrt_llm_tpu_torch.runtime.kv_cache_manager import (
     KVCacheManager, pool_layout)
@@ -58,6 +85,37 @@ class RequestOutput:
     metrics: Optional[dict] = None
 
 
+def resolve_model_config(a: LlmArgs) -> tuple:
+    """(ModelConfig, checkpoint directory or None) of the arguments: the
+    `ModelConfig` given (with `quant_algo`'s config when set), or the one
+    of a checkpoint's `config.json`, quantized under `quant_algo` or, when
+    that is unset, under an AWQ/GPTQ checkpoint's own
+    `quantization_config`."""
+    quant = a.quant_config()
+    if isinstance(a.model, ModelConfig):
+        cfg = dataclasses.replace(a.model)
+        if quant is not None:
+            cfg.quant = quant
+        return cfg, None
+    if not isinstance(a.model, (str, os.PathLike)):
+        raise TypeError("model must be a checkpoint directory or a "
+                        f"ModelConfig, got {type(a.model).__name__}")
+    path = str(a.model)
+    hf = read_hf_config(path)
+    if quant is None:
+        hq = quant_config_from_hf(hf.get("quantization_config"))
+        if hq is not None:
+            kw = dict(quant_algo=QuantAlgo(hq["algo"]),
+                      group_size=hq["group_size"], has_zero_point=True,
+                      pre_quantized=True, ckpt_format=hq["format"],
+                      ckpt_v2=hq["v2"])
+            if hq["exclude_modules"]:
+                kw["exclude_modules"] = tuple(hq["exclude_modules"]) + (
+                    "embed",)
+            quant = QuantConfig(**kw)
+    return ModelConfig.from_hf_config(hf, quant=quant), path
+
+
 class LLM:
     def __init__(self, model: Any = None, tokenizer: Any = None,
                  args: Optional[LlmArgs] = None, **kwargs):
@@ -65,26 +123,53 @@ class LLM:
             args = LlmArgs(model=model, tokenizer=tokenizer, **kwargs)
         self.args = args
         self.executor = None
+        self._tokenizer = None
         self.device = resolve_device(args.device)
         self._build()
 
+    # ---------------------------------------------------------------- build --
+    def _load_tokenizer(self, model_path: Optional[str]):
+        """The tokenizer object as given, or one loaded from a path (the
+        model directory by default) with `transformers.AutoTokenizer`."""
+        if self.args.skip_tokenizer_init:
+            return None
+        tok = self.args.tokenizer
+        if tok is None:
+            tok = model_path
+        if isinstance(tok, (str, os.PathLike)):
+            try:
+                from transformers import AutoTokenizer
+            except ImportError as e:
+                raise ImportError(
+                    f"tokenizer={str(tok)!r} is a path, which needs the "
+                    "`transformers` package; pass a tokenizer object "
+                    "(encode/decode/eos_token_id) or skip_tokenizer_init="
+                    "True") from e
+            return AutoTokenizer.from_pretrained(tok)
+        return tok
+
     def _build(self):
         a = self.args
-        if a.tokenizer is not None or not a.skip_tokenizer_init:
+        if a.lora_path:
             raise NotImplementedError(
-                "tokenizers are not in this slice of the port: pass "
-                "skip_tokenizer_init=True and token-id prompts")
-        if not isinstance(a.model, ModelConfig):
-            raise NotImplementedError(
-                "this slice takes a ModelConfig; checkpoint loading comes "
-                f"later (got {type(a.model).__name__})")
-        cfg = dataclasses.replace(a.model)
+                "lora_path (LoRA merged into the weights at load) is not in "
+                "the port yet")
+        cfg, model_path = resolve_model_config(a)
         cfg.max_position = max(cfg.max_position, a.max_seq_len)
         self.model_config = cfg
+        self._tokenizer = self._load_tokenizer(model_path)
         self.model = get_model_class(cfg.architecture)(cfg, self.device)
         if a.params is not None:
             self.model.load_state(a.params)
+        elif a.load_format == "dummy":
+            self.model.init_random(a.seed)
+        elif model_path is not None and has_weights(model_path):
+            with SafetensorsReader(model_path) as reader:
+                self.model.load_hf_weights(reader)
         else:
+            if model_path is not None:
+                warnings.warn(f"no *.safetensors in {model_path}: drawing "
+                              "random weights", stacklevel=3)
             self.model.init_random(a.seed)
         geo = pool_layout(cfg)
         kvcfg = a.make_kv_cache_config(geo["layout"], geo["dsa_index_dim"])
@@ -101,8 +186,10 @@ class LLM:
             # tune the W4A16 tactics and warm the steps before serving
             self.engine.warmup(min(a.max_num_tokens, a.max_seq_len - 1),
                                a.max_batch_size)
+        eos = (None if self._tokenizer is None
+               else getattr(self._tokenizer, "eos_token_id", None))
         self.executor = PyExecutor(
-            self.engine, a.make_scheduler_config(), eos_token_id=None,
+            self.engine, a.make_scheduler_config(), eos_token_id=eos,
             max_seq_len=a.max_seq_len, max_decode_steps=a.max_decode_steps)
         self.executor.start()
         # join the executor thread at interpreter exit even without shutdown()
@@ -129,43 +216,83 @@ class LLM:
         need = a.max_batch_size * cdiv(a.max_seq_len, kvcfg.block_size)
         return min(max(n, 64), max(need * 2, 64) * 8)
 
+    # ------------------------------------------------------------ weights --
+    def update_weights(self, source) -> None:
+        """Swap in the weights of a checkpoint directory, or of a
+        `get_tensor(name)` callable, with this model's shapes: they load
+        into a second model on the device (`load_hf_weights`), whose state
+        the executor installs between two steps, dropping the cached
+        prefix blocks (their KV came from the old weights; the JAX package
+        keeps them).  Requests in flight finish on the new weights."""
+        if isinstance(source, (str, os.PathLike)):
+            with SafetensorsReader(str(source)) as reader:
+                self.update_weights(reader)
+            return
+        if not callable(source):
+            raise TypeError("source must be a checkpoint directory or a "
+                            "get_tensor callable")
+        fresh = get_model_class(self.model_config.architecture)(
+            self.model_config, self.device).load_hf_weights(source)
+        state = fresh.state()
+        del fresh
+
+        def swap():
+            self.model.load_state(state)
+            self.kv_manager.drop_cached_blocks()
+
+        self.executor.call_between_steps(swap)
+
     # ------------------------------------------------------------ generate --
-    def generate(self, prompts: Union[Sequence[List[int]], List[int]],
-                 sampling_params: Union[SamplingParams,
-                                        Sequence[SamplingParams], None] = None,
+    @property
+    def tokenizer(self):
+        return self._tokenizer
+
+    def generate(self, prompts, sampling_params: Union[
+                     SamplingParams, Sequence[SamplingParams], None] = None,
                  cache_salt: Optional[str] = None) -> List[RequestOutput]:
-        """Serve a batch of token-id prompts.  The batch reaches the
-        executor in one piece, so the schedule does not depend on how fast
-        the caller submits."""
-        import numbers
-        if prompts and isinstance(prompts[0], numbers.Integral):
+        """Serve a prompt or a batch: each prompt is a string (needs a
+        tokenizer) or a list of token ids.  The batch reaches the executor
+        in one piece, so the schedule does not depend on how fast the
+        caller submits."""
+        if isinstance(prompts, str) or (
+                prompts and isinstance(prompts[0], numbers.Integral)):
             prompts = [prompts]
         sampling_params = sampling_params or SamplingParams()
         sps = ([sampling_params] * len(prompts)
                if isinstance(sampling_params, SamplingParams)
                else list(sampling_params))
-        reqs = [self._request(p, sp, cache_salt)
+        futs = [self._future(p, sp, cache_salt)
                 for p, sp in zip(prompts, sps)]
-        self.executor.submit_many(reqs)
-        return [GenerationFuture(self, r).result() for r in reqs]
+        self.executor.submit_many([f.req for f in futs])
+        return [f.result() for f in futs]
 
-    def generate_async(self, prompt: List[int],
+    def generate_async(self, prompt,
                        sampling_params: Optional[SamplingParams] = None,
+                       streaming: bool = False,
                        cache_salt: Optional[str] = None
                        ) -> "GenerationFuture":
-        req = self._request(prompt, sampling_params, cache_salt)
-        self.executor.submit(req)
-        return GenerationFuture(self, req)
+        """Submit one prompt (text or token ids).  The future's `result()`
+        gives the whole output; iterating it streams the pieces
+        (`streaming` is the JAX API's flag: the future is iterable either
+        way)."""
+        fut = self._future(prompt, sampling_params, cache_salt)
+        self.executor.submit(fut.req)
+        return fut
 
-    @staticmethod
-    def _request(prompt, sampling_params, cache_salt):
+    def _future(self, prompt, sampling_params,
+                cache_salt) -> "GenerationFuture":
+        text = None
         if isinstance(prompt, str):
-            raise NotImplementedError("text prompts need a tokenizer, which "
-                                      "is not in this slice")
-        return LlmRequest([int(t) for t in prompt],
-                          sampling_params or SamplingParams(),
-                          cache_salt=(None if cache_salt is None
-                                      else f"user:{cache_salt}"))
+            if self._tokenizer is None:
+                raise ValueError("a text prompt needs a tokenizer (pass "
+                                 "tokenizer=, or token ids)")
+            text = prompt
+            prompt = self._tokenizer.encode(prompt)
+        req = LlmRequest([int(t) for t in prompt],
+                         sampling_params or SamplingParams(),
+                         cache_salt=(None if cache_salt is None
+                                     else f"user:{cache_salt}"))
+        return GenerationFuture(self, req, text)
 
     def get_kv_cache_stats(self) -> dict:
         return self.kv_manager.stats()
@@ -185,29 +312,41 @@ class LLM:
 
 
 class GenerationFuture:
-    """Handle of one in-flight request."""
+    """Handle of one in-flight request: `result()` waits for the whole
+    output; iterating yields one `RequestOutput` per executor piece
+    (cumulative token ids and text; the last has ``finished=True``).  Read
+    a request one way: both consume the same pieces."""
 
-    def __init__(self, llm: LLM, req: LlmRequest):
+    def __init__(self, llm: LLM, req: LlmRequest,
+                 prompt_text: Optional[str] = None):
         self.llm = llm
         self.req = req
+        self.prompt_text = prompt_text
 
     @property
     def request_id(self) -> int:
         return self.req.request_id
 
-    def result(self, timeout: Optional[float] = None) -> RequestOutput:
-        toks: List[int] = []
-        while True:
-            piece = self.req.out_queue.get(timeout=timeout)
-            if piece.error:
-                raise RuntimeError(f"generation failed: {piece.error}")
-            toks.extend(piece.new_token_ids)
-            if piece.finished:
-                reason = piece.finish_reason
-                break
+    def _decode(self, token_ids: List[int]) -> str:
+        tok = self.llm.tokenizer
+        sp = self.req.sampling_params
+        if tok is None or not sp.detokenize:
+            return ""
+        return tok.decode(token_ids,
+                          skip_special_tokens=sp.skip_special_tokens)
+
+    def _next_piece(self, timeout: Optional[float] = None):
+        piece = self.req.out_queue.get(timeout=timeout)
+        if piece.error:
+            raise RuntimeError(f"generation failed: {piece.error}")
+        return piece
+
+    def _output(self, toks: List[int], text: str, piece,
+                finished: bool) -> RequestOutput:
         r = self.req
+        reason = piece.finish_reason
         metrics = None
-        if self.llm.args.return_perf_metrics:
+        if finished and self.llm.args.return_perf_metrics:
             metrics = {
                 "arrival_time": r.arrival_time,
                 "first_scheduled_time": r.first_sched_time,
@@ -221,10 +360,38 @@ class GenerationFuture:
                 "num_output_tokens": r.num_output_tokens,
             }
         return RequestOutput(
-            request_id=r.request_id, prompt=None,
+            request_id=r.request_id, prompt=self.prompt_text,
             prompt_token_ids=r.prompt_token_ids,
             outputs=[CompletionOutput(
-                index=0, text="", token_ids=toks,
+                index=0, text=text, token_ids=list(toks),
                 finish_reason=reason.value if reason else None,
-                logprobs=r.logprobs or None)],
-            finished=True, metrics=metrics)
+                logprobs=(r.logprobs or None) if finished else None)],
+            finished=finished, metrics=metrics)
+
+    def result(self, timeout: Optional[float] = None) -> RequestOutput:
+        toks: List[int] = []
+        while True:
+            piece = self._next_piece(timeout)
+            toks.extend(piece.new_token_ids)
+            if piece.finished:
+                return self._output(toks, self._decode(toks), piece, True)
+
+    def __iter__(self) -> Iterator[RequestOutput]:
+        sp = self.req.sampling_params
+        tok = self.llm.tokenizer
+        detok = (IncrementalDetokenizer(tok, sp.skip_special_tokens)
+                 if tok is not None and sp.detokenize else None)
+        toks: List[int] = []
+        while True:
+            piece = self._next_piece()
+            toks.extend(piece.new_token_ids)
+            if detok is None:
+                text = self._decode(toks)
+            else:
+                detok.push(piece.new_token_ids)
+                if piece.finished:
+                    detok.flush()
+                text = detok.text
+            yield self._output(toks, text, piece, piece.finished)
+            if piece.finished:
+                return

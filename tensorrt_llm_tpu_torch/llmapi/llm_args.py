@@ -1,26 +1,41 @@
 """LLM construction arguments: the subset of
-`tensorrt_llm_tpu/llmapi/llm_args.py` that this slice runs, plus `device`
+`tensorrt_llm_tpu/llmapi/llm_args.py` that the port runs, plus `device`
 (CUDA unless the caller asks for the CPU) and `params` (a ready model state,
-e.g. from `params_from_jax`, instead of random weights).  `enable_warmup`
-None means on for a CUDA device and off for the CPU, as the JAX package
-warms up on the TPU only."""
+e.g. from `params_from_jax`, instead of checkpoint or random weights).
+`model` is a `ModelConfig` or an HF checkpoint directory; `tokenizer` a
+path (loaded with `transformers`) or a tokenizer object; `quant_algo` /
+`quant_group_size` quantize a float checkpoint at load (unset: an AWQ/GPTQ
+checkpoint's own `quantization_config` is adopted); `load_format="dummy"`
+draws random weights at the checkpoint's shapes.  `enable_warmup` None means
+on for a CUDA device and off for the CPU, as the JAX package warms up on
+the TPU only.  `quant_clip_search` and `lora_path` are fields of the JAX
+package that the port refuses when set."""
 
 from __future__ import annotations
 
 from dataclasses import dataclass
 from typing import Any, Dict, Optional
 
-from tensorrt_llm_tpu_torch.quantization.mode import KvCacheQuantAlgo
+import torch
+
+from tensorrt_llm_tpu_torch.quantization.mode import (
+    KvCacheQuantAlgo, QuantAlgo, QuantConfig)
 from tensorrt_llm_tpu_torch.runtime.kv_cache_manager import KVCacheConfig
 from tensorrt_llm_tpu_torch.runtime.scheduler import SchedulerConfig
 
 
 @dataclass
 class LlmArgs:
-    model: Any = None                  # ModelConfig (HF loading: later)
-    tokenizer: Any = None
+    model: Any = None                  # ModelConfig | HF checkpoint dir
+    tokenizer: Any = None              # path | tokenizer object
+    dtype: Any = "bfloat16"            # activations: bf16 only
     device: Any = "cuda"
     params: Optional[Dict[str, Any]] = None
+
+    # quantization
+    quant_algo: Optional[str] = None   # e.g. "W4A16", "W4A8_AWQ"
+    quant_group_size: int = 128
+    quant_clip_search: bool = False    # calibrate.py's clip search: not yet
 
     max_batch_size: int = 64
     max_num_tokens: int = 2048         # per-step token budget
@@ -32,12 +47,37 @@ class LlmArgs:
     enable_block_reuse: bool = True
     kv_cache_quant: str = "NONE"       # "INT8": int8 pages + f32 scales
 
+    lora_path: Optional[str] = None    # LoRA merged at load: not yet
+
     max_decode_steps: int = 8          # decode steps per executor iteration
     enable_warmup: Optional[bool] = None  # autotune + warm steps at build
 
     seed: int = 0
     skip_tokenizer_init: bool = False
+    # "auto": read *.safetensors when the model directory has them;
+    # "dummy": random weights at the checkpoint's shapes
+    load_format: str = "auto"
     return_perf_metrics: bool = False
+
+    def __post_init__(self):
+        if self.load_format not in ("auto", "dummy"):
+            raise ValueError(f"load_format={self.load_format!r}: 'auto' or "
+                             "'dummy'")
+        if self.dtype not in ("bfloat16", "auto", torch.bfloat16):
+            raise NotImplementedError(
+                f"dtype={self.dtype!r}: the port computes in bfloat16")
+
+    def quant_config(self) -> Optional[QuantConfig]:
+        if self.quant_clip_search:
+            raise NotImplementedError(
+                "quant_clip_search (the JAX package's calibrate.py clip "
+                "search) is not in the port yet")
+        if not self.quant_algo:
+            return None
+        return QuantConfig(
+            quant_algo=QuantAlgo(self.quant_algo),
+            kv_cache_quant_algo=KvCacheQuantAlgo(self.kv_cache_quant),
+            group_size=self.quant_group_size)
 
     def make_kv_cache_config(self, layout: str = "kv",
                              dsa_index_dim: int = 0) -> KVCacheConfig:

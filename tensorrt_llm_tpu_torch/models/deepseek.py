@@ -8,8 +8,11 @@ score-correction bias and group-limited top-k, shared experts, and YaRN
 RoPE on interleaved pairs.  All of it is configuration of the shared
 decoder (`ModelConfig.from_hf_config` sets the DeepSeek fields).  As in the
 JAX package, V3.2 is `DeepseekV3ForCausalLM` plus a `sparse_attention`
-indexer (the JAX registry has no `DeepseekV32ForCausalLM`).  The HF weight
-loader and the MTP head wait for a later slice.
+indexer (the JAX registry has no `DeepseekV32ForCausalLM`).  `_load_attn`
+reads the MLA weights of an HF checkpoint (q with or without the low-rank
+bottleneck, V3.2's `indexer.*`); the MoE keys are the shared decoder's
+defaults.  The MTP head waits for a later slice: its checkpoint layers
+past `num_hidden_layers` are not read.
 
 The presets are the published `config.json` fields (model-structure keys
 only) of huggingface.co/moonshotai/Moonlight-16B-A3B,
@@ -94,4 +97,23 @@ def deepseek_v32_config(num_layers: int = 61, **over) -> ModelConfig:
 
 @register_auto_model("DeepseekV3ForCausalLM")
 class DeepseekForCausalLM(DecoderModelForCausalLM):
-    pass
+    def _load_attn(self, layer, pre: str, t, vec) -> None:
+        a = pre + "self_attn."
+        kw = {}
+        if layer.attn.q_lora_rank is not None:
+            kw["q_a_w"] = t(a + "q_a_proj.weight")
+            kw["q_norm"] = vec(a + "q_a_layernorm.weight")
+            kw["q_b_w"] = t(a + "q_b_proj.weight")
+        else:
+            kw["q_w"] = t(a + "q_proj.weight")
+        if layer.attn.indexer is not None:
+            i = a + "indexer."
+            kw["indexer"] = {"wq_b": t(i + "wq_b.weight"),
+                             "wk": t(i + "wk.weight"),
+                             "k_norm_w": vec(i + "k_norm.weight"),
+                             "k_norm_b": vec(i + "k_norm.bias"),
+                             "weights_proj": t(i + "weights_proj.weight")}
+        layer.attn.from_float(t(a + "kv_a_proj_with_mqa.weight"),
+                              t(a + "kv_b_proj.weight"),
+                              t(a + "o_proj.weight"),
+                              vec(a + "kv_a_layernorm.weight"), **kw)

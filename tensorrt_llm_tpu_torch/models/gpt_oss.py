@@ -6,7 +6,11 @@ QKV and o projections, YaRN RoPE, and an all-MoE FFN stack with a biased
 router (top-k on raw logits, softmax over the k), per-expert gate_up/down
 biases and the clamped swiglu (alpha 1.702, limit 7).  All of it is
 configuration of the shared decoder (`ModelConfig.from_hf_config` sets the
-GPT-OSS fields).  The HF weight loader waits for `load_hf_weights`.
+GPT-OSS fields).  Its HF checkpoint stores the experts stacked, with gate
+and up interleaved channel by channel in `gate_up_proj` [E, H, 2I] (not
+[out, in], and not transposed); `_load_mlp` splits them into the fused
+[gate | up] layout.  MXFP4 expert weights are not read (bf16/f32 only, as
+in the JAX package).
 
 `GPT_OSS_20B` is the JAX package's `gpt-oss-20b` shape preset (its
 `commands/bench.py`), kept here as the port's own copy: published widths,
@@ -16,7 +20,7 @@ W4A16 at group 64 (hidden 2880 is not a multiple of 128), weights random.
 from __future__ import annotations
 
 from tensorrt_llm_tpu_torch.models.modeling_utils import (
-    DecoderModelForCausalLM, ModelConfig, register_auto_model)
+    DecoderModelForCausalLM, ModelConfig, hf_tensor, register_auto_model)
 from tensorrt_llm_tpu_torch.quantization import QuantAlgo, QuantConfig
 
 GPT_OSS_20B = dict(quant_group_size=64, hf_config=dict(
@@ -51,4 +55,16 @@ def gpt_oss_20b_config(num_layers: int = 24, **over) -> ModelConfig:
 
 @register_auto_model("GptOssForCausalLM")
 class GptOssForCausalLM(DecoderModelForCausalLM):
-    pass
+    def _load_mlp(self, layer, get_tensor, pre: str, t, vec) -> None:
+        def arr(name):
+            return hf_tensor(get_tensor, pre + name, self.device)
+
+        gate_up = arr("mlp.experts.gate_up_proj")     # [E, H, 2I] interleaved
+        gub = arr("mlp.experts.gate_up_proj_bias")    # [E, 2I] interleaved
+        layer.mlp.load_experts([(gate_up[..., ::2], gate_up[..., 1::2],
+                                 arr("mlp.experts.down_proj"))])  # [E, I, H]
+        del gate_up
+        layer.mlp.from_float(
+            arr("mlp.router.weight").t(), None, None, None,
+            router_bias=arr("mlp.router.bias"), gate_b=gub[..., ::2],
+            up_b=gub[..., 1::2], down_b=arr("mlp.experts.down_proj_bias"))

@@ -8,14 +8,17 @@ an optional DSA indexer; a gated MLP or a W4A16 MoE, dense on
 `mlp_only_layers`; sliding-window layers by `layer_types` or by the
 window), and `DecoderModelForCausalLM.forward` (embedding, pre-norm decoder
 layers over a paged KV cache -- bf16 or INT8 K/V pools, or one latent pool
-per layer under MLA -- final norm, bf16 lm_head); linears are W4A16,
-W4A8_AWQ or unquantized.  Weights come from
-`init_random` (drawn on the model's device from a seeded `torch.Generator`,
-one layer at a time, quantized as they are drawn) or from
-`params_from_jax`, which converts the JAX package's parameter pytree so the
-tests can run the same weights on both sides.  Two models hold the same
-weights through `state()` / `load_state`.  Loading HF checkpoints belongs
-to a later slice.
+per layer under MLA -- final norm, bf16 lm_head, or the embedding matrix
+under `tie_word_embeddings`); linears are W4A16, W4A8_AWQ or unquantized.
+Weights come from `init_random` (drawn on the model's device from a seeded
+`torch.Generator`, one layer at a time, quantized as they are drawn), from
+an HF checkpoint through `load_hf_weights` (a `get_tensor(name)` callable,
+such as `llmapi.hf_checkpoint.SafetensorsReader`: each tensor goes to the
+model's device as it is read and is quantized there, or taken as stored
+from an AWQ/GPTQ checkpoint), or from `params_from_jax`, which converts the
+JAX package's parameter pytree so the tests can run the same weights on
+both sides.  Two models hold the same weights through `state()` /
+`load_state`.
 """
 
 from __future__ import annotations
@@ -39,6 +42,8 @@ from tensorrt_llm_tpu_torch.layers.moe import MoE
 from tensorrt_llm_tpu_torch.ops.norms import add_rms_norm
 from tensorrt_llm_tpu_torch.ops.rope import RopeConfig, make_rope_tables
 from tensorrt_llm_tpu_torch.quantization import QuantConfig
+from tensorrt_llm_tpu_torch.quantization.hf_ingest import (
+    maybe_load_quantized)
 from tensorrt_llm_tpu_torch.utils import resolve_device
 
 _HF_ARCHITECTURES = ("LlamaForCausalLM", "MistralForCausalLM",
@@ -190,7 +195,14 @@ class ModelConfig:
         get = ((lambda k, d=None: hf.get(k, d)) if isinstance(hf, dict)
                else (lambda k, d=None: getattr(hf, k, d)))
         archs = get("architectures")
-        arch = archs[0] if archs else "LlamaForCausalLM"
+        if archs:
+            arch = archs[0]
+        elif get("model_type"):
+            # "deepseek_v3" -> "DeepseekV3ForCausalLM", as the JAX package
+            arch = "".join(w.capitalize() for w in
+                           get("model_type").split("_")) + "ForCausalLM"
+        else:
+            arch = "LlamaForCausalLM"
         if arch not in _HF_ARCHITECTURES:
             raise NotImplementedError(
                 f"from_hf_config: {arch} is not in this slice "
@@ -341,17 +353,26 @@ def get_model_class(architecture: str) -> type:
 
 
 class DecoderModelForCausalLM(nn.Module):
+    # HF tensor names (the JAX package's, `models/modeling_utils.py`); the
+    # MoE keys are Qwen-MoE/DeepSeek style, Mixtral overrides them
+    MOE_ROUTER_KEY = "mlp.gate.weight"
+    MOE_EXPERT_KEY = "mlp.experts.{j}.{proj}.weight"
+    MOE_PROJ_NAMES = {"gate": "gate_proj", "up": "up_proj", "down": "down_proj"}
+    MOE_SHARED_PREFIX = "mlp.shared_experts."
+    MOE_BIAS_KEY = "mlp.gate.e_score_correction_bias"
+    NORM_KEYS = {"input_norm": "input_layernorm",
+                 "post_attn_norm": "post_attention_layernorm"}
+
     def __init__(self, cfg: ModelConfig, device="cuda"):
         super().__init__()
-        if cfg.tie_word_embeddings:
-            raise NotImplementedError("tied embeddings are not in this slice")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.embedding = Embedding(cfg.vocab_size, cfg.hidden_size)
         self.layers = nn.ModuleList(
             [DecoderLayer(cfg, i, self.device) for i in range(cfg.num_layers)])
         self.final_norm = _RMSNormWeight(cfg.hidden_size)
-        # the LM head stays bf16 (QuantConfig.exclude_modules)
+        # the LM head stays bf16 (QuantConfig.exclude_modules); it holds no
+        # weight under tie_word_embeddings
         self.lm_head = Linear(cfg.hidden_size, cfg.vocab_size, cfg.quant,
                               "lm_head")
         cos, sin = make_rope_tables(cfg.rope)
@@ -414,7 +435,8 @@ class DecoderModelForCausalLM(nn.Module):
                 I = cfg.intermediate_size
                 layer.mlp.from_float(normal((H, I), std), normal((H, I), std),
                                      normal((I, H), 0.5 / I ** 0.5))
-        self.lm_head.from_float(normal((H, cfg.vocab_size), std))
+        if not cfg.tie_word_embeddings:
+            self.lm_head.from_float(normal((H, cfg.vocab_size), std))
         return self
 
     def _init_mla(self, attn: MLA, normal) -> None:
@@ -469,6 +491,98 @@ class DecoderModelForCausalLM(nn.Module):
         device)."""
         return {k: v for k, v in self.named_buffers() if v is not None}
 
+    # ---- HF checkpoints ---------------------------------------------------
+    @torch.no_grad()
+    def load_hf_weights(self, get_tensor) -> "DecoderModelForCausalLM":
+        """Install the weights of an HF checkpoint, the JAX package's
+        `load_hf_weights`: `get_tensor(name)` gives the tensor of an HF
+        name (None when absent).  Each tensor goes to the model's device as
+        it is read, in f32, and linears ([out, in] in HF) are transposed to
+        [in, out] and quantized there by the layers' `from_float`, so the
+        host holds about one tensor and the device one layer's floats at a
+        time.  Under a pre-quantized (AWQ/GPTQ) config a linear that ships
+        qweight/qzeros/scales is unpacked exactly instead (`QTensor`).
+        Checkpoint layers past `num_layers` (DeepSeek's MTP head) are not
+        read."""
+        cfg, dev = self.cfg, self.device
+        quant = cfg.quant
+        pre_q = quant is not None and quant.pre_quantized
+
+        def t(name):
+            if pre_q:
+                qt = maybe_load_quantized(get_tensor, name, quant.ckpt_format,
+                                          v2=quant.ckpt_v2)
+                if qt is not None:
+                    return qt.to(dev)
+            return hf_tensor(get_tensor, name, dev).t()
+
+        def vec(name):
+            a = get_tensor(name)
+            return None if a is None else a.to(dev).to(torch.float32)
+
+        self.embedding.load(hf_tensor(get_tensor, "model.embed_tokens.weight",
+                                      dev))
+        self.final_norm.weight = hf_tensor(get_tensor, "model.norm.weight",
+                                           dev)
+        for i, layer in enumerate(self.layers):
+            pre = f"model.layers.{i}."
+            for norm, key in self.NORM_KEYS.items():
+                getattr(layer, norm).weight = hf_tensor(
+                    get_tensor, pre + key + ".weight", dev)
+            self._load_attn(layer, pre, t, vec)
+            self._load_mlp(layer, get_tensor, pre, t, vec)
+        if not cfg.tie_word_embeddings:
+            self.lm_head.from_float(t("lm_head.weight"))
+        return self
+
+    def _load_attn(self, layer, pre: str, t, vec) -> None:
+        """One layer's GQA attention from HF names (DeepSeek overrides for
+        MLA)."""
+        cfg = self.cfg
+        a = pre + "self_attn."
+        bias = cfg.attention_bias
+        layer.attn.from_float(
+            t(a + "q_proj.weight"), t(a + "k_proj.weight"),
+            t(a + "v_proj.weight"), t(a + "o_proj.weight"),
+            q_b=vec(a + "q_proj.bias") if bias else None,
+            k_b=vec(a + "k_proj.bias") if bias else None,
+            v_b=vec(a + "v_proj.bias") if bias else None,
+            o_b=vec(a + "o_proj.bias") if cfg.o_bias else None,
+            sinks=vec(a + "sinks") if cfg.has_sinks else None)
+
+    def _load_mlp(self, layer, get_tensor, pre: str, t, vec) -> None:
+        """One layer's gated MLP, or MoE (router, experts read 16 at a time
+        and stacked [E, in, out], shared experts, DeepSeek's score
+        correction bias), from HF names."""
+        mlp = layer.mlp
+        if not isinstance(mlp, MoE):
+            mlp.from_float(t(pre + "mlp.gate_proj.weight"),
+                           t(pre + "mlp.up_proj.weight"),
+                           t(pre + "mlp.down_proj.weight"))
+            return
+        dev = self.device
+        E = self.cfg.num_experts
+
+        def stack(js, kind):
+            proj = self.MOE_PROJ_NAMES[kind]
+            return torch.stack([hf_tensor(
+                get_tensor, pre + self.MOE_EXPERT_KEY.format(j=j, proj=proj),
+                dev).t() for j in js])
+
+        mlp.load_experts(
+            tuple(stack(range(lo, min(lo + 16, E)), kind)
+                  for kind in ("gate", "up", "down"))
+            for lo in range(0, E, 16))
+        if mlp.shared is not None:
+            sp = pre + self.MOE_SHARED_PREFIX
+            mlp.shared.from_float(t(sp + "gate_proj.weight"),
+                                  t(sp + "up_proj.weight"),
+                                  t(sp + "down_proj.weight"))
+        mlp.from_float(
+            t(pre + self.MOE_ROUTER_KEY), None, None, None,
+            score_bias=(vec(pre + self.MOE_BIAS_KEY)
+                        if mlp.has_score_bias else None))
+
     # ---- forward ------------------------------------------------------------
     def forward(self, input_ids: torch.Tensor,
                 kv_caches: List[Tuple[torch.Tensor, torch.Tensor]],
@@ -485,7 +599,28 @@ class DecoderModelForCausalLM(nn.Module):
                             self.cfg.rms_eps)
         if logit_indices is not None:
             x = x[logit_indices]
+        if self.cfg.tie_word_embeddings:
+            # the JAX package's jnp.dot(x, emb.T) with f32 output; cuBLAS's
+            # bf16 product on the card (f32 accumulation, bf16 out, as the
+            # untied head)
+            w = self.embedding.weight
+            if x.device.type == "cuda":
+                return torch.matmul(x, w.t()).to(torch.float32)
+            return x.to(torch.float32) @ w.to(torch.float32).t()
         return self.lm_head(x).to(torch.float32)
+
+
+def hf_tensor(get_tensor, name: str, device) -> torch.Tensor:
+    """Checkpoint tensor `name` as f32 on `device`; a missing one raises,
+    naming MXFP4 when the checkpoint holds its `_blocks` form instead."""
+    a = get_tensor(name)
+    if a is None:
+        if get_tensor(name + "_blocks") is not None:
+            raise NotImplementedError(
+                f"{name} is stored as MXFP4 ({name}_blocks/_scales); the "
+                "port reads bf16, f16 and f32 checkpoints only")
+        raise KeyError(f"checkpoint has no tensor {name!r}")
+    return a.to(device).to(torch.float32)
 
 
 _NORMS = ("input_norm", "post_attn_norm", "final_norm")

@@ -19,6 +19,8 @@ from typing import Optional, Tuple, Union
 
 import torch
 
+from tensorrt_llm_tpu_torch.utils import div_scalar
+
 NEG_INF = float(torch.finfo(torch.float32).min)
 
 
@@ -36,7 +38,7 @@ def quantize_kv_token(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     (int8 [T, H, D], f32 scale [T, H]).  The scale is clamped as
     ``max(absmax / 127, 1e-8)``, bit-exact with the JAX package."""
     xf = x.to(torch.float32)
-    scale = torch.clamp(xf.abs().amax(dim=-1) / 127.0, min=1e-8)
+    scale = torch.clamp(div_scalar(xf.abs().amax(dim=-1), 127.0), min=1e-8)
     q = torch.clamp(torch.round(xf / scale[..., None]), -127, 127)
     return q.to(torch.int8), scale
 

@@ -36,6 +36,7 @@ The caller applies W_uv to the latent output.  The pool row is exactly
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
@@ -57,6 +58,12 @@ MLA_DECODE_MAX_SPLITS = 16   # K9's splits of one sequence: one cluster
 # (cudaOccupancyMaxActiveClusters at K9's 227 KB of shared memory a block)
 MLA_DECODE_BLOCKS = 112
 _KERNEL_DIMS = ((512, 576),)   # (L, L + R) the kernels are built for
+# `mla_prefill_splits`' cost of one more 64-token tile on a block's run, in
+# partial records (512 f32 sums and (max, sum) of one row of one split)
+# that K10's merge writes and reads: a least-squares fit of K10's times on
+# the H100 at every split of every checked shape (`chip_smoke.py`
+# check_mla_splits; 2.28 us a tile, 0.92 us a thousand records)
+_K10_TILE_RECORDS = 2500
 
 
 def write_latent_cache(cache: torch.Tensor, latents: torch.Tensor,
@@ -148,26 +155,38 @@ def mla_decode_split_choices(table_tokens: int):
                    for n in range(1, min(tiles, MLA_DECODE_MAX_SPLITS) + 1)})
 
 
+@functools.lru_cache(maxsize=1024)
 def mla_prefill_splits(T: int, H: int, kv_len: int, q_offset: int):
     """(row blocks, n_splits, split_len) of K10: blocks of
     `MLA_ROWS` stacked rows (row = token * H + head); each block's
     latent range, up to the causal edge of its last row, is cut into
-    splits of split_len tokens (whole 64-token tiles): the most splits
-    with which blocks x splits stay within one wave of the 132 SMs (K10
-    holds one block an SM), at least one.  A second wave, or a second pass
-    merging more partials, cost more than the idle SMs save: the chip
-    check times every choice at the served shapes (`chip_smoke.py`,
-    `check_mla_splits`).  The longest range is the last block's, so this
-    is O(1) host work per call."""
+    splits of split_len tokens (whole 64-token tiles).  Of the split
+    counts with which blocks x splits stay within one wave of the 132 SMs
+    (K10 holds one block an SM; a second wave costs more than the idle
+    SMs save), the one of least modelled time: the longest split's tiles,
+    plus, with more than one split, the partial records (one row of one
+    live split) the merge pass writes and reads, at `_K10_TILE_RECORDS`
+    records a tile.  A causal chunk from position 0 leaves half its blocks
+    short, so splitting it saves less than the merge costs.  Pure shape
+    logic, cached per shape."""
     R = T * H
     blocks = -(-R // MLA_ROWS)
     if blocks == 0:
         return 0, 1, MLA_TILE
     kv_end = min(kv_len, q_offset + (R - 1) // H + 1)
     tiles = max(1, -(-kv_end // MLA_TILE))
-    want = min(max(1, _SMS // blocks), tiles)
-    per = -(-tiles // want)        # tiles a split
-    return blocks, -(-tiles // per), per * MLA_TILE
+    most = min(_SMS // blocks, tiles)
+    # each block's tiles, up to the causal edge of its last row
+    block_tiles = [-(-min(kv_len, q_offset + (min((b + 1) * MLA_ROWS, R) - 1)
+                          // H + 1) // MLA_TILE)
+                   for b in range(blocks)] if most > 1 else []
+    best, best_cost = tiles, float(tiles)
+    for per in sorted({-(-tiles // n) for n in range(2, most + 1)}):
+        records = MLA_ROWS * sum(-(-t // per) for t in block_tiles)
+        cost = per + records / _K10_TILE_RECORDS
+        if cost < best_cost:
+            best, best_cost = per, cost
+    return blocks, -(-tiles // best), best * MLA_TILE
 
 
 def mla_prefill_split_choices(T: int, H: int, kv_len: int, q_offset: int):

@@ -81,7 +81,7 @@ import torch.nn.functional as F
 from tensorrt_llm_tpu_torch.ops import cuda_build
 from tensorrt_llm_tpu_torch.quantization.quantize import (
     dequantize_w4_any, pack_group_for)
-from tensorrt_llm_tpu_torch.utils import cdiv, round_up
+from tensorrt_llm_tpu_torch.utils import cdiv, div_scalar, round_up
 
 GEMV_MAX_M = 16
 STREAM_MAX_BM = 256  # the JAX single-M-block rule's largest M block
@@ -776,7 +776,8 @@ def quantize_act_int8(x: torch.Tensor):
     (xq int8 [M, K], s_act f32 [M, 1]) with s_act = max(amax, 1e-12) / 127,
     bit-exact with the JAX package."""
     xf = x.to(torch.float32)
-    s_act = torch.clamp(xf.abs().amax(dim=-1, keepdim=True), min=1e-12) / 127.0
+    s_act = div_scalar(torch.clamp(xf.abs().amax(dim=-1, keepdim=True),
+                                   min=1e-12), 127.0)
     xq = torch.clamp(torch.round(xf / s_act), -127, 127).to(torch.int8)
     return xq, s_act
 

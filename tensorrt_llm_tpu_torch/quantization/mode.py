@@ -5,13 +5,16 @@ Counterpart of `tensorrt_llm_tpu/quantization/mode.py`: the `QuantAlgo` and
 W4A8_AWQ (int4 weights, dynamic per-token int8 activations) and unquantized
 layers (other algorithms raise); KV pools are bf16 or INT8 (FP8 raises).
 `exclude_modules` keeps `lm_head` and the embedding in bf16 as the JAX
-package does.
+package does.  `pre_quantized` marks an AWQ/GPTQ checkpoint whose ints,
+scales and zeros are taken as stored (`quantization/hf_ingest.py`);
+`ckpt_format` names its packing and `ckpt_v2` GPTQ's v2 zero convention.
 """
 
 from __future__ import annotations
 
 import enum
 from dataclasses import dataclass, field
+from typing import Optional
 
 
 class QuantAlgo(str, enum.Enum):
@@ -46,6 +49,11 @@ class QuantConfig:
     has_zero_point: bool = False
     # Module name substrings excluded from quantization.
     exclude_modules: tuple = field(default_factory=lambda: ("lm_head", "embed"))
+    # an AWQ/GPTQ checkpoint: qweight/qzeros/scales are ingested exactly
+    # instead of quantizing floats
+    pre_quantized: bool = False
+    ckpt_format: Optional[str] = None   # "awq" | "gptq"
+    ckpt_v2: bool = False               # gptq_v2 zeros (no -1 offset)
 
     @property
     def is_weight_only_w4(self) -> bool:

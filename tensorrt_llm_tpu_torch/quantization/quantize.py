@@ -12,7 +12,9 @@ the JAX package are kept so that its quantized parameters load unchanged:
   the layout the CUDA kernels read.
 
 Values are signed int4 in two's complement.  Rounding is half-to-even on both
-sides (`jnp.round` and `torch.round`), so `quantize_w4` matches bit for bit.
+sides (`jnp.round` and `torch.round`), and every division is correctly
+rounded (`div_scalar` on the card), so `quantize_w4` matches bit for bit,
+on the CPU and on the card.
 """
 
 from __future__ import annotations
@@ -20,6 +22,8 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
+
+from tensorrt_llm_tpu_torch.utils import div_scalar
 
 # Pairing chunk for per-channel (group == K) quantization.
 W4_DEFAULT_PACK_GROUP = 256
@@ -51,13 +55,13 @@ def quantize_w4(w: torch.Tensor, group_size: int = 128, symmetric: bool = True
     wg = w.to(torch.float32).reshape(K // G, G, N)
     if symmetric:
         absmax = wg.abs().amax(dim=1)
-        scales = torch.clamp(absmax / 7.0, min=1e-8)
+        scales = torch.clamp(div_scalar(absmax, 7.0), min=1e-8)
         q = torch.clamp(torch.round(wg / scales[:, None, :]), -8, 7)
         zeros = None
     else:
         wmax = wg.amax(dim=1)
         wmin = wg.amin(dim=1)
-        scales = torch.clamp((wmax - wmin) / 15.0, min=1e-8)
+        scales = torch.clamp(div_scalar(wmax - wmin, 15.0), min=1e-8)
         zu = torch.clamp(torch.round(-wmin / scales), 0, 15)
         q = torch.clamp(torch.round(wg / scales[:, None, :]) + zu[:, None, :],
                         0, 15) - 8

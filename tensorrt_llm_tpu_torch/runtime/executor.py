@@ -75,6 +75,7 @@ class PyExecutor:
         self._wake = threading.Event()
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
+        self._jobs: List = []          # callables run between two steps
 
     # ------------------------------------------------------------ lifecycle --
     def start(self):
@@ -91,6 +92,31 @@ class PyExecutor:
             self._thread = None
         # resolve anything still held so no caller waits forever
         self._fail_all("executor shut down", FinishReason.CANCELLED)
+
+    def call_between_steps(self, fn):
+        """Run `fn` on the executor thread between two iterations and
+        return its result (a weight swap: no step sees part old, part new
+        weights).  Runs it here when the loop is not running."""
+        if self._thread is None:
+            return fn()
+        done, box = threading.Event(), {}
+
+        def job():
+            try:
+                box["result"] = fn()
+            except BaseException as e:  # noqa: BLE001
+                box["error"] = e
+            done.set()
+
+        with self._submit_lock:
+            self._jobs.append(job)
+        self._wake.set()
+        while not done.wait(timeout=0.1):
+            if self._thread is None or self._error is not None:
+                raise RuntimeError("executor stopped before the call ran")
+        if "error" in box:
+            raise box["error"]
+        return box.get("result")
 
     def submit(self, request: LlmRequest) -> LlmRequest:
         return self.submit_many([request])[0]
@@ -171,6 +197,10 @@ class PyExecutor:
 
     def _step(self) -> bool:
         t0 = time.perf_counter()
+        with self._submit_lock:
+            jobs, self._jobs = self._jobs, []
+        for job in jobs:
+            job()
         self._fetch_new_requests()
         if not self.active and not self.waiting:
             return False

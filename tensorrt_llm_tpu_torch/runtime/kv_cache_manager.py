@@ -171,6 +171,15 @@ class _PyBookkeeping:
     def num_free_blocks(self) -> int:
         return len(self.free_blocks) + len(self.evictable)
 
+    def drop_cached_blocks(self):
+        """Forget the reuse index: cached blocks hold KV of the old
+        weights after a weight swap.  Blocks in use stay with their
+        sequences and are freed, not cached, when released."""
+        self.free_blocks.extend(self.evictable)
+        self.evictable.clear()
+        self.cached_blocks.clear()
+        self.block_hash = [None] * len(self.block_hash)
+
     def add_sequence(self, seq_id: int, token_ids: List[int],
                      cache_salt=None) -> int:
         info = SequenceInfo()
@@ -317,6 +326,10 @@ class KVCacheManager:
 
     def free_sequence(self, seq_id: int):
         self._bk.free_sequence(seq_id)
+
+    def drop_cached_blocks(self):
+        """Forget every reusable block (their KV came from other weights)."""
+        self._bk.drop_cached_blocks()
 
     def block_table(self, seq_id: int, max_blocks: int) -> List[int]:
         return self._bk.block_table(seq_id, max_blocks)

@@ -45,3 +45,21 @@ def resolve_device(device="cuda") -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+_DIVISORS = {}
+
+
+def div_scalar(x: torch.Tensor, d: float) -> torch.Tensor:
+    """``x / d`` correctly rounded on every device.  PyTorch's CUDA
+    division by a Python number multiplies by its reciprocal, which is off
+    by an ulp where 1/d is inexact (7, 15, 127): the card's scales, and
+    the ints rounded against them, would then differ from the CPU's and
+    the JAX package's.  Dividing by a tensor on x's device is an IEEE
+    division on both; the divisor is made once per (device, dtype, d)."""
+    key = (x.device, x.dtype, d)
+    t = _DIVISORS.get(key)
+    if t is None:
+        t = _DIVISORS[key] = torch.full((), d, dtype=x.dtype,
+                                        device=x.device)
+    return x / t

@@ -169,14 +169,21 @@ def test_default_device_raises_without_gpu():
 
 
 def test_package_imports_without_jax():
+    """Every module of the port imports with JAX -- and `safetensors`,
+    `transformers` and `tokenizers`, which serving does not need --
+    blocked, and loads none of them nor the JAX package."""
     code = (
         "import sys, pkgutil, importlib\n"
-        "sys.modules['jax'] = None\n"
+        "for name in ('jax', 'safetensors', 'transformers', 'tokenizers'):\n"
+        "    sys.modules[name] = None\n"
         "import tensorrt_llm_tpu_torch as p\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
         "assert not any(k == 'tensorrt_llm_tpu' or\n"
         "               k.startswith('tensorrt_llm_tpu.') for k in sys.modules)\n"
+        "assert not any(k.split('.')[0] in ('safetensors', 'transformers',\n"
+        "                                   'tokenizers') and sys.modules[k]\n"
+        "               for k in sys.modules)\n"
         "print('ok')\n")
     r = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT),
                        capture_output=True, text=True, timeout=120,
@@ -185,7 +192,12 @@ def test_package_imports_without_jax():
 
 
 def test_no_module_names_the_jax_package():
-    pat = re.compile(r"tensorrt_llm_tpu\.|import jax|from jax")
+    """No port module names the JAX package or JAX; none imports
+    `safetensors` or `tokenizers`, and `transformers` only inside a
+    function (the tokenizer loaded from a path)."""
+    pat = re.compile(r"tensorrt_llm_tpu\.|import jax|from jax"
+                     r"|^\s*(import|from) (safetensors|tokenizers)\b"
+                     r"|^(import|from) transformers\b", re.M)
     hits = [str(p) for p in (ROOT / "tensorrt_llm_tpu_torch").rglob("*.py")
             if pat.search(p.read_text())]
     assert not hits, hits

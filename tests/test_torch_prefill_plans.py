@@ -16,8 +16,8 @@ from tensorrt_llm_tpu_torch.ops import w4a16_gemm as W
 from tensorrt_llm_tpu_torch.ops.flash_prefill import (
     PREFILL_ROWS, PREFILL_TILE, flash_prefill_attention, prefill_tile_ranges)
 from tensorrt_llm_tpu_torch.ops.mla import (
-    MLA_ROWS, MLA_TILE, mla_prefill_attention, mla_prefill_plan,
-    mla_prefill_split_choices)
+    _K10_TILE_RECORDS, MLA_ROWS, MLA_TILE, mla_prefill_attention,
+    mla_prefill_plan, mla_prefill_split_choices)
 
 PLAN_M = (17, 128, 200, 255, 256, 300, 512)
 
@@ -175,8 +175,10 @@ def test_k10_plan_covers_exactly_the_valid_pairs(H, T, q_offset):
     tiles holds at least one; the splits, whole 64-token tiles, cut every
     range into disjoint runs, so each kept pair falls in one split of one
     block; blocks x splits stay within one wave of the 132 SMs (K10 holds
-    one block an SM) unless the blocks alone exceed it, with the most
-    splits that fit."""
+    one block an SM) unless the blocks alone exceed it, and of the split
+    lengths that fit, the plan's has the least modelled time: its tiles,
+    plus, when split, the merge's partial records (64 rows a live block
+    split) at `_K10_TILE_RECORDS` records a tile."""
     kv_len = q_offset + T
     R = T * H
     blocks, n_splits, split_len, ranges = mla_prefill_plan(T, H, kv_len,
@@ -198,9 +200,17 @@ def test_k10_plan_covers_exactly_the_valid_pairs(H, T, q_offset):
     longest = max(t1 for _, t1 in ranges)
     assert n_splits == -(-longest // per)
     assert blocks * n_splits <= max(132, blocks)
-    if per > 1:
-        # one tile shorter would spill into a second wave
-        assert blocks * -(-longest // (per - 1)) > 132
+
+    def cost(p):
+        live = sum(-(-(t1 - t0) // p) for t0, t1 in ranges)
+        merged = -(-longest // p) > 1
+        return p + (MLA_ROWS * live / _K10_TILE_RECORDS if merged else 0)
+    fits = [p for p in range(1, longest + 1)
+            if blocks * -(-longest // p) <= 132]
+    if fits:
+        assert cost(per) == min(cost(p) for p in fits), (per, fits)
+    else:
+        assert per == longest
 
 
 @pytest.mark.parametrize("H,T,q_offset", [
