@@ -99,11 +99,30 @@ Phases (any failure exits nonzero; nothing is caught and ignored):
    tokens, a streamed text prompt must rebuild the whole one's tokens and
    text, and every loaded buffer must equal the CPU's load of the same
    directory byte for byte; the TinyLlama ones are also cut to 2 layers
-   and cross-checked against the CPU as in phase 7.
+   and cross-checked against the CPU as in phase 7;
+18. `bench`: the bench CLI's presets (`commands/bench.py` `MODEL_SHAPES`:
+   TinyLlama-1.1B, Llama-3-8B, Llama-2-7B, GPT-OSS-20B) at full width and
+   depth, W4A16, random weights, native KV bookkeeping, served by the
+   CLI's `run_throughput` (ISL 128, OSL 128, `ignore_eos`, 32 requests at
+   concurrency 32, `max_batch_size` 32) with the overlap pipeline on and
+   every decode chunk's dispatch half under
+   `torch.cuda.set_sync_debug_mode("error")` (`SyncChecked`), launches
+   asserted per layer per forward; TinyLlama and GPT-OSS also on a second
+   `LLM` with the pipeline off, the timed runs interleaved off, on, on,
+   off, greedy tokens equal (or first differing at a near-tie);
+   `run_latency` on TinyLlama; a throughput run with one failing request
+   ends and reports it; K3 first at the chunks partial KV reuse gives it
+   (1 token after 127, 20 and 45 after 300) and at Llama-2-7B's 128-token
+   warmup prompt. Each report is printed beside the card's name and power
+   limit. Phase 3 holds K1/K2 at Llama-2-7B's projections and at the
+   bench's token counts (32, 2048), and K4 at its batch of 32;
+19. `bench_cross`: the Llama-3-8B and Llama-2-7B bench presets' widths at
+   2 layers, W4A16, cross-checked against the CPU as in phase 7.
 
 Arguments pick phases (default: check serve serve_ramp serve_stream
 fused_mlp cross llama3 gptoss gptoss_cross llama3_w4a8 llama3_w4a8_cross
-deepseek deepseek_v32 deepseek_v3_width deepseek_cross checkpoint);
+deepseek deepseek_v32 deepseek_v3_width deepseek_cross checkpoint bench
+bench_cross);
 `check_moe` runs
 only K5's checks, `check_w4a8` only K8's, `check_int8` only K6-K8's,
 `check_mla` only K9-K11's (with their plans' checks),
@@ -120,7 +139,11 @@ part of phase 16 at a covering top-k and at 128 and counts where the
 card's and the CPU's top-k selections differ; `route_witness`, run only
 when named, repeats the GPT-OSS and Moonlight cross-checks without forcing
 any routing, with K12 and with K12's calls replaced by its plain version,
-and lists where each run's routing flips.
+and lists where each run's routing flips; `bench_overlap`, run only when
+named, times TinyLlama and GPT-OSS with the overlap pipeline off, on, and
+on with the dispatch halves sync-checked, 8 runs interleaved a preset;
+`gemv_sweep`, run only when named, times every K2 (column tile, K
+slices) choice at 112 shapes beside `gemv_plan`'s pick.
 `--json PATH` also writes every check and phase summary to PATH.
 
 The last three lines of stdout are the card's name and power limit, the
@@ -155,9 +178,16 @@ GEMM_SHAPES = {"tinyllama": [(2048, 2560), (2048, 2048), (2048, 11264),
                               (14336, 4096)],
                # QKV (o's N = 2880 has no 128-multiple tile: K-paired, on
                # K12, checked in check_w4a16)
-               "gpt-oss-20b": [(2880, 5120)]}
+               "gpt-oss-20b": [(2880, 5120)],
+               # the bench preset (intermediate 11,008; o's (4096, 4096)
+               # is Llama-3-8B's)
+               "llama-2-7b": [(4096, 12288), (4096, 22016), (11008, 4096)]}
 GEMM_GROUP = {"gpt-oss-20b": 64}          # others: 128
-GEMM_M = (1, 4, 8, 16, 17, 128, 200, 255, 256, 512)
+# 32: the bench's decode at batch 32; 2048: its warmup's prefill
+# (`max_num_tokens` 2048 of 128-token prompts)
+GEMM_M = (1, 4, 8, 16, 17, 32, 128, 200, 255, 256, 512, 2048)
+# K8's token counts (its path, `serve_llama3_w4a8`, not the bench's)
+W4A8_M = (1, 4, 8, 16, 17, 128, 200, 255, 256, 512)
 # K1's configurations (`K1_VARIANTS`) timed with and without each prefill
 # mechanism at served M 256 shapes, and its (configuration, K slices)
 # pick held against every choice at the token counts below
@@ -216,6 +246,7 @@ PREFILL_INT8_CASES = [
     ("tinyllama", 32, 4, 64, 256, 256, None, None, False),
     ("llama-3-8b", 32, 8, 128, 17, 1024, None, None, False),
     ("llama-3-8b", 32, 8, 128, 256, 1024, None, None, False)]
+BENCH_DECODE_LENS = [129 + 4 * i for i in range(32)]   # 129 .. 253
 DECODE_CASES = [
     # model, Hq, Hkv, D, kv_lens, window, cap, sinks
     ("tinyllama", 32, 4, 64, [81, 150, 400, 664], None, None, False),
@@ -228,8 +259,17 @@ DECODE_CASES = [
     ("llama-3-8b", 32, 8, 128, [33, 320], 96, 25.0, True),
     ("gpt-oss-20b", 64, 8, 64, [81, 150, 400, 664], 128, None, True),
     ("gpt-oss-20b", 64, 8, 64, [81, 150, 400, 664], None, None, True),
+    # the bench presets' decode at batch 32 (ISL 128, OSL 128), Llama-2-7B
+    # with its GQA group of 1
+    ("llama-2-7b", 32, 32, 128, BENCH_DECODE_LENS, None, None, False),
+    ("llama-2-7b", 32, 32, 128, [33, 320, 1000, 4000], None, None, False),
+    ("tinyllama", 32, 4, 64, BENCH_DECODE_LENS, None, None, False),
+    ("llama-3-8b", 32, 8, 128, BENCH_DECODE_LENS, None, None, False),
+    ("gpt-oss-20b", 64, 8, 64, BENCH_DECODE_LENS, 128, None, True),
+    ("gpt-oss-20b", 64, 8, 64, BENCH_DECODE_LENS, None, None, True),
 ]
-DECODE_INT8_CASES = [c for c in DECODE_CASES if c[0] == "llama-3-8b"] + [
+DECODE_INT8_CASES = [c for c in DECODE_CASES if c[0] == "llama-3-8b"
+                     and c[4] is not BENCH_DECODE_LENS] + [
     ("tinyllama", 32, 4, 64, [81, 150, 400, 664], None, None, False)]
 # `decode_plan`'s split length must be within this share of the fastest
 # split length's time at every decode row (bf16 and int8 pools)
@@ -414,11 +454,55 @@ def check_gemv_plan(x, ws, G, model):
     ratio = times[pick] / times[best]
     row = {"model": model, "M": M, "K": K, "N": N, "pick": pick,
            "pick_ms": times[pick], "best": best, "best_ms": times[best],
-           "ratio": ratio, "choices": len(times)}
+           "ratio": ratio, "choices": len(times),
+           "ms": {f"{c}/{d}": t for (c, d), t in times.items()}}
     PHASES.setdefault("gemv_plan", []).append(row)
-    log(json.dumps({"gemv_plan": row}))
+    log(json.dumps({"gemv_plan": {k: v for k, v in row.items()
+                                  if k != "ms"}}))
     assert ratio <= 1 + GEMV_PLAN_SLACK, \
         f"gemv_plan picks {pick} at {row}: {ratio:.3f}x the fastest {best}"
+
+
+# `gemv_sweep`: K2's column tiles (of 256 columns) at K 4096, and a few
+# at other K, for fitting `gemv_plan`'s rule
+GEMV_SWEEP_TILES = (8, 16, 24, 32, 40, 48, 56, 64, 72, 80, 86, 96, 104, 112,
+                    120, 128, 160)
+GEMV_SWEEP_OTHER = ((2048, (8, 44, 86, 112)), (11008, (16, 44, 86)),
+                    (14336, (16, 44, 86, 112)))
+GEMV_SWEEP_M = (1, 4, 8, 16)
+
+
+def gemv_sweep(gen, dev):
+    """Opt-in: every (column tile, K slices) K2 takes, timed at
+    GEMV_SWEEP_TILES x GEMV_SWEEP_M (K 4096, G 128) and at
+    GEMV_SWEEP_OTHER, beside `gemv_plan`'s pick; asserts nothing."""
+    from tensorrt_llm_tpu_torch.ops import w4a16_gemm as W
+    import torch
+    rows = []
+    shapes = [(4096, t) for t in GEMV_SWEEP_TILES] + [
+        (K, t) for K, ts in GEMV_SWEEP_OTHER for t in ts]
+    for K, tiles in shapes:
+        N = 256 * tiles
+        packed, s, ws = _k1_weight_copies(gen, dev, K, N, 128)
+        bn = packed.shape[2]
+        for M in GEMV_SWEEP_M:
+            x = torch.randn((M, K), generator=gen, device=dev).to(
+                torch.bfloat16)
+            times = {c: cuda_ms([lambda p=p, sc=sc, c=c: W.w4a16_gemv(
+                x, p, sc, ctw=c[0], slices=c[1]) for p, sc in ws], 20)
+                for c in W.gemv_choices(M, K, 128, bn)}
+            plan = W.gemv_plan(M, K, N, 128, bn)
+            pick = (plan["ctw"], plan["slices"])
+            best = min(times, key=times.get)
+            rows.append({"K": K, "N": N, "tiles": tiles, "M": M,
+                         "pick": pick, "best": best,
+                         "ratio": times[pick] / times[best],
+                         "ms": {f"{c}/{d}": t
+                                for (c, d), t in times.items()}})
+            log(json.dumps({"gemv_sweep": rows[-1]}))
+        del packed, s, ws
+        torch.cuda.empty_cache()
+    PHASES["gemv_sweep"] = rows
 
 
 def check_k1_edges(gen, dev):
@@ -934,7 +1018,7 @@ def _int_mm_ms(xq, w_int8, iters):
 
 
 def check_w4a8(gen, dev):
-    """K8 at Llama-3-8B's four projections x GEMM_M with zero points (as
+    """K8 at Llama-3-8B's four projections x W4A8_M with zero points (as
     served), plus a per-channel case and a bias + silu case, and on
     K-paired weights as stored; then `w4a8_plan`'s K slices against every
     slice count (`check_w4a8_slices`)."""
@@ -945,7 +1029,7 @@ def check_w4a8(gen, dev):
         choose_block_n, dequantize_w4_any, pack_group_for, pack_w4,
         pack_w4_tiled, quantize_w4, unpack_w4, unpack_w4_tiled)
     kns = GEMM_SHAPES[W4A8_MODEL]
-    plan = [(K, N, 128, [(M, None) for M in GEMM_M], False)
+    plan = [(K, N, 128, [(M, None) for M in W4A8_M], False)
             for K, N in kns]
     plan += [(*kns[0], -1, [(256, None)], False),       # per-channel
              (*kns[0], 128, [(16, "silu")], False)]     # bias + silu
@@ -1898,6 +1982,55 @@ def report_tactics(phase, model, tuned_before):
     return rows
 
 
+def assert_launches(cfg, counts, stats, required, absent=(), n_kpaired=0,
+                    kv_cache_quant="NONE", kpaired_per_layer=0,
+                    ramp_per_layer=0):
+    """Launches per layer per forward of a serve run, from the launch
+    counts and the run's iteration stats: every kernel in `required` ran,
+    none in `absent`; every layer of every forward ran the attention
+    kernels (`attention_kernels`); every K-paired W4A16 linear K12 once
+    (`kpaired_per_layer` of them a layer); for W4A8, K8 for all four
+    projections; every MoE layer K5 twice on units built once;
+    `ramp_per_layer` K13 launches per layer.  Returns (prefill chunks,
+    decode steps, forwards, prefill kernel, decode kernel)."""
+    from tensorrt_llm_tpu_torch.quantization import QuantAlgo
+    for k in required:
+        assert counts.get(k, 0) > 0, f"{k} never launched on the main path"
+    for k in absent:
+        assert counts.get(k, 0) == 0, f"{k} launched on this path: {counts}"
+    chunks = sum(s["num_prefill_chunks"] for s in stats)
+    dsteps = sum(s["decode_steps"] for s in stats)
+    fwd = chunks + dsteps
+    L = cfg.num_layers
+    # every layer of every forward went through the attention kernels
+    prefill_k, decode_k = attention_kernels(cfg, kv_cache_quant)
+    if prefill_k:
+        assert counts[prefill_k] == L * chunks, (counts, chunks)
+    assert counts[decode_k] == L * dsteps, (counts, dsteps)
+    # every K-paired W4A16 weight on K12, once per forward, nothing else
+    assert counts.get("w4a16_kpaired", 0) == n_kpaired * fwd, \
+        (counts, n_kpaired, fwd)
+    if kpaired_per_layer:
+        assert n_kpaired == kpaired_per_layer * L, (n_kpaired, L)
+    if ramp_per_layer:
+        assert counts.get("w4a16_ramp", 0) == ramp_per_layer * L * fwd, \
+            (counts, fwd)
+    if cfg.quant.quant_algo == QuantAlgo.W4A8_AWQ:
+        # QKV, o, gate_up and down on K8 in every layer of every forward;
+        # its combine pass wherever the plan slices K (at least the decode
+        # steps' down projections, 64 column tiles at Llama-3-8B)
+        assert counts["w4a8_gemm"] == 4 * L * fwd, counts
+        assert 0 < counts.get("w4a8_combine", 0) <= counts["w4a8_gemm"], \
+            counts
+    n_moe = sum(cfg.is_moe_layer(i) for i in range(L))
+    if n_moe:
+        # gate_up and down on K5 in every MoE layer of every forward, on
+        # work units computed once per layer
+        assert counts["moe_gmm"] == 2 * n_moe * fwd, counts
+        assert counts["moe_gmm_units"] == n_moe * fwd, counts
+    return chunks, dsteps, fwd, prefill_k, decode_k
+
+
 SERVE_TOKENS = {}          # phase -> (tokens, chosen-token logprobs)
 
 
@@ -1924,7 +2057,6 @@ def serve_model(card, phase, label, cfg, required, absent=(),
     import tensorrt_llm_tpu_torch as T
     from tensorrt_llm_tpu_torch.autotuner import AutoTuner
     from tensorrt_llm_tpu_torch.ops import cuda_build
-    from tensorrt_llm_tpu_torch.quantization import QuantAlgo
     torch.cuda.reset_peak_memory_stats()
     tuned_before = set(AutoTuner.get().timings)
     kw = dict(skip_tokenizer_init=True, device=DEVICE, max_batch_size=4,
@@ -1991,40 +2123,9 @@ def serve_model(card, phase, label, cfg, required, absent=(),
     finally:
         llm.shutdown()
     SERVE_TOKENS[phase] = (toks, lps)
-    for k in required:
-        assert counts.get(k, 0) > 0, f"{k} never launched on the main path"
-    for k in absent:
-        assert counts.get(k, 0) == 0, f"{k} launched on this path: {counts}"
-    chunks = sum(s["num_prefill_chunks"] for s in stats)
-    dsteps = sum(s["decode_steps"] for s in stats)
-    fwd = chunks + dsteps
-    L = cfg.num_layers
-    # every layer of every forward went through the attention kernels
-    prefill_k, decode_k = attention_kernels(cfg, kv_cache_quant)
-    if prefill_k:
-        assert counts[prefill_k] == L * chunks, (counts, chunks)
-    assert counts[decode_k] == L * dsteps, (counts, dsteps)
-    # every K-paired W4A16 weight on K12, once per forward, nothing else
-    assert counts.get("w4a16_kpaired", 0) == n_kpaired * fwd, \
-        (counts, n_kpaired, fwd)
-    if kpaired_per_layer:
-        assert n_kpaired == kpaired_per_layer * L, (n_kpaired, L)
-    if ramp_per_layer:
-        assert counts.get("w4a16_ramp", 0) == ramp_per_layer * L * fwd, \
-            (counts, fwd)
-    if cfg.quant.quant_algo == QuantAlgo.W4A8_AWQ:
-        # QKV, o, gate_up and down on K8 in every layer of every forward;
-        # its combine pass wherever the plan slices K (at least the decode
-        # steps' down projections, 64 column tiles at Llama-3-8B)
-        assert counts["w4a8_gemm"] == 4 * L * fwd, counts
-        assert 0 < counts.get("w4a8_combine", 0) <= counts["w4a8_gemm"], \
-            counts
-    n_moe = sum(cfg.is_moe_layer(i) for i in range(L))
-    if n_moe:
-        # gate_up and down on K5 in every MoE layer of every forward, on
-        # work units computed once per layer
-        assert counts["moe_gmm"] == 2 * n_moe * fwd, counts
-        assert counts["moe_gmm_units"] == n_moe * fwd, counts
+    chunks, dsteps, fwd, prefill_k, decode_k = assert_launches(
+        cfg, counts, stats, required, absent, n_kpaired, kv_cache_quant,
+        kpaired_per_layer, ramp_per_layer)
     ttft = [o.metrics["ttft_s"] for o in outs]
     n_out = sum(len(t) for t in toks)
     gemms = sum(counts.get(k, 0)
@@ -3026,6 +3127,411 @@ def checkpoint_phase(card, by_path):
         f"({card})")
 
 
+# ------------------------------------------------------- phase 18: bench --
+BENCH_PRESETS = ("tinyllama-1.1b", "llama-3-8b", "llama-2-7b", "gpt-oss-20b")
+BENCH_OVERLAP_OFF = ("tinyllama-1.1b", "gpt-oss-20b")
+BENCH_ISL = 128
+BENCH_OSL = 128
+BENCH_REQUESTS = 32
+BENCH_CONCURRENCY = 32
+BENCH_BATCH = 32
+BENCH_SEQ_LEN = 512
+BENCH_GREEDY = 8           # greedy prompts of the overlap on/off comparison
+BENCH_GREEDY_TOKENS = 64
+BENCH_TIE = 0.02           # logprob gap accepted at a greedy near-tie
+BENCH_LATENCY_REQUESTS = 4
+BENCH_SHORT_OSL = 32       # output tokens of the latency and failure runs
+# the prefill chunks partial tail-block reuse gives the bench's runs (the
+# warmup seals each prompt's 8 blocks; the run reuses 7 and 15 tokens of
+# the 8th and computes the last token) and the serve phases' shared-prefix
+# prompts (12 tokens of block 18 reused, 20 or 45 computed)
+BENCH_PREFILL_CASES = [
+    # the warmup's 128-token prompts at Llama-2-7B's group of 1
+    ("llama-2-7b", 32, 32, 128, 128, 0, None, None, False),
+    ("tinyllama", 32, 4, 64, 1, 127, None, None, False),
+    ("llama-2-7b", 32, 32, 128, 1, 127, None, None, False),
+    ("llama-3-8b", 32, 8, 128, 1, 127, None, None, False),
+    ("gpt-oss-20b", 64, 8, 64, 1, 127, 128, None, True),
+    ("tinyllama", 32, 4, 64, 20, 300, None, None, False),
+    ("gpt-oss-20b", 64, 8, 64, 45, 300, 128, None, True),
+]
+
+
+def bench_path(preset, overlap=True):
+    return f"bench_{preset}" + ("" if overlap else "_sync")
+
+
+def bench_llm(preset, overlap=True):
+    """The preset as `trtllm-torch-bench --model <preset> --quant W4A16`
+    builds it (random weights, group 64 for GPT-OSS), at the phase's
+    batch and sequence length; KV pool from free memory, native
+    bookkeeping, the default warmup."""
+    import tensorrt_llm_tpu_torch as T
+    from tensorrt_llm_tpu_torch.commands import bench
+    kw = dict(device=DEVICE, quant_algo="W4A16", max_batch_size=BENCH_BATCH,
+              max_seq_len=BENCH_SEQ_LEN, seed=0, skip_tokenizer_init=True,
+              disable_overlap_scheduler=not overlap)
+    model = bench.preset_model(preset, kw)
+    return T.LLM(model=model, **kw)
+
+
+class SyncChecked:
+    """Times the engine's dispatch half (`ModelEngine.dispatch_decode`:
+    inputs, uploads, the k steps, the copy to the host, the event) and,
+    while `check` is set, runs it under
+    ``torch.cuda.set_sync_debug_mode("error")``: any host sync in it
+    raises, which ends the executor loop and fails every request.  Wraps
+    the engine's function; the package has no switch for it."""
+
+    def __init__(self, engine, check=True):
+        import torch
+        self.engine, self.real = engine, engine.dispatch_decode
+        self.check = check
+        self.seconds = []          # host time of each dispatch half
+        self.checked = 0           # halves run under the check
+        torch.cuda.synchronize()
+
+        def dispatch(*a, **kw):
+            check = self.check
+            if check:
+                torch.cuda.set_sync_debug_mode("error")
+            t0 = time.perf_counter()
+            try:
+                return self.real(*a, **kw)
+            finally:
+                self.seconds.append(time.perf_counter() - t0)
+                if check:
+                    self.checked += 1
+                    torch.cuda.set_sync_debug_mode("default")
+
+        engine.dispatch_decode = dispatch
+
+    def close(self):
+        # drop the instance attribute: the class's method shows through
+        # again, and no bound method of the engine is left on the engine
+        # (a reference cycle would keep its KV pools until a collection)
+        del self.engine.dispatch_decode
+        self.engine = self.real = None
+
+
+def bench_greedy(llm, prompts):
+    """`BENCH_GREEDY` greedy requests plus one seeded sampled request:
+    (greedy tokens, their logprobs, the sampled request's tokens)."""
+    import tensorrt_llm_tpu_torch as T
+    sp = T.SamplingParams(max_tokens=BENCH_GREEDY_TOKENS, temperature=0.0,
+                          ignore_eos=True, logprobs=1)
+    seeded = T.SamplingParams(max_tokens=BENCH_GREEDY_TOKENS,
+                              temperature=0.8, top_k=20, top_p=0.9, seed=7,
+                              ignore_eos=True)
+    outs = llm.generate(prompts[:BENCH_GREEDY + 1],
+                        [sp] * BENCH_GREEDY + [seeded])
+    toks = [o.outputs[0].token_ids for o in outs]
+    lps = [[lp for d in o.outputs[0].logprobs for lp in d.values()]
+           for o in outs[:BENCH_GREEDY]]
+    assert all(len(t) == BENCH_GREEDY_TOKENS for t in toks), toks
+    return toks[:BENCH_GREEDY], lps, toks[-1]
+
+
+def bench_timed(llm, reqs, cfg, n_kpaired, checked):
+    """One timed `run_throughput` (no warmup): the launch counters reset
+    just before it and read just after, launches asserted per layer per
+    forward.  The report gains the run's host ms per dispatch half (from
+    `checked`) and per decode iteration (the executor's step time).
+    Returns (report, counts)."""
+    import numpy as np
+    import torch
+    from tensorrt_llm_tpu_torch.commands import bench
+    from tensorrt_llm_tpu_torch.ops import cuda_build
+    torch.cuda.synchronize()
+    n0 = len(checked.seconds)
+    it0 = llm.executor.iteration
+    cuda_build.reset_launch_counts()
+    cpu0 = time.process_time()
+    rep = bench.run_throughput(llm, reqs, BENCH_CONCURRENCY, warmup=False)
+    torch.cuda.synchronize()
+    # this process's CPU seconds (all threads) beside the run's wall
+    # seconds, and the machine's load: a host that slows while its CPU
+    # seconds hold is shared, not busier
+    rep["process_cpu_s"] = time.process_time() - cpu0
+    rep["loadavg_1m"] = os.getloadavg()[0]
+    counts = dict(cuda_build.launch_counts)
+    stats = [s for s in llm.get_stats() if s["iteration"] > it0]
+    assert rep["num_failed"] == 0, rep["errors"]
+    assert rep["output_tokens"] == BENCH_REQUESTS * BENCH_OSL, rep
+    assert llm.executor._error is None
+    required = ["w4a16_gemm", "flash_prefill", "paged_decode"]
+    if cfg.num_experts:
+        required += ["moe_gmm", "moe_gmm_units", "w4a16_kpaired"]
+    chunks, dsteps, fwd, _, _ = assert_launches(
+        cfg, counts, stats, required, n_kpaired=n_kpaired,
+        kpaired_per_layer=1 if cfg.num_experts else 0)
+    rep["prefill_chunks"], rep["decode_steps"] = chunks, dsteps
+    rep["decode_chunks"] = sum(1 for s in stats if s["decode_steps"])
+    rep["max_inflight_chunks"] = max(s["inflight_chunks"] for s in stats)
+    rep["gemm_launches_per_forward"] = sum(
+        counts.get(k, 0) for k in ("w4a16_gemm", "w4a16_gemv",
+                                   "w4a16_kpaired")) / fwd
+    halves = checked.seconds[n0:]
+    assert len(halves) == rep["decode_chunks"], (len(halves), rep)
+    rep["dispatch_half_ms_mean"] = 1e3 * float(np.mean(halves))
+    rep["decode_iteration_ms_mean"] = float(np.mean(
+        [s["step_time_ms"] for s in stats if s["decode_steps"]]))
+    rep["prefill_iteration_ms_mean"] = float(np.mean(
+        [s["step_time_ms"] for s in stats
+         if s["num_prefill_chunks"] and not s["decode_steps"]] or [0.0]))
+    return rep, counts
+
+
+def bench_setup(preset, modes, llms, checked):
+    """One `LLM` of the preset a setting of `modes` (True: overlap on) into
+    `llms`, each with its dispatch halves wrapped (`SyncChecked`, into
+    `checked`), and the CLI's warmup run on each (the `BENCH_CONCURRENCY`
+    prompts, 8 tokens each; it seals the prompts' blocks, which the timed
+    runs then reuse).  Returns (build seconds, config, K-paired linears,
+    requests); `bench_teardown` releases the dicts' contents, also what a
+    failed setup had built."""
+    import torch
+    from tensorrt_llm_tpu_torch.commands import bench
+    build_s = {}
+    for ov in modes:
+        t0 = time.perf_counter()
+        llms[ov] = bench_llm(preset, ov)
+        torch.cuda.synchronize()
+        build_s[ov] = time.perf_counter() - t0
+        assert llms[ov].kv_manager.is_native, "KV bookkeeping not native"
+        checked[ov] = SyncChecked(llms[ov].engine)
+    cfg = llms[modes[0]].model_config
+    _, n_kpaired = w4a16_shapes(llms[modes[0]].model)
+    reqs = bench.synthetic_requests(BENCH_ISL, BENCH_OSL, BENCH_REQUESTS,
+                                    cfg.vocab_size)
+    for llm in llms.values():
+        for f in [llm.generate_async(list(ids), bench._sampling(8))
+                  for ids, _ in reqs[:BENCH_CONCURRENCY]]:
+            f.result()
+    return build_s, cfg, n_kpaired, reqs
+
+
+def bench_teardown(llms, checked):
+    import gc
+    import torch
+    for c in checked.values():
+        c.close()
+    for llm in llms.values():
+        llm.shutdown()
+    llms.clear()
+    checked.clear()
+    # the preset's LLMs are unreachable now: release their device memory
+    # before the next preset sizes its KV pool from it
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def bench_preset(card, preset, by_path, compare=False, extra=None):
+    """One preset through the bench CLI's `run_throughput`, as the CLI
+    runs it: its warmup (`bench_setup`), then the timed run
+    (`bench_timed`), every dispatch half under `SyncChecked`'s check
+    (which costs the timed runs nothing measurable: `bench_overlap`).
+    With `compare`, a second `LLM` with the overlap pipeline off is built
+    beside the first, and the timed runs go off, on, on, off, so that
+    neither setting always runs first; both serve the greedy and seeded
+    requests (`bench_greedy`) and their greedy tokens are compared
+    (`bench_compare`).  `extra(llm, requests)` runs on the overlapped
+    `LLM` before shutdown.  Returns the summary."""
+    import numpy as np
+    import torch
+    modes = (True, False) if compare else (True,)
+    free_gib = torch.cuda.mem_get_info()[0] / 2 ** 30
+    llms, checked = {}, {}
+    try:
+        build_s, cfg, n_kpaired, reqs = bench_setup(preset, modes, llms,
+                                                    checked)
+        runs = {ov: [] for ov in modes}
+        for ov in ((False, True, True, False) if compare else (True,)):
+            rep, counts = bench_timed(llms[ov], reqs, cfg, n_kpaired,
+                                      checked[ov])
+            runs[ov].append(rep)
+            by_path.setdefault(bench_path(preset, ov), counts)
+            log(f"[bench] {preset} W4A16, overlap {'on' if ov else 'off'}: "
+                f"{rep['output_tokens_per_sec']} output tok/s, TTFT p50/p99 "
+                f"{rep['ttft_ms']['p50']}/{rep['ttft_ms']['p99']} ms, TPOT "
+                f"p50 {rep['tpot_ms']['p50']} ms, ITL p50/p99 "
+                f"{rep['itl_ms']['p50']}/{rep['itl_ms']['p99']} ms; host ms "
+                f"a dispatch half {rep['dispatch_half_ms_mean']:.1f} "
+                f"({rep['decode_steps'] // rep['decode_chunks']} steps) "
+                f"({card})")
+        rng = np.random.default_rng(11)
+        prompts = [[int(t) for t in rng.integers(10, cfg.vocab_size - 10,
+                                                  BENCH_ISL)]
+                   for _ in range(BENCH_GREEDY + 1)]
+        greedy = {ov: bench_greedy(llms[ov], prompts) for ov in modes}
+        if extra is not None:
+            extra(llms[True], reqs)
+        kv = llms[True].get_kv_cache_stats()
+        dispatches = {ov: checked[ov].checked for ov in modes}
+        assert all(c.checked == len(c.seconds) for c in checked.values())
+    finally:
+        bench_teardown(llms, checked)
+    summary = {
+        "phase": "bench", "preset": preset, "card": card,
+        "free_gib_before_build": free_gib,
+        "build_s": {str(k): v for k, v in build_s.items()},
+        "runs": {("on" if ov else "off"): r for ov, r in runs.items()},
+        "dispatch_halves_sync_checked": {("on" if k else "off"): v
+                                         for k, v in dispatches.items()},
+        "kv": kv, "seeded_sampled_tokens": greedy[True][2][:16]}
+    if compare:
+        summary["greedy_overlap_vs_sync"] = bench_compare(
+            preset, greedy[True], greedy[False])
+        mean = {ov: float(np.mean([r["output_tokens_per_sec"]
+                                   for r in runs[ov]])) for ov in modes}
+        summary["mean_output_tokens_per_sec"] = {"on": mean[True],
+                                                 "off": mean[False]}
+        log(f"[bench] {preset}: mean output tok/s overlap on "
+            f"{mean[True]:.2f} / off {mean[False]:.2f} (runs off, on, on, "
+            f"off; {card})")
+    PHASES[bench_path(preset)] = summary
+    log(json.dumps(summary))
+    return summary
+
+
+def bench_compare(preset, on, off):
+    """Greedy tokens with overlap on equal those with it off, or first
+    differ where both chosen tokens sit at a near-tie (both logprobs below
+    log(1/2) + BENCH_TIE and within BENCH_TIE of each other)."""
+    import math
+    (ta, la, _), (tb, lb, _) = on, off
+    exact, ties = 0, []
+    for a, b, pa, pb in zip(ta, tb, la, lb):
+        if a == b:
+            exact += 1
+            continue
+        i = next(i for i, (u, v) in enumerate(zip(a, b)) if u != v)
+        ok = (max(pa[i], pb[i]) <= math.log(0.5) + BENCH_TIE
+              and abs(pa[i] - pb[i]) <= BENCH_TIE)
+        ties.append({"position": i, "tokens": [a[i], b[i]],
+                     "logprobs": [pa[i], pb[i]], "near_tie": ok})
+    res = {"preset": preset, "exact_requests": exact, "of": len(ta),
+           "first_differences": ties}
+    log(json.dumps({"phase": "bench_overlap_vs_sync", **res}))
+    assert all(d["near_tie"] for d in ties), ties
+    return res
+
+
+def bench_phase(card, gen, dev, by_path):
+    """Phase 18: the four bench presets (TinyLlama-1.1B, Llama-3-8B,
+    Llama-2-7B, GPT-OSS-20B) at full width and depth, W4A16, through the
+    bench CLI's `run_throughput` (ISL 128, OSL 128, `ignore_eos`, 32
+    requests at concurrency 32, `max_batch_size` 32) with the overlap
+    pipeline on and every dispatch half under `SyncChecked`; TinyLlama
+    and GPT-OSS also with it off, interleaved (`bench_preset`), greedy
+    tokens compared; `run_latency` on TinyLlama with 4 requests; a
+    throughput run with one failing request must end and report it.  K3
+    is first held against its plain version at the prefill chunks partial
+    reuse gives the bench and the serve phases."""
+    from tensorrt_llm_tpu_torch.commands import bench
+    t0 = time.perf_counter()
+    check_prefill(gen, dev, BENCH_PREFILL_CASES)
+    out = {"card": card}
+
+    def tiny_extra(llm, reqs):
+        short = [(ids, BENCH_SHORT_OSL) for ids, _ in reqs]
+        lat = bench.run_latency(llm, short[:BENCH_LATENCY_REQUESTS])
+        assert lat["num_requests"] == BENCH_LATENCY_REQUESTS, lat
+        out["latency"] = lat
+        log(f"[bench] tinyllama-1.1b latency ({BENCH_LATENCY_REQUESTS} "
+            f"requests): TTFT p50 {lat['ttft_ms']['p50']} ms, TPOT p50 "
+            f"{lat['tpot_ms']['p50']} ms ({card})")
+        # one request longer than max_seq_len fails at submission
+        bad = short[:7] + [([5] * (BENCH_SEQ_LEN + 1), BENCH_SHORT_OSL)]
+        rep = bench.run_throughput(llm, bad, len(bad), warmup=False)
+        assert rep["num_failed"] == 1, rep
+        assert rep["num_requests"] == len(bad) - 1, rep
+        out["failed_request_run"] = {k: rep[k] for k in (
+            "num_requests", "num_failed", "errors", "output_tokens")}
+        log(json.dumps({"phase": "bench_failed_request",
+                        **out["failed_request_run"]}))
+
+    for preset in BENCH_PRESETS:
+        bench_preset(card, preset, by_path,
+                     compare=preset in BENCH_OVERLAP_OFF,
+                     extra=tiny_extra if preset == "tinyllama-1.1b"
+                     else None)
+    out["seconds"] = time.perf_counter() - t0
+    PHASES["bench"] = out
+    log(f"[bench] phase done in {out['seconds']:.1f} s ({card})")
+
+
+# the Llama bench presets cut to 2 layers against the CPU (TinyLlama's and
+# GPT-OSS's widths are phase 7's and `gptoss_cross`'s): (preset, seed)
+BENCH_CROSS = (("llama-3-8b", 8), ("llama-2-7b", 9))
+
+
+def bench_cross():
+    """Phase 19: the Llama-3-8B and Llama-2-7B bench presets' widths
+    (`MODEL_SHAPES`) at 2 layers, W4A16 g128, on the card against the
+    CPU's plain versions (`cross_check_cpu`: a 200-token prompt in chunks
+    of 128, then 4 decode steps)."""
+    from tensorrt_llm_tpu_torch.commands import bench
+    for preset, seed in BENCH_CROSS:
+        t0 = time.perf_counter()
+        phase = f"bench_{preset}_cross_check"
+        cross_check_cpu(phase, f"{preset} bench preset, 2 layers",
+                        w4a16_cfg(bench.MODEL_SHAPES[preset], num_layers=2),
+                        seed=seed, n_prompt=200, chunk=128, n_decode=4)
+        PHASES[phase]["seconds"] = time.perf_counter() - t0
+        log(f"[bench_cross] {preset}: {PHASES[phase]['seconds']:.1f} s")
+
+
+# `bench_overlap`'s timed runs, in order: the pipeline off, on, and on
+# with every dispatch half under the sync check
+BENCH_OVERLAP_ORDER = ("off", "on", "on+chk", "off", "on+chk", "on", "off",
+                       "on")
+
+
+def bench_overlap(card):
+    """Opt-in: the overlap pipeline's effect and the sync check's cost at
+    TinyLlama and GPT-OSS.  One `LLM` with the pipeline on and one with
+    it off (`bench_setup`), then the timed `run_throughput`s of
+    BENCH_OVERLAP_ORDER on them, interleaved; every dispatch half is
+    timed, and only the "on+chk" runs' are checked.  Prints each run and
+    each setting's range of output tok/s, TPOT p50 and host ms a dispatch
+    half and a decode iteration."""
+    import numpy as np
+    keys = ("output_tokens_per_sec", "tpot_p50_ms", "ttft_p50_ms",
+            "dispatch_half_ms_mean", "decode_iteration_ms_mean",
+            "max_inflight_chunks", "wall_s", "process_cpu_s", "loadavg_1m")
+    out = {"card": card, "order": BENCH_OVERLAP_ORDER}
+    for preset in BENCH_OVERLAP_OFF:
+        llms, checked = {}, {}
+        runs = {m: [] for m in ("off", "on", "on+chk")}
+        try:
+            _, cfg, n_kpaired, reqs = bench_setup(preset, (True, False),
+                                                  llms, checked)
+            for mode in BENCH_OVERLAP_ORDER:
+                ov = mode != "off"
+                checked[ov].check = mode == "on+chk"
+                rep, _ = bench_timed(llms[ov], reqs, cfg, n_kpaired,
+                                     checked[ov])
+                rep["tpot_p50_ms"] = rep["tpot_ms"]["p50"]
+                rep["ttft_p50_ms"] = rep["ttft_ms"]["p50"]
+                runs[mode].append({k: rep[k] for k in keys})
+                log(f"[bench_overlap] {preset} {mode}: " + ", ".join(
+                    f"{k} {rep[k]:.2f}" for k in keys) + f" ({card})")
+        finally:
+            bench_teardown(llms, checked)
+        rng = {m: {k: [min(r[k] for r in rs), max(r[k] for r in rs),
+                       float(np.mean([r[k] for r in rs]))] for k in keys}
+               for m, rs in runs.items()}
+        out[preset] = {"runs": runs, "min_max_mean": rng}
+        for m in runs:
+            lo, hi, mean = rng[m]["output_tokens_per_sec"]
+            log(f"[bench_overlap] {preset} {m}: output tok/s {lo:.2f}-"
+                f"{hi:.2f} (mean {mean:.2f}) over {len(runs[m])} runs "
+                f"({card})")
+    PHASES["bench_overlap"] = out
+    log(json.dumps(out))
+
+
 # ----------------------------------------------------------------- summary --
 SERVE_PATH = "serve"                    # TinyLlama W4A16: K1-K4, K13
 GPT_OSS_PATH = "serve_gpt_oss"          # GPT-OSS-20B: K1, K3-K5, K12
@@ -3180,7 +3686,8 @@ def main() -> int:
                       "llama3", "gptoss",
                       "gptoss_cross", "llama3_w4a8", "llama3_w4a8_cross",
                       "deepseek", "deepseek_v32", "deepseek_v3_width",
-                      "deepseek_cross", "checkpoint"]
+                      "deepseek_cross", "checkpoint", "bench",
+                      "bench_cross"]
     by_path = {}      # each serve path's own launch counts
     try:
         run_phases(phases, card, gen, dev, by_path)
@@ -3304,6 +3811,14 @@ def run_phases(phases, card, gen, dev, by_path):
                         n_prompt=200, chunk=128, n_decode=4)
     if "checkpoint" in phases:
         checkpoint_phase(card, by_path)
+    if "bench" in phases:
+        bench_phase(card, gen, dev, by_path)
+    if "bench_cross" in phases:
+        bench_cross()
+    if "bench_overlap" in phases:
+        bench_overlap(card)
+    if "gemv_sweep" in phases:
+        gemv_sweep(gen, dev)
     if "mla_decode_breakdown" in phases:
         mla_decode_breakdown(gen, dev)
     if "route_witness" in phases:

@@ -26,7 +26,10 @@ with `transformers.AutoTokenizer`, imported only then;
 generation.  `GenerationFuture.result` detokenizes the output whole;
 iterating the future (``generate_async(..., streaming=True)``) yields one
 `RequestOutput` per executor piece, with cumulative token ids and text from
-`IncrementalDetokenizer`.  Stop strings are refused at submit (the
+`IncrementalDetokenizer`; `GenerationFuture.cancel` ends the request at the
+executor's next iteration (finish reason "cancelled").  `generate_async`
+takes the JAX signature's scheduling `priority` and
+`kv_retention_priority`.  Stop strings are refused at submit (the
 executor's stop scan is a later slice), so there is no stop-string
 truncation of the text or of streamed tokens.
 
@@ -190,7 +193,9 @@ class LLM:
                else getattr(self._tokenizer, "eos_token_id", None))
         self.executor = PyExecutor(
             self.engine, a.make_scheduler_config(), eos_token_id=eos,
-            max_seq_len=a.max_seq_len, max_decode_steps=a.max_decode_steps)
+            max_seq_len=a.max_seq_len, max_decode_steps=a.max_decode_steps,
+            overlap=not a.disable_overlap_scheduler,
+            overlap_depth=a.overlap_depth)
         self.executor.start()
         # join the executor thread at interpreter exit even without shutdown()
         self._exit_finalizer = weakref.finalize(
@@ -247,6 +252,12 @@ class LLM:
     def tokenizer(self):
         return self._tokenizer
 
+    @property
+    def num_devices(self) -> int:
+        """Devices this instance computes on (the bench's per-device
+        divisor): one, as the port has no parallel mapping yet."""
+        return 1
+
     def generate(self, prompts, sampling_params: Union[
                      SamplingParams, Sequence[SamplingParams], None] = None,
                  cache_salt: Optional[str] = None) -> List[RequestOutput]:
@@ -269,18 +280,23 @@ class LLM:
     def generate_async(self, prompt,
                        sampling_params: Optional[SamplingParams] = None,
                        streaming: bool = False,
-                       cache_salt: Optional[str] = None
-                       ) -> "GenerationFuture":
+                       cache_salt: Optional[str] = None,
+                       kv_retention_priority: Optional[int] = None,
+                       priority: float = 0.5) -> "GenerationFuture":
         """Submit one prompt (text or token ids).  The future's `result()`
         gives the whole output; iterating it streams the pieces
         (`streaming` is the JAX API's flag: the future is iterable either
-        way)."""
-        fut = self._future(prompt, sampling_params, cache_salt)
+        way).  `priority` in [0, 1] orders the waiting queue (higher
+        first); `kv_retention_priority` is the retention priority of the
+        blocks the request stores for reuse (lower evicts first)."""
+        fut = self._future(prompt, sampling_params, cache_salt,
+                           kv_retention_priority, priority)
         self.executor.submit(fut.req)
         return fut
 
-    def _future(self, prompt, sampling_params,
-                cache_salt) -> "GenerationFuture":
+    def _future(self, prompt, sampling_params, cache_salt,
+                kv_retention_priority: Optional[int] = None,
+                priority: float = 0.5) -> "GenerationFuture":
         text = None
         if isinstance(prompt, str):
             if self._tokenizer is None:
@@ -291,7 +307,9 @@ class LLM:
         req = LlmRequest([int(t) for t in prompt],
                          sampling_params or SamplingParams(),
                          cache_salt=(None if cache_salt is None
-                                     else f"user:{cache_salt}"))
+                                     else f"user:{cache_salt}"),
+                         kv_retention_priority=kv_retention_priority,
+                         priority=priority)
         return GenerationFuture(self, req, text)
 
     def get_kv_cache_stats(self) -> dict:
@@ -326,6 +344,11 @@ class GenerationFuture:
     @property
     def request_id(self) -> int:
         return self.req.request_id
+
+    def cancel(self) -> None:
+        """End the request at the executor's next iteration: its result
+        finishes with reason "cancelled" and its KV is freed."""
+        self.llm.executor.cancel(self.req.request_id)
 
     def _decode(self, token_ids: List[int]) -> str:
         tok = self.llm.tokenizer

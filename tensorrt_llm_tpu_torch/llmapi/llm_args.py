@@ -8,7 +8,12 @@ path (loaded with `transformers`) or a tokenizer object; `quant_algo` /
 checkpoint's own `quantization_config` is adopted); `load_format="dummy"`
 draws random weights at the checkpoint's shapes.  `enable_warmup` None means
 on for a CUDA device and off for the CPU, as the JAX package warms up on
-the TPU only.  `quant_clip_search` and `lora_path` are fields of the JAX
+the TPU only.  The scheduler's fields (`scheduler_policy`,
+`enable_chunked_prefill`, `batch_wait_*`), the overlap
+pipeline's (`disable_overlap_scheduler`, `overlap_depth`: JAX's defaults,
+overlap on at depth 4) and the KV cache's (`enable_partial_reuse`,
+`copy_on_partial_reuse`, `kv_bookkeeping`: "native" or "python") carry the
+JAX package's names.  `quant_clip_search` and `lora_path` are fields of the JAX
 package that the port refuses when set."""
 
 from __future__ import annotations
@@ -21,7 +26,8 @@ import torch
 from tensorrt_llm_tpu_torch.quantization.mode import (
     KvCacheQuantAlgo, QuantAlgo, QuantConfig)
 from tensorrt_llm_tpu_torch.runtime.kv_cache_manager import KVCacheConfig
-from tensorrt_llm_tpu_torch.runtime.scheduler import SchedulerConfig
+from tensorrt_llm_tpu_torch.runtime.scheduler import (
+    CapacitySchedulerPolicy, SchedulerConfig)
 
 
 @dataclass
@@ -45,11 +51,22 @@ class LlmArgs:
     kv_num_blocks: Optional[int] = None  # None => from free device memory
     free_mem_fraction: float = 0.85
     enable_block_reuse: bool = True
+    enable_partial_reuse: bool = True
+    copy_on_partial_reuse: bool = True
+    kv_bookkeeping: str = "native"     # "native" (C++) | "python"
     kv_cache_quant: str = "NONE"       # "INT8": int8 pages + f32 scales
+
+    # scheduler
+    scheduler_policy: str = "guaranteed_no_evict"
+    enable_chunked_prefill: bool = True
+    batch_wait_timeout_iters: int = 0
+    batch_wait_max_tokens_ratio: float = 0.0
 
     lora_path: Optional[str] = None    # LoRA merged at load: not yet
 
     max_decode_steps: int = 8          # decode steps per executor iteration
+    disable_overlap_scheduler: bool = False
+    overlap_depth: int = 4             # decode chunks in flight at most
     enable_warmup: Optional[bool] = None  # autotune + warm steps at build
 
     seed: int = 0
@@ -86,9 +103,17 @@ class LlmArgs:
                              num_blocks=self.kv_num_blocks,
                              free_mem_fraction=self.free_mem_fraction,
                              enable_block_reuse=self.enable_block_reuse,
+                             enable_partial_reuse=self.enable_partial_reuse,
+                             copy_on_partial_reuse=self.copy_on_partial_reuse,
+                             bookkeeping=self.kv_bookkeeping,
                              kv_quant=KvCacheQuantAlgo(self.kv_cache_quant),
                              layout=layout, dsa_index_dim=dsa_index_dim)
 
     def make_scheduler_config(self) -> SchedulerConfig:
-        return SchedulerConfig(max_batch_size=self.max_batch_size,
-                               max_num_tokens=self.max_num_tokens)
+        return SchedulerConfig(
+            policy=CapacitySchedulerPolicy(self.scheduler_policy),
+            max_batch_size=self.max_batch_size,
+            max_num_tokens=self.max_num_tokens,
+            enable_chunked_prefill=self.enable_chunked_prefill,
+            batch_wait_timeout_iters=self.batch_wait_timeout_iters,
+            batch_wait_max_tokens_ratio=self.batch_wait_max_tokens_ratio)

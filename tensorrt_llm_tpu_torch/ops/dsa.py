@@ -54,15 +54,28 @@ def _hadamard(n: int) -> np.ndarray:
     return h
 
 
+_HADAMARD_ON = {}
+
+
+def _hadamard_on(n: int, device) -> torch.Tensor:
+    """The scaled, bf16-rounded Hadamard matrix as f32 on `device`, made
+    once per (n, device): an upload on every call would make the host wait
+    for the device."""
+    key = (n, torch.device(device))
+    hm = _HADAMARD_ON.get(key)
+    if hm is None:
+        hm = _HADAMARD_ON[key] = torch.from_numpy(
+            _hadamard(n) * (n ** -0.5)).to(torch.bfloat16).to(
+            device=device, dtype=torch.float32)
+    return hm
+
+
 def rotate_activation(x: torch.Tensor) -> torch.Tensor:
     """Scaled Hadamard transform over the trailing axis (scale D^-0.5): the
     bf16 input times the bf16-rounded matrix, accumulated in f32 and
     rounded once to bf16, as XLA computes the JAX package's bf16 einsum."""
-    n = x.shape[-1]
-    hm = torch.from_numpy(_hadamard(n) * (n ** -0.5)).to(
-        device=x.device, dtype=torch.bfloat16)
-    return (x.to(torch.bfloat16).to(torch.float32)
-            @ hm.to(torch.float32)).to(torch.bfloat16)
+    hm = _hadamard_on(x.shape[-1], x.device)
+    return (x.to(torch.bfloat16).to(torch.float32) @ hm).to(torch.bfloat16)
 
 
 def write_indexer_cache(cache: torch.Tensor, k_idx: torch.Tensor,

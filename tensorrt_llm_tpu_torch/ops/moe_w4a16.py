@@ -265,8 +265,10 @@ def gmm_units_plain(group_sizes: torch.Tensor, M: int,
     valid = w < count
     ent = torch.stack([torch.where(valid, e, 0), torch.where(valid, r, 0),
                        torch.where(valid, torch.clamp(n, min=0), 0)], 1)
-    head = torch.cat([count, torch.tensor([ntok, bound], dtype=torch.int64,
-                                          device=dev)])
+    head = torch.cat([count, torch.full((1,), ntok, dtype=torch.int64,
+                                        device=dev),
+                      torch.full((1,), bound, dtype=torch.int64,
+                                 device=dev)])
     return torch.cat([head[None], ent]).to(torch.int32)
 
 

@@ -92,11 +92,22 @@ _SMS = 132          # H100 SXM streaming multiprocessors
 GEMV_CTW = (1, 2, 4)
 GEMV_SLICES = (1, 2, 4, 8, 16)
 _GEMV_X_BYTES = 48 << 10     # x [8 or 16 rows, slice] bf16 in shared memory
-# `gemv_plan`'s rule, fitted to K2's times on the H100 over every choice at
-# the served shapes (phase 3): the widest column tile, and the most slices
-# whose (column tiles x slices) blocks stay within the cap of that cluster
-# size (larger clusters pack the SMs less freely)
-_GEMV_BLOCK_CAP = {16: 320, 8: 1024, 4: 2048, 2: 1 << 30, 1: 1 << 30}
+# `gemv_plan`'s cost model of a (column tile, K slices) choice, fitted to
+# K2's times on the H100 over every slice count at 17 column-tile counts
+# of K 4096 and 15 shapes of K 2048, 11008 and 14336, M 1-16
+# (`chip_smoke.py gemv_sweep`): a block streams its slice of the weight at
+# about _GEMV_BLOCK_BPUS bytes a microsecond after _GEMV_BLOCK_US of
+# latency, so a block's time is set by its bytes, not the card's rate; the
+# blocks run in waves of (SMs x the blocks an SM holds x _GEMV_WAVE_FILL),
+# an SM holding as many as its shared memory and its registers take (ptxas:
+# 71 registers a thread at 8 token rows, 127 at 16; 160 threads a block);
+# each slice of a cluster adds _GEMV_SLICE_US (the partials' sum)
+_GEMV_BLOCK_BPUS = 5000.0
+_GEMV_BLOCK_US = 10.0
+_GEMV_SLICE_US = 0.4
+_GEMV_WAVE_FILL = 0.9
+_GEMV_REG_BLOCKS = {8: 5, 16: 3}    # blocks an SM's registers hold, by rows
+_SM_SMEM = 233472                   # shared memory of an H100 SM, bytes
 RAMP_SLAB = 1024    # K rows per ramp slab (512 packed rows)
 RAMP_MAX_STEP = 4   # slabs a K13 schedule step may have
 RAMP_MAX_STEPS = 64  # steps a K13 schedule may have
@@ -537,17 +548,40 @@ def gemv_choices(M: int, K: int, G: int, bn: int) -> tuple:
                  if d <= ng and mt * (cdiv(ng, d) * G + 8) * 2 <= _GEMV_X_BYTES)
 
 
+def _gemv_smem(ctw: int, mt: int, ksm: int, ngs: int) -> int:
+    """K2's shared memory a block (`gv_layout` in csrc/w4a16_gemv.cu): the
+    32 KB ring, x [mt, ksm + 8] bf16, scale and zero rows, x's row sums,
+    the barriers, 1 KB of alignment slack."""
+    o = 32768 + mt * (ksm + 8) * 2 + 2 * ngs * 64 * ctw * 2 + ngs * mt * 4
+    return ((o + 15) & ~15) + 2 * 8 * 8 + 16 + 1024
+
+
+def gemv_cost_us(M: int, K: int, N: int, G: int, ctw: int, slices: int,
+                 n_sms: int = _SMS) -> float:
+    """`gemv_plan`'s model of K2's time (microseconds) for one choice:
+    waves x a block's streaming time, plus the slices' sum."""
+    ngs = cdiv(K // G, slices)
+    ksm = ngs * G
+    mt = 8 if M <= 8 else 16
+    per_sm = min(_SM_SMEM // (_gemv_smem(ctw, mt, ksm, ngs) + 1024),
+                 _GEMV_REG_BLOCKS[mt])
+    wave = max(1, int(n_sms * max(per_sm, 1) * _GEMV_WAVE_FILL))
+    waves = cdiv(N // (64 * ctw) * slices, wave)
+    return (waves * (_GEMV_BLOCK_US + ksm * 32 * ctw / _GEMV_BLOCK_BPUS)
+            + _GEMV_SLICE_US * slices)
+
+
 @functools.lru_cache(maxsize=4096)
 def gemv_plan(M: int, K: int, N: int, G: int, bn: int, n_sms: int = _SMS,
               ctw: Optional[int] = None,
               slices: Optional[int] = None) -> dict:
     """K2's launch (`csrc/w4a16_gemv.cu`): unless given, the widest column
-    tile of `gemv_choices` and the most slices whose N / (64 ctw) x slices
-    blocks stay within `_GEMV_BLOCK_CAP` (scaled to the card's SMs), or the
-    fewest slices the shape takes; grid (N / (64 ctw), slices), the slices
-    one cluster.  `chip_smoke.py` times every choice at the served shapes
-    and fails if this one is more than ``GEMV_PLAN_SLACK`` slower than the
-    fastest.  Pure shape logic; the tests check it on the CPU."""
+    tile of `gemv_choices` and, of its slice counts, the one
+    `gemv_cost_us` puts least (the fewer slices at a tie); grid
+    (N / (64 ctw), slices), the slices one cluster.  `chip_smoke.py` times
+    every choice at the served shapes and fails if this one is more than
+    ``GEMV_PLAN_SLACK`` slower than the fastest.  Pure shape logic; the
+    tests check it on the CPU."""
     tiled_check(K, G, bn)
     if not 1 <= M <= GEMV_MAX_M:
         raise ValueError(f"w4a16_gemv takes 1..{GEMV_MAX_M} rows, got {M}")
@@ -558,12 +592,8 @@ def gemv_plan(M: int, K: int, N: int, G: int, bn: int, n_sms: int = _SMS,
         raise ValueError(f"K2 does not take ctw={ctw}, slices={slices} for "
                          f"M={M}, K={K}, G={G}, BN={bn}")
     c_best = max(c[0] for c in pool)
-    pool = [c for c in pool if c[0] == c_best]
-    tiles = N // (64 * c_best)
-    fit = [c for c in pool
-           if tiles * c[1] <= _GEMV_BLOCK_CAP[c[1]] * n_sms / _SMS]
-    ctw, slices = max(fit, key=lambda c: c[1]) if fit else min(
-        pool, key=lambda c: c[1])
+    ctw, slices = min((c for c in pool if c[0] == c_best), key=lambda c: (
+        gemv_cost_us(M, K, N, G, c[0], c[1], n_sms), c[1]))
     return {"ctw": ctw, "cols": 64 * ctw, "slices": slices,
             "grid": (N // (64 * ctw), slices)}
 

@@ -1,11 +1,21 @@
 """Paged KV cache manager with prefix reuse.
 
 Counterpart of the base `KVCacheManager` of
-`tensorrt_llm_tpu/runtime/kv_cache_manager.py` with its pure-Python
-bookkeeping (`_PyBookkeeping`): a block pool whose block 0 is reserved, a
-reuse index of full blocks keyed by token-chain hashes, and LRU eviction of
-unreferenced cached blocks (every block has the default retention priority;
-per-request priorities come later).
+`tensorrt_llm_tpu/runtime/kv_cache_manager.py`: a block pool whose block 0
+is reserved, a reuse index of full blocks keyed by token-chain hashes,
+eviction of unreferenced cached blocks by retention priority (lowest
+first, LRU within a priority; `set_seq_priority`), and partial tail-block
+reuse (`KVCacheConfig.enable_partial_reuse`: after the full-block match, a
+cached block sharing a token prefix with the prompt's next tokens serves
+those tokens, copied into a fresh block under `copy_on_partial_reuse` --
+the pairs the engine must copy come from `drain_partial_copies` -- or
+adopted in place when unreferenced).
+
+The host bookkeeping has two backends with one op surface and the same
+decisions: `_NativeBookkeeping` over the C++ library `native/
+kv_bookkeeping.cc` (the default) and `_PyBookkeeping`.  The backend is
+chosen by `KVCacheConfig.bookkeeping` alone: a failed native build raises,
+and Python runs only when it is asked for.
 
 Device pools, per layer, are K and V tensors of the logical head-major
 layout ``[num_blocks, num_kv_heads, block_size, head_dim]``: bf16, or for an
@@ -18,17 +28,17 @@ pool ``[num_blocks, 1, block_size, index_head_dim]``), as in the JAX
 package.  The TPU's lane-packed view for head dims below 128, and its
 latent width rounded up to 640, are TPU layouts and are not kept.
 
-Not in this slice: the native (C++) bookkeeping, partial tail-block reuse,
-beam forks, the host-memory tier and connector, KV events, VSWA rings and
-the DP/helix/star managers.
+Not in this slice: beam forks, the host-memory tier and connector, KV
+events, VSWA rings and the DP/helix/star managers.
 """
 
 from __future__ import annotations
 
 import collections
 from dataclasses import dataclass
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from tensorrt_llm_tpu_torch.quantization.mode import KvCacheQuantAlgo
@@ -41,6 +51,12 @@ class KVCacheConfig:
     num_blocks: Optional[int] = None    # None => derive from free memory
     free_mem_fraction: float = 0.85
     enable_block_reuse: bool = True
+    # partial tail-block reuse (the JAX package's defaults: both on)
+    enable_partial_reuse: bool = True
+    copy_on_partial_reuse: bool = True
+    # host bookkeeping backend: "native" (C++, built at first use) or
+    # "python"; never one in place of the other
+    bookkeeping: str = "native"
     kv_quant: KvCacheQuantAlgo = KvCacheQuantAlgo.NONE
     # set from the model, not by the user: "kv" (K and V pools per layer)
     # or "latent" (one MLA pool per layer), plus the DSA indexer's width
@@ -49,6 +65,9 @@ class KVCacheConfig:
 
     def __post_init__(self):
         self.kv_quant = KvCacheQuantAlgo(self.kv_quant)
+        if self.bookkeeping not in ("native", "python"):
+            raise ValueError(f"bookkeeping={self.bookkeeping!r}: 'native' "
+                             "or 'python'")
         if self.kv_quant == KvCacheQuantAlgo.FP8:
             raise NotImplementedError("FP8 KV pools are not in the port yet")
         if self.layout not in ("kv", "latent"):
@@ -105,18 +124,27 @@ def model_pools(cfg, num_blocks: int, block_size: int,
                       kv_quant=kv_quant, device=device, **pool_layout(cfg))
 
 
+# Default retention priority (the reference's KvCacheRetentionConfig,
+# executor.h:559): lower evicts first.
+DEFAULT_RETENTION_PRIORITY = 35
+
+
 class SequenceInfo:
-    __slots__ = ("block_ids", "num_tokens", "block_hashes", "salt")
+    __slots__ = ("block_ids", "num_tokens", "block_hashes", "salt",
+                 "priority")
 
     def __init__(self):
         self.block_ids: List[int] = []
         self.num_tokens = 0
         self.block_hashes: List[int] = []
         self.salt = None
+        self.priority = DEFAULT_RETENTION_PRIORITY
 
 
 class _PyBookkeeping:
-    """Host bookkeeping: free list, ref counts, chain-hash reuse index."""
+    """Host bookkeeping in Python (JAX `_PyBookkeeping`): free list, ref
+    counts, chain-hash reuse index, priority buckets of evictable blocks
+    and the partial-reuse side index."""
 
     def __init__(self, num_blocks: int, block_size: int, enable_reuse: bool):
         self.block_size = block_size
@@ -126,11 +154,18 @@ class _PyBookkeeping:
         self.ref_count = [0] * num_blocks
         self.cached_blocks: Dict[int, int] = {}   # chain hash -> block
         self.block_hash: List[Optional[int]] = [None] * num_blocks
-        # unreferenced cached blocks, least recently released first
-        self.evictable: "collections.OrderedDict[int, None]" = \
-            collections.OrderedDict()
+        # unreferenced cached blocks by retention priority, least recently
+        # released first within a priority
+        self.evictable: Dict[int, collections.OrderedDict] = {}
+        self.block_priority = [DEFAULT_RETENTION_PRIORITY] * num_blocks
         self.sequences: Dict[int, SequenceInfo] = {}
+        # partial-reuse side index: sealed blocks' tokens and the children
+        # of each (parent hash, salt) chain node
+        self.block_tokens: Dict[int, tuple] = {}
+        self.block_parent: Dict[int, tuple] = {}
+        self.children: Dict[tuple, collections.OrderedDict] = {}
         self.num_reused_blocks = 0
+        self.num_partial_reused = 0
         self.num_allocated_blocks = 0
         self.num_evicted_blocks = 0
 
@@ -138,15 +173,28 @@ class _PyBookkeeping:
     def _chain_hash(parent: int, tokens: tuple, salt) -> int:
         return hash((parent, tokens, salt))
 
+    def _n_evictable(self) -> int:
+        return sum(len(b) for b in self.evictable.values())
+
+    def set_seq_priority(self, seq_id: int, priority: int):
+        info = self.sequences.get(seq_id)
+        if info is not None:
+            info.priority = int(priority)
+
     def _take_block(self) -> int:
         if self.free_blocks:
             bid = self.free_blocks.popleft()
         elif self.evictable:
-            bid, _ = self.evictable.popitem(last=False)
+            prio = min(self.evictable)
+            bucket = self.evictable[prio]
+            bid, _ = bucket.popitem(last=False)   # LRU within a priority
+            if not bucket:
+                del self.evictable[prio]
             h = self.block_hash[bid]
             if h is not None:
                 self.cached_blocks.pop(h, None)
                 self.block_hash[bid] = None
+            self._forget_block(bid)
             self.num_evicted_blocks += 1
         else:
             raise RuntimeError("KV cache out of blocks")
@@ -154,9 +202,24 @@ class _PyBookkeeping:
         self.num_allocated_blocks += 1
         return bid
 
+    def _forget_block(self, bid: int):
+        """Drop a block from the partial-reuse side index."""
+        self.block_tokens.pop(bid, None)
+        key = self.block_parent.pop(bid, None)
+        if key is not None:
+            bucket = self.children.get(key)
+            if bucket is not None:
+                bucket.pop(bid, None)
+                if not bucket:
+                    del self.children[key]
+
     def _ref_block(self, bid: int):
         if self.ref_count[bid] == 0:
-            self.evictable.pop(bid, None)
+            for p, bucket in list(self.evictable.items()):
+                if bucket.pop(bid, None) is not None:
+                    if not bucket:
+                        del self.evictable[p]
+                    break
         self.ref_count[bid] += 1
 
     def _unref_block(self, bid: int):
@@ -164,21 +227,119 @@ class _PyBookkeeping:
         assert self.ref_count[bid] >= 0
         if self.ref_count[bid] == 0:
             if self.block_hash[bid] is not None and self.enable_reuse:
-                self.evictable[bid] = None
+                self.evictable.setdefault(
+                    self.block_priority[bid],
+                    collections.OrderedDict())[bid] = None
             else:
                 self.free_blocks.append(bid)
 
     def num_free_blocks(self) -> int:
-        return len(self.free_blocks) + len(self.evictable)
+        return len(self.free_blocks) + self._n_evictable()
 
     def drop_cached_blocks(self):
         """Forget the reuse index: cached blocks hold KV of the old
         weights after a weight swap.  Blocks in use stay with their
         sequences and are freed, not cached, when released."""
-        self.free_blocks.extend(self.evictable)
+        for prio in sorted(self.evictable):
+            self.free_blocks.extend(self.evictable[prio])
         self.evictable.clear()
         self.cached_blocks.clear()
         self.block_hash = [None] * len(self.block_hash)
+        self.block_tokens.clear()
+        self.block_parent.clear()
+        self.children.clear()
+
+    def match_prefix(self, token_ids: List[int], cache_salt=None,
+                     partial: bool = False) -> int:
+        """Dry-run reuse lookup: cached prefix tokens, no side effects."""
+        if not self.enable_reuse:
+            return 0
+        matched, parent = 0, 0
+        for b in range((len(token_ids) - 1) // self.block_size):
+            chunk = tuple(token_ids[b * self.block_size:
+                                    (b + 1) * self.block_size])
+            h = self._chain_hash(parent, chunk, cache_salt)
+            if h not in self.cached_blocks:
+                break
+            matched += self.block_size
+            parent = h
+        if partial:
+            matched += self._best_partial(parent, cache_salt, token_ids,
+                                          matched)[0]
+        return matched
+
+    def _best_partial(self, parent: int, salt, token_ids: List[int],
+                      matched: int) -> Tuple[int, int]:
+        """Longest shared token prefix of any cached child of `parent`
+        with the prompt's next tokens, leaving at least one token to
+        compute.  Returns (k, block id)."""
+        limit = min(self.block_size, len(token_ids) - 1 - matched)
+        if limit < 1:
+            return 0, -1
+        cands = self.children.get((parent, salt))
+        if not cands:
+            return 0, -1
+        target = token_ids[matched:matched + limit]
+        best_k, best_bid = 0, -1
+        for bid in cands:
+            toks = self.block_tokens.get(bid)
+            if toks is None:
+                continue
+            k = 0
+            for x, y in zip(toks, target):
+                if x != y:
+                    break
+                k += 1
+            if k > best_k:
+                best_k, best_bid = k, bid
+        return best_k, best_bid
+
+    def try_partial_match(self, seq_id: int, token_ids: List[int],
+                          copy_on_partial: bool = True
+                          ) -> Tuple[int, int, int]:
+        """After the full-block match, reuse the cached child of the chain
+        tail whose tokens share the longest prefix with the prompt's next
+        tokens: in a fresh block the caller copies the source page into
+        (`copy_on_partial`), or the source block itself, adopted in place
+        when unreferenced (it leaves the reuse index).  Returns
+        (tokens, src, dst); dst == src needs no copy; (0, -1, -1) when
+        nothing matched."""
+        if not self.enable_reuse:
+            return (0, -1, -1)
+        info = self.sequences[seq_id]
+        bs = self.block_size
+        if info.num_tokens % bs or \
+                info.num_tokens != bs * len(info.block_ids) or \
+                len(info.block_hashes) != len(info.block_ids):
+            return (0, -1, -1)
+        parent = info.block_hashes[-1] if info.block_hashes else 0
+        k, src = self._best_partial(parent, info.salt, token_ids,
+                                    info.num_tokens)
+        if k < 1:
+            return (0, -1, -1)
+        if not copy_on_partial:
+            if self.ref_count[src] != 0:
+                return (0, -1, -1)
+            self._ref_block(src)
+            h = self.block_hash[src]
+            if h is not None:
+                self.cached_blocks.pop(h, None)
+                self.block_hash[src] = None
+            self._forget_block(src)
+            self.num_allocated_blocks += 1
+            dst = src
+        else:
+            self._ref_block(src)   # pinned: _take_block may evict it
+            try:
+                dst = self._take_block()
+            except RuntimeError:
+                self._unref_block(src)
+                return (0, -1, -1)
+            self._unref_block(src)
+        info.block_ids.append(dst)
+        info.num_tokens += k
+        self.num_partial_reused += 1
+        return (k, src, dst)
 
     def add_sequence(self, seq_id: int, token_ids: List[int],
                      cache_salt=None) -> int:
@@ -230,6 +391,12 @@ class _PyBookkeeping:
             if h not in self.cached_blocks:   # first writer wins
                 self.cached_blocks[h] = bid
                 self.block_hash[bid] = h
+                self.block_priority[bid] = info.priority
+                self.block_tokens[bid] = chunk
+                key = (parent, info.salt)
+                self.block_parent[bid] = key
+                self.children.setdefault(
+                    key, collections.OrderedDict())[bid] = None
             info.block_hashes.append(h)
             parent = h
 
@@ -254,12 +421,136 @@ class _PyBookkeeping:
     def stats(self) -> dict:
         return {
             "free_blocks": len(self.free_blocks),
-            "evictable_blocks": len(self.evictable),
+            "evictable_blocks": self._n_evictable(),
             "reused_blocks": self.num_reused_blocks,
+            "partial_reused_blocks": self.num_partial_reused,
             "allocated_blocks": self.num_allocated_blocks,
             "evicted_blocks": self.num_evicted_blocks,
             "active_sequences": len(self.sequences),
         }
+
+
+class _NativeBookkeeping:
+    """The same op surface over the C++ library (`native.load_native`).
+    Salts are hashed with Python's `hash`, so equal salts meet within one
+    process, as the Python backend's chain hashes do."""
+
+    def __init__(self, lib, num_blocks: int, block_size: int,
+                 enable_reuse: bool):
+        import ctypes
+        self._ct = ctypes
+        self._pi32 = ctypes.POINTER(ctypes.c_int32)
+        self._lib = lib
+        self.block_size = block_size
+        self._h = lib.tllm_kvbm_create(num_blocks, block_size,
+                                       1 if enable_reuse else 0)
+
+    def __del__(self):
+        try:
+            self._lib.tllm_kvbm_destroy(self._h)
+        except Exception:  # noqa: BLE001 -- interpreter teardown
+            pass
+
+    def _tok_buf(self, token_ids):
+        arr = np.asarray(token_ids, dtype=np.int32)
+        return arr, arr.ctypes.data_as(self._pi32)
+
+    @staticmethod
+    def _salt(cache_salt):
+        return ((0, 0) if cache_salt is None
+                else (hash(cache_salt) & (2 ** 64 - 1), 1))
+
+    def num_free_blocks(self) -> int:
+        return int(self._lib.tllm_kvbm_num_free(self._h))
+
+    def set_seq_priority(self, seq_id: int, priority: int):
+        self._lib.tllm_kvbm_set_priority(self._h, seq_id, int(priority))
+
+    def drop_cached_blocks(self):
+        self._lib.tllm_kvbm_drop_cached(self._h)
+
+    def match_prefix(self, token_ids, cache_salt=None,
+                     partial: bool = False) -> int:
+        _keep, ptr = self._tok_buf(token_ids)
+        fn = (self._lib.tllm_kvbm_match_partial if partial
+              else self._lib.tllm_kvbm_match)
+        return int(fn(self._h, ptr, len(token_ids), *self._salt(cache_salt)))
+
+    def try_partial_match(self, seq_id: int, token_ids,
+                          copy_on_partial: bool = True
+                          ) -> Tuple[int, int, int]:
+        _keep, ptr = self._tok_buf(token_ids)
+        out = (self._ct.c_int64 * 3)()
+        self._lib.tllm_kvbm_partial_match(
+            self._h, seq_id, ptr, len(token_ids),
+            1 if copy_on_partial else 0, out)
+        return (int(out[0]), int(out[1]), int(out[2]))
+
+    def add_sequence(self, seq_id: int, token_ids, cache_salt=None) -> int:
+        _keep, ptr = self._tok_buf(token_ids)
+        return int(self._lib.tllm_kvbm_add_sequence(
+            self._h, seq_id, ptr, len(token_ids), *self._salt(cache_salt)))
+
+    def grow_sequence(self, seq_id: int, new_total_tokens: int):
+        rc = self._lib.tllm_kvbm_grow(self._h, seq_id, new_total_tokens)
+        if rc == -2:
+            raise KeyError(seq_id)
+        if rc != 0:
+            raise RuntimeError("KV cache out of blocks")
+
+    def num_seq_blocks(self, seq_id: int) -> int:
+        return int(self._lib.tllm_kvbm_seq_num_blocks(self._h, seq_id))
+
+    def seal_full_blocks(self, seq_id: int, token_ids):
+        _keep, ptr = self._tok_buf(token_ids)
+        self._lib.tllm_kvbm_seal(self._h, seq_id, ptr, len(token_ids))
+
+    def free_sequence(self, seq_id: int):
+        self._lib.tllm_kvbm_free_seq(self._h, seq_id)
+
+    def block_table(self, seq_id: int, max_blocks: int) -> List[int]:
+        out = np.zeros(max_blocks, np.int32)
+        self._lib.tllm_kvbm_block_table(self._h, seq_id,
+                                        out.ctypes.data_as(self._pi32),
+                                        max_blocks)
+        return out.tolist()
+
+    def slot_mapping(self, seq_id: int, start_token: int,
+                     num_tokens: int) -> List[int]:
+        out = np.zeros(num_tokens, np.int32)
+        rc = self._lib.tllm_kvbm_slot_mapping(
+            self._h, seq_id, start_token, num_tokens,
+            out.ctypes.data_as(self._pi32))
+        if rc != 0:
+            raise IndexError("slot_mapping past allocated blocks")
+        return out.tolist()
+
+    def stats(self) -> dict:
+        out = (self._ct.c_int64 * 8)()
+        self._lib.tllm_kvbm_stats(self._h, out)
+        return {
+            "free_blocks": int(out[0]),
+            "evictable_blocks": int(out[1]),
+            "reused_blocks": int(out[2]),
+            "partial_reused_blocks": int(out[7]),
+            "allocated_blocks": int(out[3]),
+            "evicted_blocks": int(out[4]),
+            "active_sequences": int(out[5]),
+        }
+
+
+def make_bookkeeping(num_blocks: int, block_size: int, enable_reuse: bool,
+                     backend: str = "native"):
+    """The host bookkeeping `backend` names: "native" builds (or loads)
+    the C++ library and raises when that fails; "python" is the Python
+    backend."""
+    if backend == "python":
+        return _PyBookkeeping(num_blocks, block_size, enable_reuse)
+    if backend != "native":
+        raise ValueError(f"unknown KV bookkeeping backend {backend!r}")
+    from tensorrt_llm_tpu_torch.native import load_native
+    return _NativeBookkeeping(load_native(), num_blocks, block_size,
+                              enable_reuse)
 
 
 class KVCacheManager:
@@ -272,8 +563,15 @@ class KVCacheManager:
         self.num_kv_heads = num_kv_heads
         self.head_dim = head_dim
         self.device = resolve_device(device)
-        self._bk = _PyBookkeeping(num_blocks, cfg.block_size,
-                                  cfg.enable_block_reuse)
+        self._bk = make_bookkeeping(num_blocks, cfg.block_size,
+                                    cfg.enable_block_reuse, cfg.bookkeeping)
+        # (src, dst) page copies of copy-on-partial-reuse, taken by the
+        # executor before the sequence's first prefill chunk
+        self._partial_copies: Dict[int, List[tuple]] = {}
+
+    @property
+    def is_native(self) -> bool:
+        return isinstance(self._bk, _NativeBookkeeping)
 
     def allocate_pools(self) -> List:
         """Zeroed pools per layer (`make_pools`)."""
@@ -313,9 +611,30 @@ class KVCacheManager:
     def add_sequence(self, seq_id: int, token_ids: List[int],
                      cache_salt=None) -> int:
         """Register a sequence; returns the tokens whose KV is already
-        cached (whole blocks, always fewer than the prompt so that at least
-        one token is recomputed to produce logits)."""
-        return self._bk.add_sequence(seq_id, token_ids, cache_salt)
+        cached, always fewer than the prompt so that at least one token is
+        recomputed to produce logits: whole blocks, then under
+        `enable_partial_reuse` the head of one more block.  Its page copy,
+        if any, waits in `drain_partial_copies`."""
+        matched = self._bk.add_sequence(seq_id, token_ids, cache_salt)
+        if self.cfg.enable_partial_reuse and self.cfg.enable_block_reuse:
+            k, src, dst = self._bk.try_partial_match(
+                seq_id, token_ids, self.cfg.copy_on_partial_reuse)
+            if k:
+                matched += k
+                if dst != src:
+                    self._partial_copies.setdefault(seq_id, []).append(
+                        (src, dst))
+        return matched
+
+    def drain_partial_copies(self, seq_id: int) -> List[tuple]:
+        """(src, dst) block pairs whose pages the engine must copy before
+        the sequence's first prefill chunk (copy-on-partial-reuse)."""
+        return self._partial_copies.pop(seq_id, [])
+
+    def set_seq_priority(self, seq_id: int, priority: int):
+        """Retention priority of the blocks this sequence stores for reuse
+        from now on (lower evicts first; default 35)."""
+        self._bk.set_seq_priority(seq_id, priority)
 
     def grow_sequence(self, seq_id: int, new_total_tokens: int):
         self._bk.grow_sequence(seq_id, new_total_tokens)
@@ -325,6 +644,7 @@ class KVCacheManager:
         self._bk.seal_full_blocks(seq_id, token_ids)
 
     def free_sequence(self, seq_id: int):
+        self._partial_copies.pop(seq_id, None)
         self._bk.free_sequence(seq_id)
 
     def drop_cached_blocks(self):

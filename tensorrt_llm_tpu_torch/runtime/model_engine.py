@@ -3,10 +3,28 @@
 Counterpart of `tensorrt_llm_tpu/runtime/model_engine.py`.  PyTorch runs
 eagerly, so there are no compiled buckets: a prefill step takes exactly the
 chunk's tokens and a decode step exactly the batch, with block tables as
-wide as the longest sequence needs.  `run_decode_multi` runs k decode steps
-as a Python loop of single steps with sampling on the device between them
-(the next step's input ids are the previous step's sampled tokens, still on
-the device); its tokens equal the JAX package's fused `scan` mode.
+wide as the longest sequence needs.
+
+A decode chunk has two halves.  `dispatch_decode` is the dispatch half: the
+step inputs (with `virtual_extra` positions already dispatched but not yet
+applied by the executor's overlap pipeline), their uploads, the k decode
+steps as a Python loop of single steps with sampling on the device between
+them (the next step's input ids are the previous step's sampled tokens,
+still on the device; the first step's may be the previous chunk's last
+row, `prev_tokens`), and, on a CUDA device, the copy of the tokens and
+logprobs to pinned host buffers with ``non_blocking=True`` and a recorded
+`torch.cuda.Event`.  Nothing in it waits for the device.  The drain half is
+`chunk_ready` (the event has been reached) and `chunk_result` (waits for
+it and returns host arrays).  The pinned buffers are allocated once per
+(k, batch size) as a ring of `host_ring` buffers (`cudaHostAlloc` stalls
+the device, so never per chunk); the executor sets the ring one longer
+than its pipeline is deep.  The chunk's tokens equal the JAX package's
+fused `scan` mode.
+
+`copy_kv_blocks` copies whole pages between blocks in every layer's pools
+(bf16, INT8 data and scales, MLA latent and DSA indexer pools) for
+copy-on-partial-reuse, as a plain torch index copy (XLA does it in the JAX
+package).
 
 `warmup` (run by `LLM` before its executor starts, by default on a CUDA
 device) tunes the W4A16 tactics (`autotune_kernels`), then runs one prefill
@@ -15,7 +33,7 @@ library handles and the allocator are warm.  The JAX package's warmup also
 compiles every bucket; eager PyTorch has nothing to compile.
 
 Not in this slice: the chain/scan/unroll variants, CUDA graphs,
-pipeline/context/data parallelism and the KV page copy/extract machinery.
+pipeline/context/data parallelism and the KV page extract/inject machinery.
 """
 
 from __future__ import annotations
@@ -26,7 +44,7 @@ import sys
 import threading
 from dataclasses import dataclass
 from pathlib import Path
-from typing import List, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -36,8 +54,8 @@ from tensorrt_llm_tpu_torch.attention_backend.interface import (
 from tensorrt_llm_tpu_torch.llmapi.sampling_params import SamplingParams
 from tensorrt_llm_tpu_torch.runtime.kv_cache_manager import KVCacheManager
 from tensorrt_llm_tpu_torch.runtime.request import LlmRequest
-from tensorrt_llm_tpu_torch.runtime.sampler import sample_tokens
-from tensorrt_llm_tpu_torch.utils import logger, resolve_device
+from tensorrt_llm_tpu_torch.runtime.sampler import SamplingState, sample_tokens
+from tensorrt_llm_tpu_torch.utils import logger, resolve_device, upload
 
 # weight bytes a tuning ring holds: past the 50 MB L2 of an H100
 _ROTATE_BYTES = 128 << 20
@@ -56,6 +74,28 @@ class StepInputs:
     q_offset: int = 0
 
 
+@dataclass
+class DecodeChunk:
+    """One dispatched decode chunk: its requests (row order), k, the device
+    tokens and logprobs ``[k, B]`` and, on a CUDA device, their pinned host
+    copies and the event recorded after the copies."""
+
+    reqs: list
+    k: int
+    toks: torch.Tensor
+    logps: torch.Tensor
+    host: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+    event: Optional["torch.cuda.Event"] = None
+
+
+def _leaves(cache):
+    if isinstance(cache, (tuple, list)):
+        for c in cache:
+            yield from _leaves(c)
+    else:
+        yield cache
+
+
 class ModelEngine:
     def __init__(self, model, kv_manager: KVCacheManager, device="cuda"):
         self.model = model
@@ -63,6 +103,8 @@ class ModelEngine:
         self.device = resolve_device(device)
         self.kv_caches = kv_manager.allocate_pools()
         self.lock = threading.Lock()
+        self.host_ring = 2          # pinned buffers per (k, batch size)
+        self._rings = {}            # (k, B) -> [next slot, [(toks, logps)]]
 
     # ------------------------------------------------------------ inputs ---
     def prepare_prefill_inputs(self, req, chunk: int) -> StepInputs:
@@ -82,13 +124,21 @@ class ModelEngine:
             logit_indices=np.asarray([chunk - 1], np.int64),
             q_offset=start)
 
-    def prepare_decode_inputs(self, reqs, extra_tokens: int = 0
+    def prepare_decode_inputs(self, reqs, extra_tokens: int = 0,
+                              virtual_extra: Optional[Sequence[int]] = None
                               ) -> StepInputs:
         """One new token per request; `extra_tokens` widens the tables for
-        k-step decode (positions up to num_tokens + extra - 1)."""
+        k-step decode (positions up to num_tokens + extra - 1).
+        `virtual_extra` (overlap decode): per request, tokens already
+        dispatched but not yet applied -- positions and lengths advance as
+        if they had landed, and the input ids are placeholders the caller
+        replaces with the previous chunk's tokens on the device."""
         kv = self.kv_manager
-        MB = max(kv.blocks_needed(r.num_tokens + extra_tokens) for r in reqs)
-        pos = np.asarray([r.num_tokens - 1 for r in reqs], np.int64)
+        ve = np.asarray(virtual_extra if virtual_extra is not None
+                        else [0] * len(reqs), np.int64)
+        MB = max(kv.blocks_needed(r.num_tokens + int(v) + extra_tokens)
+                 for r, v in zip(reqs, ve))
+        pos = np.asarray([r.num_tokens - 1 for r in reqs], np.int64) + ve
         return StepInputs(
             input_ids=np.asarray([r.all_token_ids[-1] for r in reqs],
                                  np.int64),
@@ -103,16 +153,14 @@ class ModelEngine:
 
     def _tensors(self, inputs: StepInputs, mode: str):
         dev = self.device
-
-        def t(a):
-            return torch.from_numpy(np.ascontiguousarray(a)).to(
-                dev, non_blocking=True)
-
         meta = AttentionMetadata(
-            positions=t(inputs.positions), slot_mapping=t(inputs.slot_mapping),
-            block_tables=t(inputs.block_tables), kv_lens=t(inputs.kv_lens),
+            positions=upload(inputs.positions, dev),
+            slot_mapping=upload(inputs.slot_mapping, dev),
+            block_tables=upload(inputs.block_tables, dev),
+            kv_lens=upload(inputs.kv_lens, dev),
             q_offset=int(inputs.q_offset), mode=mode)
-        return t(inputs.input_ids), meta, t(inputs.logit_indices)
+        return (upload(inputs.input_ids, dev), meta,
+                upload(inputs.logit_indices, dev))
 
     # -------------------------------------------------------------- steps ---
     @torch.no_grad()
@@ -130,27 +178,91 @@ class ModelEngine:
             return self.model(ids, self.kv_caches, meta, rows)
 
     @torch.no_grad()
-    def run_decode_multi(self, inputs: StepInputs, num_steps: int,
-                         params: List[SamplingParams], slot_table: np.ndarray,
-                         step: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
-        """`num_steps` decode steps, sampling on the device between them.
-        slot_table [k, B] holds each step's KV slots (blocks pre-grown).
-        Returns (tokens [k, B], logprobs [k, B]) as device tensors."""
+    def dispatch_decode(self, reqs, k: int, step: int = 0,
+                        virtual_extra: Optional[Sequence[int]] = None,
+                        prev_tokens: Optional[torch.Tensor] = None
+                        ) -> DecodeChunk:
+        """The dispatch half of a k-step decode chunk (module docstring):
+        every request's blocks must already cover its positions up to
+        num_tokens + virtual + k - 1.  Seeded rows fold `step` and each
+        step's offset into their seed.  `prev_tokens` [B] (device) replaces
+        the input ids."""
+        kv = self.kv_manager
+        virt = list(virtual_extra) if virtual_extra is not None \
+            else [0] * len(reqs)
+        inputs = self.prepare_decode_inputs(reqs, extra_tokens=k - 1,
+                                            virtual_extra=virt)
+        slot_table = np.stack([
+            np.asarray(kv.slot_mapping(r.request_id, r.num_tokens + v - 1,
+                                       k), np.int64)
+            for r, v in zip(reqs, virt)], axis=1)
+        params = [r.sampling_params for r in reqs]
         ids, meta, rows = self._tensors(inputs, "decode")
-        slots = torch.from_numpy(np.ascontiguousarray(slot_table)).to(
-            self.device)
+        if prev_tokens is not None:
+            ids = prev_tokens.to(torch.int64)
+        slots = upload(slot_table, self.device)
+        state = SamplingState.build(params, self.device)
         toks, logps = [], []
         with self.lock:
-            for j in range(num_steps):
+            for j in range(k):
                 meta.slot_mapping = slots[j]
                 logits = self.model(ids, self.kv_caches, meta, rows)
-                tok, lp = sample_tokens(logits, params, step, step_offset=j)
+                tok, lp = sample_tokens(logits, params, step, step_offset=j,
+                                        state=state)
                 toks.append(tok)
                 logps.append(lp)
                 ids = tok.to(torch.int64)
                 meta.positions = meta.positions + 1
                 meta.kv_lens = meta.kv_lens + 1
-        return torch.stack(toks), torch.stack(logps)
+        chunk = DecodeChunk(list(reqs), k, torch.stack(toks),
+                            torch.stack(logps))
+        if self.device.type == "cuda":
+            chunk.host = self._host_buffers(k, len(reqs))
+            chunk.host[0].copy_(chunk.toks, non_blocking=True)
+            chunk.host[1].copy_(chunk.logps, non_blocking=True)
+            chunk.event = torch.cuda.Event()
+            chunk.event.record()
+        return chunk
+
+    def _host_buffers(self, k: int, B: int):
+        """The next pinned (tokens, logprobs) pair of the (k, B) ring."""
+        ring = self._rings.get((k, B))
+        if ring is None or len(ring[1]) != self.host_ring:
+            ring = self._rings[(k, B)] = [0, [
+                (torch.empty((k, B), dtype=torch.int32, pin_memory=True),
+                 torch.empty((k, B), dtype=torch.float32, pin_memory=True))
+                for _ in range(self.host_ring)]]
+        slot = ring[0]
+        ring[0] = (slot + 1) % self.host_ring
+        return ring[1][slot]
+
+    @staticmethod
+    def chunk_ready(chunk: DecodeChunk) -> bool:
+        """Whether the chunk's results have reached the host."""
+        return chunk.event is None or chunk.event.query()
+
+    @staticmethod
+    def chunk_result(chunk: DecodeChunk) -> Tuple[np.ndarray, np.ndarray]:
+        """The chunk's (tokens, logprobs) ``[k, B]`` on the host, waiting
+        for its event if it has not been reached."""
+        if chunk.event is None:
+            return chunk.toks.numpy(), chunk.logps.numpy()
+        chunk.event.synchronize()
+        return chunk.host[0].numpy(), chunk.host[1].numpy()
+
+    @torch.no_grad()
+    def copy_kv_blocks(self, pairs: Sequence[Tuple[int, int]]) -> None:
+        """Copy the pages of blocks ``src -> dst`` for every (src, dst) pair
+        in every pool of every layer, in stream order before any later
+        step that reads them."""
+        if not pairs:
+            return
+        idx = np.asarray(pairs, np.int64)
+        src = upload(np.ascontiguousarray(idx[:, 0]), self.device)
+        dst = upload(np.ascontiguousarray(idx[:, 1]), self.device)
+        with self.lock:
+            for pool in _leaves(self.kv_caches):
+                pool.index_copy_(0, dst, pool.index_select(0, src))
 
     # ------------------------------------------------------------ warmup ---
     @staticmethod

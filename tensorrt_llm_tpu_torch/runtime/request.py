@@ -1,9 +1,13 @@
 """Request state machine.
 
 Counterpart of `tensorrt_llm_tpu/runtime/request.py`: queued -> context
-(possibly chunked) -> generation -> complete, with paged-KV progress and a
-queue of streamed output pieces.  Disaggregated-serving and multimodal
-fields belong to later slices.
+(possibly chunked) -> generation -> complete, with paged-KV progress, a
+queue of streamed output pieces and one ``(cumulative tokens, time)`` entry
+in `token_times` per emitted piece (the bench CLI's inter-token latencies).
+`priority` in [0, 1] orders the waiting queue (higher first);
+`kv_retention_priority` is the retention priority of the blocks the request
+stores for reuse (None: the manager's default).  Disaggregated-serving and
+multimodal fields belong to later slices.
 """
 
 from __future__ import annotations
@@ -47,7 +51,9 @@ class LlmRequest:
     def __init__(self, prompt_token_ids: List[int],
                  sampling_params: SamplingParams,
                  request_id: Optional[int] = None,
-                 cache_salt: Optional[str] = None):
+                 cache_salt: Optional[str] = None,
+                 kv_retention_priority: Optional[int] = None,
+                 priority: float = 0.5):
         if request_id is None:
             LlmRequest._id_counter += 1
             request_id = LlmRequest._id_counter
@@ -55,6 +61,8 @@ class LlmRequest:
         self.prompt_token_ids = list(prompt_token_ids)
         self.sampling_params = sampling_params
         self.cache_salt = cache_salt
+        self.kv_retention_priority = kv_retention_priority
+        self.priority = priority
 
         self.state = RequestState.QUEUED
         self.output_token_ids: List[int] = []
@@ -70,6 +78,7 @@ class LlmRequest:
         self.first_sched_time: Optional[float] = None
         self.first_token_time: Optional[float] = None
         self.end_time: Optional[float] = None
+        self.token_times: List[tuple] = []     # (cum tokens, time) per emit
 
     @property
     def prompt_len(self) -> int:
@@ -142,6 +151,8 @@ class LlmRequest:
     def emit(self, finished: bool, error: Optional[str] = None):
         new = self.output_token_ids[self._streamed:]
         self._streamed = len(self.output_token_ids)
+        if new:
+            self.token_times.append((self._streamed, time.time()))
         self.out_queue.put(RequestOutputPiece(
             request_id=self.request_id, new_token_ids=new, finished=finished,
             finish_reason=self.finish_reason if finished else None,

@@ -3,7 +3,7 @@
 Counterpart of `tensorrt_llm_tpu/utils/common.py` (`cdiv`, `round_up`,
 logger).  `resolve_device` is new: every entry point of the port takes a
 ``device`` argument that defaults to CUDA and refuses to fall back to the CPU
-on its own.
+on its own.  `upload` moves host arrays to the device without a host sync.
 """
 
 from __future__ import annotations
@@ -11,6 +11,7 @@ from __future__ import annotations
 import logging
 import os
 
+import numpy as np
 import torch
 
 logger = logging.getLogger("tensorrt_llm_tpu_torch")
@@ -45,6 +46,17 @@ def resolve_device(device="cuda") -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+def upload(arr: np.ndarray, device) -> torch.Tensor:
+    """A host numpy array as a tensor on `device` without a host sync: on a
+    CUDA device it is staged in pinned memory (PyTorch's caching host
+    allocator, which keeps the block until the copy has run) and copied
+    with ``non_blocking=True``; on the CPU it is the array's own memory."""
+    t = torch.from_numpy(np.ascontiguousarray(arr))
+    if torch.device(device).type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t
 
 
 _DIVISORS = {}

@@ -13,13 +13,17 @@ from tensorrt_llm_tpu_torch.ops import w4a16_gemm as W
 from tensorrt_llm_tpu_torch.utils import cdiv
 
 # (K, N, G, BN) of the served tiled projections: TinyLlama qkv / gate_up /
-# down, Llama-3-8B down, GPT-OSS-20B qkv (`choose_block_n`'s tiles)
+# down, Llama-3-8B down, GPT-OSS-20B qkv, Llama-2-7B's three
+# (`choose_block_n`'s tiles)
 SERVED_GEMV = [
     (2048, 2560, 128, 512),
     (2048, 11264, 128, 1024),
     (5632, 2048, 128, 1024),
     (14336, 4096, 128, 1024),
     (2880, 5120, 64, 1024),
+    (4096, 12288, 128, 1024),   # Llama-2-7B qkv / gate_up / down
+    (4096, 22016, 128, 512),
+    (11008, 4096, 128, 1024),
 ]
 
 
@@ -32,8 +36,7 @@ def _meta(shape, dtype=torch.float32):
 def test_gemv_plan_takes_its_rule(K, N, G, bn, M):
     """The plan takes a choice K2 can run (a column tile dividing BN, whole
     scale groups a slice, x's slice within its shared-memory room): the
-    widest column tile, and the most slices whose blocks stay within the
-    cap of that cluster size."""
+    widest column tile, and the slice count its cost model puts least."""
     plan = W.gemv_plan(M, K, N, G, bn)
     choice = (plan["ctw"], plan["slices"])
     choices = W.gemv_choices(M, K, G, bn)
@@ -44,17 +47,20 @@ def test_gemv_plan_takes_its_rule(K, N, G, bn, M):
     mt = 8 if M <= 8 else 16
     assert mt * (cdiv(K // G, plan["slices"]) * G + 8) * 2 \
         <= W._GEMV_X_BYTES
-    tiles = N // plan["cols"]
-    more = [d for c, d in choices
-            if c == plan["ctw"] and d > plan["slices"]]
-    assert all(tiles * d > W._GEMV_BLOCK_CAP[d] for d in more)
+    cost = W.gemv_cost_us(M, K, N, G, plan["ctw"], plan["slices"])
+    assert all(W.gemv_cost_us(M, K, N, G, c, d) >= cost
+               for c, d in choices if c == plan["ctw"])
 
 
 @pytest.mark.parametrize("M,K,N,G,bn,want", [
     (4, 2048, 2560, 128, 512, (4, 16)),     # TinyLlama qkv: 10 x 16 blocks
     (4, 2048, 11264, 128, 1024, (4, 8)),    # TinyLlama gate_up: 44 x 8
-    (4, 4096, 6144, 128, 1024, (4, 8)),     # Llama-3-8B qkv: 24 x 8
+    (4, 4096, 6144, 128, 1024, (4, 16)),    # Llama-3-8B qkv: 24 x 16
     (4, 4096, 28672, 128, 1024, (4, 8)),    # Llama-3-8B gate_up: 112 x 8
+    (4, 4096, 12288, 128, 1024, (4, 8)),    # Llama-2-7B qkv: 48 x 8
+    (16, 4096, 12288, 128, 1024, (4, 4)),   # 16 rows: 3 blocks an SM
+    (4, 4096, 22016, 128, 512, (4, 4)),     # Llama-2-7B gate_up: 86 x 4
+    (4, 11008, 4096, 128, 1024, (4, 16)),   # Llama-2-7B down: 16 x 16
     (16, 14336, 4096, 128, 1024, (4, 16)),  # x's room needs 11+ slices
     (4, 2880, 5120, 64, 1024, (4, 16)),     # GPT-OSS qkv: 20 x 16
 ])
