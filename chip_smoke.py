@@ -117,12 +117,31 @@ Phases (any failure exits nonzero; nothing is caught and ignored):
    limit. Phase 3 holds K1/K2 at Llama-2-7B's projections and at the
    bench's token counts (32, 2048), and K4 at its batch of 32;
 19. `bench_cross`: the Llama-3-8B and Llama-2-7B bench presets' widths at
-   2 layers, W4A16, cross-checked against the CPU as in phase 7.
+   2 layers, W4A16, cross-checked against the CPU as in phase 7;
+20. `sampling`: the host logits path on Llama-3-8B W4A16 at full width and
+   depth with a byte-level tokenizer (random weights): a reference batch;
+   a stop string spanning a token boundary in the same batch under fused
+   chunks (`decode_steps > 1`), whose tokens must be the reference's cut
+   at the match and whose text drops the stop string (or keeps it under
+   `include_stop_str_in_output`); penalties, logit bias, bad words,
+   min-tokens, no repeated 3-gram, a `logits_processor` (it must get
+   tensors on the card) and guided regex, choice and JSON, each output
+   token held against the port's plain controls applied on the CPU, in
+   f32, to the request's own raw row (the argmax, or within 0.02 of the
+   top), top-5 logprobs and prompt logprobs within 1e-3 of the plain
+   log-softmax, the last context row equal to the first generation row
+   bit for bit, guided outputs parsed; `n=4` sampled twice under fresh
+   salts equal, greedy `n=4` equal or first differing at a near-tie; K1/K2
+   and K3/K4 launches asserted per layer per forward over these runs; the
+   tokens/s of 32 plain requests against the same with one
+   repetition-penalty request (recorded, interleaved); then
+   `batched_logits_processor` on TinyLlama-1.1B at full depth (its forced
+   tokens, tensors on the card, launches per layer per forward).
 
 Arguments pick phases (default: check serve serve_ramp serve_stream
 fused_mlp cross llama3 gptoss gptoss_cross llama3_w4a8 llama3_w4a8_cross
-deepseek deepseek_v32 deepseek_v3_width deepseek_cross checkpoint bench
-bench_cross);
+deepseek deepseek_v32 deepseek_v3_width deepseek_cross checkpoint sampling
+bench bench_cross);
 `check_moe` runs
 only K5's checks, `check_w4a8` only K8's, `check_int8` only K6-K8's,
 `check_mla` only K9-K11's (with their plans' checks),
@@ -157,9 +176,11 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
+import types
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 PEAK_BYTES = 3.35e12       # H100 SXM HBM3, bytes/s
@@ -3532,6 +3553,466 @@ def bench_overlap(card):
     log(json.dumps(out))
 
 
+# ---------------------------------------------------------------- sampling --
+SAMPLING_BATCH = 40        # the timing's 33 requests fit one batch
+SAMPLING_TOKENS = 24       # new tokens of the reference and control runs
+SAMPLING_PROMPT = 100      # prompt tokens of those runs
+SAMPLING_TIE = 0.02        # logit gap accepted at a near-tie (test_torch_llm)
+SAMPLING_LP_TOL = 1e-3     # logprobs against the plain log-softmax
+SAMPLING_TIMED = 32        # plain requests of the timing runs
+SAMPLING_TIMED_OSL = 64
+SAMPLING_TIMED_ISL = 15    # 33 prompts in one 512-token prefill iteration
+SAMPLING_REGEX = r"(yes|no), [0-9]{3}!"
+SAMPLING_CHOICES = ["alpha", "beta", "gamma delta"]
+SAMPLING_SCHEMA = {"type": "object",
+                   "properties": {"ok": {"type": "boolean"},
+                                  "c": {"enum": ["x", "y", "z"]}},
+                   "required": ["ok", "c"]}
+
+
+def _stop_for(tok, toks, n):
+    """A stop string across the boundary of output tokens n - 2 and n - 1
+    (two word tokens, so the text is ASCII) whose first match, scanning
+    the text after each token as the scan worker does, completes at token
+    n - 1; or None."""
+    if n > len(toks) or min(toks[n - 2], toks[n - 1]) < 259:
+        return None
+    before, full = tok.decode(toks[:n - 1]), tok.decode(toks[:n])
+    new = full[len(before):]
+    for a in (3, 2):
+        for b in (3, 2):
+            s = before[-a:] + new[:b]
+            if s not in before and s in full and all(
+                    s not in tok.decode(toks[:m]) for m in range(1, n)):
+                return s
+    return None
+
+
+def _plain_controls(raw, sp, prompt, out, eos, matcher):
+    """The port's plain versions of the host logits path on the CPU, in
+    f32, on one raw row: the guided mask (`matcher` advanced to `out`),
+    the penalties on counts of the history, the logit controls."""
+    import numpy as np
+    import torch
+    from tensorrt_llm_tpu_torch.runtime.sampler import (
+        NEG_INF, apply_logit_controls, apply_penalties, has_penalties)
+    V = raw.shape[-1]
+    hist = list(prompt) + list(out)
+    row = torch.from_numpy(np.array(raw, np.float32))[None]
+    if matcher is not None:
+        allowed = matcher.allowed_tokens()
+        if allowed is not None:
+            keep = torch.zeros(V, dtype=torch.bool)
+            keep[torch.as_tensor(allowed, dtype=torch.int64)] = True
+            row = torch.where(keep, row, row + NEG_INF)
+    if has_penalties(sp):
+        counts = torch.bincount(torch.tensor(hist) % V, minlength=V)
+        row = apply_penalties(row, counts[None].to(torch.int32),
+                              torch.tensor([sp.repetition_penalty]),
+                              torch.tensor([sp.presence_penalty]),
+                              torch.tensor([sp.frequency_penalty]))
+    req = types.SimpleNamespace(sampling_params=sp, all_token_ids=hist,
+                                num_output_tokens=len(out))
+    return apply_logit_controls(row, [req], eos)[0].numpy()
+
+
+def _log_softmax(row):
+    import numpy as np
+    row = np.asarray(row, np.float64)
+    return row - (np.log(np.exp(row - row.max()).sum()) + row.max())
+
+
+def _sampling_controls(llm, tok, prompts, ref):
+    """Check 3-4, 6: one batch of controlled requests, each returning its
+    raw rows, and a plain request that returns none; every controlled
+    token is held against the port's plain controls applied on the CPU to
+    its raw row."""
+    import numpy as np
+    import torch
+    import tensorrt_llm_tpu_torch as T
+    from tensorrt_llm_tpu_torch.runtime.guided_decoder import create_matcher
+    V = llm.model_config.vocab_size
+    seen_devices = set()
+
+    def proc(toks, row):
+        seen_devices.add(row.device.type)
+        row[(toks[-1] * 7919) % row.shape[-1]] += 3.0
+        return row
+
+    G = T.GuidedDecodingParams
+    cases = {
+        "penalties": dict(repetition_penalty=1.3, presence_penalty=0.4,
+                          frequency_penalty=0.3, logprobs=5),
+        "logit_bias": dict(logit_bias={ref[1][0]: -2.0, 300: 3.0,
+                                       V // 2: 2.5}),
+        "bad_words": dict(bad_words=[[ref[2][0]], [ref[2][2], ref[2][3]]]),
+        "min_tokens": dict(min_tokens=12, stop_token_ids=[ref[3][4]],
+                           ignore_eos=False),
+        "no_repeat_ngram": dict(no_repeat_ngram_size=3),
+        "processor": dict(logits_processor=proc),
+        "regex": dict(guided_decoding=G(regex=SAMPLING_REGEX),
+                      ignore_eos=False),
+        "choice": dict(guided_decoding=G(choice=SAMPLING_CHOICES),
+                       ignore_eos=False),
+        "json": dict(guided_decoding=G(json=SAMPLING_SCHEMA),
+                     ignore_eos=False),
+        "prompt_logprobs": dict(prompt_logprobs=5,
+                                return_context_logits=True),
+    }
+    sps = [T.SamplingParams(**{**dict(
+        max_tokens=SAMPLING_TOKENS, temperature=0.0, ignore_eos=True,
+        return_generation_logits=True), **kw}) for kw in cases.values()]
+    # one plain request rides the same host-path batch without the rows
+    plain = T.SamplingParams(max_tokens=SAMPLING_TOKENS, temperature=0.0,
+                             ignore_eos=True)
+    outs = llm.generate(prompts[:len(cases) + 1], sps + [plain],
+                        cache_salt="controls")
+    assert llm.executor._error is None, llm.executor._error
+    po = outs.pop().outputs[0]
+    assert len(po.token_ids) == SAMPLING_TOKENS and po.finish_reason == \
+        "length" and po.generation_logits is None, (po.finish_reason,
+                                                   len(po.token_ids))
+    assert seen_devices == {torch.device(DEVICE).type}, seen_devices
+    eos = tok.eos_token_id
+    res = {"tokens_checked": 0, "argmax": 0, "near_ties": 0,
+           "max_logprob_err": 0.0}
+    for (name, kw), sp, p, o in zip(cases.items(), sps, prompts, outs):
+        c = o.outputs[0]
+        toks, rows = c.token_ids, c.generation_logits
+        assert rows.shape == (len(toks), V), (name, rows.shape)
+        m = (create_matcher(sp.guided_decoding, tok, eos, vocab_size=V)
+             if sp.guided_decoding is not None else None)
+        for j, t in enumerate(toks):
+            ctl = _plain_controls(rows[j], sp, p, toks[:j], eos, m)
+            top = float(ctl.max())
+            assert ctl[t] >= top - SAMPLING_TIE, (
+                f"{name}: token {j} ({t}, {ctl[t]}) is no near-tie of the "
+                f"controlled row's top {top} ({int(ctl.argmax())})")
+            res["tokens_checked"] += 1
+            res["argmax"] += int(ctl[t] == top)
+            res["near_ties"] += int(ctl[t] != top)
+            if sp.logprobs:
+                lsm = _log_softmax(ctl)
+                for k, v in c.logprobs[j].items():
+                    err = abs(v - lsm[k])
+                    res["max_logprob_err"] = max(res["max_logprob_err"], err)
+                    assert err < SAMPLING_LP_TOL, (name, j, k, v, lsm[k])
+                assert t in c.logprobs[j] and len(c.logprobs[j]) >= 5
+            if m is not None and j + 1 < len(toks):
+                assert m.advance(t), (name, j, t)
+        if name == "bad_words":
+            assert toks[0] != ref[2][0]
+        if name == "min_tokens":
+            assert ref[3][4] not in toks[:12] and eos not in toks[:12]
+    by = dict(zip(cases, outs))
+    # 4: prompt logprobs against the context logits, whose last row is the
+    # first generation row, bit for bit
+    r = by["prompt_logprobs"]
+    cl, pl = r.context_logits, r.prompt_logprobs
+    p = prompts[list(cases).index("prompt_logprobs")]
+    assert cl.shape == (len(p), V) and len(pl) == len(p) and pl[0] is None
+    assert np.array_equal(cl[-1], r.outputs[0].generation_logits[0])
+    err = 0.0
+    for pos in range(1, len(p)):
+        lsm = _log_softmax(cl[pos - 1])
+        assert p[pos] in pl[pos] and len(pl[pos]) >= 5
+        err = max(err, max(abs(v - lsm[k]) for k, v in pl[pos].items()))
+    assert err < SAMPLING_LP_TOL, err
+    res["max_prompt_logprob_err"] = err
+    # 6: guided outputs obey their constraints
+    rx = by["regex"].outputs[0]
+    assert re.fullmatch(SAMPLING_REGEX, rx.text), rx.text
+    ch = by["choice"].outputs[0]
+    assert ch.text in SAMPLING_CHOICES, ch.text
+    obj = json.loads(by["json"].outputs[0].text)
+    assert set(obj) == {"ok", "c"} and isinstance(obj["ok"], bool) \
+        and obj["c"] in ("x", "y", "z"), obj
+    assert all(by[k].outputs[0].finish_reason == "stop"
+               for k in ("regex", "choice", "json"))
+    res["guided_texts"] = [rx.text, ch.text, by["json"].outputs[0].text]
+    return res
+
+
+def _sampling_stop(llm, tok, prompts, ref, ref_text):
+    """Check 2: the reference batch again under a fresh salt, one request
+    with a stop string whose first match completes at output token n - 1
+    (`_stop_for`): until then the batch is the reference's, so its tokens
+    are the reference's cut there; once with the stop string cut from the
+    text, once keeping it."""
+    import tensorrt_llm_tpu_torch as T
+    i, n, stop = next(((i, n, _stop_for(tok, ref[i], n))
+                       for i in range(len(ref)) for n in range(4, len(ref[i]))
+                       if _stop_for(tok, ref[i], n)), (None, None, None))
+    assert stop is not None, "no reference text gives a stop string"
+    base = dict(max_tokens=SAMPLING_TOKENS, temperature=0.0)
+    res = {"request": i, "stop": stop, "match_tokens": n}
+    for keep in (False, True):
+        sps = [T.SamplingParams(**base)] * len(ref)
+        sps[i] = T.SamplingParams(stop=stop, include_stop_str_in_output=keep,
+                                  **base)
+        it0 = llm.executor.iteration
+        outs = llm.generate(prompts[:len(ref)], sps,
+                            cache_salt=f"stop{int(keep)}")
+        steps = [s["decode_steps"] for s in llm.get_stats()
+                 if s["iteration"] > it0]
+        assert max(steps) > 1, steps              # fused chunks
+        c = outs[i].outputs[0]
+        assert c.finish_reason == "stop_string", c.finish_reason
+        assert c.token_ids == ref[i][:n], (c.token_ids, ref[i][:n])
+        if keep:
+            assert c.text == tok.decode(ref[i][:n]) and stop in c.text
+        else:
+            assert c.text == ref_text[i][:ref_text[i].index(stop)]
+            assert stop not in c.text
+        res["max_decode_steps"] = max(steps)
+    return res
+
+
+def _sampling_fanout(llm, prompts):
+    """Check 5: n=4 at temperature 0.8 with a seed twice (fresh salts, so
+    the same schedule) gives the same 4 outputs; greedy n=4 gives 4 equal
+    outputs, or outputs first differing at a near-tie."""
+    import tensorrt_llm_tpu_torch as T
+    sp = T.SamplingParams(max_tokens=16, temperature=0.8, seed=17, n=4,
+                          ignore_eos=True)
+    runs = [[o.token_ids for o in llm.generate_async(
+        prompts[0], sp, cache_salt=f"n{i}").result().outputs]
+        for i in (1, 2)]
+    assert runs[0] == runs[1], runs
+    assert len({tuple(t) for t in runs[0]}) > 1, runs[0]
+    g = llm.generate_async(prompts[1], T.SamplingParams(
+        max_tokens=16, temperature=0.0, n=4, logprobs=2, ignore_eos=True),
+        cache_salt="n3").result().outputs
+    ties = []
+    for o in g[1:]:
+        if o.token_ids == g[0].token_ids:
+            continue
+        i = next(i for i, (x, y) in enumerate(zip(g[0].token_ids,
+                                                  o.token_ids)) if x != y)
+        d = g[0].logprobs[i]
+        gap = d[g[0].token_ids[i]] - d.get(o.token_ids[i], -math.inf)
+        assert gap <= SAMPLING_TIE, (i, gap)
+        ties.append({"position": i, "gap": gap})
+    return {"sampled_equal_across_calls": True,
+            "greedy_equal": 4 - len(ties), "greedy_near_ties": ties}
+
+
+def _sampling_timing(llm, card):
+    """Check 8, recorded only: `SAMPLING_TIMED` plain requests against the
+    same ones with one repetition-penalty request added, interleaved
+    plain, mixed, mixed, plain under fresh salts.  The prompts are short
+    enough that the whole batch is admitted in its first iteration, so
+    the decode window (the iterations after it) compares decoding alone:
+    its output tok/s over the window's summed iteration time, the mean
+    decode iteration (per decode step: plain chunks take k steps, the
+    mixed batch one) and the host ms of the dispatch of the one-step
+    path's forward; the whole run's tok/s beside them."""
+    import numpy as np
+    import torch
+    import tensorrt_llm_tpu_torch as T
+    V = llm.model_config.vocab_size
+    rng = np.random.default_rng(23)
+    prompts = [[int(t) for t in rng.integers(259, V, SAMPLING_TIMED_ISL)]
+               for _ in range(SAMPLING_TIMED + 1)]
+    plain = T.SamplingParams(max_tokens=SAMPLING_TIMED_OSL, temperature=0.0,
+                             ignore_eos=True)
+    pen = T.SamplingParams(max_tokens=SAMPLING_TIMED_OSL, temperature=0.0,
+                           ignore_eos=True, repetition_penalty=1.2)
+    eng = llm.engine
+    dispatch_s = []
+    real = eng.run_decode
+
+    def run_decode(inputs):
+        t0 = time.perf_counter()
+        try:
+            return real(inputs)
+        finally:
+            dispatch_s.append(time.perf_counter() - t0)
+
+    eng.run_decode = run_decode
+    runs = {"plain": [], "mixed": []}
+    try:
+        for i, mode in enumerate(("plain", "mixed", "mixed", "plain")):
+            # the penalty request first: it is admitted with the first
+            # prefill chunks, so that it rides every decode step
+            ps = ([prompts[-1]] if mode == "mixed" else []) \
+                + prompts[:SAMPLING_TIMED]
+            sps = ([pen] if mode == "mixed" else []) \
+                + [plain] * SAMPLING_TIMED
+            n0 = len(dispatch_s)
+            it0 = llm.executor.iteration
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            outs = llm.generate(ps, sps, cache_salt=f"timed{i}")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            n_out = sum(len(o.outputs[0].token_ids) for o in outs)
+            run = [s for s in llm.get_stats() if s["iteration"] > it0]
+            st = [s for s in run if s["decode_steps"]]
+            per_step = float(np.mean([s["step_time_ms"] / s["decode_steps"]
+                                      for s in st]))
+            pf = [j for j, s in enumerate(run) if s["num_prefill_chunks"]]
+            # one token a request comes from its prefill; the rest from the
+            # window, once every request is in
+            window_s = sum(s["step_time_ms"] for s in run[pf[-1] + 1:]) / 1e3
+            window_tokens = n_out - len(ps)
+            row = {"output_tokens": n_out, "wall_s": wall,
+                   "output_tokens_per_sec": n_out / wall,
+                   "prefill_iterations": len(pf),
+                   "decode_window_s": window_s,
+                   "decode_window_tokens_per_sec": (
+                       window_tokens / window_s if len(pf) == 1 else None),
+                   "decode_iterations": len(st),
+                   "decode_steps_max": max(s["decode_steps"] for s in st),
+                   "one_step_iterations": sum(s["decode_steps"] == 1
+                                              for s in st),
+                   "decode_ms_per_step": per_step,
+                   "host_path_dispatch_ms": (1e3 * float(np.mean(
+                       dispatch_s[n0:])) if len(dispatch_s) > n0
+                       else None)}
+            runs[mode].append(row)
+            log(f"[sampling] timing {mode}: "
+                f"{row['decode_window_tokens_per_sec']} output tok/s in the "
+                f"decode window ({row['prefill_iterations']} prefill "
+                f"iterations), {row['output_tokens_per_sec']:.2f} over the "
+                f"run, {row['decode_ms_per_step']:.2f} ms a decode "
+                f"step ({row['decode_steps_max']} steps a chunk at most), "
+                f"{len(st)} decode iterations, {row['one_step_iterations']} "
+                f"of one step ({card})")
+    finally:
+        del eng.run_decode
+    assert all(r["decode_steps_max"] > 1 for r in runs["plain"])
+    assert all(r["one_step_iterations"] > 0 for r in runs["mixed"])
+    return runs
+
+
+def sampling_phase(card, by_path):
+    """Phase 20: the host logits path on Llama-3-8B W4A16 at full width
+    and depth (random weights, `ByteTokenizer`): the reference batch; stop
+    strings in fused chunks; penalties, logit controls, a processor and
+    guided regex/choice/JSON held token by token against the port's plain
+    controls on the card's own raw rows; logprobs and prompt logprobs
+    against the plain log-softmax; parallel sampling; the launches of
+    K1/K2 and K3/K4 per layer per forward; the timing of a batch with one
+    penalty request.  Then the batched logits processor on TinyLlama-1.1B
+    at full depth."""
+    import gc
+    import numpy as np
+    import torch
+    import tensorrt_llm_tpu_torch as T
+    from tensorrt_llm_tpu_torch.ops import cuda_build
+    t_all = time.perf_counter()
+    V = LLAMA3_8B["vocab_size"]
+    tok = ByteTokenizer(V)
+    out = {"phase": "sampling", "card": card}
+    t0 = time.perf_counter()
+    llm = T.LLM(model=w4a16_cfg(LLAMA3_8B), tokenizer=tok, device=DEVICE,
+                max_batch_size=SAMPLING_BATCH, max_num_tokens=512,
+                max_seq_len=512, kv_block_size=16, kv_num_blocks=2048,
+                seed=0)
+    torch.cuda.synchronize()
+    out["build_s"] = time.perf_counter() - t0
+    try:
+        cfg = llm.model_config
+        _, n_kpaired = w4a16_shapes(llm.model)
+        rng = np.random.default_rng(19)
+        prompts = [[int(t) for t in rng.integers(259, V, SAMPLING_PROMPT)]
+                   for _ in range(11)]
+        it0 = llm.executor.iteration
+        cuda_build.reset_launch_counts()
+        t0 = time.perf_counter()
+        # 1: the reference batch
+        refs = llm.generate(prompts[:8], T.SamplingParams(
+            max_tokens=SAMPLING_TOKENS, temperature=0.0), cache_salt="ref")
+        ref = [o.outputs[0].token_ids for o in refs]
+        ref_text = [o.outputs[0].text for o in refs]
+        assert all(t == tok.decode(r) for t, r in zip(ref_text, ref))
+        out["stop"] = _sampling_stop(llm, tok, prompts, ref, ref_text)
+        out["controls"] = _sampling_controls(llm, tok, prompts, ref)
+        out["fanout"] = _sampling_fanout(llm, prompts)
+        torch.cuda.synchronize()
+        out["checks_s"] = time.perf_counter() - t0
+        counts = dict(cuda_build.launch_counts)
+        stats = [s for s in llm.get_stats() if s["iteration"] > it0]
+        chunks, dsteps, fwd, _, _ = assert_launches(
+            cfg, counts, stats, ("flash_prefill", "paged_decode"),
+            n_kpaired=n_kpaired)
+        assert counts.get("w4a16_gemm", 0) + counts.get("w4a16_gemv", 0) \
+            > 0, counts
+        by_path["sampling"] = counts
+        out.update(launches=counts, prefill_chunks=chunks,
+                   decode_steps=dsteps, forwards=fwd)
+        log(f"[sampling] checks passed in {out['checks_s']:.1f} s: "
+            f"{json.dumps({k: out[k] for k in ('stop', 'controls')})}")
+        out["timing"] = _sampling_timing(llm, card)
+    finally:
+        llm.shutdown()
+        del llm
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["batched_processor"] = _sampling_batched(card)
+    out["seconds"] = time.perf_counter() - t_all
+    PHASES["sampling"] = out
+    log(json.dumps(out))
+    log(f"[sampling] phase took {out['seconds']:.1f} s ({card})")
+
+
+def _sampling_batched(card):
+    """Check 7: `batched_logits_processor` on TinyLlama-1.1B at full depth
+    forces token (len(tokens) * 31) % V in every row of every step; it
+    gets the batch's logits as a tensor on the card."""
+    import gc
+    import numpy as np
+    import torch
+    import tensorrt_llm_tpu_torch as T
+    from tensorrt_llm_tpu_torch.ops import cuda_build
+    V = TINYLLAMA["vocab_size"]
+    seen = {"calls": 0, "batch": 0, "devices": set()}
+
+    def proc(ids, token_lists, logits):
+        seen["calls"] += 1
+        seen["batch"] = max(seen["batch"], len(ids))
+        seen["devices"].add(logits.device.type)
+        want = torch.tensor([len(t) * 31 % V for t in token_lists],
+                            device=logits.device)
+        logits[torch.arange(len(ids), device=logits.device), want] += 1e4
+        return logits
+
+    llm = T.LLM(model=w4a16_cfg(TINYLLAMA), device=DEVICE, max_batch_size=8,
+                max_seq_len=512, kv_block_size=16, kv_num_blocks=512,
+                skip_tokenizer_init=True, seed=0,
+                batched_logits_processor=proc)
+    try:
+        rng = np.random.default_rng(29)
+        prompts = [[int(t) for t in rng.integers(10, V - 10, n)]
+                   for n in (17, 64, 130, 200)]
+        it0 = llm.executor.iteration
+        cuda_build.reset_launch_counts()
+        outs = llm.generate(prompts, T.SamplingParams(
+            max_tokens=8, temperature=0.0, ignore_eos=True))
+        counts = dict(cuda_build.launch_counts)
+        stats = [s for s in llm.get_stats() if s["iteration"] > it0]
+        for p, o in zip(prompts, outs):
+            assert o.outputs[0].token_ids == [(len(p) + i) * 31 % V
+                                              for i in range(8)]
+        _, n_kpaired = w4a16_shapes(llm.model)
+        assert_launches(llm.model_config, counts, stats,
+                        ("flash_prefill", "paged_decode"),
+                        n_kpaired=n_kpaired)
+        assert max(s["decode_steps"] for s in stats) == 1
+    finally:
+        llm.shutdown()
+        del llm
+        gc.collect()
+        torch.cuda.empty_cache()
+    assert seen["devices"] == {torch.device(DEVICE).type} \
+        and seen["batch"] == 4, seen
+    res = {"calls": seen["calls"], "max_batch": seen["batch"],
+           "launches": counts}
+    log(f"[sampling] batched processor on tinyllama-1.1b: {res} ({card})")
+    return res
+
+
 # ----------------------------------------------------------------- summary --
 SERVE_PATH = "serve"                    # TinyLlama W4A16: K1-K4, K13
 GPT_OSS_PATH = "serve_gpt_oss"          # GPT-OSS-20B: K1, K3-K5, K12
@@ -3686,7 +4167,7 @@ def main() -> int:
                       "llama3", "gptoss",
                       "gptoss_cross", "llama3_w4a8", "llama3_w4a8_cross",
                       "deepseek", "deepseek_v32", "deepseek_v3_width",
-                      "deepseek_cross", "checkpoint", "bench",
+                      "deepseek_cross", "checkpoint", "sampling", "bench",
                       "bench_cross"]
     by_path = {}      # each serve path's own launch counts
     try:
@@ -3811,6 +4292,8 @@ def run_phases(phases, card, gen, dev, by_path):
                         n_prompt=200, chunk=128, n_decode=4)
     if "checkpoint" in phases:
         checkpoint_phase(card, by_path)
+    if "sampling" in phases:
+        sampling_phase(card, by_path)
     if "bench" in phases:
         bench_phase(card, gen, dev, by_path)
     if "bench_cross" in phases:

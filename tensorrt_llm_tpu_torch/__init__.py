@@ -9,7 +9,8 @@ on CUDA unless the caller passes ``device="cpu"``, where the kernels' plain
 PyTorch versions run instead.
 """
 
-from tensorrt_llm_tpu_torch.llmapi import LLM, LlmArgs, SamplingParams  # noqa: F401
+from tensorrt_llm_tpu_torch.llmapi import (  # noqa: F401
+    LLM, GuidedDecodingParams, LlmArgs, SamplingParams)
 from tensorrt_llm_tpu_torch.models import ModelConfig, params_from_jax  # noqa: F401
 from tensorrt_llm_tpu_torch.quantization import (  # noqa: F401
     QuantAlgo, QuantConfig)

@@ -29,14 +29,20 @@ iterating the future (``generate_async(..., streaming=True)``) yields one
 `IncrementalDetokenizer`; `GenerationFuture.cancel` ends the request at the
 executor's next iteration (finish reason "cancelled").  `generate_async`
 takes the JAX signature's scheduling `priority` and
-`kv_retention_priority`.  Stop strings are refused at submit (the
-executor's stop scan is a later slice), so there is no stop-string
-truncation of the text or of streamed tokens.
+`kv_retention_priority`.  A stop string (it needs a tokenizer) is cut from
+the text unless `include_stop_str_in_output`; tokens sampled past it are
+dropped from `result()` and from the stream (a piece's `truncate_to`).
+``n > 1`` (without beam search) submits n sibling requests, seeds
+``seed + j``, which share the prompt's KV through prefix reuse, and
+returns one `RequestOutput` with n outputs (`_FanoutFuture`; not
+streamed).  Outputs carry the top-N `logprobs`, `generation_logits`,
+`prompt_logprobs` and `context_logits` when the sampling parameters ask
+for them.
 
 Before the executor starts, the engine warms up (`ModelEngine.warmup`: the
 W4A16 autotuner, then one prefill chunk and one decode step), by default on
-a CUDA device only (`enable_warmup`).  The server, LoRA and the other
-sampling controls belong to later slices.
+a CUDA device only (`enable_warmup`).  The server, LoRA and beam search
+belong to later slices.
 """
 
 from __future__ import annotations
@@ -49,6 +55,7 @@ import weakref
 from dataclasses import dataclass, field
 from typing import Any, Iterator, List, Optional, Sequence, Union
 
+import numpy as np
 import torch
 
 from tensorrt_llm_tpu_torch.llmapi.detokenizer import IncrementalDetokenizer
@@ -76,6 +83,9 @@ class CompletionOutput:
     token_ids: List[int]
     finish_reason: Optional[str] = None
     logprobs: Optional[list] = None
+    cumulative_logprob: Optional[float] = None   # beam search (not yet)
+    # np [num_output_tokens, V], when return_generation_logits was set
+    generation_logits: Optional[Any] = None
 
 
 @dataclass
@@ -85,6 +95,11 @@ class RequestOutput:
     prompt_token_ids: List[int]
     outputs: List[CompletionOutput] = field(default_factory=list)
     finished: bool = False
+    # top-N logprobs per prompt position (entry 0 is None), when
+    # SamplingParams.prompt_logprobs was set
+    prompt_logprobs: Optional[list] = None
+    # np [prompt_len, V], when return_context_logits was set
+    context_logits: Optional[Any] = None
     metrics: Optional[dict] = None
 
 
@@ -195,7 +210,8 @@ class LLM:
             self.engine, a.make_scheduler_config(), eos_token_id=eos,
             max_seq_len=a.max_seq_len, max_decode_steps=a.max_decode_steps,
             overlap=not a.disable_overlap_scheduler,
-            overlap_depth=a.overlap_depth)
+            overlap_depth=a.overlap_depth, tokenizer=self._tokenizer,
+            batched_logits_processor=a.batched_logits_processor)
         self.executor.start()
         # join the executor thread at interpreter exit even without shutdown()
         self._exit_finalizer = weakref.finalize(
@@ -272,9 +288,9 @@ class LLM:
         sps = ([sampling_params] * len(prompts)
                if isinstance(sampling_params, SamplingParams)
                else list(sampling_params))
-        futs = [self._future(p, sp, cache_salt)
+        futs = [self._fanout(p, sp, cache_salt)
                 for p, sp in zip(prompts, sps)]
-        self.executor.submit_many([f.req for f in futs])
+        self.executor.submit_many([r for f in futs for r in f.requests])
         return [f.result() for f in futs]
 
     def generate_async(self, prompt,
@@ -288,11 +304,31 @@ class LLM:
         (`streaming` is the JAX API's flag: the future is iterable either
         way).  `priority` in [0, 1] orders the waiting queue (higher
         first); `kv_retention_priority` is the retention priority of the
-        blocks the request stores for reuse (lower evicts first)."""
-        fut = self._future(prompt, sampling_params, cache_salt,
-                           kv_retention_priority, priority)
-        self.executor.submit(fut.req)
+        blocks the request stores for reuse (lower evicts first).  With
+        ``n > 1`` the future is a `_FanoutFuture` (no streaming)."""
+        sp = sampling_params or SamplingParams()
+        if sp.n > 1 and not sp.use_beam_search and streaming:
+            raise ValueError("streaming with n > 1 is not supported; use n "
+                             "futures or beam search")
+        fut = self._fanout(prompt, sp, cache_salt, kv_retention_priority,
+                           priority)
+        self.executor.submit_many(fut.requests)
         return fut
+
+    def _fanout(self, prompt, sp: SamplingParams, cache_salt,
+                kv_retention_priority: Optional[int] = None,
+                priority: float = 0.5):
+        """The future of one prompt: a `GenerationFuture`, or for parallel
+        sampling (``n > 1`` without beam search) a `_FanoutFuture` over n
+        sibling requests with ``n=1`` and seeds ``seed + j``."""
+        if sp.n <= 1 or sp.use_beam_search:
+            return self._future(prompt, sp, cache_salt,
+                                kv_retention_priority, priority)
+        return _FanoutFuture([self._future(
+            prompt, dataclasses.replace(
+                sp, n=1, seed=None if sp.seed is None else sp.seed + j),
+            cache_salt, kv_retention_priority, priority)
+            for j in range(sp.n)])
 
     def _future(self, prompt, sampling_params, cache_salt,
                 kv_retention_priority: Optional[int] = None,
@@ -345,6 +381,10 @@ class GenerationFuture:
     def request_id(self) -> int:
         return self.req.request_id
 
+    @property
+    def requests(self) -> List[LlmRequest]:
+        return [self.req]
+
     def cancel(self) -> None:
         """End the request at the executor's next iteration: its result
         finishes with reason "cancelled" and its KV is freed."""
@@ -355,8 +395,18 @@ class GenerationFuture:
         sp = self.req.sampling_params
         if tok is None or not sp.detokenize:
             return ""
-        return tok.decode(token_ids,
-                          skip_special_tokens=sp.skip_special_tokens)
+        return self._cut_stop(tok.decode(
+            token_ids, skip_special_tokens=sp.skip_special_tokens))
+
+    def _cut_stop(self, text: str) -> str:
+        """`text` up to the first occurrence of the matched stop string,
+        unless the request keeps it."""
+        stop = self.req.stop_string
+        if stop and not self.req.sampling_params.include_stop_str_in_output:
+            idx = text.find(stop)
+            if idx >= 0:
+                return text[:idx]
+        return text
 
     def _next_piece(self, timeout: Optional[float] = None):
         piece = self.req.out_queue.get(timeout=timeout)
@@ -366,6 +416,8 @@ class GenerationFuture:
 
     def _output(self, toks: List[int], text: str, piece,
                 finished: bool) -> RequestOutput:
+        """A `RequestOutput` of the tokens so far; the logprobs, logits and
+        prompt logprobs ride the last one."""
         r = self.req
         reason = piece.finish_reason
         metrics = None
@@ -382,19 +434,27 @@ class GenerationFuture:
                 "kv_cache_hit_tokens": r.num_cached_tokens,
                 "num_output_tokens": r.num_output_tokens,
             }
+        gl = (np.stack(r.generation_logits)
+              if finished and r.generation_logits else None)
         return RequestOutput(
             request_id=r.request_id, prompt=self.prompt_text,
             prompt_token_ids=r.prompt_token_ids,
             outputs=[CompletionOutput(
                 index=0, text=text, token_ids=list(toks),
                 finish_reason=reason.value if reason else None,
-                logprobs=(r.logprobs or None) if finished else None)],
-            finished=finished, metrics=metrics)
+                logprobs=(r.logprobs or None) if finished else None,
+                generation_logits=gl)],
+            finished=finished,
+            prompt_logprobs=r.prompt_logprobs if finished else None,
+            context_logits=r.context_logits if finished else None,
+            metrics=metrics)
 
     def result(self, timeout: Optional[float] = None) -> RequestOutput:
         toks: List[int] = []
         while True:
             piece = self._next_piece(timeout)
+            if piece.truncate_to is not None:
+                del toks[piece.truncate_to:]   # sampled past a stop string
             toks.extend(piece.new_token_ids)
             if piece.finished:
                 return self._output(toks, self._decode(toks), piece, True)
@@ -407,6 +467,14 @@ class GenerationFuture:
         toks: List[int] = []
         while True:
             piece = self._next_piece()
+            if piece.truncate_to is not None:
+                del toks[piece.truncate_to:]   # sampled past a stop string
+                if detok is not None:
+                    # the text past the match was pushed: start again from
+                    # the kept tokens
+                    detok = IncrementalDetokenizer(tok,
+                                                   sp.skip_special_tokens)
+                    detok.push(toks)
             toks.extend(piece.new_token_ids)
             if detok is None:
                 text = self._decode(toks)
@@ -414,7 +482,35 @@ class GenerationFuture:
                 detok.push(piece.new_token_ids)
                 if piece.finished:
                     detok.flush()
-                text = detok.text
+                # the stop string is known once the request has ended
+                text = self._cut_stop(detok.text)
             yield self._output(toks, text, piece, piece.finished)
             if piece.finished:
                 return
+
+
+class _FanoutFuture:
+    """The n sibling requests of a parallel-sampling call
+    (``SamplingParams.n > 1``) as one `RequestOutput` with n outputs."""
+
+    def __init__(self, subs: List[GenerationFuture]):
+        self.subs = subs
+
+    @property
+    def request_id(self) -> int:
+        return self.subs[0].request_id
+
+    @property
+    def requests(self) -> List[LlmRequest]:
+        return [s.req for s in self.subs]
+
+    def result(self, timeout: Optional[float] = None) -> RequestOutput:
+        results = [s.result(timeout=timeout) for s in self.subs]
+        first = results[0]
+        outputs = [dataclasses.replace(r.outputs[0], index=j)
+                   for j, r in enumerate(results)]
+        return dataclasses.replace(first, outputs=outputs)
+
+    def cancel(self) -> None:
+        for s in self.subs:
+            s.cancel()

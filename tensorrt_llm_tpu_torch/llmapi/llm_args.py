@@ -65,6 +65,7 @@ class LlmArgs:
     lora_path: Optional[str] = None    # LoRA merged at load: not yet
 
     max_decode_steps: int = 8          # decode steps per executor iteration
+    batched_logits_processor: Any = None
     disable_overlap_scheduler: bool = False
     overlap_depth: int = 4             # decode chunks in flight at most
     enable_warmup: Optional[bool] = None  # autotune + warm steps at build

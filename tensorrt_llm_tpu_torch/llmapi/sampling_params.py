@@ -1,6 +1,9 @@
 """Sampling parameters: a copy of `tensorrt_llm_tpu/llmapi/sampling_params.py`
-(the port imports nothing of the JAX package).  The port's executor
-rejects the knobs this slice does not run (see `PyExecutor.submit`)."""
+(the port imports nothing of the JAX package), `GuidedDecodingParams`
+included.  The port's executor runs every knob but beam search
+(`use_beam_search`, `best_of`, `beam_width_array`), which it rejects at
+submit (`unsupported`, checked by `PyExecutor.submit`).  Beam arguments are
+validated as the JAX package does, with `ValueError`."""
 
 from __future__ import annotations
 
@@ -31,10 +34,14 @@ class SamplingParams:
     best_of: Optional[int] = None
     use_beam_search: bool = False
     length_penalty: float = 0.0
+    beam_width_array: Optional[List[int]] = None
     detokenize: bool = True
     skip_special_tokens: bool = True
-    guided_decoding: Optional[object] = None
+    guided_decoding: Optional["GuidedDecodingParams"] = None
     end_id: Optional[int] = None
+    # logit controls: eos and stop ids banned before `min_tokens` outputs,
+    # banned token phrases, token id -> additive bias, no repeated n-gram,
+    # and f(token_ids, logits [V]) -> logits on the logits' device
     min_tokens: int = 0
     bad_words: Optional[List[List[int]]] = None
     logit_bias: Optional[dict] = None
@@ -51,6 +58,11 @@ class SamplingParams:
         if self.top_k > 64:
             raise ValueError(f"top_k={self.top_k} exceeds the supported "
                              "maximum of 64")
+        if self.use_beam_search:
+            if (self.best_of or self.n) < 2:
+                raise ValueError("beam search needs n/best_of >= 2")
+            if self.guided_decoding is not None:
+                raise ValueError("beam search + guided decoding unsupported")
         if isinstance(self.stop, str):
             self.stop = [self.stop]
 
@@ -59,19 +71,23 @@ class SamplingParams:
         return self.temperature == 0.0 or self.top_k == 1
 
     def unsupported(self) -> List[str]:
-        """Knobs set to something this slice of the port does not run."""
-        bad = []
-        for name, default in (
-                ("repetition_penalty", 1.0), ("presence_penalty", 0.0),
-                ("frequency_penalty", 0.0), ("stop", None),
-                ("prompt_logprobs", None), ("return_context_logits", False),
-                ("return_generation_logits", False), ("n", 1),
-                ("best_of", None), ("use_beam_search", False),
-                ("guided_decoding", None), ("min_tokens", 0),
-                ("bad_words", None), ("logit_bias", None),
-                ("no_repeat_ngram_size", None), ("logits_processor", None)):
-            if getattr(self, name) != default:
-                bad.append(name)
-        if self.logprobs is not None and self.logprobs > 1:
-            bad.append("logprobs>1")
-        return bad
+        """Knobs set to something the port does not run: beam search."""
+        return [name for name, default in (
+            ("use_beam_search", False), ("best_of", None),
+            ("beam_width_array", None)) if getattr(self, name) != default]
+
+
+@dataclass
+class GuidedDecodingParams:
+    """Grammar-constrained decoding spec (reference: llmapi
+    GuidedDecodingParams): one of a JSON Schema (dict or string), any JSON
+    value, a regex, a GBNF grammar, a list of choices, or an xgrammar-style
+    structural tag (free text until a trigger string, then the matching
+    ``begin + schema + end`` structure)."""
+
+    json: Optional[Union[str, dict]] = None
+    json_object: bool = False
+    regex: Optional[str] = None
+    grammar: Optional[str] = None
+    choice: Optional[List[str]] = None
+    structural_tag: Optional[Union[str, dict]] = None

@@ -31,11 +31,34 @@ that chunk: a finished or cancelled request frees its KV at once, and its
 rows in chunks still in flight are dropped.  Tests keep the pipeline full
 by setting `_force_lag`.
 
+The host logits path (JAX `_sample_and_update`) takes one step's logits
+back to the executor.  A decode batch takes it, one step after draining
+the pipeline, when a request in it has penalties or logit controls
+(`_needs_host_controls`), a guided-decoding matcher, generation logits or
+`logprobs` > 1, or the executor has a `batched_logits_processor`; every
+request's last prefill row goes through it too.  In order: the raw rows of
+the requests returning generation logits are copied to the host; the
+guided mask, the penalties (counts on the device, `TokenCounts`), the logit
+controls and the batched processor edit the logits on their device; the
+tokens are sampled; the top-N logprobs of the edited rows are recorded;
+each matcher advances (a dead end ends that request with an error).
+Prompt logprobs and context logits need every prompt row: such a request's
+prefill chunks return all their rows (`prepare_prefill_inputs(all_rows=
+True)`), copied to the host a chunk at a time (`_capture_prompt_rows`), and
+its prefix is salted so that no cached block stands in for rows it needs.
+Stop strings are no host control: `StopScanWorker`, a daemon thread that
+owns `tokenizer.decode`, scans the appended tokens, so stop-string requests
+ride fused and overlapped chunks; a match found after more tokens were
+sampled truncates the request back to it (`LlmRequest.truncate_output`),
+and a request ending on EOS or length asks the worker first
+(`_reconcile_stop_on_finish`: a match that completed earlier wins).
+An exception of a request's processor or matcher ends that request with an
+error and nothing else.
+
 Not in this slice: disaggregated serving and its receive path, speculative
-and beam decoding, guided decoding, stop strings, penalties and logit
-controls, multi-host lockstep.  The JAX package's faults listed in ROADMAP
-Queue C are not copied: a request's failure ends only that request, and
-shutdown resolves every request still held.
+and beam decoding, multi-host lockstep.  The JAX package's faults listed
+in ROADMAP Queue C are not copied: a request's failure ends only that
+request, and shutdown resolves every request still held.
 """
 
 from __future__ import annotations
@@ -49,14 +72,20 @@ import traceback
 from dataclasses import dataclass, field
 from typing import List, Optional
 
+import numpy as np
 import torch
 
+from tensorrt_llm_tpu_torch.runtime.guided_decoder import (
+    GuidedDecoder, create_matcher)
 from tensorrt_llm_tpu_torch.runtime.model_engine import ModelEngine
+from tensorrt_llm_tpu_torch.runtime.postproc import StopScanWorker
 from tensorrt_llm_tpu_torch.runtime.request import (
     FinishReason, LlmRequest, RequestState)
-from tensorrt_llm_tpu_torch.runtime.sampler import sample_tokens
+from tensorrt_llm_tpu_torch.runtime.sampler import (
+    TokenCounts, apply_logit_controls, apply_penalties, has_logit_controls,
+    has_penalties, sample_tokens, top_n_logprobs)
 from tensorrt_llm_tpu_torch.runtime.scheduler import Scheduler, SchedulerConfig
-from tensorrt_llm_tpu_torch.utils import logger
+from tensorrt_llm_tpu_torch.utils import logger, upload
 
 STATS_KEPT = 1000   # iterations of stats the executor keeps
 CANCEL_GRACE = 3    # iterations an unmatched cancel waits for its request
@@ -81,7 +110,8 @@ class PyExecutor:
                  scheduler_cfg: Optional[SchedulerConfig] = None,
                  eos_token_id: Optional[int] = None, max_seq_len: int = 2048,
                  max_decode_steps: int = 8, overlap: bool = True,
-                 overlap_depth: int = 4):
+                 overlap_depth: int = 4, tokenizer=None,
+                 batched_logits_processor=None):
         self.engine = engine
         self.kv = engine.kv_manager
         self.scheduler = Scheduler(scheduler_cfg or SchedulerConfig(), self.kv)
@@ -100,6 +130,16 @@ class PyExecutor:
         self._cancelled: set = set()
         self._cancel_misses: dict = {}
         self._done: List[LlmRequest] = []   # finished and freed this step
+
+        # host logits path (module docstring)
+        self.tokenizer = tokenizer
+        self.batched_logits_processor = batched_logits_processor
+        V = engine.model.cfg.vocab_size
+        self.guided = GuidedDecoder(V)
+        self._counts = TokenCounts(V, engine.device)
+        self._stop_scan = (None if tokenizer is None
+                           else StopScanWorker(tokenizer))
+        self._stop_fed: dict = {}      # request id -> tokens fed to the scan
 
         self.request_queue: "queue.Queue[LlmRequest]" = queue.Queue()
         self.active: List[LlmRequest] = []
@@ -129,6 +169,8 @@ class PyExecutor:
             self._thread = None
         # resolve anything still held so no caller waits forever
         self._fail_all("executor shut down", FinishReason.CANCELLED)
+        if self._stop_scan is not None:
+            self._stop_scan.close()
 
     def call_between_steps(self, fn):
         """Run `fn` on the executor thread between two iterations and
@@ -190,13 +232,25 @@ class PyExecutor:
         bad = request.sampling_params.unsupported()
         if bad:
             raise NotImplementedError(
-                "sampling options not in this slice of the port: "
-                + ", ".join(bad))
-        if request.prompt_len + request.sampling_params.max_tokens \
-                > self.max_seq_len:
+                "beam search is not in the port yet: " + ", ".join(bad))
+        sp = request.sampling_params
+        if sp.stop and self.tokenizer is None:
+            raise ValueError("stop strings need a tokenizer (pass "
+                             "tokenizer=, or use stop_token_ids)")
+        V = self.guided.vocab_size
+        ids = ([sp.end_id] if sp.end_id is not None else []) + list(
+            sp.stop_token_ids or []) + list(sp.logit_bias or ()) + [
+            t for w in sp.bad_words or () for t in w]
+        if any(not 0 <= int(t) < V for t in ids):
+            # an index past the logits would end the loop (and, on the
+            # card, the device context): refused here
+            raise ValueError(f"token ids of end_id, stop_token_ids, "
+                             f"logit_bias and bad_words must lie in [0, {V})")
+        if any(not w for w in sp.bad_words or ()):
+            raise ValueError("bad_words holds an empty phrase")
+        if request.prompt_len + sp.max_tokens > self.max_seq_len:
             request.sampling_params = dataclasses.replace(
-                request.sampling_params,
-                max_tokens=max(1, self.max_seq_len - request.prompt_len))
+                sp, max_tokens=max(1, self.max_seq_len - request.prompt_len))
 
     # ------------------------------------------------------------------ loop --
     def _loop_main(self):
@@ -221,18 +275,17 @@ class PyExecutor:
                 break
         self._inflight.clear()
         self._virtual.clear()
-        done, self._done = self._done, []
-        for req in done:
-            req.emit(finished=True)
+        self._deliver()
         for req in self.active + self.waiting:
             if req.is_finished:     # finished this step, not yet delivered
-                req.emit(finished=True)
+                req.emit(finished=True, error=req.error)
                 continue
             req.finish(reason)
             req.emit(finished=True,
                      error=msg if reason == FinishReason.ERROR else None)
         for req in self.active:
             self.kv.free_sequence(req.request_id)
+            self._forget(req)
         self.active, self.waiting = [], []
 
     def _fetch_new_requests(self):
@@ -263,6 +316,7 @@ class PyExecutor:
                 self.active.remove(req)
                 self.kv.free_sequence(req.request_id)
                 self._virtual.pop(req.request_id, None)
+                self._forget(req)
             else:
                 self.waiting.remove(req)
             req.finish(FinishReason.CANCELLED)
@@ -306,6 +360,7 @@ class PyExecutor:
             if self._inflight:
                 # every request left is waiting on chunks in flight
                 self._drain_inflight()
+                self._pump_stop_scan()
                 self._cleanup_finished()
                 self._deliver()
                 return True
@@ -317,7 +372,17 @@ class PyExecutor:
                                num_waiting=len(self.waiting))
 
         for req, chunk in batch.prefill:
+            sp = req.sampling_params
+            want_rows = bool(sp.prompt_logprobs or sp.return_context_logits)
             if req.state == RequestState.QUEUED:
+                if not self._admit_guided(req):
+                    continue
+                if want_rows:
+                    # every prompt row's logits are needed and a reused
+                    # block has none: a salt of its own defeats the match
+                    # (its blocks still seal under it, harmlessly)
+                    req.cache_salt = ("__ctx_logits__", req.request_id,
+                                      req.cache_salt)
                 cached = self.kv.add_sequence(req.request_id,
                                               req.prompt_token_ids,
                                               req.cache_salt)
@@ -338,7 +403,13 @@ class PyExecutor:
             start = req.context_position
             self.kv.grow_sequence(req.request_id, start + chunk)
             logits = self.engine.run_prefill(
-                self.engine.prepare_prefill_inputs(req, chunk))
+                self.engine.prepare_prefill_inputs(req, chunk, want_rows))
+            if want_rows:
+                # the chunk's rows go to the host; only the last stays
+                rows = logits.cpu().numpy()
+                logits = logits[chunk - 1:].clone()
+                self._capture_prompt_rows(req, start, chunk, rows)
+                del rows
             req.context_position += chunk
             self.kv.seal_full_blocks(
                 req.request_id, req.prompt_token_ids[:req.context_position])
@@ -351,7 +422,16 @@ class PyExecutor:
         decode_reqs = [r for r in batch.decode if r.is_generating]
         if self._inflight and not decode_reqs:
             self._drain_inflight()
-        if decode_reqs:
+        if decode_reqs and self._host_logits(decode_reqs):
+            if self._inflight:
+                # the host path reads request state: apply the pipeline
+                self._drain_inflight()
+                decode_reqs = [r for r in decode_reqs if r.is_generating]
+            if decode_reqs:
+                self._decode_host(decode_reqs)
+                stats.num_decode_tokens += len(decode_reqs)
+                stats.decode_steps = 1
+        elif decode_reqs:
             k = self._decode_steps_for(decode_reqs)
             if self._overlap_enabled:
                 n, steps = self._overlap_decode(decode_reqs, k)
@@ -361,6 +441,7 @@ class PyExecutor:
             stats.decode_steps = steps
         stats.inflight_chunks = len(self._inflight)
 
+        self._pump_stop_scan()
         self._cleanup_finished()
         stats.kv_stats = self.kv.stats()
         stats.step_time_ms = (time.perf_counter() - t0) * 1e3
@@ -375,7 +456,38 @@ class PyExecutor:
     def _deliver(self):
         done, self._done = self._done, []
         for req in done:
-            req.emit(finished=True)
+            req.emit(finished=True, error=req.error)
+
+    def _end_with_error(self, req: LlmRequest, error: str):
+        """End one request with an error (delivered with its last piece);
+        nothing else is touched."""
+        req.error = error
+        req.finish(FinishReason.ERROR)
+
+    def _admit_guided(self, req: LlmRequest) -> bool:
+        """Register a guided request's matcher before its KV is allocated.
+        A spec that fails to compile ends only that request."""
+        g = req.sampling_params.guided_decoding
+        if g is None:
+            return True
+        try:
+            self.guided.register(req.request_id, create_matcher(
+                g, self.tokenizer, self.eos_token_id,
+                vocab_size=self.guided.vocab_size))
+        except Exception as exc:  # noqa: BLE001 -- a per-request input error
+            self.waiting.remove(req)
+            self._end_with_error(req, f"guided decoding: {exc}")
+            self._done.append(req)
+            return False
+        return True
+
+    def _forget(self, req: LlmRequest):
+        """Drop a request's matcher, penalty counts and stop-scan state."""
+        rid = req.request_id
+        self.guided.drop(rid)
+        self._counts.drop(rid)
+        if self._stop_fed.pop(rid, None) is not None:
+            self._stop_scan.drop(rid)
 
     # ---------------------------------------------------------------- decode --
     def _wants_tokens(self, req: LlmRequest) -> bool:
@@ -384,6 +496,29 @@ class PyExecutor:
         v = self._virtual.get(req.request_id, 0)
         return (req.num_output_tokens + v < req.sampling_params.max_tokens
                 and req.num_tokens + v < self.max_seq_len)
+
+    @staticmethod
+    def _needs_host_controls(sp) -> bool:
+        """Penalties and logit controls: applied on the host logits path
+        only.  Stop strings are not among them (the scan worker)."""
+        return has_penalties(sp) or has_logit_controls(sp)
+
+    def _host_logits(self, reqs: List[LlmRequest]) -> bool:
+        """Whether a decode batch takes the host logits path, one step at
+        a time (the JAX `_decode_steps_for`'s k = 1 cases)."""
+        if self.batched_logits_processor is not None \
+                or self.guided.any_active(reqs):
+            return True
+        return any(self._needs_host_controls(r.sampling_params)
+                   or r.sampling_params.return_generation_logits
+                   or (r.sampling_params.logprobs or 0) > 1 for r in reqs)
+
+    def _decode_host(self, reqs: List[LlmRequest]):
+        """One decode step whose logits come back to `_sample_and_update`."""
+        for req in reqs:
+            self.kv.grow_sequence(req.request_id, req.num_tokens)
+        self._sample_and_update(reqs, self.engine.run_decode(
+            self.engine.prepare_decode_inputs(reqs)))
 
     def _decode_steps_for(self, reqs: List[LlmRequest]) -> int:
         """Decode steps to fuse into one dispatch without passing any
@@ -412,8 +547,7 @@ class PyExecutor:
         (rows, steps) dispatched."""
         for req in reqs:
             self.kv.grow_sequence(req.request_id, req.num_tokens + k - 1)
-        self._apply_chunk(self.engine.dispatch_decode(reqs, k,
-                                                      step=self.iteration))
+        self._apply_chunk(self.engine.dispatch_decode(reqs, k))
         return len(reqs), k
 
     # --------------------------------------------------------------- overlap --
@@ -463,8 +597,7 @@ class PyExecutor:
         if not reqs:
             return 0, 0
         prev = self._inflight[-1].toks[-1] if self._inflight else None
-        ch = self.engine.dispatch_decode(reqs, k, step=self.iteration,
-                                         virtual_extra=virt,
+        ch = self.engine.dispatch_decode(reqs, k, virtual_extra=virt,
                                          prev_tokens=prev)
         self._inflight.append(ch)
         self._inflight_comp = comp
@@ -486,27 +619,182 @@ class PyExecutor:
             if req.is_generating:
                 req.emit(finished=False)
 
+    @staticmethod
+    def _capture_prompt_rows(req: LlmRequest, start: int, chunk: int,
+                             rows: np.ndarray):
+        """Record a full-rows prefill chunk's context logits and prompt
+        logprobs (JAX `_capture_prompt_rows`): row i, f32 on the host,
+        predicts the token at position start + i + 1."""
+        sp = req.sampling_params
+        rows = np.asarray(rows[:chunk], np.float32)
+        if sp.return_context_logits:
+            req.context_logits = (rows if req.context_logits is None
+                                  else np.concatenate(
+                                      [req.context_logits, rows]))
+        if sp.prompt_logprobs:
+            if req.prompt_logprobs is None:
+                # position 0 has no preceding context to predict it from
+                req.prompt_logprobs = [None]
+            n = int(sp.prompt_logprobs)
+            mx = rows.max(axis=-1, keepdims=True)
+            lp = rows - (np.log(np.sum(np.exp(rows - mx), axis=-1,
+                                       keepdims=True)) + mx)
+            for i in range(chunk):
+                pos = start + i + 1
+                if pos >= req.prompt_len:
+                    break  # the last row predicts the first output token
+                row = lp[i]
+                top = np.argpartition(-row, min(n, row.size - 1))[:n]
+                ids = set(top.tolist()) | {int(req.prompt_token_ids[pos])}
+                req.prompt_logprobs.append(
+                    {int(t): float(row[t]) for t in ids})
+
     def _sample_and_update(self, reqs: List[LlmRequest], logits):
+        """Sample one token per request from logits [len(reqs), V] on the
+        host logits path (module docstring) and apply stops."""
         params = [r.sampling_params for r in reqs]
-        tokens, logp = sample_tokens(logits, params, step=self.iteration)
+        dev = logits.device
+        gen = [i for i, p in enumerate(params) if p.return_generation_logits]
+        raw = (logits.index_select(0, upload(np.asarray(gen, np.int64), dev))
+               .cpu().numpy() if gen else None)
+        gen_pos = {i: j for j, i in enumerate(gen)}   # row -> row of raw
+        failed = {}                        # row -> error
+        logits = self.guided.mask_logits(reqs, logits, failed)
+        logits = self._apply_penalties(reqs, logits)
+        logits = apply_logit_controls(logits, reqs, self.eos_token_id,
+                                      failed)
+        if self.batched_logits_processor is not None:
+            try:
+                out = self.batched_logits_processor(
+                    [r.request_id for r in reqs],
+                    [r.all_token_ids for r in reqs], logits)
+                logits = torch.as_tensor(out, dtype=torch.float32).to(dev)
+            except Exception as exc:  # noqa: BLE001 -- ends its requests
+                logger.exception("batched logits processor failed")
+                failed.update({i: f"batched logits processor: {exc!r}"
+                               for i in range(len(reqs))})
+        tokens, logp = sample_tokens(
+            logits, params, [r.request_id for r in reqs],
+            [r.num_output_tokens for r in reqs])
+        top_rows = [i for i, p in enumerate(params) if (p.logprobs or 0) > 1]
+        top = None
+        if top_rows:
+            vals, idx = top_n_logprobs(
+                logits.index_select(0, upload(np.asarray(top_rows, np.int64),
+                                              dev)),
+                max(params[i].logprobs for i in top_rows))
+            top = dict(zip(top_rows, zip(vals.cpu().numpy(),
+                                         idx.cpu().numpy())))
         tokens = tokens.cpu().numpy()
         logp = logp.cpu().numpy()
         for i, req in enumerate(reqs):
             if not req.is_generating:
                 continue
-            self._append(req, int(tokens[i]), float(logp[i]))
+            if i in failed:
+                self._end_with_error(req, failed[i])
+                continue
+            tok = int(tokens[i])
+            lp = float(logp[i])
+            if top is not None and i in top:
+                n = params[i].logprobs
+                lp = {int(t): float(v)
+                      for v, t in zip(top[i][0][:n], top[i][1][:n])}
+                lp[tok] = float(logp[i])
+            if i in gen_pos:
+                req.generation_logits.append(raw[gen_pos[i]])
+            self._append(req, tok, lp)
             if req.is_generating:
                 req.emit(finished=False)
 
-    def _append(self, req: LlmRequest, tok: int, logp: Optional[float]):
+    def _apply_penalties(self, reqs: List[LlmRequest], logits):
+        """Repetition, presence and frequency penalties of the rows that
+        set one, on counts kept on the device (`TokenCounts`)."""
+        rows = [i for i, r in enumerate(reqs)
+                if has_penalties(r.sampling_params)]
+        if not rows:
+            return logits
+        dev = logits.device
+        idx = upload(np.asarray(rows, np.int64), dev)
+        pen = upload(np.asarray(
+            [(reqs[i].sampling_params.repetition_penalty,
+              reqs[i].sampling_params.presence_penalty,
+              reqs[i].sampling_params.frequency_penalty) for i in rows],
+            np.float32), dev)
+        sel = apply_penalties(logits.index_select(0, idx),
+                              self._counts.rows([reqs[i] for i in rows]),
+                              pen[:, 0], pen[:, 1], pen[:, 2])
+        return logits.index_copy(0, idx, sel)
+
+    def _append(self, req: LlmRequest, tok: int, logp):
+        """Append one token (`logp` its logprob, or a dict of top-N ones),
+        advance the request's matcher and check its stops."""
         req.append_token(tok)
         if req.sampling_params.logprobs and logp is not None:
-            req.logprobs.append({tok: logp})
+            req.logprobs.append(logp if isinstance(logp, dict)
+                                else {tok: logp})
+        try:
+            ok = self.guided.advance(req, tok)
+        except Exception as exc:  # noqa: BLE001 -- ends only this request
+            logger.exception("guided matcher failed")
+            self._end_with_error(req, f"guided decoding: {exc!r}")
+            return
+        if not ok:
+            self._end_with_error(req, "guided decoding: dead end")
+            return
         reason = req.check_stop(self.eos_token_id)
         if reason is None and req.num_tokens >= self.max_seq_len:
             reason = FinishReason.LENGTH
         if reason is not None:
-            req.finish(reason)      # delivered at the end of the step
+            # delivered at the end of the step
+            req.finish(self._reconcile_stop_on_finish(req, reason))
+
+    # ------------------------------------------------------------ stop scan --
+    def _feed_stop_scan(self, req: LlmRequest):
+        n = len(req.output_token_ids)
+        if n > self._stop_fed.get(req.request_id, 0):
+            sp = req.sampling_params
+            self._stop_scan.feed(req.request_id, sp.stop,
+                                 req.output_token_ids, sp.skip_special_tokens)
+            self._stop_fed[req.request_id] = n
+
+    def _pump_stop_scan(self):
+        """Hand the new tokens of stop-string requests to the scan worker
+        and finish every request whose match it found, truncated back to
+        the token that completed the match."""
+        if self._stop_scan is None:
+            return
+        for req in self.active:
+            if req.sampling_params.stop and req.is_generating:
+                self._feed_stop_scan(req)
+        hits = self._stop_scan.poll()
+        for req in self.active:
+            hit = hits.get(req.request_id)
+            if hit is None or not req.is_generating:
+                continue
+            req.truncate_output(hit[0])
+            req.stop_string = hit[1]
+            req.finish(FinishReason.STOP_STRING)
+
+    def _reconcile_stop_on_finish(self, req: LlmRequest, reason):
+        """A request ending on EOS or length may hold a stop string that
+        completed earlier in the same fused chunk: feed the worker, wait
+        for it, and let the match win if it landed before the finishing
+        token (at the same token, `check_stop` runs first)."""
+        sp = req.sampling_params
+        if (self._stop_scan is None or not sp.stop
+                or reason not in (FinishReason.EOS, FinishReason.LENGTH)):
+            return reason
+        self._feed_stop_scan(req)
+        if not self._stop_scan.flush():
+            logger.warning("stop-string scan still busy after its timeout: "
+                           "request %d ends on %s without the last tokens "
+                           "scanned", req.request_id, reason.value)
+        hit = self._stop_scan.take(req.request_id)
+        if hit is None or hit[0] >= len(req.output_token_ids):
+            return reason
+        req.truncate_output(hit[0])
+        req.stop_string = hit[1]
+        return FinishReason.STOP_STRING
 
     def _cleanup_finished(self):
         """Free every finished request's KV (rows of it in chunks still in
@@ -514,6 +802,7 @@ class PyExecutor:
         for req in [r for r in self.active if r.is_finished]:
             self.kv.free_sequence(req.request_id)
             self._virtual.pop(req.request_id, None)
+            self._forget(req)
             self.active.remove(req)
             self._done.append(req)
 

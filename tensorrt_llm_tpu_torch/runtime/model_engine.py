@@ -107,8 +107,11 @@ class ModelEngine:
         self._rings = {}            # (k, B) -> [next slot, [(toks, logps)]]
 
     # ------------------------------------------------------------ inputs ---
-    def prepare_prefill_inputs(self, req, chunk: int) -> StepInputs:
-        """One context chunk of one request."""
+    def prepare_prefill_inputs(self, req, chunk: int,
+                               all_rows: bool = False) -> StepInputs:
+        """One context chunk of one request, returning the last row's
+        logits, or every row's with `all_rows` (prompt logprobs and
+        context logits)."""
         kv = self.kv_manager
         start = req.context_position
         end = start + chunk
@@ -121,7 +124,8 @@ class ModelEngine:
                 [kv.block_table(req.request_id, kv.blocks_needed(end))],
                 np.int32),
             kv_lens=np.asarray([end], np.int32),
-            logit_indices=np.asarray([chunk - 1], np.int64),
+            logit_indices=(np.arange(chunk, dtype=np.int64) if all_rows
+                           else np.asarray([chunk - 1], np.int64)),
             q_offset=start)
 
     def prepare_decode_inputs(self, reqs, extra_tokens: int = 0,
@@ -165,28 +169,30 @@ class ModelEngine:
     # -------------------------------------------------------------- steps ---
     @torch.no_grad()
     def run_prefill(self, inputs: StepInputs) -> torch.Tensor:
-        """One prefill chunk; returns the last row's logits [1, V] (f32)."""
+        """One prefill chunk; returns the logits (f32) of the rows
+        `inputs.logit_indices` names: [1, V], or [chunk, V]."""
         ids, meta, rows = self._tensors(inputs, "prefill")
         with self.lock:
             return self.model(ids, self.kv_caches, meta, rows)
 
     @torch.no_grad()
     def run_decode(self, inputs: StepInputs) -> torch.Tensor:
-        """One decode step; returns logits [B, V] (f32)."""
+        """One decode step; returns logits [B, V] (f32): the host logits
+        path's step (the executor samples on them)."""
         ids, meta, rows = self._tensors(inputs, "decode")
         with self.lock:
             return self.model(ids, self.kv_caches, meta, rows)
 
     @torch.no_grad()
-    def dispatch_decode(self, reqs, k: int, step: int = 0,
+    def dispatch_decode(self, reqs, k: int,
                         virtual_extra: Optional[Sequence[int]] = None,
                         prev_tokens: Optional[torch.Tensor] = None
                         ) -> DecodeChunk:
         """The dispatch half of a k-step decode chunk (module docstring):
         every request's blocks must already cover its positions up to
-        num_tokens + virtual + k - 1.  Seeded rows fold `step` and each
-        step's offset into their seed.  `prev_tokens` [B] (device) replaces
-        the input ids."""
+        num_tokens + virtual + k - 1.  Sampled rows draw their noise at
+        their output positions (`sample_tokens`).  `prev_tokens` [B]
+        (device) replaces the input ids."""
         kv = self.kv_manager
         virt = list(virtual_extra) if virtual_extra is not None \
             else [0] * len(reqs)
@@ -197,6 +203,8 @@ class ModelEngine:
                                        k), np.int64)
             for r, v in zip(reqs, virt)], axis=1)
         params = [r.sampling_params for r in reqs]
+        rids = [r.request_id for r in reqs]
+        out_pos = [r.num_output_tokens + v for r, v in zip(reqs, virt)]
         ids, meta, rows = self._tensors(inputs, "decode")
         if prev_tokens is not None:
             ids = prev_tokens.to(torch.int64)
@@ -207,8 +215,8 @@ class ModelEngine:
             for j in range(k):
                 meta.slot_mapping = slots[j]
                 logits = self.model(ids, self.kv_caches, meta, rows)
-                tok, lp = sample_tokens(logits, params, step, step_offset=j,
-                                        state=state)
+                tok, lp = sample_tokens(logits, params, rids, out_pos,
+                                        step_offset=j, state=state)
                 toks.append(tok)
                 logps.append(lp)
                 ids = tok.to(torch.int64)

@@ -4,7 +4,14 @@ Counterpart of `tensorrt_llm_tpu/runtime/request.py`: queued -> context
 (possibly chunked) -> generation -> complete, with paged-KV progress, a
 queue of streamed output pieces and one ``(cumulative tokens, time)`` entry
 in `token_times` per emitted piece (the bench CLI's inter-token latencies).
-`priority` in [0, 1] orders the waiting queue (higher first);
+The host logits path records per request the top-N logprobs of each
+output token, the prompt's (`prompt_logprobs`, entry 0 None), the prompt's
+raw logits rows (`context_logits`, numpy [prompt_len, V]) and each output
+token's raw row (`generation_logits`), and the stop string that ended it.
+`truncate_output` cuts the outputs back to a stop-string match that the
+scan worker found after more tokens had been sampled; the next piece
+carries `truncate_to` so that a reader drops the tokens it already has past
+it.  `priority` in [0, 1] orders the waiting queue (higher first);
 `kv_retention_priority` is the retention priority of the blocks the request
 stores for reuse (None: the manager's default).  Disaggregated-serving and
 multimodal fields belong to later slices.
@@ -31,6 +38,7 @@ class RequestState(enum.Enum):
 class FinishReason(enum.Enum):
     NOT_FINISHED = "not_finished"
     EOS = "stop"
+    STOP_STRING = "stop_string"
     LENGTH = "length"
     CANCELLED = "cancelled"
     ERROR = "error"
@@ -43,6 +51,9 @@ class RequestOutputPiece:
     finished: bool
     finish_reason: Optional[FinishReason] = None
     error: Optional[str] = None
+    # a stop string matched earlier than the tokens already emitted: the
+    # reader drops its tokens past this output length
+    truncate_to: Optional[int] = None
 
 
 class LlmRequest:
@@ -70,6 +81,12 @@ class LlmRequest:
         self.num_cached_tokens = 0      # prefix-reuse hit length
         self.context_position = 0       # prompt tokens already in the cache
         self.logprobs: List[dict] = []
+        self.prompt_logprobs: Optional[List[Optional[dict]]] = None
+        self.context_logits = None            # np [prompt_len, V]
+        self.generation_logits: List = []     # np [V] per output token
+        self.stop_string: Optional[str] = None
+        self.error: Optional[str] = None      # sent with the last piece
+        self._truncated_to: Optional[int] = None
 
         self.out_queue: "queue.Queue[RequestOutputPiece]" = queue.Queue()
         self._streamed = 0
@@ -135,6 +152,17 @@ class LlmRequest:
         self.finish_reason = reason
         self.end_time = time.time()
 
+    def truncate_output(self, n: int):
+        """Drop output tokens past `n` (the fused chunks sampled past a
+        stop-string match), with their logprobs and generation logits."""
+        if n >= len(self.output_token_ids):
+            return
+        self._truncated_to = n
+        self.output_token_ids = self.output_token_ids[:n]
+        self.logprobs = self.logprobs[:n]
+        self.generation_logits = self.generation_logits[:n]
+        self._streamed = min(self._streamed, n)
+
     def check_stop(self, eos_token_id: Optional[int]) -> Optional[FinishReason]:
         sp = self.sampling_params
         last = self.output_token_ids[-1] if self.output_token_ids else None
@@ -156,4 +184,4 @@ class LlmRequest:
         self.out_queue.put(RequestOutputPiece(
             request_id=self.request_id, new_token_ids=new, finished=finished,
             finish_reason=self.finish_reason if finished else None,
-            error=error))
+            error=error, truncate_to=self._truncated_to))

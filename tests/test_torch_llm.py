@@ -113,8 +113,9 @@ def test_generate_is_deterministic_and_respects_limits():
         assert len(s[0].outputs[0].token_ids) == 5
         with pytest.raises(ValueError):
             tl.generate([list(range(1, 170))], sp)      # > max_seq_len
-        with pytest.raises(NotImplementedError):
-            tl.generate([[1, 2]], T.SamplingParams(repetition_penalty=1.2))
+        with pytest.raises(NotImplementedError, match="beam"):
+            tl.generate([[1, 2]], T.SamplingParams(use_beam_search=True,
+                                                   n=2))
     finally:
         tl.shutdown()
 

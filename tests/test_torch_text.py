@@ -12,10 +12,12 @@ streaming of `LLM(model=<HF checkpoint dir>)`.
   token ids grow as prefixes and the last one is finished; the last
   streamed text and tokens equal `result()`'s; the eos id comes from the
   tokenizer.  A tokenizer object is taken as given.
-* The refusals: stop strings at submit, a text prompt without a tokenizer,
-  and ``tokenizer=<path>`` with `transformers` hidden (ImportError).
+* The refusals: a stop string without a tokenizer at submit, a text prompt
+  without a tokenizer, and ``tokenizer=<path>`` with `transformers` hidden
+  (ImportError).
 """
 
+import dataclasses
 import sys
 
 import numpy as np
@@ -168,8 +170,21 @@ def test_tokenizer_object_and_refusals(text_ckpt, monkeypatch):
         streamed = list(llm.generate_async(TEXT, sp, streaming=True,
                                            cache_salt="streamed"))
         assert streamed[-1].outputs[0].text == out.outputs[0].text
-        with pytest.raises(NotImplementedError, match="stop"):
-            llm.generate(TEXT, T.SamplingParams(max_tokens=4, stop="\n"))
+        # with a tokenizer a stop string is served: two characters of the
+        # greedy text cut it where they first appear
+        full = out.outputs[0]
+        stop = next((full.text[i:i + 2] for i in range(len(full.text) - 1)
+                     if "\ufffd" not in full.text[i:i + 2]), "\n")
+        c = llm.generate(TEXT, dataclasses.replace(sp, stop=stop),
+                         cache_salt="stop")[0].outputs[0]
+        assert c.token_ids == full.token_ids[:len(c.token_ids)]
+        assert stop not in c.text
+        if stop in full.text:
+            assert c.finish_reason == "stop_string"
+            assert c.text == full.text[:full.text.index(stop)]
+            assert stop in tok.decode(c.token_ids)
+        else:
+            assert c.finish_reason == "length" and c.text == full.text
     finally:
         llm.shutdown()
     ids_only = T.LLM(model=str(text_ckpt), skip_tokenizer_init=True,
@@ -178,6 +193,9 @@ def test_tokenizer_object_and_refusals(text_ckpt, monkeypatch):
         assert ids_only.tokenizer is None
         with pytest.raises(ValueError, match="tokenizer"):
             ids_only.generate(TEXT, sp)
+        with pytest.raises(ValueError, match="stop strings need a tokenizer"):
+            ids_only.generate([[5, 6, 7]],
+                              T.SamplingParams(max_tokens=4, stop="\n"))
         # without a tokenizer the text is empty, the token ids are served
         o = ids_only.generate([[5, 6, 7]], sp)[0]
         assert o.outputs[0].text == "" and len(o.outputs[0].token_ids) == 6
