@@ -72,7 +72,7 @@ Phases (any failure exits nonzero; nothing is caught and ignored):
    forward, sinks, window 128, YaRN);
 10. GPT-OSS-20B width at 2 layers (sliding then full) on the card and on
    the CPU: logits and greedy tokens must agree;
-11. serve them on Llama-3-8B at full width and depth, W4A8_AWQ group 128
+11. serve them on Llama-3-8B at full width, 8 layers, W4A8_AWQ group 128
    with an INT8 KV cache (K6/K7 attention, K8 for all four projections);
 12. Llama-3-8B W4A8 + INT8 KV at 2 layers on the card and on the CPU:
    logits and greedy tokens must agree;
@@ -102,7 +102,7 @@ Phases (any failure exits nonzero; nothing is caught and ignored):
    and cross-checked against the CPU as in phase 7;
 18. `bench`: the bench CLI's presets (`commands/bench.py` `MODEL_SHAPES`:
    TinyLlama-1.1B, Llama-3-8B, Llama-2-7B, GPT-OSS-20B) at full width and
-   depth, W4A16, random weights, native KV bookkeeping, served by the
+   the depths of `BENCH_LAYERS`, W4A16, random weights, native KV bookkeeping, served by the
    CLI's `run_throughput` (ISL 128, OSL 128, `ignore_eos`, 32 requests at
    concurrency 32, `max_batch_size` 32) with the overlap pipeline on and
    every decode chunk's dispatch half under
@@ -136,12 +136,40 @@ Phases (any failure exits nonzero; nothing is caught and ignored):
    tokens/s of 32 plain requests against the same with one
    repetition-penalty request (recorded, interleaved); then
    `batched_logits_processor` on TinyLlama-1.1B at full depth (its forced
-   tokens, tensors on the card, launches per layer per forward).
+   tokens, tensors on the card, launches per layer per forward);
+21. `openai`: Llama-3-8B W4A16 at full width and depth (random weights,
+   `ByteTokenizer`) served by the port's `OpenAIServer` on 127.0.0.1:
+   every route (health, models, version, clock, metrics, perf metrics,
+   traces, health_generate, the embeddings refusal); a greedy completion
+   whose text equals `llm.generate`'s, streamed too, its SSE deltas equal
+   to the whole text; chat on the fallback template, whole and streamed;
+   a forced tool call whose arguments parse as JSON of the tool's schema;
+   `/v1/responses`, whole and streamed; the KV events of a shared-prefix
+   pair against chain hashes computed here, and `/prefix_match`; a
+   release refused with a stream in flight, then release and resume with
+   `torch.cuda.memory_allocated` before, between and after (the freed
+   bytes printed) and the same greedy tokens after; a dropped stream
+   cancelled with its blocks freed.  Then the load generator
+   (`commands/benchmark_serving.py`) at the bench mix (ISL 128, OSL 128,
+   32 requests at concurrency 32) against the server and the same mix in
+   process (`run_throughput`), interleaved HTTP, in process, in process,
+   HTTP, output tok/s, TTFT, TPOT and ITL p50/p99 printed beside the
+   card; K1, K3 and K4 (K2 where the tuner picks it) asserted per layer
+   per forward over the checks and the first HTTP run.  Last,
+   `python -m tensorrt_llm_tpu_torch.commands.serve` on a 2-layer
+   TinyLlama-width checkpoint in a subprocess: /health, one token-id
+   completion, exit 0 on SIGINT.
+
+Depth cuts that keep the script in its time limit (widths unchanged): the
+bench presets (`BENCH_LAYERS`: Llama-3-8B and Llama-2-7B 4 layers,
+TinyLlama and GPT-OSS 8; each model runs at full depth in `sampling` /
+`openai`, `serve` and `gptoss`) and the W4A8 serve (`LLAMA3_W4A8_LAYERS`
+8).
 
 Arguments pick phases (default: check serve serve_ramp serve_stream
 fused_mlp cross llama3 gptoss gptoss_cross llama3_w4a8 llama3_w4a8_cross
 deepseek deepseek_v32 deepseek_v3_width deepseek_cross checkpoint sampling
-bench bench_cross);
+openai bench bench_cross);
 `check_moe` runs
 only K5's checks, `check_w4a8` only K8's, `check_int8` only K6-K8's,
 `check_mla` only K9-K11's (with their plans' checks),
@@ -166,7 +194,9 @@ slices) choice at 112 shapes beside `gemv_plan`'s pick.
 `--json PATH` also writes every check and phase summary to PATH.
 
 The last three lines of stdout are the card's name and power limit, the
-`kernels` JSON object and the device JSON object.  Without a CUDA device,
+`kernels` JSON object (one row per TPU kernel body: 16 rows, the D=128
+bodies of K3 and K4 served by the same kernels as D=64, on the `openai`
+path) and the device JSON object.  Without a CUDA device,
 or without the package beside it, the script exits nonzero before printing
 any result.  It imports nothing of JAX.
 """
@@ -1922,6 +1952,7 @@ def w4a8_cfg(shape, **over):
 
 
 GPT_OSS_LAYERS = 24     # full depth
+LLAMA3_W4A8_LAYERS = 8  # Llama-3-8B runs at full depth in `sampling`/`openai`
 MOONLIGHT_LAYERS = 27   # full depth
 V32_LAYERS = 4          # 61 layers of 256 int4 experts do not fit one card
 V32_LONG_PROMPT = 3000  # past index_topk (2048): DSA's top-k drops tokens
@@ -3150,6 +3181,12 @@ def checkpoint_phase(card, by_path):
 
 # ------------------------------------------------------- phase 18: bench --
 BENCH_PRESETS = ("tinyllama-1.1b", "llama-3-8b", "llama-2-7b", "gpt-oss-20b")
+# depth of the presets whose model is served at full depth by another
+# phase (`sampling` and `openai`: Llama-3-8B; `serve`: TinyLlama; `gptoss`:
+# GPT-OSS-20B) or whose widths are Llama-3-8B's (Llama-2-7B): the bench
+# phase keeps their widths and the mix, and the script its time limit
+BENCH_LAYERS = {"llama-3-8b": 4, "llama-2-7b": 4, "tinyllama-1.1b": 8,
+                "gpt-oss-20b": 8}
 BENCH_OVERLAP_OFF = ("tinyllama-1.1b", "gpt-oss-20b")
 BENCH_ISL = 128
 BENCH_OSL = 128
@@ -3185,14 +3222,20 @@ def bench_path(preset, overlap=True):
 def bench_llm(preset, overlap=True):
     """The preset as `trtllm-torch-bench --model <preset> --quant W4A16`
     builds it (random weights, group 64 for GPT-OSS), at the phase's
-    batch and sequence length; KV pool from free memory, native
-    bookkeeping, the default warmup."""
+    batch and sequence length and the depth of `BENCH_LAYERS`; KV pool
+    from free memory, native bookkeeping, the default warmup."""
+    import dataclasses
     import tensorrt_llm_tpu_torch as T
     from tensorrt_llm_tpu_torch.commands import bench
     kw = dict(device=DEVICE, quant_algo="W4A16", max_batch_size=BENCH_BATCH,
               max_seq_len=BENCH_SEQ_LEN, seed=0, skip_tokenizer_init=True,
               disable_overlap_scheduler=not overlap)
     model = bench.preset_model(preset, kw)
+    n = BENCH_LAYERS.get(preset)
+    if n:
+        model = dataclasses.replace(
+            model, num_layers=n, layer_types=(
+                model.layer_types[:n] if model.layer_types else None))
     return T.LLM(model=model, **kw)
 
 
@@ -4014,6 +4057,438 @@ def _sampling_batched(card):
 
 
 # ----------------------------------------------------------------- summary --
+# ---- phase 21: the OpenAI server -------------------------------------------
+OPENAI_PATH = "openai"     # Llama-3-8B W4A16 served over HTTP: K1-K4
+OPENAI_MODEL = "llama-3-8b"
+OPENAI_SHORT = 12          # prompt tokens under one KV block: no reuse
+OPENAI_TIMED_ORDER = ("http", "inproc", "inproc", "http")
+OPENAI_TOOLS = [{"type": "function", "function": {
+    "name": "get_weather", "description": "weather lookup",
+    "parameters": {"type": "object",
+                   "properties": {"city": {"type": "string", "maxLength": 6},
+                                  "days": {"type": "integer", "minimum": 1,
+                                           "maximum": 7}},
+                   "required": ["city", "days"]}}}]
+OPENAI_CLI_LAYERS = 2      # the CLI's TinyLlama-width checkpoint
+
+
+def _http(port, method, path, body=None, timeout=600):
+    """(status, body bytes) of one request to the server on 127.0.0.1."""
+    import http.client
+    c = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    try:
+        c.request(method, path,
+                  body=None if body is None else json.dumps(body).encode(),
+                  headers={"Content-Type": "application/json"})
+        r = c.getresponse()
+        return r.status, r.read()
+    finally:
+        c.close()
+
+
+def _ok_json(port, method, path, body=None, status=200):
+    st, raw = _http(port, method, path, body)
+    assert st == status, (path, st, raw[:300])
+    return json.loads(raw) if raw.startswith((b"{", b"[")) else raw
+
+
+def _sse_data(raw):
+    """The ``data:`` payloads of an SSE body, in order."""
+    return [line[len("data: "):] for block in raw.decode().split("\n\n")
+            for line in block.split("\n") if line.startswith("data: ")]
+
+
+def _chain_hash(parent, chunk):
+    """The KV events' chain hash of an unsalted block (FNV-1a over the
+    parent hash and the block's tokens), computed here on its own."""
+    h = 0xCBF29CE484222325
+    for v in [parent] + [int(t) for t in chunk]:
+        h = ((h ^ (v & 0xFFFFFFFFFFFFFFFF)) * 0x100000001B3) \
+            & 0xFFFFFFFFFFFFFFFF
+    return h
+
+
+def _open_stream(port, body):
+    """A raw socket with a streamed request sent and its first SSE event
+    read."""
+    import socket
+    s = socket.create_connection(("127.0.0.1", port), timeout=120)
+    data = json.dumps(body).encode()
+    s.sendall(b"POST /v1/completions HTTP/1.1\r\nHost: card\r\n"
+              b"Connection: close\r\n"
+              b"Content-Type: application/json\r\nContent-Length: "
+              + str(len(data)).encode() + b"\r\n\r\n" + data)
+    got = b""
+    while b"data: " not in got:
+        b = s.recv(65536)
+        assert b, got
+        got += b
+    return s
+
+
+def _wait_idle(llm, free0=None, timeout=120):
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < timeout:
+        st = llm.get_kv_cache_stats()
+        if st["active_sequences"] == 0 and (
+                free0 is None or st["free_blocks"] == free0):
+            return st
+        time.sleep(0.01)
+    raise AssertionError(f"executor not idle: {llm.get_kv_cache_stats()}")
+
+
+def _gemv_picked(model):
+    """Whether a decode step (4 rows) of one of the model's W4A16 shapes
+    dispatches K2 under its tuned tactic."""
+    from tensorrt_llm_tpu_torch.autotuner import AutoTuner
+    from tensorrt_llm_tpu_torch.ops.w4a16_gemm import w4a16_plan
+    keys, _ = w4a16_shapes(model)
+    for K, N, tiled in keys:
+        t = AutoTuner.get().lookup("w4a16", (K, N, tiled)) or {}
+        name, _ = w4a16_plan(4, K, N, K // 128, bool(tiled),
+                             t.get("block_k"), t.get("block_m"),
+                             t.get("variant"), t.get("ramp_bk0"),
+                             t.get("ramp_bk_big"))
+        if name == "w4a16_gemv":
+            return True
+    return False
+
+
+def _openai_checks(llm, tok, port):
+    """Every route of the server, with the checks of phase 21."""
+    import numpy as np
+    import torch
+    import tensorrt_llm_tpu_torch as T
+    V = tok.vocab_size
+    rng = np.random.default_rng(31)
+    out = {}
+
+    def ids(n):
+        return [int(t) for t in rng.integers(259, V, n)]
+
+    for path in ("/health", "/v1/models", "/version",
+                 "/steady_clock_offset", "/metrics", "/perf_metrics",
+                 "/health_generate"):
+        _ok_json(port, "GET", path)
+    _ok_json(port, "POST", "/v1/embeddings", {"input": "x"}, status=400)
+    m = _ok_json(port, "GET", "/v1/models")
+    assert m["data"][0]["id"] == OPENAI_MODEL, m
+    # greedy completion: the text llm.generate gives the same prompt
+    p = ids(OPENAI_SHORT)
+    body = {"model": OPENAI_MODEL, "prompt": p, "max_tokens": 32,
+            "temperature": 0, "ignore_eos": True}
+    r = _ok_json(port, "POST", "/v1/completions", body)
+    text = r["choices"][0]["text"]
+    ref = llm.generate([p], T.SamplingParams(
+        max_tokens=32, temperature=0.0, ignore_eos=True))[0].outputs[0]
+    assert text == ref.text and r["usage"]["completion_tokens"] == 32, \
+        (text, ref.text)
+    # the same request streamed: its deltas are the whole text
+    st, raw = _http(port, "POST", "/v1/completions", dict(body, stream=True))
+    data = _sse_data(raw)
+    assert st == 200 and data[-1] == "[DONE]", raw[-300:]
+    chunks = [json.loads(d)["choices"][0] for d in data[:-1]]
+    assert "".join(c["text"] for c in chunks) == text
+    assert chunks[-1]["finish_reason"] == "length"
+    assert all(c["finish_reason"] is None for c in chunks[:-1])
+    out["completion"] = {"text": text, "sse_chunks": len(chunks)}
+    # chat on the fallback template, whole and streamed
+    chat = {"model": OPENAI_MODEL, "max_tokens": 16, "temperature": 0,
+            "ignore_eos": True,
+            "messages": [{"role": "user", "content": "Hi there!"}]}
+    c = _ok_json(port, "POST", "/v1/chat/completions", chat)
+    assert c["choices"][0]["message"]["role"] == "assistant", c
+    st, raw = _http(port, "POST", "/v1/chat/completions",
+                    dict(chat, stream=True))
+    data = _sse_data(raw)
+    deltas = [json.loads(d)["choices"][0] for d in data[:-1]]
+    assert st == 200 and data[-1] == "[DONE]"
+    assert deltas[0]["delta"] == {"role": "assistant"}
+    assert deltas[-1]["finish_reason"] == "length"
+    # a forced tool call: guided by the tool's schema, valid JSON
+    forced = dict(chat, max_tokens=64, ignore_eos=False, tools=OPENAI_TOOLS,
+                  tool_choice={"type": "function",
+                               "function": {"name": "get_weather"}})
+    f = _ok_json(port, "POST", "/v1/chat/completions", forced)
+    call = f["choices"][0]["message"]["tool_calls"][0]["function"]
+    # the schema's string admits raw control bytes (the JAX grammar's)
+    args = json.loads(call["arguments"], strict=False)
+    assert call["name"] == "get_weather" and set(args) == {"city", "days"}
+    assert 1 <= args["days"] <= 7 and len(args["city"]) <= 6, args
+    assert f["choices"][0]["finish_reason"] == "tool_calls", f
+    out["forced_tool_arguments"] = call["arguments"]
+    resp = _ok_json(port, "POST", "/v1/responses", {
+        "model": OPENAI_MODEL, "input": "Hello", "max_output_tokens": 8,
+        "temperature": 0, "ignore_eos": True})
+    assert resp["usage"]["output_tokens"] == 8, resp
+    st, raw = _http(port, "POST", "/v1/responses", {
+        "model": OPENAI_MODEL, "input": "Hello", "max_output_tokens": 8,
+        "temperature": 0, "ignore_eos": True, "stream": True})
+    assert st == 200 and b"response.completed" in raw, raw[-300:]
+    # KV events of a shared-prefix pair (39 and 40 tokens, 2 full blocks)
+    kv = _ok_json(port, "GET", "/kv_cache_events")
+    since = kv["next_since_id"]
+    reused0 = kv["reused_blocks"]
+    a = ids(40)
+    b = a[:35] + ids(4)
+    for prompt in (a, b):
+        _ok_json(port, "POST", "/v1/completions", {
+            "model": OPENAI_MODEL, "prompt": prompt, "max_tokens": 4,
+            "temperature": 0, "ignore_eos": True})
+    ev = _ok_json(port, "GET", f"/kv_cache_events?since_id={since}&full=1")
+    bs = ev["block_size"]
+    h1 = _chain_hash(0, a[:bs])
+    h2 = _chain_hash(h1, a[bs:2 * bs])
+    got = [(e["id"], e["type"], e["block_hash"], e["parent_hash"])
+           for e in ev["events"]]
+    want = [(since + i, "stored", h, par)
+            for i, (h, par) in enumerate([(h1, 0), (h2, h1)] * 2)]
+    assert got == want, (got, want)
+    assert ev["next_since_id"] == since + 4 and {h1, h2} <= set(
+        ev["block_hashes"])
+    assert ev["reused_blocks"] - reused0 == 2, ev
+    pm = _ok_json(port, "POST", "/prefix_match", {"prompt_token_ids": b})
+    assert pm["matched_tokens"] == 2 * bs, pm
+    out["kv_events"] = {"events": len(got), "block_size": bs}
+    # release and resume: the same greedy tokens before and after
+    p2 = ids(OPENAI_SHORT)
+    body2 = dict(body, prompt=p2, max_tokens=16)
+    before = _ok_json(port, "POST", "/v1/completions", body2)
+    s = _open_stream(port, dict(body2, max_tokens=200, stream=True))
+    st, raw = _http(port, "POST", "/release_memory")
+    assert st == 409 and b"in flight" in raw, (st, raw)
+    while s.recv(65536):
+        pass
+    s.close()
+    _wait_idle(llm)
+    weight_bytes = sum(t.numel() * t.element_size()
+                       for t in llm.model.state().values())
+    torch.cuda.synchronize()
+    m0 = torch.cuda.memory_allocated()
+    _ok_json(port, "POST", "/release_memory")
+    m1 = torch.cuda.memory_allocated()
+    st, raw = _http(port, "POST", "/v1/completions", body2)
+    assert st == 500 and b"resume_memory" in raw, (st, raw)
+    _ok_json(port, "POST", "/resume_memory")
+    torch.cuda.synchronize()
+    m2 = torch.cuda.memory_allocated()
+    after = _ok_json(port, "POST", "/v1/completions", body2)
+    assert after["choices"] == before["choices"], (before, after)
+    assert m0 - m1 >= 0.99 * weight_bytes, (m0, m1, weight_bytes)
+    assert abs(m2 - m0) <= 0.01 * weight_bytes, (m0, m2)
+    out["release"] = {"weight_bytes": weight_bytes, "allocated_before": m0,
+                      "allocated_released": m1, "allocated_resumed": m2,
+                      "freed_bytes": m0 - m1}
+    log(f"[openai] release_memory freed {(m0 - m1) / 2 ** 30:.3f} GiB "
+        f"(weights {weight_bytes / 2 ** 30:.3f} GiB; allocated "
+        f"{m0 / 2 ** 30:.3f} -> {m1 / 2 ** 30:.3f} -> {m2 / 2 ** 30:.3f} "
+        f"GiB); tokens equal after resume")
+    # a dropped stream is cancelled and frees its blocks
+    free0 = _wait_idle(llm)["free_blocks"]
+    made0 = llm.executor.total_tokens_generated
+    s = _open_stream(port, dict(body, prompt=ids(OPENAI_SHORT),
+                                max_tokens=400, stream=True))
+    s.close()
+    _wait_idle(llm, free0)
+    made = llm.executor.total_tokens_generated - made0
+    assert made < 400, made
+    out["dropped_stream_tokens"] = made
+    traces = _ok_json(port, "GET", "/traces")
+    assert traces and "gen_ai.latency.e2e" in traces[-1], traces[-1:]
+    metrics = _ok_json(port, "GET", "/metrics").decode()
+    assert "tllm_tpu_total_tokens_generated" in metrics
+    return out
+
+
+def _openai_requests(seed):
+    """The bench mix (ISL 128, OSL 128, 32 requests) as the load
+    generator draws it."""
+    from tensorrt_llm_tpu_torch.commands import benchmark_serving as bs
+    return bs.build_requests(types.SimpleNamespace(
+        dataset=None, num_prompts=BENCH_REQUESTS, input_len=BENCH_ISL,
+        output_len=BENCH_OSL, seed=seed))
+
+
+def _openai_http_run(llm, port, seed):
+    """One load-generator run; the executor must have made exactly the
+    tokens that the client counted."""
+    import asyncio
+    from tensorrt_llm_tpu_torch.commands import benchmark_serving as bs
+    made0 = llm.executor.total_tokens_generated
+    args = types.SimpleNamespace(
+        base_url=f"http://127.0.0.1:{port}", endpoint="/v1/completions",
+        model=OPENAI_MODEL, dataset=None, num_prompts=BENCH_REQUESTS,
+        input_len=BENCH_ISL, output_len=BENCH_OSL,
+        request_rate=float("inf"), burstiness=1.0,
+        max_concurrency=BENCH_CONCURRENCY, temperature=1.0, goodput=None,
+        timeout=600.0, seed=seed)
+    m = asyncio.run(bs.run_benchmark(args))
+    assert m["completed"] == BENCH_REQUESTS and m["failed"] == 0, m
+    # the client counts output_len tokens for each completed stream
+    made = llm.executor.total_tokens_generated - made0
+    assert made == BENCH_REQUESTS * BENCH_OSL, (made, m)
+    return {"output_tok_s": m["output_token_throughput"],
+            **{f"{k}_ms_{p}": m[f"{k}_ms"][p] for k in ("ttft", "tpot", "itl")
+               for p in ("p50", "p99")}, "duration_s": m["duration_s"]}
+
+
+def _openai_inproc_run(llm, seed):
+    from tensorrt_llm_tpu_torch.commands import bench
+    reqs = [(r["prompt"], r["output_len"])
+            for r in _openai_requests(seed)]
+    rep = bench.run_throughput(llm, reqs, BENCH_CONCURRENCY, warmup=False)
+    assert rep["num_failed"] == 0 and \
+        rep["output_tokens"] == BENCH_REQUESTS * BENCH_OSL, rep
+    return {"output_tok_s": rep["output_tokens_per_sec"],
+            **{f"{k}_ms_{p}": rep[f"{k}_ms"][p]
+               for k in ("ttft", "tpot", "itl") for p in ("p50", "p99")},
+            "duration_s": rep["wall_s"]}
+
+
+def _openai_cli(card):
+    """`python -m tensorrt_llm_tpu_torch.commands.serve` on a 2-layer
+    TinyLlama-width checkpoint: /health, one token-id completion, exit 0
+    on SIGINT."""
+    import signal
+    import socket
+    import tempfile
+    t0 = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="tllm_cli_")
+    ckpt = os.path.join(root, "ckpt")
+    write_checkpoint(ckpt, dict(TINYLLAMA_HF,
+                                num_hidden_layers=OPENAI_CLI_LAYERS), seed=3)
+    opts = os.path.join(root, "opts.json")
+    with open(opts, "w") as f:
+        json.dump({"skip_tokenizer_init": True, "kv_num_blocks": 512}, f)
+    with socket.socket() as so:
+        so.bind(("127.0.0.1", 0))
+        port = so.getsockname()[1]
+    logf = open(os.path.join(root, "serve.log"), "w+")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "tensorrt_llm_tpu_torch.commands.serve",
+         ckpt, "--quant", "W4A16", "--host", "127.0.0.1", "--port",
+         str(port), "--max-seq-len", "256", "--max-batch-size", "8",
+         "--served-model-name", "tinyllama-cli",
+         "--extra-llm-api-options", opts],
+        cwd=ROOT, stdout=logf, stderr=subprocess.STDOUT)
+    try:
+        while True:
+            try:
+                if _http(port, "GET", "/health", timeout=5)[0] == 200:
+                    break
+            except OSError:
+                pass
+            if proc.poll() is not None or time.perf_counter() - t0 > 240:
+                logf.seek(0)
+                raise AssertionError("trtllm-torch-serve did not come up:\n"
+                                     + logf.read()[-3000:])
+            time.sleep(0.25)
+        up_s = time.perf_counter() - t0
+        r = _ok_json(port, "POST", "/v1/completions", {
+            "model": "tinyllama-cli", "prompt": [1, 450, 4996, 17354],
+            "max_tokens": 8, "temperature": 0, "ignore_eos": True})
+        assert r["usage"]["completion_tokens"] == 8, r
+        proc.send_signal(signal.SIGINT)
+        rc = proc.wait(timeout=120)
+        logf.seek(0)
+        assert rc == 0, f"exit {rc}:\n" + logf.read()[-3000:]
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        logf.close()
+        subprocess.run(["rm", "-rf", root], check=False)
+    out = {"up_s": up_s, "seconds": time.perf_counter() - t0}
+    log(f"[openai] trtllm-torch-serve on a {OPENAI_CLI_LAYERS}-layer "
+        f"TinyLlama checkpoint: up in {up_s:.1f} s, one completion, exit 0 "
+        f"on SIGINT ({card})")
+    return out
+
+
+def openai_phase(card, by_path):
+    """Phase 21: Llama-3-8B W4A16 at full width and depth (random weights,
+    `ByteTokenizer`) served by the port's `OpenAIServer` on 127.0.0.1:
+    every route (`_openai_checks`), then the load generator
+    (`benchmark_serving`, the bench mix: ISL 128, OSL 128, 32 requests at
+    concurrency 32, temperature 1, `ignore_eos`); the launch counters are
+    reset after the checks, just before the first load-generator run, and
+    read after it, so they count HTTP traffic only: K1, K3 and K4 asserted
+    per layer per forward (K2 where the tuner picks it).  Each HTTP run
+    asserts that the executor made exactly the tokens the client counted.
+    The same mix then runs in process through `run_throughput`, the timed
+    runs interleaved HTTP, in process, in process, HTTP.  Last the CLI in
+    a subprocess (`_openai_cli`)."""
+    import gc
+    import torch
+    import tensorrt_llm_tpu_torch as T
+    from tensorrt_llm_tpu_torch.autotuner import AutoTuner
+    from tensorrt_llm_tpu_torch.ops import cuda_build
+    from tensorrt_llm_tpu_torch.serve.openai_server import OpenAIServer
+    t_all = time.perf_counter()
+    tok = ByteTokenizer(LLAMA3_8B["vocab_size"])
+    out = {"phase": "openai", "card": card}
+    tuned_before = set(AutoTuner.get().timings)
+    t0 = time.perf_counter()
+    llm = T.LLM(model=w4a16_cfg(LLAMA3_8B), tokenizer=tok, device=DEVICE,
+                max_batch_size=BENCH_BATCH, max_seq_len=BENCH_SEQ_LEN,
+                seed=0)
+    torch.cuda.synchronize()
+    out["build_s"] = time.perf_counter() - t0
+    server = None
+    try:
+        report_tactics(OPENAI_PATH, llm.model, tuned_before)
+        cfg = llm.model_config
+        _, n_kpaired = w4a16_shapes(llm.model)
+        server = OpenAIServer(llm, OPENAI_MODEL).start_in_thread()
+        port = server.port
+        t0 = time.perf_counter()
+        out["checks"] = _openai_checks(llm, tok, port)
+        out["checks_s"] = time.perf_counter() - t0
+        runs = {"http": [], "inproc": []}
+        _wait_idle(llm)
+        it0 = llm.executor.iteration
+        cuda_build.reset_launch_counts()
+        runs["http"].append(_openai_http_run(llm, port, seed=101))
+        torch.cuda.synchronize()
+        counts = dict(cuda_build.launch_counts)
+        stats = [s for s in llm.get_stats() if s["iteration"] > it0]
+        chunks, dsteps, fwd, _, _ = assert_launches(
+            cfg, counts, stats, ("w4a16_gemm", "flash_prefill",
+                                 "paged_decode"), n_kpaired=n_kpaired)
+        picks_gemv = _gemv_picked(llm.model)
+        if picks_gemv:
+            assert counts.get("w4a16_gemv", 0) > 0, counts
+        by_path[OPENAI_PATH] = counts
+        out.update(launches=counts, prefill_chunks=chunks,
+                   decode_steps=dsteps, forwards=fwd,
+                   tuner_picks_gemv=picks_gemv)
+        for i, kind in enumerate(OPENAI_TIMED_ORDER[1:], start=2):
+            run = (_openai_http_run(llm, port, seed=100 + i)
+                   if kind == "http"
+                   else _openai_inproc_run(llm, seed=100 + i))
+            runs[kind].append(run)
+        out["runs"] = runs
+        for kind in ("http", "inproc"):
+            for r in runs[kind]:
+                log(f"[openai] {kind}: {r['output_tok_s']} output tok/s, "
+                    f"TTFT p50/p99 {r['ttft_ms_p50']}/{r['ttft_ms_p99']} ms, "
+                    f"TPOT p50/p99 {r['tpot_ms_p50']}/{r['tpot_ms_p99']} ms, "
+                    f"ITL p50/p99 {r['itl_ms_p50']}/{r['itl_ms_p99']} ms "
+                    f"({card})")
+    finally:
+        if server is not None:
+            server.stop()
+        llm.shutdown()
+        del llm
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["cli"] = _openai_cli(card)
+    out["seconds"] = time.perf_counter() - t_all
+    PHASES["openai"] = out
+    log(json.dumps(out))
+    log(f"[openai] phase took {out['seconds']:.1f} s ({card})")
+
+
 SERVE_PATH = "serve"                    # TinyLlama W4A16: K1-K4, K13
 GPT_OSS_PATH = "serve_gpt_oss"          # GPT-OSS-20B: K1, K3-K5, K12
 LLAMA3_W4A8_PATH = "serve_llama3_w4a8"  # slice 3's path: K6-K8 run there
@@ -4042,6 +4517,18 @@ KERNELS = {
     "paged_decode": ("cuda", "tensorrt_llm_tpu_torch/csrc/paged_decode.cu",
                      "tensorrt_llm_tpu/ops/paged_attention.py:516",
                      GPT_OSS_PATH, {"model": "gpt-oss-20b", "window": 128}),
+    # the D=128 bodies of K3 and K4 run in the same kernels: Llama-3-8B
+    # served over HTTP
+    "flash_prefill@d128": ("cuda",
+                           "tensorrt_llm_tpu_torch/csrc/flash_prefill_sm90.cu",
+                           "tensorrt_llm_tpu/ops/flash_prefill.py:39",
+                           OPENAI_PATH,
+                           {"model": "llama-3-8b", "T": 256,
+                            "q_offset": 256}),
+    "paged_decode@d128": ("cuda", "tensorrt_llm_tpu_torch/csrc/paged_decode.cu",
+                          "tensorrt_llm_tpu/ops/paged_attention.py:40",
+                          OPENAI_PATH, {"model": "llama-3-8b",
+                                        "kv_lens": [320, 400, 1000, 4000]}),
     # GPT-OSS-20B gate_up at decode: 4 requests x top-4 rows
     "moe_gmm": ("cuda", "tensorrt_llm_tpu_torch/csrc/moe_gmm.cu",
                 "tensorrt_llm_tpu/ops/moe_w4a16.py:78", GPT_OSS_PATH,
@@ -4095,17 +4582,19 @@ KERNELS = {
 
 def kernels_line(by_path):
     """`launches` is each kernel's count in its own serve path's run;
-    `launches_by_path` gives every serve path's count apart."""
+    `launches_by_path` gives every serve path's count apart.  A row named
+    ``kernel@variant`` is another TPU body that the same kernel serves."""
     out = []
     for name, (route, src, replaces, path, head) in KERNELS.items():
-        rows = [r for r in RESULTS if r["kernel"] == name]
+        kernel = name.split("@")[0]
+        rows = [r for r in RESULTS if r["kernel"] == kernel]
         hit = [r for r in rows
                if all(r["shape"].get(k) == v for k, v in head.items())]
         h = hit[0]
         out.append({"name": name, "route": route, "source": src,
                     "replaces": replaces, "path": path,
-                    "launches": by_path[path].get(name, 0),
-                    "launches_by_path": {p: c.get(name, 0)
+                    "launches": by_path[path].get(kernel, 0),
+                    "launches_by_path": {p: c.get(kernel, 0)
                                          for p, c in by_path.items()},
                     "max_abs_err": max(r["max_err"] for r in rows),
                     "ms": h["kernel_ms"], "plain_ms": h["plain_ms"],
@@ -4167,8 +4656,8 @@ def main() -> int:
                       "llama3", "gptoss",
                       "gptoss_cross", "llama3_w4a8", "llama3_w4a8_cross",
                       "deepseek", "deepseek_v32", "deepseek_v3_width",
-                      "deepseek_cross", "checkpoint", "sampling", "bench",
-                      "bench_cross"]
+                      "deepseek_cross", "checkpoint", "sampling", "openai",
+                      "bench", "bench_cross"]
     by_path = {}      # each serve path's own launch counts
     try:
         run_phases(phases, card, gen, dev, by_path)
@@ -4248,10 +4737,11 @@ def run_phases(phases, card, gen, dev, by_path):
                         gpt_oss_cfg(2), seed=4, n_prompt=200, chunk=128,
                         n_decode=4)
     if "llama3_w4a8" in phases:
+        n = LLAMA3_W4A8_LAYERS
         by_path[LLAMA3_W4A8_PATH] = serve_model(
             card, LLAMA3_W4A8_PATH,
-            "llama-3-8b W4A8_AWQ g128, INT8 KV (32 layers)",
-            w4a8_cfg(LLAMA3_8B), ("flash_prefill_int8", "paged_decode_int8",
+            f"llama-3-8b W4A8_AWQ g128, INT8 KV ({n} layers)",
+            w4a8_cfg(LLAMA3_8B, num_layers=n), ("flash_prefill_int8", "paged_decode_int8",
                                   "w4a8_gemm"),
             absent=("flash_prefill", "paged_decode", "w4a16_gemm",
                     "w4a16_gemv"), kv_cache_quant="INT8")
@@ -4294,6 +4784,8 @@ def run_phases(phases, card, gen, dev, by_path):
         checkpoint_phase(card, by_path)
     if "sampling" in phases:
         sampling_phase(card, by_path)
+    if "openai" in phases:
+        openai_phase(card, by_path)
     if "bench" in phases:
         bench_phase(card, gen, dev, by_path)
     if "bench_cross" in phases:

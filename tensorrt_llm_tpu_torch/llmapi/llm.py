@@ -41,8 +41,20 @@ for them.
 
 Before the executor starts, the engine warms up (`ModelEngine.warmup`: the
 W4A16 autotuner, then one prefill chunk and one decode step), by default on
-a CUDA device only (`enable_warmup`).  The server, LoRA and beam search
-belong to later slices.
+a CUDA device only (`enable_warmup`).
+
+For the server (JAX `llmapi/llm.py:399-436, 811-820`): `get_kv_cache_events`
+and `match_kv_prefix` read the KV manager's event ring and reuse index,
+on the executor thread between two steps (`read_kv`);
+`release_memory` closes the executor's submit door (refusing while a
+request is in flight), then moves every weight to pinned host memory
+between two steps and frees the device copies; `resume_memory` puts them
+back on the device, at new addresses, which every layer reads at its next
+call (nothing in the port keeps a weight's pointer).  The futures' pieces
+can be read without a blocked thread: `GenerationFuture.fold` /
+`stream_fold` turn the pieces of `req.out_queue` into `RequestOutput`s, and
+`LlmRequest.listener` is called after each piece is queued.  LoRA and beam
+search belong to later slices.
 """
 
 from __future__ import annotations
@@ -142,6 +154,7 @@ class LLM:
         self.args = args
         self.executor = None
         self._tokenizer = None
+        self._released_state = None
         self.device = resolve_device(args.device)
         self._build()
 
@@ -348,8 +361,67 @@ class LLM:
                          priority=priority)
         return GenerationFuture(self, req, text)
 
+    def read_kv(self, fn):
+        """`fn(kv_manager)` on the executor thread between two steps: the
+        KV bookkeeping (the C++ one included) is mutated on that thread
+        only, so a read from another thread must not overlap a step."""
+        return self.executor.call_between_steps(
+            lambda: fn(self.kv_manager), drain=False)
+
     def get_kv_cache_stats(self) -> dict:
-        return self.kv_manager.stats()
+        return self.read_kv(lambda kv: kv.stats())
+
+    def get_kv_cache_events(self, since_id: int = 0) -> list:
+        """The KV manager's stored/removed block events with id >=
+        `since_id` (feeds KV-aware routers)."""
+        return self.read_kv(lambda kv: kv.get_events(since_id))
+
+    def match_kv_prefix(self, token_ids) -> int:
+        """Tokens of this prompt whose KV is cached here right now."""
+        ids = [int(t) for t in token_ids]
+        return self.read_kv(lambda kv: kv.match_prefix(ids))
+
+    # ------------------------------------------------------------- memory --
+    def release_memory(self) -> None:
+        """Move the weights off the device (between RL rollouts): refused
+        with a request in flight; `generate` then refuses until
+        `resume_memory`.  The host copies are pinned on CUDA."""
+        ex = self.executor
+        ex.close_for_release()
+        try:
+            ex.call_between_steps(self._offload_weights)
+        except BaseException:
+            ex.weights_released = False
+            raise
+
+    def _offload_weights(self):
+        if self._released_state is not None:
+            return
+        host = {}
+        for name, t in self.model.state().items():
+            if self.device.type == "cuda":
+                h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                h.copy_(t)
+            else:
+                h = t      # the CPU copy is the host copy
+            host[name] = h
+        for name in host:
+            mod, _, leaf = name.rpartition(".")
+            setattr(self.model.get_submodule(mod) if mod else self.model,
+                    leaf, None)
+        self._released_state = host
+        if self.device.type == "cuda":
+            torch.cuda.empty_cache()
+
+    def resume_memory(self) -> None:
+        """Put weights released by `release_memory` back on the device and
+        reopen the submit door."""
+        def onload():
+            if self._released_state is not None:
+                self.model.load_state(self._released_state)
+                self._released_state = None
+        self.executor.call_between_steps(onload)
+        self.executor.weights_released = False
 
     def get_stats(self) -> List[dict]:
         return self.executor.get_stats()
@@ -408,12 +480,6 @@ class GenerationFuture:
                 return text[:idx]
         return text
 
-    def _next_piece(self, timeout: Optional[float] = None):
-        piece = self.req.out_queue.get(timeout=timeout)
-        if piece.error:
-            raise RuntimeError(f"generation failed: {piece.error}")
-        return piece
-
     def _output(self, toks: List[int], text: str, piece,
                 finished: bool) -> RequestOutput:
         """A `RequestOutput` of the tokens so far; the logprobs, logits and
@@ -449,24 +515,34 @@ class GenerationFuture:
             context_logits=r.context_logits if finished else None,
             metrics=metrics)
 
-    def result(self, timeout: Optional[float] = None) -> RequestOutput:
+    def fold(self):
+        """A generator that takes the request's pieces (``send``) and
+        yields None until the last, then the whole `RequestOutput`, text
+        decoded at once (what `result` returns)."""
         toks: List[int] = []
+        out = None
         while True:
-            piece = self._next_piece(timeout)
+            piece = yield out
+            _check(piece)
             if piece.truncate_to is not None:
                 del toks[piece.truncate_to:]   # sampled past a stop string
             toks.extend(piece.new_token_ids)
             if piece.finished:
-                return self._output(toks, self._decode(toks), piece, True)
+                out = self._output(toks, self._decode(toks), piece, True)
 
-    def __iter__(self) -> Iterator[RequestOutput]:
+    def stream_fold(self):
+        """A generator that takes the request's pieces (``send``) and
+        yields one `RequestOutput` per piece (what iterating yields):
+        cumulative token ids and text, detokenized incrementally."""
         sp = self.req.sampling_params
         tok = self.llm.tokenizer
         detok = (IncrementalDetokenizer(tok, sp.skip_special_tokens)
                  if tok is not None and sp.detokenize else None)
         toks: List[int] = []
+        out = None
         while True:
-            piece = self._next_piece()
+            piece = yield out
+            _check(piece)
             if piece.truncate_to is not None:
                 del toks[piece.truncate_to:]   # sampled past a stop string
                 if detok is not None:
@@ -484,9 +560,29 @@ class GenerationFuture:
                     detok.flush()
                 # the stop string is known once the request has ended
                 text = self._cut_stop(detok.text)
-            yield self._output(toks, text, piece, piece.finished)
-            if piece.finished:
+            out = self._output(toks, text, piece, piece.finished)
+
+    def result(self, timeout: Optional[float] = None) -> RequestOutput:
+        f = self.fold()
+        next(f)
+        while True:
+            out = f.send(self.req.out_queue.get(timeout=timeout))
+            if out is not None:
+                return out
+
+    def __iter__(self) -> Iterator[RequestOutput]:
+        f = self.stream_fold()
+        next(f)
+        while True:
+            out = f.send(self.req.out_queue.get())
+            yield out
+            if out.finished:
                 return
+
+
+def _check(piece):
+    if piece.error:
+        raise RuntimeError(f"generation failed: {piece.error}")
 
 
 class _FanoutFuture:
@@ -505,7 +601,11 @@ class _FanoutFuture:
         return [s.req for s in self.subs]
 
     def result(self, timeout: Optional[float] = None) -> RequestOutput:
-        results = [s.result(timeout=timeout) for s in self.subs]
+        return self.combine([s.result(timeout=timeout) for s in self.subs])
+
+    @staticmethod
+    def combine(results: List[RequestOutput]) -> RequestOutput:
+        """The siblings' outputs as one `RequestOutput` with n outputs."""
         first = results[0]
         outputs = [dataclasses.replace(r.outputs[0], index=j)
                    for j, r in enumerate(results)]

@@ -97,6 +97,8 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.tllm_kvbm_set_priority.argtypes = [p, i64, i32]
     lib.tllm_kvbm_drop_cached.restype = None
     lib.tllm_kvbm_drop_cached.argtypes = [p]
+    lib.tllm_kvbm_drain_evictions.restype = i64
+    lib.tllm_kvbm_drain_evictions.argtypes = [p, pi32, i64]
     return lib
 
 

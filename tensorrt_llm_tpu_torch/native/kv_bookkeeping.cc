@@ -14,16 +14,18 @@
 // and the JAX package's Python backend, with identical op sequences and
 // requires identical block tables, free counts and evictions.
 //
-// Changes from the JAX package's copy: the beam-search fork and the
-// eviction list that feeds the host-memory tier are left out (neither is
-// in the port yet), and `tllm_kvbm_drop_cached` forgets the reuse index
-// after a weight swap.  Device memory never appears here: the pools are
+// Changes from the JAX package's copy: the beam-search fork is left out
+// (not in the port yet), and `tllm_kvbm_drop_cached` forgets the reuse
+// index after a weight swap.  The eviction list (`tllm_kvbm_drain_
+// evictions`) feeds the KV manager's "removed" events; the host-memory
+// tier that the JAX package also feeds from it is not in the port yet.  Device memory never appears here: the pools are
 // torch tensors owned by the Python side; this module only decides *which*
 // block ids hold which tokens.
 
 #include <algorithm>
 #include <cstdint>
 #include <cstdio>
+#include <cstring>
 #include <deque>
 #include <list>
 #include <map>
@@ -107,6 +109,8 @@ struct Manager {
   int64_t num_partial = 0;
   int64_t num_allocated = 0;
   int64_t num_evicted = 0;
+  // block ids evicted from the reuse index since the last drain
+  std::vector<int32_t> pending_evictions;
 
   explicit Manager(int32_t nb, int32_t bs, bool reuse)
       : num_blocks(nb), block_size(bs), enable_reuse(reuse),
@@ -186,6 +190,7 @@ struct Manager {
       }
       forget_block(bid);
       ++num_evicted;
+      pending_evictions.push_back(bid);
     } else {
       return -1;  // out of blocks
     }
@@ -494,6 +499,19 @@ void tllm_kvbm_drop_cached(void* h) {
   m.block_tokens.clear();
   m.children.clear();
   m.child_pos.clear();
+}
+
+// Drain block ids evicted from the reuse index since the last call.
+// Writes up to max ids into out; returns the count (ids beyond max are
+// kept for the next drain).
+int64_t tllm_kvbm_drain_evictions(void* h, int32_t* out, int64_t max) {
+  Manager& m = *static_cast<Manager*>(h);
+  int64_t n = (int64_t)m.pending_evictions.size();
+  if (n > max) n = max;
+  std::memcpy(out, m.pending_evictions.data(), n * sizeof(int32_t));
+  m.pending_evictions.erase(m.pending_evictions.begin(),
+                            m.pending_evictions.begin() + n);
+  return n;
 }
 
 // out[8] = {free, evictable, reused, allocated, evicted, active_seqs,

@@ -55,6 +55,11 @@ and a request ending on EOS or length asks the worker first
 An exception of a request's processor or matcher ends that request with an
 error and nothing else.
 
+Each request freed at the end of its run leaves a trace record
+(`llmapi/tracing.py`: queue time, TTFT, end to end, token counts) in
+`tracer`.  `weights_released` (set by `LLM.release_memory`) closes the
+submit door until the weights are back.
+
 Not in this slice: disaggregated serving and its receive path, speculative
 and beam decoding, multi-host lockstep.  The JAX package's faults listed
 in ROADMAP Queue C are not copied: a request's failure ends only that
@@ -75,6 +80,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from tensorrt_llm_tpu_torch.llmapi.tracing import RequestTracer
 from tensorrt_llm_tpu_torch.runtime.guided_decoder import (
     GuidedDecoder, create_matcher)
 from tensorrt_llm_tpu_torch.runtime.model_engine import ModelEngine
@@ -147,6 +153,9 @@ class PyExecutor:
         self._submit_lock = threading.Lock()
         self.iteration = 0
         self.stats_history: List[IterationStats] = []
+        self.total_tokens_generated = 0
+        self.tracer = RequestTracer()
+        self.weights_released = False  # LLM.release_memory: submit refused
 
         self._shutdown = threading.Event()
         self._wake = threading.Event()
@@ -172,11 +181,15 @@ class PyExecutor:
         if self._stop_scan is not None:
             self._stop_scan.close()
 
-    def call_between_steps(self, fn):
+    def call_between_steps(self, fn, drain: bool = True):
         """Run `fn` on the executor thread between two iterations and
-        return its result (a weight swap: no step sees part old, part new
-        weights).  Runs it here when the loop is not running."""
-        if self._thread is None:
+        return its result: a weight swap (no step sees part old, part new
+        weights), or a read of the host KV bookkeeping, which only this
+        thread mutates.  `drain` first applies the chunks in flight (a
+        read leaves the overlap pipeline running).  Runs `fn` here when
+        the loop is not running, or when this is the loop's thread."""
+        if self._thread is None or not self._thread.is_alive() \
+                or threading.current_thread() is self._thread:
             return fn()
         done, box = threading.Event(), {}
 
@@ -188,7 +201,7 @@ class PyExecutor:
             done.set()
 
         with self._submit_lock:
-            self._jobs.append(job)
+            self._jobs.append((job, drain))
         self._wake.set()
         while not done.wait(timeout=0.1):
             if self._thread is None or self._error is not None:
@@ -213,10 +226,39 @@ class PyExecutor:
         for r in requests:
             self._validate(r)
         with self._submit_lock:
+            # checked under the lock that `close_for_release` takes
+            if self.weights_released:
+                raise RuntimeError("model weights are released from device "
+                                   "memory; call resume_memory() first")
             for r in requests:
                 self.request_queue.put(r)
         self._wake.set()
         return requests
+
+    def close_for_release(self) -> None:
+        """Close the submit door (`weights_released`) if nothing is in
+        flight, else raise and leave it open.  A request that finished but
+        is still held for delivery is waited for (up to 5 s); one that is
+        queued, waiting or generating refuses the release."""
+        deadline = time.time() + 5.0
+        with self._submit_lock:
+            self.weights_released = True
+        try:
+            while True:
+                if any(not r.is_finished for r in self.active) \
+                        or self.waiting or not self.request_queue.empty():
+                    raise RuntimeError("cannot release weight memory with "
+                                       "requests in flight")
+                if not self.active and not self._inflight:
+                    return
+                if time.time() > deadline:
+                    raise RuntimeError("executor did not drain finished "
+                                       "requests in time")
+                self._wake.set()
+                time.sleep(0.01)
+        except Exception:
+            self.weights_released = False
+            raise
 
     def _validate(self, request: LlmRequest) -> None:
         if self._shutdown.is_set():
@@ -233,11 +275,16 @@ class PyExecutor:
         if bad:
             raise NotImplementedError(
                 "beam search is not in the port yet: " + ", ".join(bad))
+        V = self.guided.vocab_size
+        ids = request.prompt_token_ids
+        if min(ids) < 0 or max(ids) >= V:
+            # an index past the embedding table would end the loop (and,
+            # on the card, the device context): refused here
+            raise ValueError(f"prompt token ids must lie in [0, {V})")
         sp = request.sampling_params
         if sp.stop and self.tokenizer is None:
             raise ValueError("stop strings need a tokenizer (pass "
                              "tokenizer=, or use stop_token_ids)")
-        V = self.guided.vocab_size
         ids = ([sp.end_id] if sp.end_id is not None else []) + list(
             sp.stop_token_ids or []) + list(sp.logit_bias or ()) + [
             t for w in sp.bad_words or () for t in w]
@@ -336,10 +383,10 @@ class PyExecutor:
         t0 = time.perf_counter()
         with self._submit_lock:
             jobs, self._jobs = self._jobs, []
-        if jobs and self._inflight:
-            self._drain_inflight()       # no chunk spans a job
+        if self._inflight and any(drain for _, drain in jobs):
+            self._drain_inflight()       # no chunk spans a swap
             self._cleanup_finished()
-        for job in jobs:
+        for job, _ in jobs:
             job()
         self._fetch_new_requests()
         self._handle_cancellations()
@@ -729,6 +776,7 @@ class PyExecutor:
         """Append one token (`logp` its logprob, or a dict of top-N ones),
         advance the request's matcher and check its stops."""
         req.append_token(tok)
+        self.total_tokens_generated += 1
         if req.sampling_params.logprobs and logp is not None:
             req.logprobs.append(logp if isinstance(logp, dict)
                                 else {tok: logp})
@@ -805,6 +853,7 @@ class PyExecutor:
             self._forget(req)
             self.active.remove(req)
             self._done.append(req)
+            self.tracer.record_request(req)
 
     def get_stats(self) -> List[dict]:
         return [dataclasses.asdict(s) for s in self.stats_history]

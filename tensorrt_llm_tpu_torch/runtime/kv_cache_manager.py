@@ -28,13 +28,31 @@ pool ``[num_blocks, 1, block_size, index_head_dim]``), as in the JAX
 package.  The TPU's lane-packed view for head dims below 128, and its
 latent width rounded up to 640, are TPU layouts and are not kept.
 
-Not in this slice: beam forks, the host-memory tier and connector, KV
-events, VSWA rings and the DP/helix/star managers.
+KV events (JAX `kvCacheEventManager` feed of the ``/kv_cache_events``
+route): a bounded ring (`EVENT_RING` entries) of ``stored`` events, one per
+full block a sequence seals (``block_hash`` and ``parent_hash``, its
+predecessor's, 0 at the root), and ``removed`` events, one per cached
+block evicted from the device pool when no other device block carries its
+content.  Hashes are the JAX package's process-stable salted chain hash
+(`_whash`: FNV-1a over the parent hash and the block's tokens, the salt's
+SHA-256 mixed in), so a router can compare workers, and both backends feed
+it: the wrapper hashes, the backend reports evicted block ids
+(`drain_evictions`).  `get_events(since_id)`, `event_cursor()` and
+`reuse_block_hashes()` are JAX's.  One intended difference: a block sealed
+with content that another device block already caches (two sequences of
+one prefix in one batch) is not the reuse index's, so it carries no hash
+here; the JAX package counts it, and then never reports the content
+removed.
+
+Not in this slice: beam forks, the host-memory tier and connector (and so
+the eviction list's offload use), VSWA rings and the DP/helix/star
+managers.
 """
 
 from __future__ import annotations
 
 import collections
+import hashlib
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Tuple
 
@@ -124,6 +142,26 @@ def model_pools(cfg, num_blocks: int, block_size: int,
                       kv_quant=kv_quant, device=device, **pool_layout(cfg))
 
 
+EVENT_RING = 4096   # KV events kept for `get_events`
+
+
+def _stable_mix(h: int, v: int) -> int:
+    h ^= v & 0xFFFFFFFFFFFFFFFF
+    return (h * 0x100000001B3) & 0xFFFFFFFFFFFFFFFF
+
+
+def _whash(parent: int, chunk: tuple, salt) -> int:
+    """The JAX package's process-stable content chain hash (FNV-1a over
+    ints, the salt's SHA-256 mixed in), unlike Python's seeded `hash`."""
+    h = _stable_mix(0xCBF29CE484222325, parent)
+    for t in chunk:
+        h = _stable_mix(h, int(t))
+    if salt is not None:
+        d = hashlib.sha256(repr(salt).encode()).digest()
+        h = _stable_mix(h, int.from_bytes(d[:8], "little"))
+    return h
+
+
 # Default retention priority (the reference's KvCacheRetentionConfig,
 # executor.h:559): lower evicts first.
 DEFAULT_RETENTION_PRIORITY = 35
@@ -168,6 +206,8 @@ class _PyBookkeeping:
         self.num_partial_reused = 0
         self.num_allocated_blocks = 0
         self.num_evicted_blocks = 0
+        # block ids evicted from the reuse index since the last drain
+        self.pending_evictions: List[int] = []
 
     @staticmethod
     def _chain_hash(parent: int, tokens: tuple, salt) -> int:
@@ -196,11 +236,16 @@ class _PyBookkeeping:
                 self.block_hash[bid] = None
             self._forget_block(bid)
             self.num_evicted_blocks += 1
+            self.pending_evictions.append(bid)
         else:
             raise RuntimeError("KV cache out of blocks")
         self.ref_count[bid] = 1
         self.num_allocated_blocks += 1
         return bid
+
+    def drain_evictions(self) -> List[int]:
+        out, self.pending_evictions = self.pending_evictions, []
+        return out
 
     def _forget_block(self, bid: int):
         """Drop a block from the partial-reuse side index."""
@@ -469,6 +514,16 @@ class _NativeBookkeeping:
     def drop_cached_blocks(self):
         self._lib.tllm_kvbm_drop_cached(self._h)
 
+    def drain_evictions(self) -> List[int]:
+        out: List[int] = []
+        buf = np.zeros(256, np.int32)
+        ptr = buf.ctypes.data_as(self._pi32)
+        while True:
+            n = int(self._lib.tllm_kvbm_drain_evictions(self._h, ptr, 256))
+            out.extend(buf[:n].tolist())
+            if n < 256:
+                return out
+
     def match_prefix(self, token_ids, cache_salt=None,
                      partial: bool = False) -> int:
         _keep, ptr = self._tok_buf(token_ids)
@@ -568,6 +623,15 @@ class KVCacheManager:
         # (src, dst) page copies of copy-on-partial-reuse, taken by the
         # executor before the sequence's first prefill chunk
         self._partial_copies: Dict[int, List[tuple]] = {}
+        # KV events (module docstring)
+        self.events: collections.deque = collections.deque(maxlen=EVENT_RING)
+        self._next_event_id = 0
+        self._seq_chain: Dict[int, List[int]] = {}   # announced blocks
+        self._seq_reused: Dict[int, int] = {}        # full blocks matched
+        self._seq_salt: Dict[int, object] = {}
+        # the reuse index's blocks by chain hash, and the way back
+        self._block_whash: Dict[int, int] = {}
+        self._whash_block: Dict[int, int] = {}
 
     @property
     def is_native(self) -> bool:
@@ -616,6 +680,9 @@ class KVCacheManager:
         `enable_partial_reuse` the head of one more block.  Its page copy,
         if any, waits in `drain_partial_copies`."""
         matched = self._bk.add_sequence(seq_id, token_ids, cache_salt)
+        self._seq_salt[seq_id] = cache_salt
+        self._seq_chain[seq_id] = []
+        self._seq_reused[seq_id] = matched // self.block_size
         if self.cfg.enable_partial_reuse and self.cfg.enable_block_reuse:
             k, src, dst = self._bk.try_partial_match(
                 seq_id, token_ids, self.cfg.copy_on_partial_reuse)
@@ -624,6 +691,9 @@ class KVCacheManager:
                 if dst != src:
                     self._partial_copies.setdefault(seq_id, []).append(
                         (src, dst))
+                else:   # adopted in place: it left the reuse index
+                    self._forget_hash(src)
+                self._drain_evictions()
         return matched
 
     def drain_partial_copies(self, seq_id: int) -> List[tuple]:
@@ -638,18 +708,94 @@ class KVCacheManager:
 
     def grow_sequence(self, seq_id: int, new_total_tokens: int):
         self._bk.grow_sequence(seq_id, new_total_tokens)
+        self._drain_evictions()
 
     def seal_full_blocks(self, seq_id: int, token_ids: List[int]):
-        """Publish completed prompt blocks into the reuse index."""
+        """Publish completed prompt blocks into the reuse index, with a
+        ``stored`` event for each full block of the sequence not yet
+        announced (as the JAX package does, blocks it reused included)."""
         self._bk.seal_full_blocks(seq_id, token_ids)
+        if not self.cfg.enable_block_reuse:
+            return
+        bs = self.block_size
+        n_full = len(token_ids) // bs
+        chain = self._seq_chain[seq_id]
+        if len(chain) >= n_full:
+            return
+        table = self._bk.block_table(seq_id, n_full)
+        parent = chain[-1] if chain else 0
+        for b in range(len(chain), n_full):
+            h = _whash(parent, tuple(token_ids[b * bs:(b + 1) * bs]),
+                       self._seq_salt[seq_id])
+            self._event({"type": "stored", "block_hash": h,
+                         "parent_hash": parent})
+            # a reused block is the index's already; else the first
+            # writer of a content caches it
+            if b >= self._seq_reused[seq_id] and h not in self._whash_block:
+                self._block_whash[table[b]] = h
+                self._whash_block[h] = table[b]
+            chain.append(h)
+            parent = h
 
     def free_sequence(self, seq_id: int):
         self._partial_copies.pop(seq_id, None)
+        self._seq_chain.pop(seq_id, None)
+        self._seq_reused.pop(seq_id, None)
+        self._seq_salt.pop(seq_id, None)
         self._bk.free_sequence(seq_id)
 
     def drop_cached_blocks(self):
-        """Forget every reusable block (their KV came from other weights)."""
+        """Forget every reusable block (their KV came from other weights),
+        with a ``removed`` event for each."""
+        self._drain_evictions()
         self._bk.drop_cached_blocks()
+        for h in self._whash_block:
+            self._event({"type": "removed", "block_hash": h})
+        self._whash_block.clear()
+        self._block_whash.clear()
+
+    # ---- KV events -------------------------------------------------------
+    def _event(self, ev: dict):
+        self.events.append({"id": self._next_event_id, **ev})
+        self._next_event_id += 1
+
+    def _drain_evictions(self):
+        """A ``removed`` event for each block the backend evicted from the
+        reuse index (no other device block carries its hash: the first
+        writer of a content is the only one that caches it)."""
+        for bid in self._bk.drain_evictions():
+            self._forget_hash(bid)
+
+    def _forget_hash(self, bid: int):
+        h = self._block_whash.pop(bid, None)
+        if h is not None:
+            del self._whash_block[h]
+            self._event({"type": "removed", "block_hash": h})
+
+    def get_events(self, since_id: int = 0) -> List[dict]:
+        """Events with id >= since_id (the ring keeps the last
+        `EVENT_RING`)."""
+        return [e for e in self.events if e["id"] >= since_id]
+
+    def event_cursor(self) -> Tuple[int, int]:
+        """(next_since_id, oldest_retained_id): a client whose cursor is
+        below oldest_retained_id missed events and resyncs with
+        `reuse_block_hashes`."""
+        oldest = self.events[0]["id"] if self.events else self._next_event_id
+        return self._next_event_id, oldest
+
+    def reuse_block_hashes(self) -> List[int]:
+        """Every block chain hash matchable on the device right now."""
+        return list(self._whash_block)
+
+    def match_prefix(self, token_ids: List[int], cache_salt=None) -> int:
+        """Cached prefix tokens of a prospective prompt (no side effects):
+        whole blocks, then under partial reuse the head of one more."""
+        matched = self._bk.match_prefix(token_ids, cache_salt)
+        if self.cfg.enable_partial_reuse:
+            matched = max(matched, self._bk.match_prefix(
+                token_ids, cache_salt, partial=True))
+        return matched
 
     def block_table(self, seq_id: int, max_blocks: int) -> List[int]:
         return self._bk.block_table(seq_id, max_blocks)

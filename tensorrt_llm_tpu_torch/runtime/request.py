@@ -11,10 +11,12 @@ token's raw row (`generation_logits`), and the stop string that ended it.
 `truncate_output` cuts the outputs back to a stop-string match that the
 scan worker found after more tokens had been sampled; the next piece
 carries `truncate_to` so that a reader drops the tokens it already has past
-it.  `priority` in [0, 1] orders the waiting queue (higher first);
-`kv_retention_priority` is the retention priority of the blocks the request
-stores for reuse (None: the manager's default).  Disaggregated-serving and
-multimodal fields belong to later slices.
+it.  `listener`, when set, is called after each piece is queued (the
+server's wake-up, so no thread blocks on a stream).  `priority` in [0, 1]
+orders the waiting queue (higher first); `kv_retention_priority` is the
+retention priority of the blocks the request stores for reuse (None: the
+manager's default).  Disaggregated-serving and multimodal fields belong to
+later slices.
 """
 
 from __future__ import annotations
@@ -89,6 +91,9 @@ class LlmRequest:
         self._truncated_to: Optional[int] = None
 
         self.out_queue: "queue.Queue[RequestOutputPiece]" = queue.Queue()
+        # called (no arguments, on the executor thread) after each piece is
+        # queued: the server wakes its event loop with it
+        self.listener = None
         self._streamed = 0
 
         self.arrival_time = time.time()
@@ -185,3 +190,6 @@ class LlmRequest:
             request_id=self.request_id, new_token_ids=new, finished=finished,
             finish_reason=self.finish_reason if finished else None,
             error=error, truncate_to=self._truncated_to))
+        listener = self.listener
+        if listener is not None:
+            listener()
