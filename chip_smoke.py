@@ -90,7 +90,7 @@ Phases (any failure exits nonzero; nothing is caught and ignored):
    agree;
 17. `checkpoint`: `LLM(model=<HF checkpoint dir>)` on checkpoints the script
    writes with its own safetensors writer (it needs no `safetensors`
-   package): TinyLlama-1.1B at full width and depth in two bf16
+   package): TinyLlama-1.1B at full width, 4 layers deep, in two bf16
    shards, W4A16 group 128 at load; the same weights AWQ-packed with zeros,
    taken as stored; Moonlight-16B-A3B widths at 2 layers, W4A16 at load.
    Each is served with the serve mix and a byte-level tokenizer object
@@ -158,18 +158,27 @@ Phases (any failure exits nonzero; nothing is caught and ignored):
    per forward over the checks and the first HTTP run.  Last,
    `python -m tensorrt_llm_tpu_torch.commands.serve` on a 2-layer
    TinyLlama-width checkpoint in a subprocess: /health, one token-id
-   completion, exit 0 on SIGINT.
+   completion, exit 0 on SIGINT;
+22. `disagg` (run before `bench`): disaggregated serving, TinyLlama W4A16
+   at full width and depth as a context and a generation worker of one
+   process behind an `OpenAIDisaggServer` they register with, the serve
+   mix in the two-phase, stream_kv and conditional modes (tokens against
+   the generation worker's own batch, K3/K4 per worker per layer per
+   chunk or step, no K3 on the generation worker for a transferred prompt,
+   the context pool empty after each mode), the 600-token prompt's KV
+   frames against the context worker's prefill chunks, then the host KV
+   tier and a dict connector (`disagg_phase`).
 
 Depth cuts that keep the script in its time limit (widths unchanged): the
 bench presets (`BENCH_LAYERS`: Llama-3-8B and Llama-2-7B 4 layers,
 TinyLlama and GPT-OSS 8; each model runs at full depth in `sampling` /
-`openai`, `serve` and `gptoss`) and the W4A8 serve (`LLAMA3_W4A8_LAYERS`
-8).
+`openai`, `serve` and `gptoss`), the W4A8 serve (`LLAMA3_W4A8_LAYERS`
+8) and the `checkpoint` phase's TinyLlama (`CKPT_TINYLLAMA_LAYERS` 4).
 
 Arguments pick phases (default: check serve serve_ramp serve_stream
 fused_mlp cross llama3 gptoss gptoss_cross llama3_w4a8 llama3_w4a8_cross
 deepseek deepseek_v32 deepseek_v3_width deepseek_cross checkpoint sampling
-openai bench bench_cross);
+openai disagg bench bench_cross);
 `check_moe` runs
 only K5's checks, `check_w4a8` only K8's, `check_int8` only K6-K8's,
 `check_mla` only K9-K11's (with their plans' checks),
@@ -2769,6 +2778,7 @@ TINYLLAMA_HF = dict(
     attention_bias=False, bos_token_id=1, eos_token_id=2,
     torch_dtype="bfloat16")
 CKPT_AWQ_GROUP = 128
+CKPT_TINYLLAMA_LAYERS = 4   # the checkpoint phase's depth (full: 22)
 CKPT_TINYLLAMA_PATH = "ckpt_tinyllama"          # bf16 shards, W4A16 at load
 CKPT_TINYLLAMA_AWQ_PATH = "ckpt_tinyllama_awq"  # the same weights, AWQ
 CKPT_MOONLIGHT_PATH = "ckpt_moonlight"          # 2 layers, W4A16 at load
@@ -3104,8 +3114,8 @@ def _ckpt_checks(phase, path, quant_kw, tok):
 def checkpoint_phase(card, by_path):
     """`LLM(model=<HF checkpoint dir>)` on the card, from checkpoints this
     script writes (into a temporary directory, removed at the end):
-    TinyLlama-1.1B at full width and depth in two bf16 shards, loaded with
-    W4A16 group 128 at load; the same weights AWQ-packed with zeros, loaded
+    TinyLlama-1.1B at full width, `CKPT_TINYLLAMA_LAYERS` deep, in two bf16
+    shards, loaded with W4A16 group 128 at load; the same weights AWQ-packed with zeros, loaded
     as pre-quantized; Moonlight-16B-A3B widths at 2 layers (layer 0 dense,
     layer 1 64 experts top-6 and 2 shared), W4A16 at load.  Each is served
     with the serve mix and a `ByteTokenizer` object (`serve_model`, with
@@ -3128,15 +3138,17 @@ def checkpoint_phase(card, by_path):
     t_all = time.perf_counter()
     try:
         moon_hf = dict(MOONLIGHT_16B_A3B["hf_config"], num_hidden_layers=2)
+        n = CKPT_TINYLLAMA_LAYERS
+        tiny_hf = dict(TINYLLAMA_HF, num_hidden_layers=n)
         w4 = dict(quant_algo="W4A16", quant_group_size=128)
         gqa = ("w4a16_gemm", "flash_prefill", "paged_decode")
         runs = [
-            (CKPT_TINYLLAMA_PATH, "tinyllama", TINYLLAMA_HF, 0, w4,
-             "tinyllama-1.1b checkpoint (22 layers, bf16), W4A16 at load",
+            (CKPT_TINYLLAMA_PATH, "tinyllama", tiny_hf, 0, w4,
+             f"tinyllama-1.1b checkpoint ({n} layers, bf16), W4A16 at load",
              dict(required=gqa), True),
-            (CKPT_TINYLLAMA_AWQ_PATH, "tinyllama_awq", TINYLLAMA_HF,
+            (CKPT_TINYLLAMA_AWQ_PATH, "tinyllama_awq", tiny_hf,
              CKPT_AWQ_GROUP, {},
-             "tinyllama-1.1b checkpoint (22 layers), AWQ g128 with zeros",
+             f"tinyllama-1.1b checkpoint ({n} layers), AWQ g128 with zeros",
              dict(required=gqa), True),
             (CKPT_MOONLIGHT_PATH, "moonlight", moon_hf, 0, w4,
              "moonlight-16b-a3b widths checkpoint (2 layers), W4A16 at "
@@ -4489,6 +4501,376 @@ def openai_phase(card, by_path):
     log(f"[openai] phase took {out['seconds']:.1f} s ({card})")
 
 
+# ------------------------------------------------------ phase 22: disagg --
+DISAGG_PATH = "disagg"     # TinyLlama W4A16 disaggregated: K1-K4
+DISAGG_CHUNK = 128         # each worker's prefill chunk (token budget)
+DISAGG_BLOCKS = 640        # each worker's KV pool (explicit: two share a card)
+DISAGG_COND_MAX = 256      # conditional mode: these prompts skip the hop
+DISAGG_TIE = 0.02          # logit gap accepted at a greedy near-tie
+DISAGG_MIN_FRAMES = 4      # KV frames of the 600-token prompt, at least
+HOST_TIER_POOL = 32        # the host-tier LLM's device blocks: too few to
+HOST_TIER_HOST = 64        # keep the 300-token prefix across two fillers
+HOST_TIER_FILLER = 400     # tokens of each filler request
+
+
+def _disagg_prompts(V):
+    """The serve mix: 8 prompts of 17..600 tokens, two sharing a 300-token
+    prefix (`serve_model`'s, from the same seed)."""
+    import numpy as np
+    rng = np.random.default_rng(0)
+
+    def ids(n):
+        return [int(t) for t in rng.integers(10, V - 10, n)]
+
+    shared = ids(300)
+    return [shared + ids(20), shared + ids(45)] + [
+        ids(n) for n in (17, 64, 200, 333, 480, 600)]
+
+
+def _near_ties(llm, prompts, want, got):
+    """Requests whose tokens equal `want`, and for each other one its first
+    difference, a near-tie if both tokens lie within DISAGG_TIE of the top
+    of `llm`'s row there (teacher forced on `want`; a logprob gap is the
+    logit gap)."""
+    import tensorrt_llm_tpu_torch as T
+    exact, ties = 0, []
+    for p, a, b in zip(prompts, want, got):
+        assert len(a) == len(b), (len(a), len(b))
+        if a == b:
+            exact += 1
+            continue
+        i = next(i for i, (u, v) in enumerate(zip(a, b)) if u != v)
+        row = llm.generate([p + a[:i]], T.SamplingParams(
+            max_tokens=1, temperature=0.0, logprobs=20),
+            cache_salt="tie")[0].outputs[0].logprobs[0]
+        top = max(row.values())
+        ok = all(t in row and row[t] >= top - DISAGG_TIE
+                 for t in (a[i], b[i]))
+        ties.append({"position": i, "tokens": [a[i], b[i]],
+                     "logprobs": [row.get(a[i]), row.get(b[i])],
+                     "top": top, "near_tie": ok})
+    return exact, ties
+
+
+def _post_all(port, bodies):
+    """The bodies POSTed to /v1/completions at once; their JSON answers."""
+    import concurrent.futures as cf
+    with cf.ThreadPoolExecutor(len(bodies)) as pool:
+        return list(pool.map(
+            lambda b: _ok_json(port, "POST", "/v1/completions", b), bodies))
+
+
+def _disagg_mode(mode, front, fport, ctx, gen, prompts, want, L):
+    """One mode's run of the 8 prompts through the front end, with the
+    launches of each worker's executor thread counted apart."""
+    import torch
+    from tensorrt_llm_tpu_torch.ops import cuda_build
+    front.stream_kv = mode == "stream_kv"
+    front.conditional_max_prompt = (DISAGG_COND_MAX
+                                    if mode == "conditional" else 0)
+    bodies = [{"model": "tinyllama", "prompt": p, "prompt_token_ids": p,
+               "max_tokens": 64, "temperature": 0.0, "ignore_eos": True}
+              for p in prompts]
+    if mode == "conditional":
+        for b in bodies:
+            b["logprobs"] = 0      # a plain completion's tokens, as strings
+    for llm in (ctx, gen):      # each mode prefills from a cold cache
+        llm.read_kv(lambda kv: kv.drop_cached_blocks())
+    ic, ig = ctx.executor.iteration, gen.executor.iteration
+    torch.cuda.synchronize()
+    cuda_build.reset_launch_counts()
+    t0 = time.perf_counter()
+    outs = _post_all(fport, bodies)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    by_thread = {k: dict(v) for k, v in
+                 cuda_build.launch_counts_by_thread.items()}
+    total = dict(cuda_build.launch_counts)
+    cc = by_thread.get(ctx.executor._thread.ident, {})
+    cg = by_thread.get(gen.executor._thread.ident, {})
+    sc = [x for x in ctx.get_stats() if x["iteration"] > ic]
+    sg = [x for x in gen.get_stats() if x["iteration"] > ig]
+    chunks_c = sum(x["num_prefill_chunks"] for x in sc)
+    chunks_g = sum(x["num_prefill_chunks"] for x in sg)
+    steps_c = sum(x["decode_steps"] for x in sc)
+    steps_g = sum(x["decode_steps"] for x in sg)
+    got = []
+    for p, o in zip(prompts, outs):
+        ch = o["choices"][0]
+        assert ch["finish_reason"] == "length", ch
+        got.append(ch["token_ids"] if "token_ids" in ch else
+                   [int(t) for t in ch["logprobs"]["tokens"]])
+    kv = ctx.get_kv_cache_stats()
+    # the context pool holds no sequence and leaks no block
+    assert kv["active_sequences"] == 0, kv
+    assert kv["free_blocks"] + kv["evictable_blocks"] == \
+        ctx.kv_manager.num_blocks - 1, kv
+    # K3 on the context worker for every layer of every prefill chunk, no
+    # decode there; K4 on the generation worker every layer of every step
+    assert chunks_c > 0 and cc.get("flash_prefill", 0) == L * chunks_c, \
+        (cc, chunks_c)
+    assert steps_c == 0 and cc.get("paged_decode", 0) == 0, cc
+    assert steps_g > 0 and cg.get("paged_decode", 0) == L * steps_g, \
+        (cg, steps_g)
+    assert cg.get("flash_prefill", 0) == L * chunks_g, (cg, chunks_g)
+    short = [p for p in prompts if len(p) <= DISAGG_COND_MAX]
+    if mode == "conditional":
+        assert chunks_g > 0            # the short prompts prefill here
+        assert sum(x["num_prefill_tokens"] for x in sc) <= sum(
+            len(p) for p in prompts if p not in short)
+    else:
+        # the transferred prompts' KV was injected, not recomputed
+        assert chunks_g == 0 and cg.get("flash_prefill", 0) == 0, cg
+    for c in (cc, cg):
+        assert c.get("w4a16_gemm", 0) + c.get("w4a16_gemv", 0) > 0, c
+    exact, ties = _near_ties(gen, prompts, want, got)
+    res = {"mode": mode, "wall_s": wall, "exact_requests": exact,
+           "of": len(prompts), "first_differences": ties,
+           "ctx_prefill_chunks": chunks_c, "gen_prefill_chunks": chunks_g,
+           "gen_decode_steps": steps_g, "ctx_launches": cc,
+           "gen_launches": cg, "launches": total,
+           "ctx_prefill_tokens": sum(x["num_prefill_tokens"] for x in sc),
+           "gen_prefill_tokens": sum(x["num_prefill_tokens"] for x in sg),
+           "output_tokens_per_s": sum(len(t) for t in got) / wall}
+    log(json.dumps({"phase": DISAGG_PATH, **res}))
+    assert all(d["near_tie"] for d in ties), ties
+    return res, total
+
+
+def _disagg_overlap(front, fport, ctx, gen, prompt):
+    """The 600-token prompt alone in the stream_kv mode: its KV frames
+    (one a prefill chunk of DISAGG_CHUNK tokens) and the times each reaches
+    the generation worker (its handler reads the frame's bytes) and is
+    injected there, against the end of each of the context worker's
+    prefill chunks (synchronized)."""
+    import torch
+    from tensorrt_llm_tpu_torch.serve import disagg_server as ds
+    front.stream_kv, front.conditional_max_prompt = True, 0
+    marks = {"received": [], "injected": [], "chunk_end": []}
+    real_read = ds.frame_from_bytes
+    inject, prefill = gen.engine.inject_kv_blocks, ctx.engine.run_prefill
+
+    def read(data):
+        marks["received"].append(time.perf_counter())
+        return real_read(data)
+
+    def timed_inject(ids, layers):
+        marks["injected"].append(time.perf_counter())
+        return inject(ids, layers)
+
+    def timed_prefill(inputs):
+        out = prefill(inputs)
+        torch.cuda.synchronize()
+        marks["chunk_end"].append(time.perf_counter())
+        return out
+
+    ctx.read_kv(lambda kv: kv.drop_cached_blocks())   # a cold prefill
+    ds.frame_from_bytes = read
+    gen.engine.inject_kv_blocks = timed_inject
+    ctx.engine.run_prefill = timed_prefill
+    try:
+        out = _post_all(fport, [{
+            "model": "tinyllama", "prompt_token_ids": prompt,
+            "max_tokens": 8, "temperature": 0.0, "ignore_eos": True}])[0]
+    finally:
+        ds.frame_from_bytes = real_read
+        del gen.engine.inject_kv_blocks
+        del ctx.engine.run_prefill
+    frames = len(marks["injected"])      # KV frames; the end frame aside
+    last_chunk = max(marks["chunk_end"])
+    res = {"prompt_tokens": len(prompt), "kv_frames": frames,
+           "prefill_chunks": len(marks["chunk_end"]),
+           "first_frame_received_ms_before_last_chunk_end":
+               (last_chunk - marks["received"][0]) * 1e3,
+           "first_frame_injected_ms_before_last_chunk_end":
+               (last_chunk - marks["injected"][0]) * 1e3,
+           "tokens": out["choices"][0]["token_ids"]}
+    log(json.dumps({"phase": DISAGG_PATH + "_overlap", **res}))
+    assert frames >= DISAGG_MIN_FRAMES, res
+    assert marks["received"][0] < last_chunk, res
+    return res
+
+
+class _DictConnector:
+    """A `KvCacheConnector` over a dict (save / load / contains)."""
+
+    def __init__(self):
+        self.store = {}
+
+    def save(self, key, payload):
+        self.store[key] = payload
+
+    def load(self, key):
+        return self.store.get(key)
+
+    def contains(self, key):
+        return key in self.store
+
+
+def _host_tier(tier, cfg, kw, ref_llm, a_prompt, b_prompt, fillers, card):
+    """A device pool of HOST_TIER_POOL blocks, with a host tier of
+    HOST_TIER_HOST blocks (`tier` "host") or a dict connector and no host
+    tier ("connector"): prompt A (the 300-token prefix + 20), two fillers
+    that evict it, then B (the prefix + 45).  B must onboard the prefix's
+    18 full blocks and prefill only its tail, with the tokens of
+    `ref_llm` (a pool that keeps the prefix) on the same sequence."""
+    import torch
+    import tensorrt_llm_tpu_torch as T
+    bs = 16
+    extra = (dict(kv_host_cache_blocks=HOST_TIER_HOST) if tier == "host"
+             else dict(kv_connector=_DictConnector()))
+    llm = T.LLM(model=cfg, **dict(kw, kv_num_blocks=HOST_TIER_POOL), **extra)
+    sp = T.SamplingParams(max_tokens=64, temperature=0.0, ignore_eos=True)
+    fill = T.SamplingParams(max_tokens=8, temperature=0.0, ignore_eos=True)
+    kv = llm.kv_manager
+    spent = {"offload": 0.0, "onboard": 0.0}
+    extract, inject = kv._extract_fn, kv._inject_fn
+
+    def timed_extract(ids):
+        t0 = time.perf_counter()
+        out = extract(ids)                 # synchronous: a copy to the host
+        spent["offload"] += time.perf_counter() - t0
+        return out
+
+    def timed_inject(ids, layers):
+        t0 = time.perf_counter()
+        inject(ids, layers)
+        torch.cuda.synchronize()
+        spent["onboard"] += time.perf_counter() - t0
+
+    try:
+        kv.attach_block_io(timed_extract, timed_inject)
+        llm.generate([a_prompt], sp)
+        for f in fillers:
+            llm.generate([f], fill)
+        before = llm.get_kv_cache_stats()
+        it0 = llm.executor.iteration
+        out = llm.generate([b_prompt], sp)[0].outputs[0].token_ids
+        after = llm.get_kv_cache_stats()
+        tail = sum(x["num_prefill_tokens"] for x in llm.get_stats()
+                   if x["iteration"] > it0)
+    finally:
+        llm.shutdown()
+    onboarded = after["onboarded_blocks"] - before["onboarded_blocks"]
+    saved = (after["offloaded_blocks"] if tier == "host"
+             else after["connector_saves"])
+    ref = [ref_llm.generate([p], s, cache_salt=f"host_{tier}")
+           for p, s in [(a_prompt, sp)] + [(f, fill) for f in fillers]]
+    want = ref_llm.generate([b_prompt], sp, cache_salt=f"host_{tier}"
+                            )[0].outputs[0].token_ids
+    del ref
+    exact, ties = _near_ties(ref_llm, [b_prompt], [want], [out])
+    n_prefix = 300 // bs
+    res = {"tier": tier, "device_blocks": HOST_TIER_POOL,
+           "host_blocks": HOST_TIER_HOST if tier == "host" else 0,
+           "offloaded_or_saved": saved,
+           "onboarded_total": after["onboarded_blocks"],
+           "onboarded_by_b": onboarded, "prefill_tokens_of_b": tail,
+           "ms_per_offloaded_block": spent["offload"] * 1e3 / max(saved, 1),
+           "ms_per_onboarded_block":
+               spent["onboard"] * 1e3 / max(after["onboarded_blocks"], 1),
+           "block_bytes": kv.num_layers * 2 * kv.num_kv_heads * bs
+           * kv.head_dim * 2, "kv": after, "exact": exact,
+           "first_differences": ties, "card": card}
+    if tier == "connector":
+        res["connector_loads"] = after["connector_loads"]
+        assert after["connector_saves"] > 0 and after["connector_loads"] > 0
+    log(json.dumps({"phase": DISAGG_PATH + "_" + tier, **res}))
+    assert saved > 0 and after["onboarded_blocks"] > 0, res
+    assert onboarded >= n_prefix, res
+    assert tail == len(b_prompt) - onboarded * bs, res   # only the tail
+    assert all(d["near_tie"] for d in ties), ties
+    return res
+
+
+def disagg_phase(card, by_path):
+    """Phase 22: disaggregated serving on the card.  TinyLlama W4A16 at full
+    width and depth (random weights, seed 0) as a context worker and a
+    generation worker in this process, each an `LLM` with DISAGG_BLOCKS
+    blocks behind an `OpenAIServer` on 127.0.0.1 that registers
+    (`register_to`) with an `OpenAIDisaggServer`.  The serve mix (8 greedy
+    prompts of 17..600 tokens, 64 new) goes through the front end in the
+    two-phase, stream_kv and conditional modes (`_disagg_mode`): tokens
+    equal the generation worker's own `generate` of the prompts (or first
+    differ at a near-tie); the context pool is empty after each mode; the
+    generation worker launches no K3 for a transferred prompt and K4 for
+    every layer of every decode step, the context worker K3 for every layer
+    of every prefill chunk.  The 600-token prompt alone sends at least
+    DISAGG_MIN_FRAMES frames, the first received before the last prefill
+    chunk ends (`_disagg_overlap`).  Then the host tier and the connector
+    on a third and a fourth TinyLlama `LLM` (`_host_tier`)."""
+    import numpy as np
+    import torch
+    import tensorrt_llm_tpu_torch as T
+    from tensorrt_llm_tpu_torch.serve.disagg_server import OpenAIDisaggServer
+    from tensorrt_llm_tpu_torch.serve.openai_server import OpenAIServer
+    t_all = time.perf_counter()
+    cfg = w4a16_cfg(TINYLLAMA)
+    L = cfg.num_layers
+    kw = dict(skip_tokenizer_init=True, device=DEVICE, max_batch_size=4,
+              max_num_tokens=DISAGG_CHUNK, max_seq_len=1024,
+              kv_block_size=16, kv_num_blocks=DISAGG_BLOCKS, seed=0)
+    front = OpenAIDisaggServer([], [], "round_robin",
+                               model_name="tinyllama", health_interval=0)
+    fs = front.start_in_thread()
+    furl = f"http://127.0.0.1:{fs.port}"
+    t0 = time.perf_counter()
+    ctx = T.LLM(model=cfg, **kw)
+    gen = T.LLM(model=cfg, **kw)
+    build_s = time.perf_counter() - t0
+    workers = [OpenAIServer(ctx, "tinyllama", register_to=furl,
+                            disagg_role="context").start_in_thread(),
+               OpenAIServer(gen, "tinyllama", register_to=furl,
+                            disagg_role="generation").start_in_thread()]
+    summary = {"phase": DISAGG_PATH, "card": card, "build_s": build_s,
+               "layers": L}
+    total = {}
+    try:
+        assert front.ctx_pool.urls == [
+            f"http://127.0.0.1:{workers[0].port}"], front.ctx_pool.urls
+        assert front.gen_pool.urls == [
+            f"http://127.0.0.1:{workers[1].port}"], front.gen_pool.urls
+        prompts = _disagg_prompts(cfg.vocab_size)
+        sp = T.SamplingParams(max_tokens=64, temperature=0.0,
+                              ignore_eos=True)
+        t0 = time.perf_counter()
+        want = [o.outputs[0].token_ids for o in gen.generate(prompts, sp)]
+        torch.cuda.synchronize()
+        summary["single_instance_wall_s"] = time.perf_counter() - t0
+        modes = []
+        for mode in ("two_phase", "stream_kv", "conditional"):
+            res, counts = _disagg_mode(mode, front, fs.port, ctx, gen,
+                                       prompts, want, L)
+            modes.append(res)
+            for k, v in counts.items():
+                total[k] = total.get(k, 0) + v
+        summary["modes"] = modes
+        summary["overlap"] = _disagg_overlap(front, fs.port, ctx, gen,
+                                             prompts[-1])
+        V = cfg.vocab_size
+        rng = np.random.default_rng(1)
+        fillers = [[int(t) for t in rng.integers(10, V - 10,
+                                                 HOST_TIER_FILLER)]
+                   for _ in range(2)]
+        summary["host_tier"] = [
+            _host_tier(tier, cfg, kw, gen, prompts[0], prompts[1], fillers,
+                       card) for tier in ("host", "connector")]
+    finally:
+        for w in workers:
+            w.stop()
+        fs.stop()
+        ctx.shutdown()
+        gen.shutdown()
+    assert front.ctx_pool.urls == [] and front.gen_pool.urls == []
+    summary["launches"] = total
+    summary["seconds"] = time.perf_counter() - t_all
+    PHASES[DISAGG_PATH] = summary
+    by_path[DISAGG_PATH] = total
+    log(f"[disagg] phase took {summary['seconds']:.1f} s ({card})")
+    del ctx, gen
+    torch.cuda.empty_cache()
+
+
 SERVE_PATH = "serve"                    # TinyLlama W4A16: K1-K4, K13
 GPT_OSS_PATH = "serve_gpt_oss"          # GPT-OSS-20B: K1, K3-K5, K12
 LLAMA3_W4A8_PATH = "serve_llama3_w4a8"  # slice 3's path: K6-K8 run there
@@ -4657,7 +5039,7 @@ def main() -> int:
                       "gptoss_cross", "llama3_w4a8", "llama3_w4a8_cross",
                       "deepseek", "deepseek_v32", "deepseek_v3_width",
                       "deepseek_cross", "checkpoint", "sampling", "openai",
-                      "bench", "bench_cross"]
+                      "disagg", "bench", "bench_cross"]
     by_path = {}      # each serve path's own launch counts
     try:
         run_phases(phases, card, gen, dev, by_path)
@@ -4786,6 +5168,8 @@ def run_phases(phases, card, gen, dev, by_path):
         sampling_phase(card, by_path)
     if "openai" in phases:
         openai_phase(card, by_path)
+    if "disagg" in phases:
+        disagg_phase(card, by_path)
     if "bench" in phases:
         bench_phase(card, gen, dev, by_path)
     if "bench_cross" in phases:

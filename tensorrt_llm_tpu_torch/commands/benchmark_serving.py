@@ -2,8 +2,9 @@
 
 Counterpart of `tensorrt_llm_tpu/commands/benchmark_serving.py` (the
 reference's online load generator, `serve/scripts/benchmark_serving.py`),
-with its flags and metric set: a client on `asyncio` streams (the JAX
-client is aiohttp's, which the card's machine does not have) drives a
+with its flags and metric set: a client on `asyncio` streams
+(`serve/http_client.py`; the JAX client is aiohttp's, which the card's
+machine does not have) drives a
 running OpenAI server with Poisson (gamma-burstiness) arrivals, bounded
 concurrency and synthetic or JSONL-dataset requests, and reports
 request/output/total token throughput, goodput, and mean/median/std/
@@ -27,9 +28,9 @@ import random
 import time
 from dataclasses import dataclass, field
 from typing import List, Optional
-from urllib.parse import urlsplit
-
 import numpy as np
+
+from tensorrt_llm_tpu_torch.serve.http_client import ClientError, ClientSession
 
 
 @dataclass
@@ -91,59 +92,20 @@ async def post_stream(url: str, body: dict):
     """POST `body` as JSON to `url`; an async generator of the response's
     lines (bytes, without the line end) as they arrive.  Raises
     `HTTPStatusError` for a status other than 200."""
-    u = urlsplit(url)
-    reader, writer = await asyncio.open_connection(u.hostname, u.port or 80)
-    try:
-        data = json.dumps(body).encode()
-        path = u.path + (f"?{u.query}" if u.query else "")
-        writer.write(
-            f"POST {path} HTTP/1.1\r\nHost: {u.netloc}\r\n"
-            "Content-Type: application/json\r\n"
-            f"Content-Length: {len(data)}\r\nConnection: close\r\n\r\n"
-            .encode() + data)
-        await writer.drain()
-        status = int((await reader.readline()).split()[1])
-        headers = {}
-        while True:
-            h = await reader.readline()
-            if h in (b"\r\n", b"\n", b""):
-                break
-            k, _, v = h.decode("latin-1").partition(":")
-            headers[k.strip().lower()] = v.strip()
-        chunked = "chunked" in headers.get("transfer-encoding", "").lower()
-
-        async def pieces():
-            if chunked:
-                while True:
-                    n = int((await reader.readline()).split(b";")[0], 16)
-                    if n == 0:
-                        return
-                    yield await reader.readexactly(n)
-                    await reader.readline()
-            elif "content-length" in headers:
-                yield await reader.readexactly(
-                    int(headers["content-length"]))
-            else:
-                while True:
-                    b = await reader.read(65536)
-                    if not b:
-                        return
-                    yield b
-
-        if status != 200:
-            rest = b"".join([b async for b in pieces()])
+    async with ClientSession() as session:
+        r = await session.post(url, json=body)
+        if r.status != 200:
+            rest = await r.read()
             raise HTTPStatusError(
-                f"HTTP {status}: {rest.decode(errors='replace')[:200]}")
+                f"HTTP {r.status}: {rest.decode(errors='replace')[:200]}")
         buf = b""
-        async for b in pieces():
+        async for b in r.iter_chunks():
             buf += b
             *lines, buf = buf.split(b"\n")
             for line in lines:
                 yield line
         if buf:
             yield buf
-    finally:
-        writer.close()
 
 
 async def one_request(args, req) -> RequestResult:
@@ -188,7 +150,7 @@ async def one_request(args, req) -> RequestResult:
         res.output_tokens = req["output_len"] if res.success else 0
     except HTTPStatusError as e:
         res.error = str(e)
-    except (OSError, ValueError, IndexError,
+    except (OSError, ValueError, IndexError, ClientError,
             asyncio.IncompleteReadError) as e:
         res.error = str(e) or type(e).__name__
     return res

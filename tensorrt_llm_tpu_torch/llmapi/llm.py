@@ -53,8 +53,19 @@ back on the device, at new addresses, which every layer reads at its next
 call (nothing in the port keeps a weight's pointer).  The futures' pieces
 can be read without a blocked thread: `GenerationFuture.fold` /
 `stream_fold` turn the pieces of `req.out_queue` into `RequestOutput`s, and
-`LlmRequest.listener` is called after each piece is queued.  LoRA and beam
-search belong to later slices.
+`LlmRequest.listener` is called after each piece is queued.
+
+Disaggregated serving (JAX `llmapi/llm.py:575-580, 705-732`):
+`generate_async(..., disaggregated_params=)` submits a ``context_only``
+request (its sampling parameters copied with ``max_tokens=1``) or a
+``generation_only`` one, whose whole payload is checked against the pools
+at submit (ValueError: `ModelEngine.check_kv_layers`).
+`generate_context_only` returns the first token and the
+`DisaggregatedParams` a decode worker takes; `generate_context_only_streamed`
+returns the future and the queue its KV frames appear on while the prefill
+still runs.  The host KV tier and the connector are the `LlmArgs` fields
+`kv_host_cache_blocks`, `kv_secondary_offload_min_priority` and
+`kv_connector`.  LoRA and beam search belong to later slices.
 """
 
 from __future__ import annotations
@@ -71,6 +82,7 @@ import numpy as np
 import torch
 
 from tensorrt_llm_tpu_torch.llmapi.detokenizer import IncrementalDetokenizer
+from tensorrt_llm_tpu_torch.llmapi.disagg_params import DisaggregatedParams
 from tensorrt_llm_tpu_torch.llmapi.hf_checkpoint import (
     SafetensorsReader, has_weights, read_hf_config)
 from tensorrt_llm_tpu_torch.llmapi.llm_args import LlmArgs
@@ -311,22 +323,74 @@ class LLM:
                        streaming: bool = False,
                        cache_salt: Optional[str] = None,
                        kv_retention_priority: Optional[int] = None,
-                       priority: float = 0.5) -> "GenerationFuture":
+                       priority: float = 0.5,
+                       disaggregated_params: Optional[
+                           DisaggregatedParams] = None
+                       ) -> "GenerationFuture":
         """Submit one prompt (text or token ids).  The future's `result()`
         gives the whole output; iterating it streams the pieces
         (`streaming` is the JAX API's flag: the future is iterable either
         way).  `priority` in [0, 1] orders the waiting queue (higher
         first); `kv_retention_priority` is the retention priority of the
         blocks the request stores for reuse (lower evicts first).  With
-        ``n > 1`` the future is a `_FanoutFuture` (no streaming)."""
+        ``n > 1`` the future is a `_FanoutFuture` (no streaming).
+        `disaggregated_params` makes it a context-only or generation-only
+        request (module docstring)."""
         sp = sampling_params or SamplingParams()
         if sp.n > 1 and not sp.use_beam_search and streaming:
             raise ValueError("streaming with n > 1 is not supported; use n "
                              "futures or beam search")
-        fut = self._fanout(prompt, sp, cache_salt, kv_retention_priority,
-                           priority)
+        dp = disaggregated_params
+        if dp is not None:
+            if dp.request_type not in ("context_only", "generation_only"):
+                raise ValueError(f"request_type {dp.request_type!r}: "
+                                 "'context_only' or 'generation_only'")
+            if sp.n > 1:
+                raise ValueError("a disaggregated request takes n = 1")
+            if dp.request_type == "context_only":
+                # a copy: the caller's params may serve other requests
+                sp = dataclasses.replace(sp, max_tokens=1)
+            elif dp.kv_frames is None:
+                if dp.kv_payload is None or not dp.first_gen_tokens:
+                    raise ValueError("a generation-only request needs "
+                                     "kv_payload and first_gen_tokens, or "
+                                     "kv_frames")
+                self.engine.check_kv_layers(dp.kv_payload["layers"])
+            fut = self._future(prompt, sp, cache_salt,
+                               kv_retention_priority, priority, dp)
+        else:
+            fut = self._fanout(prompt, sp, cache_salt, kv_retention_priority,
+                               priority)
         self.executor.submit_many(fut.requests)
         return fut
+
+    def generate_context_only(self, prompt, sampling_params=None):
+        """The context phase of a disaggregated request: (the output with
+        its first token, the `DisaggregatedParams` of the generation
+        phase, carrying that token and the prompt's KV pages)."""
+        fut = self.generate_async(
+            prompt, sampling_params, disaggregated_params=DisaggregatedParams(
+                request_type="context_only"))
+        out = fut.result()
+        if fut.req.kv_payload is None:
+            raise RuntimeError("context phase ended without its KV "
+                               f"({out.outputs[0].finish_reason})")
+        return out, DisaggregatedParams(
+            request_type="generation_only",
+            first_gen_tokens=list(out.outputs[0].token_ids),
+            kv_payload=fut.req.kv_payload)
+
+    def generate_context_only_streamed(self, prompt, sampling_params=None):
+        """The streamed context phase: (future, frame queue).  KV frames
+        appear on the queue while later prefill chunks still run; the
+        stream ends with ``{"end": True, "first_gen_tokens": [...], ...}``
+        (or ``{"end": True, "error": ...}``).  A decode worker takes the
+        frames through ``DisaggregatedParams(kv_frames=...)``, or over the
+        wire through `frame_to_bytes`."""
+        fut = self.generate_async(
+            prompt, sampling_params, disaggregated_params=DisaggregatedParams(
+                request_type="context_only", stream=True))
+        return fut, fut.req.kv_stream
 
     def _fanout(self, prompt, sp: SamplingParams, cache_salt,
                 kv_retention_priority: Optional[int] = None,
@@ -345,7 +409,9 @@ class LLM:
 
     def _future(self, prompt, sampling_params, cache_salt,
                 kv_retention_priority: Optional[int] = None,
-                priority: float = 0.5) -> "GenerationFuture":
+                priority: float = 0.5,
+                disagg: Optional[DisaggregatedParams] = None
+                ) -> "GenerationFuture":
         text = None
         if isinstance(prompt, str):
             if self._tokenizer is None:
@@ -358,7 +424,10 @@ class LLM:
                          cache_salt=(None if cache_salt is None
                                      else f"user:{cache_salt}"),
                          kv_retention_priority=kv_retention_priority,
-                         priority=priority)
+                         priority=priority,
+                         request_type=("full" if disagg is None
+                                       else disagg.request_type),
+                         disagg_params=disagg)
         return GenerationFuture(self, req, text)
 
     def read_kv(self, fn):

@@ -12,8 +12,9 @@ the TPU only.  The scheduler's fields (`scheduler_policy`,
 `enable_chunked_prefill`, `batch_wait_*`), the overlap
 pipeline's (`disable_overlap_scheduler`, `overlap_depth`: JAX's defaults,
 overlap on at depth 4) and the KV cache's (`enable_partial_reuse`,
-`copy_on_partial_reuse`, `kv_bookkeeping`: "native" or "python") carry the
-JAX package's names.  `quant_clip_search` and `lora_path` are fields of the JAX
+`copy_on_partial_reuse`, `kv_bookkeeping`: "native" or "python", and the
+host tier's `kv_host_cache_blocks`, `kv_secondary_offload_min_priority` and
+`kv_connector`) carry the JAX package's names.  `quant_clip_search` and `lora_path` are fields of the JAX
 package that the port refuses when set."""
 
 from __future__ import annotations
@@ -55,6 +56,12 @@ class LlmArgs:
     copy_on_partial_reuse: bool = True
     kv_bookkeeping: str = "native"     # "native" (C++) | "python"
     kv_cache_quant: str = "NONE"       # "INT8": int8 pages + f32 scales
+    # host-memory tier for evicted reuse blocks (0: off), the least
+    # retention priority it takes, and an external store with
+    # save/load/contains (`runtime.kv_cache_manager.KvCacheConnector`)
+    kv_host_cache_blocks: int = 0
+    kv_secondary_offload_min_priority: Optional[int] = None
+    kv_connector: Optional[Any] = None
 
     # scheduler
     scheduler_policy: str = "guaranteed_no_evict"
@@ -108,7 +115,11 @@ class LlmArgs:
                              copy_on_partial_reuse=self.copy_on_partial_reuse,
                              bookkeeping=self.kv_bookkeeping,
                              kv_quant=KvCacheQuantAlgo(self.kv_cache_quant),
-                             layout=layout, dsa_index_dim=dsa_index_dim)
+                             layout=layout, dsa_index_dim=dsa_index_dim,
+                             host_cache_blocks=self.kv_host_cache_blocks,
+                             secondary_offload_min_priority=(
+                                 self.kv_secondary_offload_min_priority),
+                             kv_connector=self.kv_connector)
 
     def make_scheduler_config(self) -> SchedulerConfig:
         return SchedulerConfig(

@@ -13,8 +13,10 @@ beside the library (`<source>.log`), so that a run that loads an existing
 build still reads what ptxas said (`build_logs`, `serialized_wgmma`).
 
 Every wrapper that launches one of these kernels adds one to its entry in
-`launch_counts`; the chip check reads the counts to prove the main path ran
-through the kernels.
+`launch_counts` (`count_launch`, under a lock, also into the launching
+thread's own counter in `launch_counts_by_thread`: two engines of one
+process, each on its executor thread, are counted apart); the chip check
+reads the counts to prove the main path ran through the kernels.
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 import time
 from pathlib import Path
 from typing import Optional
@@ -39,6 +42,10 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 # kernel name -> launches through its wrapper since the last reset
 launch_counts: "collections.Counter[str]" = collections.Counter()
+# thread ident -> kernel name -> launches from that thread
+launch_counts_by_thread: "collections.defaultdict" = \
+    collections.defaultdict(collections.Counter)
+_count_lock = threading.Lock()
 
 _lib: Optional[ctypes.CDLL] = None
 last_build_seconds: Optional[float] = None
@@ -114,8 +121,17 @@ _SIGNATURES = {
 }
 
 
+def count_launch(name: str) -> None:
+    """One launch of kernel `name`, by the calling thread."""
+    with _count_lock:
+        launch_counts[name] += 1
+        launch_counts_by_thread[threading.get_ident()][name] += 1
+
+
 def reset_launch_counts() -> None:
-    launch_counts.clear()
+    with _count_lock:
+        launch_counts.clear()
+        launch_counts_by_thread.clear()
 
 
 def find_nvcc() -> str:

@@ -176,7 +176,7 @@ def dsa_scores(q_idx: torch.Tensor, weights: torch.Tensor,
         cuda_build.ptr(kv_lens), cuda_build.ptr(out), B, Hi, Di, NB, BS, MB,
         int(tiles_per_block), cuda_build.stream_of(q_idx))
     cuda_build.check(err, "dsa_score")
-    cuda_build.launch_counts["dsa_score"] += 1
+    cuda_build.count_launch("dsa_score")
     return out
 
 

@@ -112,5 +112,5 @@ def flash_prefill_attention(q: torch.Tensor, k_cache, v_cache,
         float(scale), int(sliding_window or 0), float(logit_cap or 0.0),
         cuda_build.stream_of(q))
     cuda_build.check(err, name)
-    cuda_build.launch_counts[name] += 1
+    cuda_build.count_launch(name)
     return out

@@ -288,7 +288,7 @@ def mla_decode_attention(q_eff: torch.Tensor, cache: torch.Tensor,
         cuda_build.ptr(out), B, H, L, DK, NB, BS, MB, float(scale), n_splits,
         split_len, cuda_build.stream_of(q_eff))
     cuda_build.check(err, "mla_decode")
-    cuda_build.launch_counts["mla_decode"] += 1
+    cuda_build.count_launch("mla_decode")
     return out
 
 
@@ -337,5 +337,5 @@ def mla_prefill_attention(q_eff: torch.Tensor, cache: torch.Tensor,
         T, H, L, DK, NB, BS, MB, kv_len, int(q_offset), float(scale),
         n_splits, split_len, cuda_build.stream_of(q_eff))
     cuda_build.check(err, "mla_prefill")
-    cuda_build.launch_counts["mla_prefill"] += 1
+    cuda_build.count_launch("mla_prefill")
     return out

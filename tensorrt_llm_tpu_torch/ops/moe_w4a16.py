@@ -326,7 +326,7 @@ def gmm_work_units(group_sizes: torch.Tensor, M: int,
         cuda_build.ptr(group_sizes), cuda_build.ptr(units), M, E, ntok,
         bound, cuda_build.stream_of(group_sizes))
     cuda_build.check(err, "moe_gmm_units")
-    cuda_build.launch_counts["moe_gmm_units"] += 1
+    cuda_build.count_launch("moe_gmm_units")
     return units
 
 
@@ -356,7 +356,7 @@ def moe_gmm(xs: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor,
         M, N, K, G, E, bn, plan["ntok"], plan["n_ct"], plan["grid"],
         cuda_build.stream_of(xs))
     cuda_build.check(err, "moe_gmm")
-    cuda_build.launch_counts["moe_gmm"] += 1
+    cuda_build.count_launch("moe_gmm")
     return out
 
 

@@ -184,5 +184,5 @@ def paged_decode_attention(q: torch.Tensor, k_cache, v_cache,
         n_splits, split_len, split_grid(MB * BS, split_len, sliding_window),
         cuda_build.stream_of(q))
     cuda_build.check(err, name)
-    cuda_build.launch_counts[name] += 1
+    cuda_build.count_launch(name)
     return out

@@ -413,7 +413,7 @@ def fused_mlp_launch(x, gu_packed, gu_scales, down_packed, down_scales,
         _ACT_CODE[activation], plan["ctw"], plan["ntt"], plan["cluster"],
         plan["sa"], plan["sb"], grid, cuda_build.stream_of(x))
     cuda_build.check(err, "w4a16_fused_mlp")
-    cuda_build.launch_counts["w4a16_fused_mlp"] += 1
+    cuda_build.count_launch("w4a16_fused_mlp")
     return out, plan, stats
 
 

@@ -532,7 +532,7 @@ def w4a16_gemm(x: torch.Tensor, packed3: torch.Tensor, scales: torch.Tensor,
         _c_ints(plan["stage_start"]), n_sl, plan["grid"], plan["variant"],
         cuda_build.stream_of(x))
     cuda_build.check(err, "w4a16_gemm")
-    cuda_build.launch_counts["w4a16_gemm"] += 1
+    cuda_build.count_launch("w4a16_gemm")
     return out
 
 
@@ -627,7 +627,7 @@ def w4a16_gemv(x: torch.Tensor, packed3: torch.Tensor, scales: torch.Tensor,
         N, K, G, bn, _ACT_CODE[activation], plan["ctw"], plan["slices"],
         cuda_build.stream_of(x))
     cuda_build.check(err, "w4a16_gemv")
-    cuda_build.launch_counts["w4a16_gemv"] += 1
+    cuda_build.count_launch("w4a16_gemv")
     return out
 
 
@@ -676,7 +676,7 @@ def w4a16_kpaired(x: torch.Tensor, packed2: torch.Tensor,
         plan["ntok"], plan["n_mb"], plan["n_ct"], starts, n_sl, plan["grid"],
         cuda_build.stream_of(x))
     cuda_build.check(err, "w4a16_kpaired")
-    cuda_build.launch_counts["w4a16_kpaired"] += 1
+    cuda_build.count_launch("w4a16_kpaired")
     return out
 
 
@@ -734,7 +734,7 @@ def w4a16_ramp(x: torch.Tensor, packed3: torch.Tensor, scales: torch.Tensor,
         plan["ntok"], plan["n_mb"], plan["n_ct"], starts, n_sl, plan["grid"],
         cuda_build.stream_of(x))
     cuda_build.check(err, "w4a16_ramp")
-    cuda_build.launch_counts["w4a16_ramp"] += 1
+    cuda_build.count_launch("w4a16_ramp")
     return out
 
 
@@ -928,9 +928,9 @@ def w4a8_gemm(xq: torch.Tensor, s_act: torch.Tensor, packed: torch.Tensor,
         plan["n_mb"], plan["n_ct"], _c_ints(plan["stage_start"]), n_sl,
         plan["grid"], cuda_build.stream_of(xq))
     cuda_build.check(err, "w4a8_gemm")
-    cuda_build.launch_counts["w4a8_gemm"] += 1
+    cuda_build.count_launch("w4a8_gemm")
     if n_sl > 1:
-        cuda_build.launch_counts["w4a8_combine"] += 1
+        cuda_build.count_launch("w4a8_combine")
     return out
 
 

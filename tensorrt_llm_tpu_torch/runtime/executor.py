@@ -60,10 +60,32 @@ Each request freed at the end of its run leaves a trace record
 `tracer`.  `weights_released` (set by `LLM.release_memory`) closes the
 submit door until the weights are back.
 
-Not in this slice: disaggregated serving and its receive path, speculative
-and beam decoding, multi-host lockstep.  The JAX package's faults listed
-in ROADMAP Queue C are not copied: a request's failure ends only that
-request, and shutdown resolves every request still held.
+Disaggregated serving (JAX `_admit_generation_only`, `_pump_kv_receive`,
+`_pump_kv_stream`): a ``context_only`` request's KV pages are captured when
+its first token is sampled, before the request reads as finished
+(`_send_context`): a whole payload on `req.kv_payload`, or with a frame
+queue (`req.kv_stream`) the blocks not yet sent and an end frame carrying
+the first token; frames of the full blocks of each prefill chunk leave as
+the chunk ends, so the transfer overlaps the remaining prefill.  A
+context-only request is not freed while a chunk in flight still writes it
+(`_virtual`).  A ``generation_only`` request bypasses the scheduler: it is
+admitted when the pool holds its prompt (`_gen_queue`), into blocks of a
+private salt (``__disagg_<id>``, so transferred pages never alias another
+sequence's cached blocks), then its pages are injected, whole or frame by
+frame as they arrive (`_receiving`), and it enters generation with its
+first token appended as if sampled here: penalty counts, seeded noise
+positions and the stop-string scan then see the prompt plus that token, as
+on a single instance.  Unlike the JAX executor: shutdown resolves every
+request still receiving with an error; a receiving request keeps the loop
+and `close_for_release` from counting the executor idle; a receive that
+has no end frame within `RECEIVE_DEADLINE_S` (the JAX server's 600 s) ends
+with an error; and a context-only request that fails puts an error frame
+on its stream.
+
+Not in this slice: speculative and beam decoding, multi-host lockstep and
+VSWA ring frames.  The JAX package's faults listed in ROADMAP Queue C are
+not copied: a request's failure ends only that request, and shutdown
+resolves every request still held.
 """
 
 from __future__ import annotations
@@ -80,6 +102,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from tensorrt_llm_tpu_torch.llmapi.disagg_params import leaves
 from tensorrt_llm_tpu_torch.llmapi.tracing import RequestTracer
 from tensorrt_llm_tpu_torch.runtime.guided_decoder import (
     GuidedDecoder, create_matcher)
@@ -95,6 +118,7 @@ from tensorrt_llm_tpu_torch.utils import logger, upload
 
 STATS_KEPT = 1000   # iterations of stats the executor keeps
 CANCEL_GRACE = 3    # iterations an unmatched cancel waits for its request
+RECEIVE_DEADLINE_S = 600.0   # a streamed KV receive's end frame, at most
 
 
 @dataclass
@@ -120,6 +144,9 @@ class PyExecutor:
                  batched_logits_processor=None):
         self.engine = engine
         self.kv = engine.kv_manager
+        # the host KV tier moves blocks with the disaggregated page copies
+        self.kv.attach_block_io(engine.extract_kv_blocks,
+                                engine.inject_kv_blocks)
         self.scheduler = Scheduler(scheduler_cfg or SchedulerConfig(), self.kv)
         self.eos_token_id = eos_token_id
         self.max_seq_len = max_seq_len
@@ -150,6 +177,10 @@ class PyExecutor:
         self.request_queue: "queue.Queue[LlmRequest]" = queue.Queue()
         self.active: List[LlmRequest] = []
         self.waiting: List[LlmRequest] = []
+        # generation_only requests not yet admitted, and those admitted
+        # whose streamed KV frames are still arriving
+        self._gen_queue: List[LlmRequest] = []
+        self._receiving: List[LlmRequest] = []
         self._submit_lock = threading.Lock()
         self.iteration = 0
         self.stats_history: List[IterationStats] = []
@@ -246,7 +277,8 @@ class PyExecutor:
         try:
             while True:
                 if any(not r.is_finished for r in self.active) \
-                        or self.waiting or not self.request_queue.empty():
+                        or self.waiting or self._gen_queue \
+                        or self._receiving or not self.request_queue.empty():
                     raise RuntimeError("cannot release weight memory with "
                                        "requests in flight")
                 if not self.active and not self._inflight:
@@ -306,7 +338,9 @@ class PyExecutor:
         try:
             while not self._shutdown.is_set():
                 if not self._step():
-                    self._wake.wait(timeout=0.005)
+                    # frames of a receive arrive on a queue the loop polls
+                    self._wake.wait(
+                        timeout=0.0005 if self._receiving else 0.005)
                     self._wake.clear()
         except BaseException as e:  # noqa: BLE001
             self._error = e
@@ -323,13 +357,21 @@ class PyExecutor:
         self._inflight.clear()
         self._virtual.clear()
         self._deliver()
+        for req in self._receiving + self._gen_queue:
+            # a receive that cannot complete ends with an error
+            self.kv.free_sequence(req.request_id)
+            self._forget(req)
+            req.finish(FinishReason.ERROR)
+            req.emit(finished=True, error=f"kv receive: {msg}")
+        self._receiving, self._gen_queue = [], []
         for req in self.active + self.waiting:
             if req.is_finished:     # finished this step, not yet delivered
                 req.emit(finished=True, error=req.error)
                 continue
             req.finish(reason)
-            req.emit(finished=True,
-                     error=msg if reason == FinishReason.ERROR else None)
+            err = msg if reason == FinishReason.ERROR else None
+            self._stream_error(req, msg)
+            req.emit(finished=True, error=err)
         for req in self.active:
             self.kv.free_sequence(req.request_id)
             self._forget(req)
@@ -339,9 +381,11 @@ class PyExecutor:
         with self._submit_lock:
             while True:
                 try:
-                    self.waiting.append(self.request_queue.get_nowait())
+                    req = self.request_queue.get_nowait()
                 except queue.Empty:
                     break
+                (self._gen_queue if req.request_type == "generation_only"
+                 else self.waiting).append(req)
 
     def _handle_cancellations(self):
         """End every cancelled request still held: free its KV, drop its
@@ -353,7 +397,8 @@ class PyExecutor:
         if not pending:
             return
         hit = set()
-        for req in self.active + self.waiting:
+        for req in (self.active + self.waiting + self._receiving
+                    + self._gen_queue):
             if req.request_id not in pending:
                 continue
             hit.add(req.request_id)
@@ -364,9 +409,16 @@ class PyExecutor:
                 self.kv.free_sequence(req.request_id)
                 self._virtual.pop(req.request_id, None)
                 self._forget(req)
+            elif req in self._receiving:
+                self._receiving.remove(req)
+                self.kv.free_sequence(req.request_id)
+                self._forget(req)
+            elif req in self._gen_queue:
+                self._gen_queue.remove(req)
             else:
                 self.waiting.remove(req)
             req.finish(FinishReason.CANCELLED)
+            self._stream_error(req, "cancelled")
             req.emit(finished=True)
         for rid in pending - hit:
             self._cancel_misses[rid] = self._cancel_misses.get(rid, 0) + 1
@@ -390,6 +442,10 @@ class PyExecutor:
             job()
         self._fetch_new_requests()
         self._handle_cancellations()
+        if self._gen_queue:
+            self._admit_generation_only()
+        if self._receiving:
+            self._pump_kv_receive()
         if self._inflight and not all(
                 self._wants_tokens(r) for r in self._inflight[-1].reqs
                 if r.is_generating):
@@ -423,6 +479,8 @@ class PyExecutor:
             want_rows = bool(sp.prompt_logprobs or sp.return_context_logits)
             if req.state == RequestState.QUEUED:
                 if not self._admit_guided(req):
+                    self.waiting.remove(req)
+                    self._done.append(req)
                     continue
                 if want_rows:
                     # every prompt row's logits are needed and a reused
@@ -460,6 +518,8 @@ class PyExecutor:
             req.context_position += chunk
             self.kv.seal_full_blocks(
                 req.request_id, req.prompt_token_ids[:req.context_position])
+            if req.kv_stream is not None:
+                self._pump_kv_stream(req)
             stats.num_prefill_tokens += chunk
             stats.num_prefill_chunks += 1
             if req.remaining_context == 0:
@@ -510,10 +570,12 @@ class PyExecutor:
         nothing else is touched."""
         req.error = error
         req.finish(FinishReason.ERROR)
+        self._stream_error(req, error)
 
     def _admit_guided(self, req: LlmRequest) -> bool:
         """Register a guided request's matcher before its KV is allocated.
-        A spec that fails to compile ends only that request."""
+        A spec that fails to compile ends only that request (the caller
+        delivers it)."""
         g = req.sampling_params.guided_decoding
         if g is None:
             return True
@@ -522,11 +584,145 @@ class PyExecutor:
                 g, self.tokenizer, self.eos_token_id,
                 vocab_size=self.guided.vocab_size))
         except Exception as exc:  # noqa: BLE001 -- a per-request input error
-            self.waiting.remove(req)
             self._end_with_error(req, f"guided decoding: {exc}")
-            self._done.append(req)
             return False
         return True
+
+    # ---------------------------------------------------------- disagg ---
+    def _send_context(self, req: LlmRequest):
+        """A context-only request's KV leaves, before the request reads as
+        finished: the whole prompt's pages on `kv_payload`, or the blocks
+        not yet streamed and the end frame on `kv_stream`."""
+        P = req.prompt_len
+        bs = self.kv.block_size
+        if req.kv_stream is not None:
+            self._pump_kv_stream(req, tail=True)
+            req.kv_stream.put({"end": True, "num_tokens": P,
+                               "block_size": bs,
+                               "first_gen_tokens": list(req.output_token_ids)})
+            req.kv_payload = {"streamed": True, "num_tokens": P,
+                              "block_size": bs}
+            return
+        table = self.kv.block_table(req.request_id, self.kv.blocks_needed(P))
+        req.kv_payload = {"layers": self.engine.extract_kv_blocks(table),
+                          "num_tokens": P, "block_size": bs}
+
+    def _pump_kv_stream(self, req: LlmRequest, tail: bool = False):
+        """A frame of the full blocks a streamed context-only request's
+        prefill completed since its last frame; ``tail`` adds the last,
+        partial block."""
+        P = req.prompt_len
+        done = (self.kv.blocks_needed(P) if tail
+                else min(req.context_position, P) // self.kv.block_size)
+        sent = req.kv_streamed_blocks
+        if done > sent:
+            table = self.kv.block_table(req.request_id, done)
+            req.kv_stream.put({"start_block": sent, "layers":
+                               self.engine.extract_kv_blocks(table[sent:])})
+            req.kv_streamed_blocks = done
+
+    @staticmethod
+    def _stream_error(req: LlmRequest, msg: str):
+        """A failed streamed context-only request tells its receiver."""
+        if req.kv_stream is not None and req.kv_payload is None:
+            req.kv_payload = {"streamed": True, "error": msg}
+            req.kv_stream.put({"end": True, "error": msg})
+
+    def _admit_generation_only(self):
+        """Admit queued generation-only requests, in order, while the pool
+        holds their prompts: private blocks, then the pages (whole now, or
+        streamed as frames arrive)."""
+        while self._gen_queue:
+            req = self._gen_queue[0]
+            P = req.prompt_len
+            if self.kv.blocks_needed(P) > self.kv.num_free_blocks:
+                return
+            self._gen_queue.pop(0)
+            if not self._admit_guided(req):
+                self._done.append(req)
+                continue
+            rid = req.request_id
+            self.kv.add_sequence(rid, req.prompt_token_ids,
+                                 cache_salt=f"__disagg_{rid}")
+            self.kv.grow_sequence(rid, P)
+            dp = req.disagg_params
+            if dp.kv_frames is not None:
+                req.receive_deadline = time.time() + RECEIVE_DEADLINE_S
+                self._receiving.append(req)
+                continue
+            try:
+                self.engine.inject_kv_blocks(
+                    self.kv.block_table(rid, self.kv.blocks_needed(P)),
+                    dp.kv_payload["layers"])
+            except ValueError as e:
+                self._end_receive(req, f"kv payload: {e}")
+                continue
+            self._activate_generation_only(req, dp.first_gen_tokens)
+
+    def _activate_generation_only(self, req: LlmRequest, first_tokens):
+        """Enter generation with the transferred first token(s) appended
+        as if sampled here (stops, matcher, penalty counts, stop scan)."""
+        req.start_context()
+        req.context_position = req.prompt_len
+        req.finish_context()
+        self.active.append(req)
+        for tok in first_tokens:
+            if req.is_generating:
+                self._append(req, int(tok), None)
+        if req.is_generating:
+            req.emit(finished=False)
+
+    def _end_receive(self, req: LlmRequest, error: str):
+        """End an admitted generation-only request with an error."""
+        if req in self._receiving:
+            self._receiving.remove(req)
+        self.kv.free_sequence(req.request_id)
+        self._forget(req)
+        self._end_with_error(req, error)
+        self._done.append(req)
+
+    def _pump_kv_receive(self):
+        """Inject the frames that have arrived (without waiting) into the
+        receiving requests' blocks; activate a request at its end frame;
+        end one at an error frame, a bad frame or its deadline."""
+        now = time.time()
+        for req in list(self._receiving):
+            q = req.disagg_params.kv_frames
+            table = None
+            while True:
+                try:
+                    frame = q.get_nowait()
+                except queue.Empty:
+                    if now > req.receive_deadline:
+                        self._end_receive(req, "kv stream: no end frame "
+                                          f"within {RECEIVE_DEADLINE_S} s")
+                    break
+                err = frame.get("error")
+                if err is None and frame.get("ring"):
+                    err = "VSWA ring frames are not in the port"
+                if err is not None:
+                    self._end_receive(req, f"kv stream: {err}")
+                    break
+                if frame.get("end"):
+                    self._receiving.remove(req)
+                    first = (req.disagg_params.first_gen_tokens
+                             or frame.get("first_gen_tokens", []))
+                    self._activate_generation_only(req, first)
+                    break
+                if table is None:
+                    table = self.kv.block_table(
+                        req.request_id, self.kv.blocks_needed(req.prompt_len))
+                s = int(frame["start_block"])
+                n = len(next(iter(leaves(frame["layers"][0]))))
+                try:
+                    if s + n > len(table):
+                        raise ValueError(f"frame blocks [{s}, {s + n}) past "
+                                         f"the prompt's {len(table)}")
+                    self.engine.inject_kv_blocks(table[s:s + n],
+                                                 frame["layers"])
+                except ValueError as e:
+                    self._end_receive(req, f"kv stream: {e}")
+                    break
 
     def _forget(self, req: LlmRequest):
         """Drop a request's matcher, penalty counts and stop-scan state."""
@@ -793,8 +989,12 @@ class PyExecutor:
         if reason is None and req.num_tokens >= self.max_seq_len:
             reason = FinishReason.LENGTH
         if reason is not None:
+            reason = self._reconcile_stop_on_finish(req, reason)
+            if req.request_type == "context_only":
+                # the pages leave before the request reads as finished
+                self._send_context(req)
             # delivered at the end of the step
-            req.finish(self._reconcile_stop_on_finish(req, reason))
+            req.finish(reason)
 
     # ------------------------------------------------------------ stop scan --
     def _feed_stop_scan(self, req: LlmRequest):
@@ -848,6 +1048,10 @@ class PyExecutor:
         """Free every finished request's KV (rows of it in chunks still in
         flight are dropped when applied) and queue it for delivery."""
         for req in [r for r in self.active if r.is_finished]:
+            if req.request_type == "context_only" \
+                    and self._virtual.get(req.request_id):
+                # a chunk in flight still writes its blocks
+                self._drain_inflight()
             self.kv.free_sequence(req.request_id)
             self._virtual.pop(req.request_id, None)
             self._forget(req)

@@ -44,9 +44,28 @@ one prefix in one batch) is not the reuse index's, so it carries no hash
 here; the JAX package counts it, and then never reports the content
 removed.
 
-Not in this slice: beam forks, the host-memory tier and connector (and so
-the eviction list's offload use), VSWA rings and the DP/helix/star
-managers.
+The host-memory tier and the connector (JAX `host_cache_blocks`,
+`secondary_offload_min_priority`, `KvCacheConnector`): once the engine's
+page copies are attached (`attach_block_io`, the disaggregated-serving
+extract and inject), each reuse block the backend evicts (`drain_evictions`,
+on both backends) is offloaded before any new device write can overwrite it
+(`_drain_evictions`): to the host cache (an LRU of `host_cache_blocks`
+payloads keyed by the stable chain hash; only blocks whose retention
+priority reaches `secondary_offload_min_priority`, when set) and to the
+connector (`save`; every evicted block), a tier colder than the host.
+`add_sequence` onboards the blocks past the device match from the host
+cache, else the connector (`load`), allocating and injecting each, and
+stops at the first miss or when the device pool is exhausted; partial
+tail-block reuse then applies only if the chain tip was matched on the
+device.  `match_prefix` counts host and connector blocks (`contains`).  A
+connector exception is logged and taken as a miss, never raised.  A
+``removed`` event fires only when a content leaves every matchable tier
+(device, host cache, connector).  `num_offloaded`, `num_onboarded`,
+`num_connector_saves` and `num_connector_loads` count the traffic, in
+`stats()` too.  All of it runs on the executor's thread, as every
+bookkeeping operation does.
+
+Not in this slice: beam forks, VSWA rings and the DP/helix/star managers.
 """
 
 from __future__ import annotations
@@ -54,13 +73,13 @@ from __future__ import annotations
 import collections
 import hashlib
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from tensorrt_llm_tpu_torch.quantization.mode import KvCacheQuantAlgo
-from tensorrt_llm_tpu_torch.utils import cdiv, resolve_device
+from tensorrt_llm_tpu_torch.utils import cdiv, logger, resolve_device
 
 
 @dataclass
@@ -80,6 +99,12 @@ class KVCacheConfig:
     # or "latent" (one MLA pool per layer), plus the DSA indexer's width
     layout: str = "kv"
     dsa_index_dim: int = 0
+    # host-memory tier: evicted reuse blocks kept in host RAM (0: off), and
+    # the least retention priority that goes there (None: any)
+    host_cache_blocks: int = 0
+    secondary_offload_min_priority: Optional[int] = None
+    # external KV store: save(key, payload) / load(key) / contains(key)
+    kv_connector: Optional[Any] = None
 
     def __post_init__(self):
         self.kv_quant = KvCacheQuantAlgo(self.kv_quant)
@@ -160,6 +185,40 @@ def _whash(parent: int, chunk: tuple, salt) -> int:
         d = hashlib.sha256(repr(salt).encode()).digest()
         h = _stable_mix(h, int.from_bytes(d[:8], "little"))
     return h
+
+
+class KvCacheConnector:
+    """External KV-block store (JAX `KvCacheConnector`): the manager calls
+    `save` as reuse blocks leave the device, `load` on prefix misses past
+    the device and host tiers, and `contains` when scoring a prefix
+    without side effects.  Payloads are `ModelEngine.extract_kv_blocks`'s
+    output for one block (per layer, the pools' leaves as CPU tensors);
+    keys are the process-stable chain hashes of (parent, block tokens,
+    salt), so a store shared by processes serves equal tokenizations."""
+
+    def save(self, key: int, payload) -> None:
+        raise NotImplementedError
+
+    def load(self, key: int):
+        """The payload stored under `key`, or None."""
+        raise NotImplementedError
+
+    def contains(self, key: int) -> bool:
+        """A remote store should override this with a cheap key probe:
+        the default loads the payload and drops it."""
+        return self.load(key) is not None
+
+
+def prefix_chain_hashes(token_ids, block_size: int) -> List[int]:
+    """The stable chain hash of every full block of an unsalted prompt:
+    what the ``stored`` KV events advertise, so a router's view can match a
+    prompt against them (each hash encodes its whole prefix)."""
+    parent, out = 0, []
+    for b in range(len(token_ids) // block_size):
+        parent = _whash(parent, tuple(token_ids[b * block_size:
+                                                (b + 1) * block_size]), None)
+        out.append(parent)
+    return out
 
 
 # Default retention priority (the reference's KvCacheRetentionConfig,
@@ -632,6 +691,17 @@ class KVCacheManager:
         # the reuse index's blocks by chain hash, and the way back
         self._block_whash: Dict[int, int] = {}
         self._whash_block: Dict[int, int] = {}
+        # host tier and connector (module docstring)
+        self.host_cache: "collections.OrderedDict[int, list]" = \
+            collections.OrderedDict()
+        self._extract_fn = None
+        self._inject_fn = None
+        self._seq_prio: Dict[int, int] = {}
+        self._block_prio: Dict[int, int] = {}     # reuse blocks' priority
+        self.num_offloaded = 0
+        self.num_onboarded = 0
+        self.num_connector_saves = 0
+        self.num_connector_loads = 0
 
     @property
     def is_native(self) -> bool:
@@ -676,14 +746,21 @@ class KVCacheManager:
                      cache_salt=None) -> int:
         """Register a sequence; returns the tokens whose KV is already
         cached, always fewer than the prompt so that at least one token is
-        recomputed to produce logits: whole blocks, then under
-        `enable_partial_reuse` the head of one more block.  Its page copy,
-        if any, waits in `drain_partial_copies`."""
+        recomputed to produce logits: whole blocks on the device, then
+        whole blocks onboarded from the host tier or the connector, then
+        under `enable_partial_reuse` (only past a device match) the head of
+        one more block.  Its page copy, if any, waits in
+        `drain_partial_copies`."""
         matched = self._bk.add_sequence(seq_id, token_ids, cache_salt)
         self._seq_salt[seq_id] = cache_salt
         self._seq_chain[seq_id] = []
         self._seq_reused[seq_id] = matched // self.block_size
-        if self.cfg.enable_partial_reuse and self.cfg.enable_block_reuse:
+        matched_dev = matched
+        if self.host_tier_enabled and (self.host_cache
+                                       or self.cfg.kv_connector is not None):
+            matched = self._onboard(seq_id, token_ids, cache_salt, matched)
+        if self.cfg.enable_partial_reuse and self.cfg.enable_block_reuse \
+                and matched == matched_dev:
             k, src, dst = self._bk.try_partial_match(
                 seq_id, token_ids, self.cfg.copy_on_partial_reuse)
             if k:
@@ -693,8 +770,107 @@ class KVCacheManager:
                         (src, dst))
                 else:   # adopted in place: it left the reuse index
                     self._forget_hash(src)
+                # the fresh block may have been evicted to serve this: its
+                # content is offloaded before the page copy overwrites it
                 self._drain_evictions()
         return matched
+
+    # ---- host tier and connector ------------------------------------------
+    @property
+    def host_tier_enabled(self) -> bool:
+        return ((self.cfg.host_cache_blocks > 0
+                 or self.cfg.kv_connector is not None)
+                and self.cfg.enable_block_reuse
+                and self._extract_fn is not None)
+
+    def attach_block_io(self, extract_fn, inject_fn):
+        """The engine's page copies (`extract_kv_blocks(block_ids)`,
+        `inject_kv_blocks(block_ids, layers)`), which the host tier and the
+        connector move blocks with."""
+        self._extract_fn = extract_fn
+        self._inject_fn = inject_fn
+
+    def _chain_to(self, token_ids, salt, n_blocks: int) -> int:
+        parent, bs = 0, self.block_size
+        for b in range(n_blocks):
+            parent = _whash(parent, tuple(token_ids[b * bs:(b + 1) * bs]),
+                            salt)
+        return parent
+
+    def _connector_call(self, what: str, *args):
+        """A connector method; an exception is logged and taken as a miss
+        (None)."""
+        try:
+            return getattr(self.cfg.kv_connector, what)(*args)
+        except Exception as e:  # noqa: BLE001 -- never ends the loop
+            logger.warning("kv connector %s failed: %s", what, e)
+            return None
+
+    def _onboard(self, seq_id: int, token_ids, salt, matched: int) -> int:
+        """Extend a device match with whole blocks from the host cache or
+        the connector, each allocated and injected; returns the tokens now
+        matched.  Stops at the first miss or when the pool is exhausted."""
+        bs = self.block_size
+        conn = self.cfg.kv_connector
+        b = matched // bs
+        parent = self._chain_to(token_ids, salt, b)
+        while b < (len(token_ids) - 1) // bs:
+            wh = _whash(parent, tuple(token_ids[b * bs:(b + 1) * bs]), salt)
+            payload = self.host_cache.get(wh)
+            if payload is None and conn is not None:
+                payload = self._connector_call("load", wh)
+                if payload is not None:
+                    self.num_connector_loads += 1
+            if payload is None:
+                break
+            try:
+                self._bk.grow_sequence(seq_id, (b + 1) * bs)
+            except RuntimeError:
+                break          # the device pool is exhausted
+            # what that allocation evicted leaves before the inject writes
+            self._drain_evictions()
+            bid = self._bk.block_table(seq_id, b + 1)[b]
+            self._inject_fn([bid], payload)
+            if wh in self.host_cache:
+                self.host_cache.move_to_end(wh)
+            self.num_onboarded += 1
+            parent = wh
+            b += 1
+            matched = b * bs
+        return matched
+
+    def _offload(self, bid: int, wh: int, prio: int) -> bool:
+        """Move an evicted block's content to the host cache and the
+        connector; returns whether the content is still matchable there."""
+        if not self.host_tier_enabled:
+            return False
+        conn = self.cfg.kv_connector
+        min_p = self.cfg.secondary_offload_min_priority
+        host_ok = self.cfg.host_cache_blocks > 0 and (
+            min_p is None or prio >= min_p)
+        if host_ok and wh in self.host_cache:
+            self.host_cache.move_to_end(wh)
+            return True
+        if not host_ok and conn is None:
+            return False
+        payload = self._extract_fn([bid])
+        saved = False
+        if conn is not None:
+            try:
+                conn.save(wh, payload)
+                self.num_connector_saves += 1
+                saved = True
+            except Exception as e:  # noqa: BLE001 -- never ends the loop
+                logger.warning("kv connector save failed: %s", e)
+        if host_ok:
+            self.host_cache[wh] = payload
+            self.num_offloaded += 1
+            while len(self.host_cache) > self.cfg.host_cache_blocks:
+                old, _ = self.host_cache.popitem(last=False)
+                # the connector keeps everything; a device copy keeps it too
+                if conn is None and old not in self._whash_block:
+                    self._event({"type": "removed", "block_hash": old})
+        return host_ok or saved
 
     def drain_partial_copies(self, seq_id: int) -> List[tuple]:
         """(src, dst) block pairs whose pages the engine must copy before
@@ -705,6 +881,7 @@ class KVCacheManager:
         """Retention priority of the blocks this sequence stores for reuse
         from now on (lower evicts first; default 35)."""
         self._bk.set_seq_priority(seq_id, priority)
+        self._seq_prio[seq_id] = int(priority)
 
     def grow_sequence(self, seq_id: int, new_total_tokens: int):
         self._bk.grow_sequence(seq_id, new_total_tokens)
@@ -734,6 +911,8 @@ class KVCacheManager:
             if b >= self._seq_reused[seq_id] and h not in self._whash_block:
                 self._block_whash[table[b]] = h
                 self._whash_block[h] = table[b]
+                self._block_prio[table[b]] = self._seq_prio.get(
+                    seq_id, DEFAULT_RETENTION_PRIORITY)
             chain.append(h)
             parent = h
 
@@ -742,17 +921,21 @@ class KVCacheManager:
         self._seq_chain.pop(seq_id, None)
         self._seq_reused.pop(seq_id, None)
         self._seq_salt.pop(seq_id, None)
+        self._seq_prio.pop(seq_id, None)
         self._bk.free_sequence(seq_id)
 
     def drop_cached_blocks(self):
-        """Forget every reusable block (their KV came from other weights),
-        with a ``removed`` event for each."""
+        """Forget every reusable block of the device and the host cache
+        (their KV came from other weights), with a ``removed`` event for
+        each.  A connector is the caller's store and is not cleared."""
         self._drain_evictions()
         self._bk.drop_cached_blocks()
-        for h in self._whash_block:
+        for h in set(self._whash_block) | set(self.host_cache):
             self._event({"type": "removed", "block_hash": h})
         self._whash_block.clear()
         self._block_whash.clear()
+        self._block_prio.clear()
+        self.host_cache.clear()
 
     # ---- KV events -------------------------------------------------------
     def _event(self, ev: dict):
@@ -760,17 +943,30 @@ class KVCacheManager:
         self._next_event_id += 1
 
     def _drain_evictions(self):
-        """A ``removed`` event for each block the backend evicted from the
-        reuse index (no other device block carries its hash: the first
-        writer of a content is the only one that caches it)."""
+        """Offload each block the backend evicted from the reuse index
+        (`_offload`), before any new device write; a ``removed`` event for
+        each whose content left every tier (no other device block carries
+        its hash: the first writer of a content is the only one that
+        caches it)."""
         for bid in self._bk.drain_evictions():
-            self._forget_hash(bid)
+            prio = self._block_prio.pop(bid, DEFAULT_RETENTION_PRIORITY)
+            h = self._block_whash.pop(bid, None)
+            if h is None:
+                continue
+            del self._whash_block[h]
+            if not self._offload(bid, h, prio):
+                self._event({"type": "removed", "block_hash": h})
 
     def _forget_hash(self, bid: int):
+        """A block left the reuse index in place (adopted by a sequence)."""
+        self._block_prio.pop(bid, None)
         h = self._block_whash.pop(bid, None)
         if h is not None:
             del self._whash_block[h]
-            self._event({"type": "removed", "block_hash": h})
+            if h not in self.host_cache and not (
+                    self.host_tier_enabled
+                    and self.cfg.kv_connector is not None):
+                self._event({"type": "removed", "block_hash": h})
 
     def get_events(self, since_id: int = 0) -> List[dict]:
         """Events with id >= since_id (the ring keeps the last
@@ -785,14 +981,34 @@ class KVCacheManager:
         return self._next_event_id, oldest
 
     def reuse_block_hashes(self) -> List[int]:
-        """Every block chain hash matchable on the device right now."""
-        return list(self._whash_block)
+        """Every block chain hash matchable right now, on the device or in
+        the host cache."""
+        return list(self._whash_block) + [
+            h for h in self.host_cache if h not in self._whash_block]
 
     def match_prefix(self, token_ids: List[int], cache_salt=None) -> int:
         """Cached prefix tokens of a prospective prompt (no side effects):
-        whole blocks, then under partial reuse the head of one more."""
+        whole blocks on the device, then in the host cache or the connector
+        (they would onboard at admission), then, past a device match only,
+        under partial reuse the head of one more."""
         matched = self._bk.match_prefix(token_ids, cache_salt)
-        if self.cfg.enable_partial_reuse:
+        matched_dev = matched
+        conn = self.cfg.kv_connector
+        if self.host_tier_enabled and (self.host_cache or conn is not None):
+            bs = self.block_size
+            b = matched // bs
+            parent = self._chain_to(token_ids, cache_salt, b)
+            while b < (len(token_ids) - 1) // bs:
+                wh = _whash(parent, tuple(token_ids[b * bs:(b + 1) * bs]),
+                            cache_salt)
+                if wh not in self.host_cache and not (
+                        conn is not None
+                        and self._connector_call("contains", wh)):
+                    break
+                parent = wh
+                b += 1
+                matched = b * bs
+        if self.cfg.enable_partial_reuse and matched == matched_dev:
             matched = max(matched, self._bk.match_prefix(
                 token_ids, cache_salt, partial=True))
         return matched
@@ -807,4 +1023,10 @@ class KVCacheManager:
     def stats(self) -> dict:
         s = self._bk.stats()
         s["num_blocks"] = self.num_blocks
+        s["host_cached_blocks"] = len(self.host_cache)
+        s["offloaded_blocks"] = self.num_offloaded
+        s["onboarded_blocks"] = self.num_onboarded
+        if self.cfg.kv_connector is not None:
+            s["connector_saves"] = self.num_connector_saves
+            s["connector_loads"] = self.num_connector_loads
         return s

@@ -24,7 +24,21 @@ fused `scan` mode.
 `copy_kv_blocks` copies whole pages between blocks in every layer's pools
 (bf16, INT8 data and scales, MLA latent and DSA indexer pools) for
 copy-on-partial-reuse, as a plain torch index copy (XLA does it in the JAX
-package).
+package).  `extract_kv_blocks` and `inject_kv_blocks` move the pages of
+given blocks, every leaf of every layer, to host memory and back: the
+transfer plane of disaggregated serving and of the host KV tier (JAX
+`extract_kv_blocks` / `inject_kv_blocks`, plain XLA gathers and scatters
+there too).  Extract is an `index_select` of every leaf on the engine's
+stream, packed into one buffer and copied to the host at once; inject
+packs the leaves into one pinned buffer (PyTorch's caching host allocator
+keeps it until its copy has run), uploads it at once, then `index_copy_`s
+each leaf, under `lock`, in stream order before any later step.  Inject refuses, with ValueError,
+leaves that differ from the pools in count, dtype or elements per page
+(`check_kv_layers`), and never casts.  A JAX payload at head dims below 128
+arrives lane-packed (``[n, Hkv, BS*D//128, 128]``), row-major the same bytes
+as the logical ``[n, Hkv, BS, D]``: it is taken by a reshape.  An MLA
+payload is portable only from port to port (the latent row is 576 wide
+here, 640 in the JAX package).
 
 `warmup` (run by `LLM` before its executor starts, by default on a CUDA
 device) tunes the W4A16 tactics (`autotune_kernels`), then runs one prefill
@@ -33,7 +47,7 @@ library handles and the allocator are warm.  The JAX package's warmup also
 compiles every bucket; eager PyTorch has nothing to compile.
 
 Not in this slice: the chain/scan/unroll variants, CUDA graphs,
-pipeline/context/data parallelism and the KV page extract/inject machinery.
+pipeline/context/data parallelism and VSWA ring tables for extract/inject.
 """
 
 from __future__ import annotations
@@ -51,6 +65,7 @@ import torch
 
 from tensorrt_llm_tpu_torch.attention_backend.interface import (
     AttentionMetadata)
+from tensorrt_llm_tpu_torch.llmapi.disagg_params import leaf_torch, leaves
 from tensorrt_llm_tpu_torch.llmapi.sampling_params import SamplingParams
 from tensorrt_llm_tpu_torch.runtime.kv_cache_manager import KVCacheManager
 from tensorrt_llm_tpu_torch.runtime.request import LlmRequest
@@ -59,6 +74,40 @@ from tensorrt_llm_tpu_torch.utils import logger, resolve_device, upload
 
 # weight bytes a tuning ring holds: past the 50 MB L2 of an H100
 _ROTATE_BYTES = 128 << 20
+
+
+_ALIGN = 16    # byte alignment of each tensor in a packed buffer
+
+
+def _packed(tensors, pin: bool = False) -> torch.Tensor:
+    """The tensors' bytes in one uint8 buffer on their device (pinned host
+    memory with `pin`), each at a 16-byte aligned offset."""
+    sizes = [t.numel() * t.element_size() for t in tensors]
+    total = sum(-(-n // _ALIGN) * _ALIGN for n in sizes)
+    buf = torch.empty(total, dtype=torch.uint8, device=tensors[0].device,
+                      pin_memory=pin)
+    off = 0
+    for t, n in zip(tensors, sizes):
+        buf[off:off + n].copy_(t.contiguous().reshape(-1).view(torch.uint8))
+        off += -(-n // _ALIGN) * _ALIGN
+    return buf
+
+
+def _unpacked(buf: torch.Tensor, like) -> List[torch.Tensor]:
+    """Views of `_packed`'s buffer with the dtypes and shapes of `like`."""
+    out, off = [], 0
+    for t in like:
+        n = t.numel() * t.element_size()
+        out.append(buf[off:off + n].view(t.dtype).reshape(t.shape))
+        off += -(-n // _ALIGN) * _ALIGN
+    return out
+
+
+def _like(tree, it):
+    """`tree`'s tuple structure over the next tensors of `it`."""
+    if isinstance(tree, (tuple, list)):
+        return tuple(_like(t, it) for t in tree)
+    return next(it)
 
 
 @dataclass
@@ -86,14 +135,6 @@ class DecodeChunk:
     logps: torch.Tensor
     host: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
     event: Optional["torch.cuda.Event"] = None
-
-
-def _leaves(cache):
-    if isinstance(cache, (tuple, list)):
-        for c in cache:
-            yield from _leaves(c)
-    else:
-        yield cache
 
 
 class ModelEngine:
@@ -269,8 +310,71 @@ class ModelEngine:
         src = upload(np.ascontiguousarray(idx[:, 0]), self.device)
         dst = upload(np.ascontiguousarray(idx[:, 1]), self.device)
         with self.lock:
-            for pool in _leaves(self.kv_caches):
+            for pool in leaves(self.kv_caches):
                 pool.index_copy_(0, dst, pool.index_select(0, src))
+
+    @torch.no_grad()
+    def extract_kv_blocks(self, block_ids: Sequence[int]) -> list:
+        """The pages of `block_ids` in host memory: per layer, the layer's
+        pools' structure with each leaf ``[n, ...page dims]`` on the CPU.
+        The leaves are gathered into one device buffer and copied to the
+        host at once (one wait, not one a leaf)."""
+        idx = upload(np.asarray(block_ids, np.int64), self.device)
+        with self.lock:
+            pages = [pool.index_select(0, idx)
+                     for pool in leaves(self.kv_caches)]
+        flat = _packed(pages).cpu()
+        it = iter(_unpacked(flat, pages))
+        return [_like(layer, it) for layer in self.kv_caches]
+
+    def check_kv_layers(self, layers: list, n: Optional[int] = None
+                        ) -> List[torch.Tensor]:
+        """Every leaf of transferred `layers` (torch or numpy), checked
+        against the pools and shaped as their pages, in pool order: the
+        same number of layers and leaves, the same dtype and the same
+        elements per page (`n` pages when given).  Raises ValueError
+        otherwise; never casts."""
+        pools = list(leaves(self.kv_caches))
+        got = [leaf_torch(h) for layer in layers for h in leaves(layer)]
+        if len(layers) != len(self.kv_caches) or len(got) != len(pools):
+            raise ValueError(
+                f"KV payload has {len(layers)} layers / {len(got)} leaves; "
+                f"the pools have {len(self.kv_caches)} / {len(pools)}")
+        out = []
+        for i, (c, h) in enumerate(zip(pools, got)):
+            page = c[0].numel()
+            if h.dtype != c.dtype:
+                raise ValueError(f"KV payload leaf {i} is {h.dtype}, the "
+                                 f"pool is {c.dtype}")
+            rows = h.shape[0] if h.dim() else 0
+            if rows == 0 or h.numel() != rows * page or (
+                    n is not None and rows != n):
+                raise ValueError(
+                    f"KV payload leaf {i} has shape {tuple(h.shape)}; the "
+                    f"pool's page is {tuple(c.shape[1:])}"
+                    + ("" if n is None else f", {n} pages expected"))
+            out.append(h.reshape((rows,) + tuple(c.shape[1:])))
+        return out
+
+    @torch.no_grad()
+    def inject_kv_blocks(self, block_ids: Sequence[int], layers: list):
+        """Write transferred pages (`extract_kv_blocks`' structure, or the
+        flat per-layer leaves of `payload_from_bytes`, torch or numpy) into
+        the blocks `block_ids` of every pool (`check_kv_layers` first)."""
+        n = len(block_ids)
+        host = self.check_kv_layers(layers, n)
+        if not n:
+            return
+        dev = self.device
+        idx = upload(np.asarray(block_ids, np.int64), dev)
+        if dev.type == "cuda":
+            # one upload of every leaf, staged in pinned memory that the
+            # caching host allocator keeps until the copy has run
+            buf = _packed(host, pin=True).to(dev, non_blocking=True)
+            host = _unpacked(buf, host)
+        with self.lock:
+            for pool, h in zip(leaves(self.kv_caches), host):
+                pool.index_copy_(0, idx, h)
 
     # ------------------------------------------------------------ warmup ---
     @staticmethod

@@ -15,8 +15,13 @@ it.  `listener`, when set, is called after each piece is queued (the
 server's wake-up, so no thread blocks on a stream).  `priority` in [0, 1]
 orders the waiting queue (higher first); `kv_retention_priority` is the
 retention priority of the blocks the request stores for reuse (None: the
-manager's default).  Disaggregated-serving and multimodal fields belong to
-later slices.
+manager's default).  Disaggregated serving (JAX `request_type`): a
+``context_only`` request prefills, samples its first token and leaves the
+prompt's KV pages in `kv_payload`, or, with ``disagg_params.stream``, sends
+them as frames on `kv_stream` while later chunks compute
+(`kv_streamed_blocks` counts the blocks sent); a ``generation_only``
+request enters generation from transferred pages.  Multimodal fields belong
+to a later slice.
 """
 
 from __future__ import annotations
@@ -25,7 +30,7 @@ import enum
 import queue
 import time
 from dataclasses import dataclass
-from typing import List, Optional
+from typing import Any, List, Optional
 
 from tensorrt_llm_tpu_torch.llmapi.sampling_params import SamplingParams
 
@@ -66,7 +71,8 @@ class LlmRequest:
                  request_id: Optional[int] = None,
                  cache_salt: Optional[str] = None,
                  kv_retention_priority: Optional[int] = None,
-                 priority: float = 0.5):
+                 priority: float = 0.5, request_type: str = "full",
+                 disagg_params: Optional[Any] = None):
         if request_id is None:
             LlmRequest._id_counter += 1
             request_id = LlmRequest._id_counter
@@ -76,6 +82,15 @@ class LlmRequest:
         self.cache_salt = cache_salt
         self.kv_retention_priority = kv_retention_priority
         self.priority = priority
+        # disaggregated serving: full | context_only | generation_only
+        self.request_type = request_type
+        self.disagg_params = disagg_params
+        self.kv_payload: Optional[dict] = None    # context_only's pages
+        self.kv_stream: Optional[queue.Queue] = (
+            queue.Queue() if request_type == "context_only"
+            and getattr(disagg_params, "stream", False) else None)
+        self.kv_streamed_blocks = 0
+        self.receive_deadline: Optional[float] = None   # generation_only
 
         self.state = RequestState.QUEUED
         self.output_token_ids: List[int] = []

@@ -16,7 +16,14 @@ Responses API's ``event: ...`` lines) are the JAX server's:
 * ``POST /v1/completions``, ``/v1/chat/completions``, ``/v1/responses``,
   ``/v1/embeddings`` (400: the port serves decoders only),
   ``/prefix_match``, ``/update_weights``, ``/release_memory`` (409 with a
-  request in flight), ``/resume_memory``.
+  request in flight), ``/resume_memory``;
+* the disaggregated worker routes ``POST /disagg/context``,
+  ``/disagg/generate``, ``/disagg/context_stream`` (a chunked
+  ``application/octet-stream`` of 8-byte length-prefixed KV frames) and
+  ``/disagg/generate_streamed`` (`serve/disagg_server.py`).  With
+  `register_to`, the worker POSTs ``/register`` (its `advertise_url` and
+  `disagg_role`) to a disaggregated front end once it listens, and
+  ``/unregister`` when it stops.
 
 Generation runs on the executor's thread.  The loop never blocks a thread
 on a request: each request's `LlmRequest.listener` wakes the loop
@@ -35,9 +42,12 @@ refuses (``max_tokens`` 0, ``top_p`` 0, ...) or a malformed query or
 message gets 400 where the JAX server fails with 500; a generation error
 is a JSON 500 (mid-stream: an ``error`` event, then the stream ends).
 Multimodal input (image parts, ``multi_modal_embeddings``,
-``/v1/mm_embeddings``), disaggregated serving (``/disagg/*``) and worker
-registration belong to later slices: the routes are not registered and
-image parts get 400.
+``/v1/mm_embeddings``) belongs to a later slice: the route is not
+registered and image parts get 400.
+
+`HTTPApp` is the server itself (routes, connections, start and stop, the
+startup and cleanup hooks); `OpenAIServer` and the disaggregated front end
+(`serve/disagg_server.py`) are its routes.
 """
 
 from __future__ import annotations
@@ -62,9 +72,11 @@ from tensorrt_llm_tpu_torch.serve.tool_parser import ToolCall, get_tool_parser
 from tensorrt_llm_tpu_torch.utils import logger
 
 MAX_BODY = 64 << 20          # bytes of one request body
+PAYLOAD_MAX_BODY = 1 << 30   # a body that carries a KV payload (JAX's)
 _REASONS = {200: "OK", 400: "Bad Request",
             404: "Not Found", 405: "Method Not Allowed", 409: "Conflict",
-            413: "Payload Too Large", 500: "Internal Server Error"}
+            413: "Payload Too Large", 500: "Internal Server Error",
+            502: "Bad Gateway", 503: "Service Unavailable"}
 
 
 class HTTPError(Exception):
@@ -119,8 +131,10 @@ class Connection:
             head += await self.reader.readexactly(n - len(head))
         return head
 
-    async def read_request(self) -> Optional[Request]:
-        """The next request, or None at the end of the connection."""
+    async def read_request(self, body_limit=lambda path: MAX_BODY
+                           ) -> Optional[Request]:
+        """The next request, or None at the end of the connection;
+        `body_limit(path)` bounds its body's bytes."""
         line = await self._readline()
         while line in (b"\r\n", b"\n"):
             line = await self._readline()
@@ -150,7 +164,7 @@ class Connection:
             n = int(headers.get("content-length", "0"))
         except ValueError:
             raise HTTPError(400, "malformed Content-Length") from None
-        if n > MAX_BODY:
+        if n > body_limit(urlsplit(target).path):
             raise HTTPError(413, "request body too large")
         body = await self._read(n) if n else b""
         return Request(method, target, body)
@@ -167,11 +181,11 @@ class Connection:
                           + body)
         await self.writer.drain()
 
-    async def start_stream(self):
-        """Headers of an SSE response; the client's EOF is watched from
-        now on."""
+    async def start_stream(self, ctype: str = "text/event-stream"):
+        """Headers of a chunked (by default SSE) response; the client's EOF
+        is watched from now on."""
         self.writer.write(self._head(
-            200, "text/event-stream",
+            200, ctype,
             "Transfer-Encoding: chunked\r\nCache-Control: no-cache\r\n"))
         await self.writer.drain()
         self.streaming = True
@@ -271,15 +285,143 @@ async def result_of(fut):
         pieces.close()
 
 
-class OpenAIServer:
+class HTTPApp:
+    """An HTTP/1.1 server of `routes` ({(method, path): handler(req,
+    conn)}) on asyncio streams.  `on_startup` coroutines run once it
+    listens, `on_cleanup` ones when it stops (`cleanup`)."""
+
+    def __init__(self):
+        self.routes = {}
+        self.on_startup: list = []
+        self.on_cleanup: list = []
+        self.port: Optional[int] = None
+        self._server: Optional[asyncio.base_events.Server] = None
+        self._writers: set = set()     # open client connections
+        self._cleaned = False
+
+    async def _handle(self, reader, writer):
+        conn = Connection(reader, writer)
+        self._writers.add(writer)
+        try:
+            while True:
+                conn.keep_alive = False
+                try:
+                    req = await conn.read_request(self.body_limit)
+                except HTTPError as e:
+                    await conn.respond(*_error(str(e), e.status))
+                    break
+                if req is None:
+                    break
+                await self._dispatch(req, conn)
+                if not conn.keep_alive or conn.closed:
+                    break
+        except (ConnectionError, asyncio.IncompleteReadError,
+                asyncio.LimitOverrunError, ValueError):
+            pass
+        finally:
+            await conn.stop_watching()
+            self._writers.discard(writer)
+            writer.close()
+
+    def body_limit(self, path: str) -> int:
+        """The most bytes a request body to `path` may have."""
+        return MAX_BODY
+
+    async def _dispatch(self, req: Request, conn: Connection):
+        conn.streaming = False
+        handler = self.routes.get((req.method, req.path))
+        if handler is None:
+            if any(p == req.path for _, p in self.routes):
+                resp = _error("method not allowed", 405)
+            else:
+                resp = _error(f"no route {req.path}", 404)
+        else:
+            try:
+                resp = await handler(req, conn)
+            except RequestError as e:
+                resp = _error(str(e), 400)
+            except HTTPError as e:
+                resp = _error(str(e), e.status)
+            except (ConnectionError, asyncio.CancelledError):
+                raise
+            except Exception as e:  # noqa: BLE001 -- one request's failure
+                logger.exception("request to %s failed", req.path)
+                if conn.streaming or conn.writer.is_closing():
+                    raise ConnectionResetError from e
+                resp = _error(str(e), 500)
+        if resp is not None:
+            await conn.respond(*resp)
+
+    async def start(self, host: str = "127.0.0.1", port: int = 0) -> int:
+        """Listen on (host, port) in the running loop, then run the
+        startup hooks; returns the port."""
+        self._server = await asyncio.start_server(
+            self._handle, host, port, limit=1 << 20)
+        self.port = self._server.sockets[0].getsockname()[1]
+        for hook in self.on_startup:
+            await hook()
+        return self.port
+
+    async def cleanup(self):
+        """Run the cleanup hooks once."""
+        if self._cleaned:
+            return
+        self._cleaned = True
+        for hook in self.on_cleanup:
+            try:
+                await hook()
+            except Exception:  # noqa: BLE001 -- the rest still run
+                logger.exception("cleanup hook failed")
+
+    async def serve(self, host: str, port: int):
+        await self.start(host, port)
+        logger.info("serving on %s:%d", host, self.port)
+        try:
+            async with self._server:
+                await self._server.serve_forever()
+        finally:
+            await self.cleanup()
+
+    def run(self, host: str = "0.0.0.0", port: int = 8000):
+        """Serve until interrupted (SIGINT ends it cleanly, cleanup hooks
+        included)."""
+        try:
+            asyncio.run(self.serve(host, port))
+        except KeyboardInterrupt:
+            pass
+
+    def start_in_thread(self, host: str = "127.0.0.1",
+                        port: int = 0) -> "ServerThread":
+        """Serve from a thread of this process (tests, in-process
+        benchmarks); `ServerThread.port` is the bound port."""
+        return ServerThread(self, host, port)
+
+
+class OpenAIServer(HTTPApp):
     def __init__(self, llm: LLM, model_name: str = "tpu-llm",
                  tool_parser: Optional[str] = None,
-                 reasoning_parser: Optional[str] = None):
+                 reasoning_parser: Optional[str] = None,
+                 register_to: Optional[str] = None,
+                 advertise_url: Optional[str] = None,
+                 disagg_role: str = "generation"):
         """tool_parser: model family of the function-call markup ("qwen3",
         "deepseek_v3", "harmony", ... `tool_parser._PARSERS`);
         reasoning_parser: "deepseek-r1" | "qwen3" | "nano-v3" splits
-        <think> blocks into reasoning_content."""
+        <think> blocks into reasoning_content.  register_to /
+        advertise_url / disagg_role: join a disaggregated front end once
+        listening (advertise_url defaults to http://127.0.0.1:<port>) and
+        leave it at cleanup."""
+        super().__init__()
+        if disagg_role not in ("context", "generation"):
+            raise ValueError(f"disagg_role {disagg_role!r}: 'context' or "
+                             "'generation'")
         self.llm = llm
+        self.register_to = register_to.rstrip("/") if register_to else None
+        self.advertise_url = advertise_url
+        self.disagg_role = disagg_role
+        if self.register_to:
+            self.on_startup.append(self._register_worker)
+            self.on_cleanup.append(self._unregister_worker)
         # per-process event-stream epoch: a restart resets KV event ids,
         # so routers must be able to detect it and drop their stale view
         self._epoch = uuid.uuid4().hex
@@ -307,82 +449,59 @@ class OpenAIServer:
             ("GET", "/health_generate"): self.health_generate,
             ("GET", "/version"): self.version,
             ("GET", "/steady_clock_offset"): self.steady_clock_offset,
+            ("POST", "/disagg/context"): self.disagg_context,
+            ("POST", "/disagg/generate"): self.disagg_generate,
+            ("POST", "/disagg/context_stream"): self.disagg_context_stream,
+            ("POST", "/disagg/generate_streamed"):
+                self.disagg_generate_streamed,
         }
-        self._server: Optional[asyncio.base_events.Server] = None
-        self._writers: set = set()     # open client connections
 
-    # ------------------------------------------------------------ serving --
-    async def _handle(self, reader, writer):
-        conn = Connection(reader, writer)
-        self._writers.add(writer)
+    # ------------------------------------------------------------- disagg --
+    def body_limit(self, path: str) -> int:
+        return PAYLOAD_MAX_BODY if path == "/disagg/generate" else MAX_BODY
+
+    async def _announce(self, path: str):
+        from tensorrt_llm_tpu_torch.serve.http_client import ClientSession
+        url = self.advertise_url or f"http://127.0.0.1:{self.port}"
+        async with ClientSession(timeout=10.0) as s:
+            r = await s.post(f"{self.register_to}{path}",
+                             json={"url": url, "role": self.disagg_role})
+            await r.read()
+            if r.status != 200:
+                raise RuntimeError(f"{path} answered HTTP {r.status}")
+
+    async def _register_worker(self):
         try:
-            while True:
-                conn.keep_alive = False
-                try:
-                    req = await conn.read_request()
-                except HTTPError as e:
-                    await conn.respond(*_error(str(e), e.status))
-                    break
-                if req is None:
-                    break
-                await self._dispatch(req, conn)
-                if not conn.keep_alive or conn.closed:
-                    break
-        except (ConnectionError, asyncio.IncompleteReadError,
-                asyncio.LimitOverrunError, ValueError):
-            pass
-        finally:
-            await conn.stop_watching()
-            self._writers.discard(writer)
-            writer.close()
+            await self._announce("/register")
+        except Exception as e:  # noqa: BLE001 -- the front end may come later
+            logger.warning("worker registration with %s failed: %s",
+                           self.register_to, e)
 
-    async def _dispatch(self, req: Request, conn: Connection):
-        conn.streaming = False
-        handler = self.routes.get((req.method, req.path))
-        if handler is None:
-            if any(p == req.path for _, p in self.routes):
-                resp = _error("method not allowed", 405)
-            else:
-                resp = _error(f"no route {req.path}", 404)
-        else:
-            try:
-                resp = await handler(req, conn)
-            except RequestError as e:
-                resp = _error(str(e), 400)
-            except (ConnectionError, asyncio.CancelledError):
-                raise
-            except Exception as e:  # noqa: BLE001 -- one request's failure
-                logger.exception("request to %s failed", req.path)
-                if conn.streaming or conn.writer.is_closing():
-                    raise ConnectionResetError from e
-                resp = _error(str(e), 500)
-        if resp is not None:
-            await conn.respond(*resp)
-
-    async def start(self, host: str = "127.0.0.1", port: int = 0) -> int:
-        """Listen on (host, port) in the running loop; returns the port."""
-        self._server = await asyncio.start_server(
-            self._handle, host, port, limit=1 << 20)
-        return self._server.sockets[0].getsockname()[1]
-
-    async def serve(self, host: str, port: int):
-        await self.start(host, port)
-        logger.info("serving OpenAI API on %s:%d", host, port)
-        async with self._server:
-            await self._server.serve_forever()
-
-    def run(self, host: str = "0.0.0.0", port: int = 8000):
-        """Serve until interrupted (SIGINT ends it cleanly)."""
+    async def _unregister_worker(self):
         try:
-            asyncio.run(self.serve(host, port))
-        except KeyboardInterrupt:
+            await self._announce("/unregister")
+        except Exception:  # noqa: BLE001
             pass
 
-    def start_in_thread(self, host: str = "127.0.0.1",
-                        port: int = 0) -> "ServerThread":
-        """Serve from a thread of this process (tests, in-process
-        benchmarks); `ServerThread.port` is the bound port."""
-        return ServerThread(self, host, port)
+    async def disagg_context(self, req, conn):
+        """The context phase (`serve/disagg_server.py`)."""
+        from tensorrt_llm_tpu_torch.serve import disagg_server
+        return await disagg_server.disagg_context(self, req, conn)
+
+    async def disagg_generate(self, req, conn):
+        """The generation phase from a whole payload."""
+        from tensorrt_llm_tpu_torch.serve import disagg_server
+        return await disagg_server.disagg_generate(self, req, conn)
+
+    async def disagg_context_stream(self, req, conn):
+        """The context phase as a stream of KV frames."""
+        from tensorrt_llm_tpu_torch.serve import disagg_server
+        return await disagg_server.disagg_context_stream(self, req, conn)
+
+    async def disagg_generate_streamed(self, req, conn):
+        """The generation phase pulling KV frames from a context worker."""
+        from tensorrt_llm_tpu_torch.serve import disagg_server
+        return await disagg_server.disagg_generate_streamed(self, req, conn)
 
     # --------------------------------------------------------------- misc --
     async def health(self, req, conn):
@@ -913,9 +1032,9 @@ class OpenAIServer:
 
 
 class ServerThread:
-    """An `OpenAIServer` on an event loop of its own thread."""
+    """An `HTTPApp` on an event loop of its own thread."""
 
-    def __init__(self, server: OpenAIServer, host: str, port: int):
+    def __init__(self, server: HTTPApp, host: str, port: int):
         self.server = server
         self.loop = asyncio.new_event_loop()
         ready = threading.Event()
@@ -943,6 +1062,7 @@ class ServerThread:
 
     def stop(self):
         async def close():
+            await self.server.cleanup()
             srv = self.server._server
             srv.close()
             for w in list(self.server._writers):

@@ -28,9 +28,12 @@ against the JAX package's aiohttp server, on the CPU at a tiny size.
   the while, their KV reads on the executor thread), the
   `trtllm-torch-serve` CLI in a subprocess, and the imports
   with `jax`, `aiohttp` and `pydantic` blocked.
+* The disaggregated worker routes (``/disagg/*``) answer as the JAX
+  server's; the CLI's ``--register-to``, ``--advertise-url`` and
+  ``--disagg-role`` register a worker with a front end, and the
+  ``disaggregated`` subcommand starts and stops in a subprocess.
 * Intended differences, each a test: bodies that the JAX server fails
-  with 500 get 400; `/disagg/*` and `/v1/mm_embeddings` are not
-  registered (404); ``owned_by`` names the port's package; a block whose
+  with 500 get 400; `/v1/mm_embeddings` is not registered (404); ``owned_by`` names the port's package; a block whose
   content another device block already caches carries no event hash.
 """
 
@@ -494,15 +497,100 @@ def test_routes_match_jax(pair):
     assert js == ps == 405
 
 
-@pytest.mark.parametrize("path", [
-    "/disagg/context", "/disagg/generate", "/disagg/context_stream",
-    "/disagg/generate_streamed", "/v1/mm_embeddings"])
+@pytest.mark.parametrize("path", ["/v1/mm_embeddings"])
 def test_later_slice_routes_not_registered(pair, path):
-    """Intended difference: the JAX server registers these; the port's
-    disaggregated and multimodal slices are not in yet."""
+    """Intended difference: the JAX server registers this; the port's
+    multimodal slice is not in yet."""
     (js, _), (ps, pb) = pair.call("POST", path, {"model": "tiny"})
     assert js != 404
     assert ps == 404 and "error" in json.loads(pb)
+
+
+DISAGG_PROMPT = [int(t) for t in np.random.RandomState(21).randint(1, 255, 37)]
+DISAGG_BODY = {"model": "tiny", "prompt_token_ids": DISAGG_PROMPT,
+               "max_tokens": 6, "temperature": 0.0, "ignore_eos": True}
+
+
+def _frames(raw: bytes):
+    from tensorrt_llm_tpu_torch.llmapi.disagg_params import frame_from_bytes
+    out, off = [], 0
+    while off < len(raw):
+        n = int.from_bytes(raw[off:off + 8], "little")
+        out.append(frame_from_bytes(raw[off + 8:off + 8 + n]))
+        off += 8 + n
+    return out
+
+
+def _close_pages(port_layers, jax_layers, engine, n_tokens):
+    """The JAX pages (lane-packed at D 32) reshaped to the port's pools
+    hold the port's values, within bf16 rounding of two models, in the
+    `n_tokens` rows the prompt wrote (a last block's other rows are what
+    its block held before)."""
+    ours = engine.check_kv_layers(port_layers)
+    theirs = engine.check_kv_layers(jax_layers)
+    for a, b in zip(ours, theirs):
+        # [n, Hkv, BS, D] -> token rows [n * BS, Hkv, D]
+        a, b = (t.float().transpose(1, 2).reshape(-1, t.shape[1], t.shape[3])
+                [:n_tokens] for t in (a, b))
+        assert (a - b).abs().max() <= 0.02 * b.abs().max() + 1e-3
+
+
+@pytest.mark.parametrize("path", [
+    "/disagg/context", "/disagg/generate", "/disagg/context_stream",
+    "/disagg/generate_streamed"])
+def test_disagg_routes_answer_as_jax(pair, path):
+    """The disaggregated worker routes (`serve/disagg_server.py`) answer
+    the JAX server's bodies alike: the same first token and pages, the same
+    frames, the same greedy tokens."""
+    import base64
+    from tensorrt_llm_tpu_torch.llmapi.disagg_params import (
+        payload_from_bytes)
+    # the same request on both sides keeps their KV events alike
+    jw = pair.jl.generate([DISAGG_PROMPT], J.SamplingParams(
+        max_tokens=6, temperature=0.0, ignore_eos=True))[0]
+    want = pair.tl.generate([DISAGG_PROMPT], T.SamplingParams(
+        max_tokens=6, temperature=0.0, ignore_eos=True))[0]
+    want = want.outputs[0].token_ids
+    assert jw.outputs[0].token_ids == want
+    if path == "/disagg/context":
+        (js, jb), (ps, pb) = pair.call("POST", path, DISAGG_BODY)
+        assert js == ps == 200
+        j, p = json.loads(jb), json.loads(pb)
+        assert set(j) == set(p) == {"first_gen_tokens", "kv_payload_b64"}
+        assert j["first_gen_tokens"] == p["first_gen_tokens"] == want[:1]
+        jp, pp = (payload_from_bytes(base64.b64decode(x["kv_payload_b64"]))
+                  for x in (j, p))
+        assert jp["num_tokens"] == pp["num_tokens"] == len(DISAGG_PROMPT)
+        _close_pages(pp["layers"], jp["layers"], pair.tl.engine,
+                     len(DISAGG_PROMPT))
+    elif path == "/disagg/generate":
+        (js, jb), _ = pair.call("POST", "/disagg/context", DISAGG_BODY)
+        body = dict(DISAGG_BODY, **json.loads(jb))    # JAX's pages to both
+        (js, jb), (ps, pb) = pair.call("POST", path, body)
+        assert js == ps == 200
+        j, p = json.loads(jb), json.loads(pb)
+        assert strip(j) == strip(p)
+        assert p["choices"][0]["token_ids"] == want
+    elif path == "/disagg/context_stream":
+        (js, jb), (ps, pb) = pair.call("POST", path, DISAGG_BODY)
+        assert js == ps == 200
+        jf, pf = _frames(jb), _frames(pb)
+        assert [f.get("start_block") for f in jf] == \
+            [f.get("start_block") for f in pf]
+        assert jf[-1] == pf[-1] == {
+            "end": True, "num_tokens": len(DISAGG_PROMPT), "block_size": 8,
+            "first_gen_tokens": want[:1]}
+        _close_pages(pf[0]["layers"], jf[0]["layers"], pair.tl.engine,
+                     len(DISAGG_PROMPT))
+    else:
+        ju = str(pair.tc.make_url("")).rstrip("/")
+        js, jb = pair.jax("POST", path, dict(DISAGG_BODY, ctx_url=ju))
+        ps, pb = pair.port("POST", path, dict(
+            DISAGG_BODY, ctx_url=f"http://127.0.0.1:{pair.st.port}"))
+        assert js == ps == 200
+        assert strip(json.loads(jb)) == strip(json.loads(pb))
+        assert json.loads(pb)["choices"][0]["token_ids"] == want
+    assert pair.tl.get_kv_cache_stats()["active_sequences"] == 0
 
 
 def test_image_parts_refused(pair):
@@ -931,16 +1019,124 @@ def test_serve_cli_subprocess(tmp_path):
 
 @pytest.mark.parametrize("argv,match", [
     (["m", "--tp-size", "2"], "tensor-parallel"),
-    (["m", "--register-to", "http://x"], "disaggregated"),
-    (["m", "--advertise-url", "http://x"], "disaggregated"),
-    (["m", "--disagg-role", "context"], "disaggregated"),
     (["m", "--mm-encoder-only"], "multimodal"),
-    (["disaggregated", "--ctx-servers", "a"], "disaggregated"),
 ])
 def test_serve_cli_refuses_later_slices(argv, match):
     from tensorrt_llm_tpu_torch.commands import serve
     with pytest.raises(NotImplementedError, match=match):
         serve.main(argv + ["--device", "cpu"] if argv[0] == "m" else argv)
+
+
+@pytest.fixture(scope="module")
+def cli_ckpt(tmp_path_factory):
+    """A 2-layer checkpoint and the overrides the CLI tests serve it
+    with."""
+    from torch_parity import write_hf_checkpoint
+    d = tmp_path_factory.mktemp("cli")
+    hf = {"architectures": ["LlamaForCausalLM"], "model_type": "llama",
+          "vocab_size": 320, "hidden_size": 128, "intermediate_size": 256,
+          "num_hidden_layers": 2, "num_attention_heads": 4,
+          "num_key_value_heads": 2, "max_position_embeddings": 256,
+          "rms_norm_eps": 1e-5, "rope_theta": 10000.0,
+          "tie_word_embeddings": False}
+    (d / "ckpt").mkdir()
+    write_hf_checkpoint(d / "ckpt", hf, seed=0)
+    (d / "opts.json").write_text(json.dumps({
+        "skip_tokenizer_init": True, "kv_bookkeeping": "python",
+        "kv_num_blocks": 64}))
+    return d
+
+
+def _wait(pred, proc, what, timeout=120):
+    deadline = time.time() + timeout
+    while True:
+        try:
+            if pred():
+                return
+        except OSError:
+            pass
+        assert proc.poll() is None, proc.stdout.read().decode()
+        assert time.time() < deadline, what
+        time.sleep(0.2)
+
+
+def _stop(proc):
+    try:
+        proc.send_signal(signal.SIGINT)
+        assert proc.wait(timeout=60) == 0, proc.stdout.read().decode()
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+@pytest.mark.parametrize("flag", ["--register-to", "--advertise-url",
+                                  "--disagg-role"])
+def test_serve_cli_registers_worker(cli_ckpt, flag):
+    """The worker CLI joins a front end once it listens (``--register-to``;
+    ``--advertise-url`` names the URL it announces, ``--disagg-role`` its
+    pool; by default http://<host>:<port> and the generation pool) and
+    leaves it on SIGINT."""
+    from tensorrt_llm_tpu_torch.serve.disagg_server import OpenAIDisaggServer
+    front = OpenAIDisaggServer([], [], health_interval=0)
+    fs = front.start_in_thread()
+    port = free_port()
+    extra, role, url = [], "generation", f"http://127.0.0.1:{port}"
+    if flag == "--advertise-url":
+        url = "http://worker.example:9"
+        extra = [flag, url]
+    elif flag == "--disagg-role":
+        role, extra = "context", [flag, "context"]
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "tensorrt_llm_tpu_torch.commands.serve",
+         str(cli_ckpt / "ckpt"), "--device", "cpu", "--host", "127.0.0.1",
+         "--port", str(port), "--max-seq-len", "128", "--kv-block-size", "8",
+         "--extra-llm-api-options", str(cli_ckpt / "opts.json"),
+         "--register-to", f"http://127.0.0.1:{fs.port}"] + extra,
+        env=dict(os.environ, PYTHONPATH=str(ROOT)), cwd=str(cli_ckpt),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+    pool = front.ctx_pool if role == "context" else front.gen_pool
+    try:
+        _wait(lambda: pool.urls == [url], proc, "worker never registered")
+        assert get(port, "/health")[0] == 200
+        _stop(proc)
+        assert pool.urls == []
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        fs.stop()
+
+
+def test_serve_cli_disaggregated_subprocess(tmp_path):
+    """`trtllm-torch-serve disaggregated` starts with its pools, takes a
+    registration and stops on SIGINT."""
+    port = free_port()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "tensorrt_llm_tpu_torch.commands.serve",
+         "disaggregated", "--ctx-servers", "http://127.0.0.1:1",
+         "--gen-servers", "http://127.0.0.1:2", "http://127.0.0.1:3",
+         "--router", "kv_aware", "--health-interval", "0", "--stream-kv",
+         "--host", "127.0.0.1", "--port", str(port)],
+        env=dict(os.environ, PYTHONPATH=str(ROOT)), cwd=str(tmp_path),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+    try:
+        _wait(lambda: get(port, "/health")[0] == 200, proc, "no front end")
+        cl = json.loads(get(port, "/cluster")[1])
+        assert [s["url"] for s in cl["context"]] == ["http://127.0.0.1:1"]
+        assert len(cl["generation"]) == 2
+        c = http.client.HTTPConnection("127.0.0.1", port, timeout=30)
+        c.request("POST", "/register", body=json.dumps(
+            {"url": "http://127.0.0.1:4", "role": "context"}).encode())
+        assert c.getresponse().status == 200
+        c.close()
+        cl = json.loads(get(port, "/cluster")[1])
+        assert len(cl["context"]) == 2
+        _stop(proc)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
 
 
 def test_serve_cli_overrides(tmp_path, monkeypatch):
