@@ -67,7 +67,8 @@ Phases (any failure exits nonzero; nothing is caught and ignored):
    bounded near-ties, `_RouteTies`);
 8. a short `LLM.generate` run at Llama-3-8B width (2 layers), so that the
    attention kernels run at head dim 128 inside the model;
-9. serve the 8 requests on GPT-OSS-20B at full width and depth, W4A16
+9. serve the 8 requests on GPT-OSS-20B at full width and `GPT_OSS_LAYERS`
+   (12 of 24) layers, W4A16
    group 64 (MoE experts on K5, o_proj K-paired on K12 once per layer per
    forward, sinks, window 128, YaRN);
 10. GPT-OSS-20B width at 2 layers (sliding then full) on the card and on
@@ -76,9 +77,9 @@ Phases (any failure exits nonzero; nothing is caught and ignored):
    with an INT8 KV cache (K6/K7 attention, K8 for all four projections);
 12. Llama-3-8B W4A8 + INT8 KV at 2 layers on the card and on the CPU:
    logits and greedy tokens must agree;
-13. serve them on Moonlight-16B-A3B at full width and depth (27 layers,
-   dense MLA on K9/K10, kv_a on K12, 26 MoE layers on K5 with shared
-   experts and noaux_tc routing);
+13. serve them on Moonlight-16B-A3B at full width and `MOONLIGHT_LAYERS`
+   (9 of 27) layers (dense MLA on K9/K10, kv_a on K12, 8 MoE layers on K5
+   with shared experts and noaux_tc routing);
 14. serve them, plus one 3,000-token prompt (past `index_topk` 2048), on
    DeepSeek-V3.2 widths at 4 layers (DSA: K11 scores every decode step,
    the sparse attention is plain torch; kv_a on K12; layer 3 is a
@@ -119,7 +120,7 @@ Phases (any failure exits nonzero; nothing is caught and ignored):
 19. `bench_cross`: the Llama-3-8B and Llama-2-7B bench presets' widths at
    2 layers, W4A16, cross-checked against the CPU as in phase 7;
 20. `sampling`: the host logits path on Llama-3-8B W4A16 at full width and
-   depth with a byte-level tokenizer (random weights): a reference batch;
+   `SAMPLING_LAYERS` (8) layers with a byte-level tokenizer (random weights): a reference batch;
    a stop string spanning a token boundary in the same batch under fused
    chunks (`decode_steps > 1`), whose tokens must be the reference's cut
    at the match and whose text drops the stop string (or keeps it under
@@ -137,8 +138,8 @@ Phases (any failure exits nonzero; nothing is caught and ignored):
    repetition-penalty request (recorded, interleaved); then
    `batched_logits_processor` on TinyLlama-1.1B at full depth (its forced
    tokens, tensors on the card, launches per layer per forward);
-21. `openai`: Llama-3-8B W4A16 at full width and depth (random weights,
-   `ByteTokenizer`) served by the port's `OpenAIServer` on 127.0.0.1:
+21. `openai`: Llama-3-8B W4A16 at full width and `OPENAI_LAYERS` (8)
+   layers (random weights, `ByteTokenizer`) served by the port's `OpenAIServer` on 127.0.0.1:
    every route (health, models, version, clock, metrics, perf metrics,
    traces, health_generate, the embeddings refusal); a greedy completion
    whose text equals `llm.generate`'s, streamed too, its SSE deltas equal
@@ -160,25 +161,49 @@ Phases (any failure exits nonzero; nothing is caught and ignored):
    TinyLlama-width checkpoint in a subprocess: /health, one token-id
    completion, exit 0 on SIGINT;
 22. `disagg` (run before `bench`): disaggregated serving, TinyLlama W4A16
-   at full width and depth as a context and a generation worker of one
+   at full width and `DISAGG_LAYERS` (11 of 22) layers as a context and a generation worker of one
    process behind an `OpenAIDisaggServer` they register with, the serve
    mix in the two-phase, stream_kv and conditional modes (tokens against
    the generation worker's own batch, K3/K4 per worker per layer per
    chunk or step, no K3 on the generation worker for a transferred prompt,
    the context pool empty after each mode), the 600-token prompt's KV
    frames against the context worker's prefill chunks, then the host KV
-   tier and a dict connector (`disagg_phase`).
+   tier and a dict connector (`disagg_phase`);
+23. `spec` (run before `bench`): speculative decoding, greedy with
+   `ignore_eos` on the serve mix cut to 4 requests, each run against a
+   plain `LLM` of the same weights (tokens equal, or first differing at a
+   near-tie within `SPEC_TIE`, above the plain run's decode-vs-prefill
+   noise; `spec_stats` printed; rounds > 0): Llama-2-7B W4A16 at full
+   depth under NGRAM, the oracle chain (the plain run's next tokens; at
+   least 90% accepted, and its rounds reject a draft only at a request's
+   first, near-tie, difference from the plain run), the oracle tree (that chain and a junk sibling:
+   the pair-mask path), DRAFT_TARGET with a full-depth TinyLlama-1.1B
+   W4A16 draft, EAGLE3 and MEDUSA with a `medusa_choices` tree; DeepSeek-V3
+   width at `SPEC_V3_LAYERS` (4) layers under MTP.  Exact launch counts
+   from the executor's chunks, steps and verify forwards and the
+   drafters' passes (K3/K4 on A; K9/K10/K5 on B; the drafters' own
+   launches under the scope "draft"); decode-window tok/s, verify
+   forwards per committed token and host ms per round (`spec_phase`).
 
 Depth cuts that keep the script in its time limit (widths unchanged): the
-bench presets (`BENCH_LAYERS`: Llama-3-8B and Llama-2-7B 4 layers,
-TinyLlama and GPT-OSS 8; each model runs at full depth in `sampling` /
-`openai`, `serve` and `gptoss`), the W4A8 serve (`LLAMA3_W4A8_LAYERS`
-8) and the `checkpoint` phase's TinyLlama (`CKPT_TINYLLAMA_LAYERS` 4).
+bench presets (`BENCH_LAYERS`: all four at 4 layers, TinyLlama and
+GPT-OSS at 8 before the `spec` phase; Llama-2-7B runs at full depth in `spec`,
+TinyLlama in `serve`), Llama-3-8B at 8 layers in `sampling` and `openai`
+(`SAMPLING_LAYERS`, `OPENAI_LAYERS`), GPT-OSS-20B at 12 in `gptoss`
+(`GPT_OSS_LAYERS`), Moonlight at 9 in `deepseek` (`MOONLIGHT_LAYERS`),
+TinyLlama at 11 in `disagg` (`DISAGG_LAYERS`; all five at full depth
+before the `spec` phase, cut from the phases' measured seconds to make
+room for it; Moonlight at 27 brings the script to 985.2 s on an H100
+80GB HBM3 at 700 W when the host is slow), the W4A8 serve
+(`LLAMA3_W4A8_LAYERS` 8) and the `checkpoint` phase's TinyLlama
+(`CKPT_TINYLLAMA_LAYERS` 4).  Each phase's wall seconds
+are printed on one line (`phase seconds`) before the card's line and kept
+in the `--json` output (`PHASES["seconds"]`).
 
 Arguments pick phases (default: check serve serve_ramp serve_stream
 fused_mlp cross llama3 gptoss gptoss_cross llama3_w4a8 llama3_w4a8_cross
 deepseek deepseek_v32 deepseek_v3_width deepseek_cross checkpoint sampling
-openai disagg bench bench_cross);
+openai disagg spec bench bench_cross);
 `check_moe` runs
 only K5's checks, `check_w4a8` only K8's, `check_int8` only K6-K8's,
 `check_mla` only K9-K11's (with their plans' checks),
@@ -298,6 +323,17 @@ PREFILL_CASES = [
     ("gpt-oss-20b", 64, 8, 64, 256, 256, None, None, True),
     # a short chunk after a long prefix (one block per KV head walks it)
     ("llama-3-8b", 32, 8, 128, 17, 1024, None, None, False),
+    # speculative decoding past a served prompt: verify chunks of k + 1
+    # rows (NGRAM's ~2, EAGLE3's and DRAFT_TARGET's 4, the oracles' 5),
+    # EAGLE3's one-row block passes, and the TinyLlama draft's passes of
+    # 1 to k + 1 rows
+    ("llama-2-7b", 32, 32, 128, 1, 641, None, None, False),
+    ("llama-2-7b", 32, 32, 128, 2, 641, None, None, False),
+    ("llama-2-7b", 32, 32, 128, 4, 333, None, None, False),
+    ("llama-2-7b", 32, 32, 128, 5, 333, None, None, False),
+    ("llama-2-7b", 32, 32, 128, 5, 641, None, None, False),
+    ("tinyllama", 32, 4, 64, 1, 641, None, None, False),
+    ("tinyllama", 32, 4, 64, 4, 333, None, None, False),
 ]
 # the INT8-KV kernels K6/K7 at the D=128 cases above and one D=64 case;
 # K7 also at a short and a long chunk after a 1024-token prefix
@@ -1605,6 +1641,11 @@ MLA_PREFILL_CASES = [
     ("moonlight-16b-a3b", 16, 256, 1024),
     ("deepseek-v3", 128, 17, 1024),
     ("deepseek-v3", 128, 256, 1024),
+    # speculative decoding past a served prompt: MTP's verify chunks
+    # (k + 1 rows) and its block's one-row passes
+    ("deepseek-v3", 128, 4, 333),
+    ("deepseek-v3", 128, 4, 615),
+    ("deepseek-v3", 128, 1, 615),
 ]
 # `mla_prefill_splits` must pick a split count whose K10 time is within
 # this share of the fastest count timed, at every MLA_PREFILL_CASES row
@@ -1960,9 +2001,11 @@ def w4a8_cfg(shape, **over):
         quant_algo=QuantAlgo.W4A8_AWQ, group_size=128))
 
 
-GPT_OSS_LAYERS = 24     # full depth
-LLAMA3_W4A8_LAYERS = 8  # Llama-3-8B runs at full depth in `sampling`/`openai`
-MOONLIGHT_LAYERS = 27   # full depth
+GPT_OSS_LAYERS = 12     # of 24: the script's time limit
+LLAMA3_W4A8_LAYERS = 8  # Llama-3-8B widths: 8 layers here and in
+SAMPLING_LAYERS = 8     # `sampling` and
+OPENAI_LAYERS = 8       # `openai` (the script's time limit)
+MOONLIGHT_LAYERS = 9    # of 27: the script's time limit
 V32_LAYERS = 4          # 61 layers of 256 int4 experts do not fit one card
 V32_LONG_PROMPT = 3000  # past index_topk (2048): DSA's top-k drops tokens
 V32_DIAG_TOPK = 128     # below the cross-check's 200-token prompt
@@ -3194,11 +3237,11 @@ def checkpoint_phase(card, by_path):
 # ------------------------------------------------------- phase 18: bench --
 BENCH_PRESETS = ("tinyllama-1.1b", "llama-3-8b", "llama-2-7b", "gpt-oss-20b")
 # depth of the presets whose model is served at full depth by another
-# phase (`sampling` and `openai`: Llama-3-8B; `serve`: TinyLlama; `gptoss`:
-# GPT-OSS-20B) or whose widths are Llama-3-8B's (Llama-2-7B): the bench
+# phase (`spec`: Llama-2-7B; `serve`: TinyLlama) or at its widths
+# (`sampling` and `openai`: Llama-3-8B; `gptoss`: GPT-OSS-20B): the bench
 # phase keeps their widths and the mix, and the script its time limit
-BENCH_LAYERS = {"llama-3-8b": 4, "llama-2-7b": 4, "tinyllama-1.1b": 8,
-                "gpt-oss-20b": 8}
+BENCH_LAYERS = {"llama-3-8b": 4, "llama-2-7b": 4, "tinyllama-1.1b": 4,
+                "gpt-oss-20b": 4}
 BENCH_OVERLAP_OFF = ("tinyllama-1.1b", "gpt-oss-20b")
 BENCH_ISL = 128
 BENCH_OSL = 128
@@ -3943,7 +3986,7 @@ def _sampling_timing(llm, card):
 
 def sampling_phase(card, by_path):
     """Phase 20: the host logits path on Llama-3-8B W4A16 at full width
-    and depth (random weights, `ByteTokenizer`): the reference batch; stop
+    and `SAMPLING_LAYERS` deep (random weights, `ByteTokenizer`): the reference batch; stop
     strings in fused chunks; penalties, logit controls, a processor and
     guided regex/choice/JSON held token by token against the port's plain
     controls on the card's own raw rows; logprobs and prompt logprobs
@@ -3961,7 +4004,8 @@ def sampling_phase(card, by_path):
     tok = ByteTokenizer(V)
     out = {"phase": "sampling", "card": card}
     t0 = time.perf_counter()
-    llm = T.LLM(model=w4a16_cfg(LLAMA3_8B), tokenizer=tok, device=DEVICE,
+    llm = T.LLM(model=w4a16_cfg(LLAMA3_8B, num_layers=SAMPLING_LAYERS),
+                tokenizer=tok, device=DEVICE,
                 max_batch_size=SAMPLING_BATCH, max_num_tokens=512,
                 max_seq_len=512, kv_block_size=16, kv_num_blocks=2048,
                 seed=0)
@@ -4418,8 +4462,8 @@ def _openai_cli(card):
 
 
 def openai_phase(card, by_path):
-    """Phase 21: Llama-3-8B W4A16 at full width and depth (random weights,
-    `ByteTokenizer`) served by the port's `OpenAIServer` on 127.0.0.1:
+    """Phase 21: Llama-3-8B W4A16 at full width and `OPENAI_LAYERS` deep
+    (random weights, `ByteTokenizer`) served by the port's `OpenAIServer` on 127.0.0.1:
     every route (`_openai_checks`), then the load generator
     (`benchmark_serving`, the bench mix: ISL 128, OSL 128, 32 requests at
     concurrency 32, temperature 1, `ignore_eos`); the launch counters are
@@ -4441,7 +4485,8 @@ def openai_phase(card, by_path):
     out = {"phase": "openai", "card": card}
     tuned_before = set(AutoTuner.get().timings)
     t0 = time.perf_counter()
-    llm = T.LLM(model=w4a16_cfg(LLAMA3_8B), tokenizer=tok, device=DEVICE,
+    llm = T.LLM(model=w4a16_cfg(LLAMA3_8B, num_layers=OPENAI_LAYERS),
+                tokenizer=tok, device=DEVICE,
                 max_batch_size=BENCH_BATCH, max_seq_len=BENCH_SEQ_LEN,
                 seed=0)
     torch.cuda.synchronize()
@@ -4503,6 +4548,7 @@ def openai_phase(card, by_path):
 
 # ------------------------------------------------------ phase 22: disagg --
 DISAGG_PATH = "disagg"     # TinyLlama W4A16 disaggregated: K1-K4
+DISAGG_LAYERS = 11         # of TinyLlama's 22: the script's time limit
 DISAGG_CHUNK = 128         # each worker's prefill chunk (token budget)
 DISAGG_BLOCKS = 640        # each worker's KV pool (explicit: two share a card)
 DISAGG_COND_MAX = 256      # conditional mode: these prompts skip the hop
@@ -4527,28 +4573,40 @@ def _disagg_prompts(V):
         ids(n) for n in (17, 64, 200, 333, 480, 600)]
 
 
-def _near_ties(llm, prompts, want, got):
+def _near_ties(llm, prompts, want, got, tie=None, salt="tie",
+               reread=False):
     """Requests whose tokens equal `want`, and for each other one its first
-    difference, a near-tie if both tokens lie within DISAGG_TIE of the top
-    of `llm`'s row there (teacher forced on `want`; a logprob gap is the
-    logit gap)."""
+    difference, a near-tie if both tokens lie within `tie` (DISAGG_TIE) of
+    the top of `llm`'s row there (teacher forced on `want`; a logprob gap
+    is the logit gap).  With `reread` the row is computed twice, fresh
+    under `salt` and again over that prefix reused (the tail as one short
+    chunk, the shape a speculative verify forward has): a near-tie in
+    either counts, and both rows are kept (at an MoE routing near-tie the
+    two chunkings of one prefix route differently)."""
+    tie = DISAGG_TIE if tie is None else tie
     import tensorrt_llm_tpu_torch as T
     exact, ties = 0, []
-    for p, a, b in zip(prompts, want, got):
+    for n, (p, a, b) in enumerate(zip(prompts, want, got)):
         assert len(a) == len(b), (len(a), len(b))
         if a == b:
             exact += 1
             continue
         i = next(i for i, (u, v) in enumerate(zip(a, b)) if u != v)
-        row = llm.generate([p + a[:i]], T.SamplingParams(
+        rows = [llm.generate([p + a[:i]], T.SamplingParams(
             max_tokens=1, temperature=0.0, logprobs=20),
-            cache_salt="tie")[0].outputs[0].logprobs[0]
-        top = max(row.values())
-        ok = all(t in row and row[t] >= top - DISAGG_TIE
-                 for t in (a[i], b[i]))
-        ties.append({"position": i, "tokens": [a[i], b[i]],
-                     "logprobs": [row.get(a[i]), row.get(b[i])],
-                     "top": top, "near_tie": ok})
+            cache_salt=f"{salt}-{n}" if reread else salt)[0]
+            .outputs[0].logprobs[0] for _ in range(2 if reread else 1)]
+        seen = []
+        for row in rows:
+            top = max(row.values())
+            seen.append({"logprobs": [row.get(a[i]), row.get(b[i])],
+                         "top": top, "near_tie": all(
+                             t in row and row[t] >= top - tie
+                             for t in (a[i], b[i]))})
+        ties.append(dict(seen[0], request=n, position=i,
+                         tokens=[a[i], b[i]],
+                         near_tie=any(r["near_tie"] for r in seen),
+                         rows=seen))
     return exact, ties
 
 
@@ -4562,7 +4620,7 @@ def _post_all(port, bodies):
 
 def _disagg_mode(mode, front, fport, ctx, gen, prompts, want, L):
     """One mode's run of the 8 prompts through the front end, with the
-    launches of each worker's executor thread counted apart."""
+    launches of each worker's executor counted apart (its launch scope)."""
     import torch
     from tensorrt_llm_tpu_torch.ops import cuda_build
     front.stream_kv = mode == "stream_kv"
@@ -4583,11 +4641,11 @@ def _disagg_mode(mode, front, fport, ctx, gen, prompts, want, L):
     outs = _post_all(fport, bodies)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    by_thread = {k: dict(v) for k, v in
-                 cuda_build.launch_counts_by_thread.items()}
+    by_scope = {k: dict(v) for k, v in
+                cuda_build.launch_counts_by_scope.items()}
     total = dict(cuda_build.launch_counts)
-    cc = by_thread.get(ctx.executor._thread.ident, {})
-    cg = by_thread.get(gen.executor._thread.ident, {})
+    cc = by_scope.get(ctx.executor.launch_scope, {})
+    cg = by_scope.get(gen.executor.launch_scope, {})
     sc = [x for x in ctx.get_stats() if x["iteration"] > ic]
     sg = [x for x in gen.get_stats() if x["iteration"] > ig]
     chunks_c = sum(x["num_prefill_chunks"] for x in sc)
@@ -4785,7 +4843,7 @@ def _host_tier(tier, cfg, kw, ref_llm, a_prompt, b_prompt, fillers, card):
 
 def disagg_phase(card, by_path):
     """Phase 22: disaggregated serving on the card.  TinyLlama W4A16 at full
-    width and depth (random weights, seed 0) as a context worker and a
+    width and `DISAGG_LAYERS` deep (random weights, seed 0) as a context worker and a
     generation worker in this process, each an `LLM` with DISAGG_BLOCKS
     blocks behind an `OpenAIServer` on 127.0.0.1 that registers
     (`register_to`) with an `OpenAIDisaggServer`.  The serve mix (8 greedy
@@ -4805,7 +4863,7 @@ def disagg_phase(card, by_path):
     from tensorrt_llm_tpu_torch.serve.disagg_server import OpenAIDisaggServer
     from tensorrt_llm_tpu_torch.serve.openai_server import OpenAIServer
     t_all = time.perf_counter()
-    cfg = w4a16_cfg(TINYLLAMA)
+    cfg = w4a16_cfg(TINYLLAMA, num_layers=DISAGG_LAYERS)
     L = cfg.num_layers
     kw = dict(skip_tokenizer_init=True, device=DEVICE, max_batch_size=4,
               max_num_tokens=DISAGG_CHUNK, max_seq_len=1024,
@@ -4869,6 +4927,372 @@ def disagg_phase(card, by_path):
     log(f"[disagg] phase took {summary['seconds']:.1f} s ({card})")
     del ctx, gen
     torch.cuda.empty_cache()
+
+
+SPEC_PATH_A = "spec_llama2"   # speculative decoding on Llama-2-7B: K1-K4
+SPEC_PATH_B = "spec_v3"       # MTP on DeepSeek-V3 width: K5, K9, K10, K12
+SPEC_NEW = 48                 # new tokens a request
+SPEC_NEW_RANDOM = 24          # ... under a random drafter (1 token a round)
+SPEC_V3_LAYERS = 4            # 3 dense + 1 MoE (first_k_dense_replace 3)
+# logprob gap accepted at a greedy near-tie: the serve phases' RAMP_TIE;
+# Llama-2-7B's random logits sit at |x| 4-8, where one bf16 ulp is 0.03125.
+# The plain run's decode-vs-prefill noise must stay below it.
+SPEC_TIE = RAMP_TIE
+SPEC_ORACLE_MIN = 0.9         # accepted / proposed of the oracle chain
+
+
+def _spec_prompts(V):
+    """The serve mix cut to 4: two prompts sharing a 300-token prefix,
+    and 17 and 600 tokens."""
+    import numpy as np
+    rng = np.random.default_rng(5)
+
+    def ids(n):
+        return [int(t) for t in rng.integers(10, V - 10, n)]
+
+    shared = ids(300)
+    return [shared + ids(20), shared + ids(45), ids(17), ids(600)]
+
+
+def _decode_window(stats):
+    """(output tokens, seconds) of the iterations without a prefill
+    chunk."""
+    win = [s for s in stats if s["num_prefill_chunks"] == 0]
+    return (sum(s["num_decode_tokens"] for s in win),
+            sum(s["step_time_ms"] for s in win) / 1e3)
+
+
+def _spec_run(card, path, label, cfg, state, spec, prompts, plain,
+              want, kw, n_new=None):
+    """One `LLM` under `spec` on `state`'s weights: the prompts once, the
+    launch counters reset just before and read just after; tokens against
+    the plain run's (`want`, or a first difference at a near-tie of the
+    plain `LLM`'s row, both tokens within `SPEC_TIE` of its top); the
+    counts the executor and drafter report."""
+    import torch
+    import tensorrt_llm_tpu_torch as T
+    from tensorrt_llm_tpu_torch.ops import cuda_build
+    n_new = n_new or SPEC_NEW
+    t0 = time.perf_counter()
+    llm = T.LLM(model=cfg, params=state, speculative_config=spec,
+                device=DEVICE, **kw)
+    build_s = time.perf_counter() - t0
+    try:
+        it0 = llm.executor.iteration
+        cuda_build.reset_launch_counts()
+        t0 = time.perf_counter()
+        outs = llm.generate(prompts, T.SamplingParams(
+            max_tokens=n_new, temperature=0.0, ignore_eos=True))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = dict(cuda_build.launch_counts)
+        draft = dict(cuda_build.launch_counts_by_scope.get("draft", {}))
+        stats = [s for s in llm.get_stats() if s["iteration"] > it0]
+        st = dict(llm.executor.spec_stats)
+        passes = getattr(llm.executor.drafter, "passes", 0)
+    finally:
+        llm.shutdown()
+        del llm
+        torch.cuda.empty_cache()
+    got = [o.outputs[0].token_ids for o in outs]
+    want = [w[:n_new] for w in want]
+    exact, ties = _near_ties(plain, prompts, want, got, SPEC_TIE,
+                             salt=f"tie-{path}-{label}", reread=True)
+    assert all(t["near_tie"] for t in ties), (label, ties)
+    assert st["rounds"] > 0, (label, st)
+    chunks = sum(s["num_prefill_chunks"] for s in stats)
+    dsteps = sum(s["decode_steps"] for s in stats)
+    verify = sum(s["spec_verify_forwards"] for s in stats)
+    trees = sum(s["spec_tree_forwards"] for s in stats)
+    n_tok, win_s = _decode_window(stats)
+    spec_ms = sum(s["spec_ms"] for s in stats)
+    row = {"phase": path, "run": label, "card": card, "build_s": build_s,
+           "wall_s": wall, "exact_requests": exact, "near_ties": ties,
+           "token_ids": got,
+           "spec_stats": st, "prefill_chunks": chunks,
+           "decode_steps": dsteps, "verify_forwards": verify,
+           "tree_forwards": trees, "drafter_passes": passes,
+           "launches": counts, "draft_launches": draft,
+           "decode_window_tokens": n_tok, "decode_window_s": win_s,
+           "decode_tok_per_s": n_tok / win_s if win_s else None,
+           "verify_per_committed_token": (verify + trees) / max(
+               1, st["accepted"] + st["rounds"]),
+           "host_ms_per_round": spec_ms / st["rounds"],
+           "acceptance": st["accepted"] / max(1, st["proposed"])}
+    log(f"[{path}] {label}: spec_stats {json.dumps(st)}, "
+        f"{exact}/{len(prompts)} exact, {row['decode_tok_per_s']:.1f} "
+        f"decode tok/s, {row['host_ms_per_round']:.2f} host ms/round "
+        f"({card})")
+    return row
+
+
+def _spec_plain(card, path, label, cfg, prompts, kw):
+    """The plain `LLM` (random weights, seed 0) and its run of the
+    prompts: (llm, tokens, summary)."""
+    import torch
+    import tensorrt_llm_tpu_torch as T
+    from tensorrt_llm_tpu_torch.ops import cuda_build
+    t0 = time.perf_counter()
+    llm = T.LLM(model=cfg, device=DEVICE, seed=0, **kw)
+    build_s = time.perf_counter() - t0
+    it0 = llm.executor.iteration
+    cuda_build.reset_launch_counts()
+    t0 = time.perf_counter()
+    outs = llm.generate(prompts, T.SamplingParams(
+        max_tokens=SPEC_NEW, temperature=0.0, ignore_eos=True, logprobs=1))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    stats = [s for s in llm.get_stats() if s["iteration"] > it0]
+    counts = dict(cuda_build.launch_counts)
+    want = [o.outputs[0].token_ids for o in outs]
+    assert all(len(t) == SPEC_NEW for t in want)
+    # the path noise: each chosen token's logprob from its decode step
+    # against the same token's from one prefill of prompt + outputs (the
+    # path family a verify forward takes); it must stay below the
+    # near-tie tolerance the speculative runs are held to
+    noise = 0.0
+    for p, o in zip(prompts, outs):
+        ids = o.outputs[0].token_ids
+        pre = llm.generate([p + ids], T.SamplingParams(
+            max_tokens=1, temperature=0.0, prompt_logprobs=1),
+            cache_salt="noise")[0].prompt_logprobs
+        for j, (t, lp) in enumerate(zip(ids, o.outputs[0].logprobs)):
+            noise = max(noise, abs(pre[len(p) + j][t] - lp[t]))
+    assert noise < SPEC_TIE, (label, noise)
+    n_tok, win_s = _decode_window(stats)
+    dsteps = sum(s["decode_steps"] for s in stats)
+    row = {"phase": path, "run": label, "card": card, "build_s": build_s,
+           "wall_s": wall, "launches": counts, "path_noise": noise,
+           "prefill_chunks": sum(s["num_prefill_chunks"] for s in stats),
+           "decode_steps": dsteps, "decode_window_tokens": n_tok,
+           "decode_window_s": win_s,
+           "decode_tok_per_s": n_tok / win_s if win_s else None,
+           "forwards_per_committed_token": dsteps / max(1, n_tok)}
+    log(f"[{path}] {label}: built in {build_s:.1f} s, "
+        f"{row['decode_tok_per_s']:.1f} decode tok/s, decode-vs-prefill "
+        f"logprob noise {noise:.4f} ({card})")
+    return llm, want, row
+
+
+def _check_oracle_rounds(r, prompts, want, rounds):
+    """The oracle chain's rounds against its tokens: each round accepts its
+    draft up to the first committed token that differs from it (greedy),
+    which must add up to the executor's `spec_stats`; a round rejects a
+    drafted token only at its request's first difference from the plain
+    run (a near-tie, checked by `_spec_run`), so there are exactly as many
+    rejecting rounds as requests that left the plain run, and every other
+    round accepts all it drafted, whatever the run's length."""
+    got = r["token_ids"]
+    index = {tuple(p): n for n, p in enumerate(prompts)}
+    first = sorted(
+        (n, next(i for i, (u, v) in enumerate(zip(a, b)) if u != v))
+        for n, (a, b) in enumerate(zip(want, got)) if a != b)
+    proposed = accepted = 0
+    rejected = []
+    for key, i, d in rounds:
+        n = index[key]
+        g = got[n][i:i + len(d)]
+        acc = next((j for j, (u, v) in enumerate(zip(d, g)) if u != v),
+                   len(d))
+        proposed += len(d)
+        accepted += acc
+        if acc < len(d):
+            rejected.append((n, i + acc))
+    st = r["spec_stats"]
+    assert (proposed, accepted, len(rounds)) == (
+        st["proposed"], st["accepted"], st["rounds"]), (st, len(rounds))
+    assert sorted(rejected) == first, (rejected, first)
+    assert {t["request"] for t in r["near_ties"]} == {n for n, _ in first}
+    r["oracle_rejecting_rounds"] = len(rejected)
+
+
+def _spec_llama2(card, by_path):
+    """Target A: Llama-2-7B W4A16 at full depth (random weights, seed 0),
+    the 4-request mix greedy with `ignore_eos`, plain and under NGRAM
+    (k 4), the oracle chain (the plain run's own next tokens, k 4), the
+    oracle tree (that chain plus a junk sibling at the root: the pair-mask
+    path), DRAFT_TARGET with a full-depth TinyLlama-1.1B W4A16 draft of
+    the same 32,000 vocabulary (k 3), EAGLE3 (random block and fc, k 3)
+    and MEDUSA (three seeded heads, a `medusa_choices` tree).  Every run
+    shares the plain `LLM`'s weights.  Launches: K3 = 32 x (prefill chunks
+    + linear verify forwards) on the target (tree rounds add none), K4 =
+    32 x plain decode steps; the drafters' own launches (scope "draft"):
+    TinyLlama's K3 = 22 x its passes, EAGLE3's block K3 once a pass."""
+    import torch
+    from tensorrt_llm_tpu_torch.commands import bench
+    from tensorrt_llm_tpu_torch.speculative import (
+        SpeculativeConfig as SC, SpeculativeMode as SM)
+    cfg = w4a16_cfg(bench.MODEL_SHAPES["llama-2-7b"])
+    L = cfg.num_layers
+    V = cfg.vocab_size
+    prompts = _spec_prompts(V)
+    kw = dict(skip_tokenizer_init=True, max_batch_size=4,
+              max_num_tokens=256, max_seq_len=1024, kv_block_size=16,
+              kv_num_blocks=640)
+    plain, want, base = _spec_plain(card, SPEC_PATH_A, "plain", cfg,
+                                    prompts, kw)
+    rows = [base]
+    try:
+        state = plain.model.state()
+        by_prompt = {tuple(p): w for p, w in zip(prompts, want)}
+
+        def chain(req, k):
+            """The plain run's next k tokens, while the request still
+            follows it (none past a near-tie difference)."""
+            w = by_prompt[tuple(req.prompt_token_ids)]
+            i = req.num_output_tokens
+            return w[i:i + k] if req.output_token_ids == w[:i] else []
+
+        rounds = []     # the oracle chain's rounds: (prompt, position, draft)
+
+        def logged_chain(req):
+            # the executor cuts a draft so that its bonus token fits
+            # (`_spec_decode`'s budget); a non-empty draft is one round
+            i = req.num_output_tokens
+            d = chain(req, 4)[:SPEC_NEW - i - 1]
+            if d:
+                rounds.append((tuple(req.prompt_token_ids), i, d))
+            return d
+
+        def oracle_tree(req):
+            c = chain(req, 3)
+            if len(c) < 3:
+                return None
+            junk = (c[0] + 1) % V
+            return [c[0], junk, c[1], c[2]], [-1, -1, 0, 2]
+
+        H = cfg.hidden_size
+        gen = torch.Generator(device=DEVICE)
+        gen.manual_seed(1000)
+        medusa_w = {}
+        for i in range(3):
+            medusa_w[f"medusa_head.{i}.1.weight"] = torch.randn(
+                (V, H), generator=gen, device=DEVICE).mul_(0.02)
+        # (label, config, the draft's layers on the "draft" scope, new
+        # tokens: the random drafters commit one token a round)
+        runs = [
+            ("ngram", SC(mode=SM.NGRAM, max_draft_len=4), "target",
+             SPEC_NEW),
+            ("oracle_chain", SC(mode=SM.USER_PROVIDED, max_draft_len=4,
+                                proposer=logged_chain), "target",
+             SPEC_NEW),
+            ("oracle_tree", SC(mode=SM.USER_PROVIDED, max_draft_len=4,
+                               tree_proposer=oracle_tree), "target",
+             SPEC_NEW),
+            ("draft_target", SC(mode=SM.DRAFT_TARGET, max_draft_len=3,
+                                draft_model=w4a16_cfg(TINYLLAMA)),
+             TINYLLAMA["num_layers"], SPEC_NEW_RANDOM),
+            ("eagle3", SC(mode=SM.EAGLE3, max_draft_len=3), 1,
+             SPEC_NEW_RANDOM),
+            ("medusa", SC(mode=SM.MEDUSA, max_draft_len=3,
+                          num_medusa_heads=3, mtp_weights=medusa_w.get,
+                          medusa_choices=[(0,), (1,), (0, 0), (0, 1),
+                                          (1, 0), (0, 0, 0)]), "target",
+             SPEC_NEW_RANDOM),
+        ]
+        for label, spec, draft_layers, n_new in runs:
+            del rounds[:]
+            r = _spec_run(card, SPEC_PATH_A, label, cfg, state, spec,
+                          prompts, plain, want, kw, n_new)
+            c, d = r["launches"], r["draft_launches"]
+            main_k3 = c.get("flash_prefill", 0) - d.get("flash_prefill", 0)
+            assert main_k3 == L * (r["prefill_chunks"]
+                                   + r["verify_forwards"]), (label, r)
+            assert c.get("paged_decode", 0) == L * r["decode_steps"], \
+                (label, r)
+            assert d.get("paged_decode", 0) == 0, (label, d)
+            if draft_layers == "target":
+                assert not d, (label, d)
+            else:
+                assert d.get("flash_prefill", 0) == \
+                    draft_layers * r["drafter_passes"] > 0, (label, r)
+            if label == "oracle_chain":
+                # every rejection explained by a near-tie divergence, and
+                # the acceptance floor
+                _check_oracle_rounds(r, prompts, want, rounds)
+                assert r["acceptance"] >= SPEC_ORACLE_MIN, \
+                    (label, r["spec_stats"])
+            if label == "oracle_tree":
+                # the chain's nodes are accepted at depth, the junk
+                # sibling never
+                st = r["spec_stats"]
+                assert st["accepted"] >= 2 * st["rounds"], (label, st)
+            if label == "oracle_tree" or label == "medusa":
+                assert r["tree_forwards"] > 0, (label, r)
+            rows.append(r)
+    finally:
+        plain.shutdown()
+        del plain
+        torch.cuda.empty_cache()
+    total = {}
+    for r in rows:
+        for k, v in r["launches"].items():
+            total[k] = total.get(k, 0) + v
+    by_path[SPEC_PATH_A] = total
+    return rows
+
+
+def _spec_v3(card, by_path):
+    """Target B: DeepSeek-V3 width (dense MLA, 128 heads) at
+    `SPEC_V3_LAYERS` layers (3 dense, 1 of 256 experts), W4A16, plain and
+    under MTP with its `num_nextn_predict_layers=1` block (an MoE layer of
+    256 experts, random, seed 7), k 3.  Launches: K10 = 4 x (prefill
+    chunks + verify forwards) + the block's passes, K9 = 4 x plain decode
+    steps, K5 = 2 x (MoE-layer forwards + block passes)."""
+    import torch
+    from tensorrt_llm_tpu_torch.speculative import (
+        SpeculativeConfig as SC, SpeculativeMode as SM)
+    cfg = deepseek_cfg(SPEC_V3_LAYERS, dsa=False)
+    L = cfg.num_layers
+    n_moe = sum(cfg.is_moe_layer(i) for i in range(L))
+    prompts = _spec_prompts(cfg.vocab_size)
+    kw = dict(skip_tokenizer_init=True, max_batch_size=4,
+              max_num_tokens=256, max_seq_len=1024, kv_block_size=16,
+              kv_num_blocks=640)
+    plain, want, base = _spec_plain(card, SPEC_PATH_B, "plain", cfg,
+                                    prompts, kw)
+    try:
+        c = base["launches"]
+        assert c.get("mla_prefill", 0) == L * base["prefill_chunks"], base
+        assert c.get("mla_decode", 0) == L * base["decode_steps"], base
+        r = _spec_run(card, SPEC_PATH_B, "mtp", cfg, plain.model.state(),
+                      SC(mode=SM.MTP, max_draft_len=3), prompts, plain,
+                      want, kw)
+    finally:
+        plain.shutdown()
+        del plain
+        torch.cuda.empty_cache()
+    c, d = r["launches"], r["draft_launches"]
+    fwd = (r["prefill_chunks"] + r["decode_steps"] + r["verify_forwards"]
+           + r["tree_forwards"])
+    p = r["drafter_passes"]
+    assert p > 0 and d.get("mla_prefill", 0) == p, r
+    assert c.get("mla_prefill", 0) == L * (r["prefill_chunks"]
+                                           + r["verify_forwards"]) + p, r
+    assert c.get("mla_decode", 0) == L * r["decode_steps"], r
+    assert c.get("moe_gmm", 0) == 2 * (n_moe * fwd + p), r
+    assert d.get("moe_gmm", 0) == 2 * p, r
+    total = dict(base["launches"])
+    for k, v in c.items():
+        total[k] = total.get(k, 0) + v
+    by_path[SPEC_PATH_B] = total
+    return [base, r]
+
+
+def spec_phase(card, by_path, parts="both"):
+    """`spec`: speculative decoding on the card (`_spec_llama2`,
+    `_spec_v3`; `spec_llama2` / `spec_v3` run one of them)."""
+    t0 = time.perf_counter()
+    rows = []
+    if parts in ("both", "llama2"):
+        rows += _spec_llama2(card, by_path)
+    if parts in ("both", "v3"):
+        rows += _spec_v3(card, by_path)
+    out = {"phase": "spec", "card": card, "runs": rows,
+           "seconds": time.perf_counter() - t0}
+    PHASES["spec"] = out
+    log(json.dumps(out))
+    log(f"[spec] phase took {out['seconds']:.1f} s ({card})")
 
 
 SERVE_PATH = "serve"                    # TinyLlama W4A16: K1-K4, K13
@@ -5039,7 +5463,7 @@ def main() -> int:
                       "gptoss_cross", "llama3_w4a8", "llama3_w4a8_cross",
                       "deepseek", "deepseek_v32", "deepseek_v3_width",
                       "deepseek_cross", "checkpoint", "sampling", "openai",
-                      "disagg", "bench", "bench_cross"]
+                      "disagg", "spec", "bench", "bench_cross"]
     by_path = {}      # each serve path's own launch counts
     try:
         run_phases(phases, card, gen, dev, by_path)
@@ -5050,6 +5474,7 @@ def main() -> int:
             with open(out_json, "w") as f:
                 json.dump({"card": card, "phases": PHASES,
                            "checks": RESULTS}, f, indent=1)
+    log("phase seconds " + json.dumps(PHASES.get("seconds", {})))
     log(card)
     if "check" in phases and {
             p for *_, p, _ in KERNELS.values()} <= set(by_path):
@@ -5060,27 +5485,54 @@ def main() -> int:
     return 0
 
 
+class PhaseClock:
+    """`on(*names)`: whether any of the phases named runs; the first such
+    name's clock runs from then until the next phase starts (a phase's
+    blocks add up), into ``PHASES["seconds"]``."""
+
+    def __init__(self, phases):
+        self.phases = set(phases)
+        self.name, self.t0 = None, None
+        PHASES.setdefault("seconds", {})
+
+    def __call__(self, *names) -> bool:
+        hit = next((n for n in names if n in self.phases), None)
+        if hit is not None:
+            self.stop()
+            self.name, self.t0 = hit, time.perf_counter()
+        return hit is not None
+
+    def stop(self):
+        if self.name is not None:
+            sec = PHASES["seconds"]
+            sec[self.name] = round(sec.get(self.name, 0.0)
+                                   + time.perf_counter() - self.t0, 1)
+            self.name = None
+
+
 def run_phases(phases, card, gen, dev, by_path):
-    """Run the named phases in order; any failure propagates."""
+    """Run the named phases in order; any failure propagates.  Each
+    phase's wall seconds land in ``PHASES["seconds"]`` (`PhaseClock`)."""
     t0 = time.perf_counter()
-    if "check" in phases or "check_moe" in phases:
+    on = PhaseClock(phases)
+    if on("check", "check_moe"):
         check_moe(gen, dev)
-    if "check" in phases or "check_k1" in phases:
+    if on("check", "check_k1"):
         check_gemm(gen, dev)
-    if "check" in phases:
+    if on("check"):
         check_prefill(gen, dev)
         check_decode(gen, dev)
-    if "check" in phases or "check_int8" in phases:
+    if on("check", "check_int8"):
         check_prefill(gen, dev, PREFILL_INT8_CASES, int8=True)
         check_decode(gen, dev, DECODE_INT8_CASES, int8=True)
-    if {"check", "check_int8", "check_w4a8"} & set(phases):
+    if on("check", "check_int8", "check_w4a8"):
         check_w4a8(gen, dev)
-    if "check" in phases or "check_mla" in phases:
+    if on("check", "check_mla"):
         check_mla(gen, dev)
         check_mla_splits(gen, dev)
         check_mla_decode_plan(gen, dev)
         check_dsa_plan(gen, dev)
-    if "check" in phases or "check_w4a16" in phases:
+    if on("check", "check_w4a16"):
         check_w4a16(gen, dev)
     if RESULTS:
         log(f"[phase 3] {len(RESULTS)} kernel checks passed in "
@@ -5088,37 +5540,37 @@ def run_phases(phases, card, gen, dev, by_path):
     # K2 (w4a16_gemv) runs where the tuner picks it; `serve_stream` runs it
     # at every decode step
     base = ("w4a16_gemm", "flash_prefill", "paged_decode")
-    if "serve" in phases:
+    if on("serve"):
         by_path[SERVE_PATH] = serve_model(
             card, SERVE_PATH, "tinyllama-1.1b W4A16 (22 layers)",
             w4a16_cfg(TINYLLAMA), base)
-    if "serve_ramp" in phases:
+    if on("serve_ramp"):
         by_path[RAMP_PATH] = serve_ramp(card)
-    if "serve_stream" in phases:
+    if on("serve_stream"):
         by_path[STREAM_PATH] = serve_stream(card)
-    if "fused_mlp" in phases:
+    if on("fused_mlp"):
         by_path[FUSED_PATH] = fused_mlp_run(card)
-    if "cross" in phases:
+    if on("cross"):
         cross_check_cpu("cpu_cross_check", "tinyllama width, 2 layers",
                         w4a16_cfg(TINYLLAMA, num_layers=2, max_position=2048),
                         seed=1, n_prompt=100, chunk=64, n_decode=6)
-    if "llama3" in phases:
+    if on("llama3"):
         width_run("llama3", "llama-3-8b width, 2 layers",
                   w4a16_cfg(LLAMA3_8B, num_layers=2),
                   ("flash_prefill", "paged_decode"))
-    if "gptoss" in phases:
+    if on("gptoss"):
         n = GPT_OSS_LAYERS
         by_path["serve_gpt_oss"] = serve_model(
             card, "serve_gpt_oss", f"gpt-oss-20b W4A16 g64 ({n} layers)",
             gpt_oss_cfg(n), ("w4a16_gemm", "flash_prefill", "paged_decode",
                              "moe_gmm", "moe_gmm_units", "w4a16_kpaired"),
             kpaired_per_layer=1)
-    if "gptoss_cross" in phases:
+    if on("gptoss_cross"):
         cross_check_cpu("gpt_oss_cross_check",
                         "gpt-oss-20b width, 2 layers (sliding, full)",
                         gpt_oss_cfg(2), seed=4, n_prompt=200, chunk=128,
                         n_decode=4)
-    if "llama3_w4a8" in phases:
+    if on("llama3_w4a8"):
         n = LLAMA3_W4A8_LAYERS
         by_path[LLAMA3_W4A8_PATH] = serve_model(
             card, LLAMA3_W4A8_PATH,
@@ -5127,14 +5579,14 @@ def run_phases(phases, card, gen, dev, by_path):
                                   "w4a8_gemm"),
             absent=("flash_prefill", "paged_decode", "w4a16_gemm",
                     "w4a16_gemv"), kv_cache_quant="INT8")
-    if "llama3_w4a8_cross" in phases:
+    if on("llama3_w4a8_cross"):
         cross_check_cpu("llama3_w4a8_cross_check",
                         "llama-3-8b width W4A8 + INT8 KV, 2 layers",
                         w4a8_cfg(LLAMA3_8B, num_layers=2), seed=5,
                         n_prompt=200, chunk=128, n_decode=4,
                         kv_cache_quant="INT8")
     attn_gqa = ("flash_prefill", "paged_decode")
-    if "deepseek" in phases:
+    if on("deepseek"):
         n = MOONLIGHT_LAYERS
         by_path[MOONLIGHT_PATH] = serve_model(
             card, MOONLIGHT_PATH, f"moonlight-16b-a3b W4A16 ({n} layers)",
@@ -5142,7 +5594,7 @@ def run_phases(phases, card, gen, dev, by_path):
                                "moe_gmm_units", "mla_prefill", "mla_decode",
                                "w4a16_kpaired"),
             absent=attn_gqa + ("dsa_score",), kpaired_per_layer=1)
-    if "deepseek_v32" in phases:
+    if on("deepseek_v32"):
         n = V32_LAYERS
         by_path[V32_PATH] = serve_model(
             card, V32_PATH, f"deepseek-v3.2 widths W4A16 ({n} layers)",
@@ -5150,10 +5602,10 @@ def run_phases(phases, card, gen, dev, by_path):
                               "moe_gmm_units", "dsa_score", "w4a16_kpaired"),
             absent=attn_gqa + ("mla_prefill", "mla_decode"),
             long_prompt=V32_LONG_PROMPT, max_seq_len=4096)
-    if "deepseek_v3_width" in phases:
+    if on("deepseek_v3_width"):
         width_run("deepseek_v3_width", "deepseek-v3 width, 2 layers (dense)",
                   deepseek_cfg(2, dsa=False), ("mla_prefill", "mla_decode"))
-    if "deepseek_cross" in phases:
+    if on("deepseek_cross"):
         cross_check_cpu("moonlight_cross_check",
                         "moonlight-16b-a3b width, 2 layers (dense, MoE)",
                         moonlight_cfg(2), seed=6, n_prompt=200, chunk=128,
@@ -5162,29 +5614,35 @@ def run_phases(phases, card, gen, dev, by_path):
                         "deepseek-v3.2 width, 2 layers (index_topk 2048 "
                         "covers the context)", deepseek_cfg(2), seed=7,
                         n_prompt=200, chunk=128, n_decode=4)
-    if "checkpoint" in phases:
+    if on("checkpoint"):
         checkpoint_phase(card, by_path)
-    if "sampling" in phases:
+    if on("sampling"):
         sampling_phase(card, by_path)
-    if "openai" in phases:
+    if on("openai"):
         openai_phase(card, by_path)
-    if "disagg" in phases:
+    if on("disagg"):
         disagg_phase(card, by_path)
-    if "bench" in phases:
+    if on("spec"):
+        spec_phase(card, by_path)
+    if on("spec_llama2"):
+        spec_phase(card, by_path, "llama2")
+    if on("spec_v3"):
+        spec_phase(card, by_path, "v3")
+    if on("bench"):
         bench_phase(card, gen, dev, by_path)
-    if "bench_cross" in phases:
+    if on("bench_cross"):
         bench_cross()
-    if "bench_overlap" in phases:
+    if on("bench_overlap"):
         bench_overlap(card)
-    if "gemv_sweep" in phases:
+    if on("gemv_sweep"):
         gemv_sweep(gen, dev)
-    if "mla_decode_breakdown" in phases:
+    if on("mla_decode_breakdown"):
         mla_decode_breakdown(gen, dev)
-    if "route_witness" in phases:
+    if on("route_witness"):
         route_witness()
-    if "dsa_cross_breakdown" in phases:
+    if on("dsa_cross_breakdown"):
         dsa_cross_breakdown()
-    if "cross_breakdown" in phases:
+    if on("cross_breakdown"):
         # opt-in: the card-vs-CPU gap of the W4A8 + INT8 KV check split by
         # weights (W4A8 or W4A16) and KV pools (INT8 or bf16), two seeds
         for name, make in (("w4a8", w4a8_cfg), ("w4a16", w4a16_cfg)):
@@ -5195,18 +5653,19 @@ def run_phases(phases, card, gen, dev, by_path):
                                     make(LLAMA3_8B, num_layers=2), seed=seed,
                                     n_prompt=200, chunk=128, n_decode=4,
                                     kv_cache_quant=kv)
-    if "profile" in phases:
+    if on("profile"):
         profile_serve(card, "profile", w4a16_cfg(TINYLLAMA))
-    if "profile_gptoss" in phases:
+    if on("profile_gptoss"):
         profile_serve(card, "profile_gptoss", gpt_oss_cfg(GPT_OSS_LAYERS))
-    if "profile_llama3_int8" in phases:
+    if on("profile_llama3_int8"):
         profile_serve(card, "profile_llama3_int8", w4a8_cfg(LLAMA3_8B),
                       kv_cache_quant="INT8")
-    if "profile_deepseek" in phases:
+    if on("profile_deepseek"):
         profile_serve(card, "profile_deepseek", moonlight_cfg(MOONLIGHT_LAYERS))
-    if "profile_deepseek_v32" in phases:
+    if on("profile_deepseek_v32"):
         profile_serve(card, "profile_deepseek_v32", deepseek_cfg(V32_LAYERS),
                       long_prompt=V32_LONG_PROMPT, max_seq_len=4096)
+    on.stop()
     log(f"[done] phases {phases} in {time.perf_counter() - t0:.1f} s")
 
 

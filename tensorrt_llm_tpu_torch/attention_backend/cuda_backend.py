@@ -4,9 +4,11 @@ INT8 pools prefill on K7 and decode on K6.
 Counterpart of `tensorrt_llm_tpu/attention_backend/pallas_backend.py:51-108`.
 The KV append stays plain torch (`write_kv_cache`: an `index_copy_`
 scatter, after `quantize_kv_token` for INT8 pools), as XLA does it in the
-JAX package.  The JAX backend's other branches -- FP8 pools, cyclic VSWA
-rings and tree-verify pair masks -- raise here: they belong to later slices
-and are not rerouted to another path.
+JAX package.  A prefill step with a pair mask (draft-tree verification)
+goes to the plain `tree_verify_attention`, as the JAX Pallas backend sends
+it to XLA (`pallas_backend.py:70` -> `xla_backend.py:34`).  The JAX
+backend's other branches -- FP8 pools and cyclic VSWA rings -- raise here:
+they belong to later slices and are not rerouted to another path.
 """
 
 from __future__ import annotations
@@ -23,9 +25,9 @@ class CudaAttention(AttentionBackend):
                  sinks=None):
         if meta.cyclic:
             raise NotImplementedError("cyclic VSWA rings are not in this slice")
-        if meta.pair_mask is not None:
-            raise NotImplementedError("tree-verify attention is not in this "
-                                      "slice")
+        if meta.pair_mask is not None and meta.mode == "prefill":
+            return self.tree_attention(q, k, v, k_cache, v_cache, meta,
+                                       sinks)
         write_kv_cache(k_cache, v_cache, k, v, meta.slot_mapping)
         if meta.mode == "prefill":
             return flash_prefill_attention(
@@ -37,3 +39,4 @@ class CudaAttention(AttentionBackend):
                                       meta.kv_lens, scale=self.scale,
                                       sliding_window=self.sliding_window,
                                       sinks=sinks)
+

@@ -31,8 +31,11 @@ class AttentionMetadata:
     kv_lens: torch.Tensor = None         # [B] int32
     q_offset: int = 0                    # prefill: position of the first token
     mode: str = "decode"
-    # features of the JAX interface that this slice does not run
+    # prefill: [T, T] bool in-chunk visibility of a draft-tree verify step,
+    # whose `q_offset` is the committed prefix length (rows carry their own
+    # `positions`; tree rows have pad slots)
     pair_mask: Optional[torch.Tensor] = None
+    # a feature of the JAX interface that the port does not run
     cyclic: bool = False
 
     def __post_init__(self):
@@ -55,6 +58,21 @@ class AttentionBackend:
     def __call__(self, q, k, v, k_cache, v_cache, meta: AttentionMetadata,
                  sinks=None) -> torch.Tensor:
         raise NotImplementedError
+
+    def tree_attention(self, q, k, v, k_cache, v_cache,
+                       meta: AttentionMetadata, sinks=None) -> torch.Tensor:
+        """Draft-tree verification (JAX `XlaAttention` under a pair mask),
+        plain ops on every device: the prefix is read before this chunk's
+        K/V are written (rows with a pad slot, the tree's, land in reserved
+        page 0)."""
+        from tensorrt_llm_tpu_torch.ops.attention_plain import (
+            tree_verify_attention, write_kv_cache)
+        out = tree_verify_attention(
+            q, k_cache, v_cache, k, v, meta.block_tables[0], meta.q_offset,
+            meta.positions, meta.pair_mask, self.scale,
+            sliding_window=self.sliding_window, sinks=sinks)
+        write_kv_cache(k_cache, v_cache, k, v, meta.slot_mapping)
+        return out
 
 
 def get_attention_backend(device) -> type:

@@ -1,5 +1,6 @@
 """Plain PyTorch attention backend: gather-based paged attention over bf16
-or INT8 pools (dequantized after the gather).  Counterpart of
+or INT8 pools (dequantized after the gather), and draft-tree verification
+under a pair mask.  Counterpart of
 `tensorrt_llm_tpu/attention_backend/xla_backend.py`."""
 
 from __future__ import annotations
@@ -13,10 +14,13 @@ from tensorrt_llm_tpu_torch.ops.attention_plain import (
 class PlainAttention(AttentionBackend):
     def __call__(self, q, k, v, k_cache, v_cache, meta: AttentionMetadata,
                  sinks=None):
-        if meta.pair_mask is not None or meta.cyclic:
+        if meta.cyclic:
             raise NotImplementedError(
-                "tree-verify and cyclic (VSWA ring) attention are not in "
-                "this slice of the port")
+                "cyclic (VSWA ring) attention is not in this slice of the "
+                "port")
+        if meta.pair_mask is not None and meta.mode == "prefill":
+            return self.tree_attention(q, k, v, k_cache, v_cache, meta,
+                                       sinks)
         write_kv_cache(k_cache, v_cache, k, v, meta.slot_mapping)
         if meta.mode == "prefill":
             return paged_prefill_plain(

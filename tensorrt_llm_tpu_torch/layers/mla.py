@@ -151,6 +151,12 @@ class MLA(nn.Module):
         """x [T, hidden]; kv_cache is the latent pool [NB, 1, BS, L+R], or
         under DSA the pair (latent pool, indexer pool [NB, 1, BS, Di]), both
         updated in place."""
+        if meta.pair_mask is not None:
+            # the JAX MLA layer ignores the pair mask, so its tree rows are
+            # verified without their ancestor mask (ROADMAP, "Found in the
+            # reference"); the port refuses instead
+            raise NotImplementedError(
+                "draft-tree verification on MLA models is not supported")
         pool, idx_pool = (kv_cache if self.indexer is not None
                           else (kv_cache, None))
         T = x.shape[0]

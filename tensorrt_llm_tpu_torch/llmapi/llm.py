@@ -66,10 +66,17 @@ returns the future and the queue its KV frames appear on while the prefill
 still runs.  The host KV tier and the connector are the `LlmArgs` fields
 `kv_host_cache_blocks`, `kv_secondary_offload_min_priority` and
 `kv_connector`.  LoRA and beam search belong to later slices.
+
+`speculative_config` (JAX `llmapi/llm.py:240-300`) builds the drafter
+(`speculative.get_drafter`) that the executor binds; an MTP drafter
+without its own weights takes the checkpoint's extra layer, which
+`load_hf_weights` hands over.  Parallel sizes above 1 are refused
+(`LlmArgs.check_parallel`).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import numbers
 import os
@@ -197,6 +204,19 @@ class LLM:
             raise NotImplementedError(
                 "lora_path (LoRA merged into the weights at load) is not in "
                 "the port yet")
+        drafter = None
+        if a.speculative_config is not None:
+            from tensorrt_llm_tpu_torch.speculative import get_drafter
+            drafter = get_drafter(a.speculative_config, a)
+        a.check_parallel(drafter)
+        with contextlib.ExitStack() as stack:
+            self._build_with(drafter, stack)
+
+    def _build_with(self, drafter, stack: contextlib.ExitStack):
+        """The build; a checkpoint reader stays open on `stack` until the
+        executor has bound the drafter (an MTP drafter loads the
+        checkpoint's extra layer then)."""
+        a = self.args
         cfg, model_path = resolve_model_config(a)
         cfg.max_position = max(cfg.max_position, a.max_seq_len)
         self.model_config = cfg
@@ -207,12 +227,13 @@ class LLM:
         elif a.load_format == "dummy":
             self.model.init_random(a.seed)
         elif model_path is not None and has_weights(model_path):
-            with SafetensorsReader(model_path) as reader:
-                self.model.load_hf_weights(reader)
+            reader = stack.enter_context(SafetensorsReader(model_path))
+            sink = getattr(drafter, "set_checkpoint", None)
+            self.model.load_hf_weights(reader, mtp_sink=sink)
         else:
             if model_path is not None:
                 warnings.warn(f"no *.safetensors in {model_path}: drawing "
-                              "random weights", stacklevel=3)
+                              "random weights", stacklevel=4)
             self.model.init_random(a.seed)
         geo = pool_layout(cfg)
         kvcfg = a.make_kv_cache_config(geo["layout"], geo["dsa_index_dim"])
@@ -236,7 +257,8 @@ class LLM:
             max_seq_len=a.max_seq_len, max_decode_steps=a.max_decode_steps,
             overlap=not a.disable_overlap_scheduler,
             overlap_depth=a.overlap_depth, tokenizer=self._tokenizer,
-            batched_logits_processor=a.batched_logits_processor)
+            batched_logits_processor=a.batched_logits_processor,
+            drafter=drafter)
         self.executor.start()
         # join the executor thread at interpreter exit even without shutdown()
         self._exit_finalizer = weakref.finalize(

@@ -15,7 +15,13 @@ overlap on at depth 4) and the KV cache's (`enable_partial_reuse`,
 `copy_on_partial_reuse`, `kv_bookkeeping`: "native" or "python", and the
 host tier's `kv_host_cache_blocks`, `kv_secondary_offload_min_priority` and
 `kv_connector`) carry the JAX package's names.  `quant_clip_search` and `lora_path` are fields of the JAX
-package that the port refuses when set."""
+package that the port refuses when set.  `speculative_config` (a
+`speculative.SpeculativeConfig` or a mode name such as "AUTO") turns on
+speculative decoding.  The parallel sizes carry the JAX package's names;
+the port has no parallel mapping yet, so any size above 1 is refused
+(`check_parallel`), after the refusals the JAX package makes of
+speculation under star context parallelism and of hidden-tap drafters
+under pipeline parallelism."""
 
 from __future__ import annotations
 
@@ -71,6 +77,15 @@ class LlmArgs:
 
     lora_path: Optional[str] = None    # LoRA merged at load: not yet
 
+    # parallelism (JAX names): refused above 1 until the port has a mapping
+    tensor_parallel_size: int = 1
+    pipeline_parallel_size: int = 1
+    data_parallel_size: int = 1
+    context_parallel_size: int = 1
+    context_parallel_type: str = "ulysses"
+
+    speculative_config: Optional[Any] = None   # SpeculativeConfig | name
+
     max_decode_steps: int = 8          # decode steps per executor iteration
     batched_logits_processor: Any = None
     disable_overlap_scheduler: bool = False
@@ -91,6 +106,30 @@ class LlmArgs:
         if self.dtype not in ("bfloat16", "auto", torch.bfloat16):
             raise NotImplementedError(
                 f"dtype={self.dtype!r}: the port computes in bfloat16")
+
+    def check_parallel(self, drafter=None) -> None:
+        """Refuse what the port cannot run: speculation under star context
+        parallelism and a hidden-tap drafter under pipeline parallelism
+        (AssertionError, as the JAX package's asserts), then any parallel
+        size above 1 (NotImplementedError)."""
+        if self.context_parallel_size > 1 \
+                and self.context_parallel_type == "star" \
+                and self.speculative_config is not None:
+            raise AssertionError(
+                "speculative decoding under star CP lands later")
+        if self.pipeline_parallel_size > 1 \
+                and getattr(drafter, "needs_hidden", False):
+            raise AssertionError("hidden-tapping drafters (EAGLE/MTP) stay "
+                                 "single-step under PP")
+        sizes = {"tensor_parallel_size": self.tensor_parallel_size,
+                 "pipeline_parallel_size": self.pipeline_parallel_size,
+                 "data_parallel_size": self.data_parallel_size,
+                 "context_parallel_size": self.context_parallel_size}
+        big = [f"{k}={v}" for k, v in sizes.items() if v > 1]
+        if big:
+            raise NotImplementedError(
+                f"{', '.join(big)} needs the parallel mapping "
+                "(tensorrt_llm_tpu_torch.parallel), not in the port yet")
 
     def quant_config(self) -> Optional[QuantConfig]:
         if self.quant_clip_search:

@@ -11,8 +11,10 @@ JAX package, V3.2 is `DeepseekV3ForCausalLM` plus a `sparse_attention`
 indexer (the JAX registry has no `DeepseekV32ForCausalLM`).  `_load_attn`
 reads the MLA weights of an HF checkpoint (q with or without the low-rank
 bottleneck, V3.2's `indexer.*`); the MoE keys are the shared decoder's
-defaults.  The MTP head waits for a later slice: its checkpoint layers
-past `num_hidden_layers` are not read.
+defaults.  The checkpoint's MTP block (layer `num_hidden_layers`,
+`num_nextn_predict_layers` 1) is not part of the model: `load_hf_weights`
+hands it to the MTP drafter (`speculative/mtp.py`) when speculation runs
+in MTP mode.
 
 The presets are the published `config.json` fields (model-structure keys
 only) of huggingface.co/moonshotai/Moonlight-16B-A3B,

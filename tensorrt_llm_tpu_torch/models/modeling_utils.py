@@ -394,50 +394,60 @@ class DecoderModelForCausalLM(nn.Module):
         cfg, dev = self.cfg, self.device
         gen = torch.Generator(device=dev)
         gen.manual_seed(seed)
-        H, D = cfg.hidden_size, cfg.head_dim
-        Hq, Hkv = cfg.num_heads * D, cfg.num_kv_heads * D
+        H = cfg.hidden_size
 
         def normal(shape, std):
             return torch.randn(shape, generator=gen, device=dev).mul_(std)
 
         self.embedding.load(normal((cfg.vocab_size, H), 0.02))
+        for layer in self.layers:
+            self.init_layer(layer, normal)
+        if not cfg.tie_word_embeddings:
+            self.lm_head.from_float(normal((H, cfg.vocab_size),
+                                           0.5 / H ** 0.5))
+        return self
+
+    @torch.no_grad()
+    def init_layer(self, layer: "DecoderLayer", normal) -> None:
+        """Random weights of one decoder layer (`init_random`'s draw order),
+        from `normal(shape, std)`; the MTP drafter draws its block with
+        it."""
+        cfg = self.cfg
+        H, D = cfg.hidden_size, cfg.head_dim
+        Hq, Hkv = cfg.num_heads * D, cfg.num_kv_heads * D
         std = 0.5 / H ** 0.5
         b = 0.02
-        for layer in self.layers:
-            if cfg.is_mla:
-                self._init_mla(layer.attn, normal)
-            else:
-                layer.attn.from_float(
-                    normal((H, Hq), std), normal((H, Hkv), std),
-                    normal((H, Hkv), std), normal((Hq, H), std),
-                    q_b=normal((Hq,), b), k_b=normal((Hkv,), b),
-                    v_b=normal((Hkv,), b), o_b=normal((H,), b),
-                    sinks=normal((cfg.num_heads,), 0.5))
-            if layer.is_moe:
-                E, I = cfg.num_experts, cfg.moe_intermediate_size
-                chunk = 16
-                layer.mlp.load_experts(
-                    (normal((min(chunk, E - e), H, I), std),
-                     normal((min(chunk, E - e), H, I), std),
-                     normal((min(chunk, E - e), I, H), 0.5 / I ** 0.5))
-                    for e in range(0, E, chunk))
-                layer.mlp.from_float(
-                    normal((H, E), std), None, None, None,
-                    router_bias=normal((E,), b), gate_b=normal((E, I), b),
-                    up_b=normal((E, I), b), down_b=normal((E, H), b),
-                    score_bias=normal((E,), 0.05))
-                if layer.mlp.shared is not None:
-                    Is = cfg.n_shared_experts * I
-                    layer.mlp.shared.from_float(
-                        normal((H, Is), std), normal((H, Is), std),
-                        normal((Is, H), 0.5 / Is ** 0.5))
-            else:
-                I = cfg.intermediate_size
-                layer.mlp.from_float(normal((H, I), std), normal((H, I), std),
-                                     normal((I, H), 0.5 / I ** 0.5))
-        if not cfg.tie_word_embeddings:
-            self.lm_head.from_float(normal((H, cfg.vocab_size), std))
-        return self
+        if cfg.is_mla:
+            self._init_mla(layer.attn, normal)
+        else:
+            layer.attn.from_float(
+                normal((H, Hq), std), normal((H, Hkv), std),
+                normal((H, Hkv), std), normal((Hq, H), std),
+                q_b=normal((Hq,), b), k_b=normal((Hkv,), b),
+                v_b=normal((Hkv,), b), o_b=normal((H,), b),
+                sinks=normal((cfg.num_heads,), 0.5))
+        if layer.is_moe:
+            E, I = cfg.num_experts, cfg.moe_intermediate_size
+            chunk = 16
+            layer.mlp.load_experts(
+                (normal((min(chunk, E - e), H, I), std),
+                 normal((min(chunk, E - e), H, I), std),
+                 normal((min(chunk, E - e), I, H), 0.5 / I ** 0.5))
+                for e in range(0, E, chunk))
+            layer.mlp.from_float(
+                normal((H, E), std), None, None, None,
+                router_bias=normal((E,), b), gate_b=normal((E, I), b),
+                up_b=normal((E, I), b), down_b=normal((E, H), b),
+                score_bias=normal((E,), 0.05))
+            if layer.mlp.shared is not None:
+                Is = cfg.n_shared_experts * I
+                layer.mlp.shared.from_float(
+                    normal((H, Is), std), normal((H, Is), std),
+                    normal((Is, H), 0.5 / Is ** 0.5))
+        else:
+            I = cfg.intermediate_size
+            layer.mlp.from_float(normal((H, I), std), normal((H, I), std),
+                                 normal((I, H), 0.5 / I ** 0.5))
 
     def _init_mla(self, attn: MLA, normal) -> None:
         """Random MLA (and indexer) weights at the JAX package's `MLA.init`
@@ -493,7 +503,8 @@ class DecoderModelForCausalLM(nn.Module):
 
     # ---- HF checkpoints ---------------------------------------------------
     @torch.no_grad()
-    def load_hf_weights(self, get_tensor) -> "DecoderModelForCausalLM":
+    def load_hf_weights(self, get_tensor, mtp_sink=None
+                        ) -> "DecoderModelForCausalLM":
         """Install the weights of an HF checkpoint, the JAX package's
         `load_hf_weights`: `get_tensor(name)` gives the tensor of an HF
         name (None when absent).  Each tensor goes to the model's device as
@@ -502,8 +513,10 @@ class DecoderModelForCausalLM(nn.Module):
         host holds about one tensor and the device one layer's floats at a
         time.  Under a pre-quantized (AWQ/GPTQ) config a linear that ships
         qweight/qzeros/scales is unpacked exactly instead (`QTensor`).
-        Checkpoint layers past `num_layers` (DeepSeek's MTP head) are not
-        read."""
+        The checkpoint layer `num_layers` of a DeepSeek checkpoint (its MTP
+        block, ``eh_proj`` and friends) is not part of the model: when the
+        checkpoint holds it, `get_tensor` is handed to `mtp_sink` (the MTP
+        drafter's `set_checkpoint`), which reads it."""
         cfg, dev = self.cfg, self.device
         quant = cfg.quant
         pre_q = quant is not None and quant.pre_quantized
@@ -533,6 +546,9 @@ class DecoderModelForCausalLM(nn.Module):
             self._load_mlp(layer, get_tensor, pre, t, vec)
         if not cfg.tie_word_embeddings:
             self.lm_head.from_float(t("lm_head.weight"))
+        if mtp_sink is not None and get_tensor(
+                f"model.layers.{cfg.num_layers}.eh_proj.weight") is not None:
+            mtp_sink(get_tensor)
         return self
 
     def _load_attn(self, layer, pre: str, t, vec) -> None:
@@ -587,27 +603,72 @@ class DecoderModelForCausalLM(nn.Module):
     def forward(self, input_ids: torch.Tensor,
                 kv_caches: List[Tuple[torch.Tensor, torch.Tensor]],
                 meta: AttentionMetadata,
-                logit_indices: Optional[torch.Tensor] = None) -> torch.Tensor:
+                logit_indices: Optional[torch.Tensor] = None,
+                return_hidden: bool = False, capture: str = "final"):
         """Logits [rows, V] in f32 (bf16-rounded, as the JAX package's bf16
-        lm_head returns them).  KV caches are updated in place."""
+        lm_head returns them).  KV caches are updated in place.
+
+        `return_hidden` also returns the hidden states at the logit rows,
+        the tap one-model speculative drafters read (JAX
+        `forward(return_hidden=True)`): ``capture="final"`` the residual
+        stream before the final norm [rows, H] (the stream DeepSeek's MTP
+        `hnorm` and EAGLE training data are trained on), ``"eagle3"`` the
+        residual streams after layers 0, L//2 and L-1 concatenated
+        [rows, 3H] (a duplicate capture point of a tiny model repeats the
+        last).  Without it the logits are computed exactly as before."""
         x = self.embedding(input_ids)
         residual = None
         rope = (self.rope_cos, self.rope_sin)
+        L = len(self.layers)
+        cap_at = {0, L // 2, L - 1} if (return_hidden
+                                        and capture == "eagle3") else ()
+        captured = []
         for i, layer in enumerate(self.layers):
             x, residual = layer(x, residual, rope, kv_caches[i], meta)
+            if i in cap_at:
+                captured.append(_stream(x, residual))
+        hidden = None
+        if return_hidden:
+            if capture == "eagle3":
+                while len(captured) < 3:
+                    captured.append(captured[-1])
+                hidden = torch.cat(captured[:3], dim=-1)
+            else:
+                hidden = _stream(x, residual)
+            if logit_indices is not None:
+                hidden = hidden[logit_indices]
         x, _ = add_rms_norm(x, residual, self.final_norm.weight,
                             self.cfg.rms_eps)
         if logit_indices is not None:
             x = x[logit_indices]
+        logits = self.logits(x)
+        return (logits, hidden) if return_hidden else logits
+
+    def logits(self, x: torch.Tensor) -> torch.Tensor:
+        """The LM head on final-norm rows: f32 logits [rows, V]."""
         if self.cfg.tie_word_embeddings:
             # the JAX package's jnp.dot(x, emb.T) with f32 output; cuBLAS's
             # bf16 product on the card (f32 accumulation, bf16 out, as the
             # untied head)
-            w = self.embedding.weight
-            if x.device.type == "cuda":
-                return torch.matmul(x, w.t()).to(torch.float32)
-            return x.to(torch.float32) @ w.to(torch.float32).t()
+            return dot_f32(x, self.embedding.weight.t())
         return self.lm_head(x).to(torch.float32)
+
+
+def _stream(x: torch.Tensor, residual: Optional[torch.Tensor]
+            ) -> torch.Tensor:
+    """The residual stream x + residual (added in f32, rounded once)."""
+    if residual is None:
+        return x
+    return (x.to(torch.float32) + residual.to(torch.float32)).to(x.dtype)
+
+
+def dot_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """`a @ b` of bf16 operands as f32, as JAX's ``jnp.dot(...,
+    preferred_element_type=f32)``: in f32 on the CPU, cuBLAS's bf16 product
+    (f32 accumulation) on the card."""
+    if a.device.type == "cuda":
+        return torch.matmul(a, b.to(a.dtype)).to(torch.float32)
+    return a.to(torch.float32) @ b.to(torch.float32)
 
 
 def hf_tensor(get_tensor, name: str, device) -> torch.Tensor:

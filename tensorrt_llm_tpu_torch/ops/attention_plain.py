@@ -1,6 +1,8 @@
 """Paged KV cache ops and plain PyTorch attention.
 
-Counterpart of the main-path part of `tensorrt_llm_tpu/ops/attention_xla.py`.
+Counterpart of the main-path part of `tensorrt_llm_tpu/ops/attention_xla.py`
+and of its draft-tree verification (`tree_verify_attention`: plain ops on
+the card too, as the JAX package leaves it to XLA).
 `paged_prefill_plain` and `paged_decode_plain` are the plain versions of the
 two attention kernels (`ops/flash_prefill.py`, `ops/paged_attention.py`): the
 CPU path runs them, and the chip check holds the kernels against them.
@@ -171,3 +173,48 @@ def paged_decode_plain(q: torch.Tensor, k_cache: Pool, v_cache: Pool,
     probs = _masked_softmax(scores, mask, sink_r)
     out = torch.einsum("bhgs,bshd->bhgd", probs, v.to(torch.float32))
     return out.reshape(B, Hq, d).to(q.dtype)
+
+
+def tree_verify_attention(q: torch.Tensor, k_cache: Pool, v_cache: Pool,
+                          k_new: torch.Tensor, v_new: torch.Tensor,
+                          block_table: torch.Tensor, prefix_len: int,
+                          positions: torch.Tensor, tree_mask: torch.Tensor,
+                          scale: float,
+                          sliding_window: Optional[int] = None,
+                          sinks: Optional[torch.Tensor] = None
+                          ) -> torch.Tensor:
+    """Draft-tree verification attention for one sequence (JAX
+    `tree_verify_attention_xla`): the pool is read for the `prefix_len`
+    committed positions only (so the chunk's own writes are never read
+    back), the chunk's K/V [T, Hkv, D] come from the inputs in the query's
+    dtype (an INT8 pool's chunk rows are not quantized), and in-chunk
+    visibility is the host-built `tree_mask` [T, T] ANDed with causality
+    by `positions` [T] (tree rows of one depth share a position).  The
+    sliding window and the sinks act as in `mha`."""
+    nb, h, bs, d = pool_dims(k_cache)
+    kp = gather_dequant(k_cache, block_table, q.dtype).permute(0, 2, 1, 3) \
+        .reshape(-1, h, d)
+    vp = gather_dequant(v_cache, block_table, q.dtype).permute(0, 2, 1, 3) \
+        .reshape(-1, h, d)
+    S = kp.shape[0]
+    T, Hq, D = q.shape
+    G = Hq // h
+    s = torch.arange(S, device=q.device)
+    kv_pos = torch.cat([torch.where(s < prefix_len, s, -1),
+                        positions.to(s.dtype)])
+    k = torch.cat([kp, k_new.to(kp.dtype)])
+    v = torch.cat([vp, v_new.to(vp.dtype)])
+    qf = (q.to(torch.float32) * scale).reshape(T, h, G, D)
+    scores = torch.einsum("thgd,shd->hgts", qf, k.to(torch.float32))
+    q_pos = positions.to(s.dtype)[:, None]
+    kp_ = kv_pos[None, :]
+    mask = (kp_ >= 0) & (kp_ <= q_pos)
+    if sliding_window is not None:
+        mask = mask & (kp_ > q_pos - sliding_window)
+    pair = torch.cat([torch.ones((T, S), dtype=torch.bool, device=q.device),
+                      tree_mask.to(device=q.device, dtype=torch.bool)], dim=1)
+    sink_r = (sinks.reshape(h, G, 1, 1).to(torch.float32)
+              if sinks is not None else None)
+    probs = _masked_softmax(scores, (mask & pair)[None, None], sink_r)
+    out = torch.einsum("hgts,shd->thgd", probs, v.to(torch.float32))
+    return out.reshape(T, Hq, D).to(q.dtype)

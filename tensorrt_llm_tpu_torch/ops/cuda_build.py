@@ -13,15 +13,18 @@ beside the library (`<source>.log`), so that a run that loads an existing
 build still reads what ptxas said (`build_logs`, `serialized_wgmma`).
 
 Every wrapper that launches one of these kernels adds one to its entry in
-`launch_counts` (`count_launch`, under a lock, also into the launching
-thread's own counter in `launch_counts_by_thread`: two engines of one
-process, each on its executor thread, are counted apart); the chip check
-reads the counts to prove the main path ran through the kernels.
+`launch_counts` (`count_launch`, under a lock, and inside a `launch_scope`
+also into that scope's counter in `launch_counts_by_scope`: each executor's
+loop runs in a scope of its own, and a draft model's engine, on its
+target's executor thread, in the scope ``"draft"``, so two engines of one
+process are counted apart); the chip check reads the counts to prove the
+main path ran through the kernels.
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import ctypes
 import fcntl
 import hashlib
@@ -42,10 +45,11 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 # kernel name -> launches through its wrapper since the last reset
 launch_counts: "collections.Counter[str]" = collections.Counter()
-# thread ident -> kernel name -> launches from that thread
-launch_counts_by_thread: "collections.defaultdict" = \
+# scope name -> kernel name -> launches made inside `launch_scope(name)`
+launch_counts_by_scope: "collections.defaultdict" = \
     collections.defaultdict(collections.Counter)
 _count_lock = threading.Lock()
+_scope = threading.local()
 
 _lib: Optional[ctypes.CDLL] = None
 last_build_seconds: Optional[float] = None
@@ -122,16 +126,30 @@ _SIGNATURES = {
 
 
 def count_launch(name: str) -> None:
-    """One launch of kernel `name`, by the calling thread."""
+    """One launch of kernel `name` (and in the calling thread's scope)."""
+    scope = getattr(_scope, "name", None)
     with _count_lock:
         launch_counts[name] += 1
-        launch_counts_by_thread[threading.get_ident()][name] += 1
+        if scope is not None:
+            launch_counts_by_scope[scope][name] += 1
+
+
+@contextlib.contextmanager
+def launch_scope(name: str):
+    """Count the calling thread's launches also under `name` while inside
+    (the innermost scope only)."""
+    prev = getattr(_scope, "name", None)
+    _scope.name = name
+    try:
+        yield
+    finally:
+        _scope.name = prev
 
 
 def reset_launch_counts() -> None:
     with _count_lock:
         launch_counts.clear()
-        launch_counts_by_thread.clear()
+        launch_counts_by_scope.clear()
 
 
 def find_nvcc() -> str:

@@ -82,8 +82,28 @@ has no end frame within `RECEIVE_DEADLINE_S` (the JAX server's 600 s) ends
 with an error; and a context-only request that fails puts an error frame
 on its stream.
 
-Not in this slice: speculative and beam decoding, multi-host lockstep and
-VSWA ring frames.  The JAX package's faults listed in ROADMAP Queue C are
+Speculative decoding (JAX `_spec_decode`, `_verify_tree`, with a
+`drafter`, `speculative/`): each iteration, unless the gate is off (more
+decoding requests than `max_concurrency`, a `draft_len_schedule` entry of
+0, the adaptive disable after a window of short acceptances, or a
+`batched_logits_processor`), the pipeline is drained and every greedy
+request without logprobs, generation logits, a matcher or host logit
+controls takes a round: the drafter proposes a tree (`_verify_tree`: one
+forward under an ancestor mask; the accepted path's KV rides the next
+round's chunk, `_spec_pending`, or `_flush_pending` writes it) or a chain
+(one prefill-like forward over the last token and the draft), the longest
+matching prefix plus one bonus token is appended (relaxed acceptance
+inside thinking spans), and `spec_stats` counts proposed and accepted
+tokens and rounds.  A request the drafter has nothing for decodes
+normally, at most 2 steps a chunk while speculation is on; a one-model
+drafter's (`needs_hidden`) greedy requests decode one step at a time on
+the host logits path, their prefill chunks returning every row, so the
+drafter gets the hidden tap of every position (`on_hidden`).  Drafters
+hear of every finished request (`on_request_finished`) and are flushed at
+shutdown.
+
+Not in this slice: beam decoding, multi-host lockstep and VSWA ring
+frames.  The JAX package's faults listed in ROADMAP Queue C are
 not copied: a request's failure ends only that request, and shutdown
 resolves every request still held.
 """
@@ -92,6 +112,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import itertools
 import queue
 import threading
 import time
@@ -104,6 +125,7 @@ import torch
 
 from tensorrt_llm_tpu_torch.llmapi.disagg_params import leaves
 from tensorrt_llm_tpu_torch.llmapi.tracing import RequestTracer
+from tensorrt_llm_tpu_torch.ops.cuda_build import launch_scope
 from tensorrt_llm_tpu_torch.runtime.guided_decoder import (
     GuidedDecoder, create_matcher)
 from tensorrt_llm_tpu_torch.runtime.model_engine import ModelEngine
@@ -119,6 +141,7 @@ from tensorrt_llm_tpu_torch.utils import logger, upload
 STATS_KEPT = 1000   # iterations of stats the executor keeps
 CANCEL_GRACE = 3    # iterations an unmatched cancel waits for its request
 RECEIVE_DEADLINE_S = 600.0   # a streamed KV receive's end frame, at most
+_EXECUTOR_IDS = itertools.count()   # for each executor's launch scope
 
 
 @dataclass
@@ -131,6 +154,12 @@ class IterationStats:
     num_decode_tokens: int = 0
     decode_steps: int = 0
     inflight_chunks: int = 0
+    # speculative rounds, and the target forwards they ran: linear verify
+    # chunks and tree verify steps (with the pending-KV flushes)
+    spec_rounds: int = 0
+    spec_verify_forwards: int = 0
+    spec_tree_forwards: int = 0
+    spec_ms: float = 0.0          # host wall ms of the speculative section
     kv_stats: dict = field(default_factory=dict)
     step_time_ms: float = 0.0
 
@@ -141,7 +170,7 @@ class PyExecutor:
                  eos_token_id: Optional[int] = None, max_seq_len: int = 2048,
                  max_decode_steps: int = 8, overlap: bool = True,
                  overlap_depth: int = 4, tokenizer=None,
-                 batched_logits_processor=None):
+                 batched_logits_processor=None, drafter=None):
         self.engine = engine
         self.kv = engine.kv_manager
         # the host KV tier moves blocks with the disaggregated page copies
@@ -174,6 +203,21 @@ class PyExecutor:
                            else StopScanWorker(tokenizer))
         self._stop_fed: dict = {}      # request id -> tokens fed to the scan
 
+        # speculative decoding (module docstring)
+        self.drafter = drafter
+        if drafter is not None:
+            drafter.bind(engine, self.kv)
+        self._needs_hidden = bool(getattr(drafter, "needs_hidden", False))
+        self._hidden_capture = getattr(drafter, "hidden_capture", "final")
+        self.spec_stats = {"proposed": 0, "accepted": 0, "rounds": 0}
+        self._spec_adaptive_off = False
+        self._spec_len_cap = None
+        self._spec_pending: dict = {}  # request id -> tree KV not written
+        self._think: dict = {}         # request id -> (scanned, thinking)
+        aw = getattr(getattr(drafter, "cfg", None), "acceptance_window",
+                     None)
+        self._accept_hist = collections.deque(maxlen=aw) if aw else None
+
         self.request_queue: "queue.Queue[LlmRequest]" = queue.Queue()
         self.active: List[LlmRequest] = []
         self.waiting: List[LlmRequest] = []
@@ -191,6 +235,9 @@ class PyExecutor:
         self._shutdown = threading.Event()
         self._wake = threading.Event()
         self._thread: Optional[threading.Thread] = None
+        # the loop's kernel launches are counted under this name too
+        # (`cuda_build.launch_counts_by_scope`)
+        self.launch_scope = f"executor-{next(_EXECUTOR_IDS)}"
         self._error: Optional[BaseException] = None
         self._jobs: List = []          # callables run between two steps
 
@@ -211,6 +258,8 @@ class PyExecutor:
         self._fail_all("executor shut down", FinishReason.CANCELLED)
         if self._stop_scan is not None:
             self._stop_scan.close()
+        if self.drafter is not None and hasattr(self.drafter, "flush"):
+            self.drafter.flush()      # capture drafters write their shard
 
     def call_between_steps(self, fn, drain: bool = True):
         """Run `fn` on the executor thread between two iterations and
@@ -336,12 +385,14 @@ class PyExecutor:
         if self.engine.device.type == "cuda":
             torch.cuda.set_device(self.engine.device)
         try:
-            while not self._shutdown.is_set():
-                if not self._step():
-                    # frames of a receive arrive on a queue the loop polls
-                    self._wake.wait(
-                        timeout=0.0005 if self._receiving else 0.005)
-                    self._wake.clear()
+            with launch_scope(self.launch_scope):
+                while not self._shutdown.is_set():
+                    if not self._step():
+                        # frames of a receive arrive on a queue the loop
+                        # polls
+                        self._wake.wait(
+                            timeout=0.0005 if self._receiving else 0.005)
+                        self._wake.clear()
         except BaseException as e:  # noqa: BLE001
             self._error = e
             logger.error("executor loop died: %s\n%s", e,
@@ -507,8 +558,18 @@ class PyExecutor:
                 chunk = min(chunk, req.remaining_context)
             start = req.context_position
             self.kv.grow_sequence(req.request_id, start + chunk)
-            logits = self.engine.run_prefill(
-                self.engine.prepare_prefill_inputs(req, chunk, want_rows))
+            # a one-model drafter reads the hidden of every prompt row
+            tap = self._needs_hidden and sp.greedy
+            inputs = self.engine.prepare_prefill_inputs(
+                req, chunk, want_rows or tap)
+            if tap:
+                logits, hidden = self.engine.run_with_hidden(
+                    "prefill", inputs, self._hidden_capture)
+                self.drafter.on_hidden(req, start, hidden)
+                if not want_rows:
+                    logits = logits[chunk - 1:]
+            else:
+                logits = self.engine.run_prefill(inputs)
             if want_rows:
                 # the chunk's rows go to the host; only the last stays
                 rows = logits.cpu().numpy()
@@ -527,6 +588,10 @@ class PyExecutor:
                 self._sample_and_update([req], logits)
 
         decode_reqs = [r for r in batch.decode if r.is_generating]
+        if self.drafter is not None and decode_reqs:
+            t_spec = time.perf_counter()
+            decode_reqs = self._speculate(decode_reqs, stats)
+            stats.spec_ms = (time.perf_counter() - t_spec) * 1e3
         if self._inflight and not decode_reqs:
             self._drain_inflight()
         if decode_reqs and self._host_logits(decode_reqs):
@@ -725,10 +790,15 @@ class PyExecutor:
                     break
 
     def _forget(self, req: LlmRequest):
-        """Drop a request's matcher, penalty counts and stop-scan state."""
+        """Drop a request's matcher, penalty counts, stop-scan and
+        speculation state, and tell the drafter it ended."""
         rid = req.request_id
         self.guided.drop(rid)
         self._counts.drop(rid)
+        self._spec_pending.pop(rid, None)
+        self._think.pop(rid, None)
+        if self.drafter is not None:
+            self.drafter.on_request_finished(req)
         if self._stop_fed.pop(rid, None) is not None:
             self._stop_scan.drop(rid)
 
@@ -748,9 +818,13 @@ class PyExecutor:
 
     def _host_logits(self, reqs: List[LlmRequest]) -> bool:
         """Whether a decode batch takes the host logits path, one step at
-        a time (the JAX `_decode_steps_for`'s k = 1 cases)."""
+        a time (the JAX `_decode_steps_for`'s k = 1 cases); a one-model
+        drafter's greedy requests take it for their hidden tap."""
         if self.batched_logits_processor is not None \
                 or self.guided.any_active(reqs):
+            return True
+        if self._needs_hidden and any(r.sampling_params.greedy
+                                      for r in reqs):
             return True
         return any(self._needs_host_controls(r.sampling_params)
                    or r.sampling_params.return_generation_logits
@@ -760,8 +834,17 @@ class PyExecutor:
         """One decode step whose logits come back to `_sample_and_update`."""
         for req in reqs:
             self.kv.grow_sequence(req.request_id, req.num_tokens)
-        self._sample_and_update(reqs, self.engine.run_decode(
-            self.engine.prepare_decode_inputs(reqs)))
+        inputs = self.engine.prepare_decode_inputs(reqs)
+        if not self._needs_hidden:
+            self._sample_and_update(reqs, self.engine.run_decode(inputs))
+            return
+        logits, hidden = self.engine.run_with_hidden(
+            "decode", inputs, self._hidden_capture)
+        for i, req in enumerate(reqs):
+            if req.sampling_params.greedy:
+                self.drafter.on_hidden(req, req.num_tokens - 1,
+                                       hidden[i:i + 1])
+        self._sample_and_update(reqs, logits)
 
     def _decode_steps_for(self, reqs: List[LlmRequest]) -> int:
         """Decode steps to fuse into one dispatch without passing any
@@ -769,6 +852,10 @@ class PyExecutor:
         overshoot at 4 steps (extra tokens are dropped host-side).  The
         block guard counts positions already dispatched (`_virtual`)."""
         k = self.max_decode_steps
+        if self.drafter is not None and not self._spec_adaptive_off:
+            # speculation owns the decode loop: a long fused chunk would
+            # spend a request's budget before the drafter proposes again
+            k = min(k, 2)
         for r in reqs:
             v = self._virtual.get(r.request_id, 0)
             k = min(k, max(self.max_seq_len - r.num_tokens - v + 1, 1))
@@ -995,6 +1082,265 @@ class PyExecutor:
                 self._send_context(req)
             # delivered at the end of the step
             req.finish(reason)
+
+    # ----------------------------------------------------------- speculation --
+    def _speculate(self, reqs: List[LlmRequest], stats) -> List[LlmRequest]:
+        """One speculative round for every eligible request when the gate
+        is on; returns the requests left for plain decode (their tree KV
+        not yet written is flushed first)."""
+        dcfg = getattr(self.drafter, "cfg", None)
+        cap = getattr(dcfg, "max_concurrency", None)
+        spec_on = (not self._spec_adaptive_off
+                   and self.batched_logits_processor is None
+                   and (cap is None or len(reqs) <= cap))
+        self._spec_len_cap = None
+        sched = getattr(dcfg, "draft_len_schedule", None)
+        if sched:
+            fits = [bs for bs in sched if bs <= len(reqs)]
+            self._spec_len_cap = sched[max(fits)] if fits else None
+            if self._spec_len_cap == 0:
+                spec_on = False
+        if spec_on:
+            if self._inflight:
+                # a round reads request state: apply the pipeline first
+                self._drain_inflight()
+                reqs = [r for r in reqs if r.is_generating]
+            left = []
+            for req in reqs:
+                n0 = req.num_output_tokens
+                try:
+                    done = self._spec_eligible(req) and self._spec_decode(
+                        req, stats)
+                except NotImplementedError as exc:
+                    # a drafter's refusal (a tree on an MLA model) ends
+                    # only its request
+                    self._end_with_error(req, f"speculative decoding: {exc}")
+                    continue
+                if done:
+                    stats.num_decode_tokens += req.num_output_tokens - n0
+                    continue
+                left.append(req)
+            reqs = left
+        for req in reqs:
+            self._flush_pending(req, stats)
+        return reqs
+
+    def _spec_eligible(self, req: LlmRequest) -> bool:
+        """Rounds bypass the host logits path: requests that need it
+        (logprobs, generation logits, a matcher, host logit controls) and
+        sampled ones decode normally."""
+        sp = req.sampling_params
+        return bool(sp.greedy and not self.guided.has(req.request_id)
+                    and not sp.logprobs and not sp.return_generation_logits
+                    and not self._needs_host_controls(sp))
+
+    def _flush_pending(self, req: LlmRequest, stats):
+        """Write the KV of tokens a tree round accepted but did not write
+        (every appended token but the last, which the next step feeds)."""
+        P = self._spec_pending.pop(req.request_id, 0)
+        if not P:
+            return
+        n = req.num_tokens
+        self.kv.grow_sequence(req.request_id, n - 1)
+        inputs = self.engine.prepare_tree_verify_inputs(
+            req, req.all_token_ids[n - 1 - P:n - 1],
+            np.arange(n - 1 - P, n - 1), [True] * P)
+        self.engine.run_verify_tree(inputs, np.tril(np.ones((P, P), bool)))
+        stats.spec_tree_forwards += 1
+
+    def _relaxed_params(self, req: LlmRequest):
+        """(topk, delta, thinking now) when relaxed acceptance inside
+        thinking spans is configured, else None (strict).  The thinking
+        state follows the begin/end tokens of every token appended since
+        the last look."""
+        cfg = getattr(self.drafter, "cfg", None)
+        if cfg is None or not cfg.use_relaxed_acceptance_for_thinking:
+            return None
+        scanned, state = self._think.get(req.request_id, (0, False))
+        toks = req.all_token_ids
+        for t in toks[scanned:]:
+            if t == cfg.begin_thinking_phase_token:
+                state = True
+            elif t == cfg.end_thinking_phase_token:
+                state = False
+        self._think[req.request_id] = (len(toks), state)
+        return int(cfg.relaxed_topk), float(cfg.relaxed_delta), state
+
+    @staticmethod
+    def _relaxed_accept(row, tok: int, topk: int, delta: float) -> bool:
+        """`tok` is in the target's top-`topk` and its probability within
+        `delta` of the top-1's."""
+        row = np.asarray(row, np.float64)
+        p = np.exp(row - row.max())
+        p = p / p.sum()
+        top = np.argpartition(-p, min(topk, p.size - 1))[:topk]
+        return int(tok) in {int(t) for t in top} \
+            and float(p.max() - p[int(tok)]) <= delta
+
+    def _record_acceptance(self, accepted_len: int):
+        """A full window of rounds whose mean accepted length is below the
+        threshold turns speculation off for the rest of the run."""
+        if self._accept_hist is None or self._spec_adaptive_off:
+            return
+        self._accept_hist.append(accepted_len)
+        thr = self.drafter.cfg.acceptance_length_threshold
+        mean = sum(self._accept_hist) / len(self._accept_hist)
+        if thr is not None and len(self._accept_hist) == \
+                self._accept_hist.maxlen and mean < thr:
+            self._spec_adaptive_off = True
+            logger.info("speculation disabled: rolling acceptance length "
+                        "%.2f < threshold %.2f", mean, thr)
+
+    def _commit(self, req: LlmRequest, accepted: List[int], proposed: int,
+                stats) -> int:
+        """Count a round and append its accepted tokens (stops apply);
+        returns how many were appended."""
+        self.spec_stats["proposed"] += proposed
+        self.spec_stats["accepted"] += len(accepted) - 1
+        self.spec_stats["rounds"] += 1
+        stats.spec_rounds += 1
+        self._record_acceptance(len(accepted))
+        appended = 0
+        for tok in accepted:
+            if not req.is_generating:
+                break
+            self._append(req, tok, None)
+            appended += 1
+        self.drafter.on_accepted(req, accepted[:appended])
+        if req.is_generating:
+            req.emit(finished=False)
+        return appended
+
+    def _spec_decode(self, req: LlmRequest, stats) -> bool:
+        """Draft, verify in one forward, accept the longest matching prefix
+        and one bonus token.  False: the request decodes normally."""
+        budget = min(req.sampling_params.max_tokens - req.num_output_tokens,
+                     self.max_seq_len - req.num_tokens) - 1
+        if budget < 1:
+            self._flush_pending(req, stats)
+            return False
+        relaxed = self._relaxed_params(req)
+        thinking = relaxed is not None and relaxed[2]
+        # tree verification is strict; inside a thinking span the relaxed
+        # chain accepts more
+        tree = None if thinking else self.drafter.propose_tree(req)
+        if tree is not None and tree[0] and self._verify_tree(
+                req, tree[0], tree[1], stats):
+            return True
+        self._flush_pending(req, stats)
+        if self._spec_len_cap is not None:
+            budget = min(budget, self._spec_len_cap)
+        draft = self.drafter.propose(req)[:budget]
+        if not draft:
+            return False
+        k = len(draft)
+        rid = req.request_id
+        if self.kv.blocks_needed(req.num_tokens + k) \
+                - self.kv.num_seq_blocks(rid) > self.kv.num_free_blocks:
+            return False
+        self.kv.grow_sequence(rid, req.num_tokens + k)
+        inputs = self.engine.prepare_verify_inputs(req, draft)
+        hidden = None
+        if self._needs_hidden:
+            logits, hidden = self.engine.run_with_hidden(
+                "prefill", inputs, self._hidden_capture)
+        else:
+            logits = self.engine.run_prefill(inputs)
+        stats.spec_verify_forwards += 1
+        greedy = torch.argmax(logits, dim=-1).tolist()
+        rows = None if relaxed is None else logits.cpu().numpy()
+        cfg = self.drafter.cfg
+        accepted: List[int] = []
+        for j in range(k):
+            if draft[j] == greedy[j] or (thinking and self._relaxed_accept(
+                    rows[j], draft[j], relaxed[0], relaxed[1])):
+                accepted.append(draft[j])
+            else:
+                break
+            if relaxed is not None:
+                # phase changes apply mid-chunk
+                if draft[j] == cfg.begin_thinking_phase_token:
+                    thinking = True
+                elif draft[j] == cfg.end_thinking_phase_token:
+                    thinking = False
+        accepted.append(greedy[len(accepted)])     # bonus or correction
+        if hidden is not None:
+            # rows 0..a hold real tokens: their hiddens are valid
+            self.drafter.on_hidden(req, req.num_tokens - 1,
+                                   hidden[:len(accepted)])
+        self._commit(req, accepted, k, stats)
+        return True
+
+    def _verify_tree(self, req: LlmRequest, tree_tokens, parents,
+                     stats) -> bool:
+        """Verify a draft tree in one forward: rows are the pending commits
+        and the last token (causal) and the tree's nodes (pad slots, each
+        seeing the committed rows and its ancestors).  The accepted path's
+        KV rides the next round's chunk (`_spec_pending`)."""
+        rid = req.request_id
+        n = req.num_tokens
+        P = self._spec_pending.get(rid, 0)
+        k = len(tree_tokens)
+        budget = min(req.sampling_params.max_tokens - req.num_output_tokens,
+                     self.max_seq_len - n) - 1
+        if budget < 1 or n - 1 - P < 0:
+            return False
+        if self.kv.blocks_needed(n) - self.kv.num_seq_blocks(rid) \
+                > self.kv.num_free_blocks:
+            return False
+        self.kv.grow_sequence(rid, n)
+        depth = [0] * k
+        for i, p in enumerate(parents):
+            depth[i] = 1 if p < 0 else depth[p] + 1
+        C = P + 1
+        T = C + k
+        positions = np.array(list(range(n - 1 - P, n))
+                             + [n - 1 + d for d in depth], np.int64)
+        inputs = self.engine.prepare_tree_verify_inputs(
+            req, list(req.all_token_ids[n - 1 - P:n]) + list(tree_tokens),
+            positions, [True] * C + [False] * k)
+        mask = np.tril(np.ones((T, T), bool))
+        mask[C:, C:] = False
+        for i in range(k):
+            j = i
+            while j >= 0:
+                mask[C + i, C + j] = True
+                j = parents[j]
+        hidden = None
+        if self._needs_hidden:
+            logits, hidden = self.engine.run_verify_tree(
+                inputs, mask, with_hidden=True, capture=self._hidden_capture)
+        else:
+            logits = self.engine.run_verify_tree(inputs, mask)
+        stats.spec_tree_forwards += 1
+        greedy = torch.argmax(logits, dim=-1).tolist()
+        children = {}
+        for i, p in enumerate(parents):
+            children.setdefault(p, []).append(i)
+        accepted: List[int] = []
+        accepted_rows = []
+        node, row = -1, C - 1
+        while True:
+            want = greedy[row]
+            nxt = next((i for i in children.get(node, ())
+                        if tree_tokens[i] == want), None)
+            if nxt is None or len(accepted) >= budget:
+                break
+            accepted.append(want)
+            node, row = nxt, C + nxt
+            accepted_rows.append(row)
+        accepted.append(greedy[row])               # bonus or correction
+        if hidden is not None:
+            self.drafter.on_hidden(req, n - 1 - P, hidden[:C])
+            for r in accepted_rows:
+                self.drafter.on_hidden(req, int(positions[r]),
+                                       hidden[r:r + 1])
+        appended = self._commit(req, accepted, k, stats)
+        if appended > 1:
+            self._spec_pending[rid] = appended - 1
+        else:
+            self._spec_pending.pop(rid, None)
+        return True
 
     # ------------------------------------------------------------ stop scan --
     def _feed_stop_scan(self, req: LlmRequest):

@@ -46,6 +46,20 @@ chunk and one decode step of a scratch sequence so that the kernel library,
 library handles and the allocator are warm.  The JAX package's warmup also
 compiles every bucket; eager PyTorch has nothing to compile.
 
+Speculative decoding (JAX `prepare_verify_inputs`,
+`prepare_tree_verify_inputs`, `run_with_hidden`, `run_verify_tree`): a
+linear verify step is a prefill chunk of the last accepted token and the
+draft, with logits at every row; a tree verify step carries the tokens not
+yet in the cache (pending commits and the last token) and the tree's nodes
+at their depths' positions, the nodes with pad slots (`PAD_SLOT`: their KV
+never lands; the write goes to reserved page 0) and a host-built [T, T]
+pair mask that routes attention to `tree_verify_attention`; its
+`q_offset` is the committed prefix length.  Every step takes exactly its
+tokens: no chunk is padded to a bucket, so the prefill kernel's KV length
+(`q_offset` + T) never covers an unwritten row.  `run_with_hidden` and
+`run_verify_tree(with_hidden=True)` also return the hidden-state tap at
+the logit rows (`DecoderModelForCausalLM.forward`'s `capture`).
+
 Not in this slice: the chain/scan/unroll variants, CUDA graphs,
 pipeline/context/data parallelism and VSWA ring tables for extract/inject.
 """
@@ -74,6 +88,9 @@ from tensorrt_llm_tpu_torch.utils import logger, resolve_device, upload
 
 # weight bytes a tuning ring holds: past the 50 MB L2 of an H100
 _ROTATE_BYTES = 128 << 20
+# the slot of a row whose KV must not land (tree nodes): past every pool,
+# so the write goes to reserved page 0
+PAD_SLOT = 1 << 30
 
 
 _ALIGN = 16    # byte alignment of each tensor in a packed buffer
@@ -196,6 +213,50 @@ class ModelEngine:
             kv_lens=(pos + 1).astype(np.int32),
             logit_indices=np.arange(len(reqs), dtype=np.int64))
 
+    def prepare_verify_inputs(self, req, draft_tokens) -> StepInputs:
+        """A linear verify step: the last accepted token and the draft at
+        positions num_tokens - 1 .., logits at every row.  The request's
+        blocks must cover num_tokens + len(draft) - 1 positions."""
+        kv = self.kv_manager
+        toks = [req.all_token_ids[-1]] + list(draft_tokens)
+        start, chunk = req.num_tokens - 1, len(toks)
+        end = start + chunk
+        return StepInputs(
+            input_ids=np.asarray(toks, np.int64),
+            positions=np.arange(start, end, dtype=np.int64),
+            slot_mapping=np.asarray(
+                kv.slot_mapping(req.request_id, start, chunk), np.int64),
+            block_tables=np.asarray(
+                [kv.block_table(req.request_id, kv.blocks_needed(end))],
+                np.int32),
+            kv_lens=np.asarray([end], np.int32),
+            logit_indices=np.arange(chunk, dtype=np.int64),
+            q_offset=start)
+
+    def prepare_tree_verify_inputs(self, req, tokens, positions,
+                                   write_mask) -> StepInputs:
+        """A tree verify step: `tokens[i]` at `positions[i]`; rows whose
+        `write_mask` is False get `PAD_SLOT`.  The committed prefix is
+        positions[0] tokens long (kv_lens, q_offset); the block table
+        covers it."""
+        kv = self.kv_manager
+        rid = req.request_id
+        prefix = int(positions[0])
+        slots = np.full(len(tokens), PAD_SLOT, np.int64)
+        for i, w in enumerate(write_mask):
+            if w:
+                slots[i] = kv.slot_mapping(rid, int(positions[i]), 1)[0]
+        return StepInputs(
+            input_ids=np.asarray(tokens, np.int64),
+            positions=np.asarray(positions, np.int64),
+            slot_mapping=slots,
+            block_tables=np.asarray(
+                [kv.block_table(rid, max(1, kv.blocks_needed(prefix)))],
+                np.int32),
+            kv_lens=np.asarray([prefix], np.int32),
+            logit_indices=np.arange(len(tokens), dtype=np.int64),
+            q_offset=prefix)
+
     def _tensors(self, inputs: StepInputs, mode: str):
         dev = self.device
         meta = AttentionMetadata(
@@ -215,6 +276,27 @@ class ModelEngine:
         ids, meta, rows = self._tensors(inputs, "prefill")
         with self.lock:
             return self.model(ids, self.kv_caches, meta, rows)
+
+    @torch.no_grad()
+    def run_with_hidden(self, mode: str, inputs: StepInputs,
+                        capture: str = "final"):
+        """A prefill or decode step returning (logits, hidden) at the logit
+        rows: the tap one-model drafters read."""
+        ids, meta, rows = self._tensors(inputs, mode)
+        with self.lock:
+            return self.model(ids, self.kv_caches, meta, rows,
+                              return_hidden=True, capture=capture)
+
+    @torch.no_grad()
+    def run_verify_tree(self, inputs: StepInputs, pair_mask: np.ndarray,
+                        with_hidden: bool = False, capture: str = "final"):
+        """A tree verify step under the [T, T] `pair_mask`: logits at every
+        row (and the hidden tap with `with_hidden`)."""
+        ids, meta, rows = self._tensors(inputs, "prefill")
+        meta.pair_mask = upload(np.asarray(pair_mask, bool), self.device)
+        with self.lock:
+            return self.model(ids, self.kv_caches, meta, rows,
+                              return_hidden=with_hidden, capture=capture)
 
     @torch.no_grad()
     def run_decode(self, inputs: StepInputs) -> torch.Tensor:

@@ -532,6 +532,12 @@ class OpenAIServer(HTTPApp):
             f"tllm_tpu_kv_onboarded_blocks {kv.get('onboarded_blocks', 0)}",
             f"tllm_tpu_active_sequences {kv['active_sequences']}",
         ]
+        sp = ex.spec_stats
+        if sp.get("rounds"):
+            # speculative decoding, once a round has run (as JAX's server)
+            lines += [f"tllm_tpu_spec_proposed_tokens {sp['proposed']}",
+                      f"tllm_tpu_spec_accepted_tokens {sp['accepted']}",
+                      f"tllm_tpu_spec_rounds {sp['rounds']}"]
         if stats:
             lines.append(f"tllm_tpu_last_step_ms {stats.step_time_ms:.3f}")
         return 200, ("\n".join(lines) + "\n").encode(), \
