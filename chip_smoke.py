@@ -166,7 +166,9 @@ Phases (any failure exits nonzero; nothing is caught and ignored):
    mix in the two-phase, stream_kv and conditional modes (tokens against
    the generation worker's own batch, K3/K4 per worker per layer per
    chunk or step, no K3 on the generation worker for a transferred prompt,
-   the context pool empty after each mode), the 600-token prompt's KV
+   the context pool empty after each mode; first differences judged
+   under `SPEC_TIE`, above the generation worker's measured
+   decode-vs-prefill path noise), the 600-token prompt's KV
    frames against the context worker's prefill chunks, then the host KV
    tier and a dict connector (`disagg_phase`);
 23. `spec` (run before `bench`): speculative decoding, greedy with
@@ -183,13 +185,25 @@ Phases (any failure exits nonzero; nothing is caught and ignored):
    from the executor's chunks, steps and verify forwards and the
    drafters' passes (K3/K4 on A; K9/K10/K5 on B; the drafters' own
    launches under the scope "draft"); decode-window tok/s, verify
-   forwards per committed token and host ms per round (`spec_phase`).
+   forwards per committed token and host ms per round (`spec_phase`);
+24. `beam_lora` (run before `bench`): beam search and multi-LoRA on
+   Llama-3-8B W4A16 at full width and `BEAM_LORA_LAYERS` (8) layers:
+   beams of the 4-request mix (n=4), a best_of=6 request and a widening
+   and narrowing `beam_width_array` one against the greedy run and, at 2
+   tokens, a teacher-forced optimum, with KV blocks all returned and exact
+   K1-K4 launches from the beam steps `get_stats` reports; three rank-16
+   PEFT adapters written here, batched with a base row (each row its
+   tokens alone, the base row the plain `LLM`'s exactly, the launches the
+   plain traffic's), `apply_lora` against float64, a beam request with an
+   adapter, the paged cache at 2 slots, `lora_path` against the CPU's load
+   (`beam_lora_phase`).
 
 Depth cuts that keep the script in its time limit (widths unchanged): the
 bench presets (`BENCH_LAYERS`: all four at 4 layers, TinyLlama and
 GPT-OSS at 8 before the `spec` phase; Llama-2-7B runs at full depth in `spec`,
 TinyLlama in `serve`), Llama-3-8B at 8 layers in `sampling` and `openai`
-(`SAMPLING_LAYERS`, `OPENAI_LAYERS`), GPT-OSS-20B at 12 in `gptoss`
+(`SAMPLING_LAYERS`, `OPENAI_LAYERS`) and `beam_lora`
+(`BEAM_LORA_LAYERS`), GPT-OSS-20B at 12 in `gptoss`
 (`GPT_OSS_LAYERS`), Moonlight at 9 in `deepseek` (`MOONLIGHT_LAYERS`),
 TinyLlama at 11 in `disagg` (`DISAGG_LAYERS`; all five at full depth
 before the `spec` phase, cut from the phases' measured seconds to make
@@ -203,7 +217,7 @@ in the `--json` output (`PHASES["seconds"]`).
 Arguments pick phases (default: check serve serve_ramp serve_stream
 fused_mlp cross llama3 gptoss gptoss_cross llama3_w4a8 llama3_w4a8_cross
 deepseek deepseek_v32 deepseek_v3_width deepseek_cross checkpoint sampling
-openai disagg spec bench bench_cross);
+openai disagg spec beam_lora bench bench_cross);
 `check_moe` runs
 only K5's checks, `check_w4a8` only K8's, `check_int8` only K6-K8's,
 `check_mla` only K9-K11's (with their plans' checks),
@@ -4552,7 +4566,11 @@ DISAGG_LAYERS = 11         # of TinyLlama's 22: the script's time limit
 DISAGG_CHUNK = 128         # each worker's prefill chunk (token budget)
 DISAGG_BLOCKS = 640        # each worker's KV pool (explicit: two share a card)
 DISAGG_COND_MAX = 256      # conditional mode: these prompts skip the hop
-DISAGG_TIE = 0.02          # logit gap accepted at a greedy near-tie
+# logprob gap accepted at a greedy near-tie (`spec`, `disagg`,
+# `beam_lora`): the serve phases' RAMP_TIE; Llama-2-7B's random logits sit
+# at |x| 4-8, where one bf16 ulp is 0.03125.  Each phase's decode-vs-prefill
+# path noise (`_path_noise`) must stay below it.
+SPEC_TIE = RAMP_TIE
 DISAGG_MIN_FRAMES = 4      # KV frames of the 600-token prompt, at least
 HOST_TIER_POOL = 32        # the host-tier LLM's device blocks: too few to
 HOST_TIER_HOST = 64        # keep the 300-token prefix across two fillers
@@ -4573,17 +4591,17 @@ def _disagg_prompts(V):
         ids(n) for n in (17, 64, 200, 333, 480, 600)]
 
 
-def _near_ties(llm, prompts, want, got, tie=None, salt="tie",
-               reread=False):
+def _near_ties(llm, prompts, want, got, tie=SPEC_TIE, salt="tie",
+               reread=False, loras=None):
     """Requests whose tokens equal `want`, and for each other one its first
-    difference, a near-tie if both tokens lie within `tie` (DISAGG_TIE) of
-    the top of `llm`'s row there (teacher forced on `want`; a logprob gap
-    is the logit gap).  With `reread` the row is computed twice, fresh
-    under `salt` and again over that prefix reused (the tail as one short
-    chunk, the shape a speculative verify forward has): a near-tie in
-    either counts, and both rows are kept (at an MoE routing near-tie the
-    two chunkings of one prefix route differently)."""
-    tie = DISAGG_TIE if tie is None else tie
+    difference, a near-tie if both tokens lie within `tie` of the top of
+    `llm`'s row there (teacher forced on `want`, under the row's adapter
+    `loras[n]`; a logprob gap is the logit gap).  With `reread` the row is
+    computed twice, fresh under `salt` and again over that prefix reused
+    (the tail as one short chunk, the shape a speculative verify forward
+    has): a near-tie in either counts, and both rows are kept (at an MoE
+    routing near-tie the two chunkings of one prefix route
+    differently)."""
     import tensorrt_llm_tpu_torch as T
     exact, ties = 0, []
     for n, (p, a, b) in enumerate(zip(prompts, want, got)):
@@ -4594,7 +4612,8 @@ def _near_ties(llm, prompts, want, got, tie=None, salt="tie",
         i = next(i for i, (u, v) in enumerate(zip(a, b)) if u != v)
         rows = [llm.generate([p + a[:i]], T.SamplingParams(
             max_tokens=1, temperature=0.0, logprobs=20),
-            cache_salt=f"{salt}-{n}" if reread else salt)[0]
+            cache_salt=f"{salt}-{n}" if reread else salt,
+            lora_request=loras[n] if loras else None)[0]
             .outputs[0].logprobs[0] for _ in range(2 if reread else 1)]
         seen = []
         for row in rows:
@@ -4618,9 +4637,11 @@ def _post_all(port, bodies):
             lambda b: _ok_json(port, "POST", "/v1/completions", b), bodies))
 
 
-def _disagg_mode(mode, front, fport, ctx, gen, prompts, want, L):
+def _disagg_mode(mode, front, fport, ctx, gen, prompts, want, L, noise):
     """One mode's run of the 8 prompts through the front end, with the
-    launches of each worker's executor counted apart (its launch scope)."""
+    launches of each worker's executor counted apart (its launch scope);
+    first differences are judged under SPEC_TIE, printed beside the
+    generation worker's measured path `noise`."""
     import torch
     from tensorrt_llm_tpu_torch.ops import cuda_build
     front.stream_kv = mode == "stream_kv"
@@ -4684,6 +4705,7 @@ def _disagg_mode(mode, front, fport, ctx, gen, prompts, want, L):
     exact, ties = _near_ties(gen, prompts, want, got)
     res = {"mode": mode, "wall_s": wall, "exact_requests": exact,
            "of": len(prompts), "first_differences": ties,
+           "path_noise": noise, "tie": SPEC_TIE,
            "ctx_prefill_chunks": chunks_c, "gen_prefill_chunks": chunks_g,
            "gen_decode_steps": steps_g, "ctx_launches": cc,
            "gen_launches": cg, "launches": total,
@@ -4890,15 +4912,22 @@ def disagg_phase(card, by_path):
             f"http://127.0.0.1:{workers[1].port}"], front.gen_pool.urls
         prompts = _disagg_prompts(cfg.vocab_size)
         sp = T.SamplingParams(max_tokens=64, temperature=0.0,
-                              ignore_eos=True)
+                              ignore_eos=True, logprobs=1)
         t0 = time.perf_counter()
-        want = [o.outputs[0].token_ids for o in gen.generate(prompts, sp)]
+        outs = gen.generate(prompts, sp)
         torch.cuda.synchronize()
         summary["single_instance_wall_s"] = time.perf_counter() - t0
+        want = [o.outputs[0].token_ids for o in outs]
+        # the generation worker's own decode-vs-prefill noise: the near-tie
+        # rule's SPEC_TIE must stand above it
+        noise = _path_noise(gen, prompts, outs, salt="disagg-noise")
+        summary["path_noise"] = noise
+        log(f"[disagg] path noise {noise:.4f} (tie {SPEC_TIE}; {card})")
+        assert noise < SPEC_TIE, noise
         modes = []
         for mode in ("two_phase", "stream_kv", "conditional"):
             res, counts = _disagg_mode(mode, front, fs.port, ctx, gen,
-                                       prompts, want, L)
+                                       prompts, want, L, noise)
             modes.append(res)
             for k, v in counts.items():
                 total[k] = total.get(k, 0) + v
@@ -4934,10 +4963,6 @@ SPEC_PATH_B = "spec_v3"       # MTP on DeepSeek-V3 width: K5, K9, K10, K12
 SPEC_NEW = 48                 # new tokens a request
 SPEC_NEW_RANDOM = 24          # ... under a random drafter (1 token a round)
 SPEC_V3_LAYERS = 4            # 3 dense + 1 MoE (first_k_dense_replace 3)
-# logprob gap accepted at a greedy near-tie: the serve phases' RAMP_TIE;
-# Llama-2-7B's random logits sit at |x| 4-8, where one bf16 ulp is 0.03125.
-# The plain run's decode-vs-prefill noise must stay below it.
-SPEC_TIE = RAMP_TIE
 SPEC_ORACLE_MIN = 0.9         # accepted / proposed of the oracle chain
 
 
@@ -4960,6 +4985,24 @@ def _decode_window(stats):
     win = [s for s in stats if s["num_prefill_chunks"] == 0]
     return (sum(s["num_decode_tokens"] for s in win),
             sum(s["step_time_ms"] for s in win) / 1e3)
+
+
+def _path_noise(llm, prompts, outs, loras=None, salt="noise"):
+    """The decode-vs-prefill path noise of a greedy run with `logprobs`:
+    the largest gap between each chosen token's logprob from its decode
+    step and the same token's from one prefill of prompt + outputs (under
+    the row's adapter, `loras`)."""
+    import tensorrt_llm_tpu_torch as T
+    noise = 0.0
+    for n, (p, o) in enumerate(zip(prompts, outs)):
+        ids = o.outputs[0].token_ids
+        pre = llm.generate([p + ids], T.SamplingParams(
+            max_tokens=1, temperature=0.0, prompt_logprobs=1),
+            cache_salt=salt,
+            lora_request=loras[n] if loras else None)[0].prompt_logprobs
+        for j, (t, lp) in enumerate(zip(ids, o.outputs[0].logprobs)):
+            noise = max(noise, abs(pre[len(p) + j][t] - lp[t]))
+    return noise
 
 
 def _spec_run(card, path, label, cfg, state, spec, prompts, plain,
@@ -5046,18 +5089,9 @@ def _spec_plain(card, path, label, cfg, prompts, kw):
     counts = dict(cuda_build.launch_counts)
     want = [o.outputs[0].token_ids for o in outs]
     assert all(len(t) == SPEC_NEW for t in want)
-    # the path noise: each chosen token's logprob from its decode step
-    # against the same token's from one prefill of prompt + outputs (the
-    # path family a verify forward takes); it must stay below the
+    # the path family a verify forward takes: it must stay below the
     # near-tie tolerance the speculative runs are held to
-    noise = 0.0
-    for p, o in zip(prompts, outs):
-        ids = o.outputs[0].token_ids
-        pre = llm.generate([p + ids], T.SamplingParams(
-            max_tokens=1, temperature=0.0, prompt_logprobs=1),
-            cache_salt="noise")[0].prompt_logprobs
-        for j, (t, lp) in enumerate(zip(ids, o.outputs[0].logprobs)):
-            noise = max(noise, abs(pre[len(p) + j][t] - lp[t]))
+    noise = _path_noise(llm, prompts, outs)
     assert noise < SPEC_TIE, (label, noise)
     n_tok, win_s = _decode_window(stats)
     dsteps = sum(s["decode_steps"] for s in stats)
@@ -5295,6 +5329,420 @@ def spec_phase(card, by_path, parts="both"):
     log(f"[spec] phase took {out['seconds']:.1f} s ({card})")
 
 
+# ---- phase 24: beam search and multi-LoRA ---------------------------------
+BEAM_LORA_PATH = "beam_lora"   # Llama-3-8B W4A16 beams and adapters: K1-K4
+BEAM_LORA_LAYERS = 8           # as `sampling` and `openai` (the time limit)
+BEAM_LORA_BLOCKS = 2048
+BEAM_NEW = 16                  # new tokens of a beam or LoRA request
+LORA_RANK = 16
+LORA_ALPHA = 32.0
+LORA_NAMES = ("a", "b", "c")
+LORA_APPLY_TOL = 0.02          # apply_lora on the card vs float64, of max|ref|
+LORA_CKPT_HF = dict(            # `lora_path`'s small checkpoint
+    architectures=["LlamaForCausalLM"], model_type="llama", vocab_size=2048,
+    hidden_size=512, intermediate_size=1024, num_hidden_layers=2,
+    num_attention_heads=8, num_key_value_heads=4,
+    max_position_embeddings=512, rms_norm_eps=1e-5, rope_theta=10000.0,
+    tie_word_embeddings=False, torch_dtype="bfloat16")
+_LORA_MODULES = ("q_proj", "k_proj", "v_proj", "o_proj", "gate_proj",
+                 "up_proj", "down_proj")
+
+
+def write_lora_adapter(path, shape, num_layers, seed, rank=LORA_RANK):
+    """A PEFT adapter directory (`write_safetensors`, f32) of rank `rank`
+    on q/k/v/o/gate/up/down of every layer: lora_A ~ N(0, 1/in), lora_B ~
+    N(0, 0.02^2), alpha LORA_ALPHA, drawn on the CPU from a seeded
+    generator.  `shape` holds the model's widths (ModelConfig names)."""
+    import torch
+    os.makedirs(path, exist_ok=True)
+    H, I = shape["hidden_size"], shape["intermediate_size"]
+    D = shape.get("head_dim") or H // shape["num_heads"]
+    q, kv = shape["num_heads"] * D, shape["num_kv_heads"] * D
+    dims = {"q_proj": (H, q), "k_proj": (H, kv), "v_proj": (H, kv),
+            "o_proj": (q, H), "gate_proj": (H, I), "up_proj": (H, I),
+            "down_proj": (I, H)}
+    g = torch.Generator().manual_seed(seed)
+    tensors = {}
+    for i in range(num_layers):
+        for m in _LORA_MODULES:
+            din, dout = dims[m]
+            sub = "mlp" if m in ("gate_proj", "up_proj", "down_proj") \
+                else "self_attn"
+            pre = f"base_model.model.model.layers.{i}.{sub}.{m}"
+            tensors[pre + ".lora_A.weight"] = torch.randn(
+                (rank, din), generator=g) / din ** 0.5
+            tensors[pre + ".lora_B.weight"] = torch.randn(
+                (dout, rank), generator=g) * 0.02
+    write_safetensors(os.path.join(path, "adapter_model.safetensors"),
+                      tensors)
+    with open(os.path.join(path, "adapter_config.json"), "w") as f:
+        json.dump({"r": rank, "lora_alpha": LORA_ALPHA,
+                   "target_modules": list(_LORA_MODULES)}, f)
+    return path
+
+
+def _lora_prompts(V):
+    """The LoRA batch: 4 prompts of the serve mix's lengths (320, 17, 600,
+    45 tokens) that share no prefix, so that no row reuses another's
+    blocks whatever the rows' adapters."""
+    import numpy as np
+    rng = np.random.default_rng(24)
+    return [[int(t) for t in rng.integers(10, V - 10, n)]
+            for n in (320, 17, 600, 45)]
+
+
+def _beam_window(stats):
+    """(rows decoded, seconds, beam steps, host ms of the beam sections)
+    of the iterations that stepped beams and ran no prefill chunk."""
+    win = [s for s in stats if s["beam_steps"] and not
+           s["num_prefill_chunks"]]
+    return (sum(s["num_decode_tokens"] for s in win),
+            sum(s["step_time_ms"] for s in win) / 1e3,
+            sum(s["beam_steps"] for s in stats),
+            sum(s["beam_ms"] for s in stats))
+
+
+def _timed_run(llm, prompts, sps, lora=None):
+    """One `generate` of the prompts from a cold prefix cache, the launch
+    counters reset just before and read just after: (outputs, counts,
+    iteration stats, wall seconds)."""
+    import torch
+    from tensorrt_llm_tpu_torch.ops import cuda_build
+    llm.read_kv(lambda kv: kv.drop_cached_blocks())
+    it0 = llm.executor.iteration
+    torch.cuda.synchronize()
+    cuda_build.reset_launch_counts()
+    t0 = time.perf_counter()
+    outs = llm.generate(prompts, sps, lora_request=lora)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(cuda_build.launch_counts)
+    stats = [s for s in llm.get_stats() if s["iteration"] > it0]
+    return outs, counts, stats, wall
+
+
+def _forward_launches(cfg, counts, stats):
+    """Every forward of the run (prefill chunks, plain decode steps, beam
+    steps) launched K3 or K4 once a layer and the W4A16 kernels once a
+    linear (qkv, o, gate_up, down): the exact counts.  Returns (chunks,
+    decode steps, beam steps)."""
+    L = cfg.num_layers
+    chunks = sum(s["num_prefill_chunks"] for s in stats)
+    dsteps = sum(s["decode_steps"] for s in stats)
+    bsteps = sum(s["beam_steps"] for s in stats)
+    assert counts.get("flash_prefill", 0) == L * chunks, (counts, chunks)
+    assert counts.get("paged_decode", 0) == L * (dsteps + bsteps), \
+        (counts, dsteps, bsteps)
+    w4 = sum(counts.get(k, 0) for k in ("w4a16_gemm", "w4a16_gemv",
+                                        "w4a16_kpaired", "w4a16_ramp"))
+    assert w4 == 4 * L * (chunks + dsteps + bsteps), \
+        (counts, chunks, dsteps, bsteps)
+    return chunks, dsteps, bsteps
+
+
+def _beam_sp(**kw):
+    import tensorrt_llm_tpu_torch as T
+    return T.SamplingParams(use_beam_search=True, ignore_eos=True,
+                            temperature=0.0, **kw)
+
+
+def _beam_runs(card, plain, cfg, prompts, noise, greedy, out):
+    """The beam checks on the plain `LLM` (module docstring, phase 24)."""
+    import tensorrt_llm_tpu_torch as T
+    kv0 = plain.get_kv_cache_stats()
+    reqs = prompts + [prompts[2], prompts[1]]
+    sps = [_beam_sp(max_tokens=BEAM_NEW, n=4)] * 4 + [
+        _beam_sp(max_tokens=BEAM_NEW, n=2, best_of=6),
+        _beam_sp(max_tokens=BEAM_NEW, n=2, best_of=2,
+                 beam_width_array=[2, 4, 6, 3, 2])]
+    outs, counts, stats, wall = _timed_run(plain, reqs, sps)
+    kv1 = plain.get_kv_cache_stats()
+    chunks, dsteps, bsteps = _forward_launches(cfg, counts, stats)
+    assert bsteps > 0 and dsteps == 0, (bsteps, dsteps)
+    assert kv1["active_sequences"] == 0, kv1
+    assert kv1["free_blocks"] + kv1["evictable_blocks"] == \
+        kv0["free_blocks"] + kv0["evictable_blocks"], (kv0, kv1)
+    widths = [4, 4, 4, 4, 2, 2]
+    gaps = []
+    for o, w in zip(outs, widths):
+        sc = [c.cumulative_logprob for c in o.outputs]
+        assert len(sc) == w and sc == sorted(sc, reverse=True), sc
+        assert all(len(c.token_ids) == BEAM_NEW for c in o.outputs)
+    tie = BEAM_NEW * noise
+    for o, g in zip(outs[:4], greedy):
+        gsum = sum(lp[t] for t, lp in zip(g.outputs[0].token_ids,
+                                          g.outputs[0].logprobs))
+        gaps.append(o.outputs[0].cumulative_logprob - gsum)
+        assert gaps[-1] >= -tie, (gaps, tie)
+    n_tok, win_s, _, beam_ms = _beam_window(stats)
+    out["beam"] = {
+        "wall_s": wall, "prefill_chunks": chunks, "beam_steps": bsteps,
+        "launches": counts, "beam0_minus_greedy": gaps, "tie": tie,
+        "beam_rows_per_s": n_tok / win_s if win_s else None,
+        "host_ms_per_beam_step": beam_ms / bsteps,
+        "scores": [[c.cumulative_logprob for c in o.outputs] for o in outs]}
+    # width 4 at 2 tokens: beam 0 is the best of the top-4 first tokens
+    # each with its best second token, teacher forced by prefill
+    two = []
+    for n, p in enumerate(prompts[2:]):
+        b = plain.generate([p], _beam_sp(max_tokens=2, n=4),
+                           cache_salt=f"beam2-{n}")[0].outputs[0]
+        top = plain.generate([p], T.SamplingParams(
+            max_tokens=1, temperature=0.0, logprobs=4),
+            cache_salt=f"tf-{n}")[0].outputs[0].logprobs[0]
+        best = -math.inf
+        for t, lp in top.items():
+            o = plain.generate([p + [t]], T.SamplingParams(
+                max_tokens=1, temperature=0.0, logprobs=1),
+                cache_salt=f"tf-{n}")[0].outputs[0]
+            best = max(best, lp + o.logprobs[0][o.token_ids[0]])
+        two.append({"beam0": b.cumulative_logprob, "teacher_forced": best})
+        assert abs(b.cumulative_logprob - best) <= 2 * noise, (two, noise)
+    out["beam_two_tokens"] = two
+    return outs, counts
+
+
+def _lora_apply_check(llm, out):
+    """`apply_lora` on the card at layer 0's stacks (every fused linear),
+    4 and 64 rows over all slots, against a float64 CPU version of the
+    same bf16 values; ms a call (CUDA events)."""
+    import torch
+    from tensorrt_llm_tpu_torch.lora.multi_lora import apply_lora
+    layer = llm.model.layers[0]
+    g = torch.Generator(device=DEVICE).manual_seed(24)
+    rows = []
+    for key, holder in (("qkv", layer.attn), ("o", layer.attn),
+                        ("gate_up", layer.mlp), ("down", layer.mlp)):
+        A = getattr(holder, f"lora_{key}_a")
+        B = getattr(holder, f"lora_{key}_b")
+        for T_ in (4, 64):
+            x = torch.randn((T_, A.shape[1]), generator=g,
+                            device=DEVICE).to(torch.bfloat16)
+            base = torch.randn((T_, B.shape[2]), generator=g,
+                               device=DEVICE).to(torch.bfloat16)
+            ids = torch.arange(T_, device=DEVICE) % A.shape[0]
+            got = apply_lora(x, base, (A, B), ids).double().cpu()
+            i = ids.cpu()
+            x64, A64, B64 = (t.double().cpu() for t in (x, A, B))
+            ref = base.double().cpu() + torch.einsum(
+                "tr,tro->to", torch.einsum("ti,tir->tr", x64, A64[i]),
+                B64[i])
+            err = float((got - ref).abs().max() / ref.abs().max())
+            ms = cuda_ms([lambda: apply_lora(x, base, (A, B), ids)], 20)
+            rows.append({"linear": key, "rows": T_, "rel_err": err,
+                         "ms": ms, "rank": int(A.shape[2])})
+            assert err <= LORA_APPLY_TOL, rows[-1]
+    out["apply_lora"] = rows
+
+
+def _lora_path_check(root, out):
+    """`lora_path` on a small checkpoint written here: the card's load,
+    merged then quantized (W4A16), equals the port's CPU load of the same
+    directory and adapter byte for byte, and the adapter moved exactly its
+    linears."""
+    import torch
+    import tensorrt_llm_tpu_torch as T
+    from tensorrt_llm_tpu_torch.llmapi.hf_checkpoint import SafetensorsReader
+    from tensorrt_llm_tpu_torch.llmapi.llm import resolve_model_config
+    from tensorrt_llm_tpu_torch.lora import (load_lora_adapter,
+                                             merge_lora_into_state)
+    from tensorrt_llm_tpu_torch.models import get_model_class
+    hf = LORA_CKPT_HF
+    ckpt = os.path.join(root, "ckpt")
+    write_checkpoint(ckpt, hf, seed=24, shards=1)
+    shape = dict(hidden_size=hf["hidden_size"],
+                 intermediate_size=hf["intermediate_size"],
+                 num_heads=hf["num_attention_heads"],
+                 num_kv_heads=hf["num_key_value_heads"])
+    ad = write_lora_adapter(os.path.join(root, "ckpt_adapter"), shape,
+                            hf["num_hidden_layers"], seed=25)
+    quant = dict(quant_algo="W4A16", quant_group_size=128)
+    llm = T.LLM(model=ckpt, lora_path=ad, device=DEVICE,
+                skip_tokenizer_init=True, max_seq_len=256, kv_num_blocks=64,
+                **quant)
+    try:
+        got = {k: v.cpu() for k, v in llm.model.state().items()}
+        toks = llm.generate([[5, 6, 7]], T.SamplingParams(
+            max_tokens=4, temperature=0.0, ignore_eos=True))[0] \
+            .outputs[0].token_ids
+    finally:
+        llm.shutdown()
+    cfg, _ = resolve_model_config(T.LlmArgs(model=ckpt, **quant))
+    cfg.max_position = max(cfg.max_position, 256)
+    cls = get_model_class(cfg.architecture)
+    with SafetensorsReader(ckpt) as reader:
+        ref = cls(cfg, "cpu").load_hf_weights(merge_lora_into_state(
+            reader, load_lora_adapter(ad))).state()
+        unmerged = cls(cfg, "cpu").load_hf_weights(reader).state()
+
+    def raw(t):
+        return t.contiguous().reshape(-1).view(torch.uint8)
+
+    keys = [k for k in ref if not k.startswith("rope_")]
+    diff = [k for k in keys if not torch.equal(raw(got[k]), raw(ref[k]))]
+    moved = sorted({k.rsplit(".", 1)[0] for k in keys
+                    if not torch.equal(raw(ref[k]), raw(unmerged[k]))})
+    out["lora_path"] = {"buffers_compared": len(keys),
+                        "differing_from_cpu": diff, "moved": moved,
+                        "tokens": toks}
+    assert not diff, diff
+    assert moved == sorted(f"layers.{i}.{m}" for i in range(
+        hf["num_hidden_layers"]) for m in ("attn.qkv", "attn.o",
+                                           "mlp.gate_up", "mlp.down")), moved
+
+
+def beam_lora_phase(card, by_path):
+    """Phase 24: beam search and multi-LoRA on Llama-3-8B W4A16 at full
+    width and `BEAM_LORA_LAYERS` deep (random weights, seed 0), the
+    serve mix cut to 4 (`_spec_prompts`).  Plain `LLM`: the greedy run
+    (with its decode-vs-prefill path noise, below SPEC_TIE); the 4 prompts
+    with n=4 beams, one best_of=6 n=2 and one widening and narrowing
+    `beam_width_array` request, 16 new tokens each (scores sorted; beam 0
+    at least the greedy run's summed logprob less 16 x the noise; KV free
+    plus evictable blocks back to their value; K3/K4 once a layer a
+    forward and the W4A16 kernels once a linear, beam steps counted by
+    `get_stats`); width 4 at 2 tokens against the teacher-forced best of
+    the top-4 first tokens (within 2 x the noise).  Three rank-16 adapters
+    on every projection (PEFT directories written here): a batch of base
+    rows and all three equals each row served alone (or first differs at
+    a near-tie), its base row equals the plain `LLM`'s tokens exactly and
+    its launches the plain `LLM`'s on the same traffic; `apply_lora` on
+    the card against float64; a beam request with an adapter scores as
+    its adapter's teacher-forced path and differs from the base beams;
+    `lora_max_device_adapters=2` swaps and gives the unpaged tokens;
+    `lora_path` on a small checkpoint loads what the CPU loads."""
+    import gc
+    import shutil
+    import tempfile
+    import torch
+    import tensorrt_llm_tpu_torch as T
+    t_all = time.perf_counter()
+    cfg = w4a16_cfg(LLAMA3_8B, num_layers=BEAM_LORA_LAYERS)
+    prompts = _spec_prompts(cfg.vocab_size)
+    lprompts = _lora_prompts(cfg.vocab_size)
+    kw = dict(skip_tokenizer_init=True, device=DEVICE, max_batch_size=8,
+              max_num_tokens=512, max_seq_len=1024, kv_block_size=16,
+              kv_num_blocks=BEAM_LORA_BLOCKS, seed=0)
+    greedy_sp = T.SamplingParams(max_tokens=BEAM_NEW, temperature=0.0,
+                                 ignore_eos=True, logprobs=1)
+    names = [None, *LORA_NAMES]
+    out = {"phase": BEAM_LORA_PATH, "card": card,
+           "layers": cfg.num_layers}
+    root = tempfile.mkdtemp(prefix="tllm_lora_")
+    try:
+        paths = {n: write_lora_adapter(
+            os.path.join(root, n), LLAMA3_8B, cfg.num_layers, seed=i + 1)
+            for i, n in enumerate(LORA_NAMES)}
+        t0 = time.perf_counter()
+        plain = T.LLM(model=cfg, **kw)
+        out["build_s"] = time.perf_counter() - t0
+        try:
+            g_outs, g_counts, g_stats, _ = _timed_run(plain, prompts,
+                                                      greedy_sp)
+            noise = _path_noise(plain, prompts, g_outs, salt="bl-noise")
+            assert noise < SPEC_TIE, noise
+            n_tok, win_s = _decode_window(g_stats)
+            out["plain"] = {"path_noise": noise,
+                            "decode_tok_per_s": n_tok / win_s,
+                            "host_ms_per_decode_step": 1e3 * win_s / sum(
+                                s["decode_steps"] for s in g_stats
+                                if not s["num_prefill_chunks"])}
+            beams, counts = _beam_runs(card, plain, cfg, prompts, noise,
+                                       g_outs, out)
+            by_path[BEAM_LORA_PATH] = counts
+            # the LoRA batch's traffic on the LLM without adapters
+            b_outs, b_counts, b_stats, _ = _timed_run(plain, lprompts,
+                                                      greedy_sp)
+            n_tok, win_s = _decode_window(b_stats)
+            out["plain"]["batch_tok_per_s"] = n_tok / win_s
+        finally:
+            plain.shutdown()
+            del plain
+            gc.collect()
+            torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        lora = T.LLM(model=cfg, lora_adapters=paths, **kw)
+        out["lora_build_s"] = time.perf_counter() - t0
+        try:
+            l_outs, l_counts, l_stats, _ = _timed_run(
+                lora, lprompts, greedy_sp, lora=names)
+            got = [o.outputs[0].token_ids for o in l_outs]
+            _forward_launches(cfg, l_counts, l_stats)
+            assert l_counts == b_counts, (l_counts, b_counts)
+            assert got[0] == b_outs[0].outputs[0].token_ids
+            n_tok, win_s = _decode_window(l_stats)
+            lora.read_kv(lambda kv: kv.drop_cached_blocks())
+            alone = [lora.generate([p], greedy_sp, lora_request=n)[0]
+                     .outputs[0].token_ids for p, n in zip(lprompts, names)]
+            exact, ties = _near_ties(lora, lprompts, alone, got,
+                                     salt="bl-alone", loras=names)
+            assert all(t["near_tie"] for t in ties), ties
+            out["lora"] = {"exact_alone": exact, "near_ties": ties,
+                           "decode_tok_per_s": n_tok / win_s,
+                           "launches": l_counts, "tokens": got}
+            _lora_apply_check(lora, out)
+            # a beam request keeps its adapter in every step
+            bl = lora.generate([prompts[2]], _beam_sp(
+                max_tokens=BEAM_NEW, n=4), lora_request="a")[0].outputs[0]
+            base_beams = [c.token_ids for c in beams[2].outputs]
+            assert bl.token_ids not in base_beams, bl.token_ids
+            scores = {}
+            for key, lr in (("adapter", "a"), ("base", None)):
+                pl = lora.generate([prompts[2] + bl.token_ids],
+                                   T.SamplingParams(max_tokens=1,
+                                                    prompt_logprobs=1),
+                                   cache_salt="bl-score",
+                                   lora_request=lr)[0].prompt_logprobs
+                scores[key] = sum(pl[len(prompts[2]) + j][t]
+                                  for j, t in enumerate(bl.token_ids))
+            tie = BEAM_NEW * noise
+            out["beam_with_adapter"] = {
+                "cumulative_logprob": bl.cumulative_logprob,
+                "teacher_forced": scores, "tie": tie}
+            assert abs(bl.cumulative_logprob - scores["adapter"]) <= tie
+            assert abs(bl.cumulative_logprob - scores["base"]) > tie
+        finally:
+            lora.shutdown()
+            del lora
+            gc.collect()
+            torch.cuda.empty_cache()
+        paged = T.LLM(model=cfg, lora_adapters=paths,
+                      lora_max_device_adapters=2, **kw)
+        try:
+            p_outs = paged.generate(lprompts, greedy_sp, lora_request=names)
+            mgr = paged.lora_manager
+            _wait_idle(paged)
+            exact, ties = _near_ties(paged, lprompts, got,
+                                     [o.outputs[0].token_ids
+                                      for o in p_outs],
+                                     salt="bl-paged", loras=names)
+            assert all(t["near_tie"] for t in ties), ties
+            assert mgr.num_swaps >= 1, mgr.num_swaps
+            assert all(v == 0 for v in mgr._refs.values()), mgr._refs
+            out["paged"] = {"swaps": mgr.num_swaps, "exact": exact,
+                            "near_ties": ties}
+        finally:
+            paged.shutdown()
+            del paged
+            gc.collect()
+            torch.cuda.empty_cache()
+        _lora_path_check(root, out)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t_all
+    PHASES[BEAM_LORA_PATH] = out
+    log(json.dumps(out))
+    b, pl, lo = out["beam"], out["plain"], out["lora"]
+    log(f"[beam_lora] {out['seconds']:.1f} s; beam steps "
+        f"{b['host_ms_per_beam_step']:.1f} ms, {b['beam_rows_per_s']:.1f} "
+        f"beam rows/s against plain batch-4 decode "
+        f"{pl['decode_tok_per_s']:.1f} tok/s "
+        f"({pl['host_ms_per_decode_step']:.1f} ms a step); LoRA batch "
+        f"{lo['decode_tok_per_s']:.1f} tok/s against the base batch "
+        f"{pl['batch_tok_per_s']:.1f}; path noise {pl['path_noise']:.4f} "
+        f"({card})")
+
+
 SERVE_PATH = "serve"                    # TinyLlama W4A16: K1-K4, K13
 GPT_OSS_PATH = "serve_gpt_oss"          # GPT-OSS-20B: K1, K3-K5, K12
 LLAMA3_W4A8_PATH = "serve_llama3_w4a8"  # slice 3's path: K6-K8 run there
@@ -5463,7 +5911,8 @@ def main() -> int:
                       "gptoss_cross", "llama3_w4a8", "llama3_w4a8_cross",
                       "deepseek", "deepseek_v32", "deepseek_v3_width",
                       "deepseek_cross", "checkpoint", "sampling", "openai",
-                      "disagg", "spec", "bench", "bench_cross"]
+                      "disagg", "spec", "beam_lora", "bench",
+                      "bench_cross"]
     by_path = {}      # each serve path's own launch counts
     try:
         run_phases(phases, card, gen, dev, by_path)
@@ -5628,6 +6077,8 @@ def run_phases(phases, card, gen, dev, by_path):
         spec_phase(card, by_path, "llama2")
     if on("spec_v3"):
         spec_phase(card, by_path, "v3")
+    if on("beam_lora"):
+        beam_lora_phase(card, by_path)
     if on("bench"):
         bench_phase(card, gen, dev, by_path)
     if on("bench_cross"):

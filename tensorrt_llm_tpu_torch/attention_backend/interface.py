@@ -35,6 +35,9 @@ class AttentionMetadata:
     # whose `q_offset` is the committed prefix length (rows carry their own
     # `positions`; tree rows have pad slots)
     pair_mask: Optional[torch.Tensor] = None
+    # [T] int64 multi-LoRA adapter slot of each row (0: the base model);
+    # None when no row of the step has an adapter
+    lora_ids: Optional[torch.Tensor] = None
     # a feature of the JAX interface that the port does not run
     cyclic: bool = False
 

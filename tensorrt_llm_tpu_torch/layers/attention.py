@@ -8,6 +8,11 @@ per-layer sliding window pass through to the backend.  The window is masked
 inside the kernels over the layer's full-length pool; the JAX engine's
 cyclic ring pools for sliding layers are a later slice.  Logit caps, q/k
 norms, NoPE layers and context parallelism belong to later slices too.
+
+Multi-LoRA (JAX `layers/attention.py:173-219`): when the layer holds
+adapter stacks (``lora_qkv_*``, ``lora_o_*``, installed by
+`lora.multi_lora`) and the step has `meta.lora_ids`, each row's adapter
+product is added after the fused QKV and after the output projection.
 """
 
 from __future__ import annotations
@@ -20,6 +25,7 @@ from torch import nn
 from tensorrt_llm_tpu_torch.attention_backend.interface import (
     AttentionMetadata, get_attention_backend)
 from tensorrt_llm_tpu_torch.layers.linear import Linear
+from tensorrt_llm_tpu_torch.lora.multi_lora import apply_lora
 from tensorrt_llm_tpu_torch.ops.rope import apply_rope
 from tensorrt_llm_tpu_torch.quantization import QuantConfig
 from tensorrt_llm_tpu_torch.quantization.hf_ingest import wcat
@@ -43,6 +49,8 @@ class Attention(nn.Module):
         self.qkv = Linear(hidden_size, qkv_out, quant, "qkv_proj")
         self.o = Linear(num_heads * head_dim, hidden_size, quant, "o_proj")
         self.register_buffer("sinks", None)
+        for b in ("lora_qkv_a", "lora_qkv_b", "lora_o_a", "lora_o_b"):
+            self.register_buffer(b, None)
         self.backend = get_attention_backend(device)(
             num_heads, num_kv_heads, head_dim, head_dim ** -0.5,
             sliding_window=sliding_window)
@@ -65,6 +73,9 @@ class Attention(nn.Module):
         T = x.shape[0]
         D, qh, kvh = self.head_dim, self.num_heads, self.num_kv_heads
         qkv = self.qkv(x)
+        lora = meta.lora_ids
+        if lora is not None and self.lora_qkv_a is not None:
+            qkv = apply_lora(x, qkv, (self.lora_qkv_a, self.lora_qkv_b), lora)
         q = qkv[:, :qh * D].reshape(T, qh, D)
         k = qkv[:, qh * D:(qh + kvh) * D].reshape(T, kvh, D)
         v = qkv[:, (qh + kvh) * D:].reshape(T, kvh, D).contiguous()
@@ -72,4 +83,8 @@ class Attention(nn.Module):
         k_cache, v_cache = kv_cache
         out = self.backend(q.contiguous(), k.contiguous(), v, k_cache,
                            v_cache, meta, sinks=self.sinks)
-        return self.o(out.reshape(T, qh * D))
+        out = out.reshape(T, qh * D)
+        y = self.o(out)
+        if lora is not None and self.lora_o_a is not None:
+            y = apply_lora(out, y, (self.lora_o_a, self.lora_o_b), lora)
+        return y

@@ -46,14 +46,15 @@ def has_weights(path: str) -> bool:
 
 
 class SafetensorsReader:
-    """Lazy reader over every ``*.safetensors`` file of a directory:
-    ``reader(name)`` is the tensor on the CPU, or None when no file holds
-    it.  Close it (or use it as a context manager) to close the files."""
+    """Lazy reader over every ``*.safetensors`` file of a directory (the
+    files `pattern` names): ``reader(name)`` is the tensor on the CPU, or
+    None when no file holds it.  Close it (or use it as a context manager)
+    to close the files."""
 
-    def __init__(self, path: str):
+    def __init__(self, path: str, pattern: str = "*.safetensors"):
         self._files: List = []
         self._index: Dict[str, Tuple[object, int, dict]] = {}
-        for f in sorted(glob.glob(os.path.join(path, "*.safetensors"))):
+        for f in sorted(glob.glob(os.path.join(path, pattern))):
             fh = open(f, "rb")
             self._files.append(fh)
             (n,) = struct.unpack("<Q", fh.read(8))

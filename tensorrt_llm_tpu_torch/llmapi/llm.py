@@ -65,7 +65,24 @@ at submit (ValueError: `ModelEngine.check_kv_layers`).
 returns the future and the queue its KV frames appear on while the prefill
 still runs.  The host KV tier and the connector are the `LlmArgs` fields
 `kv_host_cache_blocks`, `kv_secondary_offload_min_priority` and
-`kv_connector`.  LoRA and beam search belong to later slices.
+`kv_connector`.
+
+Beam search (``SamplingParams(use_beam_search=True, n=..., best_of=...)``)
+is one request whatever its `n`; its result holds one `CompletionOutput`
+per returned beam, best first, with `cumulative_logprob` and, under
+`logprobs`, each token's logprob (JAX `llmapi/llm.py:877-886`).
+
+LoRA (JAX `llmapi/llm.py:182-220, 583-610`): `lora_path` merges a PEFT
+adapter into the checkpoint's weights as they are read, before
+quantization (`lora.merge_lora_into_state`; a model that is not read from
+a checkpoint refuses it).  `lora_adapters` installs the adapters' stacks
+on the model (`lora.multi_lora`), paged through
+`lora_max_device_adapters` device slots when fewer than the adapters;
+``generate(..., lora_request=name)`` and ``generate_async(...,
+lora_request=name)`` then serve a request with that adapter: its slot is
+pinned until it ends (a paged slot may wait for one to free; `generate`
+first submits the requests it has already pinned), and ``lora:{name}`` is
+folded into its prefix-reuse salt.  An unknown adapter raises KeyError.
 
 `speculative_config` (JAX `llmapi/llm.py:240-300`) builds the drafter
 (`speculative.get_drafter`) that the executor binds; an MTP drafter
@@ -94,6 +111,10 @@ from tensorrt_llm_tpu_torch.llmapi.hf_checkpoint import (
     SafetensorsReader, has_weights, read_hf_config)
 from tensorrt_llm_tpu_torch.llmapi.llm_args import LlmArgs
 from tensorrt_llm_tpu_torch.llmapi.sampling_params import SamplingParams
+from tensorrt_llm_tpu_torch.lora.lora_manager import (
+    load_lora_adapter, merge_lora_into_state)
+from tensorrt_llm_tpu_torch.lora.multi_lora import (
+    MultiLoraManager, PagedMultiLoraManager)
 from tensorrt_llm_tpu_torch.models.modeling_utils import (
     ModelConfig, get_model_class)
 from tensorrt_llm_tpu_torch.quantization.hf_ingest import quant_config_from_hf
@@ -114,7 +135,7 @@ class CompletionOutput:
     token_ids: List[int]
     finish_reason: Optional[str] = None
     logprobs: Optional[list] = None
-    cumulative_logprob: Optional[float] = None   # beam search (not yet)
+    cumulative_logprob: Optional[float] = None   # beam search
     # np [num_output_tokens, V], when return_generation_logits was set
     generation_logits: Optional[Any] = None
 
@@ -174,6 +195,7 @@ class LLM:
         self.executor = None
         self._tokenizer = None
         self._released_state = None
+        self.lora_manager = None
         self.device = resolve_device(args.device)
         self._build()
 
@@ -200,10 +222,6 @@ class LLM:
 
     def _build(self):
         a = self.args
-        if a.lora_path:
-            raise NotImplementedError(
-                "lora_path (LoRA merged into the weights at load) is not in "
-                "the port yet")
         drafter = None
         if a.speculative_config is not None:
             from tensorrt_llm_tpu_torch.speculative import get_drafter
@@ -222,19 +240,37 @@ class LLM:
         self.model_config = cfg
         self._tokenizer = self._load_tokenizer(model_path)
         self.model = get_model_class(cfg.architecture)(cfg, self.device)
+        from_ckpt = (a.params is None and a.load_format != "dummy"
+                     and model_path is not None and has_weights(model_path))
+        if a.lora_path and not from_ckpt:
+            raise ValueError("lora_path merges an adapter into a "
+                             "checkpoint's weights: model must be a "
+                             "checkpoint directory with weights")
         if a.params is not None:
             self.model.load_state(a.params)
         elif a.load_format == "dummy":
             self.model.init_random(a.seed)
-        elif model_path is not None and has_weights(model_path):
+        elif from_ckpt:
             reader = stack.enter_context(SafetensorsReader(model_path))
             sink = getattr(drafter, "set_checkpoint", None)
-            self.model.load_hf_weights(reader, mtp_sink=sink)
+            get_tensor = reader
+            if a.lora_path:
+                get_tensor = merge_lora_into_state(
+                    reader, load_lora_adapter(a.lora_path))
+            self.model.load_hf_weights(get_tensor, mtp_sink=sink)
         else:
             if model_path is not None:
                 warnings.warn(f"no *.safetensors in {model_path}: drawing "
                               "random weights", stacklevel=4)
             self.model.init_random(a.seed)
+        if a.lora_adapters:
+            mgr = MultiLoraManager.from_paths(a.lora_adapters, cfg)
+            if a.lora_max_device_adapters \
+                    and a.lora_max_device_adapters < len(a.lora_adapters):
+                mgr = PagedMultiLoraManager(mgr.adapters, cfg,
+                                            a.lora_max_device_adapters)
+            mgr.attach(self.model)
+            self.lora_manager = mgr
         geo = pool_layout(cfg)
         kvcfg = a.make_kv_cache_config(geo["layout"], geo["dsa_index_dim"])
         num_blocks = kvcfg.num_blocks or self._derive_num_blocks(cfg, kvcfg)
@@ -243,6 +279,8 @@ class LLM:
                                          geo["head_dim"], num_blocks,
                                          self.device)
         self.engine = ModelEngine(self.model, self.kv_manager, self.device)
+        if isinstance(self.lora_manager, PagedMultiLoraManager):
+            self.lora_manager.bind_engine(self.engine)
         warm = a.enable_warmup
         if warm is None:
             warm = self.device.type == "cuda"
@@ -323,11 +361,15 @@ class LLM:
 
     def generate(self, prompts, sampling_params: Union[
                      SamplingParams, Sequence[SamplingParams], None] = None,
-                 cache_salt: Optional[str] = None) -> List[RequestOutput]:
+                 cache_salt: Optional[str] = None,
+                 lora_request: Union[str, Sequence[Optional[str]],
+                                     None] = None) -> List[RequestOutput]:
         """Serve a prompt or a batch: each prompt is a string (needs a
-        tokenizer) or a list of token ids.  The batch reaches the executor
-        in one piece, so the schedule does not depend on how fast the
-        caller submits."""
+        tokenizer) or a list of token ids; `lora_request` names one adapter
+        for every prompt or one (or None) per prompt.  The batch reaches
+        the executor in one piece, so the schedule does not depend on how
+        fast the caller submits; only when a paged adapter slot must be
+        waited for are the requests pinned so far submitted first."""
         if isinstance(prompts, str) or (
                 prompts and isinstance(prompts[0], numbers.Integral)):
             prompts = [prompts]
@@ -335,10 +377,39 @@ class LLM:
         sps = ([sampling_params] * len(prompts)
                if isinstance(sampling_params, SamplingParams)
                else list(sampling_params))
-        futs = [self._fanout(p, sp, cache_salt)
-                for p, sp in zip(prompts, sps)]
-        self.executor.submit_many([r for f in futs for r in f.requests])
+        loras = ([lora_request] * len(prompts)
+                 if lora_request is None or isinstance(lora_request, str)
+                 else list(lora_request))
+        if len(loras) != len(prompts):
+            raise ValueError(f"{len(loras)} lora_request entries for "
+                             f"{len(prompts)} prompts")
+        pending: List[LlmRequest] = []
+
+        def flush():
+            self._submit(pending)
+            pending.clear()
+
+        futs = []
+        for p, sp, lr in zip(prompts, sps, loras):
+            try:
+                futs.append(self._fanout(p, sp, cache_salt, lora_request=lr,
+                                         flush=flush))
+            except BaseException:
+                _release(pending)
+                raise
+            pending.extend(futs[-1].requests)
+        flush()
         return [f.result() for f in futs]
+
+    def _submit(self, reqs: List[LlmRequest]) -> None:
+        """Submit `reqs` at once; a refusal releases their adapter slots."""
+        if not reqs:
+            return
+        try:
+            self.executor.submit_many(reqs)
+        except BaseException:
+            _release(reqs)
+            raise
 
     def generate_async(self, prompt,
                        sampling_params: Optional[SamplingParams] = None,
@@ -347,7 +418,8 @@ class LLM:
                        kv_retention_priority: Optional[int] = None,
                        priority: float = 0.5,
                        disaggregated_params: Optional[
-                           DisaggregatedParams] = None
+                           DisaggregatedParams] = None,
+                       lora_request: Optional[str] = None
                        ) -> "GenerationFuture":
         """Submit one prompt (text or token ids).  The future's `result()`
         gives the whole output; iterating it streams the pieces
@@ -357,7 +429,8 @@ class LLM:
         blocks the request stores for reuse (lower evicts first).  With
         ``n > 1`` the future is a `_FanoutFuture` (no streaming).
         `disaggregated_params` makes it a context-only or generation-only
-        request (module docstring)."""
+        request (module docstring); `lora_request` serves it with that
+        adapter."""
         sp = sampling_params or SamplingParams()
         if sp.n > 1 and not sp.use_beam_search and streaming:
             raise ValueError("streaming with n > 1 is not supported; use n "
@@ -367,6 +440,10 @@ class LLM:
             if dp.request_type not in ("context_only", "generation_only"):
                 raise ValueError(f"request_type {dp.request_type!r}: "
                                  "'context_only' or 'generation_only'")
+            if sp.use_beam_search:
+                # the JAX package gives it no defined result
+                raise ValueError("beam search on a disaggregated request is "
+                                 "not supported")
             if sp.n > 1:
                 raise ValueError("a disaggregated request takes n = 1")
             if dp.request_type == "context_only":
@@ -379,11 +456,12 @@ class LLM:
                                      "kv_frames")
                 self.engine.check_kv_layers(dp.kv_payload["layers"])
             fut = self._future(prompt, sp, cache_salt,
-                               kv_retention_priority, priority, dp)
+                               kv_retention_priority, priority, dp,
+                               lora_request=lora_request)
         else:
             fut = self._fanout(prompt, sp, cache_salt, kv_retention_priority,
-                               priority)
-        self.executor.submit_many(fut.requests)
+                               priority, lora_request=lora_request)
+        self._submit(fut.requests)
         return fut
 
     def generate_context_only(self, prompt, sampling_params=None):
@@ -416,23 +494,34 @@ class LLM:
 
     def _fanout(self, prompt, sp: SamplingParams, cache_salt,
                 kv_retention_priority: Optional[int] = None,
-                priority: float = 0.5):
+                priority: float = 0.5, lora_request: Optional[str] = None,
+                flush=None):
         """The future of one prompt: a `GenerationFuture`, or for parallel
         sampling (``n > 1`` without beam search) a `_FanoutFuture` over n
         sibling requests with ``n=1`` and seeds ``seed + j``."""
         if sp.n <= 1 or sp.use_beam_search:
             return self._future(prompt, sp, cache_salt,
-                                kv_retention_priority, priority)
-        return _FanoutFuture([self._future(
-            prompt, dataclasses.replace(
-                sp, n=1, seed=None if sp.seed is None else sp.seed + j),
-            cache_salt, kv_retention_priority, priority)
-            for j in range(sp.n)])
+                                kv_retention_priority, priority,
+                                lora_request=lora_request, flush=flush)
+        subs: List[GenerationFuture] = []
+        try:
+            for j in range(sp.n):
+                subs.append(self._future(
+                    prompt, dataclasses.replace(
+                        sp, n=1,
+                        seed=None if sp.seed is None else sp.seed + j),
+                    cache_salt, kv_retention_priority, priority,
+                    lora_request=lora_request, flush=flush))
+        except BaseException:
+            _release([f.req for f in subs])
+            raise
+        return _FanoutFuture(subs)
 
     def _future(self, prompt, sampling_params, cache_salt,
                 kv_retention_priority: Optional[int] = None,
                 priority: float = 0.5,
-                disagg: Optional[DisaggregatedParams] = None
+                disagg: Optional[DisaggregatedParams] = None,
+                lora_request: Optional[str] = None, flush=None
                 ) -> "GenerationFuture":
         text = None
         if isinstance(prompt, str):
@@ -441,16 +530,41 @@ class LLM:
                                  "tokenizer=, or token ids)")
             text = prompt
             prompt = self._tokenizer.encode(prompt)
+        # what changes the KV of the same token ids is part of the
+        # prefix-reuse identity: the user's salt and the adapter
+        salt = ([] if cache_salt is None else [f"user:{cache_salt}"]) + (
+            [] if lora_request is None else [f"lora:{lora_request}"])
         req = LlmRequest([int(t) for t in prompt],
                          sampling_params or SamplingParams(),
-                         cache_salt=(None if cache_salt is None
-                                     else f"user:{cache_salt}"),
+                         cache_salt="|".join(salt) or None,
                          kv_retention_priority=kv_retention_priority,
                          priority=priority,
                          request_type=("full" if disagg is None
                                        else disagg.request_type),
-                         disagg_params=disagg)
+                         disagg_params=disagg, lora_request=lora_request)
+        if lora_request is not None:
+            self._pin_adapter(req, lora_request, flush)
         return GenerationFuture(self, req, text)
+
+    def _pin_adapter(self, req: LlmRequest, name: str, flush=None) -> None:
+        """Give `req` the device slot of adapter `name`: under paging the
+        slot is pinned (swapped in when absent) and released by the
+        request's `on_finished` hook; `flush()` runs before a wait for a
+        slot.  KeyError for an unknown adapter."""
+        mgr = self.lora_manager
+        if mgr is None:
+            raise ValueError("lora_request needs lora_adapters={name: path} "
+                             "on the LLM")
+        if not isinstance(mgr, PagedMultiLoraManager):
+            req.lora_slot = mgr.slot_of(name)
+            return
+        slot = mgr.acquire(name, wait=False)
+        if slot is None:
+            if flush is not None:
+                flush()
+            slot = mgr.acquire(name)
+        req.lora_slot = slot
+        req.on_finished = lambda r, n=name: mgr.release(n)
 
     def read_kv(self, fn):
         """`fn(kv_manager)` on the executor thread between two steps: the
@@ -593,14 +707,24 @@ class GenerationFuture:
             }
         gl = (np.stack(r.generation_logits)
               if finished and r.generation_logits else None)
+        outputs = [CompletionOutput(
+            index=0, text=text, token_ids=list(toks),
+            finish_reason=reason.value if reason else None,
+            logprobs=(r.logprobs or None) if finished else None,
+            generation_logits=gl)]
+        if finished and r.beam_outputs:
+            # beam search: one output per returned beam, best first
+            outputs = [CompletionOutput(
+                index=i, text=self._decode(b["token_ids"]),
+                token_ids=list(b["token_ids"]),
+                finish_reason=reason.value if reason else None,
+                logprobs=b["logprobs"],
+                cumulative_logprob=b["cumulative_logprob"])
+                for i, b in enumerate(r.beam_outputs)]
         return RequestOutput(
             request_id=r.request_id, prompt=self.prompt_text,
             prompt_token_ids=r.prompt_token_ids,
-            outputs=[CompletionOutput(
-                index=0, text=text, token_ids=list(toks),
-                finish_reason=reason.value if reason else None,
-                logprobs=(r.logprobs or None) if finished else None,
-                generation_logits=gl)],
+            outputs=outputs,
             finished=finished,
             prompt_logprobs=r.prompt_logprobs if finished else None,
             context_logits=r.context_logits if finished else None,
@@ -669,6 +793,13 @@ class GenerationFuture:
             yield out
             if out.finished:
                 return
+
+
+def _release(reqs: List[LlmRequest]) -> None:
+    """Run the finish hooks (adapter slot releases) of requests that will
+    never reach the executor."""
+    for r in reqs:
+        PyExecutor._finish_hook(r)
 
 
 def _check(piece):

@@ -14,8 +14,13 @@ pipeline's (`disable_overlap_scheduler`, `overlap_depth`: JAX's defaults,
 overlap on at depth 4) and the KV cache's (`enable_partial_reuse`,
 `copy_on_partial_reuse`, `kv_bookkeeping`: "native" or "python", and the
 host tier's `kv_host_cache_blocks`, `kv_secondary_offload_min_priority` and
-`kv_connector`) carry the JAX package's names.  `quant_clip_search` and `lora_path` are fields of the JAX
-package that the port refuses when set.  `speculative_config` (a
+`kv_connector`) carry the JAX package's names.  `quant_clip_search` is a
+field of the JAX package that the port refuses when set.  LoRA: `lora_path`
+(a PEFT adapter directory merged into the checkpoint's weights at load),
+`lora_adapters` ({name: directory}, served per request through
+``generate(..., lora_request=name)``) and `lora_max_device_adapters` (at
+most this many adapters in device slots, the rest paged in on demand; None:
+all resident).  `speculative_config` (a
 `speculative.SpeculativeConfig` or a mode name such as "AUTO") turns on
 speculative decoding.  The parallel sizes carry the JAX package's names;
 the port has no parallel mapping yet, so any size above 1 is refused
@@ -75,7 +80,10 @@ class LlmArgs:
     batch_wait_timeout_iters: int = 0
     batch_wait_max_tokens_ratio: float = 0.0
 
-    lora_path: Optional[str] = None    # LoRA merged at load: not yet
+    # LoRA: merged at load, or served per request from device slots
+    lora_path: Optional[str] = None
+    lora_adapters: Optional[Dict[str, str]] = None
+    lora_max_device_adapters: Optional[int] = None
 
     # parallelism (JAX names): refused above 1 until the port has a mapping
     tensor_parallel_size: int = 1

@@ -1,9 +1,8 @@
 """Sampling parameters: a copy of `tensorrt_llm_tpu/llmapi/sampling_params.py`
 (the port imports nothing of the JAX package), `GuidedDecodingParams`
-included.  The port's executor runs every knob but beam search
-(`use_beam_search`, `best_of`, `beam_width_array`), which it rejects at
-submit (`unsupported`, checked by `PyExecutor.submit`).  Beam arguments are
-validated as the JAX package does, with `ValueError`."""
+included.  Beam search (`use_beam_search` with width `best_of` or `n`,
+`length_penalty`, `beam_width_array`) is validated as the JAX package
+does, with `ValueError`: a width of at least 2 and no guided decoding."""
 
 from __future__ import annotations
 
@@ -69,12 +68,6 @@ class SamplingParams:
     @property
     def greedy(self) -> bool:
         return self.temperature == 0.0 or self.top_k == 1
-
-    def unsupported(self) -> List[str]:
-        """Knobs set to something the port does not run: beam search."""
-        return [name for name, default in (
-            ("use_beam_search", False), ("best_of", None),
-            ("beam_width_array", None)) if getattr(self, name) != default]
 
 
 @dataclass

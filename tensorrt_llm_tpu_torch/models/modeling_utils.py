@@ -320,7 +320,9 @@ class DecoderLayer(nn.Module):
         h = self.attn(h, rope_tables, kv_cache, meta)
         h2, residual = add_rms_norm(h, residual, self.post_attn_norm.weight,
                                     eps)
-        return self.mlp(h2), residual
+        if self.is_moe:
+            return self.mlp(h2), residual
+        return self.mlp(h2, meta.lora_ids), residual
 
 
 class _RMSNormWeight(nn.Module):
@@ -692,7 +694,9 @@ def params_from_jax(tree: Any) -> Dict[str, torch.Tensor]:
     leaves may arrive as ml_dtypes bfloat16) as a port state for
     `DecoderModelForCausalLM.load_state`.  W4A16 int4 weights keep their
     packing byte for byte (tiled or K-paired), W4A8 ones too; W4A16
-    scales round to bf16 at load, W4A8 scales and zeros stay f32."""
+    scales round to bf16 at load, W4A8 scales and zeros stay f32.  A
+    multi-LoRA ``lora`` subtree (``attn.lora.qkv = (A, B)``) becomes the
+    holder's stack buffers (``attn.lora_qkv_a``, ``attn.lora_qkv_b``)."""
     out: Dict[str, torch.Tensor] = {}
 
     def tensor(a) -> torch.Tensor:
@@ -709,6 +713,11 @@ def params_from_jax(tree: Any) -> Dict[str, torch.Tensor]:
             if path == ["rope"]:
                 out["rope_cos"] = tensor(node[0])
                 out["rope_sin"] = tensor(node[1])
+                return
+            if len(path) > 1 and path[-2] == "lora":
+                pre = ".".join(path[:-2] + [f"lora_{path[-1]}"])
+                out[pre + "_a"] = tensor(node[0])
+                out[pre + "_b"] = tensor(node[1])
                 return
             for i, v in enumerate(node):
                 walk(v, path + [str(i)])

@@ -77,6 +77,8 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.tllm_kvbm_seq_num_blocks.argtypes = [p, i64]
     lib.tllm_kvbm_seal.restype = None
     lib.tllm_kvbm_seal.argtypes = [p, i64, pi32, i64]
+    lib.tllm_kvbm_fork.restype = i64
+    lib.tllm_kvbm_fork.argtypes = [p, i64, i64, pi32, pi32, i64]
     lib.tllm_kvbm_free_seq.restype = None
     lib.tllm_kvbm_free_seq.argtypes = [p, i64]
     lib.tllm_kvbm_block_table.restype = None

@@ -14,8 +14,10 @@
 // and the JAX package's Python backend, with identical op sequences and
 // requires identical block tables, free counts and evictions.
 //
-// Changes from the JAX package's copy: the beam-search fork is left out
-// (not in the port yet), and `tllm_kvbm_drop_cached` forgets the reuse
+// Changes from the JAX package's copy: the beam-search fork
+// (`tllm_kvbm_fork`) tells an unknown source (-2) and a pair buffer too
+// small for the tail (-3) apart from an exhausted pool (-1), and never
+// writes past `max_pairs`; `tllm_kvbm_drop_cached` forgets the reuse
 // index after a weight swap.  The eviction list (`tllm_kvbm_drain_
 // evictions`) feeds the KV manager's "removed" events; the host-memory
 // tier that the JAX package also feeds from it is not in the port yet.  Device memory never appears here: the pools are
@@ -338,6 +340,45 @@ void tllm_kvbm_set_priority(void* h, int64_t seq, int32_t priority) {
   Manager& m = *static_cast<Manager*>(h);
   auto it = m.sequences.find(seq);
   if (it != m.sequences.end()) it->second.priority = priority;
+}
+
+// Fork dst from src for beam search: blocks whose KV is fully written
+// (indices < (num_tokens-1)/block_size) are shared by ref count; the
+// remaining tail blocks are freshly allocated and must be device-copied.
+// Writes the (src,dst) copy pairs and returns their count; -1 when the
+// pool cannot hold the tail, -2 for an unknown src, -3 when the tail has
+// more blocks than max_pairs (dst is left unregistered in each case).
+int64_t tllm_kvbm_fork(void* h, int64_t src, int64_t dst, int32_t* out_src,
+                       int32_t* out_dst, int64_t max_pairs) {
+  Manager& m = *static_cast<Manager*>(h);
+  auto it = m.sequences.find(src);
+  if (it == m.sequences.end()) return -2;
+  SeqInfo s = it->second;  // copy: sequences map may rehash on insert below
+  int64_t shared = s.num_tokens > 0 ? (s.num_tokens - 1) / m.block_size : 0;
+  if (shared > (int64_t)s.block_ids.size())
+    shared = (int64_t)s.block_ids.size();
+  int64_t tail = (int64_t)s.block_ids.size() - shared;
+  if (tail > max_pairs) return -3;
+  if (tail > m.num_free()) return -1;
+  SeqInfo d;
+  d.num_tokens = s.num_tokens;
+  d.salt = s.salt;
+  d.has_salt = s.has_salt;
+  d.priority = s.priority;
+  for (int64_t i = 0; i < shared; ++i) {
+    m.ref_block(s.block_ids[i]);
+    d.block_ids.push_back(s.block_ids[i]);
+  }
+  int64_t n_pairs = 0;
+  for (int64_t i = shared; i < (int64_t)s.block_ids.size(); ++i) {
+    int32_t bid = m.take_block();
+    d.block_ids.push_back(bid);
+    out_src[n_pairs] = s.block_ids[i];
+    out_dst[n_pairs] = bid;
+    ++n_pairs;
+  }
+  m.sequences[dst] = std::move(d);
+  return n_pairs;
 }
 
 void tllm_kvbm_free_seq(void* h, int64_t seq) {

@@ -102,10 +102,22 @@ drafter gets the hidden tap of every position (`on_hidden`).  Drafters
 hear of every finished request (`on_request_finished`) and are flushed at
 shutdown.
 
-Not in this slice: beam decoding, multi-host lockstep and VSWA ring
-frames.  The JAX package's faults listed in ROADMAP Queue C are
-not copied: a request's failure ends only that request, and shutdown
-resolves every request still held.
+Beam search (JAX `executor.py:656-676`, `runtime/beam_search.py`): a beam
+request's last prefill chunk seeds its `BeamSearch` instead of sampling,
+and each iteration, before speculation and the plain decode, every beam
+request in the batch takes one batched step over its live beams.  Beam
+steps read request state and fork and free blocks, so the overlap pipeline
+is drained first (the JAX executor steps beams before it drains).  A fork
+or a growth that finds the pool exhausted ends that request alone with an
+error; every sequence its beams hold is freed with it.  A disaggregated
+request with beam search is refused at submit (the JAX package gives it no
+defined result).  Every request's `on_finished` hook (a paged LoRA slot's
+release) runs once, when the request ends, before its last piece is sent.
+
+Not in this slice: multi-host lockstep and VSWA ring frames.  The JAX
+package's faults listed in ROADMAP Queue C are not copied: a request's
+failure ends only that request, and shutdown resolves every request still
+held.
 """
 
 from __future__ import annotations
@@ -126,8 +138,10 @@ import torch
 from tensorrt_llm_tpu_torch.llmapi.disagg_params import leaves
 from tensorrt_llm_tpu_torch.llmapi.tracing import RequestTracer
 from tensorrt_llm_tpu_torch.ops.cuda_build import launch_scope
+from tensorrt_llm_tpu_torch.runtime.beam_search import BeamSearch
 from tensorrt_llm_tpu_torch.runtime.guided_decoder import (
     GuidedDecoder, create_matcher)
+from tensorrt_llm_tpu_torch.runtime.kv_cache_manager import OutOfBlocksError
 from tensorrt_llm_tpu_torch.runtime.model_engine import ModelEngine
 from tensorrt_llm_tpu_torch.runtime.postproc import StopScanWorker
 from tensorrt_llm_tpu_torch.runtime.request import (
@@ -160,6 +174,10 @@ class IterationStats:
     spec_verify_forwards: int = 0
     spec_tree_forwards: int = 0
     spec_ms: float = 0.0          # host wall ms of the speculative section
+    # beam search: batched decode forwards (one per beam request stepped)
+    # and the host wall ms of the beam section
+    beam_steps: int = 0
+    beam_ms: float = 0.0
     kv_stats: dict = field(default_factory=dict)
     step_time_ms: float = 0.0
 
@@ -352,10 +370,11 @@ class PyExecutor:
             raise ValueError(
                 f"prompt length {request.prompt_len} exceeds max_seq_len "
                 f"{self.max_seq_len} (need room for at least one new token)")
-        bad = request.sampling_params.unsupported()
-        if bad:
-            raise NotImplementedError(
-                "beam search is not in the port yet: " + ", ".join(bad))
+        if request.sampling_params.use_beam_search \
+                and request.request_type != "full":
+            raise ValueError("beam search on a disaggregated "
+                             f"{request.request_type} request is not "
+                             "supported")
         V = self.guided.vocab_size
         ids = request.prompt_token_ids
         if min(ids) < 0 or max(ids) >= V:
@@ -408,6 +427,9 @@ class PyExecutor:
         self._inflight.clear()
         self._virtual.clear()
         self._deliver()
+        for req in (self._receiving + self._gen_queue + self.active
+                    + self.waiting):
+            self._finish_hook(req)
         for req in self._receiving + self._gen_queue:
             # a receive that cannot complete ends with an error
             self.kv.free_sequence(req.request_id)
@@ -470,6 +492,7 @@ class PyExecutor:
                 self.waiting.remove(req)
             req.finish(FinishReason.CANCELLED)
             self._stream_error(req, "cancelled")
+            self._finish_hook(req)
             req.emit(finished=True)
         for rid in pending - hit:
             self._cancel_misses[rid] = self._cancel_misses.get(rid, 0) + 1
@@ -585,9 +608,16 @@ class PyExecutor:
             stats.num_prefill_chunks += 1
             if req.remaining_context == 0:
                 req.finish_context()
-                self._sample_and_update([req], logits)
+                if sp.use_beam_search:
+                    self._start_beams(req, logits)
+                else:
+                    self._sample_and_update([req], logits)
 
         decode_reqs = [r for r in batch.decode if r.is_generating]
+        if any(r.beam is not None for r in decode_reqs):
+            t_beam = time.perf_counter()
+            decode_reqs = self._step_beams(decode_reqs, stats)
+            stats.beam_ms = (time.perf_counter() - t_beam) * 1e3
         if self.drafter is not None and decode_reqs:
             t_spec = time.perf_counter()
             decode_reqs = self._speculate(decode_reqs, stats)
@@ -628,7 +658,52 @@ class PyExecutor:
     def _deliver(self):
         done, self._done = self._done, []
         for req in done:
+            self._finish_hook(req)
             req.emit(finished=True, error=req.error)
+
+    @staticmethod
+    def _finish_hook(req: LlmRequest):
+        """Run the request's one-shot `on_finished` hook (a paged LoRA
+        slot's release); its exception is logged, never raised."""
+        cb, req.on_finished = req.on_finished, None
+        if cb is not None:
+            try:
+                cb(req)
+            except Exception:  # noqa: BLE001 -- a hook never ends the loop
+                logger.exception("request finish hook failed")
+
+    # ----------------------------------------------------------- beams ---
+    def _start_beams(self, req: LlmRequest, logits):
+        """Seed a beam request's `BeamSearch` from its last prefill row."""
+        req.beam = BeamSearch(req, self.kv, self.engine, self.eos_token_id,
+                              self.max_seq_len)
+        try:
+            req.beam.init_from_logits(logits[-1].cpu().numpy())
+        except OutOfBlocksError as exc:
+            req.beam.abort()
+            self._end_with_error(req, f"beam search: {exc}")
+            return
+        if req.beam.done:
+            req.beam.apply_to_request()
+
+    def _step_beams(self, reqs: List[LlmRequest], stats) -> List[LlmRequest]:
+        """One batched step of every beam request among `reqs` (the
+        pipeline drained first); returns the others."""
+        if self._inflight:
+            self._drain_inflight()
+            reqs = [r for r in reqs if r.is_generating]
+        for req in [r for r in reqs if r.beam is not None]:
+            try:
+                rows = req.beam.step()
+            except OutOfBlocksError as exc:
+                req.beam.abort()
+                self._end_with_error(req, f"beam search: {exc}")
+                continue
+            stats.beam_steps += 1
+            stats.num_decode_tokens += rows
+            if req.beam.done:
+                req.beam.apply_to_request()
+        return [r for r in reqs if r.beam is None]
 
     def _end_with_error(self, req: LlmRequest, error: str):
         """End one request with an error (delivered with its last piece);
@@ -793,6 +868,8 @@ class PyExecutor:
         """Drop a request's matcher, penalty counts, stop-scan and
         speculation state, and tell the drafter it ended."""
         rid = req.request_id
+        if req.beam is not None:
+            req.beam.abort()          # every beam's sequence
         self.guided.drop(rid)
         self._counts.drop(rid)
         self._spec_pending.pop(rid, None)

@@ -65,7 +65,11 @@ connector exception is logged and taken as a miss, never raised.  A
 `stats()` too.  All of it runs on the executor's thread, as every
 bookkeeping operation does.
 
-Not in this slice: beam forks, VSWA rings and the DP/helix/star managers.
+Beam forks (`fork_sequence`, JAX `fork_sequence`): a fork shares the
+source's fully written blocks by ref count and takes fresh tail blocks,
+whose pages the engine copies.
+
+Not in this slice: VSWA rings and the DP/helix/star managers.
 """
 
 from __future__ import annotations
@@ -80,6 +84,10 @@ import torch
 
 from tensorrt_llm_tpu_torch.quantization.mode import KvCacheQuantAlgo
 from tensorrt_llm_tpu_torch.utils import cdiv, logger, resolve_device
+
+
+class OutOfBlocksError(RuntimeError):
+    """The pool has no free or evictable block for an allocation."""
 
 
 @dataclass
@@ -297,7 +305,7 @@ class _PyBookkeeping:
             self.num_evicted_blocks += 1
             self.pending_evictions.append(bid)
         else:
-            raise RuntimeError("KV cache out of blocks")
+            raise OutOfBlocksError("KV cache out of blocks")
         self.ref_count[bid] = 1
         self.num_allocated_blocks += 1
         return bid
@@ -504,6 +512,31 @@ class _PyBookkeeping:
             info.block_hashes.append(h)
             parent = h
 
+    def fork_sequence(self, src_id: int, dst_id: int) -> List[tuple]:
+        """Beam-search fork (JAX `_PyBookkeeping.fork_sequence`): share the
+        fully written blocks by ref count, allocate fresh tail blocks.
+        Returns the (src_block, dst_block) pairs whose pages the caller
+        must copy."""
+        src = self.sequences[src_id]
+        shared = min(max((src.num_tokens - 1) // self.block_size, 0),
+                     len(src.block_ids))
+        if len(src.block_ids) - shared > self.num_free_blocks():
+            raise OutOfBlocksError("KV cache out of blocks")
+        dst = SequenceInfo()
+        dst.num_tokens = src.num_tokens
+        dst.salt = src.salt
+        dst.priority = src.priority
+        pairs = []
+        for bid in src.block_ids[:shared]:
+            self._ref_block(bid)
+            dst.block_ids.append(bid)
+        for bid in src.block_ids[shared:]:
+            nb = self._take_block()
+            dst.block_ids.append(nb)
+            pairs.append((bid, nb))
+        self.sequences[dst_id] = dst
+        return pairs
+
     def free_sequence(self, seq_id: int):
         info = self.sequences.pop(seq_id, None)
         if info is None:
@@ -610,7 +643,7 @@ class _NativeBookkeeping:
         if rc == -2:
             raise KeyError(seq_id)
         if rc != 0:
-            raise RuntimeError("KV cache out of blocks")
+            raise OutOfBlocksError("KV cache out of blocks")
 
     def num_seq_blocks(self, seq_id: int) -> int:
         return int(self._lib.tllm_kvbm_seq_num_blocks(self._h, seq_id))
@@ -618,6 +651,24 @@ class _NativeBookkeeping:
     def seal_full_blocks(self, seq_id: int, token_ids):
         _keep, ptr = self._tok_buf(token_ids)
         self._lib.tllm_kvbm_seal(self._h, seq_id, ptr, len(token_ids))
+
+    def fork_sequence(self, src_id: int, dst_id: int) -> List[tuple]:
+        # the pair buffer holds every block of the source, which bounds its
+        # tail: the library never truncates (-3 would mean it is short)
+        cap = max(self.num_seq_blocks(src_id), 1)
+        src_b = np.zeros(cap, np.int32)
+        dst_b = np.zeros(cap, np.int32)
+        n = int(self._lib.tllm_kvbm_fork(
+            self._h, src_id, dst_id, src_b.ctypes.data_as(self._pi32),
+            dst_b.ctypes.data_as(self._pi32), cap))
+        if n == -2:
+            raise KeyError(src_id)
+        if n == -3:
+            raise ValueError(f"fork of sequence {src_id}: its tail exceeds "
+                             f"the {cap}-pair buffer")
+        if n < 0:
+            raise OutOfBlocksError("KV cache out of blocks")
+        return list(zip(src_b[:n].tolist(), dst_b[:n].tolist()))
 
     def free_sequence(self, seq_id: int):
         self._lib.tllm_kvbm_free_seq(self._h, seq_id)
@@ -915,6 +966,25 @@ class KVCacheManager:
                     seq_id, DEFAULT_RETENTION_PRIORITY)
             chain.append(h)
             parent = h
+
+    def fork_sequence(self, src_id: int, dst_id: int) -> List[tuple]:
+        """Fork `dst_id` from `src_id` (beam search, JAX
+        `KVCacheManager.fork_sequence`): the immutable blocks are shared,
+        the tail blocks private.  Returns the (src_block, dst_block) pairs
+        the engine must copy on the device.  The fork carries the source's
+        salt, retention priority, announced chain and reuse count, so that
+        a later seal on it hashes under the source's salt and announces no
+        block twice; what the allocation evicted is offloaded before the
+        caller's page copy overwrites it.  RuntimeError when the pool
+        cannot hold the tail (nothing is registered then)."""
+        pairs = self._bk.fork_sequence(src_id, dst_id)
+        self._seq_salt[dst_id] = self._seq_salt.get(src_id)
+        if src_id in self._seq_prio:
+            self._seq_prio[dst_id] = self._seq_prio[src_id]
+        self._seq_chain[dst_id] = list(self._seq_chain.get(src_id, []))
+        self._seq_reused[dst_id] = self._seq_reused.get(src_id, 0)
+        self._drain_evictions()
+        return pairs
 
     def free_sequence(self, seq_id: int):
         self._partial_copies.pop(seq_id, None)

@@ -60,6 +60,13 @@ tokens: no chunk is padded to a bucket, so the prefill kernel's KV length
 `run_verify_tree(with_hidden=True)` also return the hidden-state tap at
 the logit rows (`DecoderModelForCausalLM.forward`'s `capture`).
 
+Every step builder fills `StepInputs.lora_ids`, each row's multi-LoRA
+slot (its request's `lora_slot`, 0 for the base model; JAX
+`model_engine.py:1324-1354, 1427, 1567, 1759, 1803`); a step whose rows
+are all base rows passes no ids, so the layers skip the adapters'
+products.  `prepare_decode_inputs` takes beam sequences, duck-typed
+requests of `runtime/beam_search.py`.
+
 Not in this slice: the chain/scan/unroll variants, CUDA graphs,
 pipeline/context/data parallelism and VSWA ring tables for extract/inject.
 """
@@ -120,6 +127,11 @@ def _unpacked(buf: torch.Tensor, like) -> List[torch.Tensor]:
     return out
 
 
+def _slots(req, n: int) -> np.ndarray:
+    """`n` rows of the request's multi-LoRA slot (0 without one)."""
+    return np.full(n, getattr(req, "lora_slot", 0), np.int64)
+
+
 def _like(tree, it):
     """`tree`'s tuple structure over the next tensors of `it`."""
     if isinstance(tree, (tuple, list)):
@@ -138,6 +150,8 @@ class StepInputs:
     kv_lens: np.ndarray
     logit_indices: np.ndarray
     q_offset: int = 0
+    # [T] multi-LoRA slot of each row (the request's `lora_slot`)
+    lora_ids: Optional[np.ndarray] = None
 
 
 @dataclass
@@ -184,7 +198,7 @@ class ModelEngine:
             kv_lens=np.asarray([end], np.int32),
             logit_indices=(np.arange(chunk, dtype=np.int64) if all_rows
                            else np.asarray([chunk - 1], np.int64)),
-            q_offset=start)
+            q_offset=start, lora_ids=_slots(req, chunk))
 
     def prepare_decode_inputs(self, reqs, extra_tokens: int = 0,
                               virtual_extra: Optional[Sequence[int]] = None
@@ -211,7 +225,9 @@ class ModelEngine:
             block_tables=np.asarray(
                 [kv.block_table(r.request_id, MB) for r in reqs], np.int32),
             kv_lens=(pos + 1).astype(np.int32),
-            logit_indices=np.arange(len(reqs), dtype=np.int64))
+            logit_indices=np.arange(len(reqs), dtype=np.int64),
+            lora_ids=np.asarray([getattr(r, "lora_slot", 0) for r in reqs],
+                                np.int64))
 
     def prepare_verify_inputs(self, req, draft_tokens) -> StepInputs:
         """A linear verify step: the last accepted token and the draft at
@@ -231,7 +247,7 @@ class ModelEngine:
                 np.int32),
             kv_lens=np.asarray([end], np.int32),
             logit_indices=np.arange(chunk, dtype=np.int64),
-            q_offset=start)
+            q_offset=start, lora_ids=_slots(req, chunk))
 
     def prepare_tree_verify_inputs(self, req, tokens, positions,
                                    write_mask) -> StepInputs:
@@ -255,7 +271,7 @@ class ModelEngine:
                 np.int32),
             kv_lens=np.asarray([prefix], np.int32),
             logit_indices=np.arange(len(tokens), dtype=np.int64),
-            q_offset=prefix)
+            q_offset=prefix, lora_ids=_slots(req, len(tokens)))
 
     def _tensors(self, inputs: StepInputs, mode: str):
         dev = self.device
@@ -265,6 +281,10 @@ class ModelEngine:
             block_tables=upload(inputs.block_tables, dev),
             kv_lens=upload(inputs.kv_lens, dev),
             q_offset=int(inputs.q_offset), mode=mode)
+        li = inputs.lora_ids
+        if li is not None and li.any():
+            # a step of base rows alone skips the adapters' products
+            meta.lora_ids = upload(np.asarray(li, np.int64), dev)
         return (upload(inputs.input_ids, dev), meta,
                 upload(inputs.logit_indices, dev))
 

@@ -20,8 +20,12 @@ manager's default).  Disaggregated serving (JAX `request_type`): a
 prompt's KV pages in `kv_payload`, or, with ``disagg_params.stream``, sends
 them as frames on `kv_stream` while later chunks compute
 (`kv_streamed_blocks` counts the blocks sent); a ``generation_only``
-request enters generation from transferred pages.  Multimodal fields belong
-to a later slice.
+request enters generation from transferred pages.  Multi-LoRA: the
+adapter's name (`lora_request`) and device slot (`lora_slot`, 0 for the
+base model), and `on_finished`, a one-shot hook the executor calls when the
+request ends (it releases a paged adapter slot).  Beam search keeps its
+state machine on `beam` and leaves one dict per returned beam in
+`beam_outputs`.  Multimodal fields belong to a later slice.
 """
 
 from __future__ import annotations
@@ -72,7 +76,8 @@ class LlmRequest:
                  cache_salt: Optional[str] = None,
                  kv_retention_priority: Optional[int] = None,
                  priority: float = 0.5, request_type: str = "full",
-                 disagg_params: Optional[Any] = None):
+                 disagg_params: Optional[Any] = None,
+                 lora_request: Optional[str] = None):
         if request_id is None:
             LlmRequest._id_counter += 1
             request_id = LlmRequest._id_counter
@@ -91,6 +96,11 @@ class LlmRequest:
             and getattr(disagg_params, "stream", False) else None)
         self.kv_streamed_blocks = 0
         self.receive_deadline: Optional[float] = None   # generation_only
+        self.lora_request = lora_request
+        self.lora_slot = 0
+        self.on_finished = None
+        self.beam = None                # runtime.beam_search.BeamSearch
+        self.beam_outputs: Optional[List[dict]] = None
 
         self.state = RequestState.QUEUED
         self.output_token_ids: List[int] = []

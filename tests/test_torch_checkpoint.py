@@ -28,7 +28,8 @@ write_hf_checkpoint`: seeded numpy weights, bf16, two shards, tiny widths,
   built from the config and saved with `save_pretrained`: top-1 equal and
   a logits correlation above 0.99 (bf16 compute against f32).
 * `load_format="dummy"`, a directory without weights (warns),
-  `update_weights`, and the refusals (`lora_path`, `quant_clip_search`).
+  `update_weights`, `lora_path` (a PEFT adapter merged at load), and the
+  refusals (`quant_clip_search`).
 """
 
 import json
@@ -484,10 +485,38 @@ def test_update_weights_matches_a_fresh_llm(ckpt_dirs, tmp_path):
         tl.shutdown()
 
 
-def test_refusals(ckpt_dirs):
+def test_refusals(ckpt_dirs, tmp_path):
     path = str(ckpt_dirs["llama"])
-    with pytest.raises(NotImplementedError, match="lora"):
-        T.LLM(model=path, device="cpu", lora_path="/nonexistent", **LLM_KW)
+    # lora_path is no longer refused: a PEFT adapter merges at load (a zero
+    # B leaves the weights as they are, a nonzero one moves q_proj only)
+    from safetensors.torch import save_file
+    H = FAMILIES["llama"]["hidden_size"]
+    plain = T.LLM(model=path, device="cpu", **LLM_KW)
+    want = plain.model.state()
+    plain.shutdown()
+    for scale in (0.0, 1.0):
+        ad = tmp_path / f"adapter_{scale}"
+        ad.mkdir()
+        (ad / "adapter_config.json").write_text(json.dumps(
+            {"r": 2, "lora_alpha": 4}))
+        g = torch.Generator().manual_seed(0)
+        save_file({f"base_model.model.model.layers.{i}.self_attn.q_proj."
+                   f"lora_{ab}.weight": (torch.randn(shape, generator=g)
+                                          * scale)
+                   for i in range(2)
+                   for ab, shape in (("A", (2, H)), ("B", (H, 2)))},
+                  str(ad / "adapter_model.safetensors"))
+        tl = T.LLM(model=path, device="cpu", lora_path=str(ad), **LLM_KW)
+        try:
+            got = tl.model.state()
+            moved = sorted(k for k in want if not torch.equal(got[k],
+                                                                want[k]))
+            assert moved == ([] if scale == 0 else [
+                f"layers.{i}.attn.qkv.weight" for i in range(2)]), moved
+            assert len(tl.generate([[1, 2, 3]], T.SamplingParams(
+                max_tokens=2))[0].outputs[0].token_ids) == 2
+        finally:
+            tl.shutdown()
     with pytest.raises(NotImplementedError, match="clip"):
         T.LLM(model=path, device="cpu", quant_algo="W4A16",
               quant_clip_search=True, **LLM_KW)

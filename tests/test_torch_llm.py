@@ -113,9 +113,12 @@ def test_generate_is_deterministic_and_respects_limits():
         assert len(s[0].outputs[0].token_ids) == 5
         with pytest.raises(ValueError):
             tl.generate([list(range(1, 170))], sp)      # > max_seq_len
-        with pytest.raises(NotImplementedError, match="beam"):
-            tl.generate([[1, 2]], T.SamplingParams(use_beam_search=True,
-                                                   n=2))
+        # beam search runs: one request, one output per beam, best first
+        beams = tl.generate([[1, 2]], T.SamplingParams(
+            use_beam_search=True, n=2, max_tokens=4, ignore_eos=True))
+        scores = [o.cumulative_logprob for o in beams[0].outputs]
+        assert len(scores) == 2 and scores == sorted(scores, reverse=True)
+        assert all(len(o.token_ids) == 4 for o in beams[0].outputs)
     finally:
         tl.shutdown()
 
