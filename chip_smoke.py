@@ -6,7 +6,8 @@
 Phases (any failure exits nonzero; nothing is caught and ignored):
 
 1. the card's name and power limit (nvidia-smi);
-2. build the fourteen CUDA kernels from `tensorrt_llm_tpu_torch/csrc` and
+2. build the fourteen CUDA kernels (K3 and K4 also in e4m3-page
+   instances) from `tensorrt_llm_tpu_torch/csrc` and
    print every wgmma ptxas serialized, by source (K5's and K8's checks
    fail on any in their sources), and the `-Xptxas -v` lines (registers,
    spills) of K2's and K4/K6's sources;
@@ -48,7 +49,13 @@ Phases (any failure exits nonzero; nothing is caught and ignored):
    split length timed and `decode_plan`'s within 10% of the fastest; the MLA prefill K10 also at 17 and 256
    tokens after a 1024-token prefix, where its plan splits the latent
    range over blocks: each row names the plan's blocks and splits, and
-   the plan's split is held within 10% of the fastest split timed);
+   the plan's split is held within 10% of the fastest split timed; FP8 KV
+   (`check_fp8`): the card's e4m3 cast and upcast against the CPU's byte
+   for byte, the e4m3-page instances of K3/K4 against their plain versions
+   on pools that hold every finite e4m3 code, at rows 6, 7, 9 and 10's
+   shapes and with partial last pages, each row's error taken against its
+   own largest output, and each 8-bit linear timed beside a W4A16 one at
+   Llama-3-8B's gate_up and down and held to the CPU's result);
 4. serve 8 greedy requests with `LLM.generate` on the full-width TinyLlama
    W4A16 model (random weights from a seed); every serve phase builds its
    `LLM` with the default warmup (the W4A16 autotuner prints each shape's
@@ -196,7 +203,18 @@ Phases (any failure exits nonzero; nothing is caught and ignored):
    tokens alone, the base row the plain `LLM`'s exactly, the launches the
    plain traffic's), `apply_lora` against float64, a beam request with an
    adapter, the paged cache at 2 slots, `lora_path` against the CPU's load
-   (`beam_lora_phase`).
+   (`beam_lora_phase`);
+25. `llama3_fp8` (run after phase 12): Llama-3-8B at full width and
+   `LLAMA3_FP8_LAYERS` (8) layers with FP8 weights (e4m3, per-channel
+   scales, plain products) and an FP8 KV cache, the serve mix: the e4m3
+   instances of K3/K4 once per layer per chunk and step, no W4 GEMM and no
+   bf16 or int8 attention launch;
+26. `tinyllama_fp8kv`: TinyLlama W4A16 at its full 22 layers over an FP8
+   KV cache (the D=64 e4m3 instances), the same counts;
+27. `quant8_cross`: Llama-3-8B width at 2 layers on the card and on the
+   CPU under FP8 + FP8 KV, FP8_PER_CHANNEL_PER_TOKEN, W8A16 and
+   W8A8_SQ_PER_CHANNEL, as in phase 7 (`QUANT8_CROSS` has each
+   tolerance).
 
 Depth cuts that keep the script in its time limit (widths unchanged): the
 bench presets (`BENCH_LAYERS`: all four at 4 layers, TinyLlama and
@@ -209,17 +227,21 @@ TinyLlama at 11 in `disagg` (`DISAGG_LAYERS`; all five at full depth
 before the `spec` phase, cut from the phases' measured seconds to make
 room for it; Moonlight at 27 brings the script to 985.2 s on an H100
 80GB HBM3 at 700 W when the host is slow), the W4A8 serve
-(`LLAMA3_W4A8_LAYERS` 8) and the `checkpoint` phase's TinyLlama
+(`LLAMA3_W4A8_LAYERS` 8), the FP8 serve (`LLAMA3_FP8_LAYERS` 8) and the
+`checkpoint` phase's TinyLlama
 (`CKPT_TINYLLAMA_LAYERS` 4).  Each phase's wall seconds
 are printed on one line (`phase seconds`) before the card's line and kept
 in the `--json` output (`PHASES["seconds"]`).
 
 Arguments pick phases (default: check serve serve_ramp serve_stream
 fused_mlp cross llama3 gptoss gptoss_cross llama3_w4a8 llama3_w4a8_cross
-deepseek deepseek_v32 deepseek_v3_width deepseek_cross checkpoint sampling
-openai disagg spec beam_lora bench bench_cross);
+llama3_fp8 tinyllama_fp8kv quant8_cross deepseek deepseek_v32
+deepseek_v3_width deepseek_cross checkpoint sampling openai disagg spec
+beam_lora bench bench_cross);
 `check_moe` runs
 only K5's checks, `check_w4a8` only K8's, `check_int8` only K6-K8's,
+`check_fp8` only the FP8 ones (the cast, K3/K4's e4m3 instances, the
+8-bit linears),
 `check_mla` only K9-K11's (with their plans' checks),
 `check_w4a16` only K12-K14's and `check_k1` only K1's; `profile`,
 `profile_gptoss`, `profile_llama3_int8`, `profile_deepseek` and
@@ -244,7 +266,9 @@ slices) choice at 112 shapes beside `gemv_plan`'s pick.
 The last three lines of stdout are the card's name and power limit, the
 `kernels` JSON object (one row per TPU kernel body: 16 rows, the D=128
 bodies of K3 and K4 served by the same kernels as D=64, on the `openai`
-path) and the device JSON object.  Without a CUDA device,
+path; and four rows of K3/K4's e4m3-page instances, D 64 on the
+`tinyllama_fp8kv` path and D 128 on `llama3_fp8`'s) and the device JSON
+object.  Without a CUDA device,
 or without the package beside it, the script exits nonzero before printing
 any result.  It imports nothing of JAX.
 """
@@ -381,8 +405,26 @@ DECODE_CASES = [
 DECODE_INT8_CASES = [c for c in DECODE_CASES if c[0] == "llama-3-8b"
                      and c[4] is not BENCH_DECODE_LENS] + [
     ("tinyllama", 32, 4, 64, [81, 150, 400, 664], None, None, False)]
+# K3/K4 over e4m3 pages (FP8 KV), no scales: rows 9 and 6's Llama-3-8B
+# shapes, rows 10 and 7's D 64 ones (TinyLlama served, GPT-OSS with sinks
+# and window 128), and last pages that are partial (kv_len 301, 1041, 428;
+# 81, 33); every pool holds every finite e4m3 code in one page (`_fp8_pool`)
+PREFILL_FP8_CASES = [
+    ("llama-3-8b", 32, 8, 128, 256, 256, None, None, False),
+    ("llama-3-8b", 32, 8, 128, 17, 1024, None, None, False),
+    ("llama-3-8b", 32, 8, 128, 128, 300, 96, 25.0, True),
+    ("tinyllama", 32, 4, 64, 256, 256, None, None, False),
+    ("tinyllama", 32, 4, 64, 100, 201, None, None, False),
+    ("gpt-oss-20b", 64, 8, 64, 256, 128, 128, None, True),
+]
+DECODE_FP8_CASES = [
+    ("llama-3-8b", 32, 8, 128, [320, 400, 1000, 4000], None, None, False),
+    ("llama-3-8b", 32, 8, 128, [33, 320], 96, 25.0, True),
+    ("tinyllama", 32, 4, 64, [81, 150, 400, 664], None, None, False),
+    ("gpt-oss-20b", 64, 8, 64, [81, 150, 400, 664], 128, None, True),
+]
 # `decode_plan`'s split length must be within this share of the fastest
-# split length's time at every decode row (bf16 and int8 pools)
+# split length's time at every decode row (bf16, int8 and e4m3 pools)
 DECODE_PLAN_SLACK = 0.10
 W4A8_MODEL = "llama-3-8b"       # K8's (K, N) come from GEMM_SHAPES
 W4A8_KPAIRED_M = (1, 4, 17, 256)  # K8 on a K-paired weight
@@ -1127,6 +1169,107 @@ def _int_mm_ms(xq, w_int8, iters):
     return None
 
 
+def check_e4m3_cast(dev):
+    """The card's e4m3 cast and upcast against the CPU's, byte for byte:
+    the cast of every subnormal, of +-440 .. +-1000 in steps of 1/8 (past
+    448 both saturate, where the JAX package's cast gives NaN), of +-inf
+    and of random bf16 values over 2^-12 .. 2^10, from f32 and from bf16;
+    the upcast of all 256 codes to bf16 and f32; and the FP8 KV append
+    (`write_kv_cache`) of random bf16 rows."""
+    import numpy as np
+    import torch
+    from tensorrt_llm_tpu_torch.ops.attention_plain import write_kv_cache
+    from tensorrt_llm_tpu_torch.quantization import to_e4m3
+    rng = np.random.default_rng(20)
+    sub = np.arange(1, 8, dtype=np.float32) * 2.0 ** -9
+    sub = np.concatenate([sub, sub * 1.5, sub + 2.0 ** -11])
+    big = np.arange(440.0, 1000.0, 0.125, dtype=np.float32)
+    mags = 2.0 ** rng.uniform(-12, 10, 200_000).astype(np.float32)
+    rnd = mags * rng.choice([-1.0, 1.0], mags.size).astype(np.float32)
+    x = np.concatenate([sub, -sub, big, -big, rnd,
+                        np.array([np.inf, -np.inf, 0.0, -0.0], np.float32)])
+    res = {"values": int(x.size)}
+    for dt in (torch.float32, torch.bfloat16):
+        xc = torch.from_numpy(x).to(dt)
+        cpu = to_e4m3(xc).view(torch.uint8)
+        card = to_e4m3(xc.to(dev)).view(torch.uint8).cpu()
+        bad = int((cpu != card).sum())
+        res[f"cast_from_{str(dt)[6:]}_mismatches"] = bad
+        assert bad == 0, f"e4m3 cast from {dt}: {bad} bytes differ"
+    sat = to_e4m3(torch.tensor([500.0, -1000.0], device=dev)).float().cpu()
+    assert sat.tolist() == [448.0, -448.0], sat
+    codes = torch.arange(256, dtype=torch.uint8).view(torch.float8_e4m3fn)
+    for dt in (torch.bfloat16, torch.float32):
+        a = codes.to(dt).float()
+        b = codes.to(dev).to(dt).float().cpu()
+        nan = torch.isnan(a)
+        assert torch.equal(nan, torch.isnan(b)) and int(nan.sum()) == 2
+        assert torch.equal(a[~nan], b[~nan]), f"e4m3 -> {dt} differs"
+    NB, H, BS, D = 8, 4, 16, 128
+    kn = (torch.randn((96, H, D)) * 64).to(torch.bfloat16)
+    vn = (torch.randn((96, H, D)) * 300).to(torch.bfloat16)
+    slots = torch.randperm(NB * BS - BS)[:96] + BS
+    pools = []
+    for d in ("cpu", dev):
+        k = torch.zeros((NB, H, BS, D), dtype=torch.float8_e4m3fn, device=d)
+        v = torch.zeros_like(k)
+        write_kv_cache(k, v, kn.to(d), vn.to(d), slots.to(d))
+        pools.append([t.view(torch.uint8).cpu() for t in (k, v)])
+    a, b = pools
+    assert all(torch.equal(x, y) for x, y in zip(a, b)), \
+        "FP8 KV append differs"
+    res["append_rows"] = 96 * H * 2
+    PHASES["e4m3_cast"] = res
+    log(json.dumps({"e4m3_cast": res}))
+
+
+# the 8-bit linears (plain products) at Llama-3-8B's gate_up and down,
+# beside a W4A16 linear of the same weight
+W8_ALGOS = ("W8A16", "W8A8_SQ_PER_CHANNEL", "FP8", "FP8_PER_CHANNEL_PER_TOKEN")
+W8_M = (4, 256)
+
+
+def check_w8_products(gen, dev):
+    """Each 8-bit `Linear` on the card against the same weights on the CPU
+    (two bf16 ulps of the largest output: the f32 sums run in another
+    order; W8A8's int32 sums are exact on both), timed beside a W4A16
+    `Linear` of the same weight: the price of computing the 8-bit
+    products in plain PyTorch (an f32 product of the upcast weight, or
+    `torch._int_mm`), recorded, not held to a bound."""
+    import torch
+    from tensorrt_llm_tpu_torch.layers.linear import Linear
+    from tensorrt_llm_tpu_torch.quantization import QuantAlgo, QuantConfig
+    out = []
+    for name, K, N in (("gate_up", 4096, 28672), ("down", 14336, 4096)):
+        w = torch.randn((K, N), generator=gen, device=dev) * K ** -0.5
+        for algo in W8_ALGOS + ("W4A16",):
+            q = QuantConfig(quant_algo=QuantAlgo(algo), group_size=128)
+            lin, cpu = Linear(K, N, q, "mlp"), Linear(K, N, q, "mlp")
+            lin.from_float(w)
+            cpu.load({k: None if t is None else t.cpu() for k, t in (
+                ("qweight", lin.qweight), ("scales", lin.scales),
+                ("zeros", lin.zeros), ("bias", lin.bias))})
+            for M in W8_M:
+                x = torch.randn((M, K), generator=gen, device=dev).to(
+                    torch.bfloat16)
+                with torch.no_grad():
+                    got = lin(x).float().cpu()
+                    ref = cpu(x.cpu()).float()
+                    ms = cuda_ms([lambda: lin(x)], 10)
+                err = (got - ref).abs().max().item()
+                tol = 2.0 ** -7 * ref.abs().max().item()
+                row = {"weight": name, "algo": algo, "M": M, "K": K, "N": N,
+                       "ms": ms, "max_err_vs_cpu": err, "tol": tol}
+                out.append(row)
+                log(json.dumps({"w8_product": row}))
+                # W4A16 is the yardstick here; K1/K2 are held elsewhere
+                assert err <= tol or algo == "W4A16", row
+            del lin, cpu
+        del w
+        torch.cuda.empty_cache()
+    PHASES["w8_products"] = out
+
+
 def check_w4a8(gen, dev):
     """K8 at Llama-3-8B's four projections x W4A8_M with zero points (as
     served), plus a per-channel case and a bias + silu case, and on
@@ -1452,6 +1595,54 @@ def _int8_pool(p):
     return q.reshape(p.shape), sc.reshape(nb, h, bs)
 
 
+# every finite e4m3 code (0x7f and 0xff are NaN)
+E4M3_FINITE_CODES = [c for c in range(256) if c not in (0x7F, 0xFF)]
+
+
+def _fp8_pool(p, page):
+    """A bf16 pool [NB, Hkv, BS, D] cast to e4m3 as the serve path's KV
+    append casts it (`to_e4m3`), with every finite e4m3 code written into
+    page `page` (head 0 from its first token on), so that the kernels
+    convert each of them."""
+    import torch
+    from tensorrt_llm_tpu_torch.quantization import to_e4m3
+    q = to_e4m3(p.float())
+    codes = torch.tensor(E4M3_FINITE_CODES, dtype=torch.uint8,
+                         device=p.device)
+    flat = q.view(torch.uint8)[page, 0].reshape(-1)
+    assert flat.numel() >= codes.numel()
+    flat[:codes.numel()] = codes
+    return q
+
+
+def _kv_pools(k, v, kind, page):
+    """(k, v) bf16 pools as the attention kernels of `kind` take them."""
+    if kind == "int8":
+        return _int8_pool(k), _int8_pool(v)
+    if kind == "fp8":
+        return _fp8_pool(k, page), _fp8_pool(v, page)
+    return k, v
+
+
+# bytes a K or V row of D values costs: bf16; int8 plus its f32 scale;
+# e4m3 with no scale
+def _kv_row_bytes(kind, D):
+    return {"bf16": 2 * D, "int8": D + 4, "fp8": D}[kind]
+
+
+def _attn_err(out, ref, kind):
+    """(the error held to the tolerance, max |out - ref|), in f32.  FP8
+    pools hold every e4m3 code, up to 448, in one page: the rows that read
+    it reach hundreds, so each (token, head) row's error is taken against
+    its own largest value (max(1, |ref row|)), the bf16 rows' tolerance
+    rule row by row."""
+    d = (out.float() - ref.float()).abs()
+    if kind != "fp8":
+        return d.max().item(), d.max().item()
+    big = ref.float().abs().amax(dim=-1, keepdim=True).clamp(min=1.0)
+    return (d / big).max().item(), d.max().item()
+
+
 def _nbytes(c):
     """Bytes of a pool or of every tensor in nested pools (K/V pairs, INT8
     pairs, latent pools and DSA's (latent, indexer) pairs)."""
@@ -1491,8 +1682,9 @@ def _sdpa_ms(q, k, v, mask, iters, sinks=None):
         q, k, v, attn_mask=mask)], iters)
 
 
-def check_prefill(gen, dev, cases=PREFILL_CASES, int8=False):
-    """K3 (bf16 pools) or, with `int8`, K7 on freshly quantized pools."""
+def check_prefill(gen, dev, cases=PREFILL_CASES, kind="bf16"):
+    """K3 over bf16 pools or (`kind` "fp8") over e4m3 pools that hold every
+    finite e4m3 code, or K7 (`kind` "int8") on freshly quantized pools."""
     import numpy as np
     import torch
     from tensorrt_llm_tpu_torch.ops.attention_plain import gather_dequant
@@ -1501,8 +1693,7 @@ def check_prefill(gen, dev, cases=PREFILL_CASES, int8=False):
     for model, Hq, Hkv, D, T, off, win, cap, sk in cases:
         kv_len = off + T
         k, v, tables = _paged(gen, dev, [kv_len], Hkv, D)
-        if int8:
-            k, v = _int8_pool(k), _int8_pool(v)
+        k, v = _kv_pools(k, v, kind, tables[0, 0].item())
         table = tables[0].contiguous()
         q = torch.randn((T, Hq, D), generator=gen, device=dev
                         ).to(torch.bfloat16)
@@ -1513,7 +1704,7 @@ def check_prefill(gen, dev, cases=PREFILL_CASES, int8=False):
         out = flash_prefill_attention(q, k, v, table, kv_len, off, scale, **kw)
         ref = flash_prefill_plain(q, k, v, table, kv_len, off, scale, **kw)
         torch.cuda.synchronize()
-        err = (out.float() - ref.float()).abs().max().item()
+        err, abs_err = _attn_err(out, ref, kind)
         n_copy = copies_for(2 * _nbytes(k))
         pools = [(_clone(k), _clone(v)) for _ in range(n_copy)]
         k_ms = cuda_ms([lambda kk=kk, vv=vv: flash_prefill_attention(
@@ -1542,24 +1733,27 @@ def check_prefill(gen, dev, cases=PREFILL_CASES, int8=False):
             valid &= kpos > qpos - win
         pairs = int(valid.sum())
         lo = max(0, off - win + 1) if win else 0
-        # q and out in bf16; each K and V row D values (bf16, or int8 plus
-        # its f32 scale)
-        row = D + 4 if int8 else 2 * D
+        # q and out in bf16; each K and V row D values (bf16, e4m3, or int8
+        # plus its f32 scale)
+        row = _kv_row_bytes(kind, D)
         nbytes = 2 * T * Hq * D * 2 + 2 * (kv_len - lo) * Hkv * row
         # the kernel rounds P to bf16 (2^-9 relative), the plain version the
         # dequantized K/V of an int8 pool, and both sides round the output
-        # to bf16 (2^-8 relative): 2% of the largest output
-        tol = 2e-2 * max(1.0, ref.float().abs().max().item())
-        record("flash_prefill_int8" if int8 else "flash_prefill",
+        # to bf16 (2^-8 relative): 2% of the largest output (FP8: of each
+        # row's own, `_attn_err`; the upcast of e4m3 is exact)
+        tol = 2e-2 * (1.0 if kind == "fp8"
+                      else max(1.0, ref.float().abs().max().item()))
+        record("flash_prefill" + ("" if kind == "bf16" else "_" + kind),
                {"model": model, "Hq": Hq, "Hkv": Hkv, "D": D, "T": T,
                 "q_offset": off, "window": win, "logit_cap": cap,
                 "sinks": sk},
                err, tol, k_ms, p_ms, l_ms,
-               bound_ms(nbytes, 4 * pairs * Hq * D))
+               bound_ms(nbytes, 4 * pairs * Hq * D), max_abs_err=abs_err)
 
 
-def check_decode(gen, dev, cases=DECODE_CASES, int8=False):
-    """K4 (bf16 pools) or, with `int8`, K6 on freshly quantized pools."""
+def check_decode(gen, dev, cases=DECODE_CASES, kind="bf16"):
+    """K4 over bf16 pools or (`kind` "fp8") over e4m3 pools that hold every
+    finite e4m3 code, or K6 (`kind` "int8") on freshly quantized pools."""
     import torch
     from tensorrt_llm_tpu_torch.ops.attention_plain import (
         gather_dequant, pool_dims)
@@ -1569,8 +1763,7 @@ def check_decode(gen, dev, cases=DECODE_CASES, int8=False):
     for model, Hq, Hkv, D, lens, win, cap, sk in cases:
         B = len(lens)
         k, v, tables = _paged(gen, dev, lens, Hkv, D)
-        if int8:
-            k, v = _int8_pool(k), _int8_pool(v)
+        k, v = _kv_pools(k, v, kind, tables[0, 0].item())
         kv_lens = torch.tensor(lens, dtype=torch.int32, device=dev)
         q = torch.randn((B, Hq, D), generator=gen, device=dev
                         ).to(torch.bfloat16)
@@ -1585,7 +1778,7 @@ def check_decode(gen, dev, cases=DECODE_CASES, int8=False):
             q, k, v, tables, kv_lens, scale, **kw)), \
             f"paged decode {model} {lens}: second call differs"
         torch.cuda.synchronize()
-        err = (out.float() - ref.float()).abs().max().item()
+        err, abs_err = _attn_err(out, ref, kind)
         pools = [(_clone(k), _clone(v))
                  for _ in range(copies_for(2 * _nbytes(k)))]
         k_ms = cuda_ms([lambda kk=kk, vv=vv: paged_decode_attention(
@@ -1616,18 +1809,20 @@ def check_decode(gen, dev, cases=DECODE_CASES, int8=False):
             l_ms = _sdpa_ms(q[:, :, None], kd, vd, mask[:, None, None, :], 30,
                             sinks)
         used = [min(L, win) if win else L for L in lens]
-        row = D + 4 if int8 else 2 * D
+        row = _kv_row_bytes(kind, D)
         nbytes = 2 * B * Hq * D * 2 + sum(used) * 2 * Hkv * row
         # f32 math on both sides; the bf16 output rounding (2^-8 relative)
         # and, for an int8 pool, the plain version's bf16 rounding of the
         # dequantized K/V (2^-9 relative) remain: 1% of the largest output
-        tol = 1e-2 * max(1.0, ref.float().abs().max().item())
-        record("paged_decode_int8" if int8 else "paged_decode",
+        # (FP8: of each row's own, `_attn_err`; the upcast is exact)
+        tol = 1e-2 * (1.0 if kind == "fp8"
+                      else max(1.0, ref.float().abs().max().item()))
+        record("paged_decode" + ("" if kind == "bf16" else "_" + kind),
                {"model": model, "Hq": Hq, "Hkv": Hkv, "D": D,
                 "kv_lens": lens, "window": win, "logit_cap": cap,
                 "sinks": sk, "split_len": plan["split_len"]},
                err, tol, k_ms, p_ms, l_ms,
-               bound_ms(nbytes, 4 * sum(used) * Hq * D),
+               bound_ms(nbytes, 4 * sum(used) * Hq * D), max_abs_err=abs_err,
                split_ms={str(L): t for L, t in splits.items()},
                split_ratio=split_ratio)
         assert split_ratio <= 1 + DECODE_PLAN_SLACK, \
@@ -2000,23 +2195,39 @@ LLAMA3_8B = dict(vocab_size=128256, hidden_size=4096, intermediate_size=14336,
                  max_position=8192)
 
 
-def w4a16_cfg(shape, **over):
+def quant_cfg(shape, algo, **over):
+    """A model shape under one `QuantAlgo` (group 128 where it has groups)."""
     from tensorrt_llm_tpu_torch.models import ModelConfig
     from tensorrt_llm_tpu_torch.quantization import QuantAlgo, QuantConfig
     return ModelConfig(**{**shape, **over}, quant=QuantConfig(
-        quant_algo=QuantAlgo.W4A16, group_size=128))
+        quant_algo=QuantAlgo(algo), group_size=128))
+
+
+def w4a16_cfg(shape, **over):
+    return quant_cfg(shape, "W4A16", **over)
 
 
 def w4a8_cfg(shape, **over):
     """W4A8_AWQ group 128 (zero points always, as the JAX package forces)."""
-    from tensorrt_llm_tpu_torch.models import ModelConfig
-    from tensorrt_llm_tpu_torch.quantization import QuantAlgo, QuantConfig
-    return ModelConfig(**{**shape, **over}, quant=QuantConfig(
-        quant_algo=QuantAlgo.W4A8_AWQ, group_size=128))
+    return quant_cfg(shape, "W4A8_AWQ", **over)
+
+
+# `quant8_cross`: (algorithm, KV pools, seed, logit tolerance).  The
+# tolerance is cross_check_cpu's 0.08 but for FP8 activations rounded per
+# token: e4m3 keeps 3 mantissa bits, so a one-ulp bf16 difference of an
+# activation between card and CPU (the norms' sums run in another order)
+# moves it by a whole e4m3 step (1/16 to 1/8 of its value), where int8's
+# per-token step is amax / 127; with the same e4m3 weights and static bf16
+# activations (the FP8 row) the gap stays under 0.02 (PERF.md)
+QUANT8_CROSS = (("FP8", "FP8", 8, 0.08),
+                ("FP8_PER_CHANNEL_PER_TOKEN", "NONE", 9, 0.16),
+                ("W8A16", "NONE", 10, 0.08),
+                ("W8A8_SQ_PER_CHANNEL", "NONE", 11, 0.08))
 
 
 GPT_OSS_LAYERS = 12     # of 24: the script's time limit
-LLAMA3_W4A8_LAYERS = 8  # Llama-3-8B widths: 8 layers here and in
+LLAMA3_W4A8_LAYERS = 8  # Llama-3-8B widths: 8 layers here, in
+LLAMA3_FP8_LAYERS = 8   # `llama3_fp8`, in
 SAMPLING_LAYERS = 8     # `sampling` and
 OPENAI_LAYERS = 8       # `openai` (the script's time limit)
 MOONLIGHT_LAYERS = 9    # of 27: the script's time limit
@@ -2032,13 +2243,14 @@ def gpt_oss_cfg(num_layers):
 
 def attention_kernels(cfg, kv_cache_quant="NONE"):
     """(prefill, decode) kernels every layer of a forward launches once on
-    this path: K3/K4 (K7/K6 over an INT8 cache) for GQA, K10/K9 for dense
+    this path: K3/K4 (their e4m3 instances over an FP8 cache, K7/K6 over an
+    INT8 cache) for GQA, K10/K9 for dense
     MLA; under DSA, K11 scores each decode step and the attention itself
     is plain torch (as it is XLA in the JAX package)."""
     if cfg.is_mla:
         return (None, "dsa_score") if cfg.dsa else ("mla_prefill",
                                                     "mla_decode")
-    sfx = "_int8" if kv_cache_quant == "INT8" else ""
+    sfx = {"INT8": "_int8", "FP8": "_fp8"}.get(kv_cache_quant, "")
     return "flash_prefill" + sfx, "paged_decode" + sfx
 
 
@@ -2066,7 +2278,7 @@ def w4a16_shapes(model):
     from tensorrt_llm_tpu_torch.layers.linear import Linear
     keys, n_kpaired = set(), 0
     for m in model.modules():
-        if isinstance(m, Linear) and m.quantized and not m.w4a8:
+        if isinstance(m, Linear) and m.w4a16:
             q = m.qweight
             tiled = q.dim() == 3
             keys.add((q.shape[-2] * 2 if tiled else q.shape[0] * 2,
@@ -2820,6 +3032,78 @@ def profile_serve(card, phase, cfg, kv_cache_quant="NONE", long_prompt=0,
             4 * cfg.num_layers * n
     log(json.dumps(PHASES[phase]))
     del llm
+    torch.cuda.empty_cache()
+
+
+FP8KV_AB_ORDER = ("NONE", "FP8", "FP8", "NONE")
+
+
+def fp8kv_ab(card):
+    """Opt-in: where TinyLlama W4A16's serve time goes over FP8 KV pools
+    against bf16 ones.  The KV append (`write_kv_cache`) of one decode
+    step's 4 tokens into each pool kind, its device ms and host us a call,
+    and each pool kind's attention wrappers' host us a call at that step;
+    then the serve mix on two `LLM`s of one seed's weights, timed in the
+    order of `FP8KV_AB_ORDER` (tokens/s and host ms a decode step)."""
+    import numpy as np
+    import torch
+    import tensorrt_llm_tpu_torch as T
+    from tensorrt_llm_tpu_torch.ops.attention_plain import write_kv_cache
+    from tensorrt_llm_tpu_torch.ops.paged_attention import (
+        paged_decode_attention)
+    from tensorrt_llm_tpu_torch.runtime.kv_cache_manager import make_pools
+    res = {"card": card, "ops": {}, "runs": []}
+    H, D, BS, NB = TINYLLAMA["num_kv_heads"], TINYLLAMA["head_dim"], 16, 640
+    kn = torch.randn((4, H, D), device=DEVICE).to(torch.bfloat16)
+    slots = torch.tensor([17, 300, 601, 999], device=DEVICE)
+    q = torch.randn((4, TINYLLAMA["num_heads"], D), device=DEVICE).to(
+        torch.bfloat16)
+    tables = torch.arange(1, 1 + 4 * 40, dtype=torch.int32,
+                          device=DEVICE).reshape(4, 40)
+    lens = torch.tensor([81, 150, 400, 600], dtype=torch.int32,
+                        device=DEVICE)
+    for kv in ("NONE", "FP8"):
+        (k, v), = make_pools(1, NB, H, BS, D, kv, DEVICE)
+        append = lambda k=k, v=v: write_kv_cache(k, v, kn, kn, slots)  # noqa
+        attn = lambda k=k, v=v: paged_decode_attention(  # noqa: E731
+            q, k, v, tables, lens, D ** -0.5)
+        res["ops"][kv] = {"append_ms": cuda_ms([append], 200),
+                          "append_host_us": host_us(append),
+                          "decode_host_us": host_us(attn),
+                          "decode_ms": cuda_ms([attn], 200)}
+    kw = dict(skip_tokenizer_init=True, device=DEVICE, max_batch_size=4,
+              max_num_tokens=256, max_seq_len=1024, kv_block_size=16,
+              kv_num_blocks=NB, seed=0)
+    llms = {kv: T.LLM(model=w4a16_cfg(TINYLLAMA), kv_cache_quant=kv, **kw)
+            for kv in ("NONE", "FP8")}
+    rng = np.random.default_rng(0)
+    V = TINYLLAMA["vocab_size"]
+    prompts = [[int(t) for t in rng.integers(10, V - 10, n)]
+               for n in (17, 64, 200, 333, 480, 600, 320, 345)]
+    sp = T.SamplingParams(max_tokens=64, temperature=0.0, ignore_eos=True)
+    try:
+        for i, kv in enumerate(FP8KV_AB_ORDER):
+            llm = llms[kv]
+            it0 = llm.executor.iteration
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            outs = llm.generate(prompts, sp, cache_salt=f"ab{i}")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            st = [x for x in llm.get_stats() if x["iteration"] > it0]
+            steps = sum(x["decode_steps"] for x in st)
+            res["runs"].append({
+                "kv": kv, "wall_s": wall,
+                "tokens_per_s": sum(len(o.outputs[0].token_ids)
+                                    for o in outs) / wall,
+                "decode_steps": steps, "prefill_chunks": sum(
+                    x["num_prefill_chunks"] for x in st)})
+    finally:
+        for llm in llms.values():
+            llm.shutdown()
+    PHASES["fp8kv_ab"] = res
+    log(json.dumps({"fp8kv_ab": res}))
+    del llms
     torch.cuda.empty_cache()
 
 
@@ -5751,6 +6035,8 @@ V32_PATH = "serve_deepseek_v32"         # slice 4's DSA path: K11
 RAMP_PATH = "serve_ramp"                # K13 under a ramp tactic file
 STREAM_PATH = "serve_stream"            # K2 under a stream tactic file
 FUSED_PATH = "fused_mlp"                # K14 through its op
+LLAMA3_FP8_PATH = "serve_llama3_fp8"    # FP8 weights + KV: K3/K4 over e4m3
+TINYLLAMA_FP8_PATH = "serve_tinyllama_fp8kv"   # W4A16 + FP8 KV at D 64
 KERNELS = {
     # each kernel's row: the serve path that runs it, and a phase-3 check
     # at the shape that path gives it
@@ -5788,6 +6074,29 @@ KERNELS = {
                 "tensorrt_llm_tpu/ops/moe_w4a16.py:78", GPT_OSS_PATH,
                 {"model": "gpt-oss-20b", "M": 16, "N": 5760,
                  "routing": "uniform", "zeros": False}),
+    # the e4m3-page instances of K3/K4 (FP8 KV, no scales): the D=64
+    # bodies on TinyLlama's path, the D=128 ones on Llama-3-8B FP8's
+    "flash_prefill_fp8": ("cuda",
+                          "tensorrt_llm_tpu_torch/csrc/flash_prefill_sm90.cu",
+                          "tensorrt_llm_tpu/ops/flash_prefill.py:282",
+                          TINYLLAMA_FP8_PATH,
+                          {"model": "tinyllama", "T": 256, "q_offset": 256}),
+    "paged_decode_fp8": ("cuda", "tensorrt_llm_tpu_torch/csrc/paged_decode.cu",
+                         "tensorrt_llm_tpu/ops/paged_attention.py:516",
+                         TINYLLAMA_FP8_PATH, {"model": "tinyllama"}),
+    "flash_prefill_fp8@d128": ("cuda",
+                               "tensorrt_llm_tpu_torch/csrc/"
+                               "flash_prefill_sm90.cu",
+                               "tensorrt_llm_tpu/ops/flash_prefill.py:39",
+                               LLAMA3_FP8_PATH,
+                               {"model": "llama-3-8b", "T": 256,
+                                "q_offset": 256}),
+    "paged_decode_fp8@d128": ("cuda",
+                              "tensorrt_llm_tpu_torch/csrc/paged_decode.cu",
+                              "tensorrt_llm_tpu/ops/paged_attention.py:40",
+                              LLAMA3_FP8_PATH,
+                              {"model": "llama-3-8b",
+                               "kv_lens": [320, 400, 1000, 4000]}),
     "paged_decode_int8": ("cuda",
                           "tensorrt_llm_tpu_torch/csrc/paged_decode.cu",
                           "tensorrt_llm_tpu/ops/paged_attention.py:174",
@@ -5850,7 +6159,8 @@ def kernels_line(by_path):
                     "launches": by_path[path].get(kernel, 0),
                     "launches_by_path": {p: c.get(kernel, 0)
                                          for p, c in by_path.items()},
-                    "max_abs_err": max(r["max_err"] for r in rows),
+                    "max_abs_err": max(r.get("max_abs_err", r["max_err"])
+                                       for r in rows),
                     "ms": h["kernel_ms"], "plain_ms": h["plain_ms"],
                     "bound_ms": h["bound_ms"], "bound_by": h["bound_by"],
                     "library_ms": h["library_ms"], "shape": h["shape"]})
@@ -5909,6 +6219,7 @@ def main() -> int:
                       "fused_mlp", "cross",
                       "llama3", "gptoss",
                       "gptoss_cross", "llama3_w4a8", "llama3_w4a8_cross",
+                      "llama3_fp8", "tinyllama_fp8kv", "quant8_cross",
                       "deepseek", "deepseek_v32", "deepseek_v3_width",
                       "deepseek_cross", "checkpoint", "sampling", "openai",
                       "disagg", "spec", "beam_lora", "bench",
@@ -5972,10 +6283,15 @@ def run_phases(phases, card, gen, dev, by_path):
         check_prefill(gen, dev)
         check_decode(gen, dev)
     if on("check", "check_int8"):
-        check_prefill(gen, dev, PREFILL_INT8_CASES, int8=True)
-        check_decode(gen, dev, DECODE_INT8_CASES, int8=True)
+        check_prefill(gen, dev, PREFILL_INT8_CASES, kind="int8")
+        check_decode(gen, dev, DECODE_INT8_CASES, kind="int8")
     if on("check", "check_int8", "check_w4a8"):
         check_w4a8(gen, dev)
+    if on("check", "check_fp8"):
+        check_e4m3_cast(dev)
+        check_prefill(gen, dev, PREFILL_FP8_CASES, kind="fp8")
+        check_decode(gen, dev, DECODE_FP8_CASES, kind="fp8")
+        check_w8_products(gen, dev)
     if on("check", "check_mla"):
         check_mla(gen, dev)
         check_mla_splits(gen, dev)
@@ -6034,6 +6350,31 @@ def run_phases(phases, card, gen, dev, by_path):
                         w4a8_cfg(LLAMA3_8B, num_layers=2), seed=5,
                         n_prompt=200, chunk=128, n_decode=4,
                         kv_cache_quant="INT8")
+    # FP8 KV: the e4m3 instances of K3/K4, and no other attention kernel
+    attn_other = ("flash_prefill", "paged_decode", "flash_prefill_int8",
+                  "paged_decode_int8")
+    w4_kernels = ("w4a16_gemm", "w4a16_gemv", "w4a16_kpaired", "w4a16_ramp",
+                  "w4a8_gemm")
+    if on("llama3_fp8"):
+        n = LLAMA3_FP8_LAYERS
+        by_path[LLAMA3_FP8_PATH] = serve_model(
+            card, LLAMA3_FP8_PATH, f"llama-3-8b FP8, FP8 KV ({n} layers)",
+            quant_cfg(LLAMA3_8B, "FP8", num_layers=n),
+            ("flash_prefill_fp8", "paged_decode_fp8"),
+            absent=attn_other + w4_kernels, kv_cache_quant="FP8")
+    if on("tinyllama_fp8kv"):
+        by_path[TINYLLAMA_FP8_PATH] = serve_model(
+            card, TINYLLAMA_FP8_PATH, "tinyllama-1.1b W4A16, FP8 KV "
+            "(22 layers)", w4a16_cfg(TINYLLAMA),
+            ("w4a16_gemm", "flash_prefill_fp8", "paged_decode_fp8"),
+            absent=attn_other + ("w4a8_gemm",), kv_cache_quant="FP8")
+    if on("quant8_cross"):
+        for algo, kv, seed, tol in QUANT8_CROSS:
+            cross_check_cpu(f"quant8_cross_{algo.lower()}",
+                            f"llama-3-8b width {algo}, {kv} KV, 2 layers",
+                            quant_cfg(LLAMA3_8B, algo, num_layers=2),
+                            seed=seed, n_prompt=200, chunk=128, n_decode=4,
+                            kv_cache_quant=kv, tol=tol)
     attn_gqa = ("flash_prefill", "paged_decode")
     if on("deepseek"):
         n = MOONLIGHT_LAYERS
@@ -6106,6 +6447,11 @@ def run_phases(phases, card, gen, dev, by_path):
                                     kv_cache_quant=kv)
     if on("profile"):
         profile_serve(card, "profile", w4a16_cfg(TINYLLAMA))
+    if on("profile_fp8kv"):
+        profile_serve(card, "profile_fp8kv", w4a16_cfg(TINYLLAMA),
+                      kv_cache_quant="FP8")
+    if on("fp8kv_ab"):
+        fp8kv_ab(card)
     if on("profile_gptoss"):
         profile_serve(card, "profile_gptoss", gpt_oss_cfg(GPT_OSS_LAYERS))
     if on("profile_llama3_int8"):

@@ -1,14 +1,17 @@
-"""CUDA attention backend: prefill on kernel K3, decode on kernel K4; over
-INT8 pools prefill on K7 and decode on K6.
+"""CUDA attention backend: prefill on kernel K3, decode on kernel K4, over
+bf16 pools or, in their e4m3 instances, FP8 pools; over INT8 pools prefill
+on K7 and decode on K6.
 
-Counterpart of `tensorrt_llm_tpu/attention_backend/pallas_backend.py:51-108`.
-The KV append stays plain torch (`write_kv_cache`: an `index_copy_`
-scatter, after `quantize_kv_token` for INT8 pools), as XLA does it in the
-JAX package.  A prefill step with a pair mask (draft-tree verification)
-goes to the plain `tree_verify_attention`, as the JAX Pallas backend sends
-it to XLA (`pallas_backend.py:70` -> `xla_backend.py:34`).  The JAX
-backend's other branches -- FP8 pools and cyclic VSWA rings -- raise here:
-they belong to later slices and are not rerouted to another path.
+Counterpart of `tensorrt_llm_tpu/attention_backend/pallas_backend.py:51-108`,
+which sends FP8 pools (plain e4m3 arrays, not INT8's pairs) to its Pallas
+prefill and decode kernels as well.  The KV append stays plain torch
+(`write_kv_cache`: an `index_copy_` scatter, after `quantize_kv_token` for
+INT8 pools and the e4m3 cast for FP8 pools), as XLA does it in the JAX
+package.  A prefill step with a pair mask (draft-tree verification) goes
+to the plain `tree_verify_attention`, as the JAX Pallas backend sends it
+to XLA (`pallas_backend.py:70` -> `xla_backend.py:34`).  A shape the
+kernels refuse raises NotImplementedError in their wrappers, and cyclic
+VSWA rings raise here: nothing is rerouted to another path.
 """
 
 from __future__ import annotations

@@ -1,5 +1,6 @@
-"""Plain PyTorch attention backend: gather-based paged attention over bf16
-or INT8 pools (dequantized after the gather), and draft-tree verification
+"""Plain PyTorch attention backend: gather-based paged attention over bf16,
+FP8 (upcast after the gather) or INT8 pools (dequantized after the
+gather), and draft-tree verification
 under a pair mask.  Counterpart of
 `tensorrt_llm_tpu/attention_backend/xla_backend.py`."""
 

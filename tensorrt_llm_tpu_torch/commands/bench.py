@@ -20,8 +20,9 @@ tokenizer), the reference's `prepare_dataset.py` format.
 report carries the card's name and power limit.  A request that fails, at
 submission or in its result, is counted under ``num_failed`` with its
 error, releases its place in the window and does not stop the run.
-Options that need modules the port does not have yet raise with the
-module's name: ``--tp-size`` above 1 and ``--kv-dtype fp8``.
+``--kv-dtype`` takes auto, int8 or fp8 (e4m3 KV pages) and ``--quant`` any
+`QuantAlgo` name.  An option that needs a module the port does not have
+yet raises with the module's name: ``--tp-size`` above 1.
 """
 
 from __future__ import annotations
@@ -282,11 +283,6 @@ def llm_kwargs(args) -> dict:
               max_seq_len=args.max_seq_len, seed=args.seed,
               skip_tokenizer_init=args.dataset is None)
     if args.kv_dtype and args.kv_dtype.lower() != "auto":
-        if args.kv_dtype.lower() == "fp8":
-            raise NotImplementedError(
-                "--kv-dtype fp8 needs FP8 KV pools "
-                "(runtime/kv_cache_manager.py KvCacheQuantAlgo.FP8), not in "
-                "the port yet")
         kw["kv_cache_quant"] = args.kv_dtype.upper()
     if args.decode_steps:
         kw["max_decode_steps"] = args.decode_steps
@@ -315,7 +311,10 @@ def main(argv=None):
     p.add_argument("--streaming", action="store_true",
                    help="per-token emission (finer ITL percentiles)")
     p.add_argument("--tp-size", type=int, default=1)
-    p.add_argument("--quant", default=None)
+    p.add_argument("--quant", default=None,
+                   help="a QuantAlgo name: W4A16, W4A16_AWQ, W4A16_GPTQ, "
+                        "W4A8_AWQ, W8A16, W8A8_SQ_PER_CHANNEL, FP8, "
+                        "FP8_PER_CHANNEL_PER_TOKEN")
     p.add_argument("--kv-dtype", default=None,
                    help="auto|int8|fp8 KV cache quantization")
     p.add_argument("--max-batch-size", type=int, default=64)

@@ -48,6 +48,34 @@ __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&p);
 }
 
+// An e4m3 (float8_e4m3fn) page element: one byte, no scale.
+struct e4m3 {
+  uint8_t bits;
+};
+
+// The two e4m3 values in bytes k and k + 1 of w (k 0 or 2) as fp16x2, low
+// byte in the low half, exactly: every e4m3 value, subnormals included, is
+// an fp16 value (sm_89+: one cvt)
+__device__ __forceinline__ uint32_t e4m3x2_to_f16x2(uint32_t w, int k) {
+  uint32_t d;
+  asm("cvt.rn.f16x2.e4m3x2 %0, %1;\n"
+      : "=r"(d)
+      : "h"((unsigned short)(w >> (8 * k))));
+  return d;
+}
+
+// The same as bf16x2, exactly (fp16 -> f32 -> bf16: e4m3's 4 significant
+// bits and its exponent range fit bf16)
+__device__ __forceinline__ uint32_t e4m3x2_to_bf16x2(uint32_t w, int k) {
+  const uint32_t h = e4m3x2_to_f16x2(w, k);
+  float lo, hi;
+  asm("{\n.reg .b16 f16lo, f16hi;\nmov.b32 {f16lo, f16hi}, %2;\n"
+      "cvt.f32.f16 %0, f16lo;\ncvt.f32.f16 %1, f16hi;\n}\n"
+      : "=f"(lo), "=f"(hi)
+      : "r"(h));
+  return pack_bf16x2(lo, hi);
+}
+
 __device__ __forceinline__ void bf16x8_to_float(const uint4& v, float* f) {
   const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&v);
 #pragma unroll

@@ -1,8 +1,11 @@
-// K3 flash_prefill and K7 flash_prefill_int8: one sequence's chunk of T
-// query tokens, at positions q_offset.., attends its paged KV (prefix +
-// chunk, already written) through the sequence's block table: bf16 pools
-// [NB, Hkv, BS, D] (K3), or int8 pools of that shape with f32
-// per-(token, head) scale pools [NB, Hkv, BS] (K7).
+// K3 flash_prefill, its e4m3 instance flash_prefill_fp8, and K7
+// flash_prefill_int8: one sequence's chunk of T query tokens, at positions
+// q_offset.., attends its paged KV (prefix + chunk, already written)
+// through the sequence's block table: bf16 pools [NB, Hkv, BS, D] (K3),
+// e4m3 (float8_e4m3fn) pools of that shape with no scales (K3 over FP8
+// pages: the TPU kernels take them as they are, the page upcast to bf16
+// exactly before the products), or int8 pools with f32 per-(token, head)
+// scale pools [NB, Hkv, BS] (K7).
 //
 // Replaces the TPU kernels tensorrt_llm_tpu/ops/flash_prefill.py
 // `_flash_prefill_kernel` (D % 128 == 0) and `_flash_prefill_kernel_packed`
@@ -20,8 +23,10 @@
 // heads, D 128), T 256 at q_offset 256: 1.6 GFLOP, a 1.6 us bound.
 //
 // Design (sm_90a: TMA and bulk copies, mbarriers, wgmma, warp
-// specialisation).  The page type is a template parameter: bf16 (K3) or
-// int8_t (K7).
+// specialisation).  The page type is a template parameter: bf16 (K3),
+// e4m3 (K3's FP8 instance) or int8_t (K7).  The two 1-byte page types take
+// one path (bulk copies, a conversion to bf16 tiles); only int8 pages carry
+// scales.
 //
 // * Rows are stacked as in the TPU kernel: row = token * G + head of the
 //   G = Hq/Hkv query heads of one KV head, so every page read serves all G
@@ -33,14 +38,16 @@
 //   at the end: a single warpgroup an SM left every dependent instruction
 //   of the conversion and the softmax at its full latency (one warp a
 //   scheduler) on the H100.
-// * Producer warp, int8 pages: each lane reads the block-table entry of
+// * Producer warp, 1-byte pages: each lane reads the block-table entry of
 //   one page run of the tile and copies it by cp.async.bulk -- BS x D
-//   contiguous int8 bytes of the block's KV head in the head-major pool
-//   (2 KB at BS 16, D 128), and its BS f32 scales -- into a ring of 64-token
-//   stages with complete_tx mbarriers.  The copies of the next stages are
-//   in flight while the consumers compute.  Scales past kv_len read as
-//   zero (the stage holds the rest of the last page), so that stale bytes
-//   add nothing.
+//   contiguous bytes of the block's KV head in the head-major pool (2 KB
+//   at BS 16, D 128), and for int8 its BS f32 scales -- into a ring of
+//   64-token stages with complete_tx mbarriers (the expected bytes count
+//   the scales only where there are any).  The copies of the next stages
+//   are in flight while the consumers compute.  Scales past kv_len read as
+//   zero (the stage holds the rest of the last page), so that stale int8
+//   bytes add nothing; e4m3 tokens past kv_len are converted to zeros (a
+//   stale byte may be a NaN code, and NaN times P = 0 is NaN).
 // * Producer warp, bf16 pages: TMA tensor maps over the pools viewed as
 //   [NB * Hkv * BS, D] load each run of gcd(BS, 64) tokens of one KV head's
 //   page as boxes of 64 channels in the 128-byte swizzle that wgmma reads
@@ -50,8 +57,9 @@
 //   Tokens of the last tile in no page of the sequence read as zeros (a
 //   stale bf16 NaN times P = 0 would poison the sum): their boxes are read
 //   out of the maps' bounds, which TMA fills with zeros.
-// * Consumer warpgroup, per 64-token tile: for int8 pages, converts the
-//   K and V tiles to bf16 in shared memory (exact for |q| <= 127), in the
+// * Consumer warpgroup, per 64-token tile: for 1-byte pages, converts the
+//   K and V tiles to bf16 in shared memory (exact for |q| <= 127 and for
+//   every e4m3 value: cvt to fp16x2, then f32, then bf16), in the
 //   64-byte swizzle that wgmma reads without bank conflicts, and frees the
 //   stage (bf16 pages are read in the stage itself, freed after P V); runs
 //   S = Q K^T on wgmma (Q as the register A operand, loaded once; the K
@@ -63,6 +71,8 @@
 // * KV tiles wholly past the causal edge of the block's last row, or
 //   wholly before the sliding window of its first row, are skipped.
 #include <math.h>
+
+#include <type_traits>
 
 #include "sm90.cuh"
 
@@ -81,15 +91,19 @@ constexpr int FP_THREADS = FP_WG * 128 + 128;
 
 template <int D, typename KV>
 struct FpCfg {
-  static constexpr bool I8 = sizeof(KV) == 1;
-  static constexpr int STAGES = I8 ? 4 : (D == 64 ? 8 : 6);   // ring stages
+  // 1-byte pages (int8, e4m3): bulk copies, converted to bf16 tiles
+  static constexpr bool B1 = sizeof(KV) == 1;
+  // int8 pages carry f32 scales; e4m3 pages none
+  static constexpr bool SC = std::is_same<KV, int8_t>::value;
+  static constexpr int STAGES = B1 ? 4 : (D == 64 ? 8 : 6);   // ring stages
   static constexpr int BOX = FP_TK * 64;            // 32 bf16 of 64 tokens
   static constexpr int TILE16 = D / 32 * BOX;       // a bf16 tile
   static constexpr int KV_BYTES = FP_TK * D * (int)sizeof(KV);
   // K and V, and for int8 their scales
-  static constexpr int STAGE = 2 * KV_BYTES + (I8 ? 2 * FP_TK * 4 : 0);
-  // int8: a warpgroup's bf16 K and V tiles and their scales
-  static constexpr int WG_BYTES = I8 ? 2 * TILE16 + 2 * FP_TK * 4 : 0;
+  static constexpr int STAGE = 2 * KV_BYTES + (SC ? 2 * FP_TK * 4 : 0);
+  // 1-byte pages: a warpgroup's bf16 K and V tiles and the room of their
+  // scales (which the merge also uses)
+  static constexpr int WG_BYTES = B1 ? 2 * TILE16 + 2 * FP_TK * 4 : 0;
   // those of each warpgroup, the ring, its barriers, and slack to align
   // the base to 1 KB
   static constexpr int SMEM =
@@ -121,8 +135,17 @@ __device__ __forceinline__ void int8x16_to_bf16(uint4 v, uint4& lo,
                   int8x2_to_bf16x2(u3, 0), int8x2_to_bf16x2(u3, 2));
 }
 
+// 16 e4m3 values to 16 bf16 (exact)
+__device__ __forceinline__ void e4m3x16_to_bf16(uint4 v, uint4& lo,
+                                                uint4& hi) {
+  lo = make_uint4(e4m3x2_to_bf16x2(v.x, 0), e4m3x2_to_bf16x2(v.x, 2),
+                  e4m3x2_to_bf16x2(v.y, 0), e4m3x2_to_bf16x2(v.y, 2));
+  hi = make_uint4(e4m3x2_to_bf16x2(v.z, 0), e4m3x2_to_bf16x2(v.z, 2),
+                  e4m3x2_to_bf16x2(v.w, 0), e4m3x2_to_bf16x2(v.w, 2));
+}
+
 // kmap / vmap: the bf16 pools' tensor maps (boxes of BR rows); unused for
-// int8 pages, which take kc / vc and their scales
+// 1-byte pages, which take kc / vc (and for int8 their scales)
 template <int D, typename KV>
 __global__ void __launch_bounds__(FP_THREADS, 1) flash_prefill_sm90_kernel(
     const __grid_constant__ CUtensorMap kmap,
@@ -169,7 +192,7 @@ __global__ void __launch_bounds__(FP_THREADS, 1) flash_prefill_sm90_kernel(
     // ------------------------------------------------------ producer ---
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
     if (warp != FP_WG * 4) return;
-    if constexpr (!C::I8) {
+    if constexpr (!C::B1) {
       const int tok_end = min(((kv_len - 1) / BS + 1) * BS, MB * BS);
       for (int tile = t_begin; tile < t_end; ++tile) {
         const int i = tile - t_begin, slot = i % FP_STAGES;
@@ -182,10 +205,11 @@ __global__ void __launch_bounds__(FP_THREADS, 1) flash_prefill_sm90_kernel(
     }
     // A tile is runs of tokens that lie in one page each, up to the page
     // of the last token below kv_len (whole pages: their bytes exist).
-    // Lane r copies run r: K and V and, when BS % 4 == 0, their scales;
-    // the lanes read their table entries in parallel, before waiting for
-    // the slot, so a tile costs one global load's latency at most.
-    const bool bulk_sc = BS % 4 == 0;
+    // Lane r copies run r: K and V and, for int8 when BS % 4 == 0, their
+    // scales; the lanes read their table entries in parallel, before
+    // waiting for the slot, so a tile costs one global load's latency at
+    // most.
+    const bool bulk_sc = C::SC && BS % 4 == 0;
     const int tok_end = min(((kv_len - 1) / BS + 1) * BS, MB * BS);
     int slot = 0;
     uint32_t phase = 0;
@@ -231,7 +255,7 @@ __global__ void __launch_bounds__(FP_THREADS, 1) flash_prefill_sm90_kernel(
                     &full[slot]);
         }
       }
-      if (!bulk_sc) {
+      if (C::SC && !bulk_sc) {
         // scales one token a lane (rows of BS * 4 bytes need not be
         // 16-byte aligned)
         for (int j = lane; j < FP_TK; j += 32) {
@@ -303,11 +327,11 @@ __global__ void __launch_bounds__(FP_THREADS, 1) flash_prefill_sm90_kernel(
     const int slot = i % FP_STAGES;
     mbar_wait(&full[slot], (i / FP_STAGES) & 1);
     const uint8_t* stage = ring + slot * C::STAGE;
-    if constexpr (C::I8) {
+    if constexpr (C::B1) {
       // the previous tile's wgmmas have read the bf16 tiles in every warp
       named_sync(1 + wg, 128);
-      // int8 [token][D] -> bf16 boxes of 32 values, 64-byte rows, the 16-byte
-      // chunk c of row r at chunk c ^ ((r >> 1) & 3)
+      // 1-byte [token][D] -> bf16 boxes of 32 values, 64-byte rows, the
+      // 16-byte chunk c of row r at chunk c ^ ((r >> 1) & 3)
 #pragma unroll
       for (int kv = 0; kv < 2; ++kv) {
         const uint8_t* src = stage + kv * C::KV_BYTES;
@@ -315,16 +339,22 @@ __global__ void __launch_bounds__(FP_THREADS, 1) flash_prefill_sm90_kernel(
 #pragma unroll
         for (int i = tid; i < FP_TK * D / 16; i += 128) {
           const int tok = i / (D / 16), c = i % (D / 16);
+          const uint4 w =
+              *reinterpret_cast<const uint4*>(src + tok * D + 16 * c);
           uint4 lo, hi;
-          int8x16_to_bf16(
-              *reinterpret_cast<const uint4*>(src + tok * D + 16 * c), lo, hi);
+          if constexpr (C::SC) {
+            int8x16_to_bf16(w, lo, hi);
+          } else {
+            e4m3x16_to_bf16(w, lo, hi);
+            if (s0 + tok >= kv_len) lo = hi = make_uint4(0, 0, 0, 0);
+          }
           uint8_t* row = dst + (c >> 1) * C::BOX + tok * 64;
           const int sw = (tok >> 1) & 3, c0 = 2 * (c & 1);
           *reinterpret_cast<uint4*>(row + 16 * (c0 ^ sw)) = lo;
           *reinterpret_cast<uint4*>(row + 16 * ((c0 + 1) ^ sw)) = hi;
         }
       }
-      {
+      if constexpr (C::SC) {
         // the tile's scales; zero past kv_len, where the stage holds the
         // rest of the last page (or nothing)
         const float* sc =
@@ -349,7 +379,7 @@ __global__ void __launch_bounds__(FP_THREADS, 1) flash_prefill_sm90_kernel(
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
-      if constexpr (C::I8)
+      if constexpr (C::B1)
         Wgmma<FP_TK>::mma(
             s, qa[kk], desc_b64(kb_s + (kk >> 1) * C::BOX + 32 * (kk & 1)));
       else
@@ -372,7 +402,7 @@ __global__ void __launch_bounds__(FP_THREADS, 1) flash_prefill_sm90_kernel(
         for (int e = 0; e < 2; ++e) {
           const int kt = 8 * j + 2 * t + e, kvp = s0 + kt;
           float v = s[4 * j + 2 * hh + e] * scale;
-          if constexpr (C::I8) v *= ksc[kt];
+          if constexpr (C::SC) v *= ksc[kt];
           if (cap > 0.f) v = cap * tanhf(v / cap);
           const bool ok = rows[hh] < R && kvp <= qpos[hh] && kvp < kv_len &&
                           (window <= 0 || kvp > qpos[hh] - window);
@@ -411,7 +441,7 @@ __global__ void __launch_bounds__(FP_THREADS, 1) flash_prefill_sm90_kernel(
 #pragma unroll
     for (int kk = 0; kk < FP_TK / 16; ++kk) {
       float v0 = 1.f, v1 = 1.f, v2 = 1.f, v3 = 1.f;
-      if constexpr (C::I8) {
+      if constexpr (C::SC) {
         v0 = vsc[16 * kk + 2 * t];
         v1 = vsc[16 * kk + 2 * t + 1];
         v2 = vsc[16 * kk + 8 + 2 * t];
@@ -428,7 +458,7 @@ __global__ void __launch_bounds__(FP_THREADS, 1) flash_prefill_sm90_kernel(
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < FP_TK / 16; ++kk) {
-      if constexpr (C::I8)
+      if constexpr (C::B1)
         Wgmma<D>::template mma<1>(o, pa[kk],
                                   desc_mn64(vb_s + kk * 16 * 64, C::BOX));
       else
@@ -442,7 +472,7 @@ __global__ void __launch_bounds__(FP_THREADS, 1) flash_prefill_sm90_kernel(
     for (int kk = 0; kk < FP_TK / 16; ++kk)
 #pragma unroll
       for (int j = 0; j < 4; ++j) keep(pa[kk][j]);
-    if constexpr (!C::I8) {
+    if constexpr (!C::B1) {
       // both products have read the stage
       __syncwarp();
       if (lane == 0) mbar_arrive(&empty[slot]);
@@ -453,12 +483,12 @@ __global__ void __launch_bounds__(FP_THREADS, 1) flash_prefill_sm90_kernel(
   // space (row-indexed max and sum; O by thread), or for bf16 pages in the
   // ring once both warpgroups are done with it, warpgroup 0 rescales both
   // to the common max, adds, and writes the output.
-  float* om = reinterpret_cast<float*>(C::I8 ? base + C::WG_BYTES : ring);
+  float* om = reinterpret_cast<float*>(C::B1 ? base + C::WG_BYTES : ring);
   float* ml = om + 128 * (D / 2);                             // max, sum
   static_assert(128 * (D / 2) * 4 + 2 * FP_ROWS * 4 <=
-                    (C::I8 ? C::WG_BYTES : FP_STAGES * C::STAGE),
+                    (C::B1 ? C::WG_BYTES : FP_STAGES * C::STAGE),
                 "the merge fits its space");
-  if constexpr (!C::I8) named_sync(3, FP_WG * 128);
+  if constexpr (!C::B1) named_sync(3, FP_WG * 128);
   if (wg == 1) {
 #pragma unroll
     for (int j = 0; j < D / 2; ++j) om[j * 128 + tid] = o[j];
@@ -523,7 +553,7 @@ int launch_d(const void* q, const void* k, const void* k_sc, const void* v,
   auto kernel = flash_prefill_sm90_kernel<D, KV>;
   CUtensorMap kmap = {}, vmap = {};
   int BR = 0;
-  if constexpr (!C::I8) {
+  if constexpr (!C::B1) {
     // [NB * Hkv * BS, D] rows, boxes of BR rows x 64 channels
     BR = paged_box_rows(BS);
     const uint64_t rows = (uint64_t)NB * Hkv * BS;
@@ -598,5 +628,27 @@ extern "C" int tllm_flash_prefill(const void* q, const void* k_cache,
     return tllm::launch_d<128, tllm::bf16>(
         q, k_cache, nullptr, v_cache, nullptr, block_table, sinks, out, T, Hq,
         Hkv, NB, BS, MB, kv_len, q_offset, scale, window, cap, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// q/out [T, Hq, D] bf16, e4m3 pools [NB, Hkv, BS, D] (16-byte aligned, no
+// scales), block_table [MB] int32, sinks [Hq] f32 or null; D 64 or 128,
+// Hq % Hkv == 0.  window <= 0 and cap <= 0 mean "off".
+extern "C" int tllm_flash_prefill_fp8(const void* q, const void* k_cache,
+                                      const void* v_cache,
+                                      const void* block_table,
+                                      const void* sinks, void* out, int T,
+                                      int Hq, int Hkv, int D, int BS, int MB,
+                                      int kv_len, int q_offset, float scale,
+                                      int window, float cap, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (D == 64)
+    return tllm::launch_d<64, tllm::e4m3>(
+        q, k_cache, nullptr, v_cache, nullptr, block_table, sinks, out, T,
+        Hq, Hkv, 0, BS, MB, kv_len, q_offset, scale, window, cap, st);
+  if (D == 128)
+    return tllm::launch_d<128, tllm::e4m3>(
+        q, k_cache, nullptr, v_cache, nullptr, block_table, sinks, out, T,
+        Hq, Hkv, 0, BS, MB, kv_len, q_offset, scale, window, cap, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -1,17 +1,20 @@
-// K4 paged_decode and K6 paged_decode_int8: one new query token per
-// sequence attends its paged KV.
+// K4 paged_decode, its e4m3 instance paged_decode_fp8, and K6
+// paged_decode_int8: one new query token per sequence attends its paged
+// KV.
 //
 // Replaces the TPU kernels tensorrt_llm_tpu/ops/paged_attention.py
 // `_paged_decode_kernel` (D % 128 == 0), `_paged_decode_kernel_packed`
-// (D < 128 over the TPU lane-packed page view) and, as K6,
+// (D < 128 over the TPU lane-packed page view) -- over bf16 pages, and
+// over e4m3 (float8_e4m3fn) pages with no scales, which the TPU kernels
+// take as they are and upcast exactly -- and, as K6,
 // `_paged_decode_kernel_int8` (int8 pages with f32 per-(token, head)
 // scales).  Here they are one kernel, templated on the head dim (64, 128),
-// the GQA group size (1, 2, 4, 8) and the page type (bf16, int8), over the
-// logical head-major pools [NB, Hkv, BS, D].
+// the GQA group size (1, 2, 4, 8) and the page type (bf16, e4m3, int8),
+// over the logical head-major pools [NB, Hkv, BS, D].
 //
 // What bounds it on the H100: KV bytes.  Each (sequence, KV head) reads
-// kv_len K and V rows (2 * D bytes each in bf16; D bytes plus a 4-byte
-// scale in int8) and does 4 * G * D operations per token, a few operations
+// kv_len K and V rows (2 * D bytes each in bf16; D bytes in e4m3, plus a
+// 4-byte scale in int8) and does 4 * G * D operations per token, a few operations
 // per byte: the least time is the KV bytes over 3.35 TB/s.  At decode
 // sizes the latency of a few dependent steps (copy, scores, softmax, P V,
 // merge) matters as much, so the design keeps that chain short.
@@ -32,10 +35,11 @@
 //   boxes of a run's rows x 64 channels in the 128-byte swizzle, so that
 //   the fragment reads below are free of bank conflicts; the runs past the
 //   split are zeroed, as a stale bf16 NaN times P = 0 would poison P V):
-//   pages of a multiple of 8 tokens.  int8 pages come by cp.async.bulk,
-//   each lane one run's K rows, V rows and f32 scales, contiguous in the
-//   head-major pool (stale int8 bytes are finite): pages of a multiple of
-//   4 tokens.
+//   pages of a multiple of 8 tokens.  1-byte pages come by cp.async.bulk,
+//   each lane one run's K rows, V rows and (int8) f32 scales, contiguous
+//   in the head-major pool: pages of a multiple of 4 tokens.  Stale int8
+//   bytes are finite; a stale e4m3 byte may be a NaN code, so the V values
+//   of tokens outside the split are zeroed as they are converted.
 // * Four consumer warps take alternate tiles, each with its own online
 //   softmax, merged once at the end: a tile's chain (scores, max, P V)
 //   runs in one warp with no block barrier, and four tiles are in flight
@@ -49,10 +53,11 @@
 //   cores keep the math off the CUDA cores, where eight heads a KV head
 //   would cost as many FMAs as the card can run against HBM.  bf16
 //   pages run in bf16 (q times the scale and P rounded to bf16, the TPU
-//   kernel's operands); int8 pages run in fp16, into which int8 converts
-//   exactly by one byte permute and one subtraction (q times the scale and
-//   P times the V scale rounded to fp16); the K scale multiplies the
-//   logit.
+//   kernel's operands); 1-byte pages run in fp16, into which int8
+//   converts exactly by one byte permute and one subtraction, and e4m3 by
+//   one cvt (for int8 q times the scale and P times the V scale rounded
+//   to fp16, the K scale on the logit; for e4m3 q itself, exact in fp16,
+//   the scale on the logit, since e4m3 K values reach +-448).
 // * Merge inside the launch.  With one active split the block normalises
 //   (adding the sinks, once) and stores.  With several, each writes its
 //   (max, sum, unnormalised output) per head; the last block of the
@@ -61,6 +66,8 @@
 //   a second call gives the same bits.
 #include <cuda_fp16.h>
 #include <math.h>
+
+#include <type_traits>
 
 #include "sm90.cuh"
 
@@ -76,13 +83,16 @@ constexpr int PD_THREADS = PD_CT + 32;             // + a producer warp
 
 template <int D, int G, typename KV>
 struct PdCfg {
+  // 1-byte pages (int8, e4m3): bulk copies, fp16 products
   static constexpr bool I8 = sizeof(KV) == 1;
+  // int8 pages carry f32 scales; e4m3 pages none
+  static constexpr bool SC = std::is_same<KV, int8_t>::value;
   static constexpr int ES = (int)sizeof(KV);
   // bf16: K then V as TMA boxes of [64 tokens, 64 channels] in the 128-byte
-  // swizzle (as K3 loads them); int8: K rows, V rows (as paged), then the
-  // K and V scales
+  // swizzle (as K3 loads them); 1-byte: K rows, V rows (as paged), then
+  // for int8 the K and V scales
   static constexpr int KV_BYTES = PD_TILE * D * ES;
-  static constexpr int SC_BYTES = I8 ? 2 * PD_TILE * 4 : 0;
+  static constexpr int SC_BYTES = SC ? 2 * PD_TILE * 4 : 0;
   static constexpr int STAGE = (2 * KV_BYTES + SC_BYTES + 1023) / 1024 * 1024;
   // one or two stages a consumer warp (tile i in stage i % STAGES, warp
   // i % 4: a stage always serves the same warp, so no waiter can be two
@@ -158,6 +168,17 @@ __device__ __forceinline__ uint32_t i8x2_f16(uint32_t w, int k) {
   return f16_unbias(__byte_perm(w ^ 0x80808080u, 0x64646464u,
                                 k == 0 ? 0x5140 : 0x7362));
 }
+// bytes (k, k + 1) of a 1-byte page word as fp16x2, exactly
+template <bool SC>
+__device__ __forceinline__ uint32_t b1x2_f16(uint32_t w, int k) {
+  if constexpr (SC) return i8x2_f16(w, k);
+  else return e4m3x2_to_f16x2(w, k);
+}
+// byte j of two e4m3 words (two tokens of one channel) as fp16x2, exactly
+__device__ __forceinline__ uint32_t e4m3pair_f16(uint32_t a, uint32_t b,
+                                                 int j) {
+  return e4m3x2_to_f16x2(__byte_perm(a, b, j | ((j + 4) << 4)), 0);
+}
 // byte j of two int8 words (two tokens of one channel) as fp16x2, exactly
 __device__ __forceinline__ uint32_t i8pair_f16(uint32_t a, uint32_t b,
                                                int j) {
@@ -176,7 +197,8 @@ __global__ void __launch_bounds__(PD_THREADS)
                         const __grid_constant__ CUtensorMap vmap,
                         const PdParams p) {
   using C = PdCfg<D, G, KV>;
-  constexpr bool I8 = C::I8;
+  constexpr bool I8 = C::I8;   // 1-byte pages
+  constexpr bool SC = C::SC;   // with scales (int8)
   constexpr int ES = C::ES;
   constexpr int NQ = D / 8;                // q registers a lane (and O tiles)
   extern __shared__ uint8_t pd_smem_raw[];
@@ -273,8 +295,9 @@ __global__ void __launch_bounds__(PD_THREADS)
         }
         if (lane != 0) mbar_arrive(&full[slot]);
       } else {
-        // int8: each live run's K rows, V rows and scales by bulk copies
-        // (stale int8 bytes past the runs are finite and meet P = 0; the
+        // 1-byte pages: each live run's K rows, V rows and (int8) scales
+        // by bulk copies (stale bytes past the runs meet P = 0: int8 ones
+        // are finite, e4m3 V values there are zeroed by the consumers; the
         // scales of tokens outside the split are never read)
         const long long mine = __shfl_sync(0xffffffffu, my_row,
                                            (run0 + lane) & 31);
@@ -282,7 +305,8 @@ __global__ void __launch_bounds__(PD_THREADS)
         const int n_ld = __popc(__ballot_sync(0xffffffffu, ld));
         const uint32_t run_bytes = R * D;
         mbar_wait(&empty[slot], ep);
-        if (lane == 0) mbar_expect_tx(&full[slot], n_ld * R * (2 * D + 8));
+        if (lane == 0)
+          mbar_expect_tx(&full[slot], n_ld * R * (2 * D + (SC ? 8 : 0)));
         __syncwarp();
         if (ld) {
           const size_t row = (size_t)mine;
@@ -290,10 +314,12 @@ __global__ void __launch_bounds__(PD_THREADS)
                     &full[slot]);
           bulk_load(st + C::KV_BYTES + lane * run_bytes, vc + row * D,
                     run_bytes, &full[slot]);
-          uint8_t* sc = st + 2 * C::KV_BYTES;
-          bulk_load(sc + lane * R * 4, p.ks + row, R * 4, &full[slot]);
-          bulk_load(sc + PD_TILE * 4 + lane * R * 4, p.vs + row, R * 4,
-                    &full[slot]);
+          if constexpr (SC) {
+            uint8_t* sc = st + 2 * C::KV_BYTES;
+            bulk_load(sc + lane * R * 4, p.ks + row, R * 4, &full[slot]);
+            bulk_load(sc + PD_TILE * 4 + lane * R * 4, p.vs + row, R * 4,
+                      &full[slot]);
+          }
         }
       }
     }
@@ -311,6 +337,11 @@ __global__ void __launch_bounds__(PD_THREADS)
     return I8 ? (i / 8) * 64 + 16 * t + 2 * (i % 8)
               : (i / 4) * 32 + 8 * t + 2 * (i % 4);
   };
+  // e4m3 pages take q as it is (a bf16 value is an fp16 one in fp16's
+  // normal range) and the scale on the f32 scores: their K values reach
+  // +-448, where q * scale rounded to fp16 would move a logit by ~0.1
+  constexpr bool Q_RAW = I8 && !SC;
+  const float q_scale = Q_RAW ? 1.f : p.scale;
   uint32_t qa[NQ];
 #pragma unroll
   for (int i = 0; i < NQ; ++i) {
@@ -318,7 +349,7 @@ __global__ void __launch_bounds__(PD_THREADS)
     if (g < G)
       v = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
           p.q + ((size_t)b * Hq + h * G + g) * D + ch(i)));
-    qa[i] = pack2<I8>(v.x * p.scale, v.y * p.scale);
+    qa[i] = pack2<I8>(v.x * q_scale, v.y * q_scale);
   }
   float o[NQ][4];
 #pragma unroll
@@ -351,7 +382,8 @@ __global__ void __launch_bounds__(PD_THREADS)
 #pragma unroll
           for (int s = 0; s < 4; ++s) {
             const uint32_t a[4] = {qa[8 * c + 2 * s], 0u, qa[8 * c + 2 * s + 1], 0u};
-            mma16816<true>(sf[n], a, i8x2_f16(ww[s], 0), i8x2_f16(ww[s], 2));
+            mma16816<true>(sf[n], a, b1x2_f16<SC>(ww[s], 0),
+                           b1x2_f16<SC>(ww[s], 2));
           }
         }
       } else {
@@ -378,7 +410,8 @@ __global__ void __launch_bounds__(PD_THREADS)
       for (int e = 0; e < 2; ++e) {
         const int tok = 8 * n + pd_pi(2 * t + e);
         float sc = sf[n][e];
-        if (I8) sc *= ksc[tok];
+        if (SC) sc *= ksc[tok];
+        if (Q_RAW) sc *= p.scale;
         if (p.cap > 0.f) sc = p.cap * tanhf(sc / p.cap);
         sc = tok >= v0 && tok < v1 ? sc : -INFINITY;
         sf[n][e] = sc;
@@ -398,7 +431,7 @@ __global__ void __launch_bounds__(PD_THREADS)
         const float x = sf[n][e];
         pe[e] = x == -INFINITY ? 0.f : __expf(x - m_new);
         ls += pe[e];
-        if (I8 && pe[e] > 0.f) pe[e] *= vsc[8 * n + pd_pi(2 * t + e)];
+        if (SC && pe[e] > 0.f) pe[e] *= vsc[8 * n + pd_pi(2 * t + e)];
       }
       pa[n / 2][(n & 1) * 2] = pack2<I8>(pe[0], pe[1]);
       pa[n / 2][(n & 1) * 2 + 1] = 0u;
@@ -415,8 +448,17 @@ __global__ void __launch_bounds__(PD_THREADS)
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
       if constexpr (I8) {
-        const uint8_t* v0r = vt + (16 * kk + pd_pi(2 * t)) * D + 4 * g;
-        const uint8_t* v1r = vt + (16 * kk + pd_pi(2 * t + 1)) * D + 4 * g;
+        const int ta = 16 * kk + pd_pi(2 * t), tb = 16 * kk + pd_pi(2 * t + 1);
+        const uint8_t* v0r = vt + ta * D + 4 * g;
+        const uint8_t* v1r = vt + tb * D + 4 * g;
+        // e4m3: the V values of tokens outside [v0, v1) as zeros (this
+        // lane's B registers hold tokens ta, tb, then ta + 8, tb + 8)
+        uint32_t mlo = 0xffffffffu, mhi = 0xffffffffu;
+        if constexpr (!SC) {
+          auto in = [&](int tk) { return tk >= v0 && tk < v1; };
+          mlo = (in(ta) ? 0xffffu : 0u) | (in(tb) ? 0xffff0000u : 0u);
+          mhi = (in(ta + 8) ? 0xffffu : 0u) | (in(tb + 8) ? 0xffff0000u : 0u);
+        }
 #pragma unroll
         for (int c = 0; c < D / 32; ++c) {
           const uint32_t wa = *reinterpret_cast<const uint32_t*>(v0r + c * 32);
@@ -424,9 +466,15 @@ __global__ void __launch_bounds__(PD_THREADS)
           const uint32_t wc = *reinterpret_cast<const uint32_t*>(v0r + 8 * D + c * 32);
           const uint32_t wd = *reinterpret_cast<const uint32_t*>(v1r + 8 * D + c * 32);
 #pragma unroll
-          for (int jn = 0; jn < 4; ++jn)
-            mma16816<true>(o[4 * c + jn], pa[kk], i8pair_f16(wa, wb, jn),
-                           i8pair_f16(wc, wd, jn));
+          for (int jn = 0; jn < 4; ++jn) {
+            if constexpr (SC)
+              mma16816<true>(o[4 * c + jn], pa[kk], i8pair_f16(wa, wb, jn),
+                             i8pair_f16(wc, wd, jn));
+            else
+              mma16816<true>(o[4 * c + jn], pa[kk],
+                             e4m3pair_f16(wa, wb, jn) & mlo,
+                             e4m3pair_f16(wc, wd, jn) & mhi);
+          }
         }
       } else {
         // ldmatrix.x4.trans: matrix mi = tokens 16kk + 8 (mi & 1) + pi(row)
@@ -629,6 +677,23 @@ extern "C" int tllm_paged_decode(const void* q, const void* k_cache,
                                  int n_splits, int split_len, int grid_x,
                                  void* stream) {
   return tllm::launch<tllm::bf16>(q, k_cache, v_cache, nullptr, nullptr,
+                                  tables, kv_lens, sinks, workspace, counters,
+                                  out, B, Hq, Hkv, D, NB, BS, MB, scale,
+                                  window, cap, n_splits, split_len, grid_x,
+                                  stream);
+}
+
+// The same over e4m3 pools [NB, Hkv, BS, D] (BS % 4 == 0, no scales).
+extern "C" int tllm_paged_decode_fp8(const void* q, const void* k_cache,
+                                     const void* v_cache, const void* tables,
+                                     const void* kv_lens, const void* sinks,
+                                     void* workspace, void* counters,
+                                     void* out, int B, int Hq, int Hkv, int D,
+                                     int NB, int BS, int MB, float scale,
+                                     int window, float cap, int n_splits,
+                                     int split_len, int grid_x,
+                                     void* stream) {
+  return tllm::launch<tllm::e4m3>(q, k_cache, v_cache, nullptr, nullptr,
                                   tables, kv_lens, sinks, workspace, counters,
                                   out, B, Hq, Hkv, D, NB, BS, MB, scale,
                                   window, cap, n_splits, split_len, grid_x,

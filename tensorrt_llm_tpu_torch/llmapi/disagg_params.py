@@ -11,7 +11,10 @@ The wire format is the JAX package's: an 8-byte little-endian header length,
 a JSON spec, then each leaf's raw bytes in order (layer by layer, the leaves
 of a layer in pool order).  A bf16 leaf travels as its raw 2-byte words
 under the dtype name ``"bfloat16"`` and comes back as `torch.bfloat16`
-through an `int16` view, so neither side needs `ml_dtypes`.  Leaves may be
+through an `int16` view, and an FP8 leaf as its raw bytes under
+``"float8_e4m3fn"`` (back as `torch.float8_e4m3fn` through a `uint8`
+view), so neither side needs `ml_dtypes`: the JAX package reads and writes
+the same names.  Leaves may be
 torch tensors or numpy arrays (a JAX payload read in process); decoded
 leaves are CPU torch tensors.  A frame carries ``"v"`` (`FRAME_WIRE_VERSION`)
 and one of: ``start_block`` and ``layers`` (a KV frame of table rows
@@ -53,37 +56,46 @@ def leaves(tree):
         yield tree
 
 
+# dtypes numpy lacks without `ml_dtypes`: name -> (torch dtype, the
+# same-width integer numpy dtype their words travel as)
+_RAW = {"bfloat16": (torch.bfloat16, np.int16),
+        "float8_e4m3fn": (torch.float8_e4m3fn, np.uint8)}
+_RAW_TORCH = {t: (name, np.dtype(w).name) for name, (t, w) in _RAW.items()}
+
+
 def leaf_numpy(a) -> np.ndarray:
-    """A leaf as a numpy array of its raw values: bf16 (torch, or numpy's
-    ``bfloat16`` from `ml_dtypes`) as its int16 words."""
+    """A leaf as a numpy array of its raw values: bf16 and e4m3 (torch, or
+    numpy's ``bfloat16`` / ``float8_e4m3fn`` from `ml_dtypes`) as their
+    int16 / uint8 words."""
     if isinstance(a, torch.Tensor):
-        a = a.detach().cpu()
-        if a.dtype == torch.bfloat16:
-            return a.contiguous().view(torch.int16).numpy()
-        return a.contiguous().numpy()
-    a = np.asarray(a)
-    if a.dtype.name == "bfloat16":
-        return np.ascontiguousarray(a).view(np.int16)
-    return np.ascontiguousarray(a)
+        a = a.detach().cpu().contiguous()
+        if a.dtype in _RAW_TORCH:
+            return a.view(getattr(torch, _RAW_TORCH[a.dtype][1])).numpy()
+        return a.numpy()
+    a = np.ascontiguousarray(a)
+    if a.dtype.name in _RAW:
+        return a.view(_RAW[a.dtype.name][1])
+    return a
 
 
 def _dtype_name(a) -> str:
     if isinstance(a, torch.Tensor):
-        if a.dtype == torch.bfloat16:
-            return "bfloat16"
+        if a.dtype in _RAW_TORCH:
+            return _RAW_TORCH[a.dtype][0]
         return str(torch.empty((), dtype=a.dtype).numpy().dtype)
     return str(np.asarray(a).dtype)
 
 
 def leaf_torch(a) -> torch.Tensor:
-    """A leaf as a CPU torch tensor (numpy bf16 through its int16 view)."""
+    """A leaf as a CPU torch tensor (numpy bf16 and e4m3 through their
+    integer words)."""
     if isinstance(a, torch.Tensor):
         return a
-    a = np.asarray(a)
-    if a.dtype.name == "bfloat16":
-        return torch.from_numpy(
-            np.ascontiguousarray(a).view(np.int16)).view(torch.bfloat16)
-    return torch.from_numpy(np.ascontiguousarray(a))
+    a = np.ascontiguousarray(a)
+    if a.dtype.name in _RAW:
+        t, words = _RAW[a.dtype.name]
+        return torch.from_numpy(a.view(words)).view(t)
+    return torch.from_numpy(a)
 
 
 def _pack(spec: dict, layers) -> bytes:
@@ -111,13 +123,13 @@ def _unpack(data: bytes):
     by_layer: dict = {}
     for leaf in spec["leaves"]:
         name = leaf["dtype"]
-        dt = np.dtype(np.int16 if name == "bfloat16" else name)
+        dt = np.dtype(_RAW[name][1] if name in _RAW else name)
         count = int(np.prod(leaf["shape"]))
         arr = np.frombuffer(data, dt, count, off).reshape(leaf["shape"])
         off += count * dt.itemsize
         t = torch.from_numpy(arr.copy())
-        if name == "bfloat16":
-            t = t.view(torch.bfloat16)
+        if name in _RAW:
+            t = t.view(_RAW[name][0])
         by_layer.setdefault(leaf["layer"], []).append(t)
     if not by_layer:
         return spec, None

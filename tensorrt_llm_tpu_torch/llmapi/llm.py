@@ -313,9 +313,10 @@ class LLM:
         else:
             budget = 4 << 30
         int8 = kvcfg.kv_quant == KvCacheQuantAlgo.INT8
+        one_byte = kvcfg.kv_quant != KvCacheQuantAlgo.NONE
         n = KVCacheManager.blocks_from_memory(
             budget, cfg.num_layers, cfg.kv_pool_heads, cfg.kv_pool_dim,
-            kvcfg.block_size, dtype_bytes=1 if int8 else 2,
+            kvcfg.block_size, dtype_bytes=1 if one_byte else 2,
             num_pools=1 if kvcfg.layout == "latent" else 2,
             extra_dims=kvcfg.dsa_index_dim,
             scale_pools=int8)

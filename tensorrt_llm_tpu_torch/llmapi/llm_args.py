@@ -14,8 +14,11 @@ pipeline's (`disable_overlap_scheduler`, `overlap_depth`: JAX's defaults,
 overlap on at depth 4) and the KV cache's (`enable_partial_reuse`,
 `copy_on_partial_reuse`, `kv_bookkeeping`: "native" or "python", and the
 host tier's `kv_host_cache_blocks`, `kv_secondary_offload_min_priority` and
-`kv_connector`) carry the JAX package's names.  `quant_clip_search` is a
-field of the JAX package that the port refuses when set.  LoRA: `lora_path`
+`kv_connector`) carry the JAX package's names.  `quant_algo` takes every
+`QuantAlgo` name (the W4A16 family, W4A8_AWQ, W8A16,
+W8A8_SQ_PER_CHANNEL, FP8, FP8_PER_CHANNEL_PER_TOKEN), `kv_cache_quant`
+"NONE", "INT8" or "FP8", and `quant_clip_search` quantizes int4 weights
+with the clip-ratio search (`quantization/calibrate.py`).  LoRA: `lora_path`
 (a PEFT adapter directory merged into the checkpoint's weights at load),
 `lora_adapters` ({name: directory}, served per request through
 ``generate(..., lora_request=name)``) and `lora_max_device_adapters` (at
@@ -51,9 +54,9 @@ class LlmArgs:
     params: Optional[Dict[str, Any]] = None
 
     # quantization
-    quant_algo: Optional[str] = None   # e.g. "W4A16", "W4A8_AWQ"
+    quant_algo: Optional[str] = None   # e.g. "W4A16", "W4A8_AWQ", "FP8"
     quant_group_size: int = 128
-    quant_clip_search: bool = False    # calibrate.py's clip search: not yet
+    quant_clip_search: bool = False    # int4: calibrate.py's clip search
 
     max_batch_size: int = 64
     max_num_tokens: int = 2048         # per-step token budget
@@ -66,7 +69,8 @@ class LlmArgs:
     enable_partial_reuse: bool = True
     copy_on_partial_reuse: bool = True
     kv_bookkeeping: str = "native"     # "native" (C++) | "python"
-    kv_cache_quant: str = "NONE"       # "INT8": int8 pages + f32 scales
+    # "INT8": int8 pages + f32 scales; "FP8": e4m3 pages, no scales
+    kv_cache_quant: str = "NONE"
     # host-memory tier for evicted reuse blocks (0: off), the least
     # retention priority it takes, and an external store with
     # save/load/contains (`runtime.kv_cache_manager.KvCacheConnector`)
@@ -140,16 +144,13 @@ class LlmArgs:
                 "(tensorrt_llm_tpu_torch.parallel), not in the port yet")
 
     def quant_config(self) -> Optional[QuantConfig]:
-        if self.quant_clip_search:
-            raise NotImplementedError(
-                "quant_clip_search (the JAX package's calibrate.py clip "
-                "search) is not in the port yet")
         if not self.quant_algo:
             return None
         return QuantConfig(
             quant_algo=QuantAlgo(self.quant_algo),
             kv_cache_quant_algo=KvCacheQuantAlgo(self.kv_cache_quant),
-            group_size=self.quant_group_size)
+            group_size=self.quant_group_size,
+            clip_search=self.quant_clip_search)
 
     def make_kv_cache_config(self, layout: str = "kv",
                              dsa_index_dim: int = 0) -> KVCacheConfig:

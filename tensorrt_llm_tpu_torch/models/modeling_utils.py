@@ -7,9 +7,11 @@ attention or, when `kv_lora_rank` is set, Multi-head Latent Attention with
 an optional DSA indexer; a gated MLP or a W4A16 MoE, dense on
 `mlp_only_layers`; sliding-window layers by `layer_types` or by the
 window), and `DecoderModelForCausalLM.forward` (embedding, pre-norm decoder
-layers over a paged KV cache -- bf16 or INT8 K/V pools, or one latent pool
-per layer under MLA -- final norm, bf16 lm_head, or the embedding matrix
-under `tie_word_embeddings`); linears are W4A16, W4A8_AWQ or unquantized.
+layers over a paged KV cache -- bf16, INT8 or FP8 K/V pools, or one
+latent pool per layer under MLA -- final norm, bf16 lm_head, or the
+embedding matrix under `tie_word_embeddings`); linears are W4A16,
+W4A8_AWQ, W8A16, W8A8, FP8 or unquantized (MoE experts are int4 under the
+W4A16 family and bf16 otherwise, as in the JAX package).
 Weights come from `init_random` (drawn on the model's device from a seeded
 `torch.Generator`, one layer at a time, quantized as they are drawn), from
 an HF checkpoint through `load_hf_weights` (a `get_tensor(name)` callable,
@@ -694,7 +696,9 @@ def params_from_jax(tree: Any) -> Dict[str, torch.Tensor]:
     leaves may arrive as ml_dtypes bfloat16) as a port state for
     `DecoderModelForCausalLM.load_state`.  W4A16 int4 weights keep their
     packing byte for byte (tiled or K-paired), W4A8 ones too; W4A16
-    scales round to bf16 at load, W4A8 scales and zeros stay f32.  A
+    scales round to bf16 at load, W4A8 scales and zeros stay f32; 8-bit
+    weights (int8, or e4m3 as ml_dtypes ``float8_e4m3fn``) keep their
+    bytes and f32 scales.  A
     multi-LoRA ``lora`` subtree (``attn.lora.qkv = (A, B)``) becomes the
     holder's stack buffers (``attn.lora_qkv_a``, ``attn.lora_qkv_b``)."""
     out: Dict[str, torch.Tensor] = {}
@@ -703,6 +707,9 @@ def params_from_jax(tree: Any) -> Dict[str, torch.Tensor]:
         a = np.asarray(a)
         if a.dtype.name == "bfloat16":
             return torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
+        if a.dtype.name == "float8_e4m3fn":
+            return torch.from_numpy(np.array(a).view(np.uint8)).view(
+                torch.float8_e4m3fn)
         return torch.from_numpy(np.array(a))
 
     def walk(node, path):

@@ -12,7 +12,12 @@ Pools are head-major pages ``[NB, Hkv, BS, D]``; a token's flat slot is
 there, and table padding points there.  An INT8 pool is a pair ``(data int8
 [NB, Hkv, BS, D], scale f32 [NB, Hkv, BS])``: each (token, head) row is
 quantized on write (`quantize_kv_token`) and dequantized to the query's dtype
-after the gather (`gather_dequant`), as in the JAX package.
+after the gather (`gather_dequant`), as in the JAX package.  An FP8 pool is
+float8_e4m3fn pages with no scale: the write casts to e4m3 (nearest even,
+saturating at +-448 where the JAX package's cast gives NaN past ~464; a
+NaN in K or V would poison every row that reads its page) and scatters
+the bytes (PyTorch has no float8 `index_copy_`); the gather upcasts to
+bf16, exactly.
 """
 
 from __future__ import annotations
@@ -21,6 +26,7 @@ from typing import Optional, Tuple, Union
 
 import torch
 
+from tensorrt_llm_tpu_torch.quantization.quantize import to_e4m3
 from tensorrt_llm_tpu_torch.utils import div_scalar
 
 NEG_INF = float(torch.finfo(torch.float32).min)
@@ -30,7 +36,8 @@ Pool = Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]
 
 
 def pool_dims(cache: Pool) -> Tuple[int, int, int, int]:
-    """(NB, Hkv, BS, D) of a head-major pool (bf16, or an INT8 pair)."""
+    """(NB, Hkv, BS, D) of a head-major pool (bf16, FP8, or an INT8
+    pair)."""
     nb, h, bs, d = (cache[0] if isinstance(cache, tuple) else cache).shape
     return nb, h, bs, d
 
@@ -63,7 +70,8 @@ def write_kv_cache(k_cache: Pool, v_cache: Pool, k_new: torch.Tensor,
     """Scatter new K/V [T, Hkv, D] into the pools at `slot_mapping` [T],
     IN PLACE (the JAX version returns new pools; updating in place saves a
     pool copy per step).  Out-of-range slots land in reserved page 0.  An
-    INT8 pool takes the quantized rows and their scales at the same rows."""
+    INT8 pool takes the quantized rows and their scales at the same rows,
+    an FP8 pool the rows cast to e4m3, as bytes."""
     nb, h, bs, d = pool_dims(k_cache)
     rows = pool_rows(slot_mapping, nb, h, bs)
     for cache, new in ((k_cache, k_new), (v_cache, v_new)):
@@ -72,6 +80,9 @@ def write_kv_cache(k_cache: Pool, v_cache: Pool, k_new: torch.Tensor,
             q, s = quantize_kv_token(new)
             data.view(-1, d).index_copy_(0, rows, q.reshape(-1, d))
             scale.view(-1).index_copy_(0, rows, s.reshape(-1))
+        elif cache.dtype == torch.float8_e4m3fn:
+            cache.view(torch.uint8).view(-1, d).index_copy_(
+                0, rows, to_e4m3(new).view(torch.uint8).reshape(-1, d))
         else:
             cache.view(-1, d).index_copy_(
                 0, rows, new.to(cache.dtype).reshape(-1, d))
@@ -80,12 +91,15 @@ def write_kv_cache(k_cache: Pool, v_cache: Pool, k_new: torch.Tensor,
 def gather_dequant(cache: Pool, idx: torch.Tensor,
                    out_dtype=torch.bfloat16) -> torch.Tensor:
     """``cache[idx]`` pages; an INT8 pool is dequantized after the gather,
-    in f32 and then rounded to `out_dtype`, as the JAX package does."""
+    in f32 and then rounded to `out_dtype`, as the JAX package does; FP8
+    pages are upcast to `out_dtype` (exact for bf16)."""
     idx = idx.long()
     if isinstance(cache, tuple):
         data, scale = cache
         g = data[idx].to(torch.float32) * scale[idx][..., None]
         return g.to(out_dtype)
+    if cache.dtype == torch.float8_e4m3fn:
+        return cache.view(torch.uint8)[idx].view(cache.dtype).to(out_dtype)
     return cache[idx]
 
 
@@ -187,7 +201,9 @@ def tree_verify_attention(q: torch.Tensor, k_cache: Pool, v_cache: Pool,
     `tree_verify_attention_xla`): the pool is read for the `prefix_len`
     committed positions only (so the chunk's own writes are never read
     back), the chunk's K/V [T, Hkv, D] come from the inputs in the query's
-    dtype (an INT8 pool's chunk rows are not quantized), and in-chunk
+    dtype (an INT8 pool's chunk rows are not quantized; an FP8 pool's are
+    rounded to e4m3, as the JAX package casts them to the pool's dtype and
+    as a chunk written to the pool reads back), and in-chunk
     visibility is the host-built `tree_mask` [T, T] ANDed with causality
     by `positions` [T] (tree rows of one depth share a position).  The
     sliding window and the sinks act as in `mha`."""
@@ -202,6 +218,8 @@ def tree_verify_attention(q: torch.Tensor, k_cache: Pool, v_cache: Pool,
     s = torch.arange(S, device=q.device)
     kv_pos = torch.cat([torch.where(s < prefix_len, s, -1),
                         positions.to(s.dtype)])
+    if not isinstance(k_cache, tuple) and k_cache.dtype == torch.float8_e4m3fn:
+        k_new, v_new = to_e4m3(k_new), to_e4m3(v_new)
     k = torch.cat([kp, k_new.to(kp.dtype)])
     v = torch.cat([vp, v_new.to(vp.dtype)])
     qf = (q.to(torch.float32) * scale).reshape(T, h, G, D)

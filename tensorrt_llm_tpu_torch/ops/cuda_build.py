@@ -74,6 +74,14 @@ _SIGNATURES = {
     # D, NB, BS, MB, scale, window, logit_cap, n_splits, split_len, grid_x,
     # stream
     "tllm_paged_decode": [_P] * 9 + [_I] * 7 + [_F, _I, _F, _I, _I, _I, _P],
+    # q, k, v (e4m3 pages), block_table, sinks, out, T, Hq, Hkv, D, BS,
+    # MB, kv_len, q_offset, scale, window, logit_cap, stream
+    "tllm_flash_prefill_fp8": [_P] * 6 + [_I] * 8 + [_F, _I, _F, _P],
+    # q, k, v (e4m3 pages), tables, kv_lens, sinks, workspace, counters,
+    # out, B, Hq, Hkv, D, NB, BS, MB, scale, window, logit_cap, n_splits,
+    # split_len, grid_x, stream
+    "tllm_paged_decode_fp8": [_P] * 9 + [_I] * 7
+    + [_F, _I, _F, _I, _I, _I, _P],
     # q, k_data, k_scale, v_data, v_scale, block_table, sinks, out, T, Hq,
     # Hkv, D, BS, MB, kv_len, q_offset, scale, window, logit_cap, stream
     "tllm_flash_prefill_int8": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,

@@ -6,8 +6,10 @@ is the plain version (the JAX package's `paged_prefill_xla`);
 launches one Hopper kernel, `csrc/flash_prefill_sm90.cu` (a producer warp
 loading the pages, two consumer warpgroups on wgmma, at head dims 64 and
 128): K3 over bf16 pools (TMA boxes of the pages in the swizzle wgmma
-reads; pages of a multiple of 8 tokens) or K7 over INT8 pools (bulk copies
-of the int8 pages, converted to bf16 in shared memory).
+reads; pages of a multiple of 8 tokens) or over FP8 (e4m3) pools, and K7
+over INT8 pools (bulk copies of the 1-byte pages, converted to bf16 in
+shared memory, exactly).  The launch counts name the instances apart:
+``flash_prefill``, ``flash_prefill_int8``, ``flash_prefill_fp8``.
 """
 
 from __future__ import annotations
@@ -19,7 +21,8 @@ import torch
 from tensorrt_llm_tpu_torch.ops import cuda_build
 from tensorrt_llm_tpu_torch.ops.attention_plain import (
     paged_prefill_plain as flash_prefill_plain)
-from tensorrt_llm_tpu_torch.ops.paged_attention import pool_operands
+from tensorrt_llm_tpu_torch.ops.paged_attention import (
+    pool_kind, pool_operands)
 
 __all__ = ["flash_prefill_attention", "flash_prefill_plain"]
 
@@ -61,7 +64,7 @@ def flash_prefill_attention(q: torch.Tensor, k_cache, v_cache,
                             sinks: Optional[torch.Tensor] = None
                             ) -> torch.Tensor:
     """One sequence's chunk q [T, Hq, D] (positions q_offset..) against its
-    paged KV [NB, Hkv, BS, D] (bf16, or INT8 pairs) through block_table
+    paged KV [NB, Hkv, BS, D] (bf16, FP8, or INT8 pairs) through block_table
     [MB]; kv_len counts the prefix plus the chunk, which is already
     written.  Returns [T, Hq, D]."""
     if q.device.type == "cpu":
@@ -70,14 +73,15 @@ def flash_prefill_attention(q: torch.Tensor, k_cache, v_cache,
                                    sinks)
     # what the kernels are not built for is refused before the device:
     # never a fallback
-    int8 = isinstance(k_cache, tuple)
+    kind = pool_kind(k_cache)
+    int8 = kind == "int8"
     NB, Hkv, BS, Dk = (k_cache[0] if int8 else k_cache).shape
     T, Hq, D = q.shape
     if D not in (64, 128) or Dk != D or Hq % Hkv:
         raise NotImplementedError(
             f"flash_prefill kernel: D in (64, 128) and Hq % Hkv == 0 "
             f"(D={D}, Hq={Hq}, Hkv={Hkv})")
-    if not int8 and BS % BF16_PAGE_MULTIPLE:
+    if kind == "bf16" and BS % BF16_PAGE_MULTIPLE:
         raise NotImplementedError(
             f"flash_prefill kernel (bf16 pages): pages of a multiple of "
             f"{BF16_PAGE_MULTIPLE} tokens, got {BS}")
@@ -102,9 +106,9 @@ def flash_prefill_attention(q: torch.Tensor, k_cache, v_cache,
     if T == 0:
         return out
     lib = cuda_build.load_library()
-    name = "flash_prefill_int8" if int8 else "flash_prefill"
+    name = "flash_prefill" if kind == "bf16" else "flash_prefill_" + kind
     # the bf16 tensor maps need the pools' extent
-    dims = (T, Hq, Hkv, D, BS) if int8 else (T, Hq, Hkv, D, NB, BS)
+    dims = (T, Hq, Hkv, D, NB, BS) if kind == "bf16" else (T, Hq, Hkv, D, BS)
     err = getattr(lib, "tllm_" + name)(
         cuda_build.ptr(q), *pools, cuda_build.ptr(block_table),
         cuda_build.ptr(sinks), cuda_build.ptr(out), *dims,

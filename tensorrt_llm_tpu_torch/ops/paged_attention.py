@@ -3,10 +3,12 @@
 Counterpart of `tensorrt_llm_tpu/ops/paged_attention.py`.
 `paged_decode_plain` is the plain version (the JAX package's
 `paged_decode_xla`); `paged_decode_attention` takes it for CPU tensors and
-for CUDA tensors launches kernel K4 over bf16 pools or K6 over INT8 pools
-(`csrc/paged_decode.cu`, one template: head dims 64 and 128, GQA groups 1,
-2, 4, 8; pages of a multiple of 8 tokens, 4 for int8), split over the KV as
-`decode_plan` says and merged inside the one launch.
+for CUDA tensors launches kernel K4 over bf16 or FP8 (e4m3) pools, or K6
+over INT8 pools (`csrc/paged_decode.cu`, one template: head dims 64 and
+128, GQA groups 1, 2, 4, 8; pages of a multiple of 8 tokens, 4 for int8
+and e4m3), split over the KV as `decode_plan` says and merged inside the
+one launch.  The launch counts name the instances apart:
+``paged_decode``, ``paged_decode_int8``, ``paged_decode_fp8``.
 """
 
 from __future__ import annotations
@@ -22,7 +24,7 @@ from tensorrt_llm_tpu_torch.utils import cdiv
 
 __all__ = ["paged_decode_attention", "paged_decode_plain", "decode_plan",
            "decode_split_choices", "decode_check", "split_grid",
-           "pool_operands"]
+           "pool_kind", "pool_operands"]
 
 _SMS = 132
 DECODE_TILE = 64         # tokens a tile of the kernel (a split is whole tiles)
@@ -36,18 +38,18 @@ DECODE_ONE_SPLIT_TILES = 16
 _DECODE_BLOCKS_PER_SM = 2
 
 
-def decode_check(D: int, G: int, BS: int, int8: bool = False) -> None:
+def decode_check(D: int, G: int, BS: int, kind: str = "bf16") -> None:
     """Raise NotImplementedError on what the kernel does not take: head dims
     64 and 128, 1, 2, 4 or 8 query heads a KV head, and pages of a multiple
     of 8 tokens for bf16 pools (TMA boxes fill whole 8-row swizzle atoms)
-    or of 4 tokens for int8 pools (bulk copies of whole 16-byte runs of a
-    page's f32 scales)."""
-    if D not in (64, 128) or G not in (1, 2, 4, 8) or BS <= 0 \
-            or BS % (4 if int8 else 8):
+    or of 4 tokens for the 1-byte pages of `kind` "int8" and "fp8" (bulk
+    copies of runs of at least 4 tokens, which for int8 carry whole 16-byte
+    runs of a page's f32 scales)."""
+    mult = 8 if kind == "bf16" else 4
+    if D not in (64, 128) or G not in (1, 2, 4, 8) or BS <= 0 or BS % mult:
         raise NotImplementedError(
             f"paged_decode kernel: D in (64, 128), Hq/Hkv in (1, 2, 4, 8), "
-            f"pages of a multiple of {4 if int8 else 8} tokens (D={D}, "
-            f"G={G}, BS={BS})")
+            f"pages of a multiple of {mult} tokens (D={D}, G={G}, BS={BS})")
 
 
 def decode_split_choices(table_tokens: int) -> tuple:
@@ -100,18 +102,31 @@ def split_grid(table_tokens: int, split_len: int,
     return min(n, cdiv(window, split_len) + 1) if window else n
 
 
+def pool_kind(cache) -> str:
+    """"int8" for an INT8 pair, "fp8" for e4m3 pages, else "bf16"."""
+    if isinstance(cache, tuple):
+        return "int8"
+    return "fp8" if cache.dtype == torch.float8_e4m3fn else "bf16"
+
+
+_POOL_DTYPES = {"bf16": (torch.bfloat16,) * 2,
+                "fp8": (torch.float8_e4m3fn,) * 2,
+                "int8": (torch.int8, torch.float32) * 2}
+
+
 def pool_operands(k_cache, v_cache, device):
-    """Check a K/V pool pair for the attention kernels: bf16 pools
-    [NB, Hkv, BS, D], or INT8 pairs (int8 data [NB, Hkv, BS, D], f32 scales
-    [NB, Hkv, BS]).  Returns (is_int8, (NB, Hkv, BS, D), device pointers in
-    the C entry points' order: k, v or k_data, k_scale, v_data, v_scale)."""
-    int8 = isinstance(k_cache, tuple)
-    if int8 != isinstance(v_cache, tuple):
-        raise ValueError("K and V pools must both be bf16 or both INT8")
+    """Check a K/V pool pair for the attention kernels: bf16 or FP8 (e4m3)
+    pools [NB, Hkv, BS, D], or INT8 pairs (int8 data [NB, Hkv, BS, D], f32
+    scales [NB, Hkv, BS]).  Returns (`pool_kind`, (NB, Hkv, BS, D), device
+    pointers in the C entry points' order: k, v or k_data, k_scale, v_data,
+    v_scale)."""
+    kind = pool_kind(k_cache)
+    if kind != pool_kind(v_cache):
+        raise ValueError("K and V pools must be of one kind (bf16, FP8 or "
+                         "INT8)")
+    int8 = kind == "int8"
     parts = [*k_cache, *v_cache] if int8 else [k_cache, v_cache]
-    dts = ((torch.int8, torch.float32) * 2 if int8
-           else (torch.bfloat16,) * 2)
-    for t, dt in zip(parts, dts):
+    for t, dt in zip(parts, _POOL_DTYPES[kind]):
         if t.device != device or t.dtype != dt or not t.is_contiguous():
             raise ValueError(f"KV pools must be contiguous {dt} on {device}")
     shape = tuple(parts[0].shape)
@@ -119,7 +134,7 @@ def pool_operands(k_cache, v_cache, device):
     if any(tuple(t.shape) != shape for t in data) \
             or any(tuple(t.shape) != shape[:3] for t in scales):
         raise ValueError("K/V pool shapes do not match")
-    return int8, shape, [cuda_build.ptr(t) for t in parts]
+    return kind, shape, [cuda_build.ptr(t) for t in parts]
 
 
 def paged_decode_attention(q: torch.Tensor, k_cache, v_cache,
@@ -129,7 +144,7 @@ def paged_decode_attention(q: torch.Tensor, k_cache, v_cache,
                            logit_cap: Optional[float] = None,
                            sinks: Optional[torch.Tensor] = None,
                            split_len: Optional[int] = None) -> torch.Tensor:
-    """q [B, Hq, D] against pools [NB, Hkv, BS, D] (bf16, or INT8 pairs)
+    """q [B, Hq, D] against pools [NB, Hkv, BS, D] (bf16, FP8, or INT8 pairs)
     through block_tables [B, MB]; kv_lens [B] include the new token.
     `split_len` overrides `decode_plan`'s tokens a split (CUDA only).
     Returns [B, Hq, D]."""
@@ -142,10 +157,11 @@ def paged_decode_attention(q: torch.Tensor, k_cache, v_cache,
     _, Hkv, BS, Dk = (k_cache[0] if isinstance(k_cache, tuple)
                       else k_cache).shape
     G = Hq // Hkv if Hkv and Hq % Hkv == 0 else 0
-    decode_check(D if Dk == D else -1, G, BS, isinstance(k_cache, tuple))
+    decode_check(D if Dk == D else -1, G, BS, pool_kind(k_cache))
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
-    int8, (NB, _, _, _), pools = pool_operands(k_cache, v_cache, q.device)
+    kind, (NB, _, _, _), pools = pool_operands(k_cache, v_cache, q.device)
+    int8 = kind == "int8"
     for name, t, dt in (("q", q, torch.bfloat16),
                         ("block_tables", block_tables, torch.int32),
                         ("kv_lens", kv_lens, torch.int32)):
@@ -175,7 +191,7 @@ def paged_decode_attention(q: torch.Tensor, k_cache, v_cache,
                       device=q.device) if n_splits > 1 else None)
     cnt = cuda_build.counters(q.device, B * Hkv)
     lib = cuda_build.load_library()
-    name = "paged_decode_int8" if int8 else "paged_decode"
+    name = "paged_decode" if kind == "bf16" else "paged_decode_" + kind
     err = getattr(lib, "tllm_" + name)(
         cuda_build.ptr(q), *pools, cuda_build.ptr(block_tables),
         cuda_build.ptr(kv_lens), cuda_build.ptr(sinks), cuda_build.ptr(ws),

@@ -1,11 +1,14 @@
 """Quantization algorithm taxonomy.
 
 Counterpart of `tensorrt_llm_tpu/quantization/mode.py`: the `QuantAlgo` and
-`KvCacheQuantAlgo` enums and `QuantConfig`.  The port runs the W4A16 family,
-W4A8_AWQ (int4 weights, dynamic per-token int8 activations) and unquantized
-layers (other algorithms raise); KV pools are bf16 or INT8 (FP8 raises).
-`exclude_modules` keeps `lm_head` and the embedding in bf16 as the JAX
-package does.  `pre_quantized` marks an AWQ/GPTQ checkpoint whose ints,
+`KvCacheQuantAlgo` enums and `QuantConfig`.  The port runs every algorithm
+of the JAX package: the W4A16 family, W4A8_AWQ (int4 weights, dynamic
+per-token int8 activations), the 8-bit ones (W8A16, W8A8_SQ_PER_CHANNEL,
+FP8 and FP8_PER_CHANNEL_PER_TOKEN: per-channel int8 or e4m3 weights) and
+unquantized layers; KV pools are bf16, INT8 or FP8 (e4m3 pages, no
+scales).  `exclude_modules` keeps `lm_head` and the embedding in bf16 as
+the JAX package does; `clip_search` quantizes int4 weights through the
+clip-ratio search of `quantization/calibrate.py`.  `pre_quantized` marks an AWQ/GPTQ checkpoint whose ints,
 scales and zeros are taken as stored (`quantization/hf_ingest.py`);
 `ckpt_format` names its packing and `ckpt_v2` GPTQ's v2 zero convention.
 """
@@ -34,7 +37,7 @@ class QuantAlgo(str, enum.Enum):
 class KvCacheQuantAlgo(str, enum.Enum):
     NONE = "NONE"
     INT8 = "INT8"      # int8 pages + f32 scale per (token, head)
-    FP8 = "FP8"        # not in the port yet
+    FP8 = "FP8"        # e4m3 pages, no scales
 
 
 WEIGHT_ONLY_W4 = (QuantAlgo.W4A16, QuantAlgo.W4A16_AWQ, QuantAlgo.W4A16_GPTQ)
@@ -54,6 +57,8 @@ class QuantConfig:
     pre_quantized: bool = False
     ckpt_format: Optional[str] = None   # "awq" | "gptq"
     ckpt_v2: bool = False               # gptq_v2 zeros (no -1 offset)
+    # int4 weights quantized with the per-group clip-ratio search
+    clip_search: bool = False
 
     @property
     def is_weight_only_w4(self) -> bool:

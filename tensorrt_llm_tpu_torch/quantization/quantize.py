@@ -15,6 +15,14 @@ Values are signed int4 in two's complement.  Rounding is half-to-even on both
 sides (`jnp.round` and `torch.round`), and every division is correctly
 rounded (`div_scalar` on the card), so `quantize_w4` matches bit for bit,
 on the CPU and on the card.
+
+The 8-bit weights are per output channel (`quantize_w8`: int8 in [-128,
+127] against absmax / 127, the JAX package's `quantize_w8`;
+`quantize_fp8`: e4m3 against absmax / 448, its `FP8LinearMethod.
+make_params`).  The cast to e4m3 rounds to nearest even and saturates at
++-448 (`to_e4m3` clamps first: what PyTorch's own cast does past 448
+depends on its version, NaN on some), where the JAX package's cast gives
+NaN past ~464; the weights never get there (|w| / scale <= 448).
 """
 
 from __future__ import annotations
@@ -67,6 +75,33 @@ def quantize_w4(w: torch.Tensor, group_size: int = 128, symmetric: bool = True
                         0, 15) - 8
         zeros = (zu - 8).to(torch.float32)
     return q.reshape(K, N).to(torch.int8), scales.to(torch.float32), zeros
+
+
+E4M3_MAX = 448.0
+
+
+def to_e4m3(x: torch.Tensor) -> torch.Tensor:
+    """Round to float8_e4m3fn, nearest even, saturating at +-448 (infinities
+    too; NaN stays NaN)."""
+    return torch.clamp(x, -E4M3_MAX, E4M3_MAX).to(torch.float8_e4m3fn)
+
+
+def quantize_w8(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-channel (per output column) int8 quantization of ``[K, N]``:
+    ``(q int8 [K, N], scales f32 [N])``, dequant = q * scale."""
+    wf = w.to(torch.float32)
+    scales = torch.clamp(div_scalar(wf.abs().amax(dim=0), 127.0), min=1e-8)
+    q = torch.clamp(torch.round(wf / scales[None, :]), -128, 127)
+    return q.to(torch.int8), scales
+
+
+def quantize_fp8(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-channel e4m3 quantization of ``[K, N]``: ``(q float8_e4m3fn
+    [K, N], scales f32 [N])`` with scale = max(absmax, 1e-12) / 448."""
+    wf = w.to(torch.float32)
+    scales = div_scalar(torch.clamp(wf.abs().amax(dim=0), min=1e-12),
+                        E4M3_MAX)
+    return to_e4m3(wf / scales[None, :]), scales
 
 
 def _nibbles(lo: torch.Tensor, hi: torch.Tensor) -> torch.Tensor:

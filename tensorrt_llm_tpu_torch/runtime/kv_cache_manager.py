@@ -21,11 +21,16 @@ Device pools, per layer, are K and V tensors of the logical head-major
 layout ``[num_blocks, num_kv_heads, block_size, head_dim]``: bf16, or for an
 INT8 cache (``kv_quant``) a pair of int8 data and f32 per-(token, head)
 scales ``[num_blocks, num_kv_heads, block_size]`` indexed by the same block
-ids, so a reused block carries its scales.  Under MLA (``layout="latent"``)
+ids, so a reused block carries its scales, or for an FP8 cache
+float8_e4m3fn pages and no scales (the JAX package's FP8 pools: unit
+scale, the upcast to bf16 is exact).  Under MLA (``layout="latent"``)
 a layer has ONE bf16 pool ``[num_blocks, 1, block_size, L + R]`` of latent
 rows, and under DSA (``dsa_index_dim``) the pair (latent pool, indexer-key
 pool ``[num_blocks, 1, block_size, index_head_dim]``), as in the JAX
-package.  The TPU's lane-packed view for head dims below 128, and its
+package, which allocates bf16 latent pools whatever ``kv_quant`` says; a
+quantized latent cache is refused here.  Every page copy (forks, partial
+reuse, the host tier and transfers) moves raw bytes, so FP8 pages travel
+as they are.  The TPU's lane-packed view for head dims below 128, and its
 latent width rounded up to 640, are TPU layouts and are not kept.
 
 KV events (JAX `kvCacheEventManager` feed of the ``/kv_cache_events``
@@ -119,13 +124,13 @@ class KVCacheConfig:
         if self.bookkeeping not in ("native", "python"):
             raise ValueError(f"bookkeeping={self.bookkeeping!r}: 'native' "
                              "or 'python'")
-        if self.kv_quant == KvCacheQuantAlgo.FP8:
-            raise NotImplementedError("FP8 KV pools are not in the port yet")
         if self.layout not in ("kv", "latent"):
             raise ValueError(f"unknown KV layout {self.layout!r}")
         if self.layout == "latent" and self.kv_quant != KvCacheQuantAlgo.NONE:
-            raise NotImplementedError("quantized latent (MLA) pools are not "
-                                      "in the port yet")
+            raise NotImplementedError(
+                f"{self.kv_quant.value} latent (MLA) pools: the JAX package "
+                "does not quantize latent pools (it allocates bf16 ones "
+                "whatever kv_cache_quant says), so neither does the port")
 
 
 def make_pools(num_layers: int, num_blocks: int, num_kv_heads: int,
@@ -134,8 +139,9 @@ def make_pools(num_layers: int, num_blocks: int, num_kv_heads: int,
                device="cuda", layout: str = "kv",
                dsa_index_dim: int = 0) -> list:
     """Zeroed pools per layer: (K, V) bf16 ``[NB, Hkv, BS, D]``, or for INT8
-    ``((k int8 [NB, Hkv, BS, D], k_scale f32 [NB, Hkv, BS]), (v, v_scale))``
-    as the JAX package allocates them (logical layout, never lane-packed);
+    ``((k int8 [NB, Hkv, BS, D], k_scale f32 [NB, Hkv, BS]), (v, v_scale))``,
+    or for FP8 (K, V) float8_e4m3fn ``[NB, Hkv, BS, D]``, as the JAX
+    package allocates them (logical layout, never lane-packed);
     for the latent layout one bf16 pool ``[NB, 1, BS, D]``, paired with the
     indexer pool ``[NB, 1, BS, dsa_index_dim]`` under DSA."""
     shape = (num_blocks, num_kv_heads, block_size, head_dim)
@@ -149,11 +155,15 @@ def make_pools(num_layers: int, num_blocks: int, num_kv_heads: int,
                                      device=device))
         return [latent() for _ in range(num_layers)]
 
+    kv_quant = KvCacheQuantAlgo(kv_quant)
+
     def pool():
-        if KvCacheQuantAlgo(kv_quant) == KvCacheQuantAlgo.INT8:
+        if kv_quant == KvCacheQuantAlgo.INT8:
             return (torch.zeros(shape, dtype=torch.int8, device=device),
                     torch.zeros(shape[:3], dtype=torch.float32, device=device))
-        return torch.zeros(shape, dtype=torch.bfloat16, device=device)
+        dt = (torch.float8_e4m3fn if kv_quant == KvCacheQuantAlgo.FP8
+              else torch.bfloat16)
+        return torch.zeros(shape, dtype=dt, device=device)
 
     return [(pool(), pool()) for _ in range(num_layers)]
 
@@ -773,8 +783,9 @@ class KVCacheManager:
                            scale_pools: bool = False) -> int:
         """num_pools: 2 for K and V, 1 for the MLA latent layout.
         extra_dims: per-token channels of a layer's side pool (the DSA
-        indexer's keys).  scale_pools: an INT8 cache adds an f32 scale per
-        (token, head) to each pool."""
+        indexer's keys).  dtype_bytes: 1 for INT8 and FP8 pages.
+        scale_pools: an INT8 cache adds an f32 scale per (token, head) to
+        each pool (FP8 pages have none)."""
         per_block = num_pools * num_layers * block_size * num_kv_heads \
             * head_dim * dtype_bytes
         per_block += num_layers * block_size * extra_dims * dtype_bytes

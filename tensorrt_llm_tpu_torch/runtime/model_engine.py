@@ -22,9 +22,9 @@ than its pipeline is deep.  The chunk's tokens equal the JAX package's
 fused `scan` mode.
 
 `copy_kv_blocks` copies whole pages between blocks in every layer's pools
-(bf16, INT8 data and scales, MLA latent and DSA indexer pools) for
-copy-on-partial-reuse, as a plain torch index copy (XLA does it in the JAX
-package).  `extract_kv_blocks` and `inject_kv_blocks` move the pages of
+(bf16, INT8 data and scales, FP8, MLA latent and DSA indexer pools) for
+copy-on-partial-reuse and beam forks, as a plain torch index copy (XLA
+does it in the JAX package); FP8 pages move as their bytes (`_raw`).  `extract_kv_blocks` and `inject_kv_blocks` move the pages of
 given blocks, every leaf of every layer, to host memory and back: the
 transfer plane of disaggregated serving and of the host KV tier (JAX
 `extract_kv_blocks` / `inject_kv_blocks`, plain XLA gathers and scatters
@@ -125,6 +125,12 @@ def _unpacked(buf: torch.Tensor, like) -> List[torch.Tensor]:
         out.append(buf[off:off + n].view(t.dtype).reshape(t.shape))
         off += -(-n // _ALIGN) * _ALIGN
     return out
+
+
+def _raw(t: torch.Tensor) -> torch.Tensor:
+    """A pool or page leaf as the dtype its index copies run in: float8 as
+    its bytes (PyTorch has no float8 `index_copy_`)."""
+    return t.view(torch.uint8) if t.dtype == torch.float8_e4m3fn else t
 
 
 def _slots(req, n: int) -> np.ndarray:
@@ -413,7 +419,8 @@ class ModelEngine:
         dst = upload(np.ascontiguousarray(idx[:, 1]), self.device)
         with self.lock:
             for pool in leaves(self.kv_caches):
-                pool.index_copy_(0, dst, pool.index_select(0, src))
+                raw = _raw(pool)
+                raw.index_copy_(0, dst, raw.index_select(0, src))
 
     @torch.no_grad()
     def extract_kv_blocks(self, block_ids: Sequence[int]) -> list:
@@ -423,7 +430,7 @@ class ModelEngine:
         host at once (one wait, not one a leaf)."""
         idx = upload(np.asarray(block_ids, np.int64), self.device)
         with self.lock:
-            pages = [pool.index_select(0, idx)
+            pages = [_raw(pool).index_select(0, idx).view(pool.dtype)
                      for pool in leaves(self.kv_caches)]
         flat = _packed(pages).cpu()
         it = iter(_unpacked(flat, pages))
@@ -476,7 +483,7 @@ class ModelEngine:
             host = _unpacked(buf, host)
         with self.lock:
             for pool, h in zip(leaves(self.kv_caches), host):
-                pool.index_copy_(0, idx, h)
+                _raw(pool).index_copy_(0, idx, _raw(h))
 
     # ------------------------------------------------------------ warmup ---
     @staticmethod
@@ -498,8 +505,8 @@ class ModelEngine:
         """Time the W4A16 tactic candidates of every distinct weight shape
         of the model's W4A16 linears and cache the fastest (JAX
         `ModelEngine.autotune_kernels`).  Keys are ``(K, N, tiled)``; shapes
-        already cached are skipped.  W4A8 linears are not tuned: their K8
-        has no tactics.
+        already cached are skipped.  W4A8 linears are not tuned (their K8
+        has no tactics), nor are the 8-bit ones (plain products).
 
         Each candidate is timed as a decode step runs it: an input of
         `m_bucket` rows (at most `GEMV_MAX_M`, the ``block_m`` that limits
@@ -525,7 +532,7 @@ class ModelEngine:
         n_before = len(tuner.cache)
         seen = set()
         for mod in self.model.modules():
-            if not isinstance(mod, Linear) or not mod.quantized or mod.w4a8:
+            if not isinstance(mod, Linear) or not mod.w4a16:
                 continue
             q, s, z = mod.qweight, mod.scales, mod.zeros
             tiled = q.dim() == 3

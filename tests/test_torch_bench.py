@@ -230,9 +230,9 @@ def test_unported_options_raise_with_module():
                                  free_mem_fraction=None)
     with pytest.raises(NotImplementedError, match="parallel"):
         bench.llm_kwargs(args)
+    # FP8 KV pools are in the port: --kv-dtype fp8 passes through
     args.tp_size, args.kv_dtype = 1, "fp8"
-    with pytest.raises(NotImplementedError, match="kv_cache_manager"):
-        bench.llm_kwargs(args)
+    assert bench.llm_kwargs(args)["kv_cache_quant"] == "FP8"
     args.kv_dtype = "int8"
     assert bench.llm_kwargs(args)["kv_cache_quant"] == "INT8"
 

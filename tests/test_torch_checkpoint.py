@@ -28,8 +28,9 @@ write_hf_checkpoint`: seeded numpy weights, bf16, two shards, tiny widths,
   built from the config and saved with `save_pretrained`: top-1 equal and
   a logits correlation above 0.99 (bf16 compute against f32).
 * `load_format="dummy"`, a directory without weights (warns),
-  `update_weights`, `lora_path` (a PEFT adapter merged at load), and the
-  refusals (`quant_clip_search`).
+  `update_weights`, `lora_path` (a PEFT adapter merged at load), the
+  refusals, and `quant_clip_search` and the 8-bit algorithms at load
+  (states equal to the JAX `LLM`'s; with the clip search also its tokens).
 """
 
 import json
@@ -120,6 +121,8 @@ def assert_state_equal(port_state, jax_params):
         if g.dtype != w.dtype:
             assert g.dtype == torch.bfloat16, (k, g.dtype, w.dtype)
             w = w.to(torch.bfloat16)
+        if g.dtype == torch.float8_e4m3fn:     # no float8 torch.equal
+            g, w = (t.contiguous().view(torch.uint8) for t in (g, w))
         assert torch.equal(g, w), k
 
 
@@ -262,7 +265,11 @@ def test_family_matches_jax(family, quant, ckpt_dirs, monkeypatch):
 
 STATE_CASES = [("llama", "W4A16", 128), ("llama", "W4A8_AWQ", 128),
                ("deepseek_v3", "W4A16", 64), ("deepseek_v3", None, 0),
-               ("deepseek_v32", "W4A16", 64)]
+               ("deepseek_v32", "W4A16", 64),
+               # the 8-bit algorithms quantize the checkpoint's floats at load
+               ("llama", "W8A16", 0), ("llama", "W8A8_SQ_PER_CHANNEL", 0),
+               ("llama", "FP8", 0), ("deepseek_v3", "FP8_PER_CHANNEL_PER_TOKEN",
+                                     0)]
 
 
 @pytest.mark.parametrize("family,quant,group", STATE_CASES,
@@ -275,7 +282,7 @@ def test_loaded_state_matches_jax(family, quant, group, ckpt_dirs,
     monkeypatch.setenv("TLLM_KV_BOOKKEEPING", "python")
     path = str(ckpt_dirs[family])
     kw = {} if quant is None else dict(quant_algo=quant,
-                                       quant_group_size=group)
+                                       quant_group_size=group or 128)
     jl = J.LLM(model=path, **LLM_KW, **kw)
     try:
         jparams = jl.engine.params
@@ -286,6 +293,27 @@ def test_loaded_state_matches_jax(family, quant, group, ckpt_dirs,
         model = T.models.get_model_class(cfg.architecture)(cfg, "cpu")
         state = model.load_hf_weights(reader).state()
     assert_state_equal(state, jparams)
+
+
+def test_clip_search_matches_jax(ckpt_dirs, monkeypatch):
+    """`quant_clip_search`: both `LLM`s quantize the checkpoint's floats
+    with the clip-ratio search, to the same int4 state, and decode the same
+    tokens; the search moved the weights off plain absmax rounding."""
+    path = ckpt_dirs["llama"]
+    kw = dict(quant_algo="W4A16", quant_group_size=64, quant_clip_search=True)
+    state, jparams, tout, jout, cfg, prompts = _run_pair(path, monkeypatch,
+                                                         **kw)
+    assert cfg.quant.clip_search
+    assert_state_equal(state, jparams)
+    _tokens_match(cfg, state, prompts, jout, tout)
+    plain = T.LLM(model=str(path), device="cpu", quant_algo="W4A16",
+                  quant_group_size=64, **LLM_KW)
+    try:
+        base = plain.model.state()
+    finally:
+        plain.shutdown()
+    assert any(not torch.equal(state[k], base[k]) for k in state
+               if k.endswith("qweight"))
 
 
 # ---- AWQ / GPTQ ----------------------------------------------------------
@@ -517,9 +545,14 @@ def test_refusals(ckpt_dirs, tmp_path):
                 max_tokens=2))[0].outputs[0].token_ids) == 2
         finally:
             tl.shutdown()
-    with pytest.raises(NotImplementedError, match="clip"):
-        T.LLM(model=path, device="cpu", quant_algo="W4A16",
-              quant_clip_search=True, **LLM_KW)
+    # quant_clip_search is no longer refused: the int4 weights come from
+    # the clip-ratio search (test_clip_search_matches_jax holds them)
+    tl = T.LLM(model=path, device="cpu", quant_algo="W4A16",
+               quant_clip_search=True, **LLM_KW)
+    try:
+        assert tl.model.layers[0].attn.qkv.clip_search
+    finally:
+        tl.shutdown()
     with pytest.raises(TypeError):
         T.LLM(model=3, device="cpu", **LLM_KW)
     # MXFP4 experts (GPT-OSS's published format) are named, not misread

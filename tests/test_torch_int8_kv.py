@@ -232,8 +232,11 @@ def test_kv_manager_int8_pools_and_scale_bytes():
     bf16 = KVCacheManager(KVCacheConfig(block_size=BS), L, Hkv, D, NB,
                           device="cpu").allocate_pools()
     assert bf16[0][0].dtype == torch.bfloat16
+    # FP8 pools are e4m3 pages (tests/test_torch_fp8_kv.py); a quantized
+    # latent (MLA) cache is still refused
+    assert KVCacheConfig(kv_quant="FP8").kv_quant == KvCacheQuantAlgo.FP8
     with pytest.raises(NotImplementedError):
-        KVCacheConfig(kv_quant="FP8")
+        KVCacheConfig(kv_quant="FP8", layout="latent")
 
 
 SHAPE = dict(vocab_size=256, hidden_size=256, intermediate_size=512,
@@ -297,6 +300,22 @@ def test_generate_w4a8_int8_kv_matches_jax_greedy(monkeypatch):
 
 
 def test_fp8_kv_raises():
-    with pytest.raises(NotImplementedError):
-        T.LLM(model=ModelConfig(**SHAPE), device="cpu",
-              kv_cache_quant="FP8", **LLM_KW)
+    """FP8 KV pools serve GQA models (tests/test_torch_fp8_kv.py); on an MLA
+    model, whose latent pools the JAX package never quantizes, the port
+    raises."""
+    from tensorrt_llm_tpu_torch.models import MOONLIGHT_16B_A3B
+    llm = T.LLM(model=ModelConfig(**SHAPE), device="cpu",
+                kv_cache_quant="FP8", **LLM_KW)
+    try:
+        assert llm.engine.kv_caches[0][0].dtype == torch.float8_e4m3fn
+    finally:
+        llm.shutdown()
+    mla = ModelConfig.from_hf_config(dict(
+        MOONLIGHT_16B_A3B["hf_config"], vocab_size=256, hidden_size=128,
+        intermediate_size=256, moe_intermediate_size=64,
+        num_hidden_layers=1, num_attention_heads=4, num_key_value_heads=4,
+        n_routed_experts=8, num_experts_per_tok=2, kv_lora_rank=48,
+        qk_rope_head_dim=16, qk_nope_head_dim=32, v_head_dim=32,
+        first_k_dense_replace=1, max_position_embeddings=256))
+    with pytest.raises(NotImplementedError, match="latent"):
+        T.LLM(model=mla, device="cpu", kv_cache_quant="FP8", **LLM_KW)

@@ -189,7 +189,13 @@ def test_w4a8_route_is_decided_by_shape(K, N, n_groups, block_n, want):
 
 
 def test_other_linear_algorithms_still_raise():
+    """The 8-bit algorithms build since they were ported
+    (tests/test_torch_w8_linears.py): neither int4 nor W4A8 layers, they
+    refuse W4A8's parameters."""
     for algo in (QuantAlgo.W8A16, QuantAlgo.FP8,
                  QuantAlgo.W8A8_SQ_PER_CHANNEL):
-        with pytest.raises(NotImplementedError):
-            Linear(64, 64, QuantConfig(quant_algo=algo), "mlp")
+        lin = Linear(64, 64, QuantConfig(quant_algo=algo), "mlp")
+        assert lin.w8 and not (lin.w4 or lin.w4a8)
+        with pytest.raises(ValueError):
+            lin.load({"qweight": torch.zeros((32, 64), dtype=torch.uint8),
+                      "scales": torch.ones((1, 64))})
