@@ -423,6 +423,23 @@ DECODE_FP8_CASES = [
     ("tinyllama", 32, 4, 64, [81, 150, 400, 664], None, None, False),
     ("gpt-oss-20b", 64, 8, 64, [81, 150, 400, 664], 128, None, True),
 ]
+# Gemma-2-9B's attention (16/8 heads, D 256, logit cap 50) on K3/K4 and
+# their e4m3 and INT8 instances (each capped shape also uncapped, the
+# library's time: SDPA has no cap), and decodes at Qwen2.5-7B's group of 7
+# (28/4 heads) and at a group of 16 (the padded rows g + 8 of the kernel),
+# each over bf16, e4m3 and INT8 pages
+PREFILL_D256_CASES = [
+    ("gemma-2-9b", 16, 8, 256, 256, 256, None, 50.0, False),
+    ("gemma-2-9b", 16, 8, 256, 256, 256, None, None, False),
+]
+DECODE_D256_CASES = [
+    ("gemma-2-9b", 16, 8, 256, [320, 400, 1000, 4000], None, 50.0, False),
+    ("gemma-2-9b", 16, 8, 256, [320, 400, 1000, 4000], None, None, False),
+]
+DECODE_GROUP_CASES = [
+    ("qwen2.5-7b", 28, 4, 128, [320, 400, 1000, 4000], None, None, False),
+    ("group-16", 32, 2, 256, [81, 150, 400, 664], 128, 50.0, True),
+]
 # `decode_plan`'s split length must be within this share of the fastest
 # split length's time at every decode row (bf16, int8 and e4m3 pools)
 DECODE_PLAN_SLACK = 0.10
@@ -1240,9 +1257,14 @@ def check_w8_products(gen, dev):
     from tensorrt_llm_tpu_torch.layers.linear import Linear
     from tensorrt_llm_tpu_torch.quantization import QuantAlgo, QuantConfig
     out = []
-    for name, K, N in (("gate_up", 4096, 28672), ("down", 14336, 4096)):
+    for name, K, N, algos in (
+            ("gate_up", 4096, 28672, W8_ALGOS + ("W4A16",)),
+            ("down", 14336, 4096, W8_ALGOS + ("W4A16",)),
+            # K and N off the multiples of 8 `torch._int_mm` takes: the
+            # weight padded once at load (`pad_int_mm_weight`)
+            ("odd", 1001, 515, ("W8A8_SQ_PER_CHANNEL",))):
         w = torch.randn((K, N), generator=gen, device=dev) * K ** -0.5
-        for algo in W8_ALGOS + ("W4A16",):
+        for algo in algos:
             q = QuantConfig(quant_algo=QuantAlgo(algo), group_size=128)
             lin, cpu = Linear(K, N, q, "mlp"), Linear(K, N, q, "mlp")
             lin.from_float(w)
@@ -2312,13 +2334,22 @@ def report_tactics(phase, model, tuned_before):
     return rows
 
 
+def ring_layers(llm):
+    """The layers whose KV lives in VSWA rings (`ModelEngine.vswa`): they
+    attend through the plain ops, as the JAX package sends rings to XLA,
+    and launch no attention kernel."""
+    return (tuple(sorted(llm.kv_manager.sliding_layers))
+            if llm.engine.vswa else ())
+
+
 def assert_launches(cfg, counts, stats, required, absent=(), n_kpaired=0,
                     kv_cache_quant="NONE", kpaired_per_layer=0,
-                    ramp_per_layer=0):
+                    ramp_per_layer=0, rings=()):
     """Launches per layer per forward of a serve run, from the launch
     counts and the run's iteration stats: every kernel in `required` ran,
-    none in `absent`; every layer of every forward ran the attention
-    kernels (`attention_kernels`); every K-paired W4A16 linear K12 once
+    none in `absent`; every layer of every forward that is not a ring layer
+    (`rings`, `ring_layers`) ran the attention kernels
+    (`attention_kernels`); every K-paired W4A16 linear K12 once
     (`kpaired_per_layer` of them a layer); for W4A8, K8 for all four
     projections; every MoE layer K5 twice on units built once;
     `ramp_per_layer` K13 launches per layer.  Returns (prefill chunks,
@@ -2332,11 +2363,13 @@ def assert_launches(cfg, counts, stats, required, absent=(), n_kpaired=0,
     dsteps = sum(s["decode_steps"] for s in stats)
     fwd = chunks + dsteps
     L = cfg.num_layers
-    # every layer of every forward went through the attention kernels
+    # every layer of every forward but the ring layers went through the
+    # attention kernels
+    La = L - len(rings)
     prefill_k, decode_k = attention_kernels(cfg, kv_cache_quant)
     if prefill_k:
-        assert counts[prefill_k] == L * chunks, (counts, chunks)
-    assert counts[decode_k] == L * dsteps, (counts, dsteps)
+        assert counts.get(prefill_k, 0) == La * chunks, (counts, chunks)
+    assert counts.get(decode_k, 0) == La * dsteps, (counts, dsteps)
     # every K-paired W4A16 weight on K12, once per forward, nothing else
     assert counts.get("w4a16_kpaired", 0) == n_kpaired * fwd, \
         (counts, n_kpaired, fwd)
@@ -2437,7 +2470,9 @@ def serve_model(card, phase, label, cfg, required, absent=(),
                for o in outs]
         assert np.isfinite([v for r in lps for v in r]).all(), \
             "non-finite logprobs"
-        assert kv["reused_blocks"] > 0, kv
+        rings = ring_layers(llm)
+        # prefix reuse is off under rings (as in the JAX package)
+        assert kv["reused_blocks"] > 0 or rings, kv
         # a fresh salt: no reuse of run 1's blocks, so the same schedule
         again = [o.outputs[0].token_ids
                  for o in llm.generate(prompts, sp, cache_salt="run2")]
@@ -2455,7 +2490,7 @@ def serve_model(card, phase, label, cfg, required, absent=(),
     SERVE_TOKENS[phase] = (toks, lps)
     chunks, dsteps, fwd, prefill_k, decode_k = assert_launches(
         cfg, counts, stats, required, absent, n_kpaired, kv_cache_quant,
-        kpaired_per_layer, ramp_per_layer)
+        kpaired_per_layer, ramp_per_layer, rings)
     ttft = [o.metrics["ttft_s"] for o in outs]
     n_out = sum(len(t) for t in toks)
     gemms = sum(counts.get(k, 0)
@@ -2477,9 +2512,10 @@ def serve_model(card, phase, label, cfg, required, absent=(),
         "moe_gmm_per_forward": counts.get("moe_gmm", 0) / fwd,
         "w4a8_combine_per_forward": counts.get("w4a8_combine", 0) / fwd,
         "attention_kernels": [prefill_k, decode_k],
-        "prefill_attention_per_chunk": (counts[prefill_k] / chunks
+        "prefill_attention_per_chunk": (counts.get(prefill_k, 0) / chunks
                                         if prefill_k else None),
-        "decode_attention_per_step": counts[decode_k] / dsteps,
+        "decode_attention_per_step": counts.get(decode_k, 0) / dsteps,
+        "ring_layers": list(rings),
         "prompt_tokens": sum(len(p) for p in prompts),
         "sliding_windows": sorted(set(map(str, windows))),
         "peak_mem_gib": peak_gb, "kv_cache_quant": kv_cache_quant,
@@ -3107,6 +3143,85 @@ def fp8kv_ab(card):
     torch.cuda.empty_cache()
 
 
+GPTOSS_RINGS_AB_ORDER = ("off", "on", "on", "off")
+
+
+def gptoss_rings_ab(card):
+    """Opt-in: what VSWA rings cost GPT-OSS-20B (12 layers, window 128 on
+    every other layer) against full pools (`kv_separate_window_pools`
+    False: its sliding layers on K3/K4 with prefix reuse).  The `gptoss`
+    serve mix (8 greedy requests, two sharing a 300-token prefix, 64 new
+    each) on two `LLM`s of one seed's weights, timed in the order of
+    `GPTOSS_RINGS_AB_ORDER`, each run under its own cache salt (reuse
+    within the run only): tokens/s, launches, reused blocks, how many
+    requests give the other pool kind's greedy tokens, and where the
+    others first differ (`_near_ties` on the full pools' rows)."""
+    import numpy as np
+    import torch
+    import tensorrt_llm_tpu_torch as T
+    from tensorrt_llm_tpu_torch.ops import cuda_build
+    n = GPT_OSS_LAYERS
+    kw = dict(skip_tokenizer_init=True, device=DEVICE, max_batch_size=4,
+              max_num_tokens=256, max_seq_len=1024, kv_block_size=16,
+              kv_num_blocks=640, seed=0)
+    llms = {"on": T.LLM(model=gpt_oss_cfg(n), **kw),
+            "off": T.LLM(model=gpt_oss_cfg(n), kv_separate_window_pools=False,
+                         **kw)}
+    assert llms["on"].engine.vswa and not llms["off"].engine.vswa
+    rng = np.random.default_rng(0)
+    V = llms["on"].model_config.vocab_size
+
+    def ids(m):
+        return [int(t) for t in rng.integers(10, V - 10, m)]
+
+    shared = ids(300)
+    prompts = [shared + ids(20), shared + ids(45)]
+    prompts += [ids(m) for m in (17, 64, 200, 333, 480, 600)]
+    sp = T.SamplingParams(max_tokens=64, temperature=0.0, ignore_eos=True)
+    res = {"card": card, "model": f"gpt-oss-20b W4A16 g64 ({n} layers)",
+           "runs": []}
+    toks = {}
+    try:
+        for i, mode in enumerate(GPTOSS_RINGS_AB_ORDER):
+            llm = llms[mode]
+            it0 = llm.executor.iteration
+            reused0 = llm.get_kv_cache_stats()["reused_blocks"]
+            cuda_build.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            outs = llm.generate(prompts, sp, cache_salt=f"ab{i}")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = dict(cuda_build.launch_counts)
+            st = [x for x in llm.get_stats() if x["iteration"] > it0]
+            toks[mode] = [o.outputs[0].token_ids for o in outs]
+            res["runs"].append({
+                "rings": mode, "wall_s": wall,
+                "tokens_per_s": sum(len(t) for t in toks[mode]) / wall,
+                "decode_steps": sum(x["decode_steps"] for x in st),
+                "prefill_chunks": sum(x["num_prefill_chunks"] for x in st),
+                "reused_blocks": (llm.get_kv_cache_stats()["reused_blocks"]
+                                  - reused0),
+                "flash_prefill": counts.get("flash_prefill", 0),
+                "paged_decode": counts.get("paged_decode", 0)})
+        # each differing request's first difference, judged on the full
+        # pools' rows (recorded, not held: an MoE routing near-tie upstream
+        # moves the logits by more than the attention's rounding)
+        res["same_greedy_requests"], res["first_differences"] = _near_ties(
+            llms["off"], prompts, toks["off"], toks["on"], tie=GEMMA2_TIE,
+            salt="rings-ab-tie")
+    finally:
+        for llm in llms.values():
+            llm.shutdown()
+    for mode in ("on", "off"):
+        res[f"mean_tokens_per_s_{mode}"] = float(np.mean(
+            [r["tokens_per_s"] for r in res["runs"] if r["rings"] == mode]))
+    PHASES["gptoss_rings_ab"] = res
+    log(json.dumps({"gptoss_rings_ab": res}))
+    del llms
+    torch.cuda.empty_cache()
+
+
 # ------------------------------------------------------ phase 17: checkpoints --
 # TinyLlama-1.1B's published config.json
 # (huggingface.co/TinyLlama/TinyLlama-1.1B-Chat-v1.0), model-structure keys
@@ -3681,7 +3796,9 @@ def bench_timed(llm, reqs, cfg, n_kpaired, checked):
         required += ["moe_gmm", "moe_gmm_units", "w4a16_kpaired"]
     chunks, dsteps, fwd, _, _ = assert_launches(
         cfg, counts, stats, required, n_kpaired=n_kpaired,
-        kpaired_per_layer=1 if cfg.num_experts else 0)
+        kpaired_per_layer=1 if cfg.num_experts else 0,
+        rings=ring_layers(llm))
+    rep["ring_layers"] = list(ring_layers(llm))
     rep["prefill_chunks"], rep["decode_steps"] = chunks, dsteps
     rep["decode_chunks"] = sum(1 for s in stats if s["decode_steps"])
     rep["max_inflight_chunks"] = max(s["inflight_chunks"] for s in stats)
@@ -3880,14 +3997,16 @@ def bench_phase(card, gen, dev, by_path):
 
 # the Llama bench presets cut to 2 layers against the CPU (TinyLlama's and
 # GPT-OSS's widths are phase 7's and `gptoss_cross`'s): (preset, seed)
-BENCH_CROSS = (("llama-3-8b", 8), ("llama-2-7b", 9))
+# Llama-2-7B's row (20.8 s) went to pay for the `gemma2`, `plain_route`
+# and `check_d256` phases
+BENCH_CROSS = (("llama-3-8b", 8),)
 
 
 def bench_cross():
-    """Phase 19: the Llama-3-8B and Llama-2-7B bench presets' widths
-    (`MODEL_SHAPES`) at 2 layers, W4A16 g128, on the card against the
-    CPU's plain versions (`cross_check_cpu`: a 200-token prompt in chunks
-    of 128, then 4 decode steps)."""
+    """Phase 19: the `BENCH_CROSS` bench presets' widths (`MODEL_SHAPES`)
+    at 2 layers, W4A16 g128, on the card against the CPU's plain versions
+    (`cross_check_cpu`: a 200-token prompt in chunks of 128, then 4 decode
+    steps)."""
     from tensorrt_llm_tpu_torch.commands import bench
     for preset, seed in BENCH_CROSS:
         t0 = time.perf_counter()
@@ -5018,9 +5137,9 @@ def _disagg_overlap(front, fport, ctx, gen, prompt):
         marks["received"].append(time.perf_counter())
         return real_read(data)
 
-    def timed_inject(ids, layers):
+    def timed_inject(*args):
         marks["injected"].append(time.perf_counter())
-        return inject(ids, layers)
+        return inject(*args)
 
     def timed_prefill(inputs):
         out = prefill(inputs)
@@ -6027,6 +6146,232 @@ def beam_lora_phase(card, by_path):
         f"({card})")
 
 
+# ------------------------------------------------------------ gemma2 ---
+GEMMA2_PATH = "serve_gemma2"   # Gemma-2-9B widths: K1/K2, K3/K4 at D 256
+GEMMA2_LAYERS = 8              # of 42 (the script's time limit): 4 global
+GEMMA2_LONG_PROMPT = 5000      # past the 4,096-token window: rings wrap
+GEMMA2_NEW = 32                # greedy tokens a request
+GEMMA2_TIE = 0.02              # logprob gap accepted at a greedy near-tie
+GEMMA2_SEQ_LEN = 8192
+
+
+def gemma2_cfg(num_layers):
+    """Gemma-2-9B's published widths (`models.GEMMA2_9B`) at `num_layers`,
+    W4A16 group 128."""
+    from tensorrt_llm_tpu_torch.models import GEMMA2_9B, ModelConfig
+    from tensorrt_llm_tpu_torch.quantization import QuantAlgo, QuantConfig
+    return ModelConfig.from_hf_config(
+        dict(GEMMA2_9B["hf_config"], num_hidden_layers=num_layers),
+        quant=QuantConfig(quant_algo=QuantAlgo.W4A16, group_size=128))
+
+
+class PlainKernels:
+    """Within it, every kernel of a GQA W4A16 serve path runs its plain
+    version on the card: the W4A16 linears (`w4a16_matmul_plain`, the
+    dequantized bf16 weight in an f32 product) and the attention kernels
+    (`paged_prefill_plain` / `paged_decode_plain`)."""
+
+    def __enter__(self):
+        from tensorrt_llm_tpu_torch.attention_backend import cuda_backend
+        from tensorrt_llm_tpu_torch.layers import linear
+        from tensorrt_llm_tpu_torch.ops import attention_plain as AP
+        from tensorrt_llm_tpu_torch.ops.w4a16_gemm import w4a16_matmul_plain
+
+        def w4(x, packed, scales, zeros=None, bias=None, activation=None,
+               out_dtype=None, **_):
+            lead, K = x.shape[:-1], x.shape[-1]
+            out = w4a16_matmul_plain(x.reshape(-1, K), packed, scales, zeros,
+                                     bias, activation, out_dtype)
+            return out.reshape(*lead, out.shape[-1])
+
+        self.mods = (linear, cuda_backend)
+        self.saved = (linear.w4a16_matmul,
+                      cuda_backend.flash_prefill_attention,
+                      cuda_backend.paged_decode_attention)
+        linear.w4a16_matmul = w4
+        cuda_backend.flash_prefill_attention = AP.paged_prefill_plain
+        cuda_backend.paged_decode_attention = AP.paged_decode_plain
+        return self
+
+    def __exit__(self, *exc):
+        linear, cuda_backend = self.mods
+        (linear.w4a16_matmul, cuda_backend.flash_prefill_attention,
+         cuda_backend.paged_decode_attention) = self.saved
+        return False
+
+
+def _gemma2_run(llm, prompts, sp):
+    """One greedy run with the launch counters reset just before and read
+    just after: (tokens, counts, iteration stats, wall seconds)."""
+    import torch
+    from tensorrt_llm_tpu_torch.ops import cuda_build
+    it0 = llm.executor.iteration
+    cuda_build.reset_launch_counts()
+    t0 = time.perf_counter()
+    outs = llm.generate(prompts, sp)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(cuda_build.launch_counts)
+    stats = [s for s in llm.get_stats() if s["iteration"] > it0]
+    toks = [o.outputs[0].token_ids for o in outs]
+    assert all(len(t) == GEMMA2_NEW for t in toks), [len(t) for t in toks]
+    return toks, counts, stats, wall
+
+
+def gemma2_phase(card, by_path):
+    """Gemma-2-9B widths (vocab 256,000, hidden 3,584, 16/8 heads of 256,
+    softcaps 50 and 30, `query_pre_attn_scalar` 256, window 4,096 on every
+    other layer) at `GEMMA2_LAYERS` layers, W4A16 g128, `max_seq_len`
+    8,192 so that the four sliding layers keep VSWA rings: four greedy
+    requests through `LLM.generate`, one of `GEMMA2_LONG_PROMPT` tokens
+    (its rings wrap), `GEMMA2_NEW` tokens each.  K3/K4 run at D 256 exactly
+    once per global layer and forward and never on a ring layer; the
+    tokens equal those of the same weights served with every kernel
+    replaced by its plain version on the card (`PlainKernels`), and those
+    of the same weights on full pools (`kv_separate_window_pools` False:
+    every layer on K3/K4, the sliding ones with their window), or differ
+    first at a near-tie (`GEMMA2_TIE`)."""
+    import numpy as np
+    import torch
+    import tensorrt_llm_tpu_torch as T
+    n = GEMMA2_LAYERS
+    kw = dict(skip_tokenizer_init=True, device=DEVICE, max_batch_size=4,
+              max_num_tokens=512, max_seq_len=GEMMA2_SEQ_LEN,
+              kv_block_size=16, kv_num_blocks=768, seed=0,
+              load_format="dummy")
+    t0 = time.perf_counter()
+    llm = T.LLM(model=gemma2_cfg(n), **kw)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    cfg = llm.model_config
+    rings = ring_layers(llm)
+    log(f"[gemma2] gemma-2-9b widths W4A16 g128 ({n} layers, ring layers "
+        f"{list(rings)}), built and warmed up in {build_s:.1f} s; {card}")
+    assert rings == tuple(range(0, n, 2)), rings
+    rng = np.random.default_rng(9)
+    V = cfg.vocab_size
+    prompts = [[int(t) for t in rng.integers(10, V - 10, m)]
+               for m in (GEMMA2_LONG_PROMPT, 300, 57, 1200)]
+    sp = T.SamplingParams(max_tokens=GEMMA2_NEW, temperature=0.0,
+                          ignore_eos=True)
+    plain = None
+    try:
+        toks, counts, stats, wall = _gemma2_run(llm, prompts, sp)
+        chunks, dsteps, fwd, pk, dk = assert_launches(
+            cfg, counts, stats, ("w4a16_gemm", "flash_prefill",
+                                 "paged_decode"), rings=rings)
+        assert pk == "flash_prefill" and dk == "paged_decode"
+        with PlainKernels():
+            plain = T.LLM(model=gemma2_cfg(n), enable_warmup=False, **kw)
+            ptoks, pcounts, _, pwall = _gemma2_run(plain, prompts, sp)
+        assert not pcounts, f"plain run launched kernels: {pcounts}"
+        plain.shutdown()
+        # the same weights on full pools: the sliding layers on K3/K4 with
+        # their window, every layer once per forward
+        plain = T.LLM(model=gemma2_cfg(n), kv_separate_window_pools=False,
+                      enable_warmup=False, **kw)
+        assert not plain.engine.vswa
+        ftoks, fcounts, fstats, fwall = _gemma2_run(plain, prompts, sp)
+        assert_launches(cfg, fcounts, fstats, ("w4a16_gemm", "flash_prefill",
+                                               "paged_decode"))
+        plain.shutdown()
+        plain = None
+        exact, ties = _near_ties(llm, prompts, ptoks, toks, tie=GEMMA2_TIE,
+                                 salt="gemma2-tie")
+        fexact, fties = _near_ties(llm, prompts, ftoks, toks,
+                                   tie=GEMMA2_TIE, salt="gemma2-full-tie")
+        res = {"phase": "gemma2", "model": f"gemma-2-9b widths, {n} layers",
+               "card": card, "build_s": build_s, "ring_layers": list(rings),
+               "ring_blocks": llm.kv_manager.ring_blocks,
+               "ring_slots": llm.kv_manager.ring_slots,
+               "prompt_tokens": [len(p) for p in prompts],
+               "prefill_chunks": chunks, "decode_steps": dsteps,
+               "launches": counts,
+               "prefill_attention_per_chunk": counts[pk] / chunks,
+               "decode_attention_per_step": counts[dk] / dsteps,
+               "wall_s": wall, "plain_wall_s": pwall,
+               "tokens_per_s": len(prompts) * GEMMA2_NEW / wall,
+               "exact_requests": exact, "near_ties": ties,
+               "full_pools": {"launches": fcounts, "wall_s": fwall,
+                              "exact_requests": fexact,
+                              "near_ties": fties}}
+    finally:
+        llm.shutdown()
+        if plain is not None:
+            plain.shutdown()
+    PHASES["gemma2"] = res
+    log(json.dumps(res))
+    by_path[GEMMA2_PATH] = counts
+    assert all(t["near_tie"] for t in ties), ties
+    assert all(t["near_tie"] for t in fties), fties
+    del llm
+    torch.cuda.empty_cache()
+    return counts
+
+
+# the plain route on the card: a head dim that is not lane-aligned (96) and
+# Llama4's chunked attention over rings (unquantized linears, so that a
+# kernel launch of any kind would show)
+PLAIN_ROUTE_SHAPES = {
+    "d96": dict(vocab_size=1000, hidden_size=768, intermediate_size=1536,
+                num_layers=2, num_heads=8, num_kv_heads=2, head_dim=96,
+                max_position=1024),
+    "attention_chunk": dict(vocab_size=1000, hidden_size=512,
+                            intermediate_size=1024, num_layers=2,
+                            num_heads=4, num_kv_heads=2, head_dim=128,
+                            max_position=1024, attention_chunk_size=64)}
+PLAIN_ROUTE_TIE = 0.02
+
+
+def plain_route_phase(card):
+    """Each `PLAIN_ROUTE_SHAPES` model served on the card and on the CPU
+    from the same weights (3 greedy requests of 24 tokens, prompts past
+    the chunk): the card launches no kernel at all, and its tokens equal
+    the CPU's, or differ first at a near-tie the CPU's logits show
+    (`PLAIN_ROUTE_TIE`)."""
+    import numpy as np
+    import torch
+    import tensorrt_llm_tpu_torch as T
+    from tensorrt_llm_tpu_torch.models import ModelConfig
+    from tensorrt_llm_tpu_torch.ops import cuda_build
+    out = {}
+    for name, shape in PLAIN_ROUTE_SHAPES.items():
+        kw = dict(skip_tokenizer_init=True, max_batch_size=4,
+                  max_num_tokens=128, max_seq_len=512, kv_block_size=16,
+                  kv_num_blocks=128, seed=3, load_format="dummy")
+        card_llm = T.LLM(model=ModelConfig(**shape), device=DEVICE, **kw)
+        state = {k: v.cpu() for k, v in card_llm.model.state().items()}
+        cpu_llm = T.LLM(model=ModelConfig(**shape), device="cpu",
+                        params=state, kv_bookkeeping="python",
+                        **{k: v for k, v in kw.items()
+                           if k != "load_format"})
+        try:
+            rng = np.random.default_rng(5)
+            prompts = [[int(t) for t in rng.integers(10, 990, m)]
+                       for m in (200, 90, 31)]
+            sp = T.SamplingParams(max_tokens=24, temperature=0.0,
+                                  ignore_eos=True)
+            cuda_build.reset_launch_counts()
+            got = [o.outputs[0].token_ids
+                   for o in card_llm.generate(prompts, sp)]
+            torch.cuda.synchronize()
+            counts = dict(cuda_build.launch_counts)
+            want = [o.outputs[0].token_ids
+                    for o in cpu_llm.generate(prompts, sp)]
+            exact, ties = _near_ties(cpu_llm, prompts, want, got,
+                                     tie=PLAIN_ROUTE_TIE, salt="route-tie")
+            out[name] = {"rings": card_llm.engine.vswa, "launches": counts,
+                         "exact_requests": exact, "near_ties": ties}
+        finally:
+            card_llm.shutdown()
+            cpu_llm.shutdown()
+        assert not counts, f"{name}: the plain route launched {counts}"
+        assert all(t["near_tie"] for t in ties), (name, ties)
+    assert out["attention_chunk"]["rings"]
+    PHASES["plain_route"] = dict(out, card=card)
+    log(json.dumps({"phase": "plain_route", **out}))
+
+
 SERVE_PATH = "serve"                    # TinyLlama W4A16: K1-K4, K13
 GPT_OSS_PATH = "serve_gpt_oss"          # GPT-OSS-20B: K1, K3-K5, K12
 LLAMA3_W4A8_PATH = "serve_llama3_w4a8"  # slice 3's path: K6-K8 run there
@@ -6048,15 +6393,18 @@ KERNELS = {
     "w4a16_gemv": ("cuda", "tensorrt_llm_tpu_torch/csrc/w4a16_gemv.cu",
                    "tensorrt_llm_tpu/ops/w4a16_gemm.py:560", STREAM_PATH,
                    {"model": "tinyllama", "M": 4, "K": 5632, "N": 2048}),
+    # GPT-OSS-20B's global layers (sinks, no window): its sliding layers
+    # keep VSWA rings and take the plain route
     "flash_prefill": ("cuda",
                       "tensorrt_llm_tpu_torch/csrc/flash_prefill_sm90.cu",
                       "tensorrt_llm_tpu/ops/flash_prefill.py:282",
                       GPT_OSS_PATH,
-                      {"model": "gpt-oss-20b", "T": 256, "q_offset": 128,
-                       "window": 128}),
-    "paged_decode": ("cuda", "tensorrt_llm_tpu_torch/csrc/paged_decode.cu",
+                      {"model": "gpt-oss-20b", "T": 256, "q_offset": 256,
+                       "window": None}),
+    "paged_decode": ("cuda", "tensorrt_llm_tpu_torch/csrc/paged_decode.cuh",
                      "tensorrt_llm_tpu/ops/paged_attention.py:516",
-                     GPT_OSS_PATH, {"model": "gpt-oss-20b", "window": 128}),
+                     GPT_OSS_PATH, {"model": "gpt-oss-20b", "window": None,
+                                    "kv_lens": [81, 150, 400, 664]}),
     # the D=128 bodies of K3 and K4 run in the same kernels: Llama-3-8B
     # served over HTTP
     "flash_prefill@d128": ("cuda",
@@ -6065,10 +6413,24 @@ KERNELS = {
                            OPENAI_PATH,
                            {"model": "llama-3-8b", "T": 256,
                             "q_offset": 256}),
-    "paged_decode@d128": ("cuda", "tensorrt_llm_tpu_torch/csrc/paged_decode.cu",
+    "paged_decode@d128": ("cuda", "tensorrt_llm_tpu_torch/csrc/paged_decode.cuh",
                           "tensorrt_llm_tpu/ops/paged_attention.py:40",
                           OPENAI_PATH, {"model": "llama-3-8b",
                                         "kv_lens": [320, 400, 1000, 4000]}),
+    # the D=256 bodies on the Gemma-2 serve path's global layers, at the
+    # shape it serves (16/8 heads, logit cap 50; SDPA has no cap, so the
+    # row's library time is null and the uncapped times stand beside it)
+    "flash_prefill@d256": ("cuda",
+                           "tensorrt_llm_tpu_torch/csrc/flash_prefill_sm90.cu",
+                           "tensorrt_llm_tpu/ops/flash_prefill.py:39",
+                           GEMMA2_PATH,
+                           {"model": "gemma-2-9b", "T": 256,
+                            "q_offset": 256, "logit_cap": 50.0}),
+    "paged_decode@d256": ("cuda", "tensorrt_llm_tpu_torch/csrc/paged_decode.cuh",
+                          "tensorrt_llm_tpu/ops/paged_attention.py:40",
+                          GEMMA2_PATH, {"model": "gemma-2-9b",
+                                        "kv_lens": [320, 400, 1000, 4000],
+                                        "logit_cap": 50.0}),
     # GPT-OSS-20B gate_up at decode: 4 requests x top-4 rows
     "moe_gmm": ("cuda", "tensorrt_llm_tpu_torch/csrc/moe_gmm.cu",
                 "tensorrt_llm_tpu/ops/moe_w4a16.py:78", GPT_OSS_PATH,
@@ -6081,7 +6443,7 @@ KERNELS = {
                           "tensorrt_llm_tpu/ops/flash_prefill.py:282",
                           TINYLLAMA_FP8_PATH,
                           {"model": "tinyllama", "T": 256, "q_offset": 256}),
-    "paged_decode_fp8": ("cuda", "tensorrt_llm_tpu_torch/csrc/paged_decode.cu",
+    "paged_decode_fp8": ("cuda", "tensorrt_llm_tpu_torch/csrc/paged_decode.cuh",
                          "tensorrt_llm_tpu/ops/paged_attention.py:516",
                          TINYLLAMA_FP8_PATH, {"model": "tinyllama"}),
     "flash_prefill_fp8@d128": ("cuda",
@@ -6092,13 +6454,13 @@ KERNELS = {
                                {"model": "llama-3-8b", "T": 256,
                                 "q_offset": 256}),
     "paged_decode_fp8@d128": ("cuda",
-                              "tensorrt_llm_tpu_torch/csrc/paged_decode.cu",
+                              "tensorrt_llm_tpu_torch/csrc/paged_decode.cuh",
                               "tensorrt_llm_tpu/ops/paged_attention.py:40",
                               LLAMA3_FP8_PATH,
                               {"model": "llama-3-8b",
                                "kv_lens": [320, 400, 1000, 4000]}),
     "paged_decode_int8": ("cuda",
-                          "tensorrt_llm_tpu_torch/csrc/paged_decode.cu",
+                          "tensorrt_llm_tpu_torch/csrc/paged_decode.cuh",
                           "tensorrt_llm_tpu/ops/paged_attention.py:174",
                           LLAMA3_W4A8_PATH,
                           {"model": "llama-3-8b",
@@ -6146,14 +6508,23 @@ KERNELS = {
 def kernels_line(by_path):
     """`launches` is each kernel's count in its own serve path's run;
     `launches_by_path` gives every serve path's count apart.  A row named
-    ``kernel@variant`` is another TPU body that the same kernel serves."""
+    ``kernel@variant`` is another TPU body that the same kernel serves.
+    A row at a logit cap also gives the uncapped shape's kernel and
+    library (SDPA) times, ``uncapped_ms`` and ``uncapped_library_ms``."""
     out = []
     for name, (route, src, replaces, path, head) in KERNELS.items():
         kernel = name.split("@")[0]
         rows = [r for r in RESULTS if r["kernel"] == kernel]
-        hit = [r for r in rows
-               if all(r["shape"].get(k) == v for k, v in head.items())]
-        h = hit[0]
+
+        def match(want):
+            return [r for r in rows
+                    if all(r["shape"].get(k) == v for k, v in want.items())]
+        h = match(head)[0]
+        extra = {}
+        if head.get("logit_cap"):
+            u = match(dict(head, logit_cap=None))[0]
+            extra = {"uncapped_ms": u["kernel_ms"],
+                     "uncapped_library_ms": u["library_ms"]}
         out.append({"name": name, "route": route, "source": src,
                     "replaces": replaces, "path": path,
                     "launches": by_path[path].get(kernel, 0),
@@ -6163,7 +6534,8 @@ def kernels_line(by_path):
                                        for r in rows),
                     "ms": h["kernel_ms"], "plain_ms": h["plain_ms"],
                     "bound_ms": h["bound_ms"], "bound_by": h["bound_by"],
-                    "library_ms": h["library_ms"], "shape": h["shape"]})
+                    "library_ms": h["library_ms"], "shape": h["shape"],
+                    **extra})
     return {"kernels": out}
 
 
@@ -6195,7 +6567,8 @@ def main() -> int:
     # K2's and K4/K6's -Xptxas -v lines, from the build's kept logs (also
     # when this run loaded an existing build)
     logs = cuda_build.build_logs()
-    for src in ("w4a16_gemv.cu", "paged_decode.cu"):
+    for src in ("w4a16_gemv.cu", "paged_decode.cu", "paged_decode_fp8.cu",
+                "paged_decode_int8.cu"):
         for line in logs.get(src, "").splitlines():
             if any(w in line for w in ("registers", "spill", "entry")):
                 log(f"  [ptxas {src}] {line.strip()}")
@@ -6221,7 +6594,8 @@ def main() -> int:
                       "gptoss_cross", "llama3_w4a8", "llama3_w4a8_cross",
                       "llama3_fp8", "tinyllama_fp8kv", "quant8_cross",
                       "deepseek", "deepseek_v32", "deepseek_v3_width",
-                      "deepseek_cross", "checkpoint", "sampling", "openai",
+                      "deepseek_cross", "gemma2", "plain_route",
+                      "checkpoint", "sampling", "openai",
                       "disagg", "spec", "beam_lora", "bench",
                       "bench_cross"]
     by_path = {}      # each serve path's own launch counts
@@ -6292,6 +6666,11 @@ def run_phases(phases, card, gen, dev, by_path):
         check_prefill(gen, dev, PREFILL_FP8_CASES, kind="fp8")
         check_decode(gen, dev, DECODE_FP8_CASES, kind="fp8")
         check_w8_products(gen, dev)
+    if on("check", "check_d256"):
+        for kind in ("bf16", "fp8", "int8"):
+            check_prefill(gen, dev, PREFILL_D256_CASES, kind=kind)
+            check_decode(gen, dev, DECODE_D256_CASES, kind=kind)
+            check_decode(gen, dev, DECODE_GROUP_CASES, kind=kind)
     if on("check", "check_mla"):
         check_mla(gen, dev)
         check_mla_splits(gen, dev)
@@ -6404,6 +6783,10 @@ def run_phases(phases, card, gen, dev, by_path):
                         "deepseek-v3.2 width, 2 layers (index_topk 2048 "
                         "covers the context)", deepseek_cfg(2), seed=7,
                         n_prompt=200, chunk=128, n_decode=4)
+    if on("gemma2"):
+        gemma2_phase(card, by_path)
+    if on("plain_route"):
+        plain_route_phase(card)
     if on("checkpoint"):
         checkpoint_phase(card, by_path)
     if on("sampling"):
@@ -6452,6 +6835,8 @@ def run_phases(phases, card, gen, dev, by_path):
                       kv_cache_quant="FP8")
     if on("fp8kv_ab"):
         fp8kv_ab(card)
+    if on("gptoss_rings_ab"):
+        gptoss_rings_ab(card)
     if on("profile_gptoss"):
         profile_serve(card, "profile_gptoss", gpt_oss_cfg(GPT_OSS_LAYERS))
     if on("profile_llama3_int8"):

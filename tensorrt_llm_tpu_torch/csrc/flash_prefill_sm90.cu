@@ -14,8 +14,8 @@
 // pages the K scale multiplies the logits, the V scale the probabilities
 // before they are rounded to bf16 for P V (the row sums stay unscaled);
 // causal mask, sliding window, logit cap (tanh) and sinks (a per-head
-// logit that joins the softmax denominator once), at D 64 and 128, with
-// GQA.
+// logit that joins the softmax denominator once), at D 64, 128 and 256,
+// with GQA (any group).
 //
 // What bounds it on the H100: tensor-core operations once the chunk reaches
 // a few hundred tokens (~4*T*S*Hq*D against S*Hkv*(2D + 8) bytes of KV),
@@ -70,6 +70,12 @@
 //   transpose bit (MN-major: no element-wise transpose).
 // * KV tiles wholly past the causal edge of the block's last row, or
 //   wholly before the sliding window of its first row, are skipped.
+// * D 256: Q as registers (64 a thread) and all of O (128) would pass the
+//   232 registers a consumer gets, so the two warpgroups split O's columns
+//   instead of the tiles: both take every tile, each computes the whole S
+//   (the same softmax in both) and its 128 columns of P V, and no merge is
+//   left at the end.  1-byte pages are converted once, by both warpgroups,
+//   into one pair of bf16 tiles; a stage is freed by the eight warps.
 #include <math.h>
 
 #include <type_traits>
@@ -95,7 +101,14 @@ struct FpCfg {
   static constexpr bool B1 = sizeof(KV) == 1;
   // int8 pages carry f32 scales; e4m3 pages none
   static constexpr bool SC = std::is_same<KV, int8_t>::value;
-  static constexpr int STAGES = B1 ? 4 : (D == 64 ? 8 : 6);   // ring stages
+  // D 256: the warpgroups split O's columns (OD each) and share every tile
+  static constexpr bool COLS = D == 256;
+  static constexpr int OD = COLS ? D / FP_WG : D;
+  // ring stages (with COLS both warpgroups read each stage in order, so
+  // any count keeps a waiter within one phase of its barrier)
+  static constexpr int STAGES = B1 ? 4 : (D == 64 ? 8 : D == 128 ? 6 : 3);
+  // warps that free a stage
+  static constexpr int FREERS = COLS ? FP_WG * 4 : 4;
   static constexpr int BOX = FP_TK * 64;            // 32 bf16 of 64 tokens
   static constexpr int TILE16 = D / 32 * BOX;       // a bf16 tile
   static constexpr int KV_BYTES = FP_TK * D * (int)sizeof(KV);
@@ -106,8 +119,9 @@ struct FpCfg {
   static constexpr int WG_BYTES = B1 ? 2 * TILE16 + 2 * FP_TK * 4 : 0;
   // those of each warpgroup, the ring, its barriers, and slack to align
   // the base to 1 KB
+  static constexpr int TILE_SETS = COLS ? 1 : FP_WG;
   static constexpr int SMEM =
-      FP_WG * WG_BYTES + STAGES * STAGE + 2 * STAGES * 8 + 1024;
+      TILE_SETS * WG_BYTES + STAGES * STAGE + 2 * STAGES * 8 + 1024;
   static_assert(SMEM <= 232448, "flash prefill's shared memory");
 };
 
@@ -161,7 +175,7 @@ __global__ void __launch_bounds__(FP_THREADS, 1) flash_prefill_sm90_kernel(
   // offsets of the shared array itself, so that the compiler keeps its
   // address space (shared, not generic, loads and stores)
   uint8_t* base = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
-  uint8_t* ring = base + FP_WG * C::WG_BYTES;
+  uint8_t* ring = base + C::TILE_SETS * C::WG_BYTES;
   uint64_t* full = reinterpret_cast<uint64_t*>(ring + FP_STAGES * C::STAGE);
   uint64_t* empty = full + FP_STAGES;
 
@@ -182,7 +196,7 @@ __global__ void __launch_bounds__(FP_THREADS, 1) flash_prefill_sm90_kernel(
   if (threadIdx.x == 0) {
     for (int s = 0; s < FP_STAGES; ++s) {
       mbar_init(&full[s], 32);    // the producer's lanes
-      mbar_init(&empty[s], 4);    // the warps of the warpgroup that used it
+      mbar_init(&empty[s], C::FREERS);   // the warps that used it
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
@@ -288,7 +302,13 @@ __global__ void __launch_bounds__(FP_THREADS, 1) flash_prefill_sm90_kernel(
   const int wg = warp >> 2, wl = warp & 3;
   const int tid = threadIdx.x & 127;
   const int g = lane >> 2, t = lane & 3;
-  uint8_t* kb = base + wg * C::WG_BYTES;   // bf16 K tile, swizzled boxes
+  constexpr bool COLS = C::COLS;
+  constexpr int OD = C::OD;   // O's columns this warpgroup owns
+  // the 1-byte path's conversion: this warpgroup's own tiles, or with COLS
+  // one pair for both (barrier 1 among the 256 consumer threads)
+  const int cv_bar = COLS ? 1 : 1 + wg, cv_n = COLS ? FP_WG * 128 : 128;
+  const int cv_tid = COLS ? (int)threadIdx.x : tid;
+  uint8_t* kb = base + (COLS ? 0 : wg) * C::WG_BYTES;   // bf16 K tile
   uint8_t* vb = kb + C::TILE16;            // bf16 V tile, likewise
   float* ksc = reinterpret_cast<float*>(vb + C::TILE16);
   float* vsc = ksc + FP_TK;
@@ -314,22 +334,22 @@ __global__ void __launch_bounds__(FP_THREADS, 1) flash_prefill_sm90_kernel(
     }
 
   constexpr float LOG2E = 1.4426950408889634f;
-  float o[D / 2];
+  float o[OD / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  for (int i = 0; i < OD / 2; ++i) o[i] = 0.f;
   float m_r[2] = {-INFINITY, -INFINITY};   // running max, base 2
   float l_r[2] = {0.f, 0.f};
   uint32_t pa[FP_TK / 16][4];
   const uint32_t kb_s = smem_u32(kb), vb_s = smem_u32(vb);
 
-  for (int i = wg; t_begin + i < t_end; i += FP_WG) {
+  for (int i = COLS ? 0 : wg; t_begin + i < t_end; i += COLS ? 1 : FP_WG) {
     const int s0 = (t_begin + i) * FP_TK;
     const int slot = i % FP_STAGES;
     mbar_wait(&full[slot], (i / FP_STAGES) & 1);
     const uint8_t* stage = ring + slot * C::STAGE;
     if constexpr (C::B1) {
       // the previous tile's wgmmas have read the bf16 tiles in every warp
-      named_sync(1 + wg, 128);
+      named_sync(cv_bar, cv_n);
       // 1-byte [token][D] -> bf16 boxes of 32 values, 64-byte rows, the
       // 16-byte chunk c of row r at chunk c ^ ((r >> 1) & 3)
 #pragma unroll
@@ -337,7 +357,7 @@ __global__ void __launch_bounds__(FP_THREADS, 1) flash_prefill_sm90_kernel(
         const uint8_t* src = stage + kv * C::KV_BYTES;
         uint8_t* dst = kv ? vb : kb;
 #pragma unroll
-        for (int i = tid; i < FP_TK * D / 16; i += 128) {
+        for (int i = cv_tid; i < FP_TK * D / 16; i += cv_n) {
           const int tok = i / (D / 16), c = i % (D / 16);
           const uint4 w =
               *reinterpret_cast<const uint4*>(src + tok * D + 16 * c);
@@ -359,14 +379,17 @@ __global__ void __launch_bounds__(FP_THREADS, 1) flash_prefill_sm90_kernel(
         // rest of the last page (or nothing)
         const float* sc =
             reinterpret_cast<const float*>(stage + 2 * C::KV_BYTES);
-        const float v = s0 + (tid & (FP_TK - 1)) < kv_len ? sc[tid] : 0.f;
-        if (tid < FP_TK) ksc[tid] = v;
-        else vsc[tid - FP_TK] = v;
+        if (cv_tid < 2 * FP_TK) {
+          const float v =
+              s0 + (cv_tid & (FP_TK - 1)) < kv_len ? sc[cv_tid] : 0.f;
+          if (cv_tid < FP_TK) ksc[cv_tid] = v;
+          else vsc[cv_tid - FP_TK] = v;
+        }
       }
       fence_proxy_async();
       __syncwarp();
       if (lane == 0) mbar_arrive(&empty[slot]);
-      named_sync(1 + wg, 128);
+      named_sync(cv_bar, cv_n);
     }
     // bf16 pages: the stage's K and V, as TMA left them
     const uint32_t ks_s = smem_u32(stage), vs_s = ks_s + C::KV_BYTES;
@@ -430,7 +453,7 @@ __global__ void __launch_bounds__(FP_THREADS, 1) flash_prefill_sm90_kernel(
       m_r[hh] = m_new;
     }
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
+    for (int j = 0; j < OD / 8; ++j) {
       o[4 * j] *= alpha[0];
       o[4 * j + 1] *= alpha[0];
       o[4 * j + 2] *= alpha[1];
@@ -453,17 +476,23 @@ __global__ void __launch_bounds__(FP_THREADS, 1) flash_prefill_sm90_kernel(
       pa[kk][2] = pack_bf16x2(a[4] * v2, a[5] * v3);
       pa[kk][3] = pack_bf16x2(a[6] * v2, a[7] * v3);
     }
-    // O += P V: V [token][d] is MN-major for this product (N = d)
+    // O += P V: V [token][d] is MN-major for this product (N = d); with
+    // COLS this warpgroup's columns wg * OD.. (boxes of 32 channels for the
+    // converted tiles, of 64 in the stage)
+    const int col0 = COLS ? wg * OD : 0;
     keep_all(o);
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < FP_TK / 16; ++kk) {
       if constexpr (C::B1)
-        Wgmma<D>::template mma<1>(o, pa[kk],
-                                  desc_mn64(vb_s + kk * 16 * 64, C::BOX));
+        Wgmma<OD>::template mma<1>(
+            o, pa[kk],
+            desc_mn64(vb_s + (col0 / 32) * C::BOX + kk * 16 * 64, C::BOX));
       else
-        Wgmma<D>::template mma<1>(
-            o, pa[kk], desc_mn128(vs_s + kk * 16 * 128, PAGED_BOX));
+        Wgmma<OD>::template mma<1>(
+            o, pa[kk],
+            desc_mn128(vs_s + (col0 / 64) * PAGED_BOX + kk * 16 * 128,
+                       PAGED_BOX));
     }
     wgmma_commit();
     wgmma_wait<0>();
@@ -482,28 +511,29 @@ __global__ void __launch_bounds__(FP_THREADS, 1) flash_prefill_sm90_kernel(
   // Merge: warpgroup 1 leaves its running max, sum and O in its own tiles'
   // space (row-indexed max and sum; O by thread), or for bf16 pages in the
   // ring once both warpgroups are done with it, warpgroup 0 rescales both
-  // to the common max, adds, and writes the output.
-  float* om = reinterpret_cast<float*>(C::B1 ? base + C::WG_BYTES : ring);
-  float* ml = om + 128 * (D / 2);                             // max, sum
-  static_assert(128 * (D / 2) * 4 + 2 * FP_ROWS * 4 <=
-                    (C::B1 ? C::WG_BYTES : FP_STAGES * C::STAGE),
-                "the merge fits its space");
-  if constexpr (!C::B1) named_sync(3, FP_WG * 128);
-  if (wg == 1) {
+  // to the common max, adds, and writes the output.  With COLS each
+  // warpgroup holds the whole softmax of its own columns: nothing to merge.
+  if constexpr (!COLS) {
+    float* om = reinterpret_cast<float*>(C::B1 ? base + C::WG_BYTES : ring);
+    float* ml = om + 128 * (D / 2);                             // max, sum
+    static_assert(COLS || 128 * (D / 2) * 4 + 2 * FP_ROWS * 4 <=
+                              (C::B1 ? C::WG_BYTES : FP_STAGES * C::STAGE),
+                  "the merge fits its space");
+    if constexpr (!C::B1) named_sync(3, FP_WG * 128);
+    if (wg == 1) {
 #pragma unroll
-    for (int j = 0; j < D / 2; ++j) om[j * 128 + tid] = o[j];
-    if (t == 0) {
+      for (int j = 0; j < D / 2; ++j) om[j * 128 + tid] = o[j];
+      if (t == 0) {
 #pragma unroll
-      for (int hh = 0; hh < 2; ++hh) {
-        const int rl = wl * 16 + g + hh * 8;
-        ml[rl] = m_r[hh];
-        ml[FP_ROWS + rl] = l_r[hh];
+        for (int hh = 0; hh < 2; ++hh) {
+          const int rl = wl * 16 + g + hh * 8;
+          ml[rl] = m_r[hh];
+          ml[FP_ROWS + rl] = l_r[hh];
+        }
       }
     }
-  }
-  named_sync(3, FP_WG * 128);
-  if (wg == 1) return;
-  {
+    named_sync(3, FP_WG * 128);
+    if (wg == 1) return;
     float a0[2], a1[2];
 #pragma unroll
     for (int hh = 0; hh < 2; ++hh) {
@@ -525,7 +555,7 @@ __global__ void __launch_bounds__(FP_THREADS, 1) flash_prefill_sm90_kernel(
   }
 
   // O / l (the sink joins l once), bf16 pairs: o[4j + 0, 1] row g,
-  // o[4j + 2, 3] row g + 8, at d = 8j + 2t
+  // o[4j + 2, 3] row g + 8, at d = col0 + 8j + 2t
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
     if (rows[hh] >= R) continue;
@@ -535,9 +565,11 @@ __global__ void __launch_bounds__(FP_THREADS, 1) flash_prefill_sm90_kernel(
       l += exp2f(sinks[hq] * LOG2E - m_r[hh]);
     }
     const float inv = l > 0.f ? 1.f / l : 1.f;
+    const int col0 = COLS ? wg * OD : 0;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j)
-      *reinterpret_cast<__nv_bfloat162*>(out + qoff[hh] + 8 * j + 2 * t) =
+    for (int j = 0; j < OD / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(out + qoff[hh] + col0 + 8 * j +
+                                         2 * t) =
           __floats2bfloat162_rn(o[4 * j + 2 * hh] * inv,
                                 o[4 * j + 2 * hh + 1] * inv);
   }
@@ -587,8 +619,8 @@ int launch_d(const void* q, const void* k, const void* k_sc, const void* v,
 
 // q/out [T, Hq, D] bf16, int8 pools [NB, Hkv, BS, D] (16-byte aligned) with
 // f32 scale pools [NB, Hkv, BS] indexed by the same block ids,
-// block_table [MB] int32, sinks [Hq] f32 or null; D 64 or 128, Hq % Hkv
-// == 0.  window <= 0 and cap <= 0 mean "off".
+// block_table [MB] int32, sinks [Hq] f32 or null; D 64, 128 or 256, Hq %
+// Hkv == 0.  window <= 0 and cap <= 0 mean "off".
 extern "C" int tllm_flash_prefill_int8(
     const void* q, const void* k_data, const void* k_scale,
     const void* v_data, const void* v_scale, const void* block_table,
@@ -606,12 +638,17 @@ extern "C" int tllm_flash_prefill_int8(
                                        block_table, sinks, out, T, Hq, Hkv, 0,
                                        BS, MB, kv_len, q_offset, scale,
                                        window, cap, st);
+  if (D == 256)
+    return tllm::launch_d<256, int8_t>(q, k_data, k_scale, v_data, v_scale,
+                                       block_table, sinks, out, T, Hq, Hkv, 0,
+                                       BS, MB, kv_len, q_offset, scale,
+                                       window, cap, st);
   return (int)cudaErrorInvalidValue;
 }
 
 // q/out [T, Hq, D] bf16, bf16 pools [NB, Hkv, BS, D] (16-byte aligned),
-// block_table [MB] int32, sinks [Hq] f32 or null; D 64 or 128, Hq % Hkv
-// == 0, BS % 8 == 0.  window <= 0 and cap <= 0 mean "off".
+// block_table [MB] int32, sinks [Hq] f32 or null; D 64, 128 or 256, Hq %
+// Hkv == 0, BS % 8 == 0.  window <= 0 and cap <= 0 mean "off".
 extern "C" int tllm_flash_prefill(const void* q, const void* k_cache,
                                   const void* v_cache, const void* block_table,
                                   const void* sinks, void* out, int T, int Hq,
@@ -628,12 +665,16 @@ extern "C" int tllm_flash_prefill(const void* q, const void* k_cache,
     return tllm::launch_d<128, tllm::bf16>(
         q, k_cache, nullptr, v_cache, nullptr, block_table, sinks, out, T, Hq,
         Hkv, NB, BS, MB, kv_len, q_offset, scale, window, cap, st);
+  if (D == 256)
+    return tllm::launch_d<256, tllm::bf16>(
+        q, k_cache, nullptr, v_cache, nullptr, block_table, sinks, out, T, Hq,
+        Hkv, NB, BS, MB, kv_len, q_offset, scale, window, cap, st);
   return (int)cudaErrorInvalidValue;
 }
 
 // q/out [T, Hq, D] bf16, e4m3 pools [NB, Hkv, BS, D] (16-byte aligned, no
-// scales), block_table [MB] int32, sinks [Hq] f32 or null; D 64 or 128,
-// Hq % Hkv == 0.  window <= 0 and cap <= 0 mean "off".
+// scales), block_table [MB] int32, sinks [Hq] f32 or null; D 64, 128 or
+// 256, Hq % Hkv == 0.  window <= 0 and cap <= 0 mean "off".
 extern "C" int tllm_flash_prefill_fp8(const void* q, const void* k_cache,
                                       const void* v_cache,
                                       const void* block_table,
@@ -648,6 +689,10 @@ extern "C" int tllm_flash_prefill_fp8(const void* q, const void* k_cache,
         Hq, Hkv, 0, BS, MB, kv_len, q_offset, scale, window, cap, st);
   if (D == 128)
     return tllm::launch_d<128, tllm::e4m3>(
+        q, k_cache, nullptr, v_cache, nullptr, block_table, sinks, out, T,
+        Hq, Hkv, 0, BS, MB, kv_len, q_offset, scale, window, cap, st);
+  if (D == 256)
+    return tllm::launch_d<256, tllm::e4m3>(
         q, k_cache, nullptr, v_cache, nullptr, block_table, sinks, out, T,
         Hq, Hkv, 0, BS, MB, kv_len, q_offset, scale, window, cap, st);
   return (int)cudaErrorInvalidValue;

@@ -1,13 +1,17 @@
 """Multi-head attention (GQA) over a paged KV cache.
 
-Counterpart of `tensorrt_llm_tpu/layers/attention.py` for the Llama, Mixtral
-and GPT-OSS families: fused QKV projection (optionally biased), RoPE, KV
-append and backend attention, output projection (optionally biased).
-Attention sinks (a per-head logit in the softmax denominator) and a
-per-layer sliding window pass through to the backend.  The window is masked
-inside the kernels over the layer's full-length pool; the JAX engine's
-cyclic ring pools for sliding layers are a later slice.  Logit caps, q/k
-norms, NoPE layers and context parallelism belong to later slices too.
+Counterpart of `tensorrt_llm_tpu/layers/attention.py` for the Llama,
+Mixtral, GPT-OSS and Gemma families: fused QKV projection (optionally
+biased), per-head q/k RMSNorm before RoPE (`has_qk_norm`, Gemma-3), RoPE,
+KV append and backend attention, output projection (optionally biased).
+Attention sinks (a per-head logit in the softmax denominator), a per-layer
+sliding window, a logit cap (`logit_cap`, Gemma-2's
+`attn_logit_softcapping`) and chunked attention (`attention_chunk`) pass
+through to the backend; `scale` overrides head_dim^-0.5 (Gemma's
+`query_pre_attn_scalar ** -0.5`).  A sliding layer under VSWA rings
+attends through its ring (`AttentionMetadata.for_sliding_layer`, applied
+by the decoder layer).  NoPE layers and context parallelism belong to
+later slices.
 
 Multi-LoRA (JAX `layers/attention.py:173-219`): when the layer holds
 adapter stacks (``lora_qkv_*``, ``lora_o_*``, installed by
@@ -26,6 +30,7 @@ from tensorrt_llm_tpu_torch.attention_backend.interface import (
     AttentionMetadata, get_attention_backend)
 from tensorrt_llm_tpu_torch.layers.linear import Linear
 from tensorrt_llm_tpu_torch.lora.multi_lora import apply_lora
+from tensorrt_llm_tpu_torch.ops.norms import rms_norm
 from tensorrt_llm_tpu_torch.ops.rope import apply_rope
 from tensorrt_llm_tpu_torch.quantization import QuantConfig
 from tensorrt_llm_tpu_torch.quantization.hf_ingest import wcat
@@ -36,7 +41,11 @@ class Attention(nn.Module):
                  head_dim: int, quant: Optional[QuantConfig] = None,
                  device="cuda", has_bias: bool = False,
                  has_o_bias: bool = False, has_sinks: bool = False,
-                 sliding_window: Optional[int] = None):
+                 sliding_window: Optional[int] = None,
+                 logit_cap: Optional[float] = None,
+                 attention_chunk: Optional[int] = None,
+                 scale: Optional[float] = None, has_qk_norm: bool = False,
+                 rms_eps: float = 1e-6):
         super().__init__()
         self.num_heads = num_heads
         self.num_kv_heads = num_kv_heads
@@ -44,27 +53,36 @@ class Attention(nn.Module):
         self.has_bias = has_bias
         self.has_o_bias = has_o_bias
         self.has_sinks = has_sinks
+        self.has_qk_norm = has_qk_norm
+        self.rms_eps = rms_eps
         self.sliding_window = sliding_window
         qkv_out = (num_heads + 2 * num_kv_heads) * head_dim
         self.qkv = Linear(hidden_size, qkv_out, quant, "qkv_proj")
         self.o = Linear(num_heads * head_dim, hidden_size, quant, "o_proj")
         self.register_buffer("sinks", None)
+        self.register_buffer("q_norm", None)
+        self.register_buffer("k_norm", None)
         for b in ("lora_qkv_a", "lora_qkv_b", "lora_o_a", "lora_o_b"):
             self.register_buffer(b, None)
         self.backend = get_attention_backend(device)(
-            num_heads, num_kv_heads, head_dim, head_dim ** -0.5,
-            sliding_window=sliding_window)
+            num_heads, num_kv_heads, head_dim,
+            scale if scale else head_dim ** -0.5,
+            sliding_window=sliding_window, logit_cap=logit_cap,
+            attention_chunk=attention_chunk)
 
     def from_float(self, q_w, k_w, v_w, o_w, q_b=None, k_b=None, v_b=None,
-                   o_b=None, sinks=None) -> None:
-        """Full float weights [in, out] (or AWQ/GPTQ `QTensor`s); biases
-        and sinks as the JAX package's `Attention.from_float` takes them
-        (tp = 1)."""
+                   o_b=None, sinks=None, q_norm=None, k_norm=None) -> None:
+        """Full float weights [in, out] (or AWQ/GPTQ `QTensor`s); biases,
+        sinks and the q/k norm weights [head_dim] as the JAX package's
+        `Attention.from_float` takes them (tp = 1)."""
         bias = (torch.cat([q_b, k_b, v_b]) if self.has_bias else None)
         self.qkv.from_float(wcat([q_w, k_w, v_w]), bias)
         self.o.from_float(o_w, o_b if self.has_o_bias else None)
         if self.has_sinks:
             self.sinks = sinks.to(torch.float32).contiguous()
+        if self.has_qk_norm:
+            self.q_norm = q_norm.to(torch.float32).contiguous()
+            self.k_norm = k_norm.to(torch.float32).contiguous()
 
     def forward(self, x: torch.Tensor,
                 rope_tables: Tuple[torch.Tensor, torch.Tensor],
@@ -79,6 +97,9 @@ class Attention(nn.Module):
         q = qkv[:, :qh * D].reshape(T, qh, D)
         k = qkv[:, qh * D:(qh + kvh) * D].reshape(T, kvh, D)
         v = qkv[:, (qh + kvh) * D:].reshape(T, kvh, D).contiguous()
+        if self.has_qk_norm:
+            q = rms_norm(q, self.q_norm, self.rms_eps)
+            k = rms_norm(k, self.k_norm, self.rms_eps)
         q, k = apply_rope(q, k, meta.positions, *rope_tables)
         k_cache, v_cache = kv_cache
         out = self.backend(q.contiguous(), k.contiguous(), v, k_cache,

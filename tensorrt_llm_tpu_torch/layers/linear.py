@@ -29,7 +29,9 @@ An 8-bit layer holds ``qweight [K, N]`` -- int8 per output channel
 for FP8 and FP8_PER_CHANNEL_PER_TOKEN -- with f32 ``scales [N]`` and
 ``bias``, and runs the plain products of `ops/linear_8bit.py`, as the JAX
 package runs them in XLA.  A W8A8 weight is kept column-major (its bytes
-``[N, K]``), the layout of the card's int8 product.  An AWQ/GPTQ
+``[N, K]``), the layout of the card's int8 product, with K and N
+zero-padded to multiples of 8 (``qweight_mm``; ``qweight`` is its
+``[K, N]`` view).  An AWQ/GPTQ
 `QTensor` given to an 8-bit or unquantized layer is dequantized exactly
 and then quantized by that layer's method, as in the JAX package.
 
@@ -46,7 +48,7 @@ import torch
 from torch import nn
 
 from tensorrt_llm_tpu_torch.ops.linear_8bit import (
-    fp8_matmul, w8a8_matmul, w8a16_matmul)
+    fp8_matmul, pad_int_mm_weight, w8a8_matmul, w8a16_matmul)
 from tensorrt_llm_tpu_torch.ops.w4a16_gemm import (
     ACTIVATIONS, w4a8_matmul, w4a16_matmul)
 from tensorrt_llm_tpu_torch.quantization import (
@@ -78,6 +80,7 @@ class Linear(nn.Module):
                 QuantAlgo.W4A8_AWQ)))
         for b in ("weight", "qweight", "scales", "zeros", "bias"):
             self.register_buffer(b, None)
+        self.qweight_mm = None   # W8A8: the padded storage of qweight
 
     @property
     def w4a16(self) -> bool:
@@ -153,7 +156,10 @@ class Linear(nn.Module):
                 raise ValueError(f"{self.algo} qweight must be {want}, got "
                                  f"{q.dtype}")
             if self.algo == QuantAlgo.W8A8_SQ_PER_CHANNEL:
-                q = q.t().contiguous().t()
+                # the card's int8 product operand, padded once here;
+                # qweight is its [K, N] view
+                self.qweight_mm = pad_int_mm_weight(q)
+                q = self.qweight_mm[:q.shape[0], :q.shape[1]]
             else:
                 q = q.contiguous()
             self.qweight = q
@@ -175,7 +181,7 @@ class Linear(nn.Module):
             if self.algo == QuantAlgo.W8A16:
                 return w8a16_matmul(*args)
             if self.algo == QuantAlgo.W8A8_SQ_PER_CHANNEL:
-                return w8a8_matmul(*args)
+                return w8a8_matmul(x, self.qweight_mm, *args[2:])
             return fp8_matmul(*args, dynamic_act=(
                 self.algo == QuantAlgo.FP8_PER_CHANNEL_PER_TOKEN))
         if x.device.type == "cuda":

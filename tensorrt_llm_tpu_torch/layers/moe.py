@@ -73,10 +73,11 @@ class MoE(nn.Module):
                  routed_scaling: float = 1.0, n_shared_experts: int = 0):
         super().__init__()
         H, I = hidden_size, intermediate_size
-        # int4 experts under the W4A16 family, bf16 experts otherwise
-        self.quant_experts = quant is not None and quant.is_weight_only_w4
-        if self.quant_experts and (H % 2 or I % 2):
-            raise NotImplementedError(f"MoE: odd widths H={H}, I={I}")
+        # int4 experts under the W4A16 family, bf16 experts otherwise, and
+        # at odd widths, which int4 pairs cannot pack (JAX
+        # `layers/moe.py:102-104`: plain products, as XLA runs them there)
+        self.quant_experts = (quant is not None and quant.is_weight_only_w4
+                              and not (H % 2 or I % 2))
         self.hidden_size = H
         self.intermediate_size = I
         self.num_experts = num_experts

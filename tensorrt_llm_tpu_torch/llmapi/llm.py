@@ -123,7 +123,8 @@ from tensorrt_llm_tpu_torch.quantization.mode import (
 from tensorrt_llm_tpu_torch.runtime.executor import PyExecutor
 from tensorrt_llm_tpu_torch.runtime.kv_cache_manager import (
     KVCacheManager, pool_layout)
-from tensorrt_llm_tpu_torch.runtime.model_engine import ModelEngine
+from tensorrt_llm_tpu_torch.runtime.model_engine import (
+    ModelEngine, default_ring_slots, ring_plan)
 from tensorrt_llm_tpu_torch.runtime.request import LlmRequest
 from tensorrt_llm_tpu_torch.utils import cdiv, resolve_device
 
@@ -184,6 +185,52 @@ def resolve_model_config(a: LlmArgs) -> tuple:
                     "embed",)
             quant = QuantConfig(**kw)
     return ModelConfig.from_hf_config(hf, quant=quant), path
+
+
+def plan_kv_pools(cfg: ModelConfig, kvcfg, max_seq_len: int,
+                  max_batch_size: int, budget: int):
+    """``(num_blocks, ring_slots)``: the main pool's blocks and, where the
+    sliding layers get VSWA rings (`ring_plan`), their ring slots (else
+    None), out of `budget` device bytes for every pool.  The main pool
+    (reference calculate_max_num_blocks) holds the global layers only, and
+    is bounded by what `max_batch_size` sequences of `max_seq_len` could
+    use; `kvcfg.num_blocks` fixes it.  Rings take `default_ring_slots`,
+    cut to their share of the budget: what the main pool leaves of it
+    when its size is fixed, else the share a ring slot has of one
+    `max_seq_len` sequence's bytes (its ring beside its main blocks)."""
+    bs = kvcfg.block_size
+    one_byte = kvcfg.kv_quant != KvCacheQuantAlgo.NONE
+    layer = KVCacheManager.block_bytes(
+        1, cfg.kv_pool_heads, cfg.kv_pool_dim, bs,
+        dtype_bytes=1 if one_byte else 2,
+        num_pools=1 if kvcfg.layout == "latent" else 2,
+        extra_dims=kvcfg.dsa_index_dim,
+        scale_pools=kvcfg.kv_quant == KvCacheQuantAlgo.INT8)
+    need = max_batch_size * cdiv(max_seq_len, bs)
+    cap = max(need * 2, 64) * 8
+    plan = ring_plan(cfg, bs, max_seq_len, kvcfg.separate_window_pools)
+    if plan is None:
+        n = kvcfg.num_blocks or min(
+            max(budget // (cfg.num_layers * layer), 64), cap)
+        return n, None
+    _, ring_blocks, sliding = plan
+    n_global = cfg.num_layers - len(sliding)
+    slot = len(sliding) * ring_blocks * layer
+    reserved = len(sliding) * layer          # each ring pool's block 0
+    if kvcfg.num_blocks:
+        ring_budget = budget - kvcfg.num_blocks * n_global * layer
+    else:
+        seq = n_global * cdiv(max_seq_len, bs) * layer
+        ring_budget = budget * slot // (slot + seq)
+    slots = max(1, min(default_ring_slots(max_batch_size),
+                       (ring_budget - reserved) // slot))
+    if kvcfg.num_blocks:
+        return kvcfg.num_blocks, slots
+    if not n_global:
+        # every layer rings: main blocks are bookkeeping alone
+        return max(need, 64), slots
+    rest = budget - reserved - slots * slot
+    return min(max(rest // (n_global * layer), 64), cap), slots
 
 
 class LLM:
@@ -273,12 +320,21 @@ class LLM:
             self.lora_manager = mgr
         geo = pool_layout(cfg)
         kvcfg = a.make_kv_cache_config(geo["layout"], geo["dsa_index_dim"])
-        num_blocks = kvcfg.num_blocks or self._derive_num_blocks(cfg, kvcfg)
+        if self.device.type == "cuda":
+            free, _ = torch.cuda.mem_get_info(self.device)
+            budget = int(free * kvcfg.free_mem_fraction)
+        else:
+            budget = 4 << 30
+        num_blocks, ring_slots = plan_kv_pools(
+            cfg, kvcfg, a.max_seq_len, a.max_batch_size, budget)
         self.kv_manager = KVCacheManager(kvcfg, cfg.num_layers,
                                          geo["num_kv_heads"],
                                          geo["head_dim"], num_blocks,
                                          self.device)
-        self.engine = ModelEngine(self.model, self.kv_manager, self.device)
+        self.engine = ModelEngine(self.model, self.kv_manager, self.device,
+                                  max_seq_len=a.max_seq_len,
+                                  max_batch_size=a.max_batch_size,
+                                  ring_slots=ring_slots)
         if isinstance(self.lora_manager, PagedMultiLoraManager):
             self.lora_manager.bind_engine(self.engine)
         warm = a.enable_warmup
@@ -301,27 +357,6 @@ class LLM:
         # join the executor thread at interpreter exit even without shutdown()
         self._exit_finalizer = weakref.finalize(
             self, PyExecutor.shutdown, self.executor)
-
-    def _derive_num_blocks(self, cfg: ModelConfig, kvcfg) -> int:
-        """Pool size from free device memory (reference
-        calculate_max_num_blocks), bounded by what max_batch_size sequences
-        of max_seq_len could use."""
-        a = self.args
-        if self.device.type == "cuda":
-            free, _ = torch.cuda.mem_get_info(self.device)
-            budget = int(free * kvcfg.free_mem_fraction)
-        else:
-            budget = 4 << 30
-        int8 = kvcfg.kv_quant == KvCacheQuantAlgo.INT8
-        one_byte = kvcfg.kv_quant != KvCacheQuantAlgo.NONE
-        n = KVCacheManager.blocks_from_memory(
-            budget, cfg.num_layers, cfg.kv_pool_heads, cfg.kv_pool_dim,
-            kvcfg.block_size, dtype_bytes=1 if one_byte else 2,
-            num_pools=1 if kvcfg.layout == "latent" else 2,
-            extra_dims=kvcfg.dsa_index_dim,
-            scale_pools=int8)
-        need = a.max_batch_size * cdiv(a.max_seq_len, kvcfg.block_size)
-        return min(max(n, 64), max(need * 2, 64) * 8)
 
     # ------------------------------------------------------------ weights --
     def update_weights(self, source) -> None:

@@ -77,6 +77,13 @@ class LlmArgs:
     kv_host_cache_blocks: int = 0
     kv_secondary_offload_min_priority: Optional[int] = None
     kv_connector: Optional[Any] = None
+    # VSWA: sliding-window layers in ring pools of their own (the JAX
+    # package's `KVCacheConfig.separate_window_pools`, default True; the
+    # port's flat LlmArgs carries it as the other kv_* fields).  False
+    # keeps full pools: more KV memory, but the sliding layers stay on the
+    # attention kernels and keep prefix reuse (GPT-OSS's 128-token window
+    # serves faster that way: `chip_smoke.py gptoss_rings_ab`)
+    kv_separate_window_pools: bool = True
 
     # scheduler
     scheduler_policy: str = "guaranteed_no_evict"
@@ -167,7 +174,9 @@ class LlmArgs:
                              host_cache_blocks=self.kv_host_cache_blocks,
                              secondary_offload_min_priority=(
                                  self.kv_secondary_offload_min_priority),
-                             kv_connector=self.kv_connector)
+                             kv_connector=self.kv_connector,
+                             separate_window_pools=(
+                                 self.kv_separate_window_pools))
 
     def make_scheduler_config(self) -> SchedulerConfig:
         return SchedulerConfig(

@@ -1,15 +1,19 @@
-"""Decoder-only causal LM for the Llama, Mixtral, GPT-OSS and DeepSeek V3
-families.
+"""Decoder-only causal LM for the Llama, Mixtral, GPT-OSS, Gemma (1-3 text)
+and DeepSeek V3 families.
 
 Counterpart of `tensorrt_llm_tpu/models/modeling_utils.py`: `ModelConfig`
 (the fields those families use, with `from_hf_config`), `DecoderLayer` (GQA
 attention or, when `kv_lora_rank` is set, Multi-head Latent Attention with
 an optional DSA indexer; a gated MLP or a W4A16 MoE, dense on
-`mlp_only_layers`; sliding-window layers by `layer_types` or by the
-window), and `DecoderModelForCausalLM.forward` (embedding, pre-norm decoder
+`mlp_only_layers`; sliding-window layers by `layer_types`, by Gemma's
+`sliding_window_pattern` or by the window, with their own RoPE base under
+`rope_local_theta`; Gemma's sandwich norms under `post_norms`), and
+`DecoderModelForCausalLM.forward` (embedding, times `embedding_multiplier`
+when set, pre-norm decoder
 layers over a paged KV cache -- bf16, INT8 or FP8 K/V pools, or one
 latent pool per layer under MLA -- final norm, bf16 lm_head, or the
-embedding matrix under `tie_word_embeddings`); linears are W4A16,
+embedding matrix under `tie_word_embeddings`, then `final_logit_softcap`);
+linears are W4A16,
 W4A8_AWQ, W8A16, W8A8, FP8 or unquantized (MoE experts are int4 under the
 W4A16 family and bf16 otherwise, as in the JAX package).
 Weights come from `init_random` (drawn on the model's device from a seeded
@@ -25,6 +29,7 @@ both sides.  Two models hold the same weights through `state()` /
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Tuple
@@ -41,7 +46,7 @@ from tensorrt_llm_tpu_torch.layers.linear import Linear
 from tensorrt_llm_tpu_torch.layers.mla import MLA
 from tensorrt_llm_tpu_torch.layers.mlp import GatedMLP
 from tensorrt_llm_tpu_torch.layers.moe import MoE
-from tensorrt_llm_tpu_torch.ops.norms import add_rms_norm
+from tensorrt_llm_tpu_torch.ops.norms import add_rms_norm, rms_norm
 from tensorrt_llm_tpu_torch.ops.rope import RopeConfig, make_rope_tables
 from tensorrt_llm_tpu_torch.quantization import QuantConfig
 from tensorrt_llm_tpu_torch.quantization.hf_ingest import (
@@ -50,7 +55,8 @@ from tensorrt_llm_tpu_torch.utils import resolve_device
 
 _HF_ARCHITECTURES = ("LlamaForCausalLM", "MistralForCausalLM",
                      "MixtralForCausalLM", "GptOssForCausalLM",
-                     "DeepseekV3ForCausalLM")
+                     "DeepseekV3ForCausalLM", "GemmaForCausalLM",
+                     "Gemma2ForCausalLM", "Gemma3ForCausalLM")
 # HF keys of MoE features the port leaves out (Qwen-MoE's shared-expert
 # width, sparse layer strides), with their neutral value
 _CUT_HF_KEYS = {"shared_expert_intermediate_size": 0,
@@ -76,8 +82,22 @@ class ModelConfig:
     o_bias: bool = False                  # o_proj bias (GPT-OSS)
     has_sinks: bool = False               # attention-sink logits (GPT-OSS)
     layer_types: Optional[tuple] = None   # "sliding_attention" / "full_attention"
-    activation: str = "silu"
+    qk_norm: bool = False                 # per-head q/k RMSNorm (Gemma-3)
+    activation: str = "silu"              # "gelu": tanh-GELU (Gemma)
     sliding_window: Optional[int] = None
+    # Gemma: post-attention / post-FFW norms around each block, sqrt(hidden)
+    # embedding scale, tanh soft caps of the attention scores and the final
+    # logits, the attention scale query_pre_attn_scalar ** -0.5, every
+    # sliding_window_pattern-th layer global, and the local layers' RoPE base
+    post_norms: bool = False
+    embedding_multiplier: Optional[float] = None
+    attn_logit_softcap: Optional[float] = None
+    final_logit_softcap: Optional[float] = None
+    query_pre_attn_scalar: Optional[float] = None
+    sliding_window_pattern: int = 1
+    rope_local_theta: Optional[float] = None
+    # Llama4 chunked attention: the keys of the query's chunk only
+    attention_chunk_size: Optional[int] = None
     # MoE (0 experts => dense MLP everywhere)
     num_experts: int = 0
     num_experts_per_tok: int = 2
@@ -118,11 +138,30 @@ class ModelConfig:
         return self.num_experts > 0 and idx not in self.mlp_only_layers
 
     def is_sliding_layer(self, idx: int) -> bool:
-        """An explicit `layer_types` list wins (GPT-OSS); otherwise every
-        layer slides when a window is set (Mistral)."""
+        """JAX `is_sliding_layer`: an explicit `layer_types` list wins
+        (GPT-OSS, Gemma-3); chunked-attention layers count as sliding (their
+        lookback is bounded by the chunk; the port has no NoPE layers, so
+        with `attention_chunk_size` every layer is chunked); otherwise every
+        `sliding_window_pattern`-th layer is global and the rest slide
+        (pattern 1: every layer slides when a window is set, Mistral)."""
         if self.layer_types is not None:
-            return self.layer_types[idx] == "sliding_attention"
-        return self.sliding_window is not None
+            return self.layer_types[idx] in ("sliding_attention",
+                                             "chunked_attention")
+        if self.attention_chunk_size:
+            return True
+        if self.sliding_window is None:
+            return False
+        if self.sliding_window_pattern <= 1:
+            return True
+        return (idx + 1) % self.sliding_window_pattern != 0
+
+    @property
+    def rope_local(self) -> Optional[RopeConfig]:
+        """The sliding layers' RoPE (Gemma-3's local base, unscaled)."""
+        if self.rope_local_theta is None:
+            return None
+        return dataclasses.replace(self.rope, theta=self.rope_local_theta,
+                                   scaling_type=None)
 
     # ---- MLA ---------------------------------------------------------------
     @property
@@ -188,7 +227,8 @@ class ModelConfig:
     def from_hf_config(cls, hf, quant: Optional[QuantConfig] = None
                        ) -> "ModelConfig":
         """Build from a transformers config (or plain dict) of the Llama,
-        Mistral, Mixtral, GPT-OSS or DeepSeek V3 families (Moonlight; V3.2
+        Mistral, Mixtral, GPT-OSS, Gemma (1-3 text) or DeepSeek V3 families
+        (Moonlight; V3.2
         with its indexer), with the JAX package's field mapping; other
         architectures, and the features in `_CUT_HF_KEYS`, raise.  A DeepSeek
         config (one with `kv_lora_rank`) routes by sigmoid noaux_tc, as the
@@ -232,6 +272,7 @@ class ModelConfig:
                           or get("num_attention_heads", 32)),
             head_dim=get("head_dim"),
             rms_eps=get("rms_norm_eps") or 1e-5,
+            attention_chunk_size=get("attention_chunk_size"),
             rope_theta=get("rope_theta", 10000.0),
             rope_scaling=get("rope_scaling"),
             max_position=get("max_position_embeddings", 4096),
@@ -269,7 +310,14 @@ class ModelConfig:
                                "index_head_dim": get("index_head_dim", 128),
                                "index_topk": get("index_topk")}
                               if get("index_topk") and deepseek else None),
-            quant=quant)
+            quant=quant,
+            # the Gemma family's keys (the JAX package keeps them in
+            # `extra` for its Gemma constructors; they set the same fields)
+            query_pre_attn_scalar=get("query_pre_attn_scalar"),
+            attn_logit_softcap=get("attn_logit_softcapping"),
+            final_logit_softcap=get("final_logit_softcapping"),
+            sliding_window_pattern=get("sliding_window_pattern") or 1,
+            rope_local_theta=get("rope_local_base_freq"))
 
 
 class DecoderLayer(nn.Module):
@@ -291,11 +339,18 @@ class DecoderLayer(nn.Module):
                 interleaved=cfg.rope.interleaved, quant=cfg.quant,
                 sparse=cfg.dsa)
         else:
+            chunk = (cfg.attention_chunk_size
+                     if cfg.attention_chunk_size and self.sliding else None)
             self.attn = Attention(
                 cfg.hidden_size, cfg.num_heads, cfg.num_kv_heads,
                 cfg.head_dim, cfg.quant, device, has_bias=cfg.attention_bias,
                 has_o_bias=cfg.o_bias, has_sinks=cfg.has_sinks,
-                sliding_window=cfg.sliding_window if self.sliding else None)
+                sliding_window=(cfg.sliding_window
+                                if self.sliding and chunk is None else None),
+                logit_cap=cfg.attn_logit_softcap, attention_chunk=chunk,
+                scale=(cfg.query_pre_attn_scalar ** -0.5
+                       if cfg.query_pre_attn_scalar else None),
+                has_qk_norm=cfg.qk_norm, rms_eps=cfg.rms_eps)
         if self.is_moe:
             self.mlp = MoE(
                 cfg.hidden_size, cfg.moe_intermediate_size, cfg.num_experts,
@@ -314,12 +369,30 @@ class DecoderLayer(nn.Module):
                                 cfg.activation, quant=cfg.quant)
         self.input_norm = _RMSNormWeight(cfg.hidden_size)
         self.post_attn_norm = _RMSNormWeight(cfg.hidden_size)
+        if cfg.post_norms:
+            self.pre_ffw_norm = _RMSNormWeight(cfg.hidden_size)
+            self.post_ffw_norm = _RMSNormWeight(cfg.hidden_size)
 
     def forward(self, x, residual, rope_tables, kv_cache,
                 meta: AttentionMetadata):
+        """`rope_tables`: the global (cos, sin), or a pair (global, local)
+        when the sliding layers have a RoPE of their own."""
         eps = self.cfg.rms_eps
+        if isinstance(rope_tables[0], tuple):
+            rope_tables = rope_tables[1 if self.sliding else 0]
+        if self.sliding:
+            # VSWA: attend through the layer's ring, when rings are on
+            meta = meta.for_sliding_layer()
         h, residual = add_rms_norm(x, residual, self.input_norm.weight, eps)
         h = self.attn(h, rope_tables, kv_cache, meta)
+        if self.cfg.post_norms:
+            # Gemma-2/3 sandwich norms (JAX `modeling_utils.py:702-712`):
+            # x += post_norm(attn(pre_norm(x))), the same around the MLP
+            h = rms_norm(h, self.post_attn_norm.weight, eps)
+            h2, residual = add_rms_norm(h, residual,
+                                        self.pre_ffw_norm.weight, eps)
+            out = self.mlp(h2, meta.lora_ids)
+            return rms_norm(out, self.post_ffw_norm.weight, eps), residual
         h2, residual = add_rms_norm(h, residual, self.post_attn_norm.weight,
                                     eps)
         if self.is_moe:
@@ -347,6 +420,7 @@ def register_auto_model(*architectures):
 def get_model_class(architecture: str) -> type:
     # the architecture modules register themselves on import
     import tensorrt_llm_tpu_torch.models.deepseek  # noqa: F401
+    import tensorrt_llm_tpu_torch.models.gemma  # noqa: F401
     import tensorrt_llm_tpu_torch.models.gpt_oss  # noqa: F401
     import tensorrt_llm_tpu_torch.models.llama  # noqa: F401
     import tensorrt_llm_tpu_torch.models.mixtral  # noqa: F401
@@ -366,6 +440,11 @@ class DecoderModelForCausalLM(nn.Module):
     MOE_BIAS_KEY = "mlp.gate.e_score_correction_bias"
     NORM_KEYS = {"input_norm": "input_layernorm",
                  "post_attn_norm": "post_attention_layernorm"}
+    # Gemma's sandwich norms (under `post_norms`) and per-head q/k norms
+    POST_NORM_KEYS = {"pre_ffw_norm": "pre_feedforward_layernorm",
+                      "post_ffw_norm": "post_feedforward_layernorm"}
+    Q_NORM_KEY = "self_attn.q_norm.weight"
+    K_NORM_KEY = "self_attn.k_norm.weight"
 
     def __init__(self, cfg: ModelConfig, device="cuda"):
         super().__init__()
@@ -382,6 +461,10 @@ class DecoderModelForCausalLM(nn.Module):
         cos, sin = make_rope_tables(cfg.rope)
         self.register_buffer("rope_cos", cos)
         self.register_buffer("rope_sin", sin)
+        local = cfg.rope_local
+        cos, sin = make_rope_tables(local) if local else (None, None)
+        self.register_buffer("rope_local_cos", cos)
+        self.register_buffer("rope_local_sin", sin)
         self.to(self.device)
 
     # ---- parameters -----------------------------------------------------
@@ -429,7 +512,10 @@ class DecoderModelForCausalLM(nn.Module):
                 normal((H, Hkv), std), normal((Hq, H), std),
                 q_b=normal((Hq,), b), k_b=normal((Hkv,), b),
                 v_b=normal((Hkv,), b), o_b=normal((H,), b),
-                sinks=normal((cfg.num_heads,), 0.5))
+                sinks=normal((cfg.num_heads,), 0.5),
+                **(dict(q_norm=1.0 + normal((D,), 0.02),
+                        k_norm=1.0 + normal((D,), 0.02))
+                   if cfg.qk_norm else {}))
         if layer.is_moe:
             E, I = cfg.num_experts, cfg.moe_intermediate_size
             chunk = 16
@@ -543,7 +629,9 @@ class DecoderModelForCausalLM(nn.Module):
                                            dev)
         for i, layer in enumerate(self.layers):
             pre = f"model.layers.{i}."
-            for norm, key in self.NORM_KEYS.items():
+            keys = dict(self.NORM_KEYS,
+                        **(self.POST_NORM_KEYS if cfg.post_norms else {}))
+            for norm, key in keys.items():
                 getattr(layer, norm).weight = hf_tensor(
                     get_tensor, pre + key + ".weight", dev)
             self._load_attn(layer, pre, t, vec)
@@ -568,7 +656,9 @@ class DecoderModelForCausalLM(nn.Module):
             k_b=vec(a + "k_proj.bias") if bias else None,
             v_b=vec(a + "v_proj.bias") if bias else None,
             o_b=vec(a + "o_proj.bias") if cfg.o_bias else None,
-            sinks=vec(a + "sinks") if cfg.has_sinks else None)
+            sinks=vec(a + "sinks") if cfg.has_sinks else None,
+            q_norm=vec(pre + self.Q_NORM_KEY) if cfg.qk_norm else None,
+            k_norm=vec(pre + self.K_NORM_KEY) if cfg.qk_norm else None)
 
     def _load_mlp(self, layer, get_tensor, pre: str, t, vec) -> None:
         """One layer's gated MLP, or MoE (router, experts read 16 at a time
@@ -620,9 +710,14 @@ class DecoderModelForCausalLM(nn.Module):
         residual streams after layers 0, L//2 and L-1 concatenated
         [rows, 3H] (a duplicate capture point of a tiny model repeats the
         last).  Without it the logits are computed exactly as before."""
+        cfg = self.cfg
         x = self.embedding(input_ids)
+        if cfg.embedding_multiplier:
+            x = (x.to(torch.float32) * cfg.embedding_multiplier).to(x.dtype)
         residual = None
         rope = (self.rope_cos, self.rope_sin)
+        if self.rope_local_cos is not None:
+            rope = (rope, (self.rope_local_cos, self.rope_local_sin))
         L = len(self.layers)
         cap_at = {0, L // 2, L - 1} if (return_hidden
                                         and capture == "eagle3") else ()
@@ -649,13 +744,19 @@ class DecoderModelForCausalLM(nn.Module):
         return (logits, hidden) if return_hidden else logits
 
     def logits(self, x: torch.Tensor) -> torch.Tensor:
-        """The LM head on final-norm rows: f32 logits [rows, V]."""
+        """The LM head on final-norm rows: f32 logits [rows, V], soft-capped
+        under `final_logit_softcap` (Gemma-2)."""
         if self.cfg.tie_word_embeddings:
             # the JAX package's jnp.dot(x, emb.T) with f32 output; cuBLAS's
             # bf16 product on the card (f32 accumulation, bf16 out, as the
             # untied head)
-            return dot_f32(x, self.embedding.weight.t())
-        return self.lm_head(x).to(torch.float32)
+            logits = dot_f32(x, self.embedding.weight.t())
+        else:
+            logits = self.lm_head(x).to(torch.float32)
+        c = self.cfg.final_logit_softcap
+        if c:
+            logits = c * torch.tanh(logits / c)
+        return logits
 
 
 def _stream(x: torch.Tensor, residual: Optional[torch.Tensor]
@@ -688,7 +789,8 @@ def hf_tensor(get_tensor, name: str, device) -> torch.Tensor:
     return a.to(device).to(torch.float32)
 
 
-_NORMS = ("input_norm", "post_attn_norm", "final_norm")
+_NORMS = ("input_norm", "post_attn_norm", "final_norm", "pre_ffw_norm",
+          "post_ffw_norm")
 
 
 def params_from_jax(tree: Any) -> Dict[str, torch.Tensor]:
@@ -717,9 +819,9 @@ def params_from_jax(tree: Any) -> Dict[str, torch.Tensor]:
             for k, v in node.items():
                 walk(v, path + [str(k)])
         elif isinstance(node, (list, tuple)):
-            if path == ["rope"]:
-                out["rope_cos"] = tensor(node[0])
-                out["rope_sin"] = tensor(node[1])
+            if path in (["rope"], ["rope_local"]):
+                out[path[0] + "_cos"] = tensor(node[0])
+                out[path[0] + "_sin"] = tensor(node[1])
                 return
             if len(path) > 1 and path[-2] == "lora":
                 pre = ".".join(path[:-2] + [f"lora_{path[-1]}"])

@@ -4,8 +4,8 @@ Counterpart of `tensorrt_llm_tpu/ops/flash_prefill.py`.  `flash_prefill_plain`
 is the plain version (the JAX package's `paged_prefill_xla`);
 `flash_prefill_attention` takes it for CPU tensors and for CUDA tensors
 launches one Hopper kernel, `csrc/flash_prefill_sm90.cu` (a producer warp
-loading the pages, two consumer warpgroups on wgmma, at head dims 64 and
-128): K3 over bf16 pools (TMA boxes of the pages in the swizzle wgmma
+loading the pages, two consumer warpgroups on wgmma, at head dims 64, 128
+and 256, any GQA group): K3 over bf16 pools (TMA boxes of the pages in the swizzle wgmma
 reads; pages of a multiple of 8 tokens) or over FP8 (e4m3) pools, and K7
 over INT8 pools (bulk copies of the 1-byte pages, converted to bf16 in
 shared memory, exactly).  The launch counts name the instances apart:
@@ -27,6 +27,7 @@ from tensorrt_llm_tpu_torch.ops.paged_attention import (
 __all__ = ["flash_prefill_attention", "flash_prefill_plain"]
 
 
+PREFILL_HEAD_DIMS = (64, 128, 256)
 PREFILL_ROWS = 64      # stacked query rows of a K3/K7 block (token x G + head)
 PREFILL_TILE = 64      # KV tokens a K3/K7 tile takes
 BF16_PAGE_MULTIPLE = 8   # K3's TMA boxes fill whole 8-row swizzle atoms
@@ -77,10 +78,10 @@ def flash_prefill_attention(q: torch.Tensor, k_cache, v_cache,
     int8 = kind == "int8"
     NB, Hkv, BS, Dk = (k_cache[0] if int8 else k_cache).shape
     T, Hq, D = q.shape
-    if D not in (64, 128) or Dk != D or Hq % Hkv:
+    if D not in PREFILL_HEAD_DIMS or Dk != D or Hq % Hkv:
         raise NotImplementedError(
-            f"flash_prefill kernel: D in (64, 128) and Hq % Hkv == 0 "
-            f"(D={D}, Hq={Hq}, Hkv={Hkv})")
+            f"flash_prefill kernel: D in {PREFILL_HEAD_DIMS} and Hq % Hkv "
+            f"== 0 (D={D}, Hq={Hq}, Hkv={Hkv})")
     if kind == "bf16" and BS % BF16_PAGE_MULTIPLE:
         raise NotImplementedError(
             f"flash_prefill kernel (bf16 pages): pages of a multiple of "

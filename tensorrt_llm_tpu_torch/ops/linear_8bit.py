@@ -50,27 +50,53 @@ def _f32_product(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return a.to(torch.float32) @ w.to(torch.float32)
 
 
-def int8_product(xq: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """xq int8 [M, K] @ w int8 [K, N] summed exactly in int32.  On the card
-    the rows are padded past 16 for `torch._int_mm` and K and N must be
-    multiples of 8 (NotImplementedError otherwise); w is best stored
-    column-major (``[N, K]`` contiguous, transposed), the layout cuBLASLt's
-    int8 product reads."""
+def pad_int_mm_weight(w: torch.Tensor) -> torch.Tensor:
+    """w int8 [K, N] as the card's `torch._int_mm` takes it: K and N
+    zero-padded to multiples of 8 (zeros add nothing to an integer sum),
+    column-major.  A W8A8 layer makes it once, when its weight is loaded."""
+    K, N = w.shape
+    Kp = cdiv(K, _INT_MM_ALIGN) * _INT_MM_ALIGN
+    Np = cdiv(N, _INT_MM_ALIGN) * _INT_MM_ALIGN
+    wp = w.new_zeros((Np, Kp))
+    wp[:N, :K] = w.t()
+    return wp.t()
+
+
+def int_mm_operands(xq: torch.Tensor, w: torch.Tensor
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(xq, w) as `torch._int_mm` on the card takes them: w padded by
+    `pad_int_mm_weight` (here, per call, only where its K or N is not a
+    multiple of 8), xq zero-padded to more than 16 rows and to w's K."""
+    if w.shape[0] % _INT_MM_ALIGN or w.shape[1] % _INT_MM_ALIGN:
+        w = pad_int_mm_weight(w)
     M, K = xq.shape
-    N = w.shape[1]
+    Mp = cdiv(max(_INT_MM_MIN_ROWS, M), _INT_MM_ALIGN) * _INT_MM_ALIGN
+    return _pad_rows_cols(xq, Mp, w.shape[0]), w
+
+
+def _pad_rows_cols(xq: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
+    M, K = xq.shape
+    if (rows, cols) == (M, K):
+        return xq.contiguous()
+    xp = xq.new_zeros((rows, cols))
+    xp[:M, :K] = xq
+    return xp
+
+
+def int8_product(xq: torch.Tensor, w: torch.Tensor,
+                 n: Optional[int] = None) -> torch.Tensor:
+    """xq int8 [M, K] @ w int8 [Kw, Nw] summed exactly in int32: [M, n]
+    (n defaults to Nw).  w may be `pad_int_mm_weight`'s (Kw >= K, its rows
+    past K zero), which spares the card's product a per-call copy of the
+    weight; it is best column-major, the layout cuBLASLt's int8 product
+    reads."""
+    M = xq.shape[0]
+    n = w.shape[1] if n is None else n
     if M == 0:
-        return torch.zeros((0, N), dtype=torch.int32, device=xq.device)
+        return torch.zeros((0, n), dtype=torch.int32, device=xq.device)
     if xq.device.type == "cpu":
-        return torch._int_mm(xq.contiguous(), w)
-    if K % _INT_MM_ALIGN or N % _INT_MM_ALIGN:
-        raise NotImplementedError(
-            f"W8A8 product: K and N multiples of {_INT_MM_ALIGN} "
-            f"(K={K}, N={N})")
-    Mp = max(_INT_MM_MIN_ROWS, M)
-    Mp = cdiv(Mp, _INT_MM_ALIGN) * _INT_MM_ALIGN
-    if Mp != M:
-        xq = torch.cat([xq, xq.new_zeros((Mp - M, K))])
-    return torch._int_mm(xq.contiguous(), w)[:M]
+        return torch._int_mm(_pad_rows_cols(xq, M, w.shape[0]), w)[:, :n]
+    return torch._int_mm(*int_mm_operands(xq, w))[:M, :n]
 
 
 def _finish(out, scales, bias, activation, out_dtype):
@@ -111,9 +137,11 @@ def w8a8_matmul(x: torch.Tensor, qweight: torch.Tensor, scales: torch.Tensor,
                 bias: Optional[torch.Tensor] = None,
                 activation: Optional[str] = None) -> torch.Tensor:
     """SmoothQuant-style W8A8: per-token int8 activations (`quantize_act_
-    int8`), the int32 product, then ``acc * s_act * scales``."""
+    int8`), the int32 product, then ``acc * s_act * scales``.  `qweight`
+    may be padded (`pad_int_mm_weight`): N is that of `scales`."""
     x2 = x.reshape(-1, x.shape[-1])
     xq, s_act = quantize_act_int8(x2)
-    out = int8_product(xq, qweight).to(torch.float32) * s_act
+    out = int8_product(xq, qweight, scales.shape[0]).to(torch.float32) \
+        * s_act
     out = _finish(out, scales, bias, activation, x.dtype)
     return out.reshape(*x.shape[:-1], out.shape[-1])

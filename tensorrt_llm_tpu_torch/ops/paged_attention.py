@@ -4,9 +4,9 @@ Counterpart of `tensorrt_llm_tpu/ops/paged_attention.py`.
 `paged_decode_plain` is the plain version (the JAX package's
 `paged_decode_xla`); `paged_decode_attention` takes it for CPU tensors and
 for CUDA tensors launches kernel K4 over bf16 or FP8 (e4m3) pools, or K6
-over INT8 pools (`csrc/paged_decode.cu`, one template: head dims 64 and
-128, GQA groups 1, 2, 4, 8; pages of a multiple of 8 tokens, 4 for int8
-and e4m3), split over the KV as `decode_plan` says and merged inside the
+over INT8 pools (`csrc/paged_decode.cuh`, one template: head dims 64, 128
+and 256, any GQA group from 1 to 16, padded in the kernel to 1, 2, 4, 8 or
+16; pages of a multiple of 8 tokens, 4 for int8 and e4m3), split over the KV as `decode_plan` says and merged inside the
 one launch.  The launch counts name the instances apart:
 ``paged_decode``, ``paged_decode_int8``, ``paged_decode_fp8``.
 """
@@ -28,8 +28,10 @@ __all__ = ["paged_decode_attention", "paged_decode_plain", "decode_plan",
 
 _SMS = 132
 DECODE_TILE = 64         # tokens a tile of the kernel (a split is whole tiles)
-# the shortest split: a tile for each of a block's four consumer warps
-DECODE_MIN_SPLIT = 256
+# the shortest split: two tiles for each of a block's four consumer warps
+# (with one a warp, the H100's phase-3 rows at 16 and 32 (sequence, KV
+# head) pairs ran 1.26-1.34x slower than at 512 tokens)
+DECODE_MIN_SPLIT = 512
 # a table of at most this many tiles runs unsplit (at most four tiles a
 # warp cost less than the merge of splits)
 DECODE_ONE_SPLIT_TILES = 16
@@ -38,18 +40,24 @@ DECODE_ONE_SPLIT_TILES = 16
 _DECODE_BLOCKS_PER_SM = 2
 
 
+DECODE_HEAD_DIMS = (64, 128, 256)
+DECODE_MAX_GROUP = 16
+
+
 def decode_check(D: int, G: int, BS: int, kind: str = "bf16") -> None:
     """Raise NotImplementedError on what the kernel does not take: head dims
-    64 and 128, 1, 2, 4 or 8 query heads a KV head, and pages of a multiple
+    64, 128 and 256, 1 to 16 query heads a KV head, and pages of a multiple
     of 8 tokens for bf16 pools (TMA boxes fill whole 8-row swizzle atoms)
     or of 4 tokens for the 1-byte pages of `kind` "int8" and "fp8" (bulk
     copies of runs of at least 4 tokens, which for int8 carry whole 16-byte
     runs of a page's f32 scales)."""
     mult = 8 if kind == "bf16" else 4
-    if D not in (64, 128) or G not in (1, 2, 4, 8) or BS <= 0 or BS % mult:
+    if D not in DECODE_HEAD_DIMS or not 1 <= G <= DECODE_MAX_GROUP \
+            or BS <= 0 or BS % mult:
         raise NotImplementedError(
-            f"paged_decode kernel: D in (64, 128), Hq/Hkv in (1, 2, 4, 8), "
-            f"pages of a multiple of {mult} tokens (D={D}, G={G}, BS={BS})")
+            f"paged_decode kernel: D in {DECODE_HEAD_DIMS}, Hq/Hkv in 1.."
+            f"{DECODE_MAX_GROUP}, pages of a multiple of {mult} tokens "
+            f"(D={D}, G={G}, BS={BS})")
 
 
 def decode_split_choices(table_tokens: int) -> tuple:

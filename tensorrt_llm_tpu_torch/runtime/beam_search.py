@@ -100,7 +100,10 @@ class BeamSearch:
         sid = _new_seq_id()
         pairs = self.kv.fork_sequence(src, sid)
         self._held.add(sid)
-        self.engine.copy_kv_blocks(pairs)
+        # VSWA: the fork takes a ring slot of its own, a copy of the
+        # source's ring (raises, like the pool, when none is free)
+        ring = self.kv.ring_fork_pairs(src, sid)
+        self.engine.copy_kv_blocks(pairs, ring)
         return sid
 
     def _free(self, sid: int) -> None:

@@ -114,7 +114,13 @@ request with beam search is refused at submit (the JAX package gives it no
 defined result).  Every request's `on_finished` hook (a paged LoRA slot's
 release) runs once, when the request ends, before its last piece is sent.
 
-Not in this slice: multi-host lockstep and VSWA ring frames.  The JAX
+Under VSWA rings (`ModelEngine.vswa`) every payload and frame carries the
+sliding layers' ring pages (JAX `executor.py:357, 401-404, 833-843`): a
+streamed context-only request sends one frame at its end, marked
+``"ring"``, as rings rewrite early pages while the prefill runs, and a
+generation-only request needs a free ring slot to be admitted.
+
+Not in this slice: multi-host lockstep.  The JAX
 package's faults listed in ROADMAP Queue C are not copied: a request's
 failure ends only that request, and shutdown resolves every request still
 held.
@@ -744,14 +750,31 @@ class PyExecutor:
                               "block_size": bs}
             return
         table = self.kv.block_table(req.request_id, self.kv.blocks_needed(P))
-        req.kv_payload = {"layers": self.engine.extract_kv_blocks(table),
-                          "num_tokens": P, "block_size": bs}
+        req.kv_payload = {"layers": self.engine.extract_kv_blocks(
+            table, self._ring_table(req.request_id)),
+            "num_tokens": P, "block_size": bs}
+
+    def _ring_table(self, rid):
+        """The request's VSWA ring table, or None without rings."""
+        return self.kv.local_block_table(rid) if self.engine.vswa else None
 
     def _pump_kv_stream(self, req: LlmRequest, tail: bool = False):
         """A frame of the full blocks a streamed context-only request's
         prefill completed since its last frame; ``tail`` adds the last,
         partial block."""
         P = req.prompt_len
+        if self.engine.vswa:
+            # rings rewrite early pages while the prefill runs: one frame
+            # of every page at the end
+            if tail:
+                table = self.kv.block_table(req.request_id,
+                                            self.kv.blocks_needed(P))
+                req.kv_stream.put({"start_block": 0, "ring": True,
+                                   "layers": self.engine.extract_kv_blocks(
+                                       table,
+                                       self._ring_table(req.request_id))})
+                req.kv_streamed_blocks = len(table)
+            return
         done = (self.kv.blocks_needed(P) if tail
                 else min(req.context_position, P) // self.kv.block_size)
         sent = req.kv_streamed_blocks
@@ -775,7 +798,8 @@ class PyExecutor:
         while self._gen_queue:
             req = self._gen_queue[0]
             P = req.prompt_len
-            if self.kv.blocks_needed(P) > self.kv.num_free_blocks:
+            if self.kv.blocks_needed(P) > self.kv.num_free_blocks \
+                    or not self.kv.can_admit_new():
                 return
             self._gen_queue.pop(0)
             if not self._admit_guided(req):
@@ -793,7 +817,7 @@ class PyExecutor:
             try:
                 self.engine.inject_kv_blocks(
                     self.kv.block_table(rid, self.kv.blocks_needed(P)),
-                    dp.kv_payload["layers"])
+                    dp.kv_payload["layers"], self._ring_table(rid))
             except ValueError as e:
                 self._end_receive(req, f"kv payload: {e}")
                 continue
@@ -838,8 +862,12 @@ class PyExecutor:
                                           f"within {RECEIVE_DEADLINE_S} s")
                     break
                 err = frame.get("error")
-                if err is None and frame.get("ring"):
-                    err = "VSWA ring frames are not in the port"
+                if err is None and not frame.get("end") \
+                        and bool(frame.get("ring")) != self.engine.vswa:
+                    err = ("a ring frame for an engine without VSWA rings"
+                           if frame.get("ring") else
+                           "a frame without rings for an engine with VSWA "
+                           "rings")
                 if err is not None:
                     self._end_receive(req, f"kv stream: {err}")
                     break
@@ -853,13 +881,16 @@ class PyExecutor:
                     table = self.kv.block_table(
                         req.request_id, self.kv.blocks_needed(req.prompt_len))
                 s = int(frame["start_block"])
-                n = len(next(iter(leaves(frame["layers"][0]))))
+                # a ring frame carries every page of the prompt
+                n = (len(table) if frame.get("ring")
+                     else len(next(iter(leaves(frame["layers"][0])))))
                 try:
                     if s + n > len(table):
                         raise ValueError(f"frame blocks [{s}, {s + n}) past "
                                          f"the prompt's {len(table)}")
-                    self.engine.inject_kv_blocks(table[s:s + n],
-                                                 frame["layers"])
+                    self.engine.inject_kv_blocks(
+                        table[s:s + n], frame["layers"],
+                        self._ring_table(req.request_id))
                 except ValueError as e:
                     self._end_receive(req, f"kv stream: {e}")
                     break

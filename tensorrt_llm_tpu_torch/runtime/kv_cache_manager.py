@@ -74,12 +74,24 @@ Beam forks (`fork_sequence`, JAX `fork_sequence`): a fork shares the
 source's fully written blocks by ref count and takes fresh tail blocks,
 whose pages the engine copies.
 
-Not in this slice: VSWA rings and the DP/helix/star managers.
+VSWA rings (JAX `configure_vswa`, under `separate_window_pools`, its
+default True): `configure_vswa` gives the sliding-window layers pools of
+their own, `local_num_blocks()` blocks, block 0 reserved as in the main
+pool.  Each active sequence holds a ring slot s (`SlotManager`), whose ring
+table is blocks ``[1 + s*R, .., s*R + R]`` (R = `ring_blocks`), and writes
+position p at ring offset ``p % (R * block_size)``: cyclic KV with no
+bookkeeping past the slot.  A brand-new sequence needs a free ring slot
+(`free_ring_slots`, which the scheduler counts).  Prefix reuse and the host
+tier are off under rings, as in the JAX package: a new sequence's ring
+holds none of a cached prefix's sliding-layer KV.
+
+Not in this slice: the DP/helix/star managers.
 """
 
 from __future__ import annotations
 
 import collections
+import dataclasses
 import hashlib
 from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Tuple
@@ -118,6 +130,9 @@ class KVCacheConfig:
     secondary_offload_min_priority: Optional[int] = None
     # external KV store: save(key, payload) / load(key) / contains(key)
     kv_connector: Optional[Any] = None
+    # VSWA: sliding-window layers get their own small cyclic ring pools
+    # instead of full-length pages (JAX's default: True)
+    separate_window_pools: bool = True
 
     def __post_init__(self):
         self.kv_quant = KvCacheQuantAlgo(self.kv_quant)
@@ -137,14 +152,22 @@ def make_pools(num_layers: int, num_blocks: int, num_kv_heads: int,
                block_size: int, head_dim: int,
                kv_quant: KvCacheQuantAlgo = KvCacheQuantAlgo.NONE,
                device="cuda", layout: str = "kv",
-               dsa_index_dim: int = 0) -> list:
-    """Zeroed pools per layer: (K, V) bf16 ``[NB, Hkv, BS, D]``, or for INT8
+               dsa_index_dim: int = 0, ring_layers=(),
+               ring_num_blocks: int = 0) -> list:
+    """Zeroed pools per layer (the layers in `ring_layers` with
+    `ring_num_blocks` blocks, VSWA rings): (K, V) bf16 ``[NB, Hkv, BS, D]``,
+    or for INT8
     ``((k int8 [NB, Hkv, BS, D], k_scale f32 [NB, Hkv, BS]), (v, v_scale))``,
     or for FP8 (K, V) float8_e4m3fn ``[NB, Hkv, BS, D]``, as the JAX
     package allocates them (logical layout, never lane-packed);
     for the latent layout one bf16 pool ``[NB, 1, BS, D]``, paired with the
     indexer pool ``[NB, 1, BS, dsa_index_dim]`` under DSA."""
     shape = (num_blocks, num_kv_heads, block_size, head_dim)
+    if ring_layers:
+        return [make_pools(1, ring_num_blocks if i in ring_layers
+                           else num_blocks, num_kv_heads, block_size,
+                           head_dim, kv_quant, device)[0]
+                for i in range(num_layers)]
     if layout == "latent":
         def latent():
             lat = torch.zeros(shape, dtype=torch.bfloat16, device=device)
@@ -728,6 +751,38 @@ def make_bookkeeping(num_blocks: int, block_size: int, enable_reuse: bool,
                               enable_reuse)
 
 
+class SlotManager:
+    """Fixed sequence slots (JAX `SlotManager`): the VSWA ring a sequence
+    holds.  The lowest free slot goes first."""
+
+    def __init__(self, max_slots: int):
+        self.max_slots = max_slots
+        self._free = list(range(max_slots - 1, -1, -1))
+        self._of: Dict[int, int] = {}
+
+    @property
+    def num_free(self) -> int:
+        return len(self._free)
+
+    def add(self, seq_id: int) -> int:
+        if seq_id in self._of:
+            return self._of[seq_id]
+        if not self._free:
+            raise OutOfBlocksError(
+                f"out of VSWA ring slots (max_slots={self.max_slots})")
+        slot = self._free.pop()
+        self._of[seq_id] = slot
+        return slot
+
+    def release(self, seq_id: int):
+        slot = self._of.pop(seq_id, None)
+        if slot is not None:
+            self._free.append(slot)
+
+    def get(self, seq_id: int) -> int:
+        return self._of.get(seq_id, -1)
+
+
 class KVCacheManager:
     def __init__(self, cfg: KVCacheConfig, num_layers: int, num_kv_heads: int,
                  head_dim: int, num_blocks: int, device="cuda"):
@@ -763,17 +818,114 @@ class KVCacheManager:
         self.num_onboarded = 0
         self.num_connector_saves = 0
         self.num_connector_loads = 0
+        # VSWA rings (module docstring), set by `configure_vswa`
+        self.vswa_window: Optional[int] = None
+        self.ring_blocks = 0
+        self.ring_slots = 0
+        self.sliding_layers: set = set()
+        self._ring: Optional[SlotManager] = None
 
     @property
     def is_native(self) -> bool:
         return isinstance(self._bk, _NativeBookkeeping)
 
     def allocate_pools(self) -> List:
-        """Zeroed pools per layer (`make_pools`)."""
+        """Zeroed pools per layer (`make_pools`), the sliding layers'
+        `local_num_blocks()` long under VSWA rings."""
         return make_pools(self.num_layers, self.num_blocks,
                           self.num_kv_heads, self.block_size, self.head_dim,
                           self.cfg.kv_quant, self.device, self.cfg.layout,
-                          self.cfg.dsa_index_dim)
+                          self.cfg.dsa_index_dim,
+                          ring_layers=self.sliding_layers if self.vswa else (),
+                          ring_num_blocks=(self.local_num_blocks()
+                                           if self.vswa else 0))
+
+    # ---- VSWA rings ---------------------------------------------------------
+    def configure_vswa(self, window: int, ring_blocks: int, ring_slots: int,
+                       sliding_layers) -> None:
+        """Separate ring pools for the sliding-window layers (JAX
+        `configure_vswa`): each active sequence owns a fixed ring of
+        `ring_blocks` blocks, addressed by its ring slot alone.  Prefix
+        reuse is turned off (a new sequence's ring holds none of a cached
+        prefix's sliding-layer KV), before any sequence."""
+        if self._seq_salt:
+            raise RuntimeError("configure_vswa before any sequence")
+        self.vswa_window = window
+        self.ring_blocks = ring_blocks
+        self.ring_slots = ring_slots
+        self.sliding_layers = set(sliding_layers)
+        self._ring = SlotManager(ring_slots)
+        if self.cfg.enable_block_reuse:
+            self._bk = make_bookkeeping(self.num_blocks, self.block_size,
+                                        False, self.cfg.bookkeeping)
+            self.cfg = dataclasses.replace(self.cfg,
+                                           enable_block_reuse=False)
+
+    @property
+    def vswa(self) -> bool:
+        return self.vswa_window is not None
+
+    @property
+    def ring_capacity(self) -> int:
+        """Tokens a sequence's ring holds."""
+        return self.ring_blocks * self.block_size
+
+    def free_ring_slots(self) -> int:
+        """Brand-new sequences that can still be admitted (ring slots are
+        the VSWA limit; unbounded without rings)."""
+        return self._ring.num_free if self._ring is not None else 1 << 30
+
+    def can_admit_new(self) -> bool:
+        return self.free_ring_slots() > 0
+
+    def local_num_blocks(self) -> int:
+        """Blocks of a ring pool: every slot's ring, plus reserved block 0
+        (where pad slots write)."""
+        return self.ring_slots * self.ring_blocks + 1
+
+    def ring_slot_of(self, seq_id: int) -> int:
+        return -1 if self._ring is None else self._ring.get(seq_id)
+
+    def local_block_table(self, seq_id: int) -> List[int]:
+        """The sequence's ring table (reserved block 0 without a slot)."""
+        s = self._ring.get(seq_id)
+        if s < 0:
+            return [0] * self.ring_blocks
+        return list(range(1 + s * self.ring_blocks,
+                          1 + (s + 1) * self.ring_blocks))
+
+    def local_slot_mapping(self, seq_id: int, start_token: int,
+                           num_tokens: int, pad_slot: int,
+                           dedup: bool = True) -> List[int]:
+        """Ring slots of positions [start, start + n).  Where several
+        positions of one chunk land on one ring offset, only the last
+        write survives (the earlier ones take `pad_slot`); `dedup=False`
+        for writes made one step at a time (k-step decode)."""
+        s = self._ring.get(seq_id)
+        P = self.ring_capacity
+        if s < 0:
+            return [pad_slot] * num_tokens
+        base = self.block_size + s * P   # rings start at block 1
+        if not dedup:
+            return [base + (start_token + i) % P for i in range(num_tokens)]
+        out = [pad_slot] * num_tokens
+        seen = set()
+        for i in range(num_tokens - 1, -1, -1):
+            off = (start_token + i) % P
+            if off not in seen:
+                seen.add(off)
+                out[i] = base + off
+        return out
+
+    def ring_fork_pairs(self, src_id: int, dst_id: int) -> List[tuple]:
+        """Give `dst_id` a ring slot and return the (src, dst) ring block
+        copies of a beam fork."""
+        if self._ring is None:
+            return []
+        self._ring.add(dst_id)
+        s, d = self._ring.get(src_id), self._ring.get(dst_id)
+        R = self.ring_blocks
+        return [(1 + s * R + i, 1 + d * R + i) for i in range(R)]
 
     @staticmethod
     def blocks_from_memory(bytes_budget: int, num_layers: int,
@@ -786,12 +938,23 @@ class KVCacheManager:
         indexer's keys).  dtype_bytes: 1 for INT8 and FP8 pages.
         scale_pools: an INT8 cache adds an f32 scale per (token, head) to
         each pool (FP8 pages have none)."""
+        per_block = KVCacheManager.block_bytes(
+            num_layers, num_kv_heads, head_dim, block_size, dtype_bytes,
+            num_pools, extra_dims, scale_pools)
+        return max(int(bytes_budget // per_block), 16)
+
+    @staticmethod
+    def block_bytes(num_layers: int, num_kv_heads: int, head_dim: int,
+                    block_size: int, dtype_bytes: int = 2, num_pools: int = 2,
+                    extra_dims: int = 0, scale_pools: bool = False) -> int:
+        """Device bytes of one block in every pool of `num_layers` layers
+        (`blocks_from_memory`'s arguments)."""
         per_block = num_pools * num_layers * block_size * num_kv_heads \
             * head_dim * dtype_bytes
         per_block += num_layers * block_size * extra_dims * dtype_bytes
         if scale_pools:
             per_block += num_pools * num_layers * block_size * num_kv_heads * 4
-        return max(int(bytes_budget // per_block), 16)
+        return per_block
 
     @property
     def num_free_blocks(self) -> int:
@@ -813,7 +976,14 @@ class KVCacheManager:
         under `enable_partial_reuse` (only past a device match) the head of
         one more block.  Its page copy, if any, waits in
         `drain_partial_copies`."""
-        matched = self._bk.add_sequence(seq_id, token_ids, cache_salt)
+        if self._ring is not None:
+            self._ring.add(seq_id)
+        try:
+            matched = self._bk.add_sequence(seq_id, token_ids, cache_salt)
+        except Exception:
+            if self._ring is not None:
+                self._ring.release(seq_id)
+            raise
         self._seq_salt[seq_id] = cache_salt
         self._seq_chain[seq_id] = []
         self._seq_reused[seq_id] = matched // self.block_size
@@ -1003,6 +1173,8 @@ class KVCacheManager:
         self._seq_reused.pop(seq_id, None)
         self._seq_salt.pop(seq_id, None)
         self._seq_prio.pop(seq_id, None)
+        if self._ring is not None:
+            self._ring.release(seq_id)
         self._bk.free_sequence(seq_id)
 
     def drop_cached_blocks(self):

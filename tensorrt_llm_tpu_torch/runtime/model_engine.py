@@ -67,8 +67,19 @@ are all base rows passes no ids, so the layers skip the adapters'
 products.  `prepare_decode_inputs` takes beam sequences, duck-typed
 requests of `runtime/beam_search.py`.
 
-Not in this slice: the chain/scan/unroll variants, CUDA graphs,
-pipeline/context/data parallelism and VSWA ring tables for extract/inject.
+VSWA rings (JAX `model_engine.py:120-143`): when the model has sliding
+layers (a window, or Llama4's chunk size) and the KV config keeps
+`separate_window_pools`, the engine gives those layers ring pools of
+``cdiv(window, BS) + 1`` blocks a sequence (the window and a page: a
+prefill chunk attends before its writes land, so the ring never needs the
+chunk's size), provided that is shorter than a full table.  Every step
+then also carries the rings' slots and tables (`StepInputs.local_*`); a
+sliding layer attends through them (`AttentionMetadata.for_sliding_layer`,
+``cyclic``).  Page copies, extracts and injects take the ring blocks for
+the sliding layers (``ring_pairs`` / ``ring_ids``).
+
+Not in this slice: the chain/scan/unroll variants, CUDA graphs and
+pipeline/context/data parallelism.
 """
 
 from __future__ import annotations
@@ -91,7 +102,8 @@ from tensorrt_llm_tpu_torch.llmapi.sampling_params import SamplingParams
 from tensorrt_llm_tpu_torch.runtime.kv_cache_manager import KVCacheManager
 from tensorrt_llm_tpu_torch.runtime.request import LlmRequest
 from tensorrt_llm_tpu_torch.runtime.sampler import SamplingState, sample_tokens
-from tensorrt_llm_tpu_torch.utils import logger, resolve_device, upload
+from tensorrt_llm_tpu_torch.utils import (
+    cdiv, logger, resolve_device, upload)
 
 # weight bytes a tuning ring holds: past the 50 MB L2 of an H100
 _ROTATE_BYTES = 128 << 20
@@ -158,6 +170,9 @@ class StepInputs:
     q_offset: int = 0
     # [T] multi-LoRA slot of each row (the request's `lora_slot`)
     lora_ids: Optional[np.ndarray] = None
+    # VSWA: the sliding layers' ring slots [T] and ring tables [B, R]
+    local_slot_mapping: Optional[np.ndarray] = None
+    local_block_tables: Optional[np.ndarray] = None
 
 
 @dataclass
@@ -174,11 +189,55 @@ class DecodeChunk:
     event: Optional["torch.cuda.Event"] = None
 
 
+def ring_plan(cfg, block_size: int, max_seq_len: int,
+              separate_window_pools: bool = True):
+    """``(window, ring_blocks, sliding layers)`` where the JAX engine gives
+    the sliding layers VSWA ring pools (module docstring), else None."""
+    window = (getattr(cfg, "sliding_window", None)
+              or getattr(cfg, "attention_chunk_size", None))
+    if not window or not separate_window_pools \
+            or getattr(cfg, "is_mla", False):
+        return None
+    sliding = [i for i in range(cfg.num_layers) if cfg.is_sliding_layer(i)]
+    ring_blocks = cdiv(window, block_size) + 1
+    if not sliding or ring_blocks >= cdiv(max_seq_len, block_size):
+        return None
+    return window, ring_blocks, sliding
+
+
+def default_ring_slots(max_batch_size: int) -> int:
+    """Ring slots without a memory bound: four per batch row, at least 32,
+    at most the JAX slot manager's 256."""
+    return min(256, max(max_batch_size * 4, 32))
+
+
+def configure_rings(cfg, kv_manager: KVCacheManager, max_seq_len: int,
+                    max_batch_size: int,
+                    ring_slots: Optional[int] = None) -> bool:
+    """Give the sliding layers VSWA ring pools where the JAX engine does
+    (`ring_plan`); returns whether it did.  `ring_slots` (`LLM` bounds it
+    by device memory) defaults to `default_ring_slots`."""
+    plan = ring_plan(cfg, kv_manager.block_size, max_seq_len,
+                     kv_manager.cfg.separate_window_pools)
+    if plan is None:
+        return False
+    window, ring_blocks, sliding = plan
+    kv_manager.configure_vswa(
+        window, ring_blocks, ring_slots or default_ring_slots(max_batch_size),
+        sliding)
+    return True
+
+
 class ModelEngine:
-    def __init__(self, model, kv_manager: KVCacheManager, device="cuda"):
+    def __init__(self, model, kv_manager: KVCacheManager, device="cuda",
+                 max_seq_len: Optional[int] = None,
+                 max_batch_size: int = 64,
+                 ring_slots: Optional[int] = None):
         self.model = model
         self.kv_manager = kv_manager
         self.device = resolve_device(device)
+        self.vswa = (max_seq_len is not None and configure_rings(
+            model.cfg, kv_manager, max_seq_len, max_batch_size, ring_slots))
         self.kv_caches = kv_manager.allocate_pools()
         self.lock = threading.Lock()
         self.host_ring = 2          # pinned buffers per (k, batch size)
@@ -193,7 +252,7 @@ class ModelEngine:
         kv = self.kv_manager
         start = req.context_position
         end = start + chunk
-        return StepInputs(
+        return self._with_rings(StepInputs(
             input_ids=np.asarray(req.prompt_token_ids[start:end], np.int64),
             positions=np.arange(start, end, dtype=np.int64),
             slot_mapping=np.asarray(
@@ -204,7 +263,34 @@ class ModelEngine:
             kv_lens=np.asarray([end], np.int32),
             logit_indices=(np.arange(chunk, dtype=np.int64) if all_rows
                            else np.asarray([chunk - 1], np.int64)),
-            q_offset=start, lora_ids=_slots(req, chunk))
+            q_offset=start, lora_ids=_slots(req, chunk)), [req], start)
+
+    def _with_rings(self, inputs: StepInputs, reqs, start=None,
+                    write_mask=None) -> StepInputs:
+        """Add the VSWA ring slots and tables (JAX `model_engine.py:1329-
+        1375, 1534-1537, 1744-1752`): a chunk of one request from `start`
+        (only the last write of one ring offset lands; tree rows outside
+        `write_mask` take `PAD_SLOT`), or one decode row a request at
+        `inputs.positions`."""
+        if not self.vswa:
+            return inputs
+        kv = self.kv_manager
+        if start is not None:
+            rid = reqs[0].request_id
+            T = len(inputs.positions)
+            if write_mask is None:
+                ls = kv.local_slot_mapping(rid, start, T, PAD_SLOT)
+            else:
+                ls = [kv.local_slot_mapping(rid, int(p), 1, PAD_SLOT)[0]
+                      if w else PAD_SLOT
+                      for p, w in zip(inputs.positions, write_mask)]
+        else:
+            ls = [kv.local_slot_mapping(r.request_id, int(p), 1, PAD_SLOT)[0]
+                  for r, p in zip(reqs, inputs.positions)]
+        inputs.local_slot_mapping = np.asarray(ls, np.int64)
+        inputs.local_block_tables = np.asarray(
+            [kv.local_block_table(r.request_id) for r in reqs], np.int32)
+        return inputs
 
     def prepare_decode_inputs(self, reqs, extra_tokens: int = 0,
                               virtual_extra: Optional[Sequence[int]] = None
@@ -221,7 +307,7 @@ class ModelEngine:
         MB = max(kv.blocks_needed(r.num_tokens + int(v) + extra_tokens)
                  for r, v in zip(reqs, ve))
         pos = np.asarray([r.num_tokens - 1 for r in reqs], np.int64) + ve
-        return StepInputs(
+        return self._with_rings(StepInputs(
             input_ids=np.asarray([r.all_token_ids[-1] for r in reqs],
                                  np.int64),
             positions=pos,
@@ -233,7 +319,7 @@ class ModelEngine:
             kv_lens=(pos + 1).astype(np.int32),
             logit_indices=np.arange(len(reqs), dtype=np.int64),
             lora_ids=np.asarray([getattr(r, "lora_slot", 0) for r in reqs],
-                                np.int64))
+                                np.int64)), reqs)
 
     def prepare_verify_inputs(self, req, draft_tokens) -> StepInputs:
         """A linear verify step: the last accepted token and the draft at
@@ -243,7 +329,7 @@ class ModelEngine:
         toks = [req.all_token_ids[-1]] + list(draft_tokens)
         start, chunk = req.num_tokens - 1, len(toks)
         end = start + chunk
-        return StepInputs(
+        return self._with_rings(StepInputs(
             input_ids=np.asarray(toks, np.int64),
             positions=np.arange(start, end, dtype=np.int64),
             slot_mapping=np.asarray(
@@ -253,7 +339,7 @@ class ModelEngine:
                 np.int32),
             kv_lens=np.asarray([end], np.int32),
             logit_indices=np.arange(chunk, dtype=np.int64),
-            q_offset=start, lora_ids=_slots(req, chunk))
+            q_offset=start, lora_ids=_slots(req, chunk)), [req], start)
 
     def prepare_tree_verify_inputs(self, req, tokens, positions,
                                    write_mask) -> StepInputs:
@@ -268,7 +354,7 @@ class ModelEngine:
         for i, w in enumerate(write_mask):
             if w:
                 slots[i] = kv.slot_mapping(rid, int(positions[i]), 1)[0]
-        return StepInputs(
+        return self._with_rings(StepInputs(
             input_ids=np.asarray(tokens, np.int64),
             positions=np.asarray(positions, np.int64),
             slot_mapping=slots,
@@ -277,7 +363,8 @@ class ModelEngine:
                 np.int32),
             kv_lens=np.asarray([prefix], np.int32),
             logit_indices=np.arange(len(tokens), dtype=np.int64),
-            q_offset=prefix, lora_ids=_slots(req, len(tokens)))
+            q_offset=prefix, lora_ids=_slots(req, len(tokens))), [req],
+            prefix, write_mask=list(write_mask))
 
     def _tensors(self, inputs: StepInputs, mode: str):
         dev = self.device
@@ -287,6 +374,9 @@ class ModelEngine:
             block_tables=upload(inputs.block_tables, dev),
             kv_lens=upload(inputs.kv_lens, dev),
             q_offset=int(inputs.q_offset), mode=mode)
+        if inputs.local_block_tables is not None:
+            meta.local_slot_mapping = upload(inputs.local_slot_mapping, dev)
+            meta.local_block_tables = upload(inputs.local_block_tables, dev)
         li = inputs.lora_ids
         if li is not None and li.any():
             # a step of base rows alone skips the adapters' products
@@ -358,11 +448,20 @@ class ModelEngine:
         if prev_tokens is not None:
             ids = prev_tokens.to(torch.int64)
         slots = upload(slot_table, self.device)
+        ring_slots = None
+        if self.vswa:
+            ring_slots = upload(np.stack([
+                np.asarray(kv.local_slot_mapping(
+                    r.request_id, r.num_tokens + v - 1, k, PAD_SLOT,
+                    dedup=False), np.int64)
+                for r, v in zip(reqs, virt)], axis=1), self.device)
         state = SamplingState.build(params, self.device)
         toks, logps = [], []
         with self.lock:
             for j in range(k):
                 meta.slot_mapping = slots[j]
+                if ring_slots is not None:
+                    meta.local_slot_mapping = ring_slots[j]
                 logits = self.model(ids, self.kv_caches, meta, rows)
                 tok, lp = sample_tokens(logits, params, rids, out_pos,
                                         step_offset=j, state=state)
@@ -407,83 +506,130 @@ class ModelEngine:
         chunk.event.synchronize()
         return chunk.host[0].numpy(), chunk.host[1].numpy()
 
-    @torch.no_grad()
-    def copy_kv_blocks(self, pairs: Sequence[Tuple[int, int]]) -> None:
-        """Copy the pages of blocks ``src -> dst`` for every (src, dst) pair
-        in every pool of every layer, in stream order before any later
-        step that reads them."""
-        if not pairs:
-            return
-        idx = np.asarray(pairs, np.int64)
-        src = upload(np.ascontiguousarray(idx[:, 0]), self.device)
-        dst = upload(np.ascontiguousarray(idx[:, 1]), self.device)
-        with self.lock:
-            for pool in leaves(self.kv_caches):
-                raw = _raw(pool)
-                raw.index_copy_(0, dst, raw.index_select(0, src))
+    def _layer_ids(self, ids, ring_ids):
+        """Per layer, the block ids a page operation takes: `ring_ids` for
+        the sliding layers under VSWA rings (when given), else `ids`."""
+        sliding = self.kv_manager.sliding_layers if self.vswa else set()
+        return [ring_ids if (i in sliding and ring_ids is not None) else ids
+                for i in range(len(self.kv_caches))]
 
     @torch.no_grad()
-    def extract_kv_blocks(self, block_ids: Sequence[int]) -> list:
-        """The pages of `block_ids` in host memory: per layer, the layer's
-        pools' structure with each leaf ``[n, ...page dims]`` on the CPU.
-        The leaves are gathered into one device buffer and copied to the
-        host at once (one wait, not one a leaf)."""
-        idx = upload(np.asarray(block_ids, np.int64), self.device)
+    def copy_kv_blocks(self, pairs: Sequence[Tuple[int, int]],
+                       ring_pairs: Sequence[Tuple[int, int]] = ()) -> None:
+        """Copy the pages of blocks ``src -> dst`` for every (src, dst) pair
+        in every pool of every layer (`ring_pairs` in the sliding layers'
+        ring pools), in stream order before any later step that reads
+        them."""
+        if not pairs and not ring_pairs:
+            return
+
+        def dev_pairs(ps):
+            if not ps:
+                return None
+            idx = np.asarray(ps, np.int64)
+            return (upload(np.ascontiguousarray(idx[:, 0]), self.device),
+                    upload(np.ascontiguousarray(idx[:, 1]), self.device))
+
+        main = dev_pairs(pairs)
+        per_layer = (self._layer_ids(main, dev_pairs(ring_pairs))
+                     if ring_pairs else [main] * len(self.kv_caches))
         with self.lock:
-            pages = [_raw(pool).index_select(0, idx).view(pool.dtype)
-                     for pool in leaves(self.kv_caches)]
+            for layer, sd in zip(self.kv_caches, per_layer):
+                if sd is None:
+                    continue
+                for pool in leaves(layer):
+                    raw = _raw(pool)
+                    raw.index_copy_(0, sd[1], raw.index_select(0, sd[0]))
+
+    @torch.no_grad()
+    def extract_kv_blocks(self, block_ids: Sequence[int],
+                          ring_ids: Optional[Sequence[int]] = None) -> list:
+        """The pages of `block_ids` (in the sliding layers' ring pools, of
+        `ring_ids`: JAX `extract_kv_blocks`; ring offsets follow positions,
+        so they line up on any receiver with the same ring size) in host
+        memory: per layer, the layer's pools' structure with each leaf
+        ``[n, ...page dims]`` on the CPU.  The leaves are gathered into one
+        device buffer and copied to the host at once (one wait, not one a
+        leaf)."""
+        idx = upload(np.asarray(block_ids, np.int64), self.device)
+        ridx = (None if ring_ids is None else
+                upload(np.asarray(ring_ids, np.int64), self.device))
+        with self.lock:
+            pages = [_raw(pool).index_select(0, ix).view(pool.dtype)
+                     for layer, ix in zip(self.kv_caches,
+                                          self._layer_ids(idx, ridx))
+                     for pool in leaves(layer)]
         flat = _packed(pages).cpu()
         it = iter(_unpacked(flat, pages))
         return [_like(layer, it) for layer in self.kv_caches]
 
-    def check_kv_layers(self, layers: list, n: Optional[int] = None
-                        ) -> List[torch.Tensor]:
+    def check_kv_layers(self, layers: list, n: Optional[int] = None,
+                        ring_n: Optional[int] = None) -> List[torch.Tensor]:
         """Every leaf of transferred `layers` (torch or numpy), checked
         against the pools and shaped as their pages, in pool order: the
         same number of layers and leaves, the same dtype and the same
-        elements per page (`n` pages when given).  Raises ValueError
-        otherwise; never casts."""
-        pools = list(leaves(self.kv_caches))
-        got = [leaf_torch(h) for layer in layers for h in leaves(layer)]
-        if len(layers) != len(self.kv_caches) or len(got) != len(pools):
+        elements per page (`n` pages when given; `ring_n` in the sliding
+        layers' ring pools).  Raises ValueError otherwise; never casts."""
+        got_layers = [[leaf_torch(h) for h in leaves(layer)]
+                      for layer in layers]
+        if len(layers) != len(self.kv_caches) or \
+                sum(map(len, got_layers)) != len(list(leaves(self.kv_caches))):
             raise ValueError(
-                f"KV payload has {len(layers)} layers / {len(got)} leaves; "
-                f"the pools have {len(self.kv_caches)} / {len(pools)}")
+                f"KV payload has {len(layers)} layers / "
+                f"{sum(map(len, got_layers))} leaves; the pools have "
+                f"{len(self.kv_caches)} / {len(list(leaves(self.kv_caches)))}")
         out = []
-        for i, (c, h) in enumerate(zip(pools, got)):
-            page = c[0].numel()
-            if h.dtype != c.dtype:
-                raise ValueError(f"KV payload leaf {i} is {h.dtype}, the "
-                                 f"pool is {c.dtype}")
-            rows = h.shape[0] if h.dim() else 0
-            if rows == 0 or h.numel() != rows * page or (
-                    n is not None and rows != n):
-                raise ValueError(
-                    f"KV payload leaf {i} has shape {tuple(h.shape)}; the "
-                    f"pool's page is {tuple(c.shape[1:])}"
-                    + ("" if n is None else f", {n} pages expected"))
-            out.append(h.reshape((rows,) + tuple(c.shape[1:])))
+        i = 0
+        for layer, got, want in zip(self.kv_caches, got_layers,
+                                    self._layer_ids(n, ring_n)):
+            pools = list(leaves(layer))
+            if len(got) != len(pools):
+                raise ValueError(f"KV payload layer has {len(got)} leaves; "
+                                 f"its pools have {len(pools)}")
+            for c, h in zip(pools, got):
+                page = c[0].numel()
+                if h.dtype != c.dtype:
+                    raise ValueError(f"KV payload leaf {i} is {h.dtype}, "
+                                     f"the pool is {c.dtype}")
+                rows = h.shape[0] if h.dim() else 0
+                if rows == 0 or h.numel() != rows * page or (
+                        want is not None and rows != want):
+                    raise ValueError(
+                        f"KV payload leaf {i} has shape {tuple(h.shape)}; "
+                        f"the pool's page is {tuple(c.shape[1:])}"
+                        + ("" if want is None else f", {want} pages "
+                           "expected"))
+                out.append(h.reshape((rows,) + tuple(c.shape[1:])))
+                i += 1
         return out
 
     @torch.no_grad()
-    def inject_kv_blocks(self, block_ids: Sequence[int], layers: list):
+    def inject_kv_blocks(self, block_ids: Sequence[int], layers: list,
+                         ring_ids: Optional[Sequence[int]] = None):
         """Write transferred pages (`extract_kv_blocks`' structure, or the
         flat per-layer leaves of `payload_from_bytes`, torch or numpy) into
-        the blocks `block_ids` of every pool (`check_kv_layers` first)."""
+        the blocks `block_ids` of every pool (`ring_ids` of the sliding
+        layers' ring pools), after `check_kv_layers`."""
         n = len(block_ids)
-        host = self.check_kv_layers(layers, n)
+        rn = None if ring_ids is None else len(ring_ids)
+        host = self.check_kv_layers(layers, n, rn)
         if not n:
             return
         dev = self.device
         idx = upload(np.asarray(block_ids, np.int64), dev)
+        ridx = (None if ring_ids is None
+                else upload(np.asarray(ring_ids, np.int64), dev))
         if dev.type == "cuda":
             # one upload of every leaf, staged in pinned memory that the
             # caching host allocator keeps until the copy has run
             buf = _packed(host, pin=True).to(dev, non_blocking=True)
             host = _unpacked(buf, host)
+        targets = [ix for layer, ix in zip(self.kv_caches,
+                                           self._layer_ids(idx, ridx))
+                   for _ in leaves(layer)]
         with self.lock:
-            for pool, h in zip(leaves(self.kv_caches), host):
-                _raw(pool).index_copy_(0, idx, _raw(h))
+            for pool, h, ix in zip(leaves(self.kv_caches), host, targets):
+                _raw(pool).index_copy_(0, ix, _raw(h))
 
     # ------------------------------------------------------------ warmup ---
     @staticmethod

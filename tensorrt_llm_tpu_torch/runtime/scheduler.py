@@ -147,9 +147,15 @@ class Scheduler:
             n += 1
         # higher priority first, arrival order within a level (stable sort)
         waiting = sorted(waiting, key=lambda r: -r.priority)
-        for req in ctx + waiting:
+        # VSWA: a brand-new sequence needs a free ring slot (JAX
+        # `scheduler.py:166-169`), counted down as this round admits
+        new_slots = getattr(self.kv, "free_ring_slots", lambda: 1 << 30)()
+        n_ctx = len(ctx)
+        for i, req in enumerate(ctx + waiting):
             if n >= cfg.max_batch_size or budget <= 0:
                 break
+            if i >= n_ctx and new_slots <= 0:
+                continue
             remaining = (req.remaining_context if req.is_context_init
                          else req.prompt_len)
             if cfg.enable_chunked_prefill:
@@ -168,6 +174,7 @@ class Scheduler:
             if not fits:
                 continue
             reserved += need
+            new_slots -= i >= n_ctx
             batch.prefill.append((req, chunk))
             budget -= chunk
             n += 1

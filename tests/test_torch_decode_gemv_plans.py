@@ -128,12 +128,12 @@ def test_gemv_wrapper_refuses_instead_of_falling_back(K, G, bn, exc):
 
 @pytest.mark.parametrize("B,Hkv,tokens,window,want", [
     (4, 4, 1024, None, (1, 1024)),   # 16 tiles: unsplit
-    (4, 4, 1088, None, (5, 256)),    # 17 tiles: a tile a warp
+    (4, 4, 1088, None, (3, 512)),    # 17 tiles: two tiles a warp
     (1, 8, 64, None, (1, 64)),       # short table: one split
     (4, 8, 672, None, (1, 1024)),    # GPT-OSS without a window
     (64, 8, 4096, None, (1, 4096)),  # enough (sequence, head) blocks
     (4, 8, 4000, None, (8, 512)),    # Llama-3-8B rows: one wave of blocks
-    (8, 4, 2000, None, (8, 256)),
+    (8, 4, 2000, None, (4, 512)),
     (4, 8, 672, 128, (1, 1024)),     # GPT-OSS window 128: unsplit
     (2, 8, 320, 96, (1, 512)),       # a window past the table: one split
 ])
@@ -160,8 +160,11 @@ NI = NotImplementedError
     (64, 8, 8, ValueError, ValueError),
     (64, 8, 4, NI, ValueError),             # bf16 pages: a multiple of 8
     (96, 4, 16, NI, NI),                    # head dim
-    (64, 3, 16, NI, NI),                    # 3 query heads a KV head
-    (64, 16, 16, NI, NI),                   # 16 query heads a KV head
+    (64, 3, 16, ValueError, ValueError),    # any group up to 16
+    (64, 16, 16, ValueError, ValueError),
+    (256, 2, 16, ValueError, ValueError),   # Gemma's head dim
+    (64, 17, 16, NI, NI),                   # 17 query heads a KV head
+    (32, 4, 16, NI, NI),                    # head dim 32
     (64, 4, 6, NI, NI),                     # page of 6 tokens
 ])
 @pytest.mark.parametrize("int8", [False, True])

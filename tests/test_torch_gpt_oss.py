@@ -238,9 +238,13 @@ def test_generate_matches_jax_greedy(monkeypatch):
         tout = [o.outputs[0].token_ids
                 for o in tl.generate(prompts, T.SamplingParams(**sp))]
         stats = tl.get_kv_cache_stats()
+        rings = tl.engine.vswa
     finally:
         tl.shutdown()
-    assert stats["reused_blocks"] > 0 and stats["active_sequences"] == 0
+    # the sliding layers keep VSWA rings, as in the JAX engine, and prefix
+    # reuse is off under rings there too
+    assert rings and stats["reused_blocks"] == 0
+    assert stats["active_sequences"] == 0
     exact = 0
     for p, x, y in zip(prompts, jout, tout):
         assert len(x) == len(y) == 8

@@ -163,6 +163,38 @@ def test_moe_layer_matches_jax(variant, group, zp):
     assert err <= 1e-2 * np.abs(ref).max(), err
 
 
+@pytest.mark.parametrize("H,I", [(127, 192), (128, 97)])
+def test_moe_odd_widths_take_bf16_experts(H, I):
+    """An odd hidden or expert width cannot pack int4 pairs: under W4A16
+    both sides build bf16 experts (JAX `layers/moe.py:102-104`), the same
+    leaves, the same output within 1% of max|ref|."""
+    E, k, Tn = 4, 2, 9
+    jq = JQC(quant_algo=JQA.W4A16, group_size=64)
+    tq = QuantConfig(quant_algo=QuantAlgo.W4A16, group_size=64)
+    jm = JMoE(hidden_size=H, intermediate_size=I, num_experts=E, top_k=k,
+              quant=jq)
+    tm = MoE(H, I, E, k, quant=tq)
+    assert not jm.quant_experts and not tm.quant_experts
+    rng = np.random.default_rng(H + I)
+
+    def f(*shape, s=1.0):
+        return (rng.normal(size=shape) * s).astype(np.float32)
+
+    fl = dict(router_w=f(H, E, s=0.5), gate_w=f(E, H, I, s=H ** -0.5),
+              up_w=f(E, H, I, s=H ** -0.5), down_w=f(E, I, H, s=I ** -0.5))
+    params = jm.from_float(**{a: jnp.asarray(v) for a, v in fl.items()})
+    tm.from_float(**{a: torch.from_numpy(v) for a, v in fl.items()})
+    for leaf, v in params.items():
+        np.testing.assert_array_equal(
+            getattr(tm, leaf).float().numpy(),
+            np.asarray(jnp.asarray(v).astype(jnp.float32)), err_msg=leaf)
+    x = _np(jnp.asarray(f(Tn, H), jnp.bfloat16).astype(jnp.float32))
+    ref = np.asarray(jm(params, jnp.asarray(x, jnp.bfloat16)), np.float32)
+    with torch.no_grad():
+        out = tm(torch.from_numpy(x).to(torch.bfloat16)).float().numpy()
+    assert np.abs(out - ref).max() <= 1e-2 * np.abs(ref).max()
+
+
 def test_moe_rejects_cut_features():
     from tensorrt_llm_tpu_torch.models import ModelConfig
     mixtral = dict(architectures=["MixtralForCausalLM"], num_local_experts=4)

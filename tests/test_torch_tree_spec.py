@@ -154,8 +154,8 @@ def test_mtp_tree_matches_jax_and_plain():
 
 
 def test_tree_with_sliding_layers():
-    """Tree verification over sliding-window layers (the JAX side on its
-    VSWA ring pools, the port on full pools under the window mask)."""
+    """Tree verification over sliding-window layers, both sides on their
+    VSWA ring pools (the tree rows read the ring before their writes)."""
     r = run_pair(dict(mode=_mode("USER_PROVIDED"), tree_proposer=junk_tree,
                       max_draft_len=6), [list(range(2, 22))], seed=5,
                  cfg_over=dict(sliding_window=16, num_layers=3),

@@ -39,7 +39,7 @@ from tensorrt_llm_tpu_torch.layers.linear import Linear
 from tensorrt_llm_tpu_torch.models import (
     ModelConfig, MOONLIGHT_16B_A3B, params_from_jax)
 from tensorrt_llm_tpu_torch.ops.linear_8bit import (
-    int8_product, quantize_act_fp8)
+    int8_product, int_mm_operands, pad_int_mm_weight, quantize_act_fp8)
 from tensorrt_llm_tpu_torch.ops.w4a16_gemm import quantize_act_int8
 from tensorrt_llm_tpu_torch.quantization import (
     QuantAlgo, QuantConfig, quantize_fp8, quantize_w8)
@@ -169,8 +169,9 @@ def _port_linear(algo, jparams, K, N):
 
 @pytest.mark.parametrize("algo", ALGOS)
 @pytest.mark.parametrize("act,bias", [(None, False), ("silu", True)])
-def test_apply_matches_jax(algo, act, bias):
-    K, N, M = 192, 80, 7
+@pytest.mark.parametrize("K,N", [(192, 80), (100, 37)])
+def test_apply_matches_jax(algo, act, bias, K, N):
+    M = 7
     w = _weights(11, K, N)
     rng = np.random.default_rng(12)
     b = rng.standard_normal(N).astype(np.float32) if bias else None
@@ -187,6 +188,12 @@ def test_apply_matches_jax(algo, act, bias):
                      else torch.from_numpy(b))
     np.testing.assert_array_equal(_raw(fresh.qweight), _raw(lin.qweight))
     assert torch.equal(fresh.scales, lin.scales)
+    assert tuple(lin.qweight.shape) == (K, N)
+    if algo == "W8A8_SQ_PER_CHANNEL":
+        # padded once at load; qweight is a view of that storage
+        mm = lin.qweight_mm
+        assert mm.shape[0] % 8 == 0 and mm.shape[1] % 8 == 0
+        assert lin.qweight.data_ptr() == mm.data_ptr()
     with torch.no_grad():
         out = lin(_t(x), activation=act)
     assert out.dtype == torch.bfloat16 and out.shape == (M, N)
@@ -216,6 +223,34 @@ def test_w8a8_int32_accumulator_exact():
     # what an f32 product loses on the same terms
     f32 = torch.from_numpy(xq).float() @ torch.from_numpy(wq).float()
     assert int(f32[0, 0]) != ref[0, 0]
+
+
+@pytest.mark.parametrize("M,K,N", [(5, 37, 13), (20, 100, 30), (1, 8, 9)])
+def test_w8a8_product_at_odd_k_and_n(M, K, N):
+    """W8A8 at any K and N, as JAX's int8 dot takes them: the product of
+    the weight as given and of its zero-padded copy (`pad_int_mm_weight`,
+    K and N multiples of 8, made once at load), and the card's
+    `torch._int_mm` operands (more than 16 rows) sliced back, all bit for
+    bit."""
+    rng = np.random.default_rng(M * K + N)
+    xq = rng.integers(-127, 128, (M, K)).astype(np.int8)
+    wq = rng.integers(-128, 128, (K, N)).astype(np.int8)
+    ref = np.asarray(jnp.dot(jnp.asarray(xq), jnp.asarray(wq),
+                             preferred_element_type=jnp.int32))
+    w = torch.from_numpy(wq).t().contiguous().t()
+    x = torch.from_numpy(xq)
+    np.testing.assert_array_equal(int8_product(x, w).numpy(), ref)
+    wp = pad_int_mm_weight(w)
+    assert wp.shape[0] % 8 == 0 and wp.shape[1] % 8 == 0
+    assert wp.stride(0) == 1
+    np.testing.assert_array_equal(int8_product(x, wp, N).numpy(), ref)
+    for weight in (w, wp):
+        a, b = int_mm_operands(x, weight)
+        assert a.shape[0] > 16 and a.shape[1] == b.shape[0]
+        assert b.shape[0] % 8 == 0 and b.shape[1] % 8 == 0
+        assert b.stride(0) == 1
+        np.testing.assert_array_equal(torch._int_mm(a, b)[:M, :N].numpy(),
+                                      ref)
 
 
 def test_per_token_activations_bit_exact():
