@@ -93,9 +93,9 @@ Phases (any failure exits nonzero; nothing is caught and ignored):
    256-expert MoE);
 15. a short `LLM.generate` at DeepSeek-V3 width (2 dense layers) so that
    K9/K10 run at 128 heads inside the model;
-16. Moonlight and V3.2 widths at 2 layers (V3.2 with `index_topk` 128, below
-   the prompt) on the card and on the CPU: logits and greedy tokens must
-   agree;
+16. Moonlight and V3.2 widths at 2 layers on the card and on the CPU, on
+   `SHORT_CROSS`'s 200-token prompt in chunks of 128 and two decode steps:
+   logits and greedy tokens must agree;
 17. `checkpoint`: `LLM(model=<HF checkpoint dir>)` on checkpoints the script
    writes with its own safetensors writer (it needs no `safetensors`
    package): TinyLlama-1.1B at full width, 4 layers deep, in two bf16
@@ -214,7 +214,20 @@ Phases (any failure exits nonzero; nothing is caught and ignored):
 27. `quant8_cross`: Llama-3-8B width at 2 layers on the card and on the
    CPU under FP8 + FP8 KV, FP8_PER_CHANNEL_PER_TOKEN, W8A16 and
    W8A8_SQ_PER_CHANNEL, as in phase 7 (`QUANT8_CROSS` has each
-   tolerance).
+   tolerance), on `SHORT_CROSS`'s prompt and steps, as phase 16;
+28. `qwen2_5`: Qwen2.5-7B widths (28/4 heads: a decode group of 7, QKV
+   bias; its `config.json` marks every layer sliding at 131,072 tokens, so
+   no ring) at `QWEN2_5_LAYERS` (8) layers, W4A16 g128, the serve mix with
+   exact launches (K3 8 x chunks, K4 8 x steps), then the same `LLM` with
+   every kernel plain on the card (`PlainKernels`): equal tokens, or a
+   first difference at a near-tie (`qwen2_5_phase`);
+29. `zoo`: the other dense families (Qwen3, SmolLM3, OLMo2, Granite,
+   Starcoder2, Nemotron, GLM, GLM4, Phi-4, EXAONE-4, Seed-OSS, Apertus,
+   HunYuan) at their published widths (the presets in `models/`) and 2
+   layers, one of each layer kind, W4A16 g128: 2 greedy requests of 300
+   and 40 tokens, 16 new, K3/K4 once per layer per chunk and step, tokens
+   against `PlainKernels` on the same `LLM`, build seconds and tokens/s
+   (`zoo_phase`).
 
 Depth cuts that keep the script in its time limit (widths unchanged): the
 bench presets (`BENCH_LAYERS`: all four at 4 layers, TinyLlama and
@@ -236,14 +249,15 @@ in the `--json` output (`PHASES["seconds"]`).
 Arguments pick phases (default: check serve serve_ramp serve_stream
 fused_mlp cross llama3 gptoss gptoss_cross llama3_w4a8 llama3_w4a8_cross
 llama3_fp8 tinyllama_fp8kv quant8_cross deepseek deepseek_v32
-deepseek_v3_width deepseek_cross checkpoint sampling openai disagg spec
-beam_lora bench bench_cross);
+deepseek_v3_width deepseek_cross gemma2 plain_route qwen2_5 zoo
+checkpoint sampling openai disagg spec beam_lora bench bench_cross);
 `check_moe` runs
 only K5's checks, `check_w4a8` only K8's, `check_int8` only K6-K8's,
 `check_fp8` only the FP8 ones (the cast, K3/K4's e4m3 instances, the
 8-bit linears),
 `check_mla` only K9-K11's (with their plans' checks),
-`check_w4a16` only K12-K14's and `check_k1` only K1's; `profile`,
+`check_w4a16` only K12-K14's, `check_k1` only K1's and `check_attn` only
+K3/K4's over bf16 pages (PREFILL_CASES, DECODE_CASES); `profile`,
 `profile_gptoss`, `profile_llama3_int8`, `profile_deepseek` and
 `profile_deepseek_v32`, run only when named, trace a short serve window
 with torch.profiler (the DeepSeek ones fail if K9 runs a combine pass);
@@ -304,11 +318,20 @@ GEMM_SHAPES = {"tinyllama": [(2048, 2560), (2048, 2048), (2048, 11264),
                "gpt-oss-20b": [(2880, 5120)],
                # the bench preset (intermediate 11,008; o's (4096, 4096)
                # is Llama-3-8B's)
-               "llama-2-7b": [(4096, 12288), (4096, 22016), (11008, 4096)]}
+               "llama-2-7b": [(4096, 12288), (4096, 22016), (11008, 4096)],
+               # `qwen2_5`'s (QKV with its bias, in GEMM_BIAS)
+               "qwen2.5-7b": [(3584, 4608), (3584, 3584), (3584, 37888),
+                              (18944, 3584)]}
 GEMM_GROUP = {"gpt-oss-20b": 64}          # others: 128
 # 32: the bench's decode at batch 32; 2048: its warmup's prefill
 # (`max_num_tokens` 2048 of 128-token prompts)
 GEMM_M = (1, 4, 8, 16, 17, 32, 128, 200, 255, 256, 512, 2048)
+# the token counts `qwen2_5` serves: decode batches of 1 to 4, and prefill
+# chunks of up to its `max_num_tokens` 256
+GEMM_M_BY_MODEL = {"qwen2.5-7b": (1, 2, 4, 17, 64, 200, 256)}
+# (model, K, N) of the biased linears on a served path: also checked with
+# their bias at every token count
+GEMM_BIAS = {("qwen2.5-7b", 3584, 4608)}
 # K8's token counts (its path, `serve_llama3_w4a8`, not the bench's)
 W4A8_M = (1, 4, 8, 16, 17, 128, 200, 255, 256, 512)
 # K1's configurations (`K1_VARIANTS`) timed with and without each prefill
@@ -361,6 +384,19 @@ PREFILL_CASES = [
     ("gpt-oss-20b", 64, 8, 64, 256, 256, None, None, True),
     # a short chunk after a long prefix (one block per KV head walks it)
     ("llama-3-8b", 32, 8, 128, 17, 1024, None, None, False),
+    # the dense zoo's groups at D 128: Qwen2.5-7B's 7 (with and without
+    # the 131,072-token window its config.json passes), EXAONE-4's 5 (its
+    # window 4,096 past the chunk), Minitron's 6, Starcoder2's 9,
+    # Seed-OSS's 10, GLM's 16
+    ("qwen2.5-7b", 28, 4, 128, 256, 256, None, None, False),
+    ("qwen2.5-7b", 28, 4, 128, 256, 256, 131072, None, False),
+    ("qwen2.5-7b", 28, 4, 128, 17, 300, 131072, None, False),
+    ("exaone-4.0-32b", 40, 8, 128, 256, 4000, 4096, None, False),
+    ("minitron-8b", 48, 8, 128, 256, 256, None, None, False),
+    ("starcoder2-7b", 36, 4, 128, 256, 256, 4096, None, False),
+    ("seed-oss-36b", 80, 8, 128, 256, 256, None, None, False),
+    ("glm-4-9b", 32, 2, 128, 256, 256, None, None, False),
+    ("glm-4-9b", 32, 2, 128, 44, 256, None, None, False),
     # speculative decoding past a served prompt: verify chunks of k + 1
     # rows (NGRAM's ~2, EAGLE3's and DRAFT_TARGET's 4, the oracles' 5),
     # EAGLE3's one-row block passes, and the TinyLlama draft's passes of
@@ -401,6 +437,17 @@ DECODE_CASES = [
     ("llama-3-8b", 32, 8, 128, BENCH_DECODE_LENS, None, None, False),
     ("gpt-oss-20b", 64, 8, 64, BENCH_DECODE_LENS, 128, None, True),
     ("gpt-oss-20b", 64, 8, 64, BENCH_DECODE_LENS, None, None, True),
+    # the dense zoo's groups at D 128 (the group of 7 is in
+    # DECODE_GROUP_CASES): Qwen2.5-7B's with the 131,072-token window its
+    # config.json passes; the instance padded to 16 rows at Starcoder2's 9
+    # (window 4,096), Seed-OSS's 10 and GLM's 16; EXAONE-4's 5 (window
+    # 4,096)
+    ("qwen2.5-7b", 28, 4, 128, [320, 400, 1000, 4000], 131072, None, False),
+    ("starcoder2-7b", 36, 4, 128, [81, 150, 400, 5000], 4096, None, False),
+    ("seed-oss-36b", 80, 8, 128, [81, 150, 400, 664], None, None, False),
+    ("glm-4-9b", 32, 2, 128, [81, 150, 400, 664], None, None, False),
+    ("glm-4-9b", 32, 2, 128, [320, 400, 1000, 4000], None, None, False),
+    ("exaone-4.0-32b", 40, 8, 128, [81, 150, 400, 5000], 4096, None, False),
 ]
 DECODE_INT8_CASES = [c for c in DECODE_CASES if c[0] == "llama-3-8b"
                      and c[4] is not BENCH_DECODE_LENS] + [
@@ -427,7 +474,8 @@ DECODE_FP8_CASES = [
 # their e4m3 and INT8 instances (each capped shape also uncapped, the
 # library's time: SDPA has no cap), and decodes at Qwen2.5-7B's group of 7
 # (28/4 heads) and at a group of 16 (the padded rows g + 8 of the kernel),
-# each over bf16, e4m3 and INT8 pages
+# each over bf16, e4m3 and INT8 pages; the group of 16 also uncapped and
+# without sinks, the library's time (SDPA has neither)
 PREFILL_D256_CASES = [
     ("gemma-2-9b", 16, 8, 256, 256, 256, None, 50.0, False),
     ("gemma-2-9b", 16, 8, 256, 256, 256, None, None, False),
@@ -439,6 +487,7 @@ DECODE_D256_CASES = [
 DECODE_GROUP_CASES = [
     ("qwen2.5-7b", 28, 4, 128, [320, 400, 1000, 4000], None, None, False),
     ("group-16", 32, 2, 256, [81, 150, 400, 664], 128, 50.0, True),
+    ("group-16", 32, 2, 256, [81, 150, 400, 664], 128, None, False),
 ]
 # `decode_plan`'s split length must be within this share of the fastest
 # split length's time at every decode row (bf16, int8 and e4m3 pools)
@@ -547,10 +596,13 @@ def check_gemm(gen, dev):
             wdq = dequantize_w4_any(packed, s).to(torch.bfloat16)
             lib_w = [wdq.clone() for _ in range(copies_for(wdq.numel() * 2))]
             del w, q
-            cases = [(M, None, False) for M in GEMM_M]
+            ms = GEMM_M_BY_MODEL.get(model, GEMM_M)
+            cases = [(M, None, False) for M in ms]
             if (K, N) == (2048, 2560):
                 # the fused epilogue and zero points (off the main path)
                 cases += [(4, "silu", True), (256, "silu", True)]
+            if (model, K, N) in GEMM_BIAS:
+                cases += [(M, None, "bias") for M in ms]
             for M, act, extras in cases:
                 x = (torch.randn((M, K), generator=gen, device=dev)
                      ).to(torch.bfloat16)
@@ -558,13 +610,15 @@ def check_gemm(gen, dev):
                 name = "w4a16_gemv" if M <= W.GEMV_MAX_M else "w4a16_gemm"
                 z = b = None
                 if extras:
+                    b = torch.randn((N,), generator=gen, device=dev)
+                if extras is True:
                     z = torch.randint(-8, 8, s.shape, generator=gen,
                                       device=dev).to(torch.bfloat16)
-                    b = torch.randn((N,), generator=gen, device=dev)
                 out = fn(x, packed, s, z, b, act)
                 ref = W.w4a16_matmul_plain(x, packed, s, z, b, act)
                 shape = {"model": model, "M": M, "K": K, "N": N, "G": G,
-                         "act": act, "zeros_bias": extras}
+                         "act": act, "zeros_bias": extras is True,
+                         "bias": bool(extras)}
                 if name == "w4a16_gemm":
                     plan = W.k1_plan(M, K, N)
                     shape.update(config=W.K1_VARIANTS[plan["variant"]],
@@ -589,10 +643,19 @@ def check_gemm(gen, dev):
                 l_ms = (cuda_ms([lambda lw=lw: torch.matmul(x, lw)
                                  for lw in lib_w], 30)
                         if not extras else None)
-                # K1 beside K2 at decode: the tuner times both there
-                extra = ({"k1_ms": cuda_ms([lambda p=p, sc=sc: W.w4a16_gemm(
-                    x, p, sc, z, b, act) for p, sc in ws], 30)}
-                    if name == "w4a16_gemv" else {})
+                # K1 beside K2 at decode: the tuner times both there, and
+                # serves K1 where it wins (Qwen2.5-7B's QKV and o), so it
+                # is held to the same tolerance
+                extra = {}
+                if name == "w4a16_gemv":
+                    k1_out = W.w4a16_gemm(x, packed, s, z, b, act)
+                    torch.cuda.synchronize()
+                    k1_err = (k1_out.float() - ref.float()).abs().max().item()
+                    assert k1_err <= tol, \
+                        f"w4a16_gemm {shape}: max_err {k1_err} > tol {tol}"
+                    extra = {"k1_max_err": k1_err,
+                             "k1_ms": cuda_ms([lambda p=p, sc=sc: W.w4a16_gemm(
+                                 x, p, sc, z, b, act) for p, sc in ws], 30)}
                 nbytes = M * K * 2 + wq_bytes + M * N * 2
                 record(name, shape, err, tol, k_ms, p_ms, l_ms,
                        bound_ms(nbytes, 2 * M * N * K), **extra)
@@ -2247,6 +2310,12 @@ QUANT8_CROSS = (("FP8", "FP8", 8, 0.08),
                 ("W8A8_SQ_PER_CHANNEL", "NONE", 11, 0.08))
 
 
+# `deepseek_cross` and `quant8_cross`: a 200-token prompt in a chunk of 128
+# (a whole tile of the prefill kernels) and one of 72 after its KV, then
+# two decode steps (four in the other cross-checks: the script's time
+# limit); their cost is the CPU's forwards at full width, a few seconds
+# each whatever the token count
+SHORT_CROSS = dict(n_prompt=200, chunk=128, n_decode=2)
 GPT_OSS_LAYERS = 12     # of 24: the script's time limit
 LLAMA3_W4A8_LAYERS = 8  # Llama-3-8B widths: 8 layers here, in
 LLAMA3_FP8_LAYERS = 8   # `llama3_fp8`, in
@@ -6372,6 +6441,189 @@ def plain_route_phase(card):
     log(json.dumps({"phase": "plain_route", **out}))
 
 
+# ------------------------------------------------------------- qwen2_5 ---
+QWEN2_5_PATH = "serve_qwen2_5"   # Qwen2.5-7B widths: K1/K2, K3/K4 at group 7
+QWEN2_5_LAYERS = 8               # of 28 (the script's time limit)
+QWEN2_5_TIE = 0.02               # logprob gap accepted at a greedy near-tie
+
+
+def qwen2_5_cfg(num_layers):
+    """Qwen2.5-7B's published widths (`models.QWEN2_5_7B`, its
+    `config.json` as it stands: every layer slides at 131,072 tokens, so
+    no pool is a ring) at `num_layers`, W4A16 group 128."""
+    from tensorrt_llm_tpu_torch.models import QWEN2_5_7B, ModelConfig
+    from tensorrt_llm_tpu_torch.quantization import QuantAlgo, QuantConfig
+    return ModelConfig.from_hf_config(
+        dict(QWEN2_5_7B["hf_config"], num_hidden_layers=num_layers),
+        quant=QuantConfig(quant_algo=QuantAlgo.W4A16, group_size=128))
+
+
+def _plain_tokens(llm, prompts, max_tokens, salt):
+    """`llm`'s greedy tokens with every kernel replaced by its plain version
+    on the card (`PlainKernels`), under a fresh cache salt; fails if any
+    kernel launched."""
+    import tensorrt_llm_tpu_torch as T
+    from tensorrt_llm_tpu_torch.ops import cuda_build
+    cuda_build.reset_launch_counts()
+    with PlainKernels():
+        outs = llm.generate(prompts, T.SamplingParams(
+            max_tokens=max_tokens, temperature=0.0, ignore_eos=True),
+            cache_salt=salt)
+    counts = dict(cuda_build.launch_counts)
+    assert not counts, f"plain run launched kernels: {counts}"
+    return [o.outputs[0].token_ids for o in outs]
+
+
+def qwen2_5_phase(card, by_path):
+    """Qwen2.5-7B widths (vocab 152,064, hidden 3,584, 28/4 heads of 128:
+    a decode group of 7, QKV bias) at `QWEN2_5_LAYERS` layers, W4A16 g128,
+    the serve mix through `LLM.generate` (`serve_model`: warmup and the
+    tuner first, K3 once per layer and chunk, K4 once per layer and step,
+    K1/K2 as the tuner picks); then the same `LLM` with every kernel
+    replaced by its plain version on the card (`PlainKernels`): its tokens
+    equal the kernels', or differ first at a near-tie (`QWEN2_5_TIE`)."""
+    n = QWEN2_5_LAYERS
+    cfg = qwen2_5_cfg(n)
+    assert cfg.num_heads // cfg.num_kv_heads == 7
+    assert all(cfg.is_sliding_layer(i) for i in range(n))
+    plain = {}
+
+    def check(llm, prompts, outs):
+        toks = [o.outputs[0].token_ids for o in outs]
+        t0 = time.perf_counter()
+        ptoks = _plain_tokens(llm, prompts, 64, "qwen2_5-plain")
+        plain["plain_wall_s"] = time.perf_counter() - t0
+        plain["exact_requests"], plain["near_ties"] = _near_ties(
+            llm, prompts, ptoks, toks, tie=QWEN2_5_TIE, salt="qwen2_5-tie")
+
+    counts = serve_model(card, QWEN2_5_PATH,
+                         f"qwen2.5-7b widths W4A16 g128 ({n} layers)", cfg,
+                         ("w4a16_gemm", "flash_prefill", "paged_decode"),
+                         check=check)
+    res = PHASES[QWEN2_5_PATH]
+    res.update(plain)
+    assert res["prefill_attention_per_chunk"] == n, res
+    assert res["decode_attention_per_step"] == n, res
+    log(json.dumps({"phase": QWEN2_5_PATH, "card": card, **plain}))
+    assert all(t["near_tie"] for t in plain["near_ties"]), plain
+    by_path[QWEN2_5_PATH] = counts
+    return counts
+
+
+# ---------------------------------------------------------------- zoo ---
+ZOO_PATH = "zoo"
+ZOO_LAYERS = 2
+ZOO_PROMPTS = (300, 40)    # two prefill chunks of 256, and one
+ZOO_NEW = 16
+ZOO_TIE = 0.02
+# (name, preset in `models`, what the 2-layer cut keeps: one layer of each
+# kind)
+ZOO = (("qwen3-8b", "QWEN3_8B", {}),
+       ("smollm3-3b", "SMOLLM3_3B", {"no_rope_layers": [1, 0]}),
+       ("olmo-2-1124-7b", "OLMO2_7B", {}),
+       ("granite-3.1-8b", "GRANITE_3_1_8B", {}),
+       ("starcoder2-7b", "STARCODER2_7B", {}),
+       ("minitron-8b", "MINITRON_8B", {}),
+       ("glm-4-9b-chat-hf", "GLM_4_9B_CHAT", {}),
+       ("glm-4-9b-0414", "GLM4_9B_0414", {}),
+       ("phi-4", "PHI_4", {}),
+       ("exaone-4.0-32b", "EXAONE4_32B",
+        {"layer_types": ["sliding_attention", "full_attention"]}),
+       ("seed-oss-36b", "SEED_OSS_36B", {}),
+       ("apertus-8b", "APERTUS_8B", {}),
+       ("hunyuan-7b", "HUNYUAN_7B", {}))
+
+
+def zoo_cfg(preset, over, num_layers=ZOO_LAYERS):
+    """A family's published widths (the preset `models.<preset>`) at
+    `num_layers`, with the layer-kind lists cut to match, W4A16 g128."""
+    from tensorrt_llm_tpu_torch import models
+    from tensorrt_llm_tpu_torch.quantization import QuantAlgo, QuantConfig
+    hf = dict(getattr(models, preset)["hf_config"],
+              num_hidden_layers=num_layers, **over)
+    return models.ModelConfig.from_hf_config(
+        hf, quant=QuantConfig(quant_algo=QuantAlgo.W4A16, group_size=128))
+
+
+def zoo_phase(card, by_path):
+    """Every dense family of the model zoo but Qwen2 (served in `qwen2_5`)
+    at its published widths and `ZOO_LAYERS` layers (one of each layer
+    kind: SmolLM3's NoPE layer, EXAONE-4's global NoPE layer beside a
+    sliding one), W4A16 g128, no warmup: 2 greedy requests of
+    `ZOO_PROMPTS` tokens, `ZOO_NEW` new each, through `LLM.generate`.  K1
+    and the attention kernels launch (K3 once per layer and chunk, K4 once
+    per layer and step); the same `LLM` with every kernel plain on the
+    card gives the same tokens, or differs first at a near-tie
+    (`ZOO_TIE`).  A width or group a kernel refuses raises
+    NotImplementedError and fails the phase."""
+    import numpy as np
+    import torch
+    import tensorrt_llm_tpu_torch as T
+    from tensorrt_llm_tpu_torch.ops import cuda_build
+    total, rows = {}, []
+    for name, preset, over in ZOO:
+        cfg = zoo_cfg(preset, over)
+        t0 = time.perf_counter()
+        llm = T.LLM(model=cfg, skip_tokenizer_init=True, device=DEVICE,
+                    max_batch_size=2, max_num_tokens=256, max_seq_len=512,
+                    kv_block_size=16, kv_num_blocks=96, seed=0,
+                    load_format="dummy", enable_warmup=False)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        try:
+            cfg = llm.model_config
+            rng = np.random.default_rng(11)
+            prompts = [[int(t) for t in rng.integers(10, cfg.vocab_size - 10,
+                                                     m)]
+                       for m in ZOO_PROMPTS]
+            it0 = llm.executor.iteration
+            cuda_build.reset_launch_counts()
+            t0 = time.perf_counter()
+            outs = llm.generate(prompts, T.SamplingParams(
+                max_tokens=ZOO_NEW, temperature=0.0, ignore_eos=True))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = dict(cuda_build.launch_counts)
+            stats = [s for s in llm.get_stats() if s["iteration"] > it0]
+            toks = [o.outputs[0].token_ids for o in outs]
+            assert all(len(t) == ZOO_NEW for t in toks), toks
+            rings = ring_layers(llm)
+            assert not rings, (name, rings)
+            chunks, dsteps, *_ = assert_launches(
+                cfg, counts, stats, ("w4a16_gemm", "flash_prefill",
+                                     "paged_decode"))
+            ptoks = _plain_tokens(llm, prompts, ZOO_NEW, f"{name}-plain")
+            exact, ties = _near_ties(llm, prompts, ptoks, toks, tie=ZOO_TIE,
+                                     salt=f"{name}-tie")
+        finally:
+            llm.shutdown()
+        L = cfg.num_layers
+        row = {"family": name, "architecture": cfg.architecture,
+               "hidden": cfg.hidden_size, "heads": cfg.num_heads,
+               "kv_heads": cfg.num_kv_heads, "head_dim": cfg.head_dim,
+               "group": cfg.num_heads // cfg.num_kv_heads,
+               "vocab": cfg.vocab_size, "layers": L,
+               "nope_layers": [i for i in range(L) if cfg.is_nope_layer(i)],
+               "sliding_layers": [i for i in range(L)
+                                  if cfg.is_sliding_layer(i)],
+               "build_s": build_s, "wall_s": wall,
+               "tokens_per_s": len(prompts) * ZOO_NEW / wall,
+               "prefill_chunks": chunks, "decode_steps": dsteps,
+               "launches": counts, "exact_requests": exact,
+               "near_ties": ties}
+        rows.append(row)
+        log(f"[zoo] {json.dumps(row)}; {card}")
+        assert all(t["near_tie"] for t in ties), row
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+        del llm
+        torch.cuda.empty_cache()
+    PHASES[ZOO_PATH] = {"phase": ZOO_PATH, "card": card, "families": rows,
+                        "launches": total}
+    by_path[ZOO_PATH] = total
+    return total
+
+
 SERVE_PATH = "serve"                    # TinyLlama W4A16: K1-K4, K13
 GPT_OSS_PATH = "serve_gpt_oss"          # GPT-OSS-20B: K1, K3-K5, K12
 LLAMA3_W4A8_PATH = "serve_llama3_w4a8"  # slice 3's path: K6-K8 run there
@@ -6595,6 +6847,7 @@ def main() -> int:
                       "llama3_fp8", "tinyllama_fp8kv", "quant8_cross",
                       "deepseek", "deepseek_v32", "deepseek_v3_width",
                       "deepseek_cross", "gemma2", "plain_route",
+                      "qwen2_5", "zoo",
                       "checkpoint", "sampling", "openai",
                       "disagg", "spec", "beam_lora", "bench",
                       "bench_cross"]
@@ -6653,7 +6906,7 @@ def run_phases(phases, card, gen, dev, by_path):
         check_moe(gen, dev)
     if on("check", "check_k1"):
         check_gemm(gen, dev)
-    if on("check"):
+    if on("check", "check_attn"):
         check_prefill(gen, dev)
         check_decode(gen, dev)
     if on("check", "check_int8"):
@@ -6752,8 +7005,8 @@ def run_phases(phases, card, gen, dev, by_path):
             cross_check_cpu(f"quant8_cross_{algo.lower()}",
                             f"llama-3-8b width {algo}, {kv} KV, 2 layers",
                             quant_cfg(LLAMA3_8B, algo, num_layers=2),
-                            seed=seed, n_prompt=200, chunk=128, n_decode=4,
-                            kv_cache_quant=kv, tol=tol)
+                            seed=seed, kv_cache_quant=kv, tol=tol,
+                            **SHORT_CROSS)
     attn_gqa = ("flash_prefill", "paged_decode")
     if on("deepseek"):
         n = MOONLIGHT_LAYERS
@@ -6777,16 +7030,19 @@ def run_phases(phases, card, gen, dev, by_path):
     if on("deepseek_cross"):
         cross_check_cpu("moonlight_cross_check",
                         "moonlight-16b-a3b width, 2 layers (dense, MoE)",
-                        moonlight_cfg(2), seed=6, n_prompt=200, chunk=128,
-                        n_decode=4)
+                        moonlight_cfg(2), seed=6, **SHORT_CROSS)
         cross_check_cpu("deepseek_v32_cross_check",
                         "deepseek-v3.2 width, 2 layers (index_topk 2048 "
                         "covers the context)", deepseek_cfg(2), seed=7,
-                        n_prompt=200, chunk=128, n_decode=4)
+                        **SHORT_CROSS)
     if on("gemma2"):
         gemma2_phase(card, by_path)
     if on("plain_route"):
         plain_route_phase(card)
+    if on("qwen2_5"):
+        qwen2_5_phase(card, by_path)
+    if on("zoo"):
+        zoo_phase(card, by_path)
     if on("checkpoint"):
         checkpoint_phase(card, by_path)
     if on("sampling"):

@@ -1,17 +1,20 @@
 """Multi-head attention (GQA) over a paged KV cache.
 
-Counterpart of `tensorrt_llm_tpu/layers/attention.py` for the Llama,
-Mixtral, GPT-OSS and Gemma families: fused QKV projection (optionally
-biased), per-head q/k RMSNorm before RoPE (`has_qk_norm`, Gemma-3), RoPE,
-KV append and backend attention, output projection (optionally biased).
+Counterpart of `tensorrt_llm_tpu/layers/attention.py` for the dense GQA
+families: fused QKV projection (optionally biased), q/k RMSNorm
+(`has_qk_norm`: per head before RoPE, as Qwen3 and Gemma-3; with
+`qk_norm_flat` one RMS over the flattened heads x D projection, Olmo2,
+weights [H*D]; with `qk_norm_post_rope` per head after RoPE, HunYuan),
+RoPE (adjacent pairs under `interleaved`, GLM; partial when the tables are
+narrower than the head; none on a NoPE layer, `nope`), KV append and
+backend attention, output projection (optionally biased).
 Attention sinks (a per-head logit in the softmax denominator), a per-layer
 sliding window, a logit cap (`logit_cap`, Gemma-2's
 `attn_logit_softcapping`) and chunked attention (`attention_chunk`) pass
 through to the backend; `scale` overrides head_dim^-0.5 (Gemma's
 `query_pre_attn_scalar ** -0.5`).  A sliding layer under VSWA rings
 attends through its ring (`AttentionMetadata.for_sliding_layer`, applied
-by the decoder layer).  NoPE layers and context parallelism belong to
-later slices.
+by the decoder layer).  Context parallelism belongs to a later slice.
 
 Multi-LoRA (JAX `layers/attention.py:173-219`): when the layer holds
 adapter stacks (``lora_qkv_*``, ``lora_o_*``, installed by
@@ -45,7 +48,9 @@ class Attention(nn.Module):
                  logit_cap: Optional[float] = None,
                  attention_chunk: Optional[int] = None,
                  scale: Optional[float] = None, has_qk_norm: bool = False,
-                 rms_eps: float = 1e-6):
+                 rms_eps: float = 1e-6, qk_norm_flat: bool = False,
+                 qk_norm_post_rope: bool = False, nope: bool = False,
+                 interleaved: bool = False):
         super().__init__()
         self.num_heads = num_heads
         self.num_kv_heads = num_kv_heads
@@ -54,6 +59,10 @@ class Attention(nn.Module):
         self.has_o_bias = has_o_bias
         self.has_sinks = has_sinks
         self.has_qk_norm = has_qk_norm
+        self.qk_norm_flat = qk_norm_flat
+        self.qk_norm_post_rope = qk_norm_post_rope
+        self.nope = nope
+        self.interleaved = interleaved
         self.rms_eps = rms_eps
         self.sliding_window = sliding_window
         qkv_out = (num_heads + 2 * num_kv_heads) * head_dim
@@ -73,8 +82,9 @@ class Attention(nn.Module):
     def from_float(self, q_w, k_w, v_w, o_w, q_b=None, k_b=None, v_b=None,
                    o_b=None, sinks=None, q_norm=None, k_norm=None) -> None:
         """Full float weights [in, out] (or AWQ/GPTQ `QTensor`s); biases,
-        sinks and the q/k norm weights [head_dim] as the JAX package's
-        `Attention.from_float` takes them (tp = 1)."""
+        sinks and the q/k norm weights ([head_dim], or [heads * head_dim]
+        under `qk_norm_flat`) as the JAX package's `Attention.from_float`
+        takes them (tp = 1)."""
         bias = (torch.cat([q_b, k_b, v_b]) if self.has_bias else None)
         self.qkv.from_float(wcat([q_w, k_w, v_w]), bias)
         self.o.from_float(o_w, o_b if self.has_o_bias else None)
@@ -97,10 +107,21 @@ class Attention(nn.Module):
         q = qkv[:, :qh * D].reshape(T, qh, D)
         k = qkv[:, qh * D:(qh + kvh) * D].reshape(T, kvh, D)
         v = qkv[:, (qh + kvh) * D:].reshape(T, kvh, D).contiguous()
-        if self.has_qk_norm:
-            q = rms_norm(q, self.q_norm, self.rms_eps)
-            k = rms_norm(k, self.k_norm, self.rms_eps)
-        q, k = apply_rope(q, k, meta.positions, *rope_tables)
+        eps = self.rms_eps
+        if self.has_qk_norm and self.qk_norm_flat:
+            q = rms_norm(q.reshape(T, qh * D), self.q_norm,
+                         eps).reshape(T, qh, D)
+            k = rms_norm(k.reshape(T, kvh * D), self.k_norm,
+                         eps).reshape(T, kvh, D)
+        elif self.has_qk_norm and not self.qk_norm_post_rope:
+            q = rms_norm(q, self.q_norm, eps)
+            k = rms_norm(k, self.k_norm, eps)
+        if not self.nope:
+            q, k = apply_rope(q, k, meta.positions, *rope_tables,
+                              interleaved=self.interleaved)
+        if self.has_qk_norm and self.qk_norm_post_rope:
+            q = rms_norm(q, self.q_norm, eps)
+            k = rms_norm(k, self.k_norm, eps)
         k_cache, v_cache = kv_cache
         out = self.backend(q.contiguous(), k.contiguous(), v, k_cache,
                            v_cache, meta, sinks=self.sinks)

@@ -18,9 +18,10 @@ file mappings: the whole checkpoint, at the end of a load.)
 for a key the file leaves out, for the five families the port serves
 (`_HF_DEFAULTS`: the defaults of transformers' `LlamaConfig`,
 `MistralConfig`, `MixtralConfig`, `GptOssConfig` and `DeepseekV3Config`,
-plus the values they derive: kv heads, head_dim, GPT-OSS's `layer_types`),
-so that `ModelConfig.from_hf_config` builds the config the JAX package
-builds from the same file.
+plus the values they derive: kv heads, head_dim, GPT-OSS's `layer_types`;
+for the dense zoo's families only `tie_word_embeddings`, from the family
+class's `HF_TIE_DEFAULT`), so that `ModelConfig.from_hf_config` builds the
+config the JAX package builds from the same file.
 """
 
 from __future__ import annotations
@@ -149,12 +150,29 @@ _MODEL_TYPES = {"LlamaForCausalLM": "llama", "MistralForCausalLM": "mistral",
                 "DeepseekV3ForCausalLM": "deepseek_v3"}
 
 
+def _zoo_types() -> Dict[str, type]:
+    """The dense zoo's families by architecture: each class names its HF
+    model type and whether its HF class ties the embeddings by default.
+    `save_pretrained` writes every key but those equal to
+    `PretrainedConfig`'s own defaults, so of the keys the port reads only
+    `tie_word_embeddings` can be missing from such a file (when it is true,
+    that default); it takes the family's default, and nothing is filled in
+    from Llama's defaults."""
+    from tensorrt_llm_tpu_torch.models.modeling_utils import (
+        registered_models)
+    return {a: c for a, c in registered_models().items() if c.HF_MODEL_TYPE}
+
+
 def hf_config_defaults(hf: dict) -> dict:
     """`hf` with the defaults `AutoConfig` gives its family filled in."""
     archs = hf.get("architectures") or []
-    mtype = hf.get("model_type") or _MODEL_TYPES.get(
-        archs[0] if archs else "", "llama")
-    out = dict(_HF_DEFAULTS.get(mtype, _LLAMA))
+    zoo = _zoo_types()
+    arch = archs[0] if archs else ""
+    mtype = (hf.get("model_type") or _MODEL_TYPES.get(arch)
+             or (zoo[arch].HF_MODEL_TYPE if arch in zoo else "llama"))
+    ties = {c.HF_MODEL_TYPE: c.HF_TIE_DEFAULT for c in zoo.values()}
+    out = dict(_HF_DEFAULTS.get(mtype) or (
+        {"tie_word_embeddings": ties[mtype]} if mtype in ties else _LLAMA))
     out.update(hf)
     out["model_type"] = mtype
     if out.get("num_key_value_heads") is None:

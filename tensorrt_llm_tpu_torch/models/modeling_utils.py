@@ -1,19 +1,27 @@
-"""Decoder-only causal LM for the Llama, Mixtral, GPT-OSS, Gemma (1-3 text)
-and DeepSeek V3 families.
+"""Decoder-only causal LM for the Llama (Llama, Mistral, Qwen2, Qwen3,
+SmolLM3, Granite, Seed-OSS), Mixtral, GPT-OSS, Gemma (1-3 text), OLMo2,
+Starcoder2, Nemotron, GLM/GLM4, Phi3/Phi4, EXAONE-4, Apertus, HunYuan
+dense and DeepSeek V3 families.
 
 Counterpart of `tensorrt_llm_tpu/models/modeling_utils.py`: `ModelConfig`
 (the fields those families use, with `from_hf_config`), `DecoderLayer` (GQA
-attention or, when `kv_lora_rank` is set, Multi-head Latent Attention with
-an optional DSA indexer; a gated MLP or a W4A16 MoE, dense on
+attention -- per-head, flat or post-RoPE q/k norms, partial or
+adjacent-pair RoPE, none on NoPE layers -- or, when `kv_lora_rank` is set,
+Multi-head Latent Attention with an optional DSA indexer; a gated MLP, a
+non-gated one (`mlp_gated` False) or a W4A16 MoE, dense on
 `mlp_only_layers`; sliding-window layers by `layer_types`, by Gemma's
-`sliding_window_pattern` or by the window, with their own RoPE base under
-`rope_local_theta`; Gemma's sandwich norms under `post_norms`), and
-`DecoderModelForCausalLM.forward` (embedding, times `embedding_multiplier`
-when set, pre-norm decoder
-layers over a paged KV cache -- bf16, INT8 or FP8 K/V pools, or one
-latent pool per layer under MLA -- final norm, bf16 lm_head, or the
-embedding matrix under `tie_word_embeddings`, then `final_logit_softcap`);
-linears are W4A16,
+`sliding_window_pattern` or by the window, chunked ones on the RoPE layers
+under `attention_chunk_size`, with their own RoPE base under
+`rope_local_theta`; RMSNorm or LayerNorm with a bias (`norm_type`);
+pre-norm blocks, Gemma's and GLM-4's sandwich norms under `post_norms`, or
+OLMo2's and EXAONE-4's norms on the block outputs under
+`post_block_norms`; Granite's `residual_multiplier` on both block
+outputs), and `DecoderModelForCausalLM.forward` (embedding, times
+`embedding_multiplier` when set, the decoder layers over a paged KV cache
+-- bf16, INT8 or FP8 K/V pools, or one latent pool per layer under MLA --
+final norm, bf16 lm_head, or the embedding matrix under
+`tie_word_embeddings`, divided by `logits_scaling`, then
+`final_logit_softcap`); linears are W4A16,
 W4A8_AWQ, W8A16, W8A8, FP8 or unquantized (MoE experts are int4 under the
 W4A16 family and bf16 otherwise, as in the JAX package).
 Weights come from `init_random` (drawn on the model's device from a seeded
@@ -44,19 +52,15 @@ from tensorrt_llm_tpu_torch.layers.attention import Attention
 from tensorrt_llm_tpu_torch.layers.embedding import Embedding
 from tensorrt_llm_tpu_torch.layers.linear import Linear
 from tensorrt_llm_tpu_torch.layers.mla import MLA
-from tensorrt_llm_tpu_torch.layers.mlp import GatedMLP
+from tensorrt_llm_tpu_torch.layers.mlp import MLP, GatedMLP
 from tensorrt_llm_tpu_torch.layers.moe import MoE
-from tensorrt_llm_tpu_torch.ops.norms import add_rms_norm, rms_norm
+from tensorrt_llm_tpu_torch.ops.norms import layer_norm, rms_norm
 from tensorrt_llm_tpu_torch.ops.rope import RopeConfig, make_rope_tables
 from tensorrt_llm_tpu_torch.quantization import QuantConfig
 from tensorrt_llm_tpu_torch.quantization.hf_ingest import (
     maybe_load_quantized)
-from tensorrt_llm_tpu_torch.utils import resolve_device
+from tensorrt_llm_tpu_torch.utils import div_scalar, resolve_device
 
-_HF_ARCHITECTURES = ("LlamaForCausalLM", "MistralForCausalLM",
-                     "MixtralForCausalLM", "GptOssForCausalLM",
-                     "DeepseekV3ForCausalLM", "GemmaForCausalLM",
-                     "Gemma2ForCausalLM", "Gemma3ForCausalLM")
 # HF keys of MoE features the port leaves out (Qwen-MoE's shared-expert
 # width, sparse layer strides), with their neutral value
 _CUT_HF_KEYS = {"shared_expert_intermediate_size": 0,
@@ -85,6 +89,33 @@ class ModelConfig:
     qk_norm: bool = False                 # per-head q/k RMSNorm (Gemma-3)
     activation: str = "silu"              # "gelu": tanh-GELU (Gemma)
     sliding_window: Optional[int] = None
+    # "rmsnorm" or "layernorm" (Starcoder2, Nemotron: weight and bias)
+    norm_type: str = "rmsnorm"
+    norm_bias: bool = False
+    # non-gated MLP up -> activation -> down (Starcoder2, Nemotron,
+    # Apertus), optionally biased
+    mlp_gated: bool = True
+    mlp_bias: bool = False
+    use_bias: Optional[bool] = None       # Starcoder2's HF `use_bias`
+    # OLMo2 / EXAONE-4: x += norm(attn(x)); x += norm(mlp(x)), no pre-norms
+    post_block_norms: bool = False
+    # Granite: x += residual_multiplier * block(x), logits / logits_scaling,
+    # softmax scale attention_multiplier
+    residual_multiplier: Optional[float] = None
+    logits_scaling: Optional[float] = None
+    attention_multiplier: Optional[float] = None
+    # OLMo2: one q/k RMSNorm over the flattened heads * head_dim; HunYuan:
+    # the per-head q/k RMSNorm after RoPE
+    qk_norm_flat: bool = False
+    qk_norm_post_rope: bool = False
+    # NoPE layers: HF's `no_rope_layers` list (1 = RoPE) wins; else every
+    # no_rope_layer_interval-th layer (0: none)
+    no_rope_layer_interval: int = 0
+    no_rope_layers: Optional[tuple] = None
+    # RoPE over adjacent pairs on GQA heads (GLM), and over the leading
+    # head_dim * partial_rotary_factor channels only (GLM, Nemotron)
+    gqa_rope_interleave: bool = False
+    partial_rotary_factor: Optional[float] = None
     # Gemma: post-attention / post-FFW norms around each block, sqrt(hidden)
     # embedding scale, tanh soft caps of the attention scores and the final
     # logits, the attention scale query_pre_attn_scalar ** -0.5, every
@@ -137,18 +168,29 @@ class ModelConfig:
     def is_moe_layer(self, idx: int) -> bool:
         return self.num_experts > 0 and idx not in self.mlp_only_layers
 
+    def is_nope_layer(self, idx: int) -> bool:
+        """JAX `is_nope_layer`: the layer skips RoPE.  An HF
+        `no_rope_layers` list (1 = RoPE, SmolLM3; EXAONE-4's global layers)
+        wins; else every `no_rope_layer_interval`-th layer."""
+        if self.no_rope_layers:
+            return int(self.no_rope_layers[idx]) == 0
+        return (self.no_rope_layer_interval > 0
+                and (idx + 1) % self.no_rope_layer_interval == 0)
+
     def is_sliding_layer(self, idx: int) -> bool:
         """JAX `is_sliding_layer`: an explicit `layer_types` list wins
-        (GPT-OSS, Gemma-3); chunked-attention layers count as sliding (their
-        lookback is bounded by the chunk; the port has no NoPE layers, so
-        with `attention_chunk_size` every layer is chunked); otherwise every
-        `sliding_window_pattern`-th layer is global and the rest slide
-        (pattern 1: every layer slides when a window is set, Mistral)."""
+        (GPT-OSS, Gemma-3, EXAONE-4); under `attention_chunk_size` the
+        layers that keep RoPE are chunked and count as sliding (their
+        lookback is bounded by the chunk) while NoPE layers attend
+        globally; otherwise every `sliding_window_pattern`-th layer is
+        global and the rest slide (pattern 1: every layer slides when a
+        window is set, Mistral, and Qwen2's `config.json`, whose
+        `sliding_window` is read as it stands)."""
         if self.layer_types is not None:
             return self.layer_types[idx] in ("sliding_attention",
                                              "chunked_attention")
         if self.attention_chunk_size:
-            return True
+            return not self.is_nope_layer(idx)
         if self.sliding_window is None:
             return False
         if self.sliding_window_pattern <= 1:
@@ -210,7 +252,11 @@ class ModelConfig:
         return RopeConfig(
             head_dim=self.qk_rope_head_dim if self.is_mla else self.head_dim,
             theta=self.rope_theta,
-            interleaved=self.rope_interleave and self.is_mla,
+            interleaved=((self.rope_interleave and self.is_mla)
+                         or self.gqa_rope_interleave),
+            rotary_dim=(int(self.head_dim * self.partial_rotary_factor)
+                        if not self.is_mla and self.partial_rotary_factor
+                        else None),
             max_position=self.max_position, scaling_type=stype,
             scaling_factor=s.get("factor", 1.0),
             low_freq_factor=s.get("low_freq_factor", 1.0),
@@ -226,11 +272,15 @@ class ModelConfig:
     @classmethod
     def from_hf_config(cls, hf, quant: Optional[QuantConfig] = None
                        ) -> "ModelConfig":
-        """Build from a transformers config (or plain dict) of the Llama,
-        Mistral, Mixtral, GPT-OSS, Gemma (1-3 text) or DeepSeek V3 families
-        (Moonlight; V3.2
-        with its indexer), with the JAX package's field mapping; other
-        architectures, and the features in `_CUT_HF_KEYS`, raise.  A DeepSeek
+        """Build from a transformers config (or plain dict) of an
+        architecture a model class registers (DeepSeek V3: Moonlight, and
+        V3.2 with its indexer), with the JAX package's field mapping; other
+        architectures, and the features in `_CUT_HF_KEYS`, raise.  Keys
+        are read as they stand: Qwen2's `config.json` keeps `sliding_window`
+        131,072 under `use_sliding_window` false, so every layer slides at
+        that window, as in the JAX package (a `transformers.Qwen2Config`
+        object drops it).  The family's activation, norms and MLP kind come
+        from its model class, as the JAX constructors set them.  A DeepSeek
         config (one with `kv_lora_rank`) routes by sigmoid noaux_tc, as the
         JAX package does, and says so if it sets `scoring_func` or
         `topk_method`."""
@@ -245,10 +295,11 @@ class ModelConfig:
                            get("model_type").split("_")) + "ForCausalLM"
         else:
             arch = "LlamaForCausalLM"
-        if arch not in _HF_ARCHITECTURES:
+        known = registered_models()
+        if arch not in known:
             raise NotImplementedError(
                 f"from_hf_config: {arch} is not in this slice "
-                f"(known: {', '.join(_HF_ARCHITECTURES)})")
+                f"(known: {', '.join(sorted(known))})")
         deepseek = get("kv_lora_rank") is not None
         cut = dict(_CUT_HF_KEYS,
                    scoring_func="sigmoid" if deepseek else "softmax",
@@ -271,13 +322,15 @@ class ModelConfig:
             num_kv_heads=(get("num_key_value_heads")
                           or get("num_attention_heads", 32)),
             head_dim=get("head_dim"),
-            rms_eps=get("rms_norm_eps") or 1e-5,
+            rms_eps=(get("rms_norm_eps") or get("layer_norm_epsilon")
+                     or get("norm_epsilon") or get("norm_eps") or 1e-5),
             attention_chunk_size=get("attention_chunk_size"),
             rope_theta=get("rope_theta", 10000.0),
             rope_scaling=get("rope_scaling"),
             max_position=get("max_position_embeddings", 4096),
             tie_word_embeddings=get("tie_word_embeddings", False),
-            attention_bias=bool(get("attention_bias", False)),
+            attention_bias=bool(get("attention_bias", False)
+                                or get("qkv_bias", False)),
             o_bias=gpt_oss and bool(get("attention_bias", False)),
             has_sinks=gpt_oss,
             layer_types=(tuple(get("layer_types")) if get("layer_types")
@@ -317,14 +370,51 @@ class ModelConfig:
             attn_logit_softcap=get("attn_logit_softcapping"),
             final_logit_softcap=get("final_logit_softcapping"),
             sliding_window_pattern=get("sliding_window_pattern") or 1,
-            rope_local_theta=get("rope_local_base_freq"))
+            rope_local_theta=get("rope_local_base_freq"),
+            # the dense zoo's keys (the JAX package's `extra`, read by its
+            # family constructors into the same fields)
+            partial_rotary_factor=get("partial_rotary_factor"),
+            use_bias=get("use_bias"),
+            mlp_bias=bool(get("mlp_bias", False)),
+            embedding_multiplier=get("embedding_multiplier"),
+            residual_multiplier=get("residual_multiplier"),
+            attention_multiplier=get("attention_multiplier"),
+            logits_scaling=get("logits_scaling"),
+            no_rope_layers=(tuple(get("no_rope_layers"))
+                            if get("no_rope_layers") else None))
+
+
+def _norm(cfg: ModelConfig, x: torch.Tensor, mod: "_Norm",
+          eps: float) -> torch.Tensor:
+    """JAX `_norm`: RMSNorm, or LayerNorm with its bias under
+    ``norm_type="layernorm"``."""
+    if cfg.norm_type == "layernorm":
+        return layer_norm(x, mod.weight, mod.bias, eps)
+    return rms_norm(x, mod.weight, eps)
+
+
+def _add_norm(cfg: ModelConfig, x: torch.Tensor,
+              residual: Optional[torch.Tensor], mod: "_Norm", eps: float
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """JAX `_add_norm`: the residual added in f32 and rounded, then the
+    norm; returns (normed, new residual)."""
+    x = _stream(x, residual)
+    return _norm(cfg, x, mod, eps), x
+
+
+def _scaled(x: torch.Tensor, m: Optional[float]) -> torch.Tensor:
+    """x times Granite's `residual_multiplier` in f32, rounded once."""
+    return x if m is None else (x.to(torch.float32) * m).to(x.dtype)
 
 
 class DecoderLayer(nn.Module):
-    """Pre-norm block: x + attn(norm(x)); x + mlp(norm(x)), with the residual
-    add fused into the next norm as in the JAX package.  The attention is
-    MLA when the config sets `kv_lora_rank`, GQA otherwise; the MLP is a
-    W4A16 MoE on MoE layers, a gated MLP elsewhere."""
+    """A decoder block with the residual add fused into the next norm, as in
+    the JAX package: pre-norm x + attn(norm(x)); x + mlp(norm(x)) (the
+    block outputs times `residual_multiplier` when set), with sandwich
+    norms under `post_norms`, or norms on the raw blocks' outputs under
+    `post_block_norms`.  The attention is MLA when the config sets
+    `kv_lora_rank`, GQA otherwise; the MLP is a W4A16 MoE on MoE layers, a
+    non-gated MLP under ``mlp_gated=False``, a gated MLP elsewhere."""
 
     def __init__(self, cfg: ModelConfig, layer_idx: int, device="cuda"):
         super().__init__()
@@ -350,7 +440,11 @@ class DecoderLayer(nn.Module):
                 logit_cap=cfg.attn_logit_softcap, attention_chunk=chunk,
                 scale=(cfg.query_pre_attn_scalar ** -0.5
                        if cfg.query_pre_attn_scalar else None),
-                has_qk_norm=cfg.qk_norm, rms_eps=cfg.rms_eps)
+                has_qk_norm=cfg.qk_norm, rms_eps=cfg.rms_eps,
+                qk_norm_flat=cfg.qk_norm_flat,
+                qk_norm_post_rope=cfg.qk_norm_post_rope,
+                nope=cfg.is_nope_layer(layer_idx),
+                interleaved=cfg.rope.interleaved)
         if self.is_moe:
             self.mlp = MoE(
                 cfg.hidden_size, cfg.moe_intermediate_size, cfg.num_experts,
@@ -364,46 +458,71 @@ class DecoderLayer(nn.Module):
                 topk_group=cfg.topk_group,
                 routed_scaling=cfg.routed_scaling_factor,
                 n_shared_experts=cfg.n_shared_experts)
+        elif not cfg.mlp_gated:
+            self.mlp = MLP(cfg.hidden_size, cfg.intermediate_size,
+                           cfg.activation, cfg.mlp_bias, quant=cfg.quant)
         else:
             self.mlp = GatedMLP(cfg.hidden_size, cfg.intermediate_size,
                                 cfg.activation, quant=cfg.quant)
-        self.input_norm = _RMSNormWeight(cfg.hidden_size)
-        self.post_attn_norm = _RMSNormWeight(cfg.hidden_size)
+        ln = cfg.norm_type == "layernorm"
+        H = cfg.hidden_size
+        if not cfg.post_block_norms:
+            self.input_norm = _Norm(H, ln)
+        self.post_attn_norm = _Norm(H, ln)
         if cfg.post_norms:
-            self.pre_ffw_norm = _RMSNormWeight(cfg.hidden_size)
-            self.post_ffw_norm = _RMSNormWeight(cfg.hidden_size)
+            self.pre_ffw_norm = _Norm(H, ln)
+        if cfg.post_norms or cfg.post_block_norms:
+            self.post_ffw_norm = _Norm(H, ln)
 
     def forward(self, x, residual, rope_tables, kv_cache,
                 meta: AttentionMetadata):
         """`rope_tables`: the global (cos, sin), or a pair (global, local)
         when the sliding layers have a RoPE of their own."""
-        eps = self.cfg.rms_eps
+        cfg = self.cfg
+        eps = cfg.rms_eps
         if isinstance(rope_tables[0], tuple):
             rope_tables = rope_tables[1 if self.sliding else 0]
         if self.sliding:
             # VSWA: attend through the layer's ring, when rings are on
             meta = meta.for_sliding_layer()
-        h, residual = add_rms_norm(x, residual, self.input_norm.weight, eps)
+        if cfg.post_block_norms:
+            # OLMo2 / EXAONE-4 (JAX `modeling_utils.py:683-701`): the blocks
+            # read the raw stream, x += norm(attn(x)); x += norm(mlp(x))
+            x = _stream(x, residual)
+            a = _norm(cfg, self.attn(x, rope_tables, kv_cache, meta),
+                      self.post_attn_norm, eps)
+            x = _stream(a, x)
+            return _norm(cfg, self._mlp(x, meta), self.post_ffw_norm,
+                         eps), x
+        h, residual = _add_norm(cfg, x, residual, self.input_norm, eps)
         h = self.attn(h, rope_tables, kv_cache, meta)
-        if self.cfg.post_norms:
-            # Gemma-2/3 sandwich norms (JAX `modeling_utils.py:702-712`):
-            # x += post_norm(attn(pre_norm(x))), the same around the MLP
-            h = rms_norm(h, self.post_attn_norm.weight, eps)
-            h2, residual = add_rms_norm(h, residual,
-                                        self.pre_ffw_norm.weight, eps)
-            out = self.mlp(h2, meta.lora_ids)
-            return rms_norm(out, self.post_ffw_norm.weight, eps), residual
-        h2, residual = add_rms_norm(h, residual, self.post_attn_norm.weight,
-                                    eps)
-        if self.is_moe:
-            return self.mlp(h2), residual
-        return self.mlp(h2, meta.lora_ids), residual
+        if cfg.post_norms:
+            # Gemma-2/3 and GLM-4 sandwich norms (JAX
+            # `modeling_utils.py:702-712`): x += post_norm(attn(pre_norm(x))),
+            # the same around the MLP
+            h = _norm(cfg, h, self.post_attn_norm, eps)
+            h2, residual = _add_norm(cfg, h, residual, self.pre_ffw_norm,
+                                     eps)
+            return _norm(cfg, self._mlp(h2, meta), self.post_ffw_norm,
+                         eps), residual
+        rm = cfg.residual_multiplier
+        h2, residual = _add_norm(cfg, _scaled(h, rm), residual,
+                                 self.post_attn_norm, eps)
+        return _scaled(self._mlp(h2, meta), rm), residual
+
+    def _mlp(self, x, meta: AttentionMetadata):
+        """The MLP, with the step's adapters unless it is a MoE."""
+        return self.mlp(x) if self.is_moe else self.mlp(x, meta.lora_ids)
 
 
-class _RMSNormWeight(nn.Module):
-    def __init__(self, n: int):
+class _Norm(nn.Module):
+    """A norm's f32 weight, and its bias under LayerNorm."""
+
+    def __init__(self, n: int, bias: bool = False):
         super().__init__()
         self.register_buffer("weight", torch.ones(n, dtype=torch.float32))
+        self.register_buffer("bias", torch.zeros(n, dtype=torch.float32)
+                             if bias else None)
 
 
 _MODEL_REGISTRY: Dict[str, type] = {}
@@ -417,17 +536,21 @@ def register_auto_model(*architectures):
     return deco
 
 
-def get_model_class(architecture: str) -> type:
+def registered_models() -> Dict[str, type]:
+    """Every HF architecture the port serves, with its model class."""
     # the architecture modules register themselves on import
-    import tensorrt_llm_tpu_torch.models.deepseek  # noqa: F401
-    import tensorrt_llm_tpu_torch.models.gemma  # noqa: F401
-    import tensorrt_llm_tpu_torch.models.gpt_oss  # noqa: F401
-    import tensorrt_llm_tpu_torch.models.llama  # noqa: F401
-    import tensorrt_llm_tpu_torch.models.mixtral  # noqa: F401
-    if architecture not in _MODEL_REGISTRY:
+    from tensorrt_llm_tpu_torch.models import (  # noqa: F401
+        apertus, deepseek, exaone4, gemma, glm, gpt_oss, granite, hunyuan,
+        llama, mixtral, nemotron, olmo2, phi, seed_oss, smollm3, starcoder2)
+    return _MODEL_REGISTRY
+
+
+def get_model_class(architecture: str) -> type:
+    known = registered_models()
+    if architecture not in known:
         raise KeyError(f"architecture {architecture!r} not in this slice; "
-                       f"known: {sorted(_MODEL_REGISTRY)}")
-    return _MODEL_REGISTRY[architecture]
+                       f"known: {sorted(known)}")
+    return known[architecture]
 
 
 class DecoderModelForCausalLM(nn.Module):
@@ -438,11 +561,24 @@ class DecoderModelForCausalLM(nn.Module):
     MOE_PROJ_NAMES = {"gate": "gate_proj", "up": "up_proj", "down": "down_proj"}
     MOE_SHARED_PREFIX = "mlp.shared_experts."
     MOE_BIAS_KEY = "mlp.gate.e_score_correction_bias"
+    # each layer norm's HF name (GLM-4 and Apertus override): the sandwich
+    # pair under `post_norms`, post_attn / post_ffw alone under
+    # `post_block_norms`
     NORM_KEYS = {"input_norm": "input_layernorm",
-                 "post_attn_norm": "post_attention_layernorm"}
-    # Gemma's sandwich norms (under `post_norms`) and per-head q/k norms
-    POST_NORM_KEYS = {"pre_ffw_norm": "pre_feedforward_layernorm",
-                      "post_ffw_norm": "post_feedforward_layernorm"}
+                 "post_attn_norm": "post_attention_layernorm",
+                 "pre_ffw_norm": "pre_feedforward_layernorm",
+                 "post_ffw_norm": "post_feedforward_layernorm"}
+    # the non-gated MLP's linears (Starcoder2: c_fc / c_proj)
+    MLP_UP_KEY = "mlp.up_proj"
+    MLP_DOWN_KEY = "mlp.down_proj"
+    # layernorm1p (Nemotron): its (1 + w) folded into the weights at load
+    NORM_WEIGHT_OFFSET = 0.0
+    # the HF `model_type` of a dense zoo family, and its HF class's
+    # `tie_word_embeddings` default (`llmapi.hf_checkpoint`: a
+    # `save_pretrained` config.json leaves that key out when it is true)
+    HF_MODEL_TYPE: Optional[str] = None
+    HF_TIE_DEFAULT = False
+    # the q/k norms (HunYuan overrides)
     Q_NORM_KEY = "self_attn.q_norm.weight"
     K_NORM_KEY = "self_attn.k_norm.weight"
 
@@ -453,7 +589,8 @@ class DecoderModelForCausalLM(nn.Module):
         self.embedding = Embedding(cfg.vocab_size, cfg.hidden_size)
         self.layers = nn.ModuleList(
             [DecoderLayer(cfg, i, self.device) for i in range(cfg.num_layers)])
-        self.final_norm = _RMSNormWeight(cfg.hidden_size)
+        self.final_norm = _Norm(cfg.hidden_size,
+                                cfg.norm_type == "layernorm")
         # the LM head stays bf16 (QuantConfig.exclude_modules); it holds no
         # weight under tie_word_embeddings
         self.lm_head = Linear(cfg.hidden_size, cfg.vocab_size, cfg.quant,
@@ -476,8 +613,9 @@ class DecoderModelForCausalLM(nn.Module):
         DeepSeek-V3 MoE layer's 256 experts are drawn 16 at a time).  Two
         devices give different floats for one seed: carry weights across
         with `state()` / `load_state`.  Scales follow the JAX package's
-        `init`; biases, norms and DeepSeek's score-correction bias are small
-        random values, sinks N(0, 0.5^2)."""
+        `init`; biases, q/k norms, xIELU's alphas and DeepSeek's
+        score-correction bias are small random values, sinks N(0, 0.5^2);
+        the layer norms keep ones (LayerNorm: zero biases)."""
         cfg, dev = self.cfg, self.device
         gen = torch.Generator(device=dev)
         gen.manual_seed(seed)
@@ -513,8 +651,10 @@ class DecoderModelForCausalLM(nn.Module):
                 q_b=normal((Hq,), b), k_b=normal((Hkv,), b),
                 v_b=normal((Hkv,), b), o_b=normal((H,), b),
                 sinks=normal((cfg.num_heads,), 0.5),
-                **(dict(q_norm=1.0 + normal((D,), 0.02),
-                        k_norm=1.0 + normal((D,), 0.02))
+                **(dict(q_norm=1.0 + normal((Hq if cfg.qk_norm_flat
+                                              else D,), 0.02),
+                        k_norm=1.0 + normal((Hkv if cfg.qk_norm_flat
+                                              else D,), 0.02))
                    if cfg.qk_norm else {}))
         if layer.is_moe:
             E, I = cfg.num_experts, cfg.moe_intermediate_size
@@ -534,6 +674,18 @@ class DecoderModelForCausalLM(nn.Module):
                 layer.mlp.shared.from_float(
                     normal((H, Is), std), normal((H, Is), std),
                     normal((Is, H), 0.5 / Is ** 0.5))
+        elif isinstance(layer.mlp, MLP):
+            I = cfg.intermediate_size
+            act = None
+            if layer.mlp.activation == "xielu":
+                act = {"alpha_p": math.log(math.expm1(0.8))
+                       + normal((1,), 0.05),
+                       "alpha_n": math.log(math.expm1(0.3))
+                       + normal((1,), 0.05)}
+            layer.mlp.from_float(normal((H, I), std),
+                                 normal((I, H), 0.5 / I ** 0.5),
+                                 up_b=normal((I,), b), down_b=normal((H,), b),
+                                 act=act)
         else:
             I = cfg.intermediate_size
             layer.mlp.from_float(normal((H, I), std), normal((H, I), std),
@@ -625,15 +777,25 @@ class DecoderModelForCausalLM(nn.Module):
 
         self.embedding.load(hf_tensor(get_tensor, "model.embed_tokens.weight",
                                       dev))
-        self.final_norm.weight = hf_tensor(get_tensor, "model.norm.weight",
-                                           dev)
+        def load_norm(mod, base):
+            """A norm's weight (plus `NORM_WEIGHT_OFFSET`) and, under
+            LayerNorm, its bias (zeros where the checkpoint has none)."""
+            mod.weight = (hf_tensor(get_tensor, base + ".weight", dev)
+                          + self.NORM_WEIGHT_OFFSET)
+            if cfg.norm_type == "layernorm":
+                b = vec(base + ".bias") if cfg.norm_bias else None
+                mod.bias = (b if b is not None
+                            else torch.zeros_like(mod.weight))
+
+        load_norm(self.final_norm, "model.norm")
+        names = (("post_attn_norm", "post_ffw_norm") if cfg.post_block_norms
+                 else ("input_norm", "post_attn_norm")
+                 + (("pre_ffw_norm", "post_ffw_norm") if cfg.post_norms
+                    else ()))
         for i, layer in enumerate(self.layers):
             pre = f"model.layers.{i}."
-            keys = dict(self.NORM_KEYS,
-                        **(self.POST_NORM_KEYS if cfg.post_norms else {}))
-            for norm, key in keys.items():
-                getattr(layer, norm).weight = hf_tensor(
-                    get_tensor, pre + key + ".weight", dev)
+            for norm in names:
+                load_norm(getattr(layer, norm), pre + self.NORM_KEYS[norm])
             self._load_attn(layer, pre, t, vec)
             self._load_mlp(layer, get_tensor, pre, t, vec)
         if not cfg.tie_word_embeddings:
@@ -661,10 +823,22 @@ class DecoderModelForCausalLM(nn.Module):
             k_norm=vec(pre + self.K_NORM_KEY) if cfg.qk_norm else None)
 
     def _load_mlp(self, layer, get_tensor, pre: str, t, vec) -> None:
-        """One layer's gated MLP, or MoE (router, experts read 16 at a time
-        and stacked [E, in, out], shared experts, DeepSeek's score
-        correction bias), from HF names."""
+        """One layer's gated or non-gated MLP (with xIELU's alphas from
+        ``mlp.act_fn.*``), or MoE (router, experts read 16 at a time and
+        stacked [E, in, out], shared experts, DeepSeek's score correction
+        bias), from HF names."""
         mlp = layer.mlp
+        if isinstance(mlp, MLP):
+            up, down = pre + self.MLP_UP_KEY, pre + self.MLP_DOWN_KEY
+            act = None
+            if mlp.activation == "xielu":
+                act = {a: vec(pre + "mlp.act_fn." + a)
+                       for a in ("alpha_p", "alpha_n")}
+            mlp.from_float(t(up + ".weight"), t(down + ".weight"),
+                           up_b=vec(up + ".bias") if mlp.has_bias else None,
+                           down_b=(vec(down + ".bias") if mlp.has_bias
+                                   else None), act=act)
+            return
         if not isinstance(mlp, MoE):
             mlp.from_float(t(pre + "mlp.gate_proj.weight"),
                            t(pre + "mlp.up_proj.weight"),
@@ -736,16 +910,16 @@ class DecoderModelForCausalLM(nn.Module):
                 hidden = _stream(x, residual)
             if logit_indices is not None:
                 hidden = hidden[logit_indices]
-        x, _ = add_rms_norm(x, residual, self.final_norm.weight,
-                            self.cfg.rms_eps)
+        x, _ = _add_norm(cfg, x, residual, self.final_norm, cfg.rms_eps)
         if logit_indices is not None:
             x = x[logit_indices]
         logits = self.logits(x)
         return (logits, hidden) if return_hidden else logits
 
     def logits(self, x: torch.Tensor) -> torch.Tensor:
-        """The LM head on final-norm rows: f32 logits [rows, V], soft-capped
-        under `final_logit_softcap` (Gemma-2)."""
+        """The LM head on final-norm rows: f32 logits [rows, V], divided by
+        `logits_scaling` (Granite), soft-capped under `final_logit_softcap`
+        (Gemma-2)."""
         if self.cfg.tie_word_embeddings:
             # the JAX package's jnp.dot(x, emb.T) with f32 output; cuBLAS's
             # bf16 product on the card (f32 accumulation, bf16 out, as the
@@ -753,6 +927,8 @@ class DecoderModelForCausalLM(nn.Module):
             logits = dot_f32(x, self.embedding.weight.t())
         else:
             logits = self.lm_head(x).to(torch.float32)
+        if self.cfg.logits_scaling:
+            logits = div_scalar(logits, self.cfg.logits_scaling)
         c = self.cfg.final_logit_softcap
         if c:
             logits = c * torch.tanh(logits / c)
@@ -802,7 +978,9 @@ def params_from_jax(tree: Any) -> Dict[str, torch.Tensor]:
     weights (int8, or e4m3 as ml_dtypes ``float8_e4m3fn``) keep their
     bytes and f32 scales.  A
     multi-LoRA ``lora`` subtree (``attn.lora.qkv = (A, B)``) becomes the
-    holder's stack buffers (``attn.lora_qkv_a``, ``attn.lora_qkv_b``)."""
+    holder's stack buffers (``attn.lora_qkv_a``, ``attn.lora_qkv_b``).
+    LayerNorm ``{"weight", "bias"}`` pairs keep their names; the xIELU
+    ``mlp.act`` pair becomes the MLP's ``alpha_p`` / ``alpha_n``."""
     out: Dict[str, torch.Tensor] = {}
 
     def tensor(a) -> torch.Tensor:
@@ -831,6 +1009,8 @@ def params_from_jax(tree: Any) -> Dict[str, torch.Tensor]:
             for i, v in enumerate(node):
                 walk(v, path + [str(i)])
         elif node is not None:
+            if len(path) > 1 and path[-2] == "act":
+                path = path[:-2] + path[-1:]
             name = ".".join(path)
             if path[-1] in _NORMS:
                 name += ".weight"

@@ -35,9 +35,11 @@ DECODE_MIN_SPLIT = 512
 # a table of at most this many tiles runs unsplit (at most four tiles a
 # warp cost less than the merge of splits)
 DECODE_ONE_SPLIT_TILES = 16
-# blocks an SM (the kernel's ~100 KB of shared memory: two) a plan fills
-# at the table's full width, in one wave
+# blocks an SM (the kernel's ~100 KB of shared memory: two) a wave holds
 _DECODE_BLOCKS_PER_SM = 2
+# a longer split (fewer splits to merge) is kept unless a shorter one is
+# modelled this much faster (fitted on the H100's phase-3 decode rows)
+_DECODE_LONGER_SPLIT_SLACK = 1.05
 
 
 DECODE_HEAD_DIMS = (64, 128, 256)
@@ -78,12 +80,15 @@ def decode_plan(B: int, Hkv: int, table_tokens: int,
     """(n_splits, split_len, grid_x) of a decode call.  kv_lens stay on the
     device, so the split is sized for a sequence at the table's full width:
     one split for a table of at most `DECODE_ONE_SPLIT_TILES` tiles, else
-    the shortest of `decode_split_choices` (at least `DECODE_MIN_SPLIT`)
-    whose B x Hkv x splits fit in one wave of `_DECODE_BLOCKS_PER_SM`
-    blocks an SM; with a window, at least min(table, 2 x window + 128)
-    tokens, so that a window mostly lies in one split (no merge).  Shorter
-    sequences' later splits exit at once; the grid runs `split_grid` splits
-    from each sequence's first live one.  `chip_smoke.py` times every
+    the longest of `decode_split_choices` (at least `DECODE_MIN_SPLIT`)
+    whose modelled time is within `_DECODE_LONGER_SPLIT_SLACK` of the
+    least: the tokens a block walks (the split, or the window if shorter)
+    times the waves its B x Hkv x `split_grid` blocks take at
+    `_DECODE_BLOCKS_PER_SM` blocks an SM, fractional, since a partial
+    wave overlaps the tail of the one before.  Shorter sequences' later
+    splits exit at once; the grid runs `split_grid` splits from each
+    sequence's first live one, so a window counts only the splits it can
+    touch (a window past the table: every split, as without one).  `chip_smoke.py` times every
     split length at its decode rows and fails if this pick is more than
     ``DECODE_PLAN_SLACK`` slower than the fastest.  Pure shape logic; the
     tests check it on the CPU."""
@@ -91,13 +96,14 @@ def decode_plan(B: int, Hkv: int, table_tokens: int,
     least = min(DECODE_MIN_SPLIT, choices[-1])
     if cdiv(table_tokens, DECODE_TILE) <= DECODE_ONE_SPLIT_TILES:
         least = choices[-1]
-    if window:
-        least = max(least, min(table_tokens, 2 * window + 128))
     pairs = max(B * Hkv, 1)
     slots = _DECODE_BLOCKS_PER_SM * n_sms
-    L = next((c for c in choices
-              if c >= least and pairs * cdiv(table_tokens, c) <= slots),
-             choices[-1])
+    cost = {c: min(c, window or c) * max(
+        1.0, pairs * split_grid(table_tokens, c, window) / slots)
+        for c in choices if c >= least}
+    fastest = min(cost.values())
+    L = max(c for c, t in cost.items()
+            if t <= fastest * _DECODE_LONGER_SPLIT_SLACK)
     return {"n_splits": max(1, cdiv(table_tokens, L)), "split_len": L,
             "grid_x": split_grid(table_tokens, L, window)}
 

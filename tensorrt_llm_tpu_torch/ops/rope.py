@@ -6,8 +6,11 @@ flag, DeepSeek's `mscale` / `mscale_all_dim` ratio) folds its attention
 factor into the cos and sin tables, as the JAX package and HF do.  The
 interleaved input layout (adjacent pairs, DeepSeek's MLA q_pe / k_pe) is
 de-interleaved before the rotation and stays de-interleaved, as HF's
-`apply_rotary_pos_emb_interleave` leaves it.  mrope and partial rotary
-belong to later slices.
+`apply_rotary_pos_emb_interleave` leaves it; GLM's GQA heads rotate
+adjacent pairs too (`gqa_rope_interleave`), where the permutation is the
+same on q and k and leaves the scores as they are.  Partial rotary
+(`rotary_dim`, GLM and Nemotron) rotates the leading `rotary_dim` channels
+of a head and passes the tail through.  mrope belongs to a later slice.
 """
 
 from __future__ import annotations
@@ -39,10 +42,12 @@ class RopeConfig:
     truncate: bool = True
     # DeepSeek checkpoints store rope pairs interleaved (x0, y0, x1, y1, ...)
     interleaved: bool = False
+    # partial rotary: only the leading rotary_dim channels rotate
+    rotary_dim: Optional[int] = None
 
 
 def _base_inv_freq(cfg: RopeConfig) -> torch.Tensor:
-    dim = cfg.head_dim
+    dim = cfg.rotary_dim or cfg.head_dim
     return 1.0 / (cfg.theta ** (torch.arange(0, dim, 2, dtype=torch.float32)
                                 / dim))
 
@@ -69,7 +74,7 @@ def _yarn_mscale(scale: float, mscale: float = 1.0) -> float:
 def _yarn_inv_freq(cfg: RopeConfig) -> Tuple[torch.Tensor, float]:
     """NTK-by-parts inverse frequencies and the attention factor (YaRN,
     arXiv:2309.00071), as HF `_compute_yarn_parameters`."""
-    dim = cfg.head_dim
+    dim = cfg.rotary_dim or cfg.head_dim
     base, factor = cfg.theta, cfg.scaling_factor
     orig_max = cfg.original_max_position
     att = cfg.attention_factor
@@ -101,8 +106,8 @@ def _yarn_inv_freq(cfg: RopeConfig) -> Tuple[torch.Tensor, float]:
 
 
 def make_rope_tables(cfg: RopeConfig) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(cos, sin) tables of shape [max_position, head_dim // 2], f32, with
-    YaRN's attention factor folded in."""
+    """(cos, sin) tables of shape [max_position, rotary_dim // 2] (rotary_dim
+    defaults to head_dim), f32, with YaRN's attention factor folded in."""
     att = 1.0
     if cfg.scaling_type == "yarn":
         inv, att = _yarn_inv_freq(cfg)
@@ -123,19 +128,24 @@ def apply_rope(q: torch.Tensor, k: torch.Tensor, positions: torch.Tensor,
                interleaved: bool = False
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Rotate q [T, H, D] and k [T, Hkv, D] at `positions` [T], in f32.
-    `interleaved`: the pairs are adjacent (x0, y0, x1, y1, ...); they are
-    de-interleaved first and the output keeps the de-interleaved order."""
+    The tables' width sets the rotated channels (2 x width); channels past
+    them pass through.  `interleaved`: the rotated pairs are adjacent (x0,
+    y0, x1, y1, ...); they are de-interleaved first and the output keeps
+    the de-interleaved order."""
     half = cos_table.shape[-1]
+    rot = 2 * half
     cos = cos_table[positions][:, None, :]
     sin = sin_table[positions][:, None, :]
 
     def rotate(x):
+        xr, tail = x[..., :rot], x[..., rot:]
         if interleaved:
-            s = x.shape
-            x = x.reshape(*s[:-1], half, 2).transpose(-1, -2).reshape(s)
-        x1 = x[..., :half].to(torch.float32)
-        x2 = x[..., half:2 * half].to(torch.float32)
-        out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
-        return out.to(x.dtype)
+            s = xr.shape
+            xr = xr.reshape(*s[:-1], half, 2).transpose(-1, -2).reshape(s)
+        x1 = xr[..., :half].to(torch.float32)
+        x2 = xr[..., half:].to(torch.float32)
+        out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
+                        dim=-1).to(x.dtype)
+        return torch.cat([out, tail], dim=-1) if tail.shape[-1] else out
 
     return rotate(q), rotate(k)

@@ -136,6 +136,16 @@ def test_gemv_wrapper_refuses_instead_of_falling_back(K, G, bn, exc):
     (8, 4, 2000, None, (4, 512)),
     (4, 8, 672, 128, (1, 1024)),     # GPT-OSS window 128: unsplit
     (2, 8, 320, 96, (1, 512)),       # a window past the table: one split
+    # long tables: a window past the table splits as none does (Qwen2.5's
+    # 131,072); a window of 4,096 counts the 9 splits it can touch, and
+    # over a wave's blocks (EXAONE-4's 4 x 8 pairs) still takes the
+    # shortest split; with enough (sequence, head) blocks it runs unsplit
+    (4, 4, 4096, 131072, (8, 512)),
+    (4, 4, 4096, None, (8, 512)),
+    (4, 4, 5024, 4096, (10, 512)),
+    (4, 8, 5008, 4096, (10, 512)),
+    (4, 32, 4000, None, (2, 2048)),  # Llama-2-7B's 4 x 32 pairs
+    (64, 8, 5024, 4096, (1, 8192)),
 ])
 def test_decode_plan(B, Hkv, tokens, window, want):
     plan = PA.decode_plan(B, Hkv, tokens, window)
