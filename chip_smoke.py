@@ -12,15 +12,16 @@ Phases (any failure exits nonzero; nothing is caught and ignored):
    fail on any in their sources), and the `-Xptxas -v` lines (registers,
    spills) of K2's and K4/K6's sources;
 3. hold each kernel against its plain PyTorch version on the card at
-   TinyLlama-1.1B, Llama-3-8B, GPT-OSS-20B, Mixtral-8x7B, Moonlight-16B-A3B
-   and DeepSeek-V3/V3.2 shapes, and time kernel, plain version and one
+   TinyLlama-1.1B, Llama-3-8B, GPT-OSS-20B, Mixtral-8x7B, Moonlight-16B-A3B,
+   DeepSeek-V3/V3.2, Qwen3-30B-A3B and MiniMax-M2 shapes, and time kernel, plain version and one
    library call; one JSON line per kernel and shape (the INT8-KV attention
    kernels on freshly quantized int8 pools, the W4A8 GEMM at Llama-3-8B's
    projections and on K-paired weights of N 80 and 2880, with
    `w4a8_plan`'s K slices within 10% of the fastest count timed; the
    grouped expert GEMM K5 on its device-built unit list, which must equal
-   the plain builder's, with `gmm_ntok`'s token tile within 10% of the
-   fastest tile timed under uniform and skewed routing; the MLA kernels
+   the plain builder's, called twice and held to the same bits, with
+   `gmm_ntok`'s token tile within 10% of the fastest tile timed under
+   uniform and skewed routing; the MLA kernels
    at 16 and 128 heads, the decode K9 called twice and held to the same
    bits, with `mla_decode_plan`'s split within 10% of the fastest split
    timed; the DSA scores K11 at V3.2's indexer (tables of 517 and the
@@ -182,8 +183,8 @@ Phases (any failure exits nonzero; nothing is caught and ignored):
    `ignore_eos` on the serve mix cut to 4 requests, each run against a
    plain `LLM` of the same weights (tokens equal, or first differing at a
    near-tie within `SPEC_TIE`, above the plain run's decode-vs-prefill
-   noise; `spec_stats` printed; rounds > 0): Llama-2-7B W4A16 at full
-   depth under NGRAM, the oracle chain (the plain run's next tokens; at
+   noise; `spec_stats` printed; rounds > 0): Llama-2-7B W4A16 at 16 of
+   its 32 layers under NGRAM, the oracle chain (the plain run's next tokens; at
    least 90% accepted, and its rounds reject a draft only at a request's
    first, near-tie, difference from the plain run), the oracle tree (that chain and a junk sibling:
    the pair-mask path), DRAFT_TARGET with a full-depth TinyLlama-1.1B
@@ -227,12 +228,26 @@ Phases (any failure exits nonzero; nothing is caught and ignored):
    layers, one of each layer kind, W4A16 g128: 2 greedy requests of 300
    and 40 tokens, 16 new, K3/K4 once per layer per chunk and step, tokens
    against `PlainKernels` on the same `LLM`, build seconds and tokens/s
-   (`zoo_phase`).
+   (`zoo_phase`);
+30. `qwen3_moe`: Qwen3-30B-A3B widths (128 experts of 768, top 8, 32/4
+   heads of 128) at `QWEN3_MOE_LAYERS` (8) layers, W4A16 g128, the serve
+   mix with exact launches (K5 16 x forwards on units built 8 x forwards,
+   K3 8 x chunks, K4 8 x steps), then the same `LLM` under `PlainKernels`
+   (K5's plain version too): equal tokens, or a first difference at a
+   near-tie (`qwen3_moe_phase`);
+31. `moe_zoo`: the other MoE families (Qwen1.5-MoE-A2.7B, GLM-4.5-Air,
+   dots.llm1, Hunyuan-A13B, MiniMax-M2, EXAONE-MoE on EXAONE-4.0-32B
+   attention and Qwen3-30B-A3B experts, Llama-4-Scout) at their widths
+   and 2 layers (Llama-4-Scout 4: three chunked layers on VSWA rings and
+   a NoPE global one, `MOE_ZOO_RING_SEQ`), W4A16 g128 (g64 for GLM-4.5-Air
+   and dots.llm1, whose dense 10,944 is no multiple of 128), as `zoo`: K5
+   twice per MoE layer and forward (`is_moe_layer`), K3/K4 on every layer
+   but the ring layers, tokens against `PlainKernels` (`moe_zoo_phase`).
 
 Depth cuts that keep the script in its time limit (widths unchanged): the
 bench presets (`BENCH_LAYERS`: all four at 4 layers, TinyLlama and
-GPT-OSS at 8 before the `spec` phase; Llama-2-7B runs at full depth in `spec`,
-TinyLlama in `serve`), Llama-3-8B at 8 layers in `sampling` and `openai`
+GPT-OSS at 8 before the `spec` phase; Llama-2-7B runs at 16 of 32 in
+`spec` (`SPEC_LLAMA2_LAYERS`), TinyLlama at full depth in `serve`), Llama-3-8B at 8 layers in `sampling` and `openai`
 (`SAMPLING_LAYERS`, `OPENAI_LAYERS`) and `beam_lora`
 (`BEAM_LORA_LAYERS`), GPT-OSS-20B at 12 in `gptoss`
 (`GPT_OSS_LAYERS`), Moonlight at 9 in `deepseek` (`MOONLIGHT_LAYERS`),
@@ -242,15 +257,16 @@ room for it; Moonlight at 27 brings the script to 985.2 s on an H100
 80GB HBM3 at 700 W when the host is slow), the W4A8 serve
 (`LLAMA3_W4A8_LAYERS` 8), the FP8 serve (`LLAMA3_FP8_LAYERS` 8) and the
 `checkpoint` phase's TinyLlama
-(`CKPT_TINYLLAMA_LAYERS` 4).  Each phase's wall seconds
+(`CKPT_TINYLLAMA_LAYERS` 4), Qwen3-30B-A3B at 8 of 48 in `qwen3_moe`
+(`QWEN3_MOE_LAYERS`).  Each phase's wall seconds
 are printed on one line (`phase seconds`) before the card's line and kept
 in the `--json` output (`PHASES["seconds"]`).
 
 Arguments pick phases (default: check serve serve_ramp serve_stream
 fused_mlp cross llama3 gptoss gptoss_cross llama3_w4a8 llama3_w4a8_cross
 llama3_fp8 tinyllama_fp8kv quant8_cross deepseek deepseek_v32
-deepseek_v3_width deepseek_cross gemma2 plain_route qwen2_5 zoo
-checkpoint sampling openai disagg spec beam_lora bench bench_cross);
+deepseek_v3_width deepseek_cross gemma2 plain_route qwen2_5 zoo qwen3_moe
+moe_zoo checkpoint sampling openai disagg spec beam_lora bench bench_cross);
 `check_moe` runs
 only K5's checks, `check_w4a8` only K8's, `check_int8` only K6-K8's,
 `check_fp8` only the FP8 ones (the cast, K3/K4's e4m3 instances, the
@@ -321,14 +337,17 @@ GEMM_SHAPES = {"tinyllama": [(2048, 2560), (2048, 2048), (2048, 11264),
                "llama-2-7b": [(4096, 12288), (4096, 22016), (11008, 4096)],
                # `qwen2_5`'s (QKV with its bias, in GEMM_BIAS)
                "qwen2.5-7b": [(3584, 4608), (3584, 3584), (3584, 37888),
-                              (18944, 3584)]}
+                              (18944, 3584)],
+               # `qwen3_moe`'s QKV and o (its FFNs are K5's)
+               "qwen3-30b-a3b": [(2048, 5120), (4096, 2048)]}
 GEMM_GROUP = {"gpt-oss-20b": 64}          # others: 128
 # 32: the bench's decode at batch 32; 2048: its warmup's prefill
 # (`max_num_tokens` 2048 of 128-token prompts)
 GEMM_M = (1, 4, 8, 16, 17, 32, 128, 200, 255, 256, 512, 2048)
-# the token counts `qwen2_5` serves: decode batches of 1 to 4, and prefill
-# chunks of up to its `max_num_tokens` 256
-GEMM_M_BY_MODEL = {"qwen2.5-7b": (1, 2, 4, 17, 64, 200, 256)}
+# the token counts `qwen2_5` and `qwen3_moe` serve: decode batches of 1 to
+# 4, and prefill chunks of up to their `max_num_tokens` 256
+GEMM_M_BY_MODEL = {"qwen2.5-7b": (1, 2, 4, 17, 64, 200, 256),
+                   "qwen3-30b-a3b": (1, 2, 4, 17, 64, 200, 256)}
 # (model, K, N) of the biased linears on a served path: also checked with
 # their bias at every token count
 GEMM_BIAS = {("qwen2.5-7b", 3584, 4608)}
@@ -357,11 +376,32 @@ MOE_SHAPES = {"gpt-oss-20b": [(2880, 5760, 32, 64), (2880, 2880, 32, 64)],
               "moonlight-16b-a3b": [(2048, 2816, 64, 128),
                                     (1408, 2048, 64, 128)],
               "deepseek-v3.2": [(7168, 4096, 256, 128),
-                                (2048, 7168, 256, 128)]}
+                                (2048, 7168, 256, 128)],
+              "qwen3-30b-a3b": [(2048, 1536, 128, 128),
+                                (768, 2048, 128, 128)],
+              # `moe_zoo`'s families (GLM-4.5-Air and dots.llm1 share
+              # their widths, at group 64)
+              "minimax-m2": [(3072, 3072, 256, 128), (1536, 3072, 256, 128)],
+              "qwen1.5-moe-a2.7b": [(2048, 2816, 60, 128),
+                                    (1408, 2048, 60, 128)],
+              "glm-4.5-air/dots.llm1": [(4096, 2816, 128, 64),
+                                        (1408, 4096, 128, 64)],
+              "hunyuan-a13b": [(4096, 6144, 64, 128), (3072, 4096, 64, 128)],
+              "exaone-moe-zoo": [(5120, 1536, 128, 128),
+                                 (768, 5120, 128, 128)],
+              "llama-4-scout": [(5120, 16384, 16, 128),
+                                (8192, 5120, 16, 128)]}
 MOE_M = (16, 32, 1024)                    # T x top-k rows
-# DeepSeek rows: 4 decode tokens and a 256-token chunk, x top-6 / top-8
+# DeepSeek and Qwen3-MoE rows: 4 decode tokens and a 256-token chunk, x
+# top-6 / top-8; MiniMax-M2 at decode of 4 requests and of `moe_zoo`'s 2
+# (x top-8); the other `moe_zoo` families at its decode of 2 requests x
+# their top-k (dots.llm1 6, GLM-4.5-Air 8)
 MOE_M_BY_MODEL = {"moonlight-16b-a3b": (24, 1536),
-                  "deepseek-v3.2": (32, 2048)}
+                  "deepseek-v3.2": (32, 2048),
+                  "qwen3-30b-a3b": (32, 2048), "minimax-m2": (16, 32),
+                  "qwen1.5-moe-a2.7b": (8,),
+                  "glm-4.5-air/dots.llm1": (12, 16), "hunyuan-a13b": (16,),
+                  "exaone-moe-zoo": (16,), "llama-4-scout": (2,)}
 MOE_M_ZEROS = (32, 1024)                  # zero-point experts (off the path)
 MOE_ZEROS_MODELS = ("gpt-oss-20b", "mixtral-8x7b")
 # `gmm_ntok` (a model of K5's time) must pick a token tile within this
@@ -397,6 +437,12 @@ PREFILL_CASES = [
     ("seed-oss-36b", 80, 8, 128, 256, 256, None, None, False),
     ("glm-4-9b", 32, 2, 128, 256, 256, None, None, False),
     ("glm-4-9b", 32, 2, 128, 44, 256, None, None, False),
+    # the MoE zoo's groups at D 128: Qwen3-30B-A3B's 8 (`qwen3_moe`'s
+    # chunks), GLM-4.5-Air's 12 (`moe_zoo`'s first chunk and its tail)
+    ("qwen3-30b-a3b", 32, 4, 128, 256, 256, None, None, False),
+    ("qwen3-30b-a3b", 32, 4, 128, 17, 300, None, None, False),
+    ("glm-4.5-air", 96, 8, 128, 256, 0, None, None, False),
+    ("glm-4.5-air", 96, 8, 128, 44, 256, None, None, False),
     # speculative decoding past a served prompt: verify chunks of k + 1
     # rows (NGRAM's ~2, EAGLE3's and DRAFT_TARGET's 4, the oracles' 5),
     # EAGLE3's one-row block passes, and the TinyLlama draft's passes of
@@ -448,6 +494,11 @@ DECODE_CASES = [
     ("glm-4-9b", 32, 2, 128, [81, 150, 400, 664], None, None, False),
     ("glm-4-9b", 32, 2, 128, [320, 400, 1000, 4000], None, None, False),
     ("exaone-4.0-32b", 40, 8, 128, [81, 150, 400, 5000], 4096, None, False),
+    # the MoE zoo's groups at D 128: Qwen3-30B-A3B's 8, MiniMax-M2's 6 and
+    # GLM-4.5-Air's 12
+    ("qwen3-30b-a3b", 32, 4, 128, [81, 150, 400, 664], None, None, False),
+    ("minimax-m2", 48, 8, 128, [41, 301], None, None, False),
+    ("glm-4.5-air", 96, 8, 128, [41, 301], None, None, False),
 ]
 DECODE_INT8_CASES = [c for c in DECODE_CASES if c[0] == "llama-3-8b"
                      and c[4] is not BENCH_DECODE_LENS] + [
@@ -1581,8 +1632,12 @@ def check_moe(gen, dev):
                 ntok = MW.gmm_ntok(M, E)
                 units = MW.gmm_work_units(gs, M)
                 out = MW.moe_gmm(x, pk, sc, units, z)
+                again = MW.moe_gmm(x, pk, sc, units, z)
                 ref = MW.w4a16_grouped_matmul_plain(x, pk, sc, gs, z)
                 torch.cuda.synchronize()
+                assert torch.equal(out, again), \
+                    f"K5 gave other bits on a second call ({model} K={K} " \
+                    f"N={N} M={M} {kind})"
                 assert torch.equal(units, MW.gmm_units_plain(gs, M, ntok)), \
                     f"K5 unit list differs from gmm_units_plain " \
                     f"({model} K={K} N={N} M={M} {kind})"
@@ -2734,38 +2789,88 @@ def fused_mlp_run(card):
     return counts
 
 
-# Teacher-forcing MoE routing at near-ties (`_RouteTies`), bounded by fixed
-# numbers: a flipped token is forced only if the CPU's margin is at most
-# ROUTE_TIE times the token's card-vs-CPU score difference and that
-# difference is at most ROUTE_NOISE_MAX (score units; the largest
-# difference of a forced token in this repo's H100 runs was 0.0064, GPT-OSS
-# router logits), and a check fails if it forces more than
-# ROUTE_MAX_FORCED tokens (the runs forced at most 4).
+# Teacher-forcing MoE routing at near-ties (`_RouteTies`), judged in router
+# logit units (before the softmax or sigmoid) for every router: a flipped
+# token is forced only if the reference's margin between its k-th expert and
+# the best expert it left out, as a logit shift, is at most ROUTE_TIE times
+# the token's largest logit difference between the two runs, and that
+# difference is at most ROUTE_NOISE_REL of the token's largest |logit|.  A
+# check fails if it forces more than ROUTE_MAX_FORCED tokens (the runs
+# forced at most 6).  On an H100 80GB HBM3 at 700 W every forced flip of the
+# crosses and of `moe_zoo` read at most 0.0119 of its token's logits, every
+# flip left alone (a request already past its first differing token) 0.10
+# or more: 0.02 is 1.7x the largest near-tie reading.
 ROUTE_TIE = 2.0
-ROUTE_NOISE_MAX = 0.01
+ROUTE_NOISE_REL = 0.02
 ROUTE_MAX_FORCED = 6
+
+
+def _router_logits(m, x):
+    """The MoE layer's router logits [T, E] in f32, with its router bias."""
+    lg = x.float() @ m.router.float()
+    if m.has_router_bias:
+        lg = lg + m.router_bias.float()[None, :]
+    return lg
+
+
+def _route_margin(m, lg, ids):
+    """How far, in logit units, the best expert a route left out must rise
+    to tie its weakest chosen expert, for one token's logits `lg` [E] and
+    chosen experts `ids` [k] (CPU tensors).  Softmax, a sigmoid without a
+    bias and the top-k-first routers order experts by their logits, so that
+    is a logit difference; a sigmoid with a score-correction bias selects
+    by sigmoid(l) + bias, inverted for the left-out expert.  With groups,
+    only experts of the groups the route took count as left out (a group
+    flip is never a near-tie here); inf when no expert can tie."""
+    import math
+    import torch
+    E = lg.shape[0]
+    out = torch.ones(E, dtype=torch.bool)
+    out[ids] = False
+    if m.n_group > 1:
+        grp = torch.arange(E) // (E // m.n_group)
+        out &= torch.isin(grp, grp[ids])
+    if not out.any():
+        return math.inf
+    biased = m.has_score_bias and not (m.topk_then_softmax
+                                       or m.topk_then_sigmoid)
+    if not biased:
+        return float(lg[ids].min() - lg[out].max())
+    if m.score_func != "sigmoid":
+        return math.inf
+    bias = m.score_bias.float().cpu()
+    choice = torch.sigmoid(lg) + bias
+    a = ids[choice[ids].argmin()]
+    b = torch.nonzero(out).flatten()[choice[out].argmax()]
+    t = float(choice[a] - bias[b])
+    if not 0.0 < t < 1.0:
+        return math.inf
+    return math.log(t / (1.0 - t)) - float(lg[b])
 
 
 class _RouteTies:
     """Teacher-forces MoE routing at near-ties, as the cross-check
     teacher-forces tokens.  Each forward runs on the CPU first, which
-    records every MoE call's selection scores and experts; the card's
-    forward then routes as it computes, except for a token whose top-k set
-    differs from the CPU's where the CPU's margin between its k-th and
-    (k+1)-th score is at most `ROUTE_TIE` times that token's largest
-    card-vs-CPU score difference, and that difference is at most
-    `ROUTE_NOISE_MAX`: such a token takes the CPU's experts and weights.
-    A flip at a wider margin or a larger difference is left alone, so the
-    logits show it.  Every flip is listed (`flips`, each marked forced or
-    not), and so is the largest score difference of any token
-    (`noise_max`).  With ``force=False`` nothing is forced: a witness run
-    that only lists the flips."""
+    records every MoE call's router logits and experts; the card's forward
+    then routes as it computes, except for a token whose top-k set differs
+    from the CPU's where the CPU's margin (`_route_margin`, logit units) is
+    at most `ROUTE_TIE` times that token's largest card-vs-CPU logit
+    difference, and that difference is at most `ROUTE_NOISE_REL` of the
+    token's largest |logit|: such a token takes the CPU's experts and
+    weights.  A flip at a wider margin or a larger difference is left
+    alone, so the logits show it.  Every flip is listed (`flips`, each
+    marked forced or not, with its margin and its difference, absolute and
+    relative), and so is the largest logit difference of any token
+    (`noise_max`).  With
+    ``force=False`` nothing is forced: a witness run that only lists the
+    flips.  `zoo_families` pairs a kernel run (recorded, in place of the
+    CPU's) with a `PlainKernels` run of the same requests (compared) in the
+    same way."""
 
     def __init__(self, force=True):
         self.force = force
 
     def __enter__(self):
-        import torch
         from tensorrt_llm_tpu_torch.layers import moe
         self.cls = moe.MoE
         self.orig = moe.MoE.route
@@ -2773,42 +2878,31 @@ class _RouteTies:
         self.flips, self.noise_max = [], 0.0
         tie = self
 
-        def scores(m, x):
-            lg = x.float() @ m.router.float()
-            if m.has_router_bias:
-                lg = lg + m.router_bias.float()[None, :]
-            if m.topk_then_softmax:
-                return lg
-            sc = (torch.softmax(lg, dim=-1) if m.score_func == "softmax"
-                  else torch.sigmoid(lg))
-            return sc + m.score_bias.float()[None, :] if m.has_score_bias \
-                else sc
-
         def route(m, x):
             ids, w = tie.orig(m, x)
-            sc = scores(m, x).cpu()
+            lg = _router_logits(m, x).cpu()
             if not tie.on_card:
-                tie.cpu.append((sc, ids, w))
+                tie.cpu.append((lg, ids.cpu(), w.cpu()))
                 return ids, w
-            c_sc, c_ids, c_w = tie.cpu[tie.i]
+            c_lg, c_ids, c_w = tie.cpu[tie.i]
             tie.i += 1
             tie.noise_max = max(tie.noise_max,
-                                float((sc - c_sc).abs().max()))
+                                float((lg - c_lg).abs().max()))
             ids_h, w_h = ids.cpu(), w.cpu()
             for t in range(ids_h.shape[0]):
                 if set(ids_h[t].tolist()) == set(c_ids[t].tolist()):
                     continue
-                srt = torch.sort(c_sc[t], descending=True).values
-                k = c_ids.shape[1]
-                gap = float(srt[k - 1] - srt[k])
-                noise = float((sc[t] - c_sc[t]).abs().max())
-                tie_ok = gap <= ROUTE_TIE * noise and noise <= ROUTE_NOISE_MAX
+                gap = _route_margin(m, c_lg[t], c_ids[t])
+                noise = float((lg[t] - c_lg[t]).abs().max())
+                scale = float(c_lg[t].abs().max())
+                rel = noise / scale if scale > 0 else float("inf")
+                tie_ok = gap <= ROUTE_TIE * noise and rel <= ROUTE_NOISE_REL
                 forced = tie.force and tie_ok
                 if forced:
                     ids_h[t], w_h[t] = c_ids[t], c_w[t].to(w_h.dtype)
                 tie.flips.append({"call": tie.i - 1, "token": t, "gap": gap,
-                                  "noise": noise, "near_tie": tie_ok,
-                                  "forced": forced})
+                                  "noise": noise, "noise_rel": rel,
+                                  "near_tie": tie_ok, "forced": forced})
             return ids_h.to(x.device), w_h.to(x.device)
 
         self.cls.route = route
@@ -2920,7 +3014,7 @@ def cross_check_cpu(phase, label, cfg, seed, n_prompt, chunk, n_decode,
            "greedy_compared": compared, "greedy_agree": agree,
            "routing_flips": ties.flips,
            "routing_ties_forced": len(ties.forced),
-           "router_score_noise_max": ties.noise_max}
+           "router_logit_noise_max": ties.noise_max}
     moe = next((layer.mlp for layer in gpu.layers if layer.is_moe), None)
     if moe is not None:
         # routing, sort, both K5 launches and the finalize read nothing
@@ -3718,8 +3812,8 @@ def checkpoint_phase(card, by_path):
 
 # ------------------------------------------------------- phase 18: bench --
 BENCH_PRESETS = ("tinyllama-1.1b", "llama-3-8b", "llama-2-7b", "gpt-oss-20b")
-# depth of the presets whose model is served at full depth by another
-# phase (`spec`: Llama-2-7B; `serve`: TinyLlama) or at its widths
+# depth of the presets whose model is served deeper by another phase
+# (`spec`: Llama-2-7B at 16 layers; `serve`: TinyLlama) or at its widths
 # (`sampling` and `openai`: Llama-3-8B; `gptoss`: GPT-OSS-20B): the bench
 # phase keeps their widths and the mix, and the script its time limit
 BENCH_LAYERS = {"llama-3-8b": 4, "llama-2-7b": 4, "tinyllama-1.1b": 4,
@@ -4074,15 +4168,15 @@ BENCH_CROSS = (("llama-3-8b", 8),)
 def bench_cross():
     """Phase 19: the `BENCH_CROSS` bench presets' widths (`MODEL_SHAPES`)
     at 2 layers, W4A16 g128, on the card against the CPU's plain versions
-    (`cross_check_cpu`: a 200-token prompt in chunks of 128, then 4 decode
-    steps)."""
+    (`cross_check_cpu`: a 200-token prompt in chunks of 128, then 2 decode
+    steps, `SHORT_CROSS`)."""
     from tensorrt_llm_tpu_torch.commands import bench
     for preset, seed in BENCH_CROSS:
         t0 = time.perf_counter()
         phase = f"bench_{preset}_cross_check"
         cross_check_cpu(phase, f"{preset} bench preset, 2 layers",
                         w4a16_cfg(bench.MODEL_SHAPES[preset], num_layers=2),
-                        seed=seed, n_prompt=200, chunk=128, n_decode=4)
+                        seed=seed, **SHORT_CROSS)
         PHASES[phase]["seconds"] = time.perf_counter() - t0
         log(f"[bench_cross] {preset}: {PHASES[phase]['seconds']:.1f} s")
 
@@ -5435,6 +5529,7 @@ SPEC_PATH_B = "spec_v3"       # MTP on DeepSeek-V3 width: K5, K9, K10, K12
 SPEC_NEW = 48                 # new tokens a request
 SPEC_NEW_RANDOM = 24          # ... under a random drafter (1 token a round)
 SPEC_V3_LAYERS = 4            # 3 dense + 1 MoE (first_k_dense_replace 3)
+SPEC_LLAMA2_LAYERS = 16       # of Llama-2-7B's 32 (the script's time limit)
 SPEC_ORACLE_MIN = 0.9         # accepted / proposed of the oracle chain
 
 
@@ -5613,22 +5708,23 @@ def _check_oracle_rounds(r, prompts, want, rounds):
 
 
 def _spec_llama2(card, by_path):
-    """Target A: Llama-2-7B W4A16 at full depth (random weights, seed 0),
-    the 4-request mix greedy with `ignore_eos`, plain and under NGRAM
-    (k 4), the oracle chain (the plain run's own next tokens, k 4), the
-    oracle tree (that chain plus a junk sibling at the root: the pair-mask
-    path), DRAFT_TARGET with a full-depth TinyLlama-1.1B W4A16 draft of
+    """Target A: Llama-2-7B W4A16 at `SPEC_LLAMA2_LAYERS` layers (random
+    weights, seed 0), the 4-request mix greedy with `ignore_eos`, plain
+    and under NGRAM (k 4), the oracle chain (the plain run's own next
+    tokens, k 4), the oracle tree (that chain plus a junk sibling at the
+    root: the pair-mask path), DRAFT_TARGET with a full-depth TinyLlama-1.1B W4A16 draft of
     the same 32,000 vocabulary (k 3), EAGLE3 (random block and fc, k 3)
     and MEDUSA (three seeded heads, a `medusa_choices` tree).  Every run
-    shares the plain `LLM`'s weights.  Launches: K3 = 32 x (prefill chunks
+    shares the plain `LLM`'s weights.  Launches: K3 = L x (prefill chunks
     + linear verify forwards) on the target (tree rounds add none), K4 =
-    32 x plain decode steps; the drafters' own launches (scope "draft"):
+    L x plain decode steps; the drafters' own launches (scope "draft"):
     TinyLlama's K3 = 22 x its passes, EAGLE3's block K3 once a pass."""
     import torch
     from tensorrt_llm_tpu_torch.commands import bench
     from tensorrt_llm_tpu_torch.speculative import (
         SpeculativeConfig as SC, SpeculativeMode as SM)
-    cfg = w4a16_cfg(bench.MODEL_SHAPES["llama-2-7b"])
+    cfg = w4a16_cfg(bench.MODEL_SHAPES["llama-2-7b"],
+                    num_layers=SPEC_LLAMA2_LAYERS)
     L = cfg.num_layers
     V = cfg.vocab_size
     prompts = _spec_prompts(V)
@@ -6237,13 +6333,17 @@ def gemma2_cfg(num_layers):
 class PlainKernels:
     """Within it, every kernel of a GQA W4A16 serve path runs its plain
     version on the card: the W4A16 linears (`w4a16_matmul_plain`, the
-    dequantized bf16 weight in an f32 product) and the attention kernels
-    (`paged_prefill_plain` / `paged_decode_plain`)."""
+    dequantized bf16 weight in an f32 product), the grouped expert GEMM
+    (`w4a16_grouped_matmul_plain`, which reads the group sizes; no unit
+    list is built) and the attention kernels (`paged_prefill_plain` /
+    `paged_decode_plain`)."""
 
     def __enter__(self):
         from tensorrt_llm_tpu_torch.attention_backend import cuda_backend
-        from tensorrt_llm_tpu_torch.layers import linear
+        from tensorrt_llm_tpu_torch.layers import linear, moe
         from tensorrt_llm_tpu_torch.ops import attention_plain as AP
+        from tensorrt_llm_tpu_torch.ops.moe_w4a16 import (
+            w4a16_grouped_matmul_plain)
         from tensorrt_llm_tpu_torch.ops.w4a16_gemm import w4a16_matmul_plain
 
         def w4(x, packed, scales, zeros=None, bias=None, activation=None,
@@ -6253,19 +6353,27 @@ class PlainKernels:
                                      bias, activation, out_dtype)
             return out.reshape(*lead, out.shape[-1])
 
-        self.mods = (linear, cuda_backend)
+        def gmm(xs, packed, scales, group_sizes, units, zeros=None):
+            return w4a16_grouped_matmul_plain(xs, packed, scales,
+                                              group_sizes, zeros)
+
+        self.mods = (linear, cuda_backend, moe)
         self.saved = (linear.w4a16_matmul,
                       cuda_backend.flash_prefill_attention,
-                      cuda_backend.paged_decode_attention)
+                      cuda_backend.paged_decode_attention,
+                      moe.w4a16_grouped_matmul, moe.gmm_work_units)
         linear.w4a16_matmul = w4
         cuda_backend.flash_prefill_attention = AP.paged_prefill_plain
         cuda_backend.paged_decode_attention = AP.paged_decode_plain
+        moe.w4a16_grouped_matmul = gmm
+        moe.gmm_work_units = lambda group_sizes, M, ntok=None: None
         return self
 
     def __exit__(self, *exc):
-        linear, cuda_backend = self.mods
+        linear, cuda_backend, moe = self.mods
         (linear.w4a16_matmul, cuda_backend.flash_prefill_attention,
-         cuda_backend.paged_decode_attention) = self.saved
+         cuda_backend.paged_decode_attention, moe.w4a16_grouped_matmul,
+         moe.gmm_work_units) = self.saved
         return False
 
 
@@ -6516,6 +6624,13 @@ ZOO_LAYERS = 2
 ZOO_PROMPTS = (300, 40)    # two prefill chunks of 256, and one
 ZOO_NEW = 16
 ZOO_TIE = 0.02
+# a MoE family's plain run may take the kernel run's experts (`_RouteTies`'
+# near-tie rule) on at most this share of its routed (token, MoE layer)
+# pairs: a whole generate routes ~370 tokens a layer, where a cross-check's
+# `ROUTE_MAX_FORCED` bounds a 200-token prompt.  On an H100 80GB HBM3 at
+# 700 W the seven families forced 0.27-3.76% (HunYuan-A13B and MiniMax-M2
+# 28 of 744, in two runs): 5% is 1.33x the largest reading
+ZOO_ROUTE_SHARE = 0.05
 # (name, preset in `models`, what the 2-layer cut keeps: one layer of each
 # kind)
 ZOO = (("qwen3-8b", "QWEN3_8B", {}),
@@ -6534,40 +6649,58 @@ ZOO = (("qwen3-8b", "QWEN3_8B", {}),
        ("hunyuan-7b", "HUNYUAN_7B", {}))
 
 
-def zoo_cfg(preset, over, num_layers=ZOO_LAYERS):
+def zoo_cfg(preset, over, num_layers=ZOO_LAYERS, group=128):
     """A family's published widths (the preset `models.<preset>`) at
-    `num_layers`, with the layer-kind lists cut to match, W4A16 g128."""
+    `num_layers`, with the layer-kind lists cut to match, W4A16 at
+    `group`."""
     from tensorrt_llm_tpu_torch import models
     from tensorrt_llm_tpu_torch.quantization import QuantAlgo, QuantConfig
     hf = dict(getattr(models, preset)["hf_config"],
               num_hidden_layers=num_layers, **over)
     return models.ModelConfig.from_hf_config(
-        hf, quant=QuantConfig(quant_algo=QuantAlgo.W4A16, group_size=128))
+        hf, quant=QuantConfig(quant_algo=QuantAlgo.W4A16, group_size=group))
 
 
 def zoo_phase(card, by_path):
     """Every dense family of the model zoo but Qwen2 (served in `qwen2_5`)
     at its published widths and `ZOO_LAYERS` layers (one of each layer
     kind: SmolLM3's NoPE layer, EXAONE-4's global NoPE layer beside a
-    sliding one), W4A16 g128, no warmup: 2 greedy requests of
-    `ZOO_PROMPTS` tokens, `ZOO_NEW` new each, through `LLM.generate`.  K1
-    and the attention kernels launch (K3 once per layer and chunk, K4 once
-    per layer and step); the same `LLM` with every kernel plain on the
-    card gives the same tokens, or differs first at a near-tie
-    (`ZOO_TIE`).  A width or group a kernel refuses raises
+    sliding one), W4A16 g128, no warmup (`zoo_families`)."""
+    zoo_families(card, by_path, ZOO_PATH,
+                 [(name, zoo_cfg(preset, over), {})
+                  for name, preset, over in ZOO],
+                 ("w4a16_gemm", "flash_prefill", "paged_decode"))
+
+
+def zoo_families(card, by_path, path, families, required):
+    """Each family `(name, cfg, LLM arguments)` at its widths, no warmup: 2
+    greedy requests of `ZOO_PROMPTS` tokens, `ZOO_NEW` new each, through
+    `LLM.generate`.  The kernels in `required` launch, the attention
+    kernels once per layer and chunk (K3) or step (K4) on every layer that
+    is not a VSWA ring layer, K5 twice per MoE layer (`is_moe_layer`) and
+    forward; the same `LLM` with every kernel plain on the card gives the
+    same tokens, or differs first at a near-tie (`ZOO_TIE`); on a MoE
+    model the plain run's routing is teacher-forced to the kernel run's at
+    routing near-ties (`_RouteTies`, the cross-checks' rule, on at most
+    `ZOO_ROUTE_SHARE` of the routed tokens: with random weights a top-k
+    margin below the two paths' score difference flips experts, which
+    moves the logits past `ZOO_TIE`).  A width or group a kernel refuses raises
     NotImplementedError and fails the phase."""
+    import contextlib
     import numpy as np
     import torch
     import tensorrt_llm_tpu_torch as T
     from tensorrt_llm_tpu_torch.ops import cuda_build
+    from tensorrt_llm_tpu_torch.runtime.model_engine import ring_plan
     total, rows = {}, []
-    for name, preset, over in ZOO:
-        cfg = zoo_cfg(preset, over)
+    for name, cfg, llm_kw in families:
         t0 = time.perf_counter()
-        llm = T.LLM(model=cfg, skip_tokenizer_init=True, device=DEVICE,
-                    max_batch_size=2, max_num_tokens=256, max_seq_len=512,
-                    kv_block_size=16, kv_num_blocks=96, seed=0,
-                    load_format="dummy", enable_warmup=False)
+        kw = dict(skip_tokenizer_init=True, device=DEVICE, max_batch_size=2,
+                  max_num_tokens=256, max_seq_len=512, kv_block_size=16,
+                  kv_num_blocks=96, seed=0, load_format="dummy",
+                  enable_warmup=False)
+        kw.update(llm_kw)
+        llm = T.LLM(model=cfg, **kw)
         torch.cuda.synchronize()
         build_s = time.perf_counter() - t0
         try:
@@ -6576,23 +6709,31 @@ def zoo_phase(card, by_path):
             prompts = [[int(t) for t in rng.integers(10, cfg.vocab_size - 10,
                                                      m)]
                        for m in ZOO_PROMPTS]
-            it0 = llm.executor.iteration
-            cuda_build.reset_launch_counts()
-            t0 = time.perf_counter()
-            outs = llm.generate(prompts, T.SamplingParams(
-                max_tokens=ZOO_NEW, temperature=0.0, ignore_eos=True))
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-            counts = dict(cuda_build.launch_counts)
-            stats = [s for s in llm.get_stats() if s["iteration"] > it0]
-            toks = [o.outputs[0].token_ids for o in outs]
-            assert all(len(t) == ZOO_NEW for t in toks), toks
-            rings = ring_layers(llm)
-            assert not rings, (name, rings)
-            chunks, dsteps, *_ = assert_launches(
-                cfg, counts, stats, ("w4a16_gemm", "flash_prefill",
-                                     "paged_decode"))
-            ptoks = _plain_tokens(llm, prompts, ZOO_NEW, f"{name}-plain")
+            with (_RouteTies() if cfg.num_experts
+                  else contextlib.nullcontext()) as routes:
+                if routes:
+                    routes.step(False)      # the kernel run is recorded
+                it0 = llm.executor.iteration
+                cuda_build.reset_launch_counts()
+                t0 = time.perf_counter()
+                outs = llm.generate(prompts, T.SamplingParams(
+                    max_tokens=ZOO_NEW, temperature=0.0, ignore_eos=True))
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                counts = dict(cuda_build.launch_counts)
+                stats = [s for s in llm.get_stats() if s["iteration"] > it0]
+                toks = [o.outputs[0].token_ids for o in outs]
+                assert all(len(t) == ZOO_NEW for t in toks), toks
+                rings = ring_layers(llm)
+                # rings exactly where the JAX engine makes them
+                plan = ring_plan(cfg, kw["kv_block_size"], kw["max_seq_len"])
+                assert list(rings) == (plan[2] if plan else []), (name,
+                                                                  rings)
+                chunks, dsteps, *_ = assert_launches(cfg, counts, stats,
+                                                     required, rings=rings)
+                if routes:
+                    routes.step(True)       # the plain run is compared
+                ptoks = _plain_tokens(llm, prompts, ZOO_NEW, f"{name}-plain")
             exact, ties = _near_ties(llm, prompts, ptoks, toks, tie=ZOO_TIE,
                                      salt=f"{name}-tie")
         finally:
@@ -6606,22 +6747,123 @@ def zoo_phase(card, by_path):
                "nope_layers": [i for i in range(L) if cfg.is_nope_layer(i)],
                "sliding_layers": [i for i in range(L)
                                   if cfg.is_sliding_layer(i)],
+               "ring_layers": list(rings),
+               "moe_layers": [i for i in range(L) if cfg.is_moe_layer(i)],
+               "experts": cfg.num_experts,
+               "top_k": cfg.num_experts_per_tok,
+               "expert_width": cfg.moe_intermediate_size,
                "build_s": build_s, "wall_s": wall,
                "tokens_per_s": len(prompts) * ZOO_NEW / wall,
                "prefill_chunks": chunks, "decode_steps": dsteps,
                "launches": counts, "exact_requests": exact,
                "near_ties": ties}
+        if routes:
+            row.update(route_flips=routes.flips,
+                       route_forced=len(routes.forced),
+                       route_routed=sum(c[0].shape[0] for c in routes.cpu),
+                       route_noise_max=routes.noise_max)
         rows.append(row)
-        log(f"[zoo] {json.dumps(row)}; {card}")
+        log(f"[{path}] {json.dumps(row)}; {card}")
         assert all(t["near_tie"] for t in ties), row
+        assert not routes or (len(routes.forced)
+                              <= ZOO_ROUTE_SHARE * row["route_routed"]), row
         for k, v in counts.items():
             total[k] = total.get(k, 0) + v
         del llm
         torch.cuda.empty_cache()
-    PHASES[ZOO_PATH] = {"phase": ZOO_PATH, "card": card, "families": rows,
-                        "launches": total}
-    by_path[ZOO_PATH] = total
+    PHASES[path] = {"phase": path, "card": card, "families": rows,
+                    "launches": total}
+    by_path[path] = total
     return total
+
+
+# ------------------------------------------------------------ qwen3_moe ---
+QWEN3_MOE_PATH = "serve_qwen3_moe"   # Qwen3-30B-A3B widths: K5 at E 128
+QWEN3_MOE_LAYERS = 8                 # of 48 (the script's time limit)
+
+
+def qwen3_moe_cfg(num_layers):
+    """Qwen3-30B-A3B's published widths (`models.QWEN3_30B_A3B`: 128
+    experts of 768, top 8, 32/4 heads of 128) at `num_layers`, W4A16
+    group 128."""
+    return zoo_cfg("QWEN3_30B_A3B", {}, num_layers)
+
+
+def qwen3_moe_phase(card, by_path):
+    """Qwen3-30B-A3B widths at `QWEN3_MOE_LAYERS` layers, W4A16 g128, the
+    serve mix through `LLM.generate` (`serve_model`: warmup and the tuner
+    first; K3 once per layer and chunk, K4 once per layer and step, K5
+    twice and its unit builder once per layer and forward); then the same
+    `LLM` with every kernel plain on the card (`PlainKernels`, K5 too):
+    equal tokens, or a first difference at a near-tie (`QWEN2_5_TIE`)."""
+    n = QWEN3_MOE_LAYERS
+    cfg = qwen3_moe_cfg(n)
+    assert all(cfg.is_moe_layer(i) for i in range(n))
+    plain = {}
+
+    def check(llm, prompts, outs):
+        toks = [o.outputs[0].token_ids for o in outs]
+        t0 = time.perf_counter()
+        ptoks = _plain_tokens(llm, prompts, 64, "qwen3_moe-plain")
+        plain["plain_wall_s"] = time.perf_counter() - t0
+        plain["exact_requests"], plain["near_ties"] = _near_ties(
+            llm, prompts, ptoks, toks, tie=QWEN2_5_TIE,
+            salt="qwen3_moe-tie")
+
+    counts = serve_model(card, QWEN3_MOE_PATH,
+                         f"qwen3-30b-a3b widths W4A16 g128 ({n} layers)",
+                         cfg, ("w4a16_gemm", "flash_prefill", "paged_decode",
+                               "moe_gmm", "moe_gmm_units"), check=check)
+    res = PHASES[QWEN3_MOE_PATH]
+    res.update(plain)
+    assert res["prefill_attention_per_chunk"] == n, res
+    assert res["decode_attention_per_step"] == n, res
+    assert res["moe_gmm_per_forward"] == 2 * n, res
+    log(json.dumps({"phase": QWEN3_MOE_PATH, "card": card, **plain}))
+    assert all(t["near_tie"] for t in plain["near_ties"]), plain
+    by_path[QWEN3_MOE_PATH] = counts
+    return counts
+
+
+# -------------------------------------------------------------- moe_zoo ---
+MOE_ZOO_PATH = "moe_zoo"
+MOE_ZOO_RING_SEQ = 8448    # past Llama4's 8,192-token chunk: ring pools
+# (name, preset in `models`, layers, what the cut keeps, W4A16 group).
+# GLM-4.5 and dots.llm1 keep their dense layer 0 beside a MoE layer, at
+# group 64: its 10,944-wide down projection is no multiple of 128 (the
+# JAX package's quantizer refuses it as the port's does); EXAONE-MoE a
+# sliding layer beside a global NoPE one; Llama4 three chunked ring
+# layers and its NoPE global layer 3 (its RoPE table cut from 10,485,760
+# positions to 16,384, the table only)
+MOE_ZOO = (("qwen1.5-moe-a2.7b", "QWEN1_5_MOE_A2_7B", 2, {}, 128),
+           ("glm-4.5-air", "GLM_4_5_AIR", 2, {}, 64),
+           ("dots.llm1", "DOTS_LLM1", 2, {}, 64),
+           ("hunyuan-a13b", "HUNYUAN_A13B", 2, {"moe_topk": [8, 8]}, 128),
+           ("minimax-m2", "MINIMAX_M2", 2, {}, 128),
+           ("exaone-moe (exaone-4.0-32b attention, qwen3-30b-a3b experts)",
+            "EXAONE_MOE_ZOO", 2,
+            {"layer_types": ["sliding_attention", "full_attention"]}, 128),
+           ("llama-4-scout", "LLAMA4_SCOUT", 4,
+            {"max_position_embeddings": 16384}, 128))
+
+
+def moe_zoo_phase(card, by_path):
+    """Every MoE family of the model zoo but Qwen3-MoE (served in
+    `qwen3_moe`), Mixtral, GPT-OSS and DeepSeek (their own phases) and
+    Mistral Large 3 (DeepSeek V3's widths, `deepseek_v3_width`) at its
+    published widths and the depths of `MOE_ZOO`, W4A16 at its group, no
+    warmup (`zoo_families`): K5 twice per MoE layer and forward, K3/K4 on
+    every layer but Llama4's three ring layers (`MOE_ZOO_RING_SEQ` makes
+    them)."""
+    families = []
+    for name, preset, layers, over, group in MOE_ZOO:
+        cfg = zoo_cfg(preset, over, layers, group)
+        kw = ({"max_seq_len": MOE_ZOO_RING_SEQ}
+              if cfg.attention_chunk_size else {})
+        families.append((name, cfg, kw))
+    zoo_families(card, by_path, MOE_ZOO_PATH, families,
+                 ("w4a16_gemm", "flash_prefill", "paged_decode", "moe_gmm",
+                  "moe_gmm_units"))
 
 
 SERVE_PATH = "serve"                    # TinyLlama W4A16: K1-K4, K13
@@ -6847,7 +7089,7 @@ def main() -> int:
                       "llama3_fp8", "tinyllama_fp8kv", "quant8_cross",
                       "deepseek", "deepseek_v32", "deepseek_v3_width",
                       "deepseek_cross", "gemma2", "plain_route",
-                      "qwen2_5", "zoo",
+                      "qwen2_5", "zoo", "qwen3_moe", "moe_zoo",
                       "checkpoint", "sampling", "openai",
                       "disagg", "spec", "beam_lora", "bench",
                       "bench_cross"]
@@ -6965,8 +7207,7 @@ def run_phases(phases, card, gen, dev, by_path):
     if on("gptoss_cross"):
         cross_check_cpu("gpt_oss_cross_check",
                         "gpt-oss-20b width, 2 layers (sliding, full)",
-                        gpt_oss_cfg(2), seed=4, n_prompt=200, chunk=128,
-                        n_decode=4)
+                        gpt_oss_cfg(2), seed=4, **SHORT_CROSS)
     if on("llama3_w4a8"):
         n = LLAMA3_W4A8_LAYERS
         by_path[LLAMA3_W4A8_PATH] = serve_model(
@@ -6980,8 +7221,7 @@ def run_phases(phases, card, gen, dev, by_path):
         cross_check_cpu("llama3_w4a8_cross_check",
                         "llama-3-8b width W4A8 + INT8 KV, 2 layers",
                         w4a8_cfg(LLAMA3_8B, num_layers=2), seed=5,
-                        n_prompt=200, chunk=128, n_decode=4,
-                        kv_cache_quant="INT8")
+                        kv_cache_quant="INT8", **SHORT_CROSS)
     # FP8 KV: the e4m3 instances of K3/K4, and no other attention kernel
     attn_other = ("flash_prefill", "paged_decode", "flash_prefill_int8",
                   "paged_decode_int8")
@@ -7043,6 +7283,10 @@ def run_phases(phases, card, gen, dev, by_path):
         qwen2_5_phase(card, by_path)
     if on("zoo"):
         zoo_phase(card, by_path)
+    if on("qwen3_moe"):
+        qwen3_moe_phase(card, by_path)
+    if on("moe_zoo"):
+        moe_zoo_phase(card, by_path)
     if on("checkpoint"):
         checkpoint_phase(card, by_path)
     if on("sampling"):

@@ -5,9 +5,13 @@ families: fused QKV projection (optionally biased), q/k RMSNorm
 (`has_qk_norm`: per head before RoPE, as Qwen3 and Gemma-3; with
 `qk_norm_flat` one RMS over the flattened heads x D projection, Olmo2,
 weights [H*D]; with `qk_norm_post_rope` per head after RoPE, HunYuan),
-RoPE (adjacent pairs under `interleaved`, GLM; partial when the tables are
-narrower than the head; none on a NoPE layer, `nope`), KV append and
-backend attention, output projection (optionally biased).
+RoPE (adjacent pairs under `interleaved`, GLM and Llama4; partial when the
+tables are narrower than the head; none on a NoPE layer, `nope`), Llama4's
+unweighted per-head q/k RMS after RoPE (`qk_norm_l2`, HF
+`Llama4TextL2Norm`, eps 1e-6) and its NoPE layers' query temperature
+(`attn_temperature_tuning`: q times log1p(floor((pos + 1) / floor_scale))
+* attn_scale + 1 at each token's position, in f32), KV append and backend
+attention, output projection (optionally biased).
 Attention sinks (a per-head logit in the softmax denominator), a per-layer
 sliding window, a logit cap (`logit_cap`, Gemma-2's
 `attn_logit_softcapping`) and chunked attention (`attention_chunk`) pass
@@ -50,7 +54,9 @@ class Attention(nn.Module):
                  scale: Optional[float] = None, has_qk_norm: bool = False,
                  rms_eps: float = 1e-6, qk_norm_flat: bool = False,
                  qk_norm_post_rope: bool = False, nope: bool = False,
-                 interleaved: bool = False):
+                 interleaved: bool = False, qk_norm_l2: bool = False,
+                 attn_temperature_tuning: bool = False,
+                 floor_scale: float = 8192.0, attn_scale: float = 0.1):
         super().__init__()
         self.num_heads = num_heads
         self.num_kv_heads = num_kv_heads
@@ -63,6 +69,10 @@ class Attention(nn.Module):
         self.qk_norm_post_rope = qk_norm_post_rope
         self.nope = nope
         self.interleaved = interleaved
+        self.qk_norm_l2 = qk_norm_l2
+        self.attn_temperature_tuning = attn_temperature_tuning
+        self.floor_scale = floor_scale
+        self.attn_scale = attn_scale
         self.rms_eps = rms_eps
         self.sliding_window = sliding_window
         qkv_out = (num_heads + 2 * num_kv_heads) * head_dim
@@ -119,9 +129,18 @@ class Attention(nn.Module):
         if not self.nope:
             q, k = apply_rope(q, k, meta.positions, *rope_tables,
                               interleaved=self.interleaved)
+        if self.qk_norm_l2:
+            ones = torch.ones(D, dtype=torch.float32, device=q.device)
+            q = rms_norm(q, ones, 1e-6)
+            k = rms_norm(k, ones, 1e-6)
         if self.has_qk_norm and self.qk_norm_post_rope:
             q = rms_norm(q, self.q_norm, eps)
             k = rms_norm(k, self.k_norm, eps)
+        if self.attn_temperature_tuning:
+            pos = meta.positions.to(torch.float32)
+            scale = (torch.log1p(torch.floor((pos + 1.0) / self.floor_scale))
+                     * self.attn_scale + 1.0)
+            q = (q.to(torch.float32) * scale[:, None, None]).to(q.dtype)
         k_cache, v_cache = kv_cache
         out = self.backend(q.contiguous(), k.contiguous(), v, k_cache,
                            v_cache, meta, sinks=self.sinks)

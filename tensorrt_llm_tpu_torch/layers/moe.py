@@ -10,9 +10,17 @@ DeepSeek V3's noaux_tc (sigmoid scores, a score-correction bias used for
 the selection only, group-limited top-k over the best groups by their top-2
 sums with the other groups zero-filled as HF does, weights from the raw
 scores renormalized and times `routed_scaling`), taken whenever the layer
-has a score bias or more than one group.  DeepSeek's shared experts are a
-W4A16 `GatedMLP` of width ``n_shared_experts * intermediate_size`` whose
-output is added to the routed sum in f32.
+has a score bias or more than one group -- with one group it is MiniMax-M2's
+and EXAONE-MoE's sigmoid + bias routing; and Llama4's top-k on the raw
+logits with sigmoid weights (`topk_then_sigmoid`, HF `Llama4Router`), whose
+weight scales the expert's input row (`apply_weight_on_input`: the scaled
+rows, rounded to bf16, go into K5's gate_up and the finalize weights are
+1).  The shared experts (DeepSeek, GLM-4.5, dots.llm1, HunYuan, Llama4) are
+a W4A16 `GatedMLP` of width ``n_shared_experts * intermediate_size``, or
+of its own width `shared_intermediate_size` (Qwen2-MoE's
+`shared_expert_intermediate_size`), whose output is added to the routed
+sum in f32; under `shared_gate` (Qwen2-MoE, HF `Qwen2MoeSparseMoeBlock`)
+it is first scaled by sigmoid(x . w_g), an f32 gate [H] per token.
 
 The rounding points are the JAX package's: the gate_up product is rounded
 to bf16, the expert bias is added in f32 and rounded to bf16, the
@@ -37,9 +45,8 @@ XLA and not in a Pallas kernel; they read the group sizes back to the
 host.
 
 Not in this slice: the capacity factor, redundant expert slots and load
-counters, and the Llama4 routing (the layer has no option for it;
-`ModelConfig.from_hf_config` raises on a config that sets it).  Expert and
-tensor parallelism have no option either: the layer runs on one device.
+counters.  Expert and tensor parallelism have no option either: the layer
+runs on one device.
 """
 
 from __future__ import annotations
@@ -57,7 +64,7 @@ from tensorrt_llm_tpu_torch.quantization import QuantConfig
 
 _LEAVES = ("router", "router_bias", "w_gate_up", "w_gate_up_s", "w_gate_up_z",
            "b_gate_up", "w_down", "w_down_s", "w_down_z", "b_down",
-           "score_bias")
+           "score_bias", "shared_gate")
 _EXPERT_CHUNK = 16   # experts quantized at a time (bounds f32 temporaries)
 
 
@@ -70,7 +77,11 @@ class MoE(nn.Module):
                  quant: Optional[QuantConfig] = None,
                  score_func: str = "softmax", has_score_bias: bool = False,
                  n_group: int = 1, topk_group: int = 1,
-                 routed_scaling: float = 1.0, n_shared_experts: int = 0):
+                 routed_scaling: float = 1.0, n_shared_experts: int = 0,
+                 topk_then_sigmoid: bool = False,
+                 apply_weight_on_input: bool = False,
+                 shared_intermediate_size: int = 0,
+                 shared_gate: bool = False):
         super().__init__()
         H, I = hidden_size, intermediate_size
         # int4 experts under the W4A16 family, bf16 experts otherwise, and
@@ -86,6 +97,8 @@ class MoE(nn.Module):
         self.renormalize = renormalize
         self.has_router_bias = has_router_bias
         self.topk_then_softmax = topk_then_softmax
+        self.topk_then_sigmoid = topk_then_sigmoid
+        self.apply_weight_on_input = apply_weight_on_input
         self.has_expert_bias = has_expert_bias
         if score_func not in ("softmax", "sigmoid"):
             raise ValueError(f"MoE: unknown score_func {score_func!r}")
@@ -97,8 +110,10 @@ class MoE(nn.Module):
         self.n_group = n_group
         self.topk_group = topk_group
         self.routed_scaling = routed_scaling
-        self.shared = (GatedMLP(H, n_shared_experts * I, activation,
-                                quant=quant) if n_shared_experts else None)
+        Is = shared_intermediate_size or n_shared_experts * I
+        self.shared = (GatedMLP(H, Is, activation, quant=quant)
+                       if n_shared_experts and Is else None)
+        self.has_shared_gate = shared_gate and self.shared is not None
         self.symmetric = not (quant is not None and quant.has_zero_point)
         gs = quant.group_size if quant is not None else 0
         # per-group scales where the group divides the width, else one
@@ -147,13 +162,17 @@ class MoE(nn.Module):
                              f"for {self.num_experts}")
 
     def from_float(self, router_w, gate_w, up_w, down_w, router_bias=None,
-                   gate_b=None, up_b=None, down_b=None, score_bias=None
-                   ) -> None:
+                   gate_b=None, up_b=None, down_b=None, score_bias=None,
+                   shared_gate=None) -> None:
         """router_w [H, E]; gate/up [E, H, I]; down [E, I, H] (full float;
         None when `load_experts` already installed the experts);
-        score_bias [E] (None: zeros).  Shared experts load through
+        score_bias [E] (None: zeros); shared_gate [H] (Qwen2-MoE's
+        ``shared_expert_gate``).  Shared experts load through
         `self.shared.from_float`."""
         self.router = router_w.to(torch.float32).contiguous()
+        if self.has_shared_gate:
+            self.shared_gate = shared_gate.reshape(-1).to(
+                torch.float32).contiguous()
         if gate_w is not None:
             self.load_experts([(gate_w, up_w, down_w)])
         E, H, I = self.num_experts, self.hidden_size, self.intermediate_size
@@ -175,14 +194,27 @@ class MoE(nn.Module):
                 torch.float32).contiguous()
             self.b_down = down_b.to(torch.float32).contiguous()
 
+    def load(self, leaves) -> None:
+        """Install buffers by leaf name (`load_state`).  A score-bias layer
+        whose state has no bias -- the JAX package keeps none for
+        MiniMax-M2 and EXAONE-MoE -- gets zeros, as `from_float` gives it."""
+        for leaf, t in leaves.items():
+            setattr(self, leaf, t)
+        if self.has_score_bias and self.score_bias is None:
+            self.score_bias = torch.zeros(self.num_experts,
+                                          device=self.router.device)
+
     # ---- routing --------------------------------------------------------
     def route(self, x: torch.Tensor):
         """(topk_ids [T, k] int64, topk_weights [T, k] f32)."""
         logits = x.to(torch.float32) @ self.router                 # [T, E]
         if self.has_router_bias:
             logits = logits + self.router_bias[None, :]
-        if self.topk_then_softmax:
+        if self.topk_then_softmax or self.topk_then_sigmoid:
             vals, ids = torch.topk(logits, self.top_k, dim=-1)
+            if self.topk_then_sigmoid:
+                # HF Llama4Router's sigmoid over the -inf-scattered logits
+                return ids, torch.sigmoid(vals)
             return ids, torch.softmax(vals, dim=-1)
         scores = (torch.softmax(logits, dim=-1) if self.score_func == "softmax"
                   else torch.sigmoid(logits))
@@ -234,6 +266,13 @@ class MoE(nn.Module):
         group_sizes.scatter_add_(0, flat_ids, torch.ones_like(
             flat_ids, dtype=torch.int32))
         xs = x[sorted_tok].to(torch.bfloat16)
+        if self.apply_weight_on_input:
+            # Llama4: the routing weight scales the expert's input row (not
+            # its output: the MLP is not linear), and the finalize weight
+            # becomes 1
+            xs = (xs.to(torch.float32) * sorted_w[:, None]).to(
+                torch.bfloat16)
+            sorted_w = torch.ones_like(sorted_w)
         if self.quant_experts:
             units = gmm_work_units(group_sizes, T * k)   # for both products
             h = w4a16_grouped_matmul(xs, self.w_gate_up, self.w_gate_up_s,
@@ -274,7 +313,11 @@ class MoE(nn.Module):
         for j in range(1, k):
             acc = acc + out[:, j]
         if self.shared is not None:
-            acc = acc + self.shared(x).to(torch.float32)
+            sh = self.shared(x).to(torch.float32)
+            if self.has_shared_gate:
+                sh = torch.sigmoid(x.to(torch.float32)
+                                   @ self.shared_gate)[:, None] * sh
+            acc = acc + sh
         return acc.to(x.dtype)
 
 

@@ -19,8 +19,8 @@ for a key the file leaves out, for the five families the port serves
 (`_HF_DEFAULTS`: the defaults of transformers' `LlamaConfig`,
 `MistralConfig`, `MixtralConfig`, `GptOssConfig` and `DeepseekV3Config`,
 plus the values they derive: kv heads, head_dim, GPT-OSS's `layer_types`;
-for the dense zoo's families only `tie_word_embeddings`, from the family
-class's `HF_TIE_DEFAULT`), so that `ModelConfig.from_hf_config` builds the
+for the zoo's families, dense and MoE, only `tie_word_embeddings`, from
+the family class's `HF_TIE_DEFAULT`), so that `ModelConfig.from_hf_config` builds the
 config the JAX package builds from the same file.
 """
 
@@ -151,8 +151,9 @@ _MODEL_TYPES = {"LlamaForCausalLM": "llama", "MistralForCausalLM": "mistral",
 
 
 def _zoo_types() -> Dict[str, type]:
-    """The dense zoo's families by architecture: each class names its HF
-    model type and whether its HF class ties the embeddings by default.
+    """The zoo's families (dense and MoE) by architecture: each class names
+    its HF model type and whether its HF class ties the embeddings by
+    default.
     `save_pretrained` writes every key but those equal to
     `PretrainedConfig`'s own defaults, so of the keys the port reads only
     `tie_word_embeddings` can be missing from such a file (when it is true,

@@ -15,7 +15,8 @@ from tensorrt_llm_tpu_torch.models.glm import (  # noqa: F401
     GLM4_9B_0414, GLM_4_9B_CHAT)
 from tensorrt_llm_tpu_torch.models.granite import (  # noqa: F401
     GRANITE_3_1_8B)
-from tensorrt_llm_tpu_torch.models.hunyuan import HUNYUAN_7B  # noqa: F401
+from tensorrt_llm_tpu_torch.models.hunyuan import (  # noqa: F401
+    HUNYUAN_7B, HUNYUAN_A13B)
 from tensorrt_llm_tpu_torch.models.nemotron import MINITRON_8B  # noqa: F401
 from tensorrt_llm_tpu_torch.models.olmo2 import OLMO2_7B  # noqa: F401
 from tensorrt_llm_tpu_torch.models.phi import PHI_4  # noqa: F401
@@ -23,3 +24,13 @@ from tensorrt_llm_tpu_torch.models.seed_oss import SEED_OSS_36B  # noqa: F401
 from tensorrt_llm_tpu_torch.models.smollm3 import SMOLLM3_3B  # noqa: F401
 from tensorrt_llm_tpu_torch.models.starcoder2 import (  # noqa: F401
     STARCODER2_7B)
+# the MoE zoo's published widths (EXAONE_MOE_ZOO is composed: its module
+# says how)
+from tensorrt_llm_tpu_torch.models.dots1 import DOTS_LLM1  # noqa: F401
+from tensorrt_llm_tpu_torch.models.exaone_moe import (  # noqa: F401
+    EXAONE_MOE_ZOO)
+from tensorrt_llm_tpu_torch.models.glm4_moe import GLM_4_5_AIR  # noqa: F401
+from tensorrt_llm_tpu_torch.models.llama4 import LLAMA4_SCOUT  # noqa: F401
+from tensorrt_llm_tpu_torch.models.minimax_m2 import MINIMAX_M2  # noqa: F401
+from tensorrt_llm_tpu_torch.models.mixtral import (  # noqa: F401
+    QWEN1_5_MOE_A2_7B, QWEN3_30B_A3B)

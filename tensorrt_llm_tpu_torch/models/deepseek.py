@@ -99,6 +99,11 @@ def deepseek_v32_config(num_layers: int = 61, **over) -> ModelConfig:
 
 @register_auto_model("DeepseekV3ForCausalLM")
 class DeepseekForCausalLM(DecoderModelForCausalLM):
+    # the JAX package routes a DeepSeek config by sigmoid noaux_tc whatever
+    # it says: the port refuses a config that says otherwise
+    HF_SCORING_FUNCS = ("sigmoid",)
+    HF_TOPK_METHODS = ("noaux_tc",)
+
     def _load_attn(self, layer, pre: str, t, vec) -> None:
         a = pre + "self_attn."
         kw = {}

@@ -1,7 +1,9 @@
 """Decoder-only causal LM for the Llama (Llama, Mistral, Qwen2, Qwen3,
 SmolLM3, Granite, Seed-OSS), Mixtral, GPT-OSS, Gemma (1-3 text), OLMo2,
 Starcoder2, Nemotron, GLM/GLM4, Phi3/Phi4, EXAONE-4, Apertus, HunYuan
-dense and DeepSeek V3 families.
+dense and DeepSeek V3 families, and the MoE families (Qwen3-MoE, Qwen2-MoE,
+GLM-4.5, dots.llm1, HunYuan-MoE, MiniMax-M2, EXAONE-MoE, Llama4 text,
+Mistral Large 3).
 
 Counterpart of `tensorrt_llm_tpu/models/modeling_utils.py`: `ModelConfig`
 (the fields those families use, with `from_hf_config`), `DecoderLayer` (GQA
@@ -9,8 +11,9 @@ attention -- per-head, flat or post-RoPE q/k norms, partial or
 adjacent-pair RoPE, none on NoPE layers -- or, when `kv_lora_rank` is set,
 Multi-head Latent Attention with an optional DSA indexer; a gated MLP, a
 non-gated one (`mlp_gated` False) or a W4A16 MoE, dense on
-`mlp_only_layers`; sliding-window layers by `layer_types`, by Gemma's
-`sliding_window_pattern` or by the window, chunked ones on the RoPE layers
+`mlp_only_layers` and off the `decoder_sparse_step` stride; sliding-window
+layers by `layer_types`, by Gemma's `sliding_window_pattern` or by the
+window, chunked ones on the RoPE layers
 under `attention_chunk_size`, with their own RoPE base under
 `rope_local_theta`; RMSNorm or LayerNorm with a bias (`norm_type`);
 pre-norm blocks, Gemma's and GLM-4's sandwich norms under `post_norms`, or
@@ -61,11 +64,6 @@ from tensorrt_llm_tpu_torch.quantization.hf_ingest import (
     maybe_load_quantized)
 from tensorrt_llm_tpu_torch.utils import div_scalar, resolve_device
 
-# HF keys of MoE features the port leaves out (Qwen-MoE's shared-expert
-# width, sparse layer strides), with their neutral value
-_CUT_HF_KEYS = {"shared_expert_intermediate_size": 0,
-                "decoder_sparse_step": 1, "moe_layer_freq": 1}
-
 
 @dataclass
 class ModelConfig:
@@ -112,6 +110,13 @@ class ModelConfig:
     # no_rope_layer_interval-th layer (0: none)
     no_rope_layer_interval: int = 0
     no_rope_layers: Optional[tuple] = None
+    # Llama4: unweighted per-head q/k RMS after RoPE on the RoPE layers, and
+    # the NoPE layers' query temperature log1p(floor((pos + 1) /
+    # floor_scale)) * attn_scale + 1
+    qk_norm_l2: bool = False
+    attn_temperature_tuning: bool = False
+    floor_scale: float = 8192.0
+    attn_scale: float = 0.1
     # RoPE over adjacent pairs on GQA heads (GLM), and over the leading
     # head_dim * partial_rotary_factor channels only (GLM, Nemotron)
     gqa_rope_interleave: bool = False
@@ -129,11 +134,14 @@ class ModelConfig:
     rope_local_theta: Optional[float] = None
     # Llama4 chunked attention: the keys of the query's chunk only
     attention_chunk_size: Optional[int] = None
-    # MoE (0 experts => dense MLP everywhere)
+    # MoE (0 experts => dense MLP everywhere); a MoE layer every
+    # decoder_sparse_step-th layer (Qwen-MoE, Llama4's
+    # interleave_moe_layer_step) past mlp_only_layers
     num_experts: int = 0
     num_experts_per_tok: int = 2
     moe_intermediate_size: Optional[int] = None
     norm_topk_prob: bool = True
+    decoder_sparse_step: int = 1
     # GPT-OSS MoE: biased router, topk-then-softmax, per-expert biases
     moe_router_bias: bool = False
     moe_topk_then_softmax: bool = False
@@ -147,6 +155,15 @@ class ModelConfig:
     routed_scaling_factor: float = 1.0
     n_shared_experts: int = 0
     mlp_only_layers: tuple = ()
+    # Qwen2-MoE: the shared expert's own width (the JAX package keeps it in
+    # `extra`), scaled by a sigmoid gate where the family's class sets
+    # `moe_shared_gate` (no HF key: None until a class sets it)
+    shared_expert_intermediate_size: Optional[int] = None
+    moe_shared_gate: Optional[bool] = None
+    # Llama4: top-k on the raw logits, sigmoid weights, the weight applied
+    # to the expert's input
+    moe_topk_then_sigmoid: bool = False
+    moe_apply_router_weight_on_input: bool = False
     # MLA (DeepSeek V2/V3): kv_lora_rank set => latent attention
     q_lora_rank: Optional[int] = None
     kv_lora_rank: Optional[int] = None
@@ -158,6 +175,9 @@ class ModelConfig:
     # {"algo": "dsa", "index_n_heads", "index_head_dim", "index_topk"}
     sparse_attention: Optional[dict] = None
     quant: Optional[QuantConfig] = None
+    # the HF keys of the family's `HF_EXTRA_KEYS` the config sets (the JAX
+    # package's `extra`), read by the family's class
+    extra: dict = dataclasses.field(default_factory=dict)
 
     def __post_init__(self):
         if self.head_dim is None:
@@ -166,7 +186,11 @@ class ModelConfig:
             self.moe_intermediate_size = self.intermediate_size
 
     def is_moe_layer(self, idx: int) -> bool:
-        return self.num_experts > 0 and idx not in self.mlp_only_layers
+        """JAX `is_moe_layer`: experts, not in `mlp_only_layers`, every
+        `decoder_sparse_step`-th layer.  HF DeepSeek's `moe_layer_freq` is
+        not read, as in the JAX package (1 in every published config)."""
+        return (self.num_experts > 0 and idx not in self.mlp_only_layers
+                and (idx + 1) % self.decoder_sparse_step == 0)
 
     def is_nope_layer(self, idx: int) -> bool:
         """JAX `is_nope_layer`: the layer skips RoPE.  An HF
@@ -267,7 +291,7 @@ class ModelConfig:
             beta_fast=s.get("beta_fast") or 32.0,
             beta_slow=s.get("beta_slow") or 1.0,
             mscale=s.get("mscale"), mscale_all_dim=s.get("mscale_all_dim"),
-            attention_factor=s.get("attention_factor"))
+            attention_factor=s.get("attention_factor"), alpha=s.get("alpha"))
 
     @classmethod
     def from_hf_config(cls, hf, quant: Optional[QuantConfig] = None
@@ -275,18 +299,24 @@ class ModelConfig:
         """Build from a transformers config (or plain dict) of an
         architecture a model class registers (DeepSeek V3: Moonlight, and
         V3.2 with its indexer), with the JAX package's field mapping; other
-        architectures, and the features in `_CUT_HF_KEYS`, raise.  Keys
-        are read as they stand: Qwen2's `config.json` keeps `sliding_window`
-        131,072 under `use_sliding_window` false, so every layer slides at
-        that window, as in the JAX package (a `transformers.Qwen2Config`
-        object drops it).  The family's activation, norms and MLP kind come
-        from its model class, as the JAX constructors set them.  A DeepSeek
-        config (one with `kv_lora_rank`) routes by sigmoid noaux_tc, as the
-        JAX package does, and says so if it sets `scoring_func` or
-        `topk_method`."""
+        architectures raise.  Llama4's multimodal config builds from its
+        `text_config`.  A `scoring_func` or `topk_method` the family's
+        class does not route by raises.  Keys are read as they stand:
+        Qwen2's `config.json` keeps `sliding_window` 131,072 under
+        `use_sliding_window` false, so every layer slides at that window,
+        as in the JAX package (a `transformers.Qwen2Config` object drops
+        it).  The family's activation, norms and MLP kind come from its
+        model class, as the JAX constructors set them.  A DeepSeek config
+        (one with `kv_lora_rank`) routes by sigmoid noaux_tc, as the JAX
+        package does."""
         get = ((lambda k, d=None: hf.get(k, d)) if isinstance(hf, dict)
                else (lambda k, d=None: getattr(hf, k, d)))
         archs = get("architectures")
+        if archs and archs[0] == "Llama4ForConditionalGeneration" \
+                and get("text_config") is not None:
+            cfg = cls.from_hf_config(get("text_config"), quant)
+            cfg.architecture = archs[0]
+            return cfg
         if archs:
             arch = archs[0]
         elif get("model_type"):
@@ -301,13 +331,13 @@ class ModelConfig:
                 f"from_hf_config: {arch} is not in this slice "
                 f"(known: {', '.join(sorted(known))})")
         deepseek = get("kv_lora_rank") is not None
-        cut = dict(_CUT_HF_KEYS,
-                   scoring_func="sigmoid" if deepseek else "softmax",
-                   topk_method="noaux_tc" if deepseek else None)
-        for key, neutral in cut.items():
-            if get(key) and get(key) != neutral:
+        family = known[arch]
+        for key, allowed in (("scoring_func", family.HF_SCORING_FUNCS),
+                             ("topk_method", family.HF_TOPK_METHODS)):
+            if get(key) and get(key) not in allowed:
                 raise NotImplementedError(
-                    f"from_hf_config: {key}={get(key)!r} is not in this slice")
+                    f"from_hf_config: {arch} with {key}={get(key)!r} is not "
+                    "in this slice")
         gpt_oss = arch == "GptOssForCausalLM"
         mlp_only = tuple(get("mlp_only_layers") or ())
         if get("first_k_dense_replace"):
@@ -342,6 +372,9 @@ class ModelConfig:
             num_experts_per_tok=get("num_experts_per_tok", 2),
             moe_intermediate_size=get("moe_intermediate_size"),
             norm_topk_prob=bool(get("norm_topk_prob", True)),
+            decoder_sparse_step=get("decoder_sparse_step") or 1,
+            shared_expert_intermediate_size=get(
+                "shared_expert_intermediate_size"),
             moe_router_bias=gpt_oss,
             moe_topk_then_softmax=gpt_oss,
             moe_expert_bias=gpt_oss,
@@ -381,7 +414,9 @@ class ModelConfig:
             attention_multiplier=get("attention_multiplier"),
             logits_scaling=get("logits_scaling"),
             no_rope_layers=(tuple(get("no_rope_layers"))
-                            if get("no_rope_layers") else None))
+                            if get("no_rope_layers") else None),
+            extra={k: get(k) for k in family.HF_EXTRA_KEYS
+                   if get(k) is not None})
 
 
 def _norm(cfg: ModelConfig, x: torch.Tensor, mod: "_Norm",
@@ -429,6 +464,7 @@ class DecoderLayer(nn.Module):
                 interleaved=cfg.rope.interleaved, quant=cfg.quant,
                 sparse=cfg.dsa)
         else:
+            nope = cfg.is_nope_layer(layer_idx)
             chunk = (cfg.attention_chunk_size
                      if cfg.attention_chunk_size and self.sliding else None)
             self.attn = Attention(
@@ -443,8 +479,10 @@ class DecoderLayer(nn.Module):
                 has_qk_norm=cfg.qk_norm, rms_eps=cfg.rms_eps,
                 qk_norm_flat=cfg.qk_norm_flat,
                 qk_norm_post_rope=cfg.qk_norm_post_rope,
-                nope=cfg.is_nope_layer(layer_idx),
-                interleaved=cfg.rope.interleaved)
+                nope=nope, interleaved=cfg.rope.interleaved,
+                qk_norm_l2=cfg.qk_norm_l2 and not nope,
+                attn_temperature_tuning=cfg.attn_temperature_tuning and nope,
+                floor_scale=cfg.floor_scale, attn_scale=cfg.attn_scale)
         if self.is_moe:
             self.mlp = MoE(
                 cfg.hidden_size, cfg.moe_intermediate_size, cfg.num_experts,
@@ -457,7 +495,12 @@ class DecoderLayer(nn.Module):
                 has_score_bias=cfg.moe_has_score_bias, n_group=cfg.n_group,
                 topk_group=cfg.topk_group,
                 routed_scaling=cfg.routed_scaling_factor,
-                n_shared_experts=cfg.n_shared_experts)
+                n_shared_experts=cfg.n_shared_experts,
+                topk_then_sigmoid=cfg.moe_topk_then_sigmoid,
+                apply_weight_on_input=cfg.moe_apply_router_weight_on_input,
+                shared_intermediate_size=(
+                    cfg.shared_expert_intermediate_size or 0),
+                shared_gate=bool(cfg.moe_shared_gate))
         elif not cfg.mlp_gated:
             self.mlp = MLP(cfg.hidden_size, cfg.intermediate_size,
                            cfg.activation, cfg.mlp_bias, quant=cfg.quant)
@@ -540,8 +583,9 @@ def registered_models() -> Dict[str, type]:
     """Every HF architecture the port serves, with its model class."""
     # the architecture modules register themselves on import
     from tensorrt_llm_tpu_torch.models import (  # noqa: F401
-        apertus, deepseek, exaone4, gemma, glm, gpt_oss, granite, hunyuan,
-        llama, mixtral, nemotron, olmo2, phi, seed_oss, smollm3, starcoder2)
+        apertus, deepseek, dots1, exaone4, exaone_moe, gemma, glm, glm4_moe,
+        gpt_oss, granite, hunyuan, llama, llama4, minimax_m2, mistral_large3,
+        mixtral, nemotron, olmo2, phi, seed_oss, smollm3, starcoder2)
     return _MODEL_REGISTRY
 
 
@@ -561,6 +605,16 @@ class DecoderModelForCausalLM(nn.Module):
     MOE_PROJ_NAMES = {"gate": "gate_proj", "up": "up_proj", "down": "down_proj"}
     MOE_SHARED_PREFIX = "mlp.shared_experts."
     MOE_BIAS_KEY = "mlp.gate.e_score_correction_bias"
+    # Qwen2-MoE's sigmoid gate of the shared expert, [1, H]
+    MOE_SHARED_GATE_KEY = "mlp.shared_expert_gate.weight"
+    # the HF `scoring_func` / `topk_method` values the family routes by
+    # (`from_hf_config` refuses others; DeepSeek and the sigmoid families
+    # override)
+    HF_SCORING_FUNCS: Tuple[str, ...] = ("softmax",)
+    HF_TOPK_METHODS: Tuple[str, ...] = ()
+    # HF keys that only this family's class reads, kept in `cfg.extra` by
+    # `from_hf_config`
+    HF_EXTRA_KEYS: Tuple[str, ...] = ()
     # each layer norm's HF name (GLM-4 and Apertus override): the sandwich
     # pair under `post_norms`, post_attn / post_ffw alone under
     # `post_block_norms`
@@ -573,7 +627,7 @@ class DecoderModelForCausalLM(nn.Module):
     MLP_DOWN_KEY = "mlp.down_proj"
     # layernorm1p (Nemotron): its (1 + w) folded into the weights at load
     NORM_WEIGHT_OFFSET = 0.0
-    # the HF `model_type` of a dense zoo family, and its HF class's
+    # the HF `model_type` of a zoo family (dense or MoE), and its HF class's
     # `tie_word_embeddings` default (`llmapi.hf_checkpoint`: a
     # `save_pretrained` config.json leaves that key out when it is true)
     HF_MODEL_TYPE: Optional[str] = None
@@ -668,9 +722,11 @@ class DecoderModelForCausalLM(nn.Module):
                 normal((H, E), std), None, None, None,
                 router_bias=normal((E,), b), gate_b=normal((E, I), b),
                 up_b=normal((E, I), b), down_b=normal((E, H), b),
-                score_bias=normal((E,), 0.05))
+                score_bias=normal((E,), 0.05),
+                shared_gate=(normal((H,), std) if layer.mlp.has_shared_gate
+                             else None))
             if layer.mlp.shared is not None:
-                Is = cfg.n_shared_experts * I
+                Is = layer.mlp.shared.intermediate_size
                 layer.mlp.shared.from_float(
                     normal((H, Is), std), normal((H, Is), std),
                     normal((Is, H), 0.5 / Is ** 0.5))
@@ -733,6 +789,8 @@ class DecoderModelForCausalLM(nn.Module):
                 m.load(leaves)
             elif isinstance(m, Embedding):
                 m.load(leaves["weight"])
+            elif isinstance(m, MoE):
+                m.load(leaves)
             else:
                 for leaf, t in leaves.items():
                     setattr(m, leaf, t)
@@ -825,8 +883,9 @@ class DecoderModelForCausalLM(nn.Module):
     def _load_mlp(self, layer, get_tensor, pre: str, t, vec) -> None:
         """One layer's gated or non-gated MLP (with xIELU's alphas from
         ``mlp.act_fn.*``), or MoE (router, experts read 16 at a time and
-        stacked [E, in, out], shared experts, DeepSeek's score correction
-        bias), from HF names."""
+        stacked [E, in, out], shared experts and Qwen2-MoE's gate of them,
+        the score correction bias), from HF names (the family's `MOE_*`
+        keys)."""
         mlp = layer.mlp
         if isinstance(mlp, MLP):
             up, down = pre + self.MLP_UP_KEY, pre + self.MLP_DOWN_KEY
@@ -857,15 +916,23 @@ class DecoderModelForCausalLM(nn.Module):
             tuple(stack(range(lo, min(lo + 16, E)), kind)
                   for kind in ("gate", "up", "down"))
             for lo in range(0, E, 16))
+        self._load_moe_rest(mlp, pre, t, vec, pre + self.MOE_ROUTER_KEY)
+
+    def _load_moe_rest(self, mlp: MoE, pre: str, t, vec,
+                       router_key: str) -> None:
+        """A MoE layer's shared experts, router, score bias and shared
+        gate, once its experts are in."""
         if mlp.shared is not None:
             sp = pre + self.MOE_SHARED_PREFIX
             mlp.shared.from_float(t(sp + "gate_proj.weight"),
                                   t(sp + "up_proj.weight"),
                                   t(sp + "down_proj.weight"))
         mlp.from_float(
-            t(pre + self.MOE_ROUTER_KEY), None, None, None,
+            t(router_key), None, None, None,
             score_bias=(vec(pre + self.MOE_BIAS_KEY)
-                        if mlp.has_score_bias else None))
+                        if mlp.has_score_bias else None),
+            shared_gate=(vec(pre + self.MOE_SHARED_GATE_KEY)
+                         if mlp.has_shared_gate else None))
 
     # ---- forward ------------------------------------------------------------
     def forward(self, input_ids: torch.Tensor,

@@ -42,17 +42,20 @@ import torch
 
 from tensorrt_llm_tpu_torch.ops import cuda_build
 from tensorrt_llm_tpu_torch.quantization.quantize import (
-    choose_block_n, dequantize_w4_any, pack_w4_tiled, quantize_w4)
+    _split_nibbles, choose_block_n, pack_w4_tiled, quantize_w4)
 from tensorrt_llm_tpu_torch.utils import cdiv
 
 GMM_NTOK = (8, 16, 32, 64, 128)   # K5's token tiles (wgmma N)
 _SMS = 132                        # H100 SXM streaming multiprocessors
 # `gmm_ntok`'s cost of one unit's 64-column tile over one 64-row stage, in
 # seconds of the card at each token tile, fitted to K5's times on the H100
-# at every tile and checked row (`chip_smoke.py` check_moe): the tiles up
-# to 32 tokens run three blocks an SM, 64 two, 128 one of 128 columns
-_GMM_COST = {8: 0.217e-6, 16: 0.2245e-6, 32: 0.2365e-6, 64: 0.258e-6,
-             128: 0.295e-6}
+# at every tile and checked row (`chip_smoke.py` check_moe, Qwen3-30B-A3B's
+# and MiniMax-M2's rows included): the tiles up to 32 tokens run three
+# blocks an SM, 64 two, 128 one of 128 columns, so the wider tiles hide
+# less of the weight stream (Qwen3-30B-A3B's 16 rows an expert at a
+# 256-token chunk run 1.15-1.21x slower at 64 than at 32)
+_GMM_COST = {8: 0.217e-6, 16: 0.2257e-6, 32: 0.2430e-6, 64: 0.2886e-6,
+             128: 0.3472e-6}
 
 
 def make_group_metadata(group_sizes: torch.Tensor, m_tiles: int, tm: int,
@@ -112,11 +115,24 @@ def quantize_experts_w4(w: torch.Tensor, group_size: int = 128,
 def dequantize_experts_w4(packed: torch.Tensor, scales: torch.Tensor,
                           zeros: Optional[torch.Tensor] = None
                           ) -> torch.Tensor:
-    """``[E, n_n, K//2, BN]`` -> ``[E, K, N]`` f32."""
-    return torch.stack([
-        dequantize_w4_any(packed[e], scales[e],
-                          None if zeros is None else zeros[e])
-        for e in range(packed.shape[0])])
+    """``[E, n_n, K//2, BN]`` -> ``[E, K, N]`` f32, every expert at once
+    (value for value `dequantize_w4_any` of each)."""
+    E, n_n, half, bn = packed.shape
+    lo, hi = _split_nibbles(packed.permute(0, 2, 1, 3).reshape(
+        E, half, n_n * bn))
+    K, N = 2 * half, n_n * bn
+    G = K // scales.shape[1]
+    q = torch.stack([lo, hi], dim=2).reshape(E, K // G, G, N).to(
+        torch.float32)
+    if zeros is not None:
+        q = q - zeros.to(torch.float32)[:, :, None, :]
+    return (q * scales.to(torch.float32)[:, :, None, :]).reshape(E, K, N)
+
+
+# f32 bytes of the experts the plain version dequantizes at a time (its
+# temporaries are a few times that: Llama-4-Scout's 16 gate_up experts at
+# once, 5.4 GB of f32, ran the card out of memory)
+_PLAIN_BYTES = 1 << 30
 
 
 def w4a16_grouped_matmul_plain(xs: torch.Tensor, packed: torch.Tensor,
@@ -124,24 +140,43 @@ def w4a16_grouped_matmul_plain(xs: torch.Tensor, packed: torch.Tensor,
                                group_sizes: torch.Tensor,
                                zeros: Optional[torch.Tensor] = None
                                ) -> torch.Tensor:
-    """Plain version: per expert, dequantize to bf16 and multiply its rows
-    with f32 accumulation; the result is rounded to bf16 (as `ragged_dot`
-    returns it) and returned as f32 ``[M, N]``.  Rows past the groups are
-    0.  Reads `group_sizes` on the host (this version is never on the
-    CUDA path)."""
-    M = xs.shape[0]
+    """Plain version: each expert's weight dequantized to bf16 and its rows
+    multiplied with f32 accumulation; the result is rounded to bf16 (as
+    `ragged_dot` returns it) and returned as f32 ``[M, N]``.  Rows past
+    the groups are 0.  The experts with rows go `_PLAIN_BYTES` of f32
+    weights at a time: their weights dequantized together, their rows
+    (padded with zero rows to the largest group) in one batched
+    product.  Reads
+    `group_sizes` on the host (this version is never on the CUDA
+    path)."""
+    M, K = xs.shape
     E, n_n, _, bn = packed.shape
-    out = torch.zeros((M, n_n * bn), dtype=torch.float32, device=xs.device)
-    x = xs.to(torch.bfloat16).to(torch.float32)
-    lo = 0
+    dev = xs.device
+    out = torch.zeros((M, n_n * bn), dtype=torch.float32, device=dev)
+    # a zero row at index M pads each expert's rows
+    x = torch.cat([xs.to(torch.bfloat16).to(torch.float32),
+                   torch.zeros((1, K), dtype=torch.float32, device=dev)])
+    groups, lo = [], 0
     for e, n in enumerate(group_sizes.tolist()):
         hi = min(lo + int(n), M)
         if hi > lo:
-            w = dequantize_w4_any(packed[e], scales[e],
-                                  None if zeros is None else zeros[e])
-            w = w.to(torch.bfloat16).to(torch.float32)
-            out[lo:hi] = (x[lo:hi] @ w).to(torch.bfloat16).to(torch.float32)
+            groups.append((e, lo, hi))
         lo = hi
+    per = max(1, _PLAIN_BYTES // (K * n_n * bn * 4))
+    for c in range(0, len(groups), per):
+        chunk = groups[c:c + per]
+        R = max(hi - lo for _, lo, hi in chunk)
+        rows = torch.full((len(chunk), R), M, dtype=torch.int64)
+        for j, (_, lo, hi) in enumerate(chunk):
+            rows[j, :hi - lo] = torch.arange(lo, hi)
+        rows = rows.to(dev)
+        ids = torch.tensor([e for e, _, _ in chunk], device=dev)
+        w = dequantize_experts_w4(
+            packed[ids], scales[ids], None if zeros is None else zeros[ids])
+        w = w.to(torch.bfloat16).to(torch.float32)
+        y = torch.bmm(x[rows], w).to(torch.bfloat16).to(torch.float32)
+        real = rows < M
+        out[rows[real]] = y[real]
     return out
 
 

@@ -1,7 +1,10 @@
 """Rotary position embeddings (NeoX rotate-half), plain PyTorch.
 
 Counterpart of `tensorrt_llm_tpu/ops/rope.py`: base frequencies with
-llama3 and YaRN scaling.  YaRN (NTK-by-parts ramp, with HF's `truncate`
+llama3 and YaRN scaling, and HunYuan's dynamic NTK by alpha (HF
+`HunYuanDenseV1RotaryEmbedding`: the base times alpha^(D / (D - 2)) over
+the head dim D, no attention factor; the JAX package's tables ignore that
+type and keep the plain base).  YaRN (NTK-by-parts ramp, with HF's `truncate`
 flag, DeepSeek's `mscale` / `mscale_all_dim` ratio) folds its attention
 factor into the cos and sin tables, as the JAX package and HF do.  The
 interleaved input layout (adjacent pairs, DeepSeek's MLA q_pe / k_pe) is
@@ -27,7 +30,7 @@ class RopeConfig:
     head_dim: int = 128
     theta: float = 10000.0
     max_position: int = 8192
-    scaling_type: Optional[str] = None  # None | 'llama3' | 'yarn'
+    scaling_type: Optional[str] = None  # None | 'llama3' | 'yarn' | 'dynamic'
     scaling_factor: float = 1.0
     # llama3
     low_freq_factor: float = 1.0
@@ -40,6 +43,8 @@ class RopeConfig:
     mscale_all_dim: Optional[float] = None
     attention_factor: Optional[float] = None
     truncate: bool = True
+    # dynamic NTK by alpha (HunYuan); plain dynamic NTK (no alpha) raises
+    alpha: Optional[float] = None
     # DeepSeek checkpoints store rope pairs interleaved (x0, y0, x1, y1, ...)
     interleaved: bool = False
     # partial rotary: only the leading rotary_dim channels rotate
@@ -48,8 +53,16 @@ class RopeConfig:
 
 def _base_inv_freq(cfg: RopeConfig) -> torch.Tensor:
     dim = cfg.rotary_dim or cfg.head_dim
-    return 1.0 / (cfg.theta ** (torch.arange(0, dim, 2, dtype=torch.float32)
-                                / dim))
+    base = cfg.theta
+    if cfg.scaling_type == "dynamic":
+        if not cfg.alpha:
+            raise NotImplementedError(
+                "dynamic NTK rope scaling without `alpha` is not in this "
+                "slice")
+        D = cfg.head_dim
+        base = cfg.theta * cfg.alpha ** (D / (D - 2))
+    return 1.0 / (base ** (torch.arange(0, dim, 2, dtype=torch.float32)
+                           / dim))
 
 
 def _llama3_scale(cfg: RopeConfig, inv_freq: torch.Tensor) -> torch.Tensor:
@@ -115,7 +128,7 @@ def make_rope_tables(cfg: RopeConfig) -> Tuple[torch.Tensor, torch.Tensor]:
         inv = _base_inv_freq(cfg)
         if cfg.scaling_type == "llama3":
             inv = _llama3_scale(cfg, inv)
-        elif cfg.scaling_type is not None:
+        elif cfg.scaling_type not in (None, "dynamic"):
             raise NotImplementedError(
                 f"rope scaling {cfg.scaling_type!r} is not in this slice")
     freqs = torch.outer(torch.arange(cfg.max_position, dtype=torch.float32),

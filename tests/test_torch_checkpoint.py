@@ -231,7 +231,8 @@ def test_chip_smoke_writer_reads_with_safetensors(tmp_path):
 def test_config_matches_autoconfig(family, tie, tmp_path):
     """A sparse config.json gives the port the JAX package's ModelConfig
     (read through AutoConfig, which fills in the family's defaults); a
-    field the JAX package keeps in its `extra` dict is held to that."""
+    field the JAX package keeps in its `extra` dict is held to that, and
+    the port's own `extra` to the JAX package's."""
     from transformers import AutoConfig
     hf = {k: v for k, v in FAMILIES[family].items()
           if k not in ("max_position_embeddings", "head_dim")}
@@ -240,7 +241,10 @@ def test_config_matches_autoconfig(family, tie, tmp_path):
     want = JCfg.from_hf_config(AutoConfig.from_pretrained(str(tmp_path)))
     got = ModelConfig.from_hf_config(read_hf_config(str(tmp_path)))
     for f in got.__dataclass_fields__:
-        if f != "quant":
+        if f == "extra":
+            # the port keeps the few `extra` keys its family classes read
+            assert got.extra.items() <= want.extra.items(), got.extra
+        elif f != "quant":
             w = (getattr(want, f) if hasattr(want, f)
                  else want.extra.get(f))
             w = tuple(w) if isinstance(w, list) else w

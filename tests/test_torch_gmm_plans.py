@@ -13,9 +13,10 @@ import torch
 from tensorrt_llm_tpu_torch.ops import moe_w4a16 as MW
 from tensorrt_llm_tpu_torch.ops import w4a16_gemm as W
 
-# (K, N, E, G) of the served expert products (GPT-OSS-20B, Moonlight-16B-A3B
-# and DeepSeek-V3.2 gate_up / down) and Mixtral-8x7B's, with the token
-# counts each runs: 4 decode requests x top-k, and a prefill chunk x top-k
+# (K, N, E, G) of the served expert products (GPT-OSS-20B, Moonlight-16B-A3B,
+# DeepSeek-V3.2 and Qwen3-30B-A3B gate_up / down, MiniMax-M2 gate_up) and
+# Mixtral-8x7B's, with the token counts each runs: 4 decode requests x
+# top-k, and a prefill chunk x top-k
 SERVED_MOE = [
     ((2880, 5760, 32, 64), (16, 32, 1024)),
     ((2880, 2880, 32, 64), (16, 32, 1024)),
@@ -25,6 +26,9 @@ SERVED_MOE = [
     ((2048, 7168, 256, 128), (32, 2048)),
     ((4096, 28672, 8, 128), (16, 32, 1024)),
     ((14336, 4096, 8, 128), (16, 32, 1024)),
+    ((2048, 1536, 128, 128), (32, 2048)),
+    ((768, 2048, 128, 128), (32, 2048)),
+    ((3072, 3072, 256, 128), (32, 2048)),
 ]
 
 
@@ -112,7 +116,7 @@ def test_gmm_ntok_depends_on_rows_and_experts_only(M, E):
 
 
 @pytest.mark.parametrize("M,E", [(16, 32), (32, 32), (24, 64), (32, 256),
-                                 (16, 8)])
+                                 (16, 8), (32, 128)])
 def test_gmm_ntok_decode_takes_a_small_tile(M, E):
     """At decode an expert gets 1-3 rows: a tile of 8 or 16 tokens (16
     where skewed routing gives an expert more than 8)."""
@@ -120,10 +124,11 @@ def test_gmm_ntok_decode_takes_a_small_tile(M, E):
 
 
 @pytest.mark.parametrize("M,E,want", [(1024, 32, 64), (1536, 64, 64),
-                                      (2048, 256, 32), (1024, 8, 128)])
+                                      (2048, 256, 32), (1024, 8, 128),
+                                      (2048, 128, 32)])
 def test_gmm_ntok_prefill_grows_with_rows_per_expert(M, E, want):
     """At a prefill chunk the tile follows the rows an expert gets (32 to
-    128 at GPT-OSS, Moonlight, V3.2 and Mixtral chunks)."""
+    128 at GPT-OSS, Moonlight, V3.2, Qwen3-30B-A3B and Mixtral chunks)."""
     assert MW.gmm_ntok(M, E) == want
 
 

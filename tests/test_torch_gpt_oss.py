@@ -102,7 +102,7 @@ def test_from_hf_config_fields():
               "sliding_window", "rope_scaling", "moe_expert_bias"):
         assert getattr(tcfg, f) == getattr(jcfg, f), f
     with pytest.raises(NotImplementedError):
-        ModelConfig.from_hf_config(dict(architectures=["Qwen3MoeForCausalLM"]))
+        ModelConfig.from_hf_config(dict(architectures=["DeciLMForCausalLM"]))
 
 
 def _configs(hf, group=64):

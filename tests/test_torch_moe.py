@@ -206,11 +206,14 @@ def test_moe_rejects_cut_features():
         mlp_only_layers=[0]))
     assert (cfg.n_shared_experts, cfg.n_group, cfg.mlp_only_layers,
             cfg.moe_score_func) == (1, 2, (0,), "softmax")
-    for cut in (dict(scoring_func="sigmoid"), dict(topk_method="noaux_tc"),
-                dict(decoder_sparse_step=2),
-                dict(shared_expert_intermediate_size=512)):
+    for cut in (dict(scoring_func="sigmoid"), dict(topk_method="noaux_tc")):
         with pytest.raises(NotImplementedError):
             ModelConfig.from_hf_config(dict(mixtral, **cut))
+    # the Qwen-MoE keys are read since the MoE zoo's slice
+    cfg = ModelConfig.from_hf_config(dict(
+        mixtral, decoder_sparse_step=2, shared_expert_intermediate_size=512))
+    assert (cfg.decoder_sparse_step, cfg.shared_expert_intermediate_size) \
+        == (2, 512)
     # unquantized experts are bf16, as in the JAX package (ragged_dot)
     assert not MoE(128, 128, 4, 2, quant=None).quant_experts
     # a CPU tensor never reaches the kernel wrapper
